@@ -1,0 +1,18 @@
+"""repro_torch — DAEF (Fast Deep Autoencoder for Federated learning) in PyTorch.
+
+The PyTorch/CUDA counterpart of the JAX package ``repro``.  Module names
+mirror ``repro`` one for one (``repro_torch.core.daef`` <-> ``repro.core.daef``)
+so every file has an obvious reference.  The port imports torch, numpy and the
+standard library only; it never imports jax or ``repro``.
+
+Entry points take ``device=``: ``None`` means the CUDA card and raises when
+none is present (see :mod:`repro_torch.device`); pass ``device="cpu"`` to run
+on the host, as the CPU tests do.
+
+What is ported so far is the one-tenant closed-form fit of the paper's
+Algorithm 1 (``method="gram"``) with scoring and classification; ROADMAP.md
+lists what waits.
+"""
+from repro_torch.device import DEFAULT_DTYPE, as_tensor, resolve_device
+
+__all__ = ["DEFAULT_DTYPE", "as_tensor", "resolve_device"]

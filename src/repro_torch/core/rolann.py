@@ -1,0 +1,193 @@
+"""ROLANN — Regularized One-Layer Neural Network (Fontenla-Romero et al. 2021).
+
+Counterpart of ``repro/core/rolann.py``, Gram form.  Closed-form training of
+a one-layer network ``y = f(W^T x + b)`` by minimizing the MSE measured
+*before* the activation; for each output neuron j
+
+    (G_j + lam I) w_j = M_j,   G_j = Xa F_j² Xaᵀ,   M_j = Xa (f'² ∘ d̄_j)
+
+with ``Xa`` the input augmented with a row of ones (bias).  ``G = U S² Uᵀ``
+links this to the paper's factor form, which :func:`stats_to_factors` gives
+for the eigh solve.
+
+Data matrices are ``[features, samples]``; targets ``[outputs, samples]``.
+
+Waiting for ROADMAP queue A item 4: ``init_stats``, ``accumulate_stats``,
+``compute_factors``, ``factors_to_stats``, the merges and ``mask_knowledge``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import activations, stats_backend
+
+
+class RolannFactors(NamedTuple):
+    """Factor-form knowledge (U, S, M); ``out`` axis absent when F is shared.
+
+      u: [out, m, r]   s: [out, r]   m: [out, m]
+    """
+
+    u: torch.Tensor
+    s: torch.Tensor
+    m: torch.Tensor
+
+    @property
+    def shared_f(self) -> bool:
+        return self.u.ndim == 2
+
+
+class RolannStats(NamedTuple):
+    """Gram-form incremental knowledge (G, M); ``G = U S^2 U^T``.
+
+      g: [out, m, m] (or [m, m] when F is shared)
+      m: [out, m]
+    """
+
+    g: torch.Tensor
+    m: torch.Tensor
+
+    @property
+    def shared_f(self) -> bool:
+        return self.g.ndim == 2
+
+
+def _augment(x: torch.Tensor) -> torch.Tensor:
+    """Append the bias row of ones: [m, n] -> [m+1, n]."""
+    return torch.cat([x, torch.ones((1, x.shape[1]), dtype=x.dtype, device=x.device)])
+
+
+def _targets(
+    d: torch.Tensor, act: activations.Activation
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Return (dbar, fprime) per output/sample for targets d [out, n]."""
+    d = act.clip_to_range(d)
+    dbar = act.inv(d)
+    fprime = act.deriv(dbar)
+    return dbar, fprime
+
+
+def compute_stats(
+    x: torch.Tensor, d: torch.Tensor, act: activations.Activation, *,
+    backend: str | None = None,
+) -> RolannStats:
+    """Gram-form statistics for inputs x [m, n] and targets d [out, n].
+
+    ``backend`` selects the per-output Gram producer (``stats_backend``).  A
+    linear activation shares one Gram across outputs: a single matmul.
+    """
+    act = activations.get(act.name, invertible_required=True)
+    xa = _augment(x)  # [m+1, n]
+    dbar, fp = _targets(d, act)
+    fsq = fp * fp
+    if act.name == "linear":
+        m_vec = torch.einsum("in,on->oi", xa, fsq * dbar)
+        return RolannStats(g=xa @ xa.T, m=m_vec)
+    g, m_vec = stats_backend.gram_stats(xa, fsq, fsq * dbar, backend=backend)
+    return RolannStats(g=g, m=m_vec)
+
+
+def stats_to_factors(stats: RolannStats) -> RolannFactors:
+    """Convert Gram form to factor form via eigh (G = U S^2 U^T), in the
+    SVD's descending order."""
+    evals, evecs = torch.linalg.eigh(stats.g)
+    evals = torch.clamp(evals, min=0.0)
+    u = torch.flip(evecs, dims=(-1,))
+    s = torch.sqrt(torch.flip(evals, dims=(-1,)))
+    return RolannFactors(u=u, s=s, m=stats.m)
+
+
+GRAM_SOLVERS = ("chol", "auto", "eigh")
+
+
+def _solve_factors(knowledge: RolannFactors, lam) -> torch.Tensor:
+    """Factor-form augmented weights: w_aug[:, j] = U (S^2+lam)^-1 U^T m_j."""
+    u, s, m = knowledge
+    if knowledge.shared_f:
+        proj = u.T @ m.T  # [r, out]
+        return u @ (proj / (s * s + lam)[:, None])  # [m, out]
+    proj = torch.einsum("oir,oi->or", u, m)
+    return torch.einsum("oir,or->oi", u, proj / (s * s + lam)).T  # [m, out]
+
+
+def _solve_stats_chol(stats: RolannStats, lam) -> torch.Tensor:
+    """Gram-form augmented weights by Cholesky: (G + lam I) w_j = m_j.
+
+    Where ``G + lam I`` is not positive definite the weights are NaN, as the
+    reference's ``jnp.linalg.cholesky`` makes them (``torch.linalg.cholesky``
+    would raise instead).
+    """
+    m_dim = stats.m.shape[-1]
+    eye = torch.eye(m_dim, dtype=stats.g.dtype, device=stats.g.device)
+    chol, info = torch.linalg.cholesky_ex(stats.g + lam * eye)
+    if stats.shared_f:
+        w = torch.cholesky_solve(stats.m.T, chol)  # [m, out]
+        return torch.where(info == 0, w, torch.nan)
+    w = torch.cholesky_solve(stats.m.unsqueeze(-1), chol).squeeze(-1)  # [out, m]
+    return torch.where((info == 0)[:, None], w, torch.nan).T  # [m, out]
+
+
+def solve(
+    knowledge: RolannStats | RolannFactors, lam: float, *, gram_solver: str = "chol"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Return (W [m_in, out], b [out]) from accumulated knowledge (Eq. 10).
+
+    ``gram_solver`` selects the route for Gram knowledge:
+
+    * ``"chol"`` (default) — direct Cholesky solve;
+    * ``"eigh"``           — eigh of G, then the factor solve;
+    * ``"auto"``           — Cholesky, redone by the eigh route when a
+                             factorization failed or the solution is not
+                             finite (one host sync to decide).
+
+    Factor-form knowledge always uses the factor solve.
+    """
+    if gram_solver not in GRAM_SOLVERS:
+        raise ValueError(
+            f"unknown gram_solver {gram_solver!r}: choose from {GRAM_SOLVERS}"
+        )
+    if isinstance(knowledge, RolannStats) and gram_solver != "eigh":
+        w_aug = _solve_stats_chol(knowledge, lam)
+        if gram_solver == "auto" and not bool(torch.isfinite(w_aug).all()):
+            w_aug = _solve_factors(stats_to_factors(knowledge), lam)
+        return w_aug[:-1, :], w_aug[-1, :]
+    if isinstance(knowledge, RolannStats):
+        knowledge = stats_to_factors(knowledge)
+    w_aug = _solve_factors(knowledge, lam)
+    return w_aug[:-1, :], w_aug[-1, :]
+
+
+def fit(
+    x: torch.Tensor,
+    d: torch.Tensor,
+    act: activations.Activation,
+    lam: float,
+    *,
+    method: str = "gram",
+    backend: str | None = None,
+    gram_solver: str = "chol",
+) -> tuple[torch.Tensor, torch.Tensor, RolannStats]:
+    """One-shot ROLANN fit.  Returns (W, b, knowledge).
+
+    method: "gram" (sufficient statistics summed, then solved).  The
+    paper-faithful "svd" method is not ported yet and raises.
+    """
+    if method == "svd":
+        raise NotImplementedError(
+            "rolann.fit(method='svd') is not ported yet (ROADMAP queue A "
+            "item 4); use method='gram'"
+        )
+    if method != "gram":
+        raise ValueError(f"unknown ROLANN method {method!r}")
+    knowledge = compute_stats(x, d, act, backend=backend)
+    w, b = solve(knowledge, lam, gram_solver=gram_solver)
+    return w, b, knowledge
+
+
+def predict(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: activations.Activation
+) -> torch.Tensor:
+    """Apply the trained one-layer network: f(W^T x + b)."""
+    return act.fn(w.T @ x + b[:, None])

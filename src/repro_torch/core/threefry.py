@@ -1,0 +1,145 @@
+"""The part of ``jax.random`` that the DAEF fit draws from, in torch integer ops.
+
+Every federated node derives its stage-1 ELM-AE weights from the shared seed
+(``daef.layer_keys_from_seed`` -> ``elm_ae.stage1``).  For a fit in this port
+to match the JAX reference -- and for a federation that mixes JAX and torch
+sites to agree on those weights -- the port must draw the same bits as
+``jax.random``.  This module reproduces, bit for bit, the default
+``threefry2x32`` generator of jax 0.9 with ``jax_threefry_partitionable``
+on: ``PRNGKey``, ``split``, ``random_bits`` (32-bit), ``uniform`` and
+``normal``.
+
+Keys are int64 tensors of shape ``[2]`` (or ``[..., 2]``) holding the two
+uint32 words of a JAX key; ``numpy.asarray(jax_key).astype(np.int64)`` gives
+the same values.  Everything runs on the host: the matrices drawn in a fit
+are at most a few hundred entries, so callers move the result to the card.
+
+Floating draws are float32, JAX's default.  A float64 request gets the
+float32 draw widened; JAX in 64-bit mode would draw 64-bit bits instead.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+_MASK = 0xFFFFFFFF
+_PARITY = 0x1BD11BDA
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_ONE_F32_BITS = 0x3F800000  # float32 1.0
+_NMANT_F32 = 23
+
+
+def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
+    return ((v << r) | (v >> (32 - r))) & _MASK
+
+
+def threefry2x32(
+    key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Threefry-2x32 (20 rounds) of the counter words ``(x0, x1)`` under
+    ``key``; all values are uint32 held in int64 tensors."""
+    k0, k1 = (int(v) for v in key.reshape(2).tolist())
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def _counters(shape: tuple[int, ...]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-major flat index of every element of ``shape`` as (hi, lo) words
+    (``jax._src.prng.iota_2x32_shape``)."""
+    count = torch.arange(math.prod(shape), dtype=torch.int64).reshape(shape)
+    return count >> 32, count & _MASK
+
+
+def PRNGKey(seed: int) -> torch.Tensor:  # noqa: N802 (jax.random's name)
+    """The raw key of an integer seed: its high and low 32-bit words."""
+    seed = int(seed)
+    return torch.tensor([(seed >> 32) & _MASK, seed & _MASK], dtype=torch.int64)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``num`` new keys ``[num, 2]``: key i is threefry of the counter (0, i)."""
+    hi, lo = _counters((num,))
+    b0, b1 = threefry2x32(key, hi, lo)
+    return torch.stack([b0, b1], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """32-bit random words of ``shape`` (``jax.random.bits`` for uint32)."""
+    shape = tuple(shape)
+    hi, lo = _counters(shape)
+    b0, b1 = threefry2x32(key, hi, lo)
+    return b0 ^ b1
+
+
+def uniform(
+    key: torch.Tensor,
+    shape: tuple[int, ...],
+    dtype: torch.dtype = torch.float32,
+    minval: float | torch.Tensor = 0.0,
+    maxval: float | torch.Tensor = 1.0,
+) -> torch.Tensor:
+    """U[minval, maxval) of ``shape``: the mantissa of 1.0 filled with the top
+    23 random bits, minus one, scaled and shifted in float32."""
+    bits = random_bits(key, shape)
+    float_bits = (bits >> (32 - _NMANT_F32)) | _ONE_F32_BITS
+    floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.as_tensor(minval, dtype=torch.float32)
+    hi = torch.as_tensor(maxval, dtype=torch.float32)
+    out = torch.maximum(lo, _fma(floats, hi - lo, lo))
+    return out.to(dtype)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as XLA's CPU backend fuses it:
+    the float64 product of two float32 values is exact."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+# Giles' single-precision erfinv coefficients, highest power first, for
+# w = -log1p(-x^2) below 5 and above it (XLA's ErfInv32).
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+               1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+               2.83297682)
+
+
+def _erfinv32(x: torch.Tensor) -> torch.Tensor:
+    """float32 erfinv by the polynomial ``jax.lax.erf_inv`` lowers to; with
+    the same fused multiply-adds it rounds like the reference for nearly
+    every input (``torch.erfinv`` differs in the last bits about half the
+    time)."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coeff(i: int) -> torch.Tensor:
+        lt = torch.tensor(_ERFINV_LT5[i], dtype=torch.float32)
+        ge = torch.tensor(_ERFINV_GE5[i], dtype=torch.float32)
+        return torch.where(small, lt, ge)
+
+    p = coeff(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma(p, w, coeff(i))
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, p * x)
+
+
+def normal(
+    key: torch.Tensor, shape: tuple[int, ...], dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """N(0, 1) of ``shape``: ``sqrt(2) * erfinv(u)``, u uniform on (-1, 1)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, torch.float32, lo, 1.0)
+    out = torch.tensor(math.sqrt(2), dtype=torch.float32) * _erfinv32(u)
+    return out.to(dtype)

@@ -1,0 +1,108 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel lives in ``kernels/<name>/csrc/<name>.cu`` and exports a plain C
+function.  At first use it is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library under ``build/repro_torch/`` at the root
+of the checkout, and loaded with ``ctypes``.  The library's file name carries
+a hash of the source and the flags, so an edited source is rebuilt and a
+stale library is never loaded.
+
+Nothing here runs at import: importing the port on a machine without
+``nvcc`` or a card never tries to build.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def source(name: str) -> Path:
+    return KERNELS_DIR / name / "csrc" / f"{name}.cu"
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(source(name).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, then ``PATH``, then
+    ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(home) / "bin" / "nvcc"] if home else []
+    found = shutil.which("nvcc")
+    candidates += [Path(found)] if found else []
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
+    """Start compiling ``name`` unless its library exists; returns the
+    target, the temporary output and the running compiler."""
+    target = library_path(name)
+    if target.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source(name))]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return target, tmp, proc
+
+
+def _finish(name: str, started: tuple[Path, Path, subprocess.Popen]) -> None:
+    target, tmp, proc = started
+    out, _ = proc.communicate()
+    target.with_suffix(".log").write_text(out)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n{out}")
+    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+
+
+def build(*names: str) -> dict[str, Path]:
+    """Compile every named kernel that is not built yet, all at once (one
+    ``nvcc`` each, started together), and return their library paths."""
+    started = {n: _start(n) for n in names}
+    try:
+        for n, s in started.items():
+            if s is not None:
+                _finish(n, s)
+    finally:
+        for s in started.values():
+            if s is not None and s[2].poll() is None:
+                s[2].kill()
+                s[2].wait()
+    return {n: library_path(n) for n in names}
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed for the current build (``ptxas -v`` lines)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``name``, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        path = build(name)[name]
+        lib = _LOADED[name] = ctypes.CDLL(str(path))
+    return lib

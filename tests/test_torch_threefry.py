@@ -1,0 +1,96 @@
+"""repro_torch.core.threefry / initializers / elm_ae.stage1 against jax.random.
+
+Keys and random bits must be bit-exact; floating draws are held to TOLS
+(in practice uniform draws are exact and normal draws differ in the last
+bit for about one value in a hundred, where XLA's log1p rounds otherwise).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import F32, assert_close
+
+from repro.core import daef as jdaef
+from repro.core import elm_ae as jelm
+from repro.core import initializers as jinit
+from repro_torch.core import daef as tdaef
+from repro_torch.core import elm_ae as telm
+from repro_torch.core import initializers as tinit
+from repro_torch.core import threefry
+
+SEEDS = [0, 1, 42, 123456, 2**31 - 1]
+SHAPES = [(3,), (4, 5), (28, 27), (2, 3, 4)]
+
+
+def _jkey(seed):
+    return np.asarray(jax.random.PRNGKey(seed)).astype(np.int64)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prngkey_and_split_are_bit_exact(seed):
+    key = threefry.PRNGKey(seed)
+    np.testing.assert_array_equal(key.numpy(), _jkey(seed))
+    for num in (1, 2, 5, 7):
+        want = np.asarray(jax.random.split(jax.random.PRNGKey(seed), num))
+        np.testing.assert_array_equal(threefry.split(key, num).numpy(),
+                                      want.astype(np.int64))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_random_bits_are_bit_exact(seed, shape):
+    want = jax.random.bits(jax.random.PRNGKey(seed), shape, jnp.uint32)
+    got = threefry.random_bits(threefry.PRNGKey(seed), shape)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_uniform_and_normal_draws(seed, shape):
+    jk, tk = jax.random.PRNGKey(seed), threefry.PRNGKey(seed)
+    u = threefry.uniform(tk, shape, torch.float32, -0.3, 0.7)
+    assert u.dtype == torch.float32 and tuple(u.shape) == shape
+    assert_close(u, jax.random.uniform(jk, shape, jnp.float32, -0.3, 0.7))
+    z = threefry.normal(tk, shape)
+    assert z.dtype == torch.float32
+    assert_close(z, jax.random.normal(jk, shape, jnp.float32))
+
+
+def test_split_keys_of_a_split_key_chain():
+    """Keys derived twice over (the fit's layer key, then stage-1's split)."""
+    keys = tdaef.layer_keys_from_seed(7, 6)
+    jkeys = jdaef.layer_keys_from_seed(7, 6)
+    np.testing.assert_array_equal(keys.numpy(), np.asarray(jkeys).astype(np.int64))
+    for tk, jk in zip(keys, jkeys):
+        np.testing.assert_array_equal(threefry.split(tk).numpy(),
+                                      np.asarray(jax.random.split(jk)).astype(np.int64))
+
+
+@pytest.mark.parametrize("name", ["xavier", "random", "orthogonal"])
+@pytest.mark.parametrize("shape", [(5, 3), (3, 5), (28, 27), (15, 18)])
+def test_initializers(name, shape):
+    jk = jax.random.PRNGKey(3)
+    got = tinit.get(name)(threefry.PRNGKey(3), shape)
+    want = jinit.get(name)(jk, shape)
+    assert tuple(got.shape) == shape and got.dtype == torch.float32
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("init", ["xavier", "random", "orthogonal"])
+@pytest.mark.parametrize("dims", [(15, 18), (24, 27), (4, 8)])
+def test_stage1_weights_match(init, dims):
+    """W_c1 and b_c1 of every stage-1 projection the creditcard fit draws."""
+    cfg_keys = jdaef.layer_keys_from_seed(0, 7)
+    tkeys = tdaef.layer_keys_from_seed(0, 7)
+    for li in range(2, 6):
+        jw, jb = jelm.stage1(cfg_keys[li], *dims, init)
+        tw, tb = telm.stage1(tkeys[li], *dims, init)
+        assert_close(tw, jw, what=f"W_c1 layer {li}", **F32)
+        assert_close(tb, jb, what=f"b_c1 layer {li}", **F32)
+
+
+def test_unknown_initializer_raises():
+    with pytest.raises(KeyError, match="unknown initializer"):
+        tinit.get("lecun")
