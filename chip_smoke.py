@@ -17,7 +17,12 @@ no result:
    ``max|d| <= 1e-4 * max|plain|`` (two float32 sums of ~256k terms in other
    orders), one bf16 ulp for bf16 outputs.  Times the kernel, the plain
    version and a one-call PyTorch yardstick with CUDA events (median of 25
-   after warm-up).
+   after warm-up).  The folding kernels (B2 ``rolann_stats_acc``, B3
+   ``rolann_fused_chunk``) are checked the same way at the streaming path's
+   chunk shapes, with masks holding zeros, at n = 0 (no launch, accumulators
+   unchanged) and with bf16 and float64 accumulators; also that G stays
+   exactly symmetric, that a repeat is bit-identical and that the returned
+   accumulators are the tensors passed in.
 4. main path — the paper's Table 5 "creditcard" DAEF (29-15-18-21-24-27-29,
    lam 0.8/0.9, extreme-IQR rule) on the full-scale replica, fold 0:
    ``daef.fit(n_partitions=4)`` -> ``reconstruction_error`` -> ``threshold``
@@ -26,12 +31,24 @@ no result:
    every kernel of the path must have run (rolann_stats: 4 per fit).  The
    same fit on the plain einsum backend must give the same first-layer
    statistics (1e-4 * max|G|); the weights' drift is reported.
-5. reference — the same replica fitted on the host in float32 (the CPU path
+5. streaming path — the same configuration and data through
+   ``daef.fit_chunked`` and ``daef.fit_stream`` (a per-pass callable of
+   32,768-wide numpy slices) with ``chunk_samples = 32768``: 8 chunks per
+   pass, the last ragged and masked.  Launch counts per streamed fit:
+   rolann_fused_chunk 32 (4 hidden layers x 8 chunks), the others 0.  Every
+   layer's statistics must equal an einsum re-fold of the same chunks under
+   the fit's own solved weights (1e-4 * max of the leaf): B3 against its
+   plain version on identical inputs.  A fit with a logistic last layer on
+   the replica rescaled into [0, 1] runs B2 (8 launches) and is re-folded
+   the same way.
+6. reference — the same replica fitted on the host in float32 (the CPU path
    the parity tests hold to the JAX package) and in float64: the card's
-   fused fit must be no farther from the float64 fit than the plain float32
-   fits are (see phase_reference); every fit's F1 is printed.
-6. profile — one fused fit + score under ``torch.profiler``: device time by
-   kernel, and the device's busy share of the wall time.
+   fused fits, one-shot and streamed, must be no farther from the float64
+   fit than the plain float32 fits are (see phase_reference); every fit's
+   F1 is printed.
+7. profile — one fused fit + score, and one streamed fused fit, under
+   ``torch.profiler``: device time by kernel, and the device's busy share
+   of the wall time.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -57,6 +74,7 @@ CREDITCARD = dict(layer_sizes=(29, 15, 18, 21, 24, 27, 29), lam_hidden=0.8,
                   lam_last=0.9, method="gram", gram_solver="chol")
 RULE = "extreme_iqr"
 N_PARTITIONS = 4
+CHUNK_SAMPLES = 32_768
 
 
 class SmokeFailure(RuntimeError):
@@ -149,14 +167,42 @@ def _stats_inputs(m, o, n, dtype, seed):
     return xa.to(dtype).contiguous(), fsq.to(dtype).contiguous(), fd.to(dtype).contiguous()
 
 
-def _stats_bound(m, o, n):
-    """Least time for the work: the upper triangle of G (o*n*m(m+1)/2 FMAs),
+def _bound(flops, nbytes):
+    """(ms, what bounds it): the larger of FP32 operations over the peak rate
+    and bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _stats_work(m, o, n):
+    """FLOPs and bytes of B1: the upper triangle of G (o*n*m(m+1)/2 FMAs),
     the fsq scaling (o*m*n) and M (o*m*n FMAs), against reading xa, fsq, fd
     once and writing G and M once, in float32."""
     flops = 2 * o * n * m * (m + 1) // 2 + o * m * n + 2 * o * m * n
     nbytes = 4 * (m * n + 2 * o * n + o * m * m + o * m)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return flops, nbytes
+
+
+def _stats_bound(m, o, n):
+    """Least time for B1's work."""
+    return _bound(*_stats_work(m, o, n))
+
+
+def _acc_bound(m, o, n):
+    """Least time for B2's work: B1's, plus reading the accumulators."""
+    flops, nbytes = _stats_work(m, o, n)
+    return _bound(flops, nbytes + 4 * (o * m * m + o * m))
+
+
+def _fused_bound(m_l, m_c1, n):
+    """Least time for B3's work: B1's (m = m_c1 + 1, o = m_l) plus one
+    stage-1 product per sample (2*m_l*m_c1*n), against reading h, the mask,
+    w and b once and reading and writing the accumulators once (fsq and fd
+    are formed on chip).  Transcendentals are not counted."""
+    m, o = m_c1 + 1, m_l
+    flops = _stats_work(m, o, n)[0] + 2 * m_l * m_c1 * n
+    nbytes = 4 * (m_l * n + n + m_l * m_c1 + m_c1 + 2 * (o * m * m + o * m))
+    return _bound(flops, nbytes)
 
 
 def phase_kernels(path_shapes, n_path):
@@ -211,6 +257,152 @@ def phase_kernels(path_shapes, n_path):
     return rows
 
 
+def _running(o, m, dtype, seed):
+    """A running accumulator as a fold leaves it: G exactly symmetric."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn((o, m, m), generator=gen, device="cuda") * 100.0
+    g = (a + a.transpose(1, 2)) / 2
+    mv = torch.randn((o, m), generator=gen, device="cuda") * 10.0
+    return g.to(dtype).contiguous(), mv.to(dtype).contiguous()
+
+
+def _fused_inputs(m_l, m_c1, n, act, mask_zeros, seed):
+    """B3 inputs shaped and scaled like a hidden layer's: h in the
+    activation's range, Xavier-scaled w, N(0, 1) b; with ``mask_zeros`` one
+    sample in ten and the last fifth of the chunk masked out."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.sigmoid(torch.randn((m_l, n), generator=gen, device="cuda") * 2.0)
+    if act == "tanh":
+        h = 2.0 * h - 1.0
+    w = torch.randn((m_l, m_c1), generator=gen, device="cuda") * (2.0 / (m_l + m_c1)) ** 0.5
+    b = torch.randn((m_c1,), generator=gen, device="cuda")
+    mask = torch.ones((n,), device="cuda")
+    if mask_zeros:
+        mask = (torch.rand((n,), generator=gen, device="cuda") >= 0.1).float()
+        mask[n - n // 5:] = 0.0
+    return h.contiguous(), w.contiguous(), b, mask
+
+
+def _check_fold(label, fold, plain, g0, m0):
+    """Run a folding wrapper and its plain version from the same running
+    accumulators; check identity, dtype, symmetry, agreement and
+    repeatability.  Returns max|d|."""
+    import torch
+
+    g, mv = g0.clone(), m0.clone()
+    out = fold(g, mv)
+    torch.cuda.synchronize()
+    check(out[0] is g and out[1] is mv, f"{label}: the accumulators passed in must be returned")
+    check(g.dtype == g0.dtype and mv.dtype == m0.dtype, f"{label}: dtype {g.dtype}")
+    check(bool(torch.isfinite(g).all() and torch.isfinite(mv).all()), f"{label}: not finite")
+    check(bool((g == g.transpose(1, 2)).all()), f"{label}: G not symmetric")
+    gp, mp = plain(g0.clone(), m0.clone())
+    err = max(float((g.double() - gp.double()).abs().max()),
+              float((mv.double() - mp.double()).abs().max()))
+    scale = max(float(gp.double().abs().max()), float(mp.double().abs().max()))
+    tol = 2.0**-7 if g0.dtype == torch.bfloat16 else 1e-4
+    check(err <= tol * scale, f"{label}: max|d| {err:.3e} > {tol:g} * {scale:.3e}")
+    g2, m2 = g0.clone(), m0.clone()
+    fold(g2, m2)
+    check(bool(torch.equal(g2, g) and torch.equal(m2, mv)), f"{label}: not deterministic")
+    say("kernel", f"{label} {str(g0.dtype)[6:]} acc: max|d| {err:.3e} (max|plain| {scale:.3e}, "
+        f"tol {tol:g}), symmetric, repeatable, in place, ok")
+    return err
+
+
+def _time_fold(fold, plain, library, g0, m0):
+    """(kernel, plain, library) ms of one call on scratch accumulators."""
+    g, mv = g0.clone(), m0.clone()
+    ms = cuda_ms(lambda: fold(g, mv))
+    plain_ms = cuda_ms(lambda: plain(g, mv))
+    library_ms = cuda_ms(library) if library is not None else None
+    return ms, plain_ms, library_ms
+
+
+def phase_fold_kernels(acc_shapes, fused_shapes, n_chunk):
+    """B2 and B3 against their plain versions on the card.  ``acc_shapes``
+    are the (m, o) of B2's launches on its path, ``fused_shapes`` the
+    (m_l, m_c1) of B3's; ``n_chunk`` the chunk width."""
+    import torch
+
+    from repro_torch.kernels.rolann_stats import (
+        rolann_fused_chunk,
+        rolann_fused_chunk_plain,
+        rolann_stats_acc,
+        rolann_stats_acc_plain,
+    )
+
+    rows = {"rolann_stats_acc": [], "rolann_fused_chunk": []}
+    f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
+    acc_cases = [(f"path m={m} o={o}", m, o, n_chunk, f32, False) for m, o in acc_shapes]
+    acc_cases += [
+        ("ragged masked m=28 o=29", 28, 29, 26_507, f32, True),
+        ("wide m=70 o=4", 70, 4, 20_001, f32, False),
+        ("bf16 m=28 o=29", 28, 29, n_chunk, bf16, False),
+        ("f64 m=19 o=15", 19, 15, n_chunk, f64, False),
+    ]
+    for i, (label, m, o, n, dtype, masked) in enumerate(acc_cases):
+        xa, fsq, fd = _stats_inputs(m, o, n, torch.float32, seed=100 + i)
+        if masked:  # a padded tail: fsq and fd already masked upstream
+            fsq[:, n - n // 5:] = 0.0
+            fd[:, n - n // 5:] = 0.0
+        g0, m0 = _running(o, m, dtype, seed=200 + i)
+        fold = lambda g, mv: rolann_stats_acc(g, mv, xa, fsq, fd)  # noqa: E731
+        plain = lambda g, mv: rolann_stats_acc_plain(g, mv, xa, fsq, fd)  # noqa: E731
+        err = _check_fold(f"rolann_stats_acc {label} n={n}", fold, plain, g0, m0)
+        if label.startswith("path"):
+            ms, plain_ms, library_ms = _time_fold(
+                fold, plain, lambda: torch.einsum("in,on,jn->oij", xa, fsq, xa), g0, m0)
+            rows["rolann_stats_acc"].append(dict(m=m, o=o, n=n, max_abs_err=err, ms=ms,
+                                                 plain_ms=plain_ms, library_ms=library_ms))
+            say("kernel", f"rolann_stats_acc {label} n={n}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, einsum yardstick {library_ms:.4f} ms")
+
+    fused_cases = [(f"path m_l={a} m_c1={c}", a, c, n_chunk, "logsig", f32, False)
+                   for a, c in fused_shapes]
+    fused_cases += [
+        ("tail masked m_l=24 m_c1=27", 24, 27, n_chunk, "logsig", f32, True),
+        ("ragged masked tanh m_l=24 m_c1=27", 24, 27, 26_507, "tanh", f32, True),
+        ("wide m_l=40 m_c1=50", 40, 50, 20_001, "logsig", f32, True),
+        ("bf16 m_l=24 m_c1=27", 24, 27, n_chunk, "logsig", bf16, False),
+        ("f64 m_l=15 m_c1=18", 15, 18, n_chunk, "tanh", f64, True),
+    ]
+    for i, (label, m_l, m_c1, n, act, dtype, masked) in enumerate(fused_cases):
+        h, w, b, mask = _fused_inputs(m_l, m_c1, n, act, masked, seed=300 + i)
+        g0, m0 = _running(m_l, m_c1 + 1, dtype, seed=400 + i)
+        fold = lambda g, mv: rolann_fused_chunk(g, mv, h, w, b, mask, act_name=act)  # noqa: E731
+        plain = lambda g, mv: rolann_fused_chunk_plain(g, mv, h, w, b, mask, act)  # noqa: E731
+        err = _check_fold(f"rolann_fused_chunk {label} n={n} {act}", fold, plain, g0, m0)
+        if label.startswith("path"):
+            ms, plain_ms, _ = _time_fold(fold, plain, None, g0, m0)
+            rows["rolann_fused_chunk"].append(dict(m_l=m_l, m_c1=m_c1, n=n, max_abs_err=err,
+                                                   ms=ms, plain_ms=plain_ms, library_ms=None))
+            say("kernel", f"rolann_fused_chunk {label} n={n}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library none (no single PyTorch call computes the "
+                "stage-1 activation, the target transform and the masked (G, M) fold)")
+
+    before = (rolann_stats_acc.launches, rolann_fused_chunk.launches)
+    g0, m0 = _running(3, 5, torch.float32, seed=7)
+    g, mv = g0.clone(), m0.clone()
+    z = torch.zeros((5, 0), device="cuda")
+    out = rolann_stats_acc(g, mv, z, z[:3], z[:3])
+    check(out[0] is g and torch.equal(g, g0) and torch.equal(mv, m0),
+          "rolann_stats_acc n=0 must leave the accumulators unchanged")
+    out = rolann_fused_chunk(g, mv, torch.zeros((3, 0), device="cuda"),
+                             torch.zeros((3, 4), device="cuda"), torch.zeros(4, device="cuda"),
+                             torch.zeros(0, device="cuda"), act_name="logsig")
+    check(out[0] is g and torch.equal(g, g0) and torch.equal(mv, m0),
+          "rolann_fused_chunk n=0 must leave the accumulators unchanged")
+    check((rolann_stats_acc.launches, rolann_fused_chunk.launches) == before,
+          "n == 0 must not launch")
+    say("kernel", "rolann_stats_acc and rolann_fused_chunk n=0: unchanged, no launch, ok")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # 4. main path
 # ---------------------------------------------------------------------------
@@ -244,6 +436,22 @@ def _compare_backends(cfg, fused, plain) -> dict:
     return drift
 
 
+def _wrappers():
+    from repro_torch.kernels.rolann_stats import rolann_fused_chunk, rolann_stats, rolann_stats_acc
+
+    return {"rolann_stats": rolann_stats, "rolann_stats_acc": rolann_stats_acc,
+            "rolann_fused_chunk": rolann_fused_chunk}
+
+
+def zero_launches() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
 def load_data():
     """The full-scale creditcard replica, fold 0, on the host and uploaded to
     the card (set-up)."""
@@ -273,7 +481,6 @@ def phase_main_path(cfg, xtr, xte, y_test):
     import torch
 
     from repro_torch.core import anomaly, daef, elm_ae
-    from repro_torch.kernels.rolann_stats import rolann_stats
 
     def run(c):
         model = daef.fit(c, xtr, n_partitions=N_PARTITIONS)
@@ -286,19 +493,19 @@ def phase_main_path(cfg, xtr, xte, y_test):
     t0 = time.perf_counter()
     _, _, t1 = run(cfg)  # first fit: stage-1 draws, cuBLAS/cuSOLVER set-up, allocator
     say("main", f"first (cold) fused fit {(t1 - t0) * 1e3:.2f} ms")
-    rolann_stats.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     model, scores, t1 = run(cfg)
     t2 = time.perf_counter()
+    launches = read_launches()
     mu = anomaly.threshold(model.train_errors, RULE)
     pred = anomaly.classify(scores, mu)
     metrics = anomaly.evaluate(model.train_errors, scores, y_test, RULE)
-    launches = {"rolann_stats": rolann_stats.launches}
     fit_ms, score_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
     n_layers = len(path_shapes(cfg))
-    check(launches["rolann_stats"] == n_layers,
-          f"rolann_stats launched {launches['rolann_stats']} times in one fit, "
-          f"expected {n_layers}")
+    check(launches == {"rolann_stats": n_layers, "rolann_stats_acc": 0, "rolann_fused_chunk": 0},
+          f"one fit launched {launches}, expected rolann_stats {n_layers} times and no other "
+          "kernel")
     check(tuple(model.train_errors.shape) == (xtr.shape[1],), "train error shape")
     check(tuple(scores.shape) == (xte.shape[1],), "score shape")
     check(bool(torch.isfinite(model.train_errors).all() and torch.isfinite(scores).all()),
@@ -331,12 +538,146 @@ def phase_main_path(cfg, xtr, xte, y_test):
     return launches, card_fits
 
 
+def fused_shapes(cfg) -> list[tuple[int, int]]:
+    """(m_l, m_c1) of each hidden layer's rolann_fused_chunk launches."""
+    sizes = cfg.layer_sizes
+    return [(sizes[li - 1], sizes[li]) for li in range(2, len(sizes) - 1)]
+
+
+def _refold(cfg, model, passes, layer):
+    """Re-fold decoder layer ``layer`` (its index in ``layer_knowledge``) on
+    the einsum backend over the same chunks, with the fit's own solved
+    weights before it: the statistics the fit should hold, computed by the
+    plain route on identical inputs."""
+    from repro_torch.core import daef, elm_ae, rolann
+
+    plain = dataclasses.replace(cfg, stats_backend="einsum")
+    sizes = cfg.layer_sizes
+    f_hl, f_ll = daef._acts(cfg)
+    dtype, device = model.weights[0].dtype, model.weights[0].device
+    if layer == len(model.layer_knowledge) - 1:
+        stats = rolann.init_stats(sizes[-2], sizes[0], f_ll, dtype, device=device)
+        params = (model.weights[:-1], model.biases[:-1])
+        for x, mask, _ in passes():
+            daef._stream_last_step(plain, stats, params, x, mask)
+        return stats
+    li = layer + 2
+    w_c1, b_c1 = elm_ae.stage1(cfg.layer_keys()[li], sizes[li - 1], sizes[li], cfg.init,
+                               dtype, device)
+    stats = rolann.init_stats(sizes[li], sizes[li - 1], f_hl, dtype, device=device)
+    params = (model.weights[: li - 1], model.biases[: li - 2], w_c1, b_c1)
+    for x, mask, _ in passes():
+        daef._stream_layer_step(plain, stats, params, x, mask)
+    return stats
+
+
+def _check_refold(label, cfg, model, passes, layers):
+    """Each listed layer's statistics against its einsum re-fold, at 1e-4 of
+    the leaf's largest entry."""
+    worst = 0.0
+    for k in layers:
+        ref = _refold(cfg, model, passes, k)
+        for leaf in ("g", "m"):
+            a, b = getattr(model.layer_knowledge[k], leaf).double(), getattr(ref, leaf).double()
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            check(err <= 1e-4 * scale, f"{label}: layer {k + 1} {leaf} vs the einsum re-fold "
+                  f"{err:.3e} > 1e-4 * {scale:.3e}")
+            worst = max(worst, err / scale)
+    say("stream", f"{label}: layers {[k + 1 for k in layers]} equal their einsum re-fold, "
+        f"max|d| / max|.| {worst:.2e} (bar 1e-4)")
+
+
+def phase_streaming(cfg, x_train, x_test, y_test, xtr, xte):
+    """The streaming path: fused fit_chunked and fit_stream, their launch
+    counts, the per-layer re-fold check, an einsum fit_chunked for
+    comparison, and a logistic-output fit that runs B2."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import anomaly, daef
+
+    n = xtr.shape[1]
+    n_chunks = -(-n // CHUNK_SAMPLES)
+    passes = daef._device_chunks(xtr, CHUNK_SAMPLES)
+    n_hidden = len(fused_shapes(cfg))
+
+    def host_chunks():
+        return (x_train[:, i:i + CHUNK_SAMPLES] for i in range(0, n, CHUNK_SAMPLES))
+
+    def timed(label, fit, c, expect):
+        fit()  # warm-up
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        model = fit()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = read_launches()
+        scores = daef.reconstruction_error(c, model, xte)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        metrics = anomaly.evaluate(model.train_errors, scores, y_test, RULE)
+        check(launches == expect, f"{label}: launched {launches}, expected {expect}")
+        check(tuple(model.train_errors.shape) == (n,) and tuple(scores.shape) == (xte.shape[1],),
+              f"{label}: error shapes")
+        check(bool(torch.isfinite(model.train_errors).all() and torch.isfinite(scores).all()),
+              f"{label}: non-finite errors")
+        say("stream", f"{label}: fit {(t1 - t0) * 1e3:.2f} ms, score {(t2 - t1) * 1e3:.2f} ms, "
+            f"launches {launches}, F1 {metrics.f1:.4f} (tp {metrics.tp} fp {metrics.fp} "
+            f"fn {metrics.fn} tn {metrics.tn})")
+        return model, scores, metrics, launches
+
+    say("stream", f"chunk_samples {CHUNK_SAMPLES}: {n_chunks} chunks per pass, the last "
+        f"{n - (n_chunks - 1) * CHUNK_SAMPLES} valid of {CHUNK_SAMPLES}")
+    expect = {"rolann_stats": 0, "rolann_stats_acc": 0, "rolann_fused_chunk": n_hidden * n_chunks}
+    model_c, scores_c, metrics_c, launches = timed(
+        "fused fit_chunked", lambda: daef.fit_chunked(cfg, xtr, chunk_samples=CHUNK_SAMPLES),
+        cfg, expect)
+    _check_refold("fused fit_chunked", cfg, model_c, passes, range(len(model_c.layer_knowledge)))
+    model_s, _, _, _ = timed("fused fit_stream", lambda: daef.fit_stream(cfg, host_chunks),
+                             cfg, expect)
+    _check_refold("fused fit_stream", cfg, model_s, passes, range(len(model_s.layer_knowledge)))
+    cfg_e = dataclasses.replace(cfg, stats_backend="einsum")
+    timed("einsum fit_chunked", lambda: daef.fit_chunked(cfg_e, xtr, chunk_samples=CHUNK_SAMPLES),
+          cfg_e, dict.fromkeys(expect, 0))
+
+    # B2's path: a logistic last layer, on the replica rescaled feature by
+    # feature into [0, 1] with the training split's min and max.
+    lo, hi = x_train.min(axis=1, keepdims=True), x_train.max(axis=1, keepdims=True)
+    span = np.where(hi > lo, hi - lo, 1.0)
+    x01 = torch.as_tensor((x_train - lo) / span, device="cuda")
+    x01_te = torch.as_tensor((x_test - lo) / span, device="cuda")
+    cfg_l = dataclasses.replace(cfg, act_last="logsig")
+    zero_launches()
+    model_l = daef.fit_chunked(cfg_l, x01, chunk_samples=CHUNK_SAMPLES)
+    torch.cuda.synchronize()
+    launches_l = read_launches()
+    expect_l = {"rolann_stats": 0, "rolann_stats_acc": n_chunks,
+                "rolann_fused_chunk": n_hidden * n_chunks}
+    check(launches_l == expect_l, f"logsig-output fit launched {launches_l}, expected {expect_l}")
+    scores_l = daef.reconstruction_error(cfg_l, model_l, x01_te)
+    check(bool(torch.isfinite(model_l.train_errors).all() and torch.isfinite(scores_l).all()),
+          "logsig-output fit: non-finite errors")
+    _check_refold("fused fit_chunked, act_last=logsig", cfg_l, model_l,
+                  daef._device_chunks(x01, CHUNK_SAMPLES), [len(model_l.layer_knowledge) - 1])
+    f1_l = anomaly.evaluate(model_l.train_errors, scores_l, y_test, RULE).f1
+    say("stream", f"fused fit_chunked, act_last=logsig on [0, 1] data: launches {launches_l}, "
+        f"F1 {f1_l:.4f} (no bar: the paper's configuration has a linear output layer)")
+    return ({"rolann_fused_chunk": launches["rolann_fused_chunk"],
+             "rolann_stats_acc": launches_l["rolann_stats_acc"]},
+            {"card fused streamed": (model_c.train_errors, scores_c, metrics_c.f1)})
+
+
+CHECKED_FITS = ("card fused", "card fused streamed")
+
+
 def phase_reference(cfg, x_train, x_test, y_test, card_fits):
     """The same replica fitted on the host in float32 (the path the CPU tests
     hold to the JAX package) and in float64.  Every float32 fit sits a few
     percent from the float64 one on this configuration (see
-    ``_compare_backends``); the card's fused fit must be no farther from it
-    than twice the farthest of the plain float32 fits, plus 1e-4 (TOLS), in
+    ``_compare_backends``); each of the card's fused fits (one-shot and
+    streamed) must be no farther from it than twice the farthest of the
+    plain float32 fits (card einsum, host float32), plus 1e-4 (TOLS), in
     max|d| / max|float64| of the train errors and of the test scores."""
     import torch
 
@@ -356,10 +697,11 @@ def phase_reference(cfg, x_train, x_test, y_test, card_fits):
     fits = {**card_fits, "host float32": (m_host.train_errors, s_host, f1_host)}
     for i, (name, ref) in enumerate((("train errors", m_64.train_errors), ("test scores", s_64))):
         dist = {k: _rel(v[i].double().cpu(), ref) for k, v in fits.items()}
-        plain = max(d for k, d in dist.items() if k != "card fused")
-        check(dist["card fused"] <= 2 * plain + 1e-4,
-              f"{name}: the card's fused fit is {dist['card fused']:.3e} from the float64 "
-              f"fit, the plain float32 fits at most {plain:.3e}")
+        plain = max(d for k, d in dist.items() if k not in CHECKED_FITS)
+        for k in CHECKED_FITS:
+            check(dist[k] <= 2 * plain + 1e-4,
+                  f"{name}: the {k} fit is {dist[k]:.3e} from the float64 fit, the plain "
+                  f"float32 fits at most {plain:.3e}")
         say("reference", f"{name}, max|d| / max|.| from the host float64 fit: "
             + ", ".join(f"{k} {d:.2e}" for k, d in dist.items()))
     say("reference", "F1: " + ", ".join(f"{k} {v[2]:.4f}" for k, v in fits.items())
@@ -367,18 +709,16 @@ def phase_reference(cfg, x_train, x_test, y_test, card_fits):
         f"{torch.get_num_threads()} threads)")
 
 
-def phase_profile(cfg, xtr, xte):
-    """One fused fit + score under torch.profiler: device time by kernel."""
+def phase_profile(label, run):
+    """One ``run()`` under torch.profiler: device time by kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import daef
-
-    daef.reconstruction_error(cfg, daef.fit(cfg, xtr, n_partitions=N_PARTITIONS), xte)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        daef.reconstruction_error(cfg, daef.fit(cfg, xtr, n_partitions=N_PARTITIONS), xte)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     averages = prof.key_averages()
@@ -388,8 +728,24 @@ def phase_profile(cfg, xtr, xte):
     # Kernels only: an aten op's row repeats the time of the kernels it launched.
     device_us = sum(getattr(e, key) for e in averages
                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    say("profile", f"wall {wall * 1e3:.2f} ms, device busy {device_us / 1e3:.2f} ms "
+    say("profile", f"{label}: wall {wall * 1e3:.2f} ms, device busy {device_us / 1e3:.2f} ms "
         f"({100 * device_us / 1e6 / wall:.1f} %)")
+
+
+def _per_fit(rows, launches_per_shape, bound_fn, shape_keys, n_valid):
+    """One JSON row for a kernel over one fit: every launch of a shape runs
+    at the chunk width, so its time counts ``launches_per_shape`` times; the
+    bound counts each chunk's valid samples."""
+    bounds = [bound_fn(*(r[k] for k in shape_keys), nv) for r in rows for nv in n_valid]
+    return {
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": launches_per_shape * sum(r["ms"] for r in rows),
+        "plain_ms": launches_per_shape * sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(b[0] for b in bounds),
+        "bound_by": "operations" if all(b[1] == "operations" for b in bounds) else "bytes",
+        "library_ms": (None if rows[0]["library_ms"] is None
+                       else launches_per_shape * sum(r["library_ms"] for r in rows)),
+    }
 
 
 def main() -> int:
@@ -403,29 +759,63 @@ def main() -> int:
         cfg = daef.DAEFConfig(**CREDITCARD, stats_backend="fused")
         (x_train, x_test, y_test), (xtr, xte) = load_data()
         rows = phase_kernels(path_shapes(cfg), xtr.shape[1])
+        last = (cfg.layer_sizes[-2] + 1, cfg.layer_sizes[0])  # B2 on the logsig-output path
+        fold_rows = phase_fold_kernels(path_shapes(cfg) + [last], fused_shapes(cfg),
+                                       CHUNK_SAMPLES)
         launches, card_fits = phase_main_path(cfg, xtr, xte, y_test)
-        phase_reference(cfg, x_train, x_test, y_test, card_fits)
-        phase_profile(cfg, xtr, xte)
+        stream_launches, stream_fits = phase_streaming(cfg, x_train, x_test, y_test, xtr, xte)
+        phase_reference(cfg, x_train, x_test, y_test, {**card_fits, **stream_fits})
+        phase_profile("one-shot fused fit + score", lambda: daef.reconstruction_error(
+            cfg, daef.fit(cfg, xtr, n_partitions=N_PARTITIONS), xte))
+        phase_profile("streamed fused fit_chunked", lambda: daef.fit_chunked(
+            cfg, xtr, chunk_samples=CHUNK_SAMPLES))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    kernel = {
-        "name": "rolann_stats",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/rolann_stats/csrc/rolann_stats.cu",
-        "replaces": "src/repro/kernels/rolann_stats/kernel.py:48",
-        "launches": launches["rolann_stats"],
-        # Sums over the main path's launches (one per layer shape, one fit).
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": sum(r["ms"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] for r in rows),
-        "bound_ms": sum(r["bound_ms"] for r in rows),
-        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in rows) else "bytes",
-        "library_ms": sum(r["library_ms"] for r in rows),
-    }
-    print(json.dumps({"per_shape": {"rolann_stats": rows}}))
+    source = "src/repro_torch/kernels/rolann_stats/csrc/"
+    replaces = "src/repro/kernels/rolann_stats/kernel.py:"
+    n = xtr.shape[1]
+    n_valid = [min(CHUNK_SAMPLES, n - i) for i in range(0, n, CHUNK_SAMPLES)]
+    kernels = [
+        {
+            "name": "rolann_stats",
+            "route": "cuda",
+            "source": source + "rolann_stats.cu",
+            "replaces": replaces + "48",
+            "launches": launches["rolann_stats"],
+            # Sums over the main path's launches (one per layer shape, one fit).
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": ("operations" if all(r["bound_by"] == "operations" for r in rows)
+                         else "bytes"),
+            "library_ms": sum(r["library_ms"] for r in rows),
+        },
+        {
+            "name": "rolann_stats_acc",
+            "route": "cuda",
+            "source": source + "rolann_stats.cu",
+            "replaces": replaces + "171",
+            "launches": stream_launches["rolann_stats_acc"],
+            # One logsig-output streamed fit: 8 launches at the last layer's shape.
+            **_per_fit([r for r in fold_rows["rolann_stats_acc"] if (r["m"], r["o"]) == last],
+                       len(n_valid), _acc_bound, ("m", "o"), n_valid),
+        },
+        {
+            "name": "rolann_fused_chunk",
+            "route": "cuda",
+            "source": source + "rolann_fused_chunk.cu",
+            "replaces": replaces + "330",
+            "launches": stream_launches["rolann_fused_chunk"],
+            # One streamed fit: 8 launches at each hidden layer's shape.
+            **_per_fit(fold_rows["rolann_fused_chunk"], len(n_valid), _fused_bound,
+                       ("m_l", "m_c1"), n_valid),
+        },
+    ]
+    print(json.dumps({"per_shape": {"rolann_stats": rows, **fold_rows}}))
     print(card)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -10,8 +10,9 @@ none is present (see :mod:`repro_torch.device`); pass ``device="cpu"`` to run
 on the host, as the CPU tests do.
 
 What is ported so far is the one-tenant closed-form fit of the paper's
-Algorithm 1 (``method="gram"``) with scoring and classification; ROADMAP.md
-lists what waits.
+Algorithm 1 (``method="gram"``), one-shot (``daef.fit``) and streamed chunk
+by chunk (``daef.fit_chunked``, ``daef.fit_stream``), with scoring and
+classification; ROADMAP.md lists what waits.
 """
 from repro_torch.device import DEFAULT_DTYPE, as_tensor, resolve_device
 

@@ -1,7 +1,8 @@
 """DAEF — Deep Autoencoder for Federated learning (paper §4, Algorithm 1).
 
-Counterpart of ``repro/core/daef.py``: the one-shot fit, ``predict`` and
-``reconstruction_error``.  An asymmetric deep autoencoder:
+Counterpart of ``repro/core/daef.py``: the one-shot fit, the streaming fits
+``fit_chunked`` and ``fit_stream``, ``predict`` and ``reconstruction_error``.
+An asymmetric deep autoencoder:
 
   * encoder: ONE layer whose weights are the truncated left singular vectors
     of the data matrix, from a distributed SVD (gram route) — no bias;
@@ -13,15 +14,18 @@ Everything is closed-form — no gradients, no epochs.  Data is
 ``[features m0, samples n]``.
 
 Entry points take ``device=``: ``None`` means the card (see
-:mod:`repro_torch.device`).  The streaming fits, merges and
-``partial_fit`` wait for ROADMAP queue A items 5 and 7.
+:mod:`repro_torch.device`).  The merges and ``partial_fit`` wait for ROADMAP
+queue A item 5.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import activations, dsvd, elm_ae, rolann, stats_backend, threefry
 from repro_torch.device import as_tensor, resolve_device
@@ -196,6 +200,253 @@ def _fit_core(
         layer_knowledge=tuple(knowledge),
         train_errors=train_errors,
     )
+
+
+# ---------------------------------------------------------------------------
+# Streaming / chunked training (bounded-memory Alg. 1)
+#
+# The paper's sufficient statistics are additive over sample blocks (Eq. 6-9),
+# so the whole fit is a FOLD: pass 1 accumulates the encoder Gram chunk by
+# chunk, passes 2..L recompute the chunk activations on the fly and fold each
+# decoder layer's (G, M) in place, and a final pass scores the train errors.
+# Peak device memory is O(m^2 + chunk) for a host source; the result is the
+# one-shot gram-method fit up to the order of float sums.
+#
+# Both drivers feed one loop over padded, masked chunks (`_fit_chunks`):
+#   * `fit_chunked` — x on the device, cut into `chunk_samples`-wide chunks;
+#   * `fit_stream`  — a host chunk source, one chunk uploaded at a time.
+# The reference's `lax.scan` and donated jitted steps become Python loops
+# whose steps update the running statistics in place.
+# ---------------------------------------------------------------------------
+
+def _require_gram(config: DAEFConfig, what: str) -> None:
+    if config.method != "gram":
+        raise ValueError(
+            f"{what} accumulates Gram sufficient statistics chunk by chunk "
+            "(method='gram'); method='svd' factors have no additive chunk "
+            "form — switch the config to method='gram'"
+        )
+
+
+def _stream_forward(config: DAEFConfig, x: torch.Tensor, weights, biases) -> torch.Tensor:
+    """Forward one chunk through the encoder + the solved decoder layers so
+    far (all hidden activations) — the recompute-on-the-fly of each pass."""
+    f_hl, _ = _acts(config)
+    h = f_hl.fn(weights[0].T @ x)
+    for w, b in zip(weights[1:], biases, strict=True):
+        h = f_hl.fn(w.T @ h + b[:, None])
+    return h
+
+
+def _stream_layer_step(config: DAEFConfig, stats, params, x, mask):
+    weights, biases, w_c1, b_c1 = params
+    f_hl, _ = _acts(config)
+    h = _stream_forward(config, x, weights, biases)
+    return elm_ae.accumulate_layer_stats(
+        stats, w_c1, b_c1, h, f_hl, weights=mask, backend=config.stats_backend
+    )
+
+
+def _stream_last_step(config: DAEFConfig, stats, params, x, mask):
+    weights, biases = params
+    _, f_ll = _acts(config)
+    h = _stream_forward(config, x, weights, biases)
+    return rolann.accumulate_stats(
+        stats, h, x, f_ll, weights=mask, backend=config.stats_backend
+    )
+
+
+def _errors_chunk(config: DAEFConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """Per-sample reconstruction MSE of one chunk under solved weights."""
+    weights, biases = params
+    _, f_ll = _acts(config)
+    h = _stream_forward(config, x, weights[:-1], biases[:-1])
+    recon = f_ll.fn(weights[-1].T @ h + biases[-1][:, None])
+    return torch.mean((recon - x) ** 2, dim=0)
+
+
+def _fit_chunks(config: DAEFConfig, passes) -> DAEFModel:
+    """Alg. 1 as a fold.  ``passes()`` returns a fresh iterator of
+    ``(chunk [m0, width], mask [width], n_valid)`` on the device, one per
+    pass: the encoder, each decoder layer, the last layer, the errors."""
+    f_hl, f_ll = _acts(config)
+    sizes = config.layer_sizes
+    m0 = sizes[0]
+    keys = config.layer_keys()
+
+    # ---- pass 1: encoder Gram ----
+    g = None
+    n_total = 0
+    for x, mask, n_valid in passes():
+        if g is None:
+            g = torch.zeros((m0, m0), dtype=x.dtype, device=x.device)
+        g.add_(dsvd.masked_gram(x, mask))
+        n_total += n_valid
+    enc = dsvd.truncate(dsvd.gram_to_factors(g), min(m0, n_total))
+    w_enc = enc.u[:, : config.latent_dim]
+    dtype, device = w_enc.dtype, w_enc.device
+
+    weights = [w_enc]
+    biases: list[torch.Tensor] = []
+    knowledge: list = []
+
+    # ---- passes 2..L-1: decoder layers ----
+    for li in range(2, len(sizes) - 1):
+        w_c1, b_c1 = elm_ae.stage1(keys[li], sizes[li - 1], sizes[li], config.init,
+                                   dtype, device)
+        params = (tuple(weights), tuple(biases), w_c1, b_c1)
+        stats = rolann.init_stats(sizes[li], sizes[li - 1], f_hl, dtype, device=device)
+        for x, mask, _ in passes():
+            _stream_layer_step(config, stats, params, x, mask)
+        w_next, b_next = elm_ae.layer_from_knowledge(
+            stats, keys[li], sizes[li - 1], sizes[li], config.lam_hidden, f_hl,
+            init=config.init, aux_bias=config.aux_bias, dtype=dtype,
+            gram_solver=config.gram_solver,
+        )
+        weights.append(w_next)
+        biases.append(b_next)
+        knowledge.append(stats)
+
+    # ---- pass L: last layer against the original inputs ----
+    params = (tuple(weights), tuple(biases))
+    stats = rolann.init_stats(sizes[-2], m0, f_ll, dtype, device=device)
+    for x, mask, _ in passes():
+        _stream_last_step(config, stats, params, x, mask)
+    w_ll, b_ll = rolann.solve(stats, config.lam_last, gram_solver=config.gram_solver)
+    weights.append(w_ll)
+    biases.append(b_ll)
+    knowledge.append(stats)
+
+    # ---- final pass: per-sample train errors ----
+    params = (tuple(weights), tuple(biases))
+    errs = [_errors_chunk(config, params, x)[:n_valid] for x, _, n_valid in passes()]
+
+    return DAEFModel(
+        weights=tuple(weights),
+        biases=tuple(biases),
+        encoder_factors=enc,
+        layer_knowledge=tuple(knowledge),
+        train_errors=torch.cat(errs),
+    )
+
+
+def fit_chunked(
+    config: DAEFConfig, x, *, chunk_samples: int, device=None
+) -> DAEFModel:
+    """Alg. 1 with bounded activation memory: :func:`fit` as a fold over
+    ``chunk_samples``-wide sample chunks of ``x`` [m0, n], on ``device``
+    (``None``: the card).
+
+    Matches ``fit(config, x)`` (gram method) within accumulation-order float
+    error for every chunk size, including widths that do not divide n: the
+    ragged tail is padded to the chunk width and masked, so every chunk has
+    one shape.  ``chunk_samples > n`` makes one chunk of width n.
+    """
+    x = as_tensor(x, resolve_device(device))
+    m0, n = x.shape
+    if m0 != config.layer_sizes[0]:
+        raise ValueError(f"input dim {m0} != layer_sizes[0] {config.layer_sizes[0]}")
+    if not isinstance(chunk_samples, int) or chunk_samples < 1:
+        raise ValueError(f"chunk_samples must be a positive int, got {chunk_samples!r}")
+    config = config.resolved()
+    _require_gram(config, "fit_chunked")
+    if n == 0:
+        raise ValueError("fit_chunked: x has no samples")
+    return _fit_chunks(config, _device_chunks(x, chunk_samples))
+
+
+def _device_chunks(x: torch.Tensor, chunk_samples: int):
+    """``passes`` of :func:`_fit_chunks` over ``x`` [m0, n] on its device:
+    ``min(chunk_samples, n)``-wide chunks, the ragged tail zero-padded and
+    masked.  One contiguous [n_chunks, m0, chunk] copy is made, so every
+    chunk a kernel sees is a dense tensor."""
+    m0, n = x.shape
+    chunk = min(chunk_samples, n)
+    n_chunks = -(-n // chunk)
+    xc = (F.pad(x, (0, n_chunks * chunk - n)).reshape(m0, n_chunks, chunk)
+          .permute(1, 0, 2).contiguous())
+    valid = [min(chunk, n - i * chunk) for i in range(n_chunks)]
+    return lambda: ((xc[i], _chunk_mask(chunk, v, x.device), v) for i, v in enumerate(valid))
+
+
+def _stream_chunk_source(batches):
+    """Normalize a chunk source into a zero-arg factory of fresh iterators.
+
+    Accepts a zero-arg callable (called once per pass — true streaming, e.g.
+    re-opening a file reader), or any iterable (materialized ONCE into a host
+    list of chunk references; the chunks themselves are not copied).  The fit
+    makes one pass per layer, so one-shot generators are snapshotted.
+    """
+    if callable(batches):
+        return batches
+    chunks = list(batches)
+    return lambda: iter(chunks)
+
+
+@functools.lru_cache(maxsize=256)
+def _chunk_mask(width: int, n_valid: int, device: torch.device) -> torch.Tensor:
+    """One mask per (width, valid prefix, device) — every full chunk of a
+    fit reuses a single device buffer instead of making one per step."""
+    return (torch.arange(width, device=device) < n_valid).to(torch.float32)
+
+
+def _iter_padded_chunks(factory, m0: int, device: torch.device):
+    """Yield (chunk on ``device``, mask, n_valid) with the ragged tail padded
+    to the fixed chunk width, one host chunk uploaded at a time.  Only the
+    LAST chunk may be narrower; mid-stream width changes are an error."""
+    what = "fit_stream"
+    it = iter(factory())
+    prev = next(it, None)
+    if prev is None:
+        raise ValueError(f"{what}: empty chunk stream")
+    width = None
+    while prev is not None:
+        cur = next(it, None)
+        x = prev if isinstance(prev, torch.Tensor) else np.asarray(prev)
+        if x.ndim != 2 or x.shape[0] != m0:
+            raise ValueError(
+                f"{what}: chunk shape {tuple(x.shape)} does not match the expected "
+                f"[{m0}, chunk_samples] layout"
+            )
+        c = x.shape[-1]
+        if width is None:
+            width = c
+        if c != width:
+            if cur is not None or c > width:
+                raise ValueError(
+                    f"{what}: chunk widths must be fixed ({width}); got a "
+                    f"{'mid-stream' if cur is not None else 'wider final'} "
+                    f"chunk of width {c} — re-chunk the source (only the "
+                    "last chunk may be narrower)"
+                )
+        chunk = as_tensor(x, device)
+        if c != width:
+            chunk = F.pad(chunk, (0, width - c))
+        yield chunk.contiguous(), _chunk_mask(width, c, device), c
+        prev = cur
+
+
+def fit_stream(config: DAEFConfig, batches, *, device=None) -> DAEFModel:
+    """Alg. 1 over data that never fits on the device at once.
+
+    ``batches`` is a host chunk source — an iterable of fixed-shape
+    ``[m0, chunk_samples]`` arrays or tensors (only the last may be
+    narrower; it is padded and masked), or a zero-arg callable returning a
+    fresh iterator per pass (true streaming from disk; the fit makes one
+    pass per layer plus an error-scoring pass).  Each chunk is uploaded to
+    ``device`` (``None``: the card) on its own, and the running statistics
+    are updated in place, so device memory stays the O(m^2) statistics plus
+    one chunk (and the [n] train errors).
+
+    Numerically matches ``fit(config, concatenate(batches))`` (gram method)
+    within accumulation-order float error.
+    """
+    dev = resolve_device(device)
+    config = config.resolved()
+    _require_gram(config, "fit_stream")
+    factory = _stream_chunk_source(batches)
+    m0 = config.layer_sizes[0]
+    return _fit_chunks(config, lambda: _iter_padded_chunks(factory, m0, dev))
 
 
 def _model_device(model: DAEFModel, device) -> torch.device:

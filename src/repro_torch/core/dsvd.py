@@ -5,9 +5,9 @@ are the first ``m1`` left singular vectors of the data ``X [m0, n]``.  Over
 partitions ``X = [X^1 | ... | X^P]``, ``U S^2 U^T = sum_p X^p X^p^T``, so the
 sum of the partition Grams followed by one ``eigh`` gives the merged factors.
 
-The paper-faithful ``method="svd"`` route (local SVDs, concatenation, merge
-SVD), ``merge_factors``, ``masked_gram`` and ``pad_rank`` wait for ROADMAP
-queue A item 3.
+:func:`masked_gram` is the streaming fit's per-chunk Gram.  The
+paper-faithful ``method="svd"`` route (local SVDs, concatenation, merge
+SVD), ``merge_factors`` and ``pad_rank`` wait for ROADMAP queue A item 3.
 """
 from __future__ import annotations
 
@@ -35,6 +35,15 @@ def canonicalize_signs(u: torch.Tensor) -> torch.Tensor:
 def gram(x: torch.Tensor) -> torch.Tensor:
     """Local Gram matrix X^p X^p^T — the additive sufficient statistic."""
     return x @ x.T
+
+
+def masked_gram(x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Gram contribution of one sample chunk; ``mask`` ([n] in {0, 1}) zeroes
+    padded columns exactly, so streamed fits can pad ragged chunks to a fixed
+    shape.  Summed over chunks it equals :func:`gram` of the concatenation."""
+    if mask is None:
+        return x @ x.T
+    return (x * mask.to(x.dtype)[None, :]) @ x.T
 
 
 def gram_to_factors(g: torch.Tensor) -> SvdFactors:

@@ -11,6 +11,10 @@ layers l and l+1 an auxiliary single-hidden-layer autoencoder is built:
 
 ``aux_bias`` is ``"zero"`` (no decoder bias, default) or ``"c1"`` (reuse the
 auxiliary random bias).
+
+The streaming fit trains the same layer as a fold: chunk by chunk
+:func:`accumulate_layer_stats` adds the layer's ROLANN statistics in place,
+and :func:`layer_from_knowledge` solves the weights from their sum.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import activations, initializers, rolann, threefry
+from repro_torch.core import activations, initializers, rolann, stats_backend, threefry
 
 
 class LayerResult(NamedTuple):
@@ -92,3 +96,63 @@ def train_layer(
 
     h_next = act.fn(w_next.T @ h_l + b_next[:, None])
     return LayerResult(w=w_next, b=b_next, h=h_next, knowledge=knowledge)
+
+
+def accumulate_layer_stats(
+    stats: rolann.RolannStats,
+    w_c1: torch.Tensor,
+    b_c1: torch.Tensor,
+    h_l: torch.Tensor,
+    act: activations.Activation,
+    *,
+    weights: torch.Tensor | None = None,
+    backend: str | None = None,
+) -> rolann.RolannStats:
+    """Streaming building block: fold one sample chunk of layer inputs
+    ``h_l`` [m_l, n_chunk] into the decoder layer's running ROLANN
+    statistics, **in place** (``stats.g`` and ``stats.m`` are updated and
+    ``stats`` is returned).
+
+    Summed over all chunks this equals :func:`train_layer`'s one-shot
+    statistics, so the solved weights match the non-streaming fit.
+    ``weights`` masks padded sample columns.  On the fused backend with a
+    non-linear activation the whole fold — stage-1 product, activation,
+    target transform and (G, M) — is ONE ``stats_backend.fused_chunk_acc``
+    call, the B3 kernel; otherwise the stage-1 activation is formed here and
+    folded by ``rolann.accumulate_stats``.
+    """
+    resolved = stats_backend.resolve(backend)
+    if resolved == "fused" and act.name != "linear":
+        stats_backend.fused_chunk_acc(stats.g, stats.m, h_l, w_c1, b_c1, weights,
+                                      act=act, backend=resolved)
+        return stats
+    h_c1 = act.fn(w_c1.T @ h_l + b_c1[:, None])
+    return rolann.accumulate_stats(stats, h_c1, h_l, act, weights=weights,
+                                   backend=resolved)
+
+
+def layer_from_knowledge(
+    knowledge: rolann.RolannStats,
+    key: torch.Tensor,
+    m_l: int,
+    m_next: int,
+    lam: float,
+    act: activations.Activation,
+    *,
+    init: str = "xavier",
+    aux_bias: str = "zero",
+    dtype: torch.dtype = torch.float32,
+    gram_solver: str = "chol",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Solve the decoder layer weights from (merged) knowledge, on its device."""
+    del act  # the reference's signature; the solve does not need it
+    w_c2, _ = rolann.solve(knowledge, lam, gram_solver=gram_solver)
+    w_next = w_c2.T
+    device = knowledge.m.device
+    if aux_bias == "zero":
+        b_next = torch.zeros((m_next,), dtype=dtype, device=device)
+    elif aux_bias == "c1":
+        _, b_next = stage1(key, m_l, m_next, init, dtype, device)
+    else:
+        raise ValueError(f"unknown aux_bias {aux_bias!r}")
+    return w_next, b_next

@@ -12,8 +12,10 @@ for the eigh solve.
 
 Data matrices are ``[features, samples]``; targets ``[outputs, samples]``.
 
-Waiting for ROADMAP queue A item 4: ``init_stats``, ``accumulate_stats``,
-``compute_factors``, ``factors_to_stats``, the merges and ``mask_knowledge``.
+The streaming fit folds chunks through :func:`init_stats` and
+:func:`accumulate_stats` (in place); :func:`merge_stats` sums two Gram-form
+contributions.  Waiting for ROADMAP queue A item 4: ``compute_factors``,
+``factors_to_stats``, the factor merges and ``mask_knowledge``.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import activations, stats_backend
+from repro_torch.device import resolve_device
 
 
 class RolannFactors(NamedTuple):
@@ -87,6 +90,69 @@ def compute_stats(
         return RolannStats(g=xa @ xa.T, m=m_vec)
     g, m_vec = stats_backend.gram_stats(xa, fsq, fsq * dbar, backend=backend)
     return RolannStats(g=g, m=m_vec)
+
+
+def init_stats(
+    n_inputs: int, n_outputs: int, act: activations.Activation,
+    dtype: torch.dtype = torch.float32, *, device=None,
+) -> RolannStats:
+    """Zero Gram-form accumulators on ``device`` (``None``: the card) for a
+    streamed fit over inputs [n_inputs, ·] and targets [n_outputs, ·] — the
+    identity of :func:`merge_stats`.  A linear activation shares one Gram
+    across outputs (see :func:`compute_stats`)."""
+    dev = resolve_device(device)
+    m_aug = n_inputs + 1  # bias row
+    shape = (m_aug, m_aug) if act.name == "linear" else (n_outputs, m_aug, m_aug)
+    return RolannStats(g=torch.zeros(shape, dtype=dtype, device=dev),
+                       m=torch.zeros((n_outputs, m_aug), dtype=dtype, device=dev))
+
+
+def accumulate_stats(
+    stats: RolannStats,
+    x: torch.Tensor,
+    d: torch.Tensor,
+    act: activations.Activation,
+    *,
+    weights: torch.Tensor | None = None,
+    backend: str | None = None,
+) -> RolannStats:
+    """Fold one sample chunk into running Gram-form statistics, **in place**.
+
+    Mathematically ``merge_stats(stats, compute_stats(x, d, act))`` — the
+    paper's Eq. 6-7 statistics are additive over sample blocks — computed as
+    one fold that adds into ``stats.g`` and ``stats.m`` and returns
+    ``stats`` (the reference donated the running stats instead).  A
+    non-linear activation folds through ``stats_backend.gram_stats_acc``
+    (the B2 kernel on the fused backend); the linear one shares one Gram,
+    ``xw @ xa.T``.
+
+    ``weights`` ([n] in {0, 1}) masks padded sample columns: a zero weight
+    removes the column's contribution to both G and M exactly, so ragged
+    chunks can be padded to a fixed shape without biasing the statistics.
+    The order is the reference's: clip, inv, deriv, fsq, fd, then the mask.
+    """
+    act = activations.get(act.name, invertible_required=True)
+    xa = _augment(x)  # [m+1, n]
+    dbar, fp = _targets(d, act)
+    fsq = fp * fp
+    fd = fsq * dbar
+    if weights is not None:
+        w = weights.to(xa.dtype)
+        fsq = fsq * w[None, :]
+        fd = fd * w[None, :]
+    if act.name == "linear":
+        # Shared F: fp == 1, so masking must hit the Gram's columns directly.
+        xw = xa if weights is None else xa * w[None, :]
+        stats.g.add_(xw @ xa.T)
+        stats.m.add_(torch.einsum("in,on->oi", xa, fd))
+        return stats
+    stats_backend.gram_stats_acc(stats.g, stats.m, xa, fsq, fd, backend=backend)
+    return stats
+
+
+def merge_stats(a: RolannStats, b: RolannStats) -> RolannStats:
+    """Gram-form merge: a plain sum (new tensors; ``a`` and ``b`` are kept)."""
+    return RolannStats(g=a.g + b.g, m=a.m + b.m)
 
 
 def stats_to_factors(stats: RolannStats) -> RolannFactors:

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel lives in ``kernels/<name>/csrc/<name>.cu`` and exports a plain C
-function.  At first use it is compiled with ``nvcc`` for Hopper
-(``sm_90a``) into a shared library under ``build/repro_torch/`` at the root
-of the checkout, and loaded with ``ctypes``.  The library's file name carries
-a hash of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded.
+Each library named in ``repro_torch.kernels.KERNELS`` is one CUDA source
+under a kernel package's ``csrc/`` that exports plain C functions.  At first
+use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
+library under ``build/repro_torch/`` at the root of the checkout, and loaded
+with ``ctypes``.  The library's file name carries a hash of the source, the
+``*.cuh`` headers beside it and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.
 
 Nothing here runs at import: importing the port on a machine without
 ``nvcc`` or a card never tries to build.
@@ -30,11 +31,16 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 
 
 def source(name: str) -> Path:
-    return KERNELS_DIR / name / "csrc" / f"{name}.cu"
+    from repro_torch.kernels import KERNELS
+
+    return KERNELS_DIR / KERNELS[name]
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes())
+    src = source(name)
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

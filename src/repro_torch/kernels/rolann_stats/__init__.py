@@ -1,5 +1,21 @@
-"""Fused ROLANN sufficient statistics: CUDA kernel, wrapper and plain version."""
-from repro_torch.kernels.rolann_stats.ops import rolann_stats, rolann_stats_plain
+"""Fused ROLANN sufficient statistics: CUDA kernels, wrappers and plain versions
+(B1 ``rolann_stats``, B2 ``rolann_stats_acc``, B3 ``rolann_fused_chunk``)."""
+from repro_torch.kernels.rolann_stats.ops import (
+    rolann_fused_chunk,
+    rolann_fused_chunk_plain,
+    rolann_stats,
+    rolann_stats_acc,
+    rolann_stats_acc_plain,
+    rolann_stats_plain,
+)
 from repro_torch.kernels.rolann_stats.ref import rolann_stats_ref
 
-__all__ = ["rolann_stats", "rolann_stats_plain", "rolann_stats_ref"]
+__all__ = [
+    "rolann_fused_chunk",
+    "rolann_fused_chunk_plain",
+    "rolann_stats",
+    "rolann_stats_acc",
+    "rolann_stats_acc_plain",
+    "rolann_stats_plain",
+    "rolann_stats_ref",
+]

@@ -60,3 +60,46 @@ def assert_sum_close(actual, desired, *, what: str = "") -> None:
     scale = max(1.0, float(np.abs(d).max())) if d.size else 1.0
     np.testing.assert_allclose(to_np(actual), d, rtol=1e-4, atol=1e-4 * scale,
                                err_msg=what)
+
+
+def assert_models_match(jm, tm, lam_last: float, *, s_as_sum: bool = False) -> None:
+    """A port ``DAEFModel`` against a reference one, leaf by leaf, under the
+    rules tests/test_torch_daef.py states: ``TOLS`` for the encoder and
+    hidden weights and biases, the singular values and the train errors;
+    ``assert_sum_close`` for the per-layer (G, M) and the encoder's U S² Uᵀ;
+    10·κ·eps·max|[W; b]| for the last layer's W and b, κ the largest
+    condition number of its ``G + λI`` (float32 noise in h moves w by up to
+    κ·eps relative).
+
+    ``s_as_sum`` holds S² — the eigenvalues of the summed encoder Gram —
+    to ``assert_sum_close`` instead of S to ``TOLS``: for data that is not
+    centred, float32 ``eigh`` fixes a small singular value s only to about
+    eps·λ_max/(2s), more than 1e-4 when λ_max/s² is in the thousands (the
+    reference's own one-shot and chunked fits then differ by that much)."""
+    n_w = len(jm.weights)
+    for i in range(n_w - 1):
+        assert_close(tm.weights[i], jm.weights[i], what=f"weights[{i}]")
+    for i in range(n_w - 2):
+        assert_close(tm.biases[i], jm.biases[i], what=f"biases[{i}]")
+    # last layer: tolerance from the conditioning of its solve
+    k_last = jm.layer_knowledge[-1]
+    g = np.asarray(k_last.g, np.float64)
+    kappa = float(np.max(np.linalg.cond(g + lam_last * np.eye(g.shape[-1]))))
+    w_aug = np.concatenate([np.asarray(jm.weights[-1]), np.asarray(jm.biases[-1])[None]])
+    atol = 10.0 * kappa * EPS32 * float(np.abs(w_aug).max())
+    assert_close(tm.weights[-1], jm.weights[-1], atol=atol, rtol=0, what="last W")
+    assert_close(tm.biases[-1], jm.biases[-1], atol=atol, rtol=0, what="last b")
+    # encoder factors
+    ju, js = (np.asarray(a) for a in jm.encoder_factors)
+    tu, ts = (to_np(a) for a in tm.encoder_factors)
+    if s_as_sum:
+        assert_sum_close(ts**2, js**2, what="encoder S^2")
+    else:
+        assert_close(ts, js, what="encoder S")
+    assert_sum_close((tu * ts**2) @ tu.T, (ju * js**2) @ ju.T, what="encoder U S^2 U^T")
+    # per-layer knowledge
+    assert len(tm.layer_knowledge) == len(jm.layer_knowledge)
+    for i, (tk, jk) in enumerate(zip(tm.layer_knowledge, jm.layer_knowledge)):
+        assert_sum_close(tk.g, jk.g, what=f"knowledge[{i}].g")
+        assert_sum_close(tk.m, jk.m, what=f"knowledge[{i}].m")
+    assert_close(tm.train_errors, jm.train_errors, what="train errors")

@@ -14,7 +14,15 @@ import torch
 from _torch_parity import lowrank_data
 
 from repro_torch.core import daef
-from repro_torch.kernels.rolann_stats import ops, rolann_stats, rolann_stats_plain
+from repro_torch.kernels.rolann_stats import (
+    ops,
+    rolann_fused_chunk,
+    rolann_fused_chunk_plain,
+    rolann_stats,
+    rolann_stats_acc,
+    rolann_stats_acc_plain,
+    rolann_stats_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -83,3 +91,102 @@ def test_fit_on_card_matches_host(card, backend):
     # by their condition number (10^3-10^4 here, with G growing with n
     # against a fixed lam): chip_smoke.py's bar, not TOLS.
     np.testing.assert_allclose(s_card, s_host, rtol=1e-3, atol=1e-5 * np.abs(s_host).max())
+
+
+def _running(o, m, dtype, dev):
+    gen = torch.Generator(device=dev).manual_seed(o * m)
+    a = torch.randn((o, m, m), generator=gen, device=dev) * 50
+    return ((a + a.transpose(1, 2)) / 2).to(dtype), torch.randn((o, m), generator=gen,
+                                                               device=dev).to(dtype)
+
+
+def _check_fold(fold, plain, g0, m0, wrapper):
+    """The kernel's fold against the plain fold from the same accumulators:
+    in place, one launch, G exactly symmetric, 1e-4 of the largest entry
+    (one bf16 ulp for bf16), the same bits on a repeat."""
+    g, mv = g0.clone(), m0.clone()
+    before = wrapper.launches
+    out = fold(g, mv)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert out[0] is g and out[1] is mv and g.dtype == g0.dtype
+    assert torch.equal(g, g.transpose(1, 2))
+    gp, mp = plain(g0.clone(), m0.clone())
+    tol = 2.0**-7 if g0.dtype == torch.bfloat16 else 1e-4
+    scale = max(float(gp.double().abs().max()), float(mp.double().abs().max()))
+    assert float((g.double() - gp.double()).abs().max()) <= tol * scale
+    assert float((mv.double() - mp.double()).abs().max()) <= tol * scale
+    g2, m2 = g0.clone(), m0.clone()
+    fold(g2, m2)
+    assert torch.equal(g, g2) and torch.equal(mv, m2)
+
+
+@pytest.mark.parametrize("m,o,n", [(28, 29, 32_768), (19, 15, 5_003), (37, 3, 517),
+                                   (70, 2, 2_049)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_acc_kernel_matches_plain(card, m, o, n, dtype):
+    xa, fsq, fd = _inputs(m, o, n, torch.float32, m * n + o, card)
+    fsq[:, n - n // 5:] = 0  # a masked tail
+    fd[:, n - n // 5:] = 0
+    g0, m0 = _running(o, m, dtype, card)
+    _check_fold(lambda g, mv: rolann_stats_acc(g, mv, xa, fsq, fd),
+                lambda g, mv: rolann_stats_acc_plain(g, mv, xa, fsq, fd), g0, m0,
+                rolann_stats_acc)
+
+
+@pytest.mark.parametrize("m_l,m_c1,n,act", [(15, 18, 32_768, "logsig"),
+                                            (24, 27, 26_507, "tanh"),
+                                            (40, 50, 3_001, "logsig"),
+                                            (3, 1, 65, "tanh")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_fused_chunk_kernel_matches_plain(card, m_l, m_c1, n, act, dtype):
+    gen = torch.Generator(device=card).manual_seed(m_l * n)
+    h = torch.sigmoid(2 * torch.randn((m_l, n), generator=gen, device=card))
+    if act == "tanh":
+        h = 2 * h - 1
+    w = torch.randn((m_l, m_c1), generator=gen, device=card) * (2 / (m_l + m_c1)) ** 0.5
+    b = torch.randn((m_c1,), generator=gen, device=card)
+    mask = (torch.rand((n,), generator=gen, device=card) > 0.1).float()
+    mask[n - n // 5:] = 0
+    g0, m0 = _running(m_l, m_c1 + 1, dtype, card)
+    _check_fold(lambda g, mv: rolann_fused_chunk(g, mv, h, w, b, mask, act_name=act),
+                lambda g, mv: rolann_fused_chunk_plain(g, mv, h, w, b, mask, act), g0, m0,
+                rolann_fused_chunk)
+
+
+def test_empty_chunk_folds_launch_nothing(card):
+    g0, m0 = _running(2, 4, torch.float32, card)
+    g, mv = g0.clone(), m0.clone()
+    before = (rolann_stats_acc.launches, rolann_fused_chunk.launches)
+    z = torch.zeros((4, 0), device=card)
+    rolann_stats_acc(g, mv, z, z[:2], z[:2])
+    rolann_fused_chunk(g, mv, z[:2], torch.zeros((2, 3), device=card),
+                       torch.zeros(3, device=card), torch.zeros(0, device=card),
+                       act_name="logsig")
+    assert (rolann_stats_acc.launches, rolann_fused_chunk.launches) == before
+    assert torch.equal(g, g0) and torch.equal(mv, m0)
+
+
+@pytest.mark.parametrize("act_last", ["linear", "logsig"])
+def test_streamed_fit_on_card_matches_host(card, act_last):
+    """fit_chunked and fit_stream on the card, fused backend: B3 for every
+    hidden layer chunk (and B2 for a logistic last layer), against the same
+    fits on the host.  The bar is test_fit_on_card_matches_host's."""
+    cfg = daef.DAEFConfig(layer_sizes=(10, 4, 6, 8, 10), lam_hidden=0.7, lam_last=0.9,
+                          act_last=act_last, stats_backend="fused")
+    x = lowrank_data(10, 4, 5_000, seed=2)
+    x_test = lowrank_data(10, 4, 1_000, seed=3)
+    if act_last == "logsig":
+        lo, hi = x.min(axis=1, keepdims=True), x.max(axis=1, keepdims=True)
+        x, x_test = (x - lo) / (hi - lo), (x_test - lo) / (hi - lo)
+    chunks = [x[:, i:i + 1_024] for i in range(0, 5_000, 1_024)]  # 4 x 1024 + 904
+    before = (rolann_fused_chunk.launches, rolann_stats_acc.launches)
+    m_card = daef.fit_chunked(cfg, x, chunk_samples=1_024)
+    s_card = daef.fit_stream(cfg, chunks)
+    launched = (rolann_fused_chunk.launches - before[0], rolann_stats_acc.launches - before[1])
+    assert launched == (2 * 2 * 5, (2 * 5 if act_last == "logsig" else 0))
+    m_host = daef.fit_chunked(cfg, x, chunk_samples=1_024, device="cpu")
+    want = daef.reconstruction_error(cfg, m_host, x_test, device="cpu").numpy()
+    for model in (m_card, s_card):
+        got = daef.reconstruction_error(cfg, model, x_test).cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-5 * np.abs(want).max())

@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import EPS32, assert_close, assert_sum_close, lowrank_data, to_np
+from _torch_parity import assert_close, assert_models_match, lowrank_data
 
 from repro.core import anomaly as jan
 from repro.core import daef as jdaef
@@ -44,33 +44,6 @@ def _fit_both(kw, x, n_partitions):
     jm = jdaef.fit(jcfg, jnp.asarray(x), n_partitions=n_partitions)
     tm = tdaef.fit(tcfg, x, n_partitions=n_partitions, device="cpu")
     return jcfg, tcfg, jm, tm
-
-
-def _assert_models_match(jm, tm, lam_last):
-    n_w = len(jm.weights)
-    for i in range(n_w - 1):
-        assert_close(tm.weights[i], jm.weights[i], what=f"weights[{i}]")
-    for i in range(n_w - 2):
-        assert_close(tm.biases[i], jm.biases[i], what=f"biases[{i}]")
-    # last layer: tolerance from the conditioning of its solve
-    k_last = jm.layer_knowledge[-1]
-    g = np.asarray(k_last.g, np.float64)
-    kappa = np.linalg.cond(g + lam_last * np.eye(g.shape[0]))
-    w_aug = np.concatenate([np.asarray(jm.weights[-1]), np.asarray(jm.biases[-1])[None]])
-    atol = 10.0 * kappa * EPS32 * float(np.abs(w_aug).max())
-    assert_close(tm.weights[-1], jm.weights[-1], atol=atol, rtol=0, what="last W")
-    assert_close(tm.biases[-1], jm.biases[-1], atol=atol, rtol=0, what="last b")
-    # encoder factors
-    assert_close(tm.encoder_factors.s, jm.encoder_factors.s, what="encoder S")
-    ju, js = (np.asarray(a) for a in jm.encoder_factors)
-    tu, ts = (to_np(a) for a in tm.encoder_factors)
-    assert_sum_close((tu * ts**2) @ tu.T, (ju * js**2) @ ju.T, what="encoder U S^2 U^T")
-    # per-layer knowledge
-    assert len(tm.layer_knowledge) == len(jm.layer_knowledge)
-    for i, (tk, jk) in enumerate(zip(tm.layer_knowledge, jm.layer_knowledge)):
-        assert_sum_close(tk.g, jk.g, what=f"knowledge[{i}].g")
-        assert_sum_close(tk.m, jk.m, what=f"knowledge[{i}].m")
-    assert_close(tm.train_errors, jm.train_errors, what="train errors")
 
 
 def _assert_classification_matches(jcfg, tcfg, jm, tm, x_test, truth, rule):
@@ -103,7 +76,7 @@ def test_fit_matches_reference(init, n_partitions, backend):
               stats_backend=backend)
     jcfg, tcfg, jm, tm = _fit_both(kw, x, n_partitions)
     assert [tuple(w.shape) for w in tm.weights] == [w.shape for w in jm.weights]
-    _assert_models_match(jm, tm, lam_last)
+    assert_models_match(jm, tm, lam_last)
     x_test = np.concatenate([lowrank_data(10, 4, 200, seed=1),
                              2.5 * np.random.default_rng(2).normal(size=(10, 40))], axis=1)
     truth = np.r_[np.zeros(200), np.ones(40)].astype(np.int32)
@@ -116,7 +89,7 @@ def test_fit_gram_solvers(solver):
     kw = dict(layer_sizes=(8, 3, 5, 8), lam_hidden=0.5, lam_last=0.5, gram_solver=solver)
     x = lowrank_data(8, 3, 500, seed=3)
     _, _, jm, tm = _fit_both(kw, x, 1)
-    _assert_models_match(jm, tm, 0.5)
+    assert_models_match(jm, tm, 0.5)
 
 
 def test_paper_replica_fit_score_classify():
@@ -125,7 +98,7 @@ def test_paper_replica_fit_score_classify():
     x_train, x_test, truth = synthetic.make_dataset("cardio").train_test_split(0)
     kw = dict(layer_sizes=(21, 4, 8, 12, 16, 21), lam_hidden=0.9, lam_last=0.9)
     jcfg, tcfg, jm, tm = _fit_both(kw, x_train, 4)
-    _assert_models_match(jm, tm, 0.9)
+    assert_models_match(jm, tm, 0.9)
     _assert_classification_matches(jcfg, tcfg, jm, tm, x_test, truth, "extreme_iqr")
 
 

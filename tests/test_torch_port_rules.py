@@ -10,7 +10,8 @@ import _torch_parity  # noqa: F401  (one torch thread)
 
 from repro_torch import device as tdevice
 from repro_torch import interop
-from repro_torch.core import anomaly, daef
+from repro_torch.core import activations, anomaly, daef, rolann
+from repro_torch.kernels import KERNELS, _build
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -68,6 +69,9 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     _no_card(monkeypatch)
     calls = [
         lambda: daef.fit(cfg, x),
+        lambda: daef.fit_chunked(cfg, x, chunk_samples=16),
+        lambda: daef.fit_stream(cfg, [x[:, :25], x[:, 25:]]),
+        lambda: rolann.init_stats(2, 4, activations.logsig),
         lambda: daef.predict(cfg, model, x),
         lambda: daef.reconstruction_error(cfg, model, x),
         lambda: anomaly.threshold(errs),
@@ -87,3 +91,14 @@ def test_model_on_another_device_is_not_moved_silently():
     meta = model._replace(weights=tuple(w.to("meta") for w in model.weights))
     with pytest.raises(ValueError, match="model lies on meta"):
         daef.predict(cfg, meta, np.ones((4, 5), np.float32), device="cpu")
+
+
+def test_every_kernel_library_has_its_source():
+    """Each library _build knows compiles one source in the repo; its file
+    name hashes that source and the headers beside it, so two libraries
+    never share a name.  Nothing is built here."""
+    paths = {name: _build.library_path(name) for name in KERNELS}
+    for name, path in paths.items():
+        assert _build.source(name).is_file() and _build.source(name).suffix == ".cu"
+        assert path.parent == _build.BUILD_DIR and path.name.startswith(f"lib{name}-")
+    assert len(set(paths.values())) == len(paths)
