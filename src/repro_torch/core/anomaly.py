@@ -45,16 +45,19 @@ def parse_quantile_rule(rule: str) -> float | None:
 
 
 def threshold(train_errors, rule: str = "extreme_iqr", *, device=None) -> torch.Tensor:
-    """mu (a 0-d tensor) from training reconstruction errors.
+    """mu (a 0-d tensor) from training reconstruction errors [n]; or one mu
+    per row, [K], from a fleet's errors [K, n] (one quantile call for every
+    tenant, as the reference's ``vmap`` of this function gives).
 
     rule: "unusual_iqr" | "extreme_iqr" | "q<percent>".
     """
     errs = as_tensor(train_errors, resolve_device(device))
+    dim = -1 if errs.ndim > 1 else None
     pct = parse_quantile_rule(rule)
     if pct is not None:
-        return torch.nanquantile(errs, pct / 100.0, interpolation="linear")
-    q1 = torch.nanquantile(errs, 0.25, interpolation="linear")
-    q3 = torch.nanquantile(errs, 0.75, interpolation="linear")
+        return torch.nanquantile(errs, pct / 100.0, dim=dim, interpolation="linear")
+    q1 = torch.nanquantile(errs, 0.25, dim=dim, interpolation="linear")
+    q3 = torch.nanquantile(errs, 0.75, dim=dim, interpolation="linear")
     iqr = q3 - q1
     if rule == "unusual_iqr":
         return q3 + 1.5 * iqr

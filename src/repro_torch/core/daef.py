@@ -13,9 +13,12 @@ An asymmetric deep autoencoder:
 Everything is closed-form — no gradients, no epochs.  Data is
 ``[features m0, samples n]``.
 
+Federated aggregation (paper §4.3): :func:`merge_models` merges two
+models' exchanged knowledge (encoder factors by Eq. 2, decoder (G, M) by
+sum) and re-solves the weights; :func:`partial_fit` absorbs a new block.
+
 Entry points take ``device=``: ``None`` means the card (see
-:mod:`repro_torch.device`).  The merges and ``partial_fit`` wait for ROADMAP
-queue A item 5.
+:mod:`repro_torch.device`).
 """
 from __future__ import annotations
 
@@ -93,9 +96,15 @@ class DAEFConfig:
         return layer_keys_from_seed(self.seed, len(self.layer_sizes))
 
 
-def layer_keys_from_seed(seed: int, n_layers: int) -> torch.Tensor:
-    """Stacked per-layer keys [n_layers, 2] (int64 holding uint32 words)."""
-    return threefry.split(threefry.PRNGKey(seed), max(1, n_layers))
+def layer_keys_from_seed(seed, n_layers: int) -> torch.Tensor:
+    """Stacked per-layer keys [n_layers, 2] (int64 holding uint32 words) of
+    an int seed, or [K, n_layers, 2] of a fleet's int32 seeds [K] (the keys
+    ``jax.vmap`` of the reference gives)."""
+    if isinstance(seed, torch.Tensor) and seed.ndim:
+        root = threefry.prng_keys(seed.cpu())
+    else:
+        root = threefry.PRNGKey(seed)
+    return threefry.split(root, max(1, n_layers))
 
 
 class DAEFModel(NamedTuple):
@@ -127,11 +136,7 @@ def fit(
     m0 = x.shape[0]
     if m0 != config.layer_sizes[0]:
         raise ValueError(f"input dim {m0} != layer_sizes[0] {config.layer_sizes[0]}")
-    if config.method != "gram":
-        raise NotImplementedError(
-            f"method={config.method!r} is not ported yet (ROADMAP queue A "
-            "items 3-5 port the svd route); use method='gram'"
-        )
+    _require_ported(config)
     config = config.resolved()
     return _fit_core(
         config, x, config.layer_keys(), config.lam_hidden, config.lam_last,
@@ -218,6 +223,15 @@ def _fit_core(
 # The reference's `lax.scan` and donated jitted steps become Python loops
 # whose steps update the running statistics in place.
 # ---------------------------------------------------------------------------
+
+def _require_ported(config: DAEFConfig) -> None:
+    """Fits and merges of ``method="svd"`` models wait for the svd route."""
+    if config.method != "gram":
+        raise NotImplementedError(
+            f"method={config.method!r} is not ported yet (ROADMAP queue A "
+            "items 3-5 port the svd route); use method='gram'"
+        )
+
 
 def _require_gram(config: DAEFConfig, what: str) -> None:
     if config.method != "gram":
@@ -390,11 +404,12 @@ def _chunk_mask(width: int, n_valid: int, device: torch.device) -> torch.Tensor:
     return (torch.arange(width, device=device) < n_valid).to(torch.float32)
 
 
-def _iter_padded_chunks(factory, m0: int, device: torch.device):
+def _iter_padded_chunks(factory, m0: int, device: torch.device, *, ndim: int = 2,
+                        what: str = "fit_stream"):
     """Yield (chunk on ``device``, mask, n_valid) with the ragged tail padded
     to the fixed chunk width, one host chunk uploaded at a time.  Only the
-    LAST chunk may be narrower; mid-stream width changes are an error."""
-    what = "fit_stream"
+    LAST chunk may be narrower; mid-stream width changes are an error.
+    A fleet's chunks are [K, m0, width] (``ndim=3``)."""
     it = iter(factory())
     prev = next(it, None)
     if prev is None:
@@ -403,10 +418,10 @@ def _iter_padded_chunks(factory, m0: int, device: torch.device):
     while prev is not None:
         cur = next(it, None)
         x = prev if isinstance(prev, torch.Tensor) else np.asarray(prev)
-        if x.ndim != 2 or x.shape[0] != m0:
+        if x.ndim != ndim or x.shape[-2] != m0:
             raise ValueError(
                 f"{what}: chunk shape {tuple(x.shape)} does not match the expected "
-                f"[{m0}, chunk_samples] layout"
+                f"[{'K, ' if ndim == 3 else ''}{m0}, chunk_samples] layout"
             )
         c = x.shape[-1]
         if width is None:
@@ -480,9 +495,106 @@ def reconstruction_error(
     return torch.mean((recon - x) ** 2, dim=0)
 
 
+# ---------------------------------------------------------------------------
+# Federated aggregation / incremental learning (gram method)
+# ---------------------------------------------------------------------------
+
+def merge_models(config: DAEFConfig, a: DAEFModel, b: DAEFModel) -> DAEFModel:
+    """Aggregate two DAEF models trained on different partitions (paper §4.3).
+
+    The exchanged state is what the paper sends through the broker: the
+    encoder's (U, S) factors and each decoder layer's ROLANN knowledge.
+    Weights are re-solved from the merged knowledge.  As in the paper, each
+    node computed its decoder statistics against its own encoder, so after
+    the encoders merge the decoder statistics approximate the centralized
+    solution.
+    """
+    return _merge_core(config, a, b, config.layer_keys(), config.lam_hidden,
+                       config.lam_last)
+
+
+def _merge_core(config: DAEFConfig, a: DAEFModel, b: DAEFModel, keys, lam_hidden,
+                lam_last) -> DAEFModel:
+    """Merge body: knowledge merge, then one re-solve."""
+    enc, knowledge, errors = merge_knowledge(config, a, b)
+    return _model_from_knowledge(config, enc, knowledge, keys, lam_hidden, lam_last,
+                                 errors)
+
+
+def merge_knowledge(
+    config: DAEFConfig, a: DAEFModel, b: DAEFModel
+) -> tuple[dsvd.SvdFactors, tuple, torch.Tensor]:
+    """Merge only the exchanged federated state of two models: encoder
+    factors (Eq. 2), per-layer (G, M) sums and the train-error pool.  The
+    weights are re-solved separately (:func:`_model_from_knowledge`), so a
+    tree reduction pays one solve at its root.  Leaves may carry a leading
+    tenant axis (a fleet's): the factors merge per tenant and the train
+    errors pool along the sample axis."""
+    _require_ported(config)
+    enc = dsvd.merge_pair(a.encoder_factors, b.encoder_factors)
+    knowledge = tuple(
+        rolann.merge_stats(ka, kb)
+        for ka, kb in zip(a.layer_knowledge, b.layer_knowledge, strict=True)
+    )
+    errors = torch.cat([a.train_errors, b.train_errors], dim=-1)
+    return enc, knowledge, errors
+
+
+def _model_from_knowledge(
+    config: DAEFConfig,
+    enc: dsvd.SvdFactors,
+    knowledge,
+    keys: torch.Tensor,
+    lam_hidden,
+    lam_last,
+    train_errors: torch.Tensor,
+) -> DAEFModel:
+    """Re-solve every layer's weights from (merged) federated knowledge.
+
+    A fleet passes leaves with a leading tenant axis [K], keys [K, L, 2] and
+    per-tenant lambdas [K]; one solve per layer covers every tenant."""
+    f_hl, f_ll = _acts(config)
+    sizes = config.layer_sizes
+    w_enc = enc.u[..., : config.latent_dim]
+    weights = [w_enc]
+    biases: list[torch.Tensor] = []
+    batched = keys.ndim == 3
+
+    for li in range(2, len(sizes) - 1):
+        layer_from = elm_ae.layer_from_knowledge_batched if batched else elm_ae.layer_from_knowledge
+        w, bias = layer_from(
+            knowledge[li - 2], keys[..., li, :], sizes[li - 1], sizes[li], lam_hidden, f_hl,
+            init=config.init, aux_bias=config.aux_bias, dtype=w_enc.dtype,
+            gram_solver=config.gram_solver,
+        )
+        weights.append(w)
+        biases.append(bias)
+
+    w_ll, b_ll = rolann.solve(knowledge[-1], lam_last, gram_solver=config.gram_solver,
+                              shared_f=f_ll.name == "linear")
+    weights.append(w_ll)
+    biases.append(b_ll)
+    return DAEFModel(
+        weights=tuple(weights),
+        biases=tuple(biases),
+        encoder_factors=enc,
+        layer_knowledge=tuple(knowledge),
+        train_errors=train_errors,
+    )
+
+
+def partial_fit(config: DAEFConfig, model: DAEFModel, x_new, *, device=None) -> DAEFModel:
+    """Incremental learning: absorb a new data block ``x_new`` [m0, n] into a
+    trained model (fit the block with the same seed, then merge).  The block
+    goes to the model's device."""
+    update = fit(config, x_new, device=_model_device(model, device))
+    return merge_models(config, model, update)
+
+
 def _split(x: torch.Tensor, p: int) -> list[torch.Tensor]:
+    """``p`` contiguous partitions of the sample (last) axis of ``x``."""
     if p <= 1:
         return [x]
-    n = x.shape[1]
+    n = x.shape[-1]
     bounds = [round(i * n / p) for i in range(p + 1)]
-    return [x[:, bounds[i] : bounds[i + 1]] for i in range(p)]
+    return [x[..., bounds[i] : bounds[i + 1]] for i in range(p)]

@@ -15,6 +15,11 @@ auxiliary random bias).
 The streaming fit trains the same layer as a fold: chunk by chunk
 :func:`accumulate_layer_stats` adds the layer's ROLANN statistics in place,
 and :func:`layer_from_knowledge` solves the weights from their sum.
+
+A tenant fleet trains one layer of every tenant at once: the ``_batched``
+functions take a leading tenant axis [K] on every tensor, one key per tenant
+[K, 2] and one lambda per tenant [K] (the reference vmaps the one-tenant
+functions instead).
 """
 from __future__ import annotations
 
@@ -56,10 +61,46 @@ def stage1(
 
 @functools.lru_cache(maxsize=64)
 def _stage1_cached(key_words, m_in, m_out, init, dtype, device):
-    k_w, k_b = threefry.split(torch.tensor(key_words, dtype=torch.int64))
+    return _draw(torch.tensor(key_words, dtype=torch.int64), m_in, m_out, init, dtype,
+                 device)
+
+
+def _draw(key, m_in, m_out, init, dtype, device):
+    """W_c1 and b_c1 of ``key`` [2], or of every key of a batch [K, 2]."""
+    keys = threefry.split(key)                   # [(K,) 2, 2]
+    k_w, k_b = keys[..., 0, :], keys[..., 1, :]
     w_c1 = initializers.get(init)(k_w, (m_in, m_out), dtype)
     b_c1 = threefry.normal(k_b, (m_out,), dtype)  # N(0, 1) per the paper
     return w_c1.to(device), b_c1.to(device)
+
+
+def stage1_batched(
+    keys: torch.Tensor,
+    m_in: int,
+    m_out: int,
+    init: str,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cpu",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`stage1` for every tenant of a fleet layer in one draw:
+    ``keys`` [K, 2] -> W_c1 [K, m_in, m_out], b_c1 [K, m_out], the values
+    ``jax.vmap(elm_ae.stage1)`` gives and, tenant by tenant, the same bits
+    as :func:`stage1` of that tenant's key.
+
+    Kept like :func:`stage1`'s draws, one entry per (key batch, widths,
+    init, dtype, device), for the last 16 such sets: a refit of the same
+    fleet reuses them.  The caller gets its own copy.
+    """
+    key_words = tuple(tuple(int(v) for v in k) for k in keys.reshape(-1, 2).tolist())
+    w_c1, b_c1 = _stage1_batched_cached(key_words, m_in, m_out, init, dtype,
+                                        torch.device(device))
+    return w_c1.clone(), b_c1.clone()
+
+
+@functools.lru_cache(maxsize=16)
+def _stage1_batched_cached(key_words, m_in, m_out, init, dtype, device):
+    return _draw(torch.tensor(key_words, dtype=torch.int64), m_in, m_out, init, dtype,
+                 device)
 
 
 def train_layer(
@@ -156,3 +197,88 @@ def layer_from_knowledge(
     else:
         raise ValueError(f"unknown aux_bias {aux_bias!r}")
     return w_next, b_next
+
+
+def train_layer_batched(
+    keys: torch.Tensor,
+    h_l: torch.Tensor,
+    m_next: int,
+    lam,
+    act: activations.Activation,
+    *,
+    init: str = "xavier",
+    aux_bias: str = "zero",
+    backend: str | None = None,
+    gram_solver: str = "chol",
+) -> LayerResult:
+    """:func:`train_layer` for every tenant of a fleet: keys [K, 2], h_l
+    [K, m_l, n], lam scalar or [K] -> w [K, m_l, m_next], b [K, m_next],
+    h [K, m_next, n] and knowledge with a leading [K].  One stage-1 draw,
+    one statistics call (B4 on the fused backend) and one solve."""
+    m_l = h_l.shape[1]
+    w_c1, b_c1 = stage1_batched(keys, m_l, m_next, init, h_l.dtype, h_l.device)
+    h_c1 = act.fn(w_c1.transpose(-1, -2) @ h_l + b_c1[..., None])  # [K, m_next, n]
+    knowledge = rolann.compute_stats_batched(h_c1, h_l, act, backend=backend)
+    w_c2, _ = rolann.solve(knowledge, lam, gram_solver=gram_solver,
+                           shared_f=act.name == "linear")
+    w_next = w_c2.transpose(-1, -2)  # [K, m_l, m_next]
+    if aux_bias == "zero":
+        b_next = torch.zeros_like(b_c1)
+    elif aux_bias == "c1":
+        b_next = b_c1
+    else:
+        raise ValueError(f"unknown aux_bias {aux_bias!r}")
+    h_next = act.fn(w_next.transpose(-1, -2) @ h_l + b_next[..., None])
+    return LayerResult(w=w_next, b=b_next, h=h_next, knowledge=knowledge)
+
+
+def accumulate_layer_stats_batched(
+    stats: rolann.RolannStats,
+    w_c1: torch.Tensor,
+    b_c1: torch.Tensor,
+    h_l: torch.Tensor,
+    act: activations.Activation,
+    *,
+    weights: torch.Tensor | None = None,
+    backend: str | None = None,
+) -> rolann.RolannStats:
+    """:func:`accumulate_layer_stats` for every tenant at once, in place:
+    w_c1 [K, m_l, m_c1], b_c1 [K, m_c1], h_l [K, m_l, n_chunk], weights
+    [K, n_chunk].  On the fused backend with a non-linear activation the
+    whole fold is one launch of the B6 kernel."""
+    resolved = stats_backend.resolve(backend)
+    if resolved == "fused" and act.name != "linear":
+        stats_backend.fused_chunk_acc_batched(stats.g, stats.m, h_l, w_c1, b_c1, weights,
+                                              act=act, backend=resolved)
+        return stats
+    h_c1 = act.fn(w_c1.transpose(-1, -2) @ h_l + b_c1[..., None])
+    return rolann.accumulate_stats_batched(stats, h_c1, h_l, act, weights=weights,
+                                           backend=resolved)
+
+
+def layer_from_knowledge_batched(
+    knowledge: rolann.RolannStats,
+    keys: torch.Tensor,
+    m_l: int,
+    m_next: int,
+    lam,
+    act: activations.Activation,
+    *,
+    init: str = "xavier",
+    aux_bias: str = "zero",
+    dtype: torch.dtype = torch.float32,
+    gram_solver: str = "chol",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`layer_from_knowledge` for every tenant: knowledge with a
+    leading [K], keys [K, 2], lam scalar or [K] -> w [K, m_l, m_next],
+    b [K, m_next]."""
+    w_c2, _ = rolann.solve(knowledge, lam, gram_solver=gram_solver,
+                           shared_f=act.name == "linear")
+    w_next = w_c2.transpose(-1, -2)
+    device = knowledge.m.device
+    if aux_bias == "c1":
+        _, b_c1 = stage1_batched(keys, m_l, m_next, init, dtype, device)
+        return w_next, b_c1
+    if aux_bias != "zero":
+        raise ValueError(f"unknown aux_bias {aux_bias!r}")
+    return w_next, torch.zeros((keys.shape[0], m_next), dtype=dtype, device=device)

@@ -3,7 +3,9 @@
 Counterpart of ``repro/core/initializers.py``.  Every federated node must
 generate the *same* stage-1 weights, so each initializer is a pure function
 of a key, drawn with :mod:`repro_torch.core.threefry` to give the bits
-``jax.random`` gives.  The draws are float32 on the host.
+``jax.random`` gives.  The draws are float32 on the host.  A key batch
+[K, 2] draws K matrices [K, *shape] in one call, as ``jax.vmap`` of the
+same initializer does.
 """
 from __future__ import annotations
 
@@ -30,14 +32,15 @@ def random_normal(
 def orthogonal(
     key: torch.Tensor, shape: tuple[int, int], dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:
-    """Orthogonal columns (QR of a Gaussian), scaled to unit gain."""
+    """Orthogonal columns (QR of a Gaussian), scaled to unit gain; a key
+    batch takes one batched QR."""
     rows, cols = shape
     big = max(rows, cols)
     a = threefry.normal(key, (big, min(rows, cols)))
     q, r = torch.linalg.qr(a)
     # Sign-fix for determinism across LAPACK implementations.
-    q = q * torch.sign(torch.diagonal(r))[None, :]
-    q = q[:rows, :cols] if rows >= cols else q[:cols, :rows].T
+    q = q * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))[..., None, :]
+    q = q[..., :rows, :cols] if rows >= cols else q[..., :cols, :rows].transpose(-1, -2)
     return q.to(dtype)
 
 

@@ -14,7 +14,11 @@ Data matrices are ``[features, samples]``; targets ``[outputs, samples]``.
 
 The streaming fit folds chunks through :func:`init_stats` and
 :func:`accumulate_stats` (in place); :func:`merge_stats` sums two Gram-form
-contributions.  Waiting for ROADMAP queue A item 4: ``compute_factors``,
+contributions.  A tenant fleet computes and folds every tenant's statistics
+at once through :func:`compute_stats_batched` and
+:func:`accumulate_stats_batched` (leading tenant axis [K] on every tensor,
+``init_stats(tenants=K)``), and :func:`solve` takes the batch with one
+lambda per tenant.  Waiting for ROADMAP queue A item 4: ``compute_factors``,
 ``factors_to_stats``, the factor merges and ``mask_knowledge``.
 """
 from __future__ import annotations
@@ -94,17 +98,19 @@ def compute_stats(
 
 def init_stats(
     n_inputs: int, n_outputs: int, act: activations.Activation,
-    dtype: torch.dtype = torch.float32, *, device=None,
+    dtype: torch.dtype = torch.float32, *, device=None, tenants: int | None = None,
 ) -> RolannStats:
     """Zero Gram-form accumulators on ``device`` (``None``: the card) for a
     streamed fit over inputs [n_inputs, ·] and targets [n_outputs, ·] — the
     identity of :func:`merge_stats`.  A linear activation shares one Gram
-    across outputs (see :func:`compute_stats`)."""
+    across outputs (see :func:`compute_stats`).  ``tenants=K`` puts a leading
+    tenant axis on both (a fleet's accumulators)."""
     dev = resolve_device(device)
     m_aug = n_inputs + 1  # bias row
+    lead = () if tenants is None else (tenants,)
     shape = (m_aug, m_aug) if act.name == "linear" else (n_outputs, m_aug, m_aug)
-    return RolannStats(g=torch.zeros(shape, dtype=dtype, device=dev),
-                       m=torch.zeros((n_outputs, m_aug), dtype=dtype, device=dev))
+    return RolannStats(g=torch.zeros((*lead, *shape), dtype=dtype, device=dev),
+                       m=torch.zeros((*lead, n_outputs, m_aug), dtype=dtype, device=dev))
 
 
 def accumulate_stats(
@@ -150,6 +156,61 @@ def accumulate_stats(
     return stats
 
 
+def _augment_batched(x: torch.Tensor) -> torch.Tensor:
+    """Append the bias row of ones to every tenant: [K, m, n] -> [K, m+1, n]."""
+    ones = torch.ones((x.shape[0], 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    return torch.cat([x, ones], dim=1)
+
+
+def compute_stats_batched(
+    x: torch.Tensor, d: torch.Tensor, act: activations.Activation, *,
+    backend: str | None = None,
+) -> RolannStats:
+    """:func:`compute_stats` for every tenant at once: x [K, m, n], d
+    [K, out, n] -> G [K, out, m+1, m+1] (one launch of the B4 kernel on the
+    fused backend), or the shared Gram [K, m+1, m+1] of a linear layer."""
+    act = activations.get(act.name, invertible_required=True)
+    xa = _augment_batched(x)  # [K, m+1, n]
+    dbar, fp = _targets(d, act)
+    fsq = fp * fp
+    if act.name == "linear":
+        m_vec = torch.einsum("kin,kon->koi", xa, fsq * dbar)
+        return RolannStats(g=xa @ xa.transpose(-1, -2), m=m_vec)
+    g, m_vec = stats_backend.gram_stats_batched(xa, fsq, fsq * dbar, backend=backend)
+    return RolannStats(g=g, m=m_vec)
+
+
+def accumulate_stats_batched(
+    stats: RolannStats,
+    x: torch.Tensor,
+    d: torch.Tensor,
+    act: activations.Activation,
+    *,
+    weights: torch.Tensor | None = None,
+    backend: str | None = None,
+) -> RolannStats:
+    """:func:`accumulate_stats` for every tenant at once, **in place**:
+    x [K, m, n], d [K, out, n] folded into accumulators with a leading [K]
+    (one launch of the B5 kernel on the fused backend for a non-linear
+    activation).  ``weights`` [K, n] masks each tenant's padded columns."""
+    act = activations.get(act.name, invertible_required=True)
+    xa = _augment_batched(x)
+    dbar, fp = _targets(d, act)
+    fsq = fp * fp
+    fd = fsq * dbar
+    if weights is not None:
+        w = weights.to(xa.dtype)[:, None, :]
+        fsq = fsq * w
+        fd = fd * w
+    if act.name == "linear":
+        xw = xa if weights is None else xa * w
+        stats.g.add_(xw @ xa.transpose(-1, -2))
+        stats.m.add_(torch.einsum("kin,kon->koi", xa, fd))
+        return stats
+    stats_backend.gram_stats_acc_batched(stats.g, stats.m, xa, fsq, fd, backend=backend)
+    return stats
+
+
 def merge_stats(a: RolannStats, b: RolannStats) -> RolannStats:
     """Gram-form merge: a plain sum (new tensors; ``a`` and ``b`` are kept)."""
     return RolannStats(g=a.g + b.g, m=a.m + b.m)
@@ -168,35 +229,49 @@ def stats_to_factors(stats: RolannStats) -> RolannFactors:
 GRAM_SOLVERS = ("chol", "auto", "eigh")
 
 
-def _solve_factors(knowledge: RolannFactors, lam) -> torch.Tensor:
-    """Factor-form augmented weights: w_aug[:, j] = U (S^2+lam)^-1 U^T m_j."""
+def _lam(lam, knowledge_leaf: torch.Tensor, trailing: int):
+    """``lam`` as it broadcasts against ``knowledge_leaf``: a Python number
+    as it is; a per-tenant tensor [K] (a fleet's) with ``trailing`` unit
+    axes behind it."""
+    if isinstance(lam, torch.Tensor) and lam.ndim:
+        return lam.to(knowledge_leaf.dtype).reshape(*lam.shape, *(1,) * trailing)
+    return lam
+
+
+def _solve_factors(knowledge: RolannFactors, lam, shared_f: bool) -> torch.Tensor:
+    """Factor-form augmented weights: w_aug[:, j] = U (S^2+lam)^-1 U^T m_j.
+    Leading tenant axes pass through; ``lam`` may be one per tenant."""
     u, s, m = knowledge
-    if knowledge.shared_f:
-        proj = u.T @ m.T  # [r, out]
-        return u @ (proj / (s * s + lam)[:, None])  # [m, out]
-    proj = torch.einsum("oir,oi->or", u, m)
-    return torch.einsum("oir,or->oi", u, proj / (s * s + lam)).T  # [m, out]
+    if shared_f:
+        proj = u.transpose(-1, -2) @ m.transpose(-1, -2)  # [..., r, out]
+        return u @ (proj / (s * s + _lam(lam, s, 1))[..., :, None])  # [..., m, out]
+    proj = torch.einsum("...oir,...oi->...or", u, m)
+    w = torch.einsum("...oir,...or->...oi", u, proj / (s * s + _lam(lam, s, 2)))
+    return w.transpose(-1, -2)  # [..., m, out]
 
 
-def _solve_stats_chol(stats: RolannStats, lam) -> torch.Tensor:
+def _solve_stats_chol(stats: RolannStats, lam, shared_f: bool) -> torch.Tensor:
     """Gram-form augmented weights by Cholesky: (G + lam I) w_j = m_j.
+    Leading tenant axes pass through; ``lam`` may be one per tenant [K].
 
     Where ``G + lam I`` is not positive definite the weights are NaN, as the
     reference's ``jnp.linalg.cholesky`` makes them (``torch.linalg.cholesky``
-    would raise instead).
+    would raise instead); in a fleet, only that tenant's (or output's).
     """
     m_dim = stats.m.shape[-1]
     eye = torch.eye(m_dim, dtype=stats.g.dtype, device=stats.g.device)
-    chol, info = torch.linalg.cholesky_ex(stats.g + lam * eye)
-    if stats.shared_f:
-        w = torch.cholesky_solve(stats.m.T, chol)  # [m, out]
-        return torch.where(info == 0, w, torch.nan)
-    w = torch.cholesky_solve(stats.m.unsqueeze(-1), chol).squeeze(-1)  # [out, m]
-    return torch.where((info == 0)[:, None], w, torch.nan).T  # [m, out]
+    lam_b = _lam(lam, stats.g, 2 if shared_f else 3)
+    chol, info = torch.linalg.cholesky_ex(stats.g + lam_b * eye)
+    if shared_f:
+        w = torch.cholesky_solve(stats.m.transpose(-1, -2), chol)  # [..., m, out]
+        return torch.where((info == 0)[..., None, None], w, torch.nan)
+    w = torch.cholesky_solve(stats.m.unsqueeze(-1), chol).squeeze(-1)  # [..., out, m]
+    return torch.where((info == 0)[..., None], w, torch.nan).transpose(-1, -2)  # [..., m, out]
 
 
 def solve(
-    knowledge: RolannStats | RolannFactors, lam: float, *, gram_solver: str = "chol"
+    knowledge: RolannStats | RolannFactors, lam, *, gram_solver: str = "chol",
+    shared_f: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Return (W [m_in, out], b [out]) from accumulated knowledge (Eq. 10).
 
@@ -204,25 +279,38 @@ def solve(
 
     * ``"chol"`` (default) — direct Cholesky solve;
     * ``"eigh"``           — eigh of G, then the factor solve;
-    * ``"auto"``           — Cholesky, redone by the eigh route when a
+    * ``"auto"``           — Cholesky, redone by the eigh route where a
                              factorization failed or the solution is not
-                             finite (one host sync to decide).
+                             finite (one host sync to decide; in a fleet,
+                             per tenant, as the reference's vmapped
+                             ``lax.cond`` selects).
 
     Factor-form knowledge always uses the factor solve.
+
+    A fleet's knowledge carries a leading tenant axis [K] on every leaf, and
+    ``lam`` may then be a [K] tensor; W and b come back [K, m_in, out] and
+    [K, out].  The layer's kind cannot be read from the leaves' rank then (a
+    fleet's shared Gram [K, m, m] has the rank of one tenant's per-output G),
+    so a fleet passes ``shared_f``; ``None`` reads it from one tenant's
+    knowledge (``knowledge.shared_f``).
     """
     if gram_solver not in GRAM_SOLVERS:
         raise ValueError(
             f"unknown gram_solver {gram_solver!r}: choose from {GRAM_SOLVERS}"
         )
+    shared = knowledge.shared_f if shared_f is None else shared_f
     if isinstance(knowledge, RolannStats) and gram_solver != "eigh":
-        w_aug = _solve_stats_chol(knowledge, lam)
-        if gram_solver == "auto" and not bool(torch.isfinite(w_aug).all()):
-            w_aug = _solve_factors(stats_to_factors(knowledge), lam)
-        return w_aug[:-1, :], w_aug[-1, :]
+        w_aug = _solve_stats_chol(knowledge, lam, shared)
+        if gram_solver == "auto":
+            finite = torch.isfinite(w_aug).all(dim=-1).all(dim=-1)  # per tenant
+            if not bool(finite.all()):
+                w_fac = _solve_factors(stats_to_factors(knowledge), lam, shared)
+                w_aug = torch.where(finite[..., None, None], w_aug, w_fac)
+        return w_aug[..., :-1, :], w_aug[..., -1, :]
     if isinstance(knowledge, RolannStats):
         knowledge = stats_to_factors(knowledge)
-    w_aug = _solve_factors(knowledge, lam)
-    return w_aug[:-1, :], w_aug[-1, :]
+    w_aug = _solve_factors(knowledge, lam, shared)
+    return w_aug[..., :-1, :], w_aug[..., -1, :]
 
 
 def fit(

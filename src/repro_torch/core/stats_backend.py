@@ -30,8 +30,12 @@ reference donated them to each jitted step):
   ``rolann_fused_chunk`` CUDA kernel (B3) on the fused backend, whose plain
   version is this module's einsum route.
 
-The tenant-batched entry points and their vmap rules wait for the fleet
-slice (ROADMAP queue A item 8).
+A tenant fleet calls the ``_batched`` twins of all three by name, with a
+leading tenant axis [K] on every tensor: :func:`gram_stats_batched` (B4 on
+the fused backend), :func:`gram_stats_acc_batched` (B5) and
+:func:`fused_chunk_acc_batched` (B6).  The reference reaches them through
+``custom_vmap`` rules on the one-tenant entry points; the port has no vmap
+and writes the batch axis out instead.
 """
 from __future__ import annotations
 
@@ -99,6 +103,37 @@ def gram_stats_acc(
     return g, m
 
 
+def gram_stats_batched(
+    xa: torch.Tensor, fsq: torch.Tensor, fd: torch.Tensor, *,
+    backend: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tenant-batched (G, M): xa [k, m, n], fsq/fd [k, o, n] -> G [k, o, m, m],
+    M [k, o, m].  One launch of the B4 kernel on the fused backend."""
+    if resolve(backend) == "fused":
+        from repro_torch.kernels.rolann_stats import rolann_stats_batched
+
+        return rolann_stats_batched(xa, fsq, fd)
+    g = torch.einsum("kin,kon,kjn->koij", xa, fsq, xa)
+    m = torch.einsum("kin,kon->koi", xa, fd)
+    return g, m
+
+
+def gram_stats_acc_batched(
+    g: torch.Tensor, m: torch.Tensor, xa: torch.Tensor, fsq: torch.Tensor,
+    fd: torch.Tensor, *, backend: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tenant-batched fold, in place: g [k, o, mm, mm], m [k, o, mm] +=
+    (G, M) of xa [k, mm, n_chunk], fsq/fd [k, o, n_chunk].  One launch of the
+    B5 kernel on the fused backend."""
+    if resolve(backend) == "fused":
+        from repro_torch.kernels.rolann_stats import rolann_stats_acc_batched
+
+        return rolann_stats_acc_batched(g, m, xa, fsq, fd)
+    g.add_(torch.einsum("kin,kon,kjn->koij", xa, fsq, xa))
+    m.add_(torch.einsum("kin,kon->koi", xa, fd))
+    return g, m
+
+
 def _fused_chunk_targets(h: torch.Tensor, act: activations.Activation):
     """Target transform of an ELM-AE chunk fold (the targets ARE the layer
     input), in ``rolann.accumulate_stats``' order: clip, inv, deriv, fsq, fd."""
@@ -161,5 +196,51 @@ def fused_chunk_acc(
     )
 
 
-__all__ = ["AUTO", "BACKENDS", "DEFAULT", "ENV_VAR", "fused_chunk_acc", "gram_stats",
-           "gram_stats_acc", "resolve"]
+def _fused_chunk_acc_batched_einsum(g, m, h, w, b, mask, act: activations.Activation):
+    """The einsum route of :func:`fused_chunk_acc_batched`, in the inputs'
+    dtype, folded into ``g``, ``m`` in place — also the plain version of the
+    B6 kernel (``rolann_fused_chunk_batched_plain`` runs it in float32).
+    The reference's op order: stage-1 product and bias, activation, targets
+    (clip, inv, deriv, fsq, fd), then the mask."""
+    h_c1 = act.fn(torch.einsum("kim,kin->kmn", w, h) + b[:, :, None])  # [k, m_c1, n]
+    ones = torch.ones((h_c1.shape[0], 1, h_c1.shape[2]), dtype=h_c1.dtype,
+                      device=h_c1.device)
+    xa = torch.cat([h_c1, ones], dim=1)
+    fsq, fd = _fused_chunk_targets(h, act)
+    fsq = fsq * mask[:, None, :]
+    fd = fd * mask[:, None, :]
+    g.add_(torch.einsum("kin,kon,kjn->koij", xa, fsq, xa))
+    m.add_(torch.einsum("kin,kon->koi", xa, fd))
+    return g, m
+
+
+def fused_chunk_acc_batched(
+    g: torch.Tensor, m: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+    b: torch.Tensor, mask: torch.Tensor | None = None, *, act,
+    backend: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tenant-batched fused chunk fold, in place: g [k, o, ma, ma],
+    m [k, o, ma]; h [k, m_l, n]; every tenant's own stage-1 encoder
+    w [k, m_l, m_c1], b [k, m_c1]; mask [k, n] or None (all ones).  One
+    launch of the B6 kernel for the whole fleet's chunk on the fused
+    backend.  The reference takes b as [k, m_c1] here too; its kernel's
+    [k, m_c1, 1] and [k, 1, n] layouts are the wrapper's business.  Like
+    the reference's, it does not refuse the linear activation itself: the
+    einsum route folds it, the kernel's wrapper raises."""
+    act_name = act if isinstance(act, str) else act.name
+    if mask is None:
+        mask = torch.ones((h.shape[0], h.shape[2]), dtype=h.dtype, device=h.device)
+    else:
+        mask = torch.as_tensor(mask, device=h.device).to(h.dtype)
+    if resolve(backend) == "fused":
+        from repro_torch.kernels.rolann_stats import rolann_fused_chunk_batched
+
+        return rolann_fused_chunk_batched(g, m, h, w, b, mask, act_name=act_name)
+    return _fused_chunk_acc_batched_einsum(
+        g, m, h, w, b, mask, activations.get(act_name, invertible_required=True)
+    )
+
+
+__all__ = ["AUTO", "BACKENDS", "DEFAULT", "ENV_VAR", "fused_chunk_acc",
+           "fused_chunk_acc_batched", "gram_stats", "gram_stats_acc",
+           "gram_stats_acc_batched", "gram_stats_batched", "resolve"]

@@ -9,10 +9,13 @@ sites to agree on those weights -- the port must draw the same bits as
 on: ``PRNGKey``, ``split``, ``random_bits`` (32-bit), ``uniform`` and
 ``normal``.
 
-Keys are int64 tensors of shape ``[2]`` (or ``[..., 2]``) holding the two
-uint32 words of a JAX key; ``numpy.asarray(jax_key).astype(np.int64)`` gives
-the same values.  Everything runs on the host: the matrices drawn in a fit
-are at most a few hundred entries, so callers move the result to the card.
+Keys are int64 tensors of shape ``[2]`` holding the two uint32 words of a
+JAX key; ``numpy.asarray(jax_key).astype(np.int64)`` gives the same values.
+A batch of keys ``[..., 2]`` (a tenant fleet's) draws for every key in one
+call: each function then returns its result with the batch's leading axes
+in front, the bits ``jax.vmap`` of the same call gives.  Everything runs on
+the host: the matrices drawn in a fit are at most a few hundred entries per
+key, so callers move the result to the card.
 
 Floating draws are float32, JAX's default.  A float64 request gets the
 float32 draw widened; JAX in 64-bit mode would draw 64-bit bits instead.
@@ -35,12 +38,23 @@ def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
     return ((v << r) | (v >> (32 - r))) & _MASK
 
 
+def _key_words(key: torch.Tensor, ndim: int):
+    """The two words of ``key`` [2] as ints, or of a key batch [..., 2] as
+    tensors shaped to broadcast in front of ``ndim`` counter axes."""
+    if key.ndim == 1:
+        k0, k1 = (int(v) for v in key.reshape(2).tolist())
+        return k0, k1
+    lead = (*key.shape[:-1], *(1,) * ndim)
+    return key[..., 0].reshape(lead), key[..., 1].reshape(lead)
+
+
 def threefry2x32(
     key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Threefry-2x32 (20 rounds) of the counter words ``(x0, x1)`` under
-    ``key``; all values are uint32 held in int64 tensors."""
-    k0, k1 = (int(v) for v in key.reshape(2).tolist())
+    ``key``; all values are uint32 held in int64 tensors.  A key batch
+    [..., 2] gives results of shape ``[..., *x0.shape]``."""
+    k0, k1 = _key_words(key, x0.ndim)
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -66,15 +80,25 @@ def PRNGKey(seed: int) -> torch.Tensor:  # noqa: N802 (jax.random's name)
     return torch.tensor([(seed >> 32) & _MASK, seed & _MASK], dtype=torch.int64)
 
 
+def prng_keys(seeds: torch.Tensor) -> torch.Tensor:
+    """Keys [K, 2] of int32 seeds [K], as ``jax.vmap(jax.random.PRNGKey)``
+    makes them: a 32-bit seed has no high word (0), and its low word is the
+    seed's two's-complement bits."""
+    lo = seeds.to(torch.int64) & _MASK
+    return torch.stack([torch.zeros_like(lo), lo], dim=-1)
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``num`` new keys ``[num, 2]``: key i is threefry of the counter (0, i)."""
+    """``num`` new keys ``[num, 2]``: key i is threefry of the counter (0, i).
+    A key batch [..., 2] gives [..., num, 2]."""
     hi, lo = _counters((num,))
     b0, b1 = threefry2x32(key, hi, lo)
     return torch.stack([b0, b1], dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """32-bit random words of ``shape`` (``jax.random.bits`` for uint32)."""
+    """32-bit random words of ``shape`` (``jax.random.bits`` for uint32);
+    ``[..., *shape]`` for a key batch [..., 2]."""
     shape = tuple(shape)
     hi, lo = _counters(shape)
     b0, b1 = threefry2x32(key, hi, lo)
@@ -89,7 +113,8 @@ def uniform(
     maxval: float | torch.Tensor = 1.0,
 ) -> torch.Tensor:
     """U[minval, maxval) of ``shape``: the mantissa of 1.0 filled with the top
-    23 random bits, minus one, scaled and shifted in float32."""
+    23 random bits, minus one, scaled and shifted in float32 (``[..., *shape]``
+    for a key batch [..., 2])."""
     bits = random_bits(key, shape)
     float_bits = (bits >> (32 - _NMANT_F32)) | _ONE_F32_BITS
     floats = float_bits.to(torch.int32).view(torch.float32) - 1.0

@@ -6,9 +6,12 @@ the reference ``DAEFModel`` (gram method):
     weights[0..L-1], biases[0..L-2], encoder_factors.u, encoder_factors.s,
     then (g, m) of each layer's knowledge, then train_errors
 
-with ``L = len(config.layer_sizes) - 1``.  Neither side needs the other's
-framework: the JAX side flattens with ``jax.tree.flatten`` and converts each
-leaf with ``numpy.asarray``; this module does the rest.
+with ``L = len(config.layer_sizes) - 1``.  A fleet crosses the same way as
+the leaves of ``jax.tree.flatten(DAEFFleet)``: the model's leaves, each with
+a leading [K], then ``seeds`` (int32), ``lam_hidden`` and ``lam_last``.
+Neither side needs the other's framework: the JAX side flattens with
+``jax.tree.flatten`` and converts each leaf with ``numpy.asarray``; this
+module does the rest.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.core import dsvd, rolann
 from repro_torch.core.daef import DAEFConfig, DAEFModel
+from repro_torch.core.fleet import DAEFFleet, _tree_leaves
 from repro_torch.device import resolve_device
 
 
@@ -58,3 +62,25 @@ def model_to_numpy(model: DAEFModel) -> list[np.ndarray]:
         leaves.extend(k)
     leaves.append(model.train_errors)
     return [t.detach().cpu().numpy() for t in leaves]
+
+
+def fleet_from_numpy(config: DAEFConfig, leaves, *, device=None) -> DAEFFleet:
+    """The port's ``DAEFFleet`` on ``device`` from reference fleet leaves."""
+    leaves = list(leaves)
+    want = _n_leaves(config) + 3
+    if len(leaves) != want:
+        raise ValueError(
+            f"expected {want} leaves for a fleet of layer_sizes "
+            f"{config.layer_sizes}, got {len(leaves)}"
+        )
+    model = model_from_numpy(config, leaves[:-3], device=device)
+    dev = resolve_device(device)
+    seeds, lam_hidden, lam_last = (torch.as_tensor(np.array(leaf), device=dev)
+                                   for leaf in leaves[-3:])
+    return DAEFFleet(model=model, seeds=seeds.to(torch.int32), lam_hidden=lam_hidden,
+                     lam_last=lam_last)
+
+
+def fleet_to_numpy(fleet: DAEFFleet) -> list[np.ndarray]:
+    """The fleet's leaves as numpy arrays, in ``jax.tree.flatten`` order."""
+    return [t.detach().cpu().numpy() for t in _tree_leaves(fleet)]

@@ -1,8 +1,10 @@
 // Fused ROLANN chunk fold on Hopper (sm_90a), plain FP32 CUDA cores.
 //
-// Replaces the Pallas TPU kernel `rolann_fused_chunk_kernel` (B3) of
+// Replaces the Pallas TPU kernels `rolann_fused_chunk_kernel` (B3) of
 // src/repro/kernels/rolann_stats/kernel.py (bodies `_kernel_fused_chunk` and
-// `_fused_chunk_deltas`).  One streamed chunk of an ELM-AE decoder layer:
+// `_fused_chunk_deltas`) and its tenant-batched twin
+// `rolann_fused_chunk_kernel_batched` (B6, body `_kernel_fused_chunk_batched`).
+// One streamed chunk of an ELM-AE decoder layer:
 //
 //     xa    = [act(wᵀ h + b); 1]                       [ma, n], ma = m_c1 + 1
 //     d̄     = inv(clip(h[o])),  f' = deriv(d̄)          per output o < m_l
@@ -10,7 +12,10 @@
 //     G[o] += xa · diag(fsq) · xaᵀ,  M[o] += xa · fd    (g [m_l, ma, ma], mv [m_l, ma])
 //
 // with h [m_l, n], w [m_l, m_c1], b [m_c1], mask [n], all float32 and
-// row-major, summed in float32.  The targets are h itself (the auxiliary
+// row-major, summed in float32.  B6 does this for k tenants in one launch,
+// each with its own chunk, stage-1 encoder and mask: h [k, m_l, n],
+// w [k, m_l, m_c1], b [k, m_c1], mask [k, n], g [k, m_l, ma, ma],
+// mv [k, m_l, ma].  The targets are h itself (the auxiliary
 // autoencoder reconstructs its input), so o == m_l.  The activation and the
 // target transform never reach device memory.  The device functions below
 // are written as repro_torch/core/activations.py writes them (logsig as
@@ -40,6 +45,21 @@
 // fsq = fd = 0.  Shared memory is dynamic, (4736 + 128·m_l) floats or B1's
 // partials' size if larger, so any m_l up to 417 fits in one block.
 //
+// The tenant axis, as in rolann_stats.cu: B3 is the k = 1 case of the same
+// template.  Grid axis x runs over the k·m_l (tenant, output) pairs,
+// blockIdx.x = t·m_l + o, so the workspace and the accumulators are
+// contiguous [k·m_l, ...] arrays; h, w, b and the mask take tenant t's
+// offset.  On the fleet path (k = 64, chunks of 1,024) the pairs give
+// 960–1,536 blocks and one slice per launch.  Registers bound both: the
+// offsets, kept live through the sample loop, took the kernel from 57–64 to
+// 80 registers a thread, 3 blocks of 256 threads per SM instead of 4, and
+// made B3 4 % slower on the card.  So the offsets are compiled in only for
+// B6 (kBatched), and the kernel is held to 4 blocks per SM (64 registers, a
+// few bytes spilled): B6 ran 4 % faster than at 80 registers and B3 no
+// slower than before the tenant axis.  (Profiler kernel times from
+// chip_smoke.py; a bound of 1 block per SM let the compiler take 113
+// registers and made B3 25 % slower.)
+//
 // No float atomics: the result is the same from run to run, and the running
 // G stays exactly symmetric.
 
@@ -52,6 +72,9 @@ using namespace rolann;
 constexpr int kLogsig = 0;
 constexpr int kTanh = 1;
 constexpr int kSamplesPerLane = kChunk / (kThreads / 32);   // 8
+// Blocks of kThreads each SM must hold at once: at most 64 registers a
+// thread (see "The tenant axis" above).
+constexpr int kMinBlocksPerSm = 4;
 
 template <int A>
 __device__ __forceinline__ float act_fn(float z) {
@@ -78,8 +101,8 @@ __device__ __forceinline__ float act_clip(float y) {
   return y < lo ? lo : (y > hi ? hi : y);
 }
 
-template <int kGroupWarps, int A>
-__global__ void __launch_bounds__(kThreads)
+template <int kGroupWarps, int A, bool kBatched>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 fused_partial_kernel(const float* __restrict__ h, const float* __restrict__ w,
                      const float* __restrict__ b, const float* __restrict__ mask,
                      float* __restrict__ ws_g, float* __restrict__ ws_m, int m_l, int m_c1,
@@ -94,8 +117,15 @@ fused_partial_kernel(const float* __restrict__ h, const float* __restrict__ w,
   float* s_wj = s_wi + m_l * kTile;          // [m_l][kTile] w's columns j0..
 
   const int m = m_c1 + 1;
-  const int o = m_l;
-  const int oi = blockIdx.x;
+  const int pair = blockIdx.x;               // t·m_l + oi
+  const int oi = kBatched ? pair % m_l : pair;
+  if (kBatched) {                            // tenant t's chunk, encoder and mask
+    const long long t = pair / m_l;
+    h += t * m_l * n;
+    w += t * m_l * m_c1;
+    b += t * m_c1;
+    mask += t * n;
+  }
   int ti, tj;
   tri_index(blockIdx.y, tiles, &ti, &tj);
   const int slice = blockIdx.z;
@@ -187,15 +217,15 @@ fused_partial_kernel(const float* __restrict__ h, const float* __restrict__ w,
     __syncthreads();
   }
   __syncthreads();  // the staging buffers become the partials' buffers
-  write_partials(p, smem, ws_g, ws_m, slice, o, oi, m, i0, j0, diag);
+  write_partials(p, smem, ws_g, ws_m, slice, gridDim.x, pair, m, i0, j0, diag);
 }
 
-template <int kGroupWarps, int A>
+template <int kGroupWarps, int A, bool kBatched>
 int launch_partial(dim3 grid, size_t smem_bytes, cudaStream_t st, const float* h,
                    const float* w, const float* b, const float* mask, float* ws_g,
                    float* ws_m, int m_l, int m_c1, long long n, int tiles,
                    long long slice_len) {
-  auto kernel = fused_partial_kernel<kGroupWarps, A>;
+  auto kernel = fused_partial_kernel<kGroupWarps, A, kBatched>;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes));
@@ -206,6 +236,23 @@ int launch_partial(dim3 grid, size_t smem_bytes, cudaStream_t st, const float* h
   return static_cast<int>(cudaGetLastError());
 }
 
+// The partial kernel for the tile layout of ma and the activation.
+template <bool kBatched>
+int launch_partial_for(int ma, int act, dim3 grid, size_t smem, cudaStream_t st,
+                       const float* h, const float* w, const float* b, const float* mask,
+                       float* ws_g, float* ws_m, int m_l, int m_c1, long long n, int tiles,
+                       long long slice_len) {
+  auto run = [&](auto fn) {
+    return fn(grid, smem, st, h, w, b, mask, ws_g, ws_m, m_l, m_c1, n, tiles, slice_len);
+  };
+  if (ma <= kSmallM) {
+    return act == kLogsig ? run(launch_partial<1, kLogsig, kBatched>)
+                          : run(launch_partial<1, kTanh, kBatched>);
+  }
+  return act == kLogsig ? run(launch_partial<2, kLogsig, kBatched>)
+                        : run(launch_partial<2, kTanh, kBatched>);
+}
+
 // Floats of dynamic shared memory the partial kernel takes for m_l and ma.
 // Above the 227 KB a block may have (m_l > 417), cudaFuncSetAttribute
 // refuses and the launch returns its error.
@@ -213,6 +260,23 @@ long long smem_floats(int m_l, int ma) {
   const long long stage = 2LL * kChunk * kLd + 2 * kChunk + (long long)m_l * (kChunk + 2 * kTile);
   const long long red = ma <= kSmallM ? Layout<1>::kRedFloats : Layout<2>::kRedFloats;
   return stage > red ? stage : red;
+}
+
+int launch(const float* h, const float* w, const float* b, const float* mask, float* ws_g,
+           float* ws_m, float* g, float* mv, int k, int m_l, int m_c1, long long n, int act,
+           int slices, long long slice_len, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ma = m_c1 + 1;
+  const int tiles = (ma + kTile - 1) / kTile;
+  const dim3 grid(k * m_l, tiles * (tiles + 1) / 2, slices);
+  const size_t smem = sizeof(float) * smem_floats(m_l, ma);
+  const int err =
+      k > 1 ? launch_partial_for<true>(ma, act, grid, smem, st, h, w, b, mask, ws_g, ws_m, m_l,
+                                       m_c1, n, tiles, slice_len)
+            : launch_partial_for<false>(ma, act, grid, smem, st, h, w, b, mask, ws_g, ws_m, m_l,
+                                        m_c1, n, tiles, slice_len);
+  if (err != 0) return err;
+  return launch_reduce(ws_g, ws_m, g, mv, ma, k * m_l, slices, true, st);
 }
 
 }  // namespace
@@ -226,25 +290,19 @@ extern "C" int rolann_fused_chunk_f32(const float* h, const float* w, const floa
                                       const float* mask, float* ws_g, float* ws_m, float* g,
                                       float* mv, int m_l, int m_c1, long long n, int act,
                                       int slices, long long slice_len, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ma = m_c1 + 1;
-  const int tiles = (ma + kTile - 1) / kTile;
-  const dim3 grid(m_l, tiles * (tiles + 1) / 2, slices);
-  const size_t smem = sizeof(float) * smem_floats(m_l, ma);
-  int err;
-  if (ma <= kSmallM) {
-    err = act == kLogsig
-              ? launch_partial<1, kLogsig>(grid, smem, st, h, w, b, mask, ws_g, ws_m, m_l, m_c1,
-                                           n, tiles, slice_len)
-              : launch_partial<1, kTanh>(grid, smem, st, h, w, b, mask, ws_g, ws_m, m_l, m_c1,
-                                         n, tiles, slice_len);
-  } else {
-    err = act == kLogsig
-              ? launch_partial<2, kLogsig>(grid, smem, st, h, w, b, mask, ws_g, ws_m, m_l, m_c1,
-                                           n, tiles, slice_len)
-              : launch_partial<2, kTanh>(grid, smem, st, h, w, b, mask, ws_g, ws_m, m_l, m_c1,
-                                         n, tiles, slice_len);
-  }
-  if (err != 0) return err;
-  return launch_reduce(ws_g, ws_m, g, mv, ma, m_l, slices, true, st);
+  return launch(h, w, b, mask, ws_g, ws_m, g, mv, 1, m_l, m_c1, n, act, slices, slice_len,
+                stream);
+}
+
+// B6: B3 for k tenants in one launch: h [k, m_l, n], w [k, m_l, m_c1],
+// b [k, m_c1], mask [k, n] folded into g [k, m_l, ma, ma], mv [k, m_l, ma].
+// ws_g [slices, k·m_l, ma, ma] and ws_m [slices, k·m_l, ma] are scratch;
+// slices are planned for k·m_l (tenant, output) pairs.
+extern "C" int rolann_fused_chunk_batched_f32(const float* h, const float* w, const float* b,
+                                              const float* mask, float* ws_g, float* ws_m,
+                                              float* g, float* mv, int k, int m_l, int m_c1,
+                                              long long n, int act, int slices,
+                                              long long slice_len, void* stream) {
+  return launch(h, w, b, mask, ws_g, ws_m, g, mv, k, m_l, m_c1, n, act, slices, slice_len,
+                stream);
 }

@@ -1,16 +1,20 @@
 // ROLANN sufficient statistics on Hopper (sm_90a), plain FP32 CUDA cores.
 //
-// Replaces two Pallas TPU kernels of src/repro/kernels/rolann_stats/kernel.py:
-// `rolann_stats_kernel` (B1, `rolann_stats_f32`) and the streaming fold
+// Replaces four Pallas TPU kernels of src/repro/kernels/rolann_stats/kernel.py:
+// `rolann_stats_kernel` (B1, `rolann_stats_f32`), the streaming fold
 // `rolann_stats_kernel_acc` (B2, `rolann_stats_acc_f32`), which adds the same
-// statistics into running accumulators.  Per output o:
+// statistics into running accumulators, and their tenant-batched twins
+// `rolann_stats_kernel_batched` (B4, `rolann_stats_batched_f32`) and
+// `rolann_stats_kernel_acc_batched` (B5, `rolann_stats_acc_batched_f32`),
+// which do the same for k tenants in one launch.  Per output o:
 //
 //     G[o] = xa · diag(fsq[o]) · xaᵀ        [o, m, m]
 //     M[o] = xa · fd[o]                     [o, m]
 //
 // with xa [m, n], fsq and fd [o, n], all float32 and row-major, summed in
-// float32.  Each term is formed as (xa[i]·fsq[o]) · xa[j], the reference's
-// order.
+// float32 (and per tenant t of B4/B5: xa [k, m, n], fsq and fd [k, o, n],
+// G [k, o, m, m], M [k, o, m]).  Each term is formed as (xa[i]·fsq[o]) ·
+// xa[j], the reference's order.
 //
 // What bounds it.  Per launch the work is about o·m(m+1)/2·n FMAs (upper
 // triangle of G) against (m + 2o)·n·4 bytes read.  On the DAEF main path
@@ -45,6 +49,16 @@
 //     kernel aliased the accumulators onto its outputs.  A symmetric running
 //     G stays exactly symmetric.
 //
+// The tenant axis.  B1 and B2 are the k = 1 case of one template: grid axis
+// x runs over the k·o (tenant, output) pairs, blockIdx.x = t·o + o', so fsq,
+// fd, the workspace and the accumulators are contiguous [k·o, ...] arrays
+// exactly as the one-tenant [o, ...] ones are, and `reduce_kernel` sums
+// [slices, k·o, m, m] unchanged.  Only xa takes a per-tenant offset.  On the
+// fleet path (k = 64, n ≈ 4k per tenant) the (tenant, output) pairs alone
+// give 960–1,536 blocks, so the planner cuts the sample axis into 1–2 slices
+// where one tenant of 256k samples takes ~70; the work per block, and so the
+// bound, is that of B1 over the same total samples.
+//
 // No float atomics: the result is the same from run to run.  Rows beyond m
 // and samples beyond n are loaded as zeros and never written; nothing is
 // padded in memory.  Making it fast (3xTF32 tensor cores, TMA) is later work.
@@ -69,7 +83,8 @@ partial_kernel(const float* __restrict__ xa, const float* __restrict__ fsq,
   float* s_x = smem + kChunk * kLd;          // [kChunk][kLd] rows of tj
   float* s_fd = smem + 2 * kChunk * kLd;     // [kChunk]
 
-  const int oi = blockIdx.x;
+  const int pair = blockIdx.x;                // t·o + oi
+  xa += (long long)(pair / o) * m * n;       // tenant t's xa
   int ti, tj;
   tri_index(blockIdx.y, tiles, &ti, &tj);
   const int slice = blockIdx.z;
@@ -92,8 +107,8 @@ partial_kernel(const float* __restrict__ xa, const float* __restrict__ fsq,
   const bool rj = j0 + lr < m;
   const float* xi_row = xa + (long long)(ri ? i0 + lr : 0) * n;
   const float* xj_row = xa + (long long)(rj ? j0 + lr : 0) * n;
-  const float* fsq_o = fsq + (long long)oi * n;
-  const float* fd_o = fd + (long long)oi * n;
+  const float* fsq_o = fsq + (long long)pair * n;
+  const float* fd_o = fd + (long long)pair * n;
 
   for (long long k0 = k_begin; k0 < k_end; k0 += kChunk) {
 #pragma unroll
@@ -115,15 +130,15 @@ partial_kernel(const float* __restrict__ xa, const float* __restrict__ fsq,
     __syncthreads();
   }
   __syncthreads();  // the staging buffers become the partials' buffers
-  write_partials(p, smem, ws_g, ws_m, slice, o, oi, m, i0, j0, diag);
+  write_partials(p, smem, ws_g, ws_m, slice, gridDim.x, pair, m, i0, j0, diag);
 }
 
 int launch(const float* xa, const float* fsq, const float* fd, float* ws_g, float* ws_m,
-           float* g, float* mv, int m, long long n, int o, int slices, long long slice_len,
-           bool accumulate, void* stream) {
+           float* g, float* mv, int k, int m, long long n, int o, int slices,
+           long long slice_len, bool accumulate, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = (m + kTile - 1) / kTile;
-  const dim3 grid(o, tiles * (tiles + 1) / 2, slices);
+  const dim3 grid(k * o, tiles * (tiles + 1) / 2, slices);
   if (m <= kSmallM) {
     partial_kernel<1><<<grid, kThreads, 0, st>>>(xa, fsq, fd, ws_g, ws_m, m, n, o,
                                                  tiles, slice_len);
@@ -133,7 +148,7 @@ int launch(const float* xa, const float* fsq, const float* fd, float* ws_g, floa
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_reduce(ws_g, ws_m, g, mv, m, o, slices, accumulate, st);
+  return launch_reduce(ws_g, ws_m, g, mv, m, k * o, slices, accumulate, st);
 }
 
 }  // namespace
@@ -146,7 +161,7 @@ extern "C" int rolann_stats_f32(const float* xa, const float* fsq, const float* 
                                 float* ws_g, float* ws_m, float* g, float* mv,
                                 int m, long long n, int o, int slices,
                                 long long slice_len, void* stream) {
-  return launch(xa, fsq, fd, ws_g, ws_m, g, mv, m, n, o, slices, slice_len, false, stream);
+  return launch(xa, fsq, fd, ws_g, ws_m, g, mv, 1, m, n, o, slices, slice_len, false, stream);
 }
 
 // B2: the same (G, M), added into the running g and mv (one read-modify-write
@@ -155,5 +170,26 @@ extern "C" int rolann_stats_acc_f32(const float* xa, const float* fsq, const flo
                                     float* ws_g, float* ws_m, float* g, float* mv,
                                     int m, long long n, int o, int slices,
                                     long long slice_len, void* stream) {
-  return launch(xa, fsq, fd, ws_g, ws_m, g, mv, m, n, o, slices, slice_len, true, stream);
+  return launch(xa, fsq, fd, ws_g, ws_m, g, mv, 1, m, n, o, slices, slice_len, true, stream);
+}
+
+// B4: (G, M) of k tenants in one launch: xa [k, m, n], fsq and fd [k, o, n]
+// into g [k, o, m, m], mv [k, o, m].  ws_g [slices, k·o, m, m] and ws_m
+// [slices, k·o, m] are scratch from the caller; slices are planned for k·o
+// (tenant, output) pairs.
+extern "C" int rolann_stats_batched_f32(const float* xa, const float* fsq, const float* fd,
+                                        float* ws_g, float* ws_m, float* g, float* mv,
+                                        int k, int m, long long n, int o, int slices,
+                                        long long slice_len, void* stream) {
+  return launch(xa, fsq, fd, ws_g, ws_m, g, mv, k, m, n, o, slices, slice_len, false, stream);
+}
+
+// B5: B4's (G, M), added into the running g [k, o, m, m] and mv [k, o, m].
+// Same arguments and scratch.
+extern "C" int rolann_stats_acc_batched_f32(const float* xa, const float* fsq,
+                                            const float* fd, float* ws_g, float* ws_m,
+                                            float* g, float* mv, int k, int m, long long n,
+                                            int o, int slices, long long slice_len,
+                                            void* stream) {
+  return launch(xa, fsq, fd, ws_g, ws_m, g, mv, k, m, n, o, slices, slice_len, true, stream);
 }

@@ -7,20 +7,28 @@ They skip without a card.  On the card's machine, from the repo root:
 This file imports torch and the port only (no jax), so it runs where jax is
 not installed.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from _torch_parity import lowrank_data
 
-from repro_torch.core import daef
+from repro_torch.core import daef, fleet
 from repro_torch.kernels.rolann_stats import (
     ops,
     rolann_fused_chunk,
+    rolann_fused_chunk_batched,
+    rolann_fused_chunk_batched_plain,
     rolann_fused_chunk_plain,
     rolann_stats,
     rolann_stats_acc,
+    rolann_stats_acc_batched,
+    rolann_stats_acc_batched_plain,
     rolann_stats_acc_plain,
+    rolann_stats_batched,
+    rolann_stats_batched_plain,
     rolann_stats_plain,
 )
 
@@ -110,7 +118,7 @@ def _check_fold(fold, plain, g0, m0, wrapper):
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     assert out[0] is g and out[1] is mv and g.dtype == g0.dtype
-    assert torch.equal(g, g.transpose(1, 2))
+    assert torch.equal(g, g.transpose(-1, -2))
     gp, mp = plain(g0.clone(), m0.clone())
     tol = 2.0**-7 if g0.dtype == torch.bfloat16 else 1e-4
     scale = max(float(gp.double().abs().max()), float(mp.double().abs().max()))
@@ -190,3 +198,114 @@ def test_streamed_fit_on_card_matches_host(card, act_last):
     for model in (m_card, s_card):
         got = daef.reconstruction_error(cfg, model, x_test).cpu().numpy()
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-5 * np.abs(want).max())
+
+
+# ---- the tenant-batched kernels (B4, B5, B6) and the fleet ----
+
+def _batched(k, fn):
+    parts = [fn(t) for t in range(k)]
+    return tuple(torch.stack(p).contiguous() for p in zip(*parts))
+
+
+def _running_batch(k, o, m, dtype, dev):
+    """k tenants' running accumulators, each G exactly symmetric."""
+    gen = torch.Generator(device=dev).manual_seed(k * o * m)
+    a = torch.randn((k, o, m, m), generator=gen, device=dev) * 50
+    g = ((a + a.transpose(-1, -2)) / 2).to(dtype)
+    return g, torch.randn((k, o, m), generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("k,m,o,n", [(64, 19, 15, 3_998), (64, 28, 24, 3_998), (3, 37, 3, 517),
+                                     (1, 5, 2, 65)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_batched_kernel_matches_plain(card, k, m, o, n, dtype):
+    xa, fsq, fd = _batched(k, lambda t: _inputs(m, o, n, dtype, 7 * t + m, card))
+    before = rolann_stats_batched.launches
+    g, mv = rolann_stats_batched(xa, fsq, fd)
+    torch.cuda.synchronize()
+    assert rolann_stats_batched.launches == before + 1
+    gp, mp = rolann_stats_batched_plain(xa, fsq, fd)
+    assert g.dtype == dtype and tuple(g.shape) == (k, o, m, m)
+    assert torch.equal(g, g.transpose(-1, -2))
+    tol = 2.0**-7 if dtype == torch.bfloat16 else 1e-4
+    scale = float(gp.double().abs().max())
+    assert float((g.double() - gp.double()).abs().max()) <= tol * scale
+    assert float((mv.double() - mp.double()).abs().max()) <= tol * max(scale, 1.0)
+    g2, m2 = rolann_stats_batched(xa, fsq, fd)
+    assert torch.equal(g, g2) and torch.equal(mv, m2)
+
+
+@pytest.mark.parametrize("k,m,o,n", [(64, 28, 29, 1_024), (5, 28, 29, 926), (2, 70, 4, 2_001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_batched_acc_kernel_matches_plain(card, k, m, o, n, dtype):
+    xa, fsq, fd = _batched(k, lambda t: _inputs(m, o, n, torch.float32, 3 * t + n, card))
+    fsq[..., n - n // 5:] = 0  # a masked tail
+    fd[..., n - n // 5:] = 0
+    g0, m0 = _running_batch(k, o, m, dtype, card)
+    _check_fold(lambda g, mv: rolann_stats_acc_batched(g, mv, xa, fsq, fd),
+                lambda g, mv: rolann_stats_acc_batched_plain(g, mv, xa, fsq, fd), g0, m0,
+                rolann_stats_acc_batched)
+
+
+@pytest.mark.parametrize("k,m_l,m_c1,n,act", [(64, 15, 18, 1_024, "logsig"),
+                                              (64, 24, 27, 926, "tanh"),
+                                              (2, 40, 50, 3_001, "logsig"),
+                                              (1, 3, 1, 65, "tanh")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_batched_fused_chunk_kernel_matches_plain(card, k, m_l, m_c1, n, act, dtype):
+    gen = torch.Generator(device=card).manual_seed(k * n)
+    h = torch.sigmoid(2 * torch.randn((k, m_l, n), generator=gen, device=card))
+    if act == "tanh":
+        h = 2 * h - 1
+    w = torch.randn((k, m_l, m_c1), generator=gen, device=card) * (2 / (m_l + m_c1)) ** 0.5
+    b = torch.randn((k, m_c1), generator=gen, device=card)
+    mask = (torch.rand((k, n), generator=gen, device=card) > 0.1).float()
+    mask[:, n - n // 5:] = 0
+    g0, m0 = _running_batch(k, m_l, m_c1 + 1, dtype, card)
+    _check_fold(lambda g, mv: rolann_fused_chunk_batched(g, mv, h, w, b, mask, act_name=act),
+                lambda g, mv: rolann_fused_chunk_batched_plain(g, mv, h, w, b, mask, act),
+                g0, m0, rolann_fused_chunk_batched)
+
+
+def test_empty_batches_launch_nothing(card):
+    before = (rolann_stats_batched.launches, rolann_stats_acc_batched.launches,
+              rolann_fused_chunk_batched.launches)
+    z = torch.zeros((2, 4, 0), device=card)
+    g, mv = rolann_stats_batched(z, z[:, :2], z[:, :2])
+    assert not g.any() and tuple(g.shape) == (2, 2, 4, 4)
+    rolann_stats_acc_batched(g, mv, z, z[:, :2], z[:, :2])
+    rolann_fused_chunk_batched(g, mv, z[:, :2], torch.zeros((2, 2, 3), device=card),
+                               torch.zeros((2, 3), device=card), torch.zeros((2, 0), device=card),
+                               act_name="logsig")
+    assert (rolann_stats_batched.launches, rolann_stats_acc_batched.launches,
+            rolann_fused_chunk_batched.launches) == before
+
+
+@pytest.mark.parametrize("act_last", ["linear", "logsig"])
+def test_fleet_on_card_matches_a_loop_of_one_tenant_fits(card, act_last):
+    """A small fused fleet (B4 one-shot; B6, and B5 for a logistic last
+    layer, chunked) against the port's one-tenant fits of each tenant on the
+    card, fused backend.  The bar is test_fit_on_card_matches_host's."""
+    cfg = daef.DAEFConfig(layer_sizes=(10, 4, 6, 8, 10), lam_hidden=0.7, lam_last=0.9,
+                          act_last=act_last, stats_backend="fused")
+    xs = np.stack([lowrank_data(10, 4, 3_000, seed=s) for s in range(4)])
+    x_test = np.stack([lowrank_data(10, 4, 500, seed=10 + s) for s in range(4)])
+    if act_last == "logsig":
+        lo, hi = xs.min(axis=2, keepdims=True), xs.max(axis=2, keepdims=True)
+        xs, x_test = (xs - lo) / (hi - lo), (x_test - lo) / (hi - lo)
+    seeds = [0, 0, 5, 5]
+    before = (rolann_stats_batched.launches, rolann_stats_acc_batched.launches,
+              rolann_fused_chunk_batched.launches)
+    one_shot = fleet._fit_fleet(cfg, xs, seeds=seeds)
+    chunked = fleet._fit_fleet_chunked(cfg, xs, chunk_samples=1_024, seeds=seeds)
+    launched = tuple(a.launches - b for a, b in zip(
+        (rolann_stats_batched, rolann_stats_acc_batched, rolann_fused_chunk_batched), before))
+    logsig = act_last == "logsig"  # the last layer folds per-output statistics too
+    assert launched == (3 if logsig else 2, 3 if logsig else 0, 2 * 3)
+    scores = {name: fleet.fleet_scores(cfg, fl, x_test).cpu().numpy()
+              for name, fl in (("one-shot", one_shot), ("chunked", chunked))}
+    for t in range(4):
+        one = daef.fit(dataclasses.replace(cfg, seed=seeds[t]), xs[t])
+        want = daef.reconstruction_error(cfg, one, x_test[t]).cpu().numpy()
+        for got in scores.values():
+            np.testing.assert_allclose(got[t], want, rtol=1e-3, atol=1e-5 * np.abs(want).max())

@@ -157,3 +157,43 @@ def test_float64_fit_stays_float64():
     m32 = tdaef.fit(cfg, x.numpy(), device="cpu")
     assert m32.train_errors.dtype == torch.float32
     assert_close(m32.train_errors, m.train_errors, atol=1e-4, rtol=1e-3)
+
+
+def _merge_data():
+    kw = dict(layer_sizes=(10, 4, 6, 8, 10), lam_hidden=0.7, lam_last=0.9, seed=3)
+    x = lowrank_data(10, 4, 1_000, seed=9)
+    return kw, x[:, :550], x[:, 550:]
+
+
+@pytest.mark.parametrize("backend", ["einsum", "fused"])
+def test_merge_models_matches_reference(backend):
+    """Two partitions' models merged (encoder factors by Eq. 2, (G, M) by
+    sum, one re-solve) against repro.core.daef.merge_models, and
+    merge_knowledge's pieces."""
+    kw, xa, xb = _merge_data()
+    jcfg, tcfg = jdaef.DAEFConfig(**kw), tdaef.DAEFConfig(**kw, stats_backend=backend)
+    ja, jb = jdaef.fit(jcfg, jnp.asarray(xa)), jdaef.fit(jcfg, jnp.asarray(xb))
+    ta, tb = tdaef.fit(tcfg, xa, device="cpu"), tdaef.fit(tcfg, xb, device="cpu")
+    jm, tm = jdaef.merge_models(jcfg, ja, jb), tdaef.merge_models(tcfg, ta, tb)
+    assert_models_match(jm, tm, 0.9)
+    enc, knowledge, errors = tdaef.merge_knowledge(tcfg, ta, tb)
+    assert torch.equal(errors, torch.cat([ta.train_errors, tb.train_errors]))
+    for k, a, b in zip(knowledge, ta.layer_knowledge, tb.layer_knowledge):
+        assert torch.equal(k.g, a.g + b.g) and torch.equal(k.m, a.m + b.m)
+    assert torch.equal(enc.s, tm.encoder_factors.s)
+
+
+def test_partial_fit_matches_reference():
+    kw, xa, xb = _merge_data()
+    jcfg, tcfg = jdaef.DAEFConfig(**kw), tdaef.DAEFConfig(**kw)
+    jm = jdaef.partial_fit(jcfg, jdaef.fit(jcfg, jnp.asarray(xa)), jnp.asarray(xb))
+    tm = tdaef.partial_fit(tcfg, tdaef.fit(tcfg, xa, device="cpu"), xb, device="cpu")
+    assert_models_match(jm, tm, 0.9)
+    assert tuple(tm.train_errors.shape) == (1_000,)
+
+
+def test_merge_rejects_what_is_not_ported():
+    kw, xa, _ = _merge_data()
+    model = tdaef.fit(tdaef.DAEFConfig(**kw), xa, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A"):
+        tdaef.merge_models(tdaef.DAEFConfig(**dict(kw, method="svd")), model, model)

@@ -1,4 +1,6 @@
-"""repro_torch.core.dsvd (gram route) and core.anomaly against the reference."""
+"""repro_torch.core.dsvd (gram route, the merges of Eq. 2, a leading tenant axis)
+and core.anomaly against the reference."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,3 +108,102 @@ def test_classify_metrics_and_evaluate():
 def test_metrics_degenerate():
     m = tan.binary_metrics(np.zeros(5, np.int32), np.zeros(5, np.int32), device="cpu")
     assert (m.f1, m.precision, m.recall, m.accuracy, m.tn) == (0.0, 0.0, 0.0, 1.0, 5)
+
+
+# ---- the merges of Eq. 2 and the fleet's leading tenant axis ----
+
+def _uu(f):
+    """U S^2 U^T of factors (the merge-invariant part; trailing columns of U
+    belong to near-equal noise eigenvalues that float32 does not fix)."""
+    u, s = (np.asarray(a, np.float64) if not isinstance(a, torch.Tensor) else
+            a.double().numpy() for a in f)
+    return (u * s[..., None, :] ** 2) @ np.swapaxes(u, -1, -2)
+
+
+@pytest.mark.parametrize("rank", [None, 4])
+def test_local_svd(rank):
+    x = lowrank_data(10, 4, 300, seed=7)
+    got = tdsvd.local_svd(torch.from_numpy(x), rank)
+    want = jdsvd.local_svd(jnp.asarray(x), rank)
+    assert tuple(got.u.shape) == want.u.shape and tuple(got.s.shape) == want.s.shape
+    assert_close(got.s, want.s)
+    assert_close(got.u[:, :4], want.u[:, :4])  # the signal's columns, signs canonical
+    assert_sum_close(_uu(got), _uu(want))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_merge_factors_and_pair(batched):
+    """Eq. 2 on two and three parts; merge_pair is the two-part case.  With
+    a leading tenant axis every tenant merges its own factors."""
+    xs = [lowrank_data(10, 4, n, seed=n) for n in (200, 150, 90)]
+    parts_t = [tdsvd.local_svd(torch.from_numpy(x)) for x in xs]
+    parts_j = [jdsvd.local_svd(jnp.asarray(x)) for x in xs]
+    if batched:  # tenant t holds part t's factors scaled by (t + 1)
+        def stack(parts, lib):
+            return type(parts[0])(u=lib.stack([parts[0].u] * 3),
+                                  s=lib.stack([parts[0].s * (t + 1) for t in range(3)]))
+        parts_t = [stack([p], torch) for p in parts_t]
+        parts_j = [stack([p], jnp) for p in parts_j]
+    for n_parts in (2, 3):
+        got = tdsvd.merge_factors(parts_t[:n_parts])
+        if batched:
+            want = jax.vmap(lambda *ps: jdsvd.merge_factors(ps))(*parts_j[:n_parts])
+        else:
+            want = jdsvd.merge_factors(parts_j[:n_parts])
+        assert tuple(got.u.shape) == want.u.shape
+        assert_close(got.s, want.s)
+        assert_sum_close(_uu(got), _uu(want))
+    pair = tdsvd.merge_pair(parts_t[0], parts_t[1])
+    two = tdsvd.merge_factors(parts_t[:2])
+    assert torch.equal(pair.u, two.u) and torch.equal(pair.s, two.s)
+    if not batched:  # the merge is the SVD of the concatenated data
+        whole = tdsvd.local_svd(torch.from_numpy(np.concatenate(xs[:2], axis=1)))
+        assert_close(pair.s, whole.s)
+        assert_sum_close(_uu(pair), _uu(whole))
+
+
+def test_pad_rank():
+    f = tdsvd.local_svd(torch.from_numpy(lowrank_data(6, 2, 4, seed=1)))  # rank 4 of 6
+    padded = tdsvd.pad_rank(f, 6)
+    want = jdsvd.pad_rank(jdsvd.local_svd(jnp.asarray(lowrank_data(6, 2, 4, seed=1))), 6)
+    assert tuple(padded.u.shape) == want.u.shape == (6, 6)
+    assert not padded.s[4:].any() and not padded.u[:, 4:].any()
+    assert_sum_close(_uu(padded), _uu(f))
+    assert tdsvd.pad_rank(f, 4) is f
+    batch = tdsvd.pad_rank(tdsvd.SvdFactors(u=f.u[None].expand(3, 6, 4), s=f.s[None].expand(3, 4)), 5)
+    assert tuple(batch.u.shape) == (3, 6, 5) and tuple(batch.s.shape) == (3, 5)
+    with pytest.raises(ValueError) as terr:
+        tdsvd.pad_rank(f, 3)
+    with pytest.raises(ValueError) as jerr:
+        jdsvd.pad_rank(jdsvd.SvdFactors(u=jnp.asarray(f.u.numpy()), s=jnp.asarray(f.s.numpy())), 3)
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_canonicalize_signs_and_gram_factors_batched():
+    """With a leading tenant axis, tenant by tenant the one-tenant result."""
+    rng = np.random.default_rng(8)
+    u = rng.normal(size=(3, 9, 6)).astype(np.float32)
+    u[1, :, 2] = 0.0
+    got = tdsvd.canonicalize_signs(torch.from_numpy(u))
+    for t in range(3):
+        assert torch.equal(got[t], tdsvd.canonicalize_signs(torch.from_numpy(u[t])))
+    x = np.stack([lowrank_data(10, 4, 400, seed=s) for s in range(3)])
+    g = torch.from_numpy(x) @ torch.from_numpy(x).transpose(-1, -2)
+    f = tdsvd.gram_to_factors(g)
+    for t in range(3):
+        one = tdsvd.gram_to_factors(g[t])
+        assert_close(f.s[t], one.s)
+        assert_close(f.u[t][:, :4], one.u[:, :4])
+
+
+@pytest.mark.parametrize("rule", ["extreme_iqr", "unusual_iqr", "q90"])
+def test_fleet_thresholds_per_row(rule):
+    """Errors [K, n] give one threshold per tenant, NaNs (padding) ignored,
+    as jax.vmap(anomaly.threshold) gives."""
+    e = np.stack([_errors(seed=s, nan_at=(3, 17) if s == 1 else ()) for s in range(4)])
+    got = tan.threshold(e, rule, device="cpu")
+    assert tuple(got.shape) == (4,)
+    want = jax.vmap(lambda row: jan.threshold(row, rule))(jnp.asarray(e))
+    assert_close(got, want)
+    for t in range(4):
+        assert_close(got[t], tan.threshold(e[t], rule, device="cpu"))

@@ -102,3 +102,30 @@ def test_every_kernel_library_has_its_source():
         assert _build.source(name).is_file() and _build.source(name).suffix == ".cu"
         assert path.parent == _build.BUILD_DIR and path.name.startswith(f"lib{name}-")
     assert len(set(paths.values())) == len(paths)
+
+
+def test_fleet_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    from repro_torch.core import fleet
+
+    cfg = daef.DAEFConfig(layer_sizes=(4, 2, 4))
+    xs = np.random.default_rng(0).normal(size=(2, 4, 40)).astype(np.float32)
+    fl = fleet._fit_fleet(cfg, xs, device="cpu")
+    _no_card(monkeypatch)
+    calls = [
+        lambda: fleet.fleet_fit(cfg, xs),  # repro-lint: disable=RPR001
+        lambda: fleet._fit_fleet(cfg, xs),
+        lambda: fleet._fit_fleet_chunked(cfg, xs, chunk_samples=16),
+        lambda: fleet._fit_fleet_stream(cfg, [xs[..., :20], xs[..., 20:]]),
+        lambda: fleet.fleet_predict(cfg, fl, xs),
+        lambda: fleet.fleet_scores(cfg, fl, xs),
+        lambda: fleet.fleet_partial_fit(cfg, fl, xs),
+        lambda: fleet.fleet_classify(np.zeros((2, 3)), np.zeros(2)),
+        lambda: interop.fleet_from_numpy(cfg, interop.fleet_to_numpy(fl)),
+        lambda: rolann.init_stats(2, 4, activations.logsig, tenants=2),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="none is present"):
+            call()
+    # what works on a fleet's tensors stays on their device
+    assert fleet.fleet_thresholds(fl).device.type == "cpu"
+    assert fleet.fleet_merge_pairwise(cfg, fl).size == 1

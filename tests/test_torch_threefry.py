@@ -94,3 +94,68 @@ def test_stage1_weights_match(init, dims):
 def test_unknown_initializer_raises():
     with pytest.raises(KeyError, match="unknown initializer"):
         tinit.get("lecun")
+
+
+# A fleet's key batch: one call for every tenant, bit for bit the keys and
+# draws jax.vmap of the same calls gives (normal draws at TOLS, as above),
+# and tenant by tenant the one-key results.  -3 checks the int32 seed's
+# key words (no high word, the low word its two's complement).
+FLEET_SEEDS = np.array([0, 0, 5, 2**31 - 1, -3], np.int32)
+
+
+def _fleet_keys():
+    jk = jax.vmap(jax.random.PRNGKey)(jnp.asarray(FLEET_SEEDS))
+    return jk, threefry.prng_keys(torch.from_numpy(FLEET_SEEDS))
+
+
+@pytest.mark.parametrize("shape", [(4, 5), (2, 3, 4)])
+def test_key_batches_are_bit_exact(shape):
+    jk, tk = _fleet_keys()
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk).astype(np.int64))
+    for num in (2, 7):
+        want = jax.vmap(lambda k: jax.random.split(k, num))(jk)
+        got = threefry.split(tk, num)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+    bits = threefry.random_bits(tk, shape)
+    want = jax.vmap(lambda k: jax.random.bits(k, shape, jnp.uint32))(jk)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(want).astype(np.int64))
+    u = threefry.uniform(tk, shape, torch.float32, -0.3, 0.7)
+    want = jax.vmap(lambda k: jax.random.uniform(k, shape, jnp.float32, -0.3, 0.7))(jk)
+    np.testing.assert_array_equal(u.numpy(), np.asarray(want))
+    z = threefry.normal(tk, shape)
+    assert_close(z, jax.vmap(lambda k: jax.random.normal(k, shape, jnp.float32))(jk))
+    for i in range(len(FLEET_SEEDS)):
+        assert torch.equal(bits[i], threefry.random_bits(tk[i], shape))
+        assert torch.equal(u[i], threefry.uniform(tk[i], shape, torch.float32, -0.3, 0.7))
+        assert torch.equal(z[i], threefry.normal(tk[i], shape))
+
+
+def test_fleet_layer_keys_are_bit_exact():
+    keys = tdaef.layer_keys_from_seed(torch.from_numpy(FLEET_SEEDS), 7)
+    want = jax.vmap(lambda s: jdaef.layer_keys_from_seed(s, 7))(jnp.asarray(FLEET_SEEDS))
+    assert tuple(keys.shape) == (len(FLEET_SEEDS), 7, 2)
+    np.testing.assert_array_equal(keys.numpy(), np.asarray(want).astype(np.int64))
+    np.testing.assert_array_equal(keys[2].numpy(), tdaef.layer_keys_from_seed(5, 7).numpy())
+
+
+@pytest.mark.parametrize("init", ["xavier", "random", "orthogonal"])
+@pytest.mark.parametrize("dims", [(15, 18), (5, 3)])
+def test_stage1_batched_draws(init, dims):
+    """One draw for every tenant of a layer: per tenant bit-identical to
+    stage1 of its key, and the reference's jax.vmap(elm_ae.stage1) values
+    (xavier bit for bit; normal-based draws at TOLS, see the module
+    docstring)."""
+    keys = tdaef.layer_keys_from_seed(torch.from_numpy(FLEET_SEEDS), 7)[:, 3]
+    jkeys = jax.vmap(lambda s: jdaef.layer_keys_from_seed(s, 7))(jnp.asarray(FLEET_SEEDS))[:, 3]
+    w, b = telm.stage1_batched(keys, *dims, init)
+    assert tuple(w.shape) == (len(FLEET_SEEDS), *dims) and tuple(b.shape) == (len(FLEET_SEEDS), dims[1])
+    jw, jb = jax.vmap(lambda k: jelm.stage1(k, *dims, init))(jkeys)
+    if init == "xavier":
+        np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
+    assert_close(w, jw, **F32)
+    assert_close(b, jb, **F32)
+    for i in range(len(FLEET_SEEDS)):
+        w1, b1 = telm.stage1(keys[i], *dims, init)
+        assert torch.equal(w[i], w1) and torch.equal(b[i], b1)
+    w2, _ = telm.stage1_batched(keys, *dims, init)  # a refit reuses the draw
+    assert torch.equal(w2, w) and w2 is not w
