@@ -73,10 +73,45 @@ no result:
 8. profile — one fused fit + score, one streamed fused fit, one fused fleet
    fit and one chunked fused fleet fit under ``torch.profiler``: device time
    by kernel, and the device's busy share of the wall time.
+9. LM kernels vs plain — B7 ``flash_attention`` (the head path's
+    64 x 256 x 16/8 heads of 128 in bf16, the long prefills' 4 x 4,096 GQA
+    and 2 x 4,096 MQA at head size 256 with window 2,048, a ragged S,
+    float32, windows 1 and 17), B9 ``rglru_scan`` (2 x 4,096 x 4,096, S = 1,
+    W = 100) and B10 ``ssd_chunk`` (mamba2's 4 x 4,096 x 48 heads, P 64,
+    N 128, chunk 256; S = 1,000; G = 2) against their plain versions, and
+    B1 at the DAEF head's shape (m 513, o 256, n 2,048).  Tolerances: bf16
+    outputs within one bf16 ulp of each element, 2^-7 |ref| + 2^-7 * 1e-2
+    (each side rounds a float32 result once), float32 1e-5 of the largest
+    magnitude (summation order), lse 1e-5.
+    Path shapes timed (CUDA events, median of 25) beside the bound (bf16
+    work against the tensor cores' 989 TFLOP/s, float32 against the CUDA
+    cores' 67), the plain version and, for B7, SDPA.
+10. depth-cut agreement — qwen3-1.7b and mamba2-780m at full width cut to
+    2 layers (1 x 512 tokens), recurrentgemma-9b cut to one (rec, rec,
+    attn) period (1 x 2,560 tokens, beyond its 2,048 window), float32: the
+    same weights on the card and on the host, final hidden states within
+    1e-4 of their largest magnitude.
+11. head path — the DAEF head on qwen3-1.7b at full width and depth in bf16
+    (weights drawn on the card from a seed), ``examples/llm_feature_anomaly
+    .py`` at full width: ``get_bundle(cfg).forward`` -> ``pooled_features``
+    on 2,048 "normal" sequences (``lm_token_stream``, S = 256, batches of
+    64) -> ``fit_head`` (2048-256-512-2048, fused stats) -> ``flag`` on 256
+    normal and 256 uniform-random OOD sequences; after one warm-up.  Forward
+    tokens/s, fit and score ms, OOD F1; launches B7 28 per forward batch,
+    B1 once, nothing else; the card's flags within 8 labels of 512 of the
+    same head fitted and applied on the host from the same features.
+12. long prefills — ``get_bundle(cfg).prefill`` at full width and depth,
+    bf16, after a warm-up: qwen3-1.7b 4 x 4,096 (B7 28), mamba2-780m
+    4 x 4,096 (B10 48), recurrentgemma-9b 2 x 4,096 (B7 12, B9 26); finite
+    last-token logits.  Each model is freed before the next.
+13. LM profiles — one head-path forward batch and one recurrentgemma-9b
+    prefill under ``torch.profiler``: busy share and the device-time shares
+    of B7, B9, B10 and cuBLAS's GEMMs.
 
-The last lines are a JSON object of per-shape numbers, the card's name and
-power limit, a JSON object of per-kernel numbers for all six kernels, and
-``{"ok": true, "device": {...}}``.
+The last lines are a JSON object of the LM paths' numbers, a JSON object of
+per-shape numbers, the card's name and power limit, a JSON object of
+per-kernel numbers for all nine kernels, and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -93,6 +128,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12     # tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12
 
 CREDITCARD = dict(layer_sizes=(29, 15, 18, 21, 24, 27, 29), lam_hidden=0.8,
@@ -192,10 +228,11 @@ def _stats_inputs(m, o, n, dtype, seed):
     return xa.to(dtype).contiguous(), fsq.to(dtype).contiguous(), fd.to(dtype).contiguous()
 
 
-def _bound(flops, nbytes):
-    """(ms, what bounds it): the larger of FP32 operations over the peak rate
-    and bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def _bound(flops, nbytes, peak=PEAK_FP32_FLOPS):
+    """(ms, what bounds it): the larger of operations over the peak rate of
+    their type (FP32 CUDA cores unless ``peak`` says otherwise; bf16 work is
+    tensor-core work, ``PEAK_BF16_FLOPS``) and bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1302,6 +1339,495 @@ def _per_fit(rows, launches_per_shape, bound_fn, shape_keys, n_valid):
     }
 
 
+# ---------------------------------------------------------------------------
+# 9-13. the LM backbones' prefill and the DAEF head: B7, B9, B10 against
+# their plain versions, depth-cut agreement with the host, the head path,
+# the long prefills, profiles
+# ---------------------------------------------------------------------------
+
+QWEN3, MAMBA2, RGEMMA = "qwen3-1.7b", "mamba2-780m", "recurrentgemma-9b"
+HEAD_FIT, HEAD_TEST, HEAD_SEQ, HEAD_BATCH = 2_048, 256, 256, 64
+PREFILL = {QWEN3: (4, 4_096), MAMBA2: (4, 4_096), RGEMMA: (2, 4_096)}
+HEAD_FLAG_BAR = 8        # labels of 512 the card's head may differ from the host's
+QWEN3_D = 2_048          # qwen3-1.7b's d_model: the head is 2048-256-512-2048
+
+
+def _lm_wrappers():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+
+    return {**_wrappers(), **_fleet_wrappers(), "flash_attention": flash_attention,
+            "rglru_scan": rglru_scan, "ssd_chunk": ssd_chunk}
+
+
+def _lm_zero():
+    for fn in _lm_wrappers().values():
+        fn.launches = 0
+
+
+def _lm_read(**want):
+    """The launch counts, checked against ``want`` (every kernel not named
+    must not have run)."""
+    got = {name: fn.launches for name, fn in _lm_wrappers().items()}
+    expected = {name: want.get(name, 0) for name in got}
+    check(got == expected, f"launched {got}, expected {expected}")
+    return got
+
+
+def _attention_work(b, s, h, hkv, d, elem, window):
+    """FLOPs and bytes of B7 on these inputs: Q·Kᵀ and P·V over the (query,
+    key) pairs the causal/window band keeps (2 FLOPs per multiply-add), the
+    softmax not counted; q, k, v read once, out and lse written once."""
+    w = s if window is None else min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    flops = 4 * d * pairs * b * h
+    nbytes = elem * (b * s * (h + 2 * hkv) * d + b * s * h * d) + 4 * b * h * s
+    return flops, nbytes
+
+
+def _rglru_work(b, s, w):
+    """B9: ~10 operations per element (exp, expm1 and sqrt counted as one
+    each); x, r, i and lam read once, y and h_last written once, float32."""
+    return 10 * b * s * w, 4 * (3 * b * s * w + w + b * s * w + b * w)
+
+
+def _ssd_work(b, s, h, p, g, n, chunk):
+    """B10 per (b, h, chunk): the intra term over the Q(Q+1)/2 causal pairs
+    (C·Bᵀ over N, then P·xdt over P) and the inter term and the state
+    (Q·N·P each), 2 FLOPs per multiply-add; xdt, la, B, C read once, y and
+    h_final written once, float32."""
+    q = chunk
+    per_chunk = q * (q + 1) // 2 * 2 * (n + p) + 4 * q * n * p
+    flops = per_chunk * (s // q) * b * h
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * g * n + b * h * p * n)
+    return flops, nbytes
+
+
+def _sdpa(q, k, v, window):
+    """The one-call PyTorch yardstick of B7 (timed here only; the port never
+    calls it): fused attention in [B, H, S, D], causal or with the band
+    mask, GQA in the call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None:
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    mask = attention_mask(q.shape[1], True, window, q.device)
+    return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def _agree(label, got, want, tol, scale_floor=0.0):
+    """max|got - want| <= tol * max(scale_floor, max|want|); returns max|d|."""
+    err = float((got.double() - want.double()).abs().max())
+    scale = max(scale_floor, float(want.double().abs().max()))
+    check(bool(got.isfinite().all()), f"{label}: not finite")
+    check(err <= tol * scale, f"{label}: max|d| {err:.3e} > {tol:g} * {scale:.3e}")
+    return err, scale
+
+
+def _agree_each(label, got, want, rel, floor):
+    """|got - want| <= rel * |want| + floor at every element; returns max|d|
+    and the largest share of its own bar that any element used."""
+    d = (got.double() - want.double()).abs()
+    used = float((d / (rel * want.double().abs() + floor)).max())
+    check(bool(got.isfinite().all()), f"{label}: not finite")
+    check(used <= 1.0, f"{label}: an element's |d| is {used:.3f} of its bar "
+          f"{rel:g} * |want| + {floor:g}")
+    return float(d.max()), used
+
+
+def phase_lm_kernels():
+    """B7, B9 and B10 against their plain versions on the card, at the LM
+    paths' shapes and at ragged and degenerate ones; the path shapes timed
+    beside their bound, their plain version and (B7) SDPA."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
+    from repro_torch.kernels.ssd_chunk import fit_chunk, ssd_chunk, ssd_chunk_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    from repro_torch.kernels.rolann_stats import rolann_stats, rolann_stats_plain
+
+    rows = {"flash_attention": [], "rglru_scan": [], "ssd_chunk": [], "rolann_stats_head": []}
+    # B1 at the DAEF head's one launch: the hidden decoder layer's 512 units
+    # plus the bias row (m = 513) reconstructing the 256-wide latent (o).
+    m, o, n = QWEN3_D // 4 + 1, QWEN3_D // 8, HEAD_FIT
+    xa, fsq, fd = _stats_inputs(m, o, n, f32, seed=15)
+    g, mv = rolann_stats(xa, fsq, fd)
+    torch.cuda.synchronize()
+    gp, mp = rolann_stats_plain(xa, fsq, fd)
+    (err_g, scale_g), (err_m, scale_m) = (_agree("B1 head shape G", g, gp, 1e-4),
+                                          _agree("B1 head shape M", mv, mp, 1e-4))
+    err = max(err_g, err_m)
+    ms, plain_ms = cuda_ms(lambda: rolann_stats(xa, fsq, fd)), cuda_ms(
+        lambda: rolann_stats_plain(xa, fsq, fd))
+    library_ms = cuda_ms(lambda: torch.einsum("in,on,jn->oij", xa, fsq, xa))
+    bound_ms, bound_by = _stats_bound(m, o, n)
+    rows["rolann_stats_head"].append(dict(m=m, o=o, n=n, max_abs_err=err, ms=ms,
+                                          plain_ms=plain_ms, library_ms=library_ms,
+                                          bound_ms=bound_ms, bound_by=bound_by))
+    say("kernel", f"rolann_stats at the DAEF head's shape m={m} o={o} n={n}: max|d| G "
+        f"{err_g:.3e} of max|G| {scale_g:.4e}, M {err_m:.3e} of max|M| {scale_m:.4e} "
+        f"(tol 1e-4 * max); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, einsum "
+        f"yardstick {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+    b_q, s_q = PREFILL[QWEN3]
+    b_r, s_r = PREFILL[RGEMMA]
+    attn_cases = [
+        ("head path", HEAD_BATCH, HEAD_SEQ, 16, 8, 128, bf16, None, True),
+        ("qwen3 prefill", b_q, s_q, 16, 8, 128, bf16, None, True),
+        ("recurrentgemma prefill", b_r, s_r, 16, 1, 256, bf16, 2_048, True),
+        ("ragged S", 1, 1_000, 16, 8, 128, bf16, None, False),
+        ("float32", 2, 512, 8, 4, 64, f32, None, False),
+        ("window 1", 1, 300, 4, 1, 128, f32, 1, False),
+        ("window 17", 2, 600, 16, 1, 256, bf16, 17, False),
+    ]
+    for label, b, s, h, hkv, d, dtype, window, timed in attn_cases:
+        q, k, v = randn(b, s, h, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype), \
+            randn(b, s, hkv, d, dtype=dtype)
+        out, lse = flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention_ref(q, k, v, window=window)
+        check(out.dtype == dtype and tuple(lse.shape) == (b, h, s), f"B7 {label}: shape/dtype")
+        # bf16: the kernel and the plain version round float32 results that
+        # differ in summation order once each, so each element is within one
+        # bf16 ulp of itself (<= 2^-7 |ref|); the floor covers the float32
+        # order's own error where |ref| is near 0.  float32: summation order.
+        if dtype == bf16:
+            err, used = _agree_each(f"B7 {label} out", out.float(), ref.float(),
+                                    2.0**-7, 2.0**-7 * 1e-2)
+            bar = f"2^-7 |ref| + 2^-7 * 1e-2 per element, worst {used:.3f} of its bar"
+        else:
+            err, _ = _agree(f"B7 {label} out", out.float(), ref.float(), 1e-5, 1.0)
+            bar = "1e-5 * max(1, max|ref|)"
+        err_lse, _ = _agree(f"B7 {label} lse", lse, ref_lse, 1e-5)
+        say("kernel", f"flash_attention {label} B={b} S={s} H={h}/{hkv} D={d} "
+            f"{str(dtype)[6:]} window={window}: max|d| out {err:.3e} ({bar}), "
+            f"lse {err_lse:.3e}, ok")
+        if timed:
+            ms = cuda_ms(lambda: flash_attention(q, k, v, window=window))
+            plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, window=window))
+            library_ms = cuda_ms(lambda: _sdpa(q, k, v, window))
+            flops, nbytes = _attention_work(b, s, h, hkv, d, q.element_size(), window)
+            bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+            rows["flash_attention"].append(dict(
+                shape=label, b=b, s=s, h=h, hkv=hkv, d=d, window=window,
+                max_abs_err=max(err, err_lse), ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+            say("kernel", f"flash_attention {label}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, SDPA yardstick {library_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}, {flops:.3g} FLOP, {nbytes / 1e6:.1f} MB)")
+
+    w_r = 4_096
+    for label, b, s, w, timed in (("recurrentgemma prefill", b_r, s_r, w_r, True),
+                                  ("S = 1", 3, 1, w_r, False),
+                                  ("W = 100", 2, 37, 100, False)):
+        x = randn(b, s, w)
+        r, i = torch.sigmoid(randn(b, s, w)), torch.sigmoid(randn(b, s, w))
+        lam = randn(w) + 4.0
+        y, hl = rglru_scan(x, r, i, lam)
+        torch.cuda.synchronize()
+        yr, hr = rglru_scan_ref(x, r, i, lam)
+        # the same operations in the same order; transcendentals' last bits
+        err = max(_agree(f"B9 {label} y", y, yr, 1e-5, 1.0)[0],
+                  _agree(f"B9 {label} h_last", hl, hr, 1e-5, 1.0)[0])
+        say("kernel", f"rglru_scan {label} B={b} S={s} W={w}: max|d| {err:.3e} (tol 1e-05), ok")
+        if timed:
+            ms = cuda_ms(lambda: rglru_scan(x, r, i, lam))
+            plain_ms = cuda_ms(lambda: rglru_scan_ref(x, r, i, lam))
+            bound_ms, bound_by = _bound(*_rglru_work(b, s, w))
+            rows["rglru_scan"].append(dict(shape=label, b=b, s=s, w=w, max_abs_err=err, ms=ms,
+                                           plain_ms=plain_ms, library_ms=None,
+                                           bound_ms=bound_ms, bound_by=bound_by))
+            say("kernel", f"rglru_scan {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}); library none (no single PyTorch "
+                "call computes a gated linear recurrence)")
+
+    b_m, s_m = PREFILL[MAMBA2]
+    for label, b, s, h, p, g, n, chunk, timed in (
+            ("mamba2 prefill", b_m, s_m, 48, 64, 1, 128, 256, True),
+            ("S = 1,000 (chunk 250)", 2, 1_000, 48, 64, 1, 128, 256, False),
+            ("G = 2", 2, 1_024, 8, 64, 2, 128, 256, False)):
+        xdt = randn(b, s, h, p)
+        la = -torch.rand((b, s, h), generator=gen, device="cuda") * 0.1
+        bm, cm = randn(b, s, g, n), randn(b, s, g, n)
+        y, hf = ssd_chunk(xdt, la, bm, cm, chunk=chunk)
+        torch.cuda.synchronize()
+        q = fit_chunk(s, chunk)
+        yr, hr = ssd_chunk_plain(xdt, la, bm, cm, q)
+        # float32 sums of up to Q·N terms in other orders
+        err = max(_agree(f"B10 {label} y", y, yr, 1e-5)[0],
+                  _agree(f"B10 {label} h_final", hf, hr, 1e-5)[0])
+        say("kernel", f"ssd_chunk {label} B={b} S={s} H={h} P={p} G={g} N={n} Q={q}: "
+            f"max|d| {err:.3e} (tol 1e-05 * max|plain|), ok")
+        if timed:
+            ms = cuda_ms(lambda: ssd_chunk(xdt, la, bm, cm, chunk=chunk))
+            plain_ms = cuda_ms(lambda: ssd_chunk_plain(xdt, la, bm, cm, q))
+            bound_ms, bound_by = _bound(*_ssd_work(b, s, h, p, g, n, q))
+            rows["ssd_chunk"].append(dict(shape=label, b=b, s=s, h=h, p=p, g=g, n=n, chunk=q,
+                                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                          library_ms=None, bound_ms=bound_ms,
+                                          bound_by=bound_by))
+            say("kernel", f"ssd_chunk {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}); library none (no single PyTorch "
+                "call computes the chunked SSD scan)")
+    return rows
+
+
+def _lm_params(name, dtype, seed, **changes):
+    """A backbone's parameters drawn on the card from a seeded generator."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import registry
+    from repro_torch.models import get_bundle
+
+    cfg = dataclasses.replace(registry.get(name), **changes)
+    bundle = get_bundle(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(seed, dtype, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    say("lm", f"{cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}) {n_params / 1e9:.3f}e9 "
+        f"parameters in {str(dtype)[6:]}, drawn on the card in {time.perf_counter() - t0:.2f} s")
+    return cfg, bundle, params
+
+
+def phase_lm_agreement():
+    """Each backbone at full width in float32, depth cut (qwen3 and mamba2 to
+    2 layers at 1 x 512 tokens; recurrentgemma to one (rec, rec, attn) period
+    at 1 x 2,560 tokens, longer than its 2,048 window): the same weights on
+    the card (the kernels) and on the host (their plain versions, the CPU
+    path the parity tests hold to the JAX package).  Final hidden states
+    within 1e-4 of their largest magnitude: float32 sums in other orders
+    (cuBLAS and the kernels against the host's BLAS) through a few layers."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.data import synthetic
+
+    for name, depth, seq in ((QWEN3, 2, 512), (MAMBA2, 2, 512), (RGEMMA, 3, 2_560)):
+        cfg, bundle, params = _lm_params(name, torch.float32, seed=1, n_layers=depth)
+        tokens = synthetic.lm_token_stream(cfg.vocab_size, seq, 1, seed=5)
+        _lm_zero()
+        t0 = time.perf_counter()
+        h_card = bundle.forward(params, tokens).cpu()
+        t1 = time.perf_counter()
+        want = {QWEN3: dict(flash_attention=depth), MAMBA2: dict(ssd_chunk=depth),
+                RGEMMA: dict(flash_attention=1, rglru_scan=2)}[name]
+        _lm_read(**want)
+        host = pytree.tree_map(lambda t: t.cpu(), params)
+        del params
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        h_host = bundle.forward(host, tokens)
+        t3 = time.perf_counter()
+        err, scale = _agree(f"{cfg.name} depth {depth} card vs host", h_card, h_host, 1e-4)
+        say("agree", f"{cfg.name} at depth {depth}, 1 x {seq} tokens, float32: card "
+            f"{(t1 - t0) * 1e3:.1f} ms, host {(t3 - t2) * 1e3:.1f} ms, max|d| {err:.3e} "
+            f"(max|h| {scale:.3e}, tol 1e-4), launches {want}, ok")
+        del host
+
+
+def _pooled(bundle, params, tokens):
+    import torch
+
+    from repro_torch.models import daef_head
+
+    feats = [daef_head.pooled_features(lambda t: bundle.forward(params, t),
+                                       tokens[i:i + HEAD_BATCH])
+             for i in range(0, len(tokens), HEAD_BATCH)]
+    return torch.cat(feats)
+
+
+def phase_head(cfg, bundle, params):
+    """The DAEF head on qwen3-1.7b, full width and depth, bf16, as
+    ``examples/llm_feature_anomaly.py`` runs it at full width: fit on 2,048
+    "normal" sequences, flag 256 normal and 256 uniform-random OOD
+    sequences, S = 256 in batches of 64; after one warm-up.  Returns the
+    launch counts and the numbers of the path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import anomaly
+    from repro_torch.data import synthetic
+    from repro_torch.models import daef_head
+
+    v = cfg.vocab_size
+    fit_tokens = synthetic.lm_token_stream(v, HEAD_SEQ, HEAD_FIT, seed=0)
+    test_tokens = np.concatenate([
+        synthetic.lm_token_stream(v, HEAD_SEQ, HEAD_TEST, seed=7),
+        np.random.default_rng(1).integers(0, v, (HEAD_TEST, HEAD_SEQ)).astype(np.int32)])
+    truth = np.concatenate([np.zeros(HEAD_TEST, np.int32), np.ones(HEAD_TEST, np.int32)])
+
+    t0 = time.perf_counter()
+    _pooled(bundle, params, fit_tokens[:HEAD_BATCH])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    daef_head.fit_head(torch.randn((HEAD_FIT, cfg.d_model), generator=gen, device="cuda"))
+    torch.cuda.synchronize()
+    say("head", f"warm-up (one forward batch, one head fit) {(time.perf_counter() - t0):.2f} s")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    _lm_zero()
+    feats, fwd_fit_ms = timed(lambda: _pooled(bundle, params, fit_tokens))
+    test_feats, fwd_test_ms = timed(lambda: _pooled(bundle, params, test_tokens))
+    head, fit_ms = timed(lambda: daef_head.fit_head(feats))
+    flags, score_ms = timed(lambda: head.flag(test_feats))
+    n_batches = -(-HEAD_FIT // HEAD_BATCH) + -(-2 * HEAD_TEST // HEAD_BATCH)
+    launches = _lm_read(flash_attention=cfg.n_layers * n_batches, rolann_stats=1)
+    n_seq = HEAD_FIT + 2 * HEAD_TEST
+    tok_s = n_seq * HEAD_SEQ / ((fwd_fit_ms + fwd_test_ms) / 1e3)
+    check(tuple(feats.shape) == (HEAD_FIT, cfg.d_model) and bool(feats.isfinite().all()),
+          "head features: shape or not finite")
+    check(bool(torch.isfinite(head.model.train_errors).all()), "head train errors")
+    met = anomaly.binary_metrics(flags, truth)
+    say("head", f"qwen3-1.7b forward {n_seq} x {HEAD_SEQ} tokens in {fwd_fit_ms + fwd_test_ms:.1f} ms "
+        f"({tok_s:.0f} tokens/s), head fit {fit_ms:.2f} ms, score + flag {score_ms:.2f} ms, "
+        f"launches {launches}")
+    say("head", f"OOD flags: F1 {met.f1:.4f} (precision {met.precision:.4f}, recall "
+        f"{met.recall:.4f}; tp {met.tp} fp {met.fp} fn {met.fn} tn {met.tn})")
+    scores = head.score(test_feats)
+    train_q = torch.quantile(head.model.train_errors, torch.tensor([0.5, 0.9], device="cuda"))
+    say("head", "scores (median): train normals {:.4g} (q90 = threshold {:.4g}), held-out "
+        "normals {:.4g}, OOD {:.4g}".format(float(train_q[0]), float(train_q[1]),
+                                            float(scores[:HEAD_TEST].median()),
+                                            float(scores[HEAD_TEST:].median())))
+
+    # The same head on the host, from the same pooled features.
+    t0 = time.perf_counter()
+    head_h = daef_head.fit_head(feats.cpu(), device="cpu")
+    flags_h = head_h.flag(test_feats.cpu())
+    host_ms = (time.perf_counter() - t0) * 1e3
+    diff = int((flags.cpu() != flags_h).sum())
+    met_h = anomaly.binary_metrics(flags_h, truth, device="cpu")
+    scores, scores_h = scores.cpu(), head_h.score(test_feats.cpu())
+    rel = float((scores - scores_h).abs().max() / scores_h.abs().max())
+    check(diff <= HEAD_FLAG_BAR, f"the card's head flags {diff} of {len(truth)} samples "
+          f"otherwise than the host's (bar {HEAD_FLAG_BAR})")
+    say("head", f"host head (fit + flag {host_ms:.0f} ms): F1 {met_h.f1:.4f}; flags differ on "
+        f"{diff} of {len(truth)} (bar {HEAD_FLAG_BAR}); scores max|d|/max|.| {rel:.2e}; "
+        f"thresholds {float(head.threshold):.6g} card, {float(head_h.threshold):.6g} host")
+    return launches, dict(tokens_per_s=tok_s, forward_ms=fwd_fit_ms + fwd_test_ms,
+                          fit_ms=fit_ms, score_ms=score_ms, f1=met.f1,
+                          precision=met.precision, recall=met.recall, host_f1=met_h.f1,
+                          flags_differ=diff)
+
+
+def phase_prefill(name, cfg, bundle, params, want):
+    """One long prefill through ``bundle.prefill`` after a warm-up: tokens/s,
+    the launch counts ``want``, finite last-token logits [B, 1, V]."""
+    import torch
+
+    from repro_torch.data import synthetic
+
+    b, s = PREFILL[name]
+    batch = {"tokens": synthetic.lm_token_stream(cfg.vocab_size, s, b, seed=11)}
+    bundle.prefill(params, batch)
+    torch.cuda.synchronize()
+    _lm_zero()
+    t0 = time.perf_counter()
+    logits = bundle.prefill(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _lm_read(**want)
+    check(tuple(logits.shape) == (b, 1, cfg.vocab_size) and bool(logits.isfinite().all()),
+          f"{name} prefill logits: shape {tuple(logits.shape)} or not finite")
+    say("prefill", f"{name} B={b} S={s}: {ms:.1f} ms ({b * s / ms * 1e3:.0f} tokens/s), "
+        f"launches {want}, logits finite")
+    return launches, dict(ms=ms, tokens_per_s=b * s / ms * 1e3)
+
+
+def lm_profile(label, run):
+    """``phase_profile`` plus the device-time shares of the port's kernels
+    and of cuBLAS's GEMMs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    key = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    print(averages.table(sort_by=key, row_limit=15))
+    kernels = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(getattr(e, key) for e in kernels)
+    groups = {"B7 flash_fwd_kernel": ("flash_fwd_kernel",), "B9 rglru_scan_kernel": ("rglru",),
+              "B10 ssd kernels": ("chunk_state", "state_pass", "chunk_out"),
+              "GEMM (cuBLAS)": ("gemm", "xmma", "nvjet", "cutlass")}
+    shares = {g: sum(getattr(e, key) for e in kernels if any(p in e.key for p in pats))
+              for g, pats in groups.items()}
+    say("profile", f"{label}: wall {wall * 1e3:.2f} ms, device busy {total / 1e3:.2f} ms "
+        f"({100 * total / 1e6 / wall:.1f} %); device time shares: "
+        + ", ".join(f"{g} {100 * t / max(total, 1):.1f} %" for g, t in shares.items()))
+
+
+def phase_lm():
+    """The head path, then the long prefills, one family at a time, each
+    model freed before the next; profiles.  Returns the launches per path and
+    the numbers of each."""
+    import torch
+
+    from repro_torch.data import synthetic
+
+    cfg, bundle, params = _lm_params(QWEN3, torch.bfloat16, seed=0)
+    launches, numbers = {}, {}
+    launches["head"], numbers["head"] = phase_head(cfg, bundle, params)
+    launches[QWEN3], numbers[QWEN3] = phase_prefill(
+        QWEN3, cfg, bundle, params, dict(flash_attention=cfg.n_layers))
+    batch = synthetic.lm_token_stream(cfg.vocab_size, HEAD_SEQ, HEAD_BATCH, seed=0)
+    lm_profile("qwen3-1.7b head-path forward batch (64 x 256)",
+               lambda: bundle.forward(params, batch))
+    del params
+    torch.cuda.empty_cache()
+
+    cfg, bundle, params = _lm_params(MAMBA2, torch.bfloat16, seed=2)
+    launches[MAMBA2], numbers[MAMBA2] = phase_prefill(
+        MAMBA2, cfg, bundle, params, dict(ssd_chunk=cfg.n_layers))
+    del params
+    torch.cuda.empty_cache()
+
+    cfg, bundle, params = _lm_params(RGEMMA, torch.bfloat16, seed=3)
+    n_attn = cfg.attn_layers
+    launches[RGEMMA], numbers[RGEMMA] = phase_prefill(
+        RGEMMA, cfg, bundle, params,
+        dict(flash_attention=n_attn, rglru_scan=cfg.n_layers - n_attn))
+    b, s = PREFILL[RGEMMA]
+    batch = {"tokens": synthetic.lm_token_stream(cfg.vocab_size, s, b, seed=11)}
+    lm_profile("recurrentgemma-9b prefill (2 x 4,096)", lambda: bundle.prefill(params, batch))
+    del params
+    torch.cuda.empty_cache()
+    say("lm", "peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB over the LM phases")
+    return launches, numbers
+
+
+def _per_launch(rows, shape):
+    """One JSON row: the kernel's numbers per launch at its main path's shape."""
+    row = next(r for r in rows if r["shape"] == shape)
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
+
 def main() -> int:
     try:
         import torch
@@ -1334,6 +1860,9 @@ def main() -> int:
         phase_profile("fused chunked fleet fit (64 tenants)", lambda: fleet._fit_fleet_chunked(
             cfg, xs_d, chunk_samples=FLEET_CHUNK, seeds=fleet_seeds))
         phase_profile("fleet merge 64 -> 32", lambda: fleet.fleet_merge_pairwise(cfg, devices))
+        lm_rows = phase_lm_kernels()
+        phase_lm_agreement()
+        lm_launches, lm_numbers = phase_lm()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1407,8 +1936,37 @@ def main() -> int:
             **_per_fit(batched_rows["rolann_fused_chunk_batched"], len(fleet_valid),
                        fleet_bound["fused"], ("m_l", "m_c1"), fleet_valid),
         },
+        {
+            "name": "flash_attention",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
+            "launches": lm_launches["head"]["flash_attention"],
+            # Per launch at the head path's shape (64 x 256, 16/8 heads of 128, bf16).
+            **_per_launch(lm_rows["flash_attention"], "head path"),
+        },
+        {
+            "name": "rglru_scan",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru_scan/kernel.py:56",
+            "launches": lm_launches[RGEMMA]["rglru_scan"],
+            # Per launch at recurrentgemma-9b's prefill shape (2 x 4,096 x 4,096).
+            **_per_launch(lm_rows["rglru_scan"], "recurrentgemma prefill"),
+        },
+        {
+            "name": "ssd_chunk",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu",
+            "replaces": "src/repro/kernels/ssd_chunk/kernel.py:76",
+            "launches": lm_launches[MAMBA2]["ssd_chunk"],
+            # Per launch at mamba2-780m's prefill shape (4 x 4,096, 48 heads).
+            **_per_launch(lm_rows["ssd_chunk"], "mamba2 prefill"),
+        },
     ]
-    print(json.dumps({"per_shape": {"rolann_stats": rows, **fold_rows, **batched_rows}}))
+    print(json.dumps({"lm": lm_numbers}))
+    print(json.dumps({"per_shape": {"rolann_stats": rows, **fold_rows, **batched_rows,
+                                    **lm_rows}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

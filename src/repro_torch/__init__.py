@@ -15,9 +15,13 @@ chunk by chunk (``daef.fit_chunked``, ``daef.fit_stream``), with scoring,
 classification and the federated merges (``daef.merge_models``,
 ``partial_fit``); and the same for a fleet of K tenants at once
 (``repro_torch.fleet``: fit, chunked and streamed fits, pairwise merges,
-scores, thresholds).  ROADMAP.md lists what waits.
+scores, thresholds).  The model zoo's serving side is ported for the dense,
+SSM and hybrid families (``repro_torch.models.get_bundle``: init, forward,
+prefill), with the DAEF head on their pooled hidden states
+(``repro_torch.models.daef_head``).  ROADMAP.md lists what waits.
 """
+from repro_torch import models
 from repro_torch.core import fleet
 from repro_torch.device import DEFAULT_DTYPE, as_tensor, resolve_device
 
-__all__ = ["DEFAULT_DTYPE", "as_tensor", "fleet", "resolve_device"]
+__all__ = ["DEFAULT_DTYPE", "as_tensor", "fleet", "models", "resolve_device"]

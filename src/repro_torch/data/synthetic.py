@@ -1,4 +1,5 @@
-"""Synthetic replicas of the paper's anomaly-detection datasets (numpy only).
+"""Synthetic replicas of the paper's anomaly-detection datasets, and the
+synthetic token stream of the LM paths (numpy only).
 
 The port's own copy of the replica generator in ``repro/data/synthetic.py``,
 so that a machine without jax makes the same data: the same name, seed and
@@ -111,3 +112,23 @@ def make_dataset(name: str, seed: int = 0, scale: float = 1.0) -> AnomalyDataset
         x_normal=((x_norm - mean) / std).astype(np.float32),
         x_anomaly=((x_anom - mean) / std).astype(np.float32),
     )
+
+
+def lm_token_stream(
+    vocab_size: int, seq_len: int, batch: int, seed: int = 0
+) -> np.ndarray:
+    """Synthetic token batches [batch, seq_len] (int32) for LM serving.
+
+    A Zipfian unigram model with short-range repetition structure; the same
+    arguments give the same tokens as ``repro.data.synthetic.lm_token_stream``.
+    """
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    toks = rng.choice(vocab_size, size=(batch, seq_len), p=probs)
+    # Inject copy structure: with p=0.3 repeat the token 8 positions back.
+    if seq_len > 8:
+        mask = rng.random((batch, seq_len - 8)) < 0.3
+        toks[:, 8:][mask] = toks[:, :-8][mask]
+    return toks.astype(np.int32)

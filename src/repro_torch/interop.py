@@ -1,4 +1,5 @@
-"""Carry DAEF models between the JAX package and the port as numpy leaves.
+"""Carry DAEF models, fleets and LM parameters between the JAX package and
+the port as numpy leaves.
 
 A model crosses as the list of its leaves in ``jax.tree.flatten`` order of
 the reference ``DAEFModel`` (gram method):
@@ -12,16 +13,28 @@ a leading [K], then ``seeds`` (int32), ``lam_hidden`` and ``lam_last``.
 Neither side needs the other's framework: the JAX side flattens with
 ``jax.tree.flatten`` and converts each leaf with ``numpy.asarray``; this
 module does the rest.
+
+LM parameters cross as the reference's own nested tree (dicts and lists) of
+numpy arrays, ``jax.tree.map(numpy.asarray, params)``, and
+:func:`lm_params_from_numpy` maps it leaf for leaf onto the port's
+parameter tree, which has the same structure: the same keys, each leaf a
+tensor of the same shape and dtype.  Weights keep the reference's ``[in,
+out]`` orientation (the port computes ``x @ w`` as the reference does);
+layer stacks keep their leading axis (``layers`` [L, ...] of the dense and
+SSM families, ``periods`` [n_periods, ...] of the hybrid, whose remainder
+blocks stay the list ``tail``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core import dsvd, rolann
 from repro_torch.core.daef import DAEFConfig, DAEFModel
 from repro_torch.core.fleet import DAEFFleet, _tree_leaves
 from repro_torch.device import resolve_device
+from repro_torch.models import rglru
 
 
 def _n_leaves(config: DAEFConfig) -> int:
@@ -84,3 +97,38 @@ def fleet_from_numpy(config: DAEFConfig, leaves, *, device=None) -> DAEFFleet:
 def fleet_to_numpy(fleet: DAEFFleet) -> list[np.ndarray]:
     """The fleet's leaves as numpy arrays, in ``jax.tree.flatten`` order."""
     return [t.detach().cpu().numpy() for t in _tree_leaves(fleet)]
+
+
+def _tree_to_torch(tree, dev: torch.device):
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to_torch(v, dev) for v in tree]
+    return torch.as_tensor(np.array(tree), device=dev)
+
+
+def _leading(tree) -> set[int]:
+    if isinstance(tree, dict):
+        return set().union(*(_leading(v) for v in tree.values()))
+    return {tree.shape[0]}
+
+
+def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None) -> dict:
+    """The port's parameters of ``cfg``'s LM on ``device`` from the
+    reference's parameter tree of numpy arrays (see the module docstring).
+
+    Raises:
+        ValueError: a layer stack's leading axis does not match ``cfg``.
+    """
+    params = _tree_to_torch(tree, resolve_device(device))
+    if cfg.family == "hybrid":
+        n_periods, tail = rglru._layout(cfg)
+        stacks, want = _leading(params["periods"]), {n_periods}
+        if len(params["tail"]) != len(tail):
+            raise ValueError(f"{cfg.name}: {len(params['tail'])} tail blocks, "
+                             f"expected {len(tail)}")
+    else:
+        stacks, want = _leading(params["layers"]), {cfg.n_layers}
+    if stacks != want:
+        raise ValueError(f"{cfg.name}: layer stacks of {sorted(stacks)}, expected {want}")
+    return params

@@ -112,3 +112,20 @@ def load(name: str) -> ctypes.CDLL:
         path = build(name)[name]
         lib = _LOADED[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def function(library: str, name: str, argtypes):
+    """The C function ``name`` of ``library``, returning an int error code,
+    with its argument types set (ctypes passes an unset pointer as a 32-bit
+    int)."""
+    fn = getattr(load(library), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def raise_on(who: str, err: int) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{who}: kernel launch failed with CUDA error {err}")

@@ -1,0 +1,6 @@
+"""Causal, optionally windowed, flash attention forward (B7): CUDA kernel,
+wrapper and plain version."""
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+__all__ = ["flash_attention", "flash_attention_ref"]

@@ -1,0 +1,280 @@
+// Causal, optionally windowed, flash attention forward on Hopper (sm_90a),
+// plain FP32 CUDA cores.
+//
+// Replaces the Pallas TPU kernel `flash_attention_kernel` (body `_kernel`) of
+// src/repro/kernels/flash_attention/kernel.py (B7).  For every batch b, query
+// head h and query position i:
+//
+//     s_ij  = (q_i · k_j) · D^-1/2,  masked to -1e30 unless j <= i (causal)
+//             and j > i - window (when a window is given) and j < S
+//     out_i = Σ_j softmax(s_i)_j v_j          (in q's type)
+//     lse_i = m_i + log(max(l_i, 1e-30))      (float32; the backward needs it)
+//
+// with an online softmax: a running row max m, row sum l and accumulator in
+// float32, the Pallas kernel's `_NEG_INF = -1e30` and `max(l, 1e-30)`.
+//
+// Layout.  q [B, S, H, D], k and v [B, S, Hkv, D], each with its own batch,
+// sequence and head strides (the last axis contiguous): the model's layout,
+// read in place.  Query head h reads KV head h / (H / Hkv), so GQA and MQA
+// need no repeated copy of k and v (the reference's `jnp.repeat` and
+// [N, S, D] transpose in ops.py).  out [B, S, H, D] contiguous, lse [B, H, S].
+// Inputs are float32 or bf16; every product and sum is float32 (bf16 is
+// widened on load, the output rounded once).  The probabilities stay float32
+// for P·V, as in `flash_attention_ref` and the model's `attend_chunked` (the
+// Pallas kernel rounds them to v's type first).
+//
+// Design.  The Pallas grid carries (m, l, acc) in VMEM along a sequential key
+// axis; Hopper's blocks run in no order, so one block owns a tile of BQ query
+// rows of one (b, h) and loops over the key tiles itself, keeping (m, l, acc)
+// in registers.  128 threads: lane group cg = tid % 8 and row group
+// rg = tid / 8.  A thread owns query rows rg + 16·i (4 rows, BQ = 64, at
+// D <= 128; 2 rows, BQ = 32, at D = 256 to bound registers), key columns
+// cg + 8·j of each 32-key tile and output columns cg + 8·j of D.  The eight
+// lanes that share a row are neighbours in one warp, so the row max and row
+// sum are three xor-shuffles.  Q (once) and each K/V tile are staged in
+// shared memory as float32 with rows padded to D + 1 floats, so that the
+// lanes of a warp read distinct banks; P goes through shared memory (rows
+// padded to 33) between the two products.
+//
+// Block skipping.  A block visits only the key tiles that meet its causal /
+// window band: from the tile holding max(0, q0 - window + 1) up to its last
+// query row.  The tiles it skips would contribute exp(-1e30 - m) = 0 to every
+// row, so this is the same function with less work.  Masked entries get
+// p = 0 explicitly; every row has at least its own key (j = i), so this
+// equals the reference wherever the reference is defined.  Rows and keys
+// past S (a ragged S, which the Pallas kernel refuses) are masked here.
+//
+// What bounds it.  bf16 attention is tensor-core work on this card; this
+// first version does it on the FP32 CUDA cores (no mma / wgmma, no TMA), and
+// its inner loops are bounded by shared-memory loads (8 loads per 16 FMAs in
+// Q·Kᵀ, 20 per 64 in P·V).  On the head path (S = 256) it moves ~0.2 GB per
+// launch; at S = 4096 the operations dominate.  wgmma, TMA and a producer
+// warp are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kThreads = 128;
+constexpr int kBK = 32;                 // keys per tile
+constexpr int kCG = 8;                  // lanes sharing a query row
+constexpr int kRG = kThreads / kCG;     // row groups
+constexpr int kCols = kBK / kCG;        // keys per thread per tile
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <int D>
+struct Tile {
+  static constexpr int kRows = D > 128 ? 2 : 4;  // query rows per thread
+  static constexpr int kBQ = kRG * kRows;        // query rows per block
+  static constexpr int kDCols = D / kCG;         // output columns per thread
+  static constexpr int kLdQ = D + 1;
+  static constexpr int kLdK = D + 1;
+  static constexpr int kLdV = D;
+  static constexpr int kLdP = kBK + 1;
+  static constexpr int kSmemBytes =
+      4 * (kBQ * kLdQ + kBK * kLdK + kBK * kLdV + kBQ * kLdP);
+};
+
+__device__ __forceinline__ float row_max8(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+}
+
+__device__ __forceinline__ float row_sum8(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+}
+
+__device__ __forceinline__ bool attends(int i, int j, int S, int causal, int window) {
+  return j < S && (!causal || j <= i) && (window <= 0 || j > i - window);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int S, int H, int Hkv,
+                 long long qsb, long long qss, long long qsh,
+                 long long ksb, long long kss, long long ksh,
+                 long long vsb, long long vss, long long vsh,
+                 int causal, int window, float scale) {
+  using L = Tile<D>;
+  constexpr int R = L::kRows;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + L::kBQ * L::kLdQ;
+  float* Vs = Ks + kBK * L::kLdK;
+  float* Ps = Vs + kBK * L::kLdV;
+
+  const int tid = threadIdx.x, cg = tid % kCG, rg = tid / kCG;
+  const int q0 = blockIdx.x * L::kBQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const T* qb = q + b * qsb + h * qsh;
+  const T* kb = k + b * ksb + hk * ksh;
+  const T* vb = v + b * vsb + hk * vsh;
+
+  for (int e = tid; e < L::kBQ * D; e += kThreads) {
+    const int r = e / D, d = e % D, s = q0 + r;
+    Qs[r * L::kLdQ + d] = s < S ? to_f(qb[s * qss + d]) : 0.f;
+  }
+
+  float m[R], l[R], acc[R][L::kDCols];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < L::kDCols; ++c) acc[i][c] = 0.f;
+  }
+
+  const int k_end = causal ? min(S, q0 + L::kBQ) : S;
+  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  for (int k0 = (k_first / kBK) * kBK; k0 < k_end; k0 += kBK) {
+    __syncthreads();  // Q staged; the previous tile's K, V and P are read
+    for (int e = tid; e < kBK * D; e += kThreads) {
+      const int c = e / D, d = e % D, s = k0 + c;
+      const bool in = s < S;
+      Ks[c * L::kLdK + d] = in ? to_f(kb[s * kss + d]) : 0.f;
+      Vs[c * L::kLdV + d] = in ? to_f(vb[s * vss + d]) : 0.f;
+    }
+    __syncthreads();
+
+    float sc[R][kCols];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) sc[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[R], kv[kCols];
+#pragma unroll
+      for (int i = 0; i < R; ++i) qv[i] = Qs[(rg + kRG * i) * L::kLdQ + d];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) kv[j] = Ks[(cg + kCG * j) * L::kLdK + d];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int qi = q0 + rg + kRG * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int kj = k0 + cg + kCG * j;
+        sc[i][j] = attends(qi, kj, S, causal, window) ? sc[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max8(mx));
+      const float corr = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int kj = k0 + cg + kCG * j;
+        const float p = attends(qi, kj, S, causal, window) ? expf(sc[i][j] - m_new) : 0.f;
+        Ps[(rg + kRG * i) * L::kLdP + cg + kCG * j] = p;
+        rs += p;
+      }
+      l[i] = l[i] * corr + row_sum8(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < L::kDCols; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < kBK; ++c) {
+      float pv[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) pv[i] = Ps[(rg + kRG * i) * L::kLdP + c];
+#pragma unroll
+      for (int dc = 0; dc < L::kDCols; ++dc) {
+        const float vv = Vs[c * L::kLdV + cg + kCG * dc];
+#pragma unroll
+        for (int i = 0; i < R; ++i) acc[i][dc] = fmaf(pv[i], vv, acc[i][dc]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int s = q0 + rg + kRG * i;
+    if (s < S) {
+      const float lf = fmaxf(l[i], 1e-30f);
+      T* ob = out + ((static_cast<long long>(b) * S + s) * H + h) * D;
+#pragma unroll
+      for (int dc = 0; dc < L::kDCols; ++dc) ob[cg + kCG * dc] = from_f<T>(acc[i][dc] / lf);
+      if (cg == 0) lse[(static_cast<long long>(b) * H + h) * S + s] = m[i] + logf(lf);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+           int S, int H, int Hkv, const long long* st, int causal, int window,
+           float scale, cudaStream_t stream) {
+  using L = Tile<D>;
+  auto* fn = flash_fwd_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         L::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + L::kBQ - 1) / L::kBQ, H, B);
+  fn<<<grid, kThreads, L::kSmemBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), lse, S, H, Hkv, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(int d, const void* q, const void* k, const void* v, void* out, float* lse,
+             int B, int S, int H, int Hkv, const long long* st, int causal, int window,
+             float scale, cudaStream_t stream) {
+  switch (d) {
+    case 32: return launch<T, 32>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// B7 forward.  dtype 0 = float32, 1 = bf16 (q, k, v and out share it).
+// strides: q's batch, sequence and head strides, then k's, then v's, in
+// elements.  window <= 0 means no window.  Launches on `stream`; returns
+// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a head
+// size other than 32, 64, 128 or 256, or H not a multiple of Hkv.
+extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
+                                   void* out, float* lse, int B, int S, int H, int Hkv,
+                                   int D, const long long* strides, int causal,
+                                   int window, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch<float>(D, q, k, v, out, lse, B, S, H, Hkv, strides, causal, window,
+                           scale, st);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(D, q, k, v, out, lse, B, S, H, Hkv, strides, causal,
+                                   window, scale, st);
+  return cudaErrorInvalidValue;
+}

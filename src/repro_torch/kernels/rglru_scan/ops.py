@@ -1,0 +1,66 @@
+"""Wrapper of the RG-LRU scan kernel (B9).
+
+Counterpart of ``repro/kernels/rglru_scan/ops.py``: :func:`rglru_scan` takes
+x, r, i [B, S, W] and lam [W] and returns ``(y [B, S, W], h_last [B, W])``,
+float32, from h = 0.
+
+Dispatch is by the tensors' device: on the CPU the plain version
+(``ref.rglru_scan_ref``) runs; on a CUDA device the hand-written kernel
+(``csrc/rglru_scan.cu``) launches for float32 contiguous inputs, or the call
+raises.  Nothing falls back from the card.  ``rglru_scan.launches`` counts
+the calls that launched the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+_PTR = ctypes.c_void_p
+_ARGS = [_PTR] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _PTR]
+
+
+def _check(x, r, i, lam) -> None:
+    for name, t in (("x", x), ("r", r), ("i", i), ("lam", lam)):
+        if not isinstance(t, torch.Tensor) or not t.is_floating_point():
+            raise TypeError(f"rglru_scan: {name} must be a floating torch.Tensor")
+        if t.device != x.device:
+            raise ValueError(f"rglru_scan: {name} is on {t.device}, x on {x.device}")
+    if x.ndim != 3 or r.shape != x.shape or i.shape != x.shape or lam.shape != x.shape[2:]:
+        raise ValueError(f"rglru_scan: expected x, r, i [B, S, W] and lam [W]; got "
+                         f"{tuple(x.shape)}, {tuple(r.shape)}, {tuple(i.shape)}, "
+                         f"{tuple(lam.shape)}")
+
+
+def rglru_scan(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor, lam: torch.Tensor):
+    """RG-LRU recurrence over [B, S, W]: (y, h_last)."""
+    _check(x, r, i, lam)
+    if x.device.type == "cpu":
+        return rglru_scan_ref(x, r, i, lam)
+    if x.device.type != "cuda":
+        raise ValueError(f"rglru_scan: no kernel for device {x.device}")
+    for name, t in (("x", x), ("r", r), ("i", i), ("lam", lam)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"rglru_scan: the kernel takes float32 contiguous tensors; "
+                             f"{name} is {t.dtype}, contiguous={t.is_contiguous()}")
+    b, s, w = x.shape
+    y = torch.empty((b, s, w), dtype=torch.float32, device=x.device)
+    h_last = torch.zeros((b, w), dtype=torch.float32, device=x.device)
+    if b == 0 or s == 0 or w == 0:
+        return y, h_last
+    fn = _build.function("rglru_scan", "rglru_scan_f32", _ARGS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), r.data_ptr(), i.data_ptr(), lam.data_ptr(), y.data_ptr(),
+                 h_last.data_ptr(), b, s, w, stream)
+    _build.raise_on("rglru_scan_f32", err)
+    rglru_scan.launches += 1
+    return y, h_last
+
+
+rglru_scan.launches = 0
+
+__all__ = ["rglru_scan", "rglru_scan_ref"]

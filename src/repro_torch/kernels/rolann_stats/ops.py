@@ -216,25 +216,12 @@ def plan_slices(m: int, n: int, o: int, sm_count: int) -> tuple[int, int]:
     return -(-n // slice_len), slice_len
 
 
-def _function(library: str, name: str, argtypes):
-    fn = getattr(_build.load(library), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _workspace(slices: int, o: int, m: int, dev: torch.device):
     f32 = dict(dtype=torch.float32, device=dev)
     return torch.empty((slices, o, m, m), **f32), torch.empty((slices, o, m), **f32)
-
-
-def _raise_on(who: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{who}: kernel launch failed with CUDA error {err}")
 
 
 def _launch(fn_name: str, xa, fsq, fd, g, mv) -> None:
@@ -249,14 +236,14 @@ def _launch(fn_name: str, xa, fsq, fd, g, mv) -> None:
     slices, slice_len = plan_slices(m, n, k * o, sm_count)
     ws_g, ws_m = _workspace(slices, k * o, m, dev)
     args = [_PTR] * 7 + [_I32, _I64, _I32, _I32, _I64, _PTR]
-    fn = _function("rolann_stats", fn_name, args[:7] + [_I32] + args[7:] if batched else args)
+    fn = _build.function("rolann_stats", fn_name, args[:7] + [_I32] + args[7:] if batched else args)
     shape = (k, m, n, o) if batched else (m, n, o)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(xa.data_ptr(), fsq.data_ptr(), fd.data_ptr(), ws_g.data_ptr(),
                  ws_m.data_ptr(), g.data_ptr(), mv.data_ptr(), *shape, slices,
                  slice_len, stream)
-    _raise_on(fn_name, err)
+    _build.raise_on(fn_name, err)
 
 
 def _cuda_or_raise(who: str, device: torch.device) -> None:
@@ -370,14 +357,15 @@ def _launch_fused(fn_name: str, g, mv, h, w, b, mask, act_name: str) -> None:
     slices, slice_len = plan_slices(ma, n, k * m_l, sm_count)
     ws_g, ws_m = _workspace(slices, k * m_l, ma, dev)
     args = [_PTR] * 8 + [_I32, _I32, _I64, _I32, _I32, _I64, _PTR]
-    fn = _function("rolann_fused_chunk", fn_name, args[:8] + [_I32] + args[8:] if batched else args)
+    fn = _build.function("rolann_fused_chunk", fn_name,
+                         args[:8] + [_I32] + args[8:] if batched else args)
     shape = (k, m_l, m_c1, n) if batched else (m_l, m_c1, n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(h.data_ptr(), w.data_ptr(), b.data_ptr(), mask.data_ptr(),
                  ws_g.data_ptr(), ws_m.data_ptr(), g.data_ptr(), mv.data_ptr(),
                  *shape, FUSED_ACTS[act_name], slices, slice_len, stream)
-    _raise_on(fn_name, err)
+    _build.raise_on(fn_name, err)
 
 
 def rolann_stats_batched(xa: torch.Tensor, fsq: torch.Tensor, fd: torch.Tensor):

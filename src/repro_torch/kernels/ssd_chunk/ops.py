@@ -1,0 +1,93 @@
+"""Wrapper of the Mamba-2 SSD chunk-scan kernel (B10).
+
+Counterpart of ``repro/kernels/ssd_chunk/ops.py``, in the model layout with
+B and C per group (the reference folds batch and heads into [BH, S, ...]
+and repeats B and C per head): :func:`ssd_chunk` takes xdt [B, S, H, P],
+la [B, S, H], b and c [B, S, G, N] and returns
+``(y [B, S, H, P], h_final [B, H, P, N])``, float32.  The chunk keeps the
+reference's rule: ``chunk = min(chunk, S)``, lowered until it divides S.
+
+Dispatch is by the tensors' device: on the CPU the plain chunked version
+(``ref.ssd_chunk_plain``) runs; on a CUDA device the hand-written kernel
+(``csrc/ssd_chunk.cu``, three launches counted as one call) runs for float32
+contiguous inputs with P <= 64, N <= 128 and a chunk <= 256, or the call
+raises.  Nothing falls back from the card.  ``ssd_chunk.launches`` counts
+the calls that launched the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_plain
+
+MAX_P, MAX_N, MAX_CHUNK = 64, 128, 256
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+_ARGS = [_PTR] * 8 + [_I32] * 7 + [_PTR]
+
+
+def _check(xdt, la, b, c) -> None:
+    for name, t in (("xdt", xdt), ("la", la), ("b", b), ("c", c)):
+        if not isinstance(t, torch.Tensor) or not t.is_floating_point():
+            raise TypeError(f"ssd_chunk: {name} must be a floating torch.Tensor")
+        if t.device != xdt.device:
+            raise ValueError(f"ssd_chunk: {name} is on {t.device}, xdt on {xdt.device}")
+    if xdt.ndim != 4 or la.shape != xdt.shape[:3] or b.ndim != 4 or c.shape != b.shape \
+            or b.shape[:2] != xdt.shape[:2]:
+        raise ValueError(f"ssd_chunk: expected xdt [B, S, H, P], la [B, S, H], b, c "
+                         f"[B, S, G, N]; got {tuple(xdt.shape)}, {tuple(la.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(c.shape)}")
+    if b.shape[2] == 0 or xdt.shape[2] % b.shape[2]:
+        raise ValueError(f"ssd_chunk: {xdt.shape[2]} heads over {b.shape[2]} groups")
+
+
+def fit_chunk(s: int, chunk: int) -> int:
+    """The reference's chunk rule: min(chunk, S), lowered until it divides S."""
+    chunk = max(1, min(chunk, s))
+    while s % chunk:
+        chunk -= 1
+    return chunk
+
+
+def ssd_chunk(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
+              chunk: int = 256):
+    """Chunked SSD scan: (y [B, S, H, P], h_final [B, H, P, N])."""
+    _check(xdt, la, b, c)
+    bsz, s, h, p = xdt.shape
+    g, n = b.shape[2], b.shape[3]
+    chunk = fit_chunk(s, chunk)
+    if xdt.device.type == "cpu":
+        return ssd_chunk_plain(xdt, la, b, c, chunk)
+    if xdt.device.type != "cuda":
+        raise ValueError(f"ssd_chunk: no kernel for device {xdt.device}")
+    for name, t in (("xdt", xdt), ("la", la), ("b", b), ("c", c)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"ssd_chunk: the kernel takes float32 contiguous tensors; "
+                             f"{name} is {t.dtype}, contiguous={t.is_contiguous()}")
+    if p > MAX_P or n > MAX_N or chunk > MAX_CHUNK:
+        raise ValueError(f"ssd_chunk: the kernel takes P <= {MAX_P}, N <= {MAX_N} and a "
+                         f"chunk <= {MAX_CHUNK}; got P={p}, N={n}, chunk={chunk}")
+    f32 = dict(dtype=torch.float32, device=xdt.device)
+    y = torch.empty((bsz, s, h, p), **f32)
+    h_final = torch.zeros((bsz, h, p, n), **f32)
+    if bsz == 0 or s == 0 or h == 0 or p == 0 or n == 0:
+        return y, h_final
+    nc = s // chunk
+    ws = torch.empty((bsz * h, nc, p, n), **f32)
+    cd = torch.empty((bsz * h, nc), **f32)
+    fn = _build.function("ssd_chunk", "ssd_chunk_f32", _ARGS)
+    with torch.cuda.device(xdt.device):
+        stream = torch.cuda.current_stream(xdt.device).cuda_stream
+        err = fn(xdt.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
+                 h_final.data_ptr(), ws.data_ptr(), cd.data_ptr(), bsz, s, h, g, p, n,
+                 chunk, stream)
+    _build.raise_on("ssd_chunk_f32", err)
+    ssd_chunk.launches += 1
+    return y, h_final
+
+
+ssd_chunk.launches = 0
+
+__all__ = ["fit_chunk", "ssd_chunk", "ssd_chunk_plain"]

@@ -1,0 +1,155 @@
+"""Shared model components: norms, MLPs, embeddings, RoPE and initialisers.
+
+Counterpart of ``repro/models/common.py`` (the serving side: the chunked
+cross-entropy waits for the training slice).  Modules are functional, as in
+the reference: ``init_*`` returns a parameter dict of tensors, the apply
+functions take (params, inputs).  Weights keep the reference's ``[in, out]``
+orientation (``x @ w``).  Layers of a stack are drawn at once with a leading
+``lead`` shape, which stands where the reference's ``jax.vmap(init_layer)``
+puts its [L] axis.
+
+The initialisers draw from an explicit ``torch.Generator``, on its device:
+the same distributions as the reference (fan-in truncated normal within
+±2σ, N(0, 0.02) embeddings), not the same bits (``jax.random`` and torch
+generators differ).  The tests carry the reference's own parameters across
+with ``interop.lm_params_from_numpy``.
+
+``jax.nn.gelu`` defaults to the tanh approximation; so does every GELU here.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+Params = dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Initialisers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None, *,
+               lead: tuple[int, ...] = ()) -> torch.Tensor:
+    """Truncated-normal fan-in init (std ``shape[0] ** -0.5`` unless ``scale``
+    is given, cut at ±2σ), drawn in float32 then cast; ``lead + shape``."""
+    std = scale if scale is not None else shape[0] ** -0.5
+    t = torch.empty((*lead, *shape), dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.mul_(std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    t = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return t.mul_(0.02).to(dtype)
+
+
+def _full(lead, shape, value, dtype, device) -> torch.Tensor:
+    return torch.full((*lead, *shape), value, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Norms (computed in float32, cast back)
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, dtype, *, lead=(), device=None) -> Params:
+    return {"scale": _full(lead, (d,), 1.0, dtype, device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(d: int, dtype, *, lead=(), device=None) -> Params:
+    return {"scale": _full(lead, (d,), 1.0, dtype, device),
+            "bias": _full(lead, (d,), 0.0, dtype, device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    return (out * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+def init_norm(kind: str, d: int, dtype, *, lead=(), device=None) -> Params:
+    if kind == "rmsnorm":
+        return init_rmsnorm(d, dtype, lead=lead, device=device)
+    return init_layernorm(d, dtype, lead=lead, device=device)
+
+
+def apply_norm(kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+    return rmsnorm(p, x) if kind == "rmsnorm" else layernorm(p, x)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, kind: str, d_model: int, d_ff: int, dtype, *,
+             lead=()) -> Params:
+    if kind in ("swiglu", "geglu"):
+        return {
+            "w_gate": dense_init(gen, (d_model, d_ff), dtype, lead=lead),
+            "w_up": dense_init(gen, (d_model, d_ff), dtype, lead=lead),
+            "w_down": dense_init(gen, (d_ff, d_model), dtype, lead=lead),
+        }
+    return {  # gelu_mlp (whisper-style 2-matrix MLP with bias)
+        "w_up": dense_init(gen, (d_model, d_ff), dtype, lead=lead),
+        "b_up": _full(lead, (d_ff,), 0.0, dtype, gen.device),
+        "w_down": dense_init(gen, (d_ff, d_model), dtype, lead=lead),
+        "b_down": _full(lead, (d_model,), 0.0, dtype, gen.device),
+    }
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(p: Params, kind: str, x: torch.Tensor) -> torch.Tensor:
+    if kind == "swiglu":
+        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    if kind == "geglu":
+        return (gelu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return gelu(x @ p["w_up"] + p["b_up"]) @ p["w_down"] + p["b_down"]
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (halves split, not interleaved)
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies [head_dim // 2] (float32)."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x [..., seq, heads, head_dim]; positions broadcastable to [..., seq]."""
+    inv = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None, None].float() * inv           # [..., S, 1, hd/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype) -> Params:
+    return {"table": embed_init(gen, (vocab, d), dtype)}
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+def layer(stack: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked parameter tree (views, no copy)."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in stack.items()}

@@ -1,0 +1,133 @@
+"""Mamba-2 (SSD, State Space Duality, arXiv:2405.21060): init and prefill.
+
+Counterpart of ``repro/models/mamba2.py``'s ``_dims``, ``init_layer`` /
+``init_params``, ``_split_proj``, ``_causal_conv``, ``ssd_chunked``,
+``layer_fwd`` and ``forward``.  Layers are stacked on a leading [L] axis.
+
+The SSD scan of :func:`layer_fwd` goes through the B10 wrapper
+(``kernels.ssd_chunk``): the hand-written kernel on a CUDA tensor, the plain
+chunked version on a CPU tensor, with B and C indexed per group (never
+repeated per head).  :func:`ssd_chunked` keeps the reference's signature and
+is that plain version.
+
+What the port leaves out: ``remat`` (no forward-only meaning), the sharding
+hint on the heads (mesh-only, ROADMAP queue A item 12), ``lm_loss`` (the
+training slice), ``Mamba2Cache``, ``init_cache`` and ``decode_step`` (the
+decode slice).
+
+Shapes: tokens [B, S]; inner activations [B, S, H, P] (H heads, P head dim);
+B/C projections [B, S, G, N] (G groups, N state dim).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_plain
+from repro_torch.models import common
+
+Params = dict[str, Any]
+
+
+def _dims(cfg: ArchConfig):
+    d_inner = cfg.ssm_expand * cfg.d_model
+    n_heads = d_inner // cfg.ssm_head_dim
+    conv_ch = d_inner + 2 * cfg.n_groups * cfg.ssm_state
+    return d_inner, n_heads, conv_ch
+
+
+def a_log_init(n_heads: int) -> torch.Tensor:
+    """log(linspace(1, 16, H)) in float32, from the float64 values rounded
+    once (the reference's XLA-folded constant can differ by one ulp)."""
+    return torch.from_numpy(np.log(np.linspace(1.0, 16.0, n_heads)).astype(np.float32))
+
+
+def init_layer(gen: torch.Generator, cfg: ArchConfig, dtype, *, lead=()) -> Params:
+    d, dev = cfg.d_model, gen.device
+    d_inner, n_heads, conv_ch = _dims(cfg)
+    g, n = cfg.n_groups, cfg.ssm_state
+    d_proj = 2 * d_inner + 2 * g * n + n_heads  # in_proj emits [z | x | B | C | dt]
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "norm": common.init_rmsnorm(d, dtype, lead=lead, device=dev),
+        "in_proj": common.dense_init(gen, (d, d_proj), dtype, lead=lead),
+        "conv_w": common.dense_init(gen, (cfg.conv_width, conv_ch), dtype, scale=0.5,
+                                    lead=lead),
+        "conv_b": torch.zeros((*lead, conv_ch), dtype=dtype, device=dev),
+        "a_log": a_log_init(n_heads).to(dev).expand(*lead, n_heads).contiguous(),
+        "dt_bias": torch.zeros((*lead, n_heads), **f32),
+        "d_skip": torch.ones((*lead, n_heads), **f32),
+        "gate_norm": common.init_rmsnorm(d_inner, dtype, lead=lead, device=dev),
+        "out_proj": common.dense_init(gen, (d_inner, d), dtype, lead=lead),
+    }
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> Params:
+    """Random parameters on ``gen``'s device (layers stacked on [L]); the LM
+    head is tied to the embedding, as in the released models."""
+    return {
+        "embed": common.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype),
+        "layers": init_layer(gen, cfg, dtype, lead=(cfg.n_layers,)),
+        "final_norm": common.init_rmsnorm(cfg.d_model, dtype, device=gen.device),
+    }
+
+
+def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
+    d_inner, n_heads, _ = _dims(cfg)
+    gn = cfg.n_groups * cfg.ssm_state
+    return torch.split(zxbcdt, [d_inner, d_inner, gn, gn, n_heads], dim=-1)
+
+
+def _causal_conv(w: torch.Tensor, bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv + SiLU.  x [B, S, C]; w [W, C]."""
+    width, s = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    out = sum(pad[:, i:i + s, :] * w[i][None, None, :] for i in range(width))
+    return F.silu(out + bias)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0), no threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def ssd_chunked(x, dt, a, b, c, chunk: int, h0=None):
+    """The chunked SSD scan with the reference's signature (the plain route):
+    x [B, S, H, P], dt [B, S, H] (softplus'd), a [H] (A = -a), b and c
+    [B, S, G, N] -> (y [B, S, H, P], final state [B, H, P, N])."""
+    return ssd_chunk_plain(x * dt[..., None], -a[None, None, :] * dt, b, c, chunk, h0)
+
+
+def layer_fwd(layer: Params, cfg: ArchConfig, h_in: torch.Tensor) -> torch.Tensor:
+    """One mamba2 block (prefill)."""
+    d_inner, n_heads, _ = _dims(cfg)
+    gn = cfg.n_groups * cfg.ssm_state
+    x_norm = common.rmsnorm(layer["norm"], h_in)
+    z, x, b, c, dt = _split_proj(cfg, x_norm @ layer["in_proj"])
+    xbc = _causal_conv(layer["conv_w"], layer["conv_b"], torch.cat([x, b, c], dim=-1))
+    x, b, c = torch.split(xbc, [d_inner, gn, gn], dim=-1)
+    bsz, s, _ = x.shape
+    x = x.reshape(bsz, s, n_heads, cfg.ssm_head_dim).float()
+    b = b.reshape(bsz, s, cfg.n_groups, cfg.ssm_state).float().contiguous()
+    c = c.reshape(bsz, s, cfg.n_groups, cfg.ssm_state).float().contiguous()
+    dt = softplus(dt.float() + layer["dt_bias"])
+    a = torch.exp(layer["a_log"])
+
+    y, _ = ssd_chunk(x * dt[..., None], -a[None, None, :] * dt, b, c,
+                     chunk=min(cfg.ssm_chunk, s))
+    y = y + layer["d_skip"][None, None, :, None] * x
+    y = y.reshape(bsz, s, d_inner).to(h_in.dtype)
+    y = common.rmsnorm(layer["gate_norm"], y * F.silu(z))
+    return h_in + y @ layer["out_proj"]
+
+
+def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Hidden states [B, S, d] for prefill."""
+    h = common.embed(params["embed"], tokens)
+    for i in range(cfg.n_layers):
+        h = layer_fwd(common.layer(params["layers"], i), cfg, h)
+    return common.rmsnorm(params["final_norm"], h)

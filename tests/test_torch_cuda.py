@@ -15,7 +15,12 @@ import torch
 
 from _torch_parity import lowrank_data
 
+from repro_torch.configs import registry
 from repro_torch.core import daef, fleet
+from repro_torch.data import synthetic
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
+from repro_torch.kernels.ssd_chunk import fit_chunk, ssd_chunk, ssd_chunk_plain
 from repro_torch.kernels.rolann_stats import (
     ops,
     rolann_fused_chunk,
@@ -31,6 +36,7 @@ from repro_torch.kernels.rolann_stats import (
     rolann_stats_batched_plain,
     rolann_stats_plain,
 )
+from repro_torch.models import get_bundle
 
 pytestmark = pytest.mark.cuda
 
@@ -309,3 +315,107 @@ def test_fleet_on_card_matches_a_loop_of_one_tenant_fits(card, act_last):
         want = daef.reconstruction_error(cfg, one, x_test[t]).cpu().numpy()
         for got in scores.values():
             np.testing.assert_allclose(got[t], want, rtol=1e-3, atol=1e-5 * np.abs(want).max())
+
+
+# ---- the LM kernels (B7, B9, B10) and the backbones ----
+
+def _randn(shape, gen, dev, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,window", [(2, 256, 16, 8, 128, None),
+                                                (1, 1_000, 4, 1, 256, 17),
+                                                (2, 300, 4, 4, 64, 1), (1, 77, 2, 1, 32, None),
+                                                (1, 513, 4, 2, 128, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(card, b, s, h, hkv, d, window, dtype):
+    """B7 against its plain version: float32 to 1e-5 of the O(1) outputs
+    (summation order); bf16 to one bf16 ulp of each element, 2^-7 |ref| plus
+    a floor of 2^-7 * 1e-2 where |ref| is near 0 (the kernel and the plain
+    version round float32 results that differ in summation order once each);
+    lse to 1e-5."""
+    gen = torch.Generator(device=card).manual_seed(s * d + h)
+    q, k, v = (_randn((b, s, n, d), gen, card, dtype) for n in (h, hkv, hkv))
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref, ref_lse = flash_attention_ref(q, k, v, window=window)
+    assert out.dtype == dtype and tuple(lse.shape) == (b, h, s)
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        assert bool((diff <= 2.0**-7 * ref.float().abs() + 2.0**-7 * 1e-2).all())
+    else:
+        assert float(diff.max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(ref_lse.abs().max())
+
+
+def test_flash_attention_reads_strided_heads(card):
+    """q, k, v as head slices of one fused projection: no copy, same result."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    qkv = _randn((2, 200, 4 + 2 + 2, 64), gen, card)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    out, _ = flash_attention(q, k, v)
+    ref, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("b,s,w", [(2, 4_096, 4_096), (3, 1, 77), (2, 37, 100)])
+def test_rglru_scan_kernel_matches_plain(card, b, s, w):
+    """B9 against its plain version: 1e-5 (the same operations in the same
+    order; only the transcendentals' last bits differ)."""
+    gen = torch.Generator(device=card).manual_seed(s + w)
+    x = _randn((b, s, w), gen, card)
+    r = torch.sigmoid(_randn((b, s, w), gen, card))
+    i = torch.sigmoid(_randn((b, s, w), gen, card))
+    lam = _randn((w,), gen, card) + 4
+    before = rglru_scan.launches
+    y, h = rglru_scan(x, r, i, lam)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1
+    yr, hr = rglru_scan_ref(x, r, i, lam)
+    assert float((y - yr).abs().max()) <= 1e-5 and float((h - hr).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [(4, 4_096, 48, 64, 1, 128, 256),
+                                               (2, 1_000, 4, 64, 2, 128, 256),
+                                               (1, 64, 3, 16, 1, 32, 32),
+                                               (2, 256, 4, 64, 2, 128, 100)])
+def test_ssd_chunk_kernel_matches_plain(card, b, s, h, p, g, n, chunk):
+    """B10 against its plain chunked version: 1e-5 of the largest output
+    (float32 sums of up to Q·N terms in other orders)."""
+    gen = torch.Generator(device=card).manual_seed(s + h + g)
+    xdt = _randn((b, s, h, p), gen, card)
+    la = -torch.rand((b, s, h), generator=gen, device=card) * 0.1
+    bm, cm = _randn((b, s, g, n), gen, card), _randn((b, s, g, n), gen, card)
+    before = ssd_chunk.launches
+    y, hf = ssd_chunk(xdt, la, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == before + 1
+    yr, hr = ssd_chunk_plain(xdt, la, bm, cm, fit_chunk(s, chunk))
+    assert float((y - yr).abs().max()) <= 1e-5 * float(yr.abs().max())
+    assert float((hf - hr).abs().max()) <= 1e-5 * float(hr.abs().max())
+
+
+@pytest.mark.parametrize("name,s", [("qwen3-1.7b", 96), ("mamba2-780m", 128),
+                                    ("recurrentgemma-9b", 160)])
+def test_reduced_backbone_on_card_matches_host(card, name, s):
+    """A reduced backbone in float32, the same weights on the card (kernels)
+    and on the host (plain versions): hidden states to 1e-4 of their largest
+    entry (float32 sums in other orders through two to three layers)."""
+    cfg = registry.get(name).reduced()
+    bundle = get_bundle(cfg)
+    params = bundle.init(0, device="cpu")
+    tokens = synthetic.lm_token_stream(cfg.vocab_size, s, 2, seed=1)
+    host = bundle.forward(params, tokens)
+    card_params = _tree_to(params, card)
+    got = bundle.forward(card_params, tokens).cpu()
+    assert float((got - host).abs().max()) <= 1e-4 * float(host.abs().max())
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)

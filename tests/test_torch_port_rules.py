@@ -45,6 +45,29 @@ def test_import_check_sees_forbidden_imports(tmp_path):
     assert _imported_roots(f) >= {"jax", "repro", "jaxlib"}
 
 
+LIBRARY_KERNELS = ("scaled_dot_product_attention", "torch.compile", "flash_attn")
+LIBRARY_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+
+
+def _library_kernels(path: Path) -> set[str]:
+    """Finished kernels a source names: fused attention, the compiler, a
+    flash-attention package (chip_smoke.py may time SDPA as a yardstick)."""
+    text = path.read_text()
+    return {name for name in LIBRARY_KERNELS if name in text}
+
+
+@pytest.mark.parametrize("path", LIBRARY_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_calls_no_library_kernel(path):
+    assert not _library_kernels(path), f"{path.relative_to(ROOT)} names {_library_kernels(path)}"
+
+
+def test_library_kernel_check_sees_them(tmp_path):
+    f = tmp_path / "mod.py"
+    f.write_text("import torch.nn.functional as F\nF.scaled_dot_product_attention(q, k, v)\n"
+                 "fast = torch.compile(fn)\nfrom flash_attn import flash_attn_func\n")
+    assert _library_kernels(f) == set(LIBRARY_KERNELS)
+
+
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
