@@ -99,7 +99,9 @@ no result:
     normal and 256 uniform-random OOD sequences; after one warm-up.  Forward
     tokens/s, fit and score ms, OOD F1; launches B7 28 per forward batch,
     B1 once, nothing else; the card's flags within 8 labels of 512 of the
-    same head fitted and applied on the host from the same features.
+    same head fitted and applied on the host from the same features.  The
+    head is ``default_config`` with ``stats_backend="fused"`` asked for, so
+    that its hidden decoder layer's fold is B1.
 12. long prefills — ``get_bundle(cfg).prefill`` at full width and depth,
     bf16, after a warm-up: qwen3-1.7b 4 x 4,096 (B7 28), mamba2-780m
     4 x 4,096 (B10 48), recurrentgemma-9b 2 x 4,096 (B7 12, B9 26); finite
@@ -107,10 +109,32 @@ no result:
 13. LM profiles — one head-path forward batch and one recurrentgemma-9b
     prefill under ``torch.profiler``: busy share and the device-time shares
     of B7, B9, B10 and cuBLAS's GEMMs.
+14. B8 vs plain — ``flash_attention_bwd`` (the attention backward) against
+    its plain version at the train shape (2 x 2,048, 16/8 heads of 128,
+    causal) in bf16 and float32, recurrentgemma's windowed MQA (2 x 4,096,
+    16/1 heads of 256, window 2,048) in bf16, a ragged S = 1,000 at head
+    size 64 and head size 32; in float32 also against autograd through
+    B7's plain forward; a repeat must be bit-identical.  Bars per element:
+    float32 1e-5 of the element's term magnitude
+    (``flash_attention_bwd_magnitudes``), bf16 one bf16 ulp plus 2e-5 of
+    it.  The train shape timed beside its bound, the plain version and
+    SDPA's backward (the yardstick; the port never calls SDPA).
+15. gradient agreement — qwen3-1.7b at full width cut to 2 layers, float32,
+    1 x 512 tokens: ``bundle.loss`` and every gradient leaf on the card
+    (B7 4, B8 2) against the host, 1e-4 of each leaf's largest entry.
+16. train — qwen3-1.7b at full width and depth in bf16, 10 steps of
+    ``make_train_step(microbatches=2, clip_norm=1.0)`` with AdamW as
+    ``launch/train.py`` builds it for a 10-step run, 4 x 2,048 tokens per
+    step: finite losses and global gradient norms, step 0 within 1.0 of
+    ln V, every gradient leaf and layer nonzero, the loss on step 0's batch
+    lower after the 10 steps; launches B7 112 and B8 56 per step; step
+    time, tokens/s and peak memory; one more step under
+    ``torch.profiler``, the cross-entropy and the optimiser timed with CUDA
+    events.
 
 The last lines are a JSON object of the LM paths' numbers, a JSON object of
 per-shape numbers, the card's name and power limit, a JSON object of
-per-kernel numbers for all nine kernels, and ``{"ok": true, "device":
+per-kernel numbers for all ten kernels, and ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -1353,12 +1377,13 @@ QWEN3_D = 2_048          # qwen3-1.7b's d_model: the head is 2048-256-512-2048
 
 
 def _lm_wrappers():
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.ssd_chunk import ssd_chunk
 
     return {**_wrappers(), **_fleet_wrappers(), "flash_attention": flash_attention,
-            "rglru_scan": rglru_scan, "ssd_chunk": ssd_chunk}
+            "flash_attention_bwd": flash_attention_bwd, "rglru_scan": rglru_scan,
+            "ssd_chunk": ssd_chunk}
 
 
 def _lm_zero():
@@ -1669,10 +1694,14 @@ def phase_head(cfg, bundle, params):
         np.random.default_rng(1).integers(0, v, (HEAD_TEST, HEAD_SEQ)).astype(np.int32)])
     truth = np.concatenate([np.zeros(HEAD_TEST, np.int32), np.ones(HEAD_TEST, np.int32)])
 
+    # The fused stats backend, so that the hidden decoder layer's fold is B1
+    # (the default config leaves the backend to the environment, then auto).
+    head_cfg = dataclasses.replace(daef_head.default_config(cfg.d_model), stats_backend="fused")
     t0 = time.perf_counter()
     _pooled(bundle, params, fit_tokens[:HEAD_BATCH])
     gen = torch.Generator(device="cuda").manual_seed(0)
-    daef_head.fit_head(torch.randn((HEAD_FIT, cfg.d_model), generator=gen, device="cuda"))
+    daef_head.fit_head(torch.randn((HEAD_FIT, cfg.d_model), generator=gen, device="cuda"),
+                       cfg=head_cfg)
     torch.cuda.synchronize()
     say("head", f"warm-up (one forward batch, one head fit) {(time.perf_counter() - t0):.2f} s")
 
@@ -1686,7 +1715,7 @@ def phase_head(cfg, bundle, params):
     _lm_zero()
     feats, fwd_fit_ms = timed(lambda: _pooled(bundle, params, fit_tokens))
     test_feats, fwd_test_ms = timed(lambda: _pooled(bundle, params, test_tokens))
-    head, fit_ms = timed(lambda: daef_head.fit_head(feats))
+    head, fit_ms = timed(lambda: daef_head.fit_head(feats, cfg=head_cfg))
     flags, score_ms = timed(lambda: head.flag(test_feats))
     n_batches = -(-HEAD_FIT // HEAD_BATCH) + -(-2 * HEAD_TEST // HEAD_BATCH)
     launches = _lm_read(flash_attention=cfg.n_layers * n_batches, rolann_stats=1)
@@ -1710,7 +1739,7 @@ def phase_head(cfg, bundle, params):
 
     # The same head on the host, from the same pooled features.
     t0 = time.perf_counter()
-    head_h = daef_head.fit_head(feats.cpu(), device="cpu")
+    head_h = daef_head.fit_head(feats.cpu(), cfg=head_cfg, device="cpu")
     flags_h = head_h.flag(test_feats.cpu())
     host_ms = (time.perf_counter() - t0) * 1e3
     diff = int((flags.cpu() != flags_h).sum())
@@ -1821,6 +1850,330 @@ def phase_lm():
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# 14-16. the training path: B8 against its plain version, the depth-cut
+# gradient agreement, the full-width train steps
+# ---------------------------------------------------------------------------
+
+# 10 steps, the launcher's schedule for a 10-step run (2 warm-up steps).  At
+# 6 steps its warm-up is 1 step, i.e. none: the first update is a full-rate
+# Adam step (lr times the sign of every gradient) and the loss on step 0's
+# batch ends above where it started (PERF.md, PR 17).
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_MICRO = 4, 2_048, 10, 2
+TRAIN_LR = 3e-4          # launch/train.py's default --lr
+
+
+def _attention_bwd_work(b, s, h, hkv, d, elem, window):
+    """FLOPs and bytes of B8 (the wrapper's function): the five products of
+    the backward (Q·Kᵀ recomputed, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K) over the band's
+    (query, key) pairs, 2.5 times B7's two; q, k, v, out and dO read once,
+    lse read, dq, dk and dv written once."""
+    flops, _ = _attention_work(b, s, h, hkv, d, elem, window)
+    nbytes = elem * (3 * b * s * h * d + 2 * b * s * hkv * d       # q, out, dO; k, v
+                     + b * s * h * d + 2 * b * s * hkv * d) + 4 * b * h * s
+    return 2.5 * flops, nbytes
+
+
+def _sdpa_bwd(q, k, v, do, window):
+    """SDPA's backward alone (the yardstick; the port never calls SDPA): a
+    function that runs autograd through one SDPA forward kept alive."""
+    import torch
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = _sdpa(*leaves, window)
+    return lambda: torch.autograd.grad(out, leaves, do.transpose(1, 2), retain_graph=True)
+
+
+def _agree_bwd(label, got, want, mags, dtype):
+    """dq, dk, dv against the plain backward, element by element: float32
+    within 1e-5 of the element's term magnitude (the sum of |term| over the
+    products that make it; two float32 sums of the same terms in other
+    orders differ by a small multiple of eps times that); bf16 within one
+    bf16 ulp of the element (2^-7·|ref|: each side rounds its float32 result
+    once) plus 2e-5 of the magnitude.  The magnitude of dk and dv sums over
+    the G query heads of their group, as the sums themselves do, so the
+    floor holds for the group sum too.  Returns (max|d|, worst share of a
+    bar)."""
+    import torch
+
+    worst_err, worst_used = 0.0, 0.0
+    for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mags):
+        check(g.dtype == dtype and g.shape == w.shape, f"B8 {label} {name}: dtype/shape")
+        check(bool(g.isfinite().all()), f"B8 {label} {name}: not finite")
+        d = (g.double() - w.double()).abs()
+        bar = (2.0**-7 * w.double().abs() + 2e-5 * m.double() if dtype == torch.bfloat16
+               else 1e-5 * m.double())
+        used = float((d / bar.clamp_min(1e-30)).max())
+        check(used <= 1.0, f"B8 {label} {name}: an element's |d| is {used:.3f} of its bar")
+        worst_err, worst_used = max(worst_err, float(d.max())), max(worst_used, used)
+    return worst_err, worst_used
+
+
+def phase_b8_kernels():
+    """B8 against its plain version (and, in float32, against autograd
+    through B7's plain forward) at the train shape, recurrentgemma's windowed
+    MQA at head size 256, a ragged S at head size 64 and head size 32; a
+    repeat must be bit-identical.  The train shape is timed beside its bound,
+    the plain version and SDPA's backward."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_magnitudes,
+        flash_attention_bwd_ref,
+        flash_attention_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = []
+    cases = [
+        ("train", 2, TRAIN_S, 16, 8, 128, bf16, None, True),
+        ("train float32", 2, TRAIN_S, 16, 8, 128, f32, None, False),
+        ("recurrentgemma", 2, 4_096, 16, 1, 256, bf16, 2_048, False),
+        ("ragged S", 1, 1_000, 8, 2, 64, f32, None, False),
+        ("ragged S bf16 window", 2, 1_000, 8, 2, 64, bf16, 300, False),
+        ("head size 32", 2, 512, 8, 2, 32, f32, 77, False),
+    ]
+    for label, b, s, h, hkv, d, dtype, window, timed in cases:
+        q, k, v, do = (torch.randn((b, s, n, d), generator=gen, device="cuda").to(dtype)
+                       for n in (h, hkv, hkv, h))
+        out, lse = flash_attention(q, k, v, window=window)
+        before = flash_attention_bwd.launches
+        got = flash_attention_bwd(q, k, v, out, lse, do, window=window)
+        torch.cuda.synchronize()
+        check(flash_attention_bwd.launches == before + 1, f"B8 {label}: launch count")
+        want = flash_attention_bwd_ref(q, k, v, out, lse, do, window=window)
+        mags = flash_attention_bwd_magnitudes(q, k, v, out, lse, do, window=window)
+        err, used = _agree_bwd(label, got, want, mags, dtype)
+        msg = f"max|d| {err:.3e}, worst {used:.3f} of its per-element bar"
+        if dtype == f32:
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            ref_out, _ = flash_attention_ref(*leaves, window=window)
+            auto = torch.autograd.grad(ref_out, leaves, do)
+            err_a, used_a = _agree_bwd(label + " vs autograd", got, auto, mags, dtype)
+            msg += f"; vs autograd through B7's plain forward {err_a:.3e} ({used_a:.3f})"
+            del leaves, ref_out, auto
+        if label == "train":
+            again = flash_attention_bwd(q, k, v, out, lse, do, window=window)
+            check(all(torch.equal(a, g) for a, g in zip(again, got)),
+                  "B8 train: a repeat is not bit-identical")
+            msg += "; a repeat is bit-identical"
+        say("kernel", f"flash_attention_bwd {label} B={b} S={s} H={h}/{hkv} D={d} "
+            f"{str(dtype)[6:]} window={window}: {msg}, ok")
+        if timed:
+            ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, window=window))
+            plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                               window=window))
+            library_ms = cuda_ms(_sdpa_bwd(q, k, v, do, window))
+            flops, nbytes = _attention_bwd_work(b, s, h, hkv, d, q.element_size(), window)
+            bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+            rows.append(dict(shape=label, b=b, s=s, h=h, hkv=hkv, d=d, window=window,
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by))
+            say("kernel", f"flash_attention_bwd {label}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, SDPA backward yardstick {library_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}, {flops:.3g} FLOP, {nbytes / 1e6:.1f} MB)")
+        del q, k, v, do, out, lse, got, want, mags
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_grad_agreement():
+    """qwen3-1.7b at full width cut to 2 layers, float32, 1 x 512 tokens:
+    ``bundle.loss`` and the gradient of every parameter leaf on the card (B7
+    twice per layer with the remat, B8 once) against the same on the host
+    (their plain versions).  Bar per leaf: max|d| <= 1e-4·max|g host|
+    (float32 sums in other orders through two layers and a 151,936-way
+    softmax); the loss within 1e-5 of itself."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.data import synthetic
+
+    cfg, bundle, params = _lm_params(QWEN3, torch.float32, seed=4, n_layers=2)
+    tokens = synthetic.lm_token_stream(cfg.vocab_size, 512, 1, seed=6)
+
+    def loss_and_grads(p):
+        leaves, spec = pytree.tree_flatten(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = bundle.loss(p, {"tokens": tokens})
+        grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), pytree.tree_unflatten([g.cpu() for g in grads], spec)
+
+    _lm_zero()
+    t0 = time.perf_counter()
+    loss_card, g_card = loss_and_grads(params)
+    t1 = time.perf_counter()
+    _lm_read(flash_attention=2 * cfg.n_layers, flash_attention_bwd=cfg.n_layers)
+    host = pytree.tree_map(lambda t: t.detach().cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    loss_host, g_host = loss_and_grads(host)
+    t3 = time.perf_counter()
+    check(abs(loss_card - loss_host) <= 1e-5 * abs(loss_host),
+          f"2-layer loss: card {loss_card:.7f}, host {loss_host:.7f}")
+    worst = 0.0
+    for (path, gc), gh in zip(pytree.tree_flatten_with_path(g_card)[0],
+                              pytree.tree_leaves(g_host)):
+        scale = float(gh.abs().max())
+        err = float((gc - gh).abs().max())
+        name = pytree.keystr(path)
+        check(scale > 0 and bool(gc.isfinite().all()), f"gradient {name}: zero or not finite")
+        check(err <= 1e-4 * scale, f"gradient {name}: max|d| {err:.3e} > 1e-4 * {scale:.3e}")
+        worst = max(worst, err / scale)
+    say("agree", f"qwen3-1.7b at depth 2, 1 x 512 tokens, float32: loss card {loss_card:.6f}, "
+        f"host {loss_host:.6f}; {len(pytree.tree_leaves(g_host))} gradient leaves, worst "
+        f"max|d| / max|g| {worst:.2e} (bar 1e-4); card {(t1 - t0) * 1e3:.0f} ms, host "
+        f"{(t3 - t2) * 1e3:.0f} ms, ok")
+
+
+def _check_grads(grads):
+    """Every gradient leaf finite, and nonzero in every layer of a stacked
+    leaf (a detached attention output would leave wq, wk and wv at 0)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    for path, g in pytree.tree_flatten_with_path(grads)[0]:
+        name = pytree.keystr(path)
+        check(bool(torch.isfinite(g).all()), f"gradient {name} is not finite")
+        per_layer = g.flatten(1).abs().amax(1) if "layers" in name else g.abs().amax()[None]
+        check(bool((per_layer > 0).all()), f"gradient {name} is zero in a layer")
+
+
+def phase_train(card):
+    """qwen3-1.7b at full width and depth, bf16, trained for ``TRAIN_STEPS``
+    steps as ``launch/train.py`` runs it: AdamW under
+    ``linear_warmup_cosine(3e-4, steps // 10 + 1, steps)``, weight decay
+    0.01, float32 moments; ``make_train_step(microbatches=2,
+    clip_norm=1.0)`` with a float32 accumulator; batches of 4 x 2,048
+    tokens from ``lm_token_stream(seed=step)``.  Every step's global
+    gradient norm (the step's own, before the clip, read by wrapping
+    ``optim.global_norm`` for the phase) and loss must be finite, and the
+    gradients that reach the optimiser nonzero in every leaf and layer.
+    Returns the launch counts of the steps and the path's numbers."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import optim
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import common
+
+    cfg, bundle, params = _lm_params(QWEN3, torch.bfloat16, seed=0)
+    opt = optim.adamw(optim.linear_warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10 + 1, TRAIN_STEPS),
+                      weight_decay=0.01)
+    norms, global_norm = [], optim.global_norm
+
+    def recorded_norm(tree):
+        norm = global_norm(tree)
+        norms.append(float(norm))
+        return norm
+
+    def observed_update(grads, state, p):
+        _check_grads(grads)
+        return opt.update(grads, state, p)
+
+    step_fn = steps_mod.make_train_step(bundle, optim.Optimizer(opt.init, observed_update),
+                                        microbatches=TRAIN_MICRO, clip_norm=1.0)
+    state = opt.init(params)
+
+    def batch(step):
+        tokens = synthetic.lm_token_stream(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=step)
+        return {"tokens": torch.as_tensor(tokens, device="cuda")}
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    _lm_zero()
+    optim.global_norm = recorded_norm  # the train step calls it through the module
+    try:
+        for step in range(TRAIN_STEPS):
+            b = batch(step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, loss = step_fn(params, state, b)
+            losses.append(float(loss))
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(np.isfinite(losses[-1]) and np.isfinite(norms[-1]),
+                  f"step {step}: loss {losses[-1]} or gradient norm {norms[-1]} not finite")
+            say("train", f"step {step}: loss {losses[-1]:.4f}, global gradient norm "
+                f"{norms[-1]:.4f} (before the clip to 1.0), {times[-1]:.0f} ms")
+    finally:
+        optim.global_norm = global_norm
+    n_mb = TRAIN_STEPS * TRAIN_MICRO
+    launches = _lm_read(flash_attention=2 * cfg.n_layers * n_mb,
+                        flash_attention_bwd=cfg.n_layers * n_mb)
+    peak = torch.cuda.max_memory_allocated()
+    check(abs(losses[0] - np.log(cfg.vocab_size)) <= 1.0,
+          f"step 0 loss {losses[0]:.4f} is not within 1.0 of ln V = {np.log(cfg.vocab_size):.4f}")
+    with torch.no_grad():
+        after = float(bundle.loss(params, batch(0)))
+    check(after < losses[0], f"loss on step 0's batch {after:.4f} after {TRAIN_STEPS} steps is "
+          f"not below {losses[0]:.4f}")
+    step_ms = statistics.median(times[1:])
+    tok_s = TRAIN_B * TRAIN_S / step_ms * 1e3
+    say("train", f"qwen3-1.7b full width, {cfg.n_layers} layers, bf16, {TRAIN_STEPS} steps of "
+        f"{TRAIN_B} x {TRAIN_S} tokens ({TRAIN_MICRO} microbatches): step {step_ms:.0f} ms "
+        f"(median of steps 1-{TRAIN_STEPS - 1}; step 0 {times[0]:.0f} ms), {tok_s:.0f} "
+        f"tokens/s, peak device memory {peak / 2**30:.2f} GiB, on {card}; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, step 0's batch {after:.4f}; launches {launches}")
+
+    # What the step is made of: one more step under the profiler, and the
+    # cross-entropy (forward and backward, one microbatch) and one optimiser
+    # update with CUDA events.
+    b = batch(TRAIN_STEPS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step_fn(params, state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    key = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    print(averages.table(sort_by=key, row_limit=20))
+    kernels = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(getattr(e, key) for e in kernels)
+    groups = {"B7 flash_fwd_kernel": ("flash_fwd_kernel",),
+              "B8 flash_bwd kernels": ("flash_bwd_",),
+              "GEMM (cuBLAS)": ("gemm", "xmma", "nvjet", "cutlass")}
+    shares = {g: sum(getattr(e, key) for e in kernels if any(p in e.key for p in pats))
+              for g, pats in groups.items()}
+    w = params["embed"]["table"]
+    h = torch.randn((TRAIN_B // TRAIN_MICRO, TRAIN_S - 1, cfg.d_model), device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    labels = b["tokens"][:TRAIN_B // TRAIN_MICRO, 1:]
+    mask = torch.ones(labels.shape, device="cuda")
+
+    def xent():
+        loss = common.chunked_softmax_xent(h, labels, mask, w, chunk=1_024, transpose=True)
+        return torch.autograd.grad(loss, (h, w))
+
+    xent_ms = cuda_ms(xent, reps=5, warmup=1)
+    zero_grads = pytree.tree_map(lambda p: torch.zeros(p.shape, device="cuda"), params)
+    opt_ms = cuda_ms(lambda: optim.apply_updates(params, opt.update(zero_grads, state,
+                                                                    params)[0]),
+                     reps=3, warmup=1)
+    say("profile", f"one train step: wall {wall * 1e3:.0f} ms, device busy {total / 1e3:.0f} ms "
+        f"({100 * total / 1e6 / wall:.1f} %); device time shares: "
+        + ", ".join(f"{g} {100 * t / max(total, 1):.1f} % ({t / 1e3:.0f} ms)"
+                    for g, t in shares.items())
+        + f"; cross-entropy forward + backward {xent_ms:.1f} ms per microbatch "
+        f"(x{TRAIN_MICRO} per step), AdamW update + apply {opt_ms:.1f} ms per step "
+        "(CUDA events)")
+    del params, state, zero_grads, h
+    torch.cuda.empty_cache()
+    return launches, dict(step_ms=step_ms, tokens_per_s=tok_s, peak_gib=peak / 2**30,
+                          losses=losses, loss_after=after, grad_norms=norms,
+                          profile_wall_ms=wall * 1e3, device_busy_ms=total / 1e3,
+                          shares_ms={g: t / 1e3 for g, t in shares.items()},
+                          xent_ms=xent_ms, optimizer_ms=opt_ms)
+
+
 def _per_launch(rows, shape):
     """One JSON row: the kernel's numbers per launch at its main path's shape."""
     row = next(r for r in rows if r["shape"] == shape)
@@ -1861,8 +2214,11 @@ def main() -> int:
             cfg, xs_d, chunk_samples=FLEET_CHUNK, seeds=fleet_seeds))
         phase_profile("fleet merge 64 -> 32", lambda: fleet.fleet_merge_pairwise(cfg, devices))
         lm_rows = phase_lm_kernels()
+        b8_rows = phase_b8_kernels()
         phase_lm_agreement()
+        phase_grad_agreement()
         lm_launches, lm_numbers = phase_lm()
+        train_launches, lm_numbers["train"] = phase_train(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1946,6 +2302,15 @@ def main() -> int:
             **_per_launch(lm_rows["flash_attention"], "head path"),
         },
         {
+            "name": "flash_attention_bwd",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:212",
+            "launches": train_launches["flash_attention_bwd"],
+            # Per launch at the train shape (2 x 2,048, 16/8 heads of 128, bf16).
+            **_per_launch(b8_rows, "train"),
+        },
+        {
             "name": "rglru_scan",
             "route": "cuda",
             "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
@@ -1966,7 +2331,7 @@ def main() -> int:
     ]
     print(json.dumps({"lm": lm_numbers}))
     print(json.dumps({"per_shape": {"rolann_stats": rows, **fold_rows, **batched_rows,
-                                    **lm_rows}}))
+                                    **lm_rows, "flash_attention_bwd": b8_rows}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,15 +1,17 @@
 """Distributed truncated SVD (DSVD) — the DAEF encoder (paper §4.1).
 
-Counterpart of ``repro/core/dsvd.py``, gram route only.  The encoder weights
-are the first ``m1`` left singular vectors of the data ``X [m0, n]``.  Over
-partitions ``X = [X^1 | ... | X^P]``, ``U S^2 U^T = sum_p X^p X^p^T``, so the
-sum of the partition Grams followed by one ``eigh`` gives the merged factors.
+Counterpart of ``repro/core/dsvd.py``.  The encoder weights are the first
+``m1`` left singular vectors of the data ``X [m0, n]``.  Over partitions
+``X = [X^1 | ... | X^P]``, :func:`dsvd` takes either route of the
+reference: ``"svd"`` (the paper's: local SVDs, merged by Eq. 2) or
+``"gram"`` (``U S^2 U^T = sum_p X^p X^p^T``, so the sum of the partition
+Grams followed by one ``eigh`` gives the merged factors).
 
 :func:`masked_gram` is the streaming fit's per-chunk Gram.  The merges of
 the paper's Eq. 2 (:func:`local_svd`, :func:`merge_factors`,
 :func:`merge_pair`, :func:`pad_rank`) combine two models' encoders, gram
-method included.  The ``method="svd"`` fit route waits for ROADMAP queue A
-item 3.
+method included.  The DAEF fits pass ``method="gram"``; their svd route
+waits for ROADMAP queue A items 4 and 5.
 
 Factors may carry leading batch axes (a tenant fleet's [K]): u [..., m, r],
 s [..., r].  Every function here works on the trailing axes.
@@ -113,19 +115,17 @@ def pad_rank(f: SvdFactors, rank: int) -> SvdFactors:
 
 
 def dsvd(
-    partitions: Sequence[torch.Tensor], rank: int, *, method: str = "gram"
+    partitions: Sequence[torch.Tensor], rank: int, *, method: str = "svd"
 ) -> SvdFactors:
     """Distributed SVD over explicit partitions (single-host simulation).
 
-    method: "gram" — sum of partition Grams + one eigh.  The reference's
-    "svd" route is not ported yet and raises.
+    method: "svd" — paper-faithful (local SVDs, concat, merge SVD);
+            "gram" — sum of partition Grams + one eigh (the same factors).
     """
     if method == "svd":
-        raise NotImplementedError(
-            "dsvd(method='svd') is not ported yet (ROADMAP queue A item 3); "
-            "use method='gram', which gives the same factors"
-        )
-    if method != "gram":
+        merged = merge_factors([local_svd(p) for p in partitions])
+    elif method == "gram":
+        merged = gram_to_factors(sum(gram(p) for p in partitions))
+    else:
         raise ValueError(f"unknown DSVD method {method!r}")
-    g = sum(gram(p) for p in partitions)
-    return truncate(gram_to_factors(g), rank)
+    return truncate(merged, rank)

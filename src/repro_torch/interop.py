@@ -23,6 +23,12 @@ out]`` orientation (the port computes ``x @ w`` as the reference does);
 layer stacks keep their leading axis (``layers`` [L, ...] of the dense and
 SSM families, ``periods`` [n_periods, ...] of the hybrid, whose remainder
 blocks stay the list ``tail``).
+
+An Adam state crosses as its three fields (step, mu, nu), each converted
+with ``jax.tree.map(numpy.asarray, ...)`` on the JAX side; mu and nu have
+the parameters' tree (:func:`adam_state_from_numpy`,
+:func:`adam_state_to_numpy`), so both packages can start a train step from
+the same optimiser state.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from repro_torch.core.daef import DAEFConfig, DAEFModel
 from repro_torch.core.fleet import DAEFFleet, _tree_leaves
 from repro_torch.device import resolve_device
 from repro_torch.models import rglru
+from repro_torch.optim import AdamState
 
 
 def _n_leaves(config: DAEFConfig) -> int:
@@ -132,3 +139,24 @@ def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None) -> dict:
     if stacks != want:
         raise ValueError(f"{cfg.name}: layer stacks of {sorted(stacks)}, expected {want}")
     return params
+
+
+def adam_state_from_numpy(state, *, device=None) -> AdamState:
+    """The port's ``AdamState`` on ``device`` from the reference's (step, mu,
+    nu) as numpy trees."""
+    step, mu, nu = state
+    dev = resolve_device(device)
+    return AdamState(step=torch.as_tensor(np.array(step), device=dev).to(torch.int32),
+                     mu=_tree_to_torch(mu, dev), nu=_tree_to_torch(nu, dev))
+
+
+def adam_state_to_numpy(state: AdamState) -> tuple:
+    """(step, mu, nu) as numpy trees, in the port's tree structure."""
+    def tree(t):
+        if isinstance(t, dict):
+            return {k: tree(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [tree(v) for v in t]
+        return t.detach().cpu().numpy()
+
+    return tree(state.step), tree(state.mu), tree(state.nu)

@@ -8,12 +8,14 @@ tensors.  ``_build`` compiles the sources at first use.
 
 #: The CUDA libraries ``_build`` knows: name -> source, relative to this
 #: package.  ``rolann_stats`` holds B1, B2, B4 and B5; ``rolann_fused_chunk``
-#: holds B3 and B6; ``flash_attention`` B7's forward; ``rglru_scan`` B9;
-#: ``ssd_chunk`` B10.  A ``*.cuh`` header beside a source is part of it.
+#: holds B3 and B6; ``flash_attention`` B7, the attention forward;
+#: ``flash_attention_bwd`` B8, its backward; ``rglru_scan`` B9; ``ssd_chunk``
+#: B10.  A ``*.cuh`` header beside a source is part of it.
 KERNELS = {
     "rolann_stats": "rolann_stats/csrc/rolann_stats.cu",
     "rolann_fused_chunk": "rolann_stats/csrc/rolann_fused_chunk.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "rglru_scan": "rglru_scan/csrc/rglru_scan.cu",
     "ssd_chunk": "ssd_chunk/csrc/ssd_chunk.cu",
 }

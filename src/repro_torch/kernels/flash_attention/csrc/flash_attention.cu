@@ -51,29 +51,20 @@
 // launch; at S = 4096 the operations dominate.  wgmma, TMA and a producer
 // warp are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using flash::attends;
+using flash::from_f;
+using flash::kNegInf;
+using flash::to_f;
+
 constexpr int kThreads = 128;
 constexpr int kBK = 32;                 // keys per tile
 constexpr int kCG = 8;                  // lanes sharing a query row
 constexpr int kRG = kThreads / kCG;     // row groups
 constexpr int kCols = kBK / kCG;        // keys per thread per tile
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int D>
 struct Tile {
@@ -98,10 +89,6 @@ __device__ __forceinline__ float row_sum8(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   x += __shfl_xor_sync(0xffffffffu, x, 2);
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
-}
-
-__device__ __forceinline__ bool attends(int i, int j, int S, int causal, int window) {
-  return j < S && (!causal || j <= i) && (window <= 0 || j > i - window);
 }
 
 template <typename T, int D>

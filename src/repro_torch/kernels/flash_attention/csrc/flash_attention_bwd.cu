@@ -1,0 +1,425 @@
+// Causal, optionally windowed, flash attention backward on Hopper (sm_90a),
+// plain FP32 CUDA cores.
+//
+// Replaces the Pallas TPU kernels `flash_attention_bwd_kernels` of
+// src/repro/kernels/flash_attention/kernel.py (B8: `_dq_kernel` and
+// `_dkv_kernel`, two pallas_calls).  Given q, k, v, the output gradient dO,
+// the forward's float32 row log-sum-exp `lse` and dvec = rowsum(dO∘O), for
+// every batch b and query head h (KV head hk = h / (H / Hkv)):
+//
+//     p_ij  = exp(s_ij - lse_i),  s_ij = (q_i · k_j) · D^-1/2, and p_ij = 0
+//             unless j <= i (causal), j > i - window (a window > 0) and
+//             i, j < S
+//     ds_ij = p_ij · (dO_i · v_j - dvec_i)
+//     dq_i  = D^-1/2 · Σ_j ds_ij k_j
+//     dk_j  = D^-1/2 · Σ_{h in hk's group} Σ_i ds_ij q_i
+//     dv_j  =          Σ_{h in hk's group} Σ_i p_ij dO_i
+//
+// Every product and sum is float32 (bf16 inputs are widened on load); dq, dk
+// and dv are written once, in q's type.
+//
+// Layout.  q [B, S, H, D], k and v [B, S, Hkv, D] with their own batch,
+// sequence and head strides (last axis contiguous), read in place as B7
+// reads them.  dO [B, S, H, D] contiguous; lse and dvec [B, H, S] float32;
+// dq [B, S, H, D], dk and dv [B, S, Hkv, D] contiguous.
+//
+// Design.  Two kernels, as the Pallas pair: the TPU carries dq (and dk, dv)
+// in VMEM along a sequential grid axis, and Hopper's blocks run in no order,
+// so each block owns its output tile and loops over the other axis itself.
+//
+// * dq: one block per (b, h, tile of BQ query rows), the thread layout of
+//   B7 (lane group cg = tid % 8, row group rg = tid / 8; a thread owns rows
+//   rg + 16·i and key columns cg + 8·j of each 32-key tile).  It walks only
+//   the key tiles in its causal/window band, recomputes p from lse, forms
+//   ds in shared memory and accumulates ds·K in registers.
+// * dk, dv: one block per (b, KV head, tile of BK key rows).  It walks the
+//   G = H / Hkv query heads of its group, and for each their 32-row query
+//   tiles in the band, in a fixed order, accumulating pᵀ·dO and dsᵀ·Q in
+//   registers.  The group sum is therefore a sequential float32 sum in one
+//   thread: no float atomics, and a repeat is bit-identical.
+//
+// Tiles are staged in shared memory as float32 with rows padded to D + 1
+// floats (a warp's lanes read distinct banks both along and across rows);
+// at D = 256 a block uses more than 48 KB, so each kernel's dynamic shared
+// memory limit is raised before its launch.  Rows and keys past S (a ragged
+// S, which the Pallas kernels refuse) load as zeros and are masked.
+//
+// What bounds it.  About 3.5× B7's products for the same band (dq recomputes
+// Q·Kᵀ and dO·Vᵀ and adds ds·K; dk, dv recompute both and add pᵀ·dO and
+// dsᵀ·Q): tensor-core work on this card, done here on the FP32 CUDA cores,
+// and its inner loops are bounded by shared-memory loads.  mma / wgmma, TMA
+// and one fused pass over both outputs are later work.
+
+#include "flash_common.cuh"
+
+namespace {
+
+using flash::attends;
+using flash::from_f;
+using flash::to_f;
+
+constexpr int kThreads = 128;
+constexpr int kBT = 32;                 // inner tile: keys (dq) or queries (dk, dv)
+constexpr int kCG = 8;                  // lanes sharing an output row
+constexpr int kRG = kThreads / kCG;     // row groups
+constexpr int kCols = kBT / kCG;        // inner-tile columns per thread
+
+template <int D>
+struct DqTile {
+  static constexpr int kRows = D > 128 ? 2 : 4;  // query rows per thread
+  static constexpr int kBQ = kRG * kRows;        // query rows per block
+  static constexpr int kDCols = D / kCG;         // output columns per thread
+  static constexpr int kLd = D + 1;
+  static constexpr int kLdS = kBT + 1;
+  static constexpr int kSmemBytes =
+      4 * (2 * kBQ * kLd + 2 * kBT * kLd + kBQ * kLdS + 2 * kBQ);
+};
+
+template <int D>
+struct DkvTile {
+  static constexpr int kRows = D > 128 ? 1 : (D > 64 ? 2 : 4);  // key rows per thread
+  static constexpr int kBK = kRG * kRows;                       // key rows per block
+  static constexpr int kDCols = D / kCG;
+  static constexpr int kLd = D + 1;
+  static constexpr int kLdS = kBT + 1;
+  static constexpr int kSmemBytes =
+      4 * (2 * kBK * kLd + 2 * kBT * kLd + 2 * kBK * kLdS + 2 * kBT);
+};
+
+struct Args {
+  int S, H, Hkv, causal, window;
+  long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
+  float scale;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dO,
+                    const float* __restrict__ lse, const float* __restrict__ dvec,
+                    T* __restrict__ dq, Args a) {
+  using L = DqTile<D>;
+  constexpr int R = L::kRows;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + L::kBQ * L::kLd;
+  float* Ks = dOs + L::kBQ * L::kLd;
+  float* Vs = Ks + kBT * L::kLd;
+  float* dSs = Vs + kBT * L::kLd;
+  float* lse_s = dSs + L::kBQ * L::kLdS;
+  float* dvec_s = lse_s + L::kBQ;
+
+  const int S = a.S, H = a.H;
+  const int tid = threadIdx.x, cg = tid % kCG, rg = tid / kCG;
+  const int q0 = blockIdx.x * L::kBQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / a.Hkv);
+  const T* qb = q + b * a.qsb + h * a.qsh;
+  const T* kb = k + b * a.ksb + hk * a.ksh;
+  const T* vb = v + b * a.vsb + hk * a.vsh;
+  const long long hd = static_cast<long long>(H) * D;   // dO's sequence stride
+  const T* ob = dO + static_cast<long long>(b) * S * hd + static_cast<long long>(h) * D;
+  const long long row0 = (static_cast<long long>(b) * H + h) * S;
+
+  for (int e = tid; e < L::kBQ * D; e += kThreads) {
+    const int r = e / D, d = e % D, s = q0 + r;
+    const bool in = s < S;
+    Qs[r * L::kLd + d] = in ? to_f(qb[s * a.qss + d]) : 0.f;
+    dOs[r * L::kLd + d] = in ? to_f(ob[s * hd + d]) : 0.f;
+  }
+  for (int r = tid; r < L::kBQ; r += kThreads) {
+    const int s = q0 + r;
+    lse_s[r] = s < S ? lse[row0 + s] : 0.f;
+    dvec_s[r] = s < S ? dvec[row0 + s] : 0.f;
+  }
+
+  float acc[R][L::kDCols];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < L::kDCols; ++c) acc[i][c] = 0.f;
+
+  const int k_end = a.causal ? min(S, q0 + L::kBQ) : S;
+  const int k_first = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  for (int k0 = (k_first / kBT) * kBT; k0 < k_end; k0 += kBT) {
+    __syncthreads();  // Q, dO staged; the previous tile's K, V and dS are read
+    for (int e = tid; e < kBT * D; e += kThreads) {
+      const int c = e / D, d = e % D, s = k0 + c;
+      const bool in = s < S;
+      Ks[c * L::kLd + d] = in ? to_f(kb[s * a.kss + d]) : 0.f;
+      Vs[c * L::kLd + d] = in ? to_f(vb[s * a.vss + d]) : 0.f;
+    }
+    __syncthreads();
+
+    float sc[R][kCols], dp[R][kCols];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) sc[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[R], ov[R], kv[kCols], vv[kCols];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        qv[i] = Qs[(rg + kRG * i) * L::kLd + d];
+        ov[i] = dOs[(rg + kRG * i) * L::kLd + d];
+      }
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        kv[j] = Ks[(cg + kCG * j) * L::kLd + d];
+        vv[j] = Vs[(cg + kCG * j) * L::kLd + d];
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = rg + kRG * i, qi = q0 + r;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int kj = k0 + cg + kCG * j;
+        const float p = attends(qi, kj, S, a.causal, a.window)
+                            ? expf(sc[i][j] * a.scale - lse_s[r]) : 0.f;
+        dSs[r * L::kLdS + cg + kCG * j] = p * (dp[i][j] - dvec_s[r]);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < kBT; ++c) {
+      float dsv[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) dsv[i] = dSs[(rg + kRG * i) * L::kLdS + c];
+#pragma unroll
+      for (int dc = 0; dc < L::kDCols; ++dc) {
+        const float kk = Ks[c * L::kLd + cg + kCG * dc];
+#pragma unroll
+        for (int i = 0; i < R; ++i) acc[i][dc] = fmaf(dsv[i], kk, acc[i][dc]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int s = q0 + rg + kRG * i;
+    if (s < S) {
+      T* out = dq + static_cast<long long>(b) * S * hd + s * hd + static_cast<long long>(h) * D;
+#pragma unroll
+      for (int dc = 0; dc < L::kDCols; ++dc)
+        out[cg + kCG * dc] = from_f<T>(a.scale * acc[i][dc]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dO,
+                     const float* __restrict__ lse, const float* __restrict__ dvec,
+                     T* __restrict__ dk, T* __restrict__ dv, Args a) {
+  using L = DkvTile<D>;
+  constexpr int R = L::kRows;
+  extern __shared__ float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + L::kBK * L::kLd;
+  float* Qs = Vs + L::kBK * L::kLd;
+  float* dOs = Qs + kBT * L::kLd;
+  float* Ps = dOs + kBT * L::kLd;
+  float* dSs = Ps + L::kBK * L::kLdS;
+  float* lse_s = dSs + L::kBK * L::kLdS;
+  float* dvec_s = lse_s + kBT;
+
+  const int S = a.S, H = a.H, Hkv = a.Hkv, G = H / Hkv;
+  const int tid = threadIdx.x, cg = tid % kCG, rg = tid / kCG;
+  const int k0 = blockIdx.x * L::kBK;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const T* kb = k + b * a.ksb + hk * a.ksh;
+  const T* vb = v + b * a.vsb + hk * a.vsh;
+  const long long hd = static_cast<long long>(H) * D;
+
+  for (int e = tid; e < L::kBK * D; e += kThreads) {
+    const int r = e / D, d = e % D, s = k0 + r;
+    const bool in = s < S;
+    Ks[r * L::kLd + d] = in ? to_f(kb[s * a.kss + d]) : 0.f;
+    Vs[r * L::kLd + d] = in ? to_f(vb[s * a.vss + d]) : 0.f;
+  }
+
+  float dk_acc[R][L::kDCols], dv_acc[R][L::kDCols];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < L::kDCols; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  // Query rows that attend a key of this tile: i >= k0 when causal, and
+  // i < k0 + BK - 1 + window when a window is given.
+  const int q_first = a.causal ? k0 : 0;
+  const int q_end = a.window > 0 ? min(S, k0 + L::kBK - 1 + a.window) : S;
+  for (int g = 0; g < G; ++g) {
+    const int h = hk * G + g;
+    const T* qb = q + b * a.qsb + h * a.qsh;
+    const T* ob = dO + static_cast<long long>(b) * S * hd + static_cast<long long>(h) * D;
+    const long long row0 = (static_cast<long long>(b) * H + h) * S;
+    for (int q0 = (q_first / kBT) * kBT; q0 < q_end; q0 += kBT) {
+      __syncthreads();  // K, V staged; the previous tile's Q, dO, P and dS are read
+      for (int e = tid; e < kBT * D; e += kThreads) {
+        const int c = e / D, d = e % D, s = q0 + c;
+        const bool in = s < S;
+        Qs[c * L::kLd + d] = in ? to_f(qb[s * a.qss + d]) : 0.f;
+        dOs[c * L::kLd + d] = in ? to_f(ob[s * hd + d]) : 0.f;
+      }
+      for (int c = tid; c < kBT; c += kThreads) {
+        const int s = q0 + c;
+        lse_s[c] = s < S ? lse[row0 + s] : 0.f;
+        dvec_s[c] = s < S ? dvec[row0 + s] : 0.f;
+      }
+      __syncthreads();
+
+      float sc[R][kCols], dp[R][kCols];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) sc[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float kv[R], vv[R], qv[kCols], ov[kCols];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          kv[i] = Ks[(rg + kRG * i) * L::kLd + d];
+          vv[i] = Vs[(rg + kRG * i) * L::kLd + d];
+        }
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          qv[j] = Qs[(cg + kCG * j) * L::kLd + d];
+          ov[j] = dOs[(cg + kCG * j) * L::kLd + d];
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) {
+            sc[i][j] = fmaf(kv[i], qv[j], sc[i][j]);
+            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
+          }
+      }
+
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = rg + kRG * i, kj = k0 + r;
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const int c = cg + kCG * j, qi = q0 + c;
+          const float p = qi < S && attends(qi, kj, S, a.causal, a.window)
+                              ? expf(sc[i][j] * a.scale - lse_s[c]) : 0.f;
+          Ps[r * L::kLdS + c] = p;
+          dSs[r * L::kLdS + c] = p * (dp[i][j] - dvec_s[c]);
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int c = 0; c < kBT; ++c) {
+        float pv[R], sv[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          pv[i] = Ps[(rg + kRG * i) * L::kLdS + c];
+          sv[i] = dSs[(rg + kRG * i) * L::kLdS + c];
+        }
+#pragma unroll
+        for (int dc = 0; dc < L::kDCols; ++dc) {
+          const float oo = dOs[c * L::kLd + cg + kCG * dc];
+          const float qq = Qs[c * L::kLd + cg + kCG * dc];
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            dv_acc[i][dc] = fmaf(pv[i], oo, dv_acc[i][dc]);
+            dk_acc[i][dc] = fmaf(sv[i], qq, dk_acc[i][dc]);
+          }
+        }
+      }
+    }
+  }
+
+  const long long kvd = static_cast<long long>(Hkv) * D;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int s = k0 + rg + kRG * i;
+    if (s < S) {
+      const long long o = static_cast<long long>(b) * S * kvd + s * kvd +
+                          static_cast<long long>(hk) * D;
+#pragma unroll
+      for (int dc = 0; dc < L::kDCols; ++dc) {
+        dk[o + cg + kCG * dc] = from_f<T>(a.scale * dk_acc[i][dc]);
+        dv[o + cg + kCG * dc] = from_f<T>(dv_acc[i][dc]);
+      }
+    }
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* dO, const float* lse,
+           const float* dvec, void* dq, void* dk, void* dv, int B, const Args& a,
+           cudaStream_t stream) {
+  using Q = DqTile<D>;
+  using K = DkvTile<D>;
+  auto* dq_fn = flash_bwd_dq_kernel<T, D>;
+  auto* dkv_fn = flash_bwd_dkv_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, Q::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dkv_fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             K::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* ot = static_cast<const T*>(dO);
+  dq_fn<<<dim3((a.S + Q::kBQ - 1) / Q::kBQ, a.H, B), kThreads, Q::kSmemBytes, stream>>>(
+      qt, kt, vt, ot, lse, dvec, static_cast<T*>(dq), a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv_fn<<<dim3((a.S + K::kBK - 1) / K::kBK, a.Hkv, B), kThreads, K::kSmemBytes, stream>>>(
+      qt, kt, vt, ot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(int d, const void* q, const void* k, const void* v, const void* dO,
+             const float* lse, const float* dvec, void* dq, void* dk, void* dv, int B,
+             const Args& a, cudaStream_t stream) {
+  switch (d) {
+    case 32: return launch<T, 32>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
+    case 64: return launch<T, 64>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
+    case 128: return launch<T, 128>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
+    case 256: return launch<T, 256>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// B8.  dtype 0 = float32, 1 = bf16 (q, k, v, dO, dq, dk and dv share it).
+// strides: q's batch, sequence and head strides, then k's, then v's, in
+// elements; dO, lse, dvec, dq, dk and dv are contiguous.  window <= 0 means
+// no window.  Launches the dq kernel, then the dk/dv kernel, on `stream`;
+// returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
+// head size other than 32, 64, 128 or 256, or H not a multiple of Hkv.
+extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
+                                   const void* dO, const float* lse, const float* dvec,
+                                   void* dq, void* dk, void* dv, int B, int S, int H,
+                                   int Hkv, int D, const long long* strides, int causal,
+                                   int window, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
+  const Args a{S, H, Hkv, causal, window,
+               strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
+               strides[6], strides[7], strides[8], scale};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch<float>(D, q, k, v, dO, lse, dvec, dq, dk, dv, B, a, st);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(D, q, k, v, dO, lse, dvec, dq, dk, dv, B, a, st);
+  return cudaErrorInvalidValue;
+}

@@ -1,21 +1,36 @@
-"""Wrapper of the flash-attention forward kernel (B7).
+"""Wrappers of the flash-attention kernels: the forward (B7), the backward
+(B8) and the ``torch.autograd.Function`` over both.
 
-Counterpart of ``repro/kernels/flash_attention/ops.py``'s forward, in the
-model layout: :func:`flash_attention` takes q [B, S, H, D] and k, v
+Counterpart of ``repro/kernels/flash_attention/ops.py``, in the model
+layout: :func:`flash_attention` takes q [B, S, H, D] and k, v
 [B, S, Hkv, D] (H a multiple of Hkv: GQA, MQA) and returns ``(out, lse)``,
 out [B, S, H, D] in q's dtype and the float32 row log-sum-exp [B, H, S].
 Causal by default; ``window`` keeps keys j > i - window.  The strides of q,
-k and v are passed to the kernel (their last axis must be contiguous), so
+k and v are passed to the kernels (their last axis must be contiguous), so
 head slices of a projection need no copy.
 
-Dispatch is by the tensors' device: on the CPU the plain version
-(``ref.flash_attention_ref``) runs; on a CUDA device the hand-written kernel
-(``csrc/flash_attention.cu``) launches for float32 or bf16 at head sizes 32,
-64, 128 and 256, or the call raises.  Nothing falls back from the card.
-``flash_attention.launches`` counts the calls that launched the kernel.
+:func:`flash_attention_bwd` takes the forward's inputs, out and lse, and
+the output gradient dO, and returns (dq, dk, dv) in q's dtype, dk and dv
+summed over the query heads of each KV head.  It computes
+``dvec = rowsum(dO∘O)`` in float32 before the launch, as the reference does
+outside its Pallas kernels, and makes dO contiguous (a no-op for the dO that
+autograd hands the model's attention, which arrives contiguous).
 
-The backward (B8) and the ``torch.autograd.Function`` around both wait for
-the training slice.
+Dispatch is by the tensors' device: on the CPU the plain versions
+(``ref.flash_attention_ref``, ``ref.flash_attention_bwd_ref``) run; on a
+CUDA device the hand-written kernels (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``) launch for float32 or bf16 at head sizes
+32, 64, 128 and 256, or the call raises.  Nothing falls back from the card.
+``flash_attention.launches`` and ``flash_attention_bwd.launches`` count the
+calls that launched a kernel (B8's two kernels count as one call).
+
+Gradients: when grad mode is on and q, k or v requires grad,
+:func:`flash_attention` goes through :class:`FlashAttention`, whose
+forward saves (q, k, v, out, lse) and whose backward calls
+:func:`flash_attention_bwd` — on both devices, so the CPU runs the same
+plumbing as the card (the reference's ``custom_vjp``).  A kernel launch
+yields tensors with no ``grad_fn``, so reaching B7 or B8 outside that path
+with grad needed raises instead of detaching the attention silently.
 """
 from __future__ import annotations
 
@@ -24,13 +39,18 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+)
 
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _ARGS = [_I32, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32,
-         ctypes.POINTER(ctypes.c_longlong), _I32, _I32, ctypes.c_float, _PTR]
+         _STRIDES, _I32, _I32, ctypes.c_float, _PTR]
+_BWD_ARGS = [_I32] + [_PTR] * 9 + [_I32] * 5 + [_STRIDES, _I32, _I32, ctypes.c_float, _PTR]
 
 
 def _check(q, k, v, window) -> None:
@@ -55,6 +75,73 @@ def _check(q, k, v, window) -> None:
         raise ValueError(f"flash_attention: window must be None or >= 1, got {window}")
 
 
+def _grad_needed(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _refuse_grad(who: str, *tensors) -> None:
+    if _grad_needed(*tensors):
+        raise RuntimeError(f"{who}: an input requires grad, and this call's outputs would "
+                           "have no grad_fn; go through flash_attention (its autograd "
+                           "Function) instead")
+
+
+def _kernel_device(who: str, q: torch.Tensor) -> None:
+    """Raise unless q lies on a CUDA device in a dtype and head size the
+    kernels take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{who}: no kernel for device {q.device}")
+    if q.dtype not in _DTYPES or q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{who}: the kernel takes float32 or bf16 at head sizes "
+                         f"{HEAD_DIMS}, got {q.dtype} at {q.shape[-1]}")
+
+
+def _strides(q, k, v):
+    return (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v) for i in range(3)))
+
+
+def _forward(q, k, v, causal, window):
+    """One forward: B7 on a CUDA tensor, the plain version on a CPU one."""
+    _refuse_grad("flash_attention's forward", q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    _kernel_device("flash_attention", q)
+    b, s, h, d = q.shape
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if b == 0 or s == 0 or h == 0:
+        return out, lse
+    fn = _build.function("flash_attention", "flash_attention_fwd", _ARGS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), b, s, h, k.shape[2], d, _strides(q, k, v), int(causal),
+                 window or 0, d**-0.5, stream)
+    _build.raise_on("flash_attention_fwd", err)
+    flash_attention.launches += 1
+    return out, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the B8 backward: ``apply(q, k, v, causal, window)``
+    returns ``(out, lse)``; lse is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -65,30 +152,59 @@ def flash_attention(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Causal (optionally windowed) attention: (out [B, S, H, D], lse [B, H, S])."""
     _check(q, k, v, window)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if _grad_needed(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention backward: (dq [B, S, H, D], dk, dv [B, S, Hkv, D])."""
+    _check(q, k, v, window)
     b, s, h, d = q.shape
-    if q.dtype not in _DTYPES or d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes float32 or bf16 at head "
-                         f"sizes {HEAD_DIMS}, got {q.dtype} at {d}")
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    for name, t, shape in (("out", out, q.shape), ("do", do, q.shape), ("lse", lse, (b, h, s))):
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != tuple(shape) \
+                or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must be {tuple(shape)} on "
+                             f"{q.device}, got {getattr(t, 'shape', t)}")
+    if lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be float32, got {lse.dtype}")
+    _refuse_grad("flash_attention_bwd", q, k, v, out, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window)
+    _kernel_device("flash_attention_bwd", q)
+    hkv = k.shape[2]
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
     if b == 0 or s == 0 or h == 0:
-        return out, lse
-    strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v) for i in range(3)))
-    fn = _build.function("flash_attention", "flash_attention_fwd", _ARGS)
+        return dq, dk, dv
+    do = do.to(q.dtype).contiguous()
+    dvec = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()   # [B, H, S]
+    lse = lse.contiguous()
+    fn = _build.function("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b, s, h, k.shape[2], d, strides, int(causal),
+        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, s, h, hkv, d, _strides(q, k, v), int(causal),
                  window or 0, d**-0.5, stream)
-    _build.raise_on("flash_attention_fwd", err)
-    flash_attention.launches += 1
-    return out, lse
+    _build.raise_on("flash_attention_bwd", err)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0
 
-__all__ = ["flash_attention", "flash_attention_ref"]
+__all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_ref", "flash_attention_ref"]

@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the causal (optionally windowed) attention
-forward that the B7 kernel computes.
+"""Plain PyTorch versions of the causal (optionally windowed) attention
+forward and backward that the B7 and B8 kernels compute.
 
 Counterpart of ``repro/kernels/flash_attention/ref.py``, in the model layout:
 q [B, S, H, D], k and v [B, S, Hkv, D], query head h reading KV head
@@ -9,6 +9,18 @@ masks them; the output comes back in q's dtype, with the row log-sum-exp
 [B, H, S] that the Pallas kernel also returns.  It materialises the
 [S, S] scores: the CUDA kernel beside it is held against it, and the wrapper
 runs it for CPU tensors.
+
+:func:`flash_attention_bwd_ref` is the backward of the same function, with
+the formulas of the reference's Pallas backward (``_dq_kernel``,
+``_dkv_kernel``) in float32: ``p = exp(s - lse)`` masked to 0,
+``dvec = rowsum(dO∘O)``, ``ds = p∘(dO·vᵀ - dvec)``, ``dq = D^-½·ds·k``,
+``dk = D^-½·dsᵀ·q`` and ``dv = pᵀ·dO``, dk and dv summed over the query
+heads of each KV head (in the reference that sum is autodiff through the
+``jnp.repeat`` of k and v).  :func:`flash_attention_bwd_magnitudes` gives,
+for each element of dq, dk and dv, the sum of the absolute values of the
+terms that make it: a float32 result computed in another order lies within
+a small multiple of eps of that sum, which is how the card's checks bound
+each element (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
 from __future__ import annotations
 
@@ -48,3 +60,67 @@ def flash_attention_ref(
     out = torch.softmax(scores, dim=-1) @ vf                               # [B,Hkv,G,S,D]
     out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
     return out.to(q.dtype), lse.reshape(b, h, s)
+
+
+def _grouped(q, k, v, do, lse, causal, window):
+    """The backward's float32 operands with the query heads grouped by KV
+    head: q and dO [B, Hkv, G, S, D], k and v [B, Hkv, 1, S, D], and p
+    [B, Hkv, G, S, S] recomputed from lse, masked to 0."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+
+    def heads(x):
+        return x.float().reshape(b, s, hkv, -1, d).permute(0, 2, 3, 1, 4)
+
+    qg, dog, kf, vf = heads(q), heads(do), heads(k), heads(v)
+    scores = (qg @ kf.transpose(-1, -2)) * d**-0.5
+    p = torch.exp(scores - lse.reshape(b, hkv, h // hkv, s)[..., None])
+    p = p.masked_fill(~attention_mask(s, causal, window, q.device), 0.0)
+    return qg, kf, vf, dog, p
+
+
+def _ungroup(x, heads):
+    """[B, Hkv, G, S, D] (or [B, Hkv, S, D] with ``heads`` = Hkv) -> [B, S, heads, D]."""
+    b, s, d = x.shape[0], x.shape[-2], x.shape[-1]
+    return x.reshape(b, heads, s, d).transpose(1, 2)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq [B, S, H, D], dk, dv [B, S, Hkv, D]) in q's dtype, from the
+    forward's out [B, S, H, D] and lse [B, H, S] and the output gradient dO."""
+    h, hkv, scale = q.shape[2], k.shape[2], q.shape[-1] ** -0.5
+    qg, kf, vf, dog, p = _grouped(q, k, v, do, lse, causal, window)
+    dvec = (do.float() * out.float()).sum(-1)                      # [B, S, H]
+    dvec = dvec.transpose(1, 2).reshape(p.shape[:-1])              # [B, Hkv, G, S]
+    ds = p * (dog @ vf.transpose(-1, -2) - dvec[..., None])
+    dq = scale * (ds @ kf)
+    dk = scale * (ds.transpose(-1, -2) @ qg).sum(2)
+    dv = (p.transpose(-1, -2) @ dog).sum(2)
+    return tuple(_ungroup(x, n).to(q.dtype).contiguous()
+                 for x, n in ((dq, h), (dk, hkv), (dv, hkv)))
+
+
+def flash_attention_bwd_magnitudes(q, k, v, out, lse, do, *, causal=True, window=None):
+    """Float32 (|dq|, |dk|, |dv|) term magnitudes [B, S, H or Hkv, D]: each
+    element's sum of |term| over the products that make it, with ``ds``
+    replaced by ``p·(|dO|·|v| + |dO|·|O|)`` (the size of the two dot
+    products whose difference it is).  Arguments as
+    :func:`flash_attention_bwd_ref`."""
+    h, hkv, scale = q.shape[2], k.shape[2], q.shape[-1] ** -0.5
+    qg, kf, vf, dog, p = _grouped(q, k, v, do, lse, causal, window)
+    dva = (do.float().abs() * out.float().abs()).sum(-1).transpose(1, 2)
+    ds = p * (dog.abs() @ vf.abs().transpose(-1, -2) + dva.reshape(p.shape[:-1])[..., None])
+    mq = scale * (ds @ kf.abs())
+    mk = scale * (ds.transpose(-1, -2) @ qg.abs()).sum(2)
+    mv = (p.transpose(-1, -2) @ dog.abs()).sum(2)
+    return tuple(_ungroup(x, n) for x, n in ((mq, h), (mk, hkv), (mv, hkv)))

@@ -9,6 +9,10 @@ Dispatch is by the tensors' device: on the CPU the plain version
 (``csrc/rglru_scan.cu``) launches for float32 contiguous inputs, or the call
 raises.  Nothing falls back from the card.  ``rglru_scan.launches`` counts
 the calls that launched the kernel.
+
+The kernel has no backward: with grad mode on and an input that requires
+grad, the call raises (on both devices) rather than return outputs with no
+``grad_fn``.  Training the hybrid family waits for ROADMAP queue A item 16.
 """
 from __future__ import annotations
 
@@ -38,6 +42,9 @@ def _check(x, r, i, lam) -> None:
 def rglru_scan(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor, lam: torch.Tensor):
     """RG-LRU recurrence over [B, S, W]: (y, h_last)."""
     _check(x, r, i, lam)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, r, i, lam)):
+        raise NotImplementedError("rglru_scan has no backward; training the hybrid "
+                                  "family waits for ROADMAP queue A item 16")
     if x.device.type == "cpu":
         return rglru_scan_ref(x, r, i, lam)
     if x.device.type != "cuda":

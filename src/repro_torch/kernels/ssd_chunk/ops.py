@@ -13,6 +13,10 @@ Dispatch is by the tensors' device: on the CPU the plain chunked version
 contiguous inputs with P <= 64, N <= 128 and a chunk <= 256, or the call
 raises.  Nothing falls back from the card.  ``ssd_chunk.launches`` counts
 the calls that launched the kernel.
+
+The kernel has no backward: with grad mode on and an input that requires
+grad, the call raises (on both devices) rather than return outputs with no
+``grad_fn``.  Training the SSM family waits for ROADMAP queue A item 16.
 """
 from __future__ import annotations
 
@@ -55,6 +59,9 @@ def ssd_chunk(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor, c: torch.Ten
               chunk: int = 256):
     """Chunked SSD scan: (y [B, S, H, P], h_final [B, H, P, N])."""
     _check(xdt, la, b, c)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xdt, la, b, c)):
+        raise NotImplementedError("ssd_chunk has no backward; training the SSM family "
+                                  "waits for ROADMAP queue A item 16")
     bsz, s, h, p = xdt.shape
     g, n = b.shape[2], b.shape[3]
     chunk = fit_chunk(s, chunk)

@@ -1,4 +1,4 @@
-"""ModelBundle — one interface over the LM families the port serves.
+"""ModelBundle — one interface over the LM families the port serves and trains.
 
 Counterpart of ``repro/models/api.py`` for the families ported so far
 (``dense``, ``ssm``, ``hybrid``).  Per family it wires up:
@@ -6,6 +6,8 @@ Counterpart of ``repro/models/api.py`` for the families ported so far
     init(seed, dtype=torch.float32, *, device=None) -> params
     forward(params, tokens)      -> hidden states [B, S, d]
     prefill(params, batch)       -> last-token logits [B, 1, V]
+    loss(params, batch)          -> scalar (training objective, float32)
+    input_specs(shape, dtype)    -> {name: meta tensor} for an ``InputShape``
 
 ``seed`` is an int (a ``torch.Generator`` on ``device`` is seeded with it)
 or a ``torch.Generator``, whose device the parameters then take.
@@ -13,13 +15,18 @@ or a ``torch.Generator``, whose device the parameters then take.
 ``repro_torch.device``); pass ``device="cpu"`` for the host.  ``tokens``
 (and ``batch["tokens"]``) are [B, S] integers, numpy or torch; they move
 to the parameters' device.  ``forward`` and ``prefill`` run under
-``torch.inference_mode()``.  The reference's bundle has no ``forward``: its
+``torch.inference_mode()``; ``loss`` runs in the caller's grad mode, with
+every layer rematerialised when grad is on (its gradients go through the
+B7/B8 kernels on the card).  The reference's bundle has no ``forward``: its
 callers reach the family module directly; the port's DAEF head takes the
-bundle's.
+bundle's.  ``input_specs`` gives meta tensors, PyTorch's counterpart of the
+reference's ``jax.ShapeDtypeStruct``: shapes and dtypes, no storage.
 
-``loss``, ``init_cache`` and ``decode`` raise ``NotImplementedError`` until
-the training and decode slices; so does :func:`get_bundle` for the families
-not ported yet (``vlm``, ``moe``, ``encdec``), naming the ROADMAP item.
+``loss`` trains the ``dense`` family only: for ``ssm`` and ``hybrid`` it
+raises ``NotImplementedError`` (their B10/B9 kernels have no backward;
+ROADMAP queue A item 16).  ``init_cache`` and ``decode`` raise until the
+decode slice; so does :func:`get_bundle` for the families not ported yet
+(``vlm``, ``moe``, ``encdec``), naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -29,8 +36,9 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.registry import InputShape
 from repro_torch.device import resolve_device
-from repro_torch.models import mamba2, rglru, transformer
+from repro_torch.models import common, mamba2, rglru, transformer
 
 _MODULES = {"dense": transformer, "ssm": mamba2, "hybrid": rglru}
 _NOT_YET = {
@@ -49,11 +57,12 @@ class ModelBundle:
     loss: Callable[..., torch.Tensor]
     init_cache: Callable[..., Any]
     decode: Callable[..., Any]
+    input_specs: Callable[..., dict[str, torch.Tensor]]
 
 
-def _waits(what: str) -> Callable[..., Any]:
+def _waits(what: str, item: int = 14) -> Callable[..., Any]:
     def fn(*args, **kwargs):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue A item 14)")
+        raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue A item {item})")
     return fn
 
 
@@ -70,7 +79,20 @@ def _generator(seed, device=None) -> torch.Generator:
     return torch.Generator(device=resolve_device(device)).manual_seed(int(seed))
 
 
-def get_bundle(cfg: ArchConfig) -> ModelBundle:
+def input_specs(shape: InputShape, dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """The inputs of ``shape`` for the token-only families: int32 tokens
+    [global_batch, seq_len], as meta tensors (``dtype`` is the reference's
+    argument for the frontend inputs, which these families have none of)."""
+    del dtype
+    return {"tokens": torch.empty((shape.global_batch, shape.seq_len), dtype=torch.int32,
+                                  device="meta")}
+
+
+def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
+    """The bundle of ``cfg``'s family.  ``chunked_attn`` is the reference's
+    keyword and changes nothing here: the port's attention always streams
+    through the flash-attention kernels (B7, B8)."""
+    del chunked_attn
     fam = cfg.family
     if fam in _NOT_YET:
         raise NotImplementedError(f"{_NOT_YET[fam]} is not ported yet")
@@ -89,12 +111,19 @@ def get_bundle(cfg: ArchConfig) -> ModelBundle:
     @torch.inference_mode()
     def prefill(params, batch):
         h = mod.forward(params, cfg, _tokens(params, batch["tokens"]))
-        w = transformer.lm_head(params, cfg) if fam == "dense" else params["embed"]["table"].T
-        return h[:, -1:] @ w
+        # an untied dense model has an lm_head; every other model is tied
+        return common.logits_from_hidden(h[:, -1:], params["embed"], params.get("lm_head"))
+
+    if fam == "dense":
+        def loss(params, batch):
+            return transformer.lm_loss(params, cfg, _tokens(params, batch["tokens"]))
+    else:
+        loss = _waits(f"training the {fam} family (lm_loss through the B9/B10 "
+                      "kernels, which have no backward)", item=16)
 
     return ModelBundle(
-        cfg=cfg, init=init, forward=forward, prefill=prefill,
-        loss=_waits("lm_loss (the training slice, with the B8 backward)"),
+        cfg=cfg, init=init, forward=forward, prefill=prefill, loss=loss,
         init_cache=_waits("init_cache (the decode slice)"),
         decode=_waits("decode (the decode slice)"),
+        input_specs=input_specs,
     )

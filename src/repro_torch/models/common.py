@@ -1,7 +1,7 @@
-"""Shared model components: norms, MLPs, embeddings, RoPE and initialisers.
+"""Shared model components: norms, MLPs, embeddings, RoPE, initialisers and
+the chunked cross-entropy.
 
-Counterpart of ``repro/models/common.py`` (the serving side: the chunked
-cross-entropy waits for the training slice).  Modules are functional, as in
+Counterpart of ``repro/models/common.py``.  Modules are functional, as in
 the reference: ``init_*`` returns a parameter dict of tensors, the apply
 functions take (params, inputs).  Weights keep the reference's ``[in, out]``
 orientation (``x @ w``).  Layers of a stack are drawn at once with a leading
@@ -150,6 +150,63 @@ def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens]
 
 
+def logits_from_hidden(h: torch.Tensor, emb: Params, w_out: torch.Tensor | None) -> torch.Tensor:
+    """LM head: tied embedding transpose or a separate output matrix."""
+    if w_out is not None:
+        return h @ w_out
+    return h @ emb["table"].T
+
+
+def chunked_softmax_xent(
+    h: torch.Tensor,
+    labels: torch.Tensor,
+    mask: torch.Tensor,
+    emb_or_w: torch.Tensor,
+    *,
+    chunk: int = 1024,
+    transpose: bool = False,
+) -> torch.Tensor:
+    """Cross-entropy over a large vocab without materialising [T, V] logits.
+
+    h: [B, S, d]; labels/mask: [B, S]; emb_or_w: [V, d] (transpose=True) or
+    [d, V].  Loops over sequence chunks (the reference's rule: S // chunk of
+    them, at least one, each S // n_chunks wide), so the forward's largest
+    live logits are one chunk's [B, chunk, V] in float32.  Under autograd
+    each chunk's float32 logits stay saved for the backward, as the
+    reference's ``lax.scan`` keeps its residuals.  Returns the mean NLL over
+    masked positions (float32).
+    """
+    b, s, _ = h.shape
+    n_chunks = max(1, s // chunk)
+    chunk = s // n_chunks
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    w = emb_or_w.T if transpose else emb_or_w
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        logits = (h[:, sl] @ w).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, sl, None].long())[..., 0]
+        mc = mask[:, sl].float()
+        total = total + ((logz - gold) * mc).sum()
+        count = count + mc.sum()
+    return total / torch.clamp(count, min=1.0)
+
+
 def layer(stack: Params, i: int) -> Params:
     """Layer ``i`` of a stacked parameter tree (views, no copy)."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in stack.items()}
+
+
+def unstack(stack: Params, n: int) -> list[Params]:
+    """The ``n`` layers of a stacked parameter tree as views, one ``unbind``
+    per leaf: under autograd the layers' gradients return to the stacked
+    leaf through one ``stack``, not one full-size scatter per layer."""
+    trees = [{} for _ in range(n)]
+    for k, v in stack.items():
+        parts = unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+        for tree, part in zip(trees, parts, strict=True):
+            tree[k] = part
+    return trees

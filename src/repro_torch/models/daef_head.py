@@ -6,15 +6,16 @@ then score new sequences by reconstruction error and flag those above the
 fitted threshold (``examples/llm_feature_anomaly.py`` as a component).
 
 * :func:`pooled_features` runs a backbone's forward under
-  ``torch.inference_mode()`` and mean-pools its hidden states in float32,
-  on the backbone's device.
+  ``torch.inference_mode()`` and mean-pools its hidden states in their own
+  dtype, as the reference does, then returns the features in float32 on
+  the backbone's device.
 * :func:`fit_head` standardises the features, fits with ``daef.fit``
   (``n_partitions`` exercising the merge path) and thresholds the training
   errors.  ``device=None`` means the card (``repro_torch.device``).
-  :func:`default_config` picks the ``fused`` stats backend, so that the
-  head's hidden decoder layer folds its (G, M) through the B1 kernel on the
-  card; on the CPU that backend runs the kernel's plain version, the same
-  float32 arithmetic as the reference's default einsum.
+  :func:`default_config` is the reference's, field for field: its
+  ``stats_backend=None`` defers to ``$REPRO_STATS_BACKEND``, then ``auto``.
+  A caller that wants the hidden decoder layer's (G, M) folded by the B1
+  kernel passes ``dataclasses.replace(cfg, stats_backend="fused")``.
 * The reference's ``mesh=`` route (an on-mesh fit, one data shard per
   federated node) waits for ROADMAP queue A item 12: with ``mesh`` given,
   :func:`fit_head` raises ``NotImplementedError``.
@@ -56,7 +57,6 @@ def default_config(d_model: int, *, latent_frac: int = 8) -> daef.DAEFConfig:
         layer_sizes=(d_model, d_model // latent_frac, d_model // 4, d_model),
         lam_hidden=0.1,
         lam_last=0.5,
-        stats_backend="fused",
     )
 
 
@@ -89,7 +89,10 @@ def fit_head(
 
 
 def pooled_features(forward: Callable[..., torch.Tensor], tokens) -> torch.Tensor:
-    """Mean-pool a backbone's hidden states into [batch, d] float32 features."""
+    """Mean-pool a backbone's hidden states into [batch, d] features: the
+    mean in the backbone's dtype (a bf16 backbone gives bf16-rounded means,
+    as the reference's ``h.mean(axis=1)`` does), returned in float32."""
     with torch.inference_mode():
-        feats = forward(tokens).float().mean(dim=1)
-    return feats.clone()  # an ordinary tensor, usable outside inference mode
+        feats = forward(tokens).mean(dim=1)
+    # a copy made here, outside inference mode, is an ordinary tensor
+    return feats.to(torch.float32, copy=True)

@@ -11,9 +11,9 @@ repeated per head).  :func:`ssd_chunked` keeps the reference's signature and
 is that plain version.
 
 What the port leaves out: ``remat`` (no forward-only meaning), the sharding
-hint on the heads (mesh-only, ROADMAP queue A item 12), ``lm_loss`` (the
-training slice), ``Mamba2Cache``, ``init_cache`` and ``decode_step`` (the
-decode slice).
+hint on the heads (mesh-only, ROADMAP queue A item 12), ``lm_loss`` (B10
+has no backward: ROADMAP queue A item 16), ``Mamba2Cache``, ``init_cache``
+and ``decode_step`` (the decode slice).
 
 Shapes: tokens [B, S]; inner activations [B, S, H, P] (H heads, P head dim);
 B/C projections [B, S, G, N] (G groups, N state dim).

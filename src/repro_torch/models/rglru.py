@@ -17,9 +17,10 @@ B7 with its window.
 
 What the port leaves out: ``remat`` and ``chunked_attn`` (no forward-only
 meaning; the attention always streams through B7), the sharding hint on the
-width (mesh-only, ROADMAP queue A item 12), ``lm_loss`` (the training
-slice), ``rg_lru_step``, ``RecState``, the decode branch of ``_rec_fwd``,
-``RGCache``, ``init_cache`` and ``decode_step`` (the decode slice).
+width (mesh-only, ROADMAP queue A item 12), ``lm_loss`` (B9 has no
+backward: ROADMAP queue A item 16), ``rg_lru_step``, ``RecState``, the
+decode branch of ``_rec_fwd``, ``RGCache``, ``init_cache`` and
+``decode_step`` (the decode slice).
 """
 from __future__ import annotations
 

@@ -1,21 +1,27 @@
-"""Dense decoder-only transformer (llama lineage): init and prefill forward.
+"""Dense decoder-only transformer (llama lineage): init, forward and the
+training loss.
 
-Counterpart of ``repro/models/transformer.py``'s ``init_params`` and
-``forward`` (qwen3-1.7b, qwen2-1.5b, mistral-nemo-12b, granite-20b).  Layer
-parameters are stacked on a leading [L] axis, as the reference stacks them;
-the reference's ``lax.scan`` over that axis is a Python loop over layer views.
+Counterpart of ``repro/models/transformer.py``'s ``init_params``,
+``forward`` and ``lm_loss`` (qwen3-1.7b, qwen2-1.5b, mistral-nemo-12b,
+granite-20b).  Layer parameters are stacked on a leading [L] axis, as the
+reference stacks them; the reference's ``lax.scan`` over that axis is a
+Python loop over layer views.
 
-What the port leaves out: ``remat`` (``jax.checkpoint`` has no meaning for a
-forward-only pass) and ``chunked_attn`` (the attention always streams
-through the B7 kernel); ``prefix_embeds`` (the VLM, ROADMAP queue A item 14);
-``lm_loss`` (the training slice), ``init_cache`` and ``decode_step`` (the
-decode slice).
+``remat`` is the reference's ``jax.checkpoint`` of every layer:
+``torch.utils.checkpoint`` around each layer when grad mode is on, so the
+backward keeps one [B, S, d] input per layer and recomputes the rest (the
+attention forward, B7, runs again there).  Without grad it changes nothing.
+
+What the port leaves out: ``chunked_attn`` (the attention always streams
+through the B7/B8 kernels); ``prefix_embeds`` (the VLM, ROADMAP queue A
+item 14); ``init_cache`` and ``decode_step`` (the decode slice).
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
@@ -53,16 +59,29 @@ def layer_fwd(layer: Params, cfg: ArchConfig, h: torch.Tensor, window) -> torch.
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-            window: int | None = None) -> torch.Tensor:
-    """Hidden states [B, S, d] for prefill; ``tokens`` [B, S] on the
-    parameters' device."""
+            window: int | None = None, remat: bool = True) -> torch.Tensor:
+    """Hidden states [B, S, d] for training or prefill; ``tokens`` [B, S] on
+    the parameters' device."""
     h = common.embed(params["embed"], tokens)
     win = window if window is not None else cfg.sliding_window
-    for i in range(cfg.n_layers):
-        h = layer_fwd(common.layer(params["layers"], i), cfg, h, win)
+    remat = remat and torch.is_grad_enabled()
+    for layer in common.unstack(params["layers"], cfg.n_layers):
+        if remat:
+            # the layers draw no random numbers: no RNG state to replay
+            h = checkpoint(layer_fwd, layer, cfg, h, win, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = layer_fwd(layer, cfg, h, win)
     return common.apply_norm(cfg.norm, params["final_norm"], h)
 
 
-def lm_head(params: Params, cfg: ArchConfig) -> torch.Tensor:
-    """The output matrix [d, V]: the tied embedding's transpose or lm_head."""
-    return params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]
+def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            loss_chunk: int = 1024) -> torch.Tensor:
+    """Next-token cross-entropy (float32 scalar) of ``tokens`` [B, S]."""
+    h = forward(params, cfg, tokens)
+    h_in, labels = h[:, :-1], tokens[:, 1:]
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    w = params["embed"]["table"] if cfg.tie_embeddings else params["lm_head"]
+    return common.chunked_softmax_xent(h_in, labels, mask, w,
+                                       chunk=min(loss_chunk, h_in.shape[1]),
+                                       transpose=cfg.tie_embeddings)

@@ -18,7 +18,14 @@ from _torch_parity import lowrank_data
 from repro_torch.configs import registry
 from repro_torch.core import daef, fleet
 from repro_torch.data import synthetic
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch import optim
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_magnitudes,
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+)
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
 from repro_torch.kernels.ssd_chunk import fit_chunk, ssd_chunk, ssd_chunk_plain
 from repro_torch.kernels.rolann_stats import (
@@ -36,6 +43,7 @@ from repro_torch.kernels.rolann_stats import (
     rolann_stats_batched_plain,
     rolann_stats_plain,
 )
+from repro_torch.launch import steps
 from repro_torch.models import get_bundle
 
 pytestmark = pytest.mark.cuda
@@ -419,3 +427,99 @@ def _tree_to(tree, dev):
     if isinstance(tree, list):
         return [_tree_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+def _assert_bwd_close(got, want, mags):
+    """B8's per-element bar: float32 within 1e-5 of the element's term
+    magnitude (``flash_attention_bwd_magnitudes``: two float32 sums of the
+    same terms in other orders differ by a small multiple of eps times
+    that); bf16 one bf16 ulp of the element (2^-7·|ref|, each side rounds
+    once) plus 2e-5 of the magnitude.  dk's and dv's magnitudes sum over the
+    G query heads of their group, as the gradients do."""
+    for g, w, m in zip(got, want, mags):
+        assert g.dtype == w.dtype and g.shape == w.shape and bool(g.isfinite().all())
+        d = (g.double() - w.double()).abs()
+        if g.dtype == torch.bfloat16:
+            bar = 2.0**-7 * w.double().abs() + 2e-5 * m.double()
+        else:
+            bar = 1e-5 * m.double()
+        assert bool((d <= bar).all()), float((d / bar.clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,window,dtype", [
+    (2, 2_048, 16, 8, 128, None, torch.bfloat16),   # the train shape
+    (2, 2_048, 16, 8, 128, None, torch.float32),
+    (2, 4_096, 16, 1, 256, 2_048, torch.bfloat16),  # recurrentgemma's windowed MQA
+    (1, 1_000, 8, 2, 64, None, torch.float32),      # ragged S
+    (2, 1_000, 8, 2, 64, 300, torch.bfloat16),
+    (2, 512, 8, 2, 32, 77, torch.float32),
+    (1, 300, 4, 1, 128, 1, torch.float32),
+])
+def test_flash_attention_bwd_kernel_matches_plain(card, b, s, h, hkv, d, window, dtype):
+    """B8 against its plain version, element by element; a repeat is
+    bit-identical (no atomics: the group sum is one thread's sequential
+    sum)."""
+    gen = torch.Generator(device=card).manual_seed(s + d + h)
+    q, k, v, do = (_randn((b, s, n, d), gen, card, dtype) for n in (h, hkv, hkv, h))
+    out, lse = flash_attention(q, k, v, window=window)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, window=window)
+    _assert_bwd_close(got, want,
+                      flash_attention_bwd_magnitudes(q, k, v, out, lse, do, window=window))
+    again = flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_flash_attention_function_on_card(card):
+    """The autograd Function on the card (B7 forward, B8 backward) against
+    autograd through the plain forward, float32; strided head slices of one
+    projection read in place give the same gradients as contiguous copies."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    qkv = _randn((2, 333, 8 + 2 + 2, 64), gen, card).requires_grad_()
+    do = _randn((2, 333, 8, 64), gen, card)
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    out, lse = flash_attention(qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:], window=100)
+    (got,) = torch.autograd.grad(out, qkv, do)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    assert lse.grad_fn is None
+    ref, _ = flash_attention_ref(qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:], window=100)
+    (want,) = torch.autograd.grad(ref, qkv, do)
+    leaves = [t.detach().contiguous().requires_grad_()
+              for t in (qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:])]
+    out2, _ = flash_attention(*leaves, window=100)
+    contiguous = torch.cat(torch.autograd.grad(out2, leaves, do), dim=2)
+    assert torch.equal(got, contiguous)
+    mags = flash_attention_bwd_magnitudes(*(t.detach() for t in (qkv[:, :, :8], qkv[:, :, 8:10],
+                                                                  qkv[:, :, 10:])),
+                                          out.detach(), lse, do, window=100)
+    _assert_bwd_close(got.split([8, 2, 2], dim=2), want.split([8, 2, 2], dim=2), mags)
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_on_card_matches_host(card, microbatches):
+    """One AdamW train step of the reduced qwen3 in float32, the same
+    parameters and batch on the card (B7, B8) and on the host (plain
+    versions): loss, parameters and moments to 1e-4 of each leaf's largest
+    entry (float32 sums in other orders; eps = 1e-3 keeps each update a
+    smooth function of its gradient, see tests/test_torch_training.py)."""
+    cfg = registry.get("qwen3-1.7b").reduced()
+    bundle = get_bundle(cfg)
+    tokens = synthetic.lm_token_stream(cfg.vocab_size, 96, 4, seed=2)
+    results = []
+    for dev in ("cpu", card):
+        params = _tree_to(bundle.init(0, device="cpu"), dev)
+        opt = optim.adamw(optim.linear_warmup_cosine(1e-3, 2, 10), weight_decay=0.01, eps=1e-3)
+        step = steps.make_train_step(bundle, opt, microbatches=microbatches)
+        before = flash_attention_bwd.launches
+        params, state, loss = step(params, opt.init(params), {"tokens": tokens})
+        if dev == card:
+            assert flash_attention_bwd.launches == before + cfg.n_layers * microbatches
+        results.append([loss] + [t.detach().cpu() for t in
+                                 torch.utils._pytree.tree_leaves((params, state.mu, state.nu))])
+    for host, got in zip(*results):
+        scale = max(float(host.abs().max()), 1e-30)
+        assert float((got.cpu() - host).abs().max()) <= 1e-4 * scale

@@ -15,6 +15,8 @@ Labels: a score within ``TOLS`` of the threshold could fall either way, so
 the test first checks that no reference score sits in that band; then the
 flags must agree exactly.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,10 +53,23 @@ def _assert_flags_match(th, jh, feats):
     np.testing.assert_array_equal(th.flag(feats).numpy(), np.asarray(jh.flag(jnp.asarray(feats))))
 
 
+@pytest.mark.parametrize("d", [2048, 96])
+def test_default_config_matches_reference(d):
+    """The head's default DAEF config is the reference's, field for field
+    (``stats_backend`` None: the environment, then ``auto``, decide)."""
+    got, want = daef_head.default_config(d), jhead.default_config(d)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.stats_backend is None
+
+
 def test_head_matches_reference():
+    """The reference's default head against the port's with the fused
+    stats backend asked for, as ``chip_smoke.py`` asks for it (on the CPU
+    the fused backend runs B1's plain version)."""
     fit = _features(N_FIT, seed=0)
     jh = jhead.fit_head(jnp.asarray(fit))
-    th = daef_head.fit_head(fit, device="cpu")
+    fused = dataclasses.replace(daef_head.default_config(D), stats_backend="fused")
+    th = daef_head.fit_head(fit, cfg=fused, device="cpu")
     assert th.cfg.layer_sizes == jh.cfg.layer_sizes == (D, D // 8, D // 4, D)
     assert th.cfg.stats_backend == "fused"
     assert_close(th.mean, jh.mean, what="mean")
@@ -105,3 +120,28 @@ def test_slice_backbone_to_flags_matches_reference():
     assert not np.any(np.abs(jscores - thr) <= 1e-4 + 1e-4 * abs(thr))
     np.testing.assert_array_equal(th.flag(test_feats).numpy(),
                                   np.asarray(jh.flag(jnp.asarray(jtest_feats))))
+
+
+def test_pooled_features_keep_the_backbones_dtype():
+    """A bf16 backbone (reduced qwen3, 2 layers) gives bf16-rounded means,
+    as the reference's ``np.asarray(h.mean(axis=1))``, returned in float32.
+    Both packages run the same bf16 parameters; their hidden states differ
+    by the bar of ``test_torch_models.py::test_bf16_hidden_states_match_reference``
+    (4·2^-7·max|h| per layer), and a mean of those differences plus one bf16
+    rounding of each side's mean (2^-7·|mean|) bounds the features."""
+    name, s = "qwen3-1.7b", 32
+    jcfg, cfg = jregistry.get(name).reduced(), registry.get(name).reduced()
+    tp = jax.tree.map(lambda t: t.to(torch.bfloat16), get_bundle(cfg).init(0, device="cpu"))
+    jp = jax.tree.map(lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16), tp)
+    tokens = synthetic.lm_token_stream(cfg.vocab_size, s, 8, seed=4)
+    forward = get_bundle(cfg).forward
+    feats = daef_head.pooled_features(lambda t: forward(tp, t), tokens)
+    h = forward(tp, tokens)
+    jh = jtransformer.forward(jp, jcfg, jnp.asarray(tokens), remat=False)
+    jfeats = np.asarray(jhead.pooled_features(lambda t: jh, tokens), dtype=np.float32)
+    assert feats.dtype == torch.float32 and feats.grad_fn is None and not feats.is_inference()
+    assert torch.equal(feats, h.mean(dim=1).float())  # the mean taken in bf16
+    assert torch.equal(feats, feats.bfloat16().float())
+    max_h = float(np.abs(np.asarray(jh, dtype=np.float32)).max())
+    bar = 4 * 2.0**-7 * max_h * cfg.n_layers + 2.0**-7 * np.abs(jfeats)
+    assert np.all(np.abs(feats.numpy() - jfeats) <= bar)

@@ -1,5 +1,5 @@
-"""repro_torch.core.dsvd (gram route, the merges of Eq. 2, a leading tenant axis)
-and core.anomaly against the reference."""
+"""repro_torch.core.dsvd (both routes, the merges of Eq. 2, a leading tenant
+axis) and core.anomaly against the reference."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -54,9 +54,32 @@ def test_gram_to_factors_descending_and_clipped():
     assert tuple(t.u.shape) == (6, 2) and tuple(t.s.shape) == (2,)
 
 
+@pytest.mark.parametrize("n_parts", [1, 3])
+def test_dsvd_svd_route_matches_reference(n_parts):
+    """The paper's route (local SVDs merged by Eq. 2) against the
+    reference's svd route and the port's gram route: S to ``TOLS``, the
+    well-separated leading vectors entry by entry, and U S² Uᵀ (what merges
+    consume) at the Gram's sum tolerance, as ``test_dsvd_gram_route``."""
+    x = lowrank_data(10, 4, 900, seed=10 + n_parts)
+    bounds = [round(i * 900 / n_parts) for i in range(n_parts + 1)]
+    parts = [x[:, bounds[i]:bounds[i + 1]] for i in range(n_parts)]
+    got = tdsvd.dsvd([torch.from_numpy(p) for p in parts], rank=6, method="svd")
+    want = jdsvd.dsvd([jnp.asarray(p) for p in parts], rank=6, method="svd")
+    gram = tdsvd.dsvd([torch.from_numpy(p) for p in parts], rank=6, method="gram")
+    assert tuple(got.u.shape) == (10, 6) and tuple(got.s.shape) == (6,)
+    gu = (got.u * got.s**2) @ got.u.T
+    for other, what in ((want, "reference svd route"), (gram, "port gram route")):
+        assert_close(got.s, other.s, what=what)
+        assert_close(got.u[:, :4], other.u[:, :4], what=what)
+        assert_sum_close(gu, (other.u * other.s**2) @ other.u.T, what=what)
+
+
 def test_dsvd_svd_route_not_ported():
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        tdsvd.dsvd([torch.zeros(3, 4)], rank=2, method="svd")
+    """Now ported: the default is the reference's, ``method="svd"``; an
+    unknown method raises."""
+    parts = [torch.from_numpy(lowrank_data(6, 3, 200, seed=1))]
+    default, svd = tdsvd.dsvd(parts, rank=3), tdsvd.dsvd(parts, rank=3, method="svd")
+    assert torch.equal(default.u, svd.u) and torch.equal(default.s, svd.s)
     with pytest.raises(ValueError, match="unknown DSVD method"):
         tdsvd.dsvd([torch.zeros(3, 4)], rank=2, method="qr")
 

@@ -13,7 +13,7 @@ Tolerance: ``TOLS`` float32 (atol = rtol = 1e-4).  Both sides compute in
 float32 with other summation orders (XLA against torch's CPU kernels, an
 [S, S] softmax against the reference's blocked one, a sequential RG-LRU
 against an associative scan); on O(1) normalised hidden states that is a
-few float32 ulps per layer.
+few float32 ulps per layer.  The bf16 comparison states its own bar.
 """
 import dataclasses
 
@@ -41,6 +41,7 @@ ARCHS = {"qwen3-1.7b": 48, "mamba2-780m": 64, "recurrentgemma-9b": 96}
 _JMOD = {"dense": jtransformer, "ssm": jmamba2, "hybrid": jrglru}
 
 
+
 @pytest.fixture(scope="module", params=sorted(ARCHS))
 def arch(request):
     """Reduced config, reference params, tokens, the reference's hidden
@@ -53,7 +54,8 @@ def arch(request):
     jh = _JMOD[jcfg.family].forward(jp, jcfg, jnp.asarray(tokens), remat=False)
     jl = jb.prefill(jp, {"tokens": jnp.asarray(tokens)})
     tp = interop.lm_params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
-    return dict(cfg=cfg, jp=jp, tp=tp, tokens=tokens, jh=np.asarray(jh), jl=np.asarray(jl))
+    return dict(cfg=cfg, jcfg=jcfg, jp=jp, tp=tp, tokens=tokens, jh=np.asarray(jh),
+                jl=np.asarray(jl))
 
 
 def test_hidden_states_match(arch):
@@ -66,6 +68,29 @@ def test_prefill_logits_match(arch):
     logits = get_bundle(arch["cfg"]).prefill(arch["tp"], {"tokens": arch["tokens"]})
     assert tuple(logits.shape) == (2, 1, arch["cfg"].vocab_size)
     assert_close(logits, arch["jl"], what=f"{arch['cfg'].name} last-token logits")
+
+
+def test_bf16_hidden_states_match_reference(arch):
+    """Both packages in bf16 on the same parameters (the reference's, rounded
+    to bf16 on each side).  The routes round at other places: the reference's
+    ``attend_full`` rounds the probabilities to bf16 before P·V, the port's
+    attention keeps them in float32; XLA and torch round the norms, RoPE and
+    products to bf16 in other orders.  Bar: 4 bf16 ulps of max|h| per layer,
+    4·2^-7·max|h|·n_layers (measured: 1.5, 3.8 and 1.7 such ulps in all for
+    qwen3, mamba2 and recurrentgemma); and the port's bf16 states lie no
+    farther from the reference's float32 states than twice the reference's
+    own bf16 states do (measured: 0.95–1.1 times)."""
+    cfg, tokens = arch["cfg"], arch["tokens"]
+    jp16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), arch["jp"])
+    jh16 = _JMOD[cfg.family].forward(jp16, arch["jcfg"], jnp.asarray(tokens), remat=False)
+    jh16 = np.asarray(jh16.astype(jnp.float32))
+    tp16 = jax.tree.map(lambda t: t.to(torch.bfloat16), arch["tp"])
+    h = get_bundle(cfg).forward(tp16, tokens)
+    assert h.dtype == torch.bfloat16
+    h = h.float().numpy()
+    bar = 4 * 2.0**-7 * float(np.abs(jh16).max()) * cfg.n_layers
+    assert float(np.abs(h - jh16).max()) <= bar
+    assert np.abs(h - arch["jh"]).max() <= 2 * np.abs(jh16 - arch["jh"]).max()
 
 
 def test_init_matches_reference_layout(arch):
@@ -144,8 +169,12 @@ def test_families_not_ported_raise(name):
 
 
 def test_training_and_decode_wait_and_init_defaults_to_the_card(monkeypatch):
+    """Decode waits for every family, training for the ssm and hybrid ones
+    (the dense family trains: tests/test_torch_training.py)."""
     b = get_bundle(registry.get("qwen3-1.7b").reduced())
-    for call in (b.loss, b.init_cache, b.decode):
+    waiting = [b.init_cache, b.decode] + [get_bundle(registry.get(n).reduced()).loss
+                                          for n in ("mamba2-780m", "recurrentgemma-9b")]
+    for call in waiting:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call(None, None)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
