@@ -85,27 +85,30 @@ no result:
     magnitude (summation order), lse 1e-5.
     Path shapes timed (CUDA events, median of 25) beside the bound (bf16
     work against the tensor cores' 989 TFLOP/s, float32 against the CUDA
-    cores' 67), the plain version and, for B7, SDPA.
+    cores' 67), the plain version and, for B7, SDPA.  bf16 B7 launches
+    must take the tensor-core route (``flash_attention.route_launches``
+    "wgmma"), float32 ones the FP32 kernel ("fp32"); ``ptxas``'s registers
+    and spill bytes of every B7 instantiation are printed.
 10. depth-cut agreement — qwen3-1.7b and mamba2-780m at full width cut to
     2 layers (1 x 512 tokens), recurrentgemma-9b cut to one (rec, rec,
     attn) period (1 x 2,560 tokens, beyond its 2,048 window), float32: the
     same weights on the card and on the host, final hidden states within
-    1e-4 of their largest magnitude.
+    1e-4 of their largest magnitude; B7 on its float32 route.
 11. head path — the DAEF head on qwen3-1.7b at full width and depth in bf16
     (weights drawn on the card from a seed), ``examples/llm_feature_anomaly
     .py`` at full width: ``get_bundle(cfg).forward`` -> ``pooled_features``
     on 2,048 "normal" sequences (``lm_token_stream``, S = 256, batches of
     64) -> ``fit_head`` (2048-256-512-2048, fused stats) -> ``flag`` on 256
     normal and 256 uniform-random OOD sequences; after one warm-up.  Forward
-    tokens/s, fit and score ms, OOD F1; launches B7 28 per forward batch,
-    B1 once, nothing else; the card's flags within 8 labels of 512 of the
+    tokens/s, fit and score ms, OOD F1; launches B7 28 per forward batch
+    (all on the tensor-core route), B1 once, nothing else; the card's flags within 8 labels of 512 of the
     same head fitted and applied on the host from the same features.  The
     head is ``default_config`` with ``stats_backend="fused"`` asked for, so
     that its hidden decoder layer's fold is B1.
 12. long prefills — ``get_bundle(cfg).prefill`` at full width and depth,
     bf16, after a warm-up: qwen3-1.7b 4 x 4,096 (B7 28), mamba2-780m
-    4 x 4,096 (B10 48), recurrentgemma-9b 2 x 4,096 (B7 12, B9 26); finite
-    last-token logits.  Each model is freed before the next.
+    4 x 4,096 (B10 48), recurrentgemma-9b 2 x 4,096 (B7 12, B9 26), every
+    B7 launch on the tensor-core route; finite last-token logits.  Each model is freed before the next.
 13. LM profiles — one head-path forward batch and one recurrentgemma-9b
     prefill under ``torch.profiler``: busy share and the device-time shares
     of B7, B9, B10 and cuBLAS's GEMMs.
@@ -114,20 +117,24 @@ no result:
     causal) in bf16 and float32, recurrentgemma's windowed MQA (2 x 4,096,
     16/1 heads of 256, window 2,048) in bf16, a ragged S = 1,000 at head
     size 64 and head size 32; in float32 also against autograd through
-    B7's plain forward; a repeat must be bit-identical.  Bars per element:
+    B7's plain forward; a repeat must be bit-identical; bf16 on the
+    tensor-core route, float32 on the FP32 one, ``ptxas`` lines of every B8
+    instantiation printed.  Bars per element:
     float32 1e-5 of the element's term magnitude
     (``flash_attention_bwd_magnitudes``), bf16 one bf16 ulp plus 2e-5 of
     it.  The train shape timed beside its bound, the plain version and
     SDPA's backward (the yardstick; the port never calls SDPA).
 15. gradient agreement — qwen3-1.7b at full width cut to 2 layers, float32,
     1 x 512 tokens: ``bundle.loss`` and every gradient leaf on the card
-    (B7 4, B8 2) against the host, 1e-4 of each leaf's largest entry.
+    (B7 4, B8 2, float32 route) against the host, 1e-4 of each leaf's
+    largest entry.
 16. train — qwen3-1.7b at full width and depth in bf16, 10 steps of
     ``make_train_step(microbatches=2, clip_norm=1.0)`` with AdamW as
     ``launch/train.py`` builds it for a 10-step run, 4 x 2,048 tokens per
     step: finite losses and global gradient norms, step 0 within 1.0 of
     ln V, every gradient leaf and layer nonzero, the loss on step 0's batch
-    lower after the 10 steps; launches B7 112 and B8 56 per step; step
+    lower after the 10 steps; launches B7 112 and B8 56 per step, all on
+    the tensor-core route; step
     time, tokens/s and peak memory; one more step under
     ``torch.profiler``, the cross-entropy and the optimiser timed with CUDA
     events.
@@ -141,6 +148,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1389,15 +1397,52 @@ def _lm_wrappers():
 def _lm_zero():
     for fn in _lm_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "route_launches"):
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
-def _lm_read(**want):
+def _lm_read(route="wgmma", **want):
     """The launch counts, checked against ``want`` (every kernel not named
-    must not have run)."""
-    got = {name: fn.launches for name, fn in _lm_wrappers().items()}
+    must not have run); every B7 and B8 launch must have taken ``route``
+    (``"wgmma"``: the bf16 tensor-core kernels; ``"fp32"``: the float32
+    ones)."""
+    wrappers = _lm_wrappers()
+    got = {name: fn.launches for name, fn in wrappers.items()}
     expected = {name: want.get(name, 0) for name in got}
     check(got == expected, f"launched {got}, expected {expected}")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        routes = wrappers[name].route_launches
+        check(routes[route] == got[name],
+              f"{name}: launches by route {routes}, expected all {got[name]} on {route}")
     return got
+
+
+def _ptxas(library, kernel):
+    """(registers, spill store bytes, spill load bytes) of each instantiation
+    of ``kernel`` in ``library``'s build log, keyed by its template
+    arguments as they appear in the mangled name."""
+    from repro_torch.kernels import _build
+
+    out, name = {}, None
+    for line in _build.build_log(library).splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1) if kernel in entry.group(1) else None
+        elif name and "spill stores" in line:
+            spill = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+        elif name and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            args = re.findall(r"L[ib](\d+)E", name.split(kernel, 1)[1])
+            out[",".join(args)] = (regs, *spill)
+            name = None
+    return out
+
+
+def _say_ptxas(library, kernels):
+    for kernel in kernels:
+        for args, (regs, stores, loads) in sorted(_ptxas(library, kernel).items()):
+            say("kernel", f"ptxas {kernel}<{args}>: {regs} registers, spill stores {stores} B, "
+                f"spill loads {loads} B")
 
 
 def _attention_work(b, s, h, hkv, d, elem, window):
@@ -1516,11 +1561,15 @@ def phase_lm_kernels():
         ("window 1", 1, 300, 4, 1, 128, f32, 1, False),
         ("window 17", 2, 600, 16, 1, 256, bf16, 17, False),
     ]
+    _say_ptxas("flash_attention", ["flash_fwd_wgmma_kernel", "flash_fwd_kernel"])
     for label, b, s, h, hkv, d, dtype, window, timed in attn_cases:
         q, k, v = randn(b, s, h, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype), \
             randn(b, s, hkv, d, dtype=dtype)
+        route = "wgmma" if dtype == bf16 else "fp32"
+        before = flash_attention.route_launches[route]
         out, lse = flash_attention(q, k, v, window=window)
         torch.cuda.synchronize()
+        check(flash_attention.route_launches[route] == before + 1, f"B7 {label}: not on {route}")
         ref, ref_lse = flash_attention_ref(q, k, v, window=window)
         check(out.dtype == dtype and tuple(lse.shape) == (b, h, s), f"B7 {label}: shape/dtype")
         # bf16: the kernel and the plain version round float32 results that
@@ -1536,7 +1585,7 @@ def phase_lm_kernels():
             bar = "1e-5 * max(1, max|ref|)"
         err_lse, _ = _agree(f"B7 {label} lse", lse, ref_lse, 1e-5)
         say("kernel", f"flash_attention {label} B={b} S={s} H={h}/{hkv} D={d} "
-            f"{str(dtype)[6:]} window={window}: max|d| out {err:.3e} ({bar}), "
+            f"{str(dtype)[6:]} window={window} ({route}): max|d| out {err:.3e} ({bar}), "
             f"lse {err_lse:.3e}, ok")
         if timed:
             ms = cuda_ms(lambda: flash_attention(q, k, v, window=window))
@@ -1649,7 +1698,7 @@ def phase_lm_agreement():
         t1 = time.perf_counter()
         want = {QWEN3: dict(flash_attention=depth), MAMBA2: dict(ssd_chunk=depth),
                 RGEMMA: dict(flash_attention=1, rglru_scan=2)}[name]
-        _lm_read(**want)
+        _lm_read(route="fp32", **want)
         host = pytree.tree_map(lambda t: t.cpu(), params)
         del params
         torch.cuda.empty_cache()
@@ -1800,7 +1849,7 @@ def lm_profile(label, run):
     print(averages.table(sort_by=key, row_limit=15))
     kernels = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(getattr(e, key) for e in kernels)
-    groups = {"B7 flash_fwd_kernel": ("flash_fwd_kernel",), "B9 rglru_scan_kernel": ("rglru",),
+    groups = {"B7 flash_fwd_wgmma_kernel": ("flash_fwd_",), "B9 rglru_scan_kernel": ("rglru",),
               "B10 ssd kernels": ("chunk_state", "state_pass", "chunk_out"),
               "GEMM (cuBLAS)": ("gemm", "xmma", "nvjet", "cutlass")}
     shares = {g: sum(getattr(e, key) for e in kernels if any(p in e.key for p in pats))
@@ -1936,14 +1985,18 @@ def phase_b8_kernels():
         ("ragged S bf16 window", 2, 1_000, 8, 2, 64, bf16, 300, False),
         ("head size 32", 2, 512, 8, 2, 32, f32, 77, False),
     ]
+    _say_ptxas("flash_attention_bwd", ["flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
+                                       "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"])
     for label, b, s, h, hkv, d, dtype, window, timed in cases:
         q, k, v, do = (torch.randn((b, s, n, d), generator=gen, device="cuda").to(dtype)
                        for n in (h, hkv, hkv, h))
         out, lse = flash_attention(q, k, v, window=window)
-        before = flash_attention_bwd.launches
+        route = "wgmma" if dtype == bf16 else "fp32"
+        before = (flash_attention_bwd.launches, flash_attention_bwd.route_launches[route])
         got = flash_attention_bwd(q, k, v, out, lse, do, window=window)
         torch.cuda.synchronize()
-        check(flash_attention_bwd.launches == before + 1, f"B8 {label}: launch count")
+        check((flash_attention_bwd.launches, flash_attention_bwd.route_launches[route])
+              == (before[0] + 1, before[1] + 1), f"B8 {label}: launch count or route")
         want = flash_attention_bwd_ref(q, k, v, out, lse, do, window=window)
         mags = flash_attention_bwd_magnitudes(q, k, v, out, lse, do, window=window)
         err, used = _agree_bwd(label, got, want, mags, dtype)
@@ -1961,7 +2014,7 @@ def phase_b8_kernels():
                   "B8 train: a repeat is not bit-identical")
             msg += "; a repeat is bit-identical"
         say("kernel", f"flash_attention_bwd {label} B={b} S={s} H={h}/{hkv} D={d} "
-            f"{str(dtype)[6:]} window={window}: {msg}, ok")
+            f"{str(dtype)[6:]} window={window} ({route}): {msg}, ok")
         if timed:
             ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, window=window))
             plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do,
@@ -2007,7 +2060,7 @@ def phase_grad_agreement():
     t0 = time.perf_counter()
     loss_card, g_card = loss_and_grads(params)
     t1 = time.perf_counter()
-    _lm_read(flash_attention=2 * cfg.n_layers, flash_attention_bwd=cfg.n_layers)
+    _lm_read(route="fp32", flash_attention=2 * cfg.n_layers, flash_attention_bwd=cfg.n_layers)
     host = pytree.tree_map(lambda t: t.detach().cpu(), params)
     del params
     torch.cuda.empty_cache()
@@ -2138,8 +2191,8 @@ def phase_train(card):
     print(averages.table(sort_by=key, row_limit=20))
     kernels = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(getattr(e, key) for e in kernels)
-    groups = {"B7 flash_fwd_kernel": ("flash_fwd_kernel",),
-              "B8 flash_bwd kernels": ("flash_bwd_",),
+    groups = {"B7 flash_fwd_wgmma_kernel": ("flash_fwd_",),
+              "B8 flash_bwd wgmma kernels": ("flash_bwd_",),
               "GEMM (cuBLAS)": ("gemm", "xmma", "nvjet", "cutlass")}
     shares = {g: sum(getattr(e, key) for e in kernels if any(p in e.key for p in pats))
               for g, pats in groups.items()}
@@ -2295,7 +2348,7 @@ def main() -> int:
         {
             "name": "flash_attention",
             "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cuh",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
             "launches": lm_launches["head"]["flash_attention"],
             # Per launch at the head path's shape (64 x 256, 16/8 heads of 128, bf16).
@@ -2304,7 +2357,7 @@ def main() -> int:
         {
             "name": "flash_attention_bwd",
             "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd_sm90.cuh",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:212",
             "launches": train_launches["flash_attention_bwd"],
             # Per launch at the train shape (2 x 2,048, 16/8 heads of 128, bf16).

@@ -1,5 +1,5 @@
-// Causal, optionally windowed, flash attention forward on Hopper (sm_90a),
-// plain FP32 CUDA cores.
+// Causal, optionally windowed, flash attention forward on Hopper (sm_90a):
+// the entry point of B7 and its float32 kernel on the FP32 CUDA cores.
 //
 // Replaces the Pallas TPU kernel `flash_attention_kernel` (body `_kernel`) of
 // src/repro/kernels/flash_attention/kernel.py (B7).  For every batch b, query
@@ -18,23 +18,30 @@
 // read in place.  Query head h reads KV head h / (H / Hkv), so GQA and MQA
 // need no repeated copy of k and v (the reference's `jnp.repeat` and
 // [N, S, D] transpose in ops.py).  out [B, S, H, D] contiguous, lse [B, H, S].
-// Inputs are float32 or bf16; every product and sum is float32 (bf16 is
-// widened on load, the output rounded once).  The probabilities stay float32
-// for P·V, as in `flash_attention_ref` and the model's `attend_chunked` (the
-// Pallas kernel rounds them to v's type first).
 //
-// Design.  The Pallas grid carries (m, l, acc) in VMEM along a sequential key
-// axis; Hopper's blocks run in no order, so one block owns a tile of BQ query
-// rows of one (b, h) and loops over the key tiles itself, keeping (m, l, acc)
-// in registers.  128 threads: lane group cg = tid % 8 and row group
+// Dispatch by dtype, in `flash_attention_fwd` below: bf16 goes to the
+// tensor-core kernel of flash_fwd_sm90.cuh (wgmma, TMA; see its note), and
+// only there; float32 to the kernel in this file.  Nothing falls back: a
+// launch that is refused, or a stride TMA cannot take, returns an error.
+//
+// The float32 kernel.  Every product and sum is float32, on the FP32 CUDA
+// cores (the tensor cores have no full-float32 path).  The probabilities
+// stay float32 for P·V, as in `flash_attention_ref` and the model's
+// `attend_chunked` (the Pallas kernel rounds them to v's type first).  The
+// Pallas grid carries (m, l, acc) in VMEM along a sequential key axis;
+// Hopper's blocks run in no order, so one block owns a tile of BQ query rows
+// of one (b, h) and loops over the key tiles itself, keeping (m, l, acc) in
+// registers.  128 threads: lane group cg = tid % 8 and row group
 // rg = tid / 8.  A thread owns query rows rg + 16·i (4 rows, BQ = 64, at
 // D <= 128; 2 rows, BQ = 32, at D = 256 to bound registers), key columns
 // cg + 8·j of each 32-key tile and output columns cg + 8·j of D.  The eight
 // lanes that share a row are neighbours in one warp, so the row max and row
 // sum are three xor-shuffles.  Q (once) and each K/V tile are staged in
-// shared memory as float32 with rows padded to D + 1 floats, so that the
-// lanes of a warp read distinct banks; P goes through shared memory (rows
-// padded to 33) between the two products.
+// shared memory with rows padded to D + 1 floats, so that the lanes of a
+// warp read distinct banks; P goes through shared memory (rows padded to 33)
+// between the two products.  Its inner loops are bounded by shared-memory
+// loads (8 loads per 16 FMAs in Q·Kᵀ, 20 per 64 in P·V); float32 attention
+// serves the depth-cut agreement checks, not the bf16 model paths.
 //
 // Block skipping.  A block visits only the key tiles that meet its causal /
 // window band: from the tile holding max(0, q0 - window + 1) up to its last
@@ -43,22 +50,14 @@
 // p = 0 explicitly; every row has at least its own key (j = i), so this
 // equals the reference wherever the reference is defined.  Rows and keys
 // past S (a ragged S, which the Pallas kernel refuses) are masked here.
-//
-// What bounds it.  bf16 attention is tensor-core work on this card; this
-// first version does it on the FP32 CUDA cores (no mma / wgmma, no TMA), and
-// its inner loops are bounded by shared-memory loads (8 loads per 16 FMAs in
-// Q·Kᵀ, 20 per 64 in P·V).  On the head path (S = 256) it moves ~0.2 GB per
-// launch; at S = 4096 the operations dominate.  wgmma, TMA and a producer
-// warp are later work.
 
 #include "flash_common.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
 using flash::attends;
-using flash::from_f;
 using flash::kNegInf;
-using flash::to_f;
 
 constexpr int kThreads = 128;
 constexpr int kBK = 32;                 // keys per tile
@@ -91,10 +90,10 @@ __device__ __forceinline__ float row_sum8(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int S, int H, int Hkv,
                  long long qsb, long long qss, long long qsh,
                  long long ksb, long long kss, long long ksh,
@@ -112,13 +111,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * L::kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + hk * ksh;
-  const T* vb = v + b * vsb + hk * vsh;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + hk * ksh;
+  const float* vb = v + b * vsb + hk * vsh;
 
   for (int e = tid; e < L::kBQ * D; e += kThreads) {
     const int r = e / D, d = e % D, s = q0 + r;
-    Qs[r * L::kLdQ + d] = s < S ? to_f(qb[s * qss + d]) : 0.f;
+    Qs[r * L::kLdQ + d] = s < S ? qb[s * qss + d] : 0.f;
   }
 
   float m[R], l[R], acc[R][L::kDCols];
@@ -137,8 +136,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int c = e / D, d = e % D, s = k0 + c;
       const bool in = s < S;
-      Ks[c * L::kLdK + d] = in ? to_f(kb[s * kss + d]) : 0.f;
-      Vs[c * L::kLdV + d] = in ? to_f(vb[s * vss + d]) : 0.f;
+      Ks[c * L::kLdK + d] = in ? kb[s * kss + d] : 0.f;
+      Vs[c * L::kLdV + d] = in ? vb[s * vss + d] : 0.f;
     }
     __syncthreads();
 
@@ -206,62 +205,69 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int s = q0 + rg + kRG * i;
     if (s < S) {
       const float lf = fmaxf(l[i], 1e-30f);
-      T* ob = out + ((static_cast<long long>(b) * S + s) * H + h) * D;
+      float* ob = out + ((static_cast<long long>(b) * S + s) * H + h) * D;
 #pragma unroll
-      for (int dc = 0; dc < L::kDCols; ++dc) ob[cg + kCG * dc] = from_f<T>(acc[i][dc] / lf);
+      for (int dc = 0; dc < L::kDCols; ++dc) ob[cg + kCG * dc] = acc[i][dc] / lf;
       if (cg == 0) lse[(static_cast<long long>(b) * H + h) * S + s] = m[i] + logf(lf);
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
            int S, int H, int Hkv, const long long* st, int causal, int window,
            float scale, cudaStream_t stream) {
   using L = Tile<D>;
-  auto* fn = flash_fwd_kernel<T, D>;
+  auto* fn = flash_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          L::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + L::kBQ - 1) / L::kBQ, H, B);
   fn<<<grid, kThreads, L::kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, S, H, Hkv, st[0], st[1], st[2], st[3], st[4], st[5],
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), lse, S, H, Hkv, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v, void* out, float* lse,
-             int B, int S, int H, int Hkv, const long long* st, int causal, int window,
-             float scale, cudaStream_t stream) {
+int dispatch(int d, int dtype, const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int S, int H, int Hkv, const long long* st, int causal,
+             int window, float scale, cudaStream_t stream) {
+  using flash::sm90::launch_fwd;
+  if (dtype == 1) {
+    switch (d) {
+      case 32: return launch_fwd<32>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+      case 64: return launch_fwd<64>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+      case 128: return launch_fwd<128>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+      case 256: return launch_fwd<256>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (dtype != 0) return cudaErrorInvalidValue;
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+    case 32: return launch<32>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+    case 64: return launch<64>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+    case 128: return launch<128>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+    case 256: return launch<256>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// B7 forward.  dtype 0 = float32, 1 = bf16 (q, k, v and out share it).
-// strides: q's batch, sequence and head strides, then k's, then v's, in
-// elements.  window <= 0 means no window.  Launches on `stream`; returns
+// B7 forward.  dtype 0 = float32 (the FP32 kernel above), 1 = bf16 (the
+// tensor-core kernel); q, k, v and out share it.  strides: q's batch,
+// sequence and head strides, then k's, then v's, in elements (bf16: base
+// addresses 16-byte aligned, strides multiples of 8 elements, for TMA).
+// window <= 0 means no window.  Launches on `stream`; returns
 // cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a head
-// size other than 32, 64, 128 or 256, or H not a multiple of Hkv.
+// size other than 32, 64, 128 or 256, H not a multiple of Hkv, another
+// dtype, or a bf16 stride or address TMA cannot take.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* out, float* lse, int B, int S, int H, int Hkv,
                                    int D, const long long* strides, int causal,
                                    int window, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(D, q, k, v, out, lse, B, S, H, Hkv, strides, causal, window,
-                           scale, st);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k, v, out, lse, B, S, H, Hkv, strides, causal,
-                                   window, scale, st);
-  return cudaErrorInvalidValue;
+  return dispatch(D, dtype, q, k, v, out, lse, B, S, H, Hkv, strides, causal, window, scale,
+                  static_cast<cudaStream_t>(stream));
 }

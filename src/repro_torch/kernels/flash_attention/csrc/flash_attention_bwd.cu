@@ -1,9 +1,10 @@
-// Causal, optionally windowed, flash attention backward on Hopper (sm_90a),
-// plain FP32 CUDA cores.
+// Causal, optionally windowed, flash attention backward on Hopper (sm_90a):
+// the entry point of B8 and its float32 kernels on the FP32 CUDA cores.
 //
 // Replaces the Pallas TPU kernels `flash_attention_bwd_kernels` of
 // src/repro/kernels/flash_attention/kernel.py (B8: `_dq_kernel` and
-// `_dkv_kernel`, two pallas_calls).  Given q, k, v, the output gradient dO,
+// `_dkv_kernel`, two pallas_calls); this file holds its entry point and its
+// float32 kernels.  Given q, k, v, the output gradient dO,
 // the forward's float32 row log-sum-exp `lse` and dvec = rowsum(dO∘O), for
 // every batch b and query head h (KV head hk = h / (H / Hkv)):
 //
@@ -15,13 +16,12 @@
 //     dk_j  = D^-1/2 · Σ_{h in hk's group} Σ_i ds_ij q_i
 //     dv_j  =          Σ_{h in hk's group} Σ_i p_ij dO_i
 //
-// Every product and sum is float32 (bf16 inputs are widened on load); dq, dk
-// and dv are written once, in q's type.
-//
-// Layout.  q [B, S, H, D], k and v [B, S, Hkv, D] with their own batch,
-// sequence and head strides (last axis contiguous), read in place as B7
-// reads them.  dO [B, S, H, D] contiguous; lse and dvec [B, H, S] float32;
-// dq [B, S, H, D], dk and dv [B, S, Hkv, D] contiguous.
+// Dispatch by dtype, in `flash_attention_bwd` below: bf16 goes to the
+// tensor-core kernels of flash_bwd_sm90.cuh (wgmma, TMA; see its note), and
+// only there; float32 to the kernels in this file, where every product and
+// sum is float32 on the FP32 CUDA cores.  Nothing falls back: a launch that
+// is refused, or a stride TMA cannot take, returns an error.  dq, dk and dv
+// are written once, in q's type.
 //
 // Design.  Two kernels, as the Pallas pair: the TPU carries dq (and dk, dv)
 // in VMEM along a sequential grid axis, and Hopper's blocks run in no order,
@@ -46,17 +46,16 @@
 //
 // What bounds it.  About 3.5× B7's products for the same band (dq recomputes
 // Q·Kᵀ and dO·Vᵀ and adds ds·K; dk, dv recompute both and add pᵀ·dO and
-// dsᵀ·Q): tensor-core work on this card, done here on the FP32 CUDA cores,
-// and its inner loops are bounded by shared-memory loads.  mma / wgmma, TMA
-// and one fused pass over both outputs are later work.
+// dsᵀ·Q), on the FP32 CUDA cores (the tensor cores have no full-float32
+// path), its inner loops bounded by shared-memory loads; float32 serves the
+// gradient agreement checks, not the bf16 train step.
 
+#include "flash_bwd_sm90.cuh"
 #include "flash_common.cuh"
 
 namespace {
 
 using flash::attends;
-using flash::from_f;
-using flash::to_f;
 
 constexpr int kThreads = 128;
 constexpr int kBT = 32;                 // inner tile: keys (dq) or queries (dk, dv)
@@ -92,12 +91,12 @@ struct Args {
   float scale;
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dO,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dO,
                     const float* __restrict__ lse, const float* __restrict__ dvec,
-                    T* __restrict__ dq, Args a) {
+                    float* __restrict__ dq, Args a) {
   using L = DqTile<D>;
   constexpr int R = L::kRows;
   extern __shared__ float smem[];
@@ -114,18 +113,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * L::kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / a.Hkv);
-  const T* qb = q + b * a.qsb + h * a.qsh;
-  const T* kb = k + b * a.ksb + hk * a.ksh;
-  const T* vb = v + b * a.vsb + hk * a.vsh;
+  const float* qb = q + b * a.qsb + h * a.qsh;
+  const float* kb = k + b * a.ksb + hk * a.ksh;
+  const float* vb = v + b * a.vsb + hk * a.vsh;
   const long long hd = static_cast<long long>(H) * D;   // dO's sequence stride
-  const T* ob = dO + static_cast<long long>(b) * S * hd + static_cast<long long>(h) * D;
+  const float* ob = dO + static_cast<long long>(b) * S * hd + static_cast<long long>(h) * D;
   const long long row0 = (static_cast<long long>(b) * H + h) * S;
 
   for (int e = tid; e < L::kBQ * D; e += kThreads) {
     const int r = e / D, d = e % D, s = q0 + r;
     const bool in = s < S;
-    Qs[r * L::kLd + d] = in ? to_f(qb[s * a.qss + d]) : 0.f;
-    dOs[r * L::kLd + d] = in ? to_f(ob[s * hd + d]) : 0.f;
+    Qs[r * L::kLd + d] = in ? qb[s * a.qss + d] : 0.f;
+    dOs[r * L::kLd + d] = in ? ob[s * hd + d] : 0.f;
   }
   for (int r = tid; r < L::kBQ; r += kThreads) {
     const int s = q0 + r;
@@ -146,8 +145,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBT * D; e += kThreads) {
       const int c = e / D, d = e % D, s = k0 + c;
       const bool in = s < S;
-      Ks[c * L::kLd + d] = in ? to_f(kb[s * a.kss + d]) : 0.f;
-      Vs[c * L::kLd + d] = in ? to_f(vb[s * a.vss + d]) : 0.f;
+      Ks[c * L::kLd + d] = in ? kb[s * a.kss + d] : 0.f;
+      Vs[c * L::kLd + d] = in ? vb[s * a.vss + d] : 0.f;
     }
     __syncthreads();
 
@@ -209,20 +208,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < R; ++i) {
     const int s = q0 + rg + kRG * i;
     if (s < S) {
-      T* out = dq + static_cast<long long>(b) * S * hd + s * hd + static_cast<long long>(h) * D;
+      float* out = dq + static_cast<long long>(b) * S * hd + s * hd + static_cast<long long>(h) * D;
 #pragma unroll
       for (int dc = 0; dc < L::kDCols; ++dc)
-        out[cg + kCG * dc] = from_f<T>(a.scale * acc[i][dc]);
+        out[cg + kCG * dc] = a.scale * acc[i][dc];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dO,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dO,
                      const float* __restrict__ lse, const float* __restrict__ dvec,
-                     T* __restrict__ dk, T* __restrict__ dv, Args a) {
+                     float* __restrict__ dk, float* __restrict__ dv, Args a) {
   using L = DkvTile<D>;
   constexpr int R = L::kRows;
   extern __shared__ float smem[];
@@ -239,15 +238,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, cg = tid % kCG, rg = tid / kCG;
   const int k0 = blockIdx.x * L::kBK;
   const int hk = blockIdx.y, b = blockIdx.z;
-  const T* kb = k + b * a.ksb + hk * a.ksh;
-  const T* vb = v + b * a.vsb + hk * a.vsh;
+  const float* kb = k + b * a.ksb + hk * a.ksh;
+  const float* vb = v + b * a.vsb + hk * a.vsh;
   const long long hd = static_cast<long long>(H) * D;
 
   for (int e = tid; e < L::kBK * D; e += kThreads) {
     const int r = e / D, d = e % D, s = k0 + r;
     const bool in = s < S;
-    Ks[r * L::kLd + d] = in ? to_f(kb[s * a.kss + d]) : 0.f;
-    Vs[r * L::kLd + d] = in ? to_f(vb[s * a.vss + d]) : 0.f;
+    Ks[r * L::kLd + d] = in ? kb[s * a.kss + d] : 0.f;
+    Vs[r * L::kLd + d] = in ? vb[s * a.vss + d] : 0.f;
   }
 
   float dk_acc[R][L::kDCols], dv_acc[R][L::kDCols];
@@ -262,16 +261,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_end = a.window > 0 ? min(S, k0 + L::kBK - 1 + a.window) : S;
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
-    const T* qb = q + b * a.qsb + h * a.qsh;
-    const T* ob = dO + static_cast<long long>(b) * S * hd + static_cast<long long>(h) * D;
+    const float* qb = q + b * a.qsb + h * a.qsh;
+    const float* ob = dO + static_cast<long long>(b) * S * hd + static_cast<long long>(h) * D;
     const long long row0 = (static_cast<long long>(b) * H + h) * S;
     for (int q0 = (q_first / kBT) * kBT; q0 < q_end; q0 += kBT) {
       __syncthreads();  // K, V staged; the previous tile's Q, dO, P and dS are read
       for (int e = tid; e < kBT * D; e += kThreads) {
         const int c = e / D, d = e % D, s = q0 + c;
         const bool in = s < S;
-        Qs[c * L::kLd + d] = in ? to_f(qb[s * a.qss + d]) : 0.f;
-        dOs[c * L::kLd + d] = in ? to_f(ob[s * hd + d]) : 0.f;
+        Qs[c * L::kLd + d] = in ? qb[s * a.qss + d] : 0.f;
+        dOs[c * L::kLd + d] = in ? ob[s * hd + d] : 0.f;
       }
       for (int c = tid; c < kBT; c += kThreads) {
         const int s = q0 + c;
@@ -352,61 +351,78 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           static_cast<long long>(hk) * D;
 #pragma unroll
       for (int dc = 0; dc < L::kDCols; ++dc) {
-        dk[o + cg + kCG * dc] = from_f<T>(a.scale * dk_acc[i][dc]);
-        dv[o + cg + kCG * dc] = from_f<T>(dv_acc[i][dc]);
+        dk[o + cg + kCG * dc] = a.scale * dk_acc[i][dc];
+        dv[o + cg + kCG * dc] = dv_acc[i][dc];
       }
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dO, const float* lse,
            const float* dvec, void* dq, void* dk, void* dv, int B, const Args& a,
            cudaStream_t stream) {
   using Q = DqTile<D>;
   using K = DkvTile<D>;
-  auto* dq_fn = flash_bwd_dq_kernel<T, D>;
-  auto* dkv_fn = flash_bwd_dkv_kernel<T, D>;
+  auto* dq_fn = flash_bwd_dq_kernel<D>;
+  auto* dkv_fn = flash_bwd_dkv_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       dq_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, Q::kSmemBytes);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(dkv_fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              K::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* ot = static_cast<const T*>(dO);
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* ot = static_cast<const float*>(dO);
   dq_fn<<<dim3((a.S + Q::kBQ - 1) / Q::kBQ, a.H, B), kThreads, Q::kSmemBytes, stream>>>(
-      qt, kt, vt, ot, lse, dvec, static_cast<T*>(dq), a);
+      qt, kt, vt, ot, lse, dvec, static_cast<float*>(dq), a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dkv_fn<<<dim3((a.S + K::kBK - 1) / K::kBK, a.Hkv, B), kThreads, K::kSmemBytes, stream>>>(
-      qt, kt, vt, ot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), a);
+      qt, kt, vt, ot, lse, dvec, static_cast<float*>(dk), static_cast<float*>(dv), a);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v, const void* dO,
+int dispatch(int d, int dtype, const void* q, const void* k, const void* v, const void* dO,
              const float* lse, const float* dvec, void* dq, void* dk, void* dv, int B,
-             const Args& a, cudaStream_t stream) {
+             const Args& a, const long long* st, cudaStream_t stream) {
+  using flash::sm90::launch_bwd;
+  if (dtype == 1) {
+#define FLASH_BWD_SM90(D)                                                                       \
+  launch_bwd<D>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a.S, a.H, a.Hkv, st, a.causal, a.window, \
+                a.scale, stream)
+    switch (d) {
+      case 32: return FLASH_BWD_SM90(32);
+      case 64: return FLASH_BWD_SM90(64);
+      case 128: return FLASH_BWD_SM90(128);
+      case 256: return FLASH_BWD_SM90(256);
+      default: return cudaErrorInvalidValue;
+    }
+#undef FLASH_BWD_SM90
+  }
+  if (dtype != 0) return cudaErrorInvalidValue;
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
-    case 64: return launch<T, 64>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
-    case 128: return launch<T, 128>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
-    case 256: return launch<T, 256>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
+    case 32: return launch<32>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
+    case 64: return launch<64>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
+    case 128: return launch<128>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
+    case 256: return launch<256>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// B8.  dtype 0 = float32, 1 = bf16 (q, k, v, dO, dq, dk and dv share it).
-// strides: q's batch, sequence and head strides, then k's, then v's, in
-// elements; dO, lse, dvec, dq, dk and dv are contiguous.  window <= 0 means
-// no window.  Launches the dq kernel, then the dk/dv kernel, on `stream`;
+// B8.  dtype 0 = float32 (the FP32 kernels above), 1 = bf16 (the
+// tensor-core kernels); q, k, v, dO, dq, dk and dv share it.  strides: q's
+// batch, sequence and head strides, then k's, then v's, in elements (bf16:
+// base addresses 16-byte aligned, strides multiples of 8 elements, for
+// TMA); dO, lse, dvec, dq, dk and dv are contiguous.  window <= 0 means no
+// window.  Launches the dq kernel, then the dk/dv kernel(s), on `stream`;
 // returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
-// head size other than 32, 64, 128 or 256, or H not a multiple of Hkv.
+// head size other than 32, 64, 128 or 256, H not a multiple of Hkv, another
+// dtype, or a bf16 stride or address TMA cannot take.
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* dO, const float* lse, const float* dvec,
                                    void* dq, void* dk, void* dv, int B, int S, int H,
@@ -416,10 +432,6 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, cons
   const Args a{S, H, Hkv, causal, window,
                strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
                strides[6], strides[7], strides[8], scale};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(D, q, k, v, dO, lse, dvec, dq, dk, dv, B, a, st);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k, v, dO, lse, dvec, dq, dk, dv, B, a, st);
-  return cudaErrorInvalidValue;
+  return dispatch(D, dtype, q, k, v, dO, lse, dvec, dq, dk, dv, B, a, strides,
+                  static_cast<cudaStream_t>(stream));
 }

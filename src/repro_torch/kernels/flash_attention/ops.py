@@ -18,11 +18,17 @@ autograd hands the model's attention, which arrives contiguous).
 
 Dispatch is by the tensors' device: on the CPU the plain versions
 (``ref.flash_attention_ref``, ``ref.flash_attention_bwd_ref``) run; on a
-CUDA device the hand-written kernels (``csrc/flash_attention.cu``,
-``csrc/flash_attention_bwd.cu``) launch for float32 or bf16 at head sizes
-32, 64, 128 and 256, or the call raises.  Nothing falls back from the card.
-``flash_attention.launches`` and ``flash_attention_bwd.launches`` count the
-calls that launched a kernel (B8's two kernels count as one call).
+CUDA device the hand-written kernels launch for float32 or bf16 at head
+sizes 32, 64, 128 and 256, or the call raises.  Nothing falls back from the
+card.  The C entry points (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``) pick the kernel by dtype: bf16 runs on the
+tensor cores (``csrc/flash_fwd_sm90.cuh``, ``csrc/flash_bwd_sm90.cuh``:
+wgmma on tiles loaded by TMA, which needs q, k and v 16-byte aligned with
+batch, sequence and head strides of whole 16 bytes; other bf16 inputs
+raise), float32 on the FP32 CUDA cores.  ``flash_attention.launches`` and
+``flash_attention_bwd.launches`` count the calls that launched kernels
+(B8's kernels count as one call); their ``route_launches`` split that count
+into ``"wgmma"`` (bf16) and ``"fp32"`` (float32).
 
 Gradients: when grad mode is on and q, k or v requires grad,
 :func:`flash_attention` goes through :class:`FlashAttention`, whose
@@ -96,8 +102,34 @@ def _kernel_device(who: str, q: torch.Tensor) -> None:
                          f"{HEAD_DIMS}, got {q.dtype} at {q.shape[-1]}")
 
 
+def _route(dtype: torch.dtype) -> str:
+    return "wgmma" if dtype == torch.bfloat16 else "fp32"
+
+
+def _check_tma(who: str, **tensors) -> None:
+    """The bf16 kernels load their tiles with TMA: each tensor's address and
+    its batch, sequence and head strides (where the axis has more than one
+    entry) must be multiples of 16 bytes."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{who}: {name}'s data is not 16-byte aligned, which the bf16 "
+                             "kernel's TMA loads need")
+        for axis, label in enumerate(("batch", "sequence", "head")):
+            if t.shape[axis] > 1 and t.stride(axis) * t.element_size() % 16:
+                raise ValueError(f"{who}: {name}'s {label} stride ({t.stride(axis)} elements) "
+                                 "is not a multiple of 16 bytes, which the bf16 kernel's TMA "
+                                 "loads need")
+
+
 def _strides(q, k, v):
-    return (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v) for i in range(3)))
+    """q's, k's and v's batch, sequence and head strides in elements.  An
+    axis of one entry is never stepped along, so it is given its contiguous
+    stride whatever the tensor reports."""
+    strides = []
+    for t in (q, k, v):
+        contiguous = (t.shape[1] * t.shape[2] * t.shape[3], t.shape[2] * t.shape[3], t.shape[3])
+        strides += [t.stride(i) if t.shape[i] > 1 else contiguous[i] for i in range(3)]
+    return (ctypes.c_longlong * 9)(*strides)
 
 
 def _forward(q, k, v, causal, window):
@@ -111,6 +143,8 @@ def _forward(q, k, v, causal, window):
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if b == 0 or s == 0 or h == 0:
         return out, lse
+    if q.dtype == torch.bfloat16:
+        _check_tma("flash_attention", q=q, k=k, v=v)
     fn = _build.function("flash_attention", "flash_attention_fwd", _ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -119,6 +153,7 @@ def _forward(q, k, v, causal, window):
                  window or 0, d**-0.5, stream)
     _build.raise_on("flash_attention_fwd", err)
     flash_attention.launches += 1
+    flash_attention.route_launches[_route(q.dtype)] += 1
     return out, lse
 
 
@@ -189,6 +224,8 @@ def flash_attention_bwd(
     if b == 0 or s == 0 or h == 0:
         return dq, dk, dv
     do = do.to(q.dtype).contiguous()
+    if q.dtype == torch.bfloat16:
+        _check_tma("flash_attention_bwd", q=q, k=k, v=v, do=do)
     dvec = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()   # [B, H, S]
     lse = lse.contiguous()
     fn = _build.function("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGS)
@@ -200,11 +237,14 @@ def flash_attention_bwd(
                  window or 0, d**-0.5, stream)
     _build.raise_on("flash_attention_bwd", err)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.route_launches[_route(q.dtype)] += 1
     return dq, dk, dv
 
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention.route_launches = {"wgmma": 0, "fp32": 0}
+flash_attention_bwd.route_launches = {"wgmma": 0, "fp32": 0}
 
 __all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_ref", "flash_attention_ref"]

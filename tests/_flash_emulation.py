@@ -1,0 +1,166 @@
+"""A plain-torch model of the arithmetic of the tensor-core flash-attention
+kernels (``csrc/flash_fwd_sm90.cuh``, ``csrc/flash_bwd_sm90.cuh``), for the
+CPU tests that hold it to the port's plain versions.
+
+What it models: bf16 operands; every product of a wgmma m64nNk16 taken in
+16-deep steps, each step summed exactly and added to a float32 accumulator;
+the forward's online softmax over 64-key tiles in float32 (m, l and the
+correction of O); and the two derived operands, P (forward, and dV in the
+backward) and dS (dQ, dK), entering the tensor cores as a hi + lo pair of
+bf16 values, hi = bf16(x), lo = bf16(x - hi), one step of hi then one of lo.
+``split=False`` is the single-rounding variant (P and dS rounded once to
+bf16), which the kernels do not use.
+
+Run as a script, it prints the largest share of its bar that any element
+used, for both variants, at the cases the tests use:
+
+    PYTHONPATH=src python tests/_flash_emulation.py
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.flash_attention import (
+    flash_attention_bwd_magnitudes,
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+)
+from repro_torch.kernels.flash_attention.ref import attention_mask
+
+NEG_INF = -1e30
+BK = 64          # keys per tile of the forward's online softmax
+
+# (S, H, Hkv, D, window): head sizes 32 to 256, GQA and MQA, windows 1 and
+# 17, ragged S (none is a multiple of 64).
+CASES = [
+    (150, 4, 2, 32, None),
+    (97, 4, 1, 64, 17),
+    (77, 4, 2, 128, 1),
+    (130, 2, 1, 256, 17),
+    (200, 4, 4, 128, None),
+]
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., M, K] @ b [..., K, N] as wgmma accumulates it: K in 16-deep
+    steps, each summed exactly (float64 holds any sum of 16 products of
+    bf16 values exactly enough) and added to a float32 accumulator."""
+    acc = torch.zeros((*a.shape[:-1], b.shape[-1]), dtype=torch.float32)
+    for k in range(0, a.shape[-1], 16):
+        acc = acc + (a[..., k:k + 16].double() @ b[..., k:k + 16, :].double()).float()
+    return acc
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _mm_derived(x: torch.Tensor, b: torch.Tensor, split: bool) -> torch.Tensor:
+    """x [..., M, K] float32 (P or dS) @ b [..., K, N] bf16: per 16-deep step
+    the hi operand, then the lo one (``split``), or x rounded once."""
+    hi = _bf16(x)
+    lo = _bf16(x - hi)
+    acc = torch.zeros((*x.shape[:-1], b.shape[-1]), dtype=torch.float32)
+    for k in range(0, x.shape[-1], 16):
+        acc = acc + (hi[..., k:k + 16].double() @ b[..., k:k + 16, :].double()).float()
+        if split:
+            acc = acc + (lo[..., k:k + 16].double() @ b[..., k:k + 16, :].double()).float()
+    return acc
+
+
+def _heads(x, hkv):
+    """[B, S, n, D] -> [B, Hkv, n / Hkv, S, D] float32 (k, v: n = Hkv)."""
+    b, s, n, d = x.shape
+    return x.float().reshape(b, s, hkv, n // hkv, d).permute(0, 2, 3, 1, 4)
+
+
+def forward(q, k, v, *, window=None, split=True):
+    """The forward kernel's (out [B, S, H, D] bf16, lse [B, H, S] float32)
+    for bf16 q [B, S, H, D], k, v [B, S, Hkv, D], causal."""
+    b, s, h, d = q.shape
+    hkv, scale = k.shape[2], d**-0.5
+    qg, kg, vg = _heads(q, hkv), _heads(k, hkv), _heads(v, hkv)
+    ok = attention_mask(s, True, window, q.device)
+    m = torch.full(qg.shape[:-1], NEG_INF)
+    l = torch.zeros(qg.shape[:-1])
+    o = torch.zeros(qg.shape)
+    for k0 in range(0, s, BK):
+        kt, vt = kg[..., k0:k0 + BK, :], vg[..., k0:k0 + BK, :]
+        keep = ok[:, k0:k0 + BK]
+        x = (_mm(qg, kt.transpose(-1, -2)) * scale).masked_fill(~keep, NEG_INF)
+        m_new = torch.maximum(m, x.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(x - m_new[..., None]).masked_fill(~keep, 0.0)
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + _mm_derived(p, vt, split)
+        m = m_new
+    lf = l.clamp_min(1e-30)
+    out = (o / lf[..., None]).permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+    return out.to(torch.bfloat16), (m + torch.log(lf)).reshape(b, h, s)
+
+
+def backward(q, k, v, out, lse, do, *, window=None, split=True):
+    """The backward kernels' (dq, dk, dv) in bf16 for bf16 q, k, v, dO, the
+    forward's out and float32 lse [B, H, S], causal."""
+    b, s, h, d = q.shape
+    hkv, scale = k.shape[2], d**-0.5
+    qg, kg, vg, dog = _heads(q, hkv), _heads(k, hkv), _heads(v, hkv), _heads(do, hkv)
+    ok = attention_mask(s, True, window, q.device)
+    lse_g = lse.reshape(b, hkv, h // hkv, s)
+    dvec = (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(lse_g.shape)
+    sc = _mm(qg, kg.transpose(-1, -2))
+    p = torch.exp(sc * scale - lse_g[..., None]).masked_fill(~ok, 0.0)
+    ds = p * (_mm(dog, vg.transpose(-1, -2)) - dvec[..., None])
+    dq = scale * _mm_derived(ds, kg, split)
+    # dk, dv: the group's query heads one after another into one accumulator.
+    dk = torch.zeros(kg.shape[:2] + kg.shape[3:])
+    dv = torch.zeros_like(dk)
+    for g in range(h // hkv):
+        dk = dk + _mm_derived(ds[:, :, g].transpose(-1, -2), qg[:, :, g], split)
+        dv = dv + _mm_derived(p[:, :, g].transpose(-1, -2), dog[:, :, g], split)
+
+    def ungroup(x, n):
+        return x.reshape(b, n, s, d).transpose(1, 2).to(torch.bfloat16)
+
+    return ungroup(dq, h), ungroup(scale * dk, hkv), ungroup(dv, hkv)
+
+
+def inputs(s, h, hkv, d, seed):
+    """bf16 q, k, v, dO [B = 2, S, heads, D] from a seeded numpy generator."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(2, s, n, d)).astype(np.float32))
+                 .to(torch.bfloat16) for n in (h, hkv, hkv, h))
+
+
+def forward_share(q, k, v, window, split):
+    """The largest share of B7's bars any element uses: out within one bf16
+    ulp, 2^-7·|ref| + 2^-7·1e-2; lse within 1e-5·max|lse|."""
+    out, lse = forward(q, k, v, window=window, split=split)
+    ref, ref_lse = flash_attention_ref(q, k, v, window=window)
+    d = (out.double() - ref.double()).abs()
+    share = float((d / (2.0**-7 * ref.double().abs() + 2.0**-7 * 1e-2)).max())
+    share_lse = float((lse - ref_lse).abs().max() / (1e-5 * ref_lse.abs().max()))
+    return share, share_lse
+
+
+def backward_share(q, k, v, do, window, split):
+    """The largest share of B8's bf16 bar any element of dq, dk, dv uses:
+    2^-7·|ref| + 2e-5·(the element's term magnitude)."""
+    out, lse = flash_attention_ref(q, k, v, window=window)
+    got = backward(q, k, v, out, lse, do, window=window, split=split)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, window=window)
+    mags = flash_attention_bwd_magnitudes(q, k, v, out, lse, do, window=window)
+    return max(float(((g.double() - w.double()).abs()
+                      / (2.0**-7 * w.double().abs() + 2e-5 * m.double())).max())
+               for g, w, m in zip(got, want, mags))
+
+
+if __name__ == "__main__":
+    for s, h, hkv, d, window in CASES:
+        q, k, v, do = inputs(s, h, hkv, d, seed=s + d)
+        fwd = {split: forward_share(q, k, v, window, split) for split in (True, False)}
+        bwd = {split: backward_share(q, k, v, do, window, split) for split in (True, False)}
+        print(f"S={s} H={h}/{hkv} D={d} window={window}: forward out/lse share of the bar "
+              f"hi+lo {fwd[True][0]:.3f}/{fwd[True][1]:.3f}, single {fwd[False][0]:.3f}/"
+              f"{fwd[False][1]:.3f}; backward hi+lo {bwd[True]:.3f}, single {bwd[False]:.3f}")

@@ -341,18 +341,23 @@ def test_flash_attention_kernel_matches_plain(card, b, s, h, hkv, d, window, dty
     (summation order); bf16 to one bf16 ulp of each element, 2^-7 |ref| plus
     a floor of 2^-7 * 1e-2 where |ref| is near 0 (the kernel and the plain
     version round float32 results that differ in summation order once each);
-    lse to 1e-5."""
+    lse to 1e-5.  bf16 runs on the tensor-core kernel, float32 on the FP32
+    one (the route counts say which); a bf16 repeat is bit-identical."""
     gen = torch.Generator(device=card).manual_seed(s * d + h)
     q, k, v = (_randn((b, s, n, d), gen, card, dtype) for n in (h, hkv, hkv))
-    before = flash_attention.launches
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    before, before_route = flash_attention.launches, dict(flash_attention.route_launches)
     out, lse = flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert flash_attention.route_launches == {**before_route, route: before_route[route] + 1}
     ref, ref_lse = flash_attention_ref(q, k, v, window=window)
     assert out.dtype == dtype and tuple(lse.shape) == (b, h, s)
     diff = (out.float() - ref.float()).abs()
     if dtype == torch.bfloat16:
         assert bool((diff <= 2.0**-7 * ref.float().abs() + 2.0**-7 * 1e-2).all())
+        again, again_lse = flash_attention(q, k, v, window=window)
+        assert torch.equal(again, out) and torch.equal(again_lse, lse)
     else:
         assert float(diff.max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
     assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(ref_lse.abs().max())
@@ -366,6 +371,47 @@ def test_flash_attention_reads_strided_heads(card):
     out, _ = flash_attention(q, k, v)
     ref, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     assert torch.equal(out, ref)
+
+
+def test_flash_attention_bf16_reads_strided_heads(card):
+    """The tensor-core kernels read head slices of one fused bf16 projection
+    through their TMA maps: forward and backward equal those of contiguous
+    copies, bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    qkv = _randn((2, 200, 4 + 2 + 2, 64), gen, card, torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    before = dict(flash_attention.route_launches)
+    out, lse = flash_attention(q, k, v, window=50)
+    assert flash_attention.route_launches["wgmma"] == before["wgmma"] + 1
+    copies = [t.contiguous() for t in (q, k, v)]
+    ref, ref_lse = flash_attention(*copies, window=50)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    do = _randn((2, 200, 4, 64), gen, card, torch.bfloat16)
+    got = flash_attention_bwd(q, k, v, out, lse, do, window=50)
+    want = flash_attention_bwd(*copies, ref, ref_lse, do, window=50)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("case", ["sequence stride", "address"])
+def test_bf16_kernels_refuse_what_tma_cannot_take(card, case):
+    """A bf16 input whose sequence stride is not a multiple of 16 bytes, or
+    whose address is not 16-byte aligned, raises: TMA cannot load it, and
+    nothing falls back."""
+    gen = torch.Generator(device=card).manual_seed(1)
+    if case == "sequence stride":
+        buf = _randn((1, 100, 2 * 64 + 4), gen, card, torch.bfloat16)   # 264-byte rows
+        qkv = buf[:, :, :128].unflatten(-1, (2, 64))
+    else:
+        buf = _randn((1, 100, 2 * 64 + 1), gen, card, torch.bfloat16)
+        qkv = buf.flatten()[1:1 + 100 * 128].view(1, 100, 2, 64)      # 2 bytes off
+    q, k, v = qkv, qkv[:, :, :1], qkv[:, :, 1:]
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    with pytest.raises(ValueError, match="16 bytes|16-byte"):
+        flash_attention(q, k, v)
+    out, lse = flash_attention(*(t.clone() for t in (q, k, v)))   # fresh, aligned copies
+    with pytest.raises(ValueError, match="16 bytes|16-byte"):
+        flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out))
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (before[0] + 1, before[1])
 
 
 @pytest.mark.parametrize("b,s,w", [(2, 4_096, 4_096), (3, 1, 77), (2, 37, 100)])
@@ -454,18 +500,24 @@ def _assert_bwd_close(got, want, mags):
     (2, 1_000, 8, 2, 64, 300, torch.bfloat16),
     (2, 512, 8, 2, 32, 77, torch.float32),
     (1, 300, 4, 1, 128, 1, torch.float32),
+    (1, 1_000, 8, 2, 64, None, torch.bfloat16),
+    (2, 512, 8, 2, 32, 77, torch.bfloat16),
+    (1, 300, 4, 1, 128, 1, torch.bfloat16),
 ])
 def test_flash_attention_bwd_kernel_matches_plain(card, b, s, h, hkv, d, window, dtype):
-    """B8 against its plain version, element by element; a repeat is
-    bit-identical (no atomics: the group sum is one thread's sequential
-    sum)."""
+    """B8 against its plain version, element by element, bf16 on the
+    tensor-core kernels and float32 on the FP32 ones (the route counts say
+    which); a repeat is bit-identical (no atomics: the group sum is a fixed
+    sequence of accumulations)."""
     gen = torch.Generator(device=card).manual_seed(s + d + h)
     q, k, v, do = (_randn((b, s, n, d), gen, card, dtype) for n in (h, hkv, hkv, h))
     out, lse = flash_attention(q, k, v, window=window)
-    before = flash_attention_bwd.launches
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    before, before_route = flash_attention_bwd.launches, dict(flash_attention_bwd.route_launches)
     got = flash_attention_bwd(q, k, v, out, lse, do, window=window)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == before + 1
+    assert flash_attention_bwd.route_launches == {**before_route, route: before_route[route] + 1}
     want = flash_attention_bwd_ref(q, k, v, out, lse, do, window=window)
     _assert_bwd_close(got, want,
                       flash_attention_bwd_magnitudes(q, k, v, out, lse, do, window=window))

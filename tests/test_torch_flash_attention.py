@@ -11,6 +11,11 @@ the model layer's attention, on the same numpy inputs.
 Tolerance: ``TOLS`` float32 (atol = rtol = 1e-4); the two sides sum the same
 float32 products in other orders (one [S, S] softmax against blocks of an
 online softmax), a difference of a few float32 ulps on O(1) outputs.
+
+The bf16 kernels' arithmetic (bf16 operands, float32 accumulation per
+16-deep wgmma step, P and dS as hi + lo bf16 pairs) is modelled in plain
+torch by ``tests/_flash_emulation.py`` and held here to the plain versions
+under the card's unchanged bars (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -18,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import _flash_emulation as emulation
 from _torch_parity import assert_close
 
 from repro.configs import registry as jregistry
@@ -26,7 +32,7 @@ from repro.kernels.flash_attention import flash_attention_ref as jflash_ref
 from repro.kernels.flash_attention.kernel import flash_attention_kernel
 from repro.models import attention as jattention
 from repro_torch.configs import registry
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref, ops
 from repro_torch.models import attention
 
 
@@ -115,3 +121,40 @@ def test_attention_block_matches_reference(name, window):
     assert_close(k, jk, what="k")
     assert_close(v, jv, what="v")
     assert_close(out, jout, what="attention block")
+
+
+@pytest.mark.parametrize("s,h,hkv,d,window", emulation.CASES)
+def test_tensor_core_forward_model_within_the_bars(s, h, hkv, d, window):
+    """B7's bf16 arithmetic (P as hi + lo) against the plain forward: every
+    output element within one bf16 ulp, 2^-7·|ref| + 2^-7·1e-2, and lse
+    within 1e-5 of its largest magnitude: the bars of the card's checks."""
+    q, k, v, _ = emulation.inputs(s, h, hkv, d, seed=s + d)
+    out_share, lse_share = emulation.forward_share(q, k, v, window, split=True)
+    assert out_share <= 1.0 and lse_share <= 1.0, (out_share, lse_share)
+
+
+@pytest.mark.parametrize("s,h,hkv,d,window", emulation.CASES)
+def test_tensor_core_backward_model_within_the_bars(s, h, hkv, d, window):
+    """B8's bf16 arithmetic (P and dS as hi + lo) against the plain
+    backward: every element of dq, dk and dv within one bf16 ulp plus 2e-5
+    of its term magnitude, the bar of the card's checks."""
+    q, k, v, do = emulation.inputs(s, h, hkv, d, seed=s + d)
+    assert emulation.backward_share(q, k, v, do, window, split=True) <= 1.0
+
+
+def test_strides_of_single_entry_axes_are_contiguous():
+    """An axis of one entry is never stepped along; the kernels get its
+    contiguous stride, whatever the view reports (TMA takes only strides of
+    whole 16 bytes)."""
+    x = torch.zeros((2, 5, 4, 32), dtype=torch.bfloat16)
+    strides = list(ops._strides(x[:, :1], x[:, :1, :2], x[:1, :, :1]))
+    assert strides == [640, 128, 32, 640, 64, 32, 160, 128, 32]
+
+
+def test_tma_check_names_the_stride_or_address_it_refuses():
+    buf = torch.zeros((1, 100, 2 * 64 + 4), dtype=torch.bfloat16)
+    ops._check_tma("f", q=buf[:, :1, :128].unflatten(-1, (2, 64)))   # one row: no stride
+    with pytest.raises(ValueError, match="q's sequence stride .132 elements"):
+        ops._check_tma("f", q=buf[:, :, :128].unflatten(-1, (2, 64)))
+    with pytest.raises(ValueError, match="k's data is not 16-byte aligned"):
+        ops._check_tma("f", k=buf.flatten()[1:1 + 100 * 128].view(1, 100, 2, 64))
