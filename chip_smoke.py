@@ -34,7 +34,8 @@ no result:
    ``daef.fit(n_partitions=4)`` -> ``reconstruction_error`` -> ``threshold``
    -> ``classify`` -> ``evaluate`` with ``stats_backend="fused"``, after one
    warm-up.  Launch counts are zeroed just before and read just after;
-   every kernel of the path must have run (rolann_stats: 4 per fit).  The
+   every kernel of the path must have run (rolann_stats: 4 per fit, all on
+   its FP32 route, m <= 28).  The
    same fit on the plain einsum backend must give the same first-layer
    statistics (1e-4 * max|G|); the weights' drift is reported.
 5. streaming path — the same configuration and data through
@@ -79,13 +80,17 @@ no result:
     float32, windows 1 and 17), B9 ``rglru_scan`` (2 x 4,096 x 4,096, S = 1,
     W = 100) and B10 ``ssd_chunk`` (mamba2's 4 x 4,096 x 48 heads, P 64,
     N 128, chunk 256; S = 1,000; G = 2) against their plain versions, and
-    B1 at the DAEF head's shape (m 513, o 256, n 2,048).  Tolerances: bf16
-    outputs within one bf16 ulp of each element, 2^-7 |ref| + 2^-7 * 1e-2
-    (each side rounds a float32 result once), float32 1e-5 of the largest
-    magnitude (summation order), lse 1e-5.
+    B1 at the DAEF head's shape (m 513, o 256, n 2,048; exactly symmetric,
+    a repeat bit-identical).  Tolerances: bf16 outputs within one bf16 ulp
+    of each element, 2^-7 |ref| + 2^-7 * 1e-2 (each side rounds a float32
+    result once), float32 1e-5 of the largest magnitude (summation order),
+    lse 1e-5; B1 1e-4 of max|G| and of max|M|.  The B1 and B10 lines print
+    max|plain| and the share of the bar used.
     Path shapes timed (CUDA events, median of 25) beside the bound (bf16
     work against the tensor cores' 989 TFLOP/s, float32 against the CUDA
-    cores' 67), the plain version and, for B7, SDPA.  bf16 B7 launches
+    cores' 67; B1 at the head's shape and B10, which run 3xTF32, against
+    495 / 3 TFLOP/s, with the FP32-core bound printed beside it), the
+    plain version and, for B7, SDPA.  bf16 B7 launches
     must take the tensor-core route (``flash_attention.route_launches``
     "wgmma"), float32 ones the FP32 kernel ("fp32"); ``ptxas``'s registers
     and spill bytes of every B7 instantiation are printed.
@@ -96,12 +101,14 @@ no result:
     1e-4 of their largest magnitude; B7 on its float32 route.
 11. head path — the DAEF head on qwen3-1.7b at full width and depth in bf16
     (weights drawn on the card from a seed), ``examples/llm_feature_anomaly
-    .py`` at full width: ``get_bundle(cfg).forward`` -> ``pooled_features``
+    .py`` at full width (then one ``fit_head`` under ``torch.profiler``,
+    B1's kernels listed by name): ``get_bundle(cfg).forward`` -> ``pooled_features``
     on 2,048 "normal" sequences (``lm_token_stream``, S = 256, batches of
     64) -> ``fit_head`` (2048-256-512-2048, fused stats) -> ``flag`` on 256
     normal and 256 uniform-random OOD sequences; after one warm-up.  Forward
     tokens/s, fit and score ms, OOD F1; launches B7 28 per forward batch
-    (all on the tensor-core route), B1 once, nothing else; the card's flags within 8 labels of 512 of the
+    (all on the tensor-core route), B1 once (on its 3xTF32 route), nothing
+    else; the card's flags within 8 labels of 512 of the
     same head fitted and applied on the host from the same features.  The
     head is ``default_config`` with ``stats_backend="fused"`` asked for, so
     that its hidden decoder layer's fold is B1.
@@ -109,9 +116,10 @@ no result:
     bf16, after a warm-up: qwen3-1.7b 4 x 4,096 (B7 28), mamba2-780m
     4 x 4,096 (B10 48), recurrentgemma-9b 2 x 4,096 (B7 12, B9 26), every
     B7 launch on the tensor-core route; finite last-token logits.  Each model is freed before the next.
-13. LM profiles — one head-path forward batch and one recurrentgemma-9b
-    prefill under ``torch.profiler``: busy share and the device-time shares
-    of B7, B9, B10 and cuBLAS's GEMMs.
+13. LM profiles — one head-path forward batch, one mamba2-780m prefill
+    (B10's five kernels listed by name) and one recurrentgemma-9b prefill
+    under ``torch.profiler``: busy share and the device-time shares of B1,
+    B7, B9, B10 and cuBLAS's GEMMs.
 14. B8 vs plain — ``flash_attention_bwd`` (the attention backward) against
     its plain version at the train shape (2 x 2,048, 16/8 heads of 128,
     causal) in bf16 and float32, recurrentgemma's windowed MQA (2 x 4,096,
@@ -161,6 +169,10 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12     # tensor cores, dense
+PEAK_TF32_FLOPS = 495e12     # tensor cores, dense
+# float32 products as three TF32 ones (hi·hi + hi·lo + lo·hi): the function's
+# work at a third of the TF32 rate
+PEAK_TF32X3_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_HBM_BYTES = 3.35e12
 
 CREDITCARD = dict(layer_sizes=(29, 15, 18, 21, 24, 27, 29), lam_hidden=0.8,
@@ -545,6 +557,8 @@ def _wrappers():
 def zero_launches() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "route_launches"):
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 def read_launches() -> dict:
@@ -605,6 +619,10 @@ def phase_main_path(cfg, xtr, xte, y_test):
     check(launches == {"rolann_stats": n_layers, "rolann_stats_acc": 0, "rolann_fused_chunk": 0},
           f"one fit launched {launches}, expected rolann_stats {n_layers} times and no other "
           "kernel")
+    from repro_torch.kernels.rolann_stats import rolann_stats
+    check(rolann_stats.route_launches == {"tf32x3": 0, "fp32": n_layers},
+          f"creditcard's layers (m <= 28) must take B1's FP32 route; "
+          f"routes {rolann_stats.route_launches}")
     check(tuple(model.train_errors.shape) == (xtr.shape[1],), "train error shape")
     check(tuple(scores.shape) == (xte.shape[1],), "score shape")
     check(bool(torch.isfinite(model.train_errors).all() and torch.isfinite(scores).all()),
@@ -1538,17 +1556,25 @@ def phase_lm_kernels():
     (err_g, scale_g), (err_m, scale_m) = (_agree("B1 head shape G", g, gp, 1e-4),
                                           _agree("B1 head shape M", mv, mp, 1e-4))
     err = max(err_g, err_m)
+    check(bool((g == g.transpose(1, 2)).all()), "B1 head shape: G not symmetric")
+    g2, m2 = rolann_stats(xa, fsq, fd)
+    check(bool((g2 == g).all() and (m2 == mv).all()), "B1 head shape: not deterministic")
     ms, plain_ms = cuda_ms(lambda: rolann_stats(xa, fsq, fd)), cuda_ms(
         lambda: rolann_stats_plain(xa, fsq, fd))
     library_ms = cuda_ms(lambda: torch.einsum("in,on,jn->oij", xa, fsq, xa))
-    bound_ms, bound_by = _stats_bound(m, o, n)
+    fp32_ms, _ = _stats_bound(m, o, n)
+    bound_ms, bound_by = _bound(*_stats_work(m, o, n), PEAK_TF32X3_FLOPS)
     rows["rolann_stats_head"].append(dict(m=m, o=o, n=n, max_abs_err=err, ms=ms,
                                           plain_ms=plain_ms, library_ms=library_ms,
-                                          bound_ms=bound_ms, bound_by=bound_by))
+                                          bound_ms=bound_ms, bound_by=bound_by,
+                                          bound_fp32_ms=fp32_ms,
+                                          bar_used=max(err_g / scale_g, err_m / scale_m) / 1e-4))
     say("kernel", f"rolann_stats at the DAEF head's shape m={m} o={o} n={n}: max|d| G "
-        f"{err_g:.3e} of max|G| {scale_g:.4e}, M {err_m:.3e} of max|M| {scale_m:.4e} "
-        f"(tol 1e-4 * max); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, einsum "
-        f"yardstick {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"{err_g:.3e} of max|G| {scale_g:.4e} ({err_g / (1e-4 * scale_g):.4f} of the bar), "
+        f"M {err_m:.3e} of max|M| {scale_m:.4e} ({err_m / (1e-4 * scale_m):.4f} of the bar) "
+        f"(tol 1e-4 * max); G exactly symmetric, repeat bit-identical; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, einsum yardstick {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms at 3xTF32 ({bound_by}), {fp32_ms:.4f} ms on FP32 cores")
 
     b_q, s_q = PREFILL[QWEN3]
     b_r, s_r = PREFILL[RGEMMA]
@@ -1639,20 +1665,29 @@ def phase_lm_kernels():
         q = fit_chunk(s, chunk)
         yr, hr = ssd_chunk_plain(xdt, la, bm, cm, q)
         # float32 sums of up to Q·N terms in other orders
-        err = max(_agree(f"B10 {label} y", y, yr, 1e-5)[0],
-                  _agree(f"B10 {label} h_final", hf, hr, 1e-5)[0])
+        (err_y, scale_y), (err_h, scale_h) = (_agree(f"B10 {label} y", y, yr, 1e-5),
+                                              _agree(f"B10 {label} h_final", hf, hr, 1e-5))
+        err = max(err_y, err_h)
+        used = max(err_y / scale_y, err_h / scale_h) / 1e-5
         say("kernel", f"ssd_chunk {label} B={b} S={s} H={h} P={p} G={g} N={n} Q={q}: "
-            f"max|d| {err:.3e} (tol 1e-05 * max|plain|), ok")
+            f"max|d| y {err_y:.3e} of max|plain| {scale_y:.4e} "
+            f"({err_y / (1e-5 * scale_y):.4f} of the bar), h_final {err_h:.3e} of "
+            f"{scale_h:.4e} ({err_h / (1e-5 * scale_h):.4f} of the bar) "
+            "(tol 1e-05 * max|plain|), ok")
         if timed:
             ms = cuda_ms(lambda: ssd_chunk(xdt, la, bm, cm, chunk=chunk))
             plain_ms = cuda_ms(lambda: ssd_chunk_plain(xdt, la, bm, cm, q))
-            bound_ms, bound_by = _bound(*_ssd_work(b, s, h, p, g, n, q))
+            work = _ssd_work(b, s, h, p, g, n, q)
+            fp32_ms, _ = _bound(*work)
+            bound_ms, bound_by = _bound(*work, PEAK_TF32X3_FLOPS)
             rows["ssd_chunk"].append(dict(shape=label, b=b, s=s, h=h, p=p, g=g, n=n, chunk=q,
                                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                           library_ms=None, bound_ms=bound_ms,
-                                          bound_by=bound_by))
+                                          bound_by=bound_by, bound_fp32_ms=fp32_ms,
+                                          bar_used=used))
             say("kernel", f"ssd_chunk {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}); library none (no single PyTorch "
+                f"bound {bound_ms:.4f} ms at 3xTF32 ({bound_by}, {work[0]:.4g} FLOP), "
+                f"{fp32_ms:.4f} ms on FP32 cores; library none (no single PyTorch "
                 "call computes the chunked SSD scan)")
     return rows
 
@@ -1768,6 +1803,10 @@ def phase_head(cfg, bundle, params):
     flags, score_ms = timed(lambda: head.flag(test_feats))
     n_batches = -(-HEAD_FIT // HEAD_BATCH) + -(-2 * HEAD_TEST // HEAD_BATCH)
     launches = _lm_read(flash_attention=cfg.n_layers * n_batches, rolann_stats=1)
+    from repro_torch.kernels.rolann_stats import rolann_stats
+    check(rolann_stats.route_launches == {"tf32x3": 1, "fp32": 0},
+          f"the head fit's B1 launch (m 513) must take the tensor-core route; "
+          f"routes {rolann_stats.route_launches}")
     n_seq = HEAD_FIT + 2 * HEAD_TEST
     tok_s = n_seq * HEAD_SEQ / ((fwd_fit_ms + fwd_test_ms) / 1e3)
     check(tuple(feats.shape) == (HEAD_FIT, cfg.d_model) and bool(feats.isfinite().all()),
@@ -1800,6 +1839,9 @@ def phase_head(cfg, bundle, params):
     say("head", f"host head (fit + flag {host_ms:.0f} ms): F1 {met_h.f1:.4f}; flags differ on "
         f"{diff} of {len(truth)} (bar {HEAD_FLAG_BAR}); scores max|d|/max|.| {rel:.2e}; "
         f"thresholds {float(head.threshold):.6g} card, {float(head_h.threshold):.6g} host")
+    lm_profile(f"DAEF head fit ({HEAD_FIT} x {cfg.d_model})",
+               lambda: daef_head.fit_head(feats, cfg=head_cfg),
+               detail=("partial_kernel", "rolann::reduce_kernel", "stats_tf32x3"))
     return launches, dict(tokens_per_s=tok_s, forward_ms=fwd_fit_ms + fwd_test_ms,
                           fit_ms=fit_ms, score_ms=score_ms, f1=met.f1,
                           precision=met.precision, recall=met.recall, host_f1=met_h.f1,
@@ -1830,9 +1872,10 @@ def phase_prefill(name, cfg, bundle, params, want):
     return launches, dict(ms=ms, tokens_per_s=b * s / ms * 1e3)
 
 
-def lm_profile(label, run):
+def lm_profile(label, run, detail=()):
     """``phase_profile`` plus the device-time shares of the port's kernels
-    and of cuBLAS's GEMMs."""
+    and of cuBLAS's GEMMs; each kernel whose name holds one of ``detail``
+    is listed by name with its launches and device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1850,13 +1893,21 @@ def lm_profile(label, run):
     kernels = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(getattr(e, key) for e in kernels)
     groups = {"B7 flash_fwd_wgmma_kernel": ("flash_fwd_",), "B9 rglru_scan_kernel": ("rglru",),
-              "B10 ssd kernels": ("chunk_state", "state_pass", "chunk_out"),
+              "B10 ssd kernels": ("bt_kernel", "chunk_state", "state_pass", "scores_kernel",
+                                  "chunk_out"),
+              "B1 rolann_stats kernels": ("partial_kernel", "rolann::reduce_kernel",
+                                          "stats_tf32x3"),
               "GEMM (cuBLAS)": ("gemm", "xmma", "nvjet", "cutlass")}
     shares = {g: sum(getattr(e, key) for e in kernels if any(p in e.key for p in pats))
               for g, pats in groups.items()}
     say("profile", f"{label}: wall {wall * 1e3:.2f} ms, device busy {total / 1e3:.2f} ms "
         f"({100 * total / 1e6 / wall:.1f} %); device time shares: "
         + ", ".join(f"{g} {100 * t / max(total, 1):.1f} %" for g, t in shares.items()))
+    for e in kernels:
+        if any(p in e.key for p in detail):
+            t = getattr(e, key)
+            say("profile", f"{label}: {e.key[:90]}: {e.count} launches, {t / 1e3:.4f} ms "
+                f"({t / 1e3 / max(e.count, 1):.4f} ms each, {100 * t / max(total, 1):.1f} %)")
 
 
 def phase_lm():
@@ -1881,6 +1932,10 @@ def phase_lm():
     cfg, bundle, params = _lm_params(MAMBA2, torch.bfloat16, seed=2)
     launches[MAMBA2], numbers[MAMBA2] = phase_prefill(
         MAMBA2, cfg, bundle, params, dict(ssd_chunk=cfg.n_layers))
+    b, s = PREFILL[MAMBA2]
+    batch = {"tokens": synthetic.lm_token_stream(cfg.vocab_size, s, b, seed=11)}
+    lm_profile("mamba2-780m prefill (4 x 4,096)", lambda: bundle.prefill(params, batch),
+               detail=("bt_kernel", "chunk_state", "state_pass", "scores_kernel", "chunk_out"))
     del params
     torch.cuda.empty_cache()
 

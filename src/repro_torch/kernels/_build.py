@@ -4,9 +4,10 @@ Each library named in ``repro_torch.kernels.KERNELS`` is one CUDA source
 under a kernel package's ``csrc/`` that exports plain C functions.  At first
 use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``build/repro_torch/`` at the root of the checkout, and loaded
-with ``ctypes``.  The library's file name carries a hash of the source, the
-``*.cuh`` headers beside it and the flags, so an edited source or header is
-rebuilt and a stale library is never loaded.
+with ``ctypes``.  The library's file name carries a hash of the source, of
+every header it can include (``#include "..."``, followed from file to file,
+also into another kernel's ``csrc/``) and of the flags, so an edited source
+or header is rebuilt and a stale library is never loaded.
 
 Nothing here runs at import: importing the port on a machine without
 ``nvcc`` or a card never tries to build.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -36,10 +38,29 @@ def source(name: str) -> Path:
     return KERNELS_DIR / KERNELS[name]
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def includes(path: Path) -> list[Path]:
+    """Every file that ``path`` can include with ``#include "..."``, directly
+    or through another include, each resolved beside the file that includes
+    it; in the order found, each file once."""
+    found: list[Path] = []
+    todo = [path.resolve()]
+    while todo:
+        current = todo.pop(0)
+        for rel in _INCLUDE.findall(current.read_text()):
+            dep = (current.parent / rel).resolve()
+            if dep.is_file() and dep not in found:
+                found.append(dep)
+                todo.append(dep)
+    return found
+
+
 def library_path(name: str) -> Path:
     src = source(name)
     digest = hashlib.sha256(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):
+    for header in includes(src):
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"

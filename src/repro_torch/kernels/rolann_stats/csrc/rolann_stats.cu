@@ -1,4 +1,5 @@
-// ROLANN sufficient statistics on Hopper (sm_90a), plain FP32 CUDA cores.
+// ROLANN sufficient statistics on Hopper (sm_90a): FP32 CUDA cores, and for
+// B1 with m > 28 the tensor cores (rolann_stats_sm90.cuh).
 //
 // Replaces four Pallas TPU kernels of src/repro/kernels/rolann_stats/kernel.py:
 // `rolann_stats_kernel` (B1, `rolann_stats_f32`), the streaming fold
@@ -20,8 +21,8 @@
 // triangle of G) against (m + 2o)·n·4 bytes read.  On the DAEF main path
 // (m = 19..28, o = 15..24, n ≈ 256k) that is 25 to 100 FLOP per byte, well
 // above the H100's ~20 FP32 FLOP per byte of HBM, so it is bound by FP32
-// compute.  This first version uses FP32 FMAs only (no tensor cores, no
-// TF32), so its results hold the reference's float32 accuracy.
+// compute.  `partial_kernel` uses FP32 FMAs (no tensor cores, no TF32), so
+// its results hold the reference's float32 accuracy.
 //
 // Design.  The Pallas grid walks the sample axis in order and carries the sum
 // in VMEM; Hopper's blocks run in no order, so:
@@ -61,9 +62,17 @@
 //
 // No float atomics: the result is the same from run to run.  Rows beyond m
 // and samples beyond n are loaded as zeros and never written; nothing is
-// padded in memory.  Making it fast (3xTF32 tensor cores, TMA) is later work.
+// padded in memory.
+//
+// Two routes, chosen by shape (a rule between two hand-written kernels, not
+// a fallback): B1 for one tenant with m > kSmallM runs on the tensor cores
+// (3xTF32 wgmma, rolann_stats_sm90.cuh), the DAEF head's shape among them;
+// m <= kSmallM (every creditcard layer), B2, B4 and B5 run `partial_kernel`
+// above on the FP32 cores.  ops.py plans the slices of each route by the
+// same rule (`tensor_core_route`).
 
 #include "rolann_common.cuh"
+#include "rolann_stats_sm90.cuh"
 
 namespace {
 
@@ -137,6 +146,8 @@ int launch(const float* xa, const float* fsq, const float* fd, float* ws_g, floa
            float* g, float* mv, int k, int m, long long n, int o, int slices,
            long long slice_len, bool accumulate, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k == 1 && !accumulate && m > kSmallM)
+    return sm90::launch(xa, fsq, fd, ws_g, ws_m, g, mv, m, n, o, slices, slice_len, st);
   const int tiles = (m + kTile - 1) / kTile;
   const dim3 grid(k * o, tiles * (tiles + 1) / 2, slices);
   if (m <= kSmallM) {
@@ -153,10 +164,11 @@ int launch(const float* xa, const float* fsq, const float* fd, float* ws_g, floa
 
 }  // namespace
 
-// B1: (G, M) of xa, fsq, fd into g [o, m, m], mv [o, m].  Launches both
+// B1: (G, M) of xa, fsq, fd into g [o, m, m], mv [o, m].  Launches its
 // kernels on `stream`; returns cudaGetLastError() (0 = launched).
-// ws_g [slices, o, m, m] and ws_m [slices, o, m] are scratch from the caller;
-// slices * slice_len must cover n and every slice must start below n.
+// ws_g [slices, o, m, m] and ws_m [slices, o, m] are scratch from the caller
+// (unused with m > kSmallM and one slice); slices * slice_len must cover n
+// and every slice must start below n.
 extern "C" int rolann_stats_f32(const float* xa, const float* fsq, const float* fd,
                                 float* ws_g, float* ws_m, float* g, float* mv,
                                 int m, long long n, int o, int slices,

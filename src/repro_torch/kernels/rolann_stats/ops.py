@@ -30,7 +30,11 @@ same contract in plain torch); on a CUDA device the hand-written kernel
 (``csrc/``) launches, or the call raises.  Nothing falls back from the card
 to the plain version.
 
-Each wrapper counts the calls that launched its kernel in ``.launches``.
+Each wrapper counts the calls that launched its kernel in ``.launches``;
+``rolann_stats.route_launches`` splits B1's count by route: ``"tf32x3"``
+(m > ``SMALL_M``: the tensor-core kernel of ``csrc/rolann_stats_sm90.cuh``)
+or ``"fp32"`` (the FP32-core ``partial_kernel``), chosen by shape as
+:func:`tensor_core_route` says.
 """
 from __future__ import annotations
 
@@ -47,6 +51,15 @@ CHUNK = 64            # samples per staged chunk (kChunk); slices are multiples
 BLOCKS_PER_SM = 8     # partial-kernel blocks to aim for per SM
 MIN_SLICE = 1024      # fewest samples worth a slice of their own
 MAX_GRID_Z = 65535    # CUDA's limit on gridDim.z (the slices)
+SMALL_M = 28          # largest m of the one-warp layout (kSmallM)
+# B1's tensor-core route (rolann_stats_sm90.cuh): 64-row tiles, 4 outputs
+# per block, 32-sample steps, two blocks per SM.
+TC_TILE, TC_OUTPUTS, TC_STEP, TC_BLOCKS_PER_SM = 64, 4, 32, 2
+# Most samples one accumulator of that route sums.  The tensor cores add
+# each wgmma's product into the float32 accumulator rounding toward zero, so
+# a long run of adds drifts low: 2,048 samples (768 adds) stay below a
+# quarter of the 1e-4 bar, 10,007 (3,753 adds) used 1.2 of it (PERF.md).
+TC_MAX_SLICE = 2048
 
 _FN = "rolann_stats_f32"
 _FN_ACC = "rolann_stats_acc_f32"
@@ -216,6 +229,29 @@ def plan_slices(m: int, n: int, o: int, sm_count: int) -> tuple[int, int]:
     return -(-n // slice_len), slice_len
 
 
+def tensor_core_route(k: int, m: int, accumulate: bool) -> bool:
+    """Whether a launch takes the tensor-core kernel: one tenant, no running
+    accumulators, m > ``SMALL_M`` (the rule of ``launch()`` in
+    ``csrc/rolann_stats.cu``)."""
+    return k == 1 and not accumulate and m > SMALL_M
+
+
+def plan_slices_tf32x3(m: int, n: int, o: int, sm_count: int) -> tuple[int, int]:
+    """(slices, slice_len) for the tensor-core route: slices of at most
+    ``TC_MAX_SLICE`` samples, and more where the (tile pair, output group)
+    blocks alone give fewer than ``TC_BLOCKS_PER_SM`` per SM, none narrower
+    than ``MIN_SLICE``; ``slice_len`` a multiple of ``TC_STEP`` and every
+    slice starting below ``n``.  One slice (the DAEF head's n = 2,048)
+    writes G directly, with no reduce pass."""
+    tiles = -(-m // TC_TILE)
+    per_slice = tiles * (tiles + 1) // 2 * -(-o // TC_OUTPUTS)
+    want = -(-TC_BLOCKS_PER_SM * sm_count // per_slice)
+    slices = max(1, min(want, -(-n // MIN_SLICE), MAX_GRID_Z), -(-n // TC_MAX_SLICE))
+    slice_len = -(-n // slices)
+    slice_len = -(-slice_len // TC_STEP) * TC_STEP
+    return -(-n // slice_len), slice_len
+
+
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
@@ -224,17 +260,20 @@ def _workspace(slices: int, o: int, m: int, dev: torch.device):
     return torch.empty((slices, o, m, m), **f32), torch.empty((slices, o, m), **f32)
 
 
-def _launch(fn_name: str, xa, fsq, fd, g, mv) -> None:
+def _launch(fn_name: str, xa, fsq, fd, g, mv) -> bool:
     """B1/B2 (xa [m, n]) or B4/B5 (xa [k, m, n]) on float32 contiguous CUDA
-    tensors, into float32 g, mv."""
+    tensors, into float32 g, mv; whether it took the tensor-core route."""
     batched = xa.ndim == 3
     k = xa.shape[0] if batched else 1
     m, n = xa.shape[-2:]
     o = fsq.shape[-2]
     dev = xa.device
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    slices, slice_len = plan_slices(m, n, k * o, sm_count)
-    ws_g, ws_m = _workspace(slices, k * o, m, dev)
+    tensor_cores = tensor_core_route(k, m, fn_name in (_FN_ACC, _FN_ACC_BATCHED))
+    plan = plan_slices_tf32x3 if tensor_cores else plan_slices
+    slices, slice_len = plan(m, n, k * o, sm_count)
+    # One slice of the tensor-core route writes g and mv directly.
+    ws_g, ws_m = _workspace(0 if tensor_cores and slices == 1 else slices, k * o, m, dev)
     args = [_PTR] * 7 + [_I32, _I64, _I32, _I32, _I64, _PTR]
     fn = _build.function("rolann_stats", fn_name, args[:7] + [_I32] + args[7:] if batched else args)
     shape = (k, m, n, o) if batched else (m, n, o)
@@ -244,6 +283,7 @@ def _launch(fn_name: str, xa, fsq, fd, g, mv) -> None:
                  ws_m.data_ptr(), g.data_ptr(), mv.data_ptr(), *shape, slices,
                  slice_len, stream)
     _build.raise_on(fn_name, err)
+    return tensor_cores
 
 
 def _cuda_or_raise(who: str, device: torch.device) -> None:
@@ -265,8 +305,9 @@ def rolann_stats(xa: torch.Tensor, fsq: torch.Tensor, fd: torch.Tensor):
     _cuda_or_raise("rolann_stats", xa.device)
     f32 = dict(dtype=torch.float32, device=xa.device)
     g, mv = torch.empty((o, m, m), **f32), torch.empty((o, m), **f32)
-    _launch(_FN, xa.float(), fsq.float(), fd.float(), g, mv)
+    tensor_cores = _launch(_FN, xa.float(), fsq.float(), fd.float(), g, mv)
     rolann_stats.launches += 1
+    rolann_stats.route_launches["tf32x3" if tensor_cores else "fp32"] += 1
     return g.to(out), mv.to(out)
 
 
@@ -455,6 +496,7 @@ def rolann_fused_chunk_batched(g: torch.Tensor, mv: torch.Tensor, h: torch.Tenso
 
 
 rolann_stats.launches = 0
+rolann_stats.route_launches = {"tf32x3": 0, "fp32": 0}
 rolann_stats_acc.launches = 0
 rolann_fused_chunk.launches = 0
 rolann_stats_batched.launches = 0

@@ -1,4 +1,5 @@
-// Mamba-2 SSD chunked scan on Hopper (sm_90a), plain FP32 CUDA cores.
+// Mamba-2 SSD chunked scan on Hopper (sm_90a): 3xTF32 wgmma with float32
+// accumulators.
 //
 // Replaces the Pallas TPU kernel `ssd_chunk_kernel` (body `_kernel`) of
 // src/repro/kernels/ssd_chunk/kernel.py (B10).  Per batch b and head h, over
@@ -14,48 +15,78 @@
 // shape a per-head copy would be 805 MB against 17 MB).  y [B, S, H, P],
 // h_final [B, H, P, N].  P <= 64, N <= 128, Q <= 256.
 //
+// What bounds it.  At mamba2-780m's prefill (4 x 4,096, 48 heads of P 64,
+// N 128, Q 256) the function is 6.46e10 FLOP against ~0.45 GB moved: 0.96
+// ms on the FP32 cores (67 TFLOP/s), 0.39 ms as three TF32 products on the
+// tensor cores (495 / 3 TFLOP/s), 0.13 ms for the bytes.  So it is bound by
+// operations; the FP32-core version took 4.9 ms, 3.5 of them in the output
+// kernel.
+//
 // Design.  The Pallas grid carries the [P, N] state in VMEM along a
 // sequential chunk axis.  Hopper's blocks run in no order, so the scan is
-// split as the model's `mamba2.ssd_chunked` splits it, into three launches:
+// split as the model's `mamba2.ssd_chunked` splits it, into five launches
+// (at mamba2's shape 192 (b, h) pairs for 132 SMs, with 16 chunks each: one
+// block per pair would leave the card in 1.5 uneven waves):
 //
-//   1. `chunk_state_kernel`, one block per (chunk, b·h): the chunk's own
-//      state contribution Σ_j exp(cum_last - cum_j) xdt_j ⊗ b_j [P, N] into a
-//      workspace [B·H, chunks, P, N], and its decay exp(cum_last).
+//   0. `bt_kernel`, per (b·g, chunk, 32 steps): Bᵀ split into hi and lo
+//      and swizzled as the state product's B operand, once per group
+//      instead of once per head.
+//   1. `chunk_state_kernel`, one warpgroup per (b·h, chunk): the chunk's
+//      state contribution (xdt ∘ decay_end)ᵀ · B [P, N] (wgmma m64n128k8,
+//      the depth over the chunk's steps, 32 at a time, Bᵀ copied in by
+//      cp.async a stage ahead) into a workspace [B·H, chunks, P, N], and
+//      its decay exp(cum_last).
 //   2. `state_pass_kernel`, one thread per (b·h, p, n): the short sequential
 //      pass over the chunks, h_prev(c) = h; h = h · decay(c) + contribution(c),
-//      writing each chunk's h_prev over its contribution and h_final.
-//   3. `chunk_out_kernel`, one block per (64-row tile, chunk, b·h): the inter
-//      term from h_prev, then the intra term over the key tiles up to the
-//      diagonal, y written once.
+//      writing each chunk's h_prev already split and swizzled as the inter
+//      product's B operand (copied by the output kernel with cp.async) and
+//      h_final.  It loads eight chunks ahead, so that each thread has eight
+//      reads in flight.
+//   3. `scores_kernel`, one warpgroup per (b·g, chunk, 64 x 64 tile pair on
+//      or below the diagonal): S = C·Bᵀ over N into a workspace.  S depends
+//      on the group, not the head, so it is formed once for the H / G heads
+//      of a group (48 at mamba2's shape), as the plain version forms it;
+//      it was half the output kernel's products.
+//   4. `chunk_out_kernel`, one warpgroup per (64-row query tile, b·h,
+//      chunk): the inter term C·h_prevᵀ over N, scaled by exp(cum_i), then
+//      for each key tile up to the diagonal S (read from L2) ∘ exp(cum_i -
+//      cum_j) masked, and y += (S ∘ decay) · xdt, y written once.
 //
-// This split, rather than one block per (b, h) looping over its chunks, is
-// chosen because at mamba2's shape there are only 192 (b, h) pairs for 132
-// SMs, each with 16 chunks of work: one block per pair would leave the card
-// in 1.5 uneven waves, while the split gives 3,072 and 12,288 blocks.  It
-// costs one write and one read of the workspace (100 MB at that shape).
-//
-// Every product is a 64-row tile computed by 256 threads as 4 x 4 (or 4 x 8)
-// register tiles from shared memory.  The [Q, Q] score tile at Q = 256 would
-// need 256 KB of shared memory: it is computed 64 x 64 at a time.  The
-// within-chunk cumsum is a warp scan (8 consecutive steps per lane).
-//
-// What bounds it.  FP32 operations: per (b·h, chunk) about Q²/2·(N + P) for
-// the intra term and 2·Q·N·P for the inter term and the state, ~1e11 FLOPs
-// for one mamba2 layer at B = 4, S = 4,096, against ~0.2 GB moved.  This
-// first version uses FP32 FMAs only (no tensor cores) and computes whole
-// 64 x 64 tiles on the diagonal; 3xTF32 mma and a fused single pass are later
-// work.
+// Every product is 3xTF32 (../../csrc/tf32x3_sm90.cuh): operands split into
+// hi + lo TF32 values, lo·hi + hi·lo + hi·hi into float32 accumulators.
+// TF32 wgmma reads B only K-major, so each staging pass that splits an
+// operand also writes it in the layout the product wants: B and h_prev are
+// [rows][N] already (K = N); xdt [j][p] is written transposed, [p][j], for
+// the (S ∘ decay)·xdt product, and B transposed, [n][j], for the state
+// (the state's A, xdt ∘ decay_end, comes from registers).  C
+// (K = N) is the A operand of S and of the inter term: each thread loads
+// its fragment of the 64 x N tile into registers and splits it per step.
+// N is padded to 128 with zeros, so that no wgmma is issued under a
+// branch (ptxas serialises wgmmas that are).  S ∘ decay becomes the next product's A in place, so the depth of
+// that product (the keys) is permuted within each k8 step, and the xdt tile
+// is stored in the same order (`kpos`); C and the N-deep tiles take the same
+// permutation, so that C's fragment loads two neighbouring columns.
+// The grid runs the b·h pairs fastest: the heads of a group run together
+// and read their chunk's B and C from L2.  Rows past Q, steps past the
+// chunk, p past P and n past N are zeros and never written.
 
 #include <cuda_runtime.h>
 
+#include "../../csrc/tf32x3_sm90.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kT = 64;      // rows per tile
-constexpr int kTJ = 32;     // steps per tile of the chunk-state product
+using namespace tf32x3;
+
+constexpr int kThreads = 128;   // one warpgroup
+constexpr int kT = 64;          // rows of a tile: queries, keys, p
 constexpr int kMaxP = 64;
 constexpr int kMaxN = 128;
 constexpr int kMaxQ = 256;
+constexpr int kNK = kMaxN / 8;  // k8 steps over N
+constexpr int kStateStep = kPanel;  // chunk steps per stage of the state product
+constexpr int kPassThreads = 256;
+constexpr int kPassAhead = 8;       // chunks the state pass loads ahead
 
 struct Shape {
   int B, S, H, G, P, N, Q, nc;
@@ -96,249 +127,544 @@ __device__ void chunk_cumsum(float* cum, const float* __restrict__ la, const Sha
   __syncthreads();
 }
 
+__device__ __forceinline__ long long row_bsg(const Shape& sh, int b, long long s, int g) {
+  return ((static_cast<long long>(b) * sh.S + s) * sh.G + g) * sh.N;
+}
+
+__device__ __forceinline__ long long row_bsh(const Shape& sh, int b, long long s, int h) {
+  return ((static_cast<long long>(b) * sh.S + s) * sh.H + h) * sh.P;
+}
+
+// ---- 1. chunk states ----
+
+// Bᵀ of each (b·g, chunk) as the state product's B operand, split and
+// swizzled: per stage of 32 steps a hi and a lo tile [kMaxN rows n][32
+// steps] (K-major), exactly as shared memory holds them.  B depends on the
+// group, not the head, so this is done once for the H / G heads of a group,
+// which then copy it with cp.async.
+constexpr int kStateTile = kMaxN * kStateStep;          // floats of one hi or lo tile
+constexpr int kStateB = kStateStep * kMaxN / kThreads;  // B values a thread splits
+
+__device__ __forceinline__ long long bt_stage(const Shape& sh, int bg, int c, int stage) {
+  const int stages = (sh.Q + kStateStep - 1) / kStateStep;
+  return ((static_cast<long long>(bg) * sh.nc + c) * stages + stage) * 2 * kStateTile;
+}
+
+// Grid (stage, chunk, b·g).  8 lanes along n and 4 along the steps: the
+// loads fill whole 32-byte sectors.
+__global__ void __launch_bounds__(kThreads)
+bt_kernel(const float* __restrict__ bm, float* __restrict__ ws_bt, Shape sh) {
+  const int stage = blockIdx.x, c = blockIdx.y, bg = blockIdx.z;
+  const int b = bg / sh.G, g = bg % sh.G;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j0 = stage * kStateStep;
+  const float* const b_base = bm + row_bsg(sh, b, static_cast<long long>(c) * sh.Q, g);
+  float* const out = ws_bt + bt_stage(sh, bg, c, stage);
+#pragma unroll 8
+  for (int u = 0; u < kStateB; ++u) {
+    const int combo = u * 4 + warp;
+    const int n = (combo % 16) * 8 + (lane & 7), jj = (combo / 16) * 4 + (lane >> 3);
+    const int t = j0 + jj;
+    const float v = (t < sh.Q && n < sh.N)
+        ? b_base[static_cast<long long>(t) * sh.G * sh.N + n] : 0.f;
+    uint32_t hi, lo;
+    split(v, hi, lo);
+    const int i = sw128(kMaxN, n, jj);
+    out[i] = __uint_as_float(hi);
+    out[kStateTile + i] = __uint_as_float(lo);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared memory: two stages of Bᵀ hi and lo, then cum and decay_end.
+constexpr int kStateSmem = 4 * (2 * 2 * kStateTile + 2 * kMaxQ) + 1024;
+
+// This thread's A fragments of one stage, xdt[t][p] for the steps t of
+// k8 step kk: register r is p = 16w + l/4 + 8(r % 2), t = 8kk + l%4 + 4(r / 2)
+// (scaled by decay_end when the stage is used).
+__device__ __forceinline__ void state_a(float (&xa)[kStateStep / 8][4], const float* x_base,
+                                        int x_ld, const Shape& sh, int j0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int kk = 0; kk < kStateStep / 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int p = 16 * warp + (lane >> 2) + 8 * (r & 1);
+      const int t = j0 + 8 * kk + (lane & 3) + 4 * (r >> 1);
+      xa[kk][r] = (t < sh.Q && p < sh.P) ? x_base[static_cast<long long>(t) * x_ld + p] : 0.f;
+    }
+}
+
 __global__ void __launch_bounds__(kThreads)
 chunk_state_kernel(const float* __restrict__ xdt, const float* __restrict__ la,
-                   const float* __restrict__ bm, float* __restrict__ ws,
+                   const float* __restrict__ ws_bt, float* __restrict__ ws,
                    float* __restrict__ cd, Shape sh) {
-  __shared__ float cum[kMaxQ];
-  __shared__ float Xs[kTJ * kMaxP];  // [j][p], scaled by exp(cum_last - cum_j)
-  __shared__ float Bs[kTJ * kMaxN];  // [j][n]
-  const int c = blockIdx.x, bh = blockIdx.y;
+  extern __shared__ uint8_t smem_raw[];
+  float* const bt = reinterpret_cast<float*>(align1024(smem_raw));  // [2 stages][hi, lo]
+  float* const cum = bt + 2 * 2 * kStateTile;
+  float* const dec = cum + kMaxQ;
+  const int bh = blockIdx.x, c = blockIdx.y;
   const int b = bh / sh.H, h = bh % sh.H, g = h / (sh.H / sh.G);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const long long s0 = static_cast<long long>(c) * sh.Q;
+  const float* const x_base = xdt + row_bsh(sh, b, s0, h);
+  const int x_ld = sh.H * sh.P;
+  const int stages = (sh.Q + kStateStep - 1) / kStateStep;
+  const float* const bt_src = ws_bt + bt_stage(sh, b * sh.G + g, c, 0);
+  auto copy_stage = [&](int s) {  // one stage's 32 KB, 16 bytes a copy
+    const float4* src = reinterpret_cast<const float4*>(bt_src + s * 2 * kStateTile);
+    float4* dst = reinterpret_cast<float4*>(bt + (s & 1) * 2 * kStateTile);
+#pragma unroll
+    for (int u = 0; u < 2 * kStateTile / 4 / kThreads; ++u)
+      cp_async16(dst + u * kThreads + tid, src + u * kThreads + tid);
+  };
+  copy_stage(0);
+  cp_async_commit();
   chunk_cumsum(cum, la, sh, b, h, c);
   const float last = cum[sh.Q - 1];
-
-  float acc[4][8];
+  for (int t = tid; t < sh.Q; t += kThreads) dec[t] = expf(last - cum[t]);
+  // The next stage's Bᵀ (cp.async) and A fragments (registers) are loaded
+  // while this stage's wgmmas run.
+  float xa[kStateStep / 8][4], xn[kStateStep / 8][4];
+  state_a(xa, x_base, x_ld, sh, 0);
+  float acc[kMaxN / 2];  // rows p, columns n
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int e = 0; e < kMaxN / 2; ++e) acc[e] = 0.f;
+  uint32_t hi[2][4], lo[2][4];
+  for (int s = 0; s < stages; ++s) {
+    const int j0 = s * kStateStep;
+    if (s + 1 < stages) {
+      copy_stage(s + 1);
+      state_a(xn, x_base, x_ld, sh, j0 + kStateStep);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage's copy has landed
+    fence_async_smem();
+    __syncthreads();     // (and dec is written)
+    const float* b_hi = bt + (s & 1) * 2 * kStateTile;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int j0 = 0; j0 < sh.Q; j0 += kTJ) {
-    for (int e = tid; e < kTJ * kMaxP; e += kThreads) {
-      const int j = e / kMaxP, p = e % kMaxP, t = j0 + j;
-      float val = 0.f;
-      if (t < sh.Q && p < sh.P) {
-        const long long s = static_cast<long long>(c) * sh.Q + t;
-        val = xdt[((static_cast<long long>(b) * sh.S + s) * sh.H + h) * sh.P + p] *
-              expf(last - cum[t]);
-      }
-      Xs[e] = val;
+    for (int kk = 0; kk < kStateStep / 8; ++kk) {
+      const int u = kk & 1;
+      wgmma_wait<1>();  // the group that read set u (two steps back) has completed
+      fence_regs(hi[u]);
+      fence_regs(lo[u]);
+      float x[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        x[r] = xa[kk][r] * dec[min(j0 + 8 * kk + t4 + 4 * (r >> 1), sh.Q - 1)];
+      split4(x, hi[u], lo[u]);
+      wgmma_fence();
+      mma3<kMaxN>(acc, hi[u], lo[u], desc(b_hi, kMaxN, kk), desc(b_hi + kStateTile, kMaxN, kk));
+      wgmma_commit();
     }
-    for (int e = tid; e < kTJ * kMaxN; e += kThreads) {
-      const int j = e / kMaxN, n = e % kMaxN, t = j0 + j;
-      float val = 0.f;
-      if (t < sh.Q && n < sh.N) {
-        const long long s = static_cast<long long>(c) * sh.Q + t;
-        val = bm[((static_cast<long long>(b) * sh.S + s) * sh.G + g) * sh.N + n];
-      }
-      Bs[e] = val;
-    }
+    wgmma_wait<0>();  // this stage's buffer is refilled two stages on
     __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < kTJ; ++j) {
-      float a[4], bv[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Xs[j * kMaxP + ty + 16 * i];
+    for (int kk = 0; kk < kStateStep / 8; ++kk)
 #pragma unroll
-      for (int q = 0; q < 8; ++q) bv[q] = Bs[j * kMaxN + tx + 16 * q];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) acc[i][q] = fmaf(a[i], bv[q], acc[i][q]);
-    }
-    __syncthreads();
+      for (int r = 0; r < 4; ++r) xa[kk][r] = xn[kk][r];
   }
+  fence_regs(acc);
 
   float* out = ws + (static_cast<long long>(bh) * sh.nc + c) * sh.P * sh.N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = ty + 16 * i;
+  for (int j = 0; j < kMaxN / 8; ++j)
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int n = tx + 16 * q;
-      if (p < sh.P && n < sh.N) out[p * sh.N + n] = acc[i][q];
+    for (int e = 0; e < 4; ++e) {
+      const int p = 16 * warp + g8 + 8 * (e >> 1), n = 8 * j + 2 * t4 + (e & 1);
+      if (p < sh.P && n < sh.N) out[p * sh.N + n] = acc[4 * j + e];
     }
-  }
   if (tid == 0) cd[static_cast<long long>(bh) * sh.nc + c] = expf(last);
 }
 
-__global__ void __launch_bounds__(kThreads)
-state_pass_kernel(float* __restrict__ ws, const float* __restrict__ cd,
-                  float* __restrict__ h_final, Shape sh) {
-  const int pn = sh.P * sh.N;
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  const long long bh = blockIdx.y;
-  if (e >= pn) return;
-  float h = 0.f;
-  for (int c = 0; c < sh.nc; ++c) {
-    const long long idx = (bh * sh.nc + c) * pn + e;
-    const float contrib = ws[idx];
-    ws[idx] = h;
-    h = h * cd[bh * sh.nc + c] + contrib;
-  }
-  h_final[bh * pn + e] = h;
+// ---- 2. the state pass ----
+
+// h_prev of each (b·h, chunk) as the inter product's B operand: a K-major
+// tile [64 rows p][kMaxN n], hi and lo, the depth n in kpos order within its
+// k8 step, zeros past P and N; the output kernel copies it with cp.async.
+constexpr int kHpTile = kT * kMaxN;
+
+__device__ __forceinline__ long long hp_tile(const Shape& sh, long long bh, int c) {
+  return (bh * sh.nc + c) * 2 * kHpTile;
 }
 
-constexpr int kLd = kMaxN + 1;  // padded rows of C, B and h_prev tiles
-
-__global__ void __launch_bounds__(kThreads)
-chunk_out_kernel(const float* __restrict__ xdt, const float* __restrict__ la,
-                 const float* __restrict__ bm, const float* __restrict__ cm,
-                 const float* __restrict__ ws, float* __restrict__ y, Shape sh) {
-  extern __shared__ float smem[];
-  float* cum = smem;                  // [kMaxQ]
-  float* Cs = cum + kMaxQ;            // [kT][kLd]   rows i of C
-  float* Ts = Cs + kT * kLd;          // [kT][kLd]   h_prev [p][n], then B rows [j][n]
-  float* Xs = Ts + kT * kLd;          // [kT][kMaxP] xdt rows [j][p]
-  float* Ps = Xs + kT * kMaxP;        // [kT][kT + 1] masked, decayed scores
-  const int i0 = blockIdx.x * kT, c = blockIdx.y, bh = blockIdx.z;
-  const int b = bh / sh.H, h = bh % sh.H, g = h / (sh.H / sh.G);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const long long s0 = static_cast<long long>(c) * sh.Q;
-  chunk_cumsum(cum, la, sh, b, h, c);
-
-  const float* hp = ws + (static_cast<long long>(bh) * sh.nc + c) * sh.P * sh.N;
-  for (int e = tid; e < kT * kMaxN; e += kThreads) {
-    const int r = e / kMaxN, n = e % kMaxN, t = i0 + r;
-    float cv = 0.f, hv = 0.f;
-    if (n < sh.N) {
-      if (t < sh.Q) cv = cm[((static_cast<long long>(b) * sh.S + s0 + t) * sh.G + g) * sh.N + n];
-      if (r < sh.P) hv = hp[r * sh.N + n];
-    }
-    Cs[r * kLd + n] = cv;
-    Ts[r * kLd + n] = hv;
-  }
-  __syncthreads();
-
-  // inter: acc[i][p] = exp(cum_i) · Σ_n C[i][n] · h_prev[p][n]
-  float acc[4][4];
+// One thread per (b·h, p, n) of the padded 64 x 128 tile.
+__global__ void __launch_bounds__(kPassThreads)
+state_pass_kernel(const float* __restrict__ ws, const float* __restrict__ cd,
+                  float* __restrict__ hp_img, float* __restrict__ h_final, Shape sh) {
+  const int pn = sh.P * sh.N;
+  const int e = blockIdx.x * kPassThreads + threadIdx.x, p = e / kMaxN, n = e % kMaxN;
+  const long long bh = blockIdx.y;
+  const bool valid = p < sh.P && n < sh.N;
+  const int src = p * sh.N + n;
+  const int dst = sw128(kT, p, (n & ~7) + kpos(n & 7));
+  float h = 0.f;
+  for (int c0 = 0; c0 < sh.nc; c0 += kPassAhead) {
+    float v[kPassAhead], dec[kPassAhead];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-#pragma unroll 4
-  for (int n = 0; n < kMaxN; ++n) {
-    float a[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = Cs[(ty + 16 * i) * kLd + n];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) bv[q] = Ts[(tx + 16 * q) * kLd + n];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], bv[q], acc[i][q]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = i0 + ty + 16 * i;
-    const float dec = t < sh.Q ? expf(cum[t]) : 0.f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] *= dec;
-  }
-
-  // intra: key tiles up to the diagonal one
-  for (int j0 = 0; j0 <= i0; j0 += kT) {
-    __syncthreads();  // Ts, Xs and Ps of the previous step are read
-    for (int e = tid; e < kT * kMaxN; e += kThreads) {
-      const int r = e / kMaxN, n = e % kMaxN, t = j0 + r;
-      Ts[r * kLd + n] = (t < sh.Q && n < sh.N)
-          ? bm[((static_cast<long long>(b) * sh.S + s0 + t) * sh.G + g) * sh.N + n] : 0.f;
-    }
-    for (int e = tid; e < kT * kMaxP; e += kThreads) {
-      const int r = e / kMaxP, p = e % kMaxP, t = j0 + r;
-      Xs[e] = (t < sh.Q && p < sh.P)
-          ? xdt[((static_cast<long long>(b) * sh.S + s0 + t) * sh.H + h) * sh.P + p] : 0.f;
-    }
-    __syncthreads();
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) sc[i][q] = 0.f;
-#pragma unroll 4
-    for (int n = 0; n < kMaxN; ++n) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Cs[(ty + 16 * i) * kLd + n];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) bv[q] = Ts[(tx + 16 * q) * kLd + n];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) sc[i][q] = fmaf(a[i], bv[q], sc[i][q]);
+    for (int u = 0; u < kPassAhead; ++u) {
+      const int c = c0 + u;
+      v[u] = (valid && c < sh.nc) ? ws[(bh * sh.nc + c) * pn + src] : 0.f;
+      dec[u] = c < sh.nc ? cd[bh * sh.nc + c] : 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ti = i0 + ty + 16 * i;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int tj = j0 + tx + 16 * q;
-        const bool ok = tj <= ti && ti < sh.Q;
-        Ps[(ty + 16 * i) * (kT + 1) + tx + 16 * q] =
-            ok ? sc[i][q] * expf(cum[ti] - cum[tj]) : 0.f;
+    for (int u = 0; u < kPassAhead; ++u) {
+      const int c = c0 + u;
+      if (c < sh.nc) {
+        uint32_t hi, lo;
+        split(h, hi, lo);
+        float* const out = hp_img + hp_tile(sh, bh, c);
+        out[dst] = __uint_as_float(hi);
+        out[kHpTile + dst] = __uint_as_float(lo);
+        h = h * dec[u] + v[u];
       }
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < kT; ++j) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Ps[(ty + 16 * i) * (kT + 1) + j];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) bv[q] = Xs[j * kMaxP + tx + 16 * q];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], bv[q], acc[i][q]);
-    }
   }
+  if (valid) h_final[bh * pn + src] = h;
+}
 
+// ---- shared by the score and output kernels ----
+
+// Rows [r0, r0 + 64) of a [rows, N] tensor (row `r` at src + r·ld) into a
+// K-major tile of kMaxN depth, hi and lo, the depth n permuted within its
+// k8 step; rows at or past `rows` and n past N are zeros.  Sixteen loads a
+// thread are in flight at a time.
+__device__ __forceinline__ void stage_rows(float* t_hi, float* t_lo, const float* src,
+                                           long long ld, int r0, int rows, int n_valid) {
+  constexpr int kBatch = 16;
+  for (int e0 = 0; e0 < kT * kMaxN; e0 += kBatch * kThreads) {
+    float v[kBatch];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = i0 + ty + 16 * i;
-    if (t >= sh.Q) continue;
-    float* yr = y + ((static_cast<long long>(b) * sh.S + s0 + t) * sh.H + h) * sh.P;
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kThreads + threadIdx.x, r = e / kMaxN, n = e % kMaxN;
+      v[u] = (r0 + r < rows && n < n_valid) ? src[(r0 + r) * ld + n] : 0.f;
+    }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int p = tx + 16 * q;
-      if (p < sh.P) yr[p] = acc[i][q];
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kThreads + threadIdx.x, r = e / kMaxN, n = e % kMaxN;
+      uint32_t hi, lo;
+      split(v[u], hi, lo);
+      const int i = sw128(kT, r, (n & ~7) + kpos(n & 7));
+      t_hi[i] = __uint_as_float(hi);
+      t_lo[i] = __uint_as_float(lo);
     }
   }
 }
 
-constexpr int kOutSmemBytes = 4 * (kMaxQ + 2 * kT * kLd + kT * kMaxP + kT * (kT + 1));
+// This thread's fragment of C's 64 rows from i0 (group g of batch b, chunk
+// from step s0), in kpos order within each k8 step: register r of step kk
+// is row i0 + 16w + l/4 + 8(r % 2), column 8kk + 2(l % 4) + r / 2.
+__device__ __forceinline__ void load_c(float (&cf)[kNK][4], const float* __restrict__ cm,
+                                       const Shape& sh, int b, long long s0, int g, int i0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int kk = 0; kk < kNK; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + 16 * warp + (lane >> 2) + 8 * (r & 1);
+      const int n = 8 * kk + 2 * (lane & 3) + (r >> 1);
+      cf[kk][r] = (i < sh.Q && n < sh.N) ? cm[row_bsg(sh, b, s0 + i, g) + n] : 0.f;
+    }
+}
+
+// acc (64 x 64) += C · Tᵀ over N: C's fragments cf in registers, T's hi and
+// lo tiles (64 rows, K-major, kMaxN deep, zeros past N) in shared memory.
+// One commit group per k8 step, two sets of A fragments: a step's fragments
+// are formed while the previous step's wgmmas run.
+__device__ __forceinline__ void c_product(float (&acc)[kT / 2], const float (&cf)[kNK][4],
+                                          const float* t_hi, const float* t_lo) {
+  uint32_t hi[2][4], lo[2][4];
+#pragma unroll
+  for (int kk = 0; kk < kNK; ++kk) {
+    const int u = kk & 1;
+    wgmma_wait<1>();  // the group that read set u (two steps back) has completed
+    fence_regs(hi[u]);
+    fence_regs(lo[u]);
+    split4(cf[kk], hi[u], lo[u]);
+    wgmma_fence();
+    mma3<kT>(acc, hi[u], lo[u], desc(t_hi, kT, kk), desc(t_lo, kT, kk));
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// The lower-triangle tile pair p of a chunk's 64-row tiles: query tile
+// *it, key tile *jt <= *it, p = it·(it + 1)/2 + jt.
+__device__ __forceinline__ void tile_pair(int p, int* it, int* jt) {
+  int i = 0;
+  while (p > i) {
+    p -= i + 1;
+    ++i;
+  }
+  *it = i;
+  *jt = p;
+}
+
+// A 64 x 64 score tile in the workspace, in the accumulator's layout: the
+// four values d[4u .. 4u + 3] of thread t at float4 u·128 + t (coalesced
+// both ways).
+__device__ __forceinline__ float4* score_tile(float* ws_s, const Shape& sh, int bg, int c,
+                                              int p) {
+  const int tq = (sh.Q + kT - 1) / kT;
+  const long long tile = (static_cast<long long>(bg) * sh.nc + c) * (tq * (tq + 1) / 2) + p;
+  return reinterpret_cast<float4*>(ws_s + tile * kT * kT);
+}
+
+// ---- 3. the scores S = C·Bᵀ of each group ----
+
+// S depends on the group, not the head: computed once per (b, group, chunk,
+// tile pair) into the workspace, read by the group's H / G heads from L2.
+constexpr int kRowTile = kT * kMaxN;
+constexpr int kScoresSmem = 4 * 2 * kRowTile + 1024;
+
+__global__ void __launch_bounds__(kThreads)
+scores_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
+              float* __restrict__ ws_s, Shape sh) {
+  extern __shared__ uint8_t smem_raw[];
+  float* const r_hi = reinterpret_cast<float*>(align1024(smem_raw));
+  float* const r_lo = r_hi + kRowTile;
+  int it, jt;
+  tile_pair(blockIdx.x, &it, &jt);
+  const int c = blockIdx.y, bg = blockIdx.z;
+  const int b = bg / sh.G, g = bg % sh.G;
+  const long long s0 = static_cast<long long>(c) * sh.Q;
+  float cf[kNK][4];
+  load_c(cf, cm, sh, b, s0, g, it * kT);
+  stage_rows(r_hi, r_lo, bm + row_bsg(sh, b, s0, g), static_cast<long long>(sh.G) * sh.N,
+             jt * kT, sh.Q, sh.N);
+  fence_async_smem();
+  __syncthreads();
+  float sc[kT / 2];
+#pragma unroll
+  for (int e = 0; e < kT / 2; ++e) sc[e] = 0.f;
+  c_product(sc, cf, r_hi, r_lo);
+  float4* out = score_tile(ws_s, sh, bg, c, blockIdx.x);
+#pragma unroll
+  for (int u = 0; u < kT / 8; ++u)
+    out[u * kThreads + threadIdx.x] = make_float4(sc[4 * u], sc[4 * u + 1], sc[4 * u + 2],
+                                                  sc[4 * u + 3]);
+}
+
+// ---- 4. the outputs ----
+
+// Shared memory: h_prev as a K-major tile of 64 rows x N, hi and lo, whose
+// space then holds each key tile's transposed xdt [p][j], hi and lo; cum.
+constexpr int kXTile = kMaxP * kT;
+constexpr int kOutSmem = 4 * (2 * kRowTile + kMaxQ) + 1024;
+constexpr int kOutX = kT * kMaxP / kThreads;  // xdt values a thread stages per key tile
+static_assert(2 * kXTile <= kRowTile, "the xdt tiles live in h_prev's hi tile");
+static_assert(kRowTile == kHpTile, "h_prev's tiles are copied as the state pass wrote them");
+
+// Key tile j0's xdt, 64 x 64 values, transposed into [p][j] with the keys
+// in kpos order: a warp takes 8 neighbouring p of the 4 keys that share a
+// 16-byte chunk of the swizzled row (even or odd keys of an 8-key step), so
+// its stores hit 32 banks and its loads whole 32-byte sectors.  `load_xdt`
+// fills registers, `store_xdt` splits them into the hi and lo tiles.
+__device__ __forceinline__ void xdt_slot(int u, int* p, int* jj) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  *p = (u & 3) * 16 + (warp >> 1) * 8 + (lane & 7);
+  *jj = (u >> 2) * 8 + 2 * (lane >> 3) + (warp & 1);
+}
+
+__device__ __forceinline__ void load_xdt(float (&xv)[kOutX], const float* x_base, int x_ld,
+                                         const Shape& sh, int j0) {
+#pragma unroll
+  for (int u = 0; u < kOutX; ++u) {
+    int p, jj;
+    xdt_slot(u, &p, &jj);
+    xv[u] = (j0 + jj < sh.Q && p < sh.P) ? x_base[static_cast<long long>(j0 + jj) * x_ld + p]
+                                         : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store_xdt(const float (&xv)[kOutX], float* x_hi, float* x_lo) {
+#pragma unroll
+  for (int u = 0; u < kOutX; ++u) {
+    int p, jj;
+    xdt_slot(u, &p, &jj);
+    uint32_t hi, lo;
+    split(xv[u], hi, lo);
+    const int i = sw128(kMaxP, p, (jj & ~7) + kpos(jj & 7));
+    x_hi[i] = __uint_as_float(hi);
+    x_lo[i] = __uint_as_float(lo);
+  }
+  fence_async_smem();
+}
+
+// One warpgroup per (64-row query tile, b·h, chunk); the query tiles of one
+// (b·h, chunk) run together and share h_prev and the xdt tiles in L2.  Its
+// staging latency sets its pace, so three blocks an SM (168 registers a
+// thread, a few bytes of spill) beat two (198 registers): 0.85 against
+// 0.98 ms at mamba2's shape on an H100.  (One warpgroup per (b·h, chunk)
+// holding the four query tiles' accumulators needed more than 255
+// registers a thread, and ptxas serialised its wgmmas.)
+__global__ void __launch_bounds__(kThreads, 3)
+chunk_out_kernel(const float* __restrict__ xdt, const float* __restrict__ la,
+                 const float* __restrict__ cm, const float* __restrict__ hp_img,
+                 float* __restrict__ ws_s, float* __restrict__ y, Shape sh) {
+  extern __shared__ uint8_t smem_raw[];
+  float* const r_hi = reinterpret_cast<float*>(align1024(smem_raw));
+  float* const r_lo = r_hi + kRowTile;
+  float* const x_hi = r_hi;  // after the inter term
+  float* const x_lo = r_hi + kXTile;
+  float* const cum = r_lo + kRowTile;
+  const int it = blockIdx.x, i0 = it * kT, bh = blockIdx.y, c = blockIdx.z;
+  const int b = bh / sh.H, h = bh % sh.H, g = h / (sh.H / sh.G);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const long long s0 = static_cast<long long>(c) * sh.Q;
+  const float* const x_base = xdt + row_bsh(sh, b, s0, h);
+  const int x_ld = sh.H * sh.P;
+  {  // h_prev's split tile (the state pass wrote it), 16 bytes a copy
+    const float4* src = reinterpret_cast<const float4*>(hp_img + hp_tile(sh, bh, c));
+    float4* dst = reinterpret_cast<float4*>(r_hi);  // r_lo follows r_hi
+#pragma unroll
+    for (int u = 0; u < 2 * kHpTile / 4 / kThreads; ++u)
+      cp_async16(dst + u * kThreads + tid, src + u * kThreads + tid);
+    cp_async_commit();
+  }
+  float cf[kNK][4];
+  load_c(cf, cm, sh, b, s0, g, i0);
+  chunk_cumsum(cum, la, sh, b, h, c);
+
+  // inter: acc = exp(cum_i) · C·h_prevᵀ
+  cp_async_wait<0>();
+  fence_async_smem();
+  __syncthreads();
+  float acc[kT / 2];
+#pragma unroll
+  for (int e = 0; e < kT / 2; ++e) acc[e] = 0.f;
+  c_product(acc, cf, r_hi, r_lo);
+#pragma unroll
+  for (int e = 0; e < kT / 2; ++e) {
+    const int i = i0 + 16 * warp + g8 + 8 * ((e >> 1) & 1);
+    acc[e] *= i < sh.Q ? expf(cum[min(i, sh.Q - 1)]) : 0.f;
+  }
+
+  // intra: the key tiles up to the diagonal one, their scores from the
+  // workspace; the next key tile's xdt is loaded into registers while this
+  // one's products run.
+  float xv[kOutX];
+  load_xdt(xv, x_base, x_ld, sh, 0);
+  for (int jt = 0; jt <= it; ++jt) {
+    const int j0 = jt * kT;
+    const float4* sp = score_tile(ws_s, sh, b * sh.G + g, c, it * (it + 1) / 2 + jt);
+    float sc[kT / 2];
+#pragma unroll
+    for (int u = 0; u < kT / 8; ++u) {
+      const float4 v = sp[u * kThreads + tid];
+      sc[4 * u] = v.x;
+      sc[4 * u + 1] = v.y;
+      sc[4 * u + 2] = v.z;
+      sc[4 * u + 3] = v.w;
+    }
+    __syncthreads();  // every wgmma reading the shared tiles has completed
+    store_xdt(xv, x_hi, x_lo);
+    __syncthreads();
+    if (jt < it) load_xdt(xv, x_base, x_ld, sh, j0 + kT);
+#pragma unroll
+    for (int jb = 0; jb < kT / 8; ++jb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + 16 * warp + g8 + 8 * (e >> 1);
+        const int j = j0 + 8 * jb + 2 * t4 + (e & 1);
+        // (indices clamped: cum holds Q values)
+        const float dec = expf(cum[min(i, sh.Q - 1)] - cum[min(j, sh.Q - 1)]);
+        sc[4 * jb + e] = (j <= i && i < sh.Q) ? sc[4 * jb + e] * dec : 0.f;
+      }
+    // acc += (S ∘ decay) · xdt over this tile's keys, pipelined as c_product
+    uint32_t hi[2][4], lo[2][4];
+#pragma unroll
+    for (int kk = 0; kk < kT / 8; ++kk) {
+      const int u = kk & 1;
+      wgmma_wait<1>();
+      fence_regs(hi[u]);
+      fence_regs(lo[u]);
+      float x[4];
+      acc_frag(sc, kk, x);
+      split4(x, hi[u], lo[u]);
+      wgmma_fence();
+      mma3<kMaxP>(acc, hi[u], lo[u], desc(x_hi, kMaxP, kk), desc(x_lo, kMaxP, kk));
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  float* const y_base = y + row_bsh(sh, b, s0, h);
+#pragma unroll
+  for (int j = 0; j < kMaxP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + 16 * warp + g8 + 8 * (e >> 1), p = 8 * j + 2 * t4 + (e & 1);
+      if (i < sh.Q && p < sh.P) y_base[static_cast<long long>(i) * x_ld + p] = acc[4 * j + e];
+    }
+}
 
 }  // namespace
 
 // B10.  xdt [B, S, H, P], la [B, S, H], bm and cm [B, S, G, N], all float32
 // contiguous; y [B, S, H, P] and h_final [B, H, P, N] out; ws
-// [B·H, S/Q, P, N] and cd [B·H, S/Q] are scratch from the caller.  Q divides
-// S.  Launches three kernels on `stream`; returns the first error
-// (0 = launched), or cudaErrorInvalidValue for a shape the kernels do not
-// take.
+// [B·H, S/Q, P, N], cd [B·H, S/Q], ws_s [B·G, S/Q, T, 64, 64] (the
+// T = t(t + 1)/2 tile pairs of t = ceil(Q / 64) row tiles), ws_bt
+// [B·G, S/Q, ceil(Q / 32), 2, 128 · 32] and hp_img [B·H, S/Q, 2, 64 · 128]
+// are scratch from the caller.  Q divides S.  Launches five kernels on `stream`; returns the
+// first error (0 = launched), or cudaErrorInvalidValue for a shape the
+// kernels do not take.
 extern "C" int ssd_chunk_f32(const float* xdt, const float* la, const float* bm,
                              const float* cm, float* y, float* h_final, float* ws,
-                             float* cd, int B, int S, int H, int G, int P, int N, int Q,
-                             void* stream) {
+                             float* cd, float* ws_s, float* ws_bt, float* hp_img, int B,
+                             int S, int H, int G, int P, int N, int Q, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || P <= 0 || P > kMaxP ||
       N <= 0 || N > kMaxN || Q <= 0 || Q > kMaxQ || S % Q != 0)
     return cudaErrorInvalidValue;
   const Shape sh{B, S, H, G, P, N, Q, S / Q};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (sh.nc > 65535 || B * H > 65535) return cudaErrorInvalidValue;
-  chunk_state_kernel<<<dim3(sh.nc, B * H), kThreads, 0, st>>>(xdt, la, bm, ws, cd, sh);
+  const int tq = (Q + kT - 1) / kT;
+  const struct {
+    const void* fn;
+    int bytes;
+  } smem[] = {{reinterpret_cast<const void*>(chunk_state_kernel), kStateSmem},
+              {reinterpret_cast<const void*>(scores_kernel), kScoresSmem},
+              {reinterpret_cast<const void*>(chunk_out_kernel), kOutSmem}};
+  for (const auto& k : smem) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, k.bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const int stages = (Q + kStateStep - 1) / kStateStep;
+  bt_kernel<<<dim3(stages, sh.nc, B * G), kThreads, 0, st>>>(bm, ws_bt, sh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  state_pass_kernel<<<dim3((P * N + kThreads - 1) / kThreads, B * H), kThreads, 0, st>>>(
-      ws, cd, h_final, sh);
+  chunk_state_kernel<<<dim3(B * H, sh.nc), kThreads, kStateSmem, st>>>(xdt, la, ws_bt, ws, cd,
+                                                                       sh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(chunk_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kOutSmemBytes);
+  state_pass_kernel<<<dim3(kHpTile / kPassThreads, B * H), kPassThreads, 0, st>>>(
+      ws, cd, hp_img, h_final, sh);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  chunk_out_kernel<<<dim3((Q + kT - 1) / kT, sh.nc, B * H), kThreads, kOutSmemBytes, st>>>(
-      xdt, la, bm, cm, ws, y, sh);
+  scores_kernel<<<dim3(tq * (tq + 1) / 2, sh.nc, B * G), kThreads, kScoresSmem, st>>>(
+      bm, cm, ws_s, sh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  chunk_out_kernel<<<dim3(tq, B * H, sh.nc), kThreads, kOutSmem, st>>>(xdt, la, cm, hp_img,
+                                                                       ws_s, y, sh);
   return cudaGetLastError();
 }

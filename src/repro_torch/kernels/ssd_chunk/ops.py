@@ -9,9 +9,9 @@ reference's rule: ``chunk = min(chunk, S)``, lowered until it divides S.
 
 Dispatch is by the tensors' device: on the CPU the plain chunked version
 (``ref.ssd_chunk_plain``) runs; on a CUDA device the hand-written kernel
-(``csrc/ssd_chunk.cu``, three launches counted as one call) runs for float32
-contiguous inputs with P <= 64, N <= 128 and a chunk <= 256, or the call
-raises.  Nothing falls back from the card.  ``ssd_chunk.launches`` counts
+(``csrc/ssd_chunk.cu``: 3xTF32 tensor-core products, five launches counted
+as one call) runs for float32 contiguous inputs with P <= 64, N <= 128 and
+a chunk <= 256, or the call raises.  Nothing falls back from the card.  ``ssd_chunk.launches`` counts
 the calls that launched the kernel.
 
 The kernel has no backward: with grad mode on and an input that requires
@@ -29,7 +29,10 @@ from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_plain
 
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 256
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_PTR] * 8 + [_I32] * 7 + [_PTR]
+_ARGS = [_PTR] * 11 + [_I32] * 7 + [_PTR]
+TILE = 64        # query and key rows of the kernel's score tiles (kT)
+STATE_STEP = 32  # chunk steps per stage of the state product (kStateStep)
+N_PAD = 128      # rows of a stage of the state product's Bᵀ (kMaxN)
 
 
 def _check(xdt, la, b, c) -> None:
@@ -84,12 +87,16 @@ def ssd_chunk(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor, c: torch.Ten
     nc = s // chunk
     ws = torch.empty((bsz * h, nc, p, n), **f32)
     cd = torch.empty((bsz * h, nc), **f32)
+    tq = -(-chunk // TILE)
+    ws_s = torch.empty((bsz * g, nc, tq * (tq + 1) // 2, TILE, TILE), **f32)
+    ws_bt = torch.empty((bsz * g, nc, -(-chunk // STATE_STEP), 2, N_PAD * STATE_STEP), **f32)
+    hp_img = torch.empty((bsz * h, nc, 2, TILE * N_PAD), **f32)
     fn = _build.function("ssd_chunk", "ssd_chunk_f32", _ARGS)
     with torch.cuda.device(xdt.device):
         stream = torch.cuda.current_stream(xdt.device).cuda_stream
         err = fn(xdt.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
-                 h_final.data_ptr(), ws.data_ptr(), cd.data_ptr(), bsz, s, h, g, p, n,
-                 chunk, stream)
+                 h_final.data_ptr(), ws.data_ptr(), cd.data_ptr(), ws_s.data_ptr(),
+                 ws_bt.data_ptr(), hp_img.data_ptr(), bsz, s, h, g, p, n, chunk, stream)
     _build.raise_on("ssd_chunk_f32", err)
     ssd_chunk.launches += 1
     return y, h_final

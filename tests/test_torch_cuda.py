@@ -85,6 +85,53 @@ def test_kernel_matches_plain(card, m, o, n, dtype):
     assert torch.equal(g, g2) and torch.equal(mv, m2)  # no atomics: same bits
 
 
+# B1's tensor-core route (one tenant, m > 28): every m, o and n the route's
+# tiles, output groups and slices can meet (one 64-row tile and a 1-row
+# tail, nine tiles with the head's 513; one output, a partial group of 3,
+# 64 full groups; one sample, a partial 32-sample step, the head's 2,048
+# that plans one slice, ragged n and several slices).
+TC_M, TC_O, TC_N = (29, 64, 65, 129, 513), (1, 3, 256), (1, 7, 2_048, 2_049, 10_007)
+
+
+def _check_tensor_core_stats(m, o, n, dtype, dev):
+    xa, fsq, fd = _inputs(m, o, n, dtype, m * n + o, dev)
+    before, routed = rolann_stats.launches, rolann_stats.route_launches["tf32x3"]
+    g, mv = rolann_stats(xa, fsq, fd)
+    torch.cuda.synchronize()
+    assert rolann_stats.launches == before + 1
+    assert rolann_stats.route_launches["tf32x3"] == routed + 1
+    gp, mp = rolann_stats_plain(xa, fsq, fd)
+    assert g.dtype == dtype and mv.dtype == dtype
+    assert torch.equal(g, g.transpose(1, 2))
+    tol = 2.0**-7 if dtype == torch.bfloat16 else 1e-4
+    assert float((g.double() - gp.double()).abs().max()) <= tol * float(gp.double().abs().max())
+    assert float((mv.double() - mp.double()).abs().max()) <= tol * float(mp.double().abs().max())
+    g2, m2 = rolann_stats(xa, fsq, fd)
+    assert torch.equal(g, g2) and torch.equal(mv, m2)  # no atomics: same bits
+
+
+@pytest.mark.parametrize("n", TC_N)
+@pytest.mark.parametrize("o", TC_O)
+@pytest.mark.parametrize("m", TC_M)
+def test_tensor_core_stats_match_plain(card, m, o, n):
+    """B1's 3xTF32 route against the plain version in float32: 1e-4 of the
+    largest entry of G and of M, G exactly symmetric, repeats bit-identical."""
+    _check_tensor_core_stats(m, o, n, torch.float32, card)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("o", TC_O)
+@pytest.mark.parametrize("m", TC_M)
+def test_tensor_core_stats_other_dtypes(card, m, o, dtype):
+    """The same in bf16 (one bf16 ulp of the largest entry) and float64."""
+    _check_tensor_core_stats(m, o, TC_N[(m + o) % len(TC_N)], dtype, card)
+
+
+def test_tensor_core_route_plans_one_slice_at_the_head_shape(card):
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert ops.plan_slices_tf32x3(513, 2_048, 256, sms) == (1, 2_048)
+
+
 def test_kernel_rejects_non_contiguous(card):
     xa, fsq, fd = _inputs(8, 2, 100, torch.float32, 0, card)
     with pytest.raises(ValueError, match="contiguous"):
@@ -434,10 +481,14 @@ def test_rglru_scan_kernel_matches_plain(card, b, s, w):
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk", [(4, 4_096, 48, 64, 1, 128, 256),
                                                (2, 1_000, 4, 64, 2, 128, 256),
                                                (1, 64, 3, 16, 1, 32, 32),
-                                               (2, 256, 4, 64, 2, 128, 100)])
+                                               (2, 256, 4, 64, 2, 128, 100),
+                                               (1, 300, 2, 64, 1, 128, 256),   # Q 150
+                                               (2, 390, 2, 16, 1, 32, 256),    # Q 195
+                                               (1, 128, 2, 7, 1, 20, 64)])     # odd P, N
 def test_ssd_chunk_kernel_matches_plain(card, b, s, h, p, g, n, chunk):
     """B10 against its plain chunked version: 1e-5 of the largest output
-    (float32 sums of up to Q·N terms in other orders)."""
+    (float32 sums of up to Q·N terms in other orders; the products are
+    3xTF32, tests/test_torch_tf32x3.py); repeats bit-identical."""
     gen = torch.Generator(device=card).manual_seed(s + h + g)
     xdt = _randn((b, s, h, p), gen, card)
     la = -torch.rand((b, s, h), generator=gen, device=card) * 0.1
@@ -449,6 +500,8 @@ def test_ssd_chunk_kernel_matches_plain(card, b, s, h, p, g, n, chunk):
     yr, hr = ssd_chunk_plain(xdt, la, bm, cm, fit_chunk(s, chunk))
     assert float((y - yr).abs().max()) <= 1e-5 * float(yr.abs().max())
     assert float((hf - hr).abs().max()) <= 1e-5 * float(hr.abs().max())
+    y2, hf2 = ssd_chunk(xdt, la, bm, cm, chunk=chunk)
+    assert torch.equal(y, y2) and torch.equal(hf, hf2)
 
 
 @pytest.mark.parametrize("name,s", [("qwen3-1.7b", 96), ("mamba2-780m", 128),

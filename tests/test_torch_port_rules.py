@@ -118,13 +118,43 @@ def test_model_on_another_device_is_not_moved_silently():
 
 def test_every_kernel_library_has_its_source():
     """Each library _build knows compiles one source in the repo; its file
-    name hashes that source and the headers beside it, so two libraries
+    name hashes that source and the headers it includes, so two libraries
     never share a name.  Nothing is built here."""
     paths = {name: _build.library_path(name) for name in KERNELS}
     for name, path in paths.items():
         assert _build.source(name).is_file() and _build.source(name).suffix == ".cu"
         assert path.parent == _build.BUILD_DIR and path.name.startswith(f"lib{name}-")
     assert len(set(paths.values())) == len(paths)
+
+
+def test_library_path_follows_includes_into_other_kernels(tmp_path, monkeypatch):
+    """An edit to a header that a source includes from another kernel's
+    directory, directly or through a header of its own, renames the library
+    (no stale build is loaded); an edit to a header it does not include does
+    not."""
+    (tmp_path / "a" / "csrc").mkdir(parents=True)
+    (tmp_path / "shared").mkdir()
+    src = tmp_path / "a" / "csrc" / "a.cu"
+    src.write_text('#include <cuda_runtime.h>\n#include "own.cuh"\n')
+    (tmp_path / "a" / "csrc" / "own.cuh").write_text('#pragma once\n#include "../../shared/s.cuh"\n')
+    shared = tmp_path / "shared" / "s.cuh"
+    shared.write_text("#pragma once\n")
+    other = tmp_path / "a" / "csrc" / "unused.cuh"
+    other.write_text("#pragma once\n")
+    monkeypatch.setattr(_build, "source", lambda name: src)
+    assert [p.name for p in _build.includes(src)] == ["own.cuh", "s.cuh"]
+    before = _build.library_path("a")
+    shared.write_text("#pragma once\n// edited\n")
+    after = _build.library_path("a")
+    assert after != before
+    other.write_text("#pragma once\n// edited\n")
+    assert _build.library_path("a") == after
+
+
+@pytest.mark.parametrize("name", ["rolann_stats", "ssd_chunk"])
+def test_tensor_core_sources_hash_the_shared_header(name):
+    shared = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "tf32x3_sm90.cuh"
+    assert shared.resolve() in _build.includes(_build.source(name))
 
 
 def test_fleet_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):

@@ -130,6 +130,25 @@ def test_plan_slices_cover_the_sample_axis(m, o, n, sms):
         assert slice_len >= ops.MIN_SLICE - ops.CHUNK
 
 
+@pytest.mark.parametrize("m,o,n", [(29, 1, 1), (65, 256, 10_007), (513, 256, 2_048),
+                                   (513, 3, 2_049), (129, 1, 10**6)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_tensor_core_plan_caps_each_accumulator(m, o, n, sms):
+    """B1's tensor-core route: slices cover n, none empty, none longer than
+    TC_MAX_SLICE samples (the accumulator's round-toward-zero drift)."""
+    slices, slice_len = ops.plan_slices_tf32x3(m, n, o, sms)
+    assert 1 <= slices <= ops.MAX_GRID_Z
+    assert slice_len % ops.TC_STEP == 0 and slice_len <= ops.TC_MAX_SLICE
+    assert (slices - 1) * slice_len < n <= slices * slice_len
+
+
+def test_tensor_core_route_is_one_tenant_large_m_without_accumulators():
+    assert ops.tensor_core_route(1, ops.SMALL_M + 1, False)
+    assert not ops.tensor_core_route(1, ops.SMALL_M, False)
+    assert not ops.tensor_core_route(2, 513, False) and not ops.tensor_core_route(1, 513, True)
+    assert ops.plan_slices_tf32x3(513, 2_048, 256, 132) == (1, 2_048)  # the head: direct
+
+
 def test_plan_fills_the_card_on_the_creditcard_path():
     """The path's largest layer, (m, o) = (28, 24), gets several blocks per SM."""
     slices, _ = ops.plan_slices(28, 255_883, 24, 132)

@@ -1,0 +1,255 @@
+"""A plain-torch model of the 3xTF32 arithmetic of the tensor-core kernels of
+B1 (``rolann_stats/csrc/rolann_stats_sm90.cuh``, one tenant, m > 28) and
+B10 (``ssd_chunk/csrc/ssd_chunk.cu``), held on the CPU to the port's plain
+versions under the card's unchanged bars: B1's G and M within 1e-4 of
+their largest magnitude, B10's y and h_final within 1e-5 of max|plain|.
+
+What it models:
+
+* ``cvt.rna.tf32.f32``: a float32 rounded to TF32 (10 stored mantissa
+  bits) half away from zero, on the bit pattern: add half of the 13
+  dropped bits, clear them.
+* The split of a float32 operand x into hi = rna(x) and lo = rna(x - hi)
+  (x - hi is exact in float32), so that hi + lo carries x to ~2^-22 of
+  itself where hi alone errs by up to 2^-11.
+* ``wgmma ... m64nNk8 .tf32``: each product taken in 8-deep steps, each
+  step summed exactly (float64 holds a sum of 8 products of TF32 values
+  exactly enough) and added to the float32 accumulator rounding toward
+  zero, as the tensor cores add (an H100's B1 at n = 10,007 in one
+  accumulator came out 1.2e-4 of max|G| below its plain version on
+  all-positive terms; rounding to nearest would leave no drift); per step
+  the kernels issue lo·hi, then hi·lo, then hi·hi.  ``split3=False`` is
+  the single-TF32 variant (one product of rna-rounded operands), which the
+  kernels do not use.
+* Everything else in float32 as the kernels do it: B1's slices of at most
+  2,048 samples as the wrapper plans them (``ops.plan_slices_tf32x3``, for
+  an H100's 132 SMs) summed in slice order, M on FP32 FMAs in sample order;
+  B10's cumulative sums, decays, masks and the state pass.
+
+Run as a script, it prints the share of each bar that the model uses, for
+both variants, at the cases the tests use:
+
+    PYTHONPATH=src python tests/test_torch_tf32x3.py
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.rolann_stats import ops as stats_ops
+from repro_torch.kernels.rolann_stats import rolann_stats_plain
+from repro_torch.kernels.ssd_chunk import fit_chunk, ssd_chunk_plain
+
+K_STEP = 8       # depth of one TF32 wgmma
+H100_SMS = 132
+B10_TILE = 64    # query and key rows of B10's tiles
+
+
+def rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the float32 value of its TF32 rounding, half away from zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = rna_tf32(x)
+    return hi, rna_tf32(x.float() - hi)
+
+
+def mm(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = None, *,
+       split3: bool = True) -> torch.Tensor:
+    """acc + a [..., M, K] @ b [..., K, N] as the kernels' wgmmas take it:
+    8-deep steps, each summed exactly into a float32 accumulator; lo·hi,
+    hi·lo, hi·hi per step (``split3``), or one rna-rounded product."""
+    a, b = a.float(), b.float()
+    if acc is None:
+        acc = torch.zeros((*a.shape[:-1], b.shape[-1]), dtype=torch.float32)
+    if split3:
+        (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
+        terms = ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))
+    else:
+        terms = ((rna_tf32(a), rna_tf32(b)),)
+    for k in range(0, a.shape[-1], K_STEP):
+        for x, y in terms:
+            step = x[..., k:k + K_STEP].double() @ y[..., k:k + K_STEP, :].double()
+            acc = round_toward_zero(acc.double() + step)
+    return acc
+
+
+def round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32, rounded toward zero."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def fma_seq(acc: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """acc + Σ_k x[..., k]·y[..., k] by FP32 FMAs in k order (one rounding each)."""
+    for k in range(x.shape[-1]):
+        acc = (acc.double() + x[..., k].double() * y[..., k].double()).float()
+    return acc
+
+
+# ---- B1 ----
+
+def rolann_stats_model(xa, fsq, fd, *, split3=True):
+    """B1's (G [o, m, m], M [o, m]) as the tensor-core route forms them: per
+    slice A = fl32(xa_i·fsq[o]) against B = xa_j over the slice's samples and
+    M on FP32 FMAs, the slices summed in order; the upper triangle mirrored."""
+    xa, fsq, fd = xa.float(), fsq.float(), fd.float()
+    (m, n), o = xa.shape, fsq.shape[0]
+    _, slice_len = stats_ops.plan_slices_tf32x3(m, n, o, H100_SMS)
+    full, mv = torch.zeros((o, m, m)), torch.zeros((o, m))
+    for k0 in range(0, n, slice_len):
+        x, f, d = xa[:, k0:k0 + slice_len], fsq[:, k0:k0 + slice_len], fd[:, k0:k0 + slice_len]
+        full = full + mm(x[None] * f[:, None, :], x.T[None], split3=split3)   # [o, m, m]
+        mv = mv + fma_seq(torch.zeros((o, m)), x[None], d[:, None, :])
+    g = full.triu() + full.triu(1).transpose(1, 2)
+    return g, mv
+
+
+def _stats_inputs(m, o, n, seed):
+    """As chip_smoke.py's: xa = [sigmoid(z); 1], fsq in (0, 1/16], fd = fsq·2z'."""
+    rng = np.random.default_rng(seed)
+    xa = 1.0 / (1.0 + np.exp(-rng.normal(size=(m, n))))
+    xa[-1] = 1.0
+    fsq = rng.random((o, n)) / 16.0
+    fd = fsq * rng.normal(size=(o, n)) * 2.0
+    return tuple(torch.from_numpy(t.astype(np.float32)) for t in (xa, fsq, fd))
+
+
+def rolann_stats_share(m, o, n, seed, split3=True):
+    """The largest share of B1's bar (1e-4·max|plain|) G or M uses."""
+    xa, fsq, fd = _stats_inputs(m, o, n, seed)
+    g, mv = rolann_stats_model(xa, fsq, fd, split3=split3)
+    gp, mp = rolann_stats_plain(xa, fsq, fd)
+    assert torch.equal(g, g.transpose(1, 2))
+    return max(float((g.double() - gp.double()).abs().max() / (1e-4 * gp.abs().max())),
+               float((mv.double() - mp.double()).abs().max() / (1e-4 * mp.abs().max())))
+
+
+# (m, o, n): a ragged tile past the one-warp layout's 28, a ragged n, one
+# slice of the DAEF head's shape (513, 256, 2,048): 4 of its 256 outputs,
+# and n = 10,007 in slices of at most 2,048.
+B1_CASES = [(29, 3, 7), (65, 2, 301), (130, 3, 1_003), (513, 4, 2_048), (129, 1, 10_007)]
+
+
+# ---- B10 ----
+
+def ssd_chunk_model(xdt, la, b, c, chunk, *, split3=True):
+    """B10's (y, h_final) as the tensor-core kernels form them, per (b, h):
+    the chunk states (xdt·decay_end)ᵀ·B over the chunk's steps, the float32
+    state pass, then per 64-row query tile the inter term C·h_prevᵀ over N
+    scaled by exp(cum_i), and the intra term over the key tiles up to the
+    diagonal: S = C·Bᵀ over N, P = S·exp(cum_i - cum_j) masked, P·xdt."""
+    bsz, s, h, p = xdt.shape
+    g, n = b.shape[2], b.shape[3]
+    nc = s // chunk
+    y = torch.zeros((bsz, s, h, p))
+    h_final = torch.zeros((bsz, h, p, n))
+    for bi in range(bsz):
+        for hi in range(h):
+            gi = hi // (h // g)
+            state = torch.zeros((p, n))
+            for ci in range(nc):
+                rows = slice(ci * chunk, (ci + 1) * chunk)
+                cum = torch.cumsum(la[bi, rows, hi].float(), 0)
+                x = xdt[bi, rows, hi].float()                   # [Q, P]
+                bm, cm = b[bi, rows, gi].float(), c[bi, rows, gi].float()   # [Q, N]
+                contrib = mm((x * torch.exp(cum[-1] - cum)[:, None]).T, bm, split3=split3)
+                h_prev = state
+                state = (state.double() * float(torch.exp(cum[-1])) + contrib.double()).float()
+                for i0 in range(0, chunk, B10_TILE):
+                    ci_rows = slice(i0, min(i0 + B10_TILE, chunk))
+                    acc = mm(cm[ci_rows], h_prev.T, split3=split3)
+                    acc = acc * torch.exp(cum[ci_rows])[:, None]
+                    for j0 in range(0, i0 + 1, B10_TILE):
+                        cj = slice(j0, min(j0 + B10_TILE, chunk))
+                        sc = mm(cm[ci_rows], bm[cj].T, split3=split3)
+                        ti = torch.arange(ci_rows.start, ci_rows.stop)[:, None]
+                        tj = torch.arange(cj.start, cj.stop)[None, :]
+                        dec = torch.exp(cum[ci_rows][:, None] - cum[cj][None, :])
+                        pm = torch.where(tj <= ti, sc * dec, torch.zeros(()))
+                        acc = mm(pm, x[cj], acc, split3=split3)
+                    y[bi, ci * chunk + ci_rows.start:ci * chunk + ci_rows.stop, hi] = acc
+            h_final[bi, hi] = state
+    return y, h_final
+
+
+def _ssd_inputs(b, s, h, p, g, n, seed):
+    """As chip_smoke.py's: xdt, B, C standard normal, la in [-0.1, 0]."""
+    rng = np.random.default_rng(seed)
+    xdt = rng.normal(size=(b, s, h, p))
+    la = -rng.random((b, s, h)) * 0.1
+    bm, cm = rng.normal(size=(b, s, g, n)), rng.normal(size=(b, s, g, n))
+    return tuple(torch.from_numpy(t.astype(np.float32)) for t in (xdt, la, bm, cm))
+
+
+def ssd_chunk_share(b, s, h, p, g, n, chunk, seed, split3=True):
+    """The largest share of B10's bar (1e-5·max|plain|) y or h_final uses."""
+    xdt, la, bm, cm = _ssd_inputs(b, s, h, p, g, n, seed)
+    q = fit_chunk(s, chunk)
+    y, hf = ssd_chunk_model(xdt, la, bm, cm, q, split3=split3)
+    yr, hr = ssd_chunk_plain(xdt, la, bm, cm, q)
+    return max(float((y.double() - yr.double()).abs().max() / (1e-5 * yr.abs().max())),
+               float((hf.double() - hr.double()).abs().max() / (1e-5 * hr.abs().max())))
+
+
+# (b, s, h, p, g, n, chunk): small heads, a ragged chunk (250 -> 50, not a
+# multiple of 8), two groups, and one (b, h) of mamba2-780m (P 64, N 128,
+# chunk 256) at S = 512.
+B10_CASES = [(1, 64, 2, 16, 1, 32, 32), (1, 250, 2, 16, 1, 32, 64), (1, 128, 4, 8, 2, 24, 64),
+             (1, 512, 1, 64, 1, 128, 256)]
+
+
+# ---- tests ----
+
+@pytest.mark.parametrize("x,want", [
+    (1.0 + 2.0**-11, 1.0 + 2.0**-10),            # a tie rounds away from zero
+    (1.0 + 2.0**-11 - 2.0**-23, 1.0),            # below the tie
+    (-(1.0 + 2.0**-11), -(1.0 + 2.0**-10)),
+    (1.0 + 5 * 2.0**-11, 1.0 + 3 * 2.0**-10),    # a tie above an even ulp: away, not even
+    (2.0**-130, 2.0**-130),                      # a subnormal keeps its top bits
+])
+def test_rna_rounds_half_away_from_zero(x, want):
+    assert float(rna_tf32(torch.tensor([x], dtype=torch.float32))) == want
+
+
+def test_split_carries_float32_to_2_22():
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=10_000).astype(np.float32))
+    hi, lo = split(x)
+    assert bool((rna_tf32(hi) == hi).all() and (rna_tf32(lo) == lo).all())
+    assert float(((x - hi).abs() / x.abs()).max()) <= 2.0**-11
+    assert float(((x.double() - hi.double() - lo.double()).abs() / x.double().abs()).max()) \
+        <= 2.0**-21
+
+
+@pytest.mark.parametrize("m,o,n", B1_CASES)
+def test_rolann_stats_model_holds_the_bar(m, o, n):
+    share = rolann_stats_share(m, o, n, seed=m + n)
+    single = rolann_stats_share(m, o, n, seed=m + n, split3=False)
+    print(f"B1 m={m} o={o} n={n}: 3xTF32 uses {share:.4f} of the bar, one TF32 {single:.4f}")
+    assert share <= 1.0
+    assert share < single
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", B10_CASES)
+def test_ssd_chunk_model_holds_the_bar(b, s, h, p, g, n, chunk):
+    share = ssd_chunk_share(b, s, h, p, g, n, chunk, seed=s + n)
+    single = ssd_chunk_share(b, s, h, p, g, n, chunk, seed=s + n, split3=False)
+    print(f"B10 B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk}: 3xTF32 uses "
+          f"{share:.4f} of the bar, one TF32 {single:.4f}")
+    assert share <= 1.0
+    assert share < single
+
+
+if __name__ == "__main__":
+    for m, o, n in B1_CASES:
+        print(f"B1 m={m} o={o} n={n}: share of the bar 3xTF32 "
+              f"{rolann_stats_share(m, o, n, m + n):.4f}, one TF32 "
+              f"{rolann_stats_share(m, o, n, m + n, split3=False):.4f}")
+    for case in B10_CASES:
+        seed = case[1] + case[5]
+        print(f"B10 (B, S, H, P, G, N, chunk) = {case}: share of the bar 3xTF32 "
+              f"{ssd_chunk_share(*case, seed):.4f}, one TF32 "
+              f"{ssd_chunk_share(*case, seed, split3=False):.4f}")
