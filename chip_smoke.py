@@ -42,7 +42,8 @@ no result:
    ``daef.fit_chunked`` and ``daef.fit_stream`` (a per-pass callable of
    32,768-wide numpy slices) with ``chunk_samples = 32768``: 8 chunks per
    pass, the last ragged and masked.  Launch counts per streamed fit:
-   rolann_fused_chunk 32 (4 hidden layers x 8 chunks), the others 0.  Every
+   rolann_fused_chunk 32 (4 hidden layers x 8 chunks, all on its slice
+   route, ``csrc/rolann_fused_slice.cuh``), the others 0.  Every
    layer's statistics must equal an einsum re-fold of the same chunks under
    the fit's own solved weights (1e-4 * max of the leaf): B3 against its
    plain version on identical inputs.  A fit with a logistic last layer on
@@ -77,11 +78,15 @@ no result:
 9. LM kernels vs plain — B7 ``flash_attention`` (the head path's
     64 x 256 x 16/8 heads of 128 in bf16, the long prefills' 4 x 4,096 GQA
     and 2 x 4,096 MQA at head size 256 with window 2,048, a ragged S,
-    float32, windows 1 and 17), B9 ``rglru_scan`` (2 x 4,096 x 4,096, S = 1,
-    W = 100) and B10 ``ssd_chunk`` (mamba2's 4 x 4,096 x 48 heads, P 64,
+    float32, windows 1 and 17), B9 ``rglru_scan`` (2 x 4,096 x 4,096 with the
+    prefill's bf16 x and float32 gates, all bf16 and all float32; S = 1,
+    W = 100, S = 4,097 with W = 77; a repeat bit-identical) and B10
+    ``ssd_chunk`` (mamba2's 4 x 4,096 x 48 heads, P 64,
     N 128, chunk 256; S = 1,000; G = 2) against their plain versions, and
     B1 at the DAEF head's shape (m 513, o 256, n 2,048; exactly symmetric,
-    a repeat bit-identical).  Tolerances: bf16 outputs within one bf16 ulp
+    a repeat bit-identical; its scratch bytes there and at 65,536 samples,
+    where it is also held to its plain version with the memory it
+    allocates checked).  Tolerances: bf16 outputs within one bf16 ulp
     of each element, 2^-7 |ref| + 2^-7 * 1e-2 (each side rounds a float32
     result once), float32 1e-5 of the largest magnitude (summation order),
     lse 1e-5; B1 1e-4 of max|G| and of max|M|.  The B1 and B10 lines print
@@ -114,8 +119,9 @@ no result:
     that its hidden decoder layer's fold is B1.
 12. long prefills — ``get_bundle(cfg).prefill`` at full width and depth,
     bf16, after a warm-up: qwen3-1.7b 4 x 4,096 (B7 28), mamba2-780m
-    4 x 4,096 (B10 48), recurrentgemma-9b 2 x 4,096 (B7 12, B9 26), every
-    B7 launch on the tensor-core route; finite last-token logits.  Each model is freed before the next.
+    4 x 4,096 (B10 48), recurrentgemma-9b 2 x 4,096 (B7 12, B9 26, every B9
+    launch on the backbone's bf16 x), every B7 launch on the tensor-core
+    route; finite last-token logits.  Each model is freed before the next.
 13. LM profiles — one head-path forward batch, one mamba2-780m prefill
     (B10's five kernels listed by name) and one recurrentgemma-9b prefill
     under ``torch.profiler``: busy share and the device-time shares of B1,
@@ -251,6 +257,8 @@ def phase_build():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 say("build", f"{name}: {line.strip()}")
+    for name in ("rglru_scan", "rolann_fused_chunk", "rolann_stats"):
+        _say_ptxas_named(name)
 
 
 # ---------------------------------------------------------------------------
@@ -401,7 +409,7 @@ def _fused_inputs(m_l, m_c1, n, act, mask_zeros, seed):
 def _check_fold(label, fold, plain, g0, m0):
     """Run a folding wrapper and its plain version from the same running
     accumulators; check identity, dtype, symmetry, agreement and
-    repeatability.  Returns max|d|."""
+    repeatability.  Returns max|d| and the share of the bar it uses."""
     import torch
 
     g, mv = g0.clone(), m0.clone()
@@ -420,9 +428,10 @@ def _check_fold(label, fold, plain, g0, m0):
     g2, m2 = g0.clone(), m0.clone()
     fold(g2, m2)
     check(bool(torch.equal(g2, g) and torch.equal(m2, mv)), f"{label}: not deterministic")
+    used = err / (tol * scale)
     say("kernel", f"{label} {str(g0.dtype)[6:]} acc: max|d| {err:.3e} (max|plain| {scale:.3e}, "
-        f"tol {tol:g}), symmetric, repeatable, in place, ok")
-    return err
+        f"tol {tol:g}: {used:.4f} of the bar), symmetric, repeatable, in place, ok")
+    return err, used
 
 
 def _time_fold(fold, plain, library, g0, m0):
@@ -441,6 +450,7 @@ def phase_fold_kernels(acc_shapes, fused_shapes, n_chunk):
     import torch
 
     from repro_torch.kernels.rolann_stats import (
+        ops,
         rolann_fused_chunk,
         rolann_fused_chunk_plain,
         rolann_stats_acc,
@@ -464,7 +474,7 @@ def phase_fold_kernels(acc_shapes, fused_shapes, n_chunk):
         g0, m0 = _running(o, m, dtype, seed=200 + i)
         fold = lambda g, mv: rolann_stats_acc(g, mv, xa, fsq, fd)  # noqa: E731
         plain = lambda g, mv: rolann_stats_acc_plain(g, mv, xa, fsq, fd)  # noqa: E731
-        err = _check_fold(f"rolann_stats_acc {label} n={n}", fold, plain, g0, m0)
+        err, _ = _check_fold(f"rolann_stats_acc {label} n={n}", fold, plain, g0, m0)
         if label.startswith("path"):
             ms, plain_ms, library_ms = _time_fold(
                 fold, plain, lambda: torch.einsum("in,on,jn->oij", xa, fsq, xa), g0, m0)
@@ -487,13 +497,23 @@ def phase_fold_kernels(acc_shapes, fused_shapes, n_chunk):
         g0, m0 = _running(m_l, m_c1 + 1, dtype, seed=400 + i)
         fold = lambda g, mv: rolann_fused_chunk(g, mv, h, w, b, mask, act_name=act)  # noqa: E731
         plain = lambda g, mv: rolann_fused_chunk_plain(g, mv, h, w, b, mask, act)  # noqa: E731
-        err = _check_fold(f"rolann_fused_chunk {label} n={n} {act}", fold, plain, g0, m0)
+        route = "slice" if ops.fused_slice_route(1, m_l, m_c1) else "tile"
+        before = rolann_fused_chunk.route_launches[route]
+        err, used = _check_fold(f"rolann_fused_chunk {label} n={n} {act} ({route})", fold,
+                                plain, g0, m0)
+        check(rolann_fused_chunk.route_launches[route] == before + 2,
+              f"rolann_fused_chunk {label}: not on the {route} route")
         if label.startswith("path"):
+            check(route == "slice", f"B3 at the path's shape {label} must take the slice route")
             ms, plain_ms, _ = _time_fold(fold, plain, None, g0, m0)
+            bound_ms, bound_by = _fused_bound(m_l, m_c1, n)
             rows["rolann_fused_chunk"].append(dict(m_l=m_l, m_c1=m_c1, n=n, max_abs_err=err,
-                                                   ms=ms, plain_ms=plain_ms, library_ms=None))
-            say("kernel", f"rolann_fused_chunk {label} n={n}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, library none (no single PyTorch call computes the "
+                                                   ms=ms, plain_ms=plain_ms, library_ms=None,
+                                                   bound_ms=bound_ms, bound_by=bound_by,
+                                                   bar_used=used))
+            say("kernel", f"rolann_fused_chunk {label} n={n}: kernel {ms:.4f} ms a launch, "
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms on FP32 cores "
+                f"({bound_by}), library none (no single PyTorch call computes the "
                 "stage-1 activation, the target transform and the masked (G, M) fold)")
 
     before = (rolann_stats_acc.launches, rolann_fused_chunk.launches)
@@ -750,6 +770,10 @@ def phase_streaming(cfg, x_train, x_test, y_test, xtr, xte):
     model_c, scores_c, metrics_c, launches = timed(
         "fused fit_chunked", lambda: daef.fit_chunked(cfg, xtr, chunk_samples=CHUNK_SAMPLES),
         cfg, expect)
+    from repro_torch.kernels.rolann_stats import rolann_fused_chunk
+    check(rolann_fused_chunk.route_launches == {"slice": n_hidden * n_chunks, "tile": 0},
+          f"the streamed fit's B3 launches by route {rolann_fused_chunk.route_launches}, "
+          "expected all on the slice route")
     _check_refold("fused fit_chunked", cfg, model_c, passes, range(len(model_c.layer_knowledge)))
     model_s, _, _, _ = timed("fused fit_stream", lambda: daef.fit_stream(cfg, host_chunks),
                              cfg, expect)
@@ -930,7 +954,7 @@ def phase_batched_kernels(k, stats_shapes, n_tenant, acc_shape, fused_shapes, n_
         g0, m0 = (torch.stack(p).contiguous() for p in zip(*parts))
         fold = lambda g, mv: rolann_stats_acc_batched(g, mv, xa, fsq, fd)  # noqa: E731
         plain = lambda g, mv: rolann_stats_acc_batched_plain(g, mv, xa, fsq, fd)  # noqa: E731
-        err = _check_fold(f"rolann_stats_acc_batched {label} n={n}", fold, plain, g0, m0)
+        err, _ = _check_fold(f"rolann_stats_acc_batched {label} n={n}", fold, plain, g0, m0)
         if label.startswith("path"):
             ms, plain_ms, library_ms = _time_fold(
                 fold, plain, lambda: torch.einsum("kin,kon,kjn->koij", xa, fsq, xa), g0, m0)
@@ -960,7 +984,8 @@ def phase_batched_kernels(k, stats_shapes, n_tenant, acc_shape, fused_shapes, n_
         g0, m0 = (torch.stack(p).contiguous() for p in zip(*parts))
         fold = lambda g, mv: rolann_fused_chunk_batched(g, mv, h, w, b, mask, act_name=act)  # noqa: E731
         plain = lambda g, mv: rolann_fused_chunk_batched_plain(g, mv, h, w, b, mask, act)  # noqa: E731
-        err = _check_fold(f"rolann_fused_chunk_batched {label} n={n} {act}", fold, plain, g0, m0)
+        err, _ = _check_fold(f"rolann_fused_chunk_batched {label} n={n} {act}", fold, plain,
+                             g0, m0)
         if label.startswith("path"):
             ms, plain_ms, _ = _time_fold(fold, plain, None, g0, m0)
             bound_ms, bound_by = _bound(*_batched_work(kk, _fused_work(m_l, m_c1, n)))
@@ -1456,6 +1481,25 @@ def _ptxas(library, kernel):
     return out
 
 
+def _say_ptxas_named(library):
+    """Registers and spill bytes of every kernel in ``library``'s build log,
+    by mangled name."""
+    from repro_torch.kernels import _build
+
+    name = spill = None
+    for line in _build.build_log(library).splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+        elif name and "spill stores" in line:
+            spill = re.findall(r"(\d+) bytes spill", line)
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            say("build", f"ptxas {library} {name}: {regs} registers, spill stores "
+                f"{spill[0] if spill else '?'} B, spill loads {spill[1] if spill else '?'} B")
+            name = None
+
+
 def _say_ptxas(library, kernels):
     for kernel in kernels:
         for args, (regs, stores, loads) in sorted(_ptxas(library, kernel).items()):
@@ -1474,10 +1518,11 @@ def _attention_work(b, s, h, hkv, d, elem, window):
     return flops, nbytes
 
 
-def _rglru_work(b, s, w):
+def _rglru_work(b, s, w, x_elem=4, gate_elem=4):
     """B9: ~10 operations per element (exp, expm1 and sqrt counted as one
-    each); x, r, i and lam read once, y and h_last written once, float32."""
-    return 10 * b * s * w, 4 * (3 * b * s * w + w + b * s * w + b * w)
+    each); x (``x_elem`` bytes an element), r and i (``gate_elem`` each) and
+    lam read once, y and h_last written once in float32."""
+    return 10 * b * s * w, (x_elem + 2 * gate_elem) * b * s * w + 4 * (w + b * s * w + b * w)
 
 
 def _ssd_work(b, s, h, p, g, n, chunk):
@@ -1543,7 +1588,7 @@ def phase_lm_kernels():
     def randn(*shape, dtype=f32):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    from repro_torch.kernels.rolann_stats import rolann_stats, rolann_stats_plain
+    from repro_torch.kernels.rolann_stats import ops, rolann_stats, rolann_stats_plain
 
     rows = {"flash_attention": [], "rglru_scan": [], "ssd_chunk": [], "rolann_stats_head": []}
     # B1 at the DAEF head's one launch: the hidden decoder layer's 512 units
@@ -1575,6 +1620,42 @@ def phase_lm_kernels():
         f"(tol 1e-4 * max); G exactly symmetric, repeat bit-identical; kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, einsum yardstick {library_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms at 3xTF32 ({bound_by}), {fp32_ms:.4f} ms on FP32 cores")
+
+    # B1's scratch does not grow with n: at the head's (m, o) one slice sums
+    # runs of 2,048 samples in G itself, at 2,048 samples or at 65,536.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_big = 65_536
+    scratch = {nn: ops.workspace_bytes(1, m, nn, o, False, sms) for nn in (n, n_big)}
+    rows["rolann_stats_head"][-1]["scratch_bytes"] = scratch[n]
+    xa, fsq, fd = _stats_inputs(m, o, n_big, f32, seed=16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    g, mv = rolann_stats(xa, fsq, fd)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    check(peak <= 4 * o * (m * m + m) + 2**20, f"B1 at n={n_big}: {peak} bytes allocated, "
+          "more than G and M")
+    # the plain version over 4,096-sample blocks, summed in float64 (in one
+    # call its einsum would hold a 34 GB [o, m, n] intermediate)
+    gp = torch.zeros((o, m, m), dtype=torch.float64, device="cuda")
+    mp = torch.zeros((o, m), dtype=torch.float64, device="cuda")
+    for k in range(0, n_big, 4_096):
+        dg, dm = rolann_stats_plain(*(t[:, k:k + 4_096].contiguous() for t in (xa, fsq, fd)))
+        gp += dg.double()
+        mp += dm.double()
+    (err_g, scale_g), (err_m, scale_m) = (_agree(f"B1 n={n_big} G", g, gp, 1e-4),
+                                          _agree(f"B1 n={n_big} M", mv, mp, 1e-4))
+    check(bool((g == g.transpose(1, 2)).all()), f"B1 n={n_big}: G not symmetric")
+    g2, m2 = rolann_stats(xa, fsq, fd)
+    check(bool(torch.equal(g2, g) and torch.equal(m2, mv)), f"B1 n={n_big}: not deterministic")
+    ms_big = cuda_ms(lambda: rolann_stats(xa, fsq, fd), reps=5, warmup=1)
+    say("kernel", f"rolann_stats scratch at m={m} o={o}: {scratch[n]} bytes at n={n}, "
+        f"{scratch[n_big]} at n={n_big} (slices capped at 2,048 samples would take "
+        f"{4 * -(-n_big // 2_048) * o * (m * m + m)}); at n={n_big}: {peak} bytes allocated "
+        f"(G and M), G {err_g / (1e-4 * scale_g):.4f} and M {err_m / (1e-4 * scale_m):.4f} of "
+        f"the bar, exactly symmetric, repeat bit-identical, kernel {ms_big:.3f} ms")
+    del xa, fsq, fd, g, mv, g2, m2, gp, mp
 
     b_q, s_q = PREFILL[QWEN3]
     b_r, s_r = PREFILL[RGEMMA]
@@ -1627,30 +1708,52 @@ def phase_lm_kernels():
                 f"{plain_ms:.4f} ms, SDPA yardstick {library_ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms ({bound_by}, {flops:.3g} FLOP, {nbytes / 1e6:.1f} MB)")
 
+    # B9 on the prefill's inputs (the backbone's bf16 x, float32 gates: their
+    # bias is float32), all bf16 and all float32; ragged S (a last tile of 1
+    # or 5 of 32 steps) and W (a last lane group of 13 or 4; rows that are
+    # not whole 16-byte chunks are loaded by the workers, not staged).
     w_r = 4_096
-    for label, b, s, w, timed in (("recurrentgemma prefill", b_r, s_r, w_r, True),
-                                  ("S = 1", 3, 1, w_r, False),
-                                  ("W = 100", 2, 37, 100, False)):
-        x = randn(b, s, w)
-        r, i = torch.sigmoid(randn(b, s, w)), torch.sigmoid(randn(b, s, w))
+    for label, b, s, w, dtype, gdtype, timed in (
+            ("recurrentgemma prefill", b_r, s_r, w_r, bf16, f32, True),
+            ("recurrentgemma prefill, bf16 gates", b_r, s_r, w_r, bf16, bf16, True),
+            ("recurrentgemma prefill float32", b_r, s_r, w_r, f32, f32, True),
+            ("S = 1", 3, 1, w_r, f32, f32, False), ("S = 1 bf16", 3, 1, w_r, bf16, bf16, False),
+            ("W = 100", 2, 37, 100, f32, f32, False),
+            ("W = 100 bf16", 2, 37, 100, bf16, bf16, False),
+            ("S = 4,097, W = 77 bf16 x", 2, 4_097, 77, bf16, f32, False)):
+        x = randn(b, s, w, dtype=dtype)
+        r = torch.sigmoid(randn(b, s, w)).to(gdtype)
+        i = torch.sigmoid(randn(b, s, w)).to(gdtype)
         lam = randn(w) + 4.0
+        name = f"x {str(dtype)[6:]}, gates {str(gdtype)[6:]}"
+        before = rglru_scan.route_launches[str(dtype)[6:]]
         y, hl = rglru_scan(x, r, i, lam)
         torch.cuda.synchronize()
-        yr, hr = rglru_scan_ref(x, r, i, lam)
-        # the same operations in the same order; transcendentals' last bits
-        err = max(_agree(f"B9 {label} y", y, yr, 1e-5, 1.0)[0],
-                  _agree(f"B9 {label} h_last", hl, hr, 1e-5, 1.0)[0])
-        say("kernel", f"rglru_scan {label} B={b} S={s} W={w}: max|d| {err:.3e} (tol 1e-05), ok")
+        check(rglru_scan.route_launches[str(dtype)[6:]] == before + 1,
+              f"B9 {label}: not counted on x's dtype")
+        xf, rf, i_f = x.float(), r.float(), i.float()
+        yr, hr = rglru_scan_ref(xf, rf, i_f, lam)
+        # the same operations in the same order on the same (widened)
+        # values; the transcendentals' last bits
+        (err_y, scale_y), (err_h, scale_h) = (_agree(f"B9 {label} y", y, yr, 1e-5, 1.0),
+                                              _agree(f"B9 {label} h_last", hl, hr, 1e-5, 1.0))
+        err, used = max(err_y, err_h), max(err_y / scale_y, err_h / scale_h) / 1e-5
+        y2, h2 = rglru_scan(x, r, i, lam)
+        check(bool(torch.equal(y, y2) and torch.equal(hl, h2)), f"B9 {label}: not deterministic")
+        say("kernel", f"rglru_scan {label} B={b} S={s} W={w} {name}: max|d| {err:.3e} "
+            f"({used:.4f} of the bar 1e-5 * max(1, max|plain|)), repeat bit-identical, ok")
         if timed:
             ms = cuda_ms(lambda: rglru_scan(x, r, i, lam))
-            plain_ms = cuda_ms(lambda: rglru_scan_ref(x, r, i, lam))
-            bound_ms, bound_by = _bound(*_rglru_work(b, s, w))
-            rows["rglru_scan"].append(dict(shape=label, b=b, s=s, w=w, max_abs_err=err, ms=ms,
-                                           plain_ms=plain_ms, library_ms=None,
-                                           bound_ms=bound_ms, bound_by=bound_by))
-            say("kernel", f"rglru_scan {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}); library none (no single PyTorch "
-                "call computes a gated linear recurrence)")
+            plain_ms = cuda_ms(lambda: rglru_scan_ref(xf, rf, i_f, lam))
+            bound_ms, bound_by = _bound(*_rglru_work(b, s, w, x.element_size(),
+                                                     r.element_size()))
+            rows["rglru_scan"].append(dict(shape=label, b=b, s=s, w=w, dtypes=name,
+                                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                           library_ms=None, bound_ms=bound_ms,
+                                           bound_by=bound_by, bar_used=used))
+            say("kernel", f"rglru_scan {label} ({name}): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); library none (no "
+                "single PyTorch call computes a gated linear recurrence)")
 
     b_m, s_m = PREFILL[MAMBA2]
     for label, b, s, h, p, g, n, chunk, timed in (
@@ -1944,6 +2047,12 @@ def phase_lm():
     launches[RGEMMA], numbers[RGEMMA] = phase_prefill(
         RGEMMA, cfg, bundle, params,
         dict(flash_attention=n_attn, rglru_scan=cfg.n_layers - n_attn))
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    check(rglru_scan.route_launches == {"float32": 0, "bfloat16": cfg.n_layers - n_attn},
+          f"recurrentgemma prefill: B9 launches by x's dtype {rglru_scan.route_launches}, "
+          "expected all on the backbone's bf16")
+    say("prefill", f"recurrentgemma-9b: B9's {cfg.n_layers - n_attn} launches took the "
+        "backbone's bf16 x as it is (no float32 copy)")
     b, s = PREFILL[RGEMMA]
     batch = {"tokens": synthetic.lm_token_stream(cfg.vocab_size, s, b, seed=11)}
     lm_profile("recurrentgemma-9b prefill (2 x 4,096)", lambda: bundle.prefill(params, batch))
@@ -2341,6 +2450,15 @@ def main() -> int:
             _stats_work(m, o, nv)[0], _stats_work(m, o, nv)[1] + 4 * (o * m * m + o * m)))),
         "fused": lambda m_l, m_c1, nv: _bound(*_batched_work(k_fleet, _fused_work(m_l, m_c1, nv))),
     }
+    b3_rows = fold_rows["rolann_fused_chunk"]
+    b3_fit = _per_fit(b3_rows, len(n_valid), _fused_bound, ("m_l", "m_c1"), n_valid)
+    say("kernel", f"rolann_fused_chunk per streamed fit ({len(n_valid)} chunks x "
+        f"{len(b3_rows)} layers = {stream_launches['rolann_fused_chunk']} launches): "
+        f"{b3_fit['ms']:.4f} ms (per launch at the chunk width: "
+        + ", ".join(f"({r['m_l']}, {r['m_c1']}) {r['ms']:.4f}" for r in b3_rows)
+        + f" ms), bound {b3_fit['bound_ms']:.4f} ms on FP32 cores ({b3_fit['bound_by']}; "
+        "no tensor-core route), worst share of the bar "
+        f"{max(r['bar_used'] for r in b3_rows):.4f}")
     kernels = [
         {
             "name": "rolann_stats",
@@ -2364,12 +2482,11 @@ def main() -> int:
         {
             "name": "rolann_fused_chunk",
             "route": "cuda",
-            "source": source + "rolann_fused_chunk.cu",
+            "source": source + "rolann_fused_slice.cuh",
             "replaces": replaces + "330",
             "launches": stream_launches["rolann_fused_chunk"],
             # One streamed fit: 8 launches at each hidden layer's shape.
-            **_per_fit(fold_rows["rolann_fused_chunk"], len(n_valid), _fused_bound,
-                       ("m_l", "m_c1"), n_valid),
+            **b3_fit,
         },
         {
             "name": "rolann_stats_batched",

@@ -8,7 +8,8 @@ reconstruction MSE exceeds a threshold ``mu`` derived from the *training*
     extreme IQR:  mu = Q3 + 3.0 * IQR
 
 or a plain quantile (e.g. Q90).  Quantiles are NaN-aware and interpolate
-linearly (``torch.nanquantile``), as ``jnp.nanquantile`` does.
+linearly (:func:`nanquantile`), as ``jnp.nanquantile`` does, for any number
+of errors.
 
 Every function takes ``device=``: ``None`` means the card (see
 :mod:`repro_torch.device`).
@@ -44,6 +45,37 @@ def parse_quantile_rule(rule: str) -> float | None:
     return pct
 
 
+def nanquantile(x: torch.Tensor, *qs: float) -> tuple[torch.Tensor, ...]:
+    """The ``q`` quantile of each row of ``x`` (of ``x`` itself when 1-D) for
+    each ``q`` of ``qs``, NaNs ignored, interpolated linearly:
+    ``np.nanquantile(x, q, axis=-1)`` with numpy's arithmetic, on ``x``'s
+    device and in its dtype, for any row length (``torch.nanquantile``
+    refuses more than 2^24 elements).  One sort serves every ``q``.  A row
+    with no value that is not NaN gives NaN.
+    """
+    if x.shape[-1] == 0:
+        nan = torch.full(x.shape[:-1], torch.nan, dtype=x.dtype, device=x.device)
+        return tuple(nan for _ in qs)
+    s = torch.sort(x, dim=-1).values                           # NaNs sort last
+    count = (~torch.isnan(x)).sum(dim=-1, keepdim=True)
+    last = (count - 1).clamp(min=0)
+    out = []
+    for q in qs:
+        # numpy: q in the data's dtype, virtual index (n - 1) * q, its floor
+        # and the next index, both the last value where it reaches n - 1.
+        virtual = (count - 1).to(x.dtype) * torch.tensor(q, dtype=x.dtype, device=x.device)
+        above = virtual >= (count - 1).to(x.dtype)
+        below = torch.floor(virtual)
+        gamma = virtual - torch.where(above, -1.0, below)
+        lo = torch.where(above, last, below.long())
+        hi = torch.where(above, last, (below.long() + 1).clamp(max=last))
+        a, b = torch.gather(s, -1, lo), torch.gather(s, -1, hi)
+        diff = b - a                                           # numpy's _lerp
+        lerp = torch.where(gamma >= 0.5, b - diff * (1 - gamma), a + diff * gamma)
+        out.append(torch.where(count == 0, torch.nan, lerp).squeeze(-1))
+    return tuple(out)
+
+
 def threshold(train_errors, rule: str = "extreme_iqr", *, device=None) -> torch.Tensor:
     """mu (a 0-d tensor) from training reconstruction errors [n]; or one mu
     per row, [K], from a fleet's errors [K, n] (one quantile call for every
@@ -52,12 +84,10 @@ def threshold(train_errors, rule: str = "extreme_iqr", *, device=None) -> torch.
     rule: "unusual_iqr" | "extreme_iqr" | "q<percent>".
     """
     errs = as_tensor(train_errors, resolve_device(device))
-    dim = -1 if errs.ndim > 1 else None
     pct = parse_quantile_rule(rule)
     if pct is not None:
-        return torch.nanquantile(errs, pct / 100.0, dim=dim, interpolation="linear")
-    q1 = torch.nanquantile(errs, 0.25, dim=dim, interpolation="linear")
-    q3 = torch.nanquantile(errs, 0.75, dim=dim, interpolation="linear")
+        return nanquantile(errs, pct / 100.0)[0]
+    q1, q3 = nanquantile(errs, 0.25, 0.75)
     iqr = q3 - q1
     if rule == "unusual_iqr":
         return q3 + 1.5 * iqr

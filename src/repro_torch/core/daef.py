@@ -499,7 +499,7 @@ def reconstruction_error(
 # Federated aggregation / incremental learning (gram method)
 # ---------------------------------------------------------------------------
 
-def merge_models(config: DAEFConfig, a: DAEFModel, b: DAEFModel) -> DAEFModel:
+def merge_models(config: DAEFConfig, a: DAEFModel, b: DAEFModel, x_stats=None) -> DAEFModel:
     """Aggregate two DAEF models trained on different partitions (paper §4.3).
 
     The exchanged state is what the paper sends through the broker: the
@@ -507,7 +507,7 @@ def merge_models(config: DAEFConfig, a: DAEFModel, b: DAEFModel) -> DAEFModel:
     Weights are re-solved from the merged knowledge.  As in the paper, each
     node computed its decoder statistics against its own encoder, so after
     the encoders merge the decoder statistics approximate the centralized
-    solution.
+    solution.  ``x_stats`` is accepted and ignored, as in the reference.
     """
     return _merge_core(config, a, b, config.layer_keys(), config.lam_hidden,
                        config.lam_last)

@@ -150,3 +150,23 @@ def raise_on(who: str, err: int) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{who}: kernel launch failed with CUDA error {err}")
+
+
+def launch(library: str, name: str, argtypes, device, *args) -> None:
+    """Call the C entry point ``name`` of ``library`` with ``args`` and then
+    the raw handle of PyTorch's current stream on ``device`` (every entry
+    point's last argument), with ``device`` the current CUDA device; raise
+    if it returns a CUDA error.  The stream and device are read through
+    torch's C API (as Triton's launcher reads the stream): the Python
+    ``torch.cuda`` wrappers cost several microseconds a launch."""
+    import torch
+
+    fn = function(library, name, argtypes)
+    index = device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if torch._C._cuda_getDevice() == index:
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
+    raise_on(name, err)

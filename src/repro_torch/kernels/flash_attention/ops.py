@@ -145,13 +145,9 @@ def _forward(q, k, v, causal, window):
         return out, lse
     if q.dtype == torch.bfloat16:
         _check_tma("flash_attention", q=q, k=k, v=v)
-    fn = _build.function("flash_attention", "flash_attention_fwd", _ARGS)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b, s, h, k.shape[2], d, _strides(q, k, v), int(causal),
-                 window or 0, d**-0.5, stream)
-    _build.raise_on("flash_attention_fwd", err)
+    _build.launch("flash_attention", "flash_attention_fwd", _ARGS, q.device, _DTYPES[q.dtype],
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b,
+                  s, h, k.shape[2], d, _strides(q, k, v), int(causal), window or 0, d**-0.5)
     flash_attention.launches += 1
     flash_attention.route_launches[_route(q.dtype)] += 1
     return out, lse
@@ -228,14 +224,10 @@ def flash_attention_bwd(
         _check_tma("flash_attention_bwd", q=q, k=k, v=v, do=do)
     dvec = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()   # [B, H, S]
     lse = lse.contiguous()
-    fn = _build.function("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGS)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, s, h, hkv, d, _strides(q, k, v), int(causal),
-                 window or 0, d**-0.5, stream)
-    _build.raise_on("flash_attention_bwd", err)
+    _build.launch("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGS, q.device,
+                  _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  b, s, h, hkv, d, _strides(q, k, v), int(causal), window or 0, d**-0.5)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.route_launches[_route(q.dtype)] += 1
     return dq, dk, dv

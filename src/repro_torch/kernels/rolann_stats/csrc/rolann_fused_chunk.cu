@@ -17,20 +17,27 @@
 // w [k, m_l, m_c1], b [k, m_c1], mask [k, n], g [k, m_l, ma, ma],
 // mv [k, m_l, ma].  The targets are h itself (the auxiliary
 // autoencoder reconstructs its input), so o == m_l.  The activation and the
-// target transform never reach device memory.  The device functions below
-// are written as repro_torch/core/activations.py writes them (logsig as
-// 1/(1+exp(-z)), the logit as log(y) - log1p(-y)), without fast math.
+// target transform never reach device memory.  The activation's device
+// functions (rolann_fused_slice.cuh) are written as
+// repro_torch/core/activations.py writes them (logsig as 1/(1+exp(-z)), the
+// logit as log(y) - log1p(-y)), without fast math.
+//
+// Two kernels, chosen by shape in `launch()`: B3 with ma <= 28 and m_l <= 32
+// (every hidden layer of the streamed creditcard fit) runs
+// rolann_fused_slice.cuh's block per sample slice, which forms the slice's
+// activations once for all outputs; B6 and wider layers run
+// `fused_partial_kernel` below.
 //
 // What bounds it.  The work is that of B1 (o·m(m+1)/2·n FMAs for G's upper
 // triangle) plus one stage-1 product per sample, m_l·m_c1·n FMAs, against
-// (m_l + 1)·n·4 bytes read: bound by FP32 compute on the DAEF path.  This
-// first version recomputes the stage-1 product for every output, as the
-// Pallas kernel does (its comment at kernel.py:271-284): on the creditcard
-// shapes that is 1.6 to 2.6 times the FMAs of G.  Computing xa once per slice
-// and looping over the outputs is the first thing a faster version tries.
+// (m_l + 1)·n·4 bytes read: bound by FP32 compute on the DAEF path.
+// `fused_partial_kernel` recomputes the stage-1 product for every output, as
+// the Pallas kernel does (its comment at kernel.py:271-284): on the
+// creditcard shapes that is 1.6 to 2.6 times the FMAs of G.
 //
-// Design.  B1's grid of (output o, upper-triangle tile of G, sample slice),
-// its 4x4 pieces, fixed-order group sums and slice reduction
+// Design of `fused_partial_kernel`.  B1's grid of (output o,
+// upper-triangle tile of G, sample slice), its 4x4 pieces, fixed-order
+// group sums and slice reduction
 // (rolann_common.cuh), with a loader that computes the staged rows of xa
 // instead of reading them.  Per 64-sample chunk a block:
 //   1. stages the chunk of h, all m_l rows, in shared memory, and forms
@@ -64,42 +71,16 @@
 // G stays exactly symmetric.
 
 #include "rolann_common.cuh"
+#include "rolann_fused_slice.cuh"
 
 namespace {
 
 using namespace rolann;
 
-constexpr int kLogsig = 0;
-constexpr int kTanh = 1;
 constexpr int kSamplesPerLane = kChunk / (kThreads / 32);   // 8
 // Blocks of kThreads each SM must hold at once: at most 64 registers a
 // thread (see "The tenant axis" above).
 constexpr int kMinBlocksPerSm = 4;
-
-template <int A>
-__device__ __forceinline__ float act_fn(float z) {
-  return A == kLogsig ? 1.f / (1.f + expf(-z)) : tanhf(z);
-}
-
-template <int A>
-__device__ __forceinline__ float act_deriv(float z) {
-  const float s = act_fn<A>(z);
-  return A == kLogsig ? s * (1.f - s) : 1.f - s * s;
-}
-
-template <int A>
-__device__ __forceinline__ float act_inv(float y) {
-  return A == kLogsig ? logf(y) - log1pf(-y) : atanhf(y);
-}
-
-// clip_to_range: the open range shrunk by 1e-6, bounds rounded to float32
-// as torch rounds a Python float; NaN passes through as in torch.clamp.
-template <int A>
-__device__ __forceinline__ float act_clip(float y) {
-  constexpr float lo = A == kLogsig ? (float)(0.0 + 1e-6) : (float)(-1.0 + 1e-6);
-  constexpr float hi = (float)(1.0 - 1e-6);
-  return y < lo ? lo : (y > hi ? hi : y);
-}
 
 template <int kGroupWarps, int A, bool kBatched>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
@@ -266,6 +247,12 @@ int launch(const float* h, const float* w, const float* b, const float* mask, fl
            float* ws_m, float* g, float* mv, int k, int m_l, int m_c1, long long n, int act,
            int slices, long long slice_len, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (slice::takes(k, m_l, m_c1)) {
+    return act == kLogsig ? slice::launch<kLogsig>(h, w, b, mask, ws_g, ws_m, g, mv, m_l, m_c1,
+                                                   n, slices, slice_len, st)
+                          : slice::launch<kTanh>(h, w, b, mask, ws_g, ws_m, g, mv, m_l, m_c1,
+                                                 n, slices, slice_len, st);
+  }
   const int ma = m_c1 + 1;
   const int tiles = (ma + kTile - 1) / kTile;
   const dim3 grid(k * m_l, tiles * (tiles + 1) / 2, slices);
@@ -283,9 +270,11 @@ int launch(const float* h, const float* w, const float* b, const float* mask, fl
 
 // B3: fold one chunk into the running g [m_l, ma, ma] and mv [m_l, ma]
 // (ma = m_c1 + 1), act 0 = logsig, 1 = tanh.  Launches both kernels on
-// `stream`; returns cudaGetLastError() (0 = launched).  ws_g
-// [slices, m_l, ma, ma] and ws_m [slices, m_l, ma] are scratch from the
-// caller; slices * slice_len must cover n and every slice must start below n.
+// `stream` (with ma <= 28 and m_l <= 32 those of rolann_fused_slice.cuh);
+// returns cudaGetLastError() (0 = launched).  ws_g [slices, m_l, ma, ma]
+// and ws_m [slices, m_l, ma] are scratch from the caller, slices planned
+// for the route (ops.plan_fused); slices * slice_len must cover n and every
+// slice must start below n.
 extern "C" int rolann_fused_chunk_f32(const float* h, const float* w, const float* b,
                                       const float* mask, float* ws_g, float* ws_m, float* g,
                                       float* mv, int m_l, int m_c1, long long n, int act,

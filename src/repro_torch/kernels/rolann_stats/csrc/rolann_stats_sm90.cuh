@@ -38,6 +38,18 @@
 // 513 = 8·64 + 1) is a second launch whose blocks take it as an 8-wide
 // column tile (m64n8k8): as a 64-row tile it would be a fifth of the work.
 //
+// Runs.  The tensor cores add each product into the float32 accumulator
+// rounding toward zero, so a long run of adds drifts low (PERF.md: 1.2 of
+// the bar at 10,007 samples in one accumulator).  A block walks its
+// slice in runs of at most kRunSamples = 2,048 samples (768 adds); after
+// each run but the last it adds its accumulators, in run order, into a
+// float32 sum rounded to nearest on the FP32 cores, held in the block's own
+// tile of its output (G, or its slice of the workspace), which no other
+// block writes; then it starts the next run from zero.  At the last run the
+// sum comes back into the accumulators for the epilogue.  So the slices are
+// planned for occupancy only, the workspace does not grow with n, and one
+// run (the head's n = 2,048) is the arithmetic of one accumulator.
+//
 // Epilogue.  With one slice (the head's shape: 36 tile pairs x 64 output
 // groups = 2,304 blocks, and 9 x 64 narrow ones) the block writes G directly, its tile and the
 // mirrored one through a shared-memory transpose (coalesced both ways); a
@@ -63,6 +75,9 @@ constexpr int kStep = tf32x3::kPanel;      // samples per staged step
 constexpr int kThreads = 128 * kGroups;
 constexpr int kWarps = kThreads / 32;
 constexpr int kLdA = kStep + 4;            // raw xa_i rows: conflict-free fragment reads
+constexpr int kRunSamples = 2048;          // most samples one accumulator sums (ops.TC_MAX_SLICE)
+constexpr int kRunSteps = kRunSamples / kStep;
+static_assert(kRunSamples % kStep == 0, "runs are whole steps");
 static_assert(2 * kOutputs == kWarps, "one warp loads each output's fsq, one its fd");
 static_assert(kOutputs * kTile == kThreads, "one (row, output) of M a thread");
 
@@ -86,8 +101,10 @@ struct Geo {
 
 // Grid: x the tile pair (kN == kTile: the upper triangle of `tiles` tiles;
 // kN == kTail: (x, last)), y the group of kOutputs outputs, z the slice.
-// Warpgroup w of the block owns outputs o0 + 2w and o0 + 2w + 1.
-template <int kN>
+// Warpgroup w of the block owns outputs o0 + 2w and o0 + 2w + 1.  kRuns:
+// slices longer than one run (the run loop is compiled only there, so one
+// run, the head's shape, runs the loop without it).
+template <int kN, bool kRuns>
 __global__ void __launch_bounds__(kThreads, 2)
 stats_tf32x3_kernel(const float* __restrict__ xa, const float* __restrict__ fsq,
                     const float* __restrict__ fd, float* __restrict__ g, float* __restrict__ mv,
@@ -166,6 +183,42 @@ stats_tf32x3_kernel(const float* __restrict__ xa, const float* __restrict__ fsq,
     for (int e = 0; e < kN / 2; ++e) acc[q][e] = 0.f;
   float macc = 0.f;  // M: row tid % 64 of output tid / 64
 
+  // The block's own tile of output q of this warpgroup: G itself with one
+  // slice, else this slice's partial in the workspace.
+  auto out_g = [&](int q) {
+    const long long oq = o0 + kWgOutputs * wg + q;
+    return direct ? g + oq * m * m : ws_g + (static_cast<long long>(slice) * o + oq) * m * m;
+  };
+  // f(accumulator value, its offset in out_g(q)) for each of this thread's
+  // accumulator values of output q inside G.  The row and column bases pass
+  // through an empty asm so that the compiler forms the offsets here, not
+  // as invariants held in registers through the sample loop.
+  auto run_tile = [&](int q, auto f) {
+    if (o0 + kWgOutputs * wg + q >= o) return;
+    int r0 = i0 + 16 * wwarp + g8, c0 = j0 + 2 * t4;
+    asm volatile("" : "+r"(r0), "+r"(c0));
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + 8 * (e >> 1), c = c0 + 8 * j + (e & 1);
+        if (r < m && c < m) f(acc[q][4 * j + e], static_cast<long long>(r) * m + c);
+      }
+  };
+  // End of a run: add the accumulators into the running sum (the first run
+  // stores them) and start the next run from zero.  Each thread reads back
+  // only what it wrote.
+  auto fold_run = [&](bool first) {
+#pragma unroll
+    for (int q = 0; q < kWgOutputs; ++q) {
+      fence_regs(acc[q]);
+      float* const out = out_g(q);
+      run_tile(q, [&](float& a, long long e) { out[e] = first ? a : out[e] + a; });
+#pragma unroll
+      for (int e = 0; e < kN / 2; ++e) acc[q][e] = 0.f;
+    }
+  };
+
   const long long steps = (k_end - k_begin + kStep - 1) / kStep;
   load(k_begin);
   store(smem);
@@ -204,10 +257,20 @@ stats_tf32x3_kernel(const float* __restrict__ xa, const float* __restrict__ fsq,
       for (int c = 0; c < kStep; ++c) macc = fmaf(a[r * kLdA + c], fq[c], macc);
     }
     if (more) store(smem + ((s + 1) & 1) * G::kStageFloats);
+    if constexpr (kRuns) {
+      if ((s + 1) % kRunSteps == 0 && more) fold_run(s + 1 == kRunSteps);
+    }
     __syncthreads();
   }
 #pragma unroll
   for (int q = 0; q < kWgOutputs; ++q) fence_regs(acc[q]);
+  if constexpr (kRuns) {
+    if (steps > kRunSteps) {  // the runs' sum plus the last run
+#pragma unroll
+      for (int q = 0; q < kWgOutputs; ++q)
+        run_tile(q, [&](float& a, long long e) { a = out_g(q)[e] + a; });
+    }
+  }
 
   // Epilogue: each output's tile through a transpose in shared memory, the
   // two warpgroups' outputs side by side.
@@ -257,12 +320,13 @@ inline int launch_tiles(unsigned pairs, int slices, const float* xa, const float
   constexpr int bytes = Geo<kN>::kSmemBytes;
   const long long groups = (o + kOutputs - 1) / kOutputs;
   if (groups > 65535 || slices > 65535) return cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      stats_tf32x3_kernel<kN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  auto kernel = slice_len > kRunSamples ? stats_tf32x3_kernel<kN, true>
+                                        : stats_tf32x3_kernel<kN, false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  stats_tf32x3_kernel<kN>
-      <<<dim3(pairs, static_cast<unsigned>(groups), slices), kThreads, bytes, st>>>(
-          xa, fsq, fd, g, mv, ws_g, ws_m, m, n, o, tiles, slice_len);
+  kernel<<<dim3(pairs, static_cast<unsigned>(groups), slices), kThreads, bytes, st>>>(
+      xa, fsq, fd, g, mv, ws_g, ws_m, m, n, o, tiles, slice_len);
   return cudaGetLastError();
 }
 

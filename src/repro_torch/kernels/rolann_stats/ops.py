@@ -34,11 +34,15 @@ Each wrapper counts the calls that launched its kernel in ``.launches``;
 ``rolann_stats.route_launches`` splits B1's count by route: ``"tf32x3"``
 (m > ``SMALL_M``: the tensor-core kernel of ``csrc/rolann_stats_sm90.cuh``)
 or ``"fp32"`` (the FP32-core ``partial_kernel``), chosen by shape as
-:func:`tensor_core_route` says.
+:func:`tensor_core_route` says; ``rolann_fused_chunk.route_launches`` splits
+B3's: ``"slice"`` (a block per sample slice forming its activations once,
+``csrc/rolann_fused_slice.cuh``) or ``"tile"`` (``fused_partial_kernel``, a
+block per output and G tile), as :func:`fused_slice_route` says.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -55,11 +59,19 @@ SMALL_M = 28          # largest m of the one-warp layout (kSmallM)
 # B1's tensor-core route (rolann_stats_sm90.cuh): 64-row tiles, 4 outputs
 # per block, 32-sample steps, two blocks per SM.
 TC_TILE, TC_OUTPUTS, TC_STEP, TC_BLOCKS_PER_SM = 64, 4, 32, 2
-# Most samples one accumulator of that route sums.  The tensor cores add
-# each wgmma's product into the float32 accumulator rounding toward zero, so
-# a long run of adds drifts low: 2,048 samples (768 adds) stay below a
-# quarter of the 1e-4 bar, 10,007 (3,753 adds) used 1.2 of it (PERF.md).
+# Most samples one accumulator of that route sums (kRunSamples in the
+# source).  The tensor cores add each wgmma's product into the float32
+# accumulator rounding toward zero, so a long run of adds drifts low: 2,048
+# samples (768 adds) stay below a quarter of the 1e-4 bar, 10,007 (3,753
+# adds) used 1.2 of it (PERF.md).  A block sums its slice in runs of this
+# many samples, and the runs on the FP32 cores, so slices need no cap.
 TC_MAX_SLICE = 2048
+# B3's slice route (rolann_fused_slice.cuh): one tenant, ma <= SMALL_M
+# (one G tile of 4x4 pieces a warp's lanes cover) and at most
+# FUSED_MAX_OUTPUTS outputs (four a warp); a block per slice of whole
+# FUSED_STEP-sample steps, about FUSED_BLOCKS_PER_SM blocks per SM (more
+# steps a block beyond that).
+FUSED_STEP, FUSED_MAX_OUTPUTS, FUSED_BLOCKS_PER_SM = 64, 32, 3
 
 _FN = "rolann_stats_f32"
 _FN_ACC = "rolann_stats_acc_f32"
@@ -237,27 +249,81 @@ def tensor_core_route(k: int, m: int, accumulate: bool) -> bool:
 
 
 def plan_slices_tf32x3(m: int, n: int, o: int, sm_count: int) -> tuple[int, int]:
-    """(slices, slice_len) for the tensor-core route: slices of at most
-    ``TC_MAX_SLICE`` samples, and more where the (tile pair, output group)
-    blocks alone give fewer than ``TC_BLOCKS_PER_SM`` per SM, none narrower
-    than ``MIN_SLICE``; ``slice_len`` a multiple of ``TC_STEP`` and every
-    slice starting below ``n``.  One slice (the DAEF head's n = 2,048)
-    writes G directly, with no reduce pass."""
+    """(slices, slice_len) for the tensor-core route, for occupancy only:
+    more than one slice only where the (tile pair, output group) blocks
+    alone give fewer than ``TC_BLOCKS_PER_SM`` per SM, none narrower than
+    ``MIN_SLICE``; ``slice_len`` a multiple of ``TC_STEP`` and every slice
+    starting below ``n``.  The count does not grow with ``n`` (each block
+    sums its slice in runs of ``TC_MAX_SLICE`` samples).  One slice (the
+    DAEF head) writes G directly, with no workspace and no reduce pass."""
     tiles = -(-m // TC_TILE)
     per_slice = tiles * (tiles + 1) // 2 * -(-o // TC_OUTPUTS)
     want = -(-TC_BLOCKS_PER_SM * sm_count // per_slice)
-    slices = max(1, min(want, -(-n // MIN_SLICE), MAX_GRID_Z), -(-n // TC_MAX_SLICE))
+    slices = max(1, min(want, -(-n // MIN_SLICE), MAX_GRID_Z))
     slice_len = -(-n // slices)
     slice_len = -(-slice_len // TC_STEP) * TC_STEP
     return -(-n // slice_len), slice_len
 
 
+def fused_slice_route(k: int, m_l: int, m_c1: int) -> bool:
+    """Whether a B3/B6 launch takes the slice kernel: one tenant, ma =
+    m_c1 + 1 <= ``SMALL_M`` and at most ``FUSED_MAX_OUTPUTS`` outputs
+    (``slice::takes`` in ``csrc/rolann_fused_slice.cuh``).  Every hidden
+    layer of the streamed creditcard fit takes it."""
+    return k == 1 and m_c1 + 1 <= SMALL_M and 1 <= m_l <= FUSED_MAX_OUTPUTS
+
+
+@functools.lru_cache(maxsize=256)
+def plan_fused_slices(n: int, sm_count: int) -> tuple[int, int]:
+    """(slices, slice_len) for B3's slice kernel: about
+    ``FUSED_BLOCKS_PER_SM`` blocks per SM, each a whole number of
+    ``FUSED_STEP``-sample steps, every slice starting below ``n``.  The
+    count does not grow with ``n``, nor the workspace."""
+    slices = max(1, min(-(-n // FUSED_STEP), FUSED_BLOCKS_PER_SM * sm_count))
+    slice_len = -(-n // slices)
+    slice_len = -(-slice_len // FUSED_STEP) * FUSED_STEP
+    return -(-n // slice_len), slice_len
+
+
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The C entry points' argument types: B1/B2 (and with k, B4/B5), B3 (B6).
+_ARGS = [_PTR] * 7 + [_I32, _I64, _I32, _I32, _I64, _PTR]
+_ARGS_BATCHED = _ARGS[:7] + [_I32] + _ARGS[7:]
+_ARGS_FUSED = [_PTR] * 8 + [_I32, _I32, _I64, _I32, _I32, _I64, _PTR]
+_ARGS_FUSED_BATCHED = _ARGS_FUSED[:8] + [_I32] + _ARGS_FUSED[8:]
 
 
-def _workspace(slices: int, o: int, m: int, dev: torch.device):
-    f32 = dict(dtype=torch.float32, device=dev)
-    return torch.empty((slices, o, m, m), **f32), torch.empty((slices, o, m), **f32)
+def _workspace(slices: int, o: int, m: int, dev: torch.device, packed: bool = False):
+    """Scratch for the slices' partial G [slices, o, m, m] (``packed``: the
+    upper triangles packed by rows, [slices, o, m (m + 1) / 2]) and M
+    [slices, o, m], one allocation: (the buffer, G's address, M's address).
+    The caller keeps the buffer until its launch is enqueued."""
+    g_size = m * (m + 1) // 2 if packed else m * m
+    buf = torch.empty(slices * o * (g_size + m), dtype=torch.float32, device=dev)
+    return buf, buf.data_ptr(), buf.data_ptr() + 4 * slices * o * g_size
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """SMs of CUDA device ``index`` (the planners' input), looked up once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_stats(k: int, m: int, n: int, o: int, accumulate: bool,
+               sm_count: int) -> tuple[bool, int, int, int]:
+    """(tensor_cores, slices, slice_len, workspace slices) of a B1, B2, B4
+    or B5 launch.  One slice of the tensor-core route writes g and mv
+    directly, with no workspace."""
+    tensor_cores = tensor_core_route(k, m, accumulate)
+    plan = plan_slices_tf32x3 if tensor_cores else plan_slices
+    slices, slice_len = plan(m, n, k * o, sm_count)
+    return tensor_cores, slices, slice_len, 0 if tensor_cores and slices == 1 else slices
+
+
+def workspace_bytes(k: int, m: int, n: int, o: int, accumulate: bool, sm_count: int) -> int:
+    """Bytes of scratch a B1, B2, B4 or B5 launch allocates."""
+    ws = plan_stats(k, m, n, o, accumulate, sm_count)[3]
+    return 4 * ws * k * o * (m * m + m)
 
 
 def _launch(fn_name: str, xa, fsq, fd, g, mv) -> bool:
@@ -268,21 +334,14 @@ def _launch(fn_name: str, xa, fsq, fd, g, mv) -> bool:
     m, n = xa.shape[-2:]
     o = fsq.shape[-2]
     dev = xa.device
-    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    tensor_cores = tensor_core_route(k, m, fn_name in (_FN_ACC, _FN_ACC_BATCHED))
-    plan = plan_slices_tf32x3 if tensor_cores else plan_slices
-    slices, slice_len = plan(m, n, k * o, sm_count)
-    # One slice of the tensor-core route writes g and mv directly.
-    ws_g, ws_m = _workspace(0 if tensor_cores and slices == 1 else slices, k * o, m, dev)
-    args = [_PTR] * 7 + [_I32, _I64, _I32, _I32, _I64, _PTR]
-    fn = _build.function("rolann_stats", fn_name, args[:7] + [_I32] + args[7:] if batched else args)
+    sm_count = _sm_count(dev.index)
+    tensor_cores, slices, slice_len, ws = plan_stats(
+        k, m, n, o, fn_name in (_FN_ACC, _FN_ACC_BATCHED), sm_count)
+    scratch, ws_g, ws_m = _workspace(ws, k * o, m, dev)  # alive until the launch
     shape = (k, m, n, o) if batched else (m, n, o)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(xa.data_ptr(), fsq.data_ptr(), fd.data_ptr(), ws_g.data_ptr(),
-                 ws_m.data_ptr(), g.data_ptr(), mv.data_ptr(), *shape, slices,
-                 slice_len, stream)
-    _build.raise_on(fn_name, err)
+    _build.launch("rolann_stats", fn_name, _ARGS_BATCHED if batched else _ARGS, dev,
+                  xa.data_ptr(), fsq.data_ptr(), fd.data_ptr(), ws_g, ws_m, g.data_ptr(),
+                  mv.data_ptr(), *shape, slices, slice_len)
     return tensor_cores
 
 
@@ -342,14 +401,14 @@ def _check_fused(g, mv, h, w, b, mask, act_name: str) -> None:
         raise ValueError(f"{who}: act_name must be one of {sorted(FUSED_ACTS)}, got {act_name!r}")
     if not isinstance(h, torch.Tensor):
         raise TypeError(f"{who}: h must be a torch.Tensor")
-    _check_tensors(who, h.device, h=h, w=w, b=b, mask=mask)
-    if not (h.ndim == 2 and w.ndim == 2 and b.ndim == 1 and mask.ndim == 1
-            and w.shape[0] == h.shape[0] and b.shape[0] == w.shape[1]
-            and mask.shape[0] == h.shape[1]):
+    dev = h.device
+    _check_tensors(who, dev, h=h, w=w, b=b, mask=mask)
+    hs, ws, bs, ms = h.shape, w.shape, b.shape, mask.shape
+    if not (len(hs) == 2 and len(ws) == 2 and len(bs) == 1 and len(ms) == 1
+            and ws[0] == hs[0] and bs[0] == ws[1] and ms[0] == hs[1]):
         raise ValueError(f"{who}: expected h [m_l, n], w [m_l, m_c1], b [m_c1], mask [n]; got "
-                         f"{tuple(h.shape)}, {tuple(w.shape)}, {tuple(b.shape)}, "
-                         f"{tuple(mask.shape)}")
-    _check_acc(who, g, mv, h.shape[0], w.shape[1] + 1, h.device)
+                         f"{tuple(hs)}, {tuple(ws)}, {tuple(bs)}, {tuple(ms)}")
+    _check_acc(who, g, mv, hs[0], ws[1] + 1, dev)
 
 
 def rolann_fused_chunk(g: torch.Tensor, mv: torch.Tensor, h: torch.Tensor,
@@ -377,36 +436,37 @@ def rolann_fused_chunk(g: torch.Tensor, mv: torch.Tensor, h: torch.Tensor,
         return rolann_fused_chunk_plain(g, mv, h, w, b, mask, act_name)
     _cuda_or_raise(who, h.device)
     g32, m32 = _f32(g), _f32(mv)
-    _launch_fused(_FN_FUSED, g32, m32, h.float(), w.float(), b.float(), mask.float(),
-                  act_name)
+    route = _launch_fused(_FN_FUSED, g32, m32, _f32(h), _f32(w), _f32(b), _f32(mask),
+                          act_name)
     rolann_fused_chunk.launches += 1
+    rolann_fused_chunk.route_launches[route] += 1
     _store(g, g32)
     _store(mv, m32)
     return g, mv
 
 
-def _launch_fused(fn_name: str, g, mv, h, w, b, mask, act_name: str) -> None:
+def _launch_fused(fn_name: str, g, mv, h, w, b, mask, act_name: str) -> str:
     """B3 (h [m_l, n]) or B6 (h [k, m_l, n]) on float32 contiguous CUDA
-    tensors, into float32 g, mv."""
+    tensors, into float32 g, mv; the route it took ("slice" or "tile")."""
     batched = h.ndim == 3
     k = h.shape[0] if batched else 1
     m_l, n = h.shape[-2:]
     m_c1 = w.shape[-1]
     ma = m_c1 + 1
     dev = h.device
-    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    slices, slice_len = plan_slices(ma, n, k * m_l, sm_count)
-    ws_g, ws_m = _workspace(slices, k * m_l, ma, dev)
-    args = [_PTR] * 8 + [_I32, _I32, _I64, _I32, _I32, _I64, _PTR]
-    fn = _build.function("rolann_fused_chunk", fn_name,
-                         args[:8] + [_I32] + args[8:] if batched else args)
+    sm_count = _sm_count(dev.index)
+    slice_route = fused_slice_route(k, m_l, m_c1)
+    if slice_route:
+        slices, slice_len = plan_fused_slices(n, sm_count)
+    else:
+        slices, slice_len = plan_slices(ma, n, k * m_l, sm_count)
+    scratch, ws_g, ws_m = _workspace(slices, k * m_l, ma, dev, packed=slice_route)
     shape = (k, m_l, m_c1, n) if batched else (m_l, m_c1, n)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(h.data_ptr(), w.data_ptr(), b.data_ptr(), mask.data_ptr(),
-                 ws_g.data_ptr(), ws_m.data_ptr(), g.data_ptr(), mv.data_ptr(),
-                 *shape, FUSED_ACTS[act_name], slices, slice_len, stream)
-    _build.raise_on(fn_name, err)
+    _build.launch("rolann_fused_chunk", fn_name,
+                  _ARGS_FUSED_BATCHED if batched else _ARGS_FUSED, dev, h.data_ptr(),
+                  w.data_ptr(), b.data_ptr(), mask.data_ptr(), ws_g, ws_m, g.data_ptr(),
+                  mv.data_ptr(), *shape, FUSED_ACTS[act_name], slices, slice_len)
+    return "slice" if slice_route else "tile"
 
 
 def rolann_stats_batched(xa: torch.Tensor, fsq: torch.Tensor, fd: torch.Tensor):
@@ -499,6 +559,7 @@ rolann_stats.launches = 0
 rolann_stats.route_launches = {"tf32x3": 0, "fp32": 0}
 rolann_stats_acc.launches = 0
 rolann_fused_chunk.launches = 0
+rolann_fused_chunk.route_launches = {"slice": 0, "tile": 0}
 rolann_stats_batched.launches = 0
 rolann_stats_acc_batched.launches = 0
 rolann_fused_chunk_batched.launches = 0

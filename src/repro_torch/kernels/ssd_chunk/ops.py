@@ -91,13 +91,10 @@ def ssd_chunk(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor, c: torch.Ten
     ws_s = torch.empty((bsz * g, nc, tq * (tq + 1) // 2, TILE, TILE), **f32)
     ws_bt = torch.empty((bsz * g, nc, -(-chunk // STATE_STEP), 2, N_PAD * STATE_STEP), **f32)
     hp_img = torch.empty((bsz * h, nc, 2, TILE * N_PAD), **f32)
-    fn = _build.function("ssd_chunk", "ssd_chunk_f32", _ARGS)
-    with torch.cuda.device(xdt.device):
-        stream = torch.cuda.current_stream(xdt.device).cuda_stream
-        err = fn(xdt.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
-                 h_final.data_ptr(), ws.data_ptr(), cd.data_ptr(), ws_s.data_ptr(),
-                 ws_bt.data_ptr(), hp_img.data_ptr(), bsz, s, h, g, p, n, chunk, stream)
-    _build.raise_on("ssd_chunk_f32", err)
+    _build.launch("ssd_chunk", "ssd_chunk_f32", _ARGS, xdt.device, xdt.data_ptr(),
+                  la.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(), h_final.data_ptr(),
+                  ws.data_ptr(), cd.data_ptr(), ws_s.data_ptr(), ws_bt.data_ptr(),
+                  hp_img.data_ptr(), bsz, s, h, g, p, n, chunk)
     ssd_chunk.launches += 1
     return y, h_final
 

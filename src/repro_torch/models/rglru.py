@@ -113,7 +113,7 @@ def _rec_fwd(blk: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
         + blk["conv_b"]
     r = torch.sigmoid(x @ blk["w_r"] + blk["b_r"])
     i = torch.sigmoid(x @ blk["w_i"] + blk["b_i"])
-    y, _ = rglru_scan(x.float(), r.float(), i.float(), blk["lam"])
+    y, _ = rglru_scan(x, r, i, blk["lam"])  # widened to float32 in the kernel or on the host
     y = y.to(h.dtype) * gate
     out = h + y @ blk["w_out"]
     return out + common.mlp(blk["mlp"], cfg.mlp, common.rmsnorm(blk["mlp_norm"], out))

@@ -132,6 +132,48 @@ def test_tensor_core_route_plans_one_slice_at_the_head_shape(card):
     assert ops.plan_slices_tf32x3(513, 2_048, 256, sms) == (1, 2_048)
 
 
+def test_tensor_core_scratch_is_bounded_at_65536_samples(card):
+    """B1 at the head's (m, o) with 65,536 samples: one slice of 32 runs of
+    2,048 samples summed in G itself, so the call allocates G and M and no
+    workspace (269 MB; slices capped at 2,048 samples took 8.6 GB more);
+    within 1e-4 of the largest entry, G exactly symmetric, repeats
+    bit-identical."""
+    m, o, n = 513, 256, 65_536
+    xa, fsq, fd = _inputs(m, o, n, torch.float32, 21, card)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(card)
+    base = torch.cuda.memory_allocated(card)
+    before = rolann_stats.route_launches["tf32x3"]
+    g, mv = rolann_stats(xa, fsq, fd)
+    torch.cuda.synchronize()
+    assert rolann_stats.route_launches["tf32x3"] == before + 1
+    assert torch.cuda.max_memory_allocated(card) - base <= 4 * o * (m * m + m) + 2**20
+    # the plain version over 4,096-sample blocks, summed in float64 (in one
+    # call its einsum would hold a 34 GB [o, m, n] intermediate)
+    gp = torch.zeros((o, m, m), dtype=torch.float64, device=card)
+    mp = torch.zeros((o, m), dtype=torch.float64, device=card)
+    for k in range(0, n, 4_096):
+        dg, dm = rolann_stats_plain(*(a[:, k:k + 4_096].contiguous() for a in (xa, fsq, fd)))
+        gp += dg.double()
+        mp += dm.double()
+    assert torch.equal(g, g.transpose(1, 2))
+    assert float((g.double() - gp.double()).abs().max()) <= 1e-4 * float(gp.double().abs().max())
+    assert float((mv.double() - mp.double()).abs().max()) <= 1e-4 * float(mp.double().abs().max())
+    g2, m2 = rolann_stats(xa, fsq, fd)
+    assert torch.equal(g, g2) and torch.equal(mv, m2)
+
+
+@pytest.mark.parametrize("m,o,n", [(513, 3, 100_003), (129, 1, 200_003)])
+def test_tensor_core_runs_within_a_slice(card, m, o, n):
+    """Slices of more than 2,048 samples (few output groups: the workspace
+    and the reduce pass) sum their runs in order: the plain version's
+    values within 1e-4, G exactly symmetric, repeats bit-identical."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    slices, slice_len = ops.plan_slices_tf32x3(m, n, o, sms)
+    assert slices > 1 and slice_len > ops.TC_MAX_SLICE
+    _check_tensor_core_stats(m, o, n, torch.float32, card)
+
+
 def test_kernel_rejects_non_contiguous(card):
     xa, fsq, fd = _inputs(8, 2, 100, torch.float32, 0, card)
     with pytest.raises(ValueError, match="contiguous"):
@@ -221,6 +263,39 @@ def test_fused_chunk_kernel_matches_plain(card, m_l, m_c1, n, act, dtype):
     _check_fold(lambda g, mv: rolann_fused_chunk(g, mv, h, w, b, mask, act_name=act),
                 lambda g, mv: rolann_fused_chunk_plain(g, mv, h, w, b, mask, act), g0, m0,
                 rolann_fused_chunk)
+
+
+@pytest.mark.parametrize("m_l,m_c1,n,act", [(15, 18, 32_768, "logsig"),
+                                            (24, 27, 26_507, "logsig"),
+                                            (24, 27, 26_507, "tanh"),
+                                            (32, 27, 1_000, "tanh"),
+                                            (7, 3, 100_003, "logsig"),
+                                            (5, 6, 300_001, "tanh"),
+                                            (33, 27, 1_000, "logsig"),
+                                            (40, 50, 3_001, "logsig")])
+def test_fused_chunk_routes_by_shape(card, m_l, m_c1, n, act):
+    """B3 takes the slice kernel (a block per sample slice, the activations
+    formed once) for ma <= 28 and m_l <= 32, every hidden layer of the
+    streamed creditcard fit, and fused_partial_kernel for the rest; both
+    hold the plain version's bar, G exactly symmetric, repeats
+    bit-identical.  100,003 and 300,001 samples give slices of several
+    64-sample steps."""
+    gen = torch.Generator(device=card).manual_seed(m_l * n + 1)
+    h = torch.sigmoid(2 * torch.randn((m_l, n), generator=gen, device=card))
+    if act == "tanh":
+        h = 2 * h - 1
+    w = torch.randn((m_l, m_c1), generator=gen, device=card) * (2 / (m_l + m_c1)) ** 0.5
+    b = torch.randn((m_c1,), generator=gen, device=card)
+    mask = torch.ones((n,), device=card)
+    mask[n - n // 7:] = 0
+    g0, m0 = _running(m_l, m_c1 + 1, torch.float32, card)
+    route = "slice" if ops.fused_slice_route(1, m_l, m_c1) else "tile"
+    assert route == ("slice" if m_l <= 32 and m_c1 < 28 else "tile")
+    before = rolann_fused_chunk.route_launches[route]
+    _check_fold(lambda g, mv: rolann_fused_chunk(g, mv, h, w, b, mask, act_name=act),
+                lambda g, mv: rolann_fused_chunk_plain(g, mv, h, w, b, mask, act), g0, m0,
+                rolann_fused_chunk)
+    assert rolann_fused_chunk.route_launches[route] == before + 2
 
 
 def test_empty_chunk_folds_launch_nothing(card):
@@ -461,21 +536,38 @@ def test_bf16_kernels_refuse_what_tma_cannot_take(card, case):
     assert (flash_attention.launches, flash_attention_bwd.launches) == (before[0] + 1, before[1])
 
 
-@pytest.mark.parametrize("b,s,w", [(2, 4_096, 4_096), (3, 1, 77), (2, 37, 100)])
-def test_rglru_scan_kernel_matches_plain(card, b, s, w):
-    """B9 against its plain version: 1e-5 (the same operations in the same
-    order; only the transcendentals' last bits differ)."""
+@pytest.mark.parametrize("b,s,w", [(2, 4_096, 4_096), (3, 1, 77), (2, 37, 100)]
+                         + [(2, s, w) for s in (1, 37, 4_097) for w in (77, 100, 4_096)])
+@pytest.mark.parametrize("x_dtype,gate_dtype", [(torch.float32, torch.float32),
+                                                (torch.bfloat16, torch.bfloat16),
+                                                (torch.bfloat16, torch.float32)])
+def test_rglru_scan_kernel_matches_plain(card, b, s, w, x_dtype, gate_dtype):
+    """B9 against its plain version on the same (widened) values: 1e-5 (the
+    same operations in the same order; only the transcendentals' last bits
+    differ); one launch counted on x's dtype, a repeat bit-identical.  x
+    and the gates r, i in float32 or bf16 (the hybrid's bf16 prefill: bf16
+    x, float32 gates).  Rows that are whole 16-byte chunks (W = 4,096;
+    W = 100 in float32) are staged by cp.async, the others (W = 77; W = 100
+    with a bf16 input) loaded by the workers: both are taken."""
     gen = torch.Generator(device=card).manual_seed(s + w)
-    x = _randn((b, s, w), gen, card)
-    r = torch.sigmoid(_randn((b, s, w), gen, card))
-    i = torch.sigmoid(_randn((b, s, w), gen, card))
+    x = _randn((b, s, w), gen, card, x_dtype)
+    r = torch.sigmoid(_randn((b, s, w), gen, card)).to(gate_dtype)
+    i = torch.sigmoid(_randn((b, s, w), gen, card)).to(gate_dtype)
     lam = _randn((w,), gen, card) + 4
-    before = rglru_scan.launches
+    name = str(x_dtype).removeprefix("torch.")
+    before = (rglru_scan.launches, rglru_scan.route_launches[name])
     y, h = rglru_scan(x, r, i, lam)
     torch.cuda.synchronize()
-    assert rglru_scan.launches == before + 1
-    yr, hr = rglru_scan_ref(x, r, i, lam)
+    assert (rglru_scan.launches, rglru_scan.route_launches[name]) == (before[0] + 1,
+                                                                      before[1] + 1)
+    assert y.dtype == h.dtype == torch.float32
+    yr, hr = rglru_scan_ref(x.float(), r.float(), i.float(), lam)
     assert float((y - yr).abs().max()) <= 1e-5 and float((h - hr).abs().max()) <= 1e-5
+    y2, h2 = rglru_scan(x, r, i, lam)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    if torch.bfloat16 in (x_dtype, gate_dtype):  # widening is exact: float32's bits
+        y32, h32 = rglru_scan(x.float(), r.float(), i.float(), lam)
+        assert torch.equal(y, y32) and torch.equal(h, h32)
 
 
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk", [(4, 4_096, 48, 64, 1, 128, 256),

@@ -183,6 +183,20 @@ def test_merge_models_matches_reference(backend):
     assert torch.equal(enc.s, tm.encoder_factors.s)
 
 
+def test_merge_models_takes_x_stats():
+    """Both packages take the keyword ``x_stats`` and ignore it."""
+    kw, xa, xb = _merge_data()
+    jcfg, tcfg = jdaef.DAEFConfig(**kw), tdaef.DAEFConfig(**kw)
+    ja, jb = jdaef.fit(jcfg, jnp.asarray(xa)), jdaef.fit(jcfg, jnp.asarray(xb))
+    ta, tb = tdaef.fit(tcfg, xa, device="cpu"), tdaef.fit(tcfg, xb, device="cpu")
+    jm = jdaef.merge_models(jcfg, ja, jb, x_stats=jnp.asarray(xa))
+    tm = tdaef.merge_models(tcfg, ta, tb, x_stats=torch.from_numpy(xa))
+    assert_models_match(jm, tm, 0.9)
+    plain = tdaef.merge_models(tcfg, ta, tb)
+    for got, want in zip(tm.weights, plain.weights):
+        assert torch.equal(got, want)
+
+
 def test_partial_fit_matches_reference():
     kw, xa, xb = _merge_data()
     jcfg, tcfg = jdaef.DAEFConfig(**kw), tdaef.DAEFConfig(**kw)

@@ -1,5 +1,7 @@
 """repro_torch.core.dsvd (both routes, the merges of Eq. 2, a leading tenant
 axis) and core.anomaly against the reference."""
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -100,6 +102,53 @@ def test_threshold(rule, nan_at):
     want = jan.threshold(jnp.asarray(e), rule)
     assert np.isfinite(got.item())
     assert_close(got, want)
+
+
+def _numpy_threshold(e, rule):
+    """anomaly.threshold's rules over np.nanquantile (last axis), in the
+    errors' dtype."""
+    if rule.startswith("q"):
+        return np.nanquantile(e, float(rule[1:]) / 100.0, axis=-1)
+    q1, q3 = (np.nanquantile(e, q, axis=-1) for q in (0.25, 0.75))
+    return q3 + {"unusual_iqr": 1.5, "extreme_iqr": 3.0}[rule] * (q3 - q1)
+
+
+@pytest.fixture(scope="module")
+def errors_past_2_24():
+    """2^24 + 1 errors, more than torch.nanquantile takes, with NaNs."""
+    e = np.random.default_rng(24).gamma(2.0, 0.5, size=2**24 + 1).astype(np.float32)
+    e[::4_099] = np.nan
+    return e
+
+
+@pytest.mark.parametrize("rule", ["extreme_iqr", "unusual_iqr", "q90"])
+def test_threshold_takes_more_than_2_24_errors(errors_past_2_24, rule):
+    """A streamed fit keeps every train error, so threshold takes any n: the
+    same bits as numpy's nanquantile."""
+    got = tan.threshold(errors_past_2_24, rule, device="cpu")
+    assert got.ndim == 0
+    np.testing.assert_array_equal(got.numpy(), _numpy_threshold(errors_past_2_24, rule))
+
+
+@pytest.mark.parametrize("rule", ["extreme_iqr", "unusual_iqr", "q90", "q97.5", "q05"])
+def test_nanquantile_is_numpys(rule):
+    """Rows of any length, NaNs anywhere, a row of one value and an all-NaN
+    row (NaN): numpy's bits, one threshold per row; and the reference's
+    threshold of each row."""
+    rng = np.random.default_rng(7)
+    e = rng.gamma(2.0, 0.5, size=(6, 1_001)).astype(np.float32)
+    e[1, rng.integers(0, 1_001, size=40)] = np.nan
+    e[2, :] = np.nan
+    e[3, 1:] = np.nan
+    e[4, ::2] = np.nan
+    got = tan.threshold(e, rule, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # numpy: all-NaN slice
+        want = _numpy_threshold(e, rule)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.isnan(got[2].item())
+    for t in (0, 1, 3, 4, 5):
+        assert_close(got[t], jan.threshold(jnp.asarray(e[t]), rule))
 
 
 def test_parse_quantile_rule():

@@ -132,3 +132,28 @@ def test_ssd_sequential_oracle_and_chunk_rule():
         ssd_chunk_plain(xdt, la, bm, cm, 16)
     with pytest.raises(ValueError, match="heads over"):
         ssd_chunk(xdt, la, torch.cat([bm, bm], 2), torch.cat([cm, cm], 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_model_cpu_path_did_not_move(monkeypatch, dtype):
+    """The hybrid's recurrent block hands rglru_scan the backbone's x, r and
+    i uncast (the card's kernel widens bf16 itself); on the CPU the wrapper
+    widens them, so a reduced recurrentgemma's hidden states and prefill
+    logits are the same bits as with the float32 casts at the call site.
+    In bf16 every parameter is cast, lam too, as a caller may do."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.models import get_bundle
+
+    cfg = registry.get("recurrentgemma-9b").reduced()
+    bundle = get_bundle(cfg)
+    params = pytree.tree_map(lambda t: t.to(dtype), bundle.init(0, device="cpu"))
+    tokens = synthetic.lm_token_stream(cfg.vocab_size, 80, 2, seed=5)
+    got = bundle.forward(params, tokens), bundle.prefill(params, {"tokens": tokens})
+    monkeypatch.setattr(rglru, "rglru_scan", lambda x, r, i, lam: rglru_scan(
+        x.float(), r.float(), i.float(), lam))
+    want = bundle.forward(params, tokens), bundle.prefill(params, {"tokens": tokens})
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == dtype and torch.equal(a, b)

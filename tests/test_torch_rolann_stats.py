@@ -134,12 +134,29 @@ def test_plan_slices_cover_the_sample_axis(m, o, n, sms):
                                    (513, 3, 2_049), (129, 1, 10**6)])
 @pytest.mark.parametrize("sms", [1, 132])
 def test_tensor_core_plan_caps_each_accumulator(m, o, n, sms):
-    """B1's tensor-core route: slices cover n, none empty, none longer than
-    TC_MAX_SLICE samples (the accumulator's round-toward-zero drift)."""
+    """B1's tensor-core route: slices cover n, none empty.  The kernel caps
+    each accumulator at TC_MAX_SLICE samples itself (runs summed on the FP32
+    cores), so slices are planned for occupancy only: their count, and the
+    workspace, stop growing with n."""
     slices, slice_len = ops.plan_slices_tf32x3(m, n, o, sms)
     assert 1 <= slices <= ops.MAX_GRID_Z
-    assert slice_len % ops.TC_STEP == 0 and slice_len <= ops.TC_MAX_SLICE
+    assert slice_len % ops.TC_STEP == 0
     assert (slices - 1) * slice_len < n <= slices * slice_len
+    most = ops.plan_slices_tf32x3(m, 10**12, o, sms)[0]
+    assert slices <= most == ops.plan_slices_tf32x3(m, 10**9, o, sms)[0]
+    assert most <= -(-ops.TC_BLOCKS_PER_SM * sms // -(-o // ops.TC_OUTPUTS))
+
+
+@pytest.mark.parametrize("m,o,n,bound", [(513, 256, 10**6, 0), (513, 256, 10**9, 0),
+                                         (513, 3, 10**6, 6 * 3 * (513 * 514) * 4),
+                                         (65, 1, 10**9, 88 * (65 * 66) * 4)])
+def test_tensor_core_scratch_does_not_grow_with_n(m, o, n, bound):
+    """B1's tensor-core scratch on a 132-SM card: none at the DAEF head's
+    (m, o) for any n (one slice writes G directly), and a fixed number of
+    slices' partials where the blocks alone do not fill the card."""
+    assert ops.workspace_bytes(1, m, n, o, False, 132) == bound
+    assert ops.plan_slices_tf32x3(513, 2_048, 256, 132) == (1, 2_048)
+    assert ops.plan_stats(1, 513, 2_048, 256, False, 132) == (True, 1, 2_048, 0)
 
 
 def test_tensor_core_route_is_one_tenant_large_m_without_accumulators():
@@ -147,6 +164,30 @@ def test_tensor_core_route_is_one_tenant_large_m_without_accumulators():
     assert not ops.tensor_core_route(1, ops.SMALL_M, False)
     assert not ops.tensor_core_route(2, 513, False) and not ops.tensor_core_route(1, 513, True)
     assert ops.plan_slices_tf32x3(513, 2_048, 256, 132) == (1, 2_048)  # the head: direct
+
+
+def test_fused_chunk_routes_by_shape():
+    """B3 takes the slice kernel for one tenant with ma <= 28 and at most 32
+    outputs (every hidden layer of the streamed creditcard fit), the tile
+    kernel otherwise and for B6."""
+    for m_l, m_c1 in ((15, 18), (18, 21), (21, 24), (24, 27), (3, 1), (32, 27)):
+        assert ops.fused_slice_route(1, m_l, m_c1)
+    for k, m_l, m_c1 in ((1, 33, 27), (1, 24, 28), (1, 40, 50), (64, 15, 18), (2, 3, 1)):
+        assert not ops.fused_slice_route(k, m_l, m_c1)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 26_507, 32_768, 10**6])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_fused_slice_plan_covers_the_chunk(n, sms):
+    """Whole 64-sample steps, no empty slice, about three blocks an SM: the
+    streamed fit's 32,768-sample chunks take 256 slices of 128 on a
+    132-SM card."""
+    slices, slice_len = ops.plan_fused_slices(n, sms)
+    assert slice_len % ops.FUSED_STEP == 0
+    assert (slices - 1) * slice_len < n <= slices * slice_len
+    assert slices <= ops.FUSED_BLOCKS_PER_SM * sms
+    if (n, sms) == (32_768, 132):
+        assert (slices, slice_len) == (256, 128)
 
 
 def test_plan_fills_the_card_on_the_creditcard_path():
