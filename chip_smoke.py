@@ -28,7 +28,12 @@ no result:
    path's shapes (64 tenants), at ragged and masked shapes, at k = 1, at
    n = 0 and in bf16 and float64, and timed beside their plain versions and
    the one-call ``torch.einsum("kin,kon,kjn->koij", ...)`` yardstick (B6
-   has none).
+   has none).  B4 and B6 must take their slice routes at the fleet's shapes
+   (``csrc/rolann_stats_slice.cuh``, ``csrc/rolann_fused_slice.cuh``;
+   ``route_launches["slice"]``), the wide shapes the tile kernels; their
+   path rows print each kernel's device time under the profiler, the
+   call's CUDA-events time, the bound, the share of the bar and ptxas's
+   registers and spills.
 4. main path — the paper's Table 5 "creditcard" DAEF (29-15-18-21-24-27-29,
    lam 0.8/0.9, extreme-IQR rule) on the full-scale replica, fold 0:
    ``daef.fit(n_partitions=4)`` -> ``reconstruction_error`` -> ``threshold``
@@ -61,20 +66,23 @@ no result:
    ``fleet_merge_pairwise`` (64 -> 32) -> ``fleet_scores`` on each site's
    test split -> ``fleet_thresholds`` -> ``fleet_classify`` -> per-site F1,
    fused backend, after one warm-up.  Launches per fit: rolann_stats_batched
-   4, the others 0.  Every tenant's statistics equal an einsum re-fold under
-   the fleet's own weights (1e-4 of the tenant's leaf max); the merged sites
+   4 (all on its slice route), the others 0.  Every tenant's statistics
+   equal an einsum re-fold under the fleet's own weights (1e-4 of the
+   tenant's leaf max); the merged sites
    equal the port's one-tenant ``merge_models`` of the same device pairs
    (knowledge exactly, U S² Uᵀ at 1e-4, weights at the κ bar of
    tests/_torch_parity.py); tenants 0, 31 and 63 are no farther from a
    float64 host fit than the plain float32 fits (phase 6's bar); per-site
    labels within 4 (|Δtp| + |Δfp|) of the port's CPU fleet.  Then
    ``_fit_fleet_chunked`` and ``_fit_fleet_stream`` with 1,024-wide chunks
-   (rolann_fused_chunk_batched 16 launches each, re-fold checked), and a
+   (rolann_fused_chunk_batched 16 launches each, all on its slice route,
+   re-fold checked), and a
    logistic-output chunked fleet fit on [0, 1] data (rolann_stats_acc_batched
    4).  Times on the host clock, ending in ``torch.cuda.synchronize()``.
 8. profile — one fused fit + score, one streamed fused fit, one fused fleet
    fit and one chunked fused fleet fit under ``torch.profiler``: device time
-   by kernel, and the device's busy share of the wall time.
+   by kernel, and the device's busy share of the wall time; the fleet fits
+   list B4's and B6's kernels by name.
 9. LM kernels vs plain — B7 ``flash_attention`` (the head path's
     64 x 256 x 16/8 heads of 128 in bf16, the long prefills' 4 x 4,096 GQA
     and 2 x 4,096 MQA at head size 256 with window 2,048, a ragged S,
@@ -863,14 +871,22 @@ def _batched_work(k, work):
 
 def _check_batched_stats(label, xa, fsq, fd):
     """B4 against its plain version: dtype, shape, finite, exactly symmetric
-    G, agreement, repeatability.  Returns max|d|."""
+    G, agreement, repeatability, both calls on the route its shape takes
+    (``ops.stats_slice_route``).  Returns max|d|, the share of the bar it
+    uses and the route."""
     import torch
 
-    from repro_torch.kernels.rolann_stats import rolann_stats_batched, rolann_stats_batched_plain
+    from repro_torch.kernels.rolann_stats import (
+        ops,
+        rolann_stats_batched,
+        rolann_stats_batched_plain,
+    )
 
     k, m, _ = xa.shape
     o = fsq.shape[1]
     dtype = xa.dtype
+    route = "slice" if ops.stats_slice_route(m, o) else "fp32"
+    before = rolann_stats_batched.route_launches[route]
     g, mv = rolann_stats_batched(xa, fsq, fd)
     torch.cuda.synchronize()
     gp, mp = rolann_stats_batched_plain(xa, fsq, fd)
@@ -885,9 +901,42 @@ def _check_batched_stats(label, xa, fsq, fd):
     check(err <= tol * scale, f"{label}: max|d| {err:.3e} > {tol:g} * {scale:.3e}")
     g2, m2 = rolann_stats_batched(xa, fsq, fd)
     check(bool(torch.equal(g2, g) and torch.equal(m2, mv)), f"{label}: not deterministic")
-    say("kernel", f"{label} {str(dtype)[6:]}: max|d| {err:.3e} (max|plain| {scale:.3e}, "
-        f"tol {tol:g}), symmetric, repeatable, ok")
-    return err
+    check(rolann_stats_batched.route_launches[route] == before + 2,
+          f"{label}: not on the {route} route")
+    used = err / (tol * scale)
+    say("kernel", f"{label} {str(dtype)[6:]} ({route}): max|d| {err:.3e} (max|plain| "
+        f"{scale:.3e}, tol {tol:g}: {used:.4f} of the bar), symmetric, repeatable, ok")
+    return err, used, route
+
+
+def _kernel_us(fn, patterns):
+    """Device time (µs) of one ``fn()`` under torch.profiler, by kernel, for
+    the kernels whose names hold one of ``patterns``: {name: (launches,
+    µs)}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    key = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    return {e.key.split("(")[0].removeprefix("void "): (e.count, getattr(e, key))
+            for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(p in e.key for p in patterns)}
+
+
+def _say_slice_row(label, times, regs, ms, bound, used):
+    """One line of a slice-route kernel at a path shape: the device time
+    of each of its kernels (profiler), the call's CUDA-events time, the
+    bound, the share of the bar and ptxas's registers."""
+    say("kernel", f"{label}: route slice; device " + ", ".join(
+        f"{name} {us:.2f} µs" for name, (_, us) in sorted(times.items()))
+        + f"; call {ms:.4f} ms (CUDA events, wrapper included); bound {bound[0]:.4f} ms "
+        f"on FP32 cores ({bound[1]}); {used:.4f} of the bar; ptxas {regs}")
 
 
 def phase_batched_kernels(k, stats_shapes, n_tenant, acc_shape, fused_shapes, n_chunk):
@@ -900,6 +949,7 @@ def phase_batched_kernels(k, stats_shapes, n_tenant, acc_shape, fused_shapes, n_
     import torch
 
     from repro_torch.kernels.rolann_stats import (
+        ops,
         rolann_fused_chunk_batched,
         rolann_fused_chunk_batched_plain,
         rolann_stats_acc_batched,
@@ -923,20 +973,32 @@ def phase_batched_kernels(k, stats_shapes, n_tenant, acc_shape, fused_shapes, n_
         ("bf16 k=8 m=28 o=24", 8, 28, 24, n_tenant, bf16),
         ("f64 k=8 m=19 o=15", 8, 19, 15, n_tenant, f64),
     ]
+    stats_regs = _ptxas("rolann_stats", "stats_slice_kernel")
+    fused_regs = _ptxas("rolann_fused_chunk", "fused_slice_kernel")
     for i, (label, kk, m, o, n, dtype) in enumerate(cases):
         xa, fsq, fd = stats_in(kk, m, o, n, dtype, seed=500 + i)
-        err = _check_batched_stats(f"rolann_stats_batched {label} n={n}", xa, fsq, fd)
+        err, used, route = _check_batched_stats(f"rolann_stats_batched {label} n={n}", xa, fsq,
+                                                fd)
         if label.startswith("path"):
+            check(route == "slice", f"B4 at the path's shape {label} must take the slice route")
             ms = cuda_ms(lambda: rolann_stats_batched(xa, fsq, fd))
             plain_ms = cuda_ms(lambda: rolann_stats_batched_plain(xa, fsq, fd))
             library_ms = cuda_ms(lambda: torch.einsum("kin,kon,kjn->koij", xa, fsq, xa))
             bound_ms, bound_by = _bound(*_batched_work(kk, _stats_work(m, o, n)))
+            times = _kernel_us(lambda: rolann_stats_batched(xa, fsq, fd),
+                               ("stats_slice_kernel", "few_slice_reduce_kernel"))
+            outs = -(-o // 8)
+            regs = stats_regs.get(str(outs), "?")
             rows["rolann_stats_batched"].append(dict(
                 k=kk, m=m, o=o, n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bar_used=used,
+                device_us=sum(us for _, us in times.values())))
             say("kernel", f"rolann_stats_batched {label} n={n}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, einsum yardstick {library_ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms ({bound_by})")
+            _say_slice_row(f"rolann_stats_batched {label} n={n}", times,
+                           f"stats_slice_kernel<{outs}> (registers, spill stores, spill loads) "
+                           f"{regs}", ms, (bound_ms, bound_by), used)
 
     m, o = acc_shape
     acc_cases = [(f"path k={k} m={m} o={o}", k, m, o, n_chunk, f32, False),
@@ -984,16 +1046,30 @@ def phase_batched_kernels(k, stats_shapes, n_tenant, acc_shape, fused_shapes, n_
         g0, m0 = (torch.stack(p).contiguous() for p in zip(*parts))
         fold = lambda g, mv: rolann_fused_chunk_batched(g, mv, h, w, b, mask, act_name=act)  # noqa: E731
         plain = lambda g, mv: rolann_fused_chunk_batched_plain(g, mv, h, w, b, mask, act)  # noqa: E731
-        err, _ = _check_fold(f"rolann_fused_chunk_batched {label} n={n} {act}", fold, plain,
-                             g0, m0)
+        route = "slice" if ops.fused_slice_route(kk, m_l, m_c1) else "tile"
+        before = rolann_fused_chunk_batched.route_launches[route]
+        err, used = _check_fold(f"rolann_fused_chunk_batched {label} n={n} {act} ({route})",
+                                fold, plain, g0, m0)
+        check(rolann_fused_chunk_batched.route_launches[route] == before + 2,
+              f"rolann_fused_chunk_batched {label}: not on the {route} route")
         if label.startswith("path"):
+            check(route == "slice", f"B6 at the path's shape {label} must take the slice route")
             ms, plain_ms, _ = _time_fold(fold, plain, None, g0, m0)
             bound_ms, bound_by = _bound(*_batched_work(kk, _fused_work(m_l, m_c1, n)))
+            g, mv = g0.clone(), m0.clone()
+            times = _kernel_us(lambda: fold(g, mv), ("fused_slice_kernel",
+                                                     "few_slice_reduce_kernel"))
+            outs = -(-m_l // 8)
+            regs = fused_regs.get(f"{outs},0,1", "?")
             rows["rolann_fused_chunk_batched"].append(dict(
                 k=kk, m_l=m_l, m_c1=m_c1, n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by, bar_used=used,
+                device_us=sum(us for _, us in times.values())))
             say("kernel", f"rolann_fused_chunk_batched {label} n={n}: kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, library none")
+            _say_slice_row(f"rolann_fused_chunk_batched {label} n={n}", times,
+                           f"fused_slice_kernel<{outs}, logsig, batched> (registers, spill "
+                           f"stores, spill loads) {regs}", ms, (bound_ms, bound_by), used)
 
     before = (rolann_stats_batched.launches, rolann_stats_acc_batched.launches,
               rolann_fused_chunk_batched.launches)
@@ -1184,9 +1260,16 @@ def phase_fleet(cfg, data, data_d):
     def zero():
         for fn in wrappers.values():
             fn.launches = 0
+            if hasattr(fn, "route_launches"):
+                fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
     def read():
         return {name: fn.launches for name, fn in wrappers.items()}
+
+    def on_slice_route(name, launches):
+        routes = wrappers[name].route_launches
+        check(routes["slice"] == launches and sum(routes.values()) == launches,
+              f"{name}: {routes}, expected all {launches} launches on the slice route")
 
     def expect(**nonzero):
         return {name: nonzero.get(name, 0) for name in wrappers}
@@ -1213,6 +1296,7 @@ def phase_fleet(cfg, data, data_d):
     check(launches["fit"] == expect(rolann_stats_batched=n_hidden),
           f"fleet fit launched {launches['fit']}, expected rolann_stats_batched {n_hidden} "
           "times and no other kernel")
+    on_slice_route("rolann_stats_batched", n_hidden)
     check(tuple(devices.model.train_errors.shape) == (k, n) and
           bool(torch.isfinite(devices.model.train_errors).all()), "fleet train errors")
     _check_refold_fleet("fused fleet fit", cfg, devices, fleet._device_chunks(xs_d, n),
@@ -1327,6 +1411,7 @@ def phase_fleet(cfg, data, data_d):
         launches[label] = read()
         check(launches[label] == want, f"{label} fleet fit launched {launches[label]}, "
               f"expected {want}")
+        on_slice_route("rolann_fused_chunk_batched", n_hidden * n_chunks)
         check(bool(torch.isfinite(fl.model.train_errors).all()) and
               tuple(fl.model.train_errors.shape) == (k, n), f"{label} fleet train errors")
         _check_refold_fleet(f"fused {label} fleet fit", cfg, fl, passes,
@@ -1362,8 +1447,10 @@ def phase_fleet(cfg, data, data_d):
     return launches, devices
 
 
-def phase_profile(label, run):
-    """One ``run()`` under torch.profiler: device time by kernel."""
+def phase_profile(label, run, detail=()):
+    """One ``run()`` under torch.profiler: device time by kernel, and the
+    device's busy share of the wall time; each kernel whose name holds one
+    of ``detail`` is listed by name with its launches and device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1383,6 +1470,11 @@ def phase_profile(label, run):
                     if e.device_type == torch.autograd.DeviceType.CUDA)
     say("profile", f"{label}: wall {wall * 1e3:.2f} ms, device busy {device_us / 1e3:.2f} ms "
         f"({100 * device_us / 1e6 / wall:.1f} %)")
+    for e in averages:
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(p in e.key for p in detail):
+            t = getattr(e, key)
+            say("profile", f"{label}: {e.key.split('(')[0][:80]}: {e.count} launches, "
+                f"{t / 1e3:.4f} ms ({t / max(e.count, 1):.2f} µs each)")
 
 
 def _per_launch_sum(rows):
@@ -2425,10 +2517,11 @@ def main() -> int:
         phase_profile("streamed fused fit_chunked", lambda: daef.fit_chunked(
             cfg, xtr, chunk_samples=CHUNK_SAMPLES))
         fleet_seeds, xs_d = fleet_data[1], fleet_data_d[0]
+        slice_kernels = ("slice_kernel", "few_slice_reduce_kernel")
         phase_profile("fused fleet fit (64 tenants)", lambda: fleet.fleet_fit(
-            cfg, xs_d, seeds=fleet_seeds))
+            cfg, xs_d, seeds=fleet_seeds), slice_kernels)
         phase_profile("fused chunked fleet fit (64 tenants)", lambda: fleet._fit_fleet_chunked(
-            cfg, xs_d, chunk_samples=FLEET_CHUNK, seeds=fleet_seeds))
+            cfg, xs_d, chunk_samples=FLEET_CHUNK, seeds=fleet_seeds), slice_kernels)
         phase_profile("fleet merge 64 -> 32", lambda: fleet.fleet_merge_pairwise(cfg, devices))
         lm_rows = phase_lm_kernels()
         b8_rows = phase_b8_kernels()
@@ -2459,6 +2552,24 @@ def main() -> int:
         + f" ms), bound {b3_fit['bound_ms']:.4f} ms on FP32 cores ({b3_fit['bound_by']}; "
         "no tensor-core route), worst share of the bar "
         f"{max(r['bar_used'] for r in b3_rows):.4f}")
+    b4_rows = batched_rows["rolann_stats_batched"]
+    b4_fit = _per_launch_sum(b4_rows)
+    say("kernel", f"rolann_stats_batched per fleet fit ({len(b4_rows)} launches, one a "
+        f"layer, slice route): {b4_fit['ms']:.4f} ms on CUDA events, "
+        f"{sum(r['device_us'] for r in b4_rows) / 1e3:.4f} ms on the device (profiler), bound "
+        f"{b4_fit['bound_ms']:.4f} ms on FP32 cores ({b4_fit['bound_by']}), einsum yardstick "
+        f"{b4_fit['library_ms']:.4f} ms, worst share of the bar "
+        f"{max(r['bar_used'] for r in b4_rows):.4f}")
+    b6_rows = batched_rows["rolann_fused_chunk_batched"]
+    b6_fit = _per_fit(b6_rows, len(fleet_valid), fleet_bound["fused"], ("m_l", "m_c1"),
+                      fleet_valid)
+    say("kernel", f"rolann_fused_chunk_batched per chunked fleet fit ({len(fleet_valid)} "
+        f"chunks x {len(b6_rows)} layers = "
+        f"{fleet_launches['chunked']['rolann_fused_chunk_batched']} launches, slice route): "
+        f"{b6_fit['ms']:.4f} ms on CUDA events, "
+        f"{len(fleet_valid) * sum(r['device_us'] for r in b6_rows) / 1e3:.4f} ms on the device "
+        f"(profiler), bound {b6_fit['bound_ms']:.4f} ms on FP32 cores ({b6_fit['bound_by']}), "
+        f"worst share of the bar {max(r['bar_used'] for r in b6_rows):.4f}")
     kernels = [
         {
             "name": "rolann_stats",
@@ -2491,11 +2602,11 @@ def main() -> int:
         {
             "name": "rolann_stats_batched",
             "route": "cuda",
-            "source": source + "rolann_stats.cu",
+            "source": source + "rolann_stats_slice.cuh",
             "replaces": replaces + "102",
             "launches": fleet_launches["fit"]["rolann_stats_batched"],
             # One fleet fit: one launch per layer shape.
-            **_per_launch_sum(batched_rows["rolann_stats_batched"]),
+            **b4_fit,
         },
         {
             "name": "rolann_stats_acc_batched",
@@ -2510,12 +2621,11 @@ def main() -> int:
         {
             "name": "rolann_fused_chunk_batched",
             "route": "cuda",
-            "source": source + "rolann_fused_chunk.cu",
+            "source": source + "rolann_fused_slice.cuh",
             "replaces": replaces + "405",
             "launches": fleet_launches["chunked"]["rolann_fused_chunk_batched"],
             # One chunked fleet fit: 4 launches at each hidden layer's shape.
-            **_per_fit(batched_rows["rolann_fused_chunk_batched"], len(fleet_valid),
-                       fleet_bound["fused"], ("m_l", "m_c1"), fleet_valid),
+            **b6_fit,
         },
         {
             "name": "flash_attention",

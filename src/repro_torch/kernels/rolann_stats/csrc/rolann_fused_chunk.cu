@@ -22,11 +22,12 @@
 // repro_torch/core/activations.py writes them (logsig as 1/(1+exp(-z)), the
 // logit as log(y) - log1p(-y)), without fast math.
 //
-// Two kernels, chosen by shape in `launch()`: B3 with ma <= 28 and m_l <= 32
-// (every hidden layer of the streamed creditcard fit) runs
-// rolann_fused_slice.cuh's block per sample slice, which forms the slice's
-// activations once for all outputs; B6 and wider layers run
-// `fused_partial_kernel` below.
+// Two kernels, chosen by shape in `launch()` (a rule between two
+// hand-written kernels, not a fallback): B3 and B6 with ma <= 28 and
+// m_l <= 32 (every hidden layer of the streamed creditcard fit and of the
+// chunked fleet fit) run rolann_fused_slice.cuh's block per sample slice
+// (per tenant and slice for B6), which forms the slice's activations once
+// for all outputs; wider layers run `fused_partial_kernel` below.
 //
 // What bounds it.  The work is that of B1 (o·m(m+1)/2·n FMAs for G's upper
 // triangle) plus one stage-1 product per sample, m_l·m_c1·n FMAs, against
@@ -56,8 +57,9 @@
 // template.  Grid axis x runs over the k·m_l (tenant, output) pairs,
 // blockIdx.x = t·m_l + o, so the workspace and the accumulators are
 // contiguous [k·m_l, ...] arrays; h, w, b and the mask take tenant t's
-// offset.  On the fleet path (k = 64, chunks of 1,024) the pairs give
-// 960–1,536 blocks and one slice per launch.  Registers bound both: the
+// offset.  (The fleet path, k = 64 and chunks of 1,024, ran here before
+// the slice route took it: 960–1,536 blocks, one slice per launch.)
+// Registers bound both: the
 // offsets, kept live through the sample loop, took the kernel from 57–64 to
 // 80 registers a thread, 3 blocks of 256 threads per SM instead of 4, and
 // made B3 4 % slower on the card.  So the offsets are compiled in only for
@@ -244,14 +246,14 @@ long long smem_floats(int m_l, int ma) {
 }
 
 int launch(const float* h, const float* w, const float* b, const float* mask, float* ws_g,
-           float* ws_m, float* g, float* mv, int k, int m_l, int m_c1, long long n, int act,
-           int slices, long long slice_len, void* stream) {
+           float* ws_m, float* g, float* mv, int k, bool batched, int m_l, int m_c1,
+           long long n, int act, int slices, long long slice_len, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (slice::takes(k, m_l, m_c1)) {
-    return act == kLogsig ? slice::launch<kLogsig>(h, w, b, mask, ws_g, ws_m, g, mv, m_l, m_c1,
-                                                   n, slices, slice_len, st)
-                          : slice::launch<kTanh>(h, w, b, mask, ws_g, ws_m, g, mv, m_l, m_c1,
-                                                 n, slices, slice_len, st);
+    return act == kLogsig ? slice::launch<kLogsig>(h, w, b, mask, ws_g, ws_m, g, mv, k, batched,
+                                                   m_l, m_c1, n, slices, slice_len, st)
+                          : slice::launch<kTanh>(h, w, b, mask, ws_g, ws_m, g, mv, k, batched,
+                                                 m_l, m_c1, n, slices, slice_len, st);
   }
   const int ma = m_c1 + 1;
   const int tiles = (ma + kTile - 1) / kTile;
@@ -279,19 +281,22 @@ extern "C" int rolann_fused_chunk_f32(const float* h, const float* w, const floa
                                       const float* mask, float* ws_g, float* ws_m, float* g,
                                       float* mv, int m_l, int m_c1, long long n, int act,
                                       int slices, long long slice_len, void* stream) {
-  return launch(h, w, b, mask, ws_g, ws_m, g, mv, 1, m_l, m_c1, n, act, slices, slice_len,
-                stream);
+  return launch(h, w, b, mask, ws_g, ws_m, g, mv, 1, false, m_l, m_c1, n, act, slices,
+                slice_len, stream);
 }
 
 // B6: B3 for k tenants in one launch: h [k, m_l, n], w [k, m_l, m_c1],
 // b [k, m_c1], mask [k, n] folded into g [k, m_l, ma, ma], mv [k, m_l, ma].
-// ws_g [slices, k·m_l, ma, ma] and ws_m [slices, k·m_l, ma] are scratch;
-// slices are planned for k·m_l (tenant, output) pairs.
+// ws_g and ws_m are scratch for `slices` partials of the k·m_l (tenant,
+// output) pairs: with ma <= 28 and m_l <= 32, [slices, k·m_l, ma (ma + 1) / 2]
+// and [slices, k·m_l, ma], slices a tenant (ops.plan_batched_slices), the
+// rest [slices, k·m_l, ma, ma] and [slices, k·m_l, ma], slices planned for
+// the pairs (ops.plan_slices).
 extern "C" int rolann_fused_chunk_batched_f32(const float* h, const float* w, const float* b,
                                               const float* mask, float* ws_g, float* ws_m,
                                               float* g, float* mv, int k, int m_l, int m_c1,
                                               long long n, int act, int slices,
                                               long long slice_len, void* stream) {
-  return launch(h, w, b, mask, ws_g, ws_m, g, mv, k, m_l, m_c1, n, act, slices, slice_len,
-                stream);
+  return launch(h, w, b, mask, ws_g, ws_m, g, mv, k, true, m_l, m_c1, n, act, slices,
+                slice_len, stream);
 }

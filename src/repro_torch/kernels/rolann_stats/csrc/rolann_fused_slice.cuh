@@ -1,20 +1,22 @@
-// B3 for one tenant with ma <= kSmallM (28) and m_l <= 32 on Hopper
-// (sm_90a), FP32 CUDA cores: each block forms its slice's activations once.
+// B3 and B6 with ma <= kSmallM (28) and m_l <= 32 on Hopper (sm_90a), FP32
+// CUDA cores: each block forms its slice's activations once.
 //
-// Replaces, for that shape, the Pallas TPU kernel `rolann_fused_chunk_kernel`
-// (bodies `_kernel_fused_chunk` and `_fused_chunk_deltas`) of
-// src/repro/kernels/rolann_stats/kernel.py (B3): one streamed chunk of an
-// ELM-AE decoder layer, as rolann_fused_chunk.cu states it,
+// Replaces, for that shape, the Pallas TPU kernels `rolann_fused_chunk_kernel`
+// (B3; bodies `_kernel_fused_chunk` and `_fused_chunk_deltas`) and
+// `rolann_fused_chunk_kernel_batched` (B6; body `_kernel_fused_chunk_batched`)
+// of src/repro/kernels/rolann_stats/kernel.py: one streamed chunk of an
+// ELM-AE decoder layer (of every tenant of a fleet, each with its own chunk,
+// stage-1 encoder and mask, for B6), as rolann_fused_chunk.cu states it,
 //
 //     xa    = [act(wᵀ h + b); 1]                       [ma, n], ma = m_c1 + 1
 //     d̄     = inv(clip(h[o])),  f' = deriv(d̄)          per output o < m_l
 //     fsq   = f'² · mask,  fd = f'² · d̄ · mask
 //     G[o] += xa · diag(fsq) · xaᵀ,  M[o] += xa · fd
 //
-// `launch()` in rolann_fused_chunk.cu takes this route for one tenant
-// (k == 1), ma <= 28 and m_l <= 32: every hidden layer of the streamed
-// creditcard fit, (m_l, m_c1) = (15, 18) .. (24, 27).  Wider layers and B6
-// keep `fused_partial_kernel`.
+// `launch()` in rolann_fused_chunk.cu takes this route for ma <= 28 and
+// m_l <= 32, any number of tenants: every hidden layer of the streamed
+// creditcard fit and of the chunked fleet fit, (m_l, m_c1) = (15, 18) ..
+// (24, 27).  Wider layers keep `fused_partial_kernel`.
 //
 // What bounds it.  At (24, 27) and 32,768 samples the function is 2.1e8
 // FMAs for G's upper triangle, 0.2e8 for M and the fsq scaling, and 0.2e8
@@ -35,22 +37,41 @@
 //      is ones and rows past ma zeros;
 //   3. forms fsq and fd of all m_l outputs for the step, in the reference's
 //      order (clip, inv, deriv, fsq, fd, then the mask);
-//   4. folds the step: warp v owns outputs v, v + 8, v + 16, v + 24, and
-//      its lane l the l-th 4x4 piece of the upper triangle of a 28 x 28 G
-//      (28 pieces) and row l of M, for each of its outputs.  Per sample a
-//      lane reads its piece's 4 rows and 4 columns of xa (two float4 loads)
-//      and its M row once for all its outputs; each output adds
-//      (xa[i]·fsq[o])·xa[j] (the reference's order) and xa[l]·fd[o].
+//   4. folds the step (rolann_slice_fold.cuh's `fold_step`, shared with
+//      B4): warp v owns outputs v, v + 8, v + 16, v + 24, its lane l a 4x4
+//      piece of G's upper triangle and row l of M for each of them.
 // The accumulators of all outputs stay in registers over the slice (16 + 1
 // per output), so xa and the targets never leave shared memory.  The block
 // writes its slice's partial upper triangles and M rows to the workspace,
-// and `slice_reduce_kernel` adds them, in a fixed order, into the running
+// and a second kernel adds them, in a fixed order, into the running
 // accumulators.  Two 3xTF32 tensor-core forms of the fold (a wgmma per pair
 // of outputs with xa·fsq as A; G as fsq times the pair products xa_i·xa_j)
 // ran slower on the card than this one: at ma <= 28 forming and splitting
 // their operands costs as much as this fold's FMAs (PERF.md).
 //
-// The reduction.  A slice is a few hundred samples, so a chunk has a few
+// B6: the tenant axis.  The grid is (tenant, sample slice); a block takes
+// tenant t's h, w, b and mask by offset and folds all m_l outputs of its
+// slice, so a tenant's activations and targets are formed once per step,
+// where `fused_partial_kernel` formed them again for each of the m_l
+// outputs (1.6–2.6 times the FMAs of G).  The offsets are compiled into the
+// batched instantiation only (kBatched): B3's keeps its registers (offsets
+// kept live cost B3 4 %, PERF.md).  The fleet's chunks are short
+// (1,024 samples a tenant, 16 steps): ops.plan_batched_slices cuts each
+// tenant's chunk into a few slices of at least four steps so that the
+// (tenant, slice) blocks fill the card once, and
+// rolann_slice_fold.cuh's `few_slice_reduce_kernel`, a thread per entry
+// summing its few slices in order, adds them into the running G and M.
+// On the card (fleet layers, 64 tenants, 1,024 samples) 4 slices a tenant
+// ran 55–90 µs a launch + 4–10 µs of reduce; 8 and 16 slices were slower
+// (more partials to write and sum), 2 and 1 much slower (145–207 µs at one
+// slice: 64 blocks, each walking 16 steps back to back).  A grid over
+// (tenant, output group) with one slice a tenant, each block adding into
+// G itself, needs no workspace and no reduce launch, but each block still
+// walks all 16 steps, forms xa again per group, and with fewer outputs a
+// warp its fold is bound by shared loads (PERF.md): it cannot beat the
+// 16-step chain that the one-slice runs measured, so it was not built.
+//
+// B3's reduction.  A slice is a few hundred samples, so a chunk has a few
 // hundred partials.  One thread per entry summing them in order (as
 // rolann_common.cuh's `reduce_kernel` does) walks ~250 dependent loads, and
 // half of them strided (the lower triangle read from the upper): a block
@@ -61,7 +82,7 @@
 // running G stays exactly symmetric.  No float atomics.
 #pragma once
 
-#include "rolann_common.cuh"
+#include "rolann_slice_fold.cuh"
 
 namespace rolann {
 
@@ -106,30 +127,19 @@ __device__ __forceinline__ void targets(float hv, float mk, float* fsq, float* f
 
 namespace slice {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kStep = 64;                  // samples staged per step
-constexpr int kLdX = 32;                   // floats per staged sample of xa (ma <= 28)
-constexpr int kSide = kSmallM / 4;         // 4x4 pieces along a side of G
-constexpr int kPieces = kSide * (kSide + 1) / 2;
-constexpr int kMaxOutputs = 4;             // outputs per warp: m_l <= 32
-constexpr int kSamplesPerLane = kStep / kWarps;
 constexpr int kHPerThread = kWarps * kMaxOutputs * kStep / kThreads;  // staged h a thread loads
-static_assert(kPieces <= 32 && kSmallM <= kLdX, "a piece and an M row per lane");
-static_assert(kStep <= kThreads, "a thread loads each mask weight of a step");
 
 // Floats of dynamic shared memory for m_l outputs.
 inline long long smem_floats(int m_l) {
   return (long long)m_l * kLdX + kLdX + kStep + 3LL * m_l * kStep + (long long)kStep * kLdX;
 }
 
-// Offset of row i of an upper triangle of side m packed by rows.
-__host__ __device__ __forceinline__ int tri_row(int i, int m) { return i * m - i * (i - 1) / 2; }
-
-// Grid: x the slice.  ws_g [slices, m_l, ma (ma + 1) / 2] (upper triangles,
-// packed by rows) and ws_m [slices, m_l, ma] receive each slice's partial
-// sums.
-template <int kOuts, int A>
+// B3 (kBatched false): grid x the slice.  ws_g [slices, m_l, ma (ma + 1)
+// / 2] (upper triangles, packed by rows) and ws_m [slices, m_l, ma] receive
+// each slice's partial sums.  B6 (kBatched): grid (tenant t, slice s) over
+// h [k, m_l, n], w [k, m_l, m_c1], b [k, m_c1], mask [k, n]; the partials of
+// (t, s) go to rows (s·k + t)·m_l .. of ws_g [slices, k·m_l, ..] and ws_m.
+template <int kOuts, int A, bool kBatched>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_slice_kernel(const float* __restrict__ h, const float* __restrict__ w,
                    const float* __restrict__ b, const float* __restrict__ mask,
@@ -146,7 +156,15 @@ fused_slice_kernel(const float* __restrict__ h, const float* __restrict__ w,
 
   const int ma = m_c1 + 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long k_begin = (long long)blockIdx.x * slice_len;
+  const int slice = kBatched ? blockIdx.y : blockIdx.x;
+  if (kBatched) {                            // tenant t's chunk, encoder and mask
+    const long long t = blockIdx.x;
+    h += t * m_l * n;
+    w += t * m_l * m_c1;
+    b += t * m_c1;
+    mask += t * n;
+  }
+  const long long k_begin = (long long)slice * slice_len;
   const long long k_end = min(n, k_begin + slice_len);
 
   for (int e = tid; e < m_l * kLdX; e += kThreads) {
@@ -155,19 +173,7 @@ fused_slice_kernel(const float* __restrict__ h, const float* __restrict__ w,
   }
   if (tid < kLdX) s_b[tid] = tid < m_c1 ? __ldg(b + tid) : 0.f;
 
-  // This lane's piece (rows 4ty.., columns 4tx..) and M row `lane`.
-  const bool piece = lane < kPieces;
-  int ty = 0, tx = 0;
-  if (piece) tri_index(lane, kSide, &ty, &tx);
-  float acc[kOuts][4][4], macc[kOuts];
-#pragma unroll
-  for (int q = 0; q < kOuts; ++q) {
-    macc[q] = 0.f;
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[q][u][v] = 0.f;
-  }
+  Fold<kOuts> f = make_fold<kOuts>(lane);
   const int c0 = warp * kSamplesPerLane;
 
   // 1. A step's h and mask weights (zeros past the slice), loaded into
@@ -224,64 +230,16 @@ fused_slice_kernel(const float* __restrict__ h, const float* __restrict__ w,
     const bool more = k0 + kStep < k_end;
     if (more) load(k0 + kStep);
 
-    // 4. the fold, four samples at a time (each output's fsq and fd of the
-    // four as one broadcast float4 each)
-#pragma unroll 1
-    for (int c4 = 0; c4 < kStep; c4 += 4) {
-      float4 f4[kOuts], d4[kOuts];
-#pragma unroll
-      for (int q = 0; q < kOuts; ++q) {
-        const int o = min(warp + kWarps * q, m_l - 1);
-        f4[q] = *reinterpret_cast<const float4*>(s_f + o * kStep + c4);
-        d4[q] = *reinterpret_cast<const float4*>(s_d + o * kStep + c4);
-      }
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const int c = c4 + cc;
-        const float4 a4 = *reinterpret_cast<const float4*>(s_x + c * kLdX + ty * 4);
-        const float4 b4 = *reinterpret_cast<const float4*>(s_x + c * kLdX + tx * 4);
-        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-        const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
-        const float xm = s_x[c * kLdX + lane];
-#pragma unroll
-        for (int q = 0; q < kOuts; ++q) {
-          if (warp + kWarps * q < m_l) {  // warp-uniform
-            const float f = cc == 0 ? f4[q].x : cc == 1 ? f4[q].y : cc == 2 ? f4[q].z : f4[q].w;
-            const float d = cc == 0 ? d4[q].x : cc == 1 ? d4[q].y : cc == 2 ? d4[q].z : d4[q].w;
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              const float as = a[u] * f;
-#pragma unroll
-              for (int v = 0; v < 4; ++v) acc[q][u][v] = fmaf(as, bb[v], acc[q][u][v]);
-            }
-            macc[q] = fmaf(xm, d, macc[q]);
-          }
-        }
-      }
-    }
+    // 4. the fold
+    fold_step(f, s_x, s_f, s_d, warp, lane, m_l);
     if (more) store();  // s_h and s_k are not read by the fold
     __syncthreads();
   }
 
-  // This slice's partial (G, M) of each of the warp's outputs: G's upper
-  // triangle packed by rows (row i from the diagonal on, at tri_row(i)).
-#pragma unroll
-  for (int q = 0; q < kOuts; ++q) {
-    const int o = warp + kWarps * q;
-    if (o >= m_l) continue;
-    const long long row = (long long)blockIdx.x * m_l + o;
-    if (piece) {
-      float* const out = ws_g + row * (ma * (ma + 1) / 2);
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          const int i = ty * 4 + u, j = tx * 4 + v;
-          if (i <= j && j < ma) out[tri_row(i, ma) + j - i] = acc[q][u][v];
-        }
-    }
-    if (lane < ma) ws_m[row * ma + lane] = macc[q];
-  }
+  const long long row0 =
+      kBatched ? ((long long)blockIdx.y * gridDim.x + blockIdx.x) * m_l
+               : (long long)blockIdx.x * m_l;
+  write_partials(f, ws_g, ws_m, row0, warp, lane, m_l, ma);
 }
 
 // g [o, m, m] and mv [o, m] += the sum over `slices` partials of ws_g
@@ -324,41 +282,53 @@ slice_reduce_kernel(const float* __restrict__ ws_g, const float* __restrict__ ws
   }
 }
 
-template <int kOuts, int A>
-int launch_outputs(int slices, size_t smem, cudaStream_t st, const float* h, const float* w,
+template <int kOuts, int A, bool kBatched>
+int launch_outputs(dim3 grid, size_t smem, cudaStream_t st, const float* h, const float* w,
                    const float* b, const float* mask, float* ws_g, float* ws_m, int m_l,
                    int m_c1, long long n, long long slice_len) {
-  auto kernel = fused_slice_kernel<kOuts, A>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<slices, kThreads, smem, st>>>(h, w, b, mask, ws_g, ws_m, m_l, m_c1, n, slice_len);
+  auto kernel = fused_slice_kernel<kOuts, A, kBatched>;
+  const int err = allow_smem(kernel, smem);
+  if (err != 0) return err;
+  kernel<<<grid, kThreads, smem, st>>>(h, w, b, mask, ws_g, ws_m, m_l, m_c1, n, slice_len);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Whether this route takes a launch (the rule ops.fused_slice_route states).
+// Whether this route takes a launch of k tenants (the rule
+// ops.fused_slice_route states).
 inline bool takes(int k, int m_l, int m_c1) {
-  return k == 1 && m_c1 + 1 <= kSmallM && m_l >= 1 && m_l <= kWarps * kMaxOutputs;
+  return k >= 1 && m_c1 + 1 <= kSmallM && m_l >= 1 && m_l <= kWarps * kMaxOutputs;
 }
 
-// B3 on this route: the slices' partials, then their sum into g and mv.
+// B3 (k == 1, not `batched`) or B6 (`batched`, any k) on this route: the
+// slices' partials, then their sum into g and mv.  B3 sums its many slices
+// with slice_reduce_kernel, B6 its few a tenant with few_slice_reduce_kernel.
 template <int A>
 int launch(const float* h, const float* w, const float* b, const float* mask, float* ws_g,
-           float* ws_m, float* g, float* mv, int m_l, int m_c1, long long n, int slices,
-           long long slice_len, cudaStream_t st) {
+           float* ws_m, float* g, float* mv, int k, bool batched, int m_l, int m_c1,
+           long long n, int slices, long long slice_len, cudaStream_t st) {
   const size_t smem = sizeof(float) * smem_floats(m_l);
   const int outs = (m_l + kWarps - 1) / kWarps;
+  const dim3 grid = batched ? dim3(k, slices) : dim3(slices);
   auto run = [&](auto fn) {
-    return fn(slices, smem, st, h, w, b, mask, ws_g, ws_m, m_l, m_c1, n, slice_len);
+    return fn(grid, smem, st, h, w, b, mask, ws_g, ws_m, m_l, m_c1, n, slice_len);
   };
-  const int err = outs == 1   ? run(launch_outputs<1, A>)
-                  : outs == 2 ? run(launch_outputs<2, A>)
-                  : outs == 3 ? run(launch_outputs<3, A>)
-                              : run(launch_outputs<4, A>);
+  int err;
+  if (batched) {
+    err = outs == 1   ? run(launch_outputs<1, A, true>)
+          : outs == 2 ? run(launch_outputs<2, A, true>)
+          : outs == 3 ? run(launch_outputs<3, A, true>)
+                      : run(launch_outputs<4, A, true>);
+  } else {
+    err = outs == 1   ? run(launch_outputs<1, A, false>)
+          : outs == 2 ? run(launch_outputs<2, A, false>)
+          : outs == 3 ? run(launch_outputs<3, A, false>)
+                      : run(launch_outputs<4, A, false>);
+  }
   if (err != 0) return err;
   const int ma = m_c1 + 1;
+  if (batched) {
+    return launch_few_slice_reduce(ws_g, ws_m, g, mv, ma, (long long)k * m_l, slices, true, st);
+  }
   slice_reduce_kernel<<<static_cast<unsigned>(m_l * (ma + 1)), kThreads, 0, st>>>(
       ws_g, ws_m, g, mv, ma, m_l, slices);
   return static_cast<int>(cudaGetLastError());

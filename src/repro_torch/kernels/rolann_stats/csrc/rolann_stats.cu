@@ -64,15 +64,19 @@
 // and samples beyond n are loaded as zeros and never written; nothing is
 // padded in memory.
 //
-// Two routes, chosen by shape (a rule between two hand-written kernels, not
+// Three routes, chosen by shape (a rule between hand-written kernels, not
 // a fallback): B1 for one tenant with m > kSmallM runs on the tensor cores
 // (3xTF32 wgmma, rolann_stats_sm90.cuh), the DAEF head's shape among them;
-// m <= kSmallM (every creditcard layer), B2, B4 and B5 run `partial_kernel`
-// above on the FP32 cores.  ops.py plans the slices of each route by the
-// same rule (`tensor_core_route`).
+// B4 with m <= kSmallM and o <= 32 (every layer of the fleet fit) runs the
+// block per (tenant, sample slice) of rolann_stats_slice.cuh, which stages
+// each step's xa once for all outputs; B1 with m <= kSmallM (every
+// creditcard layer), B2, B5 and wider B4 run `partial_kernel` above on the
+// FP32 cores.  ops.py plans the slices of each route by the same rule
+// (`tensor_core_route`, `stats_slice_route`).
 
 #include "rolann_common.cuh"
 #include "rolann_stats_sm90.cuh"
+#include "rolann_stats_slice.cuh"
 
 namespace {
 
@@ -144,8 +148,10 @@ partial_kernel(const float* __restrict__ xa, const float* __restrict__ fsq,
 
 int launch(const float* xa, const float* fsq, const float* fd, float* ws_g, float* ws_m,
            float* g, float* mv, int k, int m, long long n, int o, int slices,
-           long long slice_len, bool accumulate, void* stream) {
+           long long slice_len, bool accumulate, void* stream, bool batched = false) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (batched && !accumulate && slice::stats_takes(m, o))
+    return slice::stats_launch(xa, fsq, fd, ws_g, ws_m, g, mv, k, m, n, o, slices, slice_len, st);
   if (k == 1 && !accumulate && m > kSmallM)
     return sm90::launch(xa, fsq, fd, ws_g, ws_m, g, mv, m, n, o, slices, slice_len, st);
   const int tiles = (m + kTile - 1) / kTile;
@@ -186,14 +192,17 @@ extern "C" int rolann_stats_acc_f32(const float* xa, const float* fsq, const flo
 }
 
 // B4: (G, M) of k tenants in one launch: xa [k, m, n], fsq and fd [k, o, n]
-// into g [k, o, m, m], mv [k, o, m].  ws_g [slices, k·o, m, m] and ws_m
-// [slices, k·o, m] are scratch from the caller; slices are planned for k·o
-// (tenant, output) pairs.
+// into g [k, o, m, m], mv [k, o, m].  ws_g and ws_m are scratch from the
+// caller for `slices` partials of the k·o (tenant, output) pairs: with
+// m <= 28 and o <= 32 (rolann_stats_slice.cuh) [slices, k·o, m (m + 1) / 2]
+// and [slices, k·o, m], slices a tenant (ops.plan_batched_slices), the rest
+// [slices, k·o, m, m] and [slices, k·o, m], slices planned for the pairs.
 extern "C" int rolann_stats_batched_f32(const float* xa, const float* fsq, const float* fd,
                                         float* ws_g, float* ws_m, float* g, float* mv,
                                         int k, int m, long long n, int o, int slices,
                                         long long slice_len, void* stream) {
-  return launch(xa, fsq, fd, ws_g, ws_m, g, mv, k, m, n, o, slices, slice_len, false, stream);
+  return launch(xa, fsq, fd, ws_g, ws_m, g, mv, k, m, n, o, slices, slice_len, false, stream,
+                true);
 }
 
 // B5: B4's (G, M), added into the running g [k, o, m, m] and mv [k, o, m].

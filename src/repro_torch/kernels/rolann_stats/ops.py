@@ -34,10 +34,18 @@ Each wrapper counts the calls that launched its kernel in ``.launches``;
 ``rolann_stats.route_launches`` splits B1's count by route: ``"tf32x3"``
 (m > ``SMALL_M``: the tensor-core kernel of ``csrc/rolann_stats_sm90.cuh``)
 or ``"fp32"`` (the FP32-core ``partial_kernel``), chosen by shape as
-:func:`tensor_core_route` says; ``rolann_fused_chunk.route_launches`` splits
-B3's: ``"slice"`` (a block per sample slice forming its activations once,
-``csrc/rolann_fused_slice.cuh``) or ``"tile"`` (``fused_partial_kernel``, a
-block per output and G tile), as :func:`fused_slice_route` says.
+:func:`tensor_core_route` says; ``rolann_stats_batched.route_launches``
+splits B4's: ``"slice"`` (a block per tenant and sample slice staging xa
+once for all outputs, ``csrc/rolann_stats_slice.cuh``), as
+:func:`stats_slice_route` says, else B1's routes (``"tf32x3"`` for one
+tenant with m > ``SMALL_M``);
+``rolann_fused_chunk.route_launches`` and
+``rolann_fused_chunk_batched.route_launches`` split B3's and B6's:
+``"slice"`` (a block per sample slice, and tenant, forming its activations
+once, ``csrc/rolann_fused_slice.cuh``) or ``"tile"``
+(``fused_partial_kernel``, a block per output and G tile), as
+:func:`fused_slice_route` says.  The slice routes share one fold
+(``csrc/rolann_slice_fold.cuh``).
 """
 from __future__ import annotations
 
@@ -66,12 +74,17 @@ TC_TILE, TC_OUTPUTS, TC_STEP, TC_BLOCKS_PER_SM = 64, 4, 32, 2
 # adds) used 1.2 of it (PERF.md).  A block sums its slice in runs of this
 # many samples, and the runs on the FP32 cores, so slices need no cap.
 TC_MAX_SLICE = 2048
-# B3's slice route (rolann_fused_slice.cuh): one tenant, ma <= SMALL_M
+# The slice routes (rolann_slice_fold.cuh): B3 and B6 with ma <= SMALL_M
 # (one G tile of 4x4 pieces a warp's lanes cover) and at most
-# FUSED_MAX_OUTPUTS outputs (four a warp); a block per slice of whole
-# FUSED_STEP-sample steps, about FUSED_BLOCKS_PER_SM blocks per SM (more
-# steps a block beyond that).
+# FUSED_MAX_OUTPUTS outputs (four a warp), B4 with m <= SMALL_M and as
+# many outputs; slices of whole FUSED_STEP-sample steps.  B3 (one tenant)
+# plans about FUSED_BLOCKS_PER_SM blocks per SM (more steps a block beyond
+# that).  B4 and B6 plan a few slices a tenant: as many as give
+# SLICE_BLOCKS_PER_SM blocks on every SM (the two a kernel's launch bounds
+# keep resident), none shorter than SLICE_MIN_STEPS steps (a slice's
+# partials, m_l (m (m + 1) / 2 + m) floats, outweigh a few steps' inputs).
 FUSED_STEP, FUSED_MAX_OUTPUTS, FUSED_BLOCKS_PER_SM = 64, 32, 3
+SLICE_BLOCKS_PER_SM, SLICE_MIN_STEPS = 2, 4
 
 _FN = "rolann_stats_f32"
 _FN_ACC = "rolann_stats_acc_f32"
@@ -266,11 +279,20 @@ def plan_slices_tf32x3(m: int, n: int, o: int, sm_count: int) -> tuple[int, int]
 
 
 def fused_slice_route(k: int, m_l: int, m_c1: int) -> bool:
-    """Whether a B3/B6 launch takes the slice kernel: one tenant, ma =
+    """Whether a B3/B6 launch of ``k`` tenants takes the slice kernel: ma =
     m_c1 + 1 <= ``SMALL_M`` and at most ``FUSED_MAX_OUTPUTS`` outputs
     (``slice::takes`` in ``csrc/rolann_fused_slice.cuh``).  Every hidden
-    layer of the streamed creditcard fit takes it."""
-    return k == 1 and m_c1 + 1 <= SMALL_M and 1 <= m_l <= FUSED_MAX_OUTPUTS
+    layer of the streamed creditcard fit and of the chunked fleet fit takes
+    it."""
+    return k >= 1 and m_c1 + 1 <= SMALL_M and 1 <= m_l <= FUSED_MAX_OUTPUTS
+
+
+def stats_slice_route(m: int, o: int) -> bool:
+    """Whether a B4 launch takes the slice kernel: m <= ``SMALL_M`` and at
+    most ``FUSED_MAX_OUTPUTS`` outputs, any number of tenants
+    (``slice::stats_takes`` in ``csrc/rolann_stats_slice.cuh``).  Every
+    layer of the fleet fit takes it; B1, B2 and B5 do not use this route."""
+    return 1 <= m <= SMALL_M and 1 <= o <= FUSED_MAX_OUTPUTS
 
 
 @functools.lru_cache(maxsize=256)
@@ -285,6 +307,22 @@ def plan_fused_slices(n: int, sm_count: int) -> tuple[int, int]:
     return -(-n // slice_len), slice_len
 
 
+@functools.lru_cache(maxsize=256)
+def plan_batched_slices(k: int, n: int, sm_count: int) -> tuple[int, int]:
+    """(slices a tenant, slice_len) for B4's and B6's slice kernels, whose
+    grid is (tenant, slice): as many slices as give ``SLICE_BLOCKS_PER_SM``
+    blocks on each SM, each at least ``SLICE_MIN_STEPS`` whole
+    ``FUSED_STEP``-sample steps (one slice where n is shorter), every slice
+    starting below ``n``.  The count does not grow with ``n``, nor the
+    workspace; it depends on shapes and the SM count only, so a card sums in
+    one order.  The fleet's 1,024-sample chunks of 64 tenants take 4 slices
+    of 256 on a 132-SM card."""
+    steps = -(-n // FUSED_STEP)
+    slices = max(1, min(SLICE_BLOCKS_PER_SM * sm_count // k, steps // SLICE_MIN_STEPS))
+    slice_len = -(-steps // slices) * FUSED_STEP
+    return -(-n // slice_len), slice_len
+
+
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The C entry points' argument types: B1/B2 (and with k, B4/B5), B3 (B6).
 _ARGS = [_PTR] * 7 + [_I32, _I64, _I32, _I32, _I64, _PTR]
@@ -293,12 +331,17 @@ _ARGS_FUSED = [_PTR] * 8 + [_I32, _I32, _I64, _I32, _I32, _I64, _PTR]
 _ARGS_FUSED_BATCHED = _ARGS_FUSED[:8] + [_I32] + _ARGS_FUSED[8:]
 
 
+def _g_floats(m: int, packed: bool) -> int:
+    """Floats of one partial G: m (m + 1) / 2 packed, else m * m."""
+    return m * (m + 1) // 2 if packed else m * m
+
+
 def _workspace(slices: int, o: int, m: int, dev: torch.device, packed: bool = False):
     """Scratch for the slices' partial G [slices, o, m, m] (``packed``: the
     upper triangles packed by rows, [slices, o, m (m + 1) / 2]) and M
     [slices, o, m], one allocation: (the buffer, G's address, M's address).
     The caller keeps the buffer until its launch is enqueued."""
-    g_size = m * (m + 1) // 2 if packed else m * m
+    g_size = _g_floats(m, packed)
     buf = torch.empty(slices * o * (g_size + m), dtype=torch.float32, device=dev)
     return buf, buf.data_ptr(), buf.data_ptr() + 4 * slices * o * g_size
 
@@ -320,29 +363,54 @@ def plan_stats(k: int, m: int, n: int, o: int, accumulate: bool,
     return tensor_cores, slices, slice_len, 0 if tensor_cores and slices == 1 else slices
 
 
-def workspace_bytes(k: int, m: int, n: int, o: int, accumulate: bool, sm_count: int) -> int:
-    """Bytes of scratch a B1, B2, B4 or B5 launch allocates."""
-    ws = plan_stats(k, m, n, o, accumulate, sm_count)[3]
-    return 4 * ws * k * o * (m * m + m)
+def _plan_launch(fn_name: str, k: int, m: int, n: int, o: int,
+                 sm_count: int) -> tuple[str, int, int, int, bool]:
+    """(route, slices, slice_len, workspace slices, packed partials) of a
+    B1, B2, B4 or B5 launch: B4 with m <= ``SMALL_M`` and o <=
+    ``FUSED_MAX_OUTPUTS`` takes the slice route (a few slices a tenant,
+    packed partials), the rest :func:`plan_stats`'s."""
+    if fn_name == _FN_BATCHED and stats_slice_route(m, o):
+        slices, slice_len = plan_batched_slices(k, n, sm_count)
+        return "slice", slices, slice_len, slices, True
+    tensor_cores, slices, slice_len, ws = plan_stats(
+        k, m, n, o, fn_name in (_FN_ACC, _FN_ACC_BATCHED), sm_count)
+    return ("tf32x3" if tensor_cores else "fp32"), slices, slice_len, ws, False
 
 
-def _launch(fn_name: str, xa, fsq, fd, g, mv) -> bool:
+def workspace_bytes(k: int, m: int, n: int, o: int, accumulate: bool, sm_count: int,
+                    batched: bool = False) -> int:
+    """Bytes of scratch a B1, B2 or (``batched``) B4, B5 launch allocates."""
+    fn_name = ((_FN_ACC_BATCHED if accumulate else _FN_BATCHED) if batched
+               else (_FN_ACC if accumulate else _FN))
+    _, _, _, ws, packed = _plan_launch(fn_name, k, m, n, o, sm_count)
+    return 4 * ws * k * o * (_g_floats(m, packed) + m)
+
+
+def fused_workspace_bytes(k: int, m_l: int, m_c1: int, n: int, sm_count: int,
+                          batched: bool) -> int:
+    """Bytes of scratch a B3 or B6 (``batched``) launch allocates."""
+    slices, _, packed = _plan_fused(k, m_l, m_c1, n, sm_count, batched)
+    ma = m_c1 + 1
+    return 4 * slices * k * m_l * (_g_floats(ma, packed) + ma)
+
+
+def _launch(fn_name: str, xa, fsq, fd, g, mv) -> str:
     """B1/B2 (xa [m, n]) or B4/B5 (xa [k, m, n]) on float32 contiguous CUDA
-    tensors, into float32 g, mv; whether it took the tensor-core route."""
+    tensors, into float32 g, mv; the route it took ("tf32x3", "fp32" or, for
+    B4, "slice")."""
     batched = xa.ndim == 3
     k = xa.shape[0] if batched else 1
     m, n = xa.shape[-2:]
     o = fsq.shape[-2]
     dev = xa.device
-    sm_count = _sm_count(dev.index)
-    tensor_cores, slices, slice_len, ws = plan_stats(
-        k, m, n, o, fn_name in (_FN_ACC, _FN_ACC_BATCHED), sm_count)
-    scratch, ws_g, ws_m = _workspace(ws, k * o, m, dev)  # alive until the launch
+    route, slices, slice_len, ws, packed = _plan_launch(fn_name, k, m, n, o,
+                                                        _sm_count(dev.index))
+    scratch, ws_g, ws_m = _workspace(ws, k * o, m, dev, packed)  # alive until the launch
     shape = (k, m, n, o) if batched else (m, n, o)
     _build.launch("rolann_stats", fn_name, _ARGS_BATCHED if batched else _ARGS, dev,
                   xa.data_ptr(), fsq.data_ptr(), fd.data_ptr(), ws_g, ws_m, g.data_ptr(),
                   mv.data_ptr(), *shape, slices, slice_len)
-    return tensor_cores
+    return route
 
 
 def _cuda_or_raise(who: str, device: torch.device) -> None:
@@ -364,9 +432,9 @@ def rolann_stats(xa: torch.Tensor, fsq: torch.Tensor, fd: torch.Tensor):
     _cuda_or_raise("rolann_stats", xa.device)
     f32 = dict(dtype=torch.float32, device=xa.device)
     g, mv = torch.empty((o, m, m), **f32), torch.empty((o, m), **f32)
-    tensor_cores = _launch(_FN, xa.float(), fsq.float(), fd.float(), g, mv)
+    route = _launch(_FN, xa.float(), fsq.float(), fd.float(), g, mv)
     rolann_stats.launches += 1
-    rolann_stats.route_launches["tf32x3" if tensor_cores else "fp32"] += 1
+    rolann_stats.route_launches[route] += 1
     return g.to(out), mv.to(out)
 
 
@@ -445,6 +513,17 @@ def rolann_fused_chunk(g: torch.Tensor, mv: torch.Tensor, h: torch.Tensor,
     return g, mv
 
 
+def _plan_fused(k: int, m_l: int, m_c1: int, n: int, sm_count: int,
+                batched: bool) -> tuple[int, int, bool]:
+    """(slices, slice_len, slice route) of a B3 or B6 (``batched``) launch:
+    the slice route plans B3's many slices of one chunk or B6's few a
+    tenant; the tile route plans for the k·m_l (tenant, output) pairs."""
+    if fused_slice_route(k, m_l, m_c1):
+        plan = plan_batched_slices(k, n, sm_count) if batched else plan_fused_slices(n, sm_count)
+        return *plan, True
+    return *plan_slices(m_c1 + 1, n, k * m_l, sm_count), False
+
+
 def _launch_fused(fn_name: str, g, mv, h, w, b, mask, act_name: str) -> str:
     """B3 (h [m_l, n]) or B6 (h [k, m_l, n]) on float32 contiguous CUDA
     tensors, into float32 g, mv; the route it took ("slice" or "tile")."""
@@ -454,12 +533,7 @@ def _launch_fused(fn_name: str, g, mv, h, w, b, mask, act_name: str) -> str:
     m_c1 = w.shape[-1]
     ma = m_c1 + 1
     dev = h.device
-    sm_count = _sm_count(dev.index)
-    slice_route = fused_slice_route(k, m_l, m_c1)
-    if slice_route:
-        slices, slice_len = plan_fused_slices(n, sm_count)
-    else:
-        slices, slice_len = plan_slices(ma, n, k * m_l, sm_count)
+    slices, slice_len, slice_route = _plan_fused(k, m_l, m_c1, n, _sm_count(dev.index), batched)
     scratch, ws_g, ws_m = _workspace(slices, k * m_l, ma, dev, packed=slice_route)
     shape = (k, m_l, m_c1, n) if batched else (m_l, m_c1, n)
     _build.launch("rolann_fused_chunk", fn_name,
@@ -485,8 +559,9 @@ def rolann_stats_batched(xa: torch.Tensor, fsq: torch.Tensor, fd: torch.Tensor):
     _cuda_or_raise(who, xa.device)
     f32 = dict(dtype=torch.float32, device=xa.device)
     g, mv = torch.empty((k, o, m, m), **f32), torch.empty((k, o, m), **f32)
-    _launch(_FN_BATCHED, xa.float(), fsq.float(), fd.float(), g, mv)
+    route = _launch(_FN_BATCHED, xa.float(), fsq.float(), fd.float(), g, mv)
     rolann_stats_batched.launches += 1
+    rolann_stats_batched.route_launches[route] += 1
     return g.to(out), mv.to(out)
 
 
@@ -547,9 +622,10 @@ def rolann_fused_chunk_batched(g: torch.Tensor, mv: torch.Tensor, h: torch.Tenso
         return rolann_fused_chunk_batched_plain(g, mv, h, w, b, mask, act_name)
     _cuda_or_raise(who, h.device)
     g32, m32 = _f32(g), _f32(mv)
-    _launch_fused(_FN_FUSED_BATCHED, g32, m32, h.float(), w.float(), b.float(),
-                  mask.float(), act_name)
+    route = _launch_fused(_FN_FUSED_BATCHED, g32, m32, h.float(), w.float(), b.float(),
+                          mask.float(), act_name)
     rolann_fused_chunk_batched.launches += 1
+    rolann_fused_chunk_batched.route_launches[route] += 1
     _store(g, g32)
     _store(mv, m32)
     return g, mv
@@ -561,5 +637,7 @@ rolann_stats_acc.launches = 0
 rolann_fused_chunk.launches = 0
 rolann_fused_chunk.route_launches = {"slice": 0, "tile": 0}
 rolann_stats_batched.launches = 0
+rolann_stats_batched.route_launches = {"slice": 0, "fp32": 0, "tf32x3": 0}
 rolann_stats_acc_batched.launches = 0
 rolann_fused_chunk_batched.launches = 0
+rolann_fused_chunk_batched.route_launches = {"slice": 0, "tile": 0}

@@ -403,6 +403,110 @@ def test_batched_fused_chunk_kernel_matches_plain(card, k, m_l, m_c1, n, act, dt
                 g0, m0, rolann_fused_chunk_batched)
 
 
+# The fleet's layers: (m, o) of the one-shot fit's B4 launches and
+# (m_l, m_c1) of the chunked fit's B6 launches (creditcard, 64 tenants).
+FLEET_STATS = ((19, 15), (22, 18), (25, 21), (28, 24))
+FLEET_FUSED = ((15, 18), (18, 21), (21, 24), (24, 27))
+
+
+def _check_batched_stats_route(k, m, o, n, dtype, dev, route):
+    """B4 on ``route``: one launch counted there, G exactly symmetric, the
+    plain version's bar (1e-4 of the largest entry, one bf16 ulp for bf16),
+    a bit-identical repeat."""
+    xa, fsq, fd = _batched(k, lambda t: _inputs(m, o, n, dtype, 11 * t + m + o, dev))
+    assert ops.stats_slice_route(m, o) == (route == "slice")
+    before = (rolann_stats_batched.launches, rolann_stats_batched.route_launches[route])
+    g, mv = rolann_stats_batched(xa, fsq, fd)
+    torch.cuda.synchronize()
+    assert (rolann_stats_batched.launches, rolann_stats_batched.route_launches[route]) == (
+        before[0] + 1, before[1] + 1)
+    gp, mp = rolann_stats_batched_plain(xa, fsq, fd)
+    assert g.dtype == dtype and tuple(g.shape) == (k, o, m, m) and tuple(mv.shape) == (k, o, m)
+    assert torch.equal(g, g.transpose(-1, -2))
+    tol = 2.0**-7 if dtype == torch.bfloat16 else 1e-4
+    assert float((g.double() - gp.double()).abs().max()) <= tol * float(gp.double().abs().max())
+    assert float((mv.double() - mp.double()).abs().max()) <= tol * float(mp.double().abs().max())
+    g2, m2 = rolann_stats_batched(xa, fsq, fd)
+    assert torch.equal(g, g2) and torch.equal(mv, m2)
+
+
+@pytest.mark.parametrize("m,o", FLEET_STATS)
+def test_batched_stats_slice_route_at_the_fleet_layers(card, m, o):
+    """B4 at each layer of the fleet fit (64 tenants of 3,998 samples) on
+    the slice route (rolann_stats_slice.cuh)."""
+    _check_batched_stats_route(64, m, o, 3_998, torch.float32, card, "slice")
+
+
+@pytest.mark.parametrize("k,m,o,n,dtype,route", [
+    (1, 28, 32, 5_003, torch.float32, "slice"),    # one tenant, four outputs a warp
+    (1, 1, 1, 3, torch.float32, "slice"),
+    (8, 28, 24, 3_998, torch.bfloat16, "slice"),
+    (8, 19, 15, 3_998, torch.float64, "slice"),
+    (5, 28, 17, 100_003, torch.float32, "slice"),  # slices of many steps
+    (2, 29, 15, 2_049, torch.float32, "fp32"),     # m past the slice route
+    (2, 28, 33, 2_049, torch.float32, "fp32"),     # o past it
+    (3, 37, 3, 10_007, torch.float32, "fp32"),
+    (1, 37, 3, 517, torch.float32, "tf32x3"),      # one tenant, m > 28: B1's tensor cores
+])
+def test_batched_stats_routes_by_shape(card, k, m, o, n, dtype, route):
+    """B4 takes the slice kernel for m <= 28 and o <= 32, else B1's routes
+    (partial_kernel; the tensor cores for one tenant with m > 28); each holds
+    the plain version's bar."""
+    _check_batched_stats_route(k, m, o, n, dtype, card, route)
+
+
+def _fleet_chunk(k, m_l, m_c1, n, act, masked, dev):
+    gen = torch.Generator(device=dev).manual_seed(k * n + m_l)
+    h = torch.sigmoid(2 * torch.randn((k, m_l, n), generator=gen, device=dev))
+    if act == "tanh":
+        h = 2 * h - 1
+    w = torch.randn((k, m_l, m_c1), generator=gen, device=dev) * (2 / (m_l + m_c1)) ** 0.5
+    b = torch.randn((k, m_c1), generator=gen, device=dev)
+    mask = torch.ones((k, n), device=dev)
+    if masked:
+        mask = (torch.rand((k, n), generator=gen, device=dev) > 0.1).float()
+        mask[:, n - n // 5:] = 0
+    return h, w, b, mask
+
+
+def _check_batched_fused_route(k, m_l, m_c1, n, act, masked, dtype, dev, route):
+    """B6 on ``route``: _check_fold's checks (one launch, in place, G
+    exactly symmetric, the plain version's bar, a bit-identical repeat),
+    both launches counted on the route."""
+    h, w, b, mask = _fleet_chunk(k, m_l, m_c1, n, act, masked, dev)
+    g0, m0 = _running_batch(k, m_l, m_c1 + 1, dtype, dev)
+    assert ops.fused_slice_route(k, m_l, m_c1) == (route == "slice")
+    before = rolann_fused_chunk_batched.route_launches[route]
+    _check_fold(lambda g, mv: rolann_fused_chunk_batched(g, mv, h, w, b, mask, act_name=act),
+                lambda g, mv: rolann_fused_chunk_batched_plain(g, mv, h, w, b, mask, act),
+                g0, m0, rolann_fused_chunk_batched)
+    assert rolann_fused_chunk_batched.route_launches[route] == before + 2
+
+
+@pytest.mark.parametrize("n,act,masked", [(1_024, "logsig", False), (926, "tanh", True)])
+@pytest.mark.parametrize("m_l,m_c1", FLEET_FUSED)
+def test_batched_fused_chunk_slice_route_at_the_fleet_layers(card, m_l, m_c1, n, act, masked):
+    """B6 at each hidden layer of the chunked fleet fit (64 tenants, a full
+    1,024-sample chunk and the ragged masked 926-sample one) on the slice
+    route (rolann_fused_slice.cuh with its tenant axis)."""
+    _check_batched_fused_route(64, m_l, m_c1, n, act, masked, torch.float32, card, "slice")
+
+
+@pytest.mark.parametrize("k,m_l,m_c1,n,act,dtype,route", [
+    (1, 24, 27, 1_024, "logsig", torch.float32, "slice"),  # one tenant, batched entry
+    (1, 15, 18, 20_011, "tanh", torch.float32, "slice"),   # one tenant, many slices
+    (1, 32, 27, 700, "tanh", torch.float32, "slice"),      # four outputs a warp
+    (8, 24, 27, 1_024, "logsig", torch.bfloat16, "slice"),
+    (8, 15, 18, 1_024, "tanh", torch.float64, "slice"),
+    (3, 33, 27, 1_000, "logsig", torch.float32, "tile"),   # m_l past the slice route
+    (2, 40, 50, 2_001, "logsig", torch.float32, "tile"),
+])
+def test_batched_fused_chunk_routes_by_shape(card, k, m_l, m_c1, n, act, dtype, route):
+    """B6 takes the slice kernel for ma <= 28 and m_l <= 32, any k,
+    fused_partial_kernel otherwise; both hold the plain version's bar."""
+    _check_batched_fused_route(k, m_l, m_c1, n, act, True, dtype, card, route)
+
+
 def test_empty_batches_launch_nothing(card):
     before = (rolann_stats_batched.launches, rolann_stats_acc_batched.launches,
               rolann_fused_chunk_batched.launches)

@@ -167,13 +167,65 @@ def test_tensor_core_route_is_one_tenant_large_m_without_accumulators():
 
 
 def test_fused_chunk_routes_by_shape():
-    """B3 takes the slice kernel for one tenant with ma <= 28 and at most 32
-    outputs (every hidden layer of the streamed creditcard fit), the tile
-    kernel otherwise and for B6."""
-    for m_l, m_c1 in ((15, 18), (18, 21), (21, 24), (24, 27), (3, 1), (32, 27)):
-        assert ops.fused_slice_route(1, m_l, m_c1)
-    for k, m_l, m_c1 in ((1, 33, 27), (1, 24, 28), (1, 40, 50), (64, 15, 18), (2, 3, 1)):
+    """B3 and B6 take the slice kernel for ma <= 28 and at most 32 outputs,
+    any number of tenants (every hidden layer of the streamed creditcard fit
+    and of the chunked fleet fit), the tile kernel otherwise."""
+    for k, m_l, m_c1 in ((1, 15, 18), (1, 18, 21), (1, 21, 24), (1, 24, 27), (1, 3, 1),
+                         (1, 32, 27), (64, 15, 18), (64, 24, 27), (2, 3, 1)):
+        assert ops.fused_slice_route(k, m_l, m_c1)
+    for k, m_l, m_c1 in ((1, 33, 27), (1, 24, 28), (1, 40, 50), (64, 33, 27), (2, 40, 50),
+                         (0, 15, 18)):
         assert not ops.fused_slice_route(k, m_l, m_c1)
+
+
+@pytest.mark.parametrize("m,o,slice_route", [(28, 32, True), (29, 32, False), (28, 33, False),
+                                             (29, 33, False), (1, 1, True), (19, 15, True)])
+def test_stats_slice_route_at_its_boundaries(m, o, slice_route):
+    """B4 takes the slice kernel for m <= 28 and o <= 32 (every layer of the
+    fleet fit), partial_kernel otherwise; its workspace follows the route
+    (packed triangles, a few slices a tenant)."""
+    assert ops.stats_slice_route(m, o) == slice_route
+    k, n = 3, 10_007
+    packed = ops.workspace_bytes(k, m, n, o, False, 132, batched=True)
+    slices = (ops.plan_batched_slices(k, n, 132)[0] if slice_route
+              else ops.plan_slices(m, n, k * o, 132)[0])
+    per = m * (m + 1) // 2 + m if slice_route else m * m + m
+    assert packed == 4 * slices * k * o * per
+
+
+@pytest.mark.parametrize("n", [1, 63, 926, 1_024, 3_998])
+@pytest.mark.parametrize("k", [1, 3, 64])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_batched_slice_plan_covers_each_chunk(k, n, sms):
+    """B4's and B6's slices a tenant: whole 64-sample steps, no empty slice,
+    each at least SLICE_MIN_STEPS steps unless the tenant has one slice, and
+    no more (tenant, slice) blocks than fill every SM SLICE_BLOCKS_PER_SM
+    times (or one slice a tenant).  The fleet's 1,024-sample chunks of 64
+    tenants take 4 slices of 256 on a 132-SM card, its one-shot fit's 3,998
+    samples 4 slices of 1,024."""
+    slices, slice_len = ops.plan_batched_slices(k, n, sms)
+    assert slice_len % ops.FUSED_STEP == 0
+    assert (slices - 1) * slice_len < n <= slices * slice_len
+    assert slices == 1 or slice_len >= ops.SLICE_MIN_STEPS * ops.FUSED_STEP
+    assert k * slices <= max(k, ops.SLICE_BLOCKS_PER_SM * sms)
+    assert ops.plan_batched_slices(k, 10**9, sms)[0] == max(1, ops.SLICE_BLOCKS_PER_SM * sms // k)
+    if (k, sms) == (64, 132):
+        want = {1_024: (4, 256), 3_998: (4, 1_024), 926: (3, 320)}
+        assert (slices, slice_len) == want.get(n, (slices, slice_len))
+
+
+@pytest.mark.parametrize("n", [1_024, 3_998, 10**6])
+def test_batched_workspace_is_bounded_at_the_fleet_shapes(n):
+    """The slice routes' scratch at the fleet's largest layers on a 132-SM
+    card, B6 at (m_l, m_c1) = (24, 27) and B4 at (m, o) = (28, 24), 64
+    tenants: 4 slices of packed partials, 10.67 MB, at most 264 blocks'
+    partials (11.0 MB) for any n."""
+    bound = ops.SLICE_BLOCKS_PER_SM * 132 * 24 * (28 * 29 // 2 + 28) * 4
+    b6 = ops.fused_workspace_bytes(64, 24, 27, n, 132, batched=True)
+    b4 = ops.workspace_bytes(64, 28, n, 24, False, 132, batched=True)
+    assert b6 == b4 <= bound == 10_999_296
+    if n <= 3_998:
+        assert b6 == 4 * 64 * 24 * (28 * 29 // 2 + 28) * 4 == 10_665_984
 
 
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 26_507, 32_768, 10**6])
