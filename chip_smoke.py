@@ -28,11 +28,13 @@ no result:
    path's shapes (64 tenants), at ragged and masked shapes, at k = 1, at
    n = 0 and in bf16 and float64, and timed beside their plain versions and
    the one-call ``torch.einsum("kin,kon,kjn->koij", ...)`` yardstick (B6
-   has none).  B4 and B6 must take their slice routes at the fleet's shapes
+   has none).  B5 stays on ``partial_kernel`` (its profile must show it).
+   B1 and B2 at the creditcard paths' shapes (m <= 28,
+   o <= 32), and B4 and B6 at the fleet's, must take their slice routes
    (``csrc/rolann_stats_slice.cuh``, ``csrc/rolann_fused_slice.cuh``;
-   ``route_launches["slice"]``), the wide shapes the tile kernels; their
-   path rows print each kernel's device time under the profiler, the
-   call's CUDA-events time, the bound, the share of the bar and ptxas's
+   ``route_launches["slice"]``), the wide shapes the others; their path
+   rows print each kernel's device time under the profiler, the call's
+   CUDA-events time, the bound, the share of the bar and ptxas's
    registers and spills.
 4. main path — the paper's Table 5 "creditcard" DAEF (29-15-18-21-24-27-29,
    lam 0.8/0.9, extreme-IQR rule) on the full-scale replica, fold 0:
@@ -40,7 +42,7 @@ no result:
    -> ``classify`` -> ``evaluate`` with ``stats_backend="fused"``, after one
    warm-up.  Launch counts are zeroed just before and read just after;
    every kernel of the path must have run (rolann_stats: 4 per fit, all on
-   its FP32 route, m <= 28).  The
+   its slice route, m <= 28 and o <= 32).  The
    same fit on the plain einsum backend must give the same first-layer
    statistics (1e-4 * max|G|); the weights' drift is reported.
 5. streaming path — the same configuration and data through
@@ -52,8 +54,8 @@ no result:
    layer's statistics must equal an einsum re-fold of the same chunks under
    the fit's own solved weights (1e-4 * max of the leaf): B3 against its
    plain version on identical inputs.  A fit with a logistic last layer on
-   the replica rescaled into [0, 1] runs B2 (8 launches) and is re-folded
-   the same way.
+   the replica rescaled into [0, 1] runs B2 (8 launches, all on its slice
+   route) and is re-folded the same way.
 6. reference — the same replica fitted on the host in float32 (the CPU path
    the parity tests hold to the JAX package) and in float64: the card's
    fused fits, one-shot and streamed, must be no farther from the float64
@@ -81,8 +83,8 @@ no result:
    4).  Times on the host clock, ending in ``torch.cuda.synchronize()``.
 8. profile — one fused fit + score, one streamed fused fit, one fused fleet
    fit and one chunked fused fleet fit under ``torch.profiler``: device time
-   by kernel, and the device's busy share of the wall time; the fleet fits
-   list B4's and B6's kernels by name.
+   by kernel, and the device's busy share of the wall time; each lists its
+   slice kernels and their reduces (B1, B3, B4, B6) by name.
 9. LM kernels vs plain — B7 ``flash_attention`` (the head path's
     64 x 256 x 16/8 heads of 128 in bf16, the long prefills' 4 x 4,096 GQA
     and 2 x 4,096 MQA at head size 256 with window 2,048, a ragged S,
@@ -332,10 +334,13 @@ def _fused_bound(m_l, m_c1, n):
     return _bound(*_fused_work(m_l, m_c1, n))
 
 
+STATS_SLICE_KERNELS = ("stats_slice_kernel", "slice_reduce_kernel")
+
+
 def phase_kernels(path_shapes, n_path):
     import torch
 
-    from repro_torch.kernels.rolann_stats import rolann_stats, rolann_stats_plain
+    from repro_torch.kernels.rolann_stats import ops, rolann_stats, rolann_stats_plain
 
     cases = [(f"path m={m} o={o}", m, o, n_path, torch.float32) for m, o in path_shapes]
     cases += [
@@ -347,8 +352,11 @@ def phase_kernels(path_shapes, n_path):
         ("f64 m=19 o=15", 19, 15, 65_537, torch.float64),
     ]
     rows = []
+    stats_regs = _ptxas("rolann_stats", "stats_slice_kernel")
     for i, (label, m, o, n, dtype) in enumerate(cases):
         xa, fsq, fd = _stats_inputs(m, o, n, dtype, seed=i)
+        route = ops.stats_route(1, m, o, False)
+        before = rolann_stats.route_launches[route]
         g, mv = rolann_stats(xa, fsq, fd)
         torch.cuda.synchronize()
         gp, mp = rolann_stats_plain(xa, fsq, fd)
@@ -363,18 +371,29 @@ def phase_kernels(path_shapes, n_path):
         check(err <= tol * scale, f"{label}: max|d| {err:.3e} > {tol:g} * {scale:.3e}")
         g2, m2 = rolann_stats(xa, fsq, fd)
         check(bool((g2 == g).all() and (m2 == mv).all()), f"{label}: not deterministic")
-        say("kernel", f"rolann_stats {label} n={n} {str(dtype)[6:]}: max|d| {err:.3e} "
-            f"(max|plain| {scale:.3e}, tol {tol:g}) ok")
+        check(rolann_stats.route_launches[route] == before + 2,
+              f"rolann_stats {label}: not on the {route} route")
+        used = err / (tol * scale)
+        say("kernel", f"rolann_stats {label} n={n} {str(dtype)[6:]} ({route}): max|d| "
+            f"{err:.3e} (max|plain| {scale:.3e}, tol {tol:g}: {used:.4f} of the bar), "
+            "symmetric, repeatable, ok")
         if label.startswith("path"):
+            check(route == "slice", f"B1 at the path's shape {label} must take the slice route")
             ms = cuda_ms(lambda: rolann_stats(xa, fsq, fd))
             plain_ms = cuda_ms(lambda: rolann_stats_plain(xa, fsq, fd))
             library_ms = cuda_ms(lambda: torch.einsum("in,on,jn->oij", xa, fsq, xa))
             bound_ms, bound_by = _stats_bound(m, o, n)
+            times = _kernel_us(lambda: rolann_stats(xa, fsq, fd), STATS_SLICE_KERNELS)
+            outs = -(-o // 8)
             rows.append(dict(m=m, o=o, n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             bar_used=used, device_us=sum(us for _, us in times.values())))
             say("kernel", f"rolann_stats {label} n={n}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, einsum yardstick {library_ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms ({bound_by})")
+            _say_slice_row(f"rolann_stats {label} n={n}", times,
+                           f"stats_slice_kernel<{outs}> (registers, spill stores, spill loads) "
+                           f"{stats_regs.get(str(outs), '?')}", ms, (bound_ms, bound_by), used)
     before = rolann_stats.launches
     z = torch.zeros((4, 0), device="cuda")
     g, mv = rolann_stats(z, z[:2], z[:2])
@@ -467,6 +486,7 @@ def phase_fold_kernels(acc_shapes, fused_shapes, n_chunk):
 
     rows = {"rolann_stats_acc": [], "rolann_fused_chunk": []}
     f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
+    stats_regs = _ptxas("rolann_stats", "stats_slice_kernel")
     acc_cases = [(f"path m={m} o={o}", m, o, n_chunk, f32, False) for m, o in acc_shapes]
     acc_cases += [
         ("ragged masked m=28 o=29", 28, 29, 26_507, f32, True),
@@ -482,14 +502,28 @@ def phase_fold_kernels(acc_shapes, fused_shapes, n_chunk):
         g0, m0 = _running(o, m, dtype, seed=200 + i)
         fold = lambda g, mv: rolann_stats_acc(g, mv, xa, fsq, fd)  # noqa: E731
         plain = lambda g, mv: rolann_stats_acc_plain(g, mv, xa, fsq, fd)  # noqa: E731
-        err, _ = _check_fold(f"rolann_stats_acc {label} n={n}", fold, plain, g0, m0)
+        route = ops.stats_route(1, m, o, True)
+        before = rolann_stats_acc.route_launches[route]
+        err, used = _check_fold(f"rolann_stats_acc {label} n={n} ({route})", fold, plain, g0,
+                                m0)
+        check(rolann_stats_acc.route_launches[route] == before + 2,
+              f"rolann_stats_acc {label}: not on the {route} route")
         if label.startswith("path"):
+            check(route == "slice", f"B2 at the path's shape {label} must take the slice route")
             ms, plain_ms, library_ms = _time_fold(
                 fold, plain, lambda: torch.einsum("in,on,jn->oij", xa, fsq, xa), g0, m0)
+            g, mv = g0.clone(), m0.clone()
+            times = _kernel_us(lambda: fold(g, mv), STATS_SLICE_KERNELS)
+            outs = -(-o // 8)
             rows["rolann_stats_acc"].append(dict(m=m, o=o, n=n, max_abs_err=err, ms=ms,
-                                                 plain_ms=plain_ms, library_ms=library_ms))
+                                                 plain_ms=plain_ms, library_ms=library_ms,
+                                                 bar_used=used,
+                                                 device_us=sum(us for _, us in times.values())))
             say("kernel", f"rolann_stats_acc {label} n={n}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, einsum yardstick {library_ms:.4f} ms")
+            _say_slice_row(f"rolann_stats_acc {label} n={n}", times,
+                           f"stats_slice_kernel<{outs}> (registers, spill stores, spill loads) "
+                           f"{stats_regs.get(str(outs), '?')}", ms, _acc_bound(m, o, n), used)
 
     fused_cases = [(f"path m_l={a} m_c1={c}", a, c, n_chunk, "logsig", f32, False)
                    for a, c in fused_shapes]
@@ -648,8 +682,8 @@ def phase_main_path(cfg, xtr, xte, y_test):
           f"one fit launched {launches}, expected rolann_stats {n_layers} times and no other "
           "kernel")
     from repro_torch.kernels.rolann_stats import rolann_stats
-    check(rolann_stats.route_launches == {"tf32x3": 0, "fp32": n_layers},
-          f"creditcard's layers (m <= 28) must take B1's FP32 route; "
+    check(rolann_stats.route_launches == {"tf32x3": 0, "fp32": 0, "slice": n_layers},
+          f"creditcard's layers (m <= 28, o <= 32) must take B1's slice route; "
           f"routes {rolann_stats.route_launches}")
     check(tuple(model.train_errors.shape) == (xtr.shape[1],), "train error shape")
     check(tuple(scores.shape) == (xte.shape[1],), "score shape")
@@ -804,6 +838,10 @@ def phase_streaming(cfg, x_train, x_test, y_test, xtr, xte):
     expect_l = {"rolann_stats": 0, "rolann_stats_acc": n_chunks,
                 "rolann_fused_chunk": n_hidden * n_chunks}
     check(launches_l == expect_l, f"logsig-output fit launched {launches_l}, expected {expect_l}")
+    from repro_torch.kernels.rolann_stats import rolann_stats_acc
+    check(rolann_stats_acc.route_launches == {"slice": n_chunks, "fp32": 0},
+          f"the logsig-output fit's B2 launches by route {rolann_stats_acc.route_launches}, "
+          "expected all on the slice route")
     scores_l = daef.reconstruction_error(cfg_l, model_l, x01_te)
     check(bool(torch.isfinite(model_l.train_errors).all() and torch.isfinite(scores_l).all()),
           "logsig-output fit: non-finite errors")
@@ -872,7 +910,7 @@ def _batched_work(k, work):
 def _check_batched_stats(label, xa, fsq, fd):
     """B4 against its plain version: dtype, shape, finite, exactly symmetric
     G, agreement, repeatability, both calls on the route its shape takes
-    (``ops.stats_slice_route``).  Returns max|d|, the share of the bar it
+    (``ops.stats_route``).  Returns max|d|, the share of the bar it
     uses and the route."""
     import torch
 
@@ -885,7 +923,7 @@ def _check_batched_stats(label, xa, fsq, fd):
     k, m, _ = xa.shape
     o = fsq.shape[1]
     dtype = xa.dtype
-    route = "slice" if ops.stats_slice_route(m, o) else "fp32"
+    route = ops.stats_route(k, m, o, False, batched=True)
     before = rolann_stats_batched.route_launches[route]
     g, mv = rolann_stats_batched(xa, fsq, fd)
     torch.cuda.synchronize()
@@ -909,24 +947,36 @@ def _check_batched_stats(label, xa, fsq, fd):
     return err, used, route
 
 
-def _kernel_us(fn, patterns):
+def _kernel_name(key):
+    """A profiler kernel key without its return type and argument list."""
+    return key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def _kernel_us(fn, patterns, attempts=3):
     """Device time (µs) of one ``fn()`` under torch.profiler, by kernel, for
     the kernels whose names hold one of ``patterns``: {name: (launches,
-    µs)}."""
+    µs)}.  A profile that recorded none of them (the profiler now and then
+    records no device event for a call) is taken again, ``attempts`` times
+    in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    averages = prof.key_averages()
-    key = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
-           else "self_cuda_time_total")
-    return {e.key.split("(")[0].removeprefix("void "): (e.count, getattr(e, key))
-            for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
-            and any(p in e.key for p in patterns)}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        key = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
+               else "self_cuda_time_total")
+        times = {_kernel_name(e.key): (e.count, getattr(e, key))
+                 for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(p in e.key for p in patterns)}
+        if times:
+            return times
+    raise SmokeFailure(f"the profiler recorded no kernel named like {patterns} in "
+                       f"{attempts} profiles of one call")
 
 
 def _say_slice_row(label, times, regs, ms, bound, used):
@@ -985,8 +1035,7 @@ def phase_batched_kernels(k, stats_shapes, n_tenant, acc_shape, fused_shapes, n_
             plain_ms = cuda_ms(lambda: rolann_stats_batched_plain(xa, fsq, fd))
             library_ms = cuda_ms(lambda: torch.einsum("kin,kon,kjn->koij", xa, fsq, xa))
             bound_ms, bound_by = _bound(*_batched_work(kk, _stats_work(m, o, n)))
-            times = _kernel_us(lambda: rolann_stats_batched(xa, fsq, fd),
-                               ("stats_slice_kernel", "few_slice_reduce_kernel"))
+            times = _kernel_us(lambda: rolann_stats_batched(xa, fsq, fd), STATS_SLICE_KERNELS)
             outs = -(-o // 8)
             regs = stats_regs.get(str(outs), "?")
             rows["rolann_stats_batched"].append(dict(
@@ -1022,11 +1071,21 @@ def phase_batched_kernels(k, stats_shapes, n_tenant, acc_shape, fused_shapes, n_
                 fold, plain, lambda: torch.einsum("kin,kon,kjn->koij", xa, fsq, xa), g0, m0)
             flops, nbytes = _stats_work(m, o, n)
             bound_ms, bound_by = _bound(*_batched_work(kk, (flops, nbytes + 4 * (o * m * m + o * m))))
+            # B5 keeps partial_kernel at every shape (ops.stats_route).
+            check(ops.stats_route(kk, m, o, True, batched=True) == "fp32",
+                  f"B5 {label}: expected on partial_kernel")
+            g, mv = g0.clone(), m0.clone()
+            times = _kernel_us(lambda: fold(g, mv), ("partial_kernel", "rolann::reduce_kernel"))
+            check(any("partial_kernel" in name for name in times),
+                  f"B5 {label}: no partial_kernel launch in its profile {sorted(times)}")
             rows["rolann_stats_acc_batched"].append(dict(
                 k=kk, m=m, o=o, n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                device_us=sum(us for _, us in times.values())))
             say("kernel", f"rolann_stats_acc_batched {label} n={n}: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, einsum yardstick {library_ms:.4f} ms")
+                f"plain {plain_ms:.4f} ms, einsum yardstick {library_ms:.4f} ms; route fp32, "
+                "device " + ", ".join(f"{name} {us:.2f} µs"
+                                      for name, (_, us) in sorted(times.items())))
 
     fused_cases = [(f"path k={k} m_l={a} m_c1={c}", k, a, c, n_chunk, "logsig", f32, False)
                    for a, c in fused_shapes]
@@ -1999,7 +2058,7 @@ def phase_head(cfg, bundle, params):
     n_batches = -(-HEAD_FIT // HEAD_BATCH) + -(-2 * HEAD_TEST // HEAD_BATCH)
     launches = _lm_read(flash_attention=cfg.n_layers * n_batches, rolann_stats=1)
     from repro_torch.kernels.rolann_stats import rolann_stats
-    check(rolann_stats.route_launches == {"tf32x3": 1, "fp32": 0},
+    check(rolann_stats.route_launches == {"tf32x3": 1, "fp32": 0, "slice": 0},
           f"the head fit's B1 launch (m 513) must take the tensor-core route; "
           f"routes {rolann_stats.route_launches}")
     n_seq = HEAD_FIT + 2 * HEAD_TEST
@@ -2091,7 +2150,8 @@ def lm_profile(label, run, detail=()):
               "B10 ssd kernels": ("bt_kernel", "chunk_state", "state_pass", "scores_kernel",
                                   "chunk_out"),
               "B1 rolann_stats kernels": ("partial_kernel", "rolann::reduce_kernel",
-                                          "stats_tf32x3"),
+                                          "stats_tf32x3", "stats_slice_kernel",
+                                          "slice::slice_reduce_kernel"),
               "GEMM (cuBLAS)": ("gemm", "xmma", "nvjet", "cutlass")}
     shares = {g: sum(getattr(e, key) for e in kernels if any(p in e.key for p in pats))
               for g, pats in groups.items()}
@@ -2512,12 +2572,12 @@ def main() -> int:
         stream_launches, stream_fits = phase_streaming(cfg, x_train, x_test, y_test, xtr, xte)
         phase_reference(cfg, x_train, x_test, y_test, {**card_fits, **stream_fits})
         fleet_launches, devices = phase_fleet(cfg, fleet_data, fleet_data_d)
+        slice_kernels = ("slice_kernel", "slice_reduce_kernel")
         phase_profile("one-shot fused fit + score", lambda: daef.reconstruction_error(
-            cfg, daef.fit(cfg, xtr, n_partitions=N_PARTITIONS), xte))
+            cfg, daef.fit(cfg, xtr, n_partitions=N_PARTITIONS), xte), slice_kernels)
         phase_profile("streamed fused fit_chunked", lambda: daef.fit_chunked(
-            cfg, xtr, chunk_samples=CHUNK_SAMPLES))
+            cfg, xtr, chunk_samples=CHUNK_SAMPLES), slice_kernels)
         fleet_seeds, xs_d = fleet_data[1], fleet_data_d[0]
-        slice_kernels = ("slice_kernel", "few_slice_reduce_kernel")
         phase_profile("fused fleet fit (64 tenants)", lambda: fleet.fleet_fit(
             cfg, xs_d, seeds=fleet_seeds), slice_kernels)
         phase_profile("fused chunked fleet fit (64 tenants)", lambda: fleet._fit_fleet_chunked(
@@ -2543,6 +2603,21 @@ def main() -> int:
             _stats_work(m, o, nv)[0], _stats_work(m, o, nv)[1] + 4 * (o * m * m + o * m)))),
         "fused": lambda m_l, m_c1, nv: _bound(*_batched_work(k_fleet, _fused_work(m_l, m_c1, nv))),
     }
+    b1_fit = _per_launch_sum(rows)
+    say("kernel", f"rolann_stats per one-shot fit ({len(rows)} launches, one a layer, slice "
+        f"route): {b1_fit['ms']:.4f} ms on CUDA events, "
+        f"{sum(r['device_us'] for r in rows) / 1e3:.4f} ms on the device (profiler), bound "
+        f"{b1_fit['bound_ms']:.4f} ms on FP32 cores ({b1_fit['bound_by']}), einsum yardstick "
+        f"{b1_fit['library_ms']:.4f} ms, worst share of the bar "
+        f"{max(r['bar_used'] for r in rows):.4f}")
+    b2_rows = [r for r in fold_rows["rolann_stats_acc"] if (r["m"], r["o"]) == last]
+    b2_fit = _per_fit(b2_rows, len(n_valid), _acc_bound, ("m", "o"), n_valid)
+    say("kernel", f"rolann_stats_acc per logistic-output streamed fit ({len(n_valid)} launches "
+        f"at {last}, slice route): {b2_fit['ms']:.4f} ms on CUDA events, "
+        f"{len(n_valid) * b2_rows[0]['device_us'] / 1e3:.4f} ms on the device (profiler), "
+        f"bound {b2_fit['bound_ms']:.4f} ms on FP32 cores ({b2_fit['bound_by']}), einsum "
+        f"yardstick {b2_fit['library_ms']:.4f} ms, share of the bar "
+        f"{b2_rows[0]['bar_used']:.4f}")
     b3_rows = fold_rows["rolann_fused_chunk"]
     b3_fit = _per_fit(b3_rows, len(n_valid), _fused_bound, ("m_l", "m_c1"), n_valid)
     say("kernel", f"rolann_fused_chunk per streamed fit ({len(n_valid)} chunks x "
@@ -2574,21 +2649,20 @@ def main() -> int:
         {
             "name": "rolann_stats",
             "route": "cuda",
-            "source": source + "rolann_stats.cu",
+            "source": source + "rolann_stats_slice.cuh",
             "replaces": replaces + "48",
             "launches": launches["rolann_stats"],
             # Sums over the main path's launches (one per layer shape, one fit).
-            **_per_launch_sum(rows),
+            **b1_fit,
         },
         {
             "name": "rolann_stats_acc",
             "route": "cuda",
-            "source": source + "rolann_stats.cu",
+            "source": source + "rolann_stats_slice.cuh",
             "replaces": replaces + "171",
             "launches": stream_launches["rolann_stats_acc"],
             # One logsig-output streamed fit: 8 launches at the last layer's shape.
-            **_per_fit([r for r in fold_rows["rolann_stats_acc"] if (r["m"], r["o"]) == last],
-                       len(n_valid), _acc_bound, ("m", "o"), n_valid),
+            **b2_fit,
         },
         {
             "name": "rolann_fused_chunk",

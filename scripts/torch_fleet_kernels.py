@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Measure the port's fleet statistics kernels (B4, B6) and B3's bits on one
-NVIDIA card.
+"""Measure the port's slice-route statistics kernels (B1, B2, B4, B6) and
+B3's bits on one NVIDIA card.
 
-    python3 scripts/torch_fleet_kernels.py profile      # fleet fits under the profiler
+    python3 scripts/torch_fleet_kernels.py profile      # the fits under the profiler
     python3 scripts/torch_fleet_kernels.py bits DIR     # B3 against DIR's sources
-    python3 scripts/torch_fleet_kernels.py sweep        # B4 / B6 time by slices per tenant
+    python3 scripts/torch_fleet_kernels.py sweep        # time by slices (per tenant)
 
-Run from the root of a checkout.  ``profile`` fits the fleet cell of
-``chip_smoke.py`` (64 creditcard tenants of 3,998 samples) one-shot (B4)
-and chunked at 1,024 samples (B6): each fit's host-clock time (median of 5,
-ending in ``torch.cuda.synchronize()``), then one fit under
-``torch.profiler`` with its trace written to ``build/traces/``, from which
-every kernel's launches, device time per launch, grid, block, registers and
-shared memory are printed, and the device's busy share of the wall time.
+Run from the root of a checkout.  ``profile`` fits the one-tenant cell of
+``chip_smoke.py`` (the full-scale creditcard replica, 255,883 samples)
+one-shot (B1), streamed at 32,768-sample chunks (B3) and so with a
+logistic output layer on [0, 1] data (B2, and B3), then its fleet cell (64
+creditcard tenants of 3,998 samples) one-shot (B4), chunked at 1,024
+samples and streamed from host chunks of 1,024 (B6): each fit's host-clock
+time (median of 5, ending in
+``torch.cuda.synchronize()``), then one fit under ``torch.profiler`` with
+its trace written to ``build/traces/``, from which every kernel's launches,
+device time per launch, grid, block, registers and shared memory are
+printed, and the device's busy share of the wall time.  It uses only entry
+points an older checkout has too, so a copy of this script in an older
+checkout's ``scripts/`` profiles that checkout alike.
 
 ``bits DIR`` builds ``rolann_fused_chunk.cu`` from the sources under DIR
 (an unpacked older checkout) and runs its B3 entry point beside this
@@ -24,7 +30,10 @@ them, and the wrapper itself once.
 
 ``sweep`` times one launch of B6 at the fleet's four hidden-layer shapes
 (k = 64, 1,024 samples) and of B4 at its four (k = 64, 3,998 samples) with
-1, 2, 4, 8 and 16 slices per tenant, and the planner's choice.
+1, 2, 4, 8 and 16 slices per tenant, then of B1 at the one-shot creditcard
+fit's four (one tenant, 255,883 samples) and of B2 at the logistic-output
+streamed fit's (28, 29) (one tenant, 32,768 samples) with slices of 1, 2,
+4, 8, 16 and 32 steps of 64 samples; each beside the planner's choice.
 """
 from __future__ import annotations
 
@@ -105,6 +114,11 @@ def profile_fit(label: str, run) -> None:
 
 
 def cmd_profile() -> None:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
     from repro_torch.core import daef, fleet
     from repro_torch.kernels import _build
 
@@ -113,10 +127,25 @@ def cmd_profile() -> None:
     for name in ("rolann_stats", "rolann_fused_chunk"):
         cs._say_ptxas_named(name)
     cfg = daef.DAEFConfig(**cs.CREDITCARD, stats_backend="fused")
+    (x_train, _, _), (xtr, _) = cs.load_data()
+    profile_fit("one-shot fit", lambda: daef.fit(cfg, xtr, n_partitions=cs.N_PARTITIONS))
+    profile_fit("streamed fit", lambda: daef.fit_chunked(cfg, xtr,
+                                                         chunk_samples=cs.CHUNK_SAMPLES))
+    # chip_smoke.py's B2 path: a logistic last layer on the replica rescaled
+    # feature by feature into [0, 1]
+    lo, hi = x_train.min(axis=1, keepdims=True), x_train.max(axis=1, keepdims=True)
+    x01 = torch.as_tensor((x_train - lo) / np.where(hi > lo, hi - lo, 1.0), device="cuda")
+    cfg_l = dataclasses.replace(cfg, act_last="logsig")
+    profile_fit("logistic-output streamed fit", lambda: daef.fit_chunked(
+        cfg_l, x01, chunk_samples=cs.CHUNK_SAMPLES))
     (xs, seeds, _, _), (xs_d, _) = cs.load_fleet_data()
     profile_fit("fleet fit", lambda: fleet._fit_fleet(cfg, xs_d, seeds=seeds))
     profile_fit("chunked fleet fit", lambda: fleet._fit_fleet_chunked(
         cfg, xs_d, chunk_samples=cs.FLEET_CHUNK, seeds=seeds))
+    n = xs.shape[2]
+    profile_fit("streamed fleet fit", lambda: fleet._fit_fleet_stream(
+        cfg, lambda: (xs[:, :, i:i + cs.FLEET_CHUNK] for i in range(0, n, cs.FLEET_CHUNK)),
+        seeds=seeds))
 
 
 def _fused_args(m_l, m_c1, n, act, masked, seed):
@@ -192,7 +221,7 @@ def cmd_bits(old_root: str) -> None:
 
 def _say_sweep(label, fn, slices, slice_len, plan) -> None:
     ms = cs.cuda_ms(fn)
-    times = cs._kernel_us(fn, ("slice_kernel", "few_slice_reduce_kernel"))
+    times = cs._kernel_us(fn, ("slice_kernel", "slice_reduce_kernel"))
     cs.say("sweep", f"{label}: {slices} slices a tenant of {slice_len}"
            f"{' (planned)' if (slices, slice_len) == plan else ''}: {ms:.4f} ms a launch on "
            "CUDA events; device " + ", ".join(f"{name} {us:.2f} µs"
@@ -245,6 +274,23 @@ def cmd_sweep() -> None:
                               *args)
 
             _say_sweep(f"B4 k={k} ({m}, {o}) n={n}", fn, slices, slice_len, plan)
+    one_tenant = [("B1", ops._FN, m, o, 255_883) for m, o in ((19, 15), (22, 18), (25, 21),
+                                                              (28, 24))]
+    one_tenant.append(("B2", ops._FN_ACC, 28, 29, cs.CHUNK_SAMPLES))
+    for name, fn_name, m, o, n in one_tenant:
+        xa, fsq, fd = cs._stats_inputs(m, o, n, torch.float32, 95)
+        g, mv = cs._running(o, m, torch.float32, 96)
+        plan = ops.plan_stats_slices(n, sms)
+        for steps in sorted({1, 2, 4, 8, 16, 32, plan[1] // ops.FUSED_STEP}):
+            slice_len = steps * ops.FUSED_STEP
+            slices = -(-n // slice_len)
+            scratch, ws_g, ws_m = ops._workspace(slices, o, m, xa.device, packed=True)
+            args = (xa.data_ptr(), fsq.data_ptr(), fd.data_ptr(), ws_g, ws_m, g.data_ptr(),
+                    mv.data_ptr(), m, n, o, slices, slice_len)
+            def fn():
+                _build.launch("rolann_stats", fn_name, ops._ARGS, xa.device, *args)
+
+            _say_sweep(f"{name} ({m}, {o}) n={n}", fn, slices, slice_len, plan)
     cs.say("sweep", card)
 
 

@@ -74,12 +74,14 @@
 // B3's reduction.  A slice is a few hundred samples, so a chunk has a few
 // hundred partials.  One thread per entry summing them in order (as
 // rolann_common.cuh's `reduce_kernel` does) walks ~250 dependent loads, and
-// half of them strided (the lower triangle read from the upper): a block
-// of eight warps takes one row of the upper triangle instead, warp v sums
-// slices v, v + 8, ... with coalesced loads, and the eight sums are added
-// in warp order to the running values of the entry and its mirror.
-// The order is fixed, so repeats are bit-identical, and a symmetric
-// running G stays exactly symmetric.  No float atomics.
+// half of them strided (the lower triangle read from the upper): B3 sums
+// them with rolann_slice_fold.cuh's `slice_reduce_kernel<true>` instead, a
+// block of eight warps per row of the upper triangle, warp v summing slices
+// v, v + 8, ... with coalesced loads, the eight sums added in warp order to
+// the running values of the entry and its mirror (B1 and B2 on
+// rolann_stats_slice.cuh share it).  The order is fixed, so repeats are
+// bit-identical, and a symmetric running G stays exactly symmetric.  No
+// float atomics.
 #pragma once
 
 #include "rolann_slice_fold.cuh"
@@ -242,46 +244,6 @@ fused_slice_kernel(const float* __restrict__ h, const float* __restrict__ w,
   write_partials(f, ws_g, ws_m, row0, warp, lane, m_l, ma);
 }
 
-// g [o, m, m] and mv [o, m] += the sum over `slices` partials of ws_g
-// [slices, o, m (m + 1) / 2] (packed upper triangles) and ws_m [slices, o,
-// m].  Block
-// (o', i) takes row i of G[o'] from the diagonal on (i < m), or M[o'] (i ==
-// m), a lane an entry; warp v sums slices v, v + 8, ... in order; the
-// running values of (i, j) and (j, i) each add the eight sums in warp
-// order.
-__global__ void __launch_bounds__(kThreads)
-slice_reduce_kernel(const float* __restrict__ ws_g, const float* __restrict__ ws_m,
-                    float* __restrict__ g, float* __restrict__ mv, int m, int o, int slices) {
-  __shared__ float s_part[kWarps][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long oi = blockIdx.x / (m + 1);
-  const int i = blockIdx.x % (m + 1);
-  const bool is_m = i == m;
-  const int j = (is_m ? 0 : i) + lane;
-  const bool on = j < m;
-  const long long tri = (long long)m * (m + 1) / 2;
-  const long long stride = is_m ? (long long)o * m : o * tri;
-  const float* const src =
-      is_m ? ws_m + oi * m + j : ws_g + oi * tri + tri_row(i, m) + (j - i);
-  float sum = 0.f;
-  if (on) {
-#pragma unroll 4
-    for (int s = warp; s < slices; s += kWarps) sum += src[s * stride];
-  }
-  s_part[warp][lane] = sum;
-  __syncthreads();
-  if (warp == 0 && on) {
-    auto add = [&](float* dst) {
-      float total = *dst;
-#pragma unroll
-      for (int v = 0; v < kWarps; ++v) total += s_part[v][lane];
-      *dst = total;
-    };
-    add(is_m ? mv + oi * m + j : g + (oi * m + i) * m + j);
-    if (!is_m && j != i) add(g + (oi * m + j) * m + i);
-  }
-}
-
 template <int kOuts, int A, bool kBatched>
 int launch_outputs(dim3 grid, size_t smem, cudaStream_t st, const float* h, const float* w,
                    const float* b, const float* mask, float* ws_g, float* ws_m, int m_l,
@@ -300,8 +262,9 @@ inline bool takes(int k, int m_l, int m_c1) {
 }
 
 // B3 (k == 1, not `batched`) or B6 (`batched`, any k) on this route: the
-// slices' partials, then their sum into g and mv.  B3 sums its many slices
-// with slice_reduce_kernel, B6 its few a tenant with few_slice_reduce_kernel.
+// slices' partials, then their sum added into g and mv.  B3 sums its many
+// slices with slice_reduce_kernel, B6 its few a tenant with
+// few_slice_reduce_kernel.
 template <int A>
 int launch(const float* h, const float* w, const float* b, const float* mask, float* ws_g,
            float* ws_m, float* g, float* mv, int k, bool batched, int m_l, int m_c1,
@@ -329,9 +292,7 @@ int launch(const float* h, const float* w, const float* b, const float* mask, fl
   if (batched) {
     return launch_few_slice_reduce(ws_g, ws_m, g, mv, ma, (long long)k * m_l, slices, true, st);
   }
-  slice_reduce_kernel<<<static_cast<unsigned>(m_l * (ma + 1)), kThreads, 0, st>>>(
-      ws_g, ws_m, g, mv, ma, m_l, slices);
-  return static_cast<int>(cudaGetLastError());
+  return launch_slice_reduce(ws_g, ws_m, g, mv, ma, m_l, slices, true, st);
 }
 
 }  // namespace slice

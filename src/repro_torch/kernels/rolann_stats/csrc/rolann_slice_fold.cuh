@@ -15,8 +15,12 @@
 // adds (xa[i]·fsq[o])·xa[j] (the reference's order) and xa[l]·fd[o].  The
 // accumulators of all a warp's outputs stay in registers over the slice
 // (16 + 1 per output).  `write_partials` stores a slice's sums to the
-// workspace: G's upper triangle packed by rows, and M.  `few_slice_reduce_
-// kernel` sums the partials of a launch with a few slices a tenant.
+// workspace: G's upper triangle packed by rows, and M.  Two reductions sum
+// a launch's partials in a fixed order: `few_slice_reduce_kernel`, a
+// thread per entry, for a few slices a tenant (B4, B6), and
+// `slice_reduce_kernel`, a block per row, for one tenant's hundreds of
+// slices (B1, B2, B3).  Each writes its sum from zero or adds it into the
+// running value (kAccumulate).
 #pragma once
 
 #include "rolann_common.cuh"
@@ -181,6 +185,62 @@ inline int launch_few_slice_reduce(const float* ws_g, const float* ws_m, float* 
     few_slice_reduce_kernel<true><<<blocks, 256, 0, st>>>(ws_g, ws_m, g, mv, m, pairs, slices);
   } else {
     few_slice_reduce_kernel<false><<<blocks, 256, 0, st>>>(ws_g, ws_m, g, mv, m, pairs, slices);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g [o, m, m] and mv [o, m] receive the sum over `slices` partials of one
+// tenant's ws_g [slices, o, m (m + 1) / 2] (packed upper triangles) and
+// ws_m [slices, o, m]: with kAccumulate added to the running values (B2,
+// B3), else written from zero (B1; no memset).  Block (o', i) takes row i
+// of G[o'] from the diagonal on (i < m), or M[o'] (i == m), a lane an
+// entry; warp v sums slices v, v + 8, ... in order with coalesced loads;
+// the values of (i, j) and (j, i) each add the eight sums in warp order, so
+// G is exactly symmetric (a running G stays so).  For launches of hundreds
+// of slices, where a thread walking them all would chain ~250 dependent
+// loads.
+template <bool kAccumulate>
+__global__ void __launch_bounds__(kThreads)
+slice_reduce_kernel(const float* __restrict__ ws_g, const float* __restrict__ ws_m,
+                    float* __restrict__ g, float* __restrict__ mv, int m, int o, int slices) {
+  __shared__ float s_part[kWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long oi = blockIdx.x / (m + 1);
+  const int i = blockIdx.x % (m + 1);
+  const bool is_m = i == m;
+  const int j = (is_m ? 0 : i) + lane;
+  const bool on = j < m;
+  const long long tri = (long long)m * (m + 1) / 2;
+  const long long stride = is_m ? (long long)o * m : o * tri;
+  const float* const src =
+      is_m ? ws_m + oi * m + j : ws_g + oi * tri + tri_row(i, m) + (j - i);
+  float sum = 0.f;
+  if (on) {
+#pragma unroll 4
+    for (int s = warp; s < slices; s += kWarps) sum += src[s * stride];
+  }
+  s_part[warp][lane] = sum;
+  __syncthreads();
+  if (warp == 0 && on) {
+    auto put = [&](float* dst) {
+      float total = kAccumulate ? *dst : 0.f;
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) total += s_part[v][lane];
+      *dst = total;
+    };
+    put(is_m ? mv + oi * m + j : g + (oi * m + i) * m + j);
+    if (!is_m && j != i) put(g + (oi * m + j) * m + i);
+  }
+}
+
+// Launch slice_reduce_kernel on `st`; returns cudaGetLastError().
+inline int launch_slice_reduce(const float* ws_g, const float* ws_m, float* g, float* mv, int m,
+                               int o, int slices, bool accumulate, cudaStream_t st) {
+  const unsigned blocks = static_cast<unsigned>(o * (m + 1));
+  if (accumulate) {
+    slice_reduce_kernel<true><<<blocks, kThreads, 0, st>>>(ws_g, ws_m, g, mv, m, o, slices);
+  } else {
+    slice_reduce_kernel<false><<<blocks, kThreads, 0, st>>>(ws_g, ws_m, g, mv, m, o, slices);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,10 +39,11 @@
 //     the chunk's samples; the groups sum in a fixed order at the end of the
 //     slice, and the block writes its partial G tile (entries i <= j) and,
 //     on diagonal tiles, its partial M rows to a workspace.
-//   * With m <= 28 (every layer of the DAEF path) G is one tile whose upper
-//     triangle is at most 28 pieces: a group is ONE warp, each lane one
-//     piece of the triangle, and 8 groups share a chunk.  Otherwise a group
-//     is two warps covering all 64 pieces of any tile.
+//   * With m <= 28 (B5's layers; B1, B2 and B4 with more than 32 outputs)
+//     G is one tile whose upper triangle is at most 28 pieces: a group is
+//     ONE warp, each lane one piece of the triangle, and 8 groups share a
+//     chunk.  Otherwise a group is two warps covering all 64 pieces of any
+//     tile.
 //   * `reduce_kernel` (rolann_common.cuh) sums the partials over the slices
 //     in slice order and mirrors the upper triangle into the lower one, so G
 //     is exactly symmetric.  For B2 it starts each entry's sum from the
@@ -65,14 +66,16 @@
 // padded in memory.
 //
 // Three routes, chosen by shape (a rule between hand-written kernels, not
-// a fallback): B1 for one tenant with m > kSmallM runs on the tensor cores
-// (3xTF32 wgmma, rolann_stats_sm90.cuh), the DAEF head's shape among them;
-// B4 with m <= kSmallM and o <= 32 (every layer of the fleet fit) runs the
-// block per (tenant, sample slice) of rolann_stats_slice.cuh, which stages
-// each step's xa once for all outputs; B1 with m <= kSmallM (every
-// creditcard layer), B2, B5 and wider B4 run `partial_kernel` above on the
-// FP32 cores.  ops.py plans the slices of each route by the same rule
-// (`tensor_core_route`, `stats_slice_route`).
+// a fallback): B1, B2 and B4 with m <= kSmallM and o <= 32 run the block
+// per (tenant, sample slice) of rolann_stats_slice.cuh, which stages each
+// step's xa once for all outputs: every layer of the one-shot creditcard
+// fit (B1) and of the fleet fit (B4), and the logistic-output streamed
+// fit's last layer (B2); B1 for one tenant with m > kSmallM runs on the
+// tensor cores (3xTF32 wgmma, rolann_stats_sm90.cuh), the DAEF head's shape
+// among them; B5, and every other shape, run `partial_kernel` above on the
+// FP32 cores (B5 keeps it until its own redesign).  ops.py plans the slices
+// of each route by the same rule (`stats_slice_route`,
+// `tensor_core_route`).
 
 #include "rolann_common.cuh"
 #include "rolann_stats_sm90.cuh"
@@ -150,8 +153,9 @@ int launch(const float* xa, const float* fsq, const float* fd, float* ws_g, floa
            float* g, float* mv, int k, int m, long long n, int o, int slices,
            long long slice_len, bool accumulate, void* stream, bool batched = false) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (batched && !accumulate && slice::stats_takes(m, o))
-    return slice::stats_launch(xa, fsq, fd, ws_g, ws_m, g, mv, k, m, n, o, slices, slice_len, st);
+  if (!(batched && accumulate) && slice::stats_takes(m, o))
+    return slice::stats_launch(xa, fsq, fd, ws_g, ws_m, g, mv, k, m, n, o, slices, slice_len,
+                               accumulate, batched, st);
   if (k == 1 && !accumulate && m > kSmallM)
     return sm90::launch(xa, fsq, fd, ws_g, ws_m, g, mv, m, n, o, slices, slice_len, st);
   const int tiles = (m + kTile - 1) / kTile;
@@ -172,9 +176,11 @@ int launch(const float* xa, const float* fsq, const float* fd, float* ws_g, floa
 
 // B1: (G, M) of xa, fsq, fd into g [o, m, m], mv [o, m].  Launches its
 // kernels on `stream`; returns cudaGetLastError() (0 = launched).
-// ws_g [slices, o, m, m] and ws_m [slices, o, m] are scratch from the caller
-// (unused with m > kSmallM and one slice); slices * slice_len must cover n
-// and every slice must start below n.
+// ws_g and ws_m are scratch from the caller for `slices` partials: with
+// m <= 28 and o <= 32 (rolann_stats_slice.cuh) [slices, o, m (m + 1) / 2]
+// and [slices, o, m] (ops.plan_stats_slices), else [slices, o, m, m] and
+// [slices, o, m] (unused with m > kSmallM and one slice); slices *
+// slice_len must cover n and every slice must start below n.
 extern "C" int rolann_stats_f32(const float* xa, const float* fsq, const float* fd,
                                 float* ws_g, float* ws_m, float* g, float* mv,
                                 int m, long long n, int o, int slices,
@@ -205,12 +211,14 @@ extern "C" int rolann_stats_batched_f32(const float* xa, const float* fsq, const
                 true);
 }
 
-// B5: B4's (G, M), added into the running g [k, o, m, m] and mv [k, o, m].
-// Same arguments and scratch.
+// B5: B4's (G, M), added into the running g [k, o, m, m] and mv [k, o, m],
+// on `partial_kernel` at every shape: scratch [slices, k·o, m, m] and
+// [slices, k·o, m].
 extern "C" int rolann_stats_acc_batched_f32(const float* xa, const float* fsq,
                                             const float* fd, float* ws_g, float* ws_m,
                                             float* g, float* mv, int k, int m, long long n,
                                             int o, int slices, long long slice_len,
                                             void* stream) {
-  return launch(xa, fsq, fd, ws_g, ws_m, g, mv, k, m, n, o, slices, slice_len, true, stream);
+  return launch(xa, fsq, fd, ws_g, ws_m, g, mv, k, m, n, o, slices, slice_len, true, stream,
+                true);
 }

@@ -1,28 +1,32 @@
-// B4 with m <= kSmallM (28) and o <= 32 on Hopper (sm_90a), FP32 CUDA
-// cores: a block per (tenant, sample slice) that stages each step's xa once
-// for every output.
+// B1, B2 and B4 with m <= kSmallM (28) and o <= 32 on Hopper (sm_90a), FP32
+// CUDA cores: a block per (tenant, sample slice) that stages each step's xa
+// once for every output.
 //
-// Replaces, for that shape, the Pallas TPU kernel
-// `rolann_stats_kernel_batched` (body `_kernel_batched`) of
-// src/repro/kernels/rolann_stats/kernel.py (B4): per tenant t and output o,
+// Replaces, for that shape, the Pallas TPU kernels `rolann_stats_kernel`
+// (B1), `rolann_stats_kernel_acc` (B2) and `rolann_stats_kernel_batched`
+// (B4, body `_kernel_batched`) of src/repro/kernels/rolann_stats/kernel.py:
+// per tenant t and output o,
 //
 //     G[t, o] = xa[t] · diag(fsq[t, o]) · xa[t]ᵀ,   M[t, o] = xa[t] · fd[t, o]
 //
 // with xa [k, m, n], fsq and fd [k, o, n] float32, summed in float32, into
-// g [k, o, m, m] and mv [k, o, m] (written, not added).  `launch()` in
-// rolann_stats.cu takes this route for the batched entry when m <= 28 and
-// o <= 32: every layer of the fleet fit, (m, o) = (19, 15) .. (28, 24).
-// Other shapes keep `partial_kernel`.
+// g [k, o, m, m] and mv [k, o, m]: written by B1 (k = 1) and B4, added into
+// the running values by B2 (k = 1).  `launch()` in rolann_stats.cu takes
+// this route for those three entries when m <= 28 and o <= 32: every layer
+// of the one-shot creditcard fit (B1) and of the fleet fit (B4), (m, o) =
+// (19, 15) .. (28, 24), and the logistic-output streamed fit's last layer
+// (B2, (28, 29)).  Other shapes, and B5 for now, keep `partial_kernel`.
 //
 // What bounds it.  At the fleet's (28, 24) with 64 tenants of 3,998
 // samples the function is 2.5e9 FMAs for G's upper triangle and 0.3e9 for
 // M and the fsq scaling, against 64·3,998·(28 + 2·24)·4 = 78 MB read and
 // 5 MB written: ~0.08 ms on the FP32 cores, ~0.025 ms for the bytes, so
-// operations bound it.  `partial_kernel` runs a block per (tenant, output,
-// slice): each of a tenant's o blocks stages its own copy of xa's 32 rows
-// (28 real) from memory, reads fsq[o] once per staged row, loads 32-byte
-// segments (8 samples x 4 rows a warp) and folds only 8 samples a lane
-// between two barriers; the fleet ran it at 10x its bound.
+// operations bound it; one creditcard tenant of 255,883 samples is the same
+// work.  `partial_kernel` runs a block per (tenant, output, slice): each of
+// a tenant's o blocks stages its own copy of xa's 32 rows (28 real) from
+// memory, reads fsq[o] once per staged row, loads 32-byte segments (8
+// samples x 4 rows a warp) and folds only 8 samples a lane between two
+// barriers; the fleet ran it at 10x its bound, the one-shot fit likewise.
 //
 // Design.  B3's slice kernel (rolann_fused_slice.cuh) without the stage-1
 // product: a block of eight warps owns tenant t's slice of the samples and
@@ -35,12 +39,16 @@
 // rolann_slice_fold.cuh's `fold_step` (B3's): a warp folds four outputs at
 // most, a lane one 4x4 piece of G's upper triangle and one row of M for
 // each, every term (xa[i]·fsq[o])·xa[j] as the reference forms it.  Each
-// slice writes its partial packed triangles and M rows; ops.plan_batched_
-// slices cuts each tenant's samples into a few slices of at least four
-// steps, as many as fill the card once, so the workspace does not grow with
-// n; `few_slice_reduce_kernel` writes g and mv from zero, summing the slices
-// in order (G exactly symmetric, repeats bit-identical, no atomics, no
-// memset).
+// slice writes its partial packed triangles and M rows.  B4
+// (ops.plan_batched_slices) cuts each tenant's samples into a few slices of
+// at least four steps, as many as fill the card once, and
+// `few_slice_reduce_kernel` writes g and mv from zero, summing the slices
+// in order.  B1 and B2 are the one-tenant grid (1, slices): ops.plan_stats_
+// slices cuts the samples into as many slices of whole steps as fill the
+// card twice over (hundreds), and `slice_reduce_kernel`, a block per row,
+// sums them in a fixed order, from zero for B1 and onto the running values
+// for B2.  The workspace does not grow with n; G is exactly symmetric,
+// repeats are bit-identical, no atomics, no memset.
 #pragma once
 
 #include "rolann_slice_fold.cuh"
@@ -140,17 +148,20 @@ int stats_launch_outputs(dim3 grid, size_t smem, cudaStream_t st, const float* x
   return static_cast<int>(cudaGetLastError());
 }
 
-// Whether B4's launch takes this route (the rule ops.stats_slice_route
-// states).
+// Whether a launch of this shape takes this route (the rule
+// ops.stats_slice_route states).
 inline bool stats_takes(int m, int o) {
   return m >= 1 && m <= kSmallM && o >= 1 && o <= kWarps * kMaxOutputs;
 }
 
-// B4 on this route: `slices` slices a tenant, then their sum written into
-// g and mv.
+// A launch on this route: `slices` slices a tenant, then their sum written
+// into g and mv, or added into them (`accumulate`).  B4 (`batched`) sums
+// its few slices a tenant with few_slice_reduce_kernel, B1 and B2 (k = 1)
+// their hundreds with slice_reduce_kernel.
 inline int stats_launch(const float* xa, const float* fsq, const float* fd, float* ws_g,
                         float* ws_m, float* g, float* mv, int k, int m, long long n, int o,
-                        int slices, long long slice_len, cudaStream_t st) {
+                        int slices, long long slice_len, bool accumulate, bool batched,
+                        cudaStream_t st) {
   const size_t smem = sizeof(float) * stats_smem_floats(o);
   const dim3 grid(k, slices);
   const int outs = (o + kWarps - 1) / kWarps;
@@ -162,7 +173,11 @@ inline int stats_launch(const float* xa, const float* fsq, const float* fd, floa
                   : outs == 3 ? run(stats_launch_outputs<3>)
                               : run(stats_launch_outputs<4>);
   if (err != 0) return err;
-  return launch_few_slice_reduce(ws_g, ws_m, g, mv, m, (long long)k * o, slices, false, st);
+  if (batched) {
+    return launch_few_slice_reduce(ws_g, ws_m, g, mv, m, (long long)k * o, slices, accumulate,
+                                   st);
+  }
+  return launch_slice_reduce(ws_g, ws_m, g, mv, m, o, slices, accumulate, st);
 }
 
 }  // namespace slice

@@ -32,13 +32,14 @@ to the plain version.
 
 Each wrapper counts the calls that launched its kernel in ``.launches``;
 ``rolann_stats.route_launches`` splits B1's count by route: ``"tf32x3"``
-(m > ``SMALL_M``: the tensor-core kernel of ``csrc/rolann_stats_sm90.cuh``)
-or ``"fp32"`` (the FP32-core ``partial_kernel``), chosen by shape as
-:func:`tensor_core_route` says; ``rolann_stats_batched.route_launches``
-splits B4's: ``"slice"`` (a block per tenant and sample slice staging xa
-once for all outputs, ``csrc/rolann_stats_slice.cuh``), as
-:func:`stats_slice_route` says, else B1's routes (``"tf32x3"`` for one
-tenant with m > ``SMALL_M``);
+(m > ``SMALL_M``: the tensor-core kernel of ``csrc/rolann_stats_sm90.cuh``),
+``"slice"`` (m <= ``SMALL_M`` and o <= ``FUSED_MAX_OUTPUTS``: a block per
+tenant and sample slice staging xa once for all outputs,
+``csrc/rolann_stats_slice.cuh``) or ``"fp32"`` (the FP32-core
+``partial_kernel``), chosen by shape as :func:`tensor_core_route` and
+:func:`stats_slice_route` say; ``rolann_stats_acc.route_launches`` splits
+B2's (``"slice"`` or ``"fp32"``) and ``rolann_stats_batched.route_launches``
+B4's by the same rule;
 ``rolann_fused_chunk.route_launches`` and
 ``rolann_fused_chunk_batched.route_launches`` split B3's and B6's:
 ``"slice"`` (a block per sample slice, and tenant, forming its activations
@@ -76,15 +77,17 @@ TC_TILE, TC_OUTPUTS, TC_STEP, TC_BLOCKS_PER_SM = 64, 4, 32, 2
 TC_MAX_SLICE = 2048
 # The slice routes (rolann_slice_fold.cuh): B3 and B6 with ma <= SMALL_M
 # (one G tile of 4x4 pieces a warp's lanes cover) and at most
-# FUSED_MAX_OUTPUTS outputs (four a warp), B4 with m <= SMALL_M and as
-# many outputs; slices of whole FUSED_STEP-sample steps.  B3 (one tenant)
-# plans about FUSED_BLOCKS_PER_SM blocks per SM (more steps a block beyond
-# that).  B4 and B6 plan a few slices a tenant: as many as give
+# FUSED_MAX_OUTPUTS outputs (four a warp), B1, B2 and B4 with m <= SMALL_M
+# and as many outputs; slices of whole FUSED_STEP-sample steps.  B3 (one
+# tenant) plans about FUSED_BLOCKS_PER_SM blocks per SM (more steps a block
+# beyond that).  B4 and B6 plan a few slices a tenant: as many as give
 # SLICE_BLOCKS_PER_SM blocks on every SM (the two a kernel's launch bounds
 # keep resident), none shorter than SLICE_MIN_STEPS steps (a slice's
 # partials, m_l (m (m + 1) / 2 + m) floats, outweigh a few steps' inputs).
+# B1 and B2 (one tenant) plan as many blocks, none shorter than
+# STATS_MIN_STEPS steps.
 FUSED_STEP, FUSED_MAX_OUTPUTS, FUSED_BLOCKS_PER_SM = 64, 32, 3
-SLICE_BLOCKS_PER_SM, SLICE_MIN_STEPS = 2, 4
+SLICE_BLOCKS_PER_SM, SLICE_MIN_STEPS, STATS_MIN_STEPS = 2, 4, 1
 
 _FN = "rolann_stats_f32"
 _FN_ACC = "rolann_stats_acc_f32"
@@ -288,10 +291,12 @@ def fused_slice_route(k: int, m_l: int, m_c1: int) -> bool:
 
 
 def stats_slice_route(m: int, o: int) -> bool:
-    """Whether a B4 launch takes the slice kernel: m <= ``SMALL_M`` and at
-    most ``FUSED_MAX_OUTPUTS`` outputs, any number of tenants
-    (``slice::stats_takes`` in ``csrc/rolann_stats_slice.cuh``).  Every
-    layer of the fleet fit takes it; B1, B2 and B5 do not use this route."""
+    """Whether a B1, B2 or B4 launch takes the slice kernel: m <=
+    ``SMALL_M`` and at most ``FUSED_MAX_OUTPUTS`` outputs, any number of
+    tenants (``slice::stats_takes`` in ``csrc/rolann_stats_slice.cuh``).
+    Every layer of the one-shot creditcard fit (B1) and of the fleet fit
+    (B4) takes it, and the logistic-output streamed fit's last layer (B2);
+    B5 does not use this route yet."""
     return 1 <= m <= SMALL_M and 1 <= o <= FUSED_MAX_OUTPUTS
 
 
@@ -308,19 +313,30 @@ def plan_fused_slices(n: int, sm_count: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=256)
-def plan_batched_slices(k: int, n: int, sm_count: int) -> tuple[int, int]:
+def plan_batched_slices(k: int, n: int, sm_count: int,
+                        min_steps: int = SLICE_MIN_STEPS) -> tuple[int, int]:
     """(slices a tenant, slice_len) for B4's and B6's slice kernels, whose
     grid is (tenant, slice): as many slices as give ``SLICE_BLOCKS_PER_SM``
-    blocks on each SM, each at least ``SLICE_MIN_STEPS`` whole
+    blocks on each SM, each at least ``min_steps`` whole
     ``FUSED_STEP``-sample steps (one slice where n is shorter), every slice
     starting below ``n``.  The count does not grow with ``n``, nor the
     workspace; it depends on shapes and the SM count only, so a card sums in
     one order.  The fleet's 1,024-sample chunks of 64 tenants take 4 slices
     of 256 on a 132-SM card."""
     steps = -(-n // FUSED_STEP)
-    slices = max(1, min(SLICE_BLOCKS_PER_SM * sm_count // k, steps // SLICE_MIN_STEPS))
+    slices = max(1, min(SLICE_BLOCKS_PER_SM * sm_count // k, steps // min_steps))
     slice_len = -(-steps // slices) * FUSED_STEP
     return -(-n // slice_len), slice_len
+
+
+def plan_stats_slices(n: int, sm_count: int) -> tuple[int, int]:
+    """(slices, slice_len) for B1 and B2 on the slice kernel, one tenant
+    (grid (1, slices)): :func:`plan_batched_slices` for k = 1 with slices of
+    at least ``STATS_MIN_STEPS`` steps, so hundreds of them, summed by the
+    block-per-row reduce.  On a 132-SM card the one-shot creditcard fit's
+    255,883 samples take 250 slices of 1,024, a streamed 32,768-sample chunk
+    256 of 128."""
+    return plan_batched_slices(1, n, sm_count, STATS_MIN_STEPS)
 
 
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -355,34 +371,44 @@ def _sm_count(index: int) -> int:
 def plan_stats(k: int, m: int, n: int, o: int, accumulate: bool,
                sm_count: int) -> tuple[bool, int, int, int]:
     """(tensor_cores, slices, slice_len, workspace slices) of a B1, B2, B4
-    or B5 launch.  One slice of the tensor-core route writes g and mv
-    directly, with no workspace."""
+    or B5 launch off the slice route (the tensor cores or
+    ``partial_kernel``).  One slice of the tensor-core route writes g and
+    mv directly, with no workspace."""
     tensor_cores = tensor_core_route(k, m, accumulate)
     plan = plan_slices_tf32x3 if tensor_cores else plan_slices
     slices, slice_len = plan(m, n, k * o, sm_count)
     return tensor_cores, slices, slice_len, 0 if tensor_cores and slices == 1 else slices
 
 
-def _plan_launch(fn_name: str, k: int, m: int, n: int, o: int,
+def stats_route(k: int, m: int, o: int, accumulate: bool, batched: bool = False) -> str:
+    """The kernel a launch of B1, B2 (``accumulate``), B4 (``batched``) or B5
+    (both) takes by shape, the rule of ``launch()`` in
+    ``csrc/rolann_stats.cu``: ``"slice"`` where :func:`stats_slice_route`
+    holds, B5 excepted; ``"tf32x3"`` where :func:`tensor_core_route` holds;
+    else ``"fp32"`` (``partial_kernel``)."""
+    if not (batched and accumulate) and stats_slice_route(m, o):
+        return "slice"
+    return "tf32x3" if tensor_core_route(k, m, accumulate) else "fp32"
+
+
+def _plan_launch(k: int, m: int, n: int, o: int, accumulate: bool, batched: bool,
                  sm_count: int) -> tuple[str, int, int, int, bool]:
     """(route, slices, slice_len, workspace slices, packed partials) of a
-    B1, B2, B4 or B5 launch: B4 with m <= ``SMALL_M`` and o <=
-    ``FUSED_MAX_OUTPUTS`` takes the slice route (a few slices a tenant,
-    packed partials), the rest :func:`plan_stats`'s."""
-    if fn_name == _FN_BATCHED and stats_slice_route(m, o):
-        slices, slice_len = plan_batched_slices(k, n, sm_count)
-        return "slice", slices, slice_len, slices, True
-    tensor_cores, slices, slice_len, ws = plan_stats(
-        k, m, n, o, fn_name in (_FN_ACC, _FN_ACC_BATCHED), sm_count)
-    return ("tf32x3" if tensor_cores else "fp32"), slices, slice_len, ws, False
+    B1, B2, B4 or B5 launch: the slice route has packed partials, B4 a few
+    slices a tenant and B1 and B2 hundreds; the others :func:`plan_stats`'s."""
+    route = stats_route(k, m, o, accumulate, batched)
+    if route == "slice":
+        slices, slice_len = (plan_batched_slices(k, n, sm_count) if batched
+                             else plan_stats_slices(n, sm_count))
+        return route, slices, slice_len, slices, True
+    _, slices, slice_len, ws = plan_stats(k, m, n, o, accumulate, sm_count)
+    return route, slices, slice_len, ws, False
 
 
 def workspace_bytes(k: int, m: int, n: int, o: int, accumulate: bool, sm_count: int,
                     batched: bool = False) -> int:
     """Bytes of scratch a B1, B2 or (``batched``) B4, B5 launch allocates."""
-    fn_name = ((_FN_ACC_BATCHED if accumulate else _FN_BATCHED) if batched
-               else (_FN_ACC if accumulate else _FN))
-    _, _, _, ws, packed = _plan_launch(fn_name, k, m, n, o, sm_count)
+    _, _, _, ws, packed = _plan_launch(k, m, n, o, accumulate, batched, sm_count)
     return 4 * ws * k * o * (_g_floats(m, packed) + m)
 
 
@@ -396,15 +422,15 @@ def fused_workspace_bytes(k: int, m_l: int, m_c1: int, n: int, sm_count: int,
 
 def _launch(fn_name: str, xa, fsq, fd, g, mv) -> str:
     """B1/B2 (xa [m, n]) or B4/B5 (xa [k, m, n]) on float32 contiguous CUDA
-    tensors, into float32 g, mv; the route it took ("tf32x3", "fp32" or, for
-    B4, "slice")."""
+    tensors, into float32 g, mv; the route it took ("slice", "fp32" or, for
+    B1 and B4, "tf32x3")."""
     batched = xa.ndim == 3
     k = xa.shape[0] if batched else 1
     m, n = xa.shape[-2:]
     o = fsq.shape[-2]
     dev = xa.device
-    route, slices, slice_len, ws, packed = _plan_launch(fn_name, k, m, n, o,
-                                                        _sm_count(dev.index))
+    route, slices, slice_len, ws, packed = _plan_launch(
+        k, m, n, o, fn_name in (_FN_ACC, _FN_ACC_BATCHED), batched, _sm_count(dev.index))
     scratch, ws_g, ws_m = _workspace(ws, k * o, m, dev, packed)  # alive until the launch
     shape = (k, m, n, o) if batched else (m, n, o)
     _build.launch("rolann_stats", fn_name, _ARGS_BATCHED if batched else _ARGS, dev,
@@ -456,8 +482,9 @@ def rolann_stats_acc(g: torch.Tensor, mv: torch.Tensor, xa: torch.Tensor,
         return rolann_stats_acc_plain(g, mv, xa, fsq, fd)
     _cuda_or_raise(who, xa.device)
     g32, m32 = _f32(g), _f32(mv)
-    _launch(_FN_ACC, xa.float(), fsq.float(), fd.float(), g32, m32)
+    route = _launch(_FN_ACC, xa.float(), fsq.float(), fd.float(), g32, m32)
     rolann_stats_acc.launches += 1
+    rolann_stats_acc.route_launches[route] += 1
     _store(g, g32)
     _store(mv, m32)
     return g, mv
@@ -632,8 +659,9 @@ def rolann_fused_chunk_batched(g: torch.Tensor, mv: torch.Tensor, h: torch.Tenso
 
 
 rolann_stats.launches = 0
-rolann_stats.route_launches = {"tf32x3": 0, "fp32": 0}
+rolann_stats.route_launches = {"tf32x3": 0, "fp32": 0, "slice": 0}
 rolann_stats_acc.launches = 0
+rolann_stats_acc.route_launches = {"slice": 0, "fp32": 0}
 rolann_fused_chunk.launches = 0
 rolann_fused_chunk.route_launches = {"slice": 0, "tile": 0}
 rolann_stats_batched.launches = 0

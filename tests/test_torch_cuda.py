@@ -93,13 +93,17 @@ def test_kernel_matches_plain(card, m, o, n, dtype):
 TC_M, TC_O, TC_N = (29, 64, 65, 129, 513), (1, 3, 256), (1, 7, 2_048, 2_049, 10_007)
 
 
-def _check_tensor_core_stats(m, o, n, dtype, dev):
+def _check_stats_route(m, o, n, dtype, dev, route):
+    """B1 on ``route``: one launch counted there, the plain version's bar
+    (1e-4 of the largest entry of G and of M, one bf16 ulp for bf16), G
+    exactly symmetric, a bit-identical repeat."""
     xa, fsq, fd = _inputs(m, o, n, dtype, m * n + o, dev)
-    before, routed = rolann_stats.launches, rolann_stats.route_launches["tf32x3"]
+    assert ops.stats_route(1, m, o, False) == route
+    before, routed = rolann_stats.launches, rolann_stats.route_launches[route]
     g, mv = rolann_stats(xa, fsq, fd)
     torch.cuda.synchronize()
     assert rolann_stats.launches == before + 1
-    assert rolann_stats.route_launches["tf32x3"] == routed + 1
+    assert rolann_stats.route_launches[route] == routed + 1
     gp, mp = rolann_stats_plain(xa, fsq, fd)
     assert g.dtype == dtype and mv.dtype == dtype
     assert torch.equal(g, g.transpose(1, 2))
@@ -116,7 +120,7 @@ def _check_tensor_core_stats(m, o, n, dtype, dev):
 def test_tensor_core_stats_match_plain(card, m, o, n):
     """B1's 3xTF32 route against the plain version in float32: 1e-4 of the
     largest entry of G and of M, G exactly symmetric, repeats bit-identical."""
-    _check_tensor_core_stats(m, o, n, torch.float32, card)
+    _check_stats_route(m, o, n, torch.float32, card, "tf32x3")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
@@ -124,7 +128,7 @@ def test_tensor_core_stats_match_plain(card, m, o, n):
 @pytest.mark.parametrize("m", TC_M)
 def test_tensor_core_stats_other_dtypes(card, m, o, dtype):
     """The same in bf16 (one bf16 ulp of the largest entry) and float64."""
-    _check_tensor_core_stats(m, o, TC_N[(m + o) % len(TC_N)], dtype, card)
+    _check_stats_route(m, o, TC_N[(m + o) % len(TC_N)], dtype, card, "tf32x3")
 
 
 def test_tensor_core_route_plans_one_slice_at_the_head_shape(card):
@@ -171,7 +175,31 @@ def test_tensor_core_runs_within_a_slice(card, m, o, n):
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     slices, slice_len = ops.plan_slices_tf32x3(m, n, o, sms)
     assert slices > 1 and slice_len > ops.TC_MAX_SLICE
-    _check_tensor_core_stats(m, o, n, torch.float32, card)
+    _check_stats_route(m, o, n, torch.float32, card, "tf32x3")
+
+
+# The one-shot creditcard fit's B1 launches: one tenant, 255,883 samples,
+# (m, o) of each decoder layer.
+CREDITCARD_STATS = ((19, 15), (22, 18), (25, 21), (28, 24))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("m,o", CREDITCARD_STATS)
+def test_slice_stats_at_the_creditcard_layers(card, m, o, dtype):
+    """B1 at each layer of the one-shot creditcard fit on the slice route
+    (rolann_stats_slice.cuh with one tenant, the many-slice reduce writing
+    G and M from zero)."""
+    _check_stats_route(m, o, 255_883, dtype, card, "slice")
+
+
+@pytest.mark.parametrize("m,o,n,route", [(28, 32, 5_003, "slice"), (1, 1, 3, "slice"),
+                                         (5, 2, 64, "slice"), (28, 33, 5_003, "fp32"),
+                                         (29, 32, 5_003, "tf32x3")])
+def test_stats_routes_by_shape(card, m, o, n, route):
+    """B1 takes the slice kernel for m <= 28 and o <= 32 (four outputs a
+    warp at o = 32; one step, one sample), partial_kernel past o, the
+    tensor cores past m; each holds the plain version's bar."""
+    _check_stats_route(m, o, n, torch.float32, card, route)
 
 
 def test_kernel_rejects_non_contiguous(card):
@@ -243,6 +271,28 @@ def test_acc_kernel_matches_plain(card, m, o, n, dtype):
     _check_fold(lambda g, mv: rolann_stats_acc(g, mv, xa, fsq, fd),
                 lambda g, mv: rolann_stats_acc_plain(g, mv, xa, fsq, fd), g0, m0,
                 rolann_stats_acc)
+
+
+@pytest.mark.parametrize("n,masked", [(32_768, False), (26_507, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_slice_acc_at_the_logistic_output_layer(card, n, masked, dtype):
+    """B2 at the logistic-output streamed fit's last layer, (m, o) =
+    (28, 29), four outputs a warp, on a full 32,768-sample chunk and on the
+    ragged 26,507 with a masked tail: on the slice route (the many-slice
+    reduce adding into the running values), in place, the plain fold's
+    bar, G exactly symmetric, a bit-identical repeat."""
+    m, o = 28, 29
+    xa, fsq, fd = _inputs(m, o, n, torch.float32, n + o, card)
+    if masked:
+        fsq[:, n - n // 5:] = 0
+        fd[:, n - n // 5:] = 0
+    assert ops.stats_route(1, m, o, True) == "slice"
+    g0, m0 = _running(o, m, dtype, card)
+    before = rolann_stats_acc.route_launches["slice"]
+    _check_fold(lambda g, mv: rolann_stats_acc(g, mv, xa, fsq, fd),
+                lambda g, mv: rolann_stats_acc_plain(g, mv, xa, fsq, fd), g0, m0,
+                rolann_stats_acc)
+    assert rolann_stats_acc.route_launches["slice"] == before + 2
 
 
 @pytest.mark.parametrize("m_l,m_c1,n,act", [(15, 18, 32_768, "logsig"),

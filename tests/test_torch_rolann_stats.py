@@ -193,6 +193,79 @@ def test_stats_slice_route_at_its_boundaries(m, o, slice_route):
     assert packed == 4 * slices * k * o * per
 
 
+@pytest.mark.parametrize("k,m,o,accumulate,batched,route", [
+    (1, 28, 32, False, False, "slice"),    # B1 at the slice route's edge
+    (1, 28, 32, True, False, "slice"),     # B2 likewise
+    (1, 29, 32, False, False, "tf32x3"),   # B1 past m: the tensor cores
+    (1, 29, 32, True, False, "fp32"),      # B2 past m: partial_kernel
+    (1, 28, 33, False, False, "fp32"),     # past o
+    (1, 28, 33, True, False, "fp32"),
+    (1, 29, 33, False, False, "tf32x3"),
+    (1, 29, 33, True, False, "fp32"),
+    (1, 19, 15, False, False, "slice"),    # the one-shot creditcard fit's first layer
+    (1, 28, 29, True, False, "slice"),     # the logistic-output fit's last layer
+    (1, 1, 1, True, False, "slice"),
+    (1, 513, 256, False, False, "tf32x3"),  # the DAEF head
+    (64, 28, 29, True, True, "fp32"),      # B5 keeps partial_kernel
+    (1, 28, 29, True, True, "fp32"),       # B5 with one tenant too
+    (64, 28, 24, False, True, "slice"),    # B4
+    (1, 37, 3, False, True, "tf32x3"),     # B4 with one tenant and m > 28
+])
+def test_stats_route_at_its_boundaries(k, m, o, accumulate, batched, route):
+    """B1 (one tenant) and B2 (one tenant, accumulating) take the slice
+    kernel for m <= 28 and o <= 32, as B4 does; B5 keeps partial_kernel at
+    every shape; one tenant with m > 28 and no accumulators keeps the
+    tensor cores.  The workspace follows the route: packed triangles for
+    the planned slices on the slice route, full partials otherwise."""
+    assert ops.stats_route(k, m, o, accumulate, batched) == route
+    n = 32_768
+    got = ops.workspace_bytes(k, m, n, o, accumulate, 132, batched)
+    if route == "slice":
+        plan = ops.plan_batched_slices(k, n, 132) if batched else ops.plan_stats_slices(n, 132)
+        assert got == 4 * plan[0] * k * o * (m * (m + 1) // 2 + m)
+    else:
+        tensor_cores, _, _, ws = ops.plan_stats(k, m, n, o, accumulate, 132)
+        assert tensor_cores == (route == "tf32x3")
+        assert got == 4 * ws * k * o * (m * m + m)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 26_507, 32_768, 255_883, 10**9])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_one_tenant_stats_plan_covers_the_samples(n, sms):
+    """B1's and B2's slices on the slice route: whole 64-sample steps, at
+    least STATS_MIN_STEPS of them, no empty slice, at most
+    SLICE_BLOCKS_PER_SM blocks an SM (the two the kernel's launch bounds
+    keep resident); the count stops growing with n, and so does the
+    workspace, even at the route's widest shape."""
+    slices, slice_len = ops.plan_stats_slices(n, sms)
+    assert slice_len % ops.FUSED_STEP == 0
+    assert slice_len >= ops.STATS_MIN_STEPS * ops.FUSED_STEP
+    assert (slices - 1) * slice_len < n <= slices * slice_len
+    most = ops.SLICE_BLOCKS_PER_SM * sms
+    assert 1 <= slices <= most == ops.plan_stats_slices(10**12, sms)[0]
+    per_slice = 4 * 32 * (28 * 29 // 2 + 28)
+    for accumulate in (False, True):
+        assert ops.workspace_bytes(1, 28, n, 32, accumulate, sms) == slices * per_slice
+        assert slices * per_slice <= most * per_slice
+
+
+def test_one_tenant_stats_plans_at_the_creditcard_shapes():
+    """On a 132-SM card: each of the one-shot creditcard fit's four B1
+    launches (255,883 samples) takes 250 slices of 1,024 samples (16 steps,
+    the per-block work of B4 on the fleet) and 10.4 MB of scratch at its
+    widest layer; the logistic-output streamed fit's B2 launches at
+    (m, o) = (28, 29) take 256 slices of 128 for a 32,768-sample chunk, as
+    B3 plans the same chunk, and 208 for the ragged last chunk's 26,507."""
+    for m, o in ((19, 15), (22, 18), (25, 21), (28, 24)):
+        assert ops.stats_route(1, m, o, False) == "slice"
+    assert ops.plan_stats_slices(255_883, 132) == (250, 1_024)
+    assert ops.workspace_bytes(1, 28, 255_883, 24, False, 132) == 10_416_000
+    assert ops.stats_route(1, 28, 29, True) == "slice"
+    assert ops.plan_stats_slices(32_768, 132) == (256, 128) == ops.plan_fused_slices(32_768, 132)
+    assert ops.plan_stats_slices(26_507, 132) == (208, 128)
+    assert ops.workspace_bytes(1, 28, 32_768, 29, True, 132) == 12_888_064
+
+
 @pytest.mark.parametrize("n", [1, 63, 926, 1_024, 3_998])
 @pytest.mark.parametrize("k", [1, 3, 64])
 @pytest.mark.parametrize("sms", [1, 132])
