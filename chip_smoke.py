@@ -28,11 +28,12 @@ no result:
    path's shapes (64 tenants), at ragged and masked shapes, at k = 1, at
    n = 0 and in bf16 and float64, and timed beside their plain versions and
    the one-call ``torch.einsum("kin,kon,kjn->koij", ...)`` yardstick (B6
-   has none).  B5 stays on ``partial_kernel`` (its profile must show it).
-   B1 and B2 at the creditcard paths' shapes (m <= 28,
-   o <= 32), and B4 and B6 at the fleet's, must take their slice routes
+   has none).  B1 and B2 at the creditcard paths' shapes (m <= 28,
+   o <= 32), and B4, B5 and B6 at the fleet's, must take their slice routes
    (``csrc/rolann_stats_slice.cuh``, ``csrc/rolann_fused_slice.cuh``;
-   ``route_launches["slice"]``), the wide shapes the others; their path
+   ``route_launches["slice"]``), the wide shapes the others (B5's profile
+   must show ``stats_slice_kernel`` and ``few_slice_reduce_kernel`` and no
+   ``partial_kernel``); their path
    rows print each kernel's device time under the profiler, the call's
    CUDA-events time, the bound, the share of the bar and ptxas's
    registers and spills.
@@ -80,7 +81,8 @@ no result:
    (rolann_fused_chunk_batched 16 launches each, all on its slice route,
    re-fold checked), and a
    logistic-output chunked fleet fit on [0, 1] data (rolann_stats_acc_batched
-   4).  Times on the host clock, ending in ``torch.cuda.synchronize()``.
+   4, all on its slice route).  Times on the host clock, ending in
+   ``torch.cuda.synchronize()``.
 8. profile — one fused fit + score, one streamed fused fit, one fused fleet
    fit and one chunked fused fleet fit under ``torch.profiler``: device time
    by kernel, and the device's busy share of the wall time; each lists its
@@ -163,8 +165,30 @@ no result:
     ``torch.profiler``, the cross-entropy and the optimiser timed with CUDA
     events.
 
-The last lines are a JSON object of the LM paths' numbers, a JSON object of
-per-shape numbers, the card's name and power limit, a JSON object of
+17. svd — the paper-faithful ``method="svd"`` at full width, the creditcard
+    configuration of phase 4 on the same replica: ``daef.fit(n_partitions=4)``
+    -> ``reconstruction_error`` -> ``threshold`` -> ``classify`` ->
+    ``evaluate`` after one warm-up, no kernel launched; the train errors and
+    test scores no farther from phase 6's float64 fit than its bar, the
+    labels within 2 x (the labels the card's fused and einsum gram fits are
+    apart) + 4 of the fused gram fit's.  The two halves of the training
+    samples fitted, then ``merge_models`` and ``partial_fit``: each layer's
+    U S² Uᵀ and M equal the gram statistics of the same halves under the
+    same weights (each half's einsum re-fold, summed) at 1e-4 of the leaf's
+    max, the encoder's U S² Uᵀ equals X Xᵀ (their distance from the gram
+    method's merge is reported: its weights differ by the solves' float32
+    drift).  ``layer_knowledge_from_partition`` on 4 partitions of the first
+    decoder layer's input with ``direct_svd`` and with ``gram_eigh`` (B1 4
+    launches, all on its slice route), then ``merge_factors_list``: the
+    one-shot layer's statistics at 1e-4.  The 64-tenant fleet of phase 7:
+    ``_fit_fleet`` -> ``fleet_merge_pairwise`` -> ``fleet_scores`` ->
+    thresholds -> per-site F1, no kernel launched; every tenant's U S² Uᵀ
+    and M against the einsum re-fold under the fleet's weights at 1e-4 of
+    its max; per-site labels within 4 (|Δtp| + |Δfp|) of the port's CPU
+    svd fleet.  Times on the host clock.
+
+The last lines are a JSON object of the svd phase's numbers, a JSON object
+of the LM paths' numbers, a JSON object of per-shape numbers, the card's name and power limit, a JSON object of
 per-kernel numbers for all ten kernels, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -865,7 +889,9 @@ def phase_reference(cfg, x_train, x_test, y_test, card_fits):
     ``_compare_backends``); each of the card's fused fits (one-shot and
     streamed) must be no farther from it than twice the farthest of the
     plain float32 fits (card einsum, host float32), plus 1e-4 (TOLS), in
-    max|d| / max|float64| of the train errors and of the test scores."""
+    max|d| / max|float64| of the train errors and of the test scores.
+    Returns, for each of the two, the float64 fit's values and the plain
+    float32 fits' largest distance from them (phase 17's bar)."""
     import torch
 
     from repro_torch.core import anomaly, daef
@@ -882,9 +908,11 @@ def phase_reference(cfg, x_train, x_test, y_test, card_fits):
                                      device="cpu")
     f1_64 = anomaly.evaluate(m_64.train_errors, s_64, y_test, RULE, device="cpu").f1
     fits = {**card_fits, "host float32": (m_host.train_errors, s_host, f1_host)}
+    references = {}
     for i, (name, ref) in enumerate((("train errors", m_64.train_errors), ("test scores", s_64))):
         dist = {k: _rel(v[i].double().cpu(), ref) for k, v in fits.items()}
         plain = max(d for k, d in dist.items() if k not in CHECKED_FITS)
+        references[name] = (ref, plain)
         for k in CHECKED_FITS:
             check(dist[k] <= 2 * plain + 1e-4,
                   f"{name}: the {k} fit is {dist[k]:.3e} from the float64 fit, the plain "
@@ -894,6 +922,7 @@ def phase_reference(cfg, x_train, x_test, y_test, card_fits):
     say("reference", "F1: " + ", ".join(f"{k} {v[2]:.4f}" for k, v in fits.items())
         + f", host float64 {f1_64:.4f} (host float32 fit {host_s:.2f} s, "
         f"{torch.get_num_threads()} threads)")
+    return references
 
 
 # ---------------------------------------------------------------------------
@@ -1065,27 +1094,35 @@ def phase_batched_kernels(k, stats_shapes, n_tenant, acc_shape, fused_shapes, n_
         g0, m0 = (torch.stack(p).contiguous() for p in zip(*parts))
         fold = lambda g, mv: rolann_stats_acc_batched(g, mv, xa, fsq, fd)  # noqa: E731
         plain = lambda g, mv: rolann_stats_acc_batched_plain(g, mv, xa, fsq, fd)  # noqa: E731
-        err, _ = _check_fold(f"rolann_stats_acc_batched {label} n={n}", fold, plain, g0, m0)
+        route = ops.stats_route(kk, m, o, True, batched=True)
+        before = rolann_stats_acc_batched.route_launches[route]
+        err, used = _check_fold(f"rolann_stats_acc_batched {label} n={n} ({route})", fold,
+                                plain, g0, m0)
+        check(rolann_stats_acc_batched.route_launches[route] == before + 2,
+              f"rolann_stats_acc_batched {label}: not on the {route} route")
         if label.startswith("path"):
+            check(route == "slice", f"B5 at the path's shape {label} must take the slice route")
             ms, plain_ms, library_ms = _time_fold(
                 fold, plain, lambda: torch.einsum("kin,kon,kjn->koij", xa, fsq, xa), g0, m0)
             flops, nbytes = _stats_work(m, o, n)
             bound_ms, bound_by = _bound(*_batched_work(kk, (flops, nbytes + 4 * (o * m * m + o * m))))
-            # B5 keeps partial_kernel at every shape (ops.stats_route).
-            check(ops.stats_route(kk, m, o, True, batched=True) == "fp32",
-                  f"B5 {label}: expected on partial_kernel")
             g, mv = g0.clone(), m0.clone()
-            times = _kernel_us(lambda: fold(g, mv), ("partial_kernel", "rolann::reduce_kernel"))
-            check(any("partial_kernel" in name for name in times),
-                  f"B5 {label}: no partial_kernel launch in its profile {sorted(times)}")
+            times = _kernel_us(lambda: fold(g, mv), STATS_SLICE_KERNELS + ("partial_kernel",))
+            check(any("stats_slice_kernel" in name for name in times)
+                  and any("few_slice_reduce_kernel" in name for name in times)
+                  and not any("partial_kernel" in name for name in times),
+                  f"B5 {label}: its profile {sorted(times)} must show stats_slice_kernel and "
+                  "few_slice_reduce_kernel and no partial_kernel")
+            outs = -(-o // 8)
             rows["rolann_stats_acc_batched"].append(dict(
                 k=kk, m=m, o=o, n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, bar_used=used,
                 device_us=sum(us for _, us in times.values())))
             say("kernel", f"rolann_stats_acc_batched {label} n={n}: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, einsum yardstick {library_ms:.4f} ms; route fp32, "
-                "device " + ", ".join(f"{name} {us:.2f} µs"
-                                      for name, (_, us) in sorted(times.items())))
+                f"plain {plain_ms:.4f} ms, einsum yardstick {library_ms:.4f} ms")
+            _say_slice_row(f"rolann_stats_acc_batched {label} n={n}", times,
+                           f"stats_slice_kernel<{outs}> (registers, spill stores, spill loads) "
+                           f"{stats_regs.get(str(outs), '?')}", ms, (bound_ms, bound_by), used)
 
     fused_cases = [(f"path k={k} m_l={a} m_c1={c}", k, a, c, n_chunk, "logsig", f32, False)
                    for a, c in fused_shapes]
@@ -1495,6 +1532,7 @@ def phase_fleet(cfg, data, data_d):
                     rolann_stats_acc_batched=n_chunks)
     check(launches["logsig"] == want_l, f"logsig-output fleet fit launched {launches['logsig']}, "
           f"expected {want_l}")
+    on_slice_route("rolann_stats_acc_batched", n_chunks)
     check(bool(torch.isfinite(fl_l.model.train_errors).all()), "logsig-output fleet errors")
     _check_refold_fleet("fused chunked fleet fit, act_last=logsig", cfg_l, fl_l,
                         fleet._device_chunks(x01, FLEET_CHUNK),
@@ -1563,6 +1601,245 @@ def _per_fit(rows, launches_per_shape, bound_fn, shape_keys, n_valid):
         "library_ms": (None if rows[0]["library_ms"] is None
                        else launches_per_shape * sum(r["library_ms"] for r in rows)),
     }
+
+
+# ---------------------------------------------------------------------------
+# 17. the paper-faithful svd method: one tenant, its merges, the partition
+# knowledge and the fleet
+# ---------------------------------------------------------------------------
+
+def _gram_of(knowledge):
+    """A layer's knowledge in Gram form: factors as U S² Uᵀ, (G, M) as they
+    are."""
+    from repro_torch.core import rolann
+
+    if isinstance(knowledge, rolann.RolannFactors):
+        return rolann.factors_to_stats(knowledge)
+    return knowledge
+
+
+def _stats_apart(got, want, per_tenant=False):
+    """max|d| / max|want| of G and of M (the larger), per tenant's leaf
+    when ``per_tenant`` (then the worst tenant's)."""
+    worst = 0.0
+    for leaf in ("g", "m"):
+        a, b = getattr(got, leaf).double(), getattr(want, leaf).double()
+        dims = tuple(range(1 if per_tenant else 0, a.ndim))
+        rel = (a - b).abs().amax(dim=dims) / b.abs().amax(dim=dims)
+        worst = max(worst, float(rel.max()))
+    return worst
+
+
+def _labels_apart(a, b) -> int:
+    return abs(a.tp - b.tp) + abs(a.fp - b.fp)
+
+
+def phase_svd(cfg, xtr, xte, y_test, references, card_fits, fleet_data, fleet_data_d,
+              gram_devices):
+    """``method="svd"`` on the card at full width: the one-shot fit ->
+    score -> threshold -> classify -> evaluate, the merge of two halves and
+    a partial fit, the partition knowledge of the first decoder layer, and
+    the 64-tenant fleet.  Returns the phase's numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import anomaly, daef, elm_ae, fleet, rolann
+    from repro_torch.kernels.rolann_stats import rolann_stats
+
+    t_phase = time.perf_counter()
+    cfg_s = dataclasses.replace(cfg, method="svd")
+    wrappers = {**_wrappers(), **_fleet_wrappers()}
+    none = dict.fromkeys(wrappers, 0)
+
+    def zero():
+        for fn in wrappers.values():
+            fn.launches = 0
+            if hasattr(fn, "route_launches"):
+                fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+
+    def read():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    times, out = {}, {}
+
+    # ---- one tenant: fit -> score -> threshold -> classify -> evaluate ----
+    def fit():
+        return daef.fit(cfg_s, xtr, n_partitions=N_PARTITIONS)
+
+    _, cold = timed(fit)
+    say("svd", f"first (cold) svd fit {cold:.2f} ms")
+    zero()
+    model, times["fit"] = timed(fit)
+    scores, times["score"] = timed(lambda: daef.reconstruction_error(cfg_s, model, xte))
+    mu, times["threshold"] = timed(lambda: anomaly.threshold(model.train_errors, RULE))
+    pred, times["classify"] = timed(lambda: anomaly.classify(scores, mu))
+    metrics, times["evaluate"] = timed(
+        lambda: anomaly.evaluate(model.train_errors, scores, y_test, RULE))
+    check(read() == none, f"the svd fit launched {read()}, expected no kernel")
+    check(all(isinstance(k, rolann.RolannFactors) for k in model.layer_knowledge),
+          "the svd fit must carry factor knowledge")
+    check(tuple(model.train_errors.shape) == (xtr.shape[1],) and
+          tuple(scores.shape) == (xte.shape[1],), "svd fit: error shapes")
+    check(bool(torch.isfinite(model.train_errors).all() and torch.isfinite(scores).all()),
+          "svd fit: non-finite errors")
+    check(pred.dtype == torch.int32 and 0 < int(pred.sum()) < pred.numel(),
+          "svd classification is degenerate")
+    for i, (name, got) in enumerate((("train errors", model.train_errors),
+                                     ("test scores", scores))):
+        ref, plain = references[name]
+        out[f"{name} from float64"] = d = _rel(got.double().cpu(), ref)
+        check(d <= 2 * plain + 1e-4, f"svd fit {name}: {d:.3e} from the float64 fit, the plain "
+              f"float32 fits at most {plain:.3e}")
+        say("svd", f"svd fit {name}, max|d| / max|.| from the host float64 fit {d:.2e} (bar "
+            f"2 x {plain:.2e} + 1e-4, phase 6)")
+    # Labels against the card's gram fit; the bar: twice the labels its
+    # fused and einsum fits are apart, plus 4.
+    gram = {k: anomaly.evaluate(card_fits[k][0], card_fits[k][1], y_test, RULE)
+            for k in ("card fused", "card einsum")}
+    plain_apart = _labels_apart(gram["card fused"], gram["card einsum"])
+    out["labels apart"] = apart = _labels_apart(metrics, gram["card fused"])
+    check(apart <= 2 * plain_apart + 4, f"svd fit labels {apart} apart from the gram fit's "
+          f"(|dtp| + |dfp|), its fused and einsum fits {plain_apart}")
+    out["f1"] = metrics.f1
+    say("svd", f"svd fit {times['fit']:.2f} ms, score {times['score']:.2f} ms, threshold "
+        f"{times['threshold']:.2f} ms, classify {times['classify']:.2f} ms, evaluate "
+        f"{times['evaluate']:.2f} ms; F1 {metrics.f1:.4f} (tp {metrics.tp} fp {metrics.fp} "
+        f"fn {metrics.fn} tn {metrics.tn}), gram fit's {gram['card fused'].f1:.4f}; labels "
+        f"{apart} apart from the gram fit (bar 2 x {plain_apart} + 4)")
+
+    # ---- two halves: fit each, merge_models, partial_fit ----
+    half = xtr.shape[1] // 2
+    xa, xb = xtr[:, :half].contiguous(), xtr[:, half:].contiguous()
+    ma, times["fit half"] = timed(lambda: daef.fit(cfg_s, xa))
+    mb, _ = timed(lambda: daef.fit(cfg_s, xb))
+    daef.merge_models(cfg_s, ma, mb)  # warm-up
+    merged, times["merge_models"] = timed(lambda: daef.merge_models(cfg_s, ma, mb))
+    updated, times["partial_fit"] = timed(lambda: daef.partial_fit(cfg_s, ma, xb))
+    check(read() == none, f"the svd merges launched {read()}, expected no kernel")
+    # Each layer against the gram method's statistics of the same halves
+    # under the same weights: each half's einsum re-fold, summed.
+    worst = 0.0
+    for layer in range(len(merged.layer_knowledge)):
+        want = rolann.merge_stats(
+            _refold(cfg, ma, daef._device_chunks(xa, CHUNK_SAMPLES), layer),
+            _refold(cfg, mb, daef._device_chunks(xb, CHUNK_SAMPLES), layer))
+        for label, m in (("merge_models", merged), ("partial_fit", updated)):
+            d = _stats_apart(_gram_of(m.layer_knowledge[layer]), want)
+            check(d <= 1e-4, f"svd {label}: layer {layer + 1} U S^2 U^T or M {d:.3e} of its "
+                  "max from the gram statistics of the same halves (bar 1e-4)")
+            worst = max(worst, d)
+    enc = merged.encoder_factors
+    x64 = xtr.double()
+    d_enc = _rel((enc.u * enc.s**2).double() @ enc.u.double().T, x64 @ x64.T)
+    check(d_enc <= 1e-4, f"svd merge: encoder U S^2 U^T {d_enc:.3e} of max|X X^T| (bar 1e-4)")
+    gram_merge = daef.merge_models(cfg, daef.fit(cfg, xa), daef.fit(cfg, xb))
+    drift = [_stats_apart(_gram_of(k), g) for k, g in zip(merged.layer_knowledge,
+                                                            gram_merge.layer_knowledge)]
+    f1_merged = anomaly.evaluate(merged.train_errors, daef.reconstruction_error(
+        cfg_s, merged, xte), y_test, RULE).f1
+    out["merge worst"] = worst
+    say("svd", f"halves of {half} and {xtr.shape[1] - half}: svd fit {times['fit half']:.2f} ms "
+        f"a half, merge_models {times['merge_models']:.2f} ms, partial_fit "
+        f"{times['partial_fit']:.2f} ms; every layer's U S^2 U^T and M equal the gram "
+        f"statistics of the halves under the same weights, max|d| / max|.| {worst:.2e} (bar "
+        f"1e-4); encoder U S^2 U^T {d_enc:.2e} of X X^T; merged F1 {f1_merged:.4f}; no bar: "
+        "each layer's distance from the gram method's merge, whose weights differ by the "
+        "solves' float32 drift, " + ", ".join(f"{d:.2e}" for d in drift))
+
+    # ---- the first decoder layer's knowledge from 4 partitions ----
+    f_hl, _ = daef._acts(cfg_s)
+    h = f_hl.fn(model.weights[0].T @ xtr)
+    sizes = cfg.layer_sizes
+    key = cfg_s.layer_keys()[2]
+    want = _gram_of(model.layer_knowledge[0])
+    for factorization in ("direct_svd", "gram_eigh"):
+        def knowledge():
+            return rolann.merge_factors_list([elm_ae.layer_knowledge_from_partition(
+                key, part, sizes[2], f_hl, method="svd", factorization=factorization,
+                backend="fused") for part in daef._split(h, N_PARTITIONS)])
+
+        knowledge()  # warm-up
+        zero()
+        merged_k, times[f"partitions {factorization}"] = timed(knowledge)
+        eigh = factorization == "gram_eigh"
+        check(read() == dict(none, rolann_stats=N_PARTITIONS if eigh else 0),
+              f"{factorization} partitions launched {read()}")
+        if eigh:
+            check(rolann_stats.route_launches == {"tf32x3": 0, "fp32": 0,
+                                                  "slice": N_PARTITIONS},
+                  f"gram_eigh's B1 launches by route {rolann_stats.route_launches}, expected "
+                  f"all {N_PARTITIONS} on the slice route")
+        d = _stats_apart(_gram_of(merged_k), want)
+        check(d <= 1e-4, f"{factorization}: {N_PARTITIONS} partitions merged are {d:.3e} of "
+              "max|G| from the one-shot layer's statistics (bar 1e-4)")
+        out[f"partitions {factorization}"] = d
+        say("svd", f"layer_knowledge_from_partition x {N_PARTITIONS} ({factorization}) + "
+            f"merge_factors_list {times[f'partitions {factorization}']:.2f} ms: U S^2 U^T and "
+            f"M {d:.2e} of their max from the one-shot layer's (bar 1e-4); launches "
+            f"{read()['rolann_stats']} of rolann_stats")
+
+    # ---- the fleet: fit -> merge pairwise -> score -> per-site F1 ----
+    xs, seeds, tests, truth = fleet_data
+    xs_d, tests_d = fleet_data_d
+    k, _, n = xs.shape
+
+    def fit_fleet():
+        return fleet._fit_fleet(cfg_s, xs_d, seeds=seeds)
+
+    _, cold = timed(lambda: fleet.fleet_merge_pairwise(cfg_s, fit_fleet()))
+    say("svd", f"first (cold) svd fleet fit and merge {cold:.2f} ms")
+    zero()
+    devices, times["fleet fit"] = timed(fit_fleet)
+    sites, times["fleet merge"] = timed(lambda: fleet.fleet_merge_pairwise(cfg_s, devices))
+    site_scores, times["fleet score"] = timed(lambda: fleet.fleet_scores(cfg_s, sites, tests_d))
+    mus, times["fleet thresholds"] = timed(lambda: fleet.fleet_thresholds(sites))
+    check(read() == none, f"the svd fleet launched {read()}, expected no kernel")
+    check(bool(torch.isfinite(site_scores).all()), "svd fleet: non-finite site scores")
+    site_m = _site_f1(fleet.fleet_classify(site_scores, mus).cpu(), torch.as_tensor(truth))
+    worst = 0.0
+    for layer in range(len(devices.model.layer_knowledge)):
+        ref = _refold_fleet(cfg, devices, fleet._device_chunks(xs_d, n), layer)
+        d = _stats_apart(_gram_of(devices.model.layer_knowledge[layer]), ref, per_tenant=True)
+        check(d <= 1e-4, f"svd fleet: layer {layer + 1}'s U S^2 U^T or M {d:.3e} of a tenant's "
+              "max from the gram statistics under the fleet's weights (bar 1e-4)")
+        worst = max(worst, d)
+    drift = [_stats_apart(_gram_of(a), b, per_tenant=True) for a, b in
+             zip(devices.model.layer_knowledge, gram_devices.model.layer_knowledge)]
+    t0 = time.perf_counter()
+    cfg_h = dataclasses.replace(cfg_s, stats_backend="einsum")
+    sites_h = fleet.fleet_merge_pairwise(cfg_h, fleet._fit_fleet(cfg_h, xs, seeds=seeds,
+                                                                 device="cpu"))
+    pred_h = fleet.fleet_classify(fleet.fleet_scores(cfg_h, sites_h, tests, device="cpu"),
+                                  fleet.fleet_thresholds(sites_h), device="cpu")
+    host_s = time.perf_counter() - t0
+    site_h = _site_f1(pred_h, torch.as_tensor(truth))
+    apart = [_labels_apart(a, b) for a, b in zip(site_m, site_h)]
+    check(max(apart) <= 4, f"svd fleet per-site labels: card and CPU {max(apart)} apart at site "
+          f"{int(np.argmax(apart))} (bar 4)")
+    out["fleet labels apart"], out["fleet worst"] = max(apart), worst
+    out["fleet mean f1"] = float(np.mean([x.f1 for x in site_m]))
+    say("svd", f"{k}-tenant svd fleet: fit {times['fleet fit']:.2f} ms, merge {k} -> {k // 2} "
+        f"{times['fleet merge']:.2f} ms, score {times['fleet score']:.2f} ms, thresholds "
+        f"{times['fleet thresholds']:.2f} ms; every tenant's U S^2 U^T and M equal the gram "
+        f"statistics under its own weights, max|d| / max|.| {worst:.2e} (bar 1e-4); no bar: "
+        "each layer's worst tenant's distance from the gram fleet's (its weights differ by "
+        "the solves' float32 drift) " + ", ".join(f"{d:.2e}" for d in drift))
+    say("svd", f"svd fleet mean site F1 card {out['fleet mean f1']:.4f}, CPU "
+        f"{np.mean([x.f1 for x in site_h]):.4f}; labels apart per site at most {max(apart)}, "
+        f"{sum(apart)} in all (bar 4 a site; CPU svd fleet fit + merge + score {host_s:.2f} s)")
+    say("svd", "times (host clock, ending in torch.cuda.synchronize()): "
+        + ", ".join(f"{name} {ms:.2f} ms" for name, ms in times.items()))
+    phase_profile("svd fit", fit)
+    phase_profile("svd fleet fit (64 tenants)", fit_fleet)
+    say("svd", f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return {"ms": times, **out}
 
 
 # ---------------------------------------------------------------------------
@@ -2570,7 +2847,7 @@ def main() -> int:
                                              fused_shapes(cfg), FLEET_CHUNK)
         launches, card_fits = phase_main_path(cfg, xtr, xte, y_test)
         stream_launches, stream_fits = phase_streaming(cfg, x_train, x_test, y_test, xtr, xte)
-        phase_reference(cfg, x_train, x_test, y_test, {**card_fits, **stream_fits})
+        references = phase_reference(cfg, x_train, x_test, y_test, {**card_fits, **stream_fits})
         fleet_launches, devices = phase_fleet(cfg, fleet_data, fleet_data_d)
         slice_kernels = ("slice_kernel", "slice_reduce_kernel")
         phase_profile("one-shot fused fit + score", lambda: daef.reconstruction_error(
@@ -2589,6 +2866,8 @@ def main() -> int:
         phase_grad_agreement()
         lm_launches, lm_numbers = phase_lm()
         train_launches, lm_numbers["train"] = phase_train(card)
+        svd_numbers = phase_svd(cfg, xtr, xte, y_test, references, card_fits, fleet_data,
+                                fleet_data_d, devices)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2635,6 +2914,14 @@ def main() -> int:
         f"{b4_fit['bound_ms']:.4f} ms on FP32 cores ({b4_fit['bound_by']}), einsum yardstick "
         f"{b4_fit['library_ms']:.4f} ms, worst share of the bar "
         f"{max(r['bar_used'] for r in b4_rows):.4f}")
+    b5_rows = batched_rows["rolann_stats_acc_batched"]
+    b5_fit = _per_fit(b5_rows, len(fleet_valid), fleet_bound["acc"], ("m", "o"), fleet_valid)
+    say("kernel", f"rolann_stats_acc_batched per logistic-output chunked fleet fit "
+        f"({len(fleet_valid)} launches at {last}, slice route): {b5_fit['ms']:.4f} ms on CUDA "
+        f"events, {len(fleet_valid) * b5_rows[0]['device_us'] / 1e3:.4f} ms on the device "
+        f"(profiler), bound {b5_fit['bound_ms']:.4f} ms on FP32 cores ({b5_fit['bound_by']}), "
+        f"einsum yardstick {b5_fit['library_ms']:.4f} ms, share of the bar "
+        f"{b5_rows[0]['bar_used']:.4f}")
     b6_rows = batched_rows["rolann_fused_chunk_batched"]
     b6_fit = _per_fit(b6_rows, len(fleet_valid), fleet_bound["fused"], ("m_l", "m_c1"),
                       fleet_valid)
@@ -2685,12 +2972,11 @@ def main() -> int:
         {
             "name": "rolann_stats_acc_batched",
             "route": "cuda",
-            "source": source + "rolann_stats.cu",
+            "source": source + "rolann_stats_slice.cuh",
             "replaces": replaces + "231",
             "launches": fleet_launches["logsig"]["rolann_stats_acc_batched"],
             # One logsig-output chunked fleet fit: 4 launches at the last layer's shape.
-            **_per_fit(batched_rows["rolann_stats_acc_batched"], len(fleet_valid),
-                       fleet_bound["acc"], ("m", "o"), fleet_valid),
+            **b5_fit,
         },
         {
             "name": "rolann_fused_chunk_batched",
@@ -2738,6 +3024,7 @@ def main() -> int:
             **_per_launch(lm_rows["ssd_chunk"], "mamba2 prefill"),
         },
     ]
+    print(json.dumps({"svd": svd_numbers}))
     print(json.dumps({"lm": lm_numbers}))
     print(json.dumps({"per_shape": {"rolann_stats": rows, **fold_rows, **batched_rows,
                                     **lm_rows, "flash_attention_bwd": b8_rows}}))

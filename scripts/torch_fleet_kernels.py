@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Measure the port's slice-route statistics kernels (B1, B2, B4, B6) and
-B3's bits on one NVIDIA card.
+"""Measure the port's slice-route statistics kernels (B1, B2, B4, B5, B6)
+and B3's bits on one NVIDIA card.
 
     python3 scripts/torch_fleet_kernels.py profile      # the fits under the profiler
     python3 scripts/torch_fleet_kernels.py bits DIR     # B3 against DIR's sources
@@ -11,7 +11,8 @@ Run from the root of a checkout.  ``profile`` fits the one-tenant cell of
 one-shot (B1), streamed at 32,768-sample chunks (B3) and so with a
 logistic output layer on [0, 1] data (B2, and B3), then its fleet cell (64
 creditcard tenants of 3,998 samples) one-shot (B4), chunked at 1,024
-samples and streamed from host chunks of 1,024 (B6): each fit's host-clock
+samples and streamed from host chunks of 1,024 (B6), and chunked with a
+logistic output layer on [0, 1] data (B5, and B6): each fit's host-clock
 time (median of 5, ending in
 ``torch.cuda.synchronize()``), then one fit under ``torch.profiler`` with
 its trace written to ``build/traces/``, from which every kernel's launches,
@@ -29,8 +30,9 @@ M must be the same bits; both entry points are timed with CUDA events
 them, and the wrapper itself once.
 
 ``sweep`` times one launch of B6 at the fleet's four hidden-layer shapes
-(k = 64, 1,024 samples) and of B4 at its four (k = 64, 3,998 samples) with
-1, 2, 4, 8 and 16 slices per tenant, then of B1 at the one-shot creditcard
+(k = 64, 1,024 samples), of B4 at its four (k = 64, 3,998 samples) and of
+B5 at the logistic-output chunked fleet fit's (28, 29) (k = 64, 1,024
+samples) with 1, 2, 4, 8 and 16 slices per tenant, then of B1 at the one-shot creditcard
 fit's four (one tenant, 255,883 samples) and of B2 at the logistic-output
 streamed fit's (28, 29) (one tenant, 32,768 samples) with slices of 1, 2,
 4, 8, 16 and 32 steps of 64 samples; each beside the planner's choice.
@@ -146,6 +148,12 @@ def cmd_profile() -> None:
     profile_fit("streamed fleet fit", lambda: fleet._fit_fleet_stream(
         cfg, lambda: (xs[:, :, i:i + cs.FLEET_CHUNK] for i in range(0, n, cs.FLEET_CHUNK)),
         seeds=seeds))
+    # chip_smoke.py's B5 path: a logistic last layer on each tenant's data
+    # rescaled feature by feature into [0, 1]
+    lo, hi = xs.min(axis=2, keepdims=True), xs.max(axis=2, keepdims=True)
+    x01 = torch.as_tensor((xs - lo) / np.where(hi > lo, hi - lo, 1.0), device="cuda")
+    profile_fit("logistic-output chunked fleet fit", lambda: fleet._fit_fleet_chunked(
+        cfg_l, x01, chunk_samples=cs.FLEET_CHUNK, seeds=seeds))
 
 
 def _fused_args(m_l, m_c1, n, act, masked, seed):
@@ -256,12 +264,14 @@ def cmd_sweep() -> None:
                               ops._ARGS_FUSED_BATCHED, h.device, *args)
 
             _say_sweep(f"B6 k={k} ({m_l}, {m_c1}) n={n}", fn, slices, slice_len, plan)
-    for m, o in ((19, 15), (22, 18), (25, 21), (28, 24)):
-        n = 3_998
+    batched = [("B4", ops._FN_BATCHED, m, o, 3_998) for m, o in ((19, 15), (22, 18), (25, 21),
+                                                                (28, 24))]
+    batched.append(("B5", ops._FN_ACC_BATCHED, 28, 29, cs.FLEET_CHUNK))
+    for name, fn_name, m, o, n in batched:
         parts = [cs._stats_inputs(m, o, n, torch.float32, 90 + t) for t in range(k)]
         xa, fsq, fd = (torch.stack(p).contiguous() for p in zip(*parts))
-        g = torch.empty((k, o, m, m), device="cuda")
-        mv = torch.empty((k, o, m), device="cuda")
+        g = torch.zeros((k, o, m, m), device="cuda")
+        mv = torch.zeros((k, o, m), device="cuda")
         plan = ops.plan_batched_slices(k, n, sms)
         for per in sorted({1, 2, 4, 8, 16, plan[0]}):
             slice_len = -(-n // per // ops.FUSED_STEP) * ops.FUSED_STEP
@@ -270,10 +280,9 @@ def cmd_sweep() -> None:
             args = (xa.data_ptr(), fsq.data_ptr(), fd.data_ptr(), ws_g, ws_m, g.data_ptr(),
                     mv.data_ptr(), k, m, n, o, slices, slice_len)
             def fn():
-                _build.launch("rolann_stats", ops._FN_BATCHED, ops._ARGS_BATCHED, xa.device,
-                              *args)
+                _build.launch("rolann_stats", fn_name, ops._ARGS_BATCHED, xa.device, *args)
 
-            _say_sweep(f"B4 k={k} ({m}, {o}) n={n}", fn, slices, slice_len, plan)
+            _say_sweep(f"{name} k={k} ({m}, {o}) n={n}", fn, slices, slice_len, plan)
     one_tenant = [("B1", ops._FN, m, o, 255_883) for m, o in ((19, 15), (22, 18), (25, 21),
                                                               (28, 24))]
     one_tenant.append(("B2", ops._FN_ACC, 28, 29, cs.CHUNK_SAMPLES))

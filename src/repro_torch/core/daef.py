@@ -5,7 +5,7 @@ Counterpart of ``repro/core/daef.py``: the one-shot fit, the streaming fits
 An asymmetric deep autoencoder:
 
   * encoder: ONE layer whose weights are the truncated left singular vectors
-    of the data matrix, from a distributed SVD (gram route) — no bias;
+    of the data matrix, from a distributed SVD — no bias;
   * decoder: hidden layers, each trained in closed form by the auxiliary
     ELM-AE + ROLANN procedure (``elm_ae.train_layer``);
   * last layer: ROLANN directly against the inputs, linear activation.
@@ -13,9 +13,15 @@ An asymmetric deep autoencoder:
 Everything is closed-form — no gradients, no epochs.  Data is
 ``[features m0, samples n]``.
 
+``method`` picks the knowledge: "gram" (the fast path: Gram sums, the
+encoder by eigh of the summed Grams) or "svd" (the paper's: factors from
+SVDs, the encoder by local SVDs merged by Eq. 2).  The streaming fits take
+"gram" only, as the reference's do.
+
 Federated aggregation (paper §4.3): :func:`merge_models` merges two
 models' exchanged knowledge (encoder factors by Eq. 2, decoder (G, M) by
-sum) and re-solves the weights; :func:`partial_fit` absorbs a new block.
+sum or factors by Eq. 8-9) and re-solves the weights; :func:`partial_fit`
+absorbs a new block.
 
 Entry points take ``device=``: ``None`` means the card (see
 :mod:`repro_torch.device`).
@@ -136,7 +142,6 @@ def fit(
     m0 = x.shape[0]
     if m0 != config.layer_sizes[0]:
         raise ValueError(f"input dim {m0} != layer_sizes[0] {config.layer_sizes[0]}")
-    _require_ported(config)
     config = config.resolved()
     return _fit_core(
         config, x, config.layer_keys(), config.lam_hidden, config.lam_last,
@@ -159,7 +164,7 @@ def _fit_core(
 
     # ---- encoder: distributed truncated SVD (lines 5-12) ----
     parts = _split(x, n_partitions)
-    enc = dsvd.dsvd(parts, rank=min(m0, n), method="gram")
+    enc = dsvd.dsvd(parts, rank=min(m0, n), method=_dsvd_method(config))
     w_enc = enc.u[:, : config.latent_dim]
     h = f_hl.fn(w_enc.T @ x)  # [m1, n]
 
@@ -223,15 +228,6 @@ def _fit_core(
 # The reference's `lax.scan` and donated jitted steps become Python loops
 # whose steps update the running statistics in place.
 # ---------------------------------------------------------------------------
-
-def _require_ported(config: DAEFConfig) -> None:
-    """Fits and merges of ``method="svd"`` models wait for the svd route."""
-    if config.method != "gram":
-        raise NotImplementedError(
-            f"method={config.method!r} is not ported yet (ROADMAP queue A "
-            "items 3-5 port the svd route); use method='gram'"
-        )
-
 
 def _require_gram(config: DAEFConfig, what: str) -> None:
     if config.method != "gram":
@@ -496,7 +492,7 @@ def reconstruction_error(
 
 
 # ---------------------------------------------------------------------------
-# Federated aggregation / incremental learning (gram method)
+# Federated aggregation / incremental learning
 # ---------------------------------------------------------------------------
 
 def merge_models(config: DAEFConfig, a: DAEFModel, b: DAEFModel, x_stats=None) -> DAEFModel:
@@ -525,16 +521,16 @@ def merge_knowledge(
     config: DAEFConfig, a: DAEFModel, b: DAEFModel
 ) -> tuple[dsvd.SvdFactors, tuple, torch.Tensor]:
     """Merge only the exchanged federated state of two models: encoder
-    factors (Eq. 2), per-layer (G, M) sums and the train-error pool.  The
-    weights are re-solved separately (:func:`_model_from_knowledge`), so a
-    tree reduction pays one solve at its root.  Leaves may carry a leading
-    tenant axis (a fleet's): the factors merge per tenant and the train
-    errors pool along the sample axis."""
-    _require_ported(config)
+    factors (Eq. 2), per-layer ROLANN knowledge ((G, M) sums, or factors by
+    Eq. 8-9) and the train-error pool.  The weights are re-solved separately
+    (:func:`_model_from_knowledge`), so a tree reduction pays one solve at
+    its root.  Leaves may carry a leading tenant axis (a fleet's): the
+    factors merge per tenant and the train errors pool along the sample
+    axis."""
+    merge = rolann.merge_stats if config.method == "gram" else rolann.merge_factors
     enc = dsvd.merge_pair(a.encoder_factors, b.encoder_factors)
     knowledge = tuple(
-        rolann.merge_stats(ka, kb)
-        for ka, kb in zip(a.layer_knowledge, b.layer_knowledge, strict=True)
+        merge(ka, kb) for ka, kb in zip(a.layer_knowledge, b.layer_knowledge, strict=True)
     )
     errors = torch.cat([a.train_errors, b.train_errors], dim=-1)
     return enc, knowledge, errors
@@ -598,3 +594,7 @@ def _split(x: torch.Tensor, p: int) -> list[torch.Tensor]:
     n = x.shape[-1]
     bounds = [round(i * n / p) for i in range(p + 1)]
     return [x[..., bounds[i] : bounds[i + 1]] for i in range(p)]
+
+
+def _dsvd_method(config: DAEFConfig) -> str:
+    return "gram" if config.method == "gram" else "svd"

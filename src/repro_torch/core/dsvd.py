@@ -10,11 +10,18 @@ Grams followed by one ``eigh`` gives the merged factors).
 :func:`masked_gram` is the streaming fit's per-chunk Gram.  The merges of
 the paper's Eq. 2 (:func:`local_svd`, :func:`merge_factors`,
 :func:`merge_pair`, :func:`pad_rank`) combine two models' encoders, gram
-method included.  The DAEF fits pass ``method="gram"``; their svd route
-waits for ROADMAP queue A items 4 and 5.
+method included.  The DAEF fits pass their config's method: "gram" for
+the gram method, "svd" (local SVDs merged by Eq. 2) for the svd method.
 
 Factors may carry leading batch axes (a tenant fleet's [K]): u [..., m, r],
 s [..., r].  Every function here works on the trailing axes.
+
+The SVDs keep only U and S (:func:`left_svd`): the SVD of the small R of
+a QR of the tall transpose, so the right factors of an [m, n] matrix are
+never formed.  On the card that R comes from a tree of QRs of row blocks
+(TSQR): PyTorch factors a batch of tall matrices there one by one, and a
+batch of short ones in one call.  On the host LAPACK's blocked QR of the
+whole matrix is faster than a batch of small ones.
 """
 from __future__ import annotations
 
@@ -22,6 +29,42 @@ from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
+
+
+# Rows of each block of the tree of QRs on the card: a batch of QRs of at
+# most 256 rows is one batched call there.
+QR_BLOCK_ROWS = 256
+
+
+def _tall_r(t: torch.Tensor, rows: int | None) -> torch.Tensor:
+    """R [..., min(n, m), m] of the reduced QR of t [..., n, m].  With
+    ``rows``, while the matrices are taller than ``rows`` and their blocks'
+    stacked R's are shorter than they are, their row blocks are factored in
+    one batch and the stacked R's factored again.  ``[A_1; A_2] =
+    diag(Q_1, Q_2) [R_1; R_2]`` makes R of the stack an R of the whole,
+    TSQR is backward stable as Householder QR is, and zero rows padding the
+    last block change no R."""
+    n, m = t.shape[-2:]
+    while rows is not None and n > rows:
+        blocks = -(-n // rows)
+        if blocks * m >= n:
+            break
+        t = F.pad(t, (0, 0, 0, blocks * rows - n))
+        r = torch.linalg.qr(t.reshape(*t.shape[:-2], blocks, rows, m), mode="r").R
+        t = r.reshape(*r.shape[:-3], blocks * m, m)
+        n = blocks * m
+    return torch.linalg.qr(t, mode="r").R
+
+
+def left_svd(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """U [..., m, r] and S [..., r] of the SVD of ``a`` [..., m, n], r =
+    min(m, n), S descending.  With ``a``ᵀ = Q R (reduced, R [..., r, m]),
+    ``a = Rᵀ Qᵀ`` and Q has orthonormal columns, so ``a`` has the left
+    factors and singular values of Rᵀ [..., m, r]; R by the tree of QRs on
+    the card, by one QR on the host."""
+    r = _tall_r(a.transpose(-1, -2), QR_BLOCK_ROWS if a.is_cuda else None)
+    u, s, _ = torch.linalg.svd(r.transpose(-1, -2), full_matrices=False)
+    return u, s
 
 
 class SvdFactors(NamedTuple):
@@ -44,7 +87,7 @@ def local_svd(x: torch.Tensor, rank: int | None = None) -> SvdFactors:
     """Local SVD of one partition x [..., m, n_p]; keep at most ``rank``
     factors.  For the merge to be exact, locals keep full rank (the
     default) and the merged factors are truncated at the end."""
-    u, s, _ = torch.linalg.svd(x, full_matrices=False)
+    u, s = left_svd(x)
     if rank is not None:
         u, s = u[..., :rank], s[..., :rank]
     return SvdFactors(u=canonicalize_signs(u), s=s)
@@ -54,7 +97,7 @@ def merge_factors(parts: Sequence[SvdFactors]) -> SvdFactors:
     """The paper's Eq. 2: SVD of the concatenated U^p S^p blocks, keeping
     at most m factors."""
     cat = torch.cat([p.u * p.s[..., None, :] for p in parts], dim=-1)
-    u, s, _ = torch.linalg.svd(cat, full_matrices=False)
+    u, s = left_svd(cat)
     m = cat.shape[-2]
     return SvdFactors(u=canonicalize_signs(u[..., :m]), s=s[..., :m])
 

@@ -14,7 +14,9 @@ auxiliary random bias).
 
 The streaming fit trains the same layer as a fold: chunk by chunk
 :func:`accumulate_layer_stats` adds the layer's ROLANN statistics in place,
-and :func:`layer_from_knowledge` solves the weights from their sum.
+and :func:`layer_from_knowledge` solves the weights from their sum.  A
+federated node computes only its partition's mergeable knowledge
+(:func:`layer_knowledge_from_partition`), in either form.
 
 A tenant fleet trains one layer of every tenant at once: the ``_batched``
 functions take a leading tenant axis [K] on every tensor, one key per tenant
@@ -29,13 +31,14 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import activations, initializers, rolann, stats_backend, threefry
+from repro_torch.device import resolve_device
 
 
 class LayerResult(NamedTuple):
     w: torch.Tensor            # [m_l, m_{l+1}] decoder weights for layer l+1
     b: torch.Tensor            # [m_{l+1}] decoder bias
     h: torch.Tensor            # [m_{l+1}, n] layer output on the training data
-    knowledge: rolann.RolannStats  # federated state
+    knowledge: rolann.RolannStats | rolann.RolannFactors  # federated state
 
 
 def stage1(
@@ -44,18 +47,20 @@ def stage1(
     m_out: int,
     init: str,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fixed random stage-1 parameters (shared across federated nodes),
-    drawn on the host with the reference's bits, then moved to ``device``.
+    drawn on the host with the reference's bits, then moved to ``device``
+    (``None``: the card, as :func:`repro_torch.device.resolve_device` says).
 
     The draw is a pure function of its arguments and costs a few hundred
     small host ops, so it is kept (per device, for the last 64 argument
     sets): a refit with the same seed, as every federated round is, reuses
     it.  The caller gets its own copy.
     """
+    dev = resolve_device(device)
     key_words = tuple(int(v) for v in key.reshape(2).tolist())
-    w_c1, b_c1 = _stage1_cached(key_words, m_in, m_out, init, dtype, torch.device(device))
+    w_c1, b_c1 = _stage1_cached(key_words, m_in, m_out, init, dtype, dev)
     return w_c1.clone(), b_c1.clone()
 
 
@@ -80,7 +85,7 @@ def stage1_batched(
     m_out: int,
     init: str,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`stage1` for every tenant of a fleet layer in one draw:
     ``keys`` [K, 2] -> W_c1 [K, m_in, m_out], b_c1 [K, m_out], the values
@@ -91,9 +96,9 @@ def stage1_batched(
     init, dtype, device), for the last 16 such sets: a refit of the same
     fleet reuses them.  The caller gets its own copy.
     """
+    dev = resolve_device(device)
     key_words = tuple(tuple(int(v) for v in k) for k in keys.reshape(-1, 2).tolist())
-    w_c1, b_c1 = _stage1_batched_cached(key_words, m_in, m_out, init, dtype,
-                                        torch.device(device))
+    w_c1, b_c1 = _stage1_batched_cached(key_words, m_in, m_out, init, dtype, dev)
     return w_c1.clone(), b_c1.clone()
 
 
@@ -139,6 +144,33 @@ def train_layer(
     return LayerResult(w=w_next, b=b_next, h=h_next, knowledge=knowledge)
 
 
+def layer_knowledge_from_partition(
+    key: torch.Tensor,
+    h_l: torch.Tensor,
+    m_next: int,
+    act: activations.Activation,
+    *,
+    init: str = "xavier",
+    method: str = "gram",
+    factorization: str = "direct_svd",
+    backend: str | None = None,
+) -> rolann.RolannFactors | rolann.RolannStats:
+    """Federated building block: ONLY the mergeable ROLANN knowledge of this
+    partition ``h_l`` [m_l, n] for the decoder layer, on its device (the
+    stage-1 draw comes from the shared key, so all nodes agree).  ``method``
+    "gram" gives (G, M); otherwise factors, by the SVD of Xa F
+    (``factorization="direct_svd"``) or by eigh of the local Gram
+    (``"gram_eigh"``, the B1 kernel on the fused backend)."""
+    m_l = h_l.shape[0]
+    w_c1, b_c1 = stage1(key, m_l, m_next, init, h_l.dtype, h_l.device)
+    h_c1 = act.fn(w_c1.T @ h_l + b_c1[:, None])
+    if method == "gram":
+        return rolann.compute_stats(h_c1, h_l, act, backend=backend)
+    if factorization == "gram_eigh":
+        return rolann.compute_factors_via_gram(h_c1, h_l, act, backend=backend)
+    return rolann.compute_factors(h_c1, h_l, act)
+
+
 def accumulate_layer_stats(
     stats: rolann.RolannStats,
     w_c1: torch.Tensor,
@@ -173,7 +205,7 @@ def accumulate_layer_stats(
 
 
 def layer_from_knowledge(
-    knowledge: rolann.RolannStats,
+    knowledge: rolann.RolannStats | rolann.RolannFactors,
     key: torch.Tensor,
     m_l: int,
     m_next: int,
@@ -208,17 +240,24 @@ def train_layer_batched(
     *,
     init: str = "xavier",
     aux_bias: str = "zero",
+    method: str = "gram",
     backend: str | None = None,
     gram_solver: str = "chol",
 ) -> LayerResult:
     """:func:`train_layer` for every tenant of a fleet: keys [K, 2], h_l
     [K, m_l, n], lam scalar or [K] -> w [K, m_l, m_next], b [K, m_next],
     h [K, m_next, n] and knowledge with a leading [K].  One stage-1 draw,
-    one statistics call (B4 on the fused backend) and one solve."""
+    one knowledge call (the gram method's is B4 on the fused backend; the
+    svd method's batched QRs and SVDs) and one solve."""
     m_l = h_l.shape[1]
     w_c1, b_c1 = stage1_batched(keys, m_l, m_next, init, h_l.dtype, h_l.device)
     h_c1 = act.fn(w_c1.transpose(-1, -2) @ h_l + b_c1[..., None])  # [K, m_next, n]
-    knowledge = rolann.compute_stats_batched(h_c1, h_l, act, backend=backend)
+    if method == "gram":
+        knowledge = rolann.compute_stats_batched(h_c1, h_l, act, backend=backend)
+    elif method == "svd":
+        knowledge = rolann.compute_factors_batched(h_c1, h_l, act)
+    else:
+        raise ValueError(f"unknown ROLANN method {method!r}")
     w_c2, _ = rolann.solve(knowledge, lam, gram_solver=gram_solver,
                            shared_f=act.name == "linear")
     w_next = w_c2.transpose(-1, -2)  # [K, m_l, m_next]
@@ -257,7 +296,7 @@ def accumulate_layer_stats_batched(
 
 
 def layer_from_knowledge_batched(
-    knowledge: rolann.RolannStats,
+    knowledge: rolann.RolannStats | rolann.RolannFactors,
     keys: torch.Tensor,
     m_l: int,
     m_next: int,

@@ -6,8 +6,9 @@ DAEF's closed-form training is cheap enough to run one model *per tenant*
 Python loop over ``daef.fit`` costs K times the host dispatch of one fit;
 here every step of the fit, the merge and the scoring runs over a leading
 tenant axis [K] at once: one stage-1 draw per layer, one statistics launch
-per layer (the B4 kernel on the fused backend), one batched Cholesky solve,
-one batched quantile.
+per layer (the B4 kernel on the fused backend) and one batched Cholesky
+solve for the gram method, batched QRs and SVDs for the svd method, one
+batched quantile.
 
 The reference ``vmap``s its one-tenant cores and reaches the batched
 kernels through ``custom_vmap`` rules; the port has no vmap for its ctypes
@@ -144,8 +145,9 @@ def _fit_core(config: daef.DAEFConfig, xs: torch.Tensor, keys: torch.Tensor, lam
     m0, n = xs.shape[1:]
     f_hl, f_ll = daef._acts(config)
 
-    # ---- encoder: per-tenant Gram of the partitions, one batched eigh ----
-    enc = dsvd.dsvd(daef._split(xs, n_partitions), rank=min(m0, n), method="gram")
+    # ---- encoder: per-tenant distributed SVD (gram: one batched eigh) ----
+    enc = dsvd.dsvd(daef._split(xs, n_partitions), rank=min(m0, n),
+                    method=daef._dsvd_method(config))
     w_enc = enc.u[..., : config.latent_dim]
     h = f_hl.fn(w_enc.transpose(-1, -2) @ xs)  # [K, m1, n]
 
@@ -153,12 +155,12 @@ def _fit_core(config: daef.DAEFConfig, xs: torch.Tensor, keys: torch.Tensor, lam
     biases: list[torch.Tensor] = []
     knowledge: list = []
 
-    # ---- decoder hidden layers: one draw, one stats launch, one solve ----
+    # ---- decoder hidden layers: one draw, one knowledge call, one solve ----
     sizes = config.layer_sizes
     for li in range(2, len(sizes) - 1):
         res = elm_ae.train_layer_batched(
             keys[:, li], h, sizes[li], lam_hidden, f_hl, init=config.init,
-            aux_bias=config.aux_bias, backend=config.stats_backend,
+            aux_bias=config.aux_bias, method=config.method, backend=config.stats_backend,
             gram_solver=config.gram_solver,
         )
         weights.append(res.w)
@@ -167,7 +169,12 @@ def _fit_core(config: daef.DAEFConfig, xs: torch.Tensor, keys: torch.Tensor, lam
         h = res.h
 
     # ---- last layer: ROLANN against the inputs ----
-    k_ll = rolann.compute_stats_batched(h, xs, f_ll, backend=config.stats_backend)
+    if config.method == "gram":
+        k_ll = rolann.compute_stats_batched(h, xs, f_ll, backend=config.stats_backend)
+    elif config.method == "svd":
+        k_ll = rolann.compute_factors_batched(h, xs, f_ll)
+    else:
+        raise ValueError(f"unknown ROLANN method {config.method!r}")
     w_ll, b_ll = rolann.solve(k_ll, lam_last, gram_solver=config.gram_solver,
                               shared_f=f_ll.name == "linear")
     weights.append(w_ll)
@@ -202,7 +209,6 @@ def _fit_fleet(
     dev = resolve_device(device)
     config = config.resolved()
     seeds, lam_hidden, lam_last = _prepare_fit(config, xs, seeds, lam_hidden, lam_last, dev)
-    daef._require_ported(config)
     xs = as_tensor(xs, dev)
     model = _fit_core(config, xs, _tenant_keys(config, seeds), lam_hidden, lam_last,
                       n_partitions=n_partitions)

@@ -1,14 +1,20 @@
 """ROLANN — Regularized One-Layer Neural Network (Fontenla-Romero et al. 2021).
 
-Counterpart of ``repro/core/rolann.py``, Gram form.  Closed-form training of
-a one-layer network ``y = f(W^T x + b)`` by minimizing the MSE measured
+Counterpart of ``repro/core/rolann.py``.  Closed-form training of a
+one-layer network ``y = f(W^T x + b)`` by minimizing the MSE measured
 *before* the activation; for each output neuron j
 
     (G_j + lam I) w_j = M_j,   G_j = Xa F_j² Xaᵀ,   M_j = Xa (f'² ∘ d̄_j)
 
-with ``Xa`` the input augmented with a row of ones (bias).  ``G = U S² Uᵀ``
-links this to the paper's factor form, which :func:`stats_to_factors` gives
-for the eigh solve.
+with ``Xa`` the input augmented with a row of ones (bias).  Two
+representations of the same knowledge:
+
+* **Gram** ``(G, M)`` (:class:`RolannStats`): merging is a plain sum;
+* **Factors** ``(U, S, M)`` (:class:`RolannFactors`), the paper's:
+  ``U, S = SVD(Xa F_j)`` (:func:`compute_factors`), merged by the SVD of
+  ``[U_a S_a | U_b S_b]`` (Eq. 8, :func:`merge_factors`) plus ``M_a + M_b``
+  (Eq. 9).  ``G = U S² Uᵀ`` links the two (:func:`stats_to_factors`,
+  :func:`factors_to_stats`); only ``U S² Uᵀ`` and ``M`` enter the weights.
 
 Data matrices are ``[features, samples]``; targets ``[outputs, samples]``.
 
@@ -18,8 +24,13 @@ contributions.  A tenant fleet computes and folds every tenant's statistics
 at once through :func:`compute_stats_batched` and
 :func:`accumulate_stats_batched` (leading tenant axis [K] on every tensor,
 ``init_stats(tenants=K)``), and :func:`solve` takes the batch with one
-lambda per tenant.  Waiting for ROADMAP queue A item 4: ``compute_factors``,
-``factors_to_stats``, the factor merges and ``mask_knowledge``.
+lambda per tenant.  The factor functions work on leading batch axes too (a
+fleet's [K]): :func:`compute_factors_batched` factors every tenant's layer,
+and the merges and :func:`factors_to_stats` act on the trailing axes.
+
+The SVDs keep only U and S (``dsvd.left_svd``: the SVD of the R of a QR
+of the tall transpose), so the right factors of an [m, n] matrix with n
+in the hundreds of thousands are never formed.
 """
 from __future__ import annotations
 
@@ -27,7 +38,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import activations, stats_backend
+from repro_torch.core import activations, dsvd, stats_backend
 from repro_torch.device import resolve_device
 
 
@@ -180,6 +191,16 @@ def compute_stats_batched(
     return RolannStats(g=g, m=m_vec)
 
 
+def compute_factors_batched(
+    x: torch.Tensor, d: torch.Tensor, act: activations.Activation
+) -> RolannFactors:
+    """:func:`compute_factors` for every tenant at once: x [K, m, n], d
+    [K, out, n] -> u [K, out, m+1, r], s [K, out, r], m [K, out, m+1] (no out
+    axis on u and s for a linear activation); batched QRs and SVDs."""
+    act = activations.get(act.name, invertible_required=True)
+    return _factors(_augment_batched(x), d, act)
+
+
 def accumulate_stats_batched(
     stats: RolannStats,
     x: torch.Tensor,
@@ -211,9 +232,91 @@ def accumulate_stats_batched(
     return stats
 
 
+def _factors(xa: torch.Tensor, d: torch.Tensor, act: activations.Activation) -> RolannFactors:
+    """Factor-form statistics of augmented inputs xa [..., m, n] and targets
+    d [..., out, n] (leading axes batched): per output j the SVD of
+    ``Xa diag(f'_j)``, one shared SVD of ``Xa`` for a linear activation."""
+    dbar, fp = _targets(d, act)
+    m_vec = torch.einsum("...in,...on->...oi", xa, fp * fp * dbar)
+    if act.name == "linear":
+        u, s = dsvd.left_svd(xa)
+    else:
+        u, s = dsvd.left_svd(xa.unsqueeze(-3) * fp.unsqueeze(-2))  # [..., out, m, n]
+    return RolannFactors(u=u, s=s, m=m_vec)
+
+
+def compute_factors(
+    x: torch.Tensor, d: torch.Tensor, act: activations.Activation
+) -> RolannFactors:
+    """Paper-faithful statistics via the SVD of Xa F (Eq. 6-7) for inputs
+    x [m, n] and targets d [out, n]: u [out, m+1, r], s [out, r] (no out
+    axis for a linear activation, whose F is shared), m [out, m+1], with
+    r = min(m+1, n)."""
+    act = activations.get(act.name, invertible_required=True)
+    return _factors(_augment(x), d, act)
+
+
+def compute_factors_via_gram(
+    x: torch.Tensor, d: torch.Tensor, act: activations.Activation, *,
+    backend: str | None = None,
+) -> RolannFactors:
+    """Paper-protocol factors (U, S, M) from the local Gram by eigh: the
+    same U S² Uᵀ as :func:`compute_factors`, with no [m, n_local] SVD.  On
+    the fused backend the Gram is the B1 kernel's."""
+    return stats_to_factors(compute_stats(x, d, act, backend=backend))
+
+
+def factors_to_stats(f: RolannFactors) -> RolannStats:
+    """Gram form of factor knowledge: G = U S² Uᵀ (leading axes batched)."""
+    g = (f.u * (f.s * f.s).unsqueeze(-2)) @ f.u.transpose(-1, -2)
+    return RolannStats(g=g, m=f.m)
+
+
 def merge_stats(a: RolannStats, b: RolannStats) -> RolannStats:
     """Gram-form merge: a plain sum (new tensors; ``a`` and ``b`` are kept)."""
     return RolannStats(g=a.g + b.g, m=a.m + b.m)
+
+
+def mask_knowledge(knowledge, w):
+    """Scale a knowledge contribution by ``w`` (in {0, 1}).
+
+    ``w = 0`` turns the contribution into the merge identity of either
+    representation: zeroed (G, M) adds nothing to a Gram sum, and zeroed
+    singular values make the factor columns vanish from the concatenated
+    SVD (Eq. 8) while M drops out of Eq. 9.  ``w`` broadcasts from the left:
+    a scalar masks one contribution, a leading [S] vector a stacked batch of
+    S contributions.
+    """
+
+    def scale(leaf):
+        wt = torch.as_tensor(w, dtype=leaf.dtype, device=leaf.device)
+        return leaf * wt.reshape(wt.shape + (1,) * (leaf.ndim - wt.ndim))
+
+    if isinstance(knowledge, RolannStats):
+        return RolannStats(g=scale(knowledge.g), m=scale(knowledge.m))
+    return RolannFactors(u=knowledge.u, s=scale(knowledge.s), m=scale(knowledge.m))
+
+
+def merge_factors(a: RolannFactors, b: RolannFactors) -> RolannFactors:
+    """The paper's Eq. 8-9: the SVD of the concatenated weighted factors
+    ``[U_a S_a | U_b S_b]``, truncated to rank m (the row dimension, exact:
+    the concatenation has rank <= m), and ``M_a + M_b``.  Leading axes (the
+    outputs, a fleet's tenants) are batched."""
+    return merge_factors_list([a, b])
+
+
+def merge_factors_list(items: list[RolannFactors]) -> RolannFactors:
+    """Merge P partitions as the paper does at the aggregator node: one SVD
+    of the whole concatenation [U^1 S^1 | ... | U^P S^P]."""
+    if not items:
+        raise ValueError("empty factor list")
+    if len({f.shared_f for f in items}) != 1:
+        raise ValueError("cannot merge shared-F with per-output factors")
+    cat = torch.cat([f.u * f.s.unsqueeze(-2) for f in items], dim=-1)
+    u, s = dsvd.left_svd(cat)
+    m_dim = cat.shape[-2]
+    m = sum(f.m for f in items[1:]) + items[0].m
+    return RolannFactors(u=u[..., :m_dim], s=s[..., :m_dim], m=m)
 
 
 def stats_to_factors(stats: RolannStats) -> RolannFactors:
@@ -322,20 +425,19 @@ def fit(
     method: str = "gram",
     backend: str | None = None,
     gram_solver: str = "chol",
-) -> tuple[torch.Tensor, torch.Tensor, RolannStats]:
+) -> tuple[torch.Tensor, torch.Tensor, RolannStats | RolannFactors]:
     """One-shot ROLANN fit.  Returns (W, b, knowledge).
 
-    method: "gram" (sufficient statistics summed, then solved).  The
-    paper-faithful "svd" method is not ported yet and raises.
+    method: "gram" (sufficient statistics, solved by ``gram_solver``) or
+    "svd" (the paper's factors, solved by the factor solve).
+    backend: Gram-stats producer for the "gram" method (stats_backend).
     """
-    if method == "svd":
-        raise NotImplementedError(
-            "rolann.fit(method='svd') is not ported yet (ROADMAP queue A "
-            "item 4); use method='gram'"
-        )
-    if method != "gram":
+    if method == "gram":
+        knowledge: RolannStats | RolannFactors = compute_stats(x, d, act, backend=backend)
+    elif method == "svd":
+        knowledge = compute_factors(x, d, act)
+    else:
         raise ValueError(f"unknown ROLANN method {method!r}")
-    knowledge = compute_stats(x, d, act, backend=backend)
     w, b = solve(knowledge, lam, gram_solver=gram_solver)
     return w, b, knowledge
 

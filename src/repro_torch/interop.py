@@ -2,12 +2,14 @@
 the port as numpy leaves.
 
 A model crosses as the list of its leaves in ``jax.tree.flatten`` order of
-the reference ``DAEFModel`` (gram method):
+the reference ``DAEFModel``:
 
     weights[0..L-1], biases[0..L-2], encoder_factors.u, encoder_factors.s,
-    then (g, m) of each layer's knowledge, then train_errors
+    then each layer's knowledge, then train_errors
 
-with ``L = len(config.layer_sizes) - 1``.  A fleet crosses the same way as
+with ``L = len(config.layer_sizes) - 1``; a layer's knowledge is (g, m)
+for the gram method and (u, s, m) for the svd method (``config.method``
+says which).  A fleet crosses the same way as
 the leaves of ``jax.tree.flatten(DAEFFleet)``: the model's leaves, each with
 a leading [K], then ``seeds`` (int32), ``lam_hidden`` and ``lam_last``.
 Neither side needs the other's framework: the JAX side flattens with
@@ -44,18 +46,18 @@ from repro_torch.models import rglru
 from repro_torch.optim import AdamState
 
 
+def _knowledge_type(config: DAEFConfig):
+    return rolann.RolannStats if config.method == "gram" else rolann.RolannFactors
+
+
 def _n_leaves(config: DAEFConfig) -> int:
     n_layers = len(config.layer_sizes) - 1
-    return n_layers + (n_layers - 1) + 2 + 2 * (n_layers - 1) + 1
+    per_layer = len(_knowledge_type(config)._fields)
+    return n_layers + (n_layers - 1) + 2 + per_layer * (n_layers - 1) + 1
 
 
 def model_from_numpy(config: DAEFConfig, leaves, *, device=None) -> DAEFModel:
     """The port's ``DAEFModel`` on ``device`` from reference leaves."""
-    if config.method != "gram":
-        raise NotImplementedError(
-            "only gram-method models cross so far (factor knowledge waits "
-            "for ROADMAP queue A item 4)"
-        )
     leaves = list(leaves)
     if len(leaves) != _n_leaves(config):
         raise ValueError(
@@ -68,8 +70,9 @@ def model_from_numpy(config: DAEFConfig, leaves, *, device=None) -> DAEFModel:
     weights = tuple(next(it) for _ in range(n_layers))
     biases = tuple(next(it) for _ in range(n_layers - 1))
     enc = dsvd.SvdFactors(u=next(it), s=next(it))
+    kind = _knowledge_type(config)
     knowledge = tuple(
-        rolann.RolannStats(g=next(it), m=next(it)) for _ in range(n_layers - 1)
+        kind(*(next(it) for _ in kind._fields)) for _ in range(n_layers - 1)
     )
     return DAEFModel(weights=weights, biases=biases, encoder_factors=enc,
                      layer_knowledge=knowledge, train_errors=next(it))

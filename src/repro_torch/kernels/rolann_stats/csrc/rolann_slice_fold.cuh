@@ -1,6 +1,6 @@
 // The fold of the block-per-sample-slice statistics kernels on Hopper
 // (sm_90a), FP32 CUDA cores, shared by B3 and B6 (rolann_fused_slice.cuh)
-// and B4 (rolann_stats_slice.cuh).  Each of those kernels stages one step of
+// and B1, B2, B4 and B5 (rolann_stats_slice.cuh).  Each of those kernels stages one step of
 // kStep = 64 samples in shared memory, per step:
 //
 //     s_x [kStep][kLdX]   xa, sample-major (rows past ma are zeros)
@@ -17,7 +17,7 @@
 // (16 + 1 per output).  `write_partials` stores a slice's sums to the
 // workspace: G's upper triangle packed by rows, and M.  Two reductions sum
 // a launch's partials in a fixed order: `few_slice_reduce_kernel`, a
-// thread per entry, for a few slices a tenant (B4, B6), and
+// thread per entry, for a few slices a tenant (B4, B5, B6), and
 // `slice_reduce_kernel`, a block per row, for one tenant's hundreds of
 // slices (B1, B2, B3).  Each writes its sum from zero or adds it into the
 // running value (kAccumulate).
@@ -141,7 +141,7 @@ __device__ __forceinline__ void write_partials(const Fold<kOuts>& f, float* __re
 // M row, summing its slices in order; with kAccumulate from the entry's
 // running value, else from zero (the output is written whole: no memset).
 // (i, j) and (j, i) get the same sum, so G is exactly symmetric (a running
-// G stays so).  For launches of a few slices a tenant (B4, B6): a thread
+// G stays so).  For launches of a few slices a tenant (B4, B5, B6): a thread
 // walks its slices' coalesced partials itself.
 template <bool kAccumulate>
 __global__ void __launch_bounds__(256)

@@ -39,14 +39,14 @@
 //     the chunk's samples; the groups sum in a fixed order at the end of the
 //     slice, and the block writes its partial G tile (entries i <= j) and,
 //     on diagonal tiles, its partial M rows to a workspace.
-//   * With m <= 28 (B5's layers; B1, B2 and B4 with more than 32 outputs)
-//     G is one tile whose upper triangle is at most 28 pieces: a group is
+//   * With m <= 28 (B1, B2, B4 and B5 with more than 32 outputs) G is one
+//     tile whose upper triangle is at most 28 pieces: a group is
 //     ONE warp, each lane one piece of the triangle, and 8 groups share a
 //     chunk.  Otherwise a group is two warps covering all 64 pieces of any
 //     tile.
 //   * `reduce_kernel` (rolann_common.cuh) sums the partials over the slices
 //     in slice order and mirrors the upper triangle into the lower one, so G
-//     is exactly symmetric.  For B2 it starts each entry's sum from the
+//     is exactly symmetric.  For B2 and B5 it starts each entry's sum from the
 //     running accumulator: one read-modify-write per entry, where the TPU
 //     kernel aliased the accumulators onto its outputs.  A symmetric running
 //     G stays exactly symmetric.
@@ -66,15 +66,15 @@
 // padded in memory.
 //
 // Three routes, chosen by shape (a rule between hand-written kernels, not
-// a fallback): B1, B2 and B4 with m <= kSmallM and o <= 32 run the block
+// a fallback): all four entries with m <= kSmallM and o <= 32 run the block
 // per (tenant, sample slice) of rolann_stats_slice.cuh, which stages each
 // step's xa once for all outputs: every layer of the one-shot creditcard
-// fit (B1) and of the fleet fit (B4), and the logistic-output streamed
-// fit's last layer (B2); B1 for one tenant with m > kSmallM runs on the
-// tensor cores (3xTF32 wgmma, rolann_stats_sm90.cuh), the DAEF head's shape
-// among them; B5, and every other shape, run `partial_kernel` above on the
-// FP32 cores (B5 keeps it until its own redesign).  ops.py plans the slices
-// of each route by the same rule (`stats_slice_route`,
+// fit (B1) and of the fleet fit (B4), and the last layer of the
+// logistic-output streamed fit (B2) and chunked fleet fit (B5); B1 for one
+// tenant with m > kSmallM runs on the tensor cores (3xTF32 wgmma,
+// rolann_stats_sm90.cuh), the DAEF head's shape among them; every other
+// shape runs `partial_kernel` above on the FP32 cores.  ops.py plans the
+// slices of each route by the same rule (`stats_slice_route`,
 // `tensor_core_route`).
 
 #include "rolann_common.cuh"
@@ -153,7 +153,7 @@ int launch(const float* xa, const float* fsq, const float* fd, float* ws_g, floa
            float* g, float* mv, int k, int m, long long n, int o, int slices,
            long long slice_len, bool accumulate, void* stream, bool batched = false) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!(batched && accumulate) && slice::stats_takes(m, o))
+  if (slice::stats_takes(m, o))
     return slice::stats_launch(xa, fsq, fd, ws_g, ws_m, g, mv, k, m, n, o, slices, slice_len,
                                accumulate, batched, st);
   if (k == 1 && !accumulate && m > kSmallM)
@@ -211,9 +211,9 @@ extern "C" int rolann_stats_batched_f32(const float* xa, const float* fsq, const
                 true);
 }
 
-// B5: B4's (G, M), added into the running g [k, o, m, m] and mv [k, o, m],
-// on `partial_kernel` at every shape: scratch [slices, k·o, m, m] and
-// [slices, k·o, m].
+// B5: B4's (G, M), added into the running g [k, o, m, m] and mv [k, o, m]
+// (one read-modify-write per entry, slice sums in slice order).  Same
+// arguments and scratch as B4.
 extern "C" int rolann_stats_acc_batched_f32(const float* xa, const float* fsq,
                                             const float* fd, float* ws_g, float* ws_m,
                                             float* g, float* mv, int k, int m, long long n,

@@ -1,21 +1,22 @@
-// B1, B2 and B4 with m <= kSmallM (28) and o <= 32 on Hopper (sm_90a), FP32
-// CUDA cores: a block per (tenant, sample slice) that stages each step's xa
-// once for every output.
+// B1, B2, B4 and B5 with m <= kSmallM (28) and o <= 32 on Hopper (sm_90a),
+// FP32 CUDA cores: a block per (tenant, sample slice) that stages each
+// step's xa once for every output.
 //
 // Replaces, for that shape, the Pallas TPU kernels `rolann_stats_kernel`
-// (B1), `rolann_stats_kernel_acc` (B2) and `rolann_stats_kernel_batched`
-// (B4, body `_kernel_batched`) of src/repro/kernels/rolann_stats/kernel.py:
-// per tenant t and output o,
+// (B1), `rolann_stats_kernel_acc` (B2), `rolann_stats_kernel_batched` (B4,
+// body `_kernel_batched`) and `rolann_stats_kernel_acc_batched` (B5) of
+// src/repro/kernels/rolann_stats/kernel.py: per tenant t and output o,
 //
 //     G[t, o] = xa[t] · diag(fsq[t, o]) · xa[t]ᵀ,   M[t, o] = xa[t] · fd[t, o]
 //
 // with xa [k, m, n], fsq and fd [k, o, n] float32, summed in float32, into
 // g [k, o, m, m] and mv [k, o, m]: written by B1 (k = 1) and B4, added into
-// the running values by B2 (k = 1).  `launch()` in rolann_stats.cu takes
-// this route for those three entries when m <= 28 and o <= 32: every layer
-// of the one-shot creditcard fit (B1) and of the fleet fit (B4), (m, o) =
-// (19, 15) .. (28, 24), and the logistic-output streamed fit's last layer
-// (B2, (28, 29)).  Other shapes, and B5 for now, keep `partial_kernel`.
+// the running values by B2 (k = 1) and B5.  `launch()` in rolann_stats.cu
+// takes this route for the four entries when m <= 28 and o <= 32: every
+// layer of the one-shot creditcard fit (B1) and of the fleet fit (B4),
+// (m, o) = (19, 15) .. (28, 24), and the last layer (28, 29) of the
+// logistic-output streamed fit (B2) and chunked fleet fit (B5).  Other
+// shapes keep `partial_kernel`.
 //
 // What bounds it.  At the fleet's (28, 24) with 64 tenants of 3,998
 // samples the function is 2.5e9 FMAs for G's upper triangle and 0.3e9 for
@@ -39,11 +40,12 @@
 // rolann_slice_fold.cuh's `fold_step` (B3's): a warp folds four outputs at
 // most, a lane one 4x4 piece of G's upper triangle and one row of M for
 // each, every term (xa[i]·fsq[o])·xa[j] as the reference forms it.  Each
-// slice writes its partial packed triangles and M rows.  B4
-// (ops.plan_batched_slices) cuts each tenant's samples into a few slices of
-// at least four steps, as many as fill the card once, and
-// `few_slice_reduce_kernel` writes g and mv from zero, summing the slices
-// in order.  B1 and B2 are the one-tenant grid (1, slices): ops.plan_stats_
+// slice writes its partial packed triangles and M rows.  B4 and B5
+// (ops.plan_batched_slices) cut each tenant's samples into a few slices of
+// at least four steps, as many as fill the card once (the fleet's
+// 1,024-sample chunks of 64 tenants: 4 slices of 256), and
+// `few_slice_reduce_kernel` sums the slices in order, writing g and mv from
+// zero (B4) or adding onto the running values (B5).  B1 and B2 are the one-tenant grid (1, slices): ops.plan_stats_
 // slices cuts the samples into as many slices of whole steps as fill the
 // card twice over (hundreds), and `slice_reduce_kernel`, a block per row,
 // sums them in a fixed order, from zero for B1 and onto the running values
@@ -155,9 +157,9 @@ inline bool stats_takes(int m, int o) {
 }
 
 // A launch on this route: `slices` slices a tenant, then their sum written
-// into g and mv, or added into them (`accumulate`).  B4 (`batched`) sums
-// its few slices a tenant with few_slice_reduce_kernel, B1 and B2 (k = 1)
-// their hundreds with slice_reduce_kernel.
+// into g and mv, or added into them (`accumulate`).  B4 and B5 (`batched`)
+// sum their few slices a tenant with few_slice_reduce_kernel, B1 and B2
+// (k = 1) their hundreds with slice_reduce_kernel.
 inline int stats_launch(const float* xa, const float* fsq, const float* fd, float* ws_g,
                         float* ws_m, float* g, float* mv, int k, int m, long long n, int o,
                         int slices, long long slice_len, bool accumulate, bool batched,

@@ -38,8 +38,8 @@ tenant and sample slice staging xa once for all outputs,
 ``csrc/rolann_stats_slice.cuh``) or ``"fp32"`` (the FP32-core
 ``partial_kernel``), chosen by shape as :func:`tensor_core_route` and
 :func:`stats_slice_route` say; ``rolann_stats_acc.route_launches`` splits
-B2's (``"slice"`` or ``"fp32"``) and ``rolann_stats_batched.route_launches``
-B4's by the same rule;
+B2's (``"slice"`` or ``"fp32"``), ``rolann_stats_batched.route_launches``
+B4's and ``rolann_stats_acc_batched.route_launches`` B5's by the same rule;
 ``rolann_fused_chunk.route_launches`` and
 ``rolann_fused_chunk_batched.route_launches`` split B3's and B6's:
 ``"slice"`` (a block per sample slice, and tenant, forming its activations
@@ -77,10 +77,10 @@ TC_TILE, TC_OUTPUTS, TC_STEP, TC_BLOCKS_PER_SM = 64, 4, 32, 2
 TC_MAX_SLICE = 2048
 # The slice routes (rolann_slice_fold.cuh): B3 and B6 with ma <= SMALL_M
 # (one G tile of 4x4 pieces a warp's lanes cover) and at most
-# FUSED_MAX_OUTPUTS outputs (four a warp), B1, B2 and B4 with m <= SMALL_M
-# and as many outputs; slices of whole FUSED_STEP-sample steps.  B3 (one
-# tenant) plans about FUSED_BLOCKS_PER_SM blocks per SM (more steps a block
-# beyond that).  B4 and B6 plan a few slices a tenant: as many as give
+# FUSED_MAX_OUTPUTS outputs (four a warp), B1, B2, B4 and B5 with m <=
+# SMALL_M and as many outputs; slices of whole FUSED_STEP-sample steps.  B3
+# (one tenant) plans about FUSED_BLOCKS_PER_SM blocks per SM (more steps a
+# block beyond that).  B4, B5 and B6 plan a few slices a tenant: as many as give
 # SLICE_BLOCKS_PER_SM blocks on every SM (the two a kernel's launch bounds
 # keep resident), none shorter than SLICE_MIN_STEPS steps (a slice's
 # partials, m_l (m (m + 1) / 2 + m) floats, outweigh a few steps' inputs).
@@ -291,12 +291,12 @@ def fused_slice_route(k: int, m_l: int, m_c1: int) -> bool:
 
 
 def stats_slice_route(m: int, o: int) -> bool:
-    """Whether a B1, B2 or B4 launch takes the slice kernel: m <=
+    """Whether a B1, B2, B4 or B5 launch takes the slice kernel: m <=
     ``SMALL_M`` and at most ``FUSED_MAX_OUTPUTS`` outputs, any number of
     tenants (``slice::stats_takes`` in ``csrc/rolann_stats_slice.cuh``).
     Every layer of the one-shot creditcard fit (B1) and of the fleet fit
-    (B4) takes it, and the logistic-output streamed fit's last layer (B2);
-    B5 does not use this route yet."""
+    (B4) takes it, and the last layer of the logistic-output streamed fit
+    (B2) and chunked fleet fit (B5)."""
     return 1 <= m <= SMALL_M and 1 <= o <= FUSED_MAX_OUTPUTS
 
 
@@ -315,7 +315,7 @@ def plan_fused_slices(n: int, sm_count: int) -> tuple[int, int]:
 @functools.lru_cache(maxsize=256)
 def plan_batched_slices(k: int, n: int, sm_count: int,
                         min_steps: int = SLICE_MIN_STEPS) -> tuple[int, int]:
-    """(slices a tenant, slice_len) for B4's and B6's slice kernels, whose
+    """(slices a tenant, slice_len) for B4's, B5's and B6's slice kernels, whose
     grid is (tenant, slice): as many slices as give ``SLICE_BLOCKS_PER_SM``
     blocks on each SM, each at least ``min_steps`` whole
     ``FUSED_STEP``-sample steps (one slice where n is shorter), every slice
@@ -384,9 +384,11 @@ def stats_route(k: int, m: int, o: int, accumulate: bool, batched: bool = False)
     """The kernel a launch of B1, B2 (``accumulate``), B4 (``batched``) or B5
     (both) takes by shape, the rule of ``launch()`` in
     ``csrc/rolann_stats.cu``: ``"slice"`` where :func:`stats_slice_route`
-    holds, B5 excepted; ``"tf32x3"`` where :func:`tensor_core_route` holds;
-    else ``"fp32"`` (``partial_kernel``)."""
-    if not (batched and accumulate) and stats_slice_route(m, o):
+    holds; ``"tf32x3"`` where :func:`tensor_core_route` holds; else
+    ``"fp32"`` (``partial_kernel``).  The rule is the same for the four
+    entries, so ``batched`` does not change the route."""
+    del batched
+    if stats_slice_route(m, o):
         return "slice"
     return "tf32x3" if tensor_core_route(k, m, accumulate) else "fp32"
 
@@ -394,8 +396,9 @@ def stats_route(k: int, m: int, o: int, accumulate: bool, batched: bool = False)
 def _plan_launch(k: int, m: int, n: int, o: int, accumulate: bool, batched: bool,
                  sm_count: int) -> tuple[str, int, int, int, bool]:
     """(route, slices, slice_len, workspace slices, packed partials) of a
-    B1, B2, B4 or B5 launch: the slice route has packed partials, B4 a few
-    slices a tenant and B1 and B2 hundreds; the others :func:`plan_stats`'s."""
+    B1, B2, B4 or B5 launch: the slice route has packed partials, B4 and B5
+    a few slices a tenant and B1 and B2 hundreds; the others
+    :func:`plan_stats`'s."""
     route = stats_route(k, m, o, accumulate, batched)
     if route == "slice":
         slices, slice_len = (plan_batched_slices(k, n, sm_count) if batched
@@ -608,8 +611,9 @@ def rolann_stats_acc_batched(g: torch.Tensor, mv: torch.Tensor, xa: torch.Tensor
         return rolann_stats_acc_batched_plain(g, mv, xa, fsq, fd)
     _cuda_or_raise(who, xa.device)
     g32, m32 = _f32(g), _f32(mv)
-    _launch(_FN_ACC_BATCHED, xa.float(), fsq.float(), fd.float(), g32, m32)
+    route = _launch(_FN_ACC_BATCHED, xa.float(), fsq.float(), fd.float(), g32, m32)
     rolann_stats_acc_batched.launches += 1
+    rolann_stats_acc_batched.route_launches[route] += 1
     _store(g, g32)
     _store(mv, m32)
     return g, mv
@@ -667,5 +671,6 @@ rolann_fused_chunk.route_launches = {"slice": 0, "tile": 0}
 rolann_stats_batched.launches = 0
 rolann_stats_batched.route_launches = {"slice": 0, "fp32": 0, "tf32x3": 0}
 rolann_stats_acc_batched.launches = 0
+rolann_stats_acc_batched.route_launches = {"slice": 0, "fp32": 0}
 rolann_fused_chunk_batched.launches = 0
 rolann_fused_chunk_batched.route_launches = {"slice": 0, "tile": 0}

@@ -16,7 +16,7 @@ import torch
 from _torch_parity import lowrank_data
 
 from repro_torch.configs import registry
-from repro_torch.core import daef, fleet
+from repro_torch.core import activations, daef, fleet, rolann
 from repro_torch.data import synthetic
 from repro_torch import optim
 from repro_torch.kernels.flash_attention import (
@@ -232,6 +232,59 @@ def test_fit_on_card_matches_host(card, backend):
     np.testing.assert_allclose(s_card, s_host, rtol=1e-3, atol=1e-5 * np.abs(s_host).max())
 
 
+def _assert_factors_close(card_f, host_f):
+    """Factor knowledge from the card against the host's: the rank, U S² Uᵀ,
+    S and M within 1e-4 of the leaf's largest entry (float32 sums in other
+    orders; U itself is free in sign and within near-equal singular
+    values, so it is compared as U S² Uᵀ)."""
+    assert [tuple(a.shape) for a in card_f] == [tuple(a.shape) for a in host_f]
+    pairs = ((rolann.factors_to_stats(card_f).g, rolann.factors_to_stats(host_f).g),
+             (card_f.s, host_f.s), (card_f.m, host_f.m))
+    for got, want in pairs:
+        want = want.double()
+        err = float((got.double().cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+
+
+def test_svd_fit_and_merge_on_card_match_host(card):
+    """The svd method on the card (QRs and SVDs by cuSOLVER, no kernel of
+    the port) against the host: rolann's factors and their merge on the
+    same inputs; a 4-partition svd fit (its first decoder layer's factors,
+    whose inputs differ only by the encoder's rounding, and its scores) and
+    the merge of two halves' fits (the encoder's U S² Uᵀ, the scores).
+    Scores at test_fit_on_card_matches_host's bar."""
+    h = torch.sigmoid(2 * torch.from_numpy(lowrank_data(6, 3, 5_000, seed=2)))
+    got = [rolann.compute_factors(p.to(card), p[:4].to(card), activations.logsig)
+           for p in (h[:, :2_500], h[:, 2_500:])]
+    want = [rolann.compute_factors(p, p[:4], activations.logsig)
+            for p in (h[:, :2_500], h[:, 2_500:])]
+    for g, w in zip(got, want):
+        _assert_factors_close(g, w)
+    _assert_factors_close(rolann.merge_factors(*got), rolann.merge_factors(*want))
+    _assert_factors_close(rolann.merge_factors_list(got), rolann.merge_factors_list(want))
+
+    cfg = daef.DAEFConfig(layer_sizes=(10, 4, 6, 8, 10), lam_hidden=0.7, lam_last=0.9,
+                          method="svd", stats_backend="fused")
+    x = lowrank_data(10, 4, 5_000, seed=0)
+    x_test = lowrank_data(10, 4, 1_000, seed=1)
+    before = rolann_stats.launches
+    m_card = daef.fit(cfg, x, n_partitions=4)
+    assert rolann_stats.launches == before  # the svd method folds no Gram
+    m_host = daef.fit(cfg, x, n_partitions=4, device="cpu")
+    _assert_factors_close(m_card.layer_knowledge[0], m_host.layer_knowledge[0])
+    halves = [(daef.fit(cfg, x[:, :2_500]), daef.fit(cfg, x[:, 2_500:])),
+              (daef.fit(cfg, x[:, :2_500], device="cpu"),
+               daef.fit(cfg, x[:, 2_500:], device="cpu"))]
+    merged = [daef.merge_models(cfg, a, b) for a, b in halves]
+    enc = [(f.u * f.s**2).double().cpu() @ f.u.double().cpu().T
+           for f in (m.encoder_factors for m in merged)]
+    assert float((enc[0] - enc[1]).abs().max()) <= 1e-4 * float(enc[1].abs().max())
+    for on_card, on_host in ((m_card, m_host), tuple(merged)):
+        s_card = daef.reconstruction_error(cfg, on_card, x_test).cpu().numpy()
+        s_host = daef.reconstruction_error(cfg, on_host, x_test, device="cpu").numpy()
+        np.testing.assert_allclose(s_card, s_host, rtol=1e-3, atol=1e-5 * np.abs(s_host).max())
+
+
 def _running(o, m, dtype, dev):
     gen = torch.Generator(device=dev).manual_seed(o * m)
     a = torch.randn((o, m, m), generator=gen, device=dev) * 50
@@ -431,6 +484,36 @@ def test_batched_acc_kernel_matches_plain(card, k, m, o, n, dtype):
     _check_fold(lambda g, mv: rolann_stats_acc_batched(g, mv, xa, fsq, fd),
                 lambda g, mv: rolann_stats_acc_batched_plain(g, mv, xa, fsq, fd), g0, m0,
                 rolann_stats_acc_batched)
+
+
+@pytest.mark.parametrize("k,m,o,n,masked,dtype", [
+    (64, 28, 29, 1_024, False, torch.float32),   # the logistic-output chunked fleet fit
+    (64, 28, 29, 1_024, True, torch.float32),
+    (64, 28, 29, 1_000, True, torch.float32),    # a ragged width
+    (1, 28, 29, 1_024, True, torch.float32),     # one tenant
+    (3, 28, 32, 2_049, True, torch.float32),     # o = 32: four outputs a warp in full
+    (64, 28, 29, 1_024, True, torch.bfloat16),
+    (8, 19, 15, 1_024, True, torch.float64),
+])
+def test_batched_acc_slice_route(card, k, m, o, n, masked, dtype):
+    """B5 with m <= 28 and o <= 32 on the slice route (B4's kernel, then
+    the few-slice reduce adding into the running values): both launches
+    counted there, in place, the accumulators passed in returned in their
+    dtype, G exactly symmetric, the plain fold's bar, a bit-identical
+    repeat; masks zero one sample in ten and the last fifth."""
+    xa, fsq, fd = _batched(k, lambda t: _inputs(m, o, n, torch.float32, 5 * t + n + o, card))
+    if masked:
+        gen = torch.Generator(device=card).manual_seed(n)
+        keep = (torch.rand((k, 1, n), generator=gen, device=card) > 0.1).float()
+        keep[..., n - n // 5:] = 0
+        fsq, fd = fsq * keep, fd * keep
+    assert ops.stats_route(k, m, o, True, batched=True) == "slice"
+    g0, m0 = _running_batch(k, o, m, dtype, card)
+    before = rolann_stats_acc_batched.route_launches["slice"]
+    _check_fold(lambda g, mv: rolann_stats_acc_batched(g, mv, xa, fsq, fd),
+                lambda g, mv: rolann_stats_acc_batched_plain(g, mv, xa, fsq, fd), g0, m0,
+                rolann_stats_acc_batched)
+    assert rolann_stats_acc_batched.route_launches["slice"] == before + 2
 
 
 @pytest.mark.parametrize("k,m_l,m_c1,n,act", [(64, 15, 18, 1_024, "logsig"),

@@ -139,9 +139,14 @@ def test_config_validation_matches_reference():
 
 
 def test_fit_rejects_what_is_not_ported():
-    cfg = tdaef.DAEFConfig(layer_sizes=(5, 2, 5), method="svd")
-    with pytest.raises(NotImplementedError, match="queue A"):
-        tdaef.fit(cfg, np.zeros((5, 10), np.float32), device="cpu")
+    """A wrong input dimension is refused as the reference refuses it; the
+    svd method, now ported, fits as the reference's does (scores at TOLS)."""
+    x = lowrank_data(5, 2, 300, seed=11)
+    kw = dict(layer_sizes=(5, 2, 5), method="svd")
+    jm = jdaef.fit(jdaef.DAEFConfig(**kw), jnp.asarray(x))
+    tm = tdaef.fit(tdaef.DAEFConfig(**kw), x, device="cpu")
+    assert_close(tdaef.reconstruction_error(tdaef.DAEFConfig(**kw), tm, x, device="cpu"),
+                 jdaef.reconstruction_error(jdaef.DAEFConfig(**kw), jm, jnp.asarray(x)))
     with pytest.raises(ValueError, match="input dim"):
         tdaef.fit(tdaef.DAEFConfig(layer_sizes=(5, 2, 5)), np.zeros((4, 10)), device="cpu")
 
@@ -207,7 +212,14 @@ def test_partial_fit_matches_reference():
 
 
 def test_merge_rejects_what_is_not_ported():
-    kw, xa, _ = _merge_data()
-    model = tdaef.fit(tdaef.DAEFConfig(**kw), xa, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A"):
-        tdaef.merge_models(tdaef.DAEFConfig(**dict(kw, method="svd")), model, model)
+    """Merging svd models, now ported, gives the reference's merged model
+    (scores at TOLS)."""
+    kw, xa, xb = _merge_data()
+    kw = dict(kw, method="svd")
+    jcfg, tcfg = jdaef.DAEFConfig(**kw), tdaef.DAEFConfig(**kw)
+    jm = jdaef.merge_models(jcfg, jdaef.fit(jcfg, jnp.asarray(xa)), jdaef.fit(jcfg, jnp.asarray(xb)))
+    tm = tdaef.merge_models(tcfg, tdaef.fit(tcfg, xa, device="cpu"),
+                            tdaef.fit(tcfg, xb, device="cpu"))
+    x_test = lowrank_data(10, 4, 200, seed=12)
+    assert_close(tdaef.reconstruction_error(tcfg, tm, x_test, device="cpu"),
+                 jdaef.reconstruction_error(jcfg, jm, jnp.asarray(x_test)))

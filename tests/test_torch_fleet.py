@@ -339,8 +339,15 @@ def test_errors_match_the_reference():
                                   device="cpu")
     with pytest.raises(ValueError, match="chunk_samples"):
         tfleet._fit_fleet_chunked(tcfg, xs, chunk_samples=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A"):
-        tfleet._fit_fleet(dataclasses.replace(tcfg, method="svd"), xs, device="cpu")
+    # the svd fleet fit, now ported, scores as the reference's does
+    svd_t, svd_j = dataclasses.replace(tcfg, method="svd"), dataclasses.replace(jcfg, method="svd")
+    x_test = _data(n=50, seed=10)
+    assert_close(tfleet.fleet_scores(svd_t, tfleet._fit_fleet(svd_t, xs, **PER_TENANT,
+                                                              device="cpu"),
+                                     x_test, device="cpu"),
+                 jfleet.fleet_scores(svd_j, jfleet._fit_fleet(svd_j, jnp.asarray(xs),
+                                                              **_jper_tenant()),
+                                     jnp.asarray(x_test)))
 
 
 def test_interop_both_directions():

@@ -125,8 +125,13 @@ def test_fit_and_predict():
     assert_close(b, bj)
     assert_close(trol.predict(torch.from_numpy(x), w, b, tact.tanh),
                  jrol.predict(jnp.asarray(x), wj, bj, jact.tanh))
-    with pytest.raises(NotImplementedError, match="queue A"):
-        trol.fit(torch.from_numpy(x), torch.from_numpy(d), tact.tanh, 0.2, method="svd")
+    # the paper's svd method runs too, with the reference's weights
+    ws, bs, ks = trol.fit(torch.from_numpy(x), torch.from_numpy(d), tact.tanh, 0.2,
+                          method="svd")
+    wsj, bsj, _ = jrol.fit(jnp.asarray(x), jnp.asarray(d), jact.tanh, 0.2, method="svd")
+    assert isinstance(ks, trol.RolannFactors)
+    assert_close(ws, wsj)
+    assert_close(bs, bsj)
     with pytest.raises(ValueError, match="unknown gram_solver"):
         trol.solve(k, 0.2, gram_solver="lu")
 

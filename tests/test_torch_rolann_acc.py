@@ -322,7 +322,7 @@ def test_accumulate_layer_stats(act, backend):
     route, with the stage-1 draws of a real layer key."""
     key = tdaef.DAEFConfig(layer_sizes=(8, 3, 8)).layer_keys()[2]
     jkey = jnp.asarray(key.numpy().astype(np.uint32))
-    w_c1, b_c1 = telm.stage1(key, 8, 11, "xavier")
+    w_c1, b_c1 = telm.stage1(key, 8, 11, "xavier", device="cpu")
     jw, jb = jelm.stage1(jkey, 8, 11, "xavier")
     assert_close(w_c1, jw)
     rng = np.random.default_rng(4)

@@ -377,7 +377,7 @@ def test_batched_layer_training(aux_bias, backend):
         assert_close(getattr(res, name), getattr(jres, name), what=name)
     assert_sum_close(res.knowledge.g, jres.knowledge.g)
     wts = (np.arange(130) < 100).astype(np.float32)
-    w_c1, b_c1 = telm.stage1_batched(keys, 8, 11, "xavier")
+    w_c1, b_c1 = telm.stage1_batched(keys, 8, 11, "xavier", device="cpu")
     stats = trol.init_stats(11, 8, tact.logsig, device="cpu", tenants=K)
     out = telm.accumulate_layer_stats_batched(stats, w_c1, b_c1, T(h),
                                               tact.logsig, weights=T(np.tile(wts, (K, 1))),

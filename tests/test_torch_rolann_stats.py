@@ -206,16 +206,16 @@ def test_stats_slice_route_at_its_boundaries(m, o, slice_route):
     (1, 28, 29, True, False, "slice"),     # the logistic-output fit's last layer
     (1, 1, 1, True, False, "slice"),
     (1, 513, 256, False, False, "tf32x3"),  # the DAEF head
-    (64, 28, 29, True, True, "fp32"),      # B5 keeps partial_kernel
-    (1, 28, 29, True, True, "fp32"),       # B5 with one tenant too
+    # B5 (the ids name the case, not the route)
+    pytest.param(64, 28, 29, True, True, "slice", id="64-28-29-True-True-fp32"),
+    pytest.param(1, 28, 29, True, True, "slice", id="1-28-29-True-True-fp32"),
     (64, 28, 24, False, True, "slice"),    # B4
     (1, 37, 3, False, True, "tf32x3"),     # B4 with one tenant and m > 28
 ])
 def test_stats_route_at_its_boundaries(k, m, o, accumulate, batched, route):
     """B1 (one tenant) and B2 (one tenant, accumulating) take the slice
-    kernel for m <= 28 and o <= 32, as B4 does; B5 keeps partial_kernel at
-    every shape; one tenant with m > 28 and no accumulators keeps the
-    tensor cores.  The workspace follows the route: packed triangles for
+    kernel for m <= 28 and o <= 32, as B4 and B5 do; one tenant with m > 28
+    and no accumulators keeps the tensor cores.  The workspace follows the route: packed triangles for
     the planned slices on the slice route, full partials otherwise."""
     assert ops.stats_route(k, m, o, accumulate, batched) == route
     n = 32_768
@@ -227,6 +227,24 @@ def test_stats_route_at_its_boundaries(k, m, o, accumulate, batched, route):
         tensor_cores, _, _, ws = ops.plan_stats(k, m, n, o, accumulate, 132)
         assert tensor_cores == (route == "tf32x3")
         assert got == 4 * ws * k * o * (m * m + m)
+
+
+@pytest.mark.parametrize("m,o,route", [(28, 29, "slice"), (29, 15, "fp32"), (28, 33, "fp32")])
+def test_acc_batched_plan_at_the_fleet_shape(m, o, route):
+    """B5 at the logistic-output chunked fleet fit's last layer, (m, o) =
+    (28, 29), 64 tenants, 1,024-sample chunks, on a 132-SM card: the slice
+    kernel on B4's plan, 4 slices of 256 a tenant, its scratch the packed
+    partials of the 4 slices' 64 x 29 = 1,856 (tenant, output) pairs,
+    4 x 1,856 x (406 + 28) floats; one row or one output more stays on
+    partial_kernel."""
+    assert ops.stats_route(64, m, o, True, batched=True) == route
+    got = ops.workspace_bytes(64, m, 1_024, o, True, 132, batched=True)
+    if route == "slice":
+        assert ops.plan_batched_slices(64, 1_024, 132) == (4, 256)
+        assert got == 4 * (4 * 1_856 * (406 + 28))
+    else:
+        _, slices, _, ws = ops.plan_stats(64, m, 1_024, o, True, 132)
+        assert got == 4 * ws * 64 * o * (m * m + m) and ws == slices
 
 
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 26_507, 32_768, 255_883, 10**9])

@@ -86,7 +86,7 @@ def test_stage1_weights_match(init, dims):
     tkeys = tdaef.layer_keys_from_seed(0, 7)
     for li in range(2, 6):
         jw, jb = jelm.stage1(cfg_keys[li], *dims, init)
-        tw, tb = telm.stage1(tkeys[li], *dims, init)
+        tw, tb = telm.stage1(tkeys[li], *dims, init, device="cpu")
         assert_close(tw, jw, what=f"W_c1 layer {li}", **F32)
         assert_close(tb, jb, what=f"b_c1 layer {li}", **F32)
 
@@ -147,7 +147,7 @@ def test_stage1_batched_draws(init, dims):
     docstring)."""
     keys = tdaef.layer_keys_from_seed(torch.from_numpy(FLEET_SEEDS), 7)[:, 3]
     jkeys = jax.vmap(lambda s: jdaef.layer_keys_from_seed(s, 7))(jnp.asarray(FLEET_SEEDS))[:, 3]
-    w, b = telm.stage1_batched(keys, *dims, init)
+    w, b = telm.stage1_batched(keys, *dims, init, device="cpu")
     assert tuple(w.shape) == (len(FLEET_SEEDS), *dims) and tuple(b.shape) == (len(FLEET_SEEDS), dims[1])
     jw, jb = jax.vmap(lambda k: jelm.stage1(k, *dims, init))(jkeys)
     if init == "xavier":
@@ -155,7 +155,25 @@ def test_stage1_batched_draws(init, dims):
     assert_close(w, jw, **F32)
     assert_close(b, jb, **F32)
     for i in range(len(FLEET_SEEDS)):
-        w1, b1 = telm.stage1(keys[i], *dims, init)
+        w1, b1 = telm.stage1(keys[i], *dims, init, device="cpu")
         assert torch.equal(w[i], w1) and torch.equal(b[i], b1)
-    w2, _ = telm.stage1_batched(keys, *dims, init)  # a refit reuses the draw
+    w2, _ = telm.stage1_batched(keys, *dims, init, device="cpu")  # a refit reuses the draw
     assert torch.equal(w2, w) and w2 is not w
+
+
+def test_stage1_defaults_to_the_card(monkeypatch):
+    """stage1 and stage1_batched take device=None, the card: with no card
+    they raise resolve_device's error, as every entry point does; with
+    device="cpu" they give the reference's draw."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    keys = tdaef.layer_keys_from_seed(torch.from_numpy(FLEET_SEEDS), 7)[:, 3]
+    with pytest.raises(RuntimeError, match="runs on the CUDA card by default"):
+        telm.stage1(keys[0], 5, 3, "xavier")
+    with pytest.raises(RuntimeError, match="runs on the CUDA card by default"):
+        telm.stage1_batched(keys, 5, 3, "xavier")
+    jkey = jax.vmap(lambda s: jdaef.layer_keys_from_seed(s, 7))(jnp.asarray(FLEET_SEEDS))[0, 3]
+    w, b = telm.stage1(keys[0], 5, 3, "xavier", device="cpu")
+    jw, jb = jelm.stage1(jkey, 5, 3, "xavier")
+    assert w.device.type == "cpu" and b.device.type == "cpu"
+    np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
+    assert_close(b, jb, **F32)
