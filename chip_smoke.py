@@ -65,7 +65,7 @@ no result:
 7. fleet — ``examples/fleet_anomaly.py``'s fleet shape with the creditcard
    DAEF per tenant: 32 sites (``make_dataset("creditcard", seed=s,
    scale=1/32)``, fold 0), each site's training normals split into two
-   devices of 3,998 samples, seeds [s, s]: 64 tenants.  ``fleet_fit`` ->
+   devices of 3,998 samples, seeds [s, s]: 64 tenants.  ``_fit_fleet`` ->
    ``fleet_merge_pairwise`` (64 -> 32) -> ``fleet_scores`` on each site's
    test split -> ``fleet_thresholds`` -> ``fleet_classify`` -> per-site F1,
    fused backend, after one warm-up.  Launches per fit: rolann_stats_batched
@@ -187,8 +187,41 @@ no result:
     its max; per-site labels within 4 (|Δtp| + |Δfp|) of the port's CPU
     svd fleet.  Times on the host clock.
 
+18. engine — the engine and the paper's federated protocol at full width,
+    the creditcard configuration and replica of phases 4–6, every plan with
+    ``stats_backend="fused"``: ``DAEFEngine`` fit -> scores -> thresholds ->
+    classify, bit-identical leaf for leaf to phase 4's ``daef.fit``; a sync
+    ``merge="sequential"`` session over the four contiguous quarters
+    (``daef._split``, ragged): the layer-synchronised protocol, B1 16
+    launches (4 sites x 4 layers) on its slice route, train errors and test
+    scores held to phase 6's float64 fit under phase 6's bar, labels within
+    2 x (fused vs einsum labels apart) + 4 of phase 4's; a sync
+    ``"pairwise"`` session on the same sites: every layer's (G, M) and the
+    encoder's U S² Uᵀ equal the sum of the four local fits' at 1e-4 of the
+    leaf's max, per-site labels (the test set's quarters) within 4 of the
+    port's CPU session; an async session (``max_staleness=0``) over four
+    sites of 63,970 samples in two blocks: round 1 all sites (one fleet fit:
+    B4 4 launches), round 2 sites 0 and 1 (B4 4), a refresh-only round (no
+    launch, the live model kept), round 3 sites 2 and 3; staleness of sites
+    2 and 3 is 1 after round 2; the live model's statistics after round 2
+    equal the einsum re-fold of exactly the fresh sites' blocks, after round
+    1 the pairwise merge of the round's own local fits (1e-4; the distance
+    to the sync pairwise session's, whose local fits are one-tenant ones, is
+    reported); a secagg round (``PrivacySpec(secagg=True)``, pairwise) on
+    the same parts: the masked aggregate equals the sum of the unmasked wires
+    and decodes bit for bit; its score distance from, and F1 against, the
+    unmasked round are reported; save / load of the one-tenant model and of
+    phase 7's 64-tenant fleet, and of the async session after round 2 into a
+    fresh engine (round 3 bit-identical on both); the engine's reduce 64 ->
+    32 sequential against pairwise (phase 7's rules for merged sites: the
+    knowledge and error pools bit-identical, the encoder's S and U S² Uᵀ at
+    1e-4, each layer's W and b at the κ bar; every leaf's distance is
+    printed); launches
+    per round and a profile of the sequential round.  Times on the host
+    clock.
+
 The last lines are a JSON object of the svd phase's numbers, a JSON object
-of the LM paths' numbers, a JSON object of per-shape numbers, the card's name and power limit, a JSON object of
+of the engine phase's numbers, a JSON object of the LM paths' numbers, a JSON object of per-shape numbers, the card's name and power limit, a JSON object of
 per-kernel numbers for all ten kernels, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -1378,7 +1411,7 @@ def phase_fleet(cfg, data, data_d):
         return out, (time.perf_counter() - t0) * 1e3
 
     def fit(c):
-        return fleet.fleet_fit(c, xs_d, seeds=seeds)
+        return fleet._fit_fleet(c, xs_d, seeds=seeds)
 
     times = {}
     n_hidden = len(path_shapes(cfg))
@@ -1443,7 +1476,7 @@ def phase_fleet(cfg, data, data_d):
     # mislabels (bar: |dtp| + |dfp| <= 4 per site).
     t0 = time.perf_counter()
     cfg_h = dataclasses.replace(cfg, stats_backend="einsum")
-    devices_h = fleet.fleet_fit(cfg_h, xs, seeds=seeds, device="cpu")
+    devices_h = fleet._fit_fleet(cfg_h, xs, seeds=seeds, device="cpu")
     sites_h = fleet.fleet_merge_pairwise(cfg_h, devices_h)
     scores_h = fleet.fleet_scores(cfg_h, sites_h, tests, device="cpu")
     pred_h = fleet.fleet_classify(scores_h, fleet.fleet_thresholds(sites_h), device="cpu")
@@ -1840,6 +1873,403 @@ def phase_svd(cfg, xtr, xte, y_test, references, card_fits, fleet_data, fleet_da
     phase_profile("svd fleet fit (64 tenants)", fit_fleet)
     say("svd", f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
     return {"ms": times, **out}
+
+
+# ---------------------------------------------------------------------------
+# 18. the engine and federation sessions: the one-tenant engine path, sync
+# (sequential, pairwise) and async rounds, secure aggregation, checkpoints,
+# the engine's fleet reduce
+# ---------------------------------------------------------------------------
+
+ENGINE_SITES = 4
+
+
+def _stats_rel(got, want) -> float:
+    """max|d| / max|want| of a layer's G and M (the larger), want in float64."""
+    return max(_rel(getattr(got, leaf).double(), getattr(want, leaf).double())
+               for leaf in ("g", "m"))
+
+
+def _enc_gram(f):
+    """An encoder's U S² Uᵀ in float64."""
+    u, s = f.u.double(), f.s.double()
+    return (u * s**2) @ u.transpose(-1, -2)
+
+
+def _summed_stats(models):
+    """Each decoder layer's (G, M) summed over ``models`` in float64, and the
+    sum of their encoders' U S² Uᵀ."""
+    from repro_torch.core import rolann
+
+    layers = [rolann.RolannStats(g=sum(m.layer_knowledge[i].g.double() for m in models),
+                                 m=sum(m.layer_knowledge[i].m.double() for m in models))
+              for i in range(len(models[0].layer_knowledge))]
+    return layers, sum(_enc_gram(m.encoder_factors) for m in models)
+
+
+def _model_stats_apart(model, layers, enc):
+    """Each layer's distance and the encoder's from summed statistics."""
+    apart = [_stats_rel(k, w) for k, w in zip(model.layer_knowledge, layers, strict=True)]
+    return apart, _rel(_enc_gram(model.encoder_factors), enc)
+
+
+def _tree_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+def _check_reduced_agree(a, b) -> float:
+    """Two reductions of one fleet (the engine's sequential and pairwise)
+    under the rules of _check_merged_sites: the knowledge, the error pools,
+    seeds and lambdas bit-identical; the encoder's S and U S² Uᵀ within 1e-4
+    of their max (U is free within near-equal singular values: a batched
+    and a single SVD rotate it differently); each decoder layer's [W; b]
+    within 10·κ·eps·max|[W; b]| of the site's G + λI (the solves of
+    identical knowledge, batched and single, round differently, and the
+    last layer's κ reaches 1e6).  Returns the worst share of the κ bar."""
+    import torch
+
+    from repro_torch.core import fleet
+
+    eps = float(torch.finfo(torch.float32).eps)
+    for name in ("seeds", "lam_hidden", "lam_last"):
+        check(torch.equal(getattr(a, name), getattr(b, name)), f"reduce: {name} differ")
+    worst = 0.0
+    for s in range(a.size):
+        ma, mb = fleet.get_model(a, s), fleet.get_model(b, s)
+        for ka, kb in zip(ma.layer_knowledge, mb.layer_knowledge, strict=True):
+            check(torch.equal(ka.g, kb.g) and torch.equal(ka.m, kb.m),
+                  f"reduce: site {s} knowledge differs")
+        check(torch.equal(ma.train_errors, mb.train_errors), f"reduce: site {s} error pool")
+        check(_rel(ma.encoder_factors.s, mb.encoder_factors.s) <= 1e-4, f"reduce: site {s} S")
+        d = _rel(_enc_gram(ma.encoder_factors), _enc_gram(mb.encoder_factors))
+        check(d <= 1e-4, f"reduce: site {s} encoder U S^2 U^T {d:.3e} (bar 1e-4)")
+        lams = [float(a.lam_hidden[s])] * (len(ma.layer_knowledge) - 1) + [float(a.lam_last[s])]
+        for i, (k, lam) in enumerate(zip(ma.layer_knowledge, lams)):
+            g = k.g.double()
+            kappa = float(torch.linalg.cond(
+                g + lam * torch.eye(g.shape[-1], dtype=g.dtype, device=g.device)).max())
+            wa = torch.cat([ma.weights[i + 1], ma.biases[i][None]]).double()
+            wb = torch.cat([mb.weights[i + 1], mb.biases[i][None]]).double()
+            err, bar = float((wa - wb).abs().max()), 10 * kappa * eps * float(wa.abs().max())
+            check(err <= bar, f"reduce: site {s} layer {i + 2} W, b differ by {err:.3e} > "
+                  f"{bar:.3e}")
+            worst = max(worst, err / bar)
+    return worst
+
+
+def phase_engine(cfg, y_test, xtr, xte, references, card_fits, fleet_data,
+                 fleet_data_d):
+    """The engine and the paper's federated protocol on the card at full
+    width (the creditcard replica of phases 4–6, fused backend).  Returns the
+    phase's numbers."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import anomaly, daef, fleet
+    from repro_torch.engine import DAEFEngine, ExecutionPlan
+    from repro_torch.kernels.rolann_stats import rolann_stats, rolann_stats_batched
+    from repro_torch.privacy import PrivacySpec, secagg
+    from repro_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    base = daef.DAEFConfig(**CREDITCARD)  # no backend: the plans ask for "fused"
+    wrappers = {**_wrappers(), **_fleet_wrappers()}
+
+    def zero():
+        for fn in wrappers.values():
+            fn.launches = 0
+            if hasattr(fn, "route_launches"):
+                fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+
+    def read():
+        return {name: fn.launches for name, fn in wrappers.items() if fn.launches}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def engine(device=None, **plan):
+        return DAEFEngine(base, ExecutionPlan(stats_backend="fused", **plan), device=device)
+
+    def same_leaves(a, b, what):
+        la, lb = checkpoint.flatten(a), checkpoint.flatten(b)
+        check(len(la) == len(lb) and all(
+            x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y.to(x.device))
+            for x, y in zip(la, lb)), f"{what}: not bit-identical leaf for leaf")
+
+    n_hidden = len(path_shapes(cfg))
+    times, launches, out = {}, {}, {}
+
+    # ---- 1. the engine's one-tenant path == phase 4's daef.fit ----
+    one = engine()
+    check(one.config == cfg and one.device.type == "cuda",
+          f"engine config {one.config} on {one.device}, expected phase 4's on the card")
+    one.fit(xtr, n_partitions=N_PARTITIONS)
+    zero()
+    model, times["engine fit"] = timed(lambda: one.fit(xtr, n_partitions=N_PARTITIONS))
+    launches["engine fit"] = read()
+    check(launches["engine fit"] == {"rolann_stats": n_hidden},
+          f"engine fit launched {launches['engine fit']}")
+    same_leaves(model, daef.fit(cfg, xtr, n_partitions=N_PARTITIONS), "engine fit vs daef.fit")
+    scores, times["engine score"] = timed(lambda: one.scores(model, xte))
+    mu = one.thresholds(model)
+    pred = one.classify(scores, mu)
+    check(torch.equal(scores, daef.reconstruction_error(cfg, model, xte))
+          and torch.equal(pred, anomaly.classify(scores, mu)), "engine scores / labels")
+    m_one = anomaly.evaluate(model.train_errors, scores, y_test, RULE)
+    m_einsum = anomaly.evaluate(*card_fits["card einsum"][:2], y_test, RULE)
+    label_bar = 2 * _labels_apart(m_one, m_einsum) + 4
+    say("engine", f"DAEFEngine(ExecutionPlan(stats_backend='fused')): fit {times['engine fit']:.2f}"
+        f" ms, score {times['engine score']:.2f} ms, bit-identical to daef.fit leaf for leaf, "
+        f"F1 {m_one.f1:.4f}; launches {launches['engine fit']}")
+
+    # ---- 2. sync, merge="sequential": the layer-synchronised protocol ----
+    sites = daef._split(xtr, ENGINE_SITES)
+    widths = [p.shape[1] for p in sites]
+    seq = engine(merge="sequential")
+    seq.session().round(sites)
+    zero()
+    m_seq, times["sync sequential round"] = timed(lambda: seq.session().round(sites))
+    launches["sync sequential round"] = read()
+    want = ENGINE_SITES * n_hidden
+    check(launches["sync sequential round"] == {"rolann_stats": want}
+          and rolann_stats.route_launches["slice"] == want,
+          f"sequential round launched {launches['sync sequential round']}, routes "
+          f"{rolann_stats.route_launches}; expected B1 {want} times on its slice route")
+    s_seq = seq.scores(m_seq, xte)
+    for name, got in (("train errors", m_seq.train_errors), ("test scores", s_seq)):
+        ref, plain = references[name]
+        d = _rel(got.double().cpu(), ref)
+        check(d <= 2 * plain + 1e-4, f"sequential round {name}: {d:.3e} from the float64 fit, "
+              f"bar 2 x {plain:.3e} + 1e-4")
+        out[f"sequential {name} from float64"] = d
+    m_seqf = anomaly.evaluate(m_seq.train_errors, s_seq, y_test, RULE)
+    apart = _labels_apart(m_seqf, m_one)
+    check(apart <= label_bar, f"sequential round labels {apart} apart from phase 4's fit "
+          f"(bar {label_bar})")
+    say("engine", f"sync sequential round over {ENGINE_SITES} sites of {widths} samples: "
+        f"{times['sync sequential round']:.2f} ms, launches {launches['sync sequential round']} "
+        f"(slice route); train errors {out['sequential train errors from float64']:.2e} and test "
+        f"scores {out['sequential test scores from float64']:.2e} from the float64 fit (phase "
+        f"6's bar), F1 {m_seqf.f1:.4f}, labels {apart} apart from phase 4's fit (bar "
+        f"{label_bar})")
+
+    # ---- 3. sync, merge="pairwise": local fits, then pairwise merges ----
+    pw = engine(merge="pairwise")
+    pw.session().round(sites)
+    zero()
+    m_pw, times["sync pairwise round"] = timed(lambda: pw.session().round(sites))
+    launches["sync pairwise round"] = read()
+    check(launches["sync pairwise round"] == {"rolann_stats": want},
+          f"pairwise round launched {launches['sync pairwise round']}")
+    layers, enc = _summed_stats([daef.fit(cfg, p) for p in sites])
+    apart_l, apart_e = _model_stats_apart(m_pw, layers, enc)
+    check(max(apart_l + [apart_e]) <= 1e-4, f"pairwise round statistics vs the sum of the "
+          f"local fits': layers {apart_l}, encoder {apart_e} (bar 1e-4)")
+    host = engine(device="cpu", merge="pairwise")
+    t0 = time.perf_counter()
+    m_host = host.session().round([p.cpu() for p in sites])
+    host_s = time.perf_counter() - t0
+    n_te = xte.shape[1]
+    qb = [round(i * n_te / ENGINE_SITES) for i in range(ENGINE_SITES + 1)]  # daef._split's
+    x_test_q = [xte[:, a:b] for a, b in zip(qb, qb[1:])]
+    y_test_q = [y_test[a:b] for a, b in zip(qb, qb[1:])]
+    mu_c, mu_h = pw.thresholds(m_pw), host.thresholds(m_host)
+    site_apart = []
+    for xq, yq in zip(x_test_q, y_test_q):
+        mc = anomaly.binary_metrics(pw.classify(pw.scores(m_pw, xq), mu_c), yq)
+        mh = anomaly.binary_metrics(host.classify(host.scores(m_host, xq.cpu()), mu_h), yq,
+                                    device="cpu")
+        site_apart.append(_labels_apart(mc, mh))
+    check(max(site_apart) <= 4, f"pairwise round per-site labels {site_apart} apart from the "
+          "CPU session (bar 4)")
+    out["pairwise statistics vs local sums"] = max(apart_l + [apart_e])
+    say("engine", f"sync pairwise round: {times['sync pairwise round']:.2f} ms, launches "
+        f"{launches['sync pairwise round']}; each layer's (G, M) and the encoder's U S^2 U^T vs "
+        f"the sum of the four local fits' max|d|/max {max(apart_l + [apart_e]):.2e} (bar "
+        f"1e-4); per-site labels vs the CPU session {site_apart} (bar 4; CPU round "
+        f"{host_s:.2f} s)")
+
+    # ---- 4. async, max_staleness=0: one fleet fit a round ----
+    n_site = xtr.shape[1] // ENGINE_SITES
+    half = n_site // 2
+    blocks = [[xtr[:, s * n_site + b * half:s * n_site + (b + 1) * half] for b in (0, 1)]
+              for s in range(ENGINE_SITES)]
+    rounds = {"async round 1": {s: blocks[s][0] for s in range(ENGINE_SITES)},
+              "async round 2": {0: blocks[0][1], 1: blocks[1][1]},
+              "async refresh": {},
+              "async round 3": {2: blocks[2][1], 3: blocks[3][1]}}
+    asy = engine(federation="async", max_staleness=0)
+    warm = asy.session()
+    for parts in rounds.values():
+        warm.round(parts)
+    session = asy.session()
+    live = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, parts in rounds.items():
+            if name == "async refresh":  # save after round 2, restore in a fresh engine
+                path, times["session save"] = timed(
+                    lambda: asy.save(session, os.path.join(tmp, "session")))
+                restored, times["session load"] = timed(
+                    lambda: engine(federation="async", max_staleness=0).load(path))
+                out["session bytes"] = _tree_bytes(path)
+            zero()
+            live[name], times[name] = timed(lambda: session.round(parts))
+            launches[name] = read()
+            if name == "async round 2":
+                stale_after_2 = dict(session.sites)
+        for name in ("async refresh", "async round 3"):
+            restored_model = restored.round(rounds[name])
+        same_leaves(restored_model, live["async round 3"],
+                    "round 3 of the restored session vs the saved one")
+    b4 = {name: launches[name].get("rolann_stats_batched", 0) for name in rounds}
+    check(launches["async round 1"] == {"rolann_stats_batched": n_hidden}
+          and launches["async round 2"] == {"rolann_stats_batched": n_hidden}
+          and launches["async refresh"] == {},
+          f"async rounds launched {launches}; expected B4 {n_hidden} in rounds 1 and 2, none "
+          "in the refresh")
+    check(live["async refresh"] is live["async round 2"], "the refresh round must keep the "
+          "live model when no site is fresh")
+    # after round 2 (sites 2 and 3 missed it): statistics == the einsum
+    # re-fold of exactly the fresh sites' data under their local fits' weights
+    fleets = [(fleet._fit_fleet(cfg, torch.stack([blocks[s][b] for s in tenants])), tenants, b)
+              for b, tenants in ((0, range(ENGINE_SITES)), (1, (0, 1)))]
+    refold, enc = None, 0
+    for fl, tenants, b in fleets:
+        xs = torch.stack([blocks[s][b] for s in tenants])
+        per = [_refold_fleet(cfg, fl, fleet._device_chunks(xs, half), k)
+               for k in range(len(fl.model.layer_knowledge))]
+        for t, s in enumerate(tenants):
+            if s in (0, 1):
+                stats = [(k.g[t].double(), k.m[t].double()) for k in per]
+                refold = stats if refold is None else [
+                    (g + g2, m + m2) for (g, m), (g2, m2) in zip(refold, stats)]
+                enc = enc + xs[t].double() @ xs[t].double().T
+    from repro_torch.core import rolann
+
+    refold = [rolann.RolannStats(g=g, m=m) for g, m in refold]
+    apart_l, apart_e = _model_stats_apart(live["async round 2"], refold, enc)
+    check(max(apart_l + [apart_e]) <= 1e-4, f"async live model after round 2 vs the einsum "
+          f"re-fold of sites 0 and 1: layers {apart_l}, encoder {apart_e} (bar 1e-4)")
+    out["async statistics vs re-fold"] = max(apart_l + [apart_e])
+    check(stale_after_2 == {0: 0, 1: 0, 2: 1, 3: 1}, f"staleness after round 2: {stale_after_2}")
+    # after round 1: the sync pairwise merge of the round's own four local
+    # fits (the fleet fit above, bit for bit the session's)
+    fl1 = fleets[0][0]
+    loc = [fleet.get_model(fl1, i) for i in range(ENGINE_SITES)]
+    m_pairs = daef.merge_models(cfg, daef.merge_models(cfg, loc[0], loc[1]),
+                                daef.merge_models(cfg, loc[2], loc[3]))
+    apart1_l, apart1_e = _model_stats_apart(live["async round 1"], *_summed_stats([m_pairs]))
+    out["async round 1 vs pairwise merge"] = max(apart1_l + [apart1_e])
+    check(out["async round 1 vs pairwise merge"] <= 1e-4, "async round 1 statistics vs the "
+          f"pairwise merge of its local fits: layers {apart1_l}, encoder {apart1_e} (bar 1e-4)")
+    # and against the sync pairwise session on the same parts, whose local fits
+    # are one-tenant fits (B1): their float32 drift, amplified by each layer's
+    # solve, separates the deeper layers (reported)
+    pw_parts = [blocks[s][0] for s in range(ENGINE_SITES)]
+    m_pw1 = pw.session().round(pw_parts)
+    sess_l, sess_e = _model_stats_apart(live["async round 1"], *_summed_stats([m_pw1]))
+    out["async round 1 vs sync pairwise session"] = {"layers": sess_l, "encoder": sess_e}
+    say("engine", f"async round 1 vs the pairwise merge of its own local fits: layers "
+        + ", ".join(f"{d:.2e}" for d in apart1_l) + f", encoder {apart1_e:.2e} (bar 1e-4); "
+        "vs the sync pairwise session on the same parts (one-tenant local fits, no bar): "
+        + ", ".join(f"{d:.2e}" for d in sess_l) + f", encoder {sess_e:.2e}")
+    say("engine", f"async rounds (max_staleness=0, sites of {2 * half} samples in blocks of "
+        f"{half}): " + ", ".join(f"{n} {times[n]:.2f} ms" for n in rounds)
+        + f"; B4 launches {b4}; staleness after round 2 {stale_after_2}, at the end "
+        f"{session.sites}; live model after round 2 vs the einsum re-fold of the fresh sites "
+        f"{out['async statistics vs re-fold']:.2e} (bar 1e-4); restored session's round 3 "
+        "bit-identical")
+
+    # ---- 5. secure aggregation on the same four parts ----
+    sec = engine(merge="pairwise", privacy=PrivacySpec(secagg=True))
+    sec.session().round(pw_parts)
+    seen = {}
+    real_decode = secagg.decode
+
+    def spy(wire, frac_bits, dtypes=None):
+        seen["aggregate"] = [w.copy() for w in wire]
+        return real_decode(wire, frac_bits, dtypes)
+
+    s_sec = sec.session()
+    secagg.decode = spy
+    try:
+        zero()
+        m_sec, times["secagg round"] = timed(lambda: s_sec.round(pw_parts))
+        launches["secagg round"] = read()
+    finally:
+        secagg.decode = real_decode
+    from repro_torch.core import federated
+
+    states = s_sec._local_states(list(enumerate(pw_parts)))
+    frac = sec.plan.privacy.frac_bits
+    wires = [secagg.encode(federated.exchange_to_additive(sec.config, st), frac)
+             for st in states]
+    plain = secagg.aggregate(wires, "pairwise")
+    check(all(np.array_equal(a, b) for a, b in zip(seen["aggregate"], plain, strict=True)),
+          "the masked aggregate differs from the sum of the unmasked wires")
+    dec_m = secagg.decode(seen["aggregate"], frac, dtypes=[np.float64] * len(plain))
+    dec_p = secagg.decode(plain, frac, dtypes=[np.float64] * len(plain))
+    check(all(np.array_equal(a, b) for a, b in zip(dec_m, dec_p)),
+          "the masked aggregate does not decode to the unmasked sum bit for bit")
+    s_sec_test, s_pw_test = sec.scores(m_sec, xte), pw.scores(m_pw1, xte)
+    f1_sec = anomaly.evaluate(m_sec.train_errors, s_sec_test, y_test, RULE).f1
+    f1_pw = anomaly.evaluate(m_pw1.train_errors, s_pw_test, y_test, RULE).f1
+    out["secagg score distance"] = _rel(s_sec_test.double(), s_pw_test.double())
+    out["secagg f1"], out["unmasked f1"] = f1_sec, f1_pw
+    say("engine", f"secagg round (pairwise, frac_bits {frac}): {times['secagg round']:.2f} ms, "
+        f"launches {launches['secagg round']}; masked aggregate == unmasked sum and decodes "
+        f"bit for bit; test scores max|d|/max {out['secagg score distance']:.2e} from the "
+        f"unmasked pairwise round (no bar), F1 {f1_sec:.4f} against {f1_pw:.4f}")
+
+    # ---- 6. save / load: the one-tenant model, a 64-tenant fleet ----
+    xs_f, seeds_f = fleet_data_d[0], fleet_data[1]
+    fl_eng = engine(mode="vmap", tenants=xs_f.shape[0])
+    fl = fl_eng.fit(xs_f, seeds=seeds_f)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, eng, state in (("model", one, model), ("fleet", fl_eng, fl)):
+            path, times[f"{name} save"] = timed(lambda: eng.save(state, os.path.join(tmp, name)))
+            back, times[f"{name} load"] = timed(lambda: eng.load(path))
+            same_leaves(back, state, f"{name} save/load")
+            out[f"{name} bytes"] = _tree_bytes(path)
+    say("engine", "save / load (bit-identical round trips): " + ", ".join(
+        f"{n} {times[n + ' save']:.2f} / {times[n + ' load']:.2f} ms, {out[n + ' bytes']} bytes"
+        for n in ("model", "fleet")) + f"; async session after round 2 saved in "
+        f"{times['session save']:.2f} ms, loaded in {times['session load']:.2f} ms, "
+        f"{out['session bytes']} bytes")
+
+    # ---- 7. the engine's reduce 64 -> 32, sequential against pairwise ----
+    red = {}
+    for merge in ("sequential", "pairwise"):
+        eng = engine(mode="vmap", tenants=fl.size, merge=merge)
+        red[merge], times[f"reduce {merge}"] = timed(lambda: eng.reduce(fl, 2))
+    la, lb = checkpoint.flatten(red["sequential"]), checkpoint.flatten(red["pairwise"])
+    leaf_apart = [_rel(a.double(), b.double()) if a.is_floating_point()
+                  else float(not torch.equal(a, b)) for a, b in zip(la, lb, strict=True)]
+    out["reduce leaves apart"] = leaf_apart
+    worst_kappa = _check_reduced_agree(red["sequential"], red["pairwise"])
+    say("engine", f"reduce {fl.size} -> {fl.size // 2}: sequential {times['reduce sequential']:.2f}"
+        f" ms, pairwise {times['reduce pairwise']:.2f} ms; knowledge, error pools, seeds and "
+        f"lambdas bit-identical, encoder S and U S^2 U^T within 1e-4, each layer's W and b at "
+        f"most {worst_kappa:.3f} of its kappa bar; every leaf's max|d|/max (no bar): "
+        + " ".join(f"{d:.1e}" for d in leaf_apart))
+
+    phase_profile("engine: sync sequential round (4 sites)",
+                  lambda: seq.session().round(sites), ("slice_kernel", "slice_reduce_kernel"))
+    say("engine", "launches per round: " + ", ".join(f"{n} {v}" for n, v in launches.items()))
+    say("engine", "times (host clock, ending in torch.cuda.synchronize()): "
+        + ", ".join(f"{name} {ms:.2f} ms" for name, ms in times.items()))
+    say("engine", f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return {"ms": times, "launches": launches, **out}
 
 
 # ---------------------------------------------------------------------------
@@ -2855,7 +3285,7 @@ def main() -> int:
         phase_profile("streamed fused fit_chunked", lambda: daef.fit_chunked(
             cfg, xtr, chunk_samples=CHUNK_SAMPLES), slice_kernels)
         fleet_seeds, xs_d = fleet_data[1], fleet_data_d[0]
-        phase_profile("fused fleet fit (64 tenants)", lambda: fleet.fleet_fit(
+        phase_profile("fused fleet fit (64 tenants)", lambda: fleet._fit_fleet(
             cfg, xs_d, seeds=fleet_seeds), slice_kernels)
         phase_profile("fused chunked fleet fit (64 tenants)", lambda: fleet._fit_fleet_chunked(
             cfg, xs_d, chunk_samples=FLEET_CHUNK, seeds=fleet_seeds), slice_kernels)
@@ -2868,6 +3298,8 @@ def main() -> int:
         train_launches, lm_numbers["train"] = phase_train(card)
         svd_numbers = phase_svd(cfg, xtr, xte, y_test, references, card_fits, fleet_data,
                                 fleet_data_d, devices)
+        engine_numbers = phase_engine(cfg, y_test, xtr, xte, references, card_fits,
+                                      fleet_data, fleet_data_d)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3025,6 +3457,7 @@ def main() -> int:
         },
     ]
     print(json.dumps({"svd": svd_numbers}))
+    print(json.dumps({"engine": engine_numbers}))
     print(json.dumps({"lm": lm_numbers}))
     print(json.dumps({"per_shape": {"rolann_stats": rows, **fold_rows, **batched_rows,
                                     **lm_rows, "flash_attention_bwd": b8_rows}}))

@@ -15,7 +15,10 @@ chunk by chunk (``daef.fit_chunked``, ``daef.fit_stream``), with scoring,
 classification and the federated merges (``daef.merge_models``,
 ``partial_fit``); and the same for a fleet of K tenants at once
 (``repro_torch.fleet``: fit, chunked and streamed fits, pairwise merges,
-scores, thresholds).  The model zoo's serving side is ported for the dense,
+scores, thresholds).  One engine (``repro_torch.engine.DAEFEngine`` under an
+``ExecutionPlan``) drives them and the paper's federated protocol
+(``FederationSession``: sync and async rounds, secure aggregation), and
+checkpoints (``repro_torch.train.checkpoint``) cross with the JAX package's.  The model zoo's serving side is ported for the dense,
 SSM and hybrid families (``repro_torch.models.get_bundle``: init, forward,
 prefill), with the DAEF head on their pooled hidden states
 (``repro_torch.models.daef_head``).  ROADMAP.md lists what waits.

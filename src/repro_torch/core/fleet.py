@@ -33,8 +33,9 @@ Differences from the reference, on purpose:
     torch has none, so it is gone;
   * ``_fit_fleet_stream`` takes ``device=`` where the reference takes
     ``place=`` (its mesh sharding waits for ROADMAP queue A item 12);
-  * ``fleet_fit`` calls ``_fit_fleet`` directly: the reference's is a
-    deprecation shim onto the engine, which waits for ROADMAP item 9.
+  * ``_validate_groups`` (the reference's is in ``fleet_sharded``, which
+    waits for item 12) lives here, for the engine's reduce.
+``fleet_fit`` is the engine's deprecation shim, as the reference's is.
 Entry points that take data take ``device=`` (``None``: the card).
 """
 from __future__ import annotations
@@ -42,6 +43,7 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -225,13 +227,23 @@ def fleet_fit(
     n_partitions: int = 1,
     device=None,
 ) -> DAEFFleet:
-    """Train K independent DAEF models in one call (:func:`_fit_fleet`).  The
-    reference's ``fleet_fit`` is a deprecation shim onto its engine; this one
-    becomes that shim when the engine is ported (ROADMAP queue A item 9)."""
+    """DEPRECATED — use ``DAEFEngine(config, ExecutionPlan(mode="vmap",
+    tenants=K), device=...).fit(xs, ...)`` (`repro_torch.engine`).  Thin
+    shim, identical behavior."""
+    from repro_torch import engine as _engine
+
+    _engine.deprecation.warn_once(
+        "fleet.fleet_fit", "DAEFEngine(config, ExecutionPlan(mode='vmap', "
+        "tenants=K)).fit(xs, ...)"
+    )
     if getattr(xs, "ndim", None) != 3:
         raise ValueError(f"fleet data must be [K, m0, n], got {_shape(xs)}")
-    return _fit_fleet(config, xs, seeds=seeds, lam_hidden=lam_hidden, lam_last=lam_last,
-                      n_partitions=n_partitions, device=device)
+    eng = _engine.DAEFEngine(
+        config, _engine.ExecutionPlan(mode="vmap", tenants=int(xs.shape[0])),
+        device=device,
+    )
+    return eng.fit(xs, seeds=seeds, lam_hidden=lam_hidden, lam_last=lam_last,
+                   n_partitions=n_partitions)
 
 
 @functools.lru_cache(maxsize=256)
@@ -510,6 +522,26 @@ def fleet_partial_fit(config: daef.DAEFConfig, fleet: DAEFFleet, xs_new, *,
         lam_last=fleet.lam_last, device=daef._model_device(fleet.model, device),
     )
     return fleet_merge(config, fleet, update)
+
+
+def _validate_groups(fl: DAEFFleet, group_size: int) -> None:
+    """Every group of ``group_size`` adjacent tenants shares a seed and its
+    lambdas (shared stage-1 randomness), as the engine's reduce requires;
+    the reference's errors, word for word."""
+    seeds = fl.seeds.cpu().numpy().reshape(-1, group_size)
+    if not np.array_equal(seeds, np.broadcast_to(seeds[:, :1], seeds.shape)):
+        raise ValueError(
+            "fleet_merge_tree: every group of "
+            f"{group_size} adjacent tenants must share a seed (shared "
+            "stage-1 randomness) — got per-group seeds "
+            f"{[list(dict.fromkeys(row)) for row in seeds.tolist()][:8]}"
+        )
+    for name in ("lam_hidden", "lam_last"):
+        lam = getattr(fl, name).cpu().numpy().reshape(-1, group_size)
+        if not np.allclose(lam, lam[:, :1]):
+            raise ValueError(
+                f"fleet_merge_tree: {name} must match within each merge group"
+            )
 
 
 def fleet_merge_pairwise(config: daef.DAEFConfig, fleet: DAEFFleet) -> DAEFFleet:

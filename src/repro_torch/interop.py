@@ -26,6 +26,12 @@ layer stacks keep their leading axis (``layers`` [L, ...] of the dense and
 SSM families, ``periods`` [n_periods, ...] of the hybrid, whose remainder
 blocks stay the list ``tail``).
 
+A site's published exchange state — the triple ``(encoder factors,
+per-layer knowledge, train errors)`` a federation session keeps per site —
+crosses as the leaves of ``jax.tree.flatten(state)``: ``u``, ``s``, each
+layer's knowledge, the errors (:func:`exchange_state_from_numpy`,
+:func:`exchange_state_to_numpy`).
+
 An Adam state crosses as its three fields (step, mu, nu), each converted
 with ``jax.tree.map(numpy.asarray, ...)`` on the JAX side; mu and nu have
 the parameters' tree (:func:`adam_state_from_numpy`,
@@ -107,6 +113,39 @@ def fleet_from_numpy(config: DAEFConfig, leaves, *, device=None) -> DAEFFleet:
 def fleet_to_numpy(fleet: DAEFFleet) -> list[np.ndarray]:
     """The fleet's leaves as numpy arrays, in ``jax.tree.flatten`` order."""
     return [t.detach().cpu().numpy() for t in _tree_leaves(fleet)]
+
+
+def exchange_state_from_numpy(config: DAEFConfig, leaves, *, device=None) -> tuple:
+    """A site's exchange state ``(SvdFactors, knowledge tuple, errors)`` on
+    ``device`` from the reference's leaves (see the module docstring); the
+    error pool stays a numpy array, as a session keeps it on the host."""
+    leaves = list(leaves)
+    kind = _knowledge_type(config)
+    n_hidden = len(config.layer_sizes) - 2
+    want = 2 + len(kind._fields) * n_hidden + 1
+    if len(leaves) != want:
+        raise ValueError(
+            f"expected {want} leaves for an exchange state of layer_sizes "
+            f"{config.layer_sizes}, got {len(leaves)}"
+        )
+    dev = resolve_device(device)
+    it = iter(torch.as_tensor(np.array(leaf), device=dev) for leaf in leaves[:-1])
+    enc = dsvd.SvdFactors(u=next(it), s=next(it))
+    knowledge = tuple(kind(*(next(it) for _ in kind._fields)) for _ in range(n_hidden))
+    return enc, knowledge, np.array(leaves[-1])
+
+
+def exchange_state_to_numpy(state) -> list[np.ndarray]:
+    """An exchange state's leaves as numpy arrays, in ``jax.tree.flatten``
+    order."""
+    enc, knowledge, errors = state
+    leaves = [*enc]
+    for k in knowledge:
+        leaves.extend(k)
+    out = [t.detach().cpu().numpy() for t in leaves]
+    if isinstance(errors, torch.Tensor):
+        errors = errors.detach().cpu().numpy()
+    return out + [np.asarray(errors)]
 
 
 def _tree_to_torch(tree, dev: torch.device):

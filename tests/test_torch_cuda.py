@@ -957,3 +957,92 @@ def test_train_step_on_card_matches_host(card, microbatches):
     for host, got in zip(*results):
         scale = max(float(host.abs().max()), 1e-30)
         assert float((got.cpu() - host).abs().max()) <= 1e-4 * scale
+
+
+# ---- the engine, federation sessions and checkpoints on the card ----
+
+FED_LAYERS = (9, 3, 5, 7, 9)
+
+
+def _fed_cfg():
+    return daef.DAEFConfig(layer_sizes=FED_LAYERS, lam_hidden=0.7, lam_last=0.9,
+                           stats_backend="fused")
+
+
+def test_engine_fit_on_card_is_daef_fit(card):
+    """The engine's one-tenant fit and its vmap fleet fit on the card are the
+    module-level fits, leaf for leaf, bit for bit; scores and labels too."""
+    from repro_torch.engine import DAEFEngine, ExecutionPlan
+    from repro_torch.train import checkpoint
+
+    cfg = daef.DAEFConfig(layer_sizes=(10, 4, 6, 8, 10), lam_hidden=0.7, lam_last=0.9)
+    x = lowrank_data(10, 4, 5_000, seed=0)
+    engine = DAEFEngine(cfg, ExecutionPlan(stats_backend="fused"))
+    assert engine.device.type == "cuda" and engine.config.stats_backend == "fused"
+    before = rolann_stats.launches
+    model = engine.fit(x, n_partitions=4)
+    assert rolann_stats.launches - before == 2
+    want = daef.fit(dataclasses.replace(cfg, stats_backend="fused"), x, n_partitions=4)
+    for a, b in zip(checkpoint.flatten(model), checkpoint.flatten(want), strict=True):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    scores = engine.scores(model, x[:, :500])
+    assert torch.equal(engine.classify(scores, engine.thresholds(model)),
+                       (scores > engine.thresholds(model)).to(torch.int32))
+    xs = np.stack([lowrank_data(10, 4, 2_000, seed=s) for s in range(4)])
+    fleet_engine = DAEFEngine(cfg, ExecutionPlan(mode="vmap", tenants=4, stats_backend="fused"))
+    fl = fleet_engine.fit(xs, seeds=[0, 0, 1, 1])
+    fl_want = fleet._fit_fleet(dataclasses.replace(cfg, stats_backend="fused"), xs,
+                               seeds=[0, 0, 1, 1])
+    for a, b in zip(checkpoint.flatten(fl), checkpoint.flatten(fl_want), strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("federation", ["sync", "async"])
+def test_session_rounds_on_card_match_host(card, federation):
+    """A sequential sync round (B1 per site and layer) and an equal-width
+    async round (one fleet fit, B4) on the card against the same rounds on
+    the CPU, at TOLS (tests/_torch_parity.py's assert_models_match)."""
+    from _torch_parity import assert_models_match
+
+    from repro_torch.engine import DAEFEngine, ExecutionPlan
+
+    x = lowrank_data(9, 3, 480, seed=3)
+    if federation == "sync":
+        plan = ExecutionPlan(merge="sequential")
+        parts = [x[:, a:b] for a, b in ((0, 100), (100, 230), (230, 350), (350, 480))]
+        wrapper, launches = rolann_stats, 4 * (len(FED_LAYERS) - 3)
+    else:
+        plan = ExecutionPlan(federation="async", max_staleness=0)
+        parts = [x[:, i * 120:(i + 1) * 120] for i in range(4)]
+        wrapper, launches = rolann_stats_batched, len(FED_LAYERS) - 3
+    on_card = DAEFEngine(_fed_cfg(), plan).session()
+    on_host = DAEFEngine(_fed_cfg(), plan, device="cpu").session()
+    before = wrapper.launches
+    m_card = on_card.round(parts)
+    assert wrapper.launches - before == launches
+    m_host = on_host.round(parts)
+    assert_models_match(m_host, m_card, 0.9)
+    if federation == "async":
+        m_card, m_host = on_card.round({0: parts[0]}), on_host.round({0: parts[0]})
+        assert on_card.sites == on_host.sites == {0: 0, 1: 1, 2: 1, 3: 1}
+        assert_models_match(m_host, m_card, 0.9)
+
+
+def test_checkpoint_written_on_card_loads_on_host_bit_identical(card, tmp_path):
+    from repro_torch.engine import DAEFEngine, ExecutionPlan
+    from repro_torch.train import checkpoint
+
+    x = lowrank_data(9, 3, 480, seed=4)
+    engine = DAEFEngine(_fed_cfg(), ExecutionPlan(federation="async"))
+    session = engine.session()
+    session.round({"a": x[:, :200], "b": x[:, 200:]})
+    model = engine.fit(x)
+    host = DAEFEngine(_fed_cfg(), ExecutionPlan(federation="async"), device="cpu")
+    back = host.load(engine.save(model, str(tmp_path / "model")))
+    for a, b in zip(checkpoint.flatten(back), checkpoint.flatten(model), strict=True):
+        assert a.device.type == "cpu" and a.dtype == b.dtype and torch.equal(a, b.cpu())
+    restored = host.load(engine.save(session, str(tmp_path / "session")))
+    assert restored.sites == session.sites
+    for a, b in zip(checkpoint.flatten(restored.model), checkpoint.flatten(session.model),
+                    strict=True):
+        assert torch.equal(a, b.cpu())

@@ -35,6 +35,7 @@ from repro.core import fleet as jfleet
 from repro_torch import interop
 from repro_torch.core import daef as tdaef
 from repro_torch.core import fleet as tfleet
+from repro_torch.engine import DAEFEngine, ExecutionPlan
 
 K, M0, LATENT, N = 4, 10, 4, 240
 LAYERS = (M0, LATENT, 6, 8, M0)
@@ -109,9 +110,9 @@ def test_fit_fleet_matches_the_loop_and_the_vmap_references(backend):
     _assert_fleets_match(_reference_fleet(), tf)
     for i in range(K):  # the loop reference: one daef.fit per tenant
         assert_models_match(_loop_reference(i), _tenant(tf, i), LAM_LAST)
-    # the public entry point itself (no engine in the port yet: not a shim)
-    public = tfleet.fleet_fit(_tcfg(backend), torch.from_numpy(np.array(xs)),  # repro-lint: disable=RPR001
-                              **PER_TENANT, device="cpu")
+    # the engine's vmap fit, the public entry point (fleet_fit is its shim)
+    engine = DAEFEngine(_tcfg(backend), ExecutionPlan(mode="vmap", tenants=K), device="cpu")
+    public = engine.fit(torch.from_numpy(np.array(xs)), **PER_TENANT)
     for a, b in zip(tfleet._tree_leaves(public), tfleet._tree_leaves(tf)):
         assert torch.equal(a, b)
 
@@ -274,12 +275,12 @@ class _Port:
     DAEFFleet = tfleet.DAEFFleet
 
     @staticmethod
-    def fleet_fit(cfg, xs, **kw):
-        return tfleet.fleet_fit(cfg, xs, device="cpu", **kw)  # repro-lint: disable=RPR001
-
-    @staticmethod
     def _fit_fleet(cfg, xs, **kw):
         return tfleet._fit_fleet(cfg, xs, device="cpu", **kw)
+
+    @staticmethod
+    def _fit_fleet_chunked(cfg, xs, **kw):
+        return tfleet._fit_fleet_chunked(cfg, xs, device="cpu", **kw)
 
     @staticmethod
     def _fit_fleet_stream(cfg, batches, **kw):
@@ -306,7 +307,7 @@ def test_errors_match_the_reference():
         return tfleet._tree_map(lambda leaf: leaf[:3].contiguous(), fl)
 
     bad = {
-        "fleet data must be": lambda f, c, fl, lib: f.fleet_fit(c, xs[0]),  # repro-lint: disable=RPR001
+        "fleet data must be": lambda f, c, fl, lib: f._fit_fleet_chunked(c, xs[0], chunk_samples=8),
         "fleet data must be ": lambda f, c, fl, lib: f._fit_fleet(c, xs[0]),
         "input dim": lambda f, c, fl, lib: f._fit_fleet(c, xs[:, :5]),
         "per-tenant value": lambda f, c, fl, lib: f._fit_fleet(c, xs, seeds=[1, 2]),

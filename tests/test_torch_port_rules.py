@@ -158,14 +158,23 @@ def test_tensor_core_sources_hash_the_shared_header(name):
 
 
 def test_fleet_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
-    from repro_torch.core import fleet
+    from repro_torch.core import federated, fleet
+    from repro_torch.engine import DAEFEngine, ExecutionPlan
 
     cfg = daef.DAEFConfig(layer_sizes=(4, 2, 4))
     xs = np.random.default_rng(0).normal(size=(2, 4, 40)).astype(np.float32)
     fl = fleet._fit_fleet(cfg, xs, device="cpu")
+    state = (fl.model.encoder_factors, fl.model.layer_knowledge, fl.model.train_errors)
+    leaves = interop.exchange_state_to_numpy(fleet._tree_map(lambda t: t[0], state))
     _no_card(monkeypatch)
     calls = [
-        lambda: fleet.fleet_fit(cfg, xs),  # repro-lint: disable=RPR001
+        lambda: DAEFEngine(cfg, ExecutionPlan(mode="vmap", tenants=2)),
+        lambda: DAEFEngine(cfg, ExecutionPlan(federation="async")),
+        lambda: federated._federated_fit(cfg, [xs[0], xs[1]]),
+        lambda: federated.train_locally_and_aggregate(cfg, [xs[0]]),
+        lambda: federated.additive_to_exchange(cfg, [np.eye(4), np.eye(3), np.ones((4, 3)),
+                                                     np.ones(64)]),
+        lambda: interop.exchange_state_from_numpy(cfg, leaves),
         lambda: fleet._fit_fleet(cfg, xs),
         lambda: fleet._fit_fleet_chunked(cfg, xs, chunk_samples=16),
         lambda: fleet._fit_fleet_stream(cfg, [xs[..., :20], xs[..., 20:]]),
