@@ -220,8 +220,35 @@ no result:
     per round and a profile of the sequential round.  Times on the host
     clock.
 
+19. dp + serving — the DP release and fleet serving at full width.  DP:
+    phase 18's four creditcard quarters in a sync ``merge="pairwise"``
+    session under ``PrivacySpec(epsilon=8, composition="basic",
+    budget_epsilon=16)``, fused backend: two rounds (every site a
+    ``dp.fit_dp`` release, B3 once per hidden layer), each round's noise
+    draws bit-identical to the port's CPU session under the same keys and
+    the merged noised blocks within 1e-4 of their max of it; every site's
+    ledger at exactly (16, 2e-5), also after a save and a restore; the
+    restored session's third round refused (``PrivacyBudgetExceeded``)
+    before any draw, the spend unchanged.  Serving: phase 7's 64-tenant
+    fleet (fused fit: B4 4) behind ``FleetServer(tile_width=32,
+    rule="q90")``: ``warmup`` captures one CUDA graph per packer shape (36),
+    each replay bit-identical to the eager ``_score_tile`` on random tiles;
+    20 rounds of the serve CLI's traffic (each tenant 1-64 samples of its
+    site's test split, ``default_rng(0)``) with scores within 1e-5 of their
+    max of ``engine.scores`` on the padded batch and flags equal except at
+    ties within 1e-6 of mu, no capture after warmup, flags within 4 a tenant
+    of the port's CPU server on the same fleet; a repeated round served
+    from the cache with no dispatch; ``partial_fit`` on a new block of 512
+    samples a tenant (B4 4, and B6 4 under a chunked plan), recalibrated,
+    re-served against the new fleet's padded scores; the pad-to-max path
+    over the same 20 rounds; replay and eager tile times on CUDA events; a
+    profile of a 20-round serve; then ``python -m repro_torch.launch.serve``
+    with ``--fleet 64 --rounds 5``, ``--async-rounds 3 --sites 8
+    --dp-epsilon 8`` and ``--privacy`` as three processes, each ending in
+    its ``... OK`` line.  Times on the host clock.
+
 The last lines are a JSON object of the svd phase's numbers, a JSON object
-of the engine phase's numbers, a JSON object of the LM paths' numbers, a JSON object of per-shape numbers, the card's name and power limit, a JSON object of
+of the engine phase's numbers, a JSON object of phase 19's numbers, a JSON object of the LM paths' numbers, a JSON object of per-shape numbers, the card's name and power limit, a JSON object of
 per-kernel numbers for all ten kernels, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -1577,14 +1604,16 @@ def phase_fleet(cfg, data, data_d):
     return launches, devices
 
 
-def phase_profile(label, run, detail=()):
-    """One ``run()`` under torch.profiler: device time by kernel, and the
-    device's busy share of the wall time; each kernel whose name holds one
-    of ``detail`` is listed by name with its launches and device time."""
+def phase_profile(label, run, detail=(), warm=True):
+    """One ``run()`` under torch.profiler (after an unprofiled one when
+    ``warm``): device time by kernel, and the device's busy share of the
+    wall time; each kernel whose name holds one of ``detail`` is listed by
+    name with its launches and device time.  Returns the busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    run()
+    if warm:
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1605,6 +1634,7 @@ def phase_profile(label, run, detail=()):
             t = getattr(e, key)
             say("profile", f"{label}: {e.key.split('(')[0][:80]}: {e.count} launches, "
                 f"{t / 1e3:.4f} ms ({t / max(e.count, 1):.2f} µs each)")
+    return device_us / 1e6 / wall
 
 
 def _per_launch_sum(rows):
@@ -2269,6 +2299,381 @@ def phase_engine(cfg, y_test, xtr, xte, references, card_fits, fleet_data,
     say("engine", "times (host clock, ending in torch.cuda.synchronize()): "
         + ", ".join(f"{name} {ms:.2f} ms" for name, ms in times.items()))
     say("engine", f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return {"ms": times, "launches": launches, **out}
+
+
+# ---------------------------------------------------------------------------
+# 19. the DP release and fleet serving
+# ---------------------------------------------------------------------------
+
+DP_SPEC = dict(epsilon=8.0, composition="basic", budget_epsilon=16.0)
+SERVE_ROUNDS = 20
+SERVE_PAD = 64         # each tenant sends 1..SERVE_PAD samples a round
+SERVE_TILE = 32
+SERVE_NEW_BLOCK = 512  # samples a tenant in the partial fit
+SERVE_CLI = (["--fleet", "64", "--rounds", "5", "--stats-backend", "fused"],
+             ["--async-rounds", "3", "--sites", "8", "--dp-epsilon", "8"],
+             ["--privacy"])
+
+
+def _start_cli_runs():
+    """``python -m repro_torch.launch.serve`` in each mode of SERVE_CLI, as
+    processes started together (each reaches the card on its own)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return [(argv, subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", *argv],
+                                    cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+            for argv in SERVE_CLI]
+
+
+def _finish_cli_runs(runs) -> dict:
+    """Wait for every CLI process; each must exit 0 with its OK line last."""
+    out = {}
+    for argv, proc in runs:
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        lines = stdout.strip().splitlines()
+        name = " ".join(argv)
+        for line in lines:
+            say("serve-cli", f"{name}: {line}")
+        ok = {"--fleet": "fleet serve OK", "--async-rounds": "async federation OK",
+              "--privacy": "privacy smoke OK"}[argv[0]]
+        check(proc.returncode == 0 and lines and lines[-1] == ok,
+              f"serve CLI {name} exited {proc.returncode}, last line "
+              f"{lines[-1] if lines else None!r}; stderr tail: {stderr[-2000:]}")
+        out[name] = lines[-2] if len(lines) > 1 else ""
+    return out
+
+
+def _serve_traffic(k, tests, rounds, seed=0):
+    """The serve CLI's traffic: each round, each tenant 1..SERVE_PAD samples
+    of its site's test split without replacement (tenants 2s and 2s + 1
+    share site s's)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(rounds):
+        counts = rng.integers(1, SERVE_PAD + 1, size=k)
+        reqs = []
+        for t in range(k):
+            x_test = tests[t // 2]
+            c = min(int(counts[t]), x_test.shape[1])
+            idx = rng.choice(x_test.shape[1], size=c, replace=False)
+            reqs.append(np.ascontiguousarray(x_test[:, idx], np.float32))
+        out.append(reqs)
+    return out
+
+
+def _serve_round(server, reqs):
+    rids = [server.submit(t, x) for t, x in enumerate(reqs)]
+    server.flush()
+    return [server.take(rid) for rid in rids]
+
+
+def _padded(reqs, m0):
+    import numpy as np
+
+    counts = np.array([x.shape[1] for x in reqs])
+    batch = np.zeros((len(reqs), m0, SERVE_PAD), np.float32)
+    for t, x in enumerate(reqs):
+        batch[t, :, : counts[t]] = x
+    return batch, counts
+
+
+def _check_served(label, results, engine, state, reqs, mus):
+    """Served scores against ``engine.scores`` on the padded batch (1e-5 of
+    the max) and flags against those scores at the server's thresholds,
+    except at ties within 1e-6 of mu.  Returns the worst share of the bar
+    and the tie count."""
+    import numpy as np
+
+    batch, counts = _padded(reqs, engine.config.layer_sizes[0])
+    pad = engine.scores(state, batch, n_valid=counts).cpu().numpy()
+    worst, ties = 0.0, 0
+    for t, res in enumerate(results):
+        want = pad[t, : counts[t]]
+        scale = max(float(np.abs(want).max()), 1e-30)
+        d = float(np.abs(res.scores - want).max()) / scale
+        check(d <= 1e-5, f"{label}: tenant {t} scores {d:.3e} of max from the padded path "
+              "(bar 1e-5)")
+        worst = max(worst, d / 1e-5)
+        tie = np.abs(want - mus[t]) <= 1e-6 * abs(mus[t])
+        ties += int(tie.sum())
+        flags = (want > mus[t]).astype(np.int32)
+        check(np.array_equal(res.flags[~tie], flags[~tie]),
+              f"{label}: tenant {t} flags differ from the padded path's off ties")
+    return worst, ties
+
+
+def phase_dp_serving(cfg, xtr, fleet_data, fleet_data_d):
+    """Phase 19: the DP release in a federation session and the fleet
+    server, at full width.  Returns the phase's numbers."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import daef, threefry
+    from repro_torch.engine import DAEFEngine, ExecutionPlan
+    from repro_torch.privacy import PrivacyBudgetExceeded, PrivacySpec, dp
+    from repro_torch.serving import FleetServer, latency_summary
+    from repro_torch.serving import server as server_mod
+    from repro_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    base = daef.DAEFConfig(**CREDITCARD)
+    wrappers = {**_wrappers(), **_fleet_wrappers()}
+
+    def zero():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in wrappers.items() if fn.launches}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (time.perf_counter() - t0) * 1e3
+
+    times, launches, out = {}, {}, {}
+    n_hidden = len(path_shapes(cfg))
+
+    # ---- DP: two sync pairwise rounds over phase 18's quarters ----
+    spec = PrivacySpec(**DP_SPEC)
+    plan = ExecutionPlan(merge="pairwise", stats_backend="fused", privacy=spec)
+    sites = daef._split(xtr, ENGINE_SITES)
+    DAEFEngine(base, plan).session().round(sites)  # warm-up, a throwaway ledger
+    draws = {"card": [], "cpu": []}
+    real_normal = dp._normal
+
+    def spy(side):
+        def normal(*args, **kwargs):
+            z = real_normal(*args, **kwargs)
+            draws[side].append(z.cpu())
+            return z
+        return normal
+
+    card = DAEFEngine(base, plan)
+    host = DAEFEngine(base, plan, device="cpu")
+    s_card, s_host = card.session(), host.session()
+    sites_h = [p.cpu() for p in sites]
+    models = {}
+    try:
+        for r in (1, 2):
+            zero()
+            dp._normal = spy("card")
+            models[r], times[f"dp round {r}"] = timed(lambda: s_card.round(sites))
+            launches[f"dp round {r}"] = read()
+            dp._normal = spy("cpu")
+            t0 = time.perf_counter()
+            host_model = s_host.round(sites_h)
+            times[f"dp round {r} on the host"] = (time.perf_counter() - t0) * 1e3
+        dp._normal = real_normal
+        # a release draws the encoder's, each layer's G and M, the last
+        # layer's G and M and the error counts' noise
+        check(len(draws["card"]) == len(draws["cpu"]) == 2 * ENGINE_SITES * (2 * n_hidden + 4)
+              and all(torch.equal(a, b) for a, b in zip(draws["card"], draws["cpu"])),
+              f"DP draws: {len(draws['card'])} on the card, {len(draws['cpu'])} on the host, "
+              "not bit-identical")
+    finally:
+        dp._normal = real_normal
+    want_b3 = {"rolann_fused_chunk": ENGINE_SITES * n_hidden}
+    check(all(launches[f"dp round {r}"] == want_b3 for r in (1, 2)),
+          f"DP rounds launched {launches}; expected B3 {n_hidden} per release")
+    on_host = checkpoint.map_leaves(lambda a: a.cpu(), models[2])
+    apart = [_stats_rel(a, b) for a, b in zip(on_host.layer_knowledge,
+                                              host_model.layer_knowledge, strict=True)]
+    apart_e = _rel(_enc_gram(on_host.encoder_factors), _enc_gram(host_model.encoder_factors))
+    check(max(apart + [apart_e]) <= 1e-4, f"DP session's noised blocks vs the CPU session: "
+          f"layers {apart}, encoder {apart_e} (bar 1e-4)")
+    out["dp blocks vs host"] = max(apart + [apart_e])
+    spent = [s_card.privacy_spent(s) for s in range(ENGINE_SITES)]
+    check(all(sp == (16.0, 2e-5) for sp in spent), f"ledgers after two rounds: {spent}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = card.save(s_card, os.path.join(tmp, "dp"))
+        restored = DAEFEngine(base, plan).load(path)
+    check(all(restored.privacy_spent(s) == (16.0, 2e-5) for s in range(ENGINE_SITES)),
+          "ledgers after the restore")
+    la, lb = checkpoint.flatten(restored.model), checkpoint.flatten(s_card.model)
+    check(all(torch.equal(a, b) for a, b in zip(la, lb, strict=True)),
+          "restored DP session's model differs")
+    drawn = []
+    dp._normal = lambda *a, **k: drawn.append(1) or real_normal(*a, **k)
+    try:
+        restored.round(sites)
+        check(False, "a third DP round under budget_epsilon=16 was not refused")
+    except PrivacyBudgetExceeded as e:
+        out["budget refusal"] = str(e)
+    finally:
+        dp._normal = real_normal
+    check(not drawn and restored.rounds_run == 2
+          and all(restored.privacy_spent(s) == (16.0, 2e-5) for s in range(ENGINE_SITES)),
+          f"refused round drew {len(drawn)} times, rounds {restored.rounds_run}")
+    key = s_card._dp_key(0)
+    fit = lambda: dp.fit_dp(card.config, sites[0], key, spec)  # noqa: E731
+    fit()
+    zero()
+    _, times["fit_dp one site"] = timed(fit)
+    launches["fit_dp one site"] = read()
+    check(launches["fit_dp one site"] == {"rolann_fused_chunk": n_hidden},
+          f"fit_dp launched {launches['fit_dp one site']}")
+    say("dp", f"sync pairwise DP session, {ENGINE_SITES} sites of {[p.shape[1] for p in sites]}"
+        f", PrivacySpec({DP_SPEC}): rounds {times['dp round 1']:.2f}, {times['dp round 2']:.2f}"
+        f" ms (host: {times['dp round 1 on the host']:.0f}, {times['dp round 2 on the host']:.0f}"
+        f" ms); B3 {n_hidden} launches per release ({launches['dp round 1']} a round); fit_dp "
+        f"of one site {times['fit_dp one site']:.2f} ms; {len(draws['card'])} noise draws "
+        f"bit-identical to the CPU session's; noised blocks after round 2 "
+        f"{out['dp blocks vs host']:.2e} of their max from it (bar 1e-4); ledgers (16, 2e-5) "
+        "before and after a save / restore; the third round refused before any draw: "
+        f"{out['budget refusal']}")
+
+    # ---- serving: the 64-tenant fleet behind FleetServer ----
+    xs, seeds, tests, _ = fleet_data
+    xs_d = fleet_data_d[0]
+    k, m0, n = xs.shape
+    fplan = ExecutionPlan(mode="vmap", tenants=k, stats_backend="fused")
+    engine = DAEFEngine(base, fplan)
+    zero()
+    fl = engine.fit(xs_d, seeds=seeds)
+    launches["fleet fit"] = read()
+    check(launches["fleet fit"] == {"rolann_stats_batched": n_hidden},
+          f"fleet fit launched {launches['fleet fit']}")
+    traffic = _serve_traffic(k, tests, SERVE_ROUNDS)
+    server = FleetServer(engine, fl, tile_width=SERVE_TILE, rule="q90")
+    n_shapes, times["warmup (capture)"] = timed(server.warmup)
+    check(n_shapes == len(server._graphs) == 36 and server.probe_donation().ok is True,
+          f"warmup: {n_shapes} shapes, {len(server._graphs)} graphs")
+    mus = server.thresholds
+    mus_d = torch.as_tensor(mus, device="cuda")
+    gen = np.random.default_rng(1)
+    for (s, t), graph in server._graphs.items():
+        x = torch.from_numpy(gen.normal(size=(s, m0, t)).astype(np.float32))
+        meta = torch.stack([torch.from_numpy(gen.integers(0, k, size=s)),
+                            torch.from_numpy(gen.integers(0, t + 1, size=s))])
+        errs, flags = graph.replay(x.pin_memory(), meta.pin_memory())
+        want_e, want_f = server_mod._score_tile(engine.config, server._leaves, x.cuda(),
+                                                meta[0].cuda(), meta[1].cuda(), mus_d)
+        check(torch.equal(torch.isnan(errs), torch.isnan(want_e))
+              and torch.equal(torch.nan_to_num(errs), torch.nan_to_num(want_e))
+              and torch.equal(flags, want_f), f"graph of shape {(s, t)} differs from eager")
+    # per-tile times on CUDA events, the full tile and the smallest
+    tile_us = {}
+    for shape in ((k, SERVE_TILE), min(server._graphs)):
+        graph = server._graphs[shape]
+        args = (engine.config, server._leaves, graph.x, graph.meta[0], graph.meta[1], mus_d)
+        tile_us[str(shape)] = {"replay": cuda_ms(graph.graph.replay, reps=200) * 1e3,
+                               "eager": cuda_ms(lambda: server_mod._score_tile(*args),
+                                                reps=200) * 1e3}
+    lat, served, results = [], [], []
+    for reqs in traffic:
+        t0 = time.perf_counter()
+        results.append(_serve_round(server, reqs))
+        lat.append(time.perf_counter() - t0)
+        served.append(sum(x.shape[1] for x in reqs))
+    check(len(server._graphs) == 36, "a graph was captured after warmup")
+    summary = latency_summary(lat[1:], sum(served[1:]))
+    stats = dict(server.stats)
+    worst, ties = 0.0, 0
+    for reqs, res in zip(traffic, results):
+        w, tie = _check_served("serve", res, engine, fl, reqs, mus)
+        worst, ties = max(worst, w), ties + tie
+    # a repeated round: every column from the cache, no dispatch
+    before = server.stats["dispatches"]
+    again, times["repeated round"] = timed(lambda: _serve_round(server, traffic[-1]))
+    check(server.stats["dispatches"] == before
+          and all(r.cached_cols == r.scores.size for r in again)
+          and all(np.array_equal(a.scores, b.scores) for a, b in zip(again, results[-1])),
+          "the repeated round was not served from the cache alone")
+    # partial_fit on a new block: each tenant the first samples of its
+    # sibling device's training block (same site, unseen by this tenant)
+    new = np.ascontiguousarray(xs[np.arange(k) ^ 1][:, :, :SERVE_NEW_BLOCK])
+    zero()
+    fl2, times["partial_fit"] = timed(lambda: server.partial_fit(new))
+    launches["server partial_fit"] = read()
+    check(launches["server partial_fit"] == {"rolann_stats_batched": n_hidden}
+          and server.stats["recalibrations"] == 1 and len(server._graphs) == 36,
+          f"partial_fit launched {launches['server partial_fit']}, stats {server.stats}")
+    refit = _serve_round(server, traffic[-1])
+    check(all(r.cached_cols == 0 for r in refit), "the refit fleet served stale cache entries")
+    w, tie = _check_served("after partial_fit", refit, engine, fl2, traffic[-1],
+                           server.thresholds)
+    worst, ties = max(worst, w), ties + tie
+    # the pad-to-max path over the same traffic
+    pad_lat = []
+    pad_mus = engine.thresholds(fl, rule="q90")
+    for reqs in traffic:
+        batch, counts = _padded(reqs, m0)
+        t0 = time.perf_counter()
+        flags = engine.classify(engine.scores(fl, batch, n_valid=counts), pad_mus)
+        int(flags.sum())  # the readback
+        pad_lat.append(time.perf_counter() - t0)
+    pad_summary = latency_summary(pad_lat[1:], sum(served[1:]))
+    fresh = FleetServer(engine, fl, tile_width=SERVE_TILE, rule="q90")
+    fresh.warmup()
+    busy = phase_profile(f"serve: {SERVE_ROUNDS} rounds of 64 tenants (continuous)",
+                         lambda: [_serve_round(fresh, reqs) for reqs in traffic], warm=False)
+    # Untimed from here: the CLI's three modes run as processes of their own
+    # meanwhile.
+    cli = _start_cli_runs()
+    try:
+        chunked = DAEFEngine(base, ExecutionPlan(mode="vmap", tenants=k, stats_backend="fused",
+                                                 chunk_samples=FLEET_CHUNK))
+        zero()
+        FleetServer(chunked, fl, tile_width=SERVE_TILE, rule="q90").partial_fit(new)
+        launches["server partial_fit, chunked plan"] = read()
+        check(launches["server partial_fit, chunked plan"]
+              == {"rolann_fused_chunk_batched": n_hidden},
+              f"chunked partial_fit launched {launches['server partial_fit, chunked plan']}")
+        # the port's CPU server on the same fleet and traffic
+        host_engine = DAEFEngine(base, ExecutionPlan(mode="vmap", tenants=k), device="cpu")
+        host_server = FleetServer(host_engine, checkpoint.map_leaves(lambda a: a.cpu(), fl),
+                                  tile_width=SERVE_TILE, rule="q90")
+        flag_apart = np.zeros(k, np.int64)
+        for reqs, res in zip(traffic, results):
+            for t, (a, b) in enumerate(zip(res, _serve_round(host_server, reqs))):
+                flag_apart[t] += int((a.flags != b.flags).sum())
+        check(int(flag_apart.max()) <= 4, f"flags vs the CPU server: up to {flag_apart.max()} "
+              "a tenant (bar 4)")
+    finally:
+        cli_lines = _finish_cli_runs(cli)
+    out.update({
+        "continuous": summary, "pad": pad_summary, "served stats": stats,
+        "tile us": tile_us, "scores vs padded, share of the 1e-5 bar": worst,
+        "flag ties": ties, "flags apart from the CPU server, worst tenant":
+            int(flag_apart.max()), "serve busy share": busy,
+    })
+    say("serve", f"FleetServer over {k} tenants, tile width {SERVE_TILE}: warmup captured "
+        f"{n_shapes} CUDA graphs in {times['warmup (capture)']:.1f} ms, each replay "
+        f"bit-identical to eager; {SERVE_ROUNDS} rounds of the CLI's traffic: p50 "
+        f"{summary['p50_ms_per_round']:.3f} / p95 {summary['p95_ms_per_round']:.3f} ms a "
+        f"round, {summary['scores_per_sec']:.0f} scores/s (pad path p50 "
+        f"{pad_summary['p50_ms_per_round']:.3f} / p95 {pad_summary['p95_ms_per_round']:.3f} ms, "
+        f"{pad_summary['scores_per_sec']:.0f} scores/s); {stats['dispatches']} dispatches, "
+        f"{stats['dispatched_cols']} dispatched columns for {stats['scored']} scored, "
+        f"{stats['cache_hit_cols']} cache-hit columns; scores at most {worst:.3f} of the 1e-5 "
+        f"bar from the padded path, {ties} ties; flags vs the CPU server at most "
+        f"{int(flag_apart.max())} a tenant (bar 4); repeated round "
+        f"{times['repeated round']:.2f} ms, all cached, no dispatch; partial_fit "
+        f"{times['partial_fit']:.2f} ms, launches {launches['server partial_fit']} (chunked "
+        f"plan {launches['server partial_fit, chunked plan']}); per tile (CUDA events): "
+        + ", ".join(f"{sh} replay {v['replay']:.1f} µs, eager {v['eager']:.1f} µs"
+                    for sh, v in tile_us.items())
+        + f"; device busy {100 * busy:.1f} % of a {SERVE_ROUNDS}-round serve")
+    out["cli"] = cli_lines
+    say("serve", "launches: " + ", ".join(f"{n} {v}" for n, v in launches.items()))
+    say("serve", "times (host clock, ending in torch.cuda.synchronize()): "
+        + ", ".join(f"{name} {ms:.2f} ms" for name, ms in times.items()))
+    say("serve", f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
     return {"ms": times, "launches": launches, **out}
 
 
@@ -3300,6 +3705,7 @@ def main() -> int:
                                 fleet_data_d, devices)
         engine_numbers = phase_engine(cfg, y_test, xtr, xte, references, card_fits,
                                       fleet_data, fleet_data_d)
+        serving_numbers = phase_dp_serving(cfg, xtr, fleet_data, fleet_data_d)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3458,6 +3864,7 @@ def main() -> int:
     ]
     print(json.dumps({"svd": svd_numbers}))
     print(json.dumps({"engine": engine_numbers}))
+    print(json.dumps({"serving": serving_numbers}))
     print(json.dumps({"lm": lm_numbers}))
     print(json.dumps({"per_shape": {"rolann_stats": rows, **fold_rows, **batched_rows,
                                     **lm_rows, "flash_attention_bwd": b8_rows}}))

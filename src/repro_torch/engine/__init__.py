@@ -12,11 +12,11 @@
     model   = session.round(parts)
 
 ``device=`` is taken once, by the engine (``None``: the card); every state
-it returns lives there.  The ``loop`` and ``vmap`` modes run; mesh plans,
-tree merges (ROADMAP queue A item 12) and DP release (item 11) raise
-``NotImplementedError`` naming their item.  The module-level
-``fleet.fleet_fit`` and ``federated.federated_fit`` are deprecation shims
-over this API.
+it returns lives there.  The ``loop`` and ``vmap`` modes run, with either
+privacy tier (DP release, secure aggregation); mesh plans and tree merges
+(ROADMAP queue A item 12) raise ``NotImplementedError`` naming the item.
+The module-level ``fleet.fleet_fit`` and ``federated.federated_fit`` are
+deprecation shims over this API.
 """
 from repro_torch.engine import deprecation  # noqa: F401
 from repro_torch.engine.engine import DAEFEngine, EngineState  # noqa: F401

@@ -17,9 +17,8 @@ every state the engine returns lives on its device.
 
 What waits: ``mode="mesh"`` plans (tenant- or data-sharded), the
 ``merge="tree"`` reductions and the mesh placement of a loaded fleet are
-ROADMAP queue A item 12; a plan whose privacy spec enables DP needs
-``privacy.dp`` (item 11).  Each raises ``NotImplementedError`` naming its
-item: mesh and DP at construction, tree where it would run.
+ROADMAP queue A item 12.  Each raises ``NotImplementedError`` naming the
+item: mesh at construction, tree where it would run.
 
 State convention: with a 3-D ``[K, features, samples]`` batch the engine
 works on a ``DAEFFleet``; with a 2-D ``[features, samples]`` matrix on a
@@ -42,7 +41,6 @@ from repro_torch.engine.plan import ExecutionPlan, PlanError
 EngineState = daef.DAEFModel | fleet.DAEFFleet
 
 MESH_ITEM = "ROADMAP queue A item 12"
-DP_ITEM = "ROADMAP queue A item 11"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -99,8 +97,7 @@ class DAEFEngine:
         Raises:
             PlanError: as the reference's: ``plan`` is not an ExecutionPlan;
                 the plan and config conflict.
-            NotImplementedError: a mesh plan or an explicit mesh (item 12), a
-                plan whose privacy spec enables DP (item 11).
+            NotImplementedError: a mesh plan or an explicit mesh (item 12).
             RuntimeError: ``device`` is the card and none is present.
         """
         plan = plan if plan is not None else ExecutionPlan()
@@ -148,9 +145,6 @@ class DAEFEngine:
             kind = "data-sharded" if plan.data_sharded else "tenant-sharded"
             raise _not_ported(f"a mode='mesh' plan ({kind}, mesh_axes={plan.mesh_axes})",
                               MESH_ITEM)
-        if plan.privacy is not None and plan.privacy.dp_enabled:
-            raise _not_ported("a DP release (PrivacySpec(epsilon=...), privacy.dp.fit_dp)",
-                              DP_ITEM)
         self.config = config
         self.plan = plan
         self.device = resolve_device(device)

@@ -36,20 +36,22 @@ Exchange states live on the engine's device, except each site's per-sample
 train-error pool, which the session keeps on the host, as the reference
 does; pooled errors go to the device once, for the re-solve.  Secure
 aggregation (``PrivacySpec(secagg=True)``) masks the additive wire form of
-each state (`privacy.secagg`); DP release waits for ROADMAP queue A item 11
-(the engine refuses such a plan).
+each state (`privacy.secagg`); a DP spec (``PrivacySpec(epsilon=...)``)
+releases every site's state through `privacy.dp.fit_dp`, keyed per (site,
+round, occurrence) and spent on the site's `PrivacyLedger` first.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
+import zlib
 from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core import daef, dsvd, federated, fleet
+from repro_torch.core import daef, dsvd, federated, fleet, threefry
 from repro_torch.device import as_tensor
 from repro_torch.engine.engine import MESH_ITEM, _knowledge_template, _model_template, _not_ported
 from repro_torch.engine.plan import PlanError
@@ -228,12 +230,40 @@ class FederationSession:
         spec = self.engine.plan.privacy
         return spec if spec is not None and spec.enabled else None
 
+    def _ledger_for(self, site) -> PrivacyLedger:
+        led = self._privacy_ledgers.get(site)
+        if led is None:
+            spec = self.engine.plan.privacy
+            led = PrivacyLedger(
+                budget_epsilon=spec.budget_epsilon,
+                budget_delta=spec.budget_delta,
+                composition=spec.composition,
+            )
+            self._privacy_ledgers[site] = led
+        return led
+
     def privacy_spent(self, site) -> tuple[float, float]:
         """Cumulative ``(epsilon, delta)`` spent by ``site`` across every
         round so far, under the spec's composition rule.  (0.0, 0.0) for a
         site that never released."""
         led = self._privacy_ledgers.get(site)
         return (0.0, 0.0) if led is None else led.spent()
+
+    def _dp_key(self, site, occurrence: int = 0) -> torch.Tensor:
+        """Per-(site, round, occurrence) release key: fold the site's id,
+        the round tick and the within-round occurrence index into the
+        config seed, so no two releases EVER reuse noise (an async site
+        may legally report twice in one round) and reruns are
+        reproducible.  The reference's key bit for bit (`threefry.fold_in`
+        is ``jax.random.fold_in``)."""
+        cfg = self.engine.config
+        root = threefry.PRNGKey(cfg.seed)
+        site_key = threefry.fold_in(
+            root, zlib.crc32(repr(site).encode()) & 0x7FFFFFFF
+        )
+        tick = (self.clock if self.engine.plan.async_federation
+                else self.rounds_run)
+        return threefry.fold_in(threefry.fold_in(site_key, tick), occurrence)
 
     def _secagg_round(self, sites: list, states: list[ExchangeState]):
         """Masked aggregation of one round: each site's exchange state goes
@@ -267,11 +297,16 @@ class FederationSession:
         return enc, knw, np.asarray(errors)
 
     def _aggregate_round_private(self, named: list[tuple]) -> daef.DAEFModel:
-        """One sync lockstep round under the privacy tier: masked wires,
-        reduce, ONE weight re-solve from the aggregated knowledge.  (The
-        engine refuses DP plans, so the tier here is secure aggregation.)"""
+        """One sync lockstep round under the privacy tier: per-site release
+        (DP and/or masked wires), reduce, ONE weight re-solve from the
+        aggregated knowledge."""
         states = self._local_states(named)
-        enc, knw, errors = self._secagg_round([s for s, _ in named], states)
+        if self._privacy.secagg:
+            enc, knw, errors = self._secagg_round([s for s, _ in named], states)
+        elif len(states) == 1:
+            enc, knw, errors = states[0]
+        else:
+            enc, knw, errors = self._reduce_states(states)
         return self._solve(enc, knw, errors)
 
     def _solve(self, enc, knw, errors) -> daef.DAEFModel:
@@ -365,8 +400,15 @@ class FederationSession:
         B4 kernel on the fused backend); ragged rounds (and loop plans, the
         parity baseline) fit per site (B1).  All sites share the config's
         seed — the paper's shared stage-1 randomness that makes knowledge
-        mergeable."""
+        mergeable.
+
+        Under a DP spec every site's release goes through ``dp.fit_dp``
+        instead (the B3 kernel per hidden layer on the fused backend):
+        budget check + ledger spend FIRST (an over-budget site aborts the
+        round before any noise draw), then the calibrated Gaussian-mechanism
+        release keyed per (site, round)."""
         cfg, plan, dev = self.engine.config, self.engine.plan, self.engine.device
+        spec = self._privacy
         m0 = cfg.layer_sizes[0]
 
         def publish(m):
@@ -376,6 +418,18 @@ class FederationSession:
                 m.train_errors.detach().cpu().numpy(),
             )
 
+        if spec is not None and spec.dp_enabled:
+            from repro_torch.privacy import dp
+
+            states, seen = [], {}
+            for site, p in named:
+                occ = seen.get(site, 0)
+                seen[site] = occ + 1
+                self._ledger_for(site).spend(spec.epsilon, spec.delta)
+                model = dp.fit_dp(cfg, p, self._dp_key(site, occ), spec,
+                                  chunk_samples=plan.chunk_samples, device=dev)
+                states.append(publish(model))
+            return states
         parts = [p for _, p in named]
         widths = {p.shape[1] for p in parts}
         if plan.mode != "loop" and len(parts) > 1 and len(widths) == 1:

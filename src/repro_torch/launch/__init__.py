@@ -1,2 +1,3 @@
-"""Step functions of the launchers (counterpart of ``repro/launch``).  Only
-``steps`` is ported; the training CLI waits for ROADMAP queue A item 13."""
+"""Launchers and their step functions (counterpart of ``repro/launch``):
+``steps`` and ``serve`` (the fleet, async-federation and privacy modes) are
+ported; the training CLI waits for ROADMAP queue A item 13."""

@@ -4,15 +4,15 @@ Selected via ``ExecutionPlan(privacy=PrivacySpec(...))``:
 
 * `PrivacySpec`     — declarative spec (DP epsilon/delta/clip, budgets,
                       secure aggregation, fixed-point precision);
+* `dp.fit_dp`       — Gaussian-mechanism release of every exchanged
+                      statistics block (the private `daef.fit`), its noise
+                      the reference's bits under the same key;
 * `PrivacyLedger`   — per-site cumulative (epsilon, delta) accounting
                       with budget refusal (`PrivacyBudgetExceeded`);
 * `secagg`          — pairwise-masked aggregation: the broker sees only
-                      the round aggregate, bit-exactly.
-
-The reference's ``dp`` (the Gaussian-mechanism release, ``dp.fit_dp``) and
-``threat`` (the reconstruction demo) are not ported yet: they are ROADMAP
-queue A item 11.  An engine whose plan enables DP raises
-``NotImplementedError`` naming that item.
+                      the round aggregate, bit-exactly;
+* `threat`          — the honest-but-curious adversary model and the
+                      reconstruction demo that motivates the tier.
 """
 from repro_torch.privacy import secagg  # noqa: F401
 from repro_torch.privacy.accounting import PrivacyBudgetExceeded, PrivacyLedger

@@ -1,9 +1,8 @@
 """PrivacySpec — the declarative "how private is the exchange" record.
 
 A copy of ``repro/privacy/spec.py`` (numpy-free, no jax): a spec means the
-same in both packages.  The port runs the secure-aggregation tier; its DP
-release (``privacy.dp``) waits for ROADMAP queue A item 11, and an engine
-whose plan enables DP raises ``NotImplementedError`` naming it.
+same in both packages, and the port runs both tiers, the DP release
+(``privacy.dp``) and secure aggregation (``privacy.secagg``).
 
 The paper's federation exchanges per-layer sufficient statistics (G, M)
 and encoder factors.  Those statistics are NOT private by themselves

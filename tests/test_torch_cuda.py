@@ -1046,3 +1046,124 @@ def test_checkpoint_written_on_card_loads_on_host_bit_identical(card, tmp_path):
     for a, b in zip(checkpoint.flatten(restored.model), checkpoint.flatten(session.model),
                     strict=True):
         assert torch.equal(a, b.cpu())
+
+
+# ---- the DP release and fleet serving on the card ----
+
+def test_dp_release_on_card_matches_host(card):
+    """fit_dp on the card (B3 once per hidden layer on the fused backend)
+    against the same release on the CPU under the same key: the noise is
+    drawn on the host, so the draws are the same bits; the released blocks
+    within 1e-4 of their largest entry, the error pools equal."""
+    from repro_torch.core import threefry
+    from repro_torch.privacy import PrivacySpec, dp
+
+    cfg = _fed_cfg()
+    x = lowrank_data(9, 3, 3_000, seed=5)
+    spec = PrivacySpec(epsilon=8.0)
+    key = threefry.PRNGKey(7)
+    before = rolann_fused_chunk.launches
+    m_card = dp.fit_dp(cfg, x, key, spec)
+    assert rolann_fused_chunk.launches - before == len(FED_LAYERS) - 3
+    m_host = dp.fit_dp(cfg, x, key, spec, device="cpu")
+    assert torch.equal(dp._sym_noise(key, (9, 9), 2.0, torch.float32, card).cpu(),
+                       dp._sym_noise(key, (9, 9), 2.0, torch.float32))
+    for a, b in zip(m_card.layer_knowledge, m_host.layer_knowledge, strict=True):
+        for leaf in ("g", "m"):
+            got, want = getattr(a, leaf).cpu(), getattr(b, leaf)
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert m_card.train_errors.shape == m_host.train_errors.shape == (dp.ERR_POOL,)
+
+
+def _served_fleet(card, k=8, m0=9):
+    from repro_torch.engine import DAEFEngine, ExecutionPlan
+
+    cfg = daef.DAEFConfig(layer_sizes=(m0, 3, 5, m0), lam_hidden=0.9, lam_last=0.9,
+                          stats_backend="fused")
+    xs = np.stack([lowrank_data(m0, 3, 400, seed=s) for s in range(k)])
+    engine = DAEFEngine(cfg, ExecutionPlan(mode="vmap", tenants=k))
+    return engine, engine.fit(xs, seeds=np.arange(k))
+
+
+def test_fleet_server_graph_replay_is_eager_bit_for_bit(card):
+    """warmup captures one CUDA graph per packer shape; a replay of each
+    shape on random tiles equals the eager _score_tile on the same inputs
+    bit for bit (NaN padding in the same places), and serving after warmup
+    captures nothing new and matches the pad path."""
+    from repro_torch.serving import FleetServer
+    from repro_torch.serving import server as server_mod
+
+    engine, fl = _served_fleet(card)
+    server = FleetServer(engine, fl, tile_width=16, rule="q90")
+    n = server.warmup()
+    assert n == len(server.packer.shapes()) == len(server._graphs)
+    assert server.probe_donation().ok is True
+    mus = torch.as_tensor(server.thresholds, device=card)
+    gen = np.random.default_rng(0)
+    for (s, t), graph in server._graphs.items():
+        x = torch.from_numpy(gen.normal(size=(s, 9, t)).astype(np.float32))
+        meta = torch.stack([torch.from_numpy(gen.integers(0, 8, size=s)),
+                            torch.from_numpy(gen.integers(0, t + 1, size=s))])
+        errs, flags = graph.replay(x.pin_memory(), meta.pin_memory())
+        want_errs, want_flags = server_mod._score_tile(
+            engine.config, server._leaves, x.to(card), meta[0].to(card), meta[1].to(card), mus)
+        assert torch.equal(torch.isnan(errs), torch.isnan(want_errs))
+        assert torch.equal(torch.nan_to_num(errs), torch.nan_to_num(want_errs))
+        assert torch.equal(flags, want_flags)
+    reqs = [lowrank_data(9, 3, 2 + 5 * t, seed=t) for t in range(8)]
+    rids = [server.submit(t, x) for t, x in enumerate(reqs)]
+    server.flush()
+    assert len(server._graphs) == n
+    counts = np.array([x.shape[1] for x in reqs])
+    batch = np.zeros((8, 9, counts.max()), np.float32)
+    for t, x in enumerate(reqs):
+        batch[t, :, : counts[t]] = x
+    pad = engine.scores(fl, batch, n_valid=counts).cpu().numpy()
+    for t, rid in enumerate(rids):
+        res = server.take(rid)
+        np.testing.assert_allclose(res.scores, pad[t, : counts[t]], rtol=1e-5, atol=1e-6)
+
+
+def test_fleet_server_on_card_matches_host_and_refits(card):
+    """The card's server against the CPU server on the same fleet (flags
+    within ties), then partial_fit (B4) refills the captured buffers in
+    place: the graphs' scores follow the new fleet."""
+    from repro_torch.core import fleet as fleet_mod
+    from repro_torch.engine import DAEFEngine, ExecutionPlan
+    from repro_torch.serving import FleetServer
+
+    engine, fl = _served_fleet(card)
+    host_engine = DAEFEngine(engine.config, engine.plan, device="cpu")
+    from repro_torch.train import checkpoint
+
+    host_fl = checkpoint.map_leaves(lambda t: t.cpu(), fl)
+    assert isinstance(host_fl, fleet_mod.DAEFFleet) and host_fl.seeds.device.type == "cpu"
+    reqs = [lowrank_data(9, 3, 5 + 3 * t, seed=20 + t) for t in range(8)]
+    results = []
+    for eng, state in ((engine, fl), (host_engine, host_fl)):
+        server = FleetServer(eng, state, tile_width=8, rule="q90")
+        server.warmup()
+        rids = [server.submit(t, x) for t, x in enumerate(reqs)]
+        server.flush()
+        results.append([server.take(r) for r in rids])
+        if eng is engine:
+            card_server = server
+    for a, b in zip(*results):
+        np.testing.assert_allclose(a.scores, b.scores, rtol=1e-4, atol=1e-5)
+    n_graphs = len(card_server._graphs)
+    before = rolann_stats_batched.launches
+    new = card_server.partial_fit(np.stack([lowrank_data(9, 3, 64, seed=40 + t)
+                                            for t in range(8)]))
+    assert rolann_stats_batched.launches - before == 1  # one hidden decoder layer
+    assert len(card_server._graphs) == n_graphs and card_server.stats["recalibrations"] == 1
+    rids = [card_server.submit(t, x) for t, x in enumerate(reqs)]
+    card_server.flush()
+    counts = np.array([x.shape[1] for x in reqs])
+    batch = np.zeros((8, 9, counts.max()), np.float32)
+    for t, x in enumerate(reqs):
+        batch[t, :, : counts[t]] = x
+    pad = engine.scores(new, batch, n_valid=counts).cpu().numpy()
+    for t, rid in enumerate(rids):
+        res = card_server.take(rid)
+        assert res.cached_cols == 0
+        np.testing.assert_allclose(res.scores, pad[t, : counts[t]], rtol=1e-5, atol=1e-6)

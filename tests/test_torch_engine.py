@@ -8,7 +8,8 @@ merge, reduce (sequential and pairwise), the session's round parity and
 accumulation, the backend precedence, plan and input errors (the same type
 and message as the reference's), save/load, and the deprecation shims.
 What the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP item: mesh plans and tree merges (queue A item 12), DP (item 11).
+ROADMAP item: mesh plans and tree merges (queue A item 12); DP plans
+construct since item 11 was ported.
 
 Models are held to the reference's by ``assert_models_match``
 (tests/_torch_parity.py: TOLS, sums at 1e-4 of their max, the last layer
@@ -49,7 +50,7 @@ LAYERS = (M0, LATENT, 5, 7, M0)
 LAM_LAST = 0.9
 MODES = ("loop", "vmap")
 BACKENDS = ("einsum", "fused")
-ITEM12, ITEM11 = "ROADMAP queue A item 12", "ROADMAP queue A item 11"
+ITEM12 = "ROADMAP queue A item 12"
 
 
 def _kw(method="gram", backend="einsum", **kw):
@@ -463,7 +464,7 @@ def test_save_load_errors_and_bad_plan_type():
 
 
 # ---------------------------------------------------------------------------
-# what waits: mesh plans and tree merges (item 12), DP (item 11)
+# what waits: mesh plans and tree merges (item 12); DP plans construct (item 11)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("plan", [dict(mode="mesh", tenants=4),
@@ -478,11 +479,13 @@ def test_mesh_plans_raise_naming_item_12(plan):
 
 
 def test_dp_plans_raise_naming_item_11():
+    """Item 11 is ported: a DP plan constructs (tests/test_torch_dp.py holds
+    its rounds to the reference) and nothing names the item any more; the
+    reference's PlanErrors for a DP plan stay."""
     for plan in (dict(merge="pairwise", privacy=PrivacySpec(epsilon=1.0)),
                  dict(federation="async", privacy=PrivacySpec(epsilon=2.0, secagg=True))):
-        with pytest.raises(NotImplementedError, match=ITEM11):
-            _engine(**plan)
-    # the reference's PlanErrors come first, as there
+        engine = _engine(**plan)
+        assert engine.plan.privacy.dp_enabled and engine.session().privacy_spent(0) == (0, 0)
     with pytest.raises(PlanError, match="logsig"):
         _engine(_tcfg(act_hidden="relu"), merge="pairwise", privacy=PrivacySpec(epsilon=1.0))
 

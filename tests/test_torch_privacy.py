@@ -1,7 +1,7 @@
 """repro_torch.privacy (spec, accounting, secagg) and the port session's
 secure-aggregation rounds against repro.privacy (tests/test_privacy.py
-without the DP release and the threat demo, which wait for ROADMAP queue A
-item 11).
+without the DP release and the threat demo, which tests/test_torch_dp.py
+holds to the reference).
 
 * ``PrivacySpec`` validation: the same error type and message as the
   reference's for every bad spec; plan checks likewise.
@@ -372,8 +372,8 @@ def test_session_persistence(tmp_path):
 
 def test_reference_spend_history_restores_in_the_port(tmp_path):
     """A reference session's per-site privacy spend (the ledgers its DP
-    releases fill; set here directly, as the DP release waits for item 11)
-    restores in a port engine without DP: accounting is plain host state."""
+    releases fill; set here directly) restores in a port engine without
+    DP: accounting is plain host state."""
     plan = dict(federation="async", merge="pairwise")
     jeng = JEngine(_jcfg(), JPlan(**plan))
     js = jeng.session()

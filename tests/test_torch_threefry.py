@@ -1,8 +1,9 @@
 """repro_torch.core.threefry / initializers / elm_ae.stage1 against jax.random.
 
 Keys and random bits must be bit-exact; floating draws are held to TOLS
-(in practice uniform draws are exact and normal draws differ in the last
-bit for about one value in a hundred, where XLA's log1p rounds otherwise).
+(in practice both are exact: the port's normal reproduces XLA's CPU log1p
+and square root inside erf_inv; tests/test_torch_dp.py holds normal draws
+and fold_in bit for bit).
 """
 import jax
 import jax.numpy as jnp
