@@ -247,8 +247,32 @@ no result:
     --dp-epsilon 8`` and ``--privacy`` as three processes, each ending in
     its ``... OK`` line.  Times on the host clock.
 
-The last lines are a JSON object of the svd phase's numbers, a JSON object
-of the engine phase's numbers, a JSON object of phase 19's numbers, a JSON object of the LM paths' numbers, a JSON object of per-shape numbers, the card's name and power limit, a JSON object of
+20. comparison — the paper's Tables 2 and 3 on one fold, and the training
+    CLI.  ``stats_backend.resolve("auto", "cuda")`` must equal the committed
+    autotune cache's ``"cuda"`` verdict; the einsum-vs-fused verdict is
+    re-measured beside it (``stats_verdict``; a timing difference does not
+    fail).  On each of the seven replicas at the reference benchmark's scales
+    (covertype and creditcard 0.1, the rest 1.0; fold 0): DAEF with Table
+    5's layer sizes, lambdas and rule (``DAEF_ARCH``; the ``xavier`` init,
+    no grid search), ``n_partitions=4`` and ``stats_backend`` left unset,
+    timed after a warm-up fit by the host clock ending in a synchronize
+    (the numpy training split uploaded inside, as the reference's benchmark
+    times it), B1 one launch a hidden decoder layer; the iterative AE
+    (``AE_ARCH``: Table 5's layer sizes and epochs, batch 128, seed 0) on its
+    graphed step, its training loss lower after training than at init.
+    Per dataset: both F1, DAEF ms, AE s, their ratio, the AE's µs a step
+    graphed and eager (CUDA events over 200 steps of a fresh trainer).  On
+    creditcard the fit is held to the port's host fits by phase 6's rule
+    (labels within twice the plain fits' own distance + 4), 10 eager AE
+    steps on the card to the host's (1e-4 of each leaf's max), and 200
+    graph replays are profiled; on ionosphere the graphed AE fit must equal
+    the eager one bit for bit.  Then ``launch/train.py --arch qwen3-1.7b
+    --steps 6 --batch 4 --seq 2048 --microbatches 2 --dtype bfloat16`` in
+    this process (B7 112 and B8 56 launches a step, all on the tensor-core
+    route; finite losses, its ``s/step`` and ``loss a -> b`` lines).
+
+The last lines are a JSON object of phase 20's numbers, a JSON object of the
+svd phase's numbers, a JSON object of the engine phase's numbers, a JSON object of phase 19's numbers, a JSON object of the LM paths' numbers, a JSON object of per-shape numbers, the card's name and power limit, a JSON object of
 per-kernel numbers for all ten kernels, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -280,6 +304,29 @@ CREDITCARD = dict(layer_sizes=(29, 15, 18, 21, 24, 27, 29), lam_hidden=0.8,
 RULE = "extreme_iqr"
 N_PARTITIONS = 4
 CHUNK_SAMPLES = 32_768
+
+# The paper's Table 5 per dataset, as the reference's Table 2 benchmark holds it
+# (benchmarks/table2_f1.py:22-39, which imports jax; the CPU tests hold this
+# copy to it): DAEF (layer sizes, lambda_HL, lambda_LL, threshold rule) and
+# the iterative AE (layer sizes, epochs).
+DAEF_ARCH = {
+    "shuttle": ((9, 3, 5, 7, 9), 0.8, 0.9, "extreme_iqr"),
+    "covertype": ((10, 2, 4, 6, 8, 10), 0.7, 0.1, "q90"),
+    "pendigits": ((16, 8, 12, 16), 0.005, 0.7, "q90"),
+    "cardio": ((21, 4, 8, 12, 16, 21), 0.9, 0.9, "q90"),
+    "creditcard": ((29, 15, 18, 21, 24, 27, 29), 0.8, 0.9, "extreme_iqr"),
+    "ionosphere": ((33, 8, 14, 33), 0.01, 0.8, "extreme_iqr"),
+    "optdigit": ((62, 10, 20, 30, 40, 50, 62), 0.8, 0.9, "extreme_iqr"),
+}
+AE_ARCH = {
+    "shuttle": ((9, 7, 5, 7, 9), 30),
+    "covertype": ((10, 8, 6, 8, 10), 100),
+    "pendigits": ((16, 12, 4, 12, 16), 100),
+    "cardio": ((21, 12, 4, 12, 21), 100),
+    "creditcard": ((29, 25, 20, 15, 20, 25, 29), 100),
+    "ionosphere": ((33, 25, 20, 15, 20, 25, 33), 100),
+    "optdigit": ((62, 50, 40, 30, 20, 30, 40, 50, 62), 50),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -3662,6 +3709,271 @@ def _per_launch(rows, shape):
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
 
 
+# ---------------------------------------------------------------------------
+# 20. the paper's comparison (Tables 2 and 3, one fold): DAEF through
+# stats_backend="auto" against the iterative AE on its graphed step; the
+# training CLI at full width
+# ---------------------------------------------------------------------------
+
+VERDICT_SHAPE = (17, 2_048, 16)   # (m, n, o): the reference sweep's largest shape
+AE_TIMED_STEPS = 200              # steps timed per dataset, graphed and eager
+AE_CHECK_STEPS = 10               # eager steps held to the host's
+COMPARISON_LABEL_BAR = 4          # |dtp| + |dfp| beyond twice the plain fits' own
+TRAIN_CLI_STEPS, TRAIN_CLI_MICRO = 6, 2
+TRAIN_CLI = ["--arch", QWEN3, "--steps", str(TRAIN_CLI_STEPS), "--batch", "4", "--seq", "2048",
+             "--microbatches", str(TRAIN_CLI_MICRO), "--dtype", "bfloat16"]
+
+
+def stats_verdict() -> dict:
+    """einsum against fused ``stats_backend.gram_stats`` on the card at
+    ``VERDICT_SHAPE``, on the reference sweep's inputs (CUDA events, median
+    of 25): the measurement behind the cache's ``"cuda"`` verdict."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import stats_backend
+
+    m, n, o = VERDICT_SHAPE
+    rng = np.random.default_rng(0)
+    xa, fsq, fd = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (
+        rng.normal(size=(m, n)), rng.uniform(0.05, 1.0, (o, n)), rng.normal(size=(o, n))))
+    ms = {b: cuda_ms(lambda b=b: stats_backend.gram_stats(xa, fsq, fd, backend=b))
+          for b in stats_backend.BACKENDS}
+    return {"shape": {"m": m, "n": n, "o": o}, "einsum_ms": ms["einsum"],
+            "fused_ms": ms["fused"], "preferred_backend": min(ms, key=ms.get)}
+
+
+def _replica(name):
+    """Fold 0 of ``name``'s replica at the reference benchmark's scale (0.1 for
+    the replicas above 100,000 samples, ``table2_f1.py:78-79``)."""
+    from repro_torch.data import synthetic
+
+    scale = 0.1 if synthetic.PAPER_DATASETS[name][0] > 100_000 else 1.0
+    return scale, synthetic.make_dataset(name, seed=0, scale=scale).train_test_split(0, n_folds=10)
+
+
+def _ae_trainer(acfg, x_train, steps: int):
+    """A fresh trainer of ``acfg`` on the card and the first ``steps`` rows
+    of its batches (the epochs extended to hold them)."""
+    import torch
+
+    from repro_torch.baselines import autoencoder
+
+    n = x_train.shape[1]
+    cfg = dataclasses.replace(acfg, epochs=-(-steps // max(1, n // min(acfg.batch_size, n))))
+    trainer = autoencoder._Trainer(cfg, torch.as_tensor(x_train, device="cuda"))
+    return trainer, torch.as_tensor(autoencoder.batch_indices(cfg, n)[:steps], device="cuda")
+
+
+def _ae_step_us(acfg, x_train, graph: bool) -> float:
+    """µs a step of ``AE_TIMED_STEPS`` steps of a fresh trainer on the card
+    (CUDA events): replays of the captured step, or the eager step."""
+    import torch
+
+    trainer, idx = _ae_trainer(acfg, x_train, AE_TIMED_STEPS)
+    run = trainer.capture(idx) if graph else None
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for s in range(AE_TIMED_STEPS):
+        run() if graph else trainer.step(idx[s])
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) * 1e3 / AE_TIMED_STEPS
+
+
+def _profile_ae_graph(acfg, x_train) -> float:
+    """``AE_TIMED_STEPS`` replays of the captured step under the profiler
+    (after as many unprofiled): its kernels and the device's busy share."""
+    trainer, idx = _ae_trainer(acfg, x_train, 2 * AE_TIMED_STEPS)
+    replay = trainer.capture(idx)
+    return phase_profile(f"AE graphed step x {AE_TIMED_STEPS}",
+                         lambda: [replay() for _ in range(AE_TIMED_STEPS)])
+
+
+def _check_ae_steps_on_host(acfg, x_train) -> float:
+    """``AE_CHECK_STEPS`` eager steps on the card against the same steps of
+    the host's trainer: every leaf within 1e-4 of its largest entry."""
+    import torch
+
+    from repro_torch.baselines import autoencoder
+
+    idx = autoencoder.batch_indices(acfg, x_train.shape[1])[:AE_CHECK_STEPS]
+    card = autoencoder._Trainer(acfg, torch.as_tensor(x_train, device="cuda"))
+    host = autoencoder._Trainer(acfg, torch.as_tensor(x_train))
+    for row in idx:
+        card.step(torch.as_tensor(row, device="cuda"))
+        host.step(torch.as_tensor(row))
+    worst = 0.0
+    for a, b in zip(card.leaves, host.leaves, strict=True):
+        a, b = a.detach().cpu(), b.detach()
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        check(err <= 1e-4 * scale, f"AE after {len(idx)} steps: a leaf {err:.3e} from the host's "
+              f"> 1e-4 * {scale:.3e}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def _check_creditcard_daef(cfg, x_train, x_test, y_test, model, scores):
+    """The card's "auto" fit of the creditcard replica against the port's
+    host fits, by phase 6's rule: no farther from the host's float64 fit
+    than twice the plain float32 fits (host, card einsum), plus 1e-4; labels
+    within twice the plain fits' own distance plus ``COMPARISON_LABEL_BAR``."""
+    import torch
+
+    from repro_torch.core import anomaly, daef
+
+    plain = dataclasses.replace(cfg, stats_backend="einsum")
+    host = daef.fit(plain, x_train, n_partitions=N_PARTITIONS, device="cpu")
+    s_host = daef.reconstruction_error(plain, host, x_test, device="cpu")
+    m64 = daef.fit(plain, torch.from_numpy(x_train).double(), n_partitions=N_PARTITIONS,
+                   device="cpu")
+    s64 = daef.reconstruction_error(plain, m64, torch.from_numpy(x_test).double(), device="cpu")
+    card_e = daef.fit(plain, x_train, n_partitions=N_PARTITIONS)
+    s_card_e = daef.reconstruction_error(plain, card_e, x_test)
+    fits = {"card auto": (model.train_errors, scores), "card einsum": (card_e.train_errors,
+                                                                       s_card_e),
+            "host float32": (host.train_errors, s_host)}
+    out = {}
+    for i, (what, ref) in enumerate((("train errors", m64.train_errors), ("test scores", s64))):
+        dist = {k: _rel(v[i].double().cpu(), ref) for k, v in fits.items()}
+        bar = 2 * max(dist["card einsum"], dist["host float32"]) + 1e-4
+        check(dist["card auto"] <= bar, f"comparison, creditcard: the card's {what} are "
+              f"{dist['card auto']:.3e} from the float64 fit, bar {bar:.3e}")
+        out[what] = dist
+        out[f"{what} card vs host float32"] = _rel(fits["card auto"][i].cpu(), fits[
+            "host float32"][i])
+    metrics = {k: anomaly.evaluate(v[0].cpu(), v[1].cpu(), y_test, DAEF_ARCH["creditcard"][3],
+                                   device="cpu") for k, v in fits.items()}
+    apart = _labels_apart(metrics["card auto"], metrics["host float32"])
+    bar = 2 * _labels_apart(metrics["card einsum"], metrics["host float32"]) + COMPARISON_LABEL_BAR
+    check(apart <= bar, f"comparison, creditcard: labels {apart} apart from the host's, bar {bar}")
+    out["labels apart from the host"] = (apart, bar)
+    return out
+
+
+def phase_comparison() -> dict:
+    """Phase 20: the wiring of "auto", the paper's Tables 2 and 3 on one
+    fold, and ``launch/train.py`` at full width.  Returns the numbers."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.baselines import autoencoder
+    from repro_torch.configs import registry
+    from repro_torch.core import anomaly, daef, stats_backend
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.rolann_stats import rolann_stats
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    committed = json.loads(autotune.DEFAULT_CACHE_PATH.read_text())["platforms"]
+    check("cuda" in committed, "the committed autotune cache has no 'cuda' verdict")
+    autotune.clear_cache()
+    resolved = stats_backend.resolve("auto", "cuda")
+    want = committed["cuda"]["preferred_backend"]
+    check(resolved == want, f'resolve("auto", "cuda") is {resolved!r}, the committed cache '
+          f"says {want!r}")
+    verdict = stats_verdict()
+    say("comparison", f'"auto" on the card resolves to {resolved!r} (the committed verdict); '
+        f"re-measured at (m, n, o) {VERDICT_SHAPE}: einsum {verdict['einsum_ms']:.4f} ms, fused "
+        f"{verdict['fused_ms']:.4f} ms -> {verdict['preferred_backend']!r}")
+    out = {"auto": resolved, "verdict": verdict, "datasets": {}}
+
+    for name, (arch, lam_h, lam_l, rule) in DAEF_ARCH.items():
+        scale, (x_train, x_test, y_test) = _replica(name)
+        cfg = daef.DAEFConfig(layer_sizes=arch, lam_hidden=lam_h, lam_last=lam_l,
+                              init="xavier", seed=0)  # stats_backend unset: "auto"
+        daef.fit(cfg, x_train, n_partitions=N_PARTITIONS)  # warm-up
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        model = daef.fit(cfg, x_train, n_partitions=N_PARTITIONS)
+        torch.cuda.synchronize()
+        daef_ms = (time.perf_counter() - t0) * 1e3
+        launches, routes = read_launches(), dict(rolann_stats.route_launches)
+        n_hidden = len(arch) - 3
+        expect = n_hidden if resolved == "fused" else 0
+        check(launches == {"rolann_stats": expect, "rolann_stats_acc": 0,
+                           "rolann_fused_chunk": 0},
+              f"{name}: one 'auto' fit launched {launches}, expected rolann_stats {expect}")
+        scores = daef.reconstruction_error(cfg, model, x_test)
+        f1_d = anomaly.evaluate(model.train_errors, scores, y_test, rule).f1
+        check(bool(torch.isfinite(model.train_errors).all() and torch.isfinite(scores).all()),
+              f"{name}: non-finite DAEF errors")
+
+        ae_arch, epochs = AE_ARCH[name]
+        acfg = autoencoder.AEConfig(layer_sizes=ae_arch, epochs=epochs, seed=0)
+        x_d = torch.as_tensor(x_train, device="cuda")
+        with torch.no_grad():
+            init_loss = float(autoencoder.loss_fn(acfg, [[t.cuda() for t in p] for p in
+                                                         autoencoder.init_params(acfg)], x_d))
+        model_a, ae_s = autoencoder.fit(acfg, x_train)
+        errs_a = autoencoder.reconstruction_error(acfg, model_a, x_test)
+        f1_a = anomaly.evaluate(model_a.train_errors, errs_a, y_test, rule).f1
+        final_loss = float(model_a.train_errors.mean())
+        check(np.isfinite(final_loss) and final_loss < init_loss,
+              f"{name}: the AE's training loss {final_loss:.5f} is not below its {init_loss:.5f} "
+              "at init")
+        steps = len(autoencoder.batch_indices(acfg, x_train.shape[1]))
+        graph_us, eager_us = _ae_step_us(acfg, x_train, True), _ae_step_us(acfg, x_train, False)
+        row = {"scale": scale, "train": x_train.shape[1], "f1_daef": f1_d, "f1_ae": f1_a,
+               "daef_ms": daef_ms, "ae_s": ae_s, "ratio": ae_s * 1e3 / daef_ms,
+               "ae_steps": steps, "ae_step_us_graph": graph_us, "ae_step_us_eager": eager_us,
+               "b1_launches": launches["rolann_stats"],
+               "b1_routes": {k: v for k, v in routes.items() if v},
+               "ae_loss": (init_loss, final_loss)}
+        if name == "creditcard":
+            row["host"] = _check_creditcard_daef(cfg, x_train, x_test, y_test, model, scores)
+            row["ae_host_apart"] = _check_ae_steps_on_host(acfg, x_train)
+            row["ae_graph_busy"] = _profile_ae_graph(acfg, x_train)
+        if name == "ionosphere":
+            eager, _ = autoencoder.fit(acfg, x_train, graph=False)
+            same = all(torch.equal(a, b) for a, b in zip(
+                model_a.weights + model_a.biases + (model_a.train_errors,),
+                eager.weights + eager.biases + (eager.train_errors,), strict=True))
+            check(same, "ionosphere: the graphed AE fit is not the eager fit bit for bit")
+            row["graph_is_eager"] = same
+        out["datasets"][name] = row
+        say("comparison", f"{name} (scale {scale}, {x_train.shape[1]} training samples): F1 DAEF "
+            f"{f1_d:.4f}, AE {f1_a:.4f}; DAEF {daef_ms:.2f} ms (B1 {launches['rolann_stats']}, "
+            f"routes {row['b1_routes']}), AE {ae_s:.3f} s ({steps} steps), ratio "
+            f"{row['ratio']:.1f}; AE step {graph_us:.1f} us graphed, {eager_us:.1f} us eager; "
+            f"AE loss {init_loss:.5f} -> {final_loss:.5f}"
+            + (f"; vs the host: {row['host']}, AE after {AE_CHECK_STEPS} steps "
+               f"{row['ae_host_apart']:.2e} of max|leaf| (bar 1e-4)" if "host" in row else "")
+            + ("; graphed fit == eager fit, bit for bit" if "graph_is_eager" in row else ""))
+
+    # The training CLI at full width, in this process (its launches count
+    # here); the memory of earlier phases is released first.
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    _lm_zero()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train.main(TRAIN_CLI)
+    cli_s = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        say("train-cli", line)
+    n_layers = registry.get(QWEN3).n_layers
+    n_mb = TRAIN_CLI_STEPS * TRAIN_CLI_MICRO
+    launches = _lm_read(flash_attention=2 * n_layers * n_mb, flash_attention_bwd=n_layers * n_mb)
+    steps = [re.fullmatch(r"step +\d+  loss (\S+)  \(\d+\.\d+ s/step\)", ln) for ln in lines[:-1]]
+    check(len(lines) == 3 and all(steps) and all(np.isfinite(float(m.group(1))) for m in steps)
+          and re.fullmatch(r"loss \S+ -> \S+ \((NOT )?improved\)", lines[-1]) is not None,
+          f"train CLI printed {lines}")
+    out["train_cli"] = {"argv": TRAIN_CLI, "lines": lines, "wall_s": cli_s,
+                        "free_gib_before": free / 2**30, "launches": launches}
+    say("comparison", f"python -m repro_torch.launch.train {' '.join(TRAIN_CLI)}: {cli_s:.1f} s "
+        f"in process ({free / 2**30:.1f} GiB free before), launches {launches}")
+    say("comparison", f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3706,6 +4018,7 @@ def main() -> int:
         engine_numbers = phase_engine(cfg, y_test, xtr, xte, references, card_fits,
                                       fleet_data, fleet_data_d)
         serving_numbers = phase_dp_serving(cfg, xtr, fleet_data, fleet_data_d)
+        comparison_numbers = phase_comparison()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3862,6 +4175,7 @@ def main() -> int:
             **_per_launch(lm_rows["ssd_chunk"], "mamba2 prefill"),
         },
     ]
+    print(json.dumps({"comparison": comparison_numbers}))
     print(json.dumps({"svd": svd_numbers}))
     print(json.dumps({"engine": engine_numbers}))
     print(json.dumps({"serving": serving_numbers}))

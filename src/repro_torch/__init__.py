@@ -21,7 +21,11 @@ scores, thresholds).  One engine (``repro_torch.engine.DAEFEngine`` under an
 checkpoints (``repro_torch.train.checkpoint``) cross with the JAX package's.  The model zoo's serving side is ported for the dense,
 SSM and hybrid families (``repro_torch.models.get_bundle``: init, forward,
 prefill), with the DAEF head on their pooled hidden states
-(``repro_torch.models.daef_head``).  ROADMAP.md lists what waits.
+(``repro_torch.models.daef_head``); the dense family trains
+(``repro_torch.launch.train``).  The paper's comparison baseline, the
+iterative autoencoder, is ``repro_torch.baselines.autoencoder``.
+``stats_backend="auto"`` takes the einsum-vs-fused verdict measured on
+the card (``repro_torch.kernels.autotune``).  ROADMAP.md lists what waits.
 """
 from repro_torch import models
 from repro_torch.core import fleet

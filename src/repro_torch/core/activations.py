@@ -83,19 +83,39 @@ tanh = Activation(
     range=(-1.0, 1.0),
 )
 
-# ``relu`` (the iterative AE baseline's activation) waits for the baseline's
-# port; every activation here is invertible and usable by ROLANN.
-_REGISTRY = {a.name: a for a in (linear, logsig, tanh)}
+
+# ``relu`` has no inverse; it is provided for the iterative AE baseline only.
+def _relu(z: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(z, min=0.0)
+
+
+def _relu_deriv(z: torch.Tensor) -> torch.Tensor:
+    return (z > 0).to(z.dtype)
+
+
+relu = Activation(
+    name="relu", fn=_relu, deriv=_relu_deriv,
+    inv=_identity,  # placeholder; never used by ROLANN (see get())
+    range=(0.0, None),
+)
+
+_INVERTIBLE = {"linear", "logsig", "tanh"}
+_REGISTRY = {a.name: a for a in (linear, logsig, tanh, relu)}
 
 
 def get(name: str, *, invertible_required: bool = False) -> Activation:
     """Look up an activation by name.
 
-    ``invertible_required`` is kept for the reference's signature: every
-    activation ported so far has an inverse, so it restricts nothing yet.
+    ``invertible_required=True`` restricts to activations usable by ROLANN
+    (which needs ``f^{-1}``).
     """
-    del invertible_required
     try:
-        return _REGISTRY[name]
+        act = _REGISTRY[name]
     except KeyError as e:
         raise KeyError(f"unknown activation {name!r}; have {sorted(_REGISTRY)}") from e
+    if invertible_required and name not in _INVERTIBLE:
+        raise ValueError(
+            f"activation {name!r} has no inverse and cannot be used with ROLANN; "
+            f"choose one of {sorted(_INVERTIBLE)}"
+        )
+    return act

@@ -79,9 +79,10 @@ class DAEFConfig:
                 f"{rolann.GRAM_SOLVERS}"
             )
 
-    def resolved(self) -> DAEFConfig:
-        """This config with ``stats_backend`` made concrete (env resolved)."""
-        concrete = stats_backend.resolve(self.stats_backend)
+    def resolved(self, device=None) -> DAEFConfig:
+        """This config with ``stats_backend`` made concrete (env resolved;
+        ``"auto"`` for the platform of ``device``, where the fit runs)."""
+        concrete = stats_backend.resolve(self.stats_backend, device)
         if concrete == self.stats_backend:
             return self
         return dataclasses.replace(self, stats_backend=concrete)
@@ -142,7 +143,7 @@ def fit(
     m0 = x.shape[0]
     if m0 != config.layer_sizes[0]:
         raise ValueError(f"input dim {m0} != layer_sizes[0] {config.layer_sizes[0]}")
-    config = config.resolved()
+    config = config.resolved(x.device)
     return _fit_core(
         config, x, config.layer_keys(), config.lam_hidden, config.lam_last,
         n_partitions=n_partitions,
@@ -358,7 +359,7 @@ def fit_chunked(
         raise ValueError(f"input dim {m0} != layer_sizes[0] {config.layer_sizes[0]}")
     if not isinstance(chunk_samples, int) or chunk_samples < 1:
         raise ValueError(f"chunk_samples must be a positive int, got {chunk_samples!r}")
-    config = config.resolved()
+    config = config.resolved(x.device)
     _require_gram(config, "fit_chunked")
     if n == 0:
         raise ValueError("fit_chunked: x has no samples")
@@ -453,7 +454,7 @@ def fit_stream(config: DAEFConfig, batches, *, device=None) -> DAEFModel:
     within accumulation-order float error.
     """
     dev = resolve_device(device)
-    config = config.resolved()
+    config = config.resolved(dev)
     _require_gram(config, "fit_stream")
     factory = _stream_chunk_source(batches)
     m0 = config.layer_sizes[0]

@@ -194,7 +194,7 @@ def accumulate_layer_stats(
     call, the B3 kernel; otherwise the stage-1 activation is formed here and
     folded by ``rolann.accumulate_stats``.
     """
-    resolved = stats_backend.resolve(backend)
+    resolved = stats_backend.resolve(backend, h_l.device)
     if resolved == "fused" and act.name != "linear":
         stats_backend.fused_chunk_acc(stats.g, stats.m, h_l, w_c1, b_c1, weights,
                                       act=act, backend=resolved)
@@ -285,7 +285,7 @@ def accumulate_layer_stats_batched(
     w_c1 [K, m_l, m_c1], b_c1 [K, m_c1], h_l [K, m_l, n_chunk], weights
     [K, n_chunk].  On the fused backend with a non-linear activation the
     whole fold is one launch of the B6 kernel."""
-    resolved = stats_backend.resolve(backend)
+    resolved = stats_backend.resolve(backend, h_l.device)
     if resolved == "fused" and act.name != "linear":
         stats_backend.fused_chunk_acc_batched(stats.g, stats.m, h_l, w_c1, b_c1, weights,
                                               act=act, backend=resolved)

@@ -119,7 +119,7 @@ def _federated_fit(
     """
     dev = resolve_device(device)
     partitions = [as_tensor(p, dev) for p in partitions]
-    config = config.resolved()
+    config = config.resolved(dev)
     f_hl, f_ll = daef._acts(config)
     keys = config.layer_keys()
     sizes = config.layer_sizes

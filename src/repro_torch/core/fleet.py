@@ -209,7 +209,7 @@ def _fit_fleet(
     [K] (per tenant); defaults come from ``config``.
     """
     dev = resolve_device(device)
-    config = config.resolved()
+    config = config.resolved(dev)
     seeds, lam_hidden, lam_last = _prepare_fit(config, xs, seeds, lam_hidden, lam_last, dev)
     xs = as_tensor(xs, dev)
     model = _fit_core(config, xs, _tenant_keys(config, seeds), lam_hidden, lam_last,
@@ -344,7 +344,7 @@ def _fit_fleet_chunked(
     On the fused backend every hidden layer folds each chunk of every tenant
     in one launch of the B6 kernel."""
     dev = resolve_device(device)
-    config = config.resolved()
+    config = config.resolved(dev)
     daef._require_gram(config, "chunked fleet fit")
     seeds, lam_hidden, lam_last = _prepare_fit(config, xs, seeds, lam_hidden, lam_last, dev)
     if not isinstance(chunk_samples, int) or chunk_samples < 1:
@@ -388,7 +388,7 @@ def _fit_fleet_stream(
     may be narrower (padded and masked).  ``tenants`` fixes the expected K.
     """
     dev = resolve_device(device)
-    config = config.resolved()
+    config = config.resolved(dev)
     daef._require_gram(config, "streaming fleet fit")
     factory = daef._stream_chunk_source(batches)
     m0 = config.layer_sizes[0]

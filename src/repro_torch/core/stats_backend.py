@@ -12,12 +12,18 @@ which :func:`gram_stats` computes with one of two backends:
 * ``"fused"``  — the hand-written ``rolann_stats`` CUDA kernel
   (``kernels/rolann_stats``); for CPU tensors its wrapper runs the plain
   version with the kernel's float32 contract.
-* ``"auto"``   — resolves to ``"einsum"``: no H100 measurement has chosen a
-  winner yet (the reference's ``_resolve_auto`` does the same for platforms
-  its autotune cache has not measured).  It never reaches a kernel.
+* ``"auto"``   — resolves to whichever of the two the committed autotune
+  cache (``kernels/autotune_cache.json``, written on the card by
+  ``scripts/torch_kernel_autotune.py``) measured faster on the platform of
+  the device the fold runs on: ``"cuda"`` for the card, ``"cpu"`` for the
+  host; ``"einsum"`` where nothing was measured.  :func:`resolve` collapses
+  it before any dispatch.
 
 Selection precedence: explicit ``backend=`` (or a non-None
 ``DAEFConfig.stats_backend``) > ``$REPRO_STATS_BACKEND`` > ``"auto"``.
+Entry points resolve once, with the device of their data
+(``DAEFConfig.resolved(device)``); the dispatchers below resolve an unset
+backend with their inputs' device.
 
 The streaming fit folds chunk by chunk through two more entry points, both
 updating their running accumulators **in place** and returning them (the
@@ -52,16 +58,24 @@ ENV_VAR = "REPRO_STATS_BACKEND"
 DEFAULT = AUTO
 
 
-def _resolve_auto() -> str:
-    return "einsum"
+def _resolve_auto(device=None) -> str:
+    """Measured winner for ``device``'s platform from the committed autotune
+    cache (einsum where unmeasured; see ``autotune.preferred_backend``)."""
+    from repro_torch.kernels import autotune
+
+    return autotune.preferred_backend(autotune.platform_of(device))
 
 
-def resolve(backend: str | None = None) -> str:
-    """Concrete backend name: explicit arg > $REPRO_STATS_BACKEND > "auto"."""
+def resolve(backend: str | None = None, device=None) -> str:
+    """Concrete backend name: explicit arg > $REPRO_STATS_BACKEND > "auto".
+
+    ``"auto"`` resolves for the platform of ``device`` (``None``: the
+    port's default device, the card where one is present).
+    """
     if backend is None:
         backend = os.environ.get(ENV_VAR) or DEFAULT
     if backend == AUTO:
-        return _resolve_auto()
+        return _resolve_auto(device)
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown stats backend {backend!r}: choose from "
@@ -75,7 +89,7 @@ def gram_stats(
     backend: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(G, M) per-output statistics for xa [m, n], fsq/fd [o, n]."""
-    if resolve(backend) == "fused":
+    if resolve(backend, xa.device) == "fused":
         from repro_torch.kernels.rolann_stats import rolann_stats
 
         return rolann_stats(xa, fsq, fd)
@@ -94,7 +108,7 @@ def gram_stats_acc(
     xa [mm, n_chunk]; fsq, fd [o, n_chunk].  Both backends update ``g`` and
     ``m`` in place and return them.
     """
-    if resolve(backend) == "fused":
+    if resolve(backend, xa.device) == "fused":
         from repro_torch.kernels.rolann_stats import rolann_stats_acc
 
         return rolann_stats_acc(g, m, xa, fsq, fd)
@@ -109,7 +123,7 @@ def gram_stats_batched(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Tenant-batched (G, M): xa [k, m, n], fsq/fd [k, o, n] -> G [k, o, m, m],
     M [k, o, m].  One launch of the B4 kernel on the fused backend."""
-    if resolve(backend) == "fused":
+    if resolve(backend, xa.device) == "fused":
         from repro_torch.kernels.rolann_stats import rolann_stats_batched
 
         return rolann_stats_batched(xa, fsq, fd)
@@ -125,7 +139,7 @@ def gram_stats_acc_batched(
     """Tenant-batched fold, in place: g [k, o, mm, mm], m [k, o, mm] +=
     (G, M) of xa [k, mm, n_chunk], fsq/fd [k, o, n_chunk].  One launch of the
     B5 kernel on the fused backend."""
-    if resolve(backend) == "fused":
+    if resolve(backend, xa.device) == "fused":
         from repro_torch.kernels.rolann_stats import rolann_stats_acc_batched
 
         return rolann_stats_acc_batched(g, m, xa, fsq, fd)
@@ -187,7 +201,7 @@ def fused_chunk_acc(
         mask = torch.ones((h.shape[1],), dtype=h.dtype, device=h.device)
     else:
         mask = torch.as_tensor(mask, device=h.device).to(h.dtype)
-    if resolve(backend) == "fused":
+    if resolve(backend, h.device) == "fused":
         from repro_torch.kernels.rolann_stats import rolann_fused_chunk
 
         return rolann_fused_chunk(g, m, h, w, b, mask, act_name=act_name)
@@ -232,7 +246,7 @@ def fused_chunk_acc_batched(
         mask = torch.ones((h.shape[0], h.shape[2]), dtype=h.dtype, device=h.device)
     else:
         mask = torch.as_tensor(mask, device=h.device).to(h.dtype)
-    if resolve(backend) == "fused":
+    if resolve(backend, h.device) == "fused":
         from repro_torch.kernels.rolann_stats import rolann_fused_chunk_batched
 
         return rolann_fused_chunk_batched(g, m, h, w, b, mask, act_name=act_name)

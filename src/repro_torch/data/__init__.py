@@ -1,1 +1,1 @@
-"""Data generators (counterpart of ``repro.data``)."""
+"""Data generators and host batching (counterpart of ``repro.data``)."""

@@ -106,10 +106,11 @@ class DAEFEngine:
                 f"plan must be an ExecutionPlan, got {type(plan).__name__}"
             )
         # stats-backend precedence, resolved ONCE: plan.stats_backend >
-        # config.stats_backend > $REPRO_STATS_BACKEND > default.
+        # config.stats_backend > $REPRO_STATS_BACKEND > default ("auto", for
+        # the platform of the engine's device).
         if plan.stats_backend is not None:
             config = dataclasses.replace(config, stats_backend=plan.stats_backend)
-        config = config.resolved()
+        config = config.resolved(device)
         plan = dataclasses.replace(plan, stats_backend=config.stats_backend)
         if plan.chunk_samples is not None and config.method != "gram":
             raise PlanError(

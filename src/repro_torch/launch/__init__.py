@@ -1,3 +1,5 @@
 """Launchers and their step functions (counterpart of ``repro/launch``):
-``steps`` and ``serve`` (the fleet, async-federation and privacy modes) are
-ported; the training CLI waits for ROADMAP queue A item 13."""
+``steps``, ``train`` (the training CLI: LM training on synthetic token
+streams) and ``serve`` (the fleet, async-federation and privacy modes).
+The mesh launchers (``mesh``, ``shardings``) wait for ROADMAP queue A item
+12; ``dryrun`` and the HLO/roofline tools have no torch meaning."""

@@ -315,7 +315,7 @@ def fit_dp(config, x, key: torch.Tensor, spec: PrivacySpec,
     """
     from repro_torch.core import daef  # deferred, as the reference's
 
-    config = config.resolved()
+    config = config.resolved(device)
     _validate(config, spec)
     x = as_tensor(x, resolve_device(device))
     m0, n = x.shape

@@ -1167,3 +1167,31 @@ def test_fleet_server_on_card_matches_host_and_refits(card):
         res = card_server.take(rid)
         assert res.cached_cols == 0
         np.testing.assert_allclose(res.scores, pad[t, : counts[t]], rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The iterative AE baseline: its step as one CUDA graph
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sizes,n,bs", [((33, 25, 20, 15, 20, 25, 33), 203, 64),
+                                        ((9, 7, 5, 7, 9), 1_000, 128)])
+def test_ae_graphed_step_is_the_eager_step(card, sizes, n, bs):
+    """A fit replaying the captured step gives the eager fit's bits on the
+    card (same kernels in the same order); the warm-up before the capture
+    leaves the state as it was; both are within 1e-4 of each leaf's largest
+    entry of the host's fit."""
+    from repro_torch.baselines import autoencoder
+
+    x = lowrank_data(sizes[0], 3, n, seed=5)
+    cfg = autoencoder.AEConfig(layer_sizes=sizes, epochs=4, batch_size=bs)
+    graphed, _ = autoencoder.fit(cfg, x)
+    eager, _ = autoencoder.fit(cfg, x, graph=False)
+    host, _ = autoencoder.fit(cfg, x, device="cpu")
+    for g, e, h in zip(graphed.weights + graphed.biases, eager.weights + eager.biases,
+                       host.weights + host.biases, strict=True):
+        assert g.device.type == "cuda" and torch.equal(g, e)
+        h = h.numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), h, rtol=0, atol=1e-4 * np.abs(h).max())
+    assert torch.equal(graphed.train_errors, eager.train_errors)
+    test = autoencoder.reconstruction_error(cfg, graphed, x[:, :50])
+    assert test.shape == (50,) and bool(torch.isfinite(test).all())

@@ -323,7 +323,7 @@ def test_stats_backend_precedence():
             _engine(cfg)
     env = {k: v for k, v in os.environ.items() if k != stats_backend.ENV_VAR}
     with mock.patch.dict(os.environ, env, clear=True):
-        # "auto" (the default) resolves to einsum in the port
+        # "auto" (the default) resolves to the host's measured verdict, einsum
         assert _engine(cfg).config.stats_backend == "einsum"
         assert DAEFEngine(cfg, ExecutionPlan(stats_backend="fused"),
                           device="cpu").config.stats_backend == "fused"

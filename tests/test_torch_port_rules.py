@@ -14,7 +14,8 @@ from repro_torch.core import activations, anomaly, daef, rolann
 from repro_torch.kernels import KERNELS, _build
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "scripts").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -349,8 +349,9 @@ def test_gram_stats_backends_agree():
 
 def test_backend_resolution(monkeypatch):
     monkeypatch.delenv(stats_backend.ENV_VAR, raising=False)
-    assert stats_backend.resolve() == "einsum"  # "auto" has no H100 verdict yet
-    assert stats_backend.resolve("auto") == "einsum"
+    # "auto" on the host: the committed cache's "cpu" verdict
+    assert stats_backend.resolve(device="cpu") == "einsum"
+    assert stats_backend.resolve("auto", "cpu") == "einsum"
     assert stats_backend.resolve("fused") == "fused"
     monkeypatch.setenv(stats_backend.ENV_VAR, "fused")
     assert stats_backend.resolve() == "fused"
