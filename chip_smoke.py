@@ -271,7 +271,27 @@ no result:
     this process (B7 112 and B8 56 launches a step, all on the tensor-core
     route; finite losses, its ``s/step`` and ``loss a -> b`` lines).
 
-The last lines are a JSON object of phase 20's numbers, a JSON object of the
+21. decode — the serve CLI's LM mode and the backbones' decode (plain
+    PyTorch, as the reference's is plain XLA) at full width in float32.
+    (a) ``python -m repro_torch.launch.serve --arch A`` for qwen3-1.7b,
+    mamba2-780m and recurrentgemma-9b (37.6 GB of float32 weights), three
+    processes started together, each ending in ``serve OK`` (finite
+    logits).  Then per model in this process, each freed before the next:
+    (b) 2 x 64 seeded tokens teacher-forced through ``bundle.decode``, the
+    last logits against ``bundle.prefill`` of the same tokens (B7 on its
+    FP32 kernel, B9, B10: their launches counted; decode launches none) at
+    the reference's bar, atol 2e-3 + rtol 1e-2 (tests/test_models.py
+    ``test_decode_consistent_with_forward``); (c) the rings: qwen3 under
+    ``sliding_window=16`` and recurrentgemma cut to one period and its
+    two-block tail under ``local_window=16``, 2 x 48 tokens, the same bar
+    (B7 windowed); (d) the model cut to two layers (one period), 16 decode
+    steps on the card against the host, each step's logits within 1e-4 of
+    their largest entry; decode ms/token and tokens/s at B = 4 through
+    ``serve.generate`` (32 prompt tokens, 16 generated, after a warm-up),
+    and a profile of 10 decode steps (busy share, top device ops).
+
+The last lines are a JSON object of phase 21's numbers, a JSON object of
+phase 20's numbers, a JSON object of the
 svd phase's numbers, a JSON object of the engine phase's numbers, a JSON object of phase 19's numbers, a JSON object of the LM paths' numbers, a JSON object of per-shape numbers, the card's name and power limit, a JSON object of
 per-kernel numbers for all ten kernels, and ``{"ok": true, "device":
 {...}}``.
@@ -2363,8 +2383,13 @@ SERVE_CLI = (["--fleet", "64", "--rounds", "5", "--stats-backend", "fused"],
              ["--privacy"])
 
 
-def _start_cli_runs():
-    """``python -m repro_torch.launch.serve`` in each mode of SERVE_CLI, as
+# the last line of each serve CLI mode, by its first flag
+CLI_OK = {"--fleet": "fleet serve OK", "--async-rounds": "async federation OK",
+          "--privacy": "privacy smoke OK", "--arch": "serve OK"}
+
+
+def _start_cli_runs(argvs):
+    """``python -m repro_torch.launch.serve`` with each of ``argvs``, as
     processes started together (each reaches the card on its own)."""
     import os
 
@@ -2372,11 +2397,12 @@ def _start_cli_runs():
     return [(argv, subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", *argv],
                                     cwd=ROOT, env=env, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True))
-            for argv in SERVE_CLI]
+            for argv in argvs]
 
 
 def _finish_cli_runs(runs) -> dict:
-    """Wait for every CLI process; each must exit 0 with its OK line last."""
+    """Wait for every CLI process; each must exit 0 with its OK line last.
+    Returns each run's lines by its argv."""
     out = {}
     for argv, proc in runs:
         try:
@@ -2388,12 +2414,10 @@ def _finish_cli_runs(runs) -> dict:
         name = " ".join(argv)
         for line in lines:
             say("serve-cli", f"{name}: {line}")
-        ok = {"--fleet": "fleet serve OK", "--async-rounds": "async federation OK",
-              "--privacy": "privacy smoke OK"}[argv[0]]
-        check(proc.returncode == 0 and lines and lines[-1] == ok,
+        check(proc.returncode == 0 and lines and lines[-1] == CLI_OK[argv[0]],
               f"serve CLI {name} exited {proc.returncode}, last line "
               f"{lines[-1] if lines else None!r}; stderr tail: {stderr[-2000:]}")
-        out[name] = lines[-2] if len(lines) > 1 else ""
+        out[name] = lines
     return out
 
 
@@ -2671,7 +2695,7 @@ def phase_dp_serving(cfg, xtr, fleet_data, fleet_data_d):
                          lambda: [_serve_round(fresh, reqs) for reqs in traffic], warm=False)
     # Untimed from here: the CLI's three modes run as processes of their own
     # meanwhile.
-    cli = _start_cli_runs()
+    cli = _start_cli_runs(SERVE_CLI)
     try:
         chunked = DAEFEngine(base, ExecutionPlan(mode="vmap", tenants=k, stats_backend="fused",
                                                  chunk_samples=FLEET_CHUNK))
@@ -2692,7 +2716,8 @@ def phase_dp_serving(cfg, xtr, fleet_data, fleet_data_d):
         check(int(flag_apart.max()) <= 4, f"flags vs the CPU server: up to {flag_apart.max()} "
               "a tenant (bar 4)")
     finally:
-        cli_lines = _finish_cli_runs(cli)
+        cli_lines = {name: lines[-2] if len(lines) > 1 else ""
+                     for name, lines in _finish_cli_runs(cli).items()}
     out.update({
         "continuous": summary, "pad": pad_summary, "served stats": stats,
         "tile us": tile_us, "scores vs padded, share of the 1e-5 bar": worst,
@@ -3285,16 +3310,20 @@ def phase_prefill(name, cfg, bundle, params, want):
     return launches, dict(ms=ms, tokens_per_s=b * s / ms * 1e3)
 
 
-def lm_profile(label, run, detail=()):
+def lm_profile(label, run, detail=(), host_ops=True):
     """``phase_profile`` plus the device-time shares of the port's kernels
     and of cuBLAS's GEMMs; each kernel whose name holds one of ``detail``
-    is listed by name with its launches and device time."""
+    is listed by name with its launches and device time.  ``host_ops=False``
+    traces the device only (no aten rows; a run of thousands of small ops
+    then takes seconds less to read back).  Returns the profiled run's wall
+    and device-busy ms and its count of kernel launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -3322,6 +3351,7 @@ def lm_profile(label, run, detail=()):
             t = getattr(e, key)
             say("profile", f"{label}: {e.key[:90]}: {e.count} launches, {t / 1e3:.4f} ms "
                 f"({t / 1e3 / max(e.count, 1):.4f} ms each, {100 * t / max(total, 1):.1f} %)")
+    return wall * 1e3, total / 1e3, sum(e.count for e in kernels)
 
 
 def phase_lm():
@@ -3974,6 +4004,220 @@ def phase_comparison() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 21. decode: the serve CLI's LM mode at full width, decode against prefill
+# (B7, B9, B10 on the card), the rings, card against host, decode speed
+# ---------------------------------------------------------------------------
+
+DECODE_B, DECODE_S = 2, 64       # (b): teacher-forced tokens against the prefill
+RING_WINDOW, RING_S = 16, 48     # (c): the rings wrap three times
+HOST_STEPS = 16                  # (d): decode steps card against host
+SPEED_B, SPEED_PROMPT, SPEED_GEN = 4, 32, 16
+PROFILE_STEPS = 10
+# tests/test_models.py test_decode_consistent_with_forward: the reference's bar
+DECODE_ATOL, DECODE_RTOL = 2e-3, 1e-2
+# full-depth prefill launches of each model (B7 FP32, B9, B10)
+DECODE_PREFILL = {QWEN3: dict(flash_attention=28), MAMBA2: dict(ssd_chunk=48),
+                  RGEMMA: dict(flash_attention=12, rglru_scan=26)}
+
+
+def _lm_cli_runs() -> dict:
+    """(a): ``python -m repro_torch.launch.serve --arch A`` (the reference's
+    defaults: batch 4, 32 prompt tokens, 16 generated) for each model, as
+    processes started together; each must end in ``serve OK`` (it raises on
+    non-finite logits before that line).  Returns their lines and times."""
+    out, names = {}, (QWEN3, MAMBA2, RGEMMA)
+    runs = _start_cli_runs([["--arch", name] for name in names])
+    for name, lines in zip(names, _finish_cli_runs(runs).values(), strict=True):
+        m = re.fullmatch(r"prefill (\S+)s; decode (\S+) ms/token", lines[2]) \
+            if len(lines) == 4 else None
+        check(m is not None, f"serve CLI --arch {name}: printed {lines}")
+        out[name] = dict(lines=lines, prefill_s=float(m.group(1)),
+                         decode_ms_per_token=float(m.group(2)))
+    return out
+
+
+def _teacher_force(bundle, params, tokens):
+    """``tokens`` [B, S] stepped through ``bundle.decode`` from a zero float32
+    cache: the last step's logits."""
+    import torch
+
+    b, s = tokens.shape
+    cache = bundle.init_cache(b, s, torch.float32, device=tokens.device)
+    logits = None
+    for t in range(s):
+        logits, cache = bundle.decode(params, cache, tokens[:, t:t + 1], t)
+    return logits, cache
+
+
+def _decode_vs_prefill(label, bundle, params, s, seed, want):
+    """(b)/(c): decode against prefill on the same 2 x ``s`` tokens at the
+    reference's bar; the prefill's launches must be ``want`` (B7 on its FP32
+    kernel), the decode's none."""
+    import torch
+
+    from repro_torch.data import synthetic
+
+    cfg = bundle.cfg
+    tokens = torch.as_tensor(synthetic.lm_token_stream(cfg.vocab_size, s, DECODE_B, seed=seed),
+                             device="cuda")
+    _lm_zero()
+    pf = bundle.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_launches = {k: n for k, n in _lm_read(route="fp32", **want).items() if n}
+    _lm_zero()
+    logits, cache = _teacher_force(bundle, params, tokens)
+    torch.cuda.synchronize()
+    _lm_read(route="fp32")
+    got, ref = logits[:, 0].double(), pf[:, 0].double()
+    d = (got - ref).abs()
+    share = float((d / (DECODE_ATOL + DECODE_RTOL * ref.abs())).max())
+    err, scale = float(d.max()), float(ref.abs().max())
+    check(bool(got.isfinite().all()) and share <= 1.0,
+          f"{label}: decode's last logits {err:.3e} from the prefill's (max|logits| "
+          f"{scale:.3e}; {share:.3f} of the bar atol {DECODE_ATOL} + rtol {DECODE_RTOL})")
+    say("decode", f"{label}: {DECODE_B} x {s} tokens, decode vs prefill max|d| {err:.3e} "
+        f"(max|logits| {scale:.3e}), {share:.4f} of the bar (atol {DECODE_ATOL} + rtol "
+        f"{DECODE_RTOL}); prefill launches {prefill_launches}, decode launches none")
+    return dict(max_abs_err=err, max_abs_logits=scale, bar_used=share,
+                prefill_launches=prefill_launches), cache
+
+
+def _cut(cfg, params, n_layers):
+    """``cfg`` and its parameters cut to ``n_layers`` (views of the full
+    stacks; a hybrid keeps whole periods and as much of its tail)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.models import rglru
+
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    out = {k: v for k, v in params.items() if k not in ("layers", "periods", "tail")}
+    if cfg.family == "hybrid":
+        n_periods, tail = rglru._layout(cut)
+        out["periods"] = pytree.tree_map(lambda t: t[:n_periods], params["periods"])
+        out["tail"] = params["tail"][:len(tail)]
+    else:
+        out["layers"] = pytree.tree_map(lambda t: t[:n_layers], params["layers"])
+    return cut, out
+
+
+def _decode_card_vs_host(cfg, params):
+    """(d): the model cut to two layers (one period), 16 decode steps on the
+    card and on the host from the same weights and tokens; each step's
+    logits within 1e-4 of their largest entry on the host."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.data import synthetic
+    from repro_torch.models import get_bundle
+
+    cut, cut_params = _cut(cfg, params, 3 if cfg.family == "hybrid" else 2)
+    bundle = get_bundle(cut)
+    host = pytree.tree_map(lambda t: t.cpu(), cut_params)
+    tokens = synthetic.lm_token_stream(cfg.vocab_size, HOST_STEPS, DECODE_B, seed=17)
+    card_tokens = torch.as_tensor(tokens, device="cuda")
+    host_tokens = torch.as_tensor(tokens)
+    caches = (bundle.init_cache(DECODE_B, HOST_STEPS, torch.float32, device="cuda"),
+              bundle.init_cache(DECODE_B, HOST_STEPS, torch.float32, device="cpu"))
+    worst = 0.0
+    for t in range(HOST_STEPS):
+        got, _ = bundle.decode(cut_params, caches[0], card_tokens[:, t:t + 1], t)
+        want, _ = bundle.decode(host, caches[1], host_tokens[:, t:t + 1], t)
+        rel = float((got.cpu() - want).abs().max() / want.abs().max())
+        worst = max(worst, rel)
+        check(bool(got.isfinite().all()) and rel <= 1e-4,
+              f"{cut.name} at {cut.n_layers} layers, decode step {t}: card {rel:.3e} of "
+              "max|logits| from the host (bar 1e-4)")
+    say("decode", f"{cut.name} cut to {cut.n_layers} layers: {HOST_STEPS} decode steps card vs "
+        f"host, worst max|d| / max|logits| {worst:.3e} (bar 1e-4)")
+    return worst
+
+
+def _decode_speed(name, bundle, params, card):
+    """Decode ms/token and tokens/s at B = 4 through ``serve.generate`` (after
+    a warm-up run), and a profile of 10 decode steps."""
+    import torch
+
+    from repro_torch.data import synthetic
+    from repro_torch.launch import serve
+
+    cfg = bundle.cfg
+    prompts = synthetic.lm_token_stream(cfg.vocab_size, SPEED_PROMPT, SPEED_B, seed=1)
+    serve.generate(bundle, params, prompts[:, :2], 2)  # warm-up at B = 4
+    _lm_zero()
+    out = serve.generate(bundle, params, prompts, SPEED_GEN)
+    _lm_read(route="fp32")
+    check(bool(out.logits.isfinite().all()), f"{name}: generate's logits not finite")
+    ms = out.decode_s / SPEED_GEN * 1e3
+    tok_s = SPEED_B * SPEED_GEN / out.decode_s
+    say("decode", f"{name} full width, float32, B={SPEED_B}: decode {ms:.3f} ms/token "
+        f"({tok_s:.1f} tokens/s), prompt of {SPEED_PROMPT} stepped in "
+        f"{out.prefill_s * 1e3:.1f} ms, on {card}")
+    tokens = torch.as_tensor(prompts, device="cuda")
+
+    def steps():
+        cache = bundle.init_cache(SPEED_B, PROFILE_STEPS, torch.float32, device="cuda")
+        for t in range(PROFILE_STEPS):
+            bundle.decode(params, cache, tokens[:, t:t + 1], t)
+
+    t0 = time.perf_counter()
+    wall_ms, busy_ms, n_kernels = lm_profile(
+        f"{name} decode, {PROFILE_STEPS} steps at B={SPEED_B}", steps, host_ops=False)
+    say("decode", f"{name}: profiling {PROFILE_STEPS} steps took "
+        f"{time.perf_counter() - t0:.1f} s")
+    say("decode", f"{name}: {busy_ms / PROFILE_STEPS:.2f} ms of device time a step against "
+        f"{ms:.2f} ms/token unprofiled ({busy_ms / PROFILE_STEPS / ms:.3f} busy); "
+        f"{n_kernels / PROFILE_STEPS:.0f} kernel launches a step")
+    return dict(decode_ms_per_token=ms, tokens_per_s=tok_s, prompt_ms=out.prefill_s * 1e3,
+                profile_wall_ms=wall_ms, profile_busy_ms=busy_ms,
+                busy_share=busy_ms / wall_ms, device_ms_per_step=busy_ms / PROFILE_STEPS,
+                kernels_per_step=n_kernels / PROFILE_STEPS)
+
+
+def phase_decode(card) -> dict:
+    """Phase 21 (see the module docstring).  Returns the phase's numbers."""
+    import torch
+
+    from repro_torch.models import get_bundle
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    say("decode", f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held by earlier phases; "
+        f"the three LM CLIs start")
+    out = {"cli": _lm_cli_runs()}
+    say("decode", f"(a) took {time.perf_counter() - t_phase:.1f} s")
+    for name, seed in ((QWEN3, 21), (MAMBA2, 22), (RGEMMA, 23)):
+        t_model = time.perf_counter()
+        cfg, bundle, params = _lm_params(name, torch.float32, seed=seed)
+        row = {}
+        row["vs_prefill"], _ = _decode_vs_prefill(f"{name} (b)", bundle, params, DECODE_S,
+                                                  31, DECODE_PREFILL[name])
+        if name == QWEN3:
+            ring = get_bundle(dataclasses.replace(cfg, sliding_window=RING_WINDOW))
+            row["ring"], cache = _decode_vs_prefill(
+                f"{name} sliding_window={RING_WINDOW} (c)", ring, params, RING_S, 32,
+                DECODE_PREFILL[name])
+            check(cache.k.shape[2] == RING_WINDOW, f"ring of {cache.k.shape[2]} slots")
+        if name == RGEMMA:
+            cut, cut_params = _cut(cfg, params, 5)
+            ring = get_bundle(dataclasses.replace(cut, local_window=RING_WINDOW))
+            row["ring"], cache = _decode_vs_prefill(
+                f"{name} one period + two-block tail, local_window={RING_WINDOW} (c)", ring,
+                cut_params, RING_S, 33, dict(flash_attention=1, rglru_scan=4))
+            check(cache.period_attn["b2"].k.shape[2] == RING_WINDOW, "the hybrid's ring slots")
+        t_host = time.perf_counter()
+        row["card_vs_host"] = _decode_card_vs_host(cfg, params)
+        t_speed = time.perf_counter()
+        row.update(_decode_speed(name, bundle, params, card))
+        out[name] = row
+        say("decode", f"{name}: (b)-(c) {t_host - t_model:.1f} s, (d) {t_speed - t_host:.1f} s, "
+            f"speed and profile {time.perf_counter() - t_speed:.1f} s")
+        del params
+        torch.cuda.empty_cache()
+    say("decode", f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4019,6 +4263,7 @@ def main() -> int:
                                       fleet_data, fleet_data_d)
         serving_numbers = phase_dp_serving(cfg, xtr, fleet_data, fleet_data_d)
         comparison_numbers = phase_comparison()
+        decode_numbers = phase_decode(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4175,6 +4420,7 @@ def main() -> int:
             **_per_launch(lm_rows["ssd_chunk"], "mamba2 prefill"),
         },
     ]
+    print(json.dumps({"decode": decode_numbers}))
     print(json.dumps({"comparison": comparison_numbers}))
     print(json.dumps({"svd": svd_numbers}))
     print(json.dumps({"engine": engine_numbers}))

@@ -20,7 +20,8 @@ scores, thresholds).  One engine (``repro_torch.engine.DAEFEngine`` under an
 (``FederationSession``: sync and async rounds, secure aggregation), and
 checkpoints (``repro_torch.train.checkpoint``) cross with the JAX package's.  The model zoo's serving side is ported for the dense,
 SSM and hybrid families (``repro_torch.models.get_bundle``: init, forward,
-prefill), with the DAEF head on their pooled hidden states
+prefill, decode through KV, SSM and RG-LRU caches; the serve CLI's LM
+mode, ``repro_torch.launch.serve``), with the DAEF head on their pooled hidden states
 (``repro_torch.models.daef_head``); the dense family trains
 (``repro_torch.launch.train``).  The paper's comparison baseline, the
 iterative autoencoder, is ``repro_torch.baselines.autoencoder``.

@@ -32,6 +32,13 @@ crosses as the leaves of ``jax.tree.flatten(state)``: ``u``, ``s``, each
 layer's knowledge, the errors (:func:`exchange_state_from_numpy`,
 :func:`exchange_state_to_numpy`).
 
+An LM decode cache crosses as the leaves of ``jax.tree.flatten(cache)`` of
+the reference's ``KVCache``, ``Mamba2Cache`` or ``RGCache`` as numpy arrays
+(an ``RGCache`` flattens its period dicts in sorted key order, then the
+tail's states one by one): :func:`lm_cache_from_numpy` rebuilds the port's
+cache of the same NamedTuples from them, :func:`lm_cache_to_numpy` gives
+them back in that order.
+
 An Adam state crosses as its three fields (step, mu, nu), each converted
 with ``jax.tree.map(numpy.asarray, ...)`` on the JAX side; mu and nu have
 the parameters' tree (:func:`adam_state_from_numpy`,
@@ -48,7 +55,7 @@ from repro_torch.core import dsvd, rolann
 from repro_torch.core.daef import DAEFConfig, DAEFModel
 from repro_torch.core.fleet import DAEFFleet, _tree_leaves
 from repro_torch.device import resolve_device
-from repro_torch.models import rglru
+from repro_torch.models import api, rglru
 from repro_torch.optim import AdamState
 
 
@@ -181,6 +188,69 @@ def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None) -> dict:
     if stacks != want:
         raise ValueError(f"{cfg.name}: layer stacks of {sorted(stacks)}, expected {want}")
     return params
+
+
+def _cache_leaves(tree) -> list:
+    """The leaves of a cache tree in ``jax.tree.flatten`` order: NamedTuple
+    fields and tuple items in order, dict values by sorted key."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _cache_leaves(tree[k])]
+    return [leaf for item in tree for leaf in _cache_leaves(item)]
+
+
+def _cache_fill(template, leaves):
+    """``template``'s tree with its leaves taken in order from ``leaves``."""
+    if isinstance(template, torch.Tensor):
+        return next(leaves)
+    if isinstance(template, dict):
+        filled = {k: _cache_fill(template[k], leaves) for k in sorted(template)}
+        return {k: filled[k] for k in template}
+    items = [_cache_fill(item, leaves) for item in template]
+    return type(template)(*items) if hasattr(template, "_fields") else type(template)(items)
+
+
+def _cache_template(cfg: ArchConfig, batch: int = 1, seq_len: int = 1):
+    """``cfg``'s cache tree as meta tensors (``get_bundle`` raises for a
+    family not ported yet)."""
+    return api.cache_specs(api.get_bundle(cfg), batch, seq_len, torch.float32)
+
+
+def lm_cache_from_numpy(cfg: ArchConfig, tree, *, device=None):
+    """The port's decode cache of ``cfg``'s LM on ``device`` from the
+    reference's cache leaves (see the module docstring); each leaf keeps
+    its dtype.
+
+    Raises:
+        ValueError: the leaves do not fit ``cfg``'s cache: their count, or a
+            leaf's rank or one of its sizes that no batch size or sequence
+            length changes (layer stacks, heads, widths, a ring's window).
+    """
+    dev = resolve_device(device)
+    template = _cache_template(cfg)
+    small, large = _cache_leaves(template), _cache_leaves(_cache_template(cfg, 2, 2))
+    leaves = [np.asarray(leaf) for leaf in tree]
+    if len(leaves) != len(small):
+        raise ValueError(f"{cfg.name}: {len(leaves)} cache leaves, expected {len(small)}")
+    for i, (leaf, a, b) in enumerate(zip(leaves, small, large)):
+        # a size that is the same in both templates is fixed by cfg
+        if leaf.ndim != a.ndim or any(n == m != got for n, m, got in
+                                      zip(a.shape, b.shape, leaf.shape)):
+            raise ValueError(f"{cfg.name}: cache leaf {i} has shape {leaf.shape}, expected "
+                             f"rank {a.ndim} like {tuple(b.shape)} (batch 2, length 2)")
+    tensors = iter([torch.as_tensor(np.array(leaf), device=dev) for leaf in leaves])
+    return _cache_fill(template, tensors)
+
+
+def lm_cache_to_numpy(cfg: ArchConfig, cache) -> list[np.ndarray]:
+    """The leaves of the port's decode cache of ``cfg``'s LM as numpy
+    arrays, in the reference's ``jax.tree.flatten`` order."""
+    leaves = _cache_leaves(cache)
+    n_want = len(_cache_leaves(_cache_template(cfg)))
+    if len(leaves) != n_want:
+        raise ValueError(f"{cfg.name}: {len(leaves)} cache leaves, expected {n_want}")
+    return [t.detach().cpu().numpy() for t in leaves]
 
 
 def adam_state_from_numpy(state, *, device=None) -> AdamState:

@@ -1,8 +1,11 @@
-"""Serving launcher: a DAEF fleet scorer, async federation or the privacy
-smoke, on the card (counterpart of ``repro/launch/serve.py``).
+"""Serving launcher: LM decode, a DAEF fleet scorer, async federation or the
+privacy smoke, on the card (counterpart of ``repro/launch/serve.py``).
 
-Three modes of the reference's four run here:
-
+* LM serve (default, ``--arch``) — prefill a batch of synthetic prompts by
+  stepping them through the backbone's decode, then decode ``--gen``
+  tokens greedily against a float32 cache (:func:`generate`).  The dense,
+  SSM and hybrid families run; the others raise ``NotImplementedError``
+  from ``get_bundle``, naming ROADMAP queue A item 14.
 * Fleet serve (``--fleet K``) — train K per-tenant DAEF anomaly detectors in
   one batched fleet fit, then serve rounds of ragged per-tenant request
   batches.  ``--packing continuous`` (default) routes them through the
@@ -21,12 +24,13 @@ Three modes of the reference's four run here:
 * The privacy smoke (``--privacy``): a DP fit at epsilon=8 and one secagg
   round checked against the unmasked merge.
 
-The LM mode (no ``--fleet``, ``--async-rounds`` or ``--privacy``) needs the
-backbones' decode, ROADMAP queue A item 14, and ``--mesh-tenants`` a tenant
-mesh, item 12: both raise ``NotImplementedError``.  ``--device cpu`` runs a
-mode on the host (the default is the card).
+``--mesh-tenants`` needs a tenant mesh, ROADMAP queue A item 12, and raises
+``NotImplementedError``.  ``--device cpu`` runs a mode on the host (the
+default is the card).
 
 Examples:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+      --batch 4 --prompt-len 32 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --fleet 64 --rounds 20
   PYTHONPATH=src python -m repro_torch.launch.serve --async-rounds 6 --sites 8 \\
       --straggle 0.25 --max-staleness 1
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,13 +49,68 @@ from repro_torch.configs import registry
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 
-LM_ITEM = "ROADMAP queue A item 14"
 MESH_ITEM = "ROADMAP queue A item 12"
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class Generation(NamedTuple):
+    tokens: torch.Tensor   # [B, gen] int32, the greedy tokens
+    logits: torch.Tensor   # [B, 1, V], the last decode step's
+    prefill_s: float       # stepping the prompt through decode
+    decode_s: float        # the gen greedy steps
+
+
+def generate(bundle, params, prompts, gen: int) -> Generation:
+    """The reference's serve loop: a float32 cache for prompt + ``gen``
+    tokens on the parameters' device, the prompts [B, P] stepped through
+    ``bundle.decode`` one position at a time (the prefill), then ``gen``
+    greedy tokens, each fed back at the next position.  Both times are host
+    clocks that end in a synchronize of the card."""
+    dev = params["embed"]["table"].device
+    prompts = torch.as_tensor(prompts, device=dev)
+    batch, prompt_len = prompts.shape
+    cache = bundle.init_cache(batch, prompt_len + gen, torch.float32, device=dev)
+    t0 = time.perf_counter()
+    logits = None
+    for t in range(prompt_len):
+        logits, cache = bundle.decode(params, cache, prompts[:, t:t + 1], t)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    generated = []
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    t0 = time.perf_counter()
+    for t in range(prompt_len, prompt_len + gen):
+        generated.append(tok)
+        logits, cache = bundle.decode(params, cache, tok, t)
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    _sync(dev)
+    return Generation(torch.cat(generated, dim=1), logits, t_prefill,
+                      time.perf_counter() - t0)
+
+
+def run_lm(args) -> None:
+    """Serve a backbone: random weights (seed 0), synthetic prompts."""
+    from repro_torch.models import get_bundle
+
+    cfg = registry.get(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    bundle = get_bundle(cfg, chunked_attn=False)
+    params = bundle.init(0, device=resolve_device(args.device))
+    prompts = synthetic.lm_token_stream(cfg.vocab_size, args.prompt_len, args.batch, seed=1)
+    out = generate(bundle, params, prompts, args.gen)
+    print(f"prompts [{args.batch}, {args.prompt_len}] -> generated {tuple(out.tokens.shape)}")
+    print("first sequence:", out.tokens[0].tolist())
+    print(f"prefill {out.prefill_s:.2f}s; decode "
+          f"{out.decode_s / max(1, args.gen) * 1000:.1f} ms/token")
+    if not bool(torch.isfinite(out.logits).all()):
+        raise RuntimeError("non-finite logits")
+    print("serve OK")
 
 
 def run_fleet(args) -> None:
@@ -475,11 +535,7 @@ def main(argv=None) -> None:
         return
     if args.arch is None:
         ap.error("--arch is required unless --fleet is given")
-    raise NotImplementedError(
-        f"LM serving (--arch {args.arch}) prefills and then decodes through a "
-        f"KV cache; the backbones' decode is not ported to repro_torch yet "
-        f"({LM_ITEM})"
-    )
+    run_lm(args)
 
 
 if __name__ == "__main__":

@@ -87,6 +87,9 @@ def make_prefill_step(bundle: ModelBundle) -> Callable:
 
 
 def make_decode_step(bundle: ModelBundle) -> Callable:
-    """Raises until the decode slice (ROADMAP queue A item 14)."""
-    raise NotImplementedError(f"make_decode_step({bundle.cfg.name}): decode is not ported "
-                              "yet (ROADMAP queue A item 14)")
+    """(params, cache, token, pos) -> (logits, cache): ``bundle.decode``,
+    which updates the cache in place."""
+    def decode_step(params, cache, token, pos):
+        return bundle.decode(params, cache, token, pos)
+
+    return decode_step

@@ -1,3 +1,3 @@
 """Architecture zoo: the LM families the port serves, behind one
 ModelBundle interface, and the DAEF head on their pooled hidden states."""
-from repro_torch.models.api import ModelBundle, get_bundle  # noqa: F401
+from repro_torch.models.api import ModelBundle, cache_specs, get_bundle  # noqa: F401

@@ -7,6 +7,8 @@ Counterpart of ``repro/models/api.py`` for the families ported so far
     forward(params, tokens)      -> hidden states [B, S, d]
     prefill(params, batch)       -> last-token logits [B, 1, V]
     loss(params, batch)          -> scalar (training objective, float32)
+    init_cache(batch_size, seq_len, dtype, *, device=None) -> decode cache
+    decode(params, cache, token, pos) -> (logits [B, 1, V], cache)
     input_specs(shape, dtype)    -> {name: meta tensor} for an ``InputShape``
 
 ``seed`` is an int (a ``torch.Generator`` on ``device`` is seeded with it)
@@ -22,11 +24,19 @@ callers reach the family module directly; the port's DAEF head takes the
 bundle's.  ``input_specs`` gives meta tensors, PyTorch's counterpart of the
 reference's ``jax.ShapeDtypeStruct``: shapes and dtypes, no storage.
 
+``init_cache`` allocates a zero cache (a ``KVCache``, ``Mamba2Cache`` or
+``RGCache`` of tensors) on ``device``, ``None`` meaning the card: pass the
+parameters' device.  ``decode`` runs one token [B, 1] at position ``pos``
+(an int or a 0-d integer tensor on the cache's device) under
+``torch.inference_mode()`` and updates the cache in place: the cache it
+returns is the one passed in, now holding the token (the reference donates
+it), so a caller must not keep the old one.  :func:`cache_specs` gives the
+cache's tree as meta tensors.
+
 ``loss`` trains the ``dense`` family only: for ``ssm`` and ``hybrid`` it
 raises ``NotImplementedError`` (their B10/B9 kernels have no backward;
-ROADMAP queue A item 16).  ``init_cache`` and ``decode`` raise until the
-decode slice; so does :func:`get_bundle` for the families not ported yet
-(``vlm``, ``moe``, ``encdec``), naming the ROADMAP item.
+ROADMAP queue A item 16).  :func:`get_bundle` raises for the families not
+ported yet (``vlm``, ``moe``, ``encdec``), naming ROADMAP queue A item 14.
 """
 from __future__ import annotations
 
@@ -60,7 +70,7 @@ class ModelBundle:
     input_specs: Callable[..., dict[str, torch.Tensor]]
 
 
-def _waits(what: str, item: int = 14) -> Callable[..., Any]:
+def _waits(what: str, item: int) -> Callable[..., Any]:
     def fn(*args, **kwargs):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue A item {item})")
     return fn
@@ -108,6 +118,13 @@ def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
     def forward(params, tokens):
         return mod.forward(params, cfg, _tokens(params, tokens))
 
+    def init_cache(batch_size, seq_len, dtype, *, device=None):
+        return mod.init_cache(cfg, batch_size, seq_len, dtype, device=device)
+
+    @torch.inference_mode()
+    def decode(params, cache, token, pos):
+        return mod.decode_step(params, cfg, cache, _tokens(params, token), pos)
+
     @torch.inference_mode()
     def prefill(params, batch):
         h = mod.forward(params, cfg, _tokens(params, batch["tokens"]))
@@ -123,7 +140,12 @@ def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
 
     return ModelBundle(
         cfg=cfg, init=init, forward=forward, prefill=prefill, loss=loss,
-        init_cache=_waits("init_cache (the decode slice)"),
-        decode=_waits("decode (the decode slice)"),
-        input_specs=input_specs,
+        init_cache=init_cache, decode=decode, input_specs=input_specs,
     )
+
+
+def cache_specs(bundle: ModelBundle, batch: int, seq_len: int, dtype) -> Any:
+    """The decode cache's tree as meta tensors (shapes and dtypes, no
+    storage): the counterpart of the reference's ``jax.eval_shape`` of
+    ``bundle.init_cache``."""
+    return bundle.init_cache(batch, seq_len, dtype, device="meta")

@@ -1,8 +1,10 @@
-"""Mamba-2 (SSD, State Space Duality, arXiv:2405.21060): init and prefill.
+"""Mamba-2 (SSD, State Space Duality, arXiv:2405.21060): init, prefill and
+decode.
 
 Counterpart of ``repro/models/mamba2.py``'s ``_dims``, ``init_layer`` /
 ``init_params``, ``_split_proj``, ``_causal_conv``, ``ssd_chunked``,
-``layer_fwd`` and ``forward``.  Layers are stacked on a leading [L] axis.
+``layer_fwd``, ``forward``, ``Mamba2Cache``, ``init_cache`` and
+``decode_step``.  Layers are stacked on a leading [L] axis.
 
 The SSD scan of :func:`layer_fwd` goes through the B10 wrapper
 (``kernels.ssd_chunk``): the hand-written kernel on a CUDA tensor, the plain
@@ -10,27 +12,37 @@ chunked version on a CPU tensor, with B and C indexed per group (never
 repeated per head).  :func:`ssd_chunked` keeps the reference's signature and
 is that plain version.
 
+Decode is the O(1) recurrent update of the reference, in plain PyTorch (the
+reference's is plain XLA): a float32 [L, B, H, P, N] SSM state and a
+[L, B, W-1, C] causal-conv tail in the model's dtype, both updated in place
+by :func:`decode_step`.
+
 What the port leaves out: ``remat`` (no forward-only meaning), the sharding
 hint on the heads (mesh-only, ROADMAP queue A item 12), ``lm_loss`` (B10
-has no backward: ROADMAP queue A item 16), ``Mamba2Cache``, ``init_cache``
-and ``decode_step`` (the decode slice).
+has no backward: ROADMAP queue A item 16).
 
 Shapes: tokens [B, S]; inner activations [B, S, H, P] (H heads, P head dim);
 B/C projections [B, S, G, N] (G groups, N state dim).
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_plain
 from repro_torch.models import common
 
 Params = dict[str, Any]
+
+
+class Mamba2Cache(NamedTuple):
+    ssm: torch.Tensor    # [L, B, H, P, N] inter-token SSM state (float32)
+    conv: torch.Tensor   # [L, B, W-1, conv_channels] causal-conv tail
 
 
 def _dims(cfg: ArchConfig):
@@ -90,11 +102,6 @@ def _causal_conv(w: torch.Tensor, bias: torch.Tensor, x: torch.Tensor) -> torch.
     return F.silu(out + bias)
 
 
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: logaddexp(x, 0), no threshold."""
-    return torch.logaddexp(x, torch.zeros_like(x))
-
-
 def ssd_chunked(x, dt, a, b, c, chunk: int, h0=None):
     """The chunked SSD scan with the reference's signature (the plain route):
     x [B, S, H, P], dt [B, S, H] (softplus'd), a [H] (A = -a), b and c
@@ -114,7 +121,7 @@ def layer_fwd(layer: Params, cfg: ArchConfig, h_in: torch.Tensor) -> torch.Tenso
     x = x.reshape(bsz, s, n_heads, cfg.ssm_head_dim).float()
     b = b.reshape(bsz, s, cfg.n_groups, cfg.ssm_state).float().contiguous()
     c = c.reshape(bsz, s, cfg.n_groups, cfg.ssm_state).float().contiguous()
-    dt = softplus(dt.float() + layer["dt_bias"])
+    dt = common.softplus(dt.float() + layer["dt_bias"])
     a = torch.exp(layer["a_log"])
 
     y, _ = ssd_chunk(x * dt[..., None], -a[None, None, :] * dt, b, c,
@@ -131,3 +138,58 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tens
     for i in range(cfg.n_layers):
         h = layer_fwd(common.layer(params["layers"], i), cfg, h)
     return common.rmsnorm(params["final_norm"], h)
+
+
+# ---------------------------------------------------------------------------
+# Serving (recurrent decode, O(1) per token)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype, *,
+               device=None) -> Mamba2Cache:
+    """Zero state on ``device`` (``None``: the card; the parameters' device is
+    the one to pass); its size does not depend on ``seq_len``."""
+    del seq_len
+    _, n_heads, conv_ch = _dims(cfg)
+    dev = resolve_device(device)
+    return Mamba2Cache(
+        ssm=torch.zeros((cfg.n_layers, batch, n_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                        dtype=torch.float32, device=dev),
+        conv=torch.zeros((cfg.n_layers, batch, cfg.conv_width - 1, conv_ch), dtype=dtype,
+                         device=dev),
+    )
+
+
+def decode_step(params: Params, cfg: ArchConfig, cache: Mamba2Cache, token: torch.Tensor,
+                pos) -> tuple[torch.Tensor, Mamba2Cache]:
+    """One decoding step: ``token`` [B, 1] -> (logits [B, 1, V], the cache
+    updated in place).  ``pos`` is unused: the state carries the position."""
+    del pos
+    d_inner, n_heads, _ = _dims(cfg)
+    gn, rep = cfg.n_groups * cfg.ssm_state, n_heads // cfg.n_groups
+    h = common.embed(params["embed"], token)  # [B,1,d]
+    for i in range(cfg.n_layers):
+        layer = common.layer(params["layers"], i)
+        x_norm = common.rmsnorm(layer["norm"], h)
+        z, x, b, c, dt = _split_proj(cfg, x_norm @ layer["in_proj"])
+        xbc = torch.cat([x, b, c], dim=-1)                        # [B,1,C]
+        window = torch.cat([cache.conv[i], xbc[:, 0:1]], dim=1)   # [B,W,C]
+        conv_out = F.silu(torch.einsum("bwc,wc->bc", window, layer["conv_w"])
+                          + layer["conv_b"])
+        cache.conv[i].copy_(window[:, 1:])
+        x, b, c = torch.split(conv_out, [d_inner, gn, gn], dim=-1)
+        bsz = x.shape[0]
+        x = x.reshape(bsz, n_heads, cfg.ssm_head_dim).float()
+        b = b.reshape(bsz, cfg.n_groups, cfg.ssm_state).float().repeat_interleave(rep, dim=1)
+        c = c.reshape(bsz, cfg.n_groups, cfg.ssm_state).float().repeat_interleave(rep, dim=1)
+        dt_v = common.softplus(dt[:, 0].float() + layer["dt_bias"])
+        decay = torch.exp(-torch.exp(layer["a_log"])[None, :] * dt_v)  # [B,H]
+        upd = x[..., :, None] * b[..., None, :] * dt_v[..., None, None]
+        ssm = cache.ssm[i]
+        ssm.copy_(ssm * decay[..., None, None] + upd)
+        y = torch.einsum("bhn,bhpn->bhp", c, ssm)
+        y = y + layer["d_skip"][None, :, None] * x
+        y = y.reshape(bsz, 1, d_inner).to(h.dtype)
+        y = common.rmsnorm(layer["gate_norm"], y * F.silu(z))
+        h = h + y @ layer["out_proj"]
+    h = common.rmsnorm(params["final_norm"], h)
+    return common.logits_from_hidden(h, params["embed"], None), cache

@@ -1,40 +1,47 @@
 """RecurrentGemma / Griffin hybrid (arXiv:2402.19427): RG-LRU recurrent
-blocks and local attention in a (rec, rec, attn) pattern — init and prefill.
+blocks and local attention in a (rec, rec, attn) pattern — init, prefill and
+decode.
 
 Counterpart of ``repro/models/rglru.py``'s ``_pattern``, ``_layout``,
-``rg_lru``, ``init_rec_block``, ``init_attn_block``, ``_rec_fwd`` (the
-training / prefill branch), ``_attn_fwd`` (window = ``local_window``),
-``init_params`` and ``forward``.  Whole periods are stacked on a leading
-[n_periods] axis, with the remainder layers (38 = 12·3 + 2) in ``tail``, as
-the reference lays them out.
+``rg_lru``, ``rg_lru_step``, ``init_rec_block``, ``init_attn_block``,
+``RecState``, ``_rec_fwd`` and ``_attn_fwd`` (prefill and decode),
+``init_params``, ``forward``, ``RGCache``, ``init_cache`` and
+``decode_step``.  Whole periods are stacked on a leading [n_periods] axis,
+with the remainder layers (38 = 12·3 + 2) in ``tail``, as the reference
+lays them out; so is the decode cache (a stacked state per period slot
+``b{i}``, the tail's one by one).
 
-The recurrence of :func:`_rec_fwd` goes through the B9 wrapper
+The prefill recurrence of :func:`_rec_fwd` goes through the B9 wrapper
 (``kernels.rglru_scan``): the hand-written kernel on a CUDA tensor, the
 plain sequential scan on a CPU tensor.  :func:`rg_lru` keeps the reference's
 signature and is that plain version (the reference evaluates the same
 recurrence with ``lax.associative_scan``).  The local attention goes through
-B7 with its window.
+B7 with its window.  Decode is the reference's O(1) update in plain PyTorch
+(:func:`rg_lru_step`, a ring KV cache of ``local_window`` slots written at
+``pos % local_window``), every state updated in place by
+:func:`decode_step`.
 
 What the port leaves out: ``remat`` and ``chunked_attn`` (no forward-only
 meaning; the attention always streams through B7), the sharding hint on the
 width (mesh-only, ROADMAP queue A item 12), ``lm_loss`` (B9 has no
-backward: ROADMAP queue A item 16), ``rg_lru_step``, ``RecState``, the
-decode branch of ``_rec_fwd``, ``RGCache``, ``init_cache`` and
-``decode_step`` (the decode slice).
+backward: ROADMAP queue A item 16).
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
 
 Params = dict[str, Any]
+
+_C = 8.0  # RG-LRU gate exponent constant (Griffin §2.4)
 
 
 def _pattern(cfg: ArchConfig) -> tuple[str, ...]:
@@ -51,6 +58,14 @@ def rg_lru(x, r, i, lam, h0=None):
     """x, r, i [B, S, W]; lam [W] -> (y [B, S, W], h_last [B, W]): the plain
     sequential recurrence."""
     return rglru_scan_ref(x, r, i, lam, h0)
+
+
+def rg_lru_step(x, r, i, lam, h_prev):
+    """One-token update; all inputs [B, W] (lam [W])."""
+    log_a = -_C * r * common.softplus(-lam)[None, :]
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp(-torch.expm1(2.0 * log_a), min=1e-12))
+    return a * h_prev + mult * (i * x)
 
 
 def init_rec_block(gen: torch.Generator, cfg: ArchConfig, dtype, *, lead=()) -> Params:
@@ -102,42 +117,72 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> P
     }
 
 
-def _rec_fwd(blk: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    """Recurrent block, prefill."""
+class RecState(NamedTuple):
+    lru: torch.Tensor    # [B, W] (float32)
+    conv: torch.Tensor   # [B, conv_width-1, W]
+
+
+def _rec_fwd(blk: Params, cfg: ArchConfig, h: torch.Tensor, state: RecState | None = None):
+    """Recurrent block: prefill (``state=None``) -> (out, None), or decode of
+    one token -> (out, state updated in place)."""
     xin = common.rmsnorm(blk["norm"], h)
     x = xin @ blk["w_x"]
     gate = common.gelu(xin @ blk["w_gate"])
-    width, s = blk["conv_w"].shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, width - 1, 0))
-    x = sum(pad[:, i:i + s, :] * blk["conv_w"][i][None, None] for i in range(width)) \
-        + blk["conv_b"]
-    r = torch.sigmoid(x @ blk["w_r"] + blk["b_r"])
-    i = torch.sigmoid(x @ blk["w_i"] + blk["b_i"])
-    y, _ = rglru_scan(x, r, i, blk["lam"])  # widened to float32 in the kernel or on the host
-    y = y.to(h.dtype) * gate
-    out = h + y @ blk["w_out"]
-    return out + common.mlp(blk["mlp"], cfg.mlp, common.rmsnorm(blk["mlp_norm"], out))
+    if state is None:
+        width, s = blk["conv_w"].shape[0], x.shape[1]
+        pad = F.pad(x, (0, 0, width - 1, 0))
+        x = sum(pad[:, i:i + s, :] * blk["conv_w"][i][None, None] for i in range(width)) \
+            + blk["conv_b"]
+        r = torch.sigmoid(x @ blk["w_r"] + blk["b_r"])
+        i = torch.sigmoid(x @ blk["w_i"] + blk["b_i"])
+        y, _ = rglru_scan(x, r, i, blk["lam"])  # widened to float32 in the kernel or on the host
+        y = y.to(h.dtype) * gate
+        out = h + y @ blk["w_out"]
+    else:
+        window = torch.cat([state.conv, x], dim=1)                     # [B,W,w]
+        x1 = torch.einsum("bwc,wc->bc", window, blk["conv_w"]) + blk["conv_b"]
+        r = torch.sigmoid(x1 @ blk["w_r"] + blk["b_r"])
+        i = torch.sigmoid(x1 @ blk["w_i"] + blk["b_i"])
+        h_new = rg_lru_step(x1.float(), r.float(), i.float(), blk["lam"], state.lru)
+        y = (h_new.to(h.dtype) * gate[:, 0])[:, None]
+        out = h + y @ blk["w_out"]
+        state.lru.copy_(h_new)
+        state.conv.copy_(window[:, 1:])
+    out = out + common.mlp(blk["mlp"], cfg.mlp, common.rmsnorm(blk["mlp_norm"], out))
+    return out, state
 
 
-def _attn_fwd(blk: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    """Local-attention block, prefill (window = ``cfg.local_window``)."""
-    a, _ = attn_mod.attention_block(blk["attn"], cfg, common.rmsnorm(blk["norm"], h),
-                                    window=cfg.local_window)
+def _attn_fwd(blk: Params, cfg: ArchConfig, h: torch.Tensor, *,
+              cache: attn_mod.KVCache | None = None, pos=None, slot=None):
+    """Local-attention block: prefill (window = ``cfg.local_window``) ->
+    (out, (k, v)), or decode against the ring ``cache`` -> (out, cache)."""
+    a, new_cache = attn_mod.attention_block(
+        blk["attn"], cfg, common.rmsnorm(blk["norm"], h),
+        window=cfg.local_window if cache is None else None,
+        cache=cache, cache_pos=pos, write_slot=slot,
+    )
     h = h + a
-    return h + common.mlp(blk["mlp"], cfg.mlp, common.rmsnorm(blk["mlp_norm"], h))
+    h = h + common.mlp(blk["mlp"], cfg.mlp, common.rmsnorm(blk["mlp_norm"], h))
+    return h, new_cache
 
 
 def _block_fwd(kind: str, blk: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    return _rec_fwd(blk, cfg, h) if kind == "rec" else _attn_fwd(blk, cfg, h)
+    out, _ = _rec_fwd(blk, cfg, h) if kind == "rec" else _attn_fwd(blk, cfg, h)
+    return out
+
+
+def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding scaled by sqrt(d_model), rounded to the table's dtype."""
+    table = params["embed"]["table"]
+    scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32)).to(table.dtype)
+    return common.embed(params["embed"], tokens) * scale.to(table.device)
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Hidden states [B, S, d] for prefill."""
     pat = _pattern(cfg)
     n_periods, tail = _layout(cfg)
-    table = params["embed"]["table"]
-    scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32)).to(table.dtype)
-    h = common.embed(params["embed"], tokens) * scale.to(table.device)
+    h = _embed(params, cfg, tokens)
     for p in range(n_periods):
         period = common.layer(params["periods"], p)
         for i, kind in enumerate(pat):
@@ -145,3 +190,69 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tens
     for blk, kind in zip(params["tail"], tail, strict=True):
         h = _block_fwd(kind, blk, cfg, h)
     return common.rmsnorm(params["final_norm"], h)
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+class RGCache(NamedTuple):
+    period_rec: Any     # {bi: RecState stacked [n_periods, ...]} per rec slot
+    period_attn: Any    # {bi: KVCache stacked [n_periods, ...]} per attn slot
+    tail: tuple         # per tail block: RecState | KVCache
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype, *, device=None) -> RGCache:
+    """Zero state on ``device`` (``None``: the card; the parameters' device
+    is the one to pass): per rec block an RG-LRU state (float32) and a conv
+    tail, per attention block a ring KV cache of ``local_window`` slots."""
+    del seq_len
+    pat = _pattern(cfg)
+    n_periods, tail = _layout(cfg)
+    w = cfg.lru_width or cfg.d_model
+    dev = resolve_device(device)
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def rec_state(lead=()):
+        return RecState(lru=zeros((*lead, batch, w), torch.float32),
+                        conv=zeros((*lead, batch, cfg.conv_width - 1, w), dtype))
+
+    def kv_cache(lead=()):
+        shape = (*lead, batch, cfg.local_window, cfg.n_kv_heads, cfg.head_dim)
+        return attn_mod.KVCache(k=zeros(shape, dtype), v=zeros(shape, dtype))
+
+    return RGCache(
+        period_rec={f"b{i}": rec_state((n_periods,)) for i, k in enumerate(pat) if k == "rec"},
+        period_attn={f"b{i}": kv_cache((n_periods,)) for i, k in enumerate(pat) if k == "attn"},
+        tail=tuple(rec_state() if k == "rec" else kv_cache() for k in tail),
+    )
+
+
+def decode_step(params: Params, cfg: ArchConfig, cache: RGCache, token: torch.Tensor,
+                pos) -> tuple[torch.Tensor, RGCache]:
+    """One decoding step: ``token`` [B, 1] at position ``pos`` (an int or a
+    0-d integer tensor) -> (logits [B, 1, V], the cache updated in place)."""
+    pat = _pattern(cfg)
+    n_periods, tail = _layout(cfg)
+    h = _embed(params, cfg, token)
+    slot = pos % cfg.local_window
+    for p in range(n_periods):
+        period = common.layer(params["periods"], p)
+        for i, kind in enumerate(pat):
+            key = f"b{i}"
+            if kind == "rec":
+                st = cache.period_rec[key]
+                h, _ = _rec_fwd(period[key], cfg, h, state=RecState(st.lru[p], st.conv[p]))
+            else:
+                kv = cache.period_attn[key]
+                h, _ = _attn_fwd(period[key], cfg, h, cache=attn_mod.KVCache(kv.k[p], kv.v[p]),
+                                 pos=pos, slot=slot)
+    for blk, kind, st in zip(params["tail"], tail, cache.tail, strict=True):
+        if kind == "rec":
+            h, _ = _rec_fwd(blk, cfg, h, state=st)
+        else:
+            h, _ = _attn_fwd(blk, cfg, h, cache=st, pos=pos, slot=slot)
+    h = common.rmsnorm(params["final_norm"], h)
+    return common.logits_from_hidden(h, params["embed"], None), cache

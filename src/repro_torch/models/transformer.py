@@ -1,9 +1,9 @@
-"""Dense decoder-only transformer (llama lineage): init, forward and the
-training loss.
+"""Dense decoder-only transformer (llama lineage): init, forward, the
+training loss and decode.
 
 Counterpart of ``repro/models/transformer.py``'s ``init_params``,
-``forward`` and ``lm_loss`` (qwen3-1.7b, qwen2-1.5b, mistral-nemo-12b,
-granite-20b).  Layer parameters are stacked on a leading [L] axis, as the
+``forward``, ``lm_loss``, ``init_cache`` and ``decode_step`` (qwen3-1.7b,
+qwen2-1.5b, mistral-nemo-12b, granite-20b).  Layer parameters are stacked on a leading [L] axis, as the
 reference stacks them; the reference's ``lax.scan`` over that axis is a
 Python loop over layer views.
 
@@ -12,9 +12,14 @@ Python loop over layer views.
 backward keeps one [B, S, d] input per layer and recomputes the rest (the
 attention forward, B7, runs again there).  Without grad it changes nothing.
 
+Decode keeps a stacked [L, B, S, Hkv, hd] KV cache (a sliding-window model
+allocates only ``min(seq_len, window)`` slots and writes ring slot
+``pos % cache_len``); :func:`decode_step` updates it in place and returns
+it (see ``attention.update_cache``).
+
 What the port leaves out: ``chunked_attn`` (the attention always streams
 through the B7/B8 kernels); ``prefix_embeds`` (the VLM, ROADMAP queue A
-item 14); ``init_cache`` and ``decode_step`` (the decode slice).
+item 14).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
 
@@ -85,3 +91,40 @@ def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     return common.chunked_softmax_xent(h_in, labels, mask, w,
                                        chunk=min(loss_chunk, h_in.shape[1]),
                                        transpose=cfg.tie_embeddings)
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype, *,
+               device=None) -> attn_mod.KVCache:
+    """Stacked [L, B, S, Hkv, hd] KV cache of zeros on ``device`` (``None``:
+    the card; the parameters' device is the one to pass); sliding-window
+    models allocate only the window."""
+    s = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return attn_mod.KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                            v=torch.zeros(shape, dtype=dtype, device=dev))
+
+
+def decode_step(params: Params, cfg: ArchConfig, cache: attn_mod.KVCache,
+                token: torch.Tensor, pos) -> tuple[torch.Tensor, attn_mod.KVCache]:
+    """One decoding step: ``token`` [B, 1] at position ``pos`` (an int or a
+    0-d integer tensor) -> (logits [B, 1, V], the cache updated in place)."""
+    h = common.embed(params["embed"], token)
+    cache_len = cache.k.shape[2]
+    # With a ring (windowed) cache the write slot wraps around.
+    slot = pos % cache_len if cfg.sliding_window else pos
+    for i, layer in enumerate(common.unstack(params["layers"], cfg.n_layers)):
+        a, _ = attn_mod.attention_block(
+            layer["attn"], cfg, common.apply_norm(cfg.norm, layer["attn_norm"], h),
+            cache=attn_mod.KVCache(cache.k[i], cache.v[i]), cache_pos=pos, write_slot=slot,
+        )
+        h = h + a
+        h = h + common.mlp(layer["mlp"], cfg.mlp,
+                           common.apply_norm(cfg.norm, layer["mlp_norm"], h))
+    h = common.apply_norm(cfg.norm, params["final_norm"], h)
+    w = None if cfg.tie_embeddings else params["lm_head"]
+    return common.logits_from_hidden(h, params["embed"], w), cache

@@ -849,6 +849,61 @@ def test_reduced_backbone_on_card_matches_host(card, name, s):
     assert float((got - host).abs().max()) <= 1e-4 * float(host.abs().max())
 
 
+DECODE_CASES = {  # id: (arch, config changes, tokens)
+    "qwen3": ("qwen3-1.7b", {}, 64),
+    "qwen3 ring": ("qwen3-1.7b", {"sliding_window": 16}, 48),
+    "mamba2": ("mamba2-780m", {}, 64),
+    "recurrentgemma tail ring": ("recurrentgemma-9b", {"n_layers": 5, "local_window": 16}, 48),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_on_card_matches_prefill(card, case):
+    """chip_smoke.py phase 21 (b, c) at a reduced width: the tokens
+    teacher-forced through ``bundle.decode`` on the card (plain PyTorch),
+    the last logits against the card's prefill of the same tokens (B7 on
+    its FP32 kernel, B9, B10), at the reference's bar (atol 2e-3, rtol
+    1e-2, tests/test_models.py); the ring cases wrap their 16 slots."""
+    name, changes, s = DECODE_CASES[case]
+    cfg = dataclasses.replace(registry.get(name).reduced(), **changes)
+    bundle = get_bundle(cfg)
+    params = bundle.init(0, device=card)
+    tokens = torch.as_tensor(synthetic.lm_token_stream(cfg.vocab_size, s, 2, seed=1),
+                             device=card)
+    kernels = {"dense": (flash_attention,), "ssm": (ssd_chunk,),
+               "hybrid": (flash_attention, rglru_scan)}[cfg.family]
+    before = [k.launches for k in kernels]
+    want = bundle.prefill(params, {"tokens": tokens})
+    assert all(k.launches > n for k, n in zip(kernels, before))
+    if cfg.family != "ssm":
+        assert flash_attention.route_launches["fp32"] > 0
+    cache = bundle.init_cache(2, s, torch.float32, device=card)
+    for t in range(s):
+        logits, cache = bundle.decode(params, cache, tokens[:, t:t + 1], t)
+    np.testing.assert_allclose(logits[:, 0].cpu().numpy(), want[:, 0].cpu().numpy(),
+                               atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "mamba2-780m", "recurrentgemma-9b"])
+def test_decode_on_card_matches_host(card, name):
+    """chip_smoke.py phase 21 (d) at a reduced width: the same weights and
+    tokens decoded 16 steps on the card and on the host, each step's logits
+    within 1e-4 of their largest entry (float32 sums in other orders)."""
+    cfg = registry.get(name).reduced()
+    bundle = get_bundle(cfg)
+    params = bundle.init(0, device="cpu")
+    card_params = _tree_to(params, card)
+    tokens = torch.as_tensor(synthetic.lm_token_stream(cfg.vocab_size, 16, 2, seed=2))
+    host_cache = bundle.init_cache(2, 16, torch.float32, device="cpu")
+    card_cache = bundle.init_cache(2, 16, torch.float32, device=card)
+    for t in range(16):
+        host, host_cache = bundle.decode(params, host_cache, tokens[:, t:t + 1], t)
+        got, card_cache = bundle.decode(card_params, card_cache, tokens[:, t:t + 1],
+                                        torch.tensor(t, device=card))
+        assert got.device.type == "cuda"
+        assert float((got.cpu() - host).abs().max()) <= 1e-4 * float(host.abs().max()), t
+
+
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}

@@ -169,14 +169,22 @@ def test_families_not_ported_raise(name):
 
 
 def test_training_and_decode_wait_and_init_defaults_to_the_card(monkeypatch):
-    """Decode waits for every family, training for the ssm and hybrid ones
-    (the dense family trains: tests/test_torch_training.py)."""
+    """Training waits for the ssm and hybrid families, naming ROADMAP item 16
+    (the dense family trains: tests/test_torch_training.py).  Decode no
+    longer waits: the bundle's ``init_cache`` and ``decode`` run on the host
+    (tests/test_torch_decode.py holds them to the reference).  ``init`` and
+    ``init_cache`` default to the card and raise without one."""
     b = get_bundle(registry.get("qwen3-1.7b").reduced())
-    waiting = [b.init_cache, b.decode] + [get_bundle(registry.get(n).reduced()).loss
-                                          for n in ("mamba2-780m", "recurrentgemma-9b")]
-    for call in waiting:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call(None, None)
+    for n in ("mamba2-780m", "recurrentgemma-9b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 16"):
+            get_bundle(registry.get(n).reduced()).loss(None, None)
+    params = b.init(0, device="cpu")
+    cache = b.init_cache(2, 4, torch.float32, device="cpu")
+    logits, out = b.decode(params, cache, np.zeros((2, 1), np.int32), 0)
+    assert out is cache and tuple(logits.shape) == (2, 1, b.cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()) and bool(cache.k[:, :, 0].abs().sum() > 0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="none is present"):
         b.init(0)
+    with pytest.raises(RuntimeError, match="none is present"):
+        b.init_cache(2, 4, torch.float32)

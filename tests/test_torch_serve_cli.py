@@ -3,17 +3,36 @@
 * Argument errors: the same argv gives the same ``error:`` line as the
   reference CLI (tests/test_serve_cli.py pins the reference's messages), and
   exit code 2.
-* The LM mode raises ``NotImplementedError`` naming ROADMAP queue A item 14
-  (decode), ``--mesh-tenants`` item 12.
+* The LM mode of a family not ported yet (the VLM) raises
+  ``NotImplementedError`` naming ROADMAP queue A item 14, through
+  ``get_bundle``; ``--mesh-tenants`` names item 12.
+* The LM mode runs the dense, SSM and hybrid backbones on the host and
+  prints the reference's lines; :func:`serve.generate` on the reference's
+  own parameters gives the reference loop's greedy tokens.
 * Every ported mode runs end to end on the host (``--device cpu``, tiny
   scale) and prints its ``... OK`` line: ``--fleet`` with continuous and pad
   packing, streamed (``--chunk-samples``), ``--async-rounds`` with
   ``--dp-epsilon`` and with ``--secagg``, and ``--privacy``.
 """
-import pytest
+import json
+import re
 
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_close
+
+from repro.configs import registry as jregistry
 from repro.launch import serve as jserve
+from repro.models import get_bundle as jget_bundle
+from repro_torch import interop
+from repro_torch.configs import registry
+from repro_torch.data import synthetic
 from repro_torch.launch import serve
+from repro_torch.models import get_bundle
 
 
 def _error_line(text: str) -> str:
@@ -64,7 +83,7 @@ def test_argument_errors_match_the_reference(argv, needle, capsys, monkeypatch):
 
 def test_lm_mode_and_mesh_tenants_name_their_items():
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
-        serve.main(["--arch", "qwen3-1.7b", "--reduced"])
+        serve.main(["--arch", "internvl2-2b", "--reduced"])
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12"):
         serve.main(["--fleet", "2", "--mesh-tenants", "2", "--device", "cpu"])
 
@@ -91,3 +110,55 @@ def test_modes_run_on_the_host(argv, ok, capsys):
         assert "forcing max_staleness=0" in out
     if argv[:2] == ["--fleet", "4"]:
         assert "tile dispatches" in out and "scored 12 tile shapes" in out
+
+
+LM_ARCHS = ("qwen3-1.7b", "mamba2-780m", "recurrentgemma-9b")
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_mode_runs_on_the_host(arch, capsys):
+    """The reference's four lines, in its format, ending in ``serve OK``."""
+    serve.main(["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "8", "--gen", "4",
+                "--device", "cpu"])
+    lines = capsys.readouterr().out.rstrip().splitlines()
+    assert len(lines) == 4 and lines[-1] == "serve OK"
+    assert lines[0] == "prompts [2, 8] -> generated (2, 4)"
+    first = lines[1].split("first sequence: ", 1)[1]
+    assert len(json.loads(first)) == 4  # a list of 4 ints
+    assert re.fullmatch(r"prefill \d+\.\d\ds; decode \d+\.\d ms/token", lines[2])
+
+
+def _reference_loop(jbundle, jparams, prompts, gen):
+    """``repro/launch/serve.py``'s LM loop (its float32 cache, its jitted
+    decode without donation, which the host does not take), returning the
+    greedy tokens and the last logits."""
+    decode = jax.jit(jbundle.decode)
+    b, prompt_len = prompts.shape
+    cache = jbundle.init_cache(b, prompt_len + gen, jnp.float32)
+    prompts = jnp.asarray(prompts)
+    for t in range(prompt_len):
+        logits, cache = decode(jparams, cache, prompts[:, t:t + 1], jnp.asarray(t))
+    generated = []
+    tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    for t in range(prompt_len, prompt_len + gen):
+        generated.append(tok)
+        logits, cache = decode(jparams, cache, tok, jnp.asarray(t))
+        tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    return np.asarray(jnp.concatenate(generated, axis=1)), np.asarray(logits)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_generate_gives_the_reference_loops_tokens(arch):
+    """The same reduced weights (the reference's, carried across) and the
+    CLI's prompts: equal greedy tokens, and the last logits within TOLS."""
+    jcfg, cfg = jregistry.get(arch).reduced(), registry.get(arch).reduced()
+    jb = jget_bundle(jcfg, chunked_attn=False)
+    jp = jb.init(jax.random.PRNGKey(0))
+    prompts = synthetic.lm_token_stream(cfg.vocab_size, 8, 2, seed=1)
+    want_tokens, want_logits = _reference_loop(jb, jp, prompts, gen=6)
+    params = interop.lm_params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
+    out = serve.generate(get_bundle(cfg), params, prompts, 6)
+    assert out.tokens.dtype == torch.int32
+    np.testing.assert_array_equal(out.tokens.numpy(), want_tokens)
+    assert_close(out.logits, want_logits, what=f"{arch} last logits")
+    assert out.prefill_s > 0 and out.decode_s > 0

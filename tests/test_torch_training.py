@@ -259,8 +259,9 @@ def test_train_step_matches_reference(qwen3, microbatches):
 
 
 def test_bundle_loss_family_rules_and_input_specs():
-    """ssm and hybrid losses raise naming item 16; decode waits; prefill
-    and forward stay out of autograd; input_specs mirrors the reference."""
+    """ssm and hybrid losses raise naming item 16; make_decode_step's step
+    is bundle.decode; prefill, forward and decode stay out of autograd;
+    input_specs mirrors the reference."""
     for name in ("mamba2-780m", "recurrentgemma-9b"):
         b = get_bundle(registry.get(name).reduced(), chunked_attn=False)
         with pytest.raises(NotImplementedError, match="item 16"):
@@ -274,8 +275,12 @@ def test_bundle_loss_family_rules_and_input_specs():
     assert bundle.forward(params, tokens).grad_fn is None
     assert bundle.prefill(params, {"tokens": tokens}).grad_fn is None
     assert bundle.loss(params, {"tokens": tokens}).grad_fn is not None
-    with pytest.raises(NotImplementedError, match="decode"):
-        steps.make_decode_step(bundle)
+    token = torch.as_tensor(tokens[:, :1])
+    caches = [bundle.init_cache(2, 4, torch.float32, device="cpu") for _ in range(2)]
+    got, got_cache = steps.make_decode_step(bundle)(params, caches[0], token, 0)
+    want, want_cache = bundle.decode(params, caches[1], token, 0)
+    assert got.grad_fn is None and torch.equal(got, want)
+    assert torch.equal(got_cache.k, want_cache.k) and torch.equal(got_cache.v, want_cache.v)
     assert torch.equal(steps.make_prefill_step(bundle)(params, {"tokens": tokens}),
                        bundle.prefill(params, {"tokens": tokens}))
     shape = registry.SHAPES["train_4k"]
