@@ -290,7 +290,45 @@ no result:
     ``serve.generate`` (32 prompt tokens, 16 generated, after a warm-up),
     and a profile of 10 decode steps (busy share, top device ops).
 
-The last lines are a JSON object of phase 21's numbers, a JSON object of
+22. the VLM and MoE families — internvl2-2b, qwen2-moe-a2.7b and
+    deepseek-v2-236b (MLA) at full width, seeded random weights.  (e) first,
+    while this process holds no model: ``python -m repro_torch.launch.serve
+    --arch A`` for internvl2-2b and qwen2-moe-a2.7b in float32 (57 GB for
+    qwen2-moe), two processes started together, each ending in ``serve
+    OK``; their decode ms/token at B = 4.  (a) B7 at MLA's head sizes, q/k
+    192 and v 128, 128 heads, causal: 1 x 4,096 in bf16 (the ``"wgmma"``
+    route) and float32 (``"fp32"``), ragged S = 1,000 in both, against the
+    plain version under phase 9's bars, each repeat bit-identical; timed
+    (CUDA events, median of 25) beside its bound (2·(192 + 128) FLOP per
+    (query, key) pair of the causal band at 989 TFLOP/s) and SDPA where
+    SDPA takes the shapes; ptxas's registers and spills of the (192, 128)
+    instantiations.  Then per model, each freed before the next: (d) full
+    width in float32 (deepseek-v2 at its cut below), 2 x 64 seeded tokens
+    teacher-forced through ``bundle.decode`` against the prefill (the VLM's
+    text-only prefill: its decode is the decoder's) at the reference's bar,
+    the MoE models with ``capacity_factor=16`` (the reference's
+    tests/test_models.py: capacity routing drops otherwise one token at a
+    time), deepseek-v2 with 160 / 6 (at 16 its prefill still drops); (b) cut in depth (internvl2 and qwen2-moe to 2 layers, all 60
+    experts; deepseek-v2 to its dense layer and one MoE layer, 160
+    experts, MLA at full width), float32, 1 x 256 tokens (internvl2 after
+    its 256-patch prefix): every MoE layer's dispatch tensor card against
+    host first (equal, or a differing choice whose two deciding
+    probabilities lie within 1e-6, which reruns the model with the next
+    seed), then the hidden states within 1e-4 of max|h|; (c) bf16 prefill
+    after a warm-up: internvl2 full depth 4 x (256 patches + 3,840 tokens),
+    qwen2-moe full depth 4 x 4,096, deepseek-v2 at its dense layer and 5
+    MoE layers (42 GB; 7 would put the initialiser's float32 draw of an
+    expert stack past the card) 1 x 4,096 with B7 at (192, 128) once a
+    layer; every B7 launch on ``"wgmma"``, logits finite, tokens/s, and a
+    profile of the qwen2-moe prefill split into B7, the expert einsums, the
+    dispatch and combine einsums and the rest; (f) the DAEF head on
+    qwen2-moe in bf16: ``pooled_features`` of 1,024 sequences of 256 tokens
+    -> ``fit_head`` (fused: B1 once, its 3xTF32 route) -> ``flag`` on 256
+    normal and 256 uniform-random OOD sequences, the card's flags within 8
+    of 512 of the same head fitted on the host from the same features.
+
+The last lines are a JSON object of phase 22's numbers, a JSON object of
+phase 21's numbers, a JSON object of
 phase 20's numbers, a JSON object of the
 svd phase's numbers, a JSON object of the engine phase's numbers, a JSON object of phase 19's numbers, a JSON object of the LM paths' numbers, a JSON object of per-shape numbers, the card's name and power limit, a JSON object of
 per-kernel numbers for all ten kernels, and ``{"ok": true, "device":
@@ -2842,14 +2880,16 @@ def _say_ptxas(library, kernels):
                 f"spill loads {loads} B")
 
 
-def _attention_work(b, s, h, hkv, d, elem, window):
-    """FLOPs and bytes of B7 on these inputs: Q·Kᵀ and P·V over the (query,
-    key) pairs the causal/window band keeps (2 FLOPs per multiply-add), the
-    softmax not counted; q, k, v read once, out and lse written once."""
+def _attention_work(b, s, h, hkv, d, elem, window, d_v=None):
+    """FLOPs and bytes of B7 on these inputs: Q·Kᵀ (depth d) and P·V (width
+    d_v, default d) over the (query, key) pairs the causal/window band keeps
+    (2 FLOPs per multiply-add), the softmax not counted; q, k, v read once,
+    out and lse written once."""
+    d_v = d if d_v is None else d_v
     w = s if window is None else min(window, s)
     pairs = w * (w + 1) // 2 + (s - w) * w
-    flops = 4 * d * pairs * b * h
-    nbytes = elem * (b * s * (h + 2 * hkv) * d + b * s * h * d) + 4 * b * h * s
+    flops = 2 * (d + d_v) * pairs * b * h
+    nbytes = elem * (b * s * ((h + hkv) * d + hkv * d_v) + b * s * h * d_v) + 4 * b * h * s
     return flops, nbytes
 
 
@@ -4050,10 +4090,11 @@ def _teacher_force(bundle, params, tokens):
     return logits, cache
 
 
-def _decode_vs_prefill(label, bundle, params, s, seed, want):
+def _decode_vs_prefill(label, bundle, params, s, seed, want, prefill_bundle=None):
     """(b)/(c): decode against prefill on the same 2 x ``s`` tokens at the
     reference's bar; the prefill's launches must be ``want`` (B7 on its FP32
-    kernel), the decode's none."""
+    kernel), the decode's none.  ``prefill_bundle`` (default ``bundle``)
+    runs the prefill."""
     import torch
 
     from repro_torch.data import synthetic
@@ -4062,7 +4103,7 @@ def _decode_vs_prefill(label, bundle, params, s, seed, want):
     tokens = torch.as_tensor(synthetic.lm_token_stream(cfg.vocab_size, s, DECODE_B, seed=seed),
                              device="cuda")
     _lm_zero()
-    pf = bundle.prefill(params, {"tokens": tokens})
+    pf = (prefill_bundle or bundle).prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     prefill_launches = {k: n for k, n in _lm_read(route="fp32", **want).items() if n}
     _lm_zero()
@@ -4085,14 +4126,18 @@ def _decode_vs_prefill(label, bundle, params, s, seed, want):
 
 def _cut(cfg, params, n_layers):
     """``cfg`` and its parameters cut to ``n_layers`` (views of the full
-    stacks; a hybrid keeps whole periods and as much of its tail)."""
+    stacks; a hybrid keeps whole periods and as much of its tail, an MoE
+    model its dense layers and the first of its MoE layers)."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.models import rglru
 
     cut = dataclasses.replace(cfg, n_layers=n_layers)
     out = {k: v for k, v in params.items() if k not in ("layers", "periods", "tail")}
-    if cfg.family == "hybrid":
+    if cfg.family == "moe":
+        n_moe = n_layers - cfg.first_dense_layers
+        out["moe_layers"] = pytree.tree_map(lambda t: t[:n_moe], params["moe_layers"])
+    elif cfg.family == "hybrid":
         n_periods, tail = rglru._layout(cut)
         out["periods"] = pytree.tree_map(lambda t: t[:n_periods], params["periods"])
         out["tail"] = params["tail"][:len(tail)]
@@ -4218,6 +4263,486 @@ def phase_decode(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 22. the VLM and MoE families: internvl2-2b, qwen2-moe-a2.7b, deepseek-v2
+# (MLA): B7 at (192, 128), the serve CLI, decode against prefill, card
+# against host, the bf16 prefills, the DAEF head on qwen2-moe
+# ---------------------------------------------------------------------------
+
+INTERNVL, QWEN2_MOE, DSV2 = "internvl2-2b", "qwen2-moe-a2.7b", "deepseek-v2-236b"
+MLA_D, MLA_DV, MLA_HEADS, MLA_S = 192, 128, 128, 4_096
+FAMILY_PREFILL = {INTERNVL: (4, 3_840), QWEN2_MOE: (4, 4_096), DSV2: (1, 4_096)}
+DSV2_PREFILL_LAYERS = 6      # the dense layer and 5 MoE layers, 42 GB in bf16
+AGREE_S = 256                # (b): tokens card against host
+MOE_DECODE_CF = 16.0         # (d): the reference's capacity factor for decode checks
+
+
+def _no_drop(cfg):
+    """``cfg`` with the capacity factor of the decode checks: the
+    reference's 16, raised to E / top_k where that is larger, so that no
+    token of a 64-token group is dropped (deepseek-v2's 160 experts, top 6:
+    at 16 an expert holds 38 of 64, and the prefill drops what decode,
+    one token a group, keeps)."""
+    return dataclasses.replace(cfg, capacity_factor=max(MOE_DECODE_CF,
+                                                        cfg.n_experts / cfg.top_k))
+FAMILY_HEAD_FIT = 1_024
+
+
+def _family_batch(cfg, b, s, seed, device="cuda"):
+    """Seeded tokens [b, s] and, for the VLM, standard-normal patch
+    embeddings [b, n_patches, d_frontend] in float32 (the reference's
+    ``input_specs`` dtype)."""
+    import torch
+
+    from repro_torch.data import synthetic
+
+    batch = {"tokens": torch.as_tensor(synthetic.lm_token_stream(cfg.vocab_size, s, b,
+                                                                 seed=seed), device=device)}
+    if cfg.family == "vlm":
+        gen = torch.Generator(device=device).manual_seed(seed)
+        batch["patch_embeds"] = torch.randn((b, cfg.n_patches, cfg.d_frontend), generator=gen,
+                                            device=device)
+    return batch
+
+
+def _mla_kernel_checks():
+    """(a): B7 at MLA's head sizes against its plain version, timed at
+    deepseek-v2's prefill shape.  Returns the numbers of the timed bf16 row
+    and of the float32 one."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {}
+    for label, s, dtype, timed in (("deepseek-v2 prefill", MLA_S, bf16, True),
+                                   ("deepseek-v2 prefill float32", MLA_S, f32, True),
+                                   ("ragged S", 1_000, bf16, False),
+                                   ("ragged S float32", 1_000, f32, False)):
+        q, k = (torch.randn((1, s, MLA_HEADS, MLA_D), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        v = torch.randn((1, s, MLA_HEADS, MLA_DV), generator=gen, device="cuda").to(dtype)
+        route = "wgmma" if dtype == bf16 else "fp32"
+        before = flash_attention.route_launches[route]
+        out, lse = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        check(flash_attention.route_launches[route] == before + 1, f"B7 {label}: not on {route}")
+        check(tuple(out.shape) == (1, s, MLA_HEADS, MLA_DV) and out.dtype == dtype,
+              f"B7 {label}: out {tuple(out.shape)} {out.dtype}")
+        again, again_lse = flash_attention(q, k, v)
+        check(bool(torch.equal(again, out) and torch.equal(again_lse, lse)),
+              f"B7 {label}: repeat not bit-identical")
+        ref, ref_lse = flash_attention_ref(q, k, v)
+        if dtype == bf16:
+            err, used = _agree_each(f"B7 {label} out", out.float(), ref.float(),
+                                    2.0**-7, 2.0**-7 * 1e-2)
+            bar = f"2^-7 |ref| + 2^-7 * 1e-2 per element, worst {used:.3f} of its bar"
+        else:
+            err, scale = _agree(f"B7 {label} out", out.float(), ref.float(), 1e-5, 1.0)
+            used = err / (1e-5 * scale)
+            bar = f"1e-5 * max(1, max|ref|), {used:.3f} of it"
+        err_lse, _ = _agree(f"B7 {label} lse", lse, ref_lse, 1e-5)
+        del ref, ref_lse, again, again_lse
+        say("families", f"flash_attention (192, 128) {label} B=1 S={s} H={MLA_HEADS} "
+            f"{str(dtype)[6:]} ({route}): max|d| out {err:.3e} ({bar}), lse {err_lse:.3e}, "
+            "repeat bit-identical, ok")
+        if not timed:
+            continue
+        ms = cuda_ms(lambda: flash_attention(q, k, v))
+        plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v), reps=5, warmup=1)
+        try:
+            library_ms = cuda_ms(lambda: _sdpa(q, k, v, None))
+            library = f"SDPA yardstick {library_ms:.4f} ms"
+        except RuntimeError as e:  # SDPA refuses the shapes: say so
+            library_ms, library = None, f"SDPA refused the shapes ({str(e)[:120]})"
+        flops, nbytes = _attention_work(1, s, MLA_HEADS, MLA_HEADS, MLA_D, q.element_size(),
+                                        None, MLA_DV)
+        peak = PEAK_BF16_FLOPS if dtype == bf16 else PEAK_FP32_FLOPS
+        bound_ms, bound_by = _bound(flops, nbytes, peak)
+        rows[route] = dict(shape=label, b=1, s=s, h=MLA_HEADS, d=MLA_D, d_v=MLA_DV,
+                           max_abs_err=max(err, err_lse), bar_used=used, ms=ms,
+                           plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+        say("families", f"flash_attention (192, 128) {label}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, {library}, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{flops:.4g} FLOP, {nbytes / 1e6:.1f} MB)")
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    regs = {}
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"):
+        got = _ptxas("flash_attention", kernel).get(f"{MLA_D},{MLA_DV}")
+        check(got is not None, f"no ptxas line for {kernel}<{MLA_D}, {MLA_DV}>")
+        regs[kernel] = dict(registers=got[0], spill_stores=got[1], spill_loads=got[2])
+        say("families", f"ptxas {kernel}<{MLA_D}, {MLA_DV}>: {got[0]} registers, spill "
+            f"stores {got[1]} B, spill loads {got[2]} B")
+    rows["ptxas"] = regs
+    return rows
+
+
+class _RouteLog:
+    """Records each ``moe.route`` call's logits and dispatch while active
+    (``moe_ffn`` looks ``route`` up in its module at each call)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.orig, self.calls = moe, moe.route, []
+
+    def __enter__(self):
+        def logged(logits, top_k, cap):
+            out = self.orig(logits, top_k, cap)
+            self.calls.append((logits.detach().cpu(), out[0].detach().cpu()))
+            return out
+
+        self.moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+
+def _dispatch_agree(label, card_calls, host_calls, top_k) -> str | None:
+    """Each MoE layer's dispatch, card against host: ``None`` if all are
+    equal; a description of the near tie if the top-k choices differ only
+    where the deciding probabilities lie within 1e-6 (the caller reruns
+    with the next seed); fails otherwise."""
+    import torch
+
+    check(len(card_calls) == len(host_calls) > 0, f"{label}: {len(card_calls)} routed layers "
+          f"on the card, {len(host_calls)} on the host")
+    for layer, ((lc, dc), (lh, dh)) in enumerate(zip(card_calls, host_calls)):
+        if torch.equal(dc, dh):
+            continue
+        pc, ph = torch.softmax(lc.float(), -1), torch.softmax(lh.float(), -1)
+        sc = torch.sort(pc, dim=-1, descending=True, stable=True)
+        sh = torch.sort(ph, dim=-1, descending=True, stable=True)
+        differ = (sc.indices[..., :top_k].sort(-1).values
+                  != sh.indices[..., :top_k].sort(-1).values).any(-1)
+        check(bool(differ.any()), f"{label} layer {layer}: dispatch differs with the same "
+              "top-k choices")
+        gap = torch.maximum((sc.values[..., top_k - 1] - sc.values[..., top_k]).abs(),
+                            (sh.values[..., top_k - 1] - sh.values[..., top_k]).abs())
+        worst = float(gap[differ].max())
+        check(worst <= 1e-6, f"{label} layer {layer}: {int(differ.sum())} routing decisions "
+              f"differ card vs host, deciding probabilities {worst:.3e} apart (> 1e-6)")
+        return (f"layer {layer}: {int(differ.sum())} near-tied choices differ (deciding "
+                f"probabilities within {worst:.3e})")
+    return None
+
+
+def _family_agree(cfg, bundle, params, seed):
+    """(b): the cut model in float32 on the card and on the host, the same
+    weights and inputs: dispatch first, then the hidden states within 1e-4
+    of max|h|.  Returns the numbers, or a near-tie note (see
+    ``_dispatch_agree``)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    batch = _family_batch(cfg, 1, AGREE_S, seed)
+    args = [batch["tokens"]] + ([batch["patch_embeds"]] if cfg.family == "vlm" else [])
+    _lm_zero()
+    with _RouteLog() as card_log:
+        h_card = bundle.forward(params, *args).cpu()
+    _lm_read(route="fp32", flash_attention=cfg.n_layers)
+    host = pytree.tree_map(lambda t: t.cpu(), params)
+    t0 = time.perf_counter()
+    with _RouteLog() as host_log:
+        h_host = bundle.forward(host, *(a.cpu() for a in args))
+    host_s = time.perf_counter() - t0
+    del host
+    tie = None
+    if cfg.family == "moe":
+        tie = _dispatch_agree(cfg.name, card_log.calls, host_log.calls, cfg.top_k)
+        if tie:
+            return tie
+    err, scale = _agree(f"{cfg.name} cut to {cfg.n_layers} layers, card vs host", h_card,
+                        h_host, 1e-4)
+    n_tokens = h_card.shape[1]
+    say("families", f"{cfg.name} cut to {cfg.n_layers} layers, 1 x {n_tokens} positions, "
+        f"float32, seed {seed}: dispatch of {len(card_log.calls)} MoE layers equal card vs "
+        f"host, max|d| h {err:.3e} (max|h| {scale:.3e}, {err / (1e-4 * scale):.4f} of the bar "
+        f"1e-4), host forward {host_s:.1f} s, ok")
+    return dict(max_abs_err=err, max_abs_h=scale, bar_used=err / (1e-4 * scale), seed=seed,
+                positions=n_tokens, moe_layers_routed=len(card_log.calls))
+
+
+def _agree_until_no_tie(cfg, bundle, params, seed):
+    """(b) with the next seed for as long as a near tie decides a choice."""
+    for attempt in range(3):
+        got = _family_agree(cfg, bundle, params, seed + attempt)
+        if not isinstance(got, str):
+            return got
+        say("families", f"{cfg.name} seed {seed + attempt}: {got}; rerun with the next seed")
+    check(False, f"{cfg.name}: near ties in three seeds running")
+
+
+def _family_prefill(name, cfg, bundle, params, want):
+    """(c): one bf16 prefill through ``bundle.prefill`` after a warm-up:
+    tokens/s (patches counted as positions), the launch counts ``want``
+    (every B7 on ``"wgmma"``), finite logits [B, 1, V]."""
+    import torch
+
+    b, s = FAMILY_PREFILL[name]
+    batch = _family_batch(cfg, b, s, seed=11)
+    positions = s + (cfg.n_patches if cfg.family == "vlm" else 0)
+    bundle.prefill(params, batch)
+    torch.cuda.synchronize()
+    _lm_zero()
+    t0 = time.perf_counter()
+    logits = bundle.prefill(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _lm_read(**want)
+    check(tuple(logits.shape) == (b, 1, cfg.vocab_size) and bool(logits.isfinite().all()),
+          f"{name} prefill logits: shape {tuple(logits.shape)} or not finite")
+    tok_s = b * positions / ms * 1e3
+    say("families", f"{name} bf16 prefill B={b} x {positions} positions ({cfg.n_layers} "
+        f"layers): {ms:.1f} ms ({tok_s:.0f} tokens/s), launches {want} (all wgmma), "
+        f"logits finite; peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return launches, dict(ms=ms, tokens_per_s=tok_s, b=b, positions=positions,
+                          n_layers=cfg.n_layers)
+
+
+class _EinsumRanges:
+    """While active, each ``torch.einsum`` call runs inside a profiler range
+    named by its equation, so a trace attributes its kernels to it (the
+    einsum's operand shapes are not recorded)."""
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import record_function
+
+        self.torch, self.orig = torch, torch.einsum
+
+        def ranged(equation, *operands):
+            with record_function(f"einsum {equation}"):
+                return self.orig(equation, *operands)
+
+        torch.einsum = ranged
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.einsum = self.orig
+
+
+# moe.moe_ffn's einsums by their equations
+MOE_EINSUMS = {"bsec,bsd->becd": "dispatch einsum", "becd,edf->becf": "expert einsums",
+               "becf,efd->becd": "expert einsums", "bsec,becd->bsd": "combine einsum"}
+
+
+def _moe_profile(label, run, cfg, b, s):
+    """One profile of an MoE prefill: device time split into B7, the expert
+    einsums, the dispatch and combine einsums (by their equations) and the
+    rest, beside all of cuBLAS's GEMM kernels (the einsums' among them).
+    Returns the times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with _EinsumRanges(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    flat = prof.key_averages()
+    key = ("self_device_time_total" if hasattr(flat[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    incl = "device_time_total" if hasattr(flat[0], "device_time_total") else "cuda_time_total"
+    # the device rows less the einsum ranges' own spans and CUPTI's "Command
+    # Buffer Full" records: kernels only
+    ranges = {f"einsum {eq}" for eq in MOE_EINSUMS}
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    kernels = [e for e in flat if e.device_type == cuda and e.key not in ranges
+               and e.key != "Command Buffer Full"]
+    total = sum(getattr(e, key) for e in kernels)
+    gemm = sum(getattr(e, key) for e in kernels
+               if any(p in e.key for p in ("gemm", "xmma", "nvjet", "cutlass")))
+    b7 = sum(getattr(e, key) for e in kernels if "flash_fwd_" in e.key)
+    parts = dict.fromkeys(MOE_EINSUMS.values(), 0.0)
+    for e in flat:  # a range's host row: the device time of the kernels it launched
+        part = MOE_EINSUMS.get(e.key.removeprefix("einsum "))
+        if part is not None and e.device_type == cpu:
+            parts[part] += getattr(e, incl)
+    rest = total - b7 - sum(parts.values())
+    shares = {"B7": b7, **parts, "all cuBLAS GEMM kernels": gemm, "rest": rest}
+    say("profile", f"{label}: wall {wall * 1e3:.2f} ms, device busy {total / 1e3:.2f} ms "
+        f"({100 * total / 1e6 / wall:.1f} %); device time: "
+        + ", ".join(f"{k} {t / 1e3:.2f} ms ({100 * t / max(total, 1):.1f} %)"
+                    for k, t in shares.items()))
+    print(flat.table(sort_by=key, row_limit=12))
+    return dict(wall_ms=wall * 1e3, busy_ms=total / 1e3,
+                **{f"{k} ms": t / 1e3 for k, t in shares.items()})
+
+
+def _family_head(cfg, bundle, params):
+    """(f): the DAEF head on the bf16 backbone (see the module docstring).
+    Returns the launch counts and the numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import anomaly
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.rolann_stats import rolann_stats
+    from repro_torch.models import daef_head
+
+    v = cfg.vocab_size
+    fit_tokens = synthetic.lm_token_stream(v, HEAD_SEQ, FAMILY_HEAD_FIT, seed=0)
+    test_tokens = np.concatenate([
+        synthetic.lm_token_stream(v, HEAD_SEQ, HEAD_TEST, seed=7),
+        np.random.default_rng(1).integers(0, v, (HEAD_TEST, HEAD_SEQ)).astype(np.int32)])
+    truth = np.concatenate([np.zeros(HEAD_TEST, np.int32), np.ones(HEAD_TEST, np.int32)])
+    head_cfg = dataclasses.replace(daef_head.default_config(cfg.d_model), stats_backend="fused")
+    _pooled(bundle, params, fit_tokens[:HEAD_BATCH])   # warm-up
+    torch.cuda.synchronize()
+    _lm_zero()
+    t0 = time.perf_counter()
+    feats = _pooled(bundle, params, fit_tokens)
+    test_feats = _pooled(bundle, params, test_tokens)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    head = daef_head.fit_head(feats, cfg=head_cfg)
+    flags = head.flag(test_feats)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n_batches = -(-FAMILY_HEAD_FIT // HEAD_BATCH) + -(-2 * HEAD_TEST // HEAD_BATCH)
+    launches = _lm_read(flash_attention=cfg.n_layers * n_batches, rolann_stats=1)
+    check(rolann_stats.route_launches == {"tf32x3": 1, "fp32": 0, "slice": 0},
+          f"the head fit's B1 launch must take the tensor-core route; "
+          f"routes {rolann_stats.route_launches}")
+    check(bool(feats.isfinite().all() and test_feats.isfinite().all()), "features not finite")
+    met = anomaly.binary_metrics(flags, truth)
+    head_h = daef_head.fit_head(feats.cpu(), cfg=head_cfg, device="cpu")
+    flags_h = head_h.flag(test_feats.cpu())
+    diff = int((flags.cpu() != flags_h).sum())
+    check(diff <= HEAD_FLAG_BAR, f"{cfg.name} head: the card flags {diff} of {len(truth)} "
+          f"samples otherwise than the host (bar {HEAD_FLAG_BAR})")
+    n_tok = (FAMILY_HEAD_FIT + 2 * HEAD_TEST) * HEAD_SEQ
+    tok_s = n_tok / (t1 - t0)
+    say("families", f"{cfg.name} DAEF head, bf16: forward {n_tok} tokens in "
+        f"{(t1 - t0) * 1e3:.1f} ms ({tok_s:.0f} tokens/s), fit + flag {(t2 - t1) * 1e3:.1f} "
+        f"ms, launches {launches}; F1 {met.f1:.4f} (tp {met.tp} fp {met.fp} fn {met.fn} tn "
+        f"{met.tn}); flags differ from the host head on {diff} of {len(truth)} (bar "
+        f"{HEAD_FLAG_BAR})")
+    return launches, dict(tokens_per_s=tok_s, forward_ms=(t1 - t0) * 1e3,
+                          fit_flag_ms=(t2 - t1) * 1e3, f1=met.f1, flags_differ=diff)
+
+
+def _family_cli_runs() -> dict:
+    """(e): the serve CLI's LM mode at full width in float32 (the reference's
+    defaults: B = 4, 32 prompt tokens, 16 generated), two processes."""
+    out, names = {}, (INTERNVL, QWEN2_MOE)
+    runs = _start_cli_runs([["--arch", name] for name in names])
+    for name, lines in zip(names, _finish_cli_runs(runs).values(), strict=True):
+        m = re.fullmatch(r"prefill (\S+)s; decode (\S+) ms/token", lines[2]) \
+            if len(lines) == 4 else None
+        check(m is not None, f"serve CLI --arch {name}: printed {lines}")
+        out[name] = dict(lines=lines, prefill_s=float(m.group(1)),
+                         decode_ms_per_token=float(m.group(2)))
+        say("families", f"serve CLI --arch {name} (float32, B=4): decode "
+            f"{m.group(2)} ms/token")
+    return out
+
+
+def _free():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_families(card) -> dict:
+    """Phase 22 (see the module docstring).  Returns the phase's numbers."""
+    import torch
+
+    from repro_torch.models import get_bundle
+
+    t_phase = time.perf_counter()
+    _free()
+    say("families", f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held by earlier phases; "
+        "the two LM CLIs start")
+    out = {"cli": _family_cli_runs()}
+    t_cli = time.perf_counter()
+    out["b7_192_128"] = _mla_kernel_checks()
+    t_kernel = time.perf_counter()
+    say("families", f"(e) took {t_cli - t_phase:.1f} s, (a) {t_kernel - t_cli:.1f} s")
+    launches = {}
+
+    # internvl2-2b: (d) and (b) in float32, (c) in bf16
+    t0 = time.perf_counter()
+    cfg, bundle, params = _lm_params(INTERNVL, torch.float32, seed=41)
+    row = {}
+    row["vs_prefill"], _ = _decode_vs_prefill(
+        f"{INTERNVL} (d), text-only prefill", bundle, params, DECODE_S, 31,
+        dict(flash_attention=cfg.n_layers),
+        prefill_bundle=get_bundle(dataclasses.replace(cfg, family="dense")))
+    cut, cut_params = _cut(cfg, params, 2)
+    row["card_vs_host"] = _agree_until_no_tie(cut, get_bundle(cut), cut_params, 51)
+    del params, cut_params
+    _free()
+    cfg, bundle, params = _lm_params(INTERNVL, torch.bfloat16, seed=42)
+    launches[INTERNVL], row["prefill"] = _family_prefill(
+        INTERNVL, cfg, bundle, params, dict(flash_attention=cfg.n_layers))
+    out[INTERNVL] = row
+    del params
+    _free()
+    say("families", f"{INTERNVL} took {time.perf_counter() - t0:.1f} s")
+
+    # qwen2-moe-a2.7b: (d) and (b) in float32 (57 GB), (c), the profile and
+    # (f) in bf16
+    t0 = time.perf_counter()
+    cfg, bundle, params = _lm_params(QWEN2_MOE, torch.float32, seed=43)
+    row = {}
+    row["vs_prefill"], _ = _decode_vs_prefill(
+        f"{QWEN2_MOE} (d), capacity_factor={_no_drop(cfg).capacity_factor:g}",
+        get_bundle(_no_drop(cfg)), params, DECODE_S, 32, dict(flash_attention=cfg.n_layers))
+    cut, cut_params = _cut(cfg, params, 2)
+    row["card_vs_host"] = _agree_until_no_tie(cut, get_bundle(cut), cut_params, 52)
+    del params, cut_params
+    _free()
+    cfg, bundle, params = _lm_params(QWEN2_MOE, torch.bfloat16, seed=44)
+    launches[QWEN2_MOE], row["prefill"] = _family_prefill(
+        QWEN2_MOE, cfg, bundle, params, dict(flash_attention=cfg.n_layers))
+    b, s = FAMILY_PREFILL[QWEN2_MOE]
+    batch = _family_batch(cfg, b, s, seed=11)
+    row["profile"] = _moe_profile(f"{QWEN2_MOE} bf16 prefill ({b} x {s})",
+                                  lambda: bundle.prefill(params, batch), cfg, b, s)
+    launches["head"], row["head"] = _family_head(cfg, bundle, params)
+    out[QWEN2_MOE] = row
+    del params, batch
+    _free()
+    say("families", f"{QWEN2_MOE} took {time.perf_counter() - t0:.1f} s")
+
+    # deepseek-v2-236b: (b) and (d) at its cut (dense + 1 MoE layer) in
+    # float32, (c) at the dense layer and 5 MoE layers in bf16
+    t0 = time.perf_counter()
+    cfg, bundle, params = _lm_params(DSV2, torch.float32, seed=45, n_layers=2)
+    row = {}
+    row["card_vs_host"] = _agree_until_no_tie(cfg, bundle, params, 53)
+    row["vs_prefill"], _ = _decode_vs_prefill(
+        f"{DSV2} cut to {cfg.n_layers} layers (d), capacity_factor="
+        f"{_no_drop(cfg).capacity_factor:.4g}", get_bundle(_no_drop(cfg)), params, DECODE_S,
+        33, dict(flash_attention=cfg.n_layers))
+    del params
+    _free()
+    cfg, bundle, params = _lm_params(DSV2, torch.bfloat16, seed=46,
+                                     n_layers=DSV2_PREFILL_LAYERS)
+    launches[DSV2], row["prefill"] = _family_prefill(
+        DSV2, cfg, bundle, params, dict(flash_attention=cfg.n_layers))
+    out[DSV2] = row
+    del params
+    _free()
+    say("families", f"{DSV2} took {time.perf_counter() - t0:.1f} s")
+    out["launches"] = launches
+    say("families", f"phase 22 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4264,6 +4789,7 @@ def main() -> int:
         serving_numbers = phase_dp_serving(cfg, xtr, fleet_data, fleet_data_d)
         comparison_numbers = phase_comparison()
         decode_numbers = phase_decode(card)
+        family_numbers = phase_families(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4391,6 +4917,10 @@ def main() -> int:
             "launches": lm_launches["head"]["flash_attention"],
             # Per launch at the head path's shape (64 x 256, 16/8 heads of 128, bf16).
             **_per_launch(lm_rows["flash_attention"], "head path"),
+            # The (192, 128) instantiations at deepseek-v2's prefill shape
+            # (1 x 4,096, 128 heads): one launch a layer of its bf16 prefill.
+            "mla_192_128": {"launches": family_numbers["launches"][DSV2]["flash_attention"],
+                            **family_numbers["b7_192_128"]},
         },
         {
             "name": "flash_attention_bwd",
@@ -4420,6 +4950,7 @@ def main() -> int:
             **_per_launch(lm_rows["ssd_chunk"], "mamba2 prefill"),
         },
     ]
+    print(json.dumps({"families": family_numbers}))
     print(json.dumps({"decode": decode_numbers}))
     print(json.dumps({"comparison": comparison_numbers}))
     print(json.dumps({"svd": svd_numbers}))

@@ -22,9 +22,11 @@ numpy arrays, ``jax.tree.map(numpy.asarray, params)``, and
 parameter tree, which has the same structure: the same keys, each leaf a
 tensor of the same shape and dtype.  Weights keep the reference's ``[in,
 out]`` orientation (the port computes ``x @ w`` as the reference does);
-layer stacks keep their leading axis (``layers`` [L, ...] of the dense and
-SSM families, ``periods`` [n_periods, ...] of the hybrid, whose remainder
-blocks stay the list ``tail``).
+layer stacks keep their leading axis (``layers`` [L, ...] of the dense, VLM
+and SSM families, the MoE family's ``dense_layers`` [first_dense_layers,
+...] and ``moe_layers`` [L - first_dense_layers, ...], ``periods``
+[n_periods, ...] of the hybrid, whose remainder blocks stay the list
+``tail``); the VLM's ``projector`` crosses as it is.
 
 A site's published exchange state — the triple ``(encoder factors,
 per-layer knowledge, train errors)`` a federation session keeps per site —
@@ -33,11 +35,14 @@ layer's knowledge, the errors (:func:`exchange_state_from_numpy`,
 :func:`exchange_state_to_numpy`).
 
 An LM decode cache crosses as the leaves of ``jax.tree.flatten(cache)`` of
-the reference's ``KVCache``, ``Mamba2Cache`` or ``RGCache`` as numpy arrays
-(an ``RGCache`` flattens its period dicts in sorted key order, then the
-tail's states one by one): :func:`lm_cache_from_numpy` rebuilds the port's
-cache of the same NamedTuples from them, :func:`lm_cache_to_numpy` gives
-them back in that order.
+the reference's ``KVCache``, ``MoECaches`` (of ``KVCache`` or ``MLACache``
+stacks), ``Mamba2Cache`` or ``RGCache`` as numpy arrays (an ``RGCache``
+flattens its period dicts in sorted key order, then the tail's states one
+by one; a ``None`` field, ``MoECaches.dense`` of a model without dense
+layers, has no leaves, as ``jax.tree.flatten`` skips it):
+:func:`lm_cache_from_numpy` rebuilds the port's cache of the same
+NamedTuples from them, :func:`lm_cache_to_numpy` gives them back in that
+order.
 
 An Adam state crosses as its three fields (step, mu, nu), each converted
 with ``jax.tree.map(numpy.asarray, ...)`` on the JAX side; mu and nu have
@@ -177,6 +182,13 @@ def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None) -> dict:
         ValueError: a layer stack's leading axis does not match ``cfg``.
     """
     params = _tree_to_torch(tree, resolve_device(device))
+    if cfg.family == "moe":
+        n_dense = cfg.first_dense_layers
+        for key, n in (("moe_layers", cfg.n_layers - n_dense), ("dense_layers", n_dense)):
+            stacks = _leading(params[key]) if key in params else {0}
+            if stacks != {n}:
+                raise ValueError(f"{cfg.name}: {key} stacks of {sorted(stacks)}, expected {n}")
+        return params
     if cfg.family == "hybrid":
         n_periods, tail = rglru._layout(cfg)
         stacks, want = _leading(params["periods"]), {n_periods}
@@ -192,7 +204,10 @@ def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None) -> dict:
 
 def _cache_leaves(tree) -> list:
     """The leaves of a cache tree in ``jax.tree.flatten`` order: NamedTuple
-    fields and tuple items in order, dict values by sorted key."""
+    fields and tuple items in order, dict values by sorted key; ``None``
+    has none."""
+    if tree is None:
+        return []
     if isinstance(tree, torch.Tensor):
         return [tree]
     if isinstance(tree, dict):
@@ -202,6 +217,8 @@ def _cache_leaves(tree) -> list:
 
 def _cache_fill(template, leaves):
     """``template``'s tree with its leaves taken in order from ``leaves``."""
+    if template is None:
+        return None
     if isinstance(template, torch.Tensor):
         return next(leaves)
     if isinstance(template, dict):

@@ -13,11 +13,14 @@
 // with an online softmax: a running row max m, row sum l and accumulator in
 // float32, the Pallas kernel's `_NEG_INF = -1e30` and `max(l, 1e-30)`.
 //
-// Layout.  q [B, S, H, D], k and v [B, S, Hkv, D], each with its own batch,
-// sequence and head strides (the last axis contiguous): the model's layout,
-// read in place.  Query head h reads KV head h / (H / Hkv), so GQA and MQA
-// need no repeated copy of k and v (the reference's `jnp.repeat` and
-// [N, S, D] transpose in ops.py).  out [B, S, H, D] contiguous, lse [B, H, S].
+// Layout.  q [B, S, H, D], k [B, S, Hkv, D] and v [B, S, Hkv, DV], each with
+// its own batch, sequence and head strides (the last axis contiguous): the
+// model's layout, read in place.  Query head h reads KV head h / (H / Hkv),
+// so GQA and MQA need no repeated copy of k and v (the reference's
+// `jnp.repeat` and [N, S, D] transpose in ops.py).  out [B, S, H, DV]
+// contiguous, lse [B, H, S].  DV = D but for MLA's prefill (models/mla.py),
+// whose q and k carry 128 nope + 64 rope columns and v 128: the pair
+// (D, DV) = (192, 128), the one other instantiation of both kernels.
 //
 // Dispatch by dtype, in `flash_attention_fwd` below: bf16 goes to the
 // tensor-core kernel of flash_fwd_sm90.cuh (wgmma, TMA; see its note), and
@@ -33,8 +36,8 @@
 // of one (b, h) and loops over the key tiles itself, keeping (m, l, acc) in
 // registers.  128 threads: lane group cg = tid % 8 and row group
 // rg = tid / 8.  A thread owns query rows rg + 16·i (4 rows, BQ = 64, at
-// D <= 128; 2 rows, BQ = 32, at D = 256 to bound registers), key columns
-// cg + 8·j of each 32-key tile and output columns cg + 8·j of D.  The eight
+// D <= 128; 2 rows, BQ = 32, at D = 192 and 256 to bound registers), key
+// columns cg + 8·j of each 32-key tile and output columns cg + 8·j of DV.  The eight
 // lanes that share a row are neighbours in one warp, so the row max and row
 // sum are three xor-shuffles.  Q (once) and each K/V tile are staged in
 // shared memory with rows padded to D + 1 floats, so that the lanes of a
@@ -65,14 +68,14 @@ constexpr int kCG = 8;                  // lanes sharing a query row
 constexpr int kRG = kThreads / kCG;     // row groups
 constexpr int kCols = kBK / kCG;        // keys per thread per tile
 
-template <int D>
+template <int D, int DV>
 struct Tile {
   static constexpr int kRows = D > 128 ? 2 : 4;  // query rows per thread
   static constexpr int kBQ = kRG * kRows;        // query rows per block
-  static constexpr int kDCols = D / kCG;         // output columns per thread
+  static constexpr int kDCols = DV / kCG;        // output columns per thread
   static constexpr int kLdQ = D + 1;
   static constexpr int kLdK = D + 1;
-  static constexpr int kLdV = D;
+  static constexpr int kLdV = DV;
   static constexpr int kLdP = kBK + 1;
   static constexpr int kSmemBytes =
       4 * (kBQ * kLdQ + kBK * kLdK + kBK * kLdV + kBQ * kLdP);
@@ -90,7 +93,7 @@ __device__ __forceinline__ float row_sum8(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
@@ -99,7 +102,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  long long ksb, long long kss, long long ksh,
                  long long vsb, long long vss, long long vsh,
                  int causal, int window, float scale) {
-  using L = Tile<D>;
+  using L = Tile<D, DV>;
   constexpr int R = L::kRows;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -135,9 +138,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // Q staged; the previous tile's K, V and P are read
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int c = e / D, d = e % D, s = k0 + c;
-      const bool in = s < S;
-      Ks[c * L::kLdK + d] = in ? kb[s * kss + d] : 0.f;
-      Vs[c * L::kLdV + d] = in ? vb[s * vss + d] : 0.f;
+      Ks[c * L::kLdK + d] = s < S ? kb[s * kss + d] : 0.f;
+    }
+    for (int e = tid; e < kBK * DV; e += kThreads) {
+      const int c = e / DV, d = e % DV, s = k0 + c;
+      Vs[c * L::kLdV + d] = s < S ? vb[s * vss + d] : 0.f;
     }
     __syncthreads();
 
@@ -205,7 +210,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int s = q0 + rg + kRG * i;
     if (s < S) {
       const float lf = fmaxf(l[i], 1e-30f);
-      float* ob = out + ((static_cast<long long>(b) * S + s) * H + h) * D;
+      float* ob = out + ((static_cast<long long>(b) * S + s) * H + h) * DV;
 #pragma unroll
       for (int dc = 0; dc < L::kDCols; ++dc) ob[cg + kCG * dc] = acc[i][dc] / lf;
       if (cg == 0) lse[(static_cast<long long>(b) * H + h) * S + s] = m[i] + logf(lf);
@@ -213,12 +218,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
            int S, int H, int Hkv, const long long* st, int causal, int window,
            float scale, cudaStream_t stream) {
-  using L = Tile<D>;
-  auto* fn = flash_fwd_kernel<D>;
+  using L = Tile<D, DV>;
+  auto* fn = flash_fwd_kernel<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          L::kSmemBytes);
   if (err != cudaSuccess) return err;
@@ -230,25 +235,30 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
   return cudaGetLastError();
 }
 
-int dispatch(int d, int dtype, const void* q, const void* k, const void* v, void* out,
-             float* lse, int B, int S, int H, int Hkv, const long long* st, int causal,
-             int window, float scale, cudaStream_t stream) {
+// (D, DV) packed as one switch key.
+constexpr int pair(int d, int dv) { return d * 1024 + dv; }
+
+int dispatch(int d, int dv, int dtype, const void* q, const void* k, const void* v,
+             void* out, float* lse, int B, int S, int H, int Hkv, const long long* st,
+             int causal, int window, float scale, cudaStream_t stream) {
   using flash::sm90::launch_fwd;
   if (dtype == 1) {
-    switch (d) {
-      case 32: return launch_fwd<32>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-      case 64: return launch_fwd<64>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-      case 128: return launch_fwd<128>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-      case 256: return launch_fwd<256>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+    switch (pair(d, dv)) {
+      case pair(32, 32): return launch_fwd<32, 32>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+      case pair(64, 64): return launch_fwd<64, 64>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+      case pair(128, 128): return launch_fwd<128, 128>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+      case pair(256, 256): return launch_fwd<256, 256>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+      case pair(192, 128): return launch_fwd<192, 128>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
       default: return cudaErrorInvalidValue;
     }
   }
   if (dtype != 0) return cudaErrorInvalidValue;
-  switch (d) {
-    case 32: return launch<32>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-    case 64: return launch<64>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-    case 128: return launch<128>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-    case 256: return launch<256>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+  switch (pair(d, dv)) {
+    case pair(32, 32): return launch<32, 32>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+    case pair(64, 64): return launch<64, 64>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+    case pair(128, 128): return launch<128, 128>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+    case pair(256, 256): return launch<256, 256>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+    case pair(192, 128): return launch<192, 128>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -259,15 +269,16 @@ int dispatch(int d, int dtype, const void* q, const void* k, const void* v, void
 // tensor-core kernel); q, k, v and out share it.  strides: q's batch,
 // sequence and head strides, then k's, then v's, in elements (bf16: base
 // addresses 16-byte aligned, strides multiples of 8 elements, for TMA).
-// window <= 0 means no window.  Launches on `stream`; returns
-// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a head
-// size other than 32, 64, 128 or 256, H not a multiple of Hkv, another
+// window <= 0 means no window.  D is q's and k's head size, DV v's and
+// out's.  Launches on `stream`; returns cudaGetLastError() (0 = launched),
+// or cudaErrorInvalidValue for head sizes other than (32, 32), (64, 64),
+// (128, 128), (256, 256) or (192, 128), H not a multiple of Hkv, another
 // dtype, or a bf16 stride or address TMA cannot take.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* out, float* lse, int B, int S, int H, int Hkv,
-                                   int D, const long long* strides, int causal,
+                                   int D, int DV, const long long* strides, int causal,
                                    int window, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
-  return dispatch(D, dtype, q, k, v, out, lse, B, S, H, Hkv, strides, causal, window, scale,
-                  static_cast<cudaStream_t>(stream));
+  return dispatch(D, DV, dtype, q, k, v, out, lse, B, S, H, Hkv, strides, causal, window,
+                  scale, static_cast<cudaStream_t>(stream));
 }

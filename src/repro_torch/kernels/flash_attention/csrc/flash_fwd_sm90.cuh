@@ -39,6 +39,11 @@
 //   D^-½ is applied to S in float32 after the product.
 // * Softmax in the accumulator's layout: a row lives in 4 lanes, so its max
 //   and sum take two xor-shuffles; m, l and the correction of O stay float32.
+// * Head sizes.  Q and K take D columns, V and the output DV: DV = D but
+//   for MLA's prefill, (D, DV) = (192, 128).  Q·Kᵀ then runs 12 k16 steps
+//   over three 64-column panels of Q and K; P·V covers two 64-column
+//   panels of V.  Shared memory at (192, 128): 48 KB of Q tiles and two
+//   stages of a 24 KB K and a 16 KB V tile: 132,136 bytes with the pad.
 // * Precision.  q, k and v are bf16, so Q·Kᵀ is exact products summed in
 //   float32.  P is not: rounded once to bf16 it errs by up to 2^-9 of each
 //   term, which breaks the one-ulp bar on outputs near 0.  P therefore
@@ -53,16 +58,18 @@ namespace flash {
 namespace sm90 {
 
 // 64·NWG query rows per block, BK keys per tile, STAGES K/V stages.  At
-// D = 256 the Q tiles and two stages take 192 KB of shared memory.
-template <int D_>
+// D = DV = 256 the Q tiles and two stages take 192 KB of shared memory.
+template <int D_, int DV_>
 struct FwdConfig {
-  static constexpr int D = D_, NWG = 2, BK = 64, STAGES = 2;
+  static constexpr int D = D_, DV = DV_, NWG = 2, BK = 64, STAGES = 2;
   static constexpr int kThreads = 128 * NWG;
   static constexpr int kBQ = 64 * NWG;            // query rows per block
   static constexpr int kQBytes = 64 * D * 2;      // one consumer's Q tile
-  static constexpr int kKVBytes = BK * D * 2;     // one K or V tile
+  static constexpr int kKBytes = BK * D * 2;      // one K tile
+  static constexpr int kVBytes = BK * DV * 2;     // one V tile
+  static constexpr int kStageBytes = kKBytes + kVBytes;
   static constexpr int kSmemBytes =
-      1024 + NWG * kQBytes + 2 * STAGES * kKVBytes + 8 * (1 + 2 * STAGES);
+      1024 + NWG * kQBytes + STAGES * kStageBytes + 8 * (1 + 2 * STAGES);
 };
 
 template <class C>
@@ -72,13 +79,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
                        float* __restrict__ lse, int S, int H, int Hkv, int causal, int window,
                        float scale) {
-  constexpr int D = C::D, NWG = C::NWG, BK = C::BK, ST = C::STAGES;
+  constexpr int D = C::D, DV = C::DV, NWG = C::NWG, BK = C::BK, ST = C::STAGES;
   using P = Panel<D>;
+  using PV = Panel<DV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = align1024(smem_raw);
   uint8_t* sK = sQ + NWG * C::kQBytes;
-  uint8_t* sV = sK + ST * C::kKVBytes;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + ST * C::kKVBytes);
+  uint8_t* sV = sK + ST * C::kKBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + ST * C::kVBytes);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + ST;
 
@@ -104,13 +112,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // then each next tile as soon as all consumers have released its stage.
   auto load_tile = [&](int i) {
     const int s = i % ST, k0 = (t0 + i) * BK;
-    mbar_expect_tx(&full[s], 2 * C::kKVBytes);
-    for (int p = 0; p < P::kCount; ++p) {
-      tma_load(sK + s * C::kKVBytes + p * BK * P::kRowBytes, &tk, &full[s], p * P::kCols, k0, hk,
+    mbar_expect_tx(&full[s], C::kStageBytes);
+    for (int p = 0; p < P::kCount; ++p)
+      tma_load(sK + s * C::kKBytes + p * BK * P::kRowBytes, &tk, &full[s], p * P::kCols, k0, hk,
                b);
-      tma_load(sV + s * C::kKVBytes + p * BK * P::kRowBytes, &tv, &full[s], p * P::kCols, k0, hk,
-               b);
-    }
+    for (int p = 0; p < PV::kCount; ++p)
+      tma_load(sV + s * C::kVBytes + p * BK * PV::kRowBytes, &tv, &full[s], p * PV::kCols, k0,
+               hk, b);
   };
   if (threadIdx.x == 0) {
     mbar_expect_tx(q_full, NWG * C::kQBytes);
@@ -128,11 +136,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int cq = 2 * (lane % 4);
   const uint8_t* myQ = sQ + wg * C::kQBytes;
 
-  float o[P::kCount][P::kCols / 2];
+  float o[PV::kCount][PV::kCols / 2];
 #pragma unroll
-  for (int p = 0; p < P::kCount; ++p)
+  for (int p = 0; p < PV::kCount; ++p)
 #pragma unroll
-    for (int i = 0; i < P::kCols / 2; ++i) o[p][i] = 0.f;
+    for (int i = 0; i < PV::kCols / 2; ++i) o[p][i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   mbar_wait(q_full, 0);
@@ -144,8 +152,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (!skip) {
       const bool edge = (causal && k0 + BK - 1 > r0) || (window > 0 && k0 <= r0 + 63 - window) ||
                         k0 + BK > S;
-      const uint8_t* tK = sK + s * C::kKVBytes;
-      const uint8_t* tV = sV + s * C::kKVBytes;
+      const uint8_t* tK = sK + s * C::kKBytes;
+      const uint8_t* tV = sV + s * C::kVBytes;
 
       float sc[BK / 2];
 #pragma unroll
@@ -194,28 +202,28 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         l[r] = l[r] * corr[r] + rs[r];
       }
 #pragma unroll
-      for (int p = 0; p < P::kCount; ++p)
+      for (int p = 0; p < PV::kCount; ++p)
 #pragma unroll
-        for (int e = 0; e < P::kCols / 2; ++e) o[p][e] *= corr[(e / 2) % 2];
+        for (int e = 0; e < PV::kCols / 2; ++e) o[p][e] *= corr[(e / 2) % 2];
 
       // O += P·V, P as hi + lo.
       uint32_t hi[BK / 16][4], lo[BK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) to_frag(sc, kk, hi[kk], lo[kk]);
 #pragma unroll
-      for (int p = 0; p < P::kCount; ++p) fence_regs(o[p]);
+      for (int p = 0; p < PV::kCount; ++p) fence_regs(o[p]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-        for (int p = 0; p < P::kCount; ++p) {
-          wgmma_rs<P::kCols>(o[p], hi[kk], desc_mn<D, BK>(tV, p, kk));
-          wgmma_rs<P::kCols>(o[p], lo[kk], desc_mn<D, BK>(tV, p, kk));
+        for (int p = 0; p < PV::kCount; ++p) {
+          wgmma_rs<PV::kCols>(o[p], hi[kk], desc_mn<DV, BK>(tV, p, kk));
+          wgmma_rs<PV::kCols>(o[p], lo[kk], desc_mn<DV, BK>(tV, p, kk));
         }
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int p = 0; p < P::kCount; ++p) fence_regs(o[p]);
+      for (int p = 0; p < PV::kCount; ++p) fence_regs(o[p]);
     }
     mbar_arrive(&empty[s]);
     if (threadIdx.x == 0 && i + ST < n_tiles) {
@@ -230,29 +238,30 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int row = ra + 8 * r;
     if (row < S) {
       const float lf = fmaxf(l[r], 1e-30f);
-      __nv_bfloat16* ob = out + ((static_cast<long long>(b) * S + row) * H + h) * D;
+      __nv_bfloat16* ob = out + ((static_cast<long long>(b) * S + row) * H + h) * DV;
 #pragma unroll
-      for (int p = 0; p < P::kCount; ++p)
+      for (int p = 0; p < PV::kCount; ++p)
 #pragma unroll
-        for (int j = 0; j < P::kCols / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(ob + p * P::kCols + 8 * j + cq) =
+        for (int j = 0; j < PV::kCols / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(ob + p * PV::kCols + 8 * j + cq) =
               __floats2bfloat162_rn(o[p][4 * j + 2 * r] / lf, o[p][4 * j + 2 * r + 1] / lf);
       if (lane % 4 == 0) lse[(static_cast<long long>(b) * H + h) * S + row] = m[r] + logf(lf);
     }
   }
 }
 
-// Launch B7's bf16 kernel.  st: q's, k's and v's batch, sequence and head
-// strides (elements).  Returns 0 or a CUDA error code.
-template <int D>
+// Launch B7's bf16 kernel at q/k head size D and v head size DV.  st: q's,
+// k's and v's batch, sequence and head strides (elements).  Returns 0 or a
+// CUDA error code.
+template <int D, int DV>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
                int H, int Hkv, const long long* st, int causal, int window, float scale,
                cudaStream_t stream) {
-  using C = FwdConfig<D>;
+  using C = FwdConfig<D, DV>;
   CUtensorMap tq, tk, tv;
   int err = make_map<D>(&tq, q, B, S, H, st[0], st[1], st[2], 64);
   if (!err) err = make_map<D>(&tk, k, B, S, Hkv, st[3], st[4], st[5], C::BK);
-  if (!err) err = make_map<D>(&tv, v, B, S, Hkv, st[6], st[7], st[8], C::BK);
+  if (!err) err = make_map<DV>(&tv, v, B, S, Hkv, st[6], st[7], st[8], C::BK);
   if (err) return err;
   auto* fn = flash_fwd_wgmma_kernel<C>;
   const cudaError_t e =

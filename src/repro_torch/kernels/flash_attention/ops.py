@@ -2,9 +2,12 @@
 (B8) and the ``torch.autograd.Function`` over both.
 
 Counterpart of ``repro/kernels/flash_attention/ops.py``, in the model
-layout: :func:`flash_attention` takes q [B, S, H, D] and k, v
-[B, S, Hkv, D] (H a multiple of Hkv: GQA, MQA) and returns ``(out, lse)``,
-out [B, S, H, D] in q's dtype and the float32 row log-sum-exp [B, H, S].
+layout: :func:`flash_attention` takes q [B, S, H, D], k [B, S, Hkv, D] and
+v [B, S, Hkv, D_v] (H a multiple of Hkv: GQA, MQA) and returns ``(out,
+lse)``, out [B, S, H, D_v] in q's dtype and the float32 row log-sum-exp
+[B, H, S], with scores scaled by ``D^-½``.  D_v is D but for MLA's prefill
+(``models/mla.py``), which attends with q/k 192 (128 nope + 64 rope) and v
+128.
 Causal by default; ``window`` keeps keys j > i - window.  The strides of q,
 k and v are passed to the kernels (their last axis must be contiguous), so
 head slices of a projection need no copy.
@@ -18,8 +21,9 @@ autograd hands the model's attention, which arrives contiguous).
 
 Dispatch is by the tensors' device: on the CPU the plain versions
 (``ref.flash_attention_ref``, ``ref.flash_attention_bwd_ref``) run; on a
-CUDA device the hand-written kernels launch for float32 or bf16 at head
-sizes 32, 64, 128 and 256, or the call raises.  Nothing falls back from the
+CUDA device the hand-written kernels launch for float32 or bf16 at the
+head-size pairs (D, D_v) of ``HEAD_DIM_PAIRS`` (equal sizes 32, 64, 128 and
+256, and MLA's (192, 128)), or the call raises.  Nothing falls back from the
 card.  The C entry points (``csrc/flash_attention.cu``,
 ``csrc/flash_attention_bwd.cu``) pick the kernel by dtype: bf16 runs on the
 tensor cores (``csrc/flash_fwd_sm90.cuh``, ``csrc/flash_bwd_sm90.cuh``:
@@ -36,7 +40,10 @@ forward saves (q, k, v, out, lse) and whose backward calls
 :func:`flash_attention_bwd` — on both devices, so the CPU runs the same
 plumbing as the card (the reference's ``custom_vjp``).  A kernel launch
 yields tensors with no ``grad_fn``, so reaching B7 or B8 outside that path
-with grad needed raises instead of detaching the attention silently.
+with grad needed raises instead of detaching the attention silently.  B8
+takes equal head sizes only: with D_v != D, :func:`flash_attention_bwd`
+and a call that needs grad raise ``NotImplementedError`` (MLA training,
+ROADMAP queue A item 14) rather than compute a wrong gradient.
 """
 from __future__ import annotations
 
@@ -51,10 +58,13 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 HEAD_DIMS = (32, 64, 128, 256)
+# (q/k head size, v head size) pairs the kernels are built for
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
+BWD_ITEM = "ROADMAP queue A item 14"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-_ARGS = [_I32, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32,
+_ARGS = [_I32, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32,
          _STRIDES, _I32, _I32, ctypes.c_float, _PTR]
 _BWD_ARGS = [_I32] + [_PTR] * 9 + [_I32] * 5 + [_STRIDES, _I32, _I32, ctypes.c_float, _PTR]
 
@@ -72,9 +82,9 @@ def _check(q, k, v, window) -> None:
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s last axis must be contiguous")
     b, s, h, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
-        raise ValueError(f"flash_attention: expected k, v [{b}, {s}, Hkv, {d}]; got "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
+        raise ValueError(f"flash_attention: expected k [{b}, {s}, Hkv, {d}], v [{b}, {s}, "
+                         f"Hkv, D_v]; got {tuple(k.shape)}, {tuple(v.shape)}")
     if k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(f"flash_attention: {h} query heads over {k.shape[2]} KV heads")
     if window is not None and window < 1:
@@ -92,14 +102,22 @@ def _refuse_grad(who: str, *tensors) -> None:
                            "Function) instead")
 
 
-def _kernel_device(who: str, q: torch.Tensor) -> None:
-    """Raise unless q lies on a CUDA device in a dtype and head size the
+def _kernel_device(who: str, q: torch.Tensor, d_v: int) -> None:
+    """Raise unless q lies on a CUDA device in a dtype and head sizes the
     kernels take."""
     if q.device.type != "cuda":
         raise ValueError(f"{who}: no kernel for device {q.device}")
-    if q.dtype not in _DTYPES or q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"{who}: the kernel takes float32 or bf16 at head sizes "
-                         f"{HEAD_DIMS}, got {q.dtype} at {q.shape[-1]}")
+    if q.dtype not in _DTYPES or (q.shape[-1], d_v) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"{who}: the kernel takes float32 or bf16 at head sizes (q/k, v) "
+                         f"{HEAD_DIM_PAIRS}, got {q.dtype} at ({q.shape[-1]}, {d_v})")
+
+
+def _refuse_unequal(who: str, q: torch.Tensor, v: torch.Tensor) -> None:
+    """B8 and its autograd path take one head size for q, k and v."""
+    if v.shape[-1] != q.shape[-1]:
+        raise NotImplementedError(
+            f"{who}: the backward at a v head size ({v.shape[-1]}) other than q's and k's "
+            f"({q.shape[-1]}), MLA's training, is not ported yet ({BWD_ITEM})")
 
 
 def _route(dtype: torch.dtype) -> str:
@@ -137,9 +155,10 @@ def _forward(q, k, v, causal, window):
     _refuse_grad("flash_attention's forward", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
-    _kernel_device("flash_attention", q)
     b, s, h, d = q.shape
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    d_v = v.shape[-1]
+    _kernel_device("flash_attention", q, d_v)
+    out = torch.empty((b, s, h, d_v), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if b == 0 or s == 0 or h == 0:
         return out, lse
@@ -147,7 +166,8 @@ def _forward(q, k, v, causal, window):
         _check_tma("flash_attention", q=q, k=k, v=v)
     _build.launch("flash_attention", "flash_attention_fwd", _ARGS, q.device, _DTYPES[q.dtype],
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b,
-                  s, h, k.shape[2], d, _strides(q, k, v), int(causal), window or 0, d**-0.5)
+                  s, h, k.shape[2], d, d_v, _strides(q, k, v), int(causal), window or 0,
+                  d**-0.5)
     flash_attention.launches += 1
     flash_attention.route_launches[_route(q.dtype)] += 1
     return out, lse
@@ -159,6 +179,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
+        _refuse_unequal("FlashAttention", q, v)
         out, lse = _forward(q, k, v, causal, window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
@@ -181,7 +202,7 @@ def flash_attention(
     causal: bool = True,
     window: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Causal (optionally windowed) attention: (out [B, S, H, D], lse [B, H, S])."""
+    """Causal (optionally windowed) attention: (out [B, S, H, D_v], lse [B, H, S])."""
     _check(q, k, v, window)
     if _grad_needed(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window)
@@ -201,6 +222,7 @@ def flash_attention_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The attention backward: (dq [B, S, H, D], dk, dv [B, S, Hkv, D])."""
     _check(q, k, v, window)
+    _refuse_unequal("flash_attention_bwd", q, v)
     b, s, h, d = q.shape
     for name, t, shape in (("out", out, q.shape), ("do", do, q.shape), ("lse", lse, (b, h, s))):
         if not isinstance(t, torch.Tensor) or tuple(t.shape) != tuple(shape) \
@@ -212,7 +234,7 @@ def flash_attention_bwd(
     _refuse_grad("flash_attention_bwd", q, k, v, out, do)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window)
-    _kernel_device("flash_attention_bwd", q)
+    _kernel_device("flash_attention_bwd", q, d)
     hkv = k.shape[2]
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)

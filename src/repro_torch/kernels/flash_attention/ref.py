@@ -2,15 +2,20 @@
 forward and backward that the B7 and B8 kernels compute.
 
 Counterpart of ``repro/kernels/flash_attention/ref.py``, in the model layout:
-q [B, S, H, D], k and v [B, S, Hkv, D], query head h reading KV head
-h // (H / Hkv) (the reference's ``jnp.repeat`` of k and v, here a broadcast).
+q and k [B, S, H or Hkv, D], v [B, S, Hkv, D_v], query head h reading KV
+head h // (H / Hkv) (the reference's ``jnp.repeat`` of k and v, here a
+broadcast).  The forward takes a value head size of its own, as the
+reference's ``attention.attend_full`` / ``attend_chunked`` do (MLA's prefill
+attends with q/k 192 = 128 nope + 64 rope and v 128); the scale is
+``D^-½`` of the q/k head size.
 Scores and probabilities are float32, masked with ``-1e30`` as the reference
 masks them; the output comes back in q's dtype, with the row log-sum-exp
 [B, H, S] that the Pallas kernel also returns.  It materialises the
 [S, S] scores: the CUDA kernel beside it is held against it, and the wrapper
 runs it for CPU tensors.
 
-:func:`flash_attention_bwd_ref` is the backward of the same function, with
+:func:`flash_attention_bwd_ref` is the backward of the same function at
+equal head sizes (the only ones B8 takes), with
 the formulas of the reference's Pallas backward (``_dq_kernel``,
 ``_dkv_kernel``) in float32: ``p = exp(s - lse)`` masked to 0,
 ``dvec = rowsum(dO∘O)``, ``ds = p∘(dO·vᵀ - dvec)``, ``dq = D^-½·ds·k``,
@@ -48,7 +53,7 @@ def flash_attention_ref(
     causal: bool = True,
     window: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(out [B, S, H, D] in q's dtype, lse [B, H, S] float32)."""
+    """(out [B, S, H, D_v] in q's dtype, lse [B, H, S] float32)."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     qg = q.float().reshape(b, s, hkv, h // hkv, d).permute(0, 2, 3, 1, 4)  # [B,Hkv,G,S,D]
@@ -57,8 +62,8 @@ def flash_attention_ref(
     scores = (qg @ kf.transpose(-1, -2)) * d**-0.5
     scores = scores.masked_fill(~attention_mask(s, causal, window, q.device), _NEG_INF)
     lse = torch.logsumexp(scores, dim=-1)
-    out = torch.softmax(scores, dim=-1) @ vf                               # [B,Hkv,G,S,D]
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+    out = torch.softmax(scores, dim=-1) @ vf                               # [B,Hkv,G,S,Dv]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, v.shape[-1])
     return out.to(q.dtype), lse.reshape(b, h, s)
 
 

@@ -4,7 +4,8 @@ privacy smoke, on the card (counterpart of ``repro/launch/serve.py``).
 * LM serve (default, ``--arch``) — prefill a batch of synthetic prompts by
   stepping them through the backbone's decode, then decode ``--gen``
   tokens greedily against a float32 cache (:func:`generate`).  The dense,
-  SSM and hybrid families run; the others raise ``NotImplementedError``
+  VLM (its decoder: the image prefix belongs to a prefill), MoE, SSM and
+  hybrid families run; the encoder-decoder raises ``NotImplementedError``
   from ``get_bundle``, naming ROADMAP queue A item 14.
 * Fleet serve (``--fleet K``) — train K per-tenant DAEF anomaly detectors in
   one batched fleet fit, then serve rounds of ragged per-tenant request

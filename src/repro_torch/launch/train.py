@@ -11,8 +11,9 @@ bfloat16, where attention runs B7 and B8 on their tensor-core routes).
 
 What waits: ``--model-parallel`` > 1 shards the model over a device mesh,
 ROADMAP queue A item 12; the ssm and hybrid families' loss, item 16 (it
-raises from ``bundle.loss``); the vlm, moe and encdec families, item 14 (it
-raises from ``get_bundle``).
+raises from ``bundle.loss``); the vlm and moe families' loss, item 14 (it
+raises from ``bundle.loss``), and the encdec family, item 14 (it raises
+from ``get_bundle``).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \\

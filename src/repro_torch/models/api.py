@@ -1,7 +1,7 @@
 """ModelBundle — one interface over the LM families the port serves and trains.
 
 Counterpart of ``repro/models/api.py`` for the families ported so far
-(``dense``, ``ssm``, ``hybrid``).  Per family it wires up:
+(``dense``, ``vlm``, ``moe``, ``ssm``, ``hybrid``).  Per family it wires up:
 
     init(seed, dtype=torch.float32, *, device=None) -> params
     forward(params, tokens)      -> hidden states [B, S, d]
@@ -16,27 +16,34 @@ or a ``torch.Generator``, whose device the parameters then take.
 ``device=None`` means the CUDA card and raises without one (see
 ``repro_torch.device``); pass ``device="cpu"`` for the host.  ``tokens``
 (and ``batch["tokens"]``) are [B, S] integers, numpy or torch; they move
-to the parameters' device.  ``forward`` and ``prefill`` run under
-``torch.inference_mode()``; ``loss`` runs in the caller's grad mode, with
-every layer rematerialised when grad is on (its gradients go through the
-B7/B8 kernels on the card).  The reference's bundle has no ``forward``: its
+to the parameters' device.  The ``vlm`` family's ``prefill`` also reads
+``batch["patch_embeds"]`` [B, n_patches, d_frontend] (floats, numpy or
+torch), projected into a prefix of the text; its ``forward(params, tokens,
+patch_embeds=None)`` gives the hidden states of prefix and text, or of the
+text alone.  The ``moe`` family's ``forward`` gives the hidden states only
+(the reference's ``moe_lm.forward`` also returns the router's aux loss).
+``forward`` and ``prefill`` run under ``torch.inference_mode()``; ``loss``
+runs in the caller's grad mode, with every layer rematerialised when grad
+is on (its gradients go through the B7/B8 kernels on the card).  The reference's bundle has no ``forward``: its
 callers reach the family module directly; the port's DAEF head takes the
 bundle's.  ``input_specs`` gives meta tensors, PyTorch's counterpart of the
 reference's ``jax.ShapeDtypeStruct``: shapes and dtypes, no storage.
 
-``init_cache`` allocates a zero cache (a ``KVCache``, ``Mamba2Cache`` or
-``RGCache`` of tensors) on ``device``, ``None`` meaning the card: pass the
-parameters' device.  ``decode`` runs one token [B, 1] at position ``pos``
+``init_cache`` allocates a zero cache (a ``KVCache``, ``MoECaches``,
+``Mamba2Cache`` or ``RGCache`` of tensors) on ``device``, ``None`` meaning
+the card: pass the parameters' device.  ``decode`` runs one token [B, 1] at position ``pos``
 (an int or a 0-d integer tensor on the cache's device) under
 ``torch.inference_mode()`` and updates the cache in place: the cache it
 returns is the one passed in, now holding the token (the reference donates
 it), so a caller must not keep the old one.  :func:`cache_specs` gives the
 cache's tree as meta tensors.
 
-``loss`` trains the ``dense`` family only: for ``ssm`` and ``hybrid`` it
-raises ``NotImplementedError`` (their B10/B9 kernels have no backward;
-ROADMAP queue A item 16).  :func:`get_bundle` raises for the families not
-ported yet (``vlm``, ``moe``, ``encdec``), naming ROADMAP queue A item 14.
+``loss`` trains the ``dense`` family only: for ``vlm`` and ``moe`` it
+raises ``NotImplementedError`` naming ROADMAP queue A item 14 (their
+serving path is ported, their training is not; MLA's backward would need
+B8 at unequal head sizes), for ``ssm`` and ``hybrid`` naming item 16 (their
+B10/B9 kernels have no backward).  :func:`get_bundle` raises for the
+encoder-decoder (``encdec``), not ported yet, naming item 14.
 """
 from __future__ import annotations
 
@@ -48,12 +55,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import InputShape
 from repro_torch.device import resolve_device
-from repro_torch.models import common, mamba2, rglru, transformer
+from repro_torch.models import common, mamba2, moe_lm, rglru, transformer, vlm
 
-_MODULES = {"dense": transformer, "ssm": mamba2, "hybrid": rglru}
+_MODULES = {"dense": transformer, "vlm": vlm, "moe": moe_lm, "ssm": mamba2,
+            "hybrid": rglru}
 _NOT_YET = {
-    "vlm": "the VLM (ROADMAP queue A item 14, other families)",
-    "moe": "the MoE families (ROADMAP queue A item 14, other families)",
     "encdec": "the encoder-decoder (ROADMAP queue A item 14, other families)",
 }
 
@@ -89,6 +95,13 @@ def _generator(seed, device=None) -> torch.Generator:
     return torch.Generator(device=resolve_device(device)).manual_seed(int(seed))
 
 
+def _patches(params, patch_embeds) -> torch.Tensor:
+    """The VLM's patch embeddings on the parameters' device, floats kept in
+    their dtype (numpy's float64 as float32, the reference's default)."""
+    x = torch.as_tensor(patch_embeds, device=params["embed"]["table"].device)
+    return x.float() if x.dtype == torch.float64 else x
+
+
 def input_specs(shape: InputShape, dtype=torch.float32) -> dict[str, torch.Tensor]:
     """The inputs of ``shape`` for the token-only families: int32 tokens
     [global_batch, seq_len], as meta tensors (``dtype`` is the reference's
@@ -96,6 +109,18 @@ def input_specs(shape: InputShape, dtype=torch.float32) -> dict[str, torch.Tenso
     del dtype
     return {"tokens": torch.empty((shape.global_batch, shape.seq_len), dtype=torch.int32,
                                   device="meta")}
+
+
+def _vlm_input_specs(cfg: ArchConfig):
+    def specs(shape: InputShape, dtype=torch.float32) -> dict[str, torch.Tensor]:
+        """The tokens and, unless ``shape`` is a decode shape, the patch
+        embeddings [global_batch, n_patches, d_frontend] in ``dtype``."""
+        out = input_specs(shape)
+        if shape.kind != "decode":
+            out["patch_embeds"] = torch.empty((shape.global_batch, cfg.n_patches,
+                                               cfg.d_frontend), dtype=dtype, device="meta")
+        return out
+    return specs
 
 
 def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
@@ -114,9 +139,19 @@ def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
         with torch.no_grad():
             return mod.init_params(_generator(seed, device), cfg, dtype)
 
-    @torch.inference_mode()
-    def forward(params, tokens):
-        return mod.forward(params, cfg, _tokens(params, tokens))
+    if fam == "vlm":
+        @torch.inference_mode()
+        def forward(params, tokens, patch_embeds=None):
+            patches = None if patch_embeds is None else _patches(params, patch_embeds)
+            return vlm.forward(params, cfg, _tokens(params, tokens), patch_embeds=patches)
+    elif fam == "moe":
+        @torch.inference_mode()
+        def forward(params, tokens):
+            return moe_lm.forward(params, cfg, _tokens(params, tokens))[0]
+    else:
+        @torch.inference_mode()
+        def forward(params, tokens):
+            return mod.forward(params, cfg, _tokens(params, tokens))
 
     def init_cache(batch_size, seq_len, dtype, *, device=None):
         return mod.init_cache(cfg, batch_size, seq_len, dtype, device=device)
@@ -127,20 +162,25 @@ def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
 
     @torch.inference_mode()
     def prefill(params, batch):
-        h = mod.forward(params, cfg, _tokens(params, batch["tokens"]))
-        # an untied dense model has an lm_head; every other model is tied
+        h = forward(params, batch["tokens"],
+                    *((batch["patch_embeds"],) if fam == "vlm" else ()))
+        # an untied model has an lm_head; the tied ones read the embedding
         return common.logits_from_hidden(h[:, -1:], params["embed"], params.get("lm_head"))
 
     if fam == "dense":
         def loss(params, batch):
             return transformer.lm_loss(params, cfg, _tokens(params, batch["tokens"]))
+    elif fam in ("vlm", "moe"):
+        loss = _waits(f"training the {fam} family (its lm_loss; MLA's backward would need "
+                      "B8 at unequal head sizes)", item=14)
     else:
         loss = _waits(f"training the {fam} family (lm_loss through the B9/B10 "
                       "kernels, which have no backward)", item=16)
 
     return ModelBundle(
         cfg=cfg, init=init, forward=forward, prefill=prefill, loss=loss,
-        init_cache=init_cache, decode=decode, input_specs=input_specs,
+        init_cache=init_cache, decode=decode,
+        input_specs=_vlm_input_specs(cfg) if fam == "vlm" else input_specs,
     )
 
 

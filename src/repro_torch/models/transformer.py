@@ -3,9 +3,10 @@ training loss and decode.
 
 Counterpart of ``repro/models/transformer.py``'s ``init_params``,
 ``forward``, ``lm_loss``, ``init_cache`` and ``decode_step`` (qwen3-1.7b,
-qwen2-1.5b, mistral-nemo-12b, granite-20b).  Layer parameters are stacked on a leading [L] axis, as the
-reference stacks them; the reference's ``lax.scan`` over that axis is a
-Python loop over layer views.
+qwen2-1.5b, mistral-nemo-12b, granite-20b and, with a projected patch
+prefix, the InternVL2 decoder of ``models/vlm.py``).  Layer parameters are
+stacked on a leading [L] axis, as the reference stacks them; the
+reference's ``lax.scan`` over that axis is a Python loop over layer views.
 
 ``remat`` is the reference's ``jax.checkpoint`` of every layer:
 ``torch.utils.checkpoint`` around each layer when grad mode is on, so the
@@ -18,8 +19,8 @@ allocates only ``min(seq_len, window)`` slots and writes ring slot
 it (see ``attention.update_cache``).
 
 What the port leaves out: ``chunked_attn`` (the attention always streams
-through the B7/B8 kernels); ``prefix_embeds`` (the VLM, ROADMAP queue A
-item 14).
+through the B7/B8 kernels); ``lm_loss``'s ``prefix_embeds`` (training the
+VLM, ROADMAP queue A item 14).
 """
 from __future__ import annotations
 
@@ -65,10 +66,15 @@ def layer_fwd(layer: Params, cfg: ArchConfig, h: torch.Tensor, window) -> torch.
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-            window: int | None = None, remat: bool = True) -> torch.Tensor:
-    """Hidden states [B, S, d] for training or prefill; ``tokens`` [B, S] on
-    the parameters' device."""
+            prefix_embeds: torch.Tensor | None = None, window: int | None = None,
+            remat: bool = True) -> torch.Tensor:
+    """Hidden states [B, P + S, d] for training or prefill; ``tokens`` [B, S]
+    on the parameters' device.  ``prefix_embeds`` [B, P, d] (the VLM's
+    projected patches), cast to the embeddings' dtype, go before the token
+    embeddings, and positions run over prefix and text."""
     h = common.embed(params["embed"], tokens)
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     win = window if window is not None else cfg.sliding_window
     remat = remat and torch.is_grad_enabled()
     for layer in common.unstack(params["layers"], cfg.n_layers):

@@ -1,0 +1,61 @@
+"""InternVL2-style VLM (arXiv:2404.16821): a stub vision frontend, the MLP
+projector and the dense decoder.
+
+Counterpart of ``repro/models/vlm.py``.  The InternViT encoder is a stub, as
+in the reference: the inputs are precomputed patch embeddings [B,
+n_patches, d_frontend].  This module owns the projector (LayerNorm, a
+2-layer MLP with the tanh GELU) and runs the dense decoder of
+``models/transformer.py`` with the projected patches as a prefix
+(``transformer.forward(prefix_embeds=...)``), so its attention is B7's.
+
+Decode is the dense decode: the image tokens belong to the prefill, the KV
+cache covers prefix and text.  What the port leaves out: ``lm_loss``
+(training the VLM, ROADMAP queue A item 14).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import common, transformer
+
+Params = dict[str, Any]
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> Params:
+    """The decoder's parameters plus ``projector`` {norm, w1, b1, w2, b2}."""
+    params = transformer.init_params(gen, cfg, dtype)
+    d, df, dev = cfg.d_model, cfg.d_frontend, gen.device
+    params["projector"] = {
+        "norm": common.init_layernorm(df, dtype, device=dev),
+        "w1": common.dense_init(gen, (df, d), dtype),
+        "b1": torch.zeros((d,), dtype=dtype, device=dev),
+        "w2": common.dense_init(gen, (d, d), dtype),
+        "b2": torch.zeros((d,), dtype=dtype, device=dev),
+    }
+    return params
+
+
+def project(params: Params, patch_embeds: torch.Tensor) -> torch.Tensor:
+    """Patch embeddings [B, P, d_frontend] -> prefix tokens [B, P, d_model],
+    computed in the promoted type of the patches and the weights, as JAX
+    promotes float32 patches against bf16 weights."""
+    p = params["projector"]
+    x = common.layernorm(p["norm"], patch_embeds)
+    dt = torch.promote_types(x.dtype, p["w1"].dtype)
+    x = common.gelu(x.to(dt) @ p["w1"].to(dt) + p["b1"].to(dt))
+    return x @ p["w2"].to(dt) + p["b2"].to(dt)
+
+
+def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            patch_embeds: torch.Tensor | None = None, remat: bool = True) -> torch.Tensor:
+    """Hidden states [B, P + S, d] of the projected patches and the tokens
+    (without patches: [B, S, d], the decoder alone)."""
+    prefix = None if patch_embeds is None else project(params, patch_embeds)
+    return transformer.forward(params, cfg, tokens, prefix_embeds=prefix, remat=remat)
+
+
+init_cache = transformer.init_cache
+decode_step = transformer.decode_step

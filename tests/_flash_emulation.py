@@ -76,15 +76,15 @@ def _heads(x, hkv):
 
 
 def forward(q, k, v, *, window=None, split=True):
-    """The forward kernel's (out [B, S, H, D] bf16, lse [B, H, S] float32)
-    for bf16 q [B, S, H, D], k, v [B, S, Hkv, D], causal."""
+    """The forward kernel's (out [B, S, H, D_v] bf16, lse [B, H, S] float32)
+    for bf16 q [B, S, H, D], k [B, S, Hkv, D], v [B, S, Hkv, D_v], causal."""
     b, s, h, d = q.shape
     hkv, scale = k.shape[2], d**-0.5
     qg, kg, vg = _heads(q, hkv), _heads(k, hkv), _heads(v, hkv)
     ok = attention_mask(s, True, window, q.device)
     m = torch.full(qg.shape[:-1], NEG_INF)
     l = torch.zeros(qg.shape[:-1])
-    o = torch.zeros(qg.shape)
+    o = torch.zeros((*qg.shape[:-1], v.shape[-1]))
     for k0 in range(0, s, BK):
         kt, vt = kg[..., k0:k0 + BK, :], vg[..., k0:k0 + BK, :]
         keep = ok[:, k0:k0 + BK]
@@ -96,7 +96,7 @@ def forward(q, k, v, *, window=None, split=True):
         o = o * corr[..., None] + _mm_derived(p, vt, split)
         m = m_new
     lf = l.clamp_min(1e-30)
-    out = (o / lf[..., None]).permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+    out = (o / lf[..., None]).permute(0, 3, 1, 2, 4).reshape(b, s, h, v.shape[-1])
     return out.to(torch.bfloat16), (m + torch.log(lf)).reshape(b, h, s)
 
 

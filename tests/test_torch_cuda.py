@@ -44,7 +44,7 @@ from repro_torch.kernels.rolann_stats import (
     rolann_stats_plain,
 )
 from repro_torch.launch import steps
-from repro_torch.models import get_bundle
+from repro_torch.models import common, get_bundle
 
 pytestmark = pytest.mark.cuda
 
@@ -722,6 +722,41 @@ def test_flash_attention_kernel_matches_plain(card, b, s, h, hkv, d, window, dty
     assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(ref_lse.abs().max())
 
 
+@pytest.mark.parametrize("b,s,h,hkv,window", [(1, 1_000, 8, 8, None), (2, 256, 4, 2, None),
+                                              (1, 300, 4, 4, 77)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mla_head_sizes_match_plain(card, b, s, h, hkv, window, dtype):
+    """B7 at MLA's head sizes, q/k 192 and v 128 (the (192, 128)
+    instantiations of both kernels), against its plain version under the
+    bars of the equal-size test above; out is [B, S, H, 128]; a repeat is
+    bit-identical."""
+    gen = torch.Generator(device=card).manual_seed(s + h)
+    q = _randn((b, s, h, 192), gen, card, dtype)
+    k = _randn((b, s, hkv, 192), gen, card, dtype)
+    v = _randn((b, s, hkv, 128), gen, card, dtype)
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    before = dict(flash_attention.route_launches)
+    out, lse = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches == {**before, route: before[route] + 1}
+    ref, ref_lse = flash_attention_ref(q, k, v, window=window)
+    assert out.dtype == dtype and tuple(out.shape) == (b, s, h, 128)
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        assert bool((diff <= 2.0**-7 * ref.float().abs() + 2.0**-7 * 1e-2).all())
+    else:
+        assert float(diff.max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(ref_lse.abs().max())
+    again, again_lse = flash_attention(q, k, v, window=window)
+    assert torch.equal(again, out) and torch.equal(again_lse, lse)
+
+
+def test_flash_attention_refuses_head_sizes_it_has_no_kernel_for(card):
+    q = torch.zeros((1, 8, 2, 192), device=card)
+    with pytest.raises(ValueError, match="head sizes"):
+        flash_attention(q, q, q)
+
+
 def test_flash_attention_reads_strided_heads(card):
     """q, k, v as head slices of one fused projection: no copy, same result."""
     gen = torch.Generator(device=card).manual_seed(0)
@@ -879,6 +914,70 @@ def test_decode_on_card_matches_prefill(card, case):
         assert flash_attention.route_launches["fp32"] > 0
     cache = bundle.init_cache(2, s, torch.float32, device=card)
     for t in range(s):
+        logits, cache = bundle.decode(params, cache, tokens[:, t:t + 1], t)
+    np.testing.assert_allclose(logits[:, 0].cpu().numpy(), want[:, 0].cpu().numpy(),
+                               atol=2e-3, rtol=1e-2)
+
+
+# deepseek-v2 at a reduced width with MLA's full head sizes (q/k 128 nope +
+# 64 rope, v 128), so that its prefill runs B7's (192, 128) kernels; and
+# qwen2-moe and internvl2 reduced.  capacity_factor=16 where decode meets
+# prefill: capacity routing drops otherwise one token at a time than a whole
+# sequence at once (the reference's tests/test_models.py does the same).
+MLA_WIDTHS = dict(qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
+FAMILY_CASES = {
+    "deepseek-v2 mla": ("deepseek-v2-236b", MLA_WIDTHS),
+    "qwen2-moe": ("qwen2-moe-a2.7b", {}),
+    "internvl2": ("internvl2-2b", {}),
+}
+
+
+def _family_batch(cfg, s, dev):
+    batch = {"tokens": torch.as_tensor(synthetic.lm_token_stream(cfg.vocab_size, s, 2, seed=1),
+                                       device=dev)}
+    if cfg.family == "vlm":
+        gen = torch.Generator(device=dev).manual_seed(2)
+        batch["patch_embeds"] = torch.randn((2, cfg.n_patches, cfg.d_frontend), generator=gen,
+                                            device=dev)
+    return batch
+
+
+@pytest.mark.parametrize("case", sorted(FAMILY_CASES))
+def test_family_prefill_on_card_matches_host(card, case):
+    """The VLM (with its patch prefix) and the MoE families in float32, the
+    same weights on the card (B7 on its FP32 kernels, at (192, 128) for MLA)
+    and on the host: hidden states to 1e-4 of their largest entry, after the
+    dispatch of each MoE layer agreed (the router's float32 logits decide
+    it; the check below would show a flipped choice as a large error)."""
+    name, changes = FAMILY_CASES[case]
+    cfg = dataclasses.replace(registry.get(name).reduced(), **changes)
+    bundle = get_bundle(cfg)
+    params = bundle.init(0, device="cpu")
+    batch = _family_batch(cfg, 96, "cpu")
+    args = (batch["tokens"],) + ((batch["patch_embeds"],) if cfg.family == "vlm" else ())
+    host = bundle.forward(params, *args)
+    before = dict(flash_attention.route_launches)
+    got = bundle.forward(_tree_to(params, card), *(a.to(card) for a in args)).cpu()
+    assert flash_attention.route_launches["fp32"] == before["fp32"] + cfg.n_layers
+    assert float((got - host).abs().max()) <= 1e-4 * float(host.abs().max())
+
+
+@pytest.mark.parametrize("case", sorted(FAMILY_CASES))
+def test_family_decode_on_card_matches_prefill(card, case):
+    """chip_smoke.py phase 22 (d) at a reduced width: 48 tokens
+    teacher-forced through ``bundle.decode`` on the card against the card's
+    prefill (the VLM's without patches: decode is its decoder's), at the
+    reference's bar (atol 2e-3, rtol 1e-2)."""
+    name, changes = FAMILY_CASES[case]
+    cfg = dataclasses.replace(registry.get(name).reduced(), capacity_factor=16.0, **changes)
+    bundle = get_bundle(cfg)
+    params = bundle.init(0, device=card)
+    tokens = _family_batch(cfg, 48, card)["tokens"]
+    want = bundle.prefill(params, {"tokens": tokens}) if cfg.family != "vlm" else \
+        common.logits_from_hidden(bundle.forward(params, tokens)[:, -1:], params["embed"],
+                                  params["lm_head"])
+    cache = bundle.init_cache(2, 48, torch.float32, device=card)
+    for t in range(48):
         logits, cache = bundle.decode(params, cache, tokens[:, t:t + 1], t)
     np.testing.assert_allclose(logits[:, 0].cpu().numpy(), want[:, 0].cpu().numpy(),
                                atol=2e-3, rtol=1e-2)

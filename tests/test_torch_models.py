@@ -164,8 +164,18 @@ def test_params_from_numpy_checks_the_layout():
 
 @pytest.mark.parametrize("name", ["internvl2-2b", "qwen2-moe-a2.7b", "whisper-tiny"])
 def test_families_not_ported_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_bundle(registry.get(name))
+    """The encoder-decoder waits: ``get_bundle`` raises.  The VLM and MoE
+    bundles build (their serving path: tests/test_torch_vlm_moe.py), and
+    their training waits: ``loss`` raises.  Both name ROADMAP item 14."""
+    cfg = registry.get(name)
+    if cfg.family == "encdec":
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
+            get_bundle(cfg)
+        return
+    bundle = get_bundle(cfg)
+    assert bundle.cfg is cfg
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
+        bundle.loss(None, None)
 
 
 def test_training_and_decode_wait_and_init_defaults_to_the_card(monkeypatch):

@@ -3,11 +3,11 @@
 * Argument errors: the same argv gives the same ``error:`` line as the
   reference CLI (tests/test_serve_cli.py pins the reference's messages), and
   exit code 2.
-* The LM mode of a family not ported yet (the VLM) raises
+* The LM mode of a family not ported yet (the encoder-decoder) raises
   ``NotImplementedError`` naming ROADMAP queue A item 14, through
   ``get_bundle``; ``--mesh-tenants`` names item 12.
-* The LM mode runs the dense, SSM and hybrid backbones on the host and
-  prints the reference's lines; :func:`serve.generate` on the reference's
+* The LM mode runs the dense, VLM, MoE, SSM and hybrid backbones on the
+  host and prints the reference's lines; :func:`serve.generate` on the reference's
   own parameters gives the reference loop's greedy tokens.
 * Every ported mode runs end to end on the host (``--device cpu``, tiny
   scale) and prints its ``... OK`` line: ``--fleet`` with continuous and pad
@@ -83,7 +83,7 @@ def test_argument_errors_match_the_reference(argv, needle, capsys, monkeypatch):
 
 def test_lm_mode_and_mesh_tenants_name_their_items():
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
-        serve.main(["--arch", "internvl2-2b", "--reduced"])
+        serve.main(["--arch", "whisper-tiny", "--reduced"])
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12"):
         serve.main(["--fleet", "2", "--mesh-tenants", "2", "--device", "cpu"])
 
@@ -112,7 +112,8 @@ def test_modes_run_on_the_host(argv, ok, capsys):
         assert "tile dispatches" in out and "scored 12 tile shapes" in out
 
 
-LM_ARCHS = ("qwen3-1.7b", "mamba2-780m", "recurrentgemma-9b")
+LM_ARCHS = ("qwen3-1.7b", "mamba2-780m", "recurrentgemma-9b", "internvl2-2b",
+            "qwen2-moe-a2.7b")
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
