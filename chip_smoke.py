@@ -327,12 +327,55 @@ no result:
     normal and 256 uniform-random OOD sequences, the card's flags within 8
     of 512 of the same head fitted on the host from the same features.
 
-The last lines are a JSON object of phase 22's numbers, a JSON object of
-phase 21's numbers, a JSON object of
-phase 20's numbers, a JSON object of the
-svd phase's numbers, a JSON object of the engine phase's numbers, a JSON object of phase 19's numbers, a JSON object of the LM paths' numbers, a JSON object of per-shape numbers, the card's name and power limit, a JSON object of
-per-kernel numbers for all ten kernels, and ``{"ok": true, "device":
-{...}}``.
+23. the encoder-decoder and the training of the VLM, MoE and
+    encoder-decoder families.  First the serve CLI's LM mode for
+    whisper-tiny (``--arch whisper-tiny``, float32, its frames
+    ``jax.random.normal(PRNGKey(2), ...)``'s bits) ending in ``serve OK``.
+    (a) B7 with ``causal=False`` at whisper-tiny's encoder shape (16 x
+    1,500, 6 heads of 64) and a ragged S = 1,000, bf16 (``"wgmma"``) and
+    float32 (``"fp32"``), against the plain version under phase 9's bars,
+    each repeat bit-identical; the encoder shape timed beside its bound
+    (2·128 FLOP a pair of the full square) and SDPA.  (b) B8 with
+    ``causal=False`` at the encoder's training shape (a microbatch of (e),
+    8 x 1,500) and B8 at MLA's (192, 128)
+    (2 x 2,048 and a ragged 1 x 1,000, 128 heads, causal), both routes,
+    against the plain version per element (phase 14's bars), each repeat
+    bit-identical; timed beside the bound (2·(3·192 + 2·128) FLOP a pair
+    of the band) and SDPA's backward; ptxas's registers and spills of the
+    (192, 128) instantiations.  (c) whisper-tiny at full width and depth,
+    float32, 2 x (1,500 frames + 64 tokens): the encoder states and the
+    prefill's logits card against host (1e-4 of max), the tokens
+    teacher-forced through ``bundle.decode`` from ``encdec.init_cache``
+    against the prefill at the reference's bar (B7 12 launches on
+    ``"fp32"``, decode none); a bf16 prefill of 16 x (1,500 frames + 448
+    tokens) after a warm-up (B7 8, all ``"wgmma"``), decoder tokens/s and
+    frames/s.  (d) ``bundle.loss`` and every gradient leaf, float32, card
+    (B7 twice and B8 once an attention layer, ``"fp32"``) against host,
+    each leaf within 1e-4 of its largest entry, the loss within 1e-5 of
+    itself: whisper-tiny uncut (1 x (1,500 frames + 64 tokens)),
+    internvl2-2b (after its 256 patches) and qwen2-moe-a2.7b cut to 2
+    layers, deepseek-v2-236b cut to its dense layer and one MoE layer of
+    160 experts (B8 at (192, 128)), 1 x 256 tokens; the MoE models'
+    dispatch compared first (a near tie reruns with the next seed).  (e)
+    10 bf16 train steps (AdamW under the launcher's schedule, 2
+    microbatches, remat, clip 1.0): whisper-tiny 16 x (1,500 frames + 448
+    tokens), internvl2-2b at full depth 4 x (256 patches + 1,792 tokens),
+    qwen2-moe-a2.7b cut to 4 layers and deepseek-v2-236b cut to its dense
+    layer (~1.4e9 parameters: one MoE layer adds 3.97e9), 4 x 2,048: finite
+    losses and gradient norms, step 0 within 1.0 of ln V, every gradient
+    leaf and layer nonzero, the loss on step 0's batch lower after the
+    steps, every B7 and B8 launch on ``"wgmma"``; step time, positions/s
+    and peak memory; then ``launch/train.py --arch whisper-tiny`` (3 bf16
+    steps of 4 x 448 tokens) in process.
+
+The last lines are a JSON object of phase 23's numbers, a JSON object of
+phase 22's numbers, a JSON object of phase 21's numbers, a JSON object of
+phase 20's numbers, a JSON object of the svd phase's numbers, a JSON object
+of the engine phase's numbers, a JSON object of phase 19's numbers, a JSON
+object of the LM paths' numbers, a JSON object of per-shape numbers, the
+card's name and power limit, a JSON object of per-kernel numbers for all
+ten kernels (B7's and B8's rows with their routes of phases 22 and 23),
+and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2880,14 +2923,22 @@ def _say_ptxas(library, kernels):
                 f"spill loads {loads} B")
 
 
-def _attention_work(b, s, h, hkv, d, elem, window, d_v=None):
+def _pairs(s, window, causal=True):
+    """The (query, key) pairs the causal/window band keeps (every pair
+    without the causal mask)."""
+    if not causal:
+        return s * s
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def _attention_work(b, s, h, hkv, d, elem, window, d_v=None, causal=True):
     """FLOPs and bytes of B7 on these inputs: Q·Kᵀ (depth d) and P·V (width
     d_v, default d) over the (query, key) pairs the causal/window band keeps
     (2 FLOPs per multiply-add), the softmax not counted; q, k, v read once,
     out and lse written once."""
     d_v = d if d_v is None else d_v
-    w = s if window is None else min(window, s)
-    pairs = w * (w + 1) // 2 + (s - w) * w
+    pairs = _pairs(s, window, causal)
     flops = 2 * (d + d_v) * pairs * b * h
     nbytes = elem * (b * s * ((h + hkv) * d + hkv * d_v) + b * s * h * d_v) + 4 * b * h * s
     return flops, nbytes
@@ -2912,17 +2963,17 @@ def _ssd_work(b, s, h, p, g, n, chunk):
     return flops, nbytes
 
 
-def _sdpa(q, k, v, window):
+def _sdpa(q, k, v, window, causal=True):
     """The one-call PyTorch yardstick of B7 (timed here only; the port never
-    calls it): fused attention in [B, H, S, D], causal or with the band
-    mask, GQA in the call."""
+    calls it): fused attention in [B, H, S, D], causal (or full) or with the
+    band mask, GQA in the call."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ref import attention_mask
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if window is None:
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
     mask = attention_mask(q.shape[1], True, window, q.device)
     return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
@@ -3457,24 +3508,26 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_MICRO = 4, 2_048, 10, 2
 TRAIN_LR = 3e-4          # launch/train.py's default --lr
 
 
-def _attention_bwd_work(b, s, h, hkv, d, elem, window):
+def _attention_bwd_work(b, s, h, hkv, d, elem, window, d_v=None, causal=True):
     """FLOPs and bytes of B8 (the wrapper's function): the five products of
-    the backward (Q·Kᵀ recomputed, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K) over the band's
-    (query, key) pairs, 2.5 times B7's two; q, k, v, out and dO read once,
-    lse read, dq, dk and dv written once."""
-    flops, _ = _attention_work(b, s, h, hkv, d, elem, window)
-    nbytes = elem * (3 * b * s * h * d + 2 * b * s * hkv * d       # q, out, dO; k, v
-                     + b * s * h * d + 2 * b * s * hkv * d) + 4 * b * h * s
-    return 2.5 * flops, nbytes
+    the backward (Q·Kᵀ and dSᵀ·Q and dS·K at depth or width d, dO·Vᵀ and
+    Pᵀ·dO at d_v, default d) over the band's (query, key) pairs, 2·(3·d +
+    2·d_v) FLOPs a pair (2.5 times B7's at equal sizes); q, k, v, out and
+    dO read once, lse read, dq, dk and dv written once."""
+    d_v = d if d_v is None else d_v
+    flops = 2 * (3 * d + 2 * d_v) * _pairs(s, window, causal) * b * h
+    nbytes = elem * (b * s * h * (d + 2 * d_v) + b * s * hkv * (d + d_v)   # q, out, dO; k, v
+                     + b * s * h * d + b * s * hkv * (d + d_v)) + 4 * b * h * s
+    return flops, nbytes
 
 
-def _sdpa_bwd(q, k, v, do, window):
+def _sdpa_bwd(q, k, v, do, window, causal=True):
     """SDPA's backward alone (the yardstick; the port never calls SDPA): a
     function that runs autograd through one SDPA forward kept alive."""
     import torch
 
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    out = _sdpa(*leaves, window)
+    out = _sdpa(*leaves, window, causal)
     return lambda: torch.autograd.grad(out, leaves, do.transpose(1, 2), retain_graph=True)
 
 
@@ -3503,12 +3556,20 @@ def _agree_bwd(label, got, want, mags, dtype):
     return worst_err, worst_used
 
 
-def phase_b8_kernels():
-    """B8 against its plain version (and, in float32, against autograd
-    through B7's plain forward) at the train shape, recurrentgemma's windowed
-    MQA at head size 256, a ragged S at head size 64 and head size 32; a
-    repeat must be bit-identical.  The train shape is timed beside its bound,
-    the plain version and SDPA's backward."""
+def _route(dtype) -> str:
+    import torch
+
+    return "wgmma" if dtype == torch.bfloat16 else "fp32"
+
+
+def _b8_case(gen, label, b, s, h, hkv, d, dtype, *, d_v=None, window=None, causal=True,
+             timed=False, repeat=False, autograd=False, tag="kernel"):
+    """B8 on seeded inputs against its plain version per element
+    (``_agree_bwd``), its launch counted on its route; with ``repeat`` a
+    repeat must be bit-identical, with ``autograd`` (float32) it is also
+    held to autograd through B7's plain forward.  ``timed``: CUDA-events
+    times of the kernel, the plain version and SDPA's backward (where SDPA
+    takes the shapes) beside the bound, returned as a row (else None)."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -3518,6 +3579,69 @@ def phase_b8_kernels():
         flash_attention_bwd_ref,
         flash_attention_ref,
     )
+
+    d_v = d if d_v is None else d_v
+    q, k = (torch.randn((b, s, n, d), generator=gen, device="cuda").to(dtype) for n in (h, hkv))
+    v, do = (torch.randn((b, s, n, d_v), generator=gen, device="cuda").to(dtype)
+             for n in (hkv, h))
+    kw = dict(causal=causal, window=window)
+    out, lse = flash_attention(q, k, v, **kw)
+    route = _route(dtype)
+    before = (flash_attention_bwd.launches, flash_attention_bwd.route_launches[route])
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    check((flash_attention_bwd.launches, flash_attention_bwd.route_launches[route])
+          == (before[0] + 1, before[1] + 1), f"B8 {label}: launch count or route")
+    check([tuple(g.shape) for g in got] == [(b, s, h, d), (b, s, hkv, d), (b, s, hkv, d_v)],
+          f"B8 {label}: shapes {[tuple(g.shape) for g in got]}")
+    mags = flash_attention_bwd_magnitudes(q, k, v, out, lse, do, **kw)
+    err, used = _agree_bwd(label, got, flash_attention_bwd_ref(q, k, v, out, lse, do, **kw),
+                           mags, dtype)
+    msg = f"max|d| {err:.3e}, worst {used:.3f} of its per-element bar"
+    if autograd:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        ref_out, _ = flash_attention_ref(*leaves, **kw)
+        auto = torch.autograd.grad(ref_out, leaves, do)
+        err_a, used_a = _agree_bwd(label + " vs autograd", got, auto, mags, dtype)
+        msg += f"; vs autograd through B7's plain forward {err_a:.3e} ({used_a:.3f})"
+        del leaves, ref_out, auto
+    del mags
+    if repeat:
+        again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        check(all(torch.equal(a, g) for a, g in zip(again, got)),
+              f"B8 {label}: a repeat is not bit-identical")
+        msg += "; a repeat is bit-identical"
+        del again
+    say(tag, f"flash_attention_bwd {label} B={b} S={s} H={h}/{hkv} D={d}"
+        f"{'' if d_v == d else f', D_v={d_v}'} {str(dtype)[6:]} causal={causal} "
+        f"window={window} ({route}): {msg}, ok")
+    if not timed:
+        return None
+    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, **kw))
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, **kw))
+    try:
+        library_ms = cuda_ms(_sdpa_bwd(q, k, v, do, window, causal))
+        library = f"SDPA backward yardstick {library_ms:.4f} ms"
+    except RuntimeError as e:  # SDPA refuses the shapes: say so
+        library_ms, library = None, f"SDPA refused the shapes ({str(e)[:120]})"
+    flops, nbytes = _attention_bwd_work(b, s, h, hkv, d, q.element_size(), window, d_v, causal)
+    bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS if route == "wgmma"
+                                else PEAK_FP32_FLOPS)
+    say(tag, f"flash_attention_bwd {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"{library}, bound {bound_ms:.4f} ms ({bound_by}, {flops:.4g} FLOP, "
+        f"{nbytes / 1e6:.1f} MB)")
+    return dict(shape=label, b=b, s=s, h=h, hkv=hkv, d=d, d_v=d_v, window=window,
+                causal=causal, max_abs_err=err, bar_used=used, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_b8_kernels():
+    """B8 against its plain version (and, in float32, against autograd
+    through B7's plain forward) at the train shape, recurrentgemma's windowed
+    MQA at head size 256, a ragged S at head size 64 and head size 32; a
+    repeat must be bit-identical.  The train shape is timed beside its bound,
+    the plain version and SDPA's backward."""
+    import torch
 
     gen = torch.Generator(device="cuda").manual_seed(16)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -3533,47 +3657,10 @@ def phase_b8_kernels():
     _say_ptxas("flash_attention_bwd", ["flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
                                        "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"])
     for label, b, s, h, hkv, d, dtype, window, timed in cases:
-        q, k, v, do = (torch.randn((b, s, n, d), generator=gen, device="cuda").to(dtype)
-                       for n in (h, hkv, hkv, h))
-        out, lse = flash_attention(q, k, v, window=window)
-        route = "wgmma" if dtype == bf16 else "fp32"
-        before = (flash_attention_bwd.launches, flash_attention_bwd.route_launches[route])
-        got = flash_attention_bwd(q, k, v, out, lse, do, window=window)
-        torch.cuda.synchronize()
-        check((flash_attention_bwd.launches, flash_attention_bwd.route_launches[route])
-              == (before[0] + 1, before[1] + 1), f"B8 {label}: launch count or route")
-        want = flash_attention_bwd_ref(q, k, v, out, lse, do, window=window)
-        mags = flash_attention_bwd_magnitudes(q, k, v, out, lse, do, window=window)
-        err, used = _agree_bwd(label, got, want, mags, dtype)
-        msg = f"max|d| {err:.3e}, worst {used:.3f} of its per-element bar"
-        if dtype == f32:
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            ref_out, _ = flash_attention_ref(*leaves, window=window)
-            auto = torch.autograd.grad(ref_out, leaves, do)
-            err_a, used_a = _agree_bwd(label + " vs autograd", got, auto, mags, dtype)
-            msg += f"; vs autograd through B7's plain forward {err_a:.3e} ({used_a:.3f})"
-            del leaves, ref_out, auto
-        if label == "train":
-            again = flash_attention_bwd(q, k, v, out, lse, do, window=window)
-            check(all(torch.equal(a, g) for a, g in zip(again, got)),
-                  "B8 train: a repeat is not bit-identical")
-            msg += "; a repeat is bit-identical"
-        say("kernel", f"flash_attention_bwd {label} B={b} S={s} H={h}/{hkv} D={d} "
-            f"{str(dtype)[6:]} window={window} ({route}): {msg}, ok")
-        if timed:
-            ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, window=window))
-            plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do,
-                                                               window=window))
-            library_ms = cuda_ms(_sdpa_bwd(q, k, v, do, window))
-            flops, nbytes = _attention_bwd_work(b, s, h, hkv, d, q.element_size(), window)
-            bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
-            rows.append(dict(shape=label, b=b, s=s, h=h, hkv=hkv, d=d, window=window,
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by))
-            say("kernel", f"flash_attention_bwd {label}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, SDPA backward yardstick {library_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}, {flops:.3g} FLOP, {nbytes / 1e6:.1f} MB)")
-        del q, k, v, do, out, lse, got, want, mags
+        row = _b8_case(gen, label, b, s, h, hkv, d, dtype, window=window, timed=timed,
+                       repeat=label == "train", autograd=dtype == f32)
+        if row:
+            rows.append(row)
         torch.cuda.empty_cache()
     return rows
 
@@ -3582,51 +3669,9 @@ def phase_grad_agreement():
     """qwen3-1.7b at full width cut to 2 layers, float32, 1 x 512 tokens:
     ``bundle.loss`` and the gradient of every parameter leaf on the card (B7
     twice per layer with the remat, B8 once) against the same on the host
-    (their plain versions).  Bar per leaf: max|d| <= 1e-4·max|g host|
-    (float32 sums in other orders through two layers and a 151,936-way
-    softmax); the loss within 1e-5 of itself."""
-    import torch
-    from torch.utils import _pytree as pytree
-
-    from repro_torch.data import synthetic
-
-    cfg, bundle, params = _lm_params(QWEN3, torch.float32, seed=4, n_layers=2)
-    tokens = synthetic.lm_token_stream(cfg.vocab_size, 512, 1, seed=6)
-
-    def loss_and_grads(p):
-        leaves, spec = pytree.tree_flatten(p)
-        for t in leaves:
-            t.requires_grad_(True)
-        loss = bundle.loss(p, {"tokens": tokens})
-        grads = torch.autograd.grad(loss, leaves)
-        return float(loss.detach()), pytree.tree_unflatten([g.cpu() for g in grads], spec)
-
-    _lm_zero()
-    t0 = time.perf_counter()
-    loss_card, g_card = loss_and_grads(params)
-    t1 = time.perf_counter()
-    _lm_read(route="fp32", flash_attention=2 * cfg.n_layers, flash_attention_bwd=cfg.n_layers)
-    host = pytree.tree_map(lambda t: t.detach().cpu(), params)
-    del params
-    torch.cuda.empty_cache()
-    t2 = time.perf_counter()
-    loss_host, g_host = loss_and_grads(host)
-    t3 = time.perf_counter()
-    check(abs(loss_card - loss_host) <= 1e-5 * abs(loss_host),
-          f"2-layer loss: card {loss_card:.7f}, host {loss_host:.7f}")
-    worst = 0.0
-    for (path, gc), gh in zip(pytree.tree_flatten_with_path(g_card)[0],
-                              pytree.tree_leaves(g_host)):
-        scale = float(gh.abs().max())
-        err = float((gc - gh).abs().max())
-        name = pytree.keystr(path)
-        check(scale > 0 and bool(gc.isfinite().all()), f"gradient {name}: zero or not finite")
-        check(err <= 1e-4 * scale, f"gradient {name}: max|d| {err:.3e} > 1e-4 * {scale:.3e}")
-        worst = max(worst, err / scale)
-    say("agree", f"qwen3-1.7b at depth 2, 1 x 512 tokens, float32: loss card {loss_card:.6f}, "
-        f"host {loss_host:.6f}; {len(pytree.tree_leaves(g_host))} gradient leaves, worst "
-        f"max|d| / max|g| {worst:.2e} (bar 1e-4); card {(t1 - t0) * 1e3:.0f} ms, host "
-        f"{(t3 - t2) * 1e3:.0f} ms, ok")
+    (their plain versions), ``_grad_agree``'s bars (float32 sums in other
+    orders through two layers and a 151,936-way softmax)."""
+    _grad_agree(QWEN3, 4, {"n_layers": 2}, 512, tag="agree")
 
 
 def _check_grads(grads):
@@ -3642,28 +3687,28 @@ def _check_grads(grads):
         check(bool((per_layer > 0).all()), f"gradient {name} is zero in a layer")
 
 
-def phase_train(card):
-    """qwen3-1.7b at full width and depth, bf16, trained for ``TRAIN_STEPS``
+def _train_steps(name, card, b, s, changes=None, seed=0, tag="train"):
+    """``name`` (cut by ``changes``) in bf16, trained for ``TRAIN_STEPS``
     steps as ``launch/train.py`` runs it: AdamW under
     ``linear_warmup_cosine(3e-4, steps // 10 + 1, steps)``, weight decay
     0.01, float32 moments; ``make_train_step(microbatches=2,
-    clip_norm=1.0)`` with a float32 accumulator; batches of 4 x 2,048
-    tokens from ``lm_token_stream(seed=step)``.  Every step's global
-    gradient norm (the step's own, before the clip, read by wrapping
-    ``optim.global_norm`` for the phase) and loss must be finite, and the
-    gradients that reach the optimiser nonzero in every leaf and layer.
-    Returns the launch counts of the steps and the path's numbers."""
+    clip_norm=1.0)`` with a float32 accumulator, every layer rematerialised;
+    batches of ``b`` x ``s`` tokens from ``lm_token_stream(seed=step)``
+    (``_train_batch``).  Every step's global gradient norm (the step's own,
+    before the clip, read by wrapping ``optim.global_norm``) and loss must be
+    finite, the gradients that reach the optimiser nonzero in every leaf and
+    layer, step 0's loss within 1.0 of ln V and the loss on step 0's batch
+    lower after the steps; B7 twice and B8 once an attention layer and
+    microbatch, all on ``"wgmma"``.  Returns (cfg, bundle, params, state,
+    the step, the optimiser, the launch counts, the numbers)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from torch.utils import _pytree as pytree
 
     from repro_torch import optim
-    from repro_torch.data import synthetic
     from repro_torch.launch import steps as steps_mod
-    from repro_torch.models import common
 
-    cfg, bundle, params = _lm_params(QWEN3, torch.bfloat16, seed=0)
+    _free()
+    cfg, bundle, params = _lm_params(name, torch.bfloat16, seed=seed, **(changes or {}))
     opt = optim.adamw(optim.linear_warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10 + 1, TRAIN_STEPS),
                       weight_decay=0.01)
     norms, global_norm = [], optim.global_norm
@@ -3680,51 +3725,71 @@ def phase_train(card):
     step_fn = steps_mod.make_train_step(bundle, optim.Optimizer(opt.init, observed_update),
                                         microbatches=TRAIN_MICRO, clip_norm=1.0)
     state = opt.init(params)
-
-    def batch(step):
-        tokens = synthetic.lm_token_stream(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=step)
-        return {"tokens": torch.as_tensor(tokens, device="cuda")}
-
-    torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
     _lm_zero()
+    torch.cuda.reset_peak_memory_stats()  # the steps' peak, not the initialiser's
     optim.global_norm = recorded_norm  # the train step calls it through the module
     try:
         for step in range(TRAIN_STEPS):
-            b = batch(step)
+            batch = _train_batch(cfg, b, s, seed=step)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            params, state, loss = step_fn(params, state, b)
+            params, state, loss = step_fn(params, state, batch)
             losses.append(float(loss))
             times.append((time.perf_counter() - t0) * 1e3)
             check(np.isfinite(losses[-1]) and np.isfinite(norms[-1]),
-                  f"step {step}: loss {losses[-1]} or gradient norm {norms[-1]} not finite")
-            say("train", f"step {step}: loss {losses[-1]:.4f}, global gradient norm "
+                  f"{name} step {step}: loss {losses[-1]} or gradient norm {norms[-1]} not "
+                  "finite")
+            say(tag, f"{name} step {step}: loss {losses[-1]:.4f}, global gradient norm "
                 f"{norms[-1]:.4f} (before the clip to 1.0), {times[-1]:.0f} ms")
     finally:
         optim.global_norm = global_norm
-    n_mb = TRAIN_STEPS * TRAIN_MICRO
-    launches = _lm_read(flash_attention=2 * cfg.n_layers * n_mb,
-                        flash_attention_bwd=cfg.n_layers * n_mb)
+    n_attn, n_mb = _attn_layers(cfg), TRAIN_STEPS * TRAIN_MICRO
+    launches = _lm_read(flash_attention=2 * n_attn * n_mb, flash_attention_bwd=n_attn * n_mb)
     peak = torch.cuda.max_memory_allocated()
     check(abs(losses[0] - np.log(cfg.vocab_size)) <= 1.0,
-          f"step 0 loss {losses[0]:.4f} is not within 1.0 of ln V = {np.log(cfg.vocab_size):.4f}")
+          f"{name} step 0 loss {losses[0]:.4f} is not within 1.0 of ln V = "
+          f"{np.log(cfg.vocab_size):.4f}")
     with torch.no_grad():
-        after = float(bundle.loss(params, batch(0)))
-    check(after < losses[0], f"loss on step 0's batch {after:.4f} after {TRAIN_STEPS} steps is "
-          f"not below {losses[0]:.4f}")
+        after = float(bundle.loss(params, _train_batch(cfg, b, s, seed=0)))
+    check(after < losses[0], f"{name}: loss on step 0's batch {after:.4f} after {TRAIN_STEPS} "
+          f"steps is not below {losses[0]:.4f}")
     step_ms = statistics.median(times[1:])
-    tok_s = TRAIN_B * TRAIN_S / step_ms * 1e3
-    say("train", f"qwen3-1.7b full width, {cfg.n_layers} layers, bf16, {TRAIN_STEPS} steps of "
-        f"{TRAIN_B} x {TRAIN_S} tokens ({TRAIN_MICRO} microbatches): step {step_ms:.0f} ms "
+    positions = s + (cfg.n_patches if cfg.family == "vlm" else 0)
+    tok_s = b * positions / step_ms * 1e3
+    frames = f" after {cfg.encoder_seq} frames" if cfg.family == "encdec" else ""
+    say(tag, f"{name} full width, {cfg.n_layers} layers, bf16, {TRAIN_STEPS} steps of {b} x "
+        f"{positions} positions{frames} ({TRAIN_MICRO} microbatches): step {step_ms:.0f} ms "
         f"(median of steps 1-{TRAIN_STEPS - 1}; step 0 {times[0]:.0f} ms), {tok_s:.0f} "
-        f"tokens/s, peak device memory {peak / 2**30:.2f} GiB, on {card}; loss "
+        f"positions/s, peak device memory {peak / 2**30:.2f} GiB, on {card}; loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}, step 0's batch {after:.4f}; launches {launches}")
+    numbers = dict(n_layers=cfg.n_layers, b=b, positions=positions, step_ms=step_ms,
+                   tokens_per_s=tok_s, peak_gib=peak / 2**30, losses=losses, loss_after=after,
+                   grad_norms=norms, b7_per_step=2 * n_attn * TRAIN_MICRO,
+                   b8_per_step=n_attn * TRAIN_MICRO)
+    return cfg, bundle, params, state, step_fn, opt, launches, numbers
+
+
+def phase_train(card):
+    """qwen3-1.7b at full width and depth, bf16: ``TRAIN_STEPS`` steps of
+    ``_train_steps`` on 4 x 2,048 tokens, then one more step under the
+    profiler, and the cross-entropy and one optimiser update on CUDA
+    events.  Returns the launch counts of the steps and the path's
+    numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import optim
+    from repro_torch.models import common
+
+    cfg, _, params, state, step_fn, opt, launches, out = _train_steps(QWEN3, card, TRAIN_B,
+                                                                      TRAIN_S)
 
     # What the step is made of: one more step under the profiler, and the
     # cross-entropy (forward and backward, one microbatch) and one optimiser
     # update with CUDA events.
-    b = batch(TRAIN_STEPS)
+    b = _train_batch(cfg, TRAIN_B, TRAIN_S, seed=TRAIN_STEPS)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         params, state, _ = step_fn(params, state, b)
@@ -3765,11 +3830,10 @@ def phase_train(card):
         "(CUDA events)")
     del params, state, zero_grads, h
     torch.cuda.empty_cache()
-    return launches, dict(step_ms=step_ms, tokens_per_s=tok_s, peak_gib=peak / 2**30,
-                          losses=losses, loss_after=after, grad_norms=norms,
-                          profile_wall_ms=wall * 1e3, device_busy_ms=total / 1e3,
-                          shares_ms={g: t / 1e3 for g, t in shares.items()},
-                          xent_ms=xent_ms, optimizer_ms=opt_ms)
+    out.update(profile_wall_ms=wall * 1e3, device_busy_ms=total / 1e3,
+               shares_ms={g: t / 1e3 for g, t in shares.items()}, xent_ms=xent_ms,
+               optimizer_ms=opt_ms)
+    return launches, out
 
 
 def _per_launch(rows, shape):
@@ -3925,18 +3989,13 @@ def _check_creditcard_daef(cfg, x_train, x_test, y_test, model, scores):
 def phase_comparison() -> dict:
     """Phase 20: the wiring of "auto", the paper's Tables 2 and 3 on one
     fold, and ``launch/train.py`` at full width.  Returns the numbers."""
-    import contextlib
-    import io
-
     import numpy as np
     import torch
 
     from repro_torch.baselines import autoencoder
-    from repro_torch.configs import registry
     from repro_torch.core import anomaly, daef, stats_backend
     from repro_torch.kernels import autotune
     from repro_torch.kernels.rolann_stats import rolann_stats
-    from repro_torch.launch import train
 
     t_phase = time.perf_counter()
     committed = json.loads(autotune.DEFAULT_CACHE_PATH.read_text())["platforms"]
@@ -4016,32 +4075,50 @@ def phase_comparison() -> dict:
                f"{row['ae_host_apart']:.2e} of max|leaf| (bar 1e-4)" if "host" in row else "")
             + ("; graphed fit == eager fit, bit for bit" if "graph_is_eager" in row else ""))
 
-    # The training CLI at full width, in this process (its launches count
-    # here); the memory of earlier phases is released first.
+    out["train_cli"] = _train_cli(TRAIN_CLI, QWEN3, TRAIN_CLI_STEPS, TRAIN_CLI_MICRO,
+                                  "comparison")
+    say("comparison", f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _train_cli(argv, name, steps, micro, tag):
+    """``python -m repro_torch.launch.train`` with ``argv`` in this process
+    (its launches count here; the memory of earlier phases is released
+    first): its step lines and its last line in the reference's formats,
+    finite losses, B7 twice and B8 once an attention layer and microbatch,
+    all on ``"wgmma"``."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info()[0]
     _lm_zero()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        train.main(TRAIN_CLI)
+        train.main(argv)
     cli_s = time.perf_counter() - t0
     lines = buf.getvalue().strip().splitlines()
     for line in lines:
         say("train-cli", line)
-    n_layers = registry.get(QWEN3).n_layers
-    n_mb = TRAIN_CLI_STEPS * TRAIN_CLI_MICRO
-    launches = _lm_read(flash_attention=2 * n_layers * n_mb, flash_attention_bwd=n_layers * n_mb)
-    steps = [re.fullmatch(r"step +\d+  loss (\S+)  \(\d+\.\d+ s/step\)", ln) for ln in lines[:-1]]
-    check(len(lines) == 3 and all(steps) and all(np.isfinite(float(m.group(1))) for m in steps)
+    n_attn, n_mb = _attn_layers(registry.get(name)), steps * micro
+    launches = _lm_read(flash_attention=2 * n_attn * n_mb, flash_attention_bwd=n_attn * n_mb)
+    logged = [re.fullmatch(r"step +\d+  loss (\S+)  \(\d+\.\d+ s/step\)", ln)
+              for ln in lines[:-1]]
+    check(len(lines) == 3 and all(logged)
+          and all(np.isfinite(float(m.group(1))) for m in logged)
           and re.fullmatch(r"loss \S+ -> \S+ \((NOT )?improved\)", lines[-1]) is not None,
           f"train CLI printed {lines}")
-    out["train_cli"] = {"argv": TRAIN_CLI, "lines": lines, "wall_s": cli_s,
-                        "free_gib_before": free / 2**30, "launches": launches}
-    say("comparison", f"python -m repro_torch.launch.train {' '.join(TRAIN_CLI)}: {cli_s:.1f} s "
-        f"in process ({free / 2**30:.1f} GiB free before), launches {launches}")
-    say("comparison", f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
-    return out
+    say(tag, f"python -m repro_torch.launch.train {' '.join(argv)}: {cli_s:.1f} s in process "
+        f"({free / 2**30:.1f} GiB free before), launches {launches}")
+    return {"argv": argv, "lines": lines, "wall_s": cli_s, "free_gib_before": free / 2**30,
+            "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4305,69 +4382,79 @@ def _family_batch(cfg, b, s, seed, device="cuda"):
     return batch
 
 
+def _b7_case(gen, label, b, s, h, d, dtype, *, d_v=None, causal=True, timed=False,
+             tag="families"):
+    """B7 (q, k and v of ``h`` heads) on seeded inputs against its plain
+    version under phase 9's bars, its launch counted on its route, a repeat
+    bit-identical.  ``timed``: CUDA-events times of the kernel, the plain
+    version and SDPA (where SDPA takes the shapes) beside the bound,
+    returned as a row (else None)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    d_v = d if d_v is None else d_v
+    q, k = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    v = torch.randn((b, s, h, d_v), generator=gen, device="cuda").to(dtype)
+    route = _route(dtype)
+    before = flash_attention.route_launches[route]
+    out, lse = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    check(flash_attention.route_launches[route] == before + 1, f"B7 {label}: not on {route}")
+    check(tuple(out.shape) == (b, s, h, d_v) and out.dtype == dtype,
+          f"B7 {label}: out {tuple(out.shape)} {out.dtype}")
+    again, again_lse = flash_attention(q, k, v, causal=causal)
+    check(bool(torch.equal(again, out) and torch.equal(again_lse, lse)),
+          f"B7 {label}: repeat not bit-identical")
+    ref, ref_lse = flash_attention_ref(q, k, v, causal=causal)
+    if route == "wgmma":
+        err, used = _agree_each(f"B7 {label} out", out.float(), ref.float(),
+                                2.0**-7, 2.0**-7 * 1e-2)
+        bar = f"2^-7 |ref| + 2^-7 * 1e-2 per element, worst {used:.3f} of its bar"
+    else:
+        err, scale = _agree(f"B7 {label} out", out.float(), ref.float(), 1e-5, 1.0)
+        used = err / (1e-5 * scale)
+        bar = f"1e-5 * max(1, max|ref|), {used:.3f} of it"
+    err_lse, _ = _agree(f"B7 {label} lse", lse, ref_lse, 1e-5)
+    del ref, ref_lse, again, again_lse
+    say(tag, f"flash_attention ({d}, {d_v}) causal={causal} {label} B={b} S={s} H={h} "
+        f"{str(dtype)[6:]} ({route}): max|d| out {err:.3e} ({bar}), lse {err_lse:.3e}, "
+        "repeat bit-identical, ok")
+    if not timed:
+        return None
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal))
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal), reps=5, warmup=1)
+    try:
+        library_ms = cuda_ms(lambda: _sdpa(q, k, v, None, causal))
+        library = f"SDPA yardstick {library_ms:.4f} ms"
+    except RuntimeError as e:  # SDPA refuses the shapes: say so
+        library_ms, library = None, f"SDPA refused the shapes ({str(e)[:120]})"
+    flops, nbytes = _attention_work(b, s, h, h, d, q.element_size(), None, d_v, causal)
+    bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS if route == "wgmma"
+                                else PEAK_FP32_FLOPS)
+    say(tag, f"flash_attention ({d}, {d_v}) causal={causal} {label}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, {library}, bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{flops:.4g} FLOP, {nbytes / 1e6:.1f} MB)")
+    return dict(shape=label, b=b, s=s, h=h, d=d, d_v=d_v, causal=causal,
+                max_abs_err=max(err, err_lse), bar_used=used, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def _mla_kernel_checks():
     """(a): B7 at MLA's head sizes against its plain version, timed at
     deepseek-v2's prefill shape.  Returns the numbers of the timed bf16 row
     and of the float32 one."""
     import torch
 
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
-
     gen = torch.Generator(device="cuda").manual_seed(22)
-    bf16, f32 = torch.bfloat16, torch.float32
     rows = {}
-    for label, s, dtype, timed in (("deepseek-v2 prefill", MLA_S, bf16, True),
-                                   ("deepseek-v2 prefill float32", MLA_S, f32, True),
-                                   ("ragged S", 1_000, bf16, False),
-                                   ("ragged S float32", 1_000, f32, False)):
-        q, k = (torch.randn((1, s, MLA_HEADS, MLA_D), generator=gen, device="cuda").to(dtype)
-                for _ in range(2))
-        v = torch.randn((1, s, MLA_HEADS, MLA_DV), generator=gen, device="cuda").to(dtype)
-        route = "wgmma" if dtype == bf16 else "fp32"
-        before = flash_attention.route_launches[route]
-        out, lse = flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        check(flash_attention.route_launches[route] == before + 1, f"B7 {label}: not on {route}")
-        check(tuple(out.shape) == (1, s, MLA_HEADS, MLA_DV) and out.dtype == dtype,
-              f"B7 {label}: out {tuple(out.shape)} {out.dtype}")
-        again, again_lse = flash_attention(q, k, v)
-        check(bool(torch.equal(again, out) and torch.equal(again_lse, lse)),
-              f"B7 {label}: repeat not bit-identical")
-        ref, ref_lse = flash_attention_ref(q, k, v)
-        if dtype == bf16:
-            err, used = _agree_each(f"B7 {label} out", out.float(), ref.float(),
-                                    2.0**-7, 2.0**-7 * 1e-2)
-            bar = f"2^-7 |ref| + 2^-7 * 1e-2 per element, worst {used:.3f} of its bar"
-        else:
-            err, scale = _agree(f"B7 {label} out", out.float(), ref.float(), 1e-5, 1.0)
-            used = err / (1e-5 * scale)
-            bar = f"1e-5 * max(1, max|ref|), {used:.3f} of it"
-        err_lse, _ = _agree(f"B7 {label} lse", lse, ref_lse, 1e-5)
-        del ref, ref_lse, again, again_lse
-        say("families", f"flash_attention (192, 128) {label} B=1 S={s} H={MLA_HEADS} "
-            f"{str(dtype)[6:]} ({route}): max|d| out {err:.3e} ({bar}), lse {err_lse:.3e}, "
-            "repeat bit-identical, ok")
-        if not timed:
-            continue
-        ms = cuda_ms(lambda: flash_attention(q, k, v))
-        plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v), reps=5, warmup=1)
-        try:
-            library_ms = cuda_ms(lambda: _sdpa(q, k, v, None))
-            library = f"SDPA yardstick {library_ms:.4f} ms"
-        except RuntimeError as e:  # SDPA refuses the shapes: say so
-            library_ms, library = None, f"SDPA refused the shapes ({str(e)[:120]})"
-        flops, nbytes = _attention_work(1, s, MLA_HEADS, MLA_HEADS, MLA_D, q.element_size(),
-                                        None, MLA_DV)
-        peak = PEAK_BF16_FLOPS if dtype == bf16 else PEAK_FP32_FLOPS
-        bound_ms, bound_by = _bound(flops, nbytes, peak)
-        rows[route] = dict(shape=label, b=1, s=s, h=MLA_HEADS, d=MLA_D, d_v=MLA_DV,
-                           max_abs_err=max(err, err_lse), bar_used=used, ms=ms,
-                           plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
-        say("families", f"flash_attention (192, 128) {label}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, {library}, bound {bound_ms:.4f} ms ({bound_by}, "
-            f"{flops:.4g} FLOP, {nbytes / 1e6:.1f} MB)")
-        del q, k, v, out, lse
+    for label, s, dtype, timed in (("deepseek-v2 prefill", MLA_S, torch.bfloat16, True),
+                                   ("deepseek-v2 prefill float32", MLA_S, torch.float32, True),
+                                   ("ragged S", 1_000, torch.bfloat16, False),
+                                   ("ragged S float32", 1_000, torch.float32, False)):
+        row = _b7_case(gen, label, 1, s, MLA_HEADS, MLA_D, dtype, d_v=MLA_DV, timed=timed)
+        if row:
+            rows[_route(dtype)] = row
         torch.cuda.empty_cache()
     regs = {}
     for kernel in ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"):
@@ -4743,6 +4830,335 @@ def phase_families(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 23. the encoder-decoder and the training of the VLM, MoE and
+# encoder-decoder families: B7 and B8 without the causal mask, B8 at MLA's
+# (192, 128), whisper-tiny's encode, decode and serve CLI, gradients card
+# against host, bf16 train steps
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-tiny"
+ENC_B, ENC_S, ENC_H, ENC_D = 16, 1_500, 6, 64   # whisper-tiny's encoder attention
+ENC_TRAIN_B = 8                                  # its backward: a microbatch of (e)'s 16
+WHISPER_PREFILL = (16, 448)                      # 1,500 frames + 448 decoder tokens
+MLA_BWD_B, MLA_BWD_S = 2, 2_048
+# (e): (batch, text tokens, config changes) of each family's bf16 train steps;
+# qwen2-moe cut to the layers that fit with its AdamW moments (~16 bytes a
+# parameter), deepseek-v2 to its dense layer (one MoE layer adds 3.97e9)
+FAMILY_TRAIN = {WHISPER: (16, 448, {}), INTERNVL: (4, 1_792, {}),
+                QWEN2_MOE: (4, 2_048, {"n_layers": 4}), DSV2: (4, 2_048, {"n_layers": 1})}
+# (d): (config changes, text tokens) of each family's gradient check
+FAMILY_GRAD = {WHISPER: ({}, 64), INTERNVL: ({"n_layers": 2}, 256),
+               QWEN2_MOE: ({"n_layers": 2}, 256), DSV2: ({"n_layers": 2}, 256)}
+WHISPER_TRAIN_CLI = ["--arch", WHISPER, "--steps", "3", "--batch", "4", "--seq", "448",
+                     "--microbatches", "2", "--dtype", "bfloat16"]
+
+
+def _attn_layers(cfg) -> int:
+    """Attention layers of a model: B7 launches of a forward, B8 of a backward."""
+    return cfg.n_layers + (cfg.n_encoder_layers if cfg.family == "encdec" else 0)
+
+
+def _encoder_fwd_checks():
+    """(a): B7 with ``causal=False`` against its plain version at whisper's
+    encoder shape and a ragged S, both routes, each repeat bit-identical;
+    the encoder shape timed beside its bound and SDPA."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = {}
+    for label, b, s, dtype, timed in (("encoder", ENC_B, ENC_S, torch.bfloat16, True),
+                                      ("encoder float32", ENC_B, ENC_S, torch.float32, True),
+                                      ("ragged S", 2, 1_000, torch.bfloat16, False),
+                                      ("ragged S float32", 2, 1_000, torch.float32, False)):
+        row = _b7_case(gen, label, b, s, ENC_H, ENC_D, dtype, causal=False, timed=timed,
+                       tag="encdec")
+        if row:
+            rows[_route(dtype)] = row
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _new_bwd_checks():
+    """(b): B8 with ``causal=False`` at whisper's encoder training shape
+    (``ENC_TRAIN_B`` x 1,500) and B8 at
+    MLA's (192, 128) (128 heads, causal, 2 x 2,048 and a ragged S = 1,000),
+    both routes, against the plain version per element, each repeat
+    bit-identical; the path shapes timed beside their bounds and SDPA's
+    backward; ptxas's registers and spills of the (192, 128)
+    instantiations."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(231)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {"encoder": {}, "mla": {}}
+    cases = [
+        ("encoder", "encoder", ENC_TRAIN_B, ENC_S, ENC_H, ENC_D, ENC_D, False, bf16, True),
+        ("encoder", "encoder float32", ENC_TRAIN_B, ENC_S, ENC_H, ENC_D, ENC_D, False, f32,
+         True),
+        ("mla", "MLA train", MLA_BWD_B, MLA_BWD_S, MLA_HEADS, MLA_D, MLA_DV, True, bf16, True),
+        ("mla", "MLA train float32", MLA_BWD_B, MLA_BWD_S, MLA_HEADS, MLA_D, MLA_DV, True, f32,
+         True),
+        ("mla", "MLA ragged S", 1, 1_000, MLA_HEADS, MLA_D, MLA_DV, True, bf16, False),
+        ("mla", "MLA ragged S float32", 1, 1_000, MLA_HEADS, MLA_D, MLA_DV, True, f32, False),
+    ]
+    for group, label, b, s, h, d, d_v, causal, dtype, timed in cases:
+        row = _b8_case(gen, label, b, s, h, h, d, dtype, d_v=d_v, causal=causal, timed=timed,
+                       repeat=True, tag="encdec")
+        if row:
+            rows[group][_route(dtype)] = row
+        torch.cuda.empty_cache()
+    regs = {}
+    for kernel, args in (("flash_bwd_dq_wgmma_kernel", "192,128"),
+                         ("flash_bwd_dkv_wgmma_kernel", "192,128,1,0"),
+                         ("flash_bwd_dkv_wgmma_kernel", "192,128,0,1"),
+                         ("flash_bwd_dq_kernel", "192,128"), ("flash_bwd_dkv_kernel", "192,128")):
+        got = _ptxas("flash_attention_bwd", kernel).get(args)
+        check(got is not None, f"no ptxas line for {kernel}<{args}>")
+        regs[f"{kernel}<{args}>"] = dict(registers=got[0], spill_stores=got[1],
+                                         spill_loads=got[2])
+        say("encdec", f"ptxas {kernel}<{args}>: {got[0]} registers, spill stores {got[1]} B, "
+            f"spill loads {got[2]} B")
+    rows["mla"]["ptxas"] = regs
+    return rows
+
+
+def _frames(cfg, b, seed, dtype, device="cuda"):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                       device=device).to(dtype)
+
+
+def _whisper_checks(card) -> dict:
+    """(c): whisper-tiny at full width and depth: the encoder states and the
+    prefill's logits card against host (float32, 1e-4 of max), 2 x 64
+    tokens teacher-forced through ``bundle.decode`` against the prefill at
+    the reference's bar, and a bf16 prefill of 16 x (1,500 frames + 448
+    tokens) after a warm-up."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.data import synthetic
+    from repro_torch.models import encdec
+
+    out = {}
+    cfg, bundle, params = _lm_params(WHISPER, torch.float32, seed=61)
+    frames = _frames(cfg, DECODE_B, 62, torch.float32)
+    tokens = torch.as_tensor(synthetic.lm_token_stream(cfg.vocab_size, DECODE_S, DECODE_B,
+                                                       seed=63), device="cuda")
+    _lm_zero()
+    with torch.inference_mode():
+        enc = encdec.encode(params, cfg, frames)
+    pf = bundle.prefill(params, {"tokens": tokens, "frames": frames})
+    torch.cuda.synchronize()
+    _lm_read(route="fp32", flash_attention=cfg.n_encoder_layers + _attn_layers(cfg))
+    host = pytree.tree_map(lambda t: t.cpu(), params)
+    with torch.inference_mode():
+        enc_host = encdec.encode(host, cfg, frames.cpu())
+    pf_host = bundle.prefill(host, {"tokens": tokens.cpu(), "frames": frames.cpu()})
+    del host
+    err_enc, scale_enc = _agree("whisper encoder states card vs host", enc.cpu(), enc_host, 1e-4)
+    err_pf, scale_pf = _agree("whisper prefill logits card vs host", pf.cpu(), pf_host, 1e-4)
+    out["card_vs_host"] = dict(enc_max_abs_err=err_enc, enc_max_abs=scale_enc,
+                               logits_max_abs_err=err_pf, logits_max_abs=scale_pf)
+    say("encdec", f"{WHISPER} float32 B={DECODE_B} x ({cfg.encoder_seq} frames + {DECODE_S} "
+        f"tokens): encoder states card vs host max|d| {err_enc:.3e} (max {scale_enc:.3e}, "
+        f"{err_enc / (1e-4 * scale_enc):.4f} of the bar 1e-4), prefill logits {err_pf:.3e} (max "
+        f"{scale_pf:.3e}, {err_pf / (1e-4 * scale_pf):.4f} of it), ok")
+
+    _lm_zero()
+    with torch.inference_mode():
+        cache = encdec.init_cache(params, cfg, enc, DECODE_S, torch.float32)
+    logits = None
+    for t in range(DECODE_S):
+        logits, cache = bundle.decode(params, cache, tokens[:, t:t + 1], t)
+    torch.cuda.synchronize()
+    _lm_read(route="fp32")
+    got, ref = logits[:, 0].double(), pf[:, 0].double()
+    d = (got - ref).abs()
+    share = float((d / (DECODE_ATOL + DECODE_RTOL * ref.abs())).max())
+    check(bool(got.isfinite().all()) and share <= 1.0,
+          f"{WHISPER}: decode's last logits {float(d.max()):.3e} from the prefill's, {share:.3f} "
+          "of the bar")
+    out["vs_prefill"] = dict(max_abs_err=float(d.max()), max_abs_logits=float(ref.abs().max()),
+                             bar_used=share)
+    say("encdec", f"{WHISPER}: {DECODE_B} x {DECODE_S} tokens teacher-forced through decode vs "
+        f"the prefill: max|d| {float(d.max()):.3e}, {share:.4f} of the bar (atol {DECODE_ATOL} "
+        f"+ rtol {DECODE_RTOL}); decode launches none, ok")
+    del params, cache, enc
+    _free()
+
+    cfg, bundle, params = _lm_params(WHISPER, torch.bfloat16, seed=64)
+    b, s = WHISPER_PREFILL
+    batch = {"tokens": torch.as_tensor(synthetic.lm_token_stream(cfg.vocab_size, s, b, seed=65),
+                                       device="cuda"),
+             "frames": _frames(cfg, b, 66, torch.bfloat16)}
+    bundle.prefill(params, batch)
+    torch.cuda.synchronize()
+    _lm_zero()
+    t0 = time.perf_counter()
+    logits = bundle.prefill(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _lm_read(flash_attention=_attn_layers(cfg))
+    check(tuple(logits.shape) == (b, 1, cfg.vocab_size) and bool(logits.isfinite().all()),
+          f"{WHISPER} bf16 prefill logits: shape {tuple(logits.shape)} or not finite")
+    out["prefill"] = dict(ms=ms, b=b, frames=cfg.encoder_seq, tokens=s,
+                          tokens_per_s=b * s / ms * 1e3,
+                          frames_per_s=b * cfg.encoder_seq / ms * 1e3, launches=launches)
+    say("encdec", f"{WHISPER} bf16 prefill B={b} x ({cfg.encoder_seq} frames + {s} tokens): "
+        f"{ms:.1f} ms ({b * s / ms * 1e3:.0f} decoder tokens/s, "
+        f"{b * cfg.encoder_seq / ms * 1e3:.0f} frames/s), B7 {launches['flash_attention']} "
+        f"launches (all wgmma), logits finite, on {card}")
+    del params, batch
+    _free()
+    return out
+
+
+def _family_grad_batch(cfg, s, seed):
+    """A gradient check's batch: 1 x ``s`` tokens (the encoder-decoder's
+    after 1,500 float32 frames, the VLM's after its patches)."""
+    if cfg.family == "encdec":
+        import torch
+
+        from repro_torch.data import synthetic
+
+        tokens = synthetic.lm_token_stream(cfg.vocab_size, s, 1, seed=seed)
+        return {"tokens": torch.as_tensor(tokens, device="cuda"),
+                "frames": _frames(cfg, 1, seed, torch.float32)}
+    return _family_batch(cfg, 1, s, seed)
+
+
+def _loss_and_grads(bundle, params, batch):
+    """(loss, gradients as a tree on the host, the forward's route log)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    leaves, spec = pytree.tree_flatten(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    with _RouteLog() as log:
+        loss = bundle.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), pytree.tree_unflatten([g.cpu() for g in grads], spec), log
+
+
+def _grad_agree(name, seed, changes, s, tag="encdec"):
+    """``bundle.loss`` and every gradient leaf of ``name`` cut by
+    ``changes``, float32, 1 x ``s`` tokens, card (B7 twice an attention
+    layer with the remat, B8 once, FP32 route) against host: MoE dispatch
+    compared first (a near tie reruns with the next seed), the loss within
+    1e-5 of itself, each leaf within 1e-4 of its largest entry."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    cfg, bundle, params = _lm_params(name, torch.float32, seed=seed, **changes)
+    for attempt in range(3):
+        batch = _family_grad_batch(cfg, s, seed + attempt)
+        _lm_zero()
+        t0 = time.perf_counter()
+        loss_card, g_card, log_card = _loss_and_grads(bundle, params, batch)
+        card_s = time.perf_counter() - t0
+        n_attn = _attn_layers(cfg)
+        launches = _lm_read(route="fp32", flash_attention=2 * n_attn,
+                            flash_attention_bwd=n_attn)
+        host = pytree.tree_map(lambda t: t.detach().cpu(), params)
+        t0 = time.perf_counter()
+        loss_host, g_host, log_host = _loss_and_grads(
+            bundle, host, {k: v.cpu() for k, v in batch.items()})
+        host_s = time.perf_counter() - t0
+        del host
+        tie = (_dispatch_agree(cfg.name, log_card.calls, log_host.calls, cfg.top_k)
+               if cfg.family == "moe" else None)
+        if tie is None:
+            break
+        say(tag, f"{cfg.name} gradients, seed {seed + attempt}: {tie}; rerun with the next "
+            "seed")
+        del g_card, g_host
+    else:
+        check(False, f"{cfg.name}: near ties in three seeds running")
+    check(abs(loss_card - loss_host) <= 1e-5 * abs(loss_host),
+          f"{cfg.name} loss: card {loss_card:.7f}, host {loss_host:.7f}")
+    worst = 0.0
+    for (path, gc), gh in zip(pytree.tree_flatten_with_path(g_card)[0],
+                              pytree.tree_leaves(g_host)):
+        scale = float(gh.abs().max())
+        err = float((gc - gh).abs().max())
+        leaf = pytree.keystr(path)
+        check(scale > 0 and bool(gc.isfinite().all()), f"{cfg.name} gradient {leaf}: zero or "
+              "not finite")
+        check(err <= 1e-4 * scale, f"{cfg.name} gradient {leaf}: max|d| {err:.3e} > 1e-4 * "
+              f"{scale:.3e}")
+        worst = max(worst, err / scale)
+    routed = len(log_card.calls)
+    enc = f" + {cfg.n_encoder_layers} encoder" if cfg.family == "encdec" else ""
+    say(tag, f"{cfg.name} ({cfg.n_layers} layers{enc}), float32, 1 x {s} tokens: loss card "
+        f"{loss_card:.6f}, host {loss_host:.6f}; "
+        f"{len(pytree.tree_leaves(g_host))} gradient leaves, worst max|d| / max|g| {worst:.2e} "
+        f"(bar 1e-4); dispatch of {routed} MoE layers equal; launches {launches}; card "
+        f"{card_s * 1e3:.0f} ms, host {host_s:.1f} s, ok")
+    del params, g_card, g_host
+    _free()
+    return dict(loss_card=loss_card, loss_host=loss_host, worst_leaf_ratio=worst,
+                moe_layers_routed=routed, launches=launches, seed=seed + attempt)
+
+
+def _train_batch(cfg, b, s, seed):
+    """(e)'s batch: seeded tokens [b, s], the VLM's float32 patches, the
+    encoder-decoder's frames in bf16 (the parameters' dtype)."""
+    import torch
+
+    if cfg.family == "encdec":
+        from repro_torch.data import synthetic
+
+        tokens = synthetic.lm_token_stream(cfg.vocab_size, s, b, seed=seed)
+        return {"tokens": torch.as_tensor(tokens, device="cuda"),
+                "frames": _frames(cfg, b, seed, torch.bfloat16)}
+    return _family_batch(cfg, b, s, seed)
+
+
+def _family_train(name, card):
+    """(e): ``_train_steps`` of ``name`` at its FAMILY_TRAIN shape and cut;
+    the model is freed after.  Returns the launch counts and the numbers."""
+    b, s, changes = FAMILY_TRAIN[name]
+    *_, launches, numbers = _train_steps(name, card, b, s, changes, seed=70, tag="encdec")
+    _free()
+    return launches, numbers
+
+
+def phase_encdec_training(card) -> dict:
+    """Phase 23 (see the module docstring).  Returns the phase's numbers."""
+    t_phase = time.perf_counter()
+    _free()
+    lines = _finish_cli_runs(_start_cli_runs([["--arch", WHISPER]]))[f"--arch {WHISPER}"]
+    m = re.fullmatch(r"prefill (\S+)s; decode (\S+) ms/token", lines[2]) \
+        if len(lines) == 4 else None
+    check(m is not None, f"serve CLI --arch {WHISPER}: printed {lines}")
+    out = {"cli": dict(lines=lines, prefill_s=float(m.group(1)),
+                       decode_ms_per_token=float(m.group(2)))}
+    say("encdec", f"serve CLI --arch {WHISPER} (float32, B=4): decode {m.group(2)} ms/token")
+    out["b7_causal_false"] = _encoder_fwd_checks()
+    out["b8"] = _new_bwd_checks()
+    t_kernels = time.perf_counter()
+    out[WHISPER] = _whisper_checks(card)
+    t_whisper = time.perf_counter()
+    out["gradients"] = {name: _grad_agree(name, seed, *FAMILY_GRAD[name]) for name, seed in
+                        ((WHISPER, 71), (INTERNVL, 72), (QWEN2_MOE, 73), (DSV2, 74))}
+    t_grad = time.perf_counter()
+    launches, out["train"] = {}, {}
+    for name in FAMILY_TRAIN:
+        launches[name], out["train"][name] = _family_train(name, card)
+    out["train_cli"] = _train_cli(WHISPER_TRAIN_CLI, WHISPER, 3, 2, "encdec")
+    out["launches"] = launches
+    say("encdec", f"the CLI, (a) and (b) took {t_kernels - t_phase:.1f} s, (c) "
+        f"{t_whisper - t_kernels:.1f} s, (d) {t_grad - t_whisper:.1f} s, (e) "
+        f"{time.perf_counter() - t_grad:.1f} s; phase 23 took "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4790,6 +5206,7 @@ def main() -> int:
         comparison_numbers = phase_comparison()
         decode_numbers = phase_decode(card)
         family_numbers = phase_families(card)
+        encdec_numbers = phase_encdec_training(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4921,6 +5338,13 @@ def main() -> int:
             # (1 x 4,096, 128 heads): one launch a layer of its bf16 prefill.
             "mla_192_128": {"launches": family_numbers["launches"][DSV2]["flash_attention"],
                             **family_numbers["b7_192_128"]},
+            # causal=False at whisper-tiny's encoder shape (16 x 1,500, 6 heads of
+            # 64); whisper_launches: one bf16 whisper prefill, all of its launches
+            # (4 encoder layers without the causal mask, 4 causal decoder layers).
+            "encoder_causal_false": {
+                "whisper_launches":
+                    encdec_numbers[WHISPER]["prefill"]["launches"]["flash_attention"],
+                **encdec_numbers["b7_causal_false"]},
         },
         {
             "name": "flash_attention_bwd",
@@ -4930,6 +5354,19 @@ def main() -> int:
             "launches": train_launches["flash_attention_bwd"],
             # Per launch at the train shape (2 x 2,048, 16/8 heads of 128, bf16).
             **_per_launch(b8_rows, "train"),
+            # MLA's (192, 128), 2 x 2,048, 128 heads, causal; launches: deepseek-v2's
+            # 10 bf16 train steps at its dense layer.
+            "mla_192_128": {"launches": encdec_numbers["launches"][DSV2]["flash_attention_bwd"],
+                            **encdec_numbers["b8"]["mla"]},
+            # causal=False at whisper-tiny's encoder training shape (a microbatch,
+            # 8 x 1,500); whisper_launches: all of whisper-tiny's 10 bf16 train
+            # steps (4 encoder layers without the causal mask and 4 causal decoder
+            # layers, 2 microbatches).
+            "encoder_causal_false": {
+                "whisper_launches": encdec_numbers["launches"][WHISPER]["flash_attention_bwd"],
+                **encdec_numbers["b8"]["encoder"]},
+            "launches_per_train_step": {name: row["b8_per_step"]
+                                        for name, row in encdec_numbers["train"].items()},
         },
         {
             "name": "rglru_scan",
@@ -4950,6 +5387,7 @@ def main() -> int:
             **_per_launch(lm_rows["ssd_chunk"], "mamba2 prefill"),
         },
     ]
+    print(json.dumps({"encdec_training": encdec_numbers}))
     print(json.dumps({"families": family_numbers}))
     print(json.dumps({"decode": decode_numbers}))
     print(json.dumps({"comparison": comparison_numbers}))

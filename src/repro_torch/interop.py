@@ -24,7 +24,9 @@ tensor of the same shape and dtype.  Weights keep the reference's ``[in,
 out]`` orientation (the port computes ``x @ w`` as the reference does);
 layer stacks keep their leading axis (``layers`` [L, ...] of the dense, VLM
 and SSM families, the MoE family's ``dense_layers`` [first_dense_layers,
-...] and ``moe_layers`` [L - first_dense_layers, ...], ``periods``
+...] and ``moe_layers`` [L - first_dense_layers, ...], the
+encoder-decoder's ``enc_layers`` [n_encoder_layers, ...] and ``dec_layers``
+[L, ...], ``periods``
 [n_periods, ...] of the hybrid, whose remainder blocks stay the list
 ``tail``); the VLM's ``projector`` crosses as it is.
 
@@ -36,7 +38,8 @@ layer's knowledge, the errors (:func:`exchange_state_from_numpy`,
 
 An LM decode cache crosses as the leaves of ``jax.tree.flatten(cache)`` of
 the reference's ``KVCache``, ``MoECaches`` (of ``KVCache`` or ``MLACache``
-stacks), ``Mamba2Cache`` or ``RGCache`` as numpy arrays (an ``RGCache``
+stacks), ``Mamba2Cache``, ``RGCache`` or ``EncDecCache`` (the self K and V,
+then the cross pair) as numpy arrays (an ``RGCache``
 flattens its period dicts in sorted key order, then the tail's states one
 by one; a ``None`` field, ``MoECaches.dense`` of a model without dense
 layers, has no leaves, as ``jax.tree.flatten`` skips it):
@@ -182,9 +185,11 @@ def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None) -> dict:
         ValueError: a layer stack's leading axis does not match ``cfg``.
     """
     params = _tree_to_torch(tree, resolve_device(device))
-    if cfg.family == "moe":
-        n_dense = cfg.first_dense_layers
-        for key, n in (("moe_layers", cfg.n_layers - n_dense), ("dense_layers", n_dense)):
+    stacked = {"moe": (("moe_layers", cfg.n_layers - cfg.first_dense_layers),
+                       ("dense_layers", cfg.first_dense_layers)),
+               "encdec": (("enc_layers", cfg.n_encoder_layers), ("dec_layers", cfg.n_layers))}
+    if cfg.family in stacked:
+        for key, n in stacked[cfg.family]:
             stacks = _leading(params[key]) if key in params else {0}
             if stacks != {n}:
                 raise ValueError(f"{cfg.name}: {key} stacks of {sorted(stacks)}, expected {n}")
@@ -229,8 +234,7 @@ def _cache_fill(template, leaves):
 
 
 def _cache_template(cfg: ArchConfig, batch: int = 1, seq_len: int = 1):
-    """``cfg``'s cache tree as meta tensors (``get_bundle`` raises for a
-    family not ported yet)."""
+    """``cfg``'s cache tree as meta tensors."""
     return api.cache_specs(api.get_bundle(cfg), batch, seq_len, torch.float32)
 
 

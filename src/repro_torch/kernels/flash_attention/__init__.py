@@ -1,6 +1,6 @@
-"""Causal, optionally windowed, flash attention: the forward (B7) and the
-backward (B8) as CUDA kernels, their wrappers and plain versions, and the
-autograd Function over both."""
+"""Causal (or full), optionally windowed, flash attention: the forward (B7)
+and the backward (B8) as CUDA kernels, their wrappers and plain versions,
+and the autograd Function over both."""
 from repro_torch.kernels.flash_attention.ops import (
     FlashAttention,
     flash_attention,

@@ -38,8 +38,12 @@
 //   registers.  The group sum is therefore a sequential float32 sum in one
 //   thread: no float atomics, and a repeat is bit-identical.
 //
+// Head sizes.  q and k (and dq, dk) are D wide, v and dO (and dv) DV wide:
+// DV = D but for MLA's training, (D, DV) = (192, 128).  Q·Kᵀ runs over D
+// and dO·Vᵀ over DV, both in one loop along the first DV columns.
+//
 // Tiles are staged in shared memory as float32 with rows padded to D + 1
-// floats (a warp's lanes read distinct banks both along and across rows);
+// (DV + 1) floats (a warp's lanes read distinct banks both along and across rows);
 // at D = 256 a block uses more than 48 KB, so each kernel's dynamic shared
 // memory limit is raised before its launch.  Rows and keys past S (a ragged
 // S, which the Pallas kernels refuse) load as zeros and are masked.
@@ -63,26 +67,29 @@ constexpr int kCG = 8;                  // lanes sharing an output row
 constexpr int kRG = kThreads / kCG;     // row groups
 constexpr int kCols = kBT / kCG;        // inner-tile columns per thread
 
-template <int D>
+template <int D, int DV>
 struct DqTile {
   static constexpr int kRows = D > 128 ? 2 : 4;  // query rows per thread
   static constexpr int kBQ = kRG * kRows;        // query rows per block
   static constexpr int kDCols = D / kCG;         // output columns per thread
-  static constexpr int kLd = D + 1;
+  static constexpr int kLd = D + 1;              // Q and K rows
+  static constexpr int kLdV = DV + 1;            // dO and V rows
   static constexpr int kLdS = kBT + 1;
   static constexpr int kSmemBytes =
-      4 * (2 * kBQ * kLd + 2 * kBT * kLd + kBQ * kLdS + 2 * kBQ);
+      4 * (kBQ * (kLd + kLdV) + kBT * (kLd + kLdV) + kBQ * kLdS + 2 * kBQ);
 };
 
-template <int D>
+template <int D, int DV>
 struct DkvTile {
   static constexpr int kRows = D > 128 ? 1 : (D > 64 ? 2 : 4);  // key rows per thread
   static constexpr int kBK = kRG * kRows;                       // key rows per block
-  static constexpr int kDCols = D / kCG;
-  static constexpr int kLd = D + 1;
+  static constexpr int kDCols = D / kCG;                        // dk columns per thread
+  static constexpr int kDColsV = DV / kCG;                      // dv columns per thread
+  static constexpr int kLd = D + 1;                             // K and Q rows
+  static constexpr int kLdV = DV + 1;                           // V and dO rows
   static constexpr int kLdS = kBT + 1;
   static constexpr int kSmemBytes =
-      4 * (2 * kBK * kLd + 2 * kBT * kLd + 2 * kBK * kLdS + 2 * kBT);
+      4 * (kBK * (kLd + kLdV) + kBT * (kLd + kLdV) + 2 * kBK * kLdS + 2 * kBT);
 };
 
 struct Args {
@@ -91,20 +98,20 @@ struct Args {
   float scale;
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dO,
                     const float* __restrict__ lse, const float* __restrict__ dvec,
                     float* __restrict__ dq, Args a) {
-  using L = DqTile<D>;
+  using L = DqTile<D, DV>;
   constexpr int R = L::kRows;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + L::kBQ * L::kLd;
-  float* Ks = dOs + L::kBQ * L::kLd;
+  float* Ks = dOs + L::kBQ * L::kLdV;
   float* Vs = Ks + kBT * L::kLd;
-  float* dSs = Vs + kBT * L::kLd;
+  float* dSs = Vs + kBT * L::kLdV;
   float* lse_s = dSs + L::kBQ * L::kLdS;
   float* dvec_s = lse_s + L::kBQ;
 
@@ -116,15 +123,18 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + b * a.qsb + h * a.qsh;
   const float* kb = k + b * a.ksb + hk * a.ksh;
   const float* vb = v + b * a.vsb + hk * a.vsh;
-  const long long hd = static_cast<long long>(H) * D;   // dO's sequence stride
-  const float* ob = dO + static_cast<long long>(b) * S * hd + static_cast<long long>(h) * D;
+  const long long hd = static_cast<long long>(H) * D;    // dq's sequence stride
+  const long long hdv = static_cast<long long>(H) * DV;  // dO's sequence stride
+  const float* ob = dO + static_cast<long long>(b) * S * hdv + static_cast<long long>(h) * DV;
   const long long row0 = (static_cast<long long>(b) * H + h) * S;
 
   for (int e = tid; e < L::kBQ * D; e += kThreads) {
     const int r = e / D, d = e % D, s = q0 + r;
-    const bool in = s < S;
-    Qs[r * L::kLd + d] = in ? qb[s * a.qss + d] : 0.f;
-    dOs[r * L::kLd + d] = in ? ob[s * hd + d] : 0.f;
+    Qs[r * L::kLd + d] = s < S ? qb[s * a.qss + d] : 0.f;
+  }
+  for (int e = tid; e < L::kBQ * DV; e += kThreads) {
+    const int r = e / DV, d = e % DV, s = q0 + r;
+    dOs[r * L::kLdV + d] = s < S ? ob[s * hdv + d] : 0.f;
   }
   for (int r = tid; r < L::kBQ; r += kThreads) {
     const int s = q0 + r;
@@ -144,29 +154,33 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // Q, dO staged; the previous tile's K, V and dS are read
     for (int e = tid; e < kBT * D; e += kThreads) {
       const int c = e / D, d = e % D, s = k0 + c;
-      const bool in = s < S;
-      Ks[c * L::kLd + d] = in ? kb[s * a.kss + d] : 0.f;
-      Vs[c * L::kLd + d] = in ? vb[s * a.vss + d] : 0.f;
+      Ks[c * L::kLd + d] = s < S ? kb[s * a.kss + d] : 0.f;
+    }
+    for (int e = tid; e < kBT * DV; e += kThreads) {
+      const int c = e / DV, d = e % DV, s = k0 + c;
+      Vs[c * L::kLdV + d] = s < S ? vb[s * a.vss + d] : 0.f;
     }
     __syncthreads();
 
+    // s = Q·Kᵀ over D and dp = dO·Vᵀ over DV (DV <= D): both along the
+    // first DV columns, then Q·Kᵀ alone.
     float sc[R][kCols], dp[R][kCols];
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < kCols; ++j) sc[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DV; ++d) {
       float qv[R], ov[R], kv[kCols], vv[kCols];
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         qv[i] = Qs[(rg + kRG * i) * L::kLd + d];
-        ov[i] = dOs[(rg + kRG * i) * L::kLd + d];
+        ov[i] = dOs[(rg + kRG * i) * L::kLdV + d];
       }
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         kv[j] = Ks[(cg + kCG * j) * L::kLd + d];
-        vv[j] = Vs[(cg + kCG * j) * L::kLd + d];
+        vv[j] = Vs[(cg + kCG * j) * L::kLdV + d];
       }
 #pragma unroll
       for (int i = 0; i < R; ++i)
@@ -175,6 +189,18 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
           dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
         }
+    }
+#pragma unroll 4
+    for (int d = DV; d < D; ++d) {
+      float qv[R], kv[kCols];
+#pragma unroll
+      for (int i = 0; i < R; ++i) qv[i] = Qs[(rg + kRG * i) * L::kLd + d];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) kv[j] = Ks[(cg + kCG * j) * L::kLd + d];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
     }
 
 #pragma unroll
@@ -216,20 +242,20 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dO,
                      const float* __restrict__ lse, const float* __restrict__ dvec,
                      float* __restrict__ dk, float* __restrict__ dv, Args a) {
-  using L = DkvTile<D>;
+  using L = DkvTile<D, DV>;
   constexpr int R = L::kRows;
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + L::kBK * L::kLd;
-  float* Qs = Vs + L::kBK * L::kLd;
+  float* Qs = Vs + L::kBK * L::kLdV;
   float* dOs = Qs + kBT * L::kLd;
-  float* Ps = dOs + kBT * L::kLd;
+  float* Ps = dOs + kBT * L::kLdV;
   float* dSs = Ps + L::kBK * L::kLdS;
   float* lse_s = dSs + L::kBK * L::kLdS;
   float* dvec_s = lse_s + kBT;
@@ -240,20 +266,25 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int hk = blockIdx.y, b = blockIdx.z;
   const float* kb = k + b * a.ksb + hk * a.ksh;
   const float* vb = v + b * a.vsb + hk * a.vsh;
-  const long long hd = static_cast<long long>(H) * D;
+  const long long hdv = static_cast<long long>(H) * DV;  // dO's sequence stride
 
   for (int e = tid; e < L::kBK * D; e += kThreads) {
     const int r = e / D, d = e % D, s = k0 + r;
-    const bool in = s < S;
-    Ks[r * L::kLd + d] = in ? kb[s * a.kss + d] : 0.f;
-    Vs[r * L::kLd + d] = in ? vb[s * a.vss + d] : 0.f;
+    Ks[r * L::kLd + d] = s < S ? kb[s * a.kss + d] : 0.f;
+  }
+  for (int e = tid; e < L::kBK * DV; e += kThreads) {
+    const int r = e / DV, d = e % DV, s = k0 + r;
+    Vs[r * L::kLdV + d] = s < S ? vb[s * a.vss + d] : 0.f;
   }
 
-  float dk_acc[R][L::kDCols], dv_acc[R][L::kDCols];
+  float dk_acc[R][L::kDCols], dv_acc[R][L::kDColsV];
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int i = 0; i < R; ++i) {
 #pragma unroll
-    for (int c = 0; c < L::kDCols; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+    for (int c = 0; c < L::kDCols; ++c) dk_acc[i][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < L::kDColsV; ++c) dv_acc[i][c] = 0.f;
+  }
 
   // Query rows that attend a key of this tile: i >= k0 when causal, and
   // i < k0 + BK - 1 + window when a window is given.
@@ -262,15 +293,17 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     const float* qb = q + b * a.qsb + h * a.qsh;
-    const float* ob = dO + static_cast<long long>(b) * S * hd + static_cast<long long>(h) * D;
+    const float* ob = dO + static_cast<long long>(b) * S * hdv + static_cast<long long>(h) * DV;
     const long long row0 = (static_cast<long long>(b) * H + h) * S;
     for (int q0 = (q_first / kBT) * kBT; q0 < q_end; q0 += kBT) {
       __syncthreads();  // K, V staged; the previous tile's Q, dO, P and dS are read
       for (int e = tid; e < kBT * D; e += kThreads) {
         const int c = e / D, d = e % D, s = q0 + c;
-        const bool in = s < S;
-        Qs[c * L::kLd + d] = in ? qb[s * a.qss + d] : 0.f;
-        dOs[c * L::kLd + d] = in ? ob[s * hd + d] : 0.f;
+        Qs[c * L::kLd + d] = s < S ? qb[s * a.qss + d] : 0.f;
+      }
+      for (int e = tid; e < kBT * DV; e += kThreads) {
+        const int c = e / DV, d = e % DV, s = q0 + c;
+        dOs[c * L::kLdV + d] = s < S ? ob[s * hdv + d] : 0.f;
       }
       for (int c = tid; c < kBT; c += kThreads) {
         const int s = q0 + c;
@@ -279,23 +312,24 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncthreads();
 
+      // sᵀ = K·Qᵀ over D and dpᵀ = V·dOᵀ over DV, as in the dq kernel.
       float sc[R][kCols], dp[R][kCols];
 #pragma unroll
       for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < kCols; ++j) sc[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
+      for (int d = 0; d < DV; ++d) {
         float kv[R], vv[R], qv[kCols], ov[kCols];
 #pragma unroll
         for (int i = 0; i < R; ++i) {
           kv[i] = Ks[(rg + kRG * i) * L::kLd + d];
-          vv[i] = Vs[(rg + kRG * i) * L::kLd + d];
+          vv[i] = Vs[(rg + kRG * i) * L::kLdV + d];
         }
 #pragma unroll
         for (int j = 0; j < kCols; ++j) {
           qv[j] = Qs[(cg + kCG * j) * L::kLd + d];
-          ov[j] = dOs[(cg + kCG * j) * L::kLd + d];
+          ov[j] = dOs[(cg + kCG * j) * L::kLdV + d];
         }
 #pragma unroll
         for (int i = 0; i < R; ++i)
@@ -304,6 +338,18 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             sc[i][j] = fmaf(kv[i], qv[j], sc[i][j]);
             dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
           }
+      }
+#pragma unroll 4
+      for (int d = DV; d < D; ++d) {
+        float kv[R], qv[kCols];
+#pragma unroll
+        for (int i = 0; i < R; ++i) kv[i] = Ks[(rg + kRG * i) * L::kLd + d];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) qv[j] = Qs[(cg + kCG * j) * L::kLd + d];
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) sc[i][j] = fmaf(kv[i], qv[j], sc[i][j]);
       }
 
 #pragma unroll
@@ -329,8 +375,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           sv[i] = dSs[(rg + kRG * i) * L::kLdS + c];
         }
 #pragma unroll
-        for (int dc = 0; dc < L::kDCols; ++dc) {
-          const float oo = dOs[c * L::kLd + cg + kCG * dc];
+        for (int dc = 0; dc < L::kDColsV; ++dc) {
+          const float oo = dOs[c * L::kLdV + cg + kCG * dc];
           const float qq = Qs[c * L::kLd + cg + kCG * dc];
 #pragma unroll
           for (int i = 0; i < R; ++i) {
@@ -338,34 +384,39 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             dk_acc[i][dc] = fmaf(sv[i], qq, dk_acc[i][dc]);
           }
         }
+#pragma unroll
+        for (int dc = L::kDColsV; dc < L::kDCols; ++dc) {
+          const float qq = Qs[c * L::kLd + cg + kCG * dc];
+#pragma unroll
+          for (int i = 0; i < R; ++i) dk_acc[i][dc] = fmaf(sv[i], qq, dk_acc[i][dc]);
+        }
       }
     }
   }
 
-  const long long kvd = static_cast<long long>(Hkv) * D;
+  const long long kd = static_cast<long long>(Hkv) * D, kdv = static_cast<long long>(Hkv) * DV;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int s = k0 + rg + kRG * i;
     if (s < S) {
-      const long long o = static_cast<long long>(b) * S * kvd + s * kvd +
-                          static_cast<long long>(hk) * D;
+      float* dko = dk + (static_cast<long long>(b) * S + s) * kd + static_cast<long long>(hk) * D;
+      float* dvo = dv + (static_cast<long long>(b) * S + s) * kdv + static_cast<long long>(hk) * DV;
 #pragma unroll
-      for (int dc = 0; dc < L::kDCols; ++dc) {
-        dk[o + cg + kCG * dc] = a.scale * dk_acc[i][dc];
-        dv[o + cg + kCG * dc] = dv_acc[i][dc];
-      }
+      for (int dc = 0; dc < L::kDCols; ++dc) dko[cg + kCG * dc] = a.scale * dk_acc[i][dc];
+#pragma unroll
+      for (int dc = 0; dc < L::kDColsV; ++dc) dvo[cg + kCG * dc] = dv_acc[i][dc];
     }
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, const void* dO, const float* lse,
            const float* dvec, void* dq, void* dk, void* dv, int B, const Args& a,
            cudaStream_t stream) {
-  using Q = DqTile<D>;
-  using K = DkvTile<D>;
-  auto* dq_fn = flash_bwd_dq_kernel<D>;
-  auto* dkv_fn = flash_bwd_dkv_kernel<D>;
+  using Q = DqTile<D, DV>;
+  using K = DkvTile<D, DV>;
+  auto* dq_fn = flash_bwd_dq_kernel<D, DV>;
+  auto* dkv_fn = flash_bwd_dkv_kernel<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       dq_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, Q::kSmemBytes);
   if (err != cudaSuccess) return err;
@@ -385,53 +436,62 @@ int launch(const void* q, const void* k, const void* v, const void* dO, const fl
   return cudaGetLastError();
 }
 
-int dispatch(int d, int dtype, const void* q, const void* k, const void* v, const void* dO,
-             const float* lse, const float* dvec, void* dq, void* dk, void* dv, int B,
-             const Args& a, const long long* st, cudaStream_t stream) {
+// (D, DV) packed as one switch key.
+constexpr int pair(int d, int dv) { return d * 1024 + dv; }
+
+int dispatch(int d, int dv, int dtype, const void* q, const void* k, const void* v,
+             const void* dO, const float* lse, const float* dvec, void* dq, void* dk, void* dv_out,
+             int B, const Args& a, const long long* st, cudaStream_t stream) {
   using flash::sm90::launch_bwd;
   if (dtype == 1) {
-#define FLASH_BWD_SM90(D)                                                                       \
-  launch_bwd<D>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a.S, a.H, a.Hkv, st, a.causal, a.window, \
-                a.scale, stream)
-    switch (d) {
-      case 32: return FLASH_BWD_SM90(32);
-      case 64: return FLASH_BWD_SM90(64);
-      case 128: return FLASH_BWD_SM90(128);
-      case 256: return FLASH_BWD_SM90(256);
+#define FLASH_BWD_SM90(D, DV)                                                              \
+  launch_bwd<D, DV>(q, k, v, dO, lse, dvec, dq, dk, dv_out, B, a.S, a.H, a.Hkv, st, a.causal, \
+                    a.window, a.scale, stream)
+    switch (pair(d, dv)) {
+      case pair(32, 32): return FLASH_BWD_SM90(32, 32);
+      case pair(64, 64): return FLASH_BWD_SM90(64, 64);
+      case pair(128, 128): return FLASH_BWD_SM90(128, 128);
+      case pair(256, 256): return FLASH_BWD_SM90(256, 256);
+      case pair(192, 128): return FLASH_BWD_SM90(192, 128);
       default: return cudaErrorInvalidValue;
     }
 #undef FLASH_BWD_SM90
   }
   if (dtype != 0) return cudaErrorInvalidValue;
-  switch (d) {
-    case 32: return launch<32>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
-    case 64: return launch<64>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
-    case 128: return launch<128>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
-    case 256: return launch<256>(q, k, v, dO, lse, dvec, dq, dk, dv, B, a, stream);
+#define FLASH_BWD_FP32(D, DV) launch<D, DV>(q, k, v, dO, lse, dvec, dq, dk, dv_out, B, a, stream)
+  switch (pair(d, dv)) {
+    case pair(32, 32): return FLASH_BWD_FP32(32, 32);
+    case pair(64, 64): return FLASH_BWD_FP32(64, 64);
+    case pair(128, 128): return FLASH_BWD_FP32(128, 128);
+    case pair(256, 256): return FLASH_BWD_FP32(256, 256);
+    case pair(192, 128): return FLASH_BWD_FP32(192, 128);
     default: return cudaErrorInvalidValue;
   }
+#undef FLASH_BWD_FP32
 }
 
 }  // namespace
 
 // B8.  dtype 0 = float32 (the FP32 kernels above), 1 = bf16 (the
-// tensor-core kernels); q, k, v, dO, dq, dk and dv share it.  strides: q's
-// batch, sequence and head strides, then k's, then v's, in elements (bf16:
-// base addresses 16-byte aligned, strides multiples of 8 elements, for
-// TMA); dO, lse, dvec, dq, dk and dv are contiguous.  window <= 0 means no
-// window.  Launches the dq kernel, then the dk/dv kernel(s), on `stream`;
-// returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
-// head size other than 32, 64, 128 or 256, H not a multiple of Hkv, another
-// dtype, or a bf16 stride or address TMA cannot take.
+// tensor-core kernels); q, k, v, dO, dq, dk and dv share it.  D is q's, k's,
+// dq's and dk's head size, DV v's, dO's and dv's.  strides: q's batch,
+// sequence and head strides, then k's, then v's, in elements (bf16: base
+// addresses 16-byte aligned, strides multiples of 8 elements, for TMA); dO,
+// lse, dvec, dq, dk and dv are contiguous.  window <= 0 means no window.
+// Launches the dq kernel, then the dk/dv kernel(s), on `stream`; returns
+// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for head sizes
+// other than (32, 32), (64, 64), (128, 128), (256, 256) or (192, 128), H not
+// a multiple of Hkv, another dtype, or a bf16 stride or address TMA cannot
+// take.
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* dO, const float* lse, const float* dvec,
                                    void* dq, void* dk, void* dv, int B, int S, int H,
-                                   int Hkv, int D, const long long* strides, int causal,
+                                   int Hkv, int D, int DV, const long long* strides, int causal,
                                    int window, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   const Args a{S, H, Hkv, causal, window,
                strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
                strides[6], strides[7], strides[8], scale};
-  return dispatch(D, dtype, q, k, v, dO, lse, dvec, dq, dk, dv, B, a, strides,
+  return dispatch(D, DV, dtype, q, k, v, dO, lse, dvec, dq, dk, dv, B, a, strides,
                   static_cast<cudaStream_t>(stream));
 }

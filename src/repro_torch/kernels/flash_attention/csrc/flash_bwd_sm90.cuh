@@ -28,7 +28,13 @@
 //   repeat is bit-identical.  Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ; dV += Pᵀ·dO and
 //   dK += dSᵀ·Q with dO and Q read MN-major.  Four products.  At D = 256 the
 //   two 64 × 256 float32 accumulators (256 registers a thread) do not fit,
-//   so dk and dv are two launches of this kernel (dk recomputes Sᵀ: five).
+//   so dk and dv are two launches of this kernel (the dv launch recomputes
+//   Sᵀ: five).  So at MLA's (192, 128): the 64 × 192 and 64 × 128
+//   accumulators (160 registers) beside Sᵀ and dPᵀ (64) would not fit.
+// * Head sizes.  Q, K, dq and dk take D columns, V, dO and dv DV: DV = D
+//   but for MLA, (192, 128).  Q·Kᵀ (and K·Qᵀ) then run 12 k16 steps over
+//   three 64-column panels, dO·Vᵀ (and V·dOᵀ) 8 over two; dQ and dK cover
+//   three panels, dV two.
 // * Precision.  q, k, v and dO are bf16, so S, dP, Sᵀ and dPᵀ are exact
 //   products summed in float32.  P and dS are float32 values: as bf16 they
 //   would err by up to 2^-9 of each term, ~6e-5 of the term magnitude over
@@ -45,28 +51,35 @@ namespace sm90 {
 
 // Both kernels: two warpgroups, two stages, 64-wide inner tiles; 32-wide at
 // D = 256, where the 64 × 256 accumulator takes 128 registers a thread and
-// the tiles 192 KB of shared memory.
-template <int D_>
+// the tiles 192 KB of shared memory.  D is q's and k's head size (and dq's,
+// dk's), DV v's and dO's (and dv's): DV = D but for MLA, (D, DV) =
+// (192, 128), where Q and K are three 64-column panels and V and dO two.
+template <int D_, int DV_>
 struct DqConfig {
-  static constexpr int D = D_, NWG = 2, BK = D == 256 ? 32 : 64, STAGES = 2;
+  static constexpr int D = D_, DV = DV_, NWG = 2, BK = D == 256 ? 32 : 64, STAGES = 2;
   static constexpr int kThreads = 128 * NWG;
   static constexpr int kBQ = 64 * NWG;            // query rows per block
-  static constexpr int kQBytes = 64 * D * 2;      // one consumer's Q (or dO) tile
-  static constexpr int kKVBytes = BK * D * 2;     // one K or V tile
-  static constexpr int kSmemBytes =
-      1024 + 2 * NWG * kQBytes + 2 * STAGES * kKVBytes + 8 * (1 + 2 * STAGES);
+  static constexpr int kQBytes = 64 * D * 2;      // one consumer's Q tile
+  static constexpr int kdOBytes = 64 * DV * 2;    // one consumer's dO tile
+  static constexpr int kKBytes = BK * D * 2;      // one K tile
+  static constexpr int kVBytes = BK * DV * 2;     // one V tile
+  static constexpr int kSmemBytes = 1024 + NWG * (kQBytes + kdOBytes) +
+                                    STAGES * (kKBytes + kVBytes) + 8 * (1 + 2 * STAGES);
 };
 
-template <int D_, bool DK_, bool DV_>
+// WITH_DK: the launch computes dk (and needs V for dPᵀ); WITH_DV: dv.
+template <int D_, int DV_, bool WITH_DK_, bool WITH_DV_>
 struct DkvConfig {
-  static constexpr int D = D_, NWG = 2, BQ = D == 256 ? 32 : 64, STAGES = 2;
-  static constexpr bool DK = DK_, DV = DV_;
+  static constexpr int D = D_, DV = DV_, NWG = 2, BQ = D == 256 ? 32 : 64, STAGES = 2;
+  static constexpr bool WITH_DK = WITH_DK_, WITH_DV = WITH_DV_;
   static constexpr int kThreads = 128 * NWG;
   static constexpr int kBK = 64 * NWG;            // key rows per block
-  static constexpr int kKBytes = 64 * D * 2;      // one consumer's K (or V) tile
-  static constexpr int kQBytes = BQ * D * 2;      // one Q or dO tile
-  static constexpr int kSmemBytes =
-      1024 + 2 * NWG * kKBytes + 2 * STAGES * kQBytes + 8 * (1 + 2 * STAGES);
+  static constexpr int kKBytes = 64 * D * 2;      // one consumer's K tile
+  static constexpr int kVBytes = 64 * DV * 2;     // one consumer's V tile
+  static constexpr int kQBytes = BQ * D * 2;      // one Q tile
+  static constexpr int kdOBytes = BQ * DV * 2;    // one dO tile
+  static constexpr int kSmemBytes = 1024 + NWG * (kKBytes + kVBytes) +
+                                    STAGES * (kQBytes + kdOBytes) + 8 * (1 + 2 * STAGES);
 };
 
 template <class C>
@@ -78,14 +91,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const float* __restrict__ lse, const float* __restrict__ dvec,
                           __nv_bfloat16* __restrict__ dq, int S, int H, int Hkv, int causal,
                           int window, float scale) {
-  constexpr int D = C::D, NWG = C::NWG, BK = C::BK, ST = C::STAGES;
+  constexpr int D = C::D, DV = C::DV, NWG = C::NWG, BK = C::BK, ST = C::STAGES;
   using P = Panel<D>;
+  using PV = Panel<DV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = align1024(smem_raw);
   uint8_t* sdO = sQ + NWG * C::kQBytes;
-  uint8_t* sK = sdO + NWG * C::kQBytes;
-  uint8_t* sV = sK + ST * C::kKVBytes;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + ST * C::kKVBytes);
+  uint8_t* sK = sdO + NWG * C::kdOBytes;
+  uint8_t* sV = sK + ST * C::kKBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + ST * C::kVBytes);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + ST;
 
@@ -111,23 +125,24 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // K/V tiles, then each next tile as soon as its stage is released.
   auto load_tile = [&](int i) {
     const int s = i % ST, k0 = (t0 + i) * BK;
-    mbar_expect_tx(&full[s], 2 * C::kKVBytes);
-    for (int p = 0; p < P::kCount; ++p) {
-      tma_load(sK + s * C::kKVBytes + p * BK * P::kRowBytes, &tk, &full[s], p * P::kCols, k0, hk,
+    mbar_expect_tx(&full[s], C::kKBytes + C::kVBytes);
+    for (int p = 0; p < P::kCount; ++p)
+      tma_load(sK + s * C::kKBytes + p * BK * P::kRowBytes, &tk, &full[s], p * P::kCols, k0, hk,
                b);
-      tma_load(sV + s * C::kKVBytes + p * BK * P::kRowBytes, &tv, &full[s], p * P::kCols, k0, hk,
-               b);
-    }
+    for (int p = 0; p < PV::kCount; ++p)
+      tma_load(sV + s * C::kVBytes + p * BK * PV::kRowBytes, &tv, &full[s], p * PV::kCols, k0,
+               hk, b);
   };
   if (threadIdx.x == 0) {
-    mbar_expect_tx(q_full, 2 * NWG * C::kQBytes);
-    for (int w = 0; w < NWG; ++w)
-      for (int p = 0; p < P::kCount; ++p) {
+    mbar_expect_tx(q_full, NWG * (C::kQBytes + C::kdOBytes));
+    for (int w = 0; w < NWG; ++w) {
+      for (int p = 0; p < P::kCount; ++p)
         tma_load(sQ + w * C::kQBytes + p * 64 * P::kRowBytes, &tq, q_full, p * P::kCols,
                  q0 + 64 * w, h, b);
-        tma_load(sdO + w * C::kQBytes + p * 64 * P::kRowBytes, &tdo, q_full, p * P::kCols,
+      for (int p = 0; p < PV::kCount; ++p)
+        tma_load(sdO + w * C::kdOBytes + p * 64 * PV::kRowBytes, &tdo, q_full, p * PV::kCols,
                  q0 + 64 * w, h, b);
-      }
+    }
     for (int i = 0; i < min(ST, n_tiles); ++i) load_tile(i);
   }
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
@@ -135,7 +150,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int ra = r0 + 16 * warp + lane / 4;     // rows ra and ra + 8
   const int cq = 2 * (lane % 4);
   const uint8_t* myQ = sQ + wg * C::kQBytes;
-  const uint8_t* mydO = sdO + wg * C::kQBytes;
+  const uint8_t* mydO = sdO + wg * C::kdOBytes;
   const long long row0 = (static_cast<long long>(b) * H + h) * S;
   float lse_r[2], dvec_r[2];
 #pragma unroll
@@ -160,9 +175,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (!skip) {
       const bool edge = (causal && k0 + BK - 1 > r0) || (window > 0 && k0 <= r0 + 63 - window) ||
                         k0 + BK > S;
-      const uint8_t* tK = sK + s * C::kKVBytes;
-      const uint8_t* tV = sV + s * C::kKVBytes;
+      const uint8_t* tK = sK + s * C::kKBytes;
+      const uint8_t* tV = sV + s * C::kVBytes;
 
+      // S = Q·Kᵀ over D, dP = dO·Vᵀ over DV (<= D).
       float sc[BK / 2], dp[BK / 2];
 #pragma unroll
       for (int e = 0; e < BK / 2; ++e) sc[e] = dp[e] = 0.f;
@@ -172,7 +188,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         wgmma_ss<BK>(sc, desc_k<D, 64>(myQ, kk), desc_k<D, BK>(tK, kk));
-        wgmma_ss<BK>(dp, desc_k<D, 64>(mydO, kk), desc_k<D, BK>(tV, kk));
+        if (kk < DV / 16)
+          wgmma_ss<BK>(dp, desc_k<DV, 64>(mydO, kk), desc_k<DV, BK>(tV, kk));
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -241,14 +258,16 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const float* __restrict__ lse, const float* __restrict__ dvec,
                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S,
                            int H, int Hkv, int causal, int window, float scale) {
-  constexpr int D = C::D, NWG = C::NWG, BQ = C::BQ, ST = C::STAGES;
+  constexpr int D = C::D, DV = C::DV, NWG = C::NWG, BQ = C::BQ, ST = C::STAGES;
+  constexpr bool WITH_DK = C::WITH_DK, WITH_DV = C::WITH_DV;
   using P = Panel<D>;
+  using PV = Panel<DV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sK = align1024(smem_raw);
   uint8_t* sV = sK + NWG * C::kKBytes;
-  uint8_t* sQ = sV + NWG * C::kKBytes;
+  uint8_t* sQ = sV + NWG * C::kVBytes;
   uint8_t* sdO = sQ + ST * C::kQBytes;
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sdO + ST * C::kQBytes);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sdO + ST * C::kdOBytes);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + ST;
 
@@ -278,23 +297,24 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // Q/dO tiles, then each next tile as soon as its stage is released.
   auto load_tile = [&](int i) {
     const int s = i % ST, h = hk * G + i / nq, q0 = (tq0 + i % nq) * BQ;
-    mbar_expect_tx(&full[s], 2 * C::kQBytes);
-    for (int p = 0; p < P::kCount; ++p) {
+    mbar_expect_tx(&full[s], C::kQBytes + C::kdOBytes);
+    for (int p = 0; p < P::kCount; ++p)
       tma_load(sQ + s * C::kQBytes + p * BQ * P::kRowBytes, &tq, &full[s], p * P::kCols, q0, h, b);
-      tma_load(sdO + s * C::kQBytes + p * BQ * P::kRowBytes, &tdo, &full[s], p * P::kCols, q0, h,
-               b);
-    }
+    for (int p = 0; p < PV::kCount; ++p)
+      tma_load(sdO + s * C::kdOBytes + p * BQ * PV::kRowBytes, &tdo, &full[s], p * PV::kCols, q0,
+               h, b);
   };
   if (threadIdx.x == 0) {
-    mbar_expect_tx(kv_full, (C::DK ? 2 : 1) * NWG * C::kKBytes);
-    for (int w = 0; w < NWG; ++w)
-      for (int p = 0; p < P::kCount; ++p) {
+    mbar_expect_tx(kv_full, NWG * (C::kKBytes + (WITH_DK ? C::kVBytes : 0)));
+    for (int w = 0; w < NWG; ++w) {
+      for (int p = 0; p < P::kCount; ++p)
         tma_load(sK + w * C::kKBytes + p * 64 * P::kRowBytes, &tk, kv_full, p * P::kCols,
                  k0 + 64 * w, hk, b);
-        if (C::DK)
-          tma_load(sV + w * C::kKBytes + p * 64 * P::kRowBytes, &tv, kv_full, p * P::kCols,
+      if (WITH_DK)
+        for (int p = 0; p < PV::kCount; ++p)
+          tma_load(sV + w * C::kVBytes + p * 64 * PV::kRowBytes, &tv, kv_full, p * PV::kCols,
                    k0 + 64 * w, hk, b);
-      }
+    }
     for (int i = 0; i < min(ST, n_tiles); ++i) load_tile(i);
   }
   // Consumer warpgroup wg: key rows kr0 .. kr0 + 63.  This thread holds
@@ -304,17 +324,22 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int ka = kr0 + 16 * warp + lane / 4;
   const int cq = 2 * (lane % 4);
   const uint8_t* myK = sK + wg * C::kKBytes;
-  const uint8_t* myV = sV + wg * C::kKBytes;
+  const uint8_t* myV = sV + wg * C::kVBytes;
 
-  float acc_k[C::DK ? P::kCount : 1][P::kCols / 2];
-  float acc_v[C::DV ? P::kCount : 1][P::kCols / 2];
+  float acc_k[WITH_DK ? P::kCount : 1][P::kCols / 2];
+  float acc_v[WITH_DV ? PV::kCount : 1][PV::kCols / 2];
+  if constexpr (WITH_DK) {
 #pragma unroll
-  for (int p = 0; p < P::kCount; ++p)
+    for (int p = 0; p < P::kCount; ++p)
 #pragma unroll
-    for (int e = 0; e < P::kCols / 2; ++e) {
-      if constexpr (C::DK) acc_k[p][e] = 0.f;
-      if constexpr (C::DV) acc_v[p][e] = 0.f;
-    }
+      for (int e = 0; e < P::kCols / 2; ++e) acc_k[p][e] = 0.f;
+  }
+  if constexpr (WITH_DV) {
+#pragma unroll
+    for (int p = 0; p < PV::kCount; ++p)
+#pragma unroll
+      for (int e = 0; e < PV::kCols / 2; ++e) acc_v[p][e] = 0.f;
+  }
 
   mbar_wait(kv_full, 0);
   for (int i = 0; i < n_tiles; ++i) {
@@ -326,7 +351,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const bool edge = (causal && q0 < kr0 + 63) || (window > 0 && q0 + BQ - 1 >= kr0 + window) ||
                         q0 + BQ > S || kr0 + 64 > S;
       const uint8_t* tQ = sQ + s * C::kQBytes;
-      const uint8_t* tdO = sdO + s * C::kQBytes;
+      const uint8_t* tdO = sdO + s * C::kdOBytes;
       // The tile's lse and dvec, one column per lane (32·r + lane), read
       // while the products run; a thread takes its columns' by shuffle.
       const long long row0 = (static_cast<long long>(b) * H + h) * S;
@@ -335,27 +360,30 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int r = 0; r < BQ / 32; ++r) {
         const int qi = q0 + 32 * r + lane;
         lse_c[r] = qi < S ? lse[row0 + qi] : 0.f;
-        dvec_c[r] = C::DK && qi < S ? dvec[row0 + qi] : 0.f;
+        dvec_c[r] = WITH_DK && qi < S ? dvec[row0 + qi] : 0.f;
       }
 
-      float st[BQ / 2], dpt[C::DK ? BQ / 2 : 1];
+      // Sᵀ = K·Qᵀ over D, dPᵀ = V·dOᵀ over DV (<= D).
+      float st[BQ / 2], dpt[WITH_DK ? BQ / 2 : 1];
 #pragma unroll
       for (int e = 0; e < BQ / 2; ++e) {
         st[e] = 0.f;
-        if constexpr (C::DK) dpt[e] = 0.f;
+        if constexpr (WITH_DK) dpt[e] = 0.f;
       }
       fence_regs(st);
-      if constexpr (C::DK) fence_regs(dpt);
+      if constexpr (WITH_DK) fence_regs(dpt);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         wgmma_ss<BQ>(st, desc_k<D, 64>(myK, kk), desc_k<D, BQ>(tQ, kk));
-        if constexpr (C::DK) wgmma_ss<BQ>(dpt, desc_k<D, 64>(myV, kk), desc_k<D, BQ>(tdO, kk));
+        if constexpr (WITH_DK)
+          if (kk < DV / 16)
+            wgmma_ss<BQ>(dpt, desc_k<DV, 64>(myV, kk), desc_k<DV, BQ>(tdO, kk));
       }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(st);
-      if constexpr (C::DK) fence_regs(dpt);
+      if constexpr (WITH_DK) fence_regs(dpt);
 
       // pᵀ (into st) and dsᵀ = pᵀ∘(dpᵀ - dvec) (into dpt); the column is
       // the query i, the row the key j.  Column c's lse and dvec are in
@@ -367,34 +395,34 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const bool in = !edge || (qi < S && attends(qi, kj, S, causal, window));
         const float lse_i = __shfl_sync(0xffffffffu, lse_c[e / 16], c % 32);
         st[e] = in ? expf(st[e] * scale - lse_i) : 0.f;
-        if constexpr (C::DK)
+        if constexpr (WITH_DK)
           dpt[e] = st[e] * (dpt[e] - __shfl_sync(0xffffffffu, dvec_c[e / 16], c % 32));
       }
 
-      if constexpr (C::DV) {
+      if constexpr (WITH_DV) {
         // dV += Pᵀ·dO, Pᵀ as hi + lo.
         uint32_t hi[BQ / 16][4], lo[BQ / 16][4];
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk) to_frag(st, kk, hi[kk], lo[kk]);
 #pragma unroll
-        for (int p = 0; p < P::kCount; ++p) fence_regs(acc_v[p]);
+        for (int p = 0; p < PV::kCount; ++p) fence_regs(acc_v[p]);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
-          for (int p = 0; p < P::kCount; ++p) {
-            wgmma_rs<P::kCols>(acc_v[p], hi[kk], desc_mn<D, BQ>(tdO, p, kk));
-            wgmma_rs<P::kCols>(acc_v[p], lo[kk], desc_mn<D, BQ>(tdO, p, kk));
+          for (int p = 0; p < PV::kCount; ++p) {
+            wgmma_rs<PV::kCols>(acc_v[p], hi[kk], desc_mn<DV, BQ>(tdO, p, kk));
+            wgmma_rs<PV::kCols>(acc_v[p], lo[kk], desc_mn<DV, BQ>(tdO, p, kk));
           }
         wgmma_commit();
         wgmma_wait<0>();
 #pragma unroll
-        for (int p = 0; p < P::kCount; ++p) fence_regs(acc_v[p]);
+        for (int p = 0; p < PV::kCount; ++p) fence_regs(acc_v[p]);
         // dS is packed after this wait, not beside the P fragments still
         // held by the dV products: 32 registers fewer at the peak.
-        if constexpr (C::DK) fence_regs(dpt);
+        if constexpr (WITH_DK) fence_regs(dpt);
       }
-      if constexpr (C::DK) {
+      if constexpr (WITH_DK) {
         // dK += dSᵀ·Q, dSᵀ as hi + lo.
         uint32_t hi[BQ / 16][4], lo[BQ / 16][4];
 #pragma unroll
@@ -427,19 +455,24 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int r = 0; r < 2; ++r) {
     const int row = ka + 8 * r;
     if (row < S) {
-      const long long o = ((static_cast<long long>(b) * S + row) * Hkv + hk) * D;
+      const long long o = (static_cast<long long>(b) * S + row) * Hkv + hk;
+      if constexpr (WITH_DK) {
 #pragma unroll
-      for (int p = 0; p < P::kCount; ++p)
+        for (int p = 0; p < P::kCount; ++p)
 #pragma unroll
-        for (int j = 0; j < P::kCols / 8; ++j) {
-          const int col = p * P::kCols + 8 * j + cq;
-          if constexpr (C::DK)
-            *reinterpret_cast<__nv_bfloat162*>(dk + o + col) = __floats2bfloat162_rn(
-                scale * acc_k[p][4 * j + 2 * r], scale * acc_k[p][4 * j + 2 * r + 1]);
-          if constexpr (C::DV)
-            *reinterpret_cast<__nv_bfloat162*>(dv + o + col) =
+          for (int j = 0; j < P::kCols / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(dk + o * D + p * P::kCols + 8 * j + cq) =
+                __floats2bfloat162_rn(scale * acc_k[p][4 * j + 2 * r],
+                                      scale * acc_k[p][4 * j + 2 * r + 1]);
+      }
+      if constexpr (WITH_DV) {
+#pragma unroll
+        for (int p = 0; p < PV::kCount; ++p)
+#pragma unroll
+          for (int j = 0; j < PV::kCols / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(dv + o * DV + p * PV::kCols + 8 * j + cq) =
                 __floats2bfloat162_rn(acc_v[p][4 * j + 2 * r], acc_v[p][4 * j + 2 * r + 1]);
-        }
+      }
     }
   }
 }
@@ -459,25 +492,28 @@ int launch_dkv(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& 
   return cudaGetLastError();
 }
 
-// Launch B8's bf16 kernels: dq, then dk/dv (two launches at D = 256).  st:
-// q's, k's and v's batch, sequence and head strides (elements); dO [B, S, H,
-// D] contiguous.  Returns 0 or a CUDA error code.
-template <int D>
+// Launch B8's bf16 kernels: dq, then dk/dv, as two launches (dk, then dv)
+// where one thread's two accumulators would not fit its registers: at
+// D = 256 and at MLA's (192, 128).  st: q's, k's and v's batch, sequence
+// and head strides (elements); dO [B, S, H, DV] contiguous.  Returns 0 or a
+// CUDA error code.
+template <int D, int DV>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dO, const float* lse,
                const float* dvec, void* dq, void* dk, void* dv, int B, int S, int H, int Hkv,
                const long long* st, int causal, int window, float scale, cudaStream_t stream) {
-  using Q = DqConfig<D>;
-  using K = DkvConfig<D, true, D != 256>;
-  const long long hd = static_cast<long long>(H) * D;
+  constexpr bool kSplit = D == 256 || D != DV;
+  using Q = DqConfig<D, DV>;
+  using K = DkvConfig<D, DV, true, !kSplit>;
+  const long long hdv = static_cast<long long>(H) * DV;
   CUtensorMap q_rows, do_rows, k_tile, v_tile, k_rows, v_rows, q_tile, do_tile;
   int err = make_map<D>(&q_rows, q, B, S, H, st[0], st[1], st[2], 64);
-  if (!err) err = make_map<D>(&do_rows, dO, B, S, H, S * hd, hd, D, 64);
+  if (!err) err = make_map<DV>(&do_rows, dO, B, S, H, S * hdv, hdv, DV, 64);
   if (!err) err = make_map<D>(&k_tile, k, B, S, Hkv, st[3], st[4], st[5], Q::BK);
-  if (!err) err = make_map<D>(&v_tile, v, B, S, Hkv, st[6], st[7], st[8], Q::BK);
+  if (!err) err = make_map<DV>(&v_tile, v, B, S, Hkv, st[6], st[7], st[8], Q::BK);
   if (!err) err = make_map<D>(&k_rows, k, B, S, Hkv, st[3], st[4], st[5], 64);
-  if (!err) err = make_map<D>(&v_rows, v, B, S, Hkv, st[6], st[7], st[8], 64);
+  if (!err) err = make_map<DV>(&v_rows, v, B, S, Hkv, st[6], st[7], st[8], 64);
   if (!err) err = make_map<D>(&q_tile, q, B, S, H, st[0], st[1], st[2], K::BQ);
-  if (!err) err = make_map<D>(&do_tile, dO, B, S, H, S * hd, hd, D, K::BQ);
+  if (!err) err = make_map<DV>(&do_tile, dO, B, S, H, S * hdv, hdv, DV, K::BQ);
   if (err) return err;
 
   auto* dq_fn = flash_bwd_dq_wgmma_kernel<Q>;
@@ -491,8 +527,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dO, cons
   if (e != cudaSuccess) return e;
   err = launch_dkv<K>(q_tile, k_rows, v_rows, do_tile, lse, dvec, dk, dv, B, S, H, Hkv, causal,
                       window, scale, stream);
-  if constexpr (D == 256) {
-    using V = DkvConfig<D, false, true>;
+  if constexpr (kSplit) {
+    using V = DkvConfig<D, DV, false, true>;
     if (!err)
       err = launch_dkv<V>(q_tile, k_rows, v_rows, do_tile, lse, dvec, dk, dv, B, S, H, Hkv, causal,
                           window, scale, stream);

@@ -8,13 +8,15 @@ lse)``, out [B, S, H, D_v] in q's dtype and the float32 row log-sum-exp
 [B, H, S], with scores scaled by ``D^-½``.  D_v is D but for MLA's prefill
 (``models/mla.py``), which attends with q/k 192 (128 nope + 64 rope) and v
 128.
-Causal by default; ``window`` keeps keys j > i - window.  The strides of q,
+Causal by default (``causal=False`` lets every query attend every key:
+whisper's encoder); ``window`` keeps keys j > i - window.  The strides of q,
 k and v are passed to the kernels (their last axis must be contiguous), so
 head slices of a projection need no copy.
 
 :func:`flash_attention_bwd` takes the forward's inputs, out and lse, and
-the output gradient dO, and returns (dq, dk, dv) in q's dtype, dk and dv
-summed over the query heads of each KV head.  It computes
+the output gradient dO [B, S, H, D_v], and returns (dq [B, S, H, D], dk
+[B, S, Hkv, D], dv [B, S, Hkv, D_v]) in q's dtype, dk and dv summed over the
+query heads of each KV head.  It computes
 ``dvec = rowsum(dO∘O)`` in float32 before the launch, as the reference does
 outside its Pallas kernels, and makes dO contiguous (a no-op for the dO that
 autograd hands the model's attention, which arrives contiguous).
@@ -41,9 +43,7 @@ forward saves (q, k, v, out, lse) and whose backward calls
 plumbing as the card (the reference's ``custom_vjp``).  A kernel launch
 yields tensors with no ``grad_fn``, so reaching B7 or B8 outside that path
 with grad needed raises instead of detaching the attention silently.  B8
-takes equal head sizes only: with D_v != D, :func:`flash_attention_bwd`
-and a call that needs grad raise ``NotImplementedError`` (MLA training,
-ROADMAP queue A item 14) rather than compute a wrong gradient.
+takes the head-size pairs B7 takes, MLA's (192, 128) among them.
 """
 from __future__ import annotations
 
@@ -60,13 +60,12 @@ from repro_torch.kernels.flash_attention.ref import (
 HEAD_DIMS = (32, 64, 128, 256)
 # (q/k head size, v head size) pairs the kernels are built for
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
-BWD_ITEM = "ROADMAP queue A item 14"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _ARGS = [_I32, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32,
          _STRIDES, _I32, _I32, ctypes.c_float, _PTR]
-_BWD_ARGS = [_I32] + [_PTR] * 9 + [_I32] * 5 + [_STRIDES, _I32, _I32, ctypes.c_float, _PTR]
+_BWD_ARGS = [_I32] + [_PTR] * 9 + [_I32] * 6 + [_STRIDES, _I32, _I32, ctypes.c_float, _PTR]
 
 
 def _check(q, k, v, window) -> None:
@@ -110,14 +109,6 @@ def _kernel_device(who: str, q: torch.Tensor, d_v: int) -> None:
     if q.dtype not in _DTYPES or (q.shape[-1], d_v) not in HEAD_DIM_PAIRS:
         raise ValueError(f"{who}: the kernel takes float32 or bf16 at head sizes (q/k, v) "
                          f"{HEAD_DIM_PAIRS}, got {q.dtype} at ({q.shape[-1]}, {d_v})")
-
-
-def _refuse_unequal(who: str, q: torch.Tensor, v: torch.Tensor) -> None:
-    """B8 and its autograd path take one head size for q, k and v."""
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(
-            f"{who}: the backward at a v head size ({v.shape[-1]}) other than q's and k's "
-            f"({q.shape[-1]}), MLA's training, is not ported yet ({BWD_ITEM})")
 
 
 def _route(dtype: torch.dtype) -> str:
@@ -179,7 +170,6 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        _refuse_unequal("FlashAttention", q, v)
         out, lse = _forward(q, k, v, causal, window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
@@ -202,7 +192,8 @@ def flash_attention(
     causal: bool = True,
     window: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Causal (optionally windowed) attention: (out [B, S, H, D_v], lse [B, H, S])."""
+    """Causal (or, with ``causal=False``, full), optionally windowed,
+    attention: (out [B, S, H, D_v], lse [B, H, S])."""
     _check(q, k, v, window)
     if _grad_needed(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window)
@@ -220,11 +211,13 @@ def flash_attention_bwd(
     causal: bool = True,
     window: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The attention backward: (dq [B, S, H, D], dk, dv [B, S, Hkv, D])."""
+    """The attention backward: (dq [B, S, H, D], dk [B, S, Hkv, D], dv
+    [B, S, Hkv, D_v])."""
     _check(q, k, v, window)
-    _refuse_unequal("flash_attention_bwd", q, v)
     b, s, h, d = q.shape
-    for name, t, shape in (("out", out, q.shape), ("do", do, q.shape), ("lse", lse, (b, h, s))):
+    d_v = v.shape[-1]
+    for name, t, shape in (("out", out, (b, s, h, d_v)), ("do", do, (b, s, h, d_v)),
+                           ("lse", lse, (b, h, s))):
         if not isinstance(t, torch.Tensor) or tuple(t.shape) != tuple(shape) \
                 or t.device != q.device:
             raise ValueError(f"flash_attention_bwd: {name} must be {tuple(shape)} on "
@@ -234,11 +227,11 @@ def flash_attention_bwd(
     _refuse_grad("flash_attention_bwd", q, k, v, out, do)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window)
-    _kernel_device("flash_attention_bwd", q, d)
+    _kernel_device("flash_attention_bwd", q, d_v)
     hkv = k.shape[2]
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((b, s, hkv, d_v), dtype=q.dtype, device=q.device)
     if b == 0 or s == 0 or h == 0:
         return dq, dk, dv
     do = do.to(q.dtype).contiguous()
@@ -249,7 +242,7 @@ def flash_attention_bwd(
     _build.launch("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGS, q.device,
                   _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  b, s, h, hkv, d, _strides(q, k, v), int(causal), window or 0, d**-0.5)
+                  b, s, h, hkv, d, d_v, _strides(q, k, v), int(causal), window or 0, d**-0.5)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.route_launches[_route(q.dtype)] += 1
     return dq, dk, dv

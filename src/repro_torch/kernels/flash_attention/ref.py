@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the causal (optionally windowed) attention
+"""Plain PyTorch versions of the causal or full, optionally windowed, attention
 forward and backward that the B7 and B8 kernels compute.
 
 Counterpart of ``repro/kernels/flash_attention/ref.py``, in the model layout:
@@ -14,8 +14,8 @@ masks them; the output comes back in q's dtype, with the row log-sum-exp
 [S, S] scores: the CUDA kernel beside it is held against it, and the wrapper
 runs it for CPU tensors.
 
-:func:`flash_attention_bwd_ref` is the backward of the same function at
-equal head sizes (the only ones B8 takes), with
+:func:`flash_attention_bwd_ref` is the backward of the same function, at
+MLA's unequal head sizes too (dq and dk D wide, dv D_v), with
 the formulas of the reference's Pallas backward (``_dq_kernel``,
 ``_dkv_kernel``) in float32: ``p = exp(s - lse)`` masked to 0,
 ``dvec = rowsum(dO∘O)``, ``ds = p∘(dO·vᵀ - dvec)``, ``dq = D^-½·ds·k``,
@@ -75,7 +75,7 @@ def _grouped(q, k, v, do, lse, causal, window):
     hkv = k.shape[2]
 
     def heads(x):
-        return x.float().reshape(b, s, hkv, -1, d).permute(0, 2, 3, 1, 4)
+        return x.float().reshape(b, s, hkv, -1, x.shape[-1]).permute(0, 2, 3, 1, 4)
 
     qg, dog, kf, vf = heads(q), heads(do), heads(k), heads(v)
     scores = (qg @ kf.transpose(-1, -2)) * d**-0.5
@@ -101,8 +101,9 @@ def flash_attention_bwd_ref(
     causal: bool = True,
     window: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq [B, S, H, D], dk, dv [B, S, Hkv, D]) in q's dtype, from the
-    forward's out [B, S, H, D] and lse [B, H, S] and the output gradient dO."""
+    """(dq [B, S, H, D], dk [B, S, Hkv, D], dv [B, S, Hkv, D_v]) in q's
+    dtype, from the forward's out [B, S, H, D_v] and lse [B, H, S] and the
+    output gradient dO [B, S, H, D_v]."""
     h, hkv, scale = q.shape[2], k.shape[2], q.shape[-1] ** -0.5
     qg, kf, vf, dog, p = _grouped(q, k, v, do, lse, causal, window)
     dvec = (do.float() * out.float()).sum(-1)                      # [B, S, H]
@@ -116,7 +117,7 @@ def flash_attention_bwd_ref(
 
 
 def flash_attention_bwd_magnitudes(q, k, v, out, lse, do, *, causal=True, window=None):
-    """Float32 (|dq|, |dk|, |dv|) term magnitudes [B, S, H or Hkv, D]: each
+    """Float32 (|dq|, |dk|, |dv|) term magnitudes [B, S, H or Hkv, D or D_v]: each
     element's sum of |term| over the products that make it, with ``ds``
     replaced by ``p·(|dO|·|v| + |dO|·|O|)`` (the size of the two dot
     products whose difference it is).  Arguments as

@@ -3,10 +3,12 @@ privacy smoke, on the card (counterpart of ``repro/launch/serve.py``).
 
 * LM serve (default, ``--arch``) — prefill a batch of synthetic prompts by
   stepping them through the backbone's decode, then decode ``--gen``
-  tokens greedily against a float32 cache (:func:`generate`).  The dense,
-  VLM (its decoder: the image prefix belongs to a prefill), MoE, SSM and
-  hybrid families run; the encoder-decoder raises ``NotImplementedError``
-  from ``get_bundle``, naming ROADMAP queue A item 14.
+  tokens greedily against a float32 cache (:func:`generate`).  Every family
+  runs: dense, VLM (its decoder: the image prefix belongs to a prefill),
+  MoE, SSM, hybrid, and the encoder-decoder, whose synthetic frames
+  (``jax.random.normal(PRNGKey(2), ...)``'s bits, drawn by
+  ``core.threefry``) are encoded once and their cross K/V put in the cache
+  before the prompt is stepped through.
 * Fleet serve (``--fleet K``) — train K per-tenant DAEF anomaly detectors in
   one batched fleet fit, then serve rounds of ragged per-tenant request
   batches.  ``--packing continuous`` (default) routes them through the
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.core import threefry
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 
@@ -65,16 +68,36 @@ class Generation(NamedTuple):
     decode_s: float        # the gen greedy steps
 
 
-def generate(bundle, params, prompts, gen: int) -> Generation:
+def _encdec_cache(bundle, params, frames, seq_len: int):
+    """The encoder-decoder's float32 decode cache: ``frames`` [B, T_enc, d]
+    encoded once, the cross K/V of their states computed once."""
+    from repro_torch.models import encdec
+
+    dev = params["embed"]["table"].device
+    with torch.inference_mode():
+        frames = torch.as_tensor(frames, device=dev)
+        enc_out = encdec.encode(params, bundle.cfg, frames)
+        return encdec.init_cache(params, bundle.cfg, enc_out, seq_len, torch.float32)
+
+
+def generate(bundle, params, prompts, gen: int, frames=None) -> Generation:
     """The reference's serve loop: a float32 cache for prompt + ``gen``
     tokens on the parameters' device, the prompts [B, P] stepped through
     ``bundle.decode`` one position at a time (the prefill), then ``gen``
-    greedy tokens, each fed back at the next position.  Both times are host
-    clocks that end in a synchronize of the card."""
+    greedy tokens, each fed back at the next position.  The
+    encoder-decoder's cache also holds the cross K/V of ``frames`` [B,
+    T_enc, d] (required for it), encoded before the clock starts, as the
+    reference encodes them.  Both times are host clocks that end in a
+    synchronize of the card."""
     dev = params["embed"]["table"].device
     prompts = torch.as_tensor(prompts, device=dev)
     batch, prompt_len = prompts.shape
-    cache = bundle.init_cache(batch, prompt_len + gen, torch.float32, device=dev)
+    if bundle.cfg.family == "encdec":
+        if frames is None:
+            raise ValueError("generate: the encoder-decoder needs frames [B, T_enc, d]")
+        cache = _encdec_cache(bundle, params, frames, prompt_len + gen)
+    else:
+        cache = bundle.init_cache(batch, prompt_len + gen, torch.float32, device=dev)
     t0 = time.perf_counter()
     logits = None
     for t in range(prompt_len):
@@ -104,7 +127,10 @@ def run_lm(args) -> None:
     bundle = get_bundle(cfg, chunked_attn=False)
     params = bundle.init(0, device=resolve_device(args.device))
     prompts = synthetic.lm_token_stream(cfg.vocab_size, args.prompt_len, args.batch, seed=1)
-    out = generate(bundle, params, prompts, args.gen)
+    frames = None
+    if cfg.family == "encdec":
+        frames = threefry.normal(threefry.PRNGKey(2), (args.batch, cfg.encoder_seq, cfg.d_model))
+    out = generate(bundle, params, prompts, args.gen, frames)
     print(f"prompts [{args.batch}, {args.prompt_len}] -> generated {tuple(out.tokens.shape)}")
     print("first sequence:", out.tokens[0].tolist())
     print(f"prefill {out.prefill_s:.2f}s; decode "

@@ -9,11 +9,14 @@ reference's layout.  The same flags as the reference's, plus ``--device``
 parameters' dtype: float32, the reference's ``bundle.init`` default, or
 bfloat16, where attention runs B7 and B8 on their tensor-core routes).
 
+The dense, vlm, moe and encdec families train; the vlm family's batches
+carry ``patch_embeds`` and the encdec family's ``frames`` (the bits of the
+reference's ``jax.random.normal(PRNGKey(step), ...)``, drawn by
+``core.threefry``; the frames cast to ``--dtype``).
+
 What waits: ``--model-parallel`` > 1 shards the model over a device mesh,
 ROADMAP queue A item 12; the ssm and hybrid families' loss, item 16 (it
-raises from ``bundle.loss``); the vlm and moe families' loss, item 14 (it
-raises from ``bundle.loss``), and the encdec family, item 14 (it raises
-from ``get_bundle``).
+raises from ``bundle.loss``).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \\
@@ -93,8 +96,10 @@ def main(argv=None) -> None:
             batch["patch_embeds"] = threefry.normal(
                 threefry.PRNGKey(step), (args.batch, cfg.n_patches, cfg.d_frontend)).to(dev)
         if cfg.family == "encdec":
+            # in the parameters' dtype: the decoder takes no wider encoder states
             batch["frames"] = threefry.normal(
-                threefry.PRNGKey(step), (args.batch, cfg.encoder_seq, cfg.d_model)).to(dev)
+                threefry.PRNGKey(step), (args.batch, cfg.encoder_seq, cfg.d_model)).to(
+                    dev, DTYPES[args.dtype])
         return batch
 
     losses = []

@@ -1,7 +1,7 @@
 """ModelBundle — one interface over the LM families the port serves and trains.
 
-Counterpart of ``repro/models/api.py`` for the families ported so far
-(``dense``, ``vlm``, ``moe``, ``ssm``, ``hybrid``).  Per family it wires up:
+Counterpart of ``repro/models/api.py`` for every family (``dense``, ``vlm``,
+``moe``, ``ssm``, ``hybrid``, ``encdec``).  Per family it wires up:
 
     init(seed, dtype=torch.float32, *, device=None) -> params
     forward(params, tokens)      -> hidden states [B, S, d]
@@ -16,34 +16,38 @@ or a ``torch.Generator``, whose device the parameters then take.
 ``device=None`` means the CUDA card and raises without one (see
 ``repro_torch.device``); pass ``device="cpu"`` for the host.  ``tokens``
 (and ``batch["tokens"]``) are [B, S] integers, numpy or torch; they move
-to the parameters' device.  The ``vlm`` family's ``prefill`` also reads
-``batch["patch_embeds"]`` [B, n_patches, d_frontend] (floats, numpy or
-torch), projected into a prefix of the text; its ``forward(params, tokens,
-patch_embeds=None)`` gives the hidden states of prefix and text, or of the
-text alone.  The ``moe`` family's ``forward`` gives the hidden states only
-(the reference's ``moe_lm.forward`` also returns the router's aux loss).
-``forward`` and ``prefill`` run under ``torch.inference_mode()``; ``loss``
-runs in the caller's grad mode, with every layer rematerialised when grad
-is on (its gradients go through the B7/B8 kernels on the card).  The reference's bundle has no ``forward``: its
-callers reach the family module directly; the port's DAEF head takes the
-bundle's.  ``input_specs`` gives meta tensors, PyTorch's counterpart of the
-reference's ``jax.ShapeDtypeStruct``: shapes and dtypes, no storage.
+to the parameters' device.  The ``vlm`` family's ``prefill`` and ``loss``
+also read ``batch["patch_embeds"]`` [B, n_patches, d_frontend] (floats,
+numpy or torch), projected into a prefix of the text; its ``forward(params,
+tokens, patch_embeds=None)`` gives the hidden states of prefix and text, or
+of the text alone.  The ``encdec`` family's read ``batch["frames"]`` [B,
+T_enc, d_model], the encoder's inputs; its ``forward(params, tokens,
+frames)`` gives the decoder's hidden states.  The ``moe`` family's
+``forward`` gives the hidden states only (the reference's
+``moe_lm.forward`` also returns the router's aux loss, which its loss
+adds).  ``forward`` and ``prefill`` run under ``torch.inference_mode()``;
+``loss`` runs in the caller's grad mode, with every layer rematerialised
+when grad is on (its gradients go through the B7/B8 kernels on the card).
+The reference's bundle has no ``forward``: its callers reach the family
+module directly; the port's DAEF head takes the bundle's.  ``input_specs``
+gives meta tensors, PyTorch's counterpart of the reference's
+``jax.ShapeDtypeStruct``: shapes and dtypes, no storage.
 
 ``init_cache`` allocates a zero cache (a ``KVCache``, ``MoECaches``,
 ``Mamba2Cache`` or ``RGCache`` of tensors) on ``device``, ``None`` meaning
-the card: pass the parameters' device.  ``decode`` runs one token [B, 1] at position ``pos``
-(an int or a 0-d integer tensor on the cache's device) under
-``torch.inference_mode()`` and updates the cache in place: the cache it
-returns is the one passed in, now holding the token (the reference donates
-it), so a caller must not keep the old one.  :func:`cache_specs` gives the
-cache's tree as meta tensors.
+the card: pass the parameters' device.  The encoder-decoder's cache holds
+the cross K/V of the encoder's output, which need the parameters: its
+``init_cache`` raises, as the reference's does, and a caller builds the
+cache with ``encdec.init_cache(params, cfg, enc_out, seq_len, dtype)``.
+``decode`` runs one token [B, 1] at position ``pos`` (an int or a 0-d
+integer tensor on the cache's device) under ``torch.inference_mode()`` and
+updates the cache in place: the cache it returns is the one passed in, now
+holding the token (the reference donates it), so a caller must not keep
+the old one.  :func:`cache_specs` gives the cache's tree as meta tensors.
 
-``loss`` trains the ``dense`` family only: for ``vlm`` and ``moe`` it
-raises ``NotImplementedError`` naming ROADMAP queue A item 14 (their
-serving path is ported, their training is not; MLA's backward would need
-B8 at unequal head sizes), for ``ssm`` and ``hybrid`` naming item 16 (their
-B10/B9 kernels have no backward).  :func:`get_bundle` raises for the
-encoder-decoder (``encdec``), not ported yet, naming item 14.
+``loss`` trains the ``dense``, ``vlm``, ``moe`` and ``encdec`` families;
+for ``ssm`` and ``hybrid`` it raises ``NotImplementedError`` naming ROADMAP
+queue A item 16 (their B10/B9 kernels have no backward).
 """
 from __future__ import annotations
 
@@ -55,13 +59,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import InputShape
 from repro_torch.device import resolve_device
-from repro_torch.models import common, mamba2, moe_lm, rglru, transformer, vlm
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import common, encdec, mamba2, moe_lm, rglru, transformer, vlm
 
 _MODULES = {"dense": transformer, "vlm": vlm, "moe": moe_lm, "ssm": mamba2,
-            "hybrid": rglru}
-_NOT_YET = {
-    "encdec": "the encoder-decoder (ROADMAP queue A item 14, other families)",
-}
+            "hybrid": rglru, "encdec": encdec}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,10 +97,11 @@ def _generator(seed, device=None) -> torch.Generator:
     return torch.Generator(device=resolve_device(device)).manual_seed(int(seed))
 
 
-def _patches(params, patch_embeds) -> torch.Tensor:
-    """The VLM's patch embeddings on the parameters' device, floats kept in
-    their dtype (numpy's float64 as float32, the reference's default)."""
-    x = torch.as_tensor(patch_embeds, device=params["embed"]["table"].device)
+def _floats(params, x) -> torch.Tensor:
+    """The VLM's patch embeddings or the encoder's frames on the parameters'
+    device, floats kept in their dtype (numpy's float64 as float32, the
+    reference's default)."""
+    x = torch.as_tensor(x, device=params["embed"]["table"].device)
     return x.float() if x.dtype == torch.float64 else x
 
 
@@ -111,16 +114,21 @@ def input_specs(shape: InputShape, dtype=torch.float32) -> dict[str, torch.Tenso
                                   device="meta")}
 
 
-def _vlm_input_specs(cfg: ArchConfig):
+def _frontend_input_specs(name: str, dims: tuple[int, int]):
     def specs(shape: InputShape, dtype=torch.float32) -> dict[str, torch.Tensor]:
-        """The tokens and, unless ``shape`` is a decode shape, the patch
-        embeddings [global_batch, n_patches, d_frontend] in ``dtype``."""
+        """The tokens and, unless ``shape`` is a decode shape, the frontend's
+        inputs [global_batch, *dims] in ``dtype``."""
         out = input_specs(shape)
         if shape.kind != "decode":
-            out["patch_embeds"] = torch.empty((shape.global_batch, cfg.n_patches,
-                                               cfg.d_frontend), dtype=dtype, device="meta")
+            out[name] = torch.empty((shape.global_batch, *dims), dtype=dtype, device="meta")
         return out
     return specs
+
+
+def _encdec_cache_waits(*args, **kwargs):
+    raise NotImplementedError(
+        "the enc-dec cache needs params (the cross K/V of the encoder's output); use "
+        "encdec.init_cache(params, cfg, enc_out, seq_len, dtype) directly")
 
 
 def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
@@ -129,8 +137,6 @@ def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
     through the flash-attention kernels (B7, B8)."""
     del chunked_attn
     fam = cfg.family
-    if fam in _NOT_YET:
-        raise NotImplementedError(f"{_NOT_YET[fam]} is not ported yet")
     if fam not in _MODULES:
         raise ValueError(f"unknown family {fam!r}")
     mod = _MODULES[fam]
@@ -142,8 +148,13 @@ def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
     if fam == "vlm":
         @torch.inference_mode()
         def forward(params, tokens, patch_embeds=None):
-            patches = None if patch_embeds is None else _patches(params, patch_embeds)
+            patches = None if patch_embeds is None else _floats(params, patch_embeds)
             return vlm.forward(params, cfg, _tokens(params, tokens), patch_embeds=patches)
+    elif fam == "encdec":
+        @torch.inference_mode()
+        def forward(params, tokens, frames):
+            enc_out = encdec.encode(params, cfg, _floats(params, frames))
+            return encdec.decode_train(params, cfg, enc_out, _tokens(params, tokens))
     elif fam == "moe":
         @torch.inference_mode()
         def forward(params, tokens):
@@ -153,39 +164,59 @@ def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
         def forward(params, tokens):
             return mod.forward(params, cfg, _tokens(params, tokens))
 
-    def init_cache(batch_size, seq_len, dtype, *, device=None):
-        return mod.init_cache(cfg, batch_size, seq_len, dtype, device=device)
+    if fam == "encdec":
+        init_cache = _encdec_cache_waits
+    else:
+        def init_cache(batch_size, seq_len, dtype, *, device=None):
+            return mod.init_cache(cfg, batch_size, seq_len, dtype, device=device)
 
     @torch.inference_mode()
     def decode(params, cache, token, pos):
         return mod.decode_step(params, cfg, cache, _tokens(params, token), pos)
 
+    frontend = {"vlm": "patch_embeds", "encdec": "frames"}.get(fam)
+
     @torch.inference_mode()
     def prefill(params, batch):
-        h = forward(params, batch["tokens"],
-                    *((batch["patch_embeds"],) if fam == "vlm" else ()))
+        h = forward(params, batch["tokens"], *((batch[frontend],) if frontend else ()))
         # an untied model has an lm_head; the tied ones read the embedding
         return common.logits_from_hidden(h[:, -1:], params["embed"], params.get("lm_head"))
 
-    if fam == "dense":
-        def loss(params, batch):
-            return transformer.lm_loss(params, cfg, _tokens(params, batch["tokens"]))
-    elif fam in ("vlm", "moe"):
-        loss = _waits(f"training the {fam} family (its lm_loss; MLA's backward would need "
-                      "B8 at unequal head sizes)", item=14)
-    else:
+    if fam in ("ssm", "hybrid"):
         loss = _waits(f"training the {fam} family (lm_loss through the B9/B10 "
                       "kernels, which have no backward)", item=16)
+    else:
+        def loss(params, batch):
+            tokens = _tokens(params, batch["tokens"])
+            if frontend:
+                return mod.lm_loss(params, cfg, _floats(params, batch[frontend]), tokens)
+            return mod.lm_loss(params, cfg, tokens)
 
+    if fam == "vlm":
+        specs = _frontend_input_specs("patch_embeds", (cfg.n_patches, cfg.d_frontend))
+    elif fam == "encdec":
+        specs = _frontend_input_specs("frames", (cfg.encoder_seq, cfg.d_model))
+    else:
+        specs = input_specs
     return ModelBundle(
         cfg=cfg, init=init, forward=forward, prefill=prefill, loss=loss,
-        init_cache=init_cache, decode=decode,
-        input_specs=_vlm_input_specs(cfg) if fam == "vlm" else input_specs,
+        init_cache=init_cache, decode=decode, input_specs=specs,
     )
 
 
 def cache_specs(bundle: ModelBundle, batch: int, seq_len: int, dtype) -> Any:
     """The decode cache's tree as meta tensors (shapes and dtypes, no
     storage): the counterpart of the reference's ``jax.eval_shape`` of
-    ``bundle.init_cache``."""
+    ``bundle.init_cache``, and, for the encoder-decoder, of its
+    ``EncDecCache`` of [L, B, seq_len, H, hd] self K/V and [L, B, T_enc, H,
+    hd] cross K/V, all in ``dtype``."""
+    cfg = bundle.cfg
+    if cfg.family == "encdec":
+        def meta(*shape):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+        xshape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_heads, cfg.head_dim)
+        return encdec.EncDecCache(self_kv=attn_mod.KVCache(k=meta(*shape), v=meta(*shape)),
+                                  cross_kv=(meta(*xshape), meta(*xshape)))
     return bundle.init_cache(batch, seq_len, dtype, device="meta")

@@ -1,5 +1,5 @@
-"""Shared model components: norms, MLPs, embeddings, RoPE, initialisers and
-the chunked cross-entropy.
+"""Shared model components: norms, MLPs, embeddings, RoPE, sinusoidal
+positions, initialisers and the chunked cross-entropy.
 
 Counterpart of ``repro/models/common.py``.  Modules are functional, as in
 the reference: ``init_*`` returns a parameter dict of tensors, the apply
@@ -141,6 +141,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings [seq, d] (float32):
+    ``[sin | cos]`` of position times ``10000^(-2i/d)``.  The power is taken
+    in float64 and rounded once to float32, the correctly rounded float32
+    power that XLA's is; torch's float32 ``pow`` is one ulp off at some
+    exponents, which moves an angle at position 1,500 by ~3e-6."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    exponents = torch.arange(0, d, 2, dtype=torch.float32, device=device) / d
+    inv = 1.0 / (10000 ** exponents.double()).float()
+    angles = pos * inv[None, :]
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -18,10 +18,15 @@ at (nope + rope, v_head_dim)); decode is plain PyTorch and updates the
 caches in place (``attention.update_cache``'s rule), a sliding-window model
 writing ring slot ``pos % cache_len``.
 
-What the port leaves out: ``lm_loss`` (training the MoE models, ROADMAP
-queue A item 14; MLA's backward would need B8 at unequal head sizes),
-``chunked_attn`` (the attention always streams through B7), ``remat`` (no
-grad path), and the sequence-sharding hint ``seq_shard`` /
+:func:`lm_loss` is the cross-entropy plus ``router_aux_coef`` times the
+router's aux loss summed over the MoE layers; its backward goes through B8
+(at MLA's (192, 128) for deepseek-v2).  Every layer is checkpointed
+(``torch.utils.checkpoint``) when grad mode is on, as the reference wraps
+each in ``jax.checkpoint`` (the routing is recomputed from the same inputs,
+so it makes the same choices).
+
+What the port leaves out: ``chunked_attn`` (the attention always streams
+through B7), and the sequence-sharding hint ``seq_shard`` /
 ``$REPRO_SEQ_SHARD``, which has no meaning without a mesh (ROADMAP queue A
 item 12).
 """
@@ -30,6 +35,8 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -66,14 +73,17 @@ def _init_layers(gen: torch.Generator, cfg: ArchConfig, dtype, n: int,
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> Params:
     """Random parameters on ``gen``'s device: ``moe_layers`` stacked on
-    [L - first_dense_layers], ``dense_layers`` on [first_dense_layers] when
-    there are any, an untied ``lm_head`` unless the embeddings are tied."""
+    [L - first_dense_layers] and ``dense_layers`` on [first_dense_layers],
+    each when there are any (a model cut to its dense layers has no MoE
+    stack, whose empty leaves no gradient would reach), an untied
+    ``lm_head`` unless the embeddings are tied."""
     n_dense = cfg.first_dense_layers
     params: Params = {
         "embed": common.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": common.init_norm(cfg.norm, cfg.d_model, dtype, device=gen.device),
-        "moe_layers": _init_layers(gen, cfg, dtype, cfg.n_layers - n_dense, False),
     }
+    if cfg.n_layers > n_dense:
+        params["moe_layers"] = _init_layers(gen, cfg, dtype, cfg.n_layers - n_dense, False)
     if n_dense:
         params["dense_layers"] = _init_layers(gen, cfg, dtype, n_dense, True)
     if not cfg.tie_embeddings:
@@ -104,23 +114,48 @@ def _stacks(params: Params, cfg: ArchConfig) -> list[tuple[str, list[Params]]]:
     out = []
     if "dense_layers" in params:
         out.append(("dense", common.unstack(params["dense_layers"], n_dense)))
-    out.append(("moe", common.unstack(params["moe_layers"], cfg.n_layers - n_dense)))
+    if "moe_layers" in params:
+        out.append(("moe", common.unstack(params["moe_layers"], cfg.n_layers - n_dense)))
     return out
 
 
+def _layer_fwd(layer: Params, cfg: ArchConfig, h: torch.Tensor):
+    h = h + _attn(layer, cfg, h)[0]
+    y, aux = _ffn(layer, cfg, h)
+    return h + y, aux
+
+
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor):
-    """(hidden [B, S, d], aux loss) for prefill; ``tokens`` [B, S] on the
-    parameters' device.  The aux loss is the float32 sum of the MoE layers'."""
+    """(hidden [B, S, d], aux loss) for training or prefill; ``tokens``
+    [B, S] on the parameters' device.  The aux loss is the float32 sum of
+    the MoE layers'."""
     h = common.embed(params["embed"], tokens)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for _, layers in _stacks(params, cfg):
         for layer in layers:
-            h = h + _attn(layer, cfg, h)[0]
-            y, aux_l = _ffn(layer, cfg, h)
-            h = h + y
+            if torch.is_grad_enabled():
+                # the layers draw no random numbers: no RNG state to replay
+                h, aux_l = checkpoint(_layer_fwd, layer, cfg, h, use_reentrant=False,
+                                      preserve_rng_state=False)
+            else:
+                h, aux_l = _layer_fwd(layer, cfg, h)
             if aux_l is not None:
                 aux = aux + aux_l
     return common.apply_norm(cfg.norm, params["final_norm"], h), aux
+
+
+def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            loss_chunk: int = 1024) -> torch.Tensor:
+    """Next-token cross-entropy of ``tokens`` [B, S] plus ``router_aux_coef``
+    times the aux loss (float32 scalar)."""
+    h, aux = forward(params, cfg, tokens)
+    h_in, labels = h[:, :-1], tokens[:, 1:]
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    w = params["embed"]["table"] if cfg.tie_embeddings else params["lm_head"]
+    xent = common.chunked_softmax_xent(h_in, labels, mask, w,
+                                       chunk=min(loss_chunk, h_in.shape[1]),
+                                       transpose=cfg.tie_embeddings)
+    return xent + cfg.router_aux_coef * aux
 
 
 # ---------------------------------------------------------------------------

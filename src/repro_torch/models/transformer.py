@@ -19,8 +19,7 @@ allocates only ``min(seq_len, window)`` slots and writes ring slot
 it (see ``attention.update_cache``).
 
 What the port leaves out: ``chunked_attn`` (the attention always streams
-through the B7/B8 kernels); ``lm_loss``'s ``prefix_embeds`` (training the
-VLM, ROADMAP queue A item 14).
+through the B7/B8 kernels).
 """
 from __future__ import annotations
 
@@ -88,9 +87,13 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 
 def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            prefix_embeds: torch.Tensor | None = None,
             loss_chunk: int = 1024) -> torch.Tensor:
-    """Next-token cross-entropy (float32 scalar) of ``tokens`` [B, S]."""
-    h = forward(params, cfg, tokens)
+    """Next-token cross-entropy (float32 scalar) of ``tokens`` [B, S];
+    ``prefix_embeds`` [B, P, d] go before the text and carry no loss."""
+    h = forward(params, cfg, tokens, prefix_embeds=prefix_embeds)
+    n_prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+    h = h[:, n_prefix:]
     h_in, labels = h[:, :-1], tokens[:, 1:]
     mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
     w = params["embed"]["table"] if cfg.tie_embeddings else params["lm_head"]

@@ -9,8 +9,9 @@ n_patches, d_frontend].  This module owns the projector (LayerNorm, a
 (``transformer.forward(prefix_embeds=...)``), so its attention is B7's.
 
 Decode is the dense decode: the image tokens belong to the prefill, the KV
-cache covers prefix and text.  What the port leaves out: ``lm_loss``
-(training the VLM, ROADMAP queue A item 14).
+cache covers prefix and text.  :func:`lm_loss` is the dense loss over the
+text, the projected patches a prefix that carries no loss; its gradients
+reach the projector through the prefix.
 """
 from __future__ import annotations
 
@@ -55,6 +56,14 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     (without patches: [B, S, d], the decoder alone)."""
     prefix = None if patch_embeds is None else project(params, patch_embeds)
     return transformer.forward(params, cfg, tokens, prefix_embeds=prefix, remat=remat)
+
+
+def lm_loss(params: Params, cfg: ArchConfig, patch_embeds: torch.Tensor,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy (float32 scalar) of ``tokens`` [B, S] after
+    the projected ``patch_embeds`` [B, P, d_frontend]."""
+    return transformer.lm_loss(params, cfg, tokens,
+                               prefix_embeds=project(params, patch_embeds))
 
 
 init_cache = transformer.init_cache

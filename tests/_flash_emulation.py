@@ -11,6 +11,9 @@ bf16 values, hi = bf16(x), lo = bf16(x - hi), one step of hi then one of lo.
 ``split=False`` is the single-rounding variant (P and dS rounded once to
 bf16), which the kernels do not use.
 
+Both kernels take the causal mask or none (``causal=False``: whisper's
+encoder), and head sizes (D, D_v) of q/k and v: equal, or MLA's (192, 128).
+
 Run as a script, it prints the largest share of its bar that any element
 used, for both variants, at the cases the tests use:
 
@@ -39,6 +42,13 @@ CASES = [
     (77, 4, 2, 128, 1),
     (130, 2, 1, 256, 17),
     (200, 4, 4, 128, None),
+]
+# (S, H, Hkv, D, D_v, causal): whisper's encoder (no causal mask) and MLA's
+# head sizes, ragged S.
+NEW_CASES = [
+    (150, 4, 4, 64, 64, False),
+    (130, 4, 2, 192, 128, True),
+    (97, 2, 2, 192, 128, False),
 ]
 
 
@@ -75,13 +85,13 @@ def _heads(x, hkv):
     return x.float().reshape(b, s, hkv, n // hkv, d).permute(0, 2, 3, 1, 4)
 
 
-def forward(q, k, v, *, window=None, split=True):
+def forward(q, k, v, *, causal=True, window=None, split=True):
     """The forward kernel's (out [B, S, H, D_v] bf16, lse [B, H, S] float32)
-    for bf16 q [B, S, H, D], k [B, S, Hkv, D], v [B, S, Hkv, D_v], causal."""
+    for bf16 q [B, S, H, D], k [B, S, Hkv, D], v [B, S, Hkv, D_v]."""
     b, s, h, d = q.shape
     hkv, scale = k.shape[2], d**-0.5
     qg, kg, vg = _heads(q, hkv), _heads(k, hkv), _heads(v, hkv)
-    ok = attention_mask(s, True, window, q.device)
+    ok = attention_mask(s, causal, window, q.device)
     m = torch.full(qg.shape[:-1], NEG_INF)
     l = torch.zeros(qg.shape[:-1])
     o = torch.zeros((*qg.shape[:-1], v.shape[-1]))
@@ -100,13 +110,13 @@ def forward(q, k, v, *, window=None, split=True):
     return out.to(torch.bfloat16), (m + torch.log(lf)).reshape(b, h, s)
 
 
-def backward(q, k, v, out, lse, do, *, window=None, split=True):
-    """The backward kernels' (dq, dk, dv) in bf16 for bf16 q, k, v, dO, the
-    forward's out and float32 lse [B, H, S], causal."""
+def backward(q, k, v, out, lse, do, *, causal=True, window=None, split=True):
+    """The backward kernels' (dq, dk [.., D], dv [.., D_v]) in bf16 for bf16
+    q, k, v, dO, the forward's out and float32 lse [B, H, S]."""
     b, s, h, d = q.shape
     hkv, scale = k.shape[2], d**-0.5
     qg, kg, vg, dog = _heads(q, hkv), _heads(k, hkv), _heads(v, hkv), _heads(do, hkv)
-    ok = attention_mask(s, True, window, q.device)
+    ok = attention_mask(s, causal, window, q.device)
     lse_g = lse.reshape(b, hkv, h // hkv, s)
     dvec = (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(lse_g.shape)
     sc = _mm(qg, kg.transpose(-1, -2))
@@ -115,42 +125,44 @@ def backward(q, k, v, out, lse, do, *, window=None, split=True):
     dq = scale * _mm_derived(ds, kg, split)
     # dk, dv: the group's query heads one after another into one accumulator.
     dk = torch.zeros(kg.shape[:2] + kg.shape[3:])
-    dv = torch.zeros_like(dk)
+    dv = torch.zeros(vg.shape[:2] + vg.shape[3:])
     for g in range(h // hkv):
         dk = dk + _mm_derived(ds[:, :, g].transpose(-1, -2), qg[:, :, g], split)
         dv = dv + _mm_derived(p[:, :, g].transpose(-1, -2), dog[:, :, g], split)
 
     def ungroup(x, n):
-        return x.reshape(b, n, s, d).transpose(1, 2).to(torch.bfloat16)
+        return x.reshape(b, n, s, x.shape[-1]).transpose(1, 2).to(torch.bfloat16)
 
     return ungroup(dq, h), ungroup(scale * dk, hkv), ungroup(dv, hkv)
 
 
-def inputs(s, h, hkv, d, seed):
-    """bf16 q, k, v, dO [B = 2, S, heads, D] from a seeded numpy generator."""
+def inputs(s, h, hkv, d, seed, d_v=None):
+    """bf16 q, k [B = 2, S, heads, D], v, dO [.., D_v (default D)] from a
+    seeded numpy generator."""
     rng = np.random.default_rng(seed)
-    return tuple(torch.from_numpy(rng.normal(size=(2, s, n, d)).astype(np.float32))
-                 .to(torch.bfloat16) for n in (h, hkv, hkv, h))
+    d_v = d if d_v is None else d_v
+    return tuple(torch.from_numpy(rng.normal(size=(2, s, n, w)).astype(np.float32))
+                 .to(torch.bfloat16) for n, w in ((h, d), (hkv, d), (hkv, d_v), (h, d_v)))
 
 
-def forward_share(q, k, v, window, split):
+def forward_share(q, k, v, window, split, causal=True):
     """The largest share of B7's bars any element uses: out within one bf16
     ulp, 2^-7·|ref| + 2^-7·1e-2; lse within 1e-5·max|lse|."""
-    out, lse = forward(q, k, v, window=window, split=split)
-    ref, ref_lse = flash_attention_ref(q, k, v, window=window)
+    out, lse = forward(q, k, v, causal=causal, window=window, split=split)
+    ref, ref_lse = flash_attention_ref(q, k, v, causal=causal, window=window)
     d = (out.double() - ref.double()).abs()
     share = float((d / (2.0**-7 * ref.double().abs() + 2.0**-7 * 1e-2)).max())
     share_lse = float((lse - ref_lse).abs().max() / (1e-5 * ref_lse.abs().max()))
     return share, share_lse
 
 
-def backward_share(q, k, v, do, window, split):
+def backward_share(q, k, v, do, window, split, causal=True):
     """The largest share of B8's bf16 bar any element of dq, dk, dv uses:
     2^-7·|ref| + 2e-5·(the element's term magnitude)."""
-    out, lse = flash_attention_ref(q, k, v, window=window)
-    got = backward(q, k, v, out, lse, do, window=window, split=split)
-    want = flash_attention_bwd_ref(q, k, v, out, lse, do, window=window)
-    mags = flash_attention_bwd_magnitudes(q, k, v, out, lse, do, window=window)
+    out, lse = flash_attention_ref(q, k, v, causal=causal, window=window)
+    got = backward(q, k, v, out, lse, do, causal=causal, window=window, split=split)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window)
+    mags = flash_attention_bwd_magnitudes(q, k, v, out, lse, do, causal=causal, window=window)
     return max(float(((g.double() - w.double()).abs()
                       / (2.0**-7 * w.double().abs() + 2e-5 * m.double())).max())
                for g, w, m in zip(got, want, mags))
@@ -164,3 +176,9 @@ if __name__ == "__main__":
         print(f"S={s} H={h}/{hkv} D={d} window={window}: forward out/lse share of the bar "
               f"hi+lo {fwd[True][0]:.3f}/{fwd[True][1]:.3f}, single {fwd[False][0]:.3f}/"
               f"{fwd[False][1]:.3f}; backward hi+lo {bwd[True]:.3f}, single {bwd[False]:.3f}")
+    for s, h, hkv, d, d_v, causal in NEW_CASES:
+        q, k, v, do = inputs(s, h, hkv, d, seed=s + d, d_v=d_v)
+        fwd = forward_share(q, k, v, None, True, causal)
+        bwd = backward_share(q, k, v, do, None, True, causal)
+        print(f"S={s} H={h}/{hkv} ({d}, {d_v}) causal={causal}: forward out/lse share hi+lo "
+              f"{fwd[0]:.3f}/{fwd[1]:.3f}; backward hi+lo {bwd:.3f}")

@@ -755,6 +755,10 @@ def test_flash_attention_refuses_head_sizes_it_has_no_kernel_for(card):
     q = torch.zeros((1, 8, 2, 192), device=card)
     with pytest.raises(ValueError, match="head sizes"):
         flash_attention(q, q, q)
+    q, v = torch.zeros((1, 8, 2, 128), device=card), torch.zeros((1, 8, 2, 64), device=card)
+    lse = torch.zeros((1, 2, 8), device=card)
+    with pytest.raises(ValueError, match="head sizes"):
+        flash_attention_bwd(q, q, v, v, lse, v)
 
 
 def test_flash_attention_reads_strided_heads(card):
@@ -1059,6 +1063,45 @@ def test_flash_attention_bwd_kernel_matches_plain(card, b, s, h, hkv, d, window,
                       flash_attention_bwd_magnitudes(q, k, v, out, lse, do, window=window))
     again = flash_attention_bwd(q, k, v, out, lse, do, window=window)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,d_v,causal", [
+    (4, 1_500, 6, 6, 64, 64, False),      # whisper-tiny's encoder: no causal mask
+    (2, 1_000, 4, 2, 64, 64, False),      # ragged S, GQA
+    (1, 1_000, 8, 8, 192, 128, True),     # MLA's head sizes, ragged S
+    (2, 512, 16, 16, 192, 128, True),
+    (1, 300, 4, 2, 192, 128, False),
+], ids=["encoder", "full ragged gqa", "mla ragged", "mla", "mla full gqa"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_new_routes_match_plain(card, b, s, h, hkv, d, d_v, causal, dtype):
+    """B7 and B8 without the causal mask and at MLA's (192, 128), both
+    routes (the route counts say which), against their plain versions under
+    the bars of the tests above; dq and dk are D wide, dv D_v; repeats are
+    bit-identical."""
+    gen = torch.Generator(device=card).manual_seed(s + d + h)
+    q, k = (_randn((b, s, n, d), gen, card, dtype) for n in (h, hkv))
+    v, do = (_randn((b, s, n, d_v), gen, card, dtype) for n in (hkv, h))
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    before = (dict(flash_attention.route_launches), dict(flash_attention_bwd.route_launches))
+    out, lse = flash_attention(q, k, v, causal=causal)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches[route] == before[0][route] + 1
+    assert flash_attention_bwd.route_launches[route] == before[1][route] + 1
+    ref, ref_lse = flash_attention_ref(q, k, v, causal=causal)
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        assert bool((diff <= 2.0**-7 * ref.float().abs() + 2.0**-7 * 1e-2).all())
+    else:
+        assert float(diff.max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(ref_lse.abs().max())
+    assert [tuple(g.shape) for g in got] == [(b, s, h, d), (b, s, hkv, d), (b, s, hkv, d_v)]
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
+    _assert_bwd_close(got, want, flash_attention_bwd_magnitudes(q, k, v, out, lse, do,
+                                                                causal=causal))
+    again = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    assert torch.equal(flash_attention(q, k, v, causal=causal)[0], out)
 
 
 def test_flash_attention_function_on_card(card):

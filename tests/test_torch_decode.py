@@ -263,7 +263,8 @@ def test_ring_cache_decode_matches_reference():
 
 def test_cache_interop_checks_the_layout():
     """Leaves round-trip; a wrong count, layer stack or ring width raises;
-    a family whose decode is not ported names its ROADMAP item."""
+    whisper's encoder-decoder cache round-trips too, and a wrong encoder
+    length raises."""
     jcfg, cfg = _cfgs("recurrentgemma-9b", {"n_layers": 5, "local_window": 8})
     leaves = _leaves(jget_bundle(jcfg).init_cache(2, 6, jnp.float32))
     cache = interop.lm_cache_from_numpy(cfg, leaves, device="cpu")
@@ -278,5 +279,17 @@ def test_cache_interop_checks_the_layout():
     kv = _leaves(jget_bundle(jregistry.get("qwen3-1.7b").reduced()).init_cache(1, 4, jnp.float32))
     with pytest.raises(ValueError, match="cache leaf 0"):
         interop.lm_cache_from_numpy(dataclasses.replace(qcfg, n_layers=3), kv, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
-        interop.lm_cache_from_numpy(registry.get("whisper-tiny").reduced(), kv, device="cpu")
+    # whisper's EncDecCache (self K, V, then the cross pair) round-trips
+    wcfg = registry.get("whisper-tiny").reduced()
+    jw = jregistry.get("whisper-tiny").reduced()
+    jspecs = jax.tree.flatten(japi.cache_specs(jget_bundle(jw), 2, 6, jnp.float32))[0]
+    rng = np.random.default_rng(3)
+    wleaves = [rng.normal(size=spec.shape).astype(np.float32) for spec in jspecs]
+    wcache = interop.lm_cache_from_numpy(wcfg, wleaves, device="cpu")
+    assert tuple(wcache.cross_kv[0].shape) == (wcfg.n_layers, 2, wcfg.encoder_seq,
+                                               wcfg.n_heads, wcfg.head_dim)
+    for a, b in zip(interop.lm_cache_to_numpy(wcfg, wcache), wleaves, strict=True):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="cache leaf 2"):
+        interop.lm_cache_from_numpy(dataclasses.replace(wcfg, encoder_seq=16), wleaves,
+                                    device="cpu")

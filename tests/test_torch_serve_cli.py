@@ -3,9 +3,9 @@
 * Argument errors: the same argv gives the same ``error:`` line as the
   reference CLI (tests/test_serve_cli.py pins the reference's messages), and
   exit code 2.
-* The LM mode of a family not ported yet (the encoder-decoder) raises
-  ``NotImplementedError`` naming ROADMAP queue A item 14, through
-  ``get_bundle``; ``--mesh-tenants`` names item 12.
+* The LM mode of the encoder-decoder (whisper) serves on the host and
+  ends in ``serve OK``; ``--mesh-tenants`` raises naming ROADMAP queue A
+  item 12.
 * The LM mode runs the dense, VLM, MoE, SSM and hybrid backbones on the
   host and prints the reference's lines; :func:`serve.generate` on the reference's
   own parameters gives the reference loop's greedy tokens.
@@ -81,9 +81,14 @@ def test_argument_errors_match_the_reference(argv, needle, capsys, monkeypatch):
     assert ours == ref
 
 
-def test_lm_mode_and_mesh_tenants_name_their_items():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
-        serve.main(["--arch", "whisper-tiny", "--reduced"])
+def test_lm_mode_and_mesh_tenants_name_their_items(capsys):
+    """Whisper's LM mode (ROADMAP item 14, done) prints the reference's four
+    lines, ending in ``serve OK``; ``--mesh-tenants`` waits for item 12."""
+    serve.main(["--arch", "whisper-tiny", "--reduced", "--batch", "2", "--prompt-len", "8",
+                "--gen", "4", "--device", "cpu"])
+    lines = capsys.readouterr().out.rstrip().splitlines()
+    assert len(lines) == 4 and lines[-1] == "serve OK", lines
+    assert lines[0] == "prompts [2, 8] -> generated (2, 4)"
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12"):
         serve.main(["--fleet", "2", "--mesh-tenants", "2", "--device", "cpu"])
 

@@ -22,7 +22,7 @@ a seed go through both packages:
 * B7's plain version at a v head size other than q's and k's (MLA's case)
   against the reference's ``attend_full`` and ``attend_chunked``, the
   tensor-core kernel's arithmetic at MLA's (192, 128) within the card's
-  bars, and B8's refusal of unequal head sizes.
+  bars, and B8's plain version at (192, 128) against autograd.
 
 Tolerance: ``TOLS`` float32 (atol = rtol = 1e-4) but where a test states
 1e-6 (routing: float32 softmaxes of the same logits, a few ulps on values
@@ -338,14 +338,25 @@ def test_tensor_core_forward_model_at_mla_head_sizes():
 
 
 def test_backward_refuses_unequal_head_sizes():
-    """B8 takes one head size: the autograd path and the backward itself
-    raise at D_v != D, naming ROADMAP item 14, instead of a wrong gradient."""
-    q = torch.randn(1, 8, 2, 16, requires_grad=True)
-    k, v = torch.randn(1, 8, 2, 16), torch.randn(1, 8, 2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
-        flash_attention(q, k, v)
-    out, lse = flash_attention(q.detach(), k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
-        flash_attention_bwd(q.detach(), k, v, out, lse, torch.ones_like(out))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
-        ops.FlashAttention.apply(q, k, v, True, None)
+    """B8 at MLA's head sizes (ROADMAP item 14, done): the plain backward at
+    q/k 192 and v 128 (dq, dk 192 wide, dv 128) and the autograd Function
+    through it give the gradients of autograd through the plain forward,
+    causal and not, GQA, at a ragged S (TOLS)."""
+    rng = np.random.default_rng(5)
+    q, k = (torch.from_numpy(rng.normal(size=(2, 37, n, 192)).astype(np.float32))
+            for n in (4, 2))
+    v = torch.from_numpy(rng.normal(size=(2, 37, 2, 128)).astype(np.float32))
+    do = torch.from_numpy(rng.normal(size=(2, 37, 4, 128)).astype(np.float32))
+    for causal in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref, _ = ops.flash_attention_ref(*leaves, causal=causal)
+        want = torch.autograd.grad(ref, leaves, do)
+        out, lse = flash_attention(q, k, v, causal=causal)
+        plain = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn_out, _ = ops.FlashAttention.apply(*leaves, causal, None)
+        via_fn = torch.autograd.grad(fn_out, leaves, do)
+        for name, w, p, f in zip(("dq", "dk", "dv"), want, plain, via_fn):
+            assert p.shape == w.shape and p.shape[-1] == (128 if name == "dv" else 192)
+            assert_close(p, w, what=f"{name} causal={causal}: plain vs autograd")
+            assert_close(f, w, what=f"{name} causal={causal}: Function vs autograd")
