@@ -367,15 +367,48 @@ no result:
     steps, every B7 and B8 launch on ``"wgmma"``; step time, positions/s
     and peak memory; then ``launch/train.py --arch whisper-tiny`` (3 bf16
     steps of 4 x 448 tokens) in process.
+24. the training of the SSM and hybrid families.  (a) B10's backward
+    (``ssd_chunk_bwd``, FP32 cores) against ``ssd_chunk_bwd_plain`` at
+    mamba2-780m's microbatch (2 x 2,048, 48 heads of P 64, N 128, G 1,
+    chunk 256) and at G = 2 with a ragged S (1,000, chunk 250), both with a
+    nonzero h_final cotangent, at S = 1 and B = 0, and a P of 65 refused;
+    B9's backward (``rglru_scan_bwd``) against ``rglru_scan_bwd_plain`` at
+    recurrentgemma-9b's microbatch (2 x 2,048 x 4,096) with bf16 x and
+    float32 gates and all in float32, at a ragged S = 37 (W = 100, bf16)
+    and S = 1, all with a nonzero h_last cotangent.  dxdt, dB, dC, dx, dr,
+    di to ``max|d| <= 1e-4 * max|plain|`` (bf16 outputs also one bf16 ulp
+    of the element); dla and dlam, whose sums cancel, per element to 1e-5
+    of their term magnitudes (``ref.*_bwd_magnitudes``); each repeat
+    bit-identical; the microbatches timed beside the plain versions and the
+    bounds (no one-call PyTorch yardstick).  (b) ``bundle.loss`` and every
+    gradient leaf, float32, 1 x 512 tokens, card (``_loss_launches``: B10
+    twice and its backward once a layer; B9 and B7 twice and their
+    backwards once a period's block, once the tail's) against host, each
+    leaf within 1e-4 of its largest entry: mamba2-780m cut to 2 layers and
+    recurrentgemma-9b to one period.  (c) 10 bf16 train steps (AdamW under
+    the launcher's schedule, 2 microbatches, remat, clip 1.0) of 4 x 2,048
+    tokens: mamba2-780m at full width and depth (48 layers) and
+    recurrentgemma-9b cut to one period and its 2-block tail (5 layers,
+    ~2.2e9 parameters): finite losses and gradient norms, mamba2's step 0
+    within 1.0 of ln V (recurrentgemma's untrained model echoes its input
+    token through the tied, sqrt(d)-scaled embedding: ~60), every gradient
+    leaf and layer nonzero, the loss on step 0's
+    batch lower after the steps, every B9 backward launch on bf16 x; step
+    time, tokens/s, peak memory, launches a step, and one more step under
+    the profiler (device time of B10, B10's backward, B9, B9's backward,
+    B7, B8 and cuBLAS).  (d) ``launch/train.py --arch mamba2-780m`` (3 bf16
+    steps of 4 x 2,048 tokens) in process.
 
-The last lines are a JSON object of phase 23's numbers, a JSON object of
+The last lines are a JSON object of phase 24's numbers, a JSON object of
+phase 23's numbers, a JSON object of
 phase 22's numbers, a JSON object of phase 21's numbers, a JSON object of
 phase 20's numbers, a JSON object of the svd phase's numbers, a JSON object
 of the engine phase's numbers, a JSON object of phase 19's numbers, a JSON
 object of the LM paths' numbers, a JSON object of per-shape numbers, the
 card's name and power limit, a JSON object of per-kernel numbers for all
-ten kernels (B7's and B8's rows with their routes of phases 22 and 23),
-and ``{"ok": true, "device": {...}}``.
+ten kernels (B7's and B8's rows with their routes of phases 22 and 23, B9's
+and B10's with their backwards of phase 24), and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -2845,12 +2878,13 @@ QWEN3_D = 2_048          # qwen3-1.7b's d_model: the head is 2048-256-512-2048
 
 def _lm_wrappers():
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    from repro_torch.kernels.rglru_scan import rglru_scan
-    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
 
     return {**_wrappers(), **_fleet_wrappers(), "flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd, "rglru_scan": rglru_scan,
-            "ssd_chunk": ssd_chunk}
+            "ssd_chunk": ssd_chunk, "rglru_scan_bwd": rglru_scan_bwd,
+            "ssd_chunk_bwd": ssd_chunk_bwd}
 
 
 def _lm_zero():
@@ -3687,6 +3721,29 @@ def _check_grads(grads):
         check(bool((per_layer > 0).all()), f"gradient {name} is zero in a layer")
 
 
+def _loss_launches(cfg) -> dict:
+    """The kernel launches of one ``bundle.loss`` and its backward, every
+    checkpointed layer's forward run twice: B7 twice and B8 once an
+    attention layer; B10 twice and its backward once a mamba2 layer; in the
+    hybrid, a period's blocks the same (B9 and its backward for a recurrent
+    block), the tail's blocks (not checkpointed) one forward and one
+    backward each."""
+    if cfg.family == "ssm":
+        return {"ssd_chunk": 2 * cfg.n_layers, "ssd_chunk_bwd": cfg.n_layers}
+    if cfg.family == "hybrid":
+        pattern = cfg.block_pattern or ("rec", "rec", "attn")
+        n_periods, rem = divmod(cfg.n_layers, len(pattern))
+        counts = {}
+        for kind, fwd, bwd in (("rec", "rglru_scan", "rglru_scan_bwd"),
+                               ("attn", "flash_attention", "flash_attention_bwd")):
+            period, tail = pattern.count(kind), pattern[:rem].count(kind)
+            counts[fwd] = 2 * n_periods * period + tail
+            counts[bwd] = n_periods * period + tail
+        return counts
+    n_attn = _attn_layers(cfg)
+    return {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+
+
 def _train_steps(name, card, b, s, changes=None, seed=0, tag="train"):
     """``name`` (cut by ``changes``) in bf16, trained for ``TRAIN_STEPS``
     steps as ``launch/train.py`` runs it: AdamW under
@@ -3697,10 +3754,12 @@ def _train_steps(name, card, b, s, changes=None, seed=0, tag="train"):
     (``_train_batch``).  Every step's global gradient norm (the step's own,
     before the clip, read by wrapping ``optim.global_norm``) and loss must be
     finite, the gradients that reach the optimiser nonzero in every leaf and
-    layer, step 0's loss within 1.0 of ln V and the loss on step 0's batch
-    lower after the steps; B7 twice and B8 once an attention layer and
-    microbatch, all on ``"wgmma"``.  Returns (cfg, bundle, params, state,
-    the step, the optimiser, the launch counts, the numbers)."""
+    layer, step 0's loss within 1.0 of ln V (not for the hybrid, whose
+    untrained model echoes its input token) and the loss on step 0's batch
+    lower after the steps; ``_loss_launches`` a microbatch (B7 twice and B8
+    once an attention layer, all on ``"wgmma"``; B9/B10 and their
+    backwards).  Returns (cfg, bundle, params, state, the step, the
+    optimiser, the launch counts, the numbers)."""
     import numpy as np
     import torch
 
@@ -3744,10 +3803,14 @@ def _train_steps(name, card, b, s, changes=None, seed=0, tag="train"):
                 f"{norms[-1]:.4f} (before the clip to 1.0), {times[-1]:.0f} ms")
     finally:
         optim.global_norm = global_norm
-    n_attn, n_mb = _attn_layers(cfg), TRAIN_STEPS * TRAIN_MICRO
-    launches = _lm_read(flash_attention=2 * n_attn * n_mb, flash_attention_bwd=n_attn * n_mb)
+    per_step = {k: v * TRAIN_MICRO for k, v in _loss_launches(cfg).items()}
+    launches = _lm_read(**{k: v * TRAIN_STEPS for k, v in per_step.items()})
     peak = torch.cuda.max_memory_allocated()
-    check(abs(losses[0] - np.log(cfg.vocab_size)) <= 1.0,
+    # The hybrid's embedding (std 0.02) enters scaled by sqrt(d_model) and is
+    # tied to the LM head, so an untrained model echoes its input token at a
+    # logit of ~0.02 d_model (82 at 4,096): step 0's loss is ~60, not ln V,
+    # as with the reference's init.
+    check(cfg.family == "hybrid" or abs(losses[0] - np.log(cfg.vocab_size)) <= 1.0,
           f"{name} step 0 loss {losses[0]:.4f} is not within 1.0 of ln V = "
           f"{np.log(cfg.vocab_size):.4f}")
     with torch.no_grad():
@@ -3765,8 +3828,9 @@ def _train_steps(name, card, b, s, changes=None, seed=0, tag="train"):
         f"{losses[0]:.4f} -> {losses[-1]:.4f}, step 0's batch {after:.4f}; launches {launches}")
     numbers = dict(n_layers=cfg.n_layers, b=b, positions=positions, step_ms=step_ms,
                    tokens_per_s=tok_s, peak_gib=peak / 2**30, losses=losses, loss_after=after,
-                   grad_norms=norms, b7_per_step=2 * n_attn * TRAIN_MICRO,
-                   b8_per_step=n_attn * TRAIN_MICRO)
+                   grad_norms=norms, b7_per_step=per_step.get("flash_attention", 0),
+                   b8_per_step=per_step.get("flash_attention_bwd", 0),
+                   launches_per_step=per_step)
     return cfg, bundle, params, state, step_fn, opt, launches, numbers
 
 
@@ -4085,8 +4149,8 @@ def _train_cli(argv, name, steps, micro, tag):
     """``python -m repro_torch.launch.train`` with ``argv`` in this process
     (its launches count here; the memory of earlier phases is released
     first): its step lines and its last line in the reference's formats,
-    finite losses, B7 twice and B8 once an attention layer and microbatch,
-    all on ``"wgmma"``."""
+    finite losses, ``_loss_launches`` a microbatch (B7 and B8 all on
+    ``"wgmma"``)."""
     import contextlib
     import io
 
@@ -4107,8 +4171,8 @@ def _train_cli(argv, name, steps, micro, tag):
     lines = buf.getvalue().strip().splitlines()
     for line in lines:
         say("train-cli", line)
-    n_attn, n_mb = _attn_layers(registry.get(name)), steps * micro
-    launches = _lm_read(flash_attention=2 * n_attn * n_mb, flash_attention_bwd=n_attn * n_mb)
+    launches = _lm_read(**{k: v * steps * micro
+                           for k, v in _loss_launches(registry.get(name)).items()})
     logged = [re.fullmatch(r"step +\d+  loss (\S+)  \(\d+\.\d+ s/step\)", ln)
               for ln in lines[:-1]]
     check(len(lines) == 3 and all(logged)
@@ -5047,10 +5111,11 @@ def _loss_and_grads(bundle, params, batch):
 
 def _grad_agree(name, seed, changes, s, tag="encdec"):
     """``bundle.loss`` and every gradient leaf of ``name`` cut by
-    ``changes``, float32, 1 x ``s`` tokens, card (B7 twice an attention
-    layer with the remat, B8 once, FP32 route) against host: MoE dispatch
-    compared first (a near tie reruns with the next seed), the loss within
-    1e-5 of itself, each leaf within 1e-4 of its largest entry."""
+    ``changes``, float32, 1 x ``s`` tokens, card (``_loss_launches``: B7
+    twice an attention layer with the remat, B8 once, FP32 route; B9/B10
+    and their backward kernels) against host: MoE dispatch compared first
+    (a near tie reruns with the next seed), the loss within 1e-5 of itself,
+    each leaf within 1e-4 of its largest entry."""
     import torch
     from torch.utils import _pytree as pytree
 
@@ -5061,9 +5126,7 @@ def _grad_agree(name, seed, changes, s, tag="encdec"):
         t0 = time.perf_counter()
         loss_card, g_card, log_card = _loss_and_grads(bundle, params, batch)
         card_s = time.perf_counter() - t0
-        n_attn = _attn_layers(cfg)
-        launches = _lm_read(route="fp32", flash_attention=2 * n_attn,
-                            flash_attention_bwd=n_attn)
+        launches = _lm_read(route="fp32", **_loss_launches(cfg))
         host = pytree.tree_map(lambda t: t.detach().cpu(), params)
         t0 = time.perf_counter()
         loss_host, g_host, log_host = _loss_and_grads(
@@ -5159,6 +5222,291 @@ def phase_encdec_training(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 24. training of the SSM and hybrid families: B10's and B9's backward
+# kernels against their plain versions, gradients card against host, bf16
+# train steps, the training CLI
+# ---------------------------------------------------------------------------
+
+# (c): (batch, tokens, config changes) of each family's bf16 train steps;
+# recurrentgemma-9b cut to one (rec, rec, attn) period and its 2-block tail
+# (~2.2e9 parameters, ~35 GB with AdamW's moments: the whole 9.4e9 does not
+# fit one card)
+SSM_TRAIN = {MAMBA2: (4, 2_048, {}), RGEMMA: (4, 2_048, {"n_layers": 5})}
+# (b): the config changes of each family's gradient check, 1 x 512 tokens
+SSM_GRAD = {MAMBA2: {"n_layers": 2}, RGEMMA: {"n_layers": 3}}
+MAMBA2_TRAIN_CLI = ["--arch", MAMBA2, "--steps", "3", "--batch", "4", "--seq", "2048",
+                    "--microbatches", "2", "--dtype", "bfloat16"]
+# device-time groups of a profiled train step, by kernel-name fragment
+SSM_PROFILE_GROUPS = {
+    "B10 backward": ("chunk_grad_kernel", "chunk_sums_kernel", "state_passes_kernel",
+                     "finish_kernel", "group_sum_kernel"),
+    "B10 forward": ("bt_kernel", "chunk_state_kernel", "state_pass_kernel", "scores_kernel",
+                    "chunk_out_kernel"),
+    "B9 backward": ("rglru_bwd_kernel", "dlam_kernel"),
+    "B9 forward": ("rglru_scan_kernel",),
+    "B7": ("flash_fwd_",),
+    "B8": ("flash_bwd_",),
+    "GEMM (cuBLAS)": ("gemm", "xmma", "nvjet", "cutlass"),
+}
+
+
+def _ssd_bwd_work(b, s, h, p, g, n, chunk):
+    """B10's backward: per (b·h, chunk) five [P, N] products over the chunk
+    (the state contributions, E_c, D·B, Dᵀ·xdt, h_prevᵀ·dy: 5·Q·P·N
+    multiply-adds), per causal (q, k) pair dy·xdt and the dxdt, dB and dC
+    terms (2P + 2N) and C·B once per group (N·G / H a head), 2 FLOPs a
+    multiply-add; xdt, dy, la, B, C and dh_final read once, dxdt, dla, dB
+    and dC written once, float32."""
+    pairs = chunk * (chunk + 1) // 2
+    per_chunk = 5 * chunk * p * n + pairs * (2 * p + 2 * n) + pairs * n * g / h
+    flops = 2 * per_chunk * (s // chunk) * b * h
+    nbytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * g * n + b * h * p * n)
+    return flops, nbytes
+
+
+def _rglru_bwd_work(b, s, w, x_elem=4, gate_elem=4):
+    """B9's backward: ~20 operations an element (exp, expm1, sqrt and the
+    division counted as one each); x, r, i (in their dtypes), y and dy
+    (float32) read once, dx, dr and di written once in their dtypes, lam
+    and dh_last read and dlam written once."""
+    return (20 * b * s * w,
+            (2 * x_elem + 4 * gate_elem + 8) * b * s * w + 4 * (2 * w + b * w))
+
+
+def _agree_mag(label, got, want, mags, rel=1e-5):
+    """|got - want| <= rel * the element's term magnitude at every element
+    (sums that cancel: their float32 error follows the size of the terms,
+    tests/test_torch_ssm_training.py); returns max|d| and the largest share
+    of its bar that any element used."""
+    d = (got.double() - want.double()).abs()
+    check(bool(got.isfinite().all()), f"{label}: not finite")
+    used = float((d / (rel * mags.double()).clamp_min(1e-300)).max()) if d.numel() else 0.0
+    check(used <= 1.0, f"{label}: an element's |d| is {used:.3f} of its bar {rel:g} * "
+          "magnitude")
+    return (float(d.max()) if d.numel() else 0.0), used
+
+
+def _ssd_bwd_checks(card):
+    """(a) B10's backward against ``ssd_chunk_bwd_plain`` on the card:
+    mamba2-780m's microbatch (2 x 2,048, 48 heads of P 64, N 128, G 1, chunk
+    256) and G = 2 at a ragged S (1,000, chunk 250), both with a nonzero
+    h_final cotangent; S = 1 and B = 0 without.  dxdt, dB, dC to the
+    script's rule (1e-4 of max|plain|), dla per element to 1e-5 of its term
+    magnitude (its row and column sums cancel); a repeat bit-identical; a P
+    of 65 refused before any launch.  The microbatch timed beside the plain
+    version and the bound.  Returns its row."""
+    import torch
+
+    from repro_torch.kernels.ssd_chunk import fit_chunk, ssd_chunk_bwd, ssd_chunk_bwd_plain
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_bwd_magnitudes
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    row = None
+    for label, b, s, h, p, g, n, chunk, final in (
+            ("mamba2 train", 2, 2_048, 48, 64, 1, 128, 256, True),
+            ("G = 2, S = 1,000 (chunk 250)", 2, 1_000, 8, 64, 2, 128, 256, True),
+            ("S = 1", 1, 1, 48, 64, 1, 128, 256, False),
+            ("B = 0", 0, 256, 48, 64, 1, 128, 256, False)):
+        xdt, dy = (torch.randn((b, s, h, p), generator=gen, device="cuda") for _ in range(2))
+        la = -torch.rand((b, s, h), generator=gen, device="cuda") * 0.1
+        bm, cm = (torch.randn((b, s, g, n), generator=gen, device="cuda") for _ in range(2))
+        dh = torch.randn((b, h, p, n), generator=gen, device="cuda") if final else None
+        args = (xdt, la, bm, cm, dy, dh)
+        before = ssd_chunk_bwd.launches
+        got = ssd_chunk_bwd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        check(ssd_chunk_bwd.launches == before + (b > 0), f"B10 backward {label}: launches")
+        q = fit_chunk(s, chunk)
+        want = ssd_chunk_bwd_plain(*args, chunk=q)
+        errs, used = [], 0.0
+        for name, gt, wt in zip(("dxdt", "db", "dc"), (got[0], *got[2:]), (want[0], *want[2:])):
+            check(gt.shape == wt.shape and gt.dtype == torch.float32,
+                  f"B10 backward {label} {name}: shape or dtype")
+            if b:
+                err, scale = _agree(f"B10 backward {label} {name}", gt, wt, 1e-4)
+                errs.append(err)
+                used = max(used, err / (1e-4 * scale))
+        mags = ssd_chunk_bwd_magnitudes(*args, chunk=q)
+        err_la, used_la = _agree_mag(f"B10 backward {label} dla", got[1], want[1], mags[1])
+        again = ssd_chunk_bwd(*args, chunk=chunk)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"B10 backward {label}: a repeat is not bit-identical")
+        say("kernel", f"ssd_chunk_bwd {label} B={b} S={s} H={h} P={p} G={g} N={n} Q={q}"
+            f"{', h_final cotangent' if final else ''}: dxdt, db, dc max|d| "
+            f"{max(errs, default=0.0):.3e} ({used:.4f} of 1e-4 * max|plain|), dla max|d| "
+            f"{err_la:.3e} ({used_la:.4f} of 1e-5 * its term magnitude), repeat "
+            "bit-identical, ok")
+        if label == "mamba2 train":
+            ms = cuda_ms(lambda: ssd_chunk_bwd(*args, chunk=chunk))
+            plain_ms = cuda_ms(lambda: ssd_chunk_bwd_plain(*args, chunk=q), reps=5, warmup=1)
+            work = _ssd_bwd_work(b, s, h, p, g, n, q)
+            fp32_ms, _ = _bound(*work)
+            bound_ms, bound_by = _bound(*work, PEAK_TF32X3_FLOPS)
+            row = dict(shape=label, b=b, s=s, h=h, p=p, g=g, n=n, chunk=q,
+                       max_abs_err=max(*errs, err_la), ms=ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                       bound_fp32_ms=fp32_ms, bar_used=max(used, used_la))
+            say("kernel", f"ssd_chunk_bwd {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms at 3xTF32 ({bound_by}, {work[0]:.4g} FLOP), "
+                f"{fp32_ms:.4f} ms on FP32 cores; library none (no single PyTorch call "
+                f"computes the SSD scan's backward); on {card}")
+        del args, got, want, mags, again
+    before = ssd_chunk_bwd.launches
+    try:
+        z = torch.zeros((1, 64, 2, 65), device="cuda")
+        zb = torch.zeros((1, 64, 1, 32), device="cuda")
+        ssd_chunk_bwd(z, torch.zeros((1, 64, 2), device="cuda"), zb, zb, z, chunk=64)
+        check(False, "B10 backward: P = 65 was not refused")
+    except ValueError as e:
+        check("the kernel takes" in str(e) and ssd_chunk_bwd.launches == before,
+              f"B10 backward: P = 65 refused as {e!r}")
+    return row
+
+
+def _rglru_bwd_checks(card):
+    """(a) B9's backward against ``rglru_scan_bwd_plain`` on the forward
+    kernel's y, with a nonzero h_last cotangent: recurrentgemma-9b's
+    microbatch (2 x 2,048 x 4,096) with bf16 x and float32 gates (the bf16
+    train step's) and all in float32, a ragged S = 37 at W = 100 all bf16,
+    and S = 1.  dx, dr, di in their inputs' dtypes to the script's rule
+    (bf16 outputs also one bf16 ulp of the element), dlam per element to
+    1e-5 of its term magnitude (a sum over batch and time that cancels); one
+    launch counted on x's dtype; a repeat bit-identical.  The microbatch
+    timed in both dtypes beside the plain version and the bound.  Returns
+    their rows."""
+    import torch
+
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd, rglru_scan_bwd_plain
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_magnitudes
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    for label, b, s, w, x_dtype, g_dtype, timed in (
+            ("recurrentgemma train", 2, 2_048, 4_096, bf16, f32, True),
+            ("recurrentgemma train float32", 2, 2_048, 4_096, f32, f32, True),
+            ("S = 37, W = 100 bf16", 2, 37, 100, bf16, bf16, False),
+            ("S = 1", 3, 1, 4_096, f32, f32, False)):
+        x = torch.randn((b, s, w), generator=gen, device="cuda").to(x_dtype)
+        r, i = (torch.sigmoid(torch.randn((b, s, w), generator=gen, device="cuda")).to(g_dtype)
+                for _ in range(2))
+        lam = torch.randn((w,), generator=gen, device="cuda") + 4
+        y, _ = rglru_scan(x, r, i, lam)
+        dy = torch.randn((b, s, w), generator=gen, device="cuda")
+        dh = torch.randn((b, w), generator=gen, device="cuda")
+        args = (x, r, i, lam, y, dy, dh)
+        route = str(x_dtype)[6:]
+        before = (rglru_scan_bwd.launches, rglru_scan_bwd.route_launches[route])
+        got = rglru_scan_bwd(*args)
+        torch.cuda.synchronize()
+        check((rglru_scan_bwd.launches, rglru_scan_bwd.route_launches[route])
+              == (before[0] + 1, before[1] + 1), f"B9 backward {label}: launches by route")
+        want = rglru_scan_bwd_plain(*args)
+        errs, used = [], 0.0
+        for name, gt, wt in zip(("dx", "dr", "di"), got, want):
+            check(gt.dtype == wt.dtype and gt.shape == wt.shape,
+                  f"B9 backward {label} {name}: dtype or shape")
+            if gt.dtype == bf16:
+                scale = float(wt.abs().max())
+                err, share = _agree_each(f"B9 backward {label} {name}", gt, wt, 2.0**-7,
+                                         1e-4 * scale)
+            else:
+                err, scale = _agree(f"B9 backward {label} {name}", gt, wt, 1e-4)
+                share = err / (1e-4 * scale)
+            errs.append(err)
+            used = max(used, share)
+        mags = rglru_scan_bwd_magnitudes(*args)
+        err_lam, used_lam = _agree_mag(f"B9 backward {label} dlam", got[3], want[3], mags[3])
+        again = rglru_scan_bwd(*args)
+        check(all(torch.equal(u, v) for u, v in zip(got, again)),
+              f"B9 backward {label}: a repeat is not bit-identical")
+        name = f"x {route}, gates {str(g_dtype)[6:]}"
+        say("kernel", f"rglru_scan_bwd {label} B={b} S={s} W={w} {name}: dx, dr, di max|d| "
+            f"{max(errs):.3e} ({used:.4f} of their bars), dlam max|d| {err_lam:.3e} "
+            f"({used_lam:.4f} of 1e-5 * its term magnitude), repeat bit-identical, ok")
+        if timed:
+            ms = cuda_ms(lambda: rglru_scan_bwd(*args))
+            plain_ms = cuda_ms(lambda: rglru_scan_bwd_plain(*args), reps=5, warmup=1)
+            bound_ms, bound_by = _bound(*_rglru_bwd_work(b, s, w, x.element_size(),
+                                                         r.element_size()))
+            rows.append(dict(shape=label, b=b, s=s, w=w, dtypes=name,
+                             max_abs_err=max(*errs, err_lam), ms=ms, plain_ms=plain_ms,
+                             library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                             bar_used=max(used, used_lam)))
+            say("kernel", f"rglru_scan_bwd {label} ({name}): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); library none (no "
+                f"single PyTorch call computes the recurrence's backward); on {card}")
+        del args, got, want, mags, again
+    return rows
+
+
+def _profile_train_step(name, step_fn, params, state, batch):
+    """One more train step under the profiler: wall time, device-busy time
+    and the device time of ``SSM_PROFILE_GROUPS``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    key = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    kernels = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(getattr(e, key) for e in kernels)
+    grouped = {e.key: grp for e in kernels for grp, pats in SSM_PROFILE_GROUPS.items()
+               if any(p in e.key for p in pats)}
+    shares = {grp: sum(getattr(e, key) for e in kernels if grouped.get(e.key) == grp) / 1e3
+              for grp in SSM_PROFILE_GROUPS}
+    shares = {grp: t for grp, t in shares.items() if t}
+    rest = sorted((e for e in kernels if e.key not in grouped), key=lambda e: -getattr(e, key))
+    shares["the rest"] = sum(getattr(e, key) for e in rest) / 1e3
+    say("profile", f"{name} train step: wall {wall * 1e3:.0f} ms, device busy "
+        f"{total / 1e3:.0f} ms ({100 * total / 1e6 / wall:.1f} %); device time: "
+        + ", ".join(f"{grp} {t:.1f} ms ({100 * t * 1e3 / max(total, 1):.1f} %)"
+                    for grp, t in shares.items())
+        + "; the rest's largest: " + ", ".join(f"{e.key[:60]} {getattr(e, key) / 1e3:.1f} ms"
+                                                for e in rest[:4]))
+    return dict(wall_ms=wall * 1e3, device_busy_ms=total / 1e3, shares_ms=shares,
+                rest_largest_ms={e.key[:60]: getattr(e, key) / 1e3 for e in rest[:4]})
+
+
+def phase_ssm_training(card) -> dict:
+    """Phase 24 (see the module docstring).  Returns the phase's numbers."""
+    t_phase = time.perf_counter()
+    _free()
+    out = {"ssd_chunk_bwd": _ssd_bwd_checks(card), "rglru_scan_bwd": _rglru_bwd_checks(card)}
+    t_kernels = time.perf_counter()
+    out["gradients"] = {name: _grad_agree(name, seed, SSM_GRAD[name], 512, tag="ssm")
+                        for name, seed in ((MAMBA2, 81), (RGEMMA, 82))}
+    t_grad = time.perf_counter()
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+
+    launches, out["train"] = {}, {}
+    for name, seed in ((MAMBA2, 90), (RGEMMA, 91)):
+        b, s, changes = SSM_TRAIN[name]
+        cfg, _, params, state, step_fn, _, launches[name], numbers = _train_steps(
+            name, card, b, s, changes, seed=seed, tag="ssm")
+        if cfg.family == "hybrid":
+            routes = rglru_scan_bwd.route_launches
+            check(routes["bfloat16"] == launches[name]["rglru_scan_bwd"],
+                  f"{name}: B9 backward launches by route {routes}, expected all bf16")
+        numbers["profile"] = _profile_train_step(name, step_fn, params, state,
+                                                 _train_batch(cfg, b, s, seed=TRAIN_STEPS))
+        out["train"][name] = numbers
+        del params, state, step_fn
+        _free()
+    out["train_cli"] = _train_cli(MAMBA2_TRAIN_CLI, MAMBA2, 3, 2, "ssm")
+    out["launches"] = launches
+    say("ssm", f"(a) took {t_kernels - t_phase:.1f} s, (b) {t_grad - t_kernels:.1f} s, (c) "
+        f"and (d) {time.perf_counter() - t_grad:.1f} s; phase 24 took "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5207,6 +5555,7 @@ def main() -> int:
         decode_numbers = phase_decode(card)
         family_numbers = phase_families(card)
         encdec_numbers = phase_encdec_training(card)
+        ssm_numbers = phase_ssm_training(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5376,6 +5725,16 @@ def main() -> int:
             "launches": lm_launches[RGEMMA]["rglru_scan"],
             # Per launch at recurrentgemma-9b's prefill shape (2 x 4,096 x 4,096).
             **_per_launch(lm_rows["rglru_scan"], "recurrentgemma prefill"),
+            # Its backward (no TPU counterpart: the reference differentiates
+            # plain XLA), per launch at a microbatch of the bf16 train steps
+            # (2 x 2,048 x 4,096, bf16 x, float32 gates); launches: the 10
+            # steps of recurrentgemma-9b cut to 5 layers.
+            "backward": {
+                "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_bwd.cu",
+                "launches": ssm_numbers["launches"][RGEMMA]["rglru_scan_bwd"],
+                "launches_per_train_step":
+                    ssm_numbers["train"][RGEMMA]["launches_per_step"]["rglru_scan_bwd"],
+                **_per_launch(ssm_numbers["rglru_scan_bwd"], "recurrentgemma train")},
         },
         {
             "name": "ssd_chunk",
@@ -5385,8 +5744,18 @@ def main() -> int:
             "launches": lm_launches[MAMBA2]["ssd_chunk"],
             # Per launch at mamba2-780m's prefill shape (4 x 4,096, 48 heads).
             **_per_launch(lm_rows["ssd_chunk"], "mamba2 prefill"),
+            # Its backward (no TPU counterpart: the reference differentiates
+            # plain XLA), per launch at a microbatch of the bf16 train steps
+            # (2 x 2,048, 48 heads); launches: mamba2-780m's 10 steps at full depth.
+            "backward": {
+                "source": "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk_bwd.cu",
+                "launches": ssm_numbers["launches"][MAMBA2]["ssd_chunk_bwd"],
+                "launches_per_train_step":
+                    ssm_numbers["train"][MAMBA2]["launches_per_step"]["ssd_chunk_bwd"],
+                **_per_launch([ssm_numbers["ssd_chunk_bwd"]], "mamba2 train")},
         },
     ]
+    print(json.dumps({"ssm_training": ssm_numbers}))
     print(json.dumps({"encdec_training": encdec_numbers}))
     print(json.dumps({"families": family_numbers}))
     print(json.dumps({"decode": decode_numbers}))

@@ -9,7 +9,9 @@
 //     inter:  y_i += exp(cum_i) · (h_prev · c_i)
 //     state:  h    = exp(cum_last) · h_prev + Σ_j exp(cum_last - cum_j) · xdt_j ⊗ b_j
 //
-// from h = 0, all float32.  Layout (the model's, read in place): xdt
+// from h = 0, float32 but for cum, which is summed in double (the
+// differences cum_i - cum_j lose ~1e-4 of exp(...) in float32 at mamba2's
+// decays; found by the gradient checks of training).  Layout (the model's, read in place): xdt
 // [B, S, H, P], la [B, S, H], bm and cm [B, S, G, N]; head h reads group
 // h / (H / G), so B and C are never repeated per head (at mamba2-780m's
 // shape a per-head copy would be 805 MB against 17 MB).  y [B, S, H, P],
@@ -73,9 +75,11 @@
 #include <cuda_runtime.h>
 
 #include "../../csrc/tf32x3_sm90.cuh"
+#include "ssd_common.cuh"
 
 namespace {
 
+using namespace ssd;
 using namespace tf32x3;
 
 constexpr int kThreads = 128;   // one warpgroup
@@ -87,53 +91,6 @@ constexpr int kNK = kMaxN / 8;  // k8 steps over N
 constexpr int kStateStep = kPanel;  // chunk steps per stage of the state product
 constexpr int kPassThreads = 256;
 constexpr int kPassAhead = 8;       // chunks the state pass loads ahead
-
-struct Shape {
-  int B, S, H, G, P, N, Q, nc;
-};
-
-// la of steps [c·Q, c·Q + Q) of (b, h) into cum[0, Q), then the inclusive
-// prefix sum in place: warp 0, 8 consecutive steps per lane.
-__device__ void chunk_cumsum(float* cum, const float* __restrict__ la, const Shape& sh,
-                             int b, int h, int c) {
-  for (int t = threadIdx.x; t < sh.Q; t += blockDim.x) {
-    const long long s = static_cast<long long>(c) * sh.Q + t;
-    cum[t] = la[(static_cast<long long>(b) * sh.S + s) * sh.H + h];
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    float v[8];
-    float run = 0.f;
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int t = lane * 8 + u;
-      run += t < sh.Q ? cum[t] : 0.f;
-      v[u] = run;
-    }
-    float incl = run;
-#pragma unroll
-    for (int off = 1; off < 32; off *= 2) {
-      const float up = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += up;
-    }
-    const float excl = incl - run;
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int t = lane * 8 + u;
-      if (t < sh.Q) cum[t] = v[u] + excl;
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ long long row_bsg(const Shape& sh, int b, long long s, int g) {
-  return ((static_cast<long long>(b) * sh.S + s) * sh.G + g) * sh.N;
-}
-
-__device__ __forceinline__ long long row_bsh(const Shape& sh, int b, long long s, int h) {
-  return ((static_cast<long long>(b) * sh.S + s) * sh.H + h) * sh.P;
-}
 
 // ---- 1. chunk states ----
 
@@ -189,8 +146,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Shared memory: two stages of Bᵀ hi and lo, then cum and decay_end.
-constexpr int kStateSmem = 4 * (2 * 2 * kStateTile + 2 * kMaxQ) + 1024;
+// Shared memory: two stages of Bᵀ hi and lo, then cum (doubles) and
+// decay_end.
+constexpr int kStateSmem = 4 * (2 * 2 * kStateTile + 3 * kMaxQ) + 1024;
 
 // This thread's A fragments of one stage, xdt[t][p] for the steps t of
 // k8 step kk: register r is p = 16w + l/4 + 8(r % 2), t = 8kk + l%4 + 4(r / 2)
@@ -214,8 +172,8 @@ chunk_state_kernel(const float* __restrict__ xdt, const float* __restrict__ la,
                    float* __restrict__ cd, Shape sh) {
   extern __shared__ uint8_t smem_raw[];
   float* const bt = reinterpret_cast<float*>(align1024(smem_raw));  // [2 stages][hi, lo]
-  float* const cum = bt + 2 * 2 * kStateTile;
-  float* const dec = cum + kMaxQ;
+  double* const cum = reinterpret_cast<double*>(bt + 2 * 2 * kStateTile);
+  float* const dec = reinterpret_cast<float*>(cum + kMaxQ);
   const int bh = blockIdx.x, c = blockIdx.y;
   const int b = bh / sh.H, h = bh % sh.H, g = h / (sh.H / sh.G);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -235,8 +193,8 @@ chunk_state_kernel(const float* __restrict__ xdt, const float* __restrict__ la,
   copy_stage(0);
   cp_async_commit();
   chunk_cumsum(cum, la, sh, b, h, c);
-  const float last = cum[sh.Q - 1];
-  for (int t = tid; t < sh.Q; t += kThreads) dec[t] = expf(last - cum[t]);
+  const double last = cum[sh.Q - 1];
+  for (int t = tid; t < sh.Q; t += kThreads) dec[t] = expf(static_cast<float>(last - cum[t]));
   // The next stage's Bᵀ (cp.async) and A fragments (registers) are loaded
   // while this stage's wgmmas run.
   float xa[kStateStep / 8][4], xn[kStateStep / 8][4];
@@ -288,7 +246,7 @@ chunk_state_kernel(const float* __restrict__ xdt, const float* __restrict__ la,
       const int p = 16 * warp + g8 + 8 * (e >> 1), n = 8 * j + 2 * t4 + (e & 1);
       if (p < sh.P && n < sh.N) out[p * sh.N + n] = acc[4 * j + e];
     }
-  if (tid == 0) cd[static_cast<long long>(bh) * sh.nc + c] = expf(last);
+  if (tid == 0) cd[static_cast<long long>(bh) * sh.nc + c] = expf(static_cast<float>(last));
 }
 
 // ---- 2. the state pass ----
@@ -463,9 +421,10 @@ scores_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
 // ---- 4. the outputs ----
 
 // Shared memory: h_prev as a K-major tile of 64 rows x N, hi and lo, whose
-// space then holds each key tile's transposed xdt [p][j], hi and lo; cum.
+// space then holds each key tile's transposed xdt [p][j], hi and lo; cum
+// (doubles).
 constexpr int kXTile = kMaxP * kT;
-constexpr int kOutSmem = 4 * (2 * kRowTile + kMaxQ) + 1024;
+constexpr int kOutSmem = 4 * (2 * kRowTile + 2 * kMaxQ) + 1024;
 constexpr int kOutX = kT * kMaxP / kThreads;  // xdt values a thread stages per key tile
 static_assert(2 * kXTile <= kRowTile, "the xdt tiles live in h_prev's hi tile");
 static_assert(kRowTile == kHpTile, "h_prev's tiles are copied as the state pass wrote them");
@@ -522,7 +481,7 @@ chunk_out_kernel(const float* __restrict__ xdt, const float* __restrict__ la,
   float* const r_lo = r_hi + kRowTile;
   float* const x_hi = r_hi;  // after the inter term
   float* const x_lo = r_hi + kXTile;
-  float* const cum = r_lo + kRowTile;
+  double* const cum = reinterpret_cast<double*>(r_lo + kRowTile);
   const int it = blockIdx.x, i0 = it * kT, bh = blockIdx.y, c = blockIdx.z;
   const int b = bh / sh.H, h = bh % sh.H, g = h / (sh.H / sh.G);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -553,7 +512,7 @@ chunk_out_kernel(const float* __restrict__ xdt, const float* __restrict__ la,
 #pragma unroll
   for (int e = 0; e < kT / 2; ++e) {
     const int i = i0 + 16 * warp + g8 + 8 * ((e >> 1) & 1);
-    acc[e] *= i < sh.Q ? expf(cum[min(i, sh.Q - 1)]) : 0.f;
+    acc[e] *= i < sh.Q ? expf(static_cast<float>(cum[min(i, sh.Q - 1)])) : 0.f;
   }
 
   // intra: the key tiles up to the diagonal one, their scores from the
@@ -584,7 +543,8 @@ chunk_out_kernel(const float* __restrict__ xdt, const float* __restrict__ la,
         const int i = i0 + 16 * warp + g8 + 8 * (e >> 1);
         const int j = j0 + 8 * jb + 2 * t4 + (e & 1);
         // (indices clamped: cum holds Q values)
-        const float dec = expf(cum[min(i, sh.Q - 1)] - cum[min(j, sh.Q - 1)]);
+        const float dec =
+            expf(static_cast<float>(cum[min(i, sh.Q - 1)] - cum[min(j, sh.Q - 1)]));
         sc[4 * jb + e] = (j <= i && i < sh.Q) ? sc[4 * jb + e] * dec : 0.f;
       }
     // acc += (S ∘ decay) · xdt over this tile's keys, pipelined as c_product

@@ -9,14 +9,15 @@ reference's layout.  The same flags as the reference's, plus ``--device``
 parameters' dtype: float32, the reference's ``bundle.init`` default, or
 bfloat16, where attention runs B7 and B8 on their tensor-core routes).
 
-The dense, vlm, moe and encdec families train; the vlm family's batches
-carry ``patch_embeds`` and the encdec family's ``frames`` (the bits of the
-reference's ``jax.random.normal(PRNGKey(step), ...)``, drawn by
-``core.threefry``; the frames cast to ``--dtype``).
+Every family trains (dense, vlm, moe, ssm, hybrid, encdec); the vlm
+family's batches carry ``patch_embeds`` and the encdec family's ``frames``
+(the bits of the reference's ``jax.random.normal(PRNGKey(step), ...)``,
+drawn by ``core.threefry``; the frames cast to ``--dtype``).  On the card
+the ssm and hybrid families' gradients go through the B10 and B9 backward
+kernels.
 
 What waits: ``--model-parallel`` > 1 shards the model over a device mesh,
-ROADMAP queue A item 12; the ssm and hybrid families' loss, item 16 (it
-raises from ``bundle.loss``).
+ROADMAP queue A item 12.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \\

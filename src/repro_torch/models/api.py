@@ -27,7 +27,8 @@ frames)`` gives the decoder's hidden states.  The ``moe`` family's
 ``moe_lm.forward`` also returns the router's aux loss, which its loss
 adds).  ``forward`` and ``prefill`` run under ``torch.inference_mode()``;
 ``loss`` runs in the caller's grad mode, with every layer rematerialised
-when grad is on (its gradients go through the B7/B8 kernels on the card).
+when grad is on (its gradients go through the B7/B8 kernels on the card, and
+the B9/B10 backward kernels for the recurrent families).
 The reference's bundle has no ``forward``: its callers reach the family
 module directly; the port's DAEF head takes the bundle's.  ``input_specs``
 gives meta tensors, PyTorch's counterpart of the reference's
@@ -45,9 +46,8 @@ updates the cache in place: the cache it returns is the one passed in, now
 holding the token (the reference donates it), so a caller must not keep
 the old one.  :func:`cache_specs` gives the cache's tree as meta tensors.
 
-``loss`` trains the ``dense``, ``vlm``, ``moe`` and ``encdec`` families;
-for ``ssm`` and ``hybrid`` it raises ``NotImplementedError`` naming ROADMAP
-queue A item 16 (their B10/B9 kernels have no backward).
+``loss`` trains every family; the ``ssm`` and ``hybrid`` families' gradients
+go through the B10 and B9 backward kernels on the card.
 """
 from __future__ import annotations
 
@@ -76,12 +76,6 @@ class ModelBundle:
     init_cache: Callable[..., Any]
     decode: Callable[..., Any]
     input_specs: Callable[..., dict[str, torch.Tensor]]
-
-
-def _waits(what: str, item: int) -> Callable[..., Any]:
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue A item {item})")
-    return fn
 
 
 def _tokens(params, tokens) -> torch.Tensor:
@@ -182,15 +176,11 @@ def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
         # an untied model has an lm_head; the tied ones read the embedding
         return common.logits_from_hidden(h[:, -1:], params["embed"], params.get("lm_head"))
 
-    if fam in ("ssm", "hybrid"):
-        loss = _waits(f"training the {fam} family (lm_loss through the B9/B10 "
-                      "kernels, which have no backward)", item=16)
-    else:
-        def loss(params, batch):
-            tokens = _tokens(params, batch["tokens"])
-            if frontend:
-                return mod.lm_loss(params, cfg, _floats(params, batch[frontend]), tokens)
-            return mod.lm_loss(params, cfg, tokens)
+    def loss(params, batch):
+        tokens = _tokens(params, batch["tokens"])
+        if frontend:
+            return mod.lm_loss(params, cfg, _floats(params, batch[frontend]), tokens)
+        return mod.lm_loss(params, cfg, tokens)
 
     if fam == "vlm":
         specs = _frontend_input_specs("patch_embeds", (cfg.n_patches, cfg.d_frontend))

@@ -3,23 +3,27 @@ decode.
 
 Counterpart of ``repro/models/mamba2.py``'s ``_dims``, ``init_layer`` /
 ``init_params``, ``_split_proj``, ``_causal_conv``, ``ssd_chunked``,
-``layer_fwd``, ``forward``, ``Mamba2Cache``, ``init_cache`` and
+``layer_fwd``, ``forward``, ``lm_loss``, ``Mamba2Cache``, ``init_cache`` and
 ``decode_step``.  Layers are stacked on a leading [L] axis.
 
 The SSD scan of :func:`layer_fwd` goes through the B10 wrapper
 (``kernels.ssd_chunk``): the hand-written kernel on a CUDA tensor, the plain
 chunked version on a CPU tensor, with B and C indexed per group (never
 repeated per head).  :func:`ssd_chunked` keeps the reference's signature and
-is that plain version.
+is that plain version.  Under grad the scan goes through B10's autograd
+Function: its backward is the hand-written backward kernel on the card and
+the plain backward on the host, and :func:`forward` checkpoints every layer
+(``torch.utils.checkpoint``), as the reference wraps each in
+``jax.checkpoint``; B10's forward then runs twice a layer.
 
 Decode is the O(1) recurrent update of the reference, in plain PyTorch (the
 reference's is plain XLA): a float32 [L, B, H, P, N] SSM state and a
 [L, B, W-1, C] causal-conv tail in the model's dtype, both updated in place
 by :func:`decode_step`.
 
-What the port leaves out: ``remat`` (no forward-only meaning), the sharding
-hint on the heads (mesh-only, ROADMAP queue A item 12), ``lm_loss`` (B10
-has no backward: ROADMAP queue A item 16).
+What the port leaves out: ``remat`` as a keyword (the layers are
+checkpointed whenever grad is on), the sharding hint on the heads
+(mesh-only, ROADMAP queue A item 12).
 
 Shapes: tokens [B, S]; inner activations [B, S, H, P] (H heads, P head dim);
 B/C projections [B, S, G, N] (G groups, N state dim).
@@ -31,6 +35,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -133,11 +138,29 @@ def layer_fwd(layer: Params, cfg: ArchConfig, h_in: torch.Tensor) -> torch.Tenso
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Hidden states [B, S, d] for prefill."""
+    """Hidden states [B, S, d] for training or prefill; every layer
+    checkpointed when grad is on."""
     h = common.embed(params["embed"], tokens)
-    for i in range(cfg.n_layers):
-        h = layer_fwd(common.layer(params["layers"], i), cfg, h)
+    remat = torch.is_grad_enabled()
+    for layer in common.unstack(params["layers"], cfg.n_layers):
+        if remat:
+            # the layers draw no random numbers: no RNG state to replay
+            h = checkpoint(layer_fwd, layer, cfg, h, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = layer_fwd(layer, cfg, h)
     return common.rmsnorm(params["final_norm"], h)
+
+
+def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            loss_chunk: int = 1024) -> torch.Tensor:
+    """Next-token cross-entropy (float32 scalar) of ``tokens`` [B, S] on the
+    parameters' device, the LM head tied to the embedding."""
+    h = forward(params, cfg, tokens)
+    h_in, labels = h[:, :-1], tokens[:, 1:]
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    return common.chunked_softmax_xent(h_in, labels, mask, params["embed"]["table"],
+                                       chunk=min(loss_chunk, h_in.shape[1]), transpose=True)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ decode.
 Counterpart of ``repro/models/rglru.py``'s ``_pattern``, ``_layout``,
 ``rg_lru``, ``rg_lru_step``, ``init_rec_block``, ``init_attn_block``,
 ``RecState``, ``_rec_fwd`` and ``_attn_fwd`` (prefill and decode),
-``init_params``, ``forward``, ``RGCache``, ``init_cache`` and
+``init_params``, ``forward``, ``lm_loss``, ``RGCache``, ``init_cache`` and
 ``decode_step``.  Whole periods are stacked on a leading [n_periods] axis,
 with the remainder layers (38 = 12·3 + 2) in ``tail``, as the reference
 lays them out; so is the decode cache (a stacked state per period slot
@@ -16,15 +16,20 @@ The prefill recurrence of :func:`_rec_fwd` goes through the B9 wrapper
 plain sequential scan on a CPU tensor.  :func:`rg_lru` keeps the reference's
 signature and is that plain version (the reference evaluates the same
 recurrence with ``lax.associative_scan``).  The local attention goes through
-B7 with its window.  Decode is the reference's O(1) update in plain PyTorch
+B7 with its window.  Under grad the scan goes through B9's autograd
+Function (the hand-written backward kernel on the card, the plain backward
+on the host) and the attention through B7/B8's, and :func:`forward`
+checkpoints every period (``torch.utils.checkpoint``) as the reference
+wraps its period body in ``jax.checkpoint``; the tail is not checkpointed,
+as in the reference.  Decode is the reference's O(1) update in plain PyTorch
 (:func:`rg_lru_step`, a ring KV cache of ``local_window`` slots written at
 ``pos % local_window``), every state updated in place by
 :func:`decode_step`.
 
-What the port leaves out: ``remat`` and ``chunked_attn`` (no forward-only
-meaning; the attention always streams through B7), the sharding hint on the
-width (mesh-only, ROADMAP queue A item 12), ``lm_loss`` (B9 has no
-backward: ROADMAP queue A item 16).
+What the port leaves out: ``remat`` and ``chunked_attn`` as keywords (the
+periods are checkpointed whenever grad is on; the attention always streams
+through B7), the sharding hint on the width (mesh-only, ROADMAP queue A
+item 12).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -178,18 +184,39 @@ def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tenso
     return common.embed(params["embed"], tokens) * scale.to(table.device)
 
 
+def _period_fwd(period: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    for i, kind in enumerate(_pattern(cfg)):
+        h = _block_fwd(kind, period[f"b{i}"], cfg, h)
+    return h
+
+
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Hidden states [B, S, d] for prefill."""
-    pat = _pattern(cfg)
+    """Hidden states [B, S, d] for training or prefill; every period
+    checkpointed when grad is on."""
     n_periods, tail = _layout(cfg)
     h = _embed(params, cfg, tokens)
-    for p in range(n_periods):
-        period = common.layer(params["periods"], p)
-        for i, kind in enumerate(pat):
-            h = _block_fwd(kind, period[f"b{i}"], cfg, h)
+    remat = torch.is_grad_enabled()
+    for period in common.unstack(params["periods"], n_periods):
+        if remat:
+            # the blocks draw no random numbers: no RNG state to replay
+            h = checkpoint(_period_fwd, period, cfg, h, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = _period_fwd(period, cfg, h)
     for blk, kind in zip(params["tail"], tail, strict=True):
         h = _block_fwd(kind, blk, cfg, h)
     return common.rmsnorm(params["final_norm"], h)
+
+
+def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            loss_chunk: int = 1024) -> torch.Tensor:
+    """Next-token cross-entropy (float32 scalar) of ``tokens`` [B, S] on the
+    parameters' device, the LM head tied to the embedding."""
+    h = forward(params, cfg, tokens)
+    h_in, labels = h[:, :-1], tokens[:, 1:]
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    return common.chunked_softmax_xent(h_in, labels, mask, params["embed"]["table"],
+                                       chunk=min(loss_chunk, h_in.shape[1]), transpose=True)
 
 
 # ---------------------------------------------------------------------------

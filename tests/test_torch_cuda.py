@@ -26,8 +26,21 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd_ref,
     flash_attention_ref,
 )
-from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
-from repro_torch.kernels.ssd_chunk import fit_chunk, ssd_chunk, ssd_chunk_plain
+from repro_torch.kernels.rglru_scan import (
+    rglru_scan,
+    rglru_scan_bwd,
+    rglru_scan_bwd_plain,
+    rglru_scan_ref,
+)
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_magnitudes
+from repro_torch.kernels.ssd_chunk import (
+    fit_chunk,
+    ssd_chunk,
+    ssd_chunk_bwd,
+    ssd_chunk_bwd_plain,
+    ssd_chunk_plain,
+)
+from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_bwd_magnitudes
 from repro_torch.kernels.rolann_stats import (
     ops,
     rolann_fused_chunk,
@@ -1154,6 +1167,152 @@ def test_train_step_on_card_matches_host(card, microbatches):
     for host, got in zip(*results):
         scale = max(float(host.abs().max()), 1e-30)
         assert float((got.cpu() - host).abs().max()) <= 1e-4 * scale
+
+
+# ---- the backwards of B9 and B10, and training the recurrent families ----
+
+def _assert_max_close(got, want, what):
+    """The script's rule: max|d| <= 1e-4 max|plain| over the tensor."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    assert bool(got.isfinite().all()), what
+    d = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    assert d <= 1e-4 * (float(want.abs().max()) if want.numel() else 0.0), (what, d)
+
+
+def _assert_each_close(got, want, mags, what):
+    """Per element |d| <= 1e-5 of its term magnitude: the row and column sums
+    that make dla (the sums over batch and time that make dlam) cancel, so
+    their float32 error follows the size of the terms, not of the result
+    (tests/test_torch_ssm_training.py checks this model on the host)."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    d = (got.double() - want.double()).abs()
+    assert bool((d <= 1e-5 * mags.double()).all()), (what, float(d.max()))
+
+
+SSD_BWD_CASES = [(2, 2_048, 48, 64, 1, 128, 256, True),   # mamba2-780m's microbatch
+                 (2, 2_048, 48, 64, 1, 128, 256, False),
+                 (2, 1_000, 8, 64, 2, 128, 256, True),    # G = 2, ragged: chunk 250
+                 (1, 1, 4, 64, 1, 128, 256, True),        # S = 1
+                 (0, 64, 4, 64, 1, 128, 256, True),       # B = 0
+                 (1, 128, 2, 7, 1, 20, 64, False),        # odd P, N
+                 (1, 300, 6, 16, 3, 32, 256, True)]       # Q 150, three groups
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,final", SSD_BWD_CASES)
+def test_ssd_chunk_bwd_kernel_matches_plain(card, b, s, h, p, g, n, chunk, final):
+    """B10's backward against its plain version: dxdt, db, dc to the
+    script's rule, dla per element to 1e-5 of its term magnitude; one launch
+    counted (none at B = 0), a repeat bit-identical; with no h_final
+    cotangent, the autograd Function's gradients are the same bits."""
+    gen = torch.Generator(device=card).manual_seed(s + h + g)
+    xdt = _randn((b, s, h, p), gen, card)
+    la = -torch.rand((b, s, h), generator=gen, device=card) * 0.1
+    bm, cm = _randn((b, s, g, n), gen, card), _randn((b, s, g, n), gen, card)
+    dy = _randn((b, s, h, p), gen, card)
+    dh = _randn((b, h, p, n), gen, card) if final else None
+    before = ssd_chunk_bwd.launches
+    got = ssd_chunk_bwd(xdt, la, bm, cm, dy, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_chunk_bwd.launches == before + (b > 0)
+    q = fit_chunk(s, chunk)
+    want = ssd_chunk_bwd_plain(xdt, la, bm, cm, dy, dh, chunk=q)
+    mags = ssd_chunk_bwd_magnitudes(xdt, la, bm, cm, dy, dh, chunk=q)
+    for name, gt, wt in zip(("dxdt", "db", "dc"), (got[0], *got[2:]), (want[0], *want[2:])):
+        _assert_max_close(gt, wt, name)
+    _assert_each_close(got[1], want[1], mags[1], "dla")
+    again = ssd_chunk_bwd(xdt, la, bm, cm, dy, dh, chunk=chunk)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    if not final and b > 0:
+        leaves = [t.clone().requires_grad_() for t in (xdt, la, bm, cm)]
+        y, _ = ssd_chunk(*leaves, chunk=chunk)
+        grads = torch.autograd.grad(y, leaves, dy)
+        assert all(torch.equal(a, c) for a, c in zip(grads, got))
+
+
+def test_ssd_chunk_bwd_refuses_what_the_kernel_does_not_take(card):
+    """P > 64, N > 128, a chunk > 256 and float64 raise before any launch."""
+    before = ssd_chunk_bwd.launches
+    for (s, h, p, g, n, chunk, dtype) in ((64, 2, 65, 1, 32, 64, torch.float32),
+                                          (64, 2, 16, 1, 129, 64, torch.float32),
+                                          (512, 2, 16, 1, 32, 512, torch.float32),
+                                          (64, 2, 16, 1, 32, 64, torch.float64)):
+        xdt = torch.zeros((1, s, h, p), device=card, dtype=dtype)
+        la = torch.zeros((1, s, h), device=card, dtype=dtype)
+        bm = torch.zeros((1, s, g, n), device=card, dtype=dtype)
+        with pytest.raises(ValueError, match="the kernel takes"):
+            ssd_chunk_bwd(xdt, la, bm, bm, xdt, chunk=chunk)
+    assert ssd_chunk_bwd.launches == before
+
+
+@pytest.mark.parametrize("b,s,w", [(2, 2_048, 4_096), (2, 37, 100), (3, 1, 77),
+                                   (2, 1_000, 4_096)])
+@pytest.mark.parametrize("x_dtype,gate_dtype", [(torch.float32, torch.float32),
+                                                (torch.bfloat16, torch.float32),
+                                                (torch.bfloat16, torch.bfloat16)])
+def test_rglru_scan_bwd_kernel_matches_plain(card, b, s, w, x_dtype, gate_dtype):
+    """B9's backward against its plain version on the forward kernel's y,
+    with a nonzero h_last cotangent: dx, dr, di in their inputs' dtypes to
+    the script's rule (bf16 outputs also one bf16 ulp of the element: each
+    side rounds its float32 value once), dlam per element to 1e-5 of its
+    term magnitude; one launch counted on x's dtype, a repeat
+    bit-identical."""
+    gen = torch.Generator(device=card).manual_seed(s + w + 1)
+    x = _randn((b, s, w), gen, card, x_dtype)
+    r = torch.sigmoid(_randn((b, s, w), gen, card)).to(gate_dtype)
+    i = torch.sigmoid(_randn((b, s, w), gen, card)).to(gate_dtype)
+    lam = _randn((w,), gen, card) + 4
+    y, _ = rglru_scan(x, r, i, lam)
+    dy, dh = _randn((b, s, w), gen, card), _randn((b, w), gen, card)
+    name = str(x_dtype).removeprefix("torch.")
+    before = (rglru_scan_bwd.launches, rglru_scan_bwd.route_launches[name])
+    got = rglru_scan_bwd(x, r, i, lam, y, dy, dh)
+    torch.cuda.synchronize()
+    assert (rglru_scan_bwd.launches, rglru_scan_bwd.route_launches[name]) == (
+        before[0] + 1, before[1] + 1)
+    want = rglru_scan_bwd_plain(x, r, i, lam, y, dy, dh)
+    for nm, gt, wt in zip(("dx", "dr", "di"), got, want):
+        if gt.dtype == torch.bfloat16:
+            d = (gt.double() - wt.double()).abs()
+            bar = 2.0**-7 * wt.double().abs() + 1e-4 * float(wt.abs().max())
+            assert gt.dtype == wt.dtype and bool((d <= bar).all()), nm
+        else:
+            _assert_max_close(gt, wt, nm)
+    mags = rglru_scan_bwd_magnitudes(x, r, i, lam, y, dy, dh)
+    _assert_each_close(got[3], want[3], mags[3], "dlam")
+    again = rglru_scan_bwd(x, r, i, lam, y, dy, dh)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("name,changes", [("mamba2-780m", {}),
+                                          ("recurrentgemma-9b", {"n_layers": 5})])
+def test_recurrent_training_on_card_matches_host(card, name, changes):
+    """The reduced SSM (2 layers) and hybrid (one period and the 2-block
+    tail) families in float32: ``bundle.loss`` and every gradient leaf on the
+    card (B9/B10 forward twice a checkpointed layer, their backward kernels
+    once) against the host, each leaf to 1e-4 of its largest entry."""
+    cfg = dataclasses.replace(registry.get(name).reduced(), **changes)
+    bundle = get_bundle(cfg)
+    tokens = synthetic.lm_token_stream(cfg.vocab_size, 128, 2, seed=3)
+    kernel, bwd = ((ssd_chunk, ssd_chunk_bwd) if cfg.family == "ssm"
+                   else (rglru_scan, rglru_scan_bwd))
+    results = []
+    for dev in ("cpu", card):
+        params = _tree_to(bundle.init(0, device="cpu"), dev)
+        leaves = torch.utils._pytree.tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        before = (kernel.launches, bwd.launches)
+        loss = bundle.loss(params, {"tokens": tokens})
+        grads = torch.autograd.grad(loss, leaves)
+        if dev == card:
+            n_rec = cfg.n_layers if cfg.family == "ssm" else 4   # 2 in the period, 2 tail
+            n_remat = cfg.n_layers if cfg.family == "ssm" else 2
+            assert (kernel.launches - before[0], bwd.launches - before[1]) == (
+                n_rec + n_remat, n_rec)
+        results.append([loss.detach().cpu()] + [g.cpu() for g in grads])
+    for host, got in zip(*results):
+        assert float(host.abs().max()) > 0
+        assert float((got - host).abs().max()) <= 1e-4 * float(host.abs().max())
 
 
 # ---- the engine, federation sessions and checkpoints on the card ----

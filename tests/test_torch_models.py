@@ -191,15 +191,28 @@ def test_families_not_ported_raise(name):
 
 
 def test_training_and_decode_wait_and_init_defaults_to_the_card(monkeypatch):
-    """Training waits for the ssm and hybrid families, naming ROADMAP item 16
-    (the dense family trains: tests/test_torch_training.py).  Decode no
-    longer waits: the bundle's ``init_cache`` and ``decode`` run on the host
-    (tests/test_torch_decode.py holds them to the reference).  ``init`` and
-    ``init_cache`` default to the card and raise without one."""
+    """Training no longer waits for the ssm and hybrid families (ROADMAP
+    item 16 is done): the reduced models' loss on the host is a finite
+    float32 scalar within 1.0 of ln V whose graph reaches every parameter
+    leaf (tests/test_torch_ssm_training.py holds loss and gradients to the
+    reference's).  Decode no longer waits: the bundle's ``init_cache`` and
+    ``decode`` run on the host (tests/test_torch_decode.py holds them to the
+    reference).  ``init`` and ``init_cache`` default to the card and raise
+    without one."""
     b = get_bundle(registry.get("qwen3-1.7b").reduced())
     for n in ("mamba2-780m", "recurrentgemma-9b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 16"):
-            get_bundle(registry.get(n).reduced()).loss(None, None)
+        small = registry.get(n).reduced()
+        bundle = get_bundle(small)
+        params = bundle.init(0, device="cpu")
+        leaves = torch.utils._pytree.tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        tokens = synthetic.lm_token_stream(small.vocab_size, 32, 2, seed=0)
+        loss = bundle.loss(params, {"tokens": tokens})
+        assert loss.dtype == torch.float32 and loss.ndim == 0
+        assert abs(float(loss.detach()) - np.log(small.vocab_size)) < 1.0
+        grads = torch.autograd.grad(loss, leaves)
+        assert all(bool(g.isfinite().all()) and bool(g.abs().max() > 0) for g in grads)
     params = b.init(0, device="cpu")
     cache = b.init_cache(2, 4, torch.float32, device="cpu")
     logits, out = b.decode(params, cache, np.zeros((2, 1), np.int32), 0)

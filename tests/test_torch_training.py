@@ -13,8 +13,10 @@
 * One ``make_train_step`` step (microbatches 1 and 2, ``clip_norm`` 1.0,
   AdamW with a warm-up/cosine schedule) against the reference's, from the
   same parameters and optimiser state.
-* The guards: ``loss`` of the ssm and hybrid families, and B7's, B9's and
-  B10's launches reached with grad needed, raise.
+* The guards: B7's and B8's launches reached with grad needed raise; B9
+  and B10 under grad go through their autograd Functions
+  (tests/test_torch_ssm_training.py holds their backwards to the
+  reference's).
 
 On CPU tensors the wrappers run the kernels' plain versions; the kernels
 themselves are held to those on the card (``tests/test_torch_cuda.py``,
@@ -55,8 +57,8 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_ref,
 )
 from repro_torch.kernels.flash_attention.ops import _forward
-from repro_torch.kernels.rglru_scan import rglru_scan
-from repro_torch.kernels.ssd_chunk import ssd_chunk
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
 from repro_torch.launch import steps
 from repro_torch.models import common, get_bundle
 
@@ -117,8 +119,10 @@ def test_function_matches_autograd_through_the_plain_forward():
 
 
 def test_kernel_launches_refuse_grad():
-    """B7, B8, B9 and B10 reached with grad needed raise, rather than return
-    tensors with no grad_fn (on the card that would cut the graph silently)."""
+    """B7 and B8, and B9's and B10's backwards, reached with grad needed
+    raise, rather than return tensors with no grad_fn (on the card that
+    would cut the graph silently).  B9 and B10 under grad return outputs
+    with a ``grad_fn`` (their autograd Functions); without grad, none."""
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(1, 8, 2, 2, 16, seed=0))
     qg = q.clone().requires_grad_()
     with pytest.raises(RuntimeError, match="no grad_fn"):
@@ -129,14 +133,24 @@ def test_kernel_launches_refuse_grad():
     with torch.no_grad():
         assert _forward(qg, k, v, True, None)[0].grad_fn is None
     x = torch.rand(1, 6, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        rglru_scan(x, torch.rand(1, 6, 4), torch.rand(1, 6, 4), torch.rand(4))
+    y, h_last = rglru_scan(x, torch.rand(1, 6, 4), torch.rand(1, 6, 4), torch.rand(4))
+    assert type(y.grad_fn).__name__ == "RGLRUScanBackward" and h_last.grad_fn is not None
     xdt = torch.rand(1, 8, 2, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ssd_chunk(xdt, -torch.rand(1, 8, 2), torch.rand(1, 8, 1, 4), torch.rand(1, 8, 1, 4),
-                  chunk=4)
+    y, h_final = ssd_chunk(xdt, -torch.rand(1, 8, 2), torch.rand(1, 8, 1, 4),
+                           torch.rand(1, 8, 1, 4), chunk=4)
+    assert type(y.grad_fn).__name__ == "SSDChunkBackward" and h_final.grad_fn is not None
     with torch.no_grad():
-        rglru_scan(x, torch.rand(1, 6, 4), torch.rand(1, 6, 4), torch.rand(4))
+        y, _ = rglru_scan(x, torch.rand(1, 6, 4), torch.rand(1, 6, 4), torch.rand(4))
+        assert y.grad_fn is None
+        y, _ = ssd_chunk(xdt, -torch.rand(1, 8, 2), torch.rand(1, 8, 1, 4),
+                         torch.rand(1, 8, 1, 4), chunk=4)
+        assert y.grad_fn is None
+    with pytest.raises(RuntimeError, match="no grad_fn"):
+        rglru_scan_bwd(x, torch.rand(1, 6, 4), torch.rand(1, 6, 4), torch.rand(4),
+                       torch.rand(1, 6, 4), torch.rand(1, 6, 4))
+    with pytest.raises(RuntimeError, match="no grad_fn"):
+        ssd_chunk_bwd(xdt, -torch.rand(1, 8, 2), torch.rand(1, 8, 1, 4), torch.rand(1, 8, 1, 4),
+                      torch.rand(1, 8, 2, 4), chunk=4)
 
 
 @pytest.mark.parametrize("s,chunk,transpose", [(24, 8, True), (30, 8, False), (7, 1024, True)])
@@ -259,13 +273,20 @@ def test_train_step_matches_reference(qwen3, microbatches):
 
 
 def test_bundle_loss_family_rules_and_input_specs():
-    """ssm and hybrid losses raise naming item 16; make_decode_step's step
-    is bundle.decode; prefill, forward and decode stay out of autograd;
+    """ssm and hybrid losses train (item 16 is done): a graph whose forward
+    and prefill stay out of autograd; make_decode_step's step is
+    bundle.decode; prefill, forward and decode stay out of autograd;
     input_specs mirrors the reference."""
     for name in ("mamba2-780m", "recurrentgemma-9b"):
-        b = get_bundle(registry.get(name).reduced(), chunked_attn=False)
-        with pytest.raises(NotImplementedError, match="item 16"):
-            b.loss(None, None)
+        small = registry.get(name).reduced()
+        b = get_bundle(small, chunked_attn=False)
+        params = b.init(0, device="cpu")
+        for p in torch.utils._pytree.tree_leaves(params):
+            p.requires_grad_(True)
+        tokens = synthetic.lm_token_stream(small.vocab_size, 16, 2, seed=0)
+        assert b.loss(params, {"tokens": tokens}).grad_fn is not None
+        assert b.forward(params, tokens).grad_fn is None
+        assert b.prefill(params, {"tokens": tokens}).grad_fn is None
     cfg = registry.get(QWEN3).reduced()
     bundle = get_bundle(cfg)
     params = bundle.init(0, device="cpu")
