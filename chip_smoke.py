@@ -220,6 +220,42 @@ no result:
     per round and a profile of the sequential round.  Times on the host
     clock.
 
+18b. mesh — ROADMAP item 12's DAEF part, after phase 19 (~20 s).  (a) One
+    rank in process: phase 7's 64-tenant fleet under
+    ``ExecutionPlan(mode="mesh")`` (a one-rank mesh, no process group) bit
+    for bit the vmap plan's for fit (B4 4), the chunked fit (B6 16),
+    ``fit_stream`` (B6 16; logistic output: B5 4), ``partial_fit`` (B4 4,
+    written into the shard's own leaves), scores and thresholds; the tree
+    reduce 64 -> 32, 16, 1 (no launch) held to the engine's sequential and
+    pairwise reduces by phase 7's rules (each tenant's (G, M) and error
+    pool at 1e-4, the encoder's S and U S² Uᵀ at 1e-4, [W; b] at the κ
+    bar); the sync tree round over phase 6's creditcard cut to 255,880
+    samples in four quarters (B4 4; its statistics the sum of its local
+    fits' at 1e-4, its model the pairwise merge of its local fits by phase
+    7's rules; its test scores' distance from the float64 fit of the cut
+    data reported), the async tree refresh (4 sites, then 3 fresh: a
+    masked slot) against the sequential session at 1e-4, the secagg tree
+    round (its wire sum the sequential sum bit for bit, its model the
+    pairwise secagg round's).  (b) A one-rank NCCL group (``FileStore`` in
+    a temporary directory): the data-mesh creditcard fit, gram (B1 4), svd
+    with local SVDs and svd with ``gram_eigh`` (B1 4), each held to
+    ``daef.fit`` of its method (the encoder's Gram and the first decoder
+    layer's (G, M) at 1e-4) and its test scores to the float64 fit of its
+    route by phase 6's rule (gram and local SVDs: the float64 fit of the
+    cut data; ``gram_eigh``: the same plan on the host in float64, its
+    plain distance that of the same plan on the host in float32), timed
+    beside ``daef.fit``; ``fit_head(mesh=)`` on 2,048 seeded rows at
+    qwen3-1.7b's width (B1 1 on its tensor-core route), its statistics the
+    one-device head's at 1e-4.  (c) Four gloo ranks sharing the card
+    (``python3 chip_smoke.py --mesh-rank R DIR``, one process each, the
+    built kernels loaded): the tenant-sharded fleet fit (16 tenants and B4
+    4 a rank) bit for bit the one-process fits of the ranks' shards, the
+    tree reduce 64 -> 16 (local rounds) and 64 -> 1 (two cross rounds)
+    held to one process by phase 7's rules, the data-sharded creditcard
+    fit over 4 x 63,970 samples (B1 4 a rank) held to the float64 fit;
+    what every rank holds alike is the same bits on every rank.  NCCL
+    across several cards is not checked: the machine has one.
+
 19. dp + serving — the DP release and fleet serving at full width.  DP:
     phase 18's four creditcard quarters in a sync ``merge="pairwise"``
     session under ``PrivacySpec(epsilon=8, composition="basic",
@@ -399,7 +435,8 @@ no result:
     B7, B8 and cuBLAS).  (d) ``launch/train.py --arch mamba2-780m`` (3 bf16
     steps of 4 x 2,048 tokens) in process.
 
-The last lines are a JSON object of phase 24's numbers, a JSON object of
+The last lines are a JSON object of the mesh phase's numbers, a JSON
+object of phase 24's numbers, a JSON object of
 phase 23's numbers, a JSON object of
 phase 22's numbers, a JSON object of phase 21's numbers, a JSON object of
 phase 20's numbers, a JSON object of the svd phase's numbers, a JSON object
@@ -2118,6 +2155,16 @@ def _summed_stats(models):
     return layers, sum(_enc_gram(m.encoder_factors) for m in models)
 
 
+def _gram_form(model):
+    """A model whose factor knowledge (``method="svd"``) is put in Gram form."""
+    from repro_torch.core import rolann
+
+    if hasattr(model.layer_knowledge[0], "u"):
+        return model._replace(layer_knowledge=tuple(
+            rolann.factors_to_stats(k) for k in model.layer_knowledge))
+    return model
+
+
 def _model_stats_apart(model, layers, enc):
     """Each layer's distance and the encoder's from summed statistics."""
     apart = [_stats_rel(k, w) for k, w in zip(model.layer_knowledge, layers, strict=True)]
@@ -2480,6 +2527,547 @@ def phase_engine(cfg, y_test, xtr, xte, references, card_fits, fleet_data,
     say("engine", "times (host clock, ending in torch.cuda.synchronize()): "
         + ", ".join(f"{name} {ms:.2f} ms" for name, ms in times.items()))
     say("engine", f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return {"ms": times, "launches": launches, **out}
+
+
+# ---------------------------------------------------------------------------
+# 18b. the mesh paths: one rank, a one-rank NCCL group, four gloo ranks
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_SAMPLES = 255_880   # creditcard cut so its samples divide over MESH_RANKS shards
+MESH_TREE_GROUPS = (2, 4, 64)   # 64 -> 32, 16, 1
+HEAD_ROWS, HEAD_WIDTH = 2_048, 2_048   # qwen3-1.7b's d_model
+MESH_RANK_TIMEOUT_S = 300
+DATA_MESH_FITS = (("gram", "gram_eigh"), ("svd", "local_svd"), ("svd", "gram_eigh"))
+
+
+def _launch_counter():
+    """(zero, read) over every DAEF kernel wrapper's launch counts."""
+    wrappers = {**_wrappers(), **_fleet_wrappers()}
+
+    def zero():
+        for fn in wrappers.values():
+            fn.launches = 0
+            if hasattr(fn, "route_launches"):
+                fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+
+    def read():
+        return {name: fn.launches for name, fn in wrappers.items() if fn.launches}
+
+    return zero, read
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _same_leaves(a, b, what):
+    import torch
+
+    from repro_torch.train import checkpoint
+
+    la, lb = checkpoint.flatten(a), checkpoint.flatten(b)
+    check(len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y.to(x.device))
+        for x, y in zip(la, lb)), f"{what}: not bit-identical leaf for leaf")
+
+
+def _check_fleets_close(a, b, what) -> float:
+    """Two fleets of the same tenants by phase 7's merged-site rules: seeds
+    and lambdas equal; each tenant's (G, M) and error pool within 1e-4 of
+    their max; the encoder's S and U S² Uᵀ within 1e-4; each decoder
+    layer's [W; b] within 10·κ·eps·max|[W; b]| of its G + λI.  Returns the
+    worst share of the κ bar."""
+    import torch
+
+    from repro_torch.core import fleet
+
+    eps = float(torch.finfo(torch.float32).eps)
+    check(a.size == b.size, f"{what}: {a.size} tenants against {b.size}")
+    for name in ("seeds", "lam_hidden", "lam_last"):
+        check(torch.equal(getattr(a, name).cpu(), getattr(b, name).cpu()), f"{what}: {name}")
+    worst = 0.0
+    for s in range(a.size):
+        ma, mb = fleet.get_model(a, s), fleet.get_model(b, s)
+        for i, (ka, kb) in enumerate(zip(ma.layer_knowledge, mb.layer_knowledge, strict=True)):
+            d = _stats_rel(ka, kb)
+            check(d <= 1e-4, f"{what}: tenant {s} layer {i + 2} (G, M) {d:.3e} (bar 1e-4)")
+        d = _rel(ma.train_errors.double(), mb.train_errors.double())
+        check(d <= 1e-4, f"{what}: tenant {s} error pool {d:.3e} (bar 1e-4)")
+        check(_rel(ma.encoder_factors.s, mb.encoder_factors.s) <= 1e-4, f"{what}: tenant {s} S")
+        d = _rel(_enc_gram(ma.encoder_factors), _enc_gram(mb.encoder_factors))
+        check(d <= 1e-4, f"{what}: tenant {s} encoder U S^2 U^T {d:.3e} (bar 1e-4)")
+        lams = [float(a.lam_hidden[s])] * (len(ma.layer_knowledge) - 1) + [float(a.lam_last[s])]
+        for i, (k, lam) in enumerate(zip(mb.layer_knowledge, lams)):
+            g = k.g.double()
+            kappa = float(torch.linalg.cond(
+                g + lam * torch.eye(g.shape[-1], dtype=g.dtype, device=g.device)).max())
+            wa = torch.cat([ma.weights[i + 1], ma.biases[i][None]]).double()
+            wb = torch.cat([mb.weights[i + 1], mb.biases[i][None]]).double()
+            err, bar = float((wa - wb).abs().max()), 10 * kappa * eps * float(wb.abs().max())
+            check(err <= bar, f"{what}: tenant {s} layer {i + 2} W, b differ by {err:.3e} > "
+                  f"{bar:.3e}")
+            worst = max(worst, err / bar)
+    return worst
+
+
+def _mesh_rank_work(rank: int, mesh_dir: str) -> dict:
+    """One of MESH_RANKS gloo ranks sharing the card: the tenant-sharded
+    fleet fit, the tree reduces 64 -> 16 and 64 -> 1, and the data-sharded
+    creditcard fit.  Returns what the rank holds, as numpy."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import daef, fleet_sharded
+    from repro_torch.engine import DAEFEngine, ExecutionPlan
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import checkpoint
+
+    def arr(name):
+        return np.load(os.path.join(mesh_dir, name + ".npy"))
+
+    xs, seeds, xq, xte = arr("xs"), arr("seeds"), arr("xq"), arr("xte")
+    k = xs.shape[0]
+    base = daef.DAEFConfig(**CREDITCARD)
+    zero, read = _launch_counter()
+    out: dict = {}
+
+    def put(prefix, tree):
+        for i, leaf in enumerate(checkpoint.flatten(tree)):
+            out[f"{prefix}/leaf{i}"] = leaf.detach().cpu().numpy()
+
+    def plan(**kw):
+        return ExecutionPlan(stats_backend="fused", **kw)
+
+    eng = DAEFEngine(base, plan(mode="mesh", tenants=k), device="cuda:0")
+    mesh = eng.mesh
+    check(mesh.shape == {"tenants": MESH_RANKS} and mesh.backend == "gloo",
+          f"rank {rank}: mesh {mesh}")
+    eng.fit(xs, seeds=seeds)
+    zero()
+    fl, out["fit_ms"] = _timed(lambda: eng.fit(xs, seeds=seeds))
+    out["fit_b4"] = read().get("rolann_stats_batched", 0)
+    put("fit", fleet_sharded.gather_fleet(fl, mesh))
+
+    tree = DAEFEngine(base, plan(mode="mesh", tenants=k, merge="tree"), device="cuda:0")
+    f0 = tree.fit(xs, seeds=np.zeros(k, np.int32))
+    r16, out["reduce16_ms"] = _timed(lambda: tree.reduce(f0, 4))
+    put("reduce16", fleet_sharded.gather_fleet(r16, mesh))
+    r1, out["reduce1_ms"] = _timed(lambda: tree.reduce(f0, k))
+    put("reduce1", r1)
+
+    dmesh = mesh_lib.Mesh((MESH_RANKS,), ("data",), device="cuda:0")
+    deng = DAEFEngine(base, plan(mode="mesh", mesh_axes=("data",)), mesh=dmesh)
+    deng.fit(xq)
+    zero()
+    dm, out["data_fit_ms"] = _timed(lambda: deng.fit(xq))
+    out["data_fit_b1"] = read().get("rolann_stats", 0)
+    out["data_threshold"] = deng.thresholds(dm).cpu().numpy()
+    put("data", dm._replace(train_errors=dm.train_errors[:0]))
+    out["data_test_scores"] = daef.reconstruction_error(
+        deng.config, dm, xte).cpu().numpy()
+    return out
+
+
+def mesh_rank(rank: int, mesh_dir: str) -> int:
+    """``python chip_smoke.py --mesh-rank RANK DIR``: one gloo rank of the
+    mesh phase's part (c), its group from a ``FileStore`` in DIR, writing
+    DIR/rank{RANK}.npz."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh_lib.init_process_group_from_file(os.path.join(mesh_dir, "store"), rank, MESH_RANKS,
+                                          backend="gloo", timeout_s=MESH_RANK_TIMEOUT_S)
+    try:
+        out = _mesh_rank_work(rank, mesh_dir)
+    finally:
+        torch.distributed.destroy_process_group()
+    np.savez(os.path.join(mesh_dir, f"rank{rank}.npz"), **out)
+    return 0
+
+
+def phase_mesh(cfg, x_train, x_test, xte, references, fleet_data, fleet_data_d) -> dict:
+    """ROADMAP item 12's DAEF part on the card.  (a) One rank in process:
+    the 64-tenant fleet cell under ``mode="mesh"`` bit for bit the vmap
+    plan's (fit, chunked fit, fit_stream, partial_fit, scores), the tree
+    reduces 64 -> 32, 16, 1 against the sequential and pairwise ones (phase
+    7's rules), the sync / async / secagg tree rounds over the creditcard
+    quarters.  (b) A one-rank NCCL group: the data-mesh creditcard fit
+    (gram, svd) held to the float64 fit (phase 6's rule) and timed against
+    ``daef.fit``, and the DAEF head on a data mesh at qwen3-1.7b's width
+    (B1's tensor-core route).  (c) Four gloo ranks sharing the card, one
+    process each: the tenant-sharded fleet fit, reduce 64 -> 16 and
+    64 -> 1, the data-sharded creditcard fit, held to (a) and to the
+    float64 fit.  Returns the phase's numbers."""
+    import dataclasses as dc
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import daef, federated, fleet
+    from repro_torch.engine import DAEFEngine, ExecutionPlan
+    from repro_torch.kernels.rolann_stats import rolann_stats
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import daef_head
+    from repro_torch.privacy import PrivacySpec, secagg
+    from repro_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    base = daef.DAEFConfig(**CREDITCARD)
+    zero, read = _launch_counter()
+    xs, seeds_f, _, _ = fleet_data
+    xs_d, tests_d = fleet_data_d
+    k, _, n_tenant = xs.shape
+    n_hidden = len(path_shapes(cfg))
+    times, launches, out = {}, {}, {}
+    plain = references["test scores"][1]   # the float32 fits' distance, phase 6
+
+    def engine(device=None, **plan):
+        return DAEFEngine(base, ExecutionPlan(stats_backend="fused", **plan), device=device)
+
+    def run(name, fn):
+        """One warm call, then the timed one with the counts set to 0."""
+        fn()
+        zero()
+        res, times[name] = _timed(fn)
+        launches[name] = read()
+        return res
+
+    # ---- (a) one rank, in process: the mesh plan is the vmap plan ----
+    vm, me = engine(mode="vmap", tenants=k), engine(mode="mesh", tenants=k)
+    check(me.mesh.shape == {"tenants": 1} and me.mesh.device_mesh is None
+          and me.device == torch.device("cuda", 0), f"one-rank mesh {me.mesh}")
+    fv = vm.fit(xs_d, seeds=seeds_f)
+    fm = run("mesh fit", lambda: me.fit(xs_d, seeds=seeds_f))
+    _same_leaves(fv, fm, "mesh fit vs vmap fit")
+    check(launches["mesh fit"] == {"rolann_stats_batched": n_hidden},
+          f"mesh fit launched {launches['mesh fit']}")
+    tests64 = tests_d.repeat_interleave(2, dim=0)   # each site's test split, both its devices
+    sm = run("mesh scores", lambda: me.scores(fm, tests64))
+    check(torch.equal(sm, vm.scores(fv, tests64))
+          and torch.equal(me.thresholds(fm), vm.thresholds(fv)), "mesh scores / thresholds")
+    vc = engine(mode="vmap", tenants=k, chunk_samples=FLEET_CHUNK)
+    mc = engine(mode="mesh", tenants=k, chunk_samples=FLEET_CHUNK)
+    _same_leaves(vc.fit(xs_d, seeds=seeds_f),
+                 run("mesh chunked fit", lambda: mc.fit(xs_d, seeds=seeds_f)),
+                 "mesh chunked fit vs vmap")
+
+    def chunks():
+        return (xs[:, :, i:i + FLEET_CHUNK] for i in range(0, n_tenant, FLEET_CHUNK))
+
+    _same_leaves(vm.fit_stream(chunks, seeds=seeds_f),
+                 run("mesh fit_stream", lambda: me.fit_stream(chunks, seeds=seeds_f)),
+                 "mesh fit_stream vs vmap")
+    lo, hi = xs.min(axis=2, keepdims=True), xs.max(axis=2, keepdims=True)
+    x01 = (xs - lo) / np.where(hi > lo, hi - lo, 1.0)   # B5's path, as phase 7's
+    log_v = DAEFEngine(dc.replace(base, act_last="logsig"),
+                       ExecutionPlan(stats_backend="fused", mode="vmap", tenants=k))
+    log_m = DAEFEngine(dc.replace(base, act_last="logsig"),
+                       ExecutionPlan(stats_backend="fused", mode="mesh", tenants=k))
+
+    def chunks01():
+        return (x01[:, :, i:i + FLEET_CHUNK] for i in range(0, n_tenant, FLEET_CHUNK))
+
+    _same_leaves(log_v.fit_stream(chunks01, seeds=seeds_f),
+                 run("mesh fit_stream logsig", lambda: log_m.fit_stream(chunks01, seeds=seeds_f)),
+                 "logsig-output mesh fit_stream vs vmap")
+    x_new = xs_d[..., :SERVE_NEW_BLOCK]
+    upd_v = vm.partial_fit(fv, x_new)
+    me.partial_fit(checkpoint.map_leaves(lambda t: t.clone(), fm), x_new)
+    fm2 = checkpoint.map_leaves(lambda t: t.clone(), fm)
+    zero()
+    upd_m, times["mesh partial_fit"] = _timed(lambda: me.partial_fit(fm2, x_new))
+    launches["mesh partial_fit"] = read()
+    _same_leaves(upd_v, upd_m, "mesh partial_fit vs vmap")
+    check(upd_m.model.weights[0] is fm2.model.weights[0], "partial_fit did not donate")
+    say("mesh", f"one rank, {k} tenants: mode='mesh' bit-identical to the vmap plan for fit "
+        f"({times['mesh fit']:.2f} ms), chunked fit ({times['mesh chunked fit']:.2f} ms), "
+        f"fit_stream ({times['mesh fit_stream']:.2f} ms; logsig output "
+        f"{times['mesh fit_stream logsig']:.2f} ms), partial_fit (donating, "
+        f"{times['mesh partial_fit']:.2f} ms), scores ({times['mesh scores']:.2f} ms) and "
+        "thresholds; launches " + ", ".join(f"{n} {launches[n]}" for n in (
+            "mesh fit", "mesh chunked fit", "mesh fit_stream", "mesh fit_stream logsig",
+            "mesh partial_fit")))
+
+    # tree reduce 64 -> 32, 16, 1 against the sequential and pairwise ones
+    tree = engine(mode="mesh", tenants=k, merge="tree")
+    f0 = tree.fit(xs_d, seeds=np.zeros(k, np.int32))
+    one_rank = {}
+    for g in MESH_TREE_GROUPS:
+        got = run(f"tree reduce {k} -> {k // g}", lambda g=g: tree.reduce(f0, g))
+        one_rank[g] = got
+        for merge in ("sequential", "pairwise"):
+            other, times[f"{merge} reduce {k} -> {k // g}"] = _timed(
+                lambda m=merge, g=g: engine(mode="vmap", tenants=k, merge=m).reduce(f0, g))
+            out[f"tree {k}->{k // g} vs {merge}, kappa share"] = _check_fleets_close(
+                got, other, f"tree reduce {k} -> {k // g} vs {merge}")
+    say("mesh", "tree reduce (one rank): " + ", ".join(
+        f"{k} -> {k // g} {times[f'tree reduce {k} -> {k // g}']:.2f} ms (sequential "
+        f"{times[f'sequential reduce {k} -> {k // g}']:.2f}, pairwise "
+        f"{times[f'pairwise reduce {k} -> {k // g}']:.2f})" for g in MESH_TREE_GROUPS)
+        + "; against both by phase 7's rules, worst kappa share "
+        + f"{max(v for n, v in out.items() if 'kappa' in n):.3f}")
+
+    # the sync, async and secagg tree rounds over the creditcard quarters
+    xq = np.ascontiguousarray(x_train[:, :MESH_SAMPLES])
+    xq_d = torch.as_tensor(xq, device="cuda")
+    q = MESH_SAMPLES // MESH_RANKS
+    parts = [xq_d[:, i * q:(i + 1) * q] for i in range(MESH_RANKS)]
+    sync = engine(merge="tree")
+    m_tree = run("sync tree round", lambda: sync.session().round(parts))
+    check(launches["sync tree round"] == {"rolann_stats_batched": n_hidden},
+          f"sync tree round launched {launches['sync tree round']}")
+    local = fleet._fit_fleet(cfg, torch.stack(parts))
+    apart_l, apart_e = _model_stats_apart(
+        m_tree, *_summed_stats([fleet.get_model(local, i) for i in range(MESH_RANKS)]))
+    check(max(apart_l + [apart_e]) <= 1e-4, f"sync tree round vs the sum of its local fits: "
+          f"layers {apart_l}, encoder {apart_e} (bar 1e-4)")
+    # the float64 fit of the cut data: the reference of every fit here
+    host_cfg = dc.replace(cfg, stats_backend="einsum")
+    m64 = daef.fit(host_cfg, torch.from_numpy(xq).double(), n_partitions=N_PARTITIONS,
+                   device="cpu")
+    s64 = daef.reconstruction_error(host_cfg, m64, torch.from_numpy(x_test).double(),
+                                    device="cpu")
+    # the broker protocol: each node's decoder statistics come from its own
+    # encoder, so the round approximates the centralised fit (reported); it
+    # is held to the pairwise merge of its own local fits
+    loc = [fleet.get_model(local, i) for i in range(MESH_RANKS)]
+    m_pairs = daef.merge_models(cfg, daef.merge_models(cfg, loc[0], loc[1]),
+                                daef.merge_models(cfg, loc[2], loc[3]))
+    out["sync tree vs pairwise merge, kappa share"] = _check_fleets_close(
+        fleet.fleet_from_models(cfg, [m_tree]), fleet.fleet_from_models(cfg, [m_pairs]),
+        "sync tree round vs the pairwise merge of its local fits")
+    d_tree = _rel(sync.scores(m_tree, xte).double().cpu(), s64)
+    out["sync tree statistics vs local sums"] = max(apart_l + [apart_e])
+    out["sync tree test scores from float64"] = d_tree
+    half = q // 2
+    rounds = [{s: parts[s][:, :half] for s in range(MESH_RANKS)},
+              {s: parts[s][:, half:2 * half] for s in range(3)}]   # 3 fresh: one masked slot
+    sessions = {m: engine(federation="async", merge=m, max_staleness=0).session()
+                for m in ("tree", "sequential")}
+    for r, parts_r in enumerate(rounds):
+        models = {}
+        for m, sess in sessions.items():
+            zero()
+            models[m], times[f"async {m} round {r + 1}"] = _timed(lambda: sess.round(parts_r))
+            launches[f"async {m} round {r + 1}"] = read()
+        apart_l, apart_e = _model_stats_apart(models["tree"], *_summed_stats([models["sequential"]]))
+        check(max(apart_l + [apart_e]) <= 1e-4, f"async tree round {r + 1} vs the sequential "
+              f"session: layers {apart_l}, encoder {apart_e} (bar 1e-4)")
+        out[f"async tree round {r + 1} vs sequential"] = max(apart_l + [apart_e])
+    check(sessions["tree"].sites == {0: 0, 1: 0, 2: 0, 3: 1}, "async staleness")
+    seen = {}
+    real_decode = secagg.decode
+
+    def spy(wire, frac_bits, dtypes=None):
+        seen["aggregate"] = [w.copy() for w in wire]
+        return real_decode(wire, frac_bits, dtypes)
+
+    sec_tree = engine(merge="tree", privacy=PrivacySpec(secagg=True))
+    sec_pair = engine(merge="pairwise", privacy=PrivacySpec(secagg=True))
+    secagg.decode = spy
+    try:
+        m_sec = run("secagg tree round", lambda: sec_tree.session().round(parts))
+    finally:
+        secagg.decode = real_decode
+    states = sec_tree.session()._local_states(list(enumerate(parts)))
+    frac = sec_tree.plan.privacy.frac_bits
+    wires = [secagg.encode(federated.exchange_to_additive(sec_tree.config, st), frac)
+             for st in states]
+    check(all(np.array_equal(a, b) for a, b in
+              zip(seen["aggregate"], secagg.aggregate(wires, "sequential"), strict=True)),
+          "the secagg tree aggregate differs from the sequential sum of the unmasked wires")
+    _same_leaves(m_sec, sec_pair.session().round(parts), "secagg tree round vs pairwise")
+    say("mesh", f"tree rounds over {MESH_RANKS} creditcard quarters of {q} samples: sync "
+        f"{times['sync tree round']:.2f} ms (launches {launches['sync tree round']}; statistics "
+        f"vs the local fits' sum {out['sync tree statistics vs local sums']:.2e} (bar 1e-4), "
+        f"the pairwise merge of its local fits at most "
+        f"{out['sync tree vs pairwise merge, kappa share']:.3f} of the kappa bar; test scores "
+        f"{d_tree:.2e} from the float64 centralised fit, no bar: the broker protocol "
+        f"approximates it); async (4 sites, then "
+        f"3 of 4 fresh: a masked slot) " + ", ".join(
+            f"round {r} {times[f'async tree round {r}']:.2f} ms vs sequential "
+            f"{out[f'async tree round {r} vs sequential']:.2e}" for r in (1, 2))
+        + f" (bar 1e-4); secagg {times['secagg tree round']:.2f} ms, its wire sum the "
+        "sequential sum bit for bit, the model the pairwise secagg round's")
+
+    # ---- (b) a one-rank NCCL group ----
+    # The svd fit by eigh of each node's float32 Gram is held to a witness
+    # of its own route: the same plan on the host in float64, and in float32
+    # for phase 6's "plain" distance.
+    host_mesh = mesh_lib.Mesh((1,), ("data",), device="cpu")
+    eigh_cfg = dc.replace(host_cfg, method="svd")
+    eigh_plan = ExecutionPlan(mode="mesh", mesh_axes=("data",), local_factorization="gram_eigh")
+    eigh_scores = {}
+    for dt in (torch.float64, torch.float32):
+        m_h = DAEFEngine(eigh_cfg, eigh_plan, mesh=host_mesh).fit(torch.from_numpy(xq).to(dt))
+        eigh_scores[dt] = daef.reconstruction_error(eigh_cfg, m_h,
+                                                    torch.from_numpy(x_test).to(dt), device="cpu")
+    witnesses = {"gram/gram_eigh": (s64, plain), "svd/local_svd": (s64, plain),
+                 "svd/gram_eigh": (eigh_scores[torch.float64].double(), max(plain, _rel(
+                     eigh_scores[torch.float32].double(), eigh_scores[torch.float64])))}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_lib.init_process_group_from_file(os.path.join(tmp, "store"), 0, 1, backend="nccl",
+                                              timeout_s=120)
+        try:
+            mesh = mesh_lib.Mesh((1,), ("data",))
+            check(mesh.backend == "nccl" and mesh.device_mesh is not None, f"NCCL mesh {mesh}")
+            one_device = {}
+            for method, fact in DATA_MESH_FITS:
+                m = f"{method}/{fact}"
+                cfg_m = dc.replace(base, method=method, stats_backend="fused")
+                deng = DAEFEngine(cfg_m, ExecutionPlan(mode="mesh", mesh_axes=("data",),
+                                                       local_factorization=fact), mesh=mesh)
+                dm = run(f"nccl data mesh fit {m}", lambda: deng.fit(xq_d))
+                if method not in one_device:   # daef.fit takes no factorization
+                    daef.fit(cfg_m, xq_d)
+                    one_device[method], times[f"daef.fit {method}"] = _timed(
+                        lambda: daef.fit(cfg_m, xq_d))
+                # held against daef.fit where both fits see the same inputs: the
+                # encoder's Gram and the first decoder layer's (G, M), in Gram
+                # form (deeper layers differ by the solves' drift, reported)
+                apart_l, apart_e = _model_stats_apart(
+                    _gram_form(dm), *_summed_stats([_gram_form(one_device[method])]))
+                check(max(apart_l[0], apart_e) <= 1e-4, f"NCCL data-mesh {m} fit vs daef.fit: "
+                      f"encoder {apart_e:.3e}, first decoder layer {apart_l[0]:.3e} (bar 1e-4)")
+                out[f"nccl data mesh {m} vs daef.fit, encoder and first layer"] = max(
+                    apart_l[0], apart_e)
+                out[f"nccl data mesh {m} vs daef.fit, deepest layer"] = max(apart_l)
+                ref_s, plain_m = witnesses[m]
+                d = _rel(daef.reconstruction_error(cfg_m, dm, xte).double().cpu(), ref_s)
+                out[f"nccl data mesh {m} test scores from float64"] = d
+                out[f"nccl data mesh {m} bar"] = 2 * plain_m + 1e-4
+                check(d <= 2 * plain_m + 1e-4, f"NCCL data-mesh {m} fit: test scores {d:.3e} "
+                      f"from the float64 fit of its route, bar 2 x {plain_m:.3e} + 1e-4")
+            rng = np.random.default_rng(7)
+            feats = (np.tanh(rng.normal(size=(HEAD_ROWS, 64))) @ rng.normal(size=(64, HEAD_WIDTH))
+                     + 0.3 * rng.normal(size=(HEAD_ROWS, HEAD_WIDTH))).astype(np.float32)
+            hcfg = dc.replace(daef_head.default_config(HEAD_WIDTH), stats_backend="fused")
+            daef_head.fit_head(feats, cfg=hcfg, mesh=mesh)
+            zero()
+            head, times["nccl head fit"] = _timed(
+                lambda: daef_head.fit_head(feats, cfg=hcfg, mesh=mesh))
+            launches["nccl head fit"] = read()
+            tc_routes = dict(rolann_stats.route_launches)
+            check(launches["nccl head fit"] == {"rolann_stats": 1}
+                  and tc_routes.get("tf32x3") == 1,
+                  f"head fit on the mesh launched {launches['nccl head fit']}, routes {tc_routes}")
+            plain_head = daef_head.fit_head(feats, cfg=hcfg, n_partitions=1)
+            apart_l, apart_e = _model_stats_apart(head.model, *_summed_stats([plain_head.model]))
+            check(max(apart_l + [apart_e]) <= 1e-4, f"mesh head vs the one-device head: layers "
+                  f"{apart_l}, encoder {apart_e} (bar 1e-4)")
+            out["nccl head statistics vs one-device head"] = max(apart_l + [apart_e])
+        finally:
+            torch.distributed.destroy_process_group()
+    say("mesh", f"one-rank NCCL group, data mesh over {MESH_SAMPLES} creditcard samples: " + ", ".join(
+        f"{m} fit {times[f'nccl data mesh fit {m}']:.2f} ms (launches "
+        f"{launches[f'nccl data mesh fit {m}']}; vs daef.fit: encoder and first layer "
+        f"{out[f'nccl data mesh {m} vs daef.fit, encoder and first layer']:.2e} (bar 1e-4), "
+        f"deepest layer {out[f'nccl data mesh {m} vs daef.fit, deepest layer']:.2e}; test "
+        f"scores {out[f'nccl data mesh {m} test scores from float64']:.2e} from the float64 "
+        f"fit of its route, bar {out[f'nccl data mesh {m} bar']:.2e})"
+        for m in (f"{a}/{b}" for a, b in DATA_MESH_FITS))
+        + f"; daef.fit gram {times['daef.fit gram']:.2f} ms, svd (local SVDs) "
+        f"{times['daef.fit svd']:.2f} ms; DAEF head on "
+        f"{HEAD_ROWS} x {HEAD_WIDTH} features {times['nccl head fit']:.2f} ms, B1 on "
+        f"{tc_routes}, statistics vs the one-device head "
+        f"{out['nccl head statistics vs one-device head']:.2e} (bar 1e-4)")
+
+    # ---- (c) four gloo ranks sharing the card ----
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, a in (("xs", xs), ("seeds", seeds_f), ("xq", xq), ("xte", x_test)):
+            np.save(os.path.join(tmp, name + ".npy"), a)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), LOCAL_RANK="0",
+                   OMP_NUM_THREADS="2")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                                   str(r), tmp], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(MESH_RANKS)]
+        try:
+            errs = [p.communicate(timeout=MESH_RANK_TIMEOUT_S)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        times["four gloo ranks (wall)"] = (time.perf_counter() - t0) * 1e3
+        for r, (p, err) in enumerate(zip(procs, errs, strict=True)):
+            check(p.returncode == 0, f"gloo rank {r} exited {p.returncode}: {err[-2000:]}")
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(MESH_RANKS)]
+
+    def rebuild(arrays, prefix, template):
+        n = sum(1 for key in arrays if key.startswith(prefix + "/leaf"))
+        return checkpoint.unflatten(template, [torch.from_numpy(arrays[f"{prefix}/leaf{i}"])
+                                               .cuda() for i in range(n)])
+
+    for key in ranks[0]:
+        if "/leaf" in key or key in ("data_test_scores", "data_threshold"):
+            check(all(np.array_equal(r[key], ranks[0][key]) for r in ranks[1:]),
+                  f"gloo ranks disagree on {key}")
+    # one process, the ranks' shapes: each rank's 16 tenants fitted alone
+    # (the batched kernels' slice plans depend on the tenant count, so a
+    # 16-tenant fit is the 64-tenant one's only to float32 drift)
+    from repro_torch.core import fleet_sharded
+
+    kl = k // MESH_RANKS
+
+    def by_rank(seeds):
+        fits = [fleet._fit_fleet(cfg, xs_d[r * kl:(r + 1) * kl], seeds=seeds[r * kl:(r + 1) * kl])
+                for r in range(MESH_RANKS)]
+        return checkpoint.unflatten(fits[0], [torch.cat(leaves) for leaves in zip(
+            *(checkpoint.flatten(f) for f in fits))])
+
+    f_ranks = by_rank(seeds_f)
+    _same_leaves(rebuild(ranks[0], "fit", fv), f_ranks,
+                 f"{MESH_RANKS} gloo ranks' fleet fit vs one process fitting their shards")
+    z_ranks = by_rank(np.zeros(k, np.int32))
+    for g, name in ((4, "reduce16"), (k, "reduce1")):
+        want = fleet_sharded.fleet_merge_tree(cfg, z_ranks, g)
+        out[f"gloo reduce {k}->{k // g} vs one process, kappa share"] = _check_fleets_close(
+            rebuild(ranks[0], name, want), want,
+            f"{MESH_RANKS} gloo ranks' tree reduce {k} -> {k // g} vs one process")
+    d = _rel(torch.from_numpy(ranks[0]["data_test_scores"]).double(), s64)
+    check(d <= 2 * plain + 1e-4, f"{MESH_RANKS} gloo ranks' data-mesh fit: test scores {d:.3e} "
+          f"from the float64 fit, bar 2 x {plain:.3e} + 1e-4")
+    out["gloo data mesh test scores from float64"] = d
+    per_rank = {name: [float(r[name]) for r in ranks]
+                for name in ("fit_ms", "reduce16_ms", "reduce1_ms", "data_fit_ms")}
+    launches["gloo rank fleet fit"] = [int(r["fit_b4"]) for r in ranks]
+    launches["gloo rank data fit"] = [int(r["data_fit_b1"]) for r in ranks]
+    check(launches["gloo rank fleet fit"] == [n_hidden] * MESH_RANKS
+          and launches["gloo rank data fit"] == [n_hidden] * MESH_RANKS,
+          f"gloo ranks launched B4 {launches['gloo rank fleet fit']}, B1 "
+          f"{launches['gloo rank data fit']}")
+    out["gloo per-rank ms"] = per_rank
+    say("mesh", f"{MESH_RANKS} gloo ranks on one card ({times['four gloo ranks (wall)'] / 1e3:.1f}"
+        f" s wall, processes included): per-rank ms " + ", ".join(
+            f"{n} {v}" for n, v in per_rank.items())
+        + f"; fleet fit ({k // MESH_RANKS} tenants a rank, B4 {launches['gloo rank fleet fit']}; "
+        "bit for bit the one-process fits of the ranks' shards), "
+        f"reduce {k} -> {k // 4} and {k} -> 1 held to one process by phase 7's rules (worst "
+        f"kappa share {max(v for n, v in out.items() if 'gloo' in n and 'kappa' in n):.3f}); "
+        f"data-mesh fit over {MESH_RANKS} x {q} samples (B1 {launches['gloo rank data fit']}) "
+        f"test scores {d:.2e} from the float64 fit, bar {2 * plain + 1e-4:.2e}; the ranks "
+        "agree bit for bit")
+    say("mesh", "NCCL across several cards stays unverified: this machine has one")
+    say("mesh", f"mesh phase took {time.perf_counter() - t_phase:.1f} s")
     return {"ms": times, "launches": launches, **out}
 
 
@@ -5551,6 +6139,8 @@ def main() -> int:
         engine_numbers = phase_engine(cfg, y_test, xtr, xte, references, card_fits,
                                       fleet_data, fleet_data_d)
         serving_numbers = phase_dp_serving(cfg, xtr, fleet_data, fleet_data_d)
+        mesh_numbers = phase_mesh(cfg, x_train, x_test, xte, references, fleet_data,
+                                  fleet_data_d)
         comparison_numbers = phase_comparison()
         decode_numbers = phase_decode(card)
         family_numbers = phase_families(card)
@@ -5755,6 +6345,7 @@ def main() -> int:
                 **_per_launch([ssm_numbers["ssd_chunk_bwd"]], "mamba2 train")},
         },
     ]
+    print(json.dumps({"mesh": mesh_numbers}))
     print(json.dumps({"ssm_training": ssm_numbers}))
     print(json.dumps({"encdec_training": encdec_numbers}))
     print(json.dumps({"families": family_numbers}))
@@ -5775,4 +6366,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

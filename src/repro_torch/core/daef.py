@@ -402,11 +402,12 @@ def _chunk_mask(width: int, n_valid: int, device: torch.device) -> torch.Tensor:
 
 
 def _iter_padded_chunks(factory, m0: int, device: torch.device, *, ndim: int = 2,
-                        what: str = "fit_stream"):
+                        what: str = "fit_stream", place=None):
     """Yield (chunk on ``device``, mask, n_valid) with the ragged tail padded
     to the fixed chunk width, one host chunk uploaded at a time.  Only the
     LAST chunk may be narrower; mid-stream width changes are an error.
-    A fleet's chunks are [K, m0, width] (``ndim=3``)."""
+    A fleet's chunks are [K, m0, width] (``ndim=3``); ``place`` maps each
+    checked chunk to the part that is uploaded (a mesh rank's tenants)."""
     it = iter(factory())
     prev = next(it, None)
     if prev is None:
@@ -431,7 +432,7 @@ def _iter_padded_chunks(factory, m0: int, device: torch.device, *, ndim: int = 2
                     f"chunk of width {c} — re-chunk the source (only the "
                     "last chunk may be narrower)"
                 )
-        chunk = as_tensor(x, device)
+        chunk = as_tensor(x if place is None else place(x), device)
         if c != width:
             chunk = F.pad(chunk, (0, width - c))
         yield chunk.contiguous(), _chunk_mask(width, c, device), c

@@ -31,10 +31,11 @@ fleet batch is [tenants, features, samples].
 Differences from the reference, on purpose:
   * its ``_require_concrete`` guards the merge checks against JAX tracers;
     torch has none, so it is gone;
-  * ``_fit_fleet_stream`` takes ``device=`` where the reference takes
-    ``place=`` (its mesh sharding waits for ROADMAP queue A item 12);
-  * ``_validate_groups`` (the reference's is in ``fleet_sharded``, which
-    waits for item 12) lives here, for the engine's reduce.
+  * ``_fit_fleet_stream`` takes ``device=`` beside the reference's
+    ``place=``, which here slices a mesh rank's tenants out of every
+    leading-[K] input (``core.fleet_sharded``);
+  * ``_validate_groups`` (the reference's is in ``fleet_sharded``) lives
+    here, for the engine's reduce and the tree merges.
 ``fleet_fit`` is the engine's deprecation shim, as the reference's is.
 Entry points that take data take ``device=`` (``None``: the card).
 """
@@ -380,25 +381,32 @@ def _fit_fleet_stream(
     lam_last=None,
     device=None,
     tenants: int | None = None,
+    place=None,
 ) -> DAEFFleet:
     """Streaming fleet fit from a host chunk source of ``[K, m0, chunk]``
     arrays (an iterable, or a zero-arg callable yielding a fresh iterator
     per pass — one pass per layer plus the error pass).  Each chunk is
     uploaded to ``device`` (``None``: the card) on its own; only the last
     may be narrower (padded and masked).  ``tenants`` fixes the expected K.
+    ``place`` (optional) maps every leading-[K] input — each checked host
+    chunk before its upload, and the per-tenant seeds and lambdas — to
+    the tenants this rank fits (``fleet_sharded._fit_sharded_stream``).
     """
     dev = resolve_device(device)
     config = config.resolved(dev)
     daef._require_gram(config, "streaming fleet fit")
     factory = daef._stream_chunk_source(batches)
     m0 = config.layer_sizes[0]
+    place = place if place is not None else (lambda a: a)
+    k_all = [tenants]
 
     def chunks():
         k = tenants
-        for x, _, n_valid in daef._iter_padded_chunks(factory, m0, dev, ndim=3,
-                                                      what="fleet fit_stream"):
+
+        def check(x):
+            nonlocal k
             if k is None:
-                k = x.shape[0]
+                k = k_all[0] = x.shape[0]
             elif x.shape[0] != k:
                 raise ValueError(
                     f"fleet fit_stream: chunks carry {x.shape[0]} tenants "
@@ -406,12 +414,18 @@ def _fit_fleet_stream(
                     + ("" if tenants is not None else " (tenant count "
                        "changed mid-stream)")
                 )
-            yield x, _fleet_mask(k, x.shape[-1], n_valid, dev), n_valid
+            return place(x)
+
+        for x, _, n_valid in daef._iter_padded_chunks(factory, m0, dev, ndim=3,
+                                                      what="fleet fit_stream", place=check):
+            yield x, _fleet_mask(x.shape[0], x.shape[-1], n_valid, dev), n_valid
 
     def seeds_fn(k, dtype):
-        return (_per_tenant(seeds, config.seed, k, torch.int32, dev),
-                _per_tenant(lam_hidden, config.lam_hidden, k, dtype, dev),
-                _per_tenant(lam_last, config.lam_last, k, dtype, dev))
+        del k  # the placed count; the hyperparameters broadcast over all K
+        k = k_all[0]
+        return (place(_per_tenant(seeds, config.seed, k, torch.int32, dev)),
+                place(_per_tenant(lam_hidden, config.lam_hidden, k, dtype, dev)),
+                place(_per_tenant(lam_last, config.lam_last, k, dtype, dev)))
 
     return _fit_chunks(config, chunks, seeds_fn)
 

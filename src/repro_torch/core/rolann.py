@@ -321,8 +321,20 @@ def merge_factors_list(items: list[RolannFactors]) -> RolannFactors:
 
 def stats_to_factors(stats: RolannStats) -> RolannFactors:
     """Convert Gram form to factor form via eigh (G = U S^2 U^T), in the
-    SVD's descending order."""
-    evals, evecs = torch.linalg.eigh(stats.g)
+    SVD's descending order.
+
+    On the card a float32 G is decomposed in float64 and the result rounded
+    back.  At the creditcard fit's layer Grams (condition numbers 3e6–1e10)
+    cuSOLVER's float32 eigh left the eigenvalues 2–3x and the smallest ones
+    up to 9x farther from float64's than LAPACK's float32 eigh on the host,
+    which put the fit by ``local_factorization="gram_eigh"`` 0.131 from its
+    float64 fit against 8.3e-3 on the host; at these sizes float64 costs the
+    card no more time (PERF.md, PR 33)."""
+    g = stats.g
+    if g.is_cuda and g.dtype == torch.float32:
+        evals, evecs = (t.to(g.dtype) for t in torch.linalg.eigh(g.double()))
+    else:
+        evals, evecs = torch.linalg.eigh(g)
     evals = torch.clamp(evals, min=0.0)
     u = torch.flip(evecs, dims=(-1,))
     s = torch.sqrt(torch.flip(evals, dims=(-1,)))

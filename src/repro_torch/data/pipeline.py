@@ -2,17 +2,18 @@
 ``repro/data/pipeline.py``).
 
 Deterministic numpy batching with per-epoch shuffling: the same arguments
-give the same arrays as the reference, batch for batch.  The reference's
-``shard_batch`` places a host batch on a device mesh; meshes wait for
-ROADMAP queue A item 12.
+give the same arrays as the reference, batch for batch.  :func:`shard_batch`
+places a host batch on a device mesh (``launch.mesh``): this rank's slice
+along the named axes, on its device.
 """
 from __future__ import annotations
 
 from typing import Callable, Iterator
 
 import numpy as np
+import torch
 
-MESH_ITEM = "ROADMAP queue A item 12"
+from repro_torch.device import as_tensor
 
 
 def batches(
@@ -48,9 +49,40 @@ def token_batches(
         yield sampler(step)
 
 
+def _rank_part(a, mesh, spec):
+    """The block of ``a`` this rank holds under ``spec``: per dimension
+    None (whole), an axis name, or a tuple of them (flattened in mesh order,
+    as a ``PartitionSpec`` entry)."""
+    index = []
+    for dim, entry in enumerate(tuple(spec)):
+        if entry is None:
+            index.append(slice(None))
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        i, count = mesh.index(axes)
+        n = a.shape[dim]
+        if n % count:
+            raise ValueError(f"shard_batch: dimension {dim} of size {n} does not "
+                             f"divide over the {count} shards of {axes}")
+        index.append(slice(i * n // count, (i + 1) * n // count))
+    return a[tuple(index)]
+
+
 def shard_batch(batch, mesh, spec):
-    """Raises: placing a batch on a device mesh waits for the mesh paths."""
-    raise NotImplementedError(
-        f"shard_batch places a batch on a device mesh, which is not ported to "
-        f"repro_torch yet ({MESH_ITEM})"
-    )
+    """Place a host batch (an array, or a dict / list / tuple of them) onto
+    the mesh: each leaf's block under ``spec`` (the reference's
+    ``PartitionSpec`` as a tuple: per dimension None, an axis name or a
+    tuple of names), on this rank's device.  Only the block is uploaded;
+    the dtype is kept."""
+    def place(a):
+        a = a if isinstance(a, torch.Tensor) else np.asarray(a)
+        part = _rank_part(a, mesh, spec)
+        if isinstance(part, np.ndarray):
+            part = torch.from_numpy(np.ascontiguousarray(part))
+        return as_tensor(part, mesh.device, part.dtype).contiguous()
+
+    if isinstance(batch, dict):
+        return {k: shard_batch(v, mesh, spec) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(shard_batch(v, mesh, spec) for v in batch)
+    return place(batch)

@@ -12,9 +12,10 @@
     model   = session.round(parts)
 
 ``device=`` is taken once, by the engine (``None``: the card); every state
-it returns lives there.  The ``loop`` and ``vmap`` modes run, with either
-privacy tier (DP release, secure aggregation); mesh plans and tree merges
-(ROADMAP queue A item 12) raise ``NotImplementedError`` naming the item.
+it returns lives there.  Every mode runs — ``loop``, ``vmap`` and ``mesh``
+(tenant- or data-sharded over the ranks of a ``launch.mesh.Mesh``) — with
+every merge, ``"tree"`` included, and either privacy tier (DP release,
+secure aggregation).
 The module-level ``fleet.fleet_fit`` and ``federated.federated_fit`` are
 deprecation shims over this API.
 """

@@ -2,23 +2,30 @@
 (counterpart of ``repro/engine/engine.py``).
 
 The engine binds a ``DAEFConfig`` (the math: layer sizes, lambdas, knowledge
-representation) to an ``ExecutionPlan`` (the placement: loop / vmap,
+representation) to an ``ExecutionPlan`` (the placement: loop / vmap / mesh,
 tenant count, merge strategy, stats backend, streaming chunk width) and to
 one device, and exposes ONE spelling of
 
     fit / fit_stream / partial_fit / predict / scores / merge / reduce /
     thresholds / classify / save / load / session
 
-It dispatches to the port's one-tenant core (`core.daef`) and its tenant
-fleet (`core.fleet`), resolving the stats-backend precedence (plan >
-config > ``$REPRO_STATS_BACKEND`` > default) and the device exactly once, at
-construction.  ``device=None`` is the card (see :mod:`repro_torch.device`);
-every state the engine returns lives on its device.
+It dispatches to the port's one-tenant core (`core.daef`), its tenant
+fleet (`core.fleet`), the tenant-sharded fleet (`core.fleet_sharded`) and
+the data-sharded single model (`core.sharded`), resolving the
+stats-backend precedence (plan > config > ``$REPRO_STATS_BACKEND`` >
+default) and the device exactly once, at construction.  ``device=None`` is
+the card (see :mod:`repro_torch.device`; a mesh plan's rank uses
+``cuda:{LOCAL_RANK}``); every state the engine returns lives on its device.
 
-What waits: ``mode="mesh"`` plans (tenant- or data-sharded), the
-``merge="tree"`` reductions and the mesh placement of a loaded fleet are
-ROADMAP queue A item 12.  Each raises ``NotImplementedError`` naming the
-item: mesh at construction, tree where it would run.
+Mesh plans (``launch.mesh``): every rank runs the same calls on the same
+global inputs.  A tenant-sharded plan over D ranks returns each rank's
+shard, a ``DAEFFleet`` of K/D tenants, and takes either that shard or the
+global fleet (which it shards); its scores and predictions are the rank's
+tenants'.  A data-sharded plan returns the same weights on every rank and
+each rank's samples' train errors and scores; ``thresholds`` gathers the
+errors first.  ``save`` gathers to rank 0, which alone writes; ``load``
+re-places the state onto the mesh.  With one rank every mesh path is the
+reference's one-device mesh.
 
 State convention: with a 3-D ``[K, features, samples]`` batch the engine
 works on a ``DAEFFleet``; with a 2-D ``[features, samples]`` matrix on a
@@ -33,18 +40,13 @@ import os
 import numpy as np
 import torch
 
-from repro_torch.core import anomaly, daef, dsvd, fleet, rolann
+from repro_torch.core import anomaly, daef, dsvd, fleet, fleet_sharded, rolann, sharded
 from repro_torch.core.federated import _host
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.engine.plan import ExecutionPlan, PlanError
+from repro_torch.launch import mesh as mesh_lib
 
 EngineState = daef.DAEFModel | fleet.DAEFFleet
-
-MESH_ITEM = "ROADMAP queue A item 12"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet ({item})")
 
 
 def _bumps_model_version(method):
@@ -89,15 +91,17 @@ class DAEFEngine:
                 representation (``method``), seed, gram solver.
             plan: the placement/dispatch choice; ``None`` means the default
                 ``ExecutionPlan()`` (one model, vmap mode).
-            mesh: an explicit device mesh for ``mode="mesh"`` plans (ROADMAP
-                queue A item 12; refused).
+            mesh: an explicit ``launch.mesh.Mesh`` for ``mode="mesh"``
+                plans.  ``None`` builds and caches one on first use from
+                ``plan.mesh_devices``.
             device: where every state lives and every fit runs; ``None`` is
-                the card.
+                the card (a mesh's device when a mesh is given).
 
         Raises:
             PlanError: as the reference's: ``plan`` is not an ExecutionPlan;
-                the plan and config conflict.
-            NotImplementedError: a mesh plan or an explicit mesh (item 12).
+                the plan and config conflict; the mesh is missing a required
+                axis or does not tile the fleet, or asks for more devices
+                than the world has.
             RuntimeError: ``device`` is the card and none is present.
         """
         plan = plan if plan is not None else ExecutionPlan()
@@ -110,7 +114,8 @@ class DAEFEngine:
         # the platform of the engine's device).
         if plan.stats_backend is not None:
             config = dataclasses.replace(config, stats_backend=plan.stats_backend)
-        config = config.resolved(device)
+        config = config.resolved(mesh.device if mesh is not None and device is None
+                                 else device)
         plan = dataclasses.replace(plan, stats_backend=config.stats_backend)
         if plan.chunk_samples is not None and config.method != "gram":
             raise PlanError(
@@ -137,19 +142,23 @@ class DAEFEngine:
                     "unbounded activations make the release sensitivity "
                     "unbounded (privacy.dp.block_sensitivities)"
                 )
-        if mesh is not None and plan.mode != "mesh":
-            raise PlanError(
-                f"an explicit mesh was given but plan.mode={plan.mode!r}; "
-                "use ExecutionPlan(mode='mesh', ...)"
-            )
-        if plan.mode == "mesh":
-            kind = "data-sharded" if plan.data_sharded else "tenant-sharded"
-            raise _not_ported(f"a mode='mesh' plan ({kind}, mesh_axes={plan.mesh_axes})",
-                              MESH_ITEM)
         self.config = config
         self.plan = plan
-        self.device = resolve_device(device)
         self._model_version = 0
+        self._mesh = None
+        if mesh is not None:
+            self._check_mesh(mesh)
+            if device is not None and mesh_lib.rank_device(device) != mesh.device:
+                raise PlanError(f"the mesh's rank lives on {mesh.device} but "
+                                f"device={device!r} was asked for")
+            self._mesh = mesh
+            self.device = mesh.device
+        elif plan.mode == "mesh":
+            self.device = mesh_lib.rank_device(device)
+            if plan.mesh_devices is not None:
+                self.mesh  # build eagerly: surface bad mesh sizes at init
+        else:
+            self.device = resolve_device(device)
 
     @property
     def model_version(self) -> int:
@@ -163,11 +172,101 @@ class DAEFEngine:
         engine methods (e.g. `FederationSession.round`)."""
         self._model_version += 1
 
+    # ------------------------------------------------------------------
+    # Mesh
+    # ------------------------------------------------------------------
+
+    def _check_mesh(self, mesh) -> None:
+        if self.plan.mode != "mesh":
+            raise PlanError(
+                f"an explicit mesh was given but plan.mode={self.plan.mode!r}; "
+                "use ExecutionPlan(mode='mesh', ...)"
+            )
+        missing = [a for a in self.plan.mesh_axes if a not in mesh.shape]
+        if missing:
+            raise PlanError(
+                f"mesh {dict(mesh.shape)} has no axis {missing} required by "
+                f"plan.mesh_axes={self.plan.mesh_axes}"
+            )
+        if self.plan.tenant_sharded:
+            d = mesh.shape[fleet_sharded.TENANT_AXIS]
+            if self.plan.tenants % d:
+                raise PlanError(
+                    f"bad mesh size: tenants={self.plan.tenants} does not "
+                    f"divide evenly over the {d}-device "
+                    f"'{fleet_sharded.TENANT_AXIS}' axis — pad the fleet or "
+                    "resize the mesh"
+                )
+
     @property
     def mesh(self):
-        """The device mesh of a mesh plan; None for loop/vmap plans (the
-        only ones the port runs)."""
-        return None
+        """The device mesh this plan runs on (built once, then cached).
+        None for loop/vmap plans."""
+        if self.plan.mode != "mesh":
+            return None
+        if self._mesh is None:
+            self._mesh = self._build_mesh()
+        return self._mesh
+
+    def _build_mesh(self):
+        """The reference's sizing over the ranks of the default process
+        group (one without a group).  A multi-rank mesh spans every rank or
+        one, so the automatic tenant mesh is every rank, and ranks that do
+        not tile the fleet raise (the reference would take the largest
+        divisor of the fleet that fits its devices)."""
+        plan = self.plan
+        avail = mesh_lib.world_size()
+        if plan.tenant_sharded:
+            d = plan.mesh_devices
+            if d is None:
+                if plan.tenants % avail:
+                    raise PlanError(
+                        f"bad mesh size: tenants={plan.tenants} does not divide "
+                        f"evenly over the {avail} ranks of the process group, and a "
+                        "multi-rank mesh spans every rank, or one — pad the fleet, "
+                        "run on a rank count that divides it, or pass mesh_devices=1"
+                    )
+                d = avail
+            if d > avail:
+                raise PlanError(
+                    f"bad mesh size: mesh_devices={d} exceeds the {avail} "
+                    "available device(s) — shrink the plan or run on more "
+                    "devices"
+                )
+            self._check_spans(d, avail)
+            return fleet_sharded.tenant_mesh(d, device=self.device)
+        if len(plan.mesh_axes) != 1:
+            raise PlanError(
+                f"cannot auto-build a mesh for axes {plan.mesh_axes}; pass "
+                "mesh= explicitly (e.g. launch.mesh.make_production_mesh())"
+            )
+        n = plan.mesh_devices or avail
+        if n > avail:
+            raise PlanError(
+                f"bad mesh size: mesh_devices={n} exceeds the {avail} "
+                "available device(s)"
+            )
+        self._check_spans(n, avail)
+        return mesh_lib.Mesh((n,), plan.mesh_axes, device=self.device)
+
+    @staticmethod
+    def _check_spans(n: int, avail: int) -> None:
+        if 1 < n < avail:
+            raise PlanError(
+                f"bad mesh size: mesh_devices={n} spans {n} of the {avail} "
+                "ranks — a multi-rank mesh spans every rank, or one"
+            )
+
+    def _tenant_devices(self) -> int:
+        return self.mesh.shape[fleet_sharded.TENANT_AXIS] if self.plan.tenant_sharded else 1
+
+    def _local(self, state):
+        """A tenant-sharded plan's state as this rank's shard (a global
+        fleet is cut; a shard passes through)."""
+        if (isinstance(state, fleet.DAEFFleet) and self._tenant_devices() > 1
+                and state.size == self.plan.tenants):
+            return fleet_sharded.shard_fleet(state, self.mesh)
+        return state
 
     # ------------------------------------------------------------------
     # Input handling
@@ -189,6 +288,12 @@ class DAEFEngine:
                 raise PlanError(
                     f"{what}: feature dim {x.shape[1]} != layer_sizes[0] {m0}"
                 )
+            if self.plan.data_sharded:
+                raise PlanError(
+                    f"{what}: plan shards the sample axis of a single model "
+                    f"(mesh_axes={self.plan.mesh_axes}) but got a 3-D tenant "
+                    "batch; use mesh_axes=('tenants',) for fleets"
+                )
             return True
         if ndim == 2:
             if self.plan.tenants != 1:
@@ -209,7 +314,9 @@ class DAEFEngine:
 
     def _is_fleet(self, state: EngineState, *, what: str) -> bool:
         if isinstance(state, fleet.DAEFFleet):
-            if state.size != self.plan.tenants:
+            d = self._tenant_devices()
+            if state.size != self.plan.tenants and not (
+                    d > 1 and state.size * d == self.plan.tenants):
                 raise PlanError(
                     f"{what}: fleet has {state.size} tenants but the plan "
                     f"declares tenants={self.plan.tenants}"
@@ -275,6 +382,11 @@ class DAEFEngine:
                     "fit: per-tenant seeds/lambdas apply to fleet batches; "
                     "for a single model set them on the DAEFConfig"
                 )
+            if plan.data_sharded:
+                return sharded._fit_on_mesh(
+                    cfg, x, self.mesh, data_axes=plan.mesh_axes,
+                    local_factorization=plan.local_factorization,
+                )
             if chunk is not None:
                 return daef.fit_chunked(cfg, x, chunk_samples=chunk, device=dev)
             return daef.fit(cfg, x, n_partitions=n_partitions, device=dev)
@@ -298,6 +410,11 @@ class DAEFEngine:
             return fleet.fleet_from_models(
                 cfg, models, seeds=seeds, lam_hidden=lam_hidden,
                 lam_last=lam_last,
+            )
+        if plan.mode == "mesh":
+            return fleet_sharded._fit_sharded(
+                cfg, x, self.mesh, seeds=seeds, lam_hidden=lam_hidden,
+                lam_last=lam_last, n_partitions=n_partitions, chunk_samples=chunk,
             )
         if chunk is not None:
             return fleet._fit_fleet_chunked(
@@ -336,6 +453,12 @@ class DAEFEngine:
                 f"config.method={cfg.method!r} has no additive chunk form — "
                 "use method='gram'"
             )
+        if plan.data_sharded:
+            raise PlanError(
+                "fit_stream streams host chunks, but the plan shards the "
+                f"sample axis on-mesh (mesh_axes={plan.mesh_axes}) — use "
+                "mode='vmap'/'loop' or a tenant-sharded mesh plan"
+            )
         if plan.tenants == 1:
             if seeds is not None or lam_hidden is not None or lam_last is not None:
                 raise PlanError(
@@ -364,6 +487,11 @@ class DAEFEngine:
             return fleet.fleet_from_models(
                 cfg, models, seeds=seeds, lam_hidden=lam_hidden,
                 lam_last=lam_last,
+            )
+        if plan.mode == "mesh":
+            return fleet_sharded._fit_sharded_stream(
+                cfg, batches, self.mesh, seeds=seeds, lam_hidden=lam_hidden,
+                lam_last=lam_last, tenants=plan.tenants,
             )
         return fleet._fit_fleet_stream(
             cfg, batches, seeds=seeds, lam_hidden=lam_hidden,
@@ -403,6 +531,12 @@ class DAEFEngine:
         chunk = plan.chunk_samples
         if not self._is_fleet(state, what="partial_fit"):
             self._check_x(x_new, what="partial_fit")
+            if plan.data_sharded:
+                update = sharded._fit_on_mesh(
+                    cfg, x_new, self.mesh, data_axes=plan.mesh_axes,
+                    local_factorization=plan.local_factorization,
+                )
+                return daef.merge_models(cfg, state, update)
             if chunk is not None:
                 update = daef.fit_chunked(cfg, x_new, chunk_samples=chunk, device=dev)
                 return daef.merge_models(cfg, state, update)
@@ -428,6 +562,10 @@ class DAEFEngine:
             return fleet.fleet_from_models(
                 cfg, models, seeds=state.seeds, lam_hidden=state.lam_hidden,
                 lam_last=state.lam_last,
+            )
+        if plan.mode == "mesh":
+            return fleet_sharded.sharded_fleet_partial_fit(
+                cfg, self._local(state), x_new, mesh=self.mesh, chunk_samples=chunk,
             )
         if chunk is not None:
             update = fleet._fit_fleet_chunked(
@@ -455,12 +593,18 @@ class DAEFEngine:
 
     def predict(self, state: EngineState, x) -> torch.Tensor:
         """Reconstruct ``x`` ([K, m, n] per-tenant, or [m, n] single)."""
-        cfg, dev = self.config, self.device
+        cfg, dev, plan = self.config, self.device, self.plan
         if not self._is_fleet(state, what="predict"):
             self._check_x(x, what="predict")
+            if plan.data_sharded:
+                return sharded.predict_on_mesh(cfg, state, x, self.mesh,
+                                               data_axes=plan.mesh_axes)
             return daef.predict(cfg, state, x, device=dev)
         self._check_x(x, what="predict")
-        if self.plan.mode == "loop":
+        if plan.mode == "mesh":
+            return fleet_sharded.sharded_fleet_predict(cfg, self._local(state), x,
+                                                       mesh=self.mesh)
+        if plan.mode == "loop":
             return torch.stack([
                 daef.predict(cfg, fleet.get_model(state, i), x[i], device=dev)
                 for i in range(self.plan.tenants)
@@ -471,8 +615,9 @@ class DAEFEngine:
         """Per-sample anomaly scores (reconstruction MSE): [K, n] or [n].
 
         ``n_valid`` ([K] ints, fleet only) masks a padded serving batch:
-        scores of padding columns come back NaN."""
-        cfg, dev = self.config, self.device
+        scores of padding columns come back NaN.  Mesh plans give this
+        rank's tenants' (or samples') scores."""
+        cfg, dev, plan = self.config, self.device, self.plan
         if not self._is_fleet(state, what="scores"):
             if n_valid is not None:
                 raise PlanError(
@@ -480,9 +625,15 @@ class DAEFEngine:
                     "model takes an unpadded [features, samples] matrix"
                 )
             self._check_x(x, what="scores")
+            if plan.data_sharded:
+                xp = sharded.shard_samples(x, self.mesh, plan.mesh_axes)
+                return torch.mean((daef.predict(cfg, state, xp, device=dev) - xp) ** 2, dim=0)
             return daef.reconstruction_error(cfg, state, x, device=dev)
         self._check_x(x, what="scores")
-        if self.plan.mode == "loop":
+        if plan.mode == "mesh":
+            return fleet_sharded.sharded_fleet_scores(cfg, self._local(state), x,
+                                                      n_valid=n_valid, mesh=self.mesh)
+        if plan.mode == "loop":
             errs = torch.stack([
                 daef.reconstruction_error(cfg, fleet.get_model(state, i), x[i], device=dev)
                 for i in range(self.plan.tenants)
@@ -495,10 +646,15 @@ class DAEFEngine:
         return fleet.fleet_scores(cfg, state, x, n_valid=n_valid, device=dev)
 
     def thresholds(self, state: EngineState, rule: str = "extreme_iqr") -> torch.Tensor:
-        """Per-tenant anomaly thresholds from each model's train errors."""
+        """Per-tenant anomaly thresholds from each model's train errors (a
+        tenant-sharded plan's: this rank's tenants'; a data-sharded plan
+        gathers every rank's errors first)."""
         if self._is_fleet(state, what="thresholds"):
-            return fleet.fleet_thresholds(state, rule=rule)
-        return anomaly.threshold(state.train_errors, rule, device=self.device)
+            return fleet.fleet_thresholds(self._local(state), rule=rule)
+        errors = state.train_errors
+        if self.plan.data_sharded:
+            errors = sharded.gather_samples(errors, self.mesh, self.plan.mesh_axes)
+        return anomaly.threshold(errors, rule, device=self.device)
 
     def classify(self, scores, thresholds) -> torch.Tensor:
         """Flag anomalies (1 = anomalous); NaN padding scores classify 0."""
@@ -532,6 +688,7 @@ class DAEFEngine:
             )
         if not a_fleet:
             return daef.merge_models(self.config, a, b)
+        a, b = self._local(a), self._local(b)
         if self.plan.mode == "loop":
             fleet._check_merge_compat(a, b, "merge")
             models = [
@@ -554,11 +711,14 @@ class DAEFEngine:
 
         * "sequential" — left-to-right ``daef.merge_models`` reduce;
         * "pairwise"   — log2(group_size) rounds of batched pairwise merges;
-        * "tree"       — the on-mesh butterfly (ROADMAP queue A item 12:
-                         raises ``NotImplementedError``).
+        * "tree"       — the butterfly of `fleet_sharded.fleet_merge_tree`
+                         (over the plan's mesh for tenant-sharded plans).
 
         Tenants within a group must share a seed (the paper's
-        shared-randomness requirement).
+        shared-randomness requirement).  A tenant-sharded plan over several
+        ranks gathers the fleet for "sequential" and "pairwise" (every rank
+        returns the whole result); "tree" returns what `fleet_merge_tree`
+        does.
 
         Raises:
             PlanError: a single model, a group size that does not divide the
@@ -567,7 +727,7 @@ class DAEFEngine:
         """
         if not self._is_fleet(state, what="reduce"):
             raise PlanError("reduce: a single model has nothing to reduce")
-        k, merge = state.size, self.plan.merge
+        k, merge = self.plan.tenants, self.plan.merge  # the global fleet size
         if group_size < 1 or k % group_size:
             raise PlanError(
                 f"reduce: group_size {group_size} must divide the fleet "
@@ -582,7 +742,12 @@ class DAEFEngine:
         if group_size == 1:
             return state
         if merge == "tree":
-            raise _not_ported("reduce with merge='tree' (fleet_merge_tree)", MESH_ITEM)
+            return fleet_sharded.fleet_merge_tree(
+                self.config, self._local(state), group_size,
+                mesh=self.mesh if self.plan.tenant_sharded else None,
+            )
+        if self._tenant_devices() > 1:
+            state = fleet_sharded.gather_fleet(self._local(state), self.mesh)
         fleet._validate_groups(state, group_size)
         if merge == "pairwise":
             while group_size > 1:
@@ -623,6 +788,11 @@ class DAEFEngine:
             device=self.device,
         )
 
+    def _writes(self) -> bool:
+        """Whether this rank writes checkpoints: rank 0 of a mesh, or any
+        rank of a plan without one."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def session(self) -> FederationSession:  # noqa: F821 (imported lazily)
         """A multi-round federation driver bound to this engine.
 
@@ -641,21 +811,33 @@ class DAEFEngine:
         """Persist a trained state (msgpack-framed numpy, via
         ``train.checkpoint``, the reference's layout) or a mid-federation
         ``FederationSession`` (see ``FederationSession.save``).  Returns the
-        checkpoint directory."""
+        checkpoint directory.  A mesh plan gathers the state to rank 0, which
+        alone writes; every rank returns once it has."""
         from repro_torch.engine.session import FederationSession
         from repro_torch.train import checkpoint
 
         if isinstance(state, FederationSession):
-            return state.save(path)
-        self._is_fleet(state, what="save")
-        return checkpoint.save(path, state)
+            out = state.save(path) if self._writes() else path
+        else:
+            if self._is_fleet(state, what="save"):
+                if self._tenant_devices() > 1 and state.size != self.plan.tenants:
+                    state = fleet_sharded.gather_fleet(state, self.mesh)
+            elif self.plan.data_sharded:
+                state = state._replace(train_errors=sharded.gather_samples(
+                    state.train_errors, self.mesh, self.plan.mesh_axes))
+            out = checkpoint.save(path, state) if self._writes() else path
+        if self.mesh is not None:
+            self.mesh.barrier()
+        return out
 
     def load(self, path: str):
         """Restore whatever ``save`` (of either package) wrote at ``path``
         under a structurally identical config/plan: a ``session.json`` in
         the directory means a ``FederationSession`` (rebound to THIS
         engine), anything else a model/fleet state, on the engine's
-        device."""
+        device; mesh plans re-place the state onto the mesh (a fleet's
+        shard, a data-sharded model's train errors of this rank's
+        samples)."""
         from repro_torch.train import checkpoint
 
         if os.path.exists(os.path.join(path, "session.json")):
@@ -669,7 +851,14 @@ class DAEFEngine:
                 f"load: checkpoint at {path!r} does not match this engine's "
                 f"config/plan ({e}); load with the engine that saved it"
             ) from e
-        return self._to_device(state)
+        state = self._to_device(state)
+        if isinstance(state, fleet.DAEFFleet) and self.plan.tenant_sharded:
+            return fleet_sharded.shard_fleet(state, self.mesh)
+        if isinstance(state, daef.DAEFModel) and self.plan.data_sharded:
+            lo, hi = sharded._shard_bounds(state.train_errors.shape[-1], self.mesh,
+                                           self.plan.mesh_axes)
+            return state._replace(train_errors=state.train_errors[lo:hi])
+        return state
 
     def _to_device(self, tree):
         """A restored tree's numpy leaves as tensors on the engine's device."""

@@ -2,9 +2,8 @@
 
 Counterpart of ``repro/engine/plan.py``: the same fields, defaults and
 validation, so that a plan means the same in both packages.  A plan is
-data: ``mode="mesh"`` and ``merge="tree"`` validate here as in the
-reference, and the port's engine refuses them where it would run them
-(the mesh paths are ROADMAP queue A item 12).
+data: the engine (``engine.py``) maps ``mode="mesh"`` onto the ranks of a
+``launch.mesh.Mesh``.
 
 The paper's selling point is that ONE closed-form formulation covers local,
 distributed and incremental training; the repo's kernels mirror that (vmap

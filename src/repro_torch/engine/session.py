@@ -19,8 +19,10 @@ site reports before any merge; round r+1 merges into the accumulated model
 * ``merge="pairwise"`` — broker protocol: each node trains a full local
   DAEF, then the models reduce in pairwise rounds (an odd tail passes
   through).
-* ``merge="tree"`` — the on-mesh butterfly: ROADMAP queue A item 12, raises
-  ``NotImplementedError`` (after the reference's validation of the round).
+* ``merge="tree"`` — the butterfly: the round's partitions fit as one
+  stacked fleet (each rank its share, under a tenant-sharded plan whose
+  ranks tile the round) and reduce by ``fleet_sharded.fleet_merge_tree``
+  with one re-solve at the root.
 
 **Async (``ExecutionPlan(federation="async")``, continual)** — any subset
 of sites may report per round (``round({site: x, ...})``); the session
@@ -31,6 +33,10 @@ round REBUILDS the live model from whichever sites are within
 Stale sites drop out and re-enter with their full accumulated contribution
 the moment they report again (delta replay).  Equal-width rounds under a
 ``vmap`` plan fit as one fleet (the B4 kernel on the fused backend).
+
+Under ``merge="tree"`` the async refresh reduces the fresh sites' states,
+masked and padded to a power of two, by ``fleet_sharded.merge_state_tree``,
+and a secagg round sums its wires by ``fleet_sharded.merge_wire_tree``.
 
 Exchange states live on the engine's device, except each site's per-sample
 train-error pool, which the session keeps on the host, as the reference
@@ -51,9 +57,9 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import daef, dsvd, federated, fleet, threefry
+from repro_torch.core import daef, dsvd, federated, fleet, fleet_sharded, threefry
 from repro_torch.device import as_tensor
-from repro_torch.engine.engine import MESH_ITEM, _knowledge_template, _model_template, _not_ported
+from repro_torch.engine.engine import _knowledge_template, _model_template
 from repro_torch.engine.plan import PlanError
 from repro_torch.privacy.accounting import PrivacyLedger
 
@@ -134,8 +140,6 @@ class FederationSession:
             PlanError: empty ``parts`` in sync mode, a partition with the
                 wrong shape, or a round incompatible with the plan's
                 ``merge`` strategy.
-            NotImplementedError: a ``merge="tree"`` reduction (ROADMAP
-                queue A item 12).
         """
         named = self._check_parts(parts)
         if self.engine.plan.async_federation:
@@ -287,9 +291,9 @@ class FederationSession:
             for site, w in zip(sites, wires, strict=True)
         ]
         if plan.merge == "tree":
-            raise _not_ported("a secagg round with merge='tree' (merge_wire_tree)",
-                              MESH_ITEM)
-        agg = secagg.aggregate(masked, plan.merge)
+            agg = fleet_sharded.merge_wire_tree(masked)
+        else:
+            agg = secagg.aggregate(masked, plan.merge)
         leaves = secagg.decode(agg, spec.frac_bits,
                                dtypes=[np.float64] * len(agg))
         enc, knw, errors = federated.additive_to_exchange(cfg, leaves,
@@ -340,7 +344,7 @@ class FederationSession:
                     nxt.append(models[-1])
                 models = nxt
             return models[0]
-        # merge == "tree": the reference's checks, then the on-mesh butterfly.
+        # merge == "tree": one stacked fleet fit + the butterfly.
         p = len(parts)
         if p & (p - 1):
             raise PlanError(
@@ -356,7 +360,24 @@ class FederationSession:
                 f"and needs equal sample counts, got {sorted(lens)} — pad "
                 "the partitions or use merge='sequential'/'pairwise'"
             )
-        raise _not_ported("a sync round with merge='tree' (fleet_merge_tree)", MESH_ITEM)
+        xs = torch.stack(parts)
+        mesh = self._tree_mesh(p)
+        if mesh is None:
+            fl = fleet._fit_fleet(cfg, xs, seeds=None, lam_hidden=None,
+                                  lam_last=None, device=dev)
+        else:  # each rank fits its share of the round
+            fl = fleet_sharded._fit_sharded(cfg, xs, mesh)
+        merged = fleet_sharded.fleet_merge_tree(cfg, fl, p, mesh=mesh)
+        return fleet.get_model(merged, 0)
+
+    def _tree_mesh(self, slots: int):
+        """The plan's tenant mesh when its ranks tile ``slots``, else None
+        (this rank alone)."""
+        engine = self.engine
+        mesh = engine.mesh if engine.plan.tenant_sharded else None
+        if mesh is not None and slots % mesh.shape[fleet_sharded.TENANT_AXIS]:
+            return None  # the round does not tile the plan's fleet mesh
+        return mesh
 
     # ------------------------------------------------------------------
     # Async: versioned ledger + continual refresh
@@ -465,8 +486,8 @@ class FederationSession:
 
     def _reduce_states(self, states: list[ExchangeState]):
         """Reduce fresh exchange states per ``plan.merge``: sequential or
-        pairwise (`federated.merge_exchange_states`); the masked on-mesh
-        tree is ROADMAP queue A item 12."""
+        pairwise (`federated.merge_exchange_states`), or the masked
+        butterfly (`fleet_sharded.merge_state_tree`)."""
         cfg, merge = self.engine.config, self.engine.plan.merge
         if merge == "tree" and len(states) > 1:
             if cfg.method != "gram":
@@ -476,8 +497,17 @@ class FederationSession:
                     "fixed-shape states; svd factors are rank-ragged) — "
                     "use merge='sequential'/'pairwise' for method='svd'"
                 )
-            raise _not_ported("an async refresh with merge='tree' (merge_state_tree)",
-                              MESH_ITEM)
+            n = len(states)
+            s_padded = 1 << (n - 1).bit_length()
+            padded = [(st[0], st[1]) for st in states] + [(states[0][0], states[0][1])] * (s_padded - n)
+            stacked = [torch.stack(leaves) for leaves in
+                       zip(*(fleet._tree_leaves(st) for st in padded), strict=True)]
+            enc, knw = fleet_sharded._rebuild(padded[0], stacked)
+            mask = np.zeros(s_padded, np.float32)
+            mask[:n] = 1.0
+            enc_m, knw_m = fleet_sharded.merge_state_tree(
+                cfg, enc, knw, mask, mesh=self._tree_mesh(s_padded))
+            return enc_m, knw_m, np.concatenate([st[2] for st in states])
         if merge == "pairwise" and len(states) > 1:
             while len(states) > 1:
                 nxt = [

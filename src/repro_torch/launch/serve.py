@@ -27,8 +27,13 @@ privacy smoke, on the card (counterpart of ``repro/launch/serve.py``).
 * The privacy smoke (``--privacy``): a DP fit at epsilon=8 and one secagg
   round checked against the unmasked merge.
 
-``--mesh-tenants`` needs a tenant mesh, ROADMAP queue A item 12, and raises
-``NotImplementedError``.  ``--device cpu`` runs a mode on the host (the
+``--mesh-tenants D`` shards the fleet's tenants over a D-rank ``"tenants"``
+mesh (``launch.mesh``): with D = 1 in this process; with D > 1 the CLI
+starts itself once per rank (an NCCL group on the card, one card a rank,
+or a gloo group with ``--device cpu``, from a ``FileStore`` in a temporary
+directory), every rank makes the same seeded traffic, fits
+and serves its K/D tenants, and rank 0 prints the lines with the counts
+summed over the ranks.  ``--device cpu`` runs a mode on the host (the
 default is the card).
 
 Examples:
@@ -42,6 +47,10 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import os
+import subprocess
+import sys
+import tempfile
 import time
 from typing import NamedTuple
 
@@ -52,8 +61,6 @@ from repro_torch.configs import registry
 from repro_torch.core import threefry
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
-
-MESH_ITEM = "ROADMAP queue A item 12"
 
 
 def _sync(device: torch.device) -> None:
@@ -140,22 +147,73 @@ def run_lm(args) -> None:
     print("serve OK")
 
 
-def run_fleet(args) -> None:
-    """Train + serve a fleet of per-tenant anomaly detectors.
+def _spawn_ranks(args, argv: list) -> None:
+    """Run this CLI once per rank of a ``--mesh-tenants`` mesh and relay
+    rank 0's output: the ranks share a ``FileStore`` in a temporary
+    directory; on the card each rank takes its own card under NCCL, and
+    fewer cards than ranks raise; with ``--device cpu`` the ranks use
+    gloo."""
+    from repro_torch.engine import ExecutionPlan, PlanError
 
-    Everything goes through the unified engine facade: the stats backend and
-    the streaming chunk width are ExecutionPlan fields, not different call
-    paths.
-    """
-    from repro_torch.core import daef
+    d = args.mesh_tenants
+    try:  # a plan the ranks would refuse fails here, once
+        ExecutionPlan(mode="mesh", tenants=args.fleet, mesh_devices=d,
+                      stats_backend=args.stats_backend,
+                      chunk_samples=args.chunk_samples or None)
+    except PlanError as e:
+        raise SystemExit(f"error: {e}") from e
+    if _rank_backend(args) == "nccl" and torch.cuda.device_count() < d:
+        raise SystemExit(f"error: --mesh-tenants {d} on the card needs {d} cards, one a "
+                         f"rank under NCCL; {torch.cuda.device_count()} present (pass "
+                         "--device cpu to run the ranks on the host)")
+    src = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for r in range(d):
+            env_r = dict(env, LOCAL_RANK=str(r))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.serve", *argv,
+                 "--rank", str(r), "--store", os.path.join(tmp, "store")],
+                env=env_r, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate() for p in procs]
+    print(outs[0][0], end="")
+    for r, (p, (_, err)) in enumerate(zip(procs, outs, strict=True)):
+        if p.returncode:
+            raise SystemExit(f"error: rank {r} of {d} failed:\n{err[-3000:]}")
+
+
+def _rank_backend(args) -> str:
+    """NCCL for ranks on the card, gloo for ranks on the host."""
+    on_card = args.device is None or torch.device(args.device).type == "cuda"
+    return "nccl" if on_card else "gloo"
+
+
+def run_fleet(args) -> None:
+    """Train + serve a fleet of per-tenant anomaly detectors (one rank of a
+    ``--mesh-tenants`` mesh when ``--rank`` is given)."""
+    if args.rank is None:
+        _serve_fleet(args)
+        return
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.init_process_group_from_file(args.store, args.rank, args.mesh_tenants,
+                                          backend=_rank_backend(args))
+    try:
+        _serve_fleet(args)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _serve_fleet(args) -> None:
+    """Everything goes through the unified engine facade: placement
+    (``--mesh-tenants``), the stats backend and the streaming chunk width
+    are ExecutionPlan fields, not different call paths."""
+    from repro_torch.core import daef, fleet_sharded
     from repro_torch.engine import DAEFEngine, ExecutionPlan, PlanError
     from repro_torch.serving import metrics as serving_metrics
 
-    if args.mesh_tenants:
-        raise NotImplementedError(
-            f"--mesh-tenants {args.mesh_tenants} shards the tenant axis over a "
-            f"device mesh, which is not ported to repro_torch yet ({MESH_ITEM})"
-        )
     k, n_pad = args.fleet, args.pad
     datasets = [
         synthetic.make_dataset("cardio", seed=t, scale=args.scale) for t in range(k)
@@ -168,16 +226,33 @@ def run_fleet(args) -> None:
     cfg = daef.DAEFConfig(layer_sizes=(m0, 4, 8, m0), lam_hidden=0.9, lam_last=0.9)
     try:
         plan = ExecutionPlan(
-            mode="vmap",
+            mode="mesh" if args.mesh_tenants else "vmap",
             tenants=k,
+            mesh_devices=args.mesh_tenants or None,
             stats_backend=args.stats_backend,
             chunk_samples=args.chunk_samples or None,
         )
         engine = DAEFEngine(cfg, plan, device=args.device)
-    except PlanError as e:  # bad sizes etc. -> clean CLI error
+        mesh = engine.mesh
+    except PlanError as e:  # bad mesh sizes etc. -> clean CLI error
         raise SystemExit(f"error: {e}") from e
     dev = engine.device
-    print(f"fleet: Gram-stats backend '{engine.config.stats_backend}' on {dev}")
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **kw: None)
+    say(f"fleet: Gram-stats backend '{engine.config.stats_backend}' on {dev}")
+    mine = slice(0, k)
+    if mesh is not None:
+        d = mesh.shape[fleet_sharded.TENANT_AXIS]
+        mine = fleet_sharded._rank_slice(k, mesh)
+        say(f"fleet: sharding {k} tenants over a {d}-device '"
+            f"{fleet_sharded.TENANT_AXIS}' mesh axis ({k // d} per device)")
+
+    def total(count) -> int:
+        """A count summed over the ranks."""
+        if mesh is None:
+            return int(count)
+        t = torch.tensor([int(count)], dtype=torch.int64, device=dev)
+        return int(mesh.psum(t, mesh.axis_names)[0])
 
     t0 = time.perf_counter()
     seeds = np.arange(k, dtype=np.int32)
@@ -197,8 +272,8 @@ def run_fleet(args) -> None:
     _sync(dev)
     t_fit = time.perf_counter() - t0
     mus = engine.thresholds(fl, rule="q90")
-    print(f"fleet: trained {k} tenant models [{m0} features, {n_train} samples] "
-          f"{how} ({t_fit:.2f}s incl. kernel build)")
+    say(f"fleet: trained {k} tenant models [{m0} features, {n_train} samples] "
+        f"{how} ({t_fit:.2f}s incl. kernel build)")
 
     # Serving loop: ragged tenant request batches — either through the
     # continuous-batching FleetServer (production path) or the pad-to-max
@@ -207,11 +282,14 @@ def run_fleet(args) -> None:
     if args.packing == "continuous":
         from repro_torch.serving import FleetServer
 
-        server = FleetServer(engine, fl, tile_width=args.tile_width,
+        # a mesh rank serves its own tenants through a plain engine of them
+        serve_engine = engine if mesh is None else DAEFEngine(
+            engine.config, ExecutionPlan(tenants=fl.size), device=dev)
+        server = FleetServer(serve_engine, fl, tile_width=args.tile_width,
                              rule="q90")
         n_shapes = server.warmup()
         what = "captured a CUDA graph for each of" if dev.type == "cuda" else "scored"
-        print(f"fleet: {what} {n_shapes} tile shapes (none in the serving path)")
+        say(f"fleet: {what} {n_shapes} tile shapes (none in the serving path)")
     rng = np.random.default_rng(0)
     round_served = []
     flagged = 0
@@ -228,7 +306,8 @@ def run_fleet(args) -> None:
             requests.append(x_test[:, idx].astype(np.float32))
         if server is not None:
             t0 = time.perf_counter()
-            rids = [server.submit(t, requests[t]) for t in range(k)]
+            rids = [server.submit(t - mine.start, requests[t])
+                    for t in range(mine.start, mine.stop)]
             server.flush()
             results = [server.take(rid) for rid in rids]
             lat.append(time.perf_counter() - t0)
@@ -250,24 +329,25 @@ def run_fleet(args) -> None:
     summary = serving_metrics.latency_summary(
         lat[steady], sum(round_served[steady])
     )
+    flagged = total(flagged)
     how = (f"continuous batching, <= {args.tile_width}-wide dense tiles"
            if server is not None
            else f"{k} tenants x <= {n_pad} padded samples per call")
-    print(f"served {summary['served']} requests over {summary['rounds']} "
-          f"steady-state rounds (+1 warm-up; {how})")
-    print(f"latency p50 {summary['p50_ms_per_round']:.2f} / "
-          f"p95 {summary['p95_ms_per_round']:.2f} ms/round; "
-          f"throughput {summary['scores_per_sec']:.0f} scores/sec "
-          f"(steady-state); flagged {flagged} anomalies")
+    say(f"served {summary['served']} requests over {summary['rounds']} "
+        f"steady-state rounds (+1 warm-up; {how})")
+    say(f"latency p50 {summary['p50_ms_per_round']:.2f} / "
+        f"p95 {summary['p95_ms_per_round']:.2f} ms/round; "
+        f"throughput {summary['scores_per_sec']:.0f} scores/sec "
+        f"(steady-state); flagged {flagged} anomalies")
     if server is not None:
-        s = server.stats
-        print(f"serving: {s['dispatches']} tile dispatches, "
-              f"{s['dispatched_cols']} dispatched columns for "
-              f"{s['scored']} scored samples, "
-              f"{s['cache_hit_cols']} cache-hit columns")
-    if not bool(torch.isfinite(fl.model.train_errors).all()):
+        s = {key: total(v) for key, v in server.stats.items()}
+        say(f"serving: {s['dispatches']} tile dispatches, "
+            f"{s['dispatched_cols']} dispatched columns for "
+            f"{s['scored']} scored samples, "
+            f"{s['cache_hit_cols']} cache-hit columns")
+    if total(not bool(torch.isfinite(fl.model.train_errors).all())):
         raise SystemExit("error: non-finite fit")
-    print("fleet serve OK")
+    say("fleet serve OK")
 
 
 def run_async(args) -> None:
@@ -445,7 +525,10 @@ def main(argv=None) -> None:
                     help="serve a DAEF fleet of this many tenants instead of an LM")
     ap.add_argument("--mesh-tenants", type=int, default=0,
                     help="fleet mode: shard the tenant axis over this many "
-                         f"devices (not ported: {MESH_ITEM})")
+                         "ranks of a 'tenants' mesh (more than 1: one process "
+                         "a rank, started by this CLI)")
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--store", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--packing", default="continuous",
                     choices=["continuous", "pad"],
                     help="fleet mode: request batching — 'continuous' "
@@ -558,6 +641,9 @@ def main(argv=None) -> None:
         run_async(args)
         return
     if args.fleet:
+        if args.mesh_tenants > 1 and args.rank is None:
+            _spawn_ranks(args, list(sys.argv[1:] if argv is None else argv))
+            return
         run_fleet(args)
         return
     if args.arch is None:

@@ -10,15 +10,15 @@ fitted threshold (``examples/llm_feature_anomaly.py`` as a component).
   dtype, as the reference does, then returns the features in float32 on
   the backbone's device.
 * :func:`fit_head` standardises the features, fits with ``daef.fit``
-  (``n_partitions`` exercising the merge path) and thresholds the training
-  errors.  ``device=None`` means the card (``repro_torch.device``).
+  (``n_partitions`` exercising the merge path) or, with ``mesh`` given,
+  through a data-sharded ``DAEFEngine`` plan (each rank's share of the
+  samples one federated node), and thresholds the training errors (every
+  rank's).  ``device=None`` means the card (``repro_torch.device``; the
+  mesh's device with a mesh).
   :func:`default_config` is the reference's, field for field: its
   ``stats_backend=None`` defers to ``$REPRO_STATS_BACKEND``, then ``auto``.
   A caller that wants the hidden decoder layer's (G, M) folded by the B1
   kernel passes ``dataclasses.replace(cfg, stats_backend="fused")``.
-* The reference's ``mesh=`` route (an on-mesh fit, one data shard per
-  federated node) waits for ROADMAP queue A item 12: with ``mesh`` given,
-  :func:`fit_head` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -70,21 +70,29 @@ def fit_head(
     data_axes=("data",),
     device=None,
 ) -> DAEFHead:
-    """Fit a DAEF head on normal-traffic features [n, d] on ``device``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"fit_head(mesh=..., data_axes={data_axes!r}): the on-mesh fit waits for "
-            "ROADMAP queue A item 12; call it without a mesh"
-        )
-    dev = resolve_device(device)
+    """Fit a DAEF head on normal-traffic features [n, d] on ``device``.
+
+    With ``mesh`` given, the fit runs on-mesh (each data shard = one
+    federated node; every rank passes the same features); otherwise a
+    one-device fit with ``n_partitions`` exercising the same merge path.
+    """
+    from repro_torch.engine import DAEFEngine, ExecutionPlan
+
+    dev = mesh.device if mesh is not None and device is None else resolve_device(device)
     feats = as_tensor(feats, dev)
     mean = feats.mean(dim=0)
     std = feats.std(dim=0, unbiased=False) + 1e-6
     x = ((feats - mean) / std).T.contiguous()  # [d, n] — the paper's convention
     if cfg is None:
         cfg = default_config(x.shape[0])
-    model = daef.fit(cfg, x, n_partitions=n_partitions, device=dev)
-    thr = anomaly.threshold(model.train_errors, rule, device=dev)
+    if mesh is not None:
+        engine = DAEFEngine(cfg, ExecutionPlan(mode="mesh", mesh_axes=tuple(data_axes)),
+                            mesh=mesh, device=device)
+        model = engine.fit(x)
+        thr = engine.thresholds(model, rule)
+    else:
+        model = daef.fit(cfg, x, n_partitions=n_partitions, device=dev)
+        thr = anomaly.threshold(model.train_errors, rule, device=dev)
     return DAEFHead(cfg=cfg, model=model, mean=mean, std=std, threshold=thr)
 
 

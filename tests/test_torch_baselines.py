@@ -97,8 +97,18 @@ def test_token_batches_and_shard_batch():
     for a, b in zip(tpipe.token_batches(sampler, 4), jpipe.token_batches(sampler, 4),
                     strict=True):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tpipe.shard_batch({"tokens": np.zeros((2, 4))}, None, None)
+    # item 12's DAEF part is ported: a one-rank mesh places the batch whole,
+    # as the reference's one-device mesh does
+    from jax.sharding import PartitionSpec as P
+
+    from repro.launch.mesh import make_host_mesh
+    from repro_torch.launch import mesh as tmesh
+
+    batch = {"tokens": np.arange(8, dtype=np.int32).reshape(2, 4)}
+    got = tpipe.shard_batch(batch, tmesh.make_host_mesh(device="cpu"), ("data", None))
+    want = jpipe.shard_batch(batch, make_host_mesh(), P("data", None))
+    assert got["tokens"].dtype == torch.int32
+    np.testing.assert_array_equal(got["tokens"].numpy(), np.asarray(want["tokens"]))
 
 
 @pytest.mark.parametrize("name", sorted(chip_smoke.AE_ARCH))

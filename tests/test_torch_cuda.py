@@ -259,6 +259,29 @@ def _assert_factors_close(card_f, host_f):
         assert err <= 1e-4 * float(want.abs().max()), err
 
 
+def test_stats_to_factors_on_card_is_float64_rounded(card):
+    """``rolann.stats_to_factors`` of float32 Grams on the card (per-output
+    [o, m, m] hidden-layer Grams, condition numbers up to 1e10 as the
+    creditcard fit's) is float64's eigh rounded to float32: S² within 4 eps
+    of the largest eigenvalue, G rebuilt to 3e-7 of max|G| and the smallest
+    eigenvalue within 1e-5 of float64's (float64 rounded: 1.1e-7 and
+    1.2e-7; LAPACK's float32 eigh: 4.5e-7 and 5.2e-5; cuSOLVER's float32
+    eigh rebuilt the fit's Grams to 3.4e-6–6.9e-6)."""
+    rng = np.random.default_rng(3)
+    h = rng.normal(size=(21, 25, 4_000)) * np.logspace(0, -5, 25)[None, :, None]
+    g = torch.from_numpy(np.einsum("kin,kjn->kij", h, h)).float()
+    e64 = torch.linalg.eigvalsh(g.double()).flip(-1)
+    f = rolann.stats_to_factors(rolann.RolannStats(g=g.to(card), m=torch.zeros(21, 25,
+                                                                                device=card)))
+    assert f.u.dtype == f.s.dtype == torch.float32 and f.u.device.type == "cuda"
+    u, e = f.u.double().cpu(), f.s.double().cpu() ** 2
+    top = e64[:, :1].abs()
+    assert float(((e - e64).abs() / top).max()) <= 4 * 2.0**-23
+    rebuilt = (u * e[:, None, :]) @ u.transpose(-1, -2)
+    assert float((rebuilt - g.double()).abs().max() / g.abs().max()) <= 3e-7
+    assert float(((e[:, -1] - e64[:, -1]).abs() / e64[:, -1].abs()).max()) <= 1e-5
+
+
 def test_svd_fit_and_merge_on_card_match_host(card):
     """The svd method on the card (QRs and SVDs by cuSOLVER, no kernel of
     the port) against the host: rolann's factors and their merge on the

@@ -82,9 +82,28 @@ def test_head_matches_reference():
 
 
 def test_head_waits_for_the_mesh_and_defaults_to_the_card(monkeypatch):
+    """The on-mesh head fit runs (ROADMAP item 12's DAEF part is ported): on
+    a one-rank data mesh it matches the reference's on its one-device mesh
+    (the reference's call under ``jax.jit``: its eager shard_map compiles op
+    by op), flags included; without a card the default device raises."""
+    from repro.launch.mesh import make_host_mesh
+    from repro_torch.launch import mesh as tmesh
+
     fit = _features(N_FIT, seed=0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        daef_head.fit_head(fit, mesh=object(), device="cpu")
+    th = daef_head.fit_head(fit, mesh=tmesh.make_host_mesh(device="cpu"))
+    jmesh = make_host_mesh()
+
+    def head(f):
+        h = jhead.fit_head(f, mesh=jmesh)
+        return h.model, h.threshold, h.mean, h.std
+
+    jmodel, jthr, jmean, jstd = jax.jit(head)(jnp.asarray(fit))
+    assert_models_match(jmodel, th.model, th.cfg.lam_last)
+    assert_close(th.threshold, jthr, what="q90 threshold")
+    jh = jhead.DAEFHead(cfg=jhead.default_config(D), model=jmodel, mean=jmean, std=jstd,
+                        threshold=jthr)
+    _assert_flags_match(th, jh, np.concatenate([_features(N_TEST, seed=1),
+                                                _features(N_TEST, seed=2, shift=1.5)]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="none is present"):
         daef_head.fit_head(fit)

@@ -7,9 +7,10 @@ backend interprets Pallas on the CPU): fit, predict, scores, padding masks,
 merge, reduce (sequential and pairwise), the session's round parity and
 accumulation, the backend precedence, plan and input errors (the same type
 and message as the reference's), save/load, and the deprecation shims.
-What the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP item: mesh plans and tree merges (queue A item 12); DP plans
-construct since item 11 was ported.
+Mesh plans and tree merges run since queue A item 12's DAEF part was
+ported (tests/test_torch_mesh.py holds them to the reference; here the
+two former refusals now run and match it); DP plans construct since item
+11 was ported.
 
 Models are held to the reference's by ``assert_models_match``
 (tests/_torch_parity.py: TOLS, sums at 1e-4 of their max, the last layer
@@ -22,6 +23,7 @@ import os
 import warnings
 from unittest import mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,7 +52,6 @@ LAYERS = (M0, LATENT, 5, 7, M0)
 LAM_LAST = 0.9
 MODES = ("loop", "vmap")
 BACKENDS = ("einsum", "fused")
-ITEM12 = "ROADMAP queue A item 12"
 
 
 def _kw(method="gram", backend="einsum", **kw):
@@ -464,7 +465,7 @@ def test_save_load_errors_and_bad_plan_type():
 
 
 # ---------------------------------------------------------------------------
-# what waits: mesh plans and tree merges (item 12); DP plans construct (item 11)
+# once waiting: mesh plans and tree merges (item 12); DP plans (item 11)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("plan", [dict(mode="mesh", tenants=4),
@@ -472,10 +473,36 @@ def test_save_load_errors_and_bad_plan_type():
                                   dict(mode="mesh", mesh_axes=("data",))],
                          ids=["tenant mesh", "tenant mesh sized", "data mesh"])
 def test_mesh_plans_raise_naming_item_12(plan):
-    with pytest.raises(NotImplementedError, match=ITEM12):
-        _engine(**plan)
-    with pytest.raises(NotImplementedError, match=ITEM12):
-        DAEFEngine(_tcfg(), ExecutionPlan(**plan), mesh=object(), device="cpu")
+    """Item 12's DAEF part is ported: a mesh plan builds the reference's
+    one-device mesh in this one-rank process and fits as the reference's
+    does; a plan sized past the one device raises the reference's
+    ``PlanError``, word for word, as does a mesh missing the plan's axis."""
+    from repro_torch.launch import mesh as tmesh
+
+    if plan.get("mesh_devices"):
+        with pytest.raises(JPlanError) as jerr:
+            JEngine(_jcfg(), JPlan(**plan))
+        with pytest.raises(PlanError) as terr:
+            _engine(**plan)
+        assert str(terr.value) == str(jerr.value)
+        return
+    engine, jengine = _engine(**plan), JEngine(_jcfg(), JPlan(**plan))
+    assert engine.mesh.shape == dict(jengine.mesh.shape) and engine.device == torch.device("cpu")
+    wrong = ("data",) if engine.plan.tenant_sharded else ("tenants",)
+    with pytest.raises(PlanError) as terr:
+        DAEFEngine(_tcfg(), ExecutionPlan(**plan), mesh=tmesh.Mesh((1,), wrong, device="cpu"))
+    assert str(terr.value).startswith(f"mesh {{{wrong[0]!r}: 1}} has no axis")
+    # the data of test_fit_predict_scores_parity and
+    # test_single_model_modes_match_direct_fit (the reference's data-mesh
+    # fit under jax.jit: its eager shard_map compiles op by op)
+    if engine.plan.tenant_sharded:
+        fl, jfl = engine.fit(_xs(), seeds=np.arange(K)), jengine.fit(
+            jnp.asarray(_xs()), seeds=jnp.arange(K))
+        for i in range(K):
+            _match(jfleet.get_model(jfl, i), tfleet.get_model(fl, i))
+    else:
+        x = _xs(k=1, n=96, seed=7)[0]
+        _match(jax.jit(jengine.fit)(jnp.asarray(x)), engine.fit(x))
 
 
 def test_dp_plans_raise_naming_item_11():
@@ -491,18 +518,28 @@ def test_dp_plans_raise_naming_item_11():
 
 
 def test_tree_merges_raise_naming_item_12():
+    """The tree merges run (item 12's DAEF part is ported) and match the
+    reference's, every model that ``reduce`` returns; the reference's
+    checks of a tree round stay, word for word.  Each tenant draws its own
+    mixture, so the last layers are held at the larger of the κ bar and
+    ``cancellation_bar`` (tests/_torch_parity.py)."""
     xs = _xs(k=4, n=40, seed=23)
     engine = _engine(mode="vmap", tenants=4, merge="tree")
     fl = engine.fit(xs, seeds=np.zeros(4, np.int32))
-    with pytest.raises(NotImplementedError, match=ITEM12):
-        engine.reduce(fl, 2)
+    jengine = JEngine(_jcfg(), JPlan(mode="vmap", tenants=4, merge="tree"))
+    jfl = jengine.fit(jnp.asarray(xs), seeds=jnp.zeros(4, jnp.int32))
+    got, want = engine.reduce(fl, 2), jengine.reduce(jfl, 2)
+    assert got.size == 2
+    for i in range(2):
+        assert_models_match(jfleet.get_model(want, i), tfleet.get_model(got, i), LAM_LAST,
+                            m_cancels=True)
     assert engine.reduce(fl, 1) is fl
     six = _engine(mode="vmap", tenants=6, merge="tree")
     with pytest.raises(PlanError, match="power-of-two"):
         six.reduce(six.fit(_xs(k=6, n=32, seed=24), seeds=np.zeros(6, np.int32)), 3)
     x = _xs(k=1, n=48, seed=25)[0]
     sess = _engine(merge="tree").session()
-    # the reference's validation of a tree round, word for word, then item 12
+    # the reference's validation of a tree round, word for word, then the round
     jsess = JEngine(_jcfg(), JPlan(merge="tree")).session()
     for parts in ([x[:, :16], x[:, 16:32], x[:, 32:]], [x[:, :8], x[:, 8:]], []):
         with pytest.raises(JPlanError) as jerr:
@@ -510,12 +547,12 @@ def test_tree_merges_raise_naming_item_12():
         with pytest.raises(PlanError) as terr:
             sess.round(parts)
         assert str(terr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match=ITEM12):
-        sess.round([x[:, :24], x[:, 24:]])
+    halves = [x[:, :24], x[:, 24:]]
+    _match(jsess.round([jnp.asarray(p) for p in halves]), sess.round(halves))
     assert sess.round([x]) is not None  # one node: a local fit, no tree
     asess = _engine(federation="async", merge="tree").session()
-    with pytest.raises(NotImplementedError, match=ITEM12):
-        asess.round([x[:, :24], x[:, 24:]])
+    jasess = JEngine(_jcfg(), JPlan(federation="async", merge="tree")).session()
+    _match(jasess.round([jnp.asarray(p) for p in halves]), asess.round(halves))
     with pytest.raises(PlanError, match="needs\nmethod='gram'|method='gram'"):
         _engine(_tcfg("svd"), federation="async", merge="tree").session().round(
             [x[:, :24], x[:, 24:]])

@@ -1,6 +1,7 @@
 """repro_torch.core.federated and the port's FederationSession against the
-reference's (tests/test_federated.py and tests/test_async_federation.py,
-without the tree merges, which wait for ROADMAP queue A item 12).
+reference's (tests/test_federated.py and tests/test_async_federation.py;
+the tree merges in tests/test_torch_mesh.py, and the async tree refresh
+here).
 
 * The layer-synchronised protocol (``_federated_fit``) equals the
   reference's on ragged partitions, both methods and both backends, and
@@ -248,9 +249,19 @@ def test_async_tree_refresh_raises_after_the_references_checks():
     with pytest.raises(PlanError) as terr:
         _engine(_tcfg("svd"), federation="async", merge="tree").session().round(parts)
     assert str(terr.value) == str(jerr.value)
+    # item 12's DAEF part is ported: the tree refresh runs and matches the
+    # reference's, on these two sites and on three sites padded to four
+    # slots (test_async_sync_parity's blocks); each site is its own draw, so
+    # the last layers are held at the larger of the κ bar and
+    # cancellation_bar (tests/_torch_parity.py)
+    jsession = JEngine(_jcfg(), JPlan(federation="async", merge="tree")).session()
     session = _engine(federation="async", merge="tree").session()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12"):
-        session.round(parts)
+    assert_models_match(jsession.round(_j(parts)), session.round(parts), LAM_LAST,
+                        m_cancels=True)
+    session = _engine(federation="async", merge="tree").session()
+    for r in range(2):
+        model = session.round([b[r] for b in _blocks(3, 2)])
+    assert_models_match(_jasync("tree"), model, LAM_LAST, m_cancels=True)
     # one fresh site needs no reduction, tree or not
     model = _engine(federation="async", merge="tree").session().round({"a": parts[0]})
     assert_models_match(tdaef.fit(_tcfg(), parts[0], device="cpu"), model, LAM_LAST)

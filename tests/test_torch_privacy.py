@@ -324,9 +324,18 @@ def test_async_secagg_single_aggregate_ledger():
 
 
 def test_secagg_tree_round_raises_naming_item_12():
+    """Item 12's DAEF part is ported: a secagg round under merge='tree'
+    sums its wires by ``merge_wire_tree`` and matches the reference's
+    round; the uint64 sum equals the pairwise one, so the models are the
+    same bits."""
     s = _engine(merge="tree", privacy=PrivacySpec(secagg=True)).session()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12"):
-        s.round(_parts())
+    got = s.round(_parts())
+    want = JEngine(_jcfg(), JPlan(merge="tree", privacy=JSpec(secagg=True))).session().round(
+        [jnp.asarray(p) for p in _parts()])
+    assert_models_match(want, got, LAM_LAST)
+    pair = _engine(merge="pairwise", privacy=PrivacySpec(secagg=True)).session().round(_parts())
+    for a, b in zip(got.weights + got.biases, pair.weights + pair.biases, strict=True):
+        assert torch.equal(a, b)
 
 
 def test_repeat_reports():

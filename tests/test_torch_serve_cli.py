@@ -4,8 +4,9 @@
   reference CLI (tests/test_serve_cli.py pins the reference's messages), and
   exit code 2.
 * The LM mode of the encoder-decoder (whisper) serves on the host and
-  ends in ``serve OK``; ``--mesh-tenants`` raises naming ROADMAP queue A
-  item 12.
+  ends in ``serve OK``; ``--mesh-tenants`` shards the fleet: one rank
+  prints the reference's sharding line and serves the reference's
+  traffic, two gloo ranks serve the same.
 * The LM mode runs the dense, VLM, MoE, SSM and hybrid backbones on the
   host and prints the reference's lines; :func:`serve.generate` on the reference's
   own parameters gives the reference loop's greedy tokens.
@@ -81,16 +82,47 @@ def test_argument_errors_match_the_reference(argv, needle, capsys, monkeypatch):
     assert ours == ref
 
 
-def test_lm_mode_and_mesh_tenants_name_their_items(capsys):
+def test_lm_mode_and_mesh_tenants_name_their_items(capsys, monkeypatch):
     """Whisper's LM mode (ROADMAP item 14, done) prints the reference's four
-    lines, ending in ``serve OK``; ``--mesh-tenants`` waits for item 12."""
+    lines, ending in ``serve OK``.  ``--mesh-tenants`` (item 12's DAEF part,
+    done): ``1`` prints the reference's sharding line and serves the same
+    requests as the reference's CLI on its one device; ``2`` starts two
+    gloo ranks, which serve the same requests and flag the same anomalies
+    as the one rank; on the card the ranks run under NCCL, one card a
+    rank, and fewer cards than ranks raise before any rank starts."""
     serve.main(["--arch", "whisper-tiny", "--reduced", "--batch", "2", "--prompt-len", "8",
                 "--gen", "4", "--device", "cpu"])
     lines = capsys.readouterr().out.rstrip().splitlines()
     assert len(lines) == 4 and lines[-1] == "serve OK", lines
     assert lines[0] == "prompts [2, 8] -> generated (2, 4)"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12"):
-        serve.main(["--fleet", "2", "--mesh-tenants", "2", "--device", "cpu"])
+
+    argv = ["--fleet", "2", "--rounds", "2", "--scale", "0.1", "--packing", "pad"]
+    monkeypatch.setattr("sys.argv", ["serve.py", *argv, "--mesh-tenants", "1"])
+    jserve.main()
+    ref = capsys.readouterr().out.splitlines()
+    runs = {}
+    for d in ("1", "2"):
+        serve.main([*argv, "--mesh-tenants", d, "--device", "cpu"])
+        runs[d] = capsys.readouterr().out.splitlines()
+        assert runs[d][-1] == "fleet serve OK", runs[d]
+    shard = [ln for ln in ref if "mesh axis" in ln]
+    assert shard == ["fleet: sharding 2 tenants over a 1-device 'tenants' mesh axis "
+                     "(2 per device)"]
+    assert shard == [ln for ln in runs["1"] if "mesh axis" in ln]
+    assert ("fleet: sharding 2 tenants over a 2-device 'tenants' mesh axis (1 per device)"
+            in runs["2"])
+
+    def served(lines):
+        return [ln.split(" (+1")[0] for ln in lines if ln.startswith("served ")]
+
+    def flagged(lines):
+        return [ln.split("; flagged ")[1] for ln in lines if "; flagged " in ln]
+
+    assert served(ref) == served(runs["1"]) == served(runs["2"]) != []
+    assert flagged(runs["1"]) == flagged(runs["2"]) != []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="--mesh-tenants 2 on the card needs 2 cards"):
+        serve.main([*argv, "--mesh-tenants", "2"])
 
 
 @pytest.mark.parametrize("argv,ok", [
