@@ -256,6 +256,32 @@ no result:
     what every rank holds alike is the same bits on every rank.  NCCL
     across several cards is not checked: the machine has one.
 
+lm-mesh (after the mesh phase) — ROADMAP item 12's model-zoo part, the
+    2-D (data, model) LM training layout of the dense family.  (a) B7 and
+    B8 with ``q_offset`` at qwen2-1.5b's sequence-parallel stripes (q [2,
+    512, 12, 128] against k and v [2, 2,048, 2, 128]) at offsets 0, 512,
+    1,024 and 1,536, bf16 and float32, against their plain versions (B7
+    per element within one bf16 ulp, float32 1e-5; B8 per element to its
+    term magnitudes), timed (CUDA events, median of 25) beside the plain
+    versions, SDPA on the same stripe and the bound of the stripe's own
+    pairs.  (b) qwen3-1.7b at full width, float32, 28 layers, on four gloo
+    ranks sharing the card (``python3 chip_smoke.py --lm-mesh-rank R DIR``)
+    at data 2 x model 2 (head-parallel; FSDP on the stacked layer leaves):
+    two AdamW steps of 4 x 1,024 tokens held to one process on the card at
+    the same inputs (the witness, run first): the loss at ``TOLS``, and per
+    leaf each rank's slices of the step-1 gradients and of the parameters
+    and moments after step 2 within 1e-4 of the witness leaf's largest
+    entry (the witness's tensors shared with the ranks by CUDA IPC, its
+    gradients freed once the ranks have held theirs); B7 112 and B8 56 a
+    rank.  Step ms and the share of it in staged gloo exchanges.  (c)
+    qwen2-1.5b at full width, data 1 x model 4 (its 2 KV heads and group
+    of 6 do not divide 4: the sequence-parallel route, B7 and B8 with
+    ``q_offset``), one step of 2 x 1,024, the same checks.  (d)
+    ``launch/train.py --model-parallel 2`` on one card exits naming the
+    card count.  A ``{"lm_mesh": ...}`` line precedes ``{"mesh": ...}``;
+    B7's and B8's kernels rows gain ``"q_offset"``.  NCCL across several
+    cards is not checked: the machine has one.
+
 19. dp + serving — the DP release and fleet serving at full width.  DP:
     phase 18's four creditcard quarters in a sync ``merge="pairwise"``
     session under ``PrivacySpec(epsilon=8, composition="basic",
@@ -6095,6 +6121,506 @@ def phase_ssm_training(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The lm-mesh phase: the 2-D (data, model) LM training layout
+# ---------------------------------------------------------------------------
+
+STRIPE = dict(b=2, sq=512, sk=2_048, h=12, hkv=2, d=128)   # qwen2-1.5b's stripes at model 4
+STRIPE_OFFSETS = (0, 512, 1_024, 1_536)
+
+
+def _stripe_work(b, sq, sk, h, hkv, d, elem, offset, backward=False):
+    """FLOPs and bytes of B7 (or, with ``backward``, B8) on a causal stripe
+    of ``sq`` query rows at ``offset`` against ``sk`` keys: the stripe's
+    own (query, key) pairs, sq·offset + sq(sq + 1)/2, at 2·2d FLOPs a pair
+    (B8: 2·5d); q (B8: q, out, dO) read once, only the keys the band
+    reaches (offset + sq of them) read once, out and lse (B8: dq, dk, dv)
+    written once."""
+    pairs = sq * offset + sq * (sq + 1) // 2
+    keys = min(sk, offset + sq)
+    if backward:
+        flops = 2 * 5 * d * pairs * b * h
+        nbytes = elem * (3 * b * sq * h * d + 2 * b * keys * hkv * d
+                         + b * sq * h * d + 2 * b * sk * hkv * d) + 4 * b * h * sq
+    else:
+        flops = 2 * 2 * d * pairs * b * h
+        nbytes = elem * (2 * b * sq * h * d + 2 * b * keys * hkv * d) + 4 * b * h * sq
+    return flops, nbytes
+
+
+def _sdpa_stripe(q, k, v, offset):
+    """SDPA on a stripe (the yardstick; the port never calls it): the band
+    as a boolean mask, since ``is_causal`` aligns a short query block to
+    the first keys."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+
+    mask = attention_mask(q.shape[1], True, None, q.device, s_k=k.shape[1], q_offset=offset)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def _stripe_case(gen, dtype, offset, card) -> dict:
+    """(a) of the lm-mesh phase at one offset and dtype: B7 per element
+    against its plain version (bf16 within one bf16 ulp + 2^-7·1e-2, float32
+    1e-5 of max(1, max|ref|); lse 1e-5), B8 per element against the plain
+    backward (``_agree_bwd``), both launches on their route, and CUDA-events
+    times (median of 25) of each beside its plain version, SDPA on the same
+    stripe and the bound."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_magnitudes,
+        flash_attention_bwd_ref,
+        flash_attention_ref,
+    )
+
+    c = STRIPE
+    b, sq, sk, h, hkv, d = c["b"], c["sq"], c["sk"], c["h"], c["hkv"], c["d"]
+    q, do = (torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    route, kw = _route(dtype), dict(q_offset=offset)
+    before = (flash_attention.route_launches[route], flash_attention_bwd.route_launches[route])
+    out, lse = flash_attention(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    check((flash_attention.route_launches[route], flash_attention_bwd.route_launches[route])
+          == (before[0] + 1, before[1] + 1), f"stripe at {offset}: launches not on {route}")
+    label = f"stripe {sq}/{sk} at {offset} {str(dtype)[6:]}"
+    ref, ref_lse = flash_attention_ref(q, k, v, **kw)
+    if route == "wgmma":
+        err, used = _agree_each(f"B7 {label} out", out.float(), ref.float(), 2.0**-7,
+                                2.0**-7 * 1e-2)
+    else:
+        err, scale = _agree(f"B7 {label} out", out.float(), ref.float(), 1e-5, 1.0)
+        used = err / (1e-5 * scale)
+    err_lse, _ = _agree(f"B7 {label} lse", lse, ref_lse, 1e-5)
+    mags = flash_attention_bwd_magnitudes(q, k, v, out, lse, do, **kw)
+    err_b, used_b = _agree_bwd(label, got, flash_attention_bwd_ref(q, k, v, out, lse, do, **kw),
+                               mags, dtype)
+    del ref, ref_lse, mags, got
+    peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_FP32_FLOPS
+    row = {"offset": offset, "dtype": str(dtype)[6:], "route": route}
+    for name, fn, plain, library, backward, e, u in (
+            ("flash_attention", lambda: flash_attention(q, k, v, **kw),
+             lambda: flash_attention_ref(q, k, v, **kw),
+             lambda: _sdpa_stripe(q, k, v, offset), False, max(err, err_lse), used),
+            ("flash_attention_bwd", lambda: flash_attention_bwd(q, k, v, out, lse, do, **kw),
+             lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, **kw), None, True,
+             err_b, used_b)):
+        ms = cuda_ms(fn)
+        plain_ms = cuda_ms(plain, reps=5, warmup=1)
+        if backward:
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            sd_out = _sdpa_stripe(*leaves, offset)
+            library = lambda: torch.autograd.grad(sd_out, leaves, do.transpose(1, 2),  # noqa: E731
+                                                  retain_graph=True)
+        try:
+            library_ms = cuda_ms(library)
+        except RuntimeError as exc:  # SDPA refuses the shapes: say so
+            say("lm-mesh", f"{name} {label}: SDPA refused the stripe ({str(exc)[:120]})")
+            library_ms = None
+        flops, nbytes = _stripe_work(b, sq, sk, h, hkv, d, q.element_size(), offset, backward)
+        bound_ms, bound_by = _bound(flops, nbytes, peak)
+        row[name] = dict(max_abs_err=e, bar_used=u, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        say("lm-mesh", f"(a) {name} {label} ({route}): max|d| {e:.3e}, {u:.3f} of its bar; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+            f"{'refused' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {flops:.4g} FLOP, {nbytes / 1e6:.1f} MB) on {card}")
+    return row
+
+
+def phase_stripe_kernels(card) -> list:
+    """(a) of the lm-mesh phase: B7 and B8 with ``q_offset`` at qwen2-1.5b's
+    stripes (q [2, 512, 12, 128] against k and v [2, 2,048, 2, 128]) at
+    offsets 0, 512, 1,024 and 1,536, bf16 and float32."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    _say_ptxas("flash_attention", ["flash_fwd_wgmma_kernel", "flash_fwd_kernel"])
+    rows = [_stripe_case(gen, dtype, offset, card)
+            for dtype in (torch.bfloat16, torch.float32) for offset in STRIPE_OFFSETS]
+    torch.cuda.empty_cache()
+    return rows
+
+
+LM_MESH_RANKS = 4
+LM_MESH_RANK_TIMEOUT_S = 420
+# (b) head-parallel with FSDP, (c) sequence-parallel: arch, mesh, global
+# batch, sequence, steps; the one-process witness splits its batch in two
+# microbatches (the ranks take one), the same mean in another grouping
+LM_MESH_CASES = {
+    "qwen3-1.7b data 2 x model 2": dict(arch="qwen3-1.7b", mesh=(2, 2), b=4, s=1_024,
+                                        steps=2, witness_micro=2),
+    "qwen2-1.5b data 1 x model 4": dict(arch="qwen2-1.5b", mesh=(1, 4), b=2, s=1_024,
+                                        steps=1, witness_micro=1),
+}
+LM_MESH_LR = 1e-3
+LM_MESH_SEQ = "qwen2-1.5b data 1 x model 4"
+
+
+def _stripe_rows(numbers, kernel) -> dict:
+    """The kernels line's q_offset entry of B7 or B8: (a)'s rows by route
+    and offset."""
+    return {f"{row['route']} at {row['offset']}": row[kernel] for row in numbers["stripes"]}
+
+
+def _lm_mesh_opt(first=None):
+    """AdamW that hands the gradients of its first update (the step-1
+    gradients: averaged over the data ranks and clipped) to ``first``, or
+    keeps a copy of them."""
+    from repro_torch import optim
+
+    base = optim.adamw(optim.linear_warmup_cosine(LM_MESH_LR, 2, 10), weight_decay=0.01,
+                       eps=1e-3)
+    kept = {}
+
+    def update(grads, state, params):
+        if "first" not in kept:
+            kept["first"] = True
+            if first:
+                first(_flat(grads))
+            else:
+                kept["grads"] = {k: g.detach().clone() for k, g in _flat(grads).items()}
+        return base.update(grads, state, params)
+
+    return optim.Optimizer(init=base.init, update=update), kept
+
+
+def _flat(tree, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _lm_mesh_batch(cfg, case, step):
+    import torch
+
+    from repro_torch.data import synthetic
+
+    return {"tokens": torch.as_tensor(synthetic.lm_token_stream(
+        cfg.vocab_size, case["s"], case["b"], seed=100 + step), device="cuda")}
+
+
+def _mem() -> str:
+    """This process's allocated and reserved memory and the card's free
+    memory, in GiB."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    return (f"allocated {torch.cuda.memory_allocated() / 2**30:.2f}, reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f}, card free {free / 2**30:.2f} of "
+            f"{total / 2**30:.2f} GiB")
+
+
+def _wait_for(path, procs=(), timeout_s=LM_MESH_RANK_TIMEOUT_S) -> None:
+    """Poll for the file ``path``; fail if one of ``procs`` exits first."""
+    t0 = time.perf_counter()
+    while not Path(path).exists():
+        for p in procs:
+            check(p.poll() is None, f"lm-mesh: a rank exited {p.returncode} before {path}")
+        check(time.perf_counter() - t0 < timeout_s, f"lm-mesh: no {path} in {timeout_s} s")
+        time.sleep(0.05)
+
+
+def _hold_to_witness(rank, kind, leaves, witness, flat_specs, mesh, worst) -> None:
+    """Each of this rank's slices of ``kind`` against the witness's tensor
+    (a CUDA IPC handle), within 1e-4 of the witness leaf's largest entry."""
+    from repro_torch.launch import shardings
+
+    for path, local in leaves.items():
+        fn, args = witness["handles"][kind][path]
+        full = fn(*args)
+        want = shardings.local_view(full, flat_specs[path], mesh)
+        check(tuple(want.shape) == tuple(local.shape),
+              f"rank {rank} {kind}/{path}: shape {tuple(local.shape)} vs {tuple(want.shape)}")
+        err = float((local.detach() - want).abs().max())
+        bar = 1e-4 * witness["scale"][kind][path]
+        used = err / bar if bar > 0 else (0.0 if err == 0 else float("inf"))
+        check(used <= 1.0, f"rank {rank} {kind}/{path}: max|d| {err:.3e} > 1e-4 x "
+              f"max|witness leaf| {witness['scale'][kind][path]:.3e}")
+        if used >= worst.get(kind, (0.0, ""))[0]:
+            worst[kind] = (used, path)
+        del full, want
+
+
+def lm_mesh_rank(rank: int, mesh_dir: str) -> int:
+    """``python chip_smoke.py --lm-mesh-rank RANK DIR``: one gloo rank of the
+    lm-mesh phase's (b) or (c) (DIR/case.json), its group from a
+    ``FileStore`` in DIR.  It trains its slices and holds them to the
+    one-process witness's tensors, shared from the phase's process by CUDA
+    IPC (DIR/witness{RANK}.pkl): the step-1 gradients at the first update (then
+    DIR/step1.RANK; the phase frees the witness's gradients and writes
+    DIR/freed before the rank goes on), the parameters and moments after
+    the last step; it writes DIR/rank{RANK}.json."""
+    import os
+    import pickle
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import shardings, steps
+    from repro_torch.models import get_bundle, hints
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    case = json.loads(Path(mesh_dir, "case.json").read_text())
+    mesh_lib.init_process_group_from_file(os.path.join(mesh_dir, "store"), rank,
+                                          LM_MESH_RANKS, backend="gloo",
+                                          timeout_s=LM_MESH_RANK_TIMEOUT_S)
+    try:
+        cfg = registry.get(case["arch"])
+        mesh = mesh_lib.Mesh(case["mesh"], ("data", "model"), device="cuda:0")
+        check(mesh.backend == "gloo" and mesh.rank == rank, f"lm-mesh rank {rank}: {mesh}")
+        exchange = {"ms": 0.0, "calls": 0}
+        gather_axis = mesh.gather_axis
+
+        def timed_gather(t, axis):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts = gather_axis(t, axis)
+            torch.cuda.synchronize()
+            exchange["ms"] += (time.perf_counter() - t0) * 1e3
+            exchange["calls"] += 1
+            return parts
+
+        mesh.gather_axis = timed_gather
+        bundle = get_bundle(cfg)
+        with open(os.path.join(mesh_dir, f"witness{rank}.pkl"), "rb") as f:
+            witness = pickle.load(f)
+        worst: dict = {}
+        with hints.use_mesh(mesh):
+            specs = shardings.lm_param_specs(cfg, mesh)
+            flat_specs = _flat(specs)
+            for r in range(LM_MESH_RANKS):  # one full draw on the card at a time
+                if r == rank:
+                    params = bundle.init(0, torch.float32, device="cuda:0")
+                    torch.cuda.empty_cache()
+                mesh.barrier()
+            say("lm-mesh", f"rank {rank} after init: {_mem()}")
+
+            def first(grads):
+                say("lm-mesh", f"rank {rank} at the first update: {_mem()}")
+                _hold_to_witness(rank, "grads", grads, witness, flat_specs, mesh, worst)
+                Path(mesh_dir, f"step1.{rank}").touch()
+                _wait_for(Path(mesh_dir, "freed"))
+
+            opt, _ = _lm_mesh_opt(first)
+            state = opt.init(params)
+            step_fn = steps.make_train_step(bundle, opt, microbatches=1, clip_norm=1.0)
+            _lm_zero()
+            losses, step_ms, exchange_ms = [], [], []
+            for i in range(case["steps"]):
+                batch = _lm_mesh_batch(cfg, case, i)
+                batch = shardings.shard_tree(batch, shardings.batch_shardings(batch, mesh), mesh)
+                exchange["ms"] = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, loss = step_fn(params, state, batch)
+                losses.append(float(loss))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                exchange_ms.append(exchange["ms"])
+            launches = _lm_read("fp32", flash_attention=2 * cfg.n_layers * case["steps"],
+                                flash_attention_bwd=cfg.n_layers * case["steps"])
+            peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        for kind, tree in (("params", params), ("mu", state.mu), ("nu", state.nu)):
+            _hold_to_witness(rank, kind, _flat(tree), witness, flat_specs, mesh, worst)
+        result = dict(losses=losses, step_ms=step_ms, exchange_ms=exchange_ms,
+                      exchange_calls=exchange["calls"], launches=launches,
+                      peak_gb=peak_gb, worst=worst)
+    finally:
+        torch.distributed.destroy_process_group()
+    Path(mesh_dir, f"rank{rank}.json").write_text(json.dumps(result))
+    return 0
+
+
+def _lm_mesh_case(name, case, card) -> dict:
+    """(b) or (c) of the lm-mesh phase: the one-process witness on the card,
+    then four gloo ranks sharing it, each holding its slices of the step-1
+    gradients and of the parameters and Adam moments after the last step to
+    the witness's within 1e-4 of the leaf's largest entry, and its loss to
+    the witness's at ``TOLS``."""
+    import os
+    import pickle
+    import tempfile
+
+    import torch
+    from torch.multiprocessing.reductions import reduce_tensor
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import get_bundle
+
+    cfg = registry.get(case["arch"])
+    bundle = get_bundle(cfg)
+    params = bundle.init(0, torch.float32, device="cuda")
+    opt, kept = _lm_mesh_opt()
+    state = opt.init(params)
+    step_fn = steps.make_train_step(bundle, opt, microbatches=case["witness_micro"],
+                                    clip_norm=1.0)
+    _lm_zero()
+    w_losses, w_ms = [], []
+    for i in range(case["steps"]):
+        batch = _lm_mesh_batch(cfg, case, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step_fn(params, state, batch)
+        w_losses.append(float(loss))
+        torch.cuda.synchronize()
+        w_ms.append((time.perf_counter() - t0) * 1e3)
+    _lm_zero()
+    torch.cuda.empty_cache()
+    witness = {"grads": kept.pop("grads"), "params": _flat(params), "mu": _flat(state.mu),
+               "nu": _flat(state.nu)}
+    with torch.no_grad():
+        scale = {kind: {p: float(torch.linalg.vector_norm(t, float("inf")))
+                        for p, t in leaves.items()} for kind, leaves in witness.items()}
+    torch.cuda.synchronize()
+    say("lm-mesh", f"{name}: the witness holds its tensors: {_mem()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        Path(tmp, "case.json").write_text(json.dumps(case))
+        for r in range(LM_MESH_RANKS):
+            # one handle a tensor and rank: each carries the reference count
+            # its one receiver releases, so the blocks free once all are done
+            handles = {kind: {p: reduce_tensor(t.detach()) for p, t in leaves.items()}
+                       for kind, leaves in witness.items()}
+            with open(os.path.join(tmp, f"witness{r}.pkl"), "wb") as f:
+                pickle.dump({"handles": handles, "scale": scale}, f)
+        del handles
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), LOCAL_RANK="0",
+                   OMP_NUM_THREADS="2", PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+        t0 = time.perf_counter()
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(LM_MESH_RANKS)]
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                   "--lm-mesh-rank", str(r), tmp], cwd=ROOT, env=env,
+                                  stdout=logs[r], stderr=subprocess.STDOUT, text=True)
+                 for r in range(LM_MESH_RANKS)]
+        def tails():
+            out = []
+            for log in logs:
+                log.flush()
+                log.seek(0)
+                out.append(log.read())
+            return out
+
+        try:
+            # the ranks hold their step-1 gradients to the witness's, which
+            # are then freed to make room for the ranks' later steps
+            try:
+                for r in range(LM_MESH_RANKS):
+                    _wait_for(Path(tmp, f"step1.{r}"), procs)
+            except SmokeFailure as e:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                raise SmokeFailure(f"{e}; rank logs: " + " | ".join(
+                    f"rank {r}: {t[-1500:]}" for r, t in enumerate(tails()))) from e
+            del witness["grads"]
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
+            Path(tmp, "freed").touch()
+            for p in procs:
+                p.wait(timeout=LM_MESH_RANK_TIMEOUT_S)
+            errs = tails()
+            for log in logs:
+                log.close()
+            for line in errs[0].splitlines():
+                if line.startswith("[lm-mesh]"):
+                    print(line, flush=True)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall_s = time.perf_counter() - t0
+        for r, (p, err) in enumerate(zip(procs, errs, strict=True)):
+            check(p.returncode == 0, f"lm-mesh {name}: gloo rank {r} exited {p.returncode}: "
+                  f"{err[-3000:]}")
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(LM_MESH_RANKS)]
+    del witness, params, state, kept
+    torch.cuda.ipc_collect()  # the blocks the ranks mapped, freed once they have exited
+    _free()
+    say("lm-mesh", f"{name}: the witness freed: {_mem()}")
+    for r in ranks[1:]:
+        check(r["losses"] == ranks[0]["losses"], f"lm-mesh {name}: ranks' losses differ")
+    for got, want in zip(ranks[0]["losses"], w_losses, strict=True):
+        check(abs(got - want) <= 1e-4 + 1e-4 * abs(want),
+              f"lm-mesh {name}: loss {got} vs the one-process witness's {want}")
+    step_ms = max(r["step_ms"][-1] for r in ranks)
+    exchange_ms = max(r["exchange_ms"][-1] for r in ranks)
+    worst = {kind: max(r["worst"][kind][0] for r in ranks) for kind in ranks[0]["worst"]}
+    out = dict(mesh=case["mesh"], batch=[case["b"], case["s"]], steps=case["steps"],
+               losses=ranks[0]["losses"], witness_losses=w_losses,
+               step_ms=[max(r["step_ms"][i] for r in ranks) for i in range(case["steps"])],
+               exchange_ms=[max(r["exchange_ms"][i] for r in ranks)
+                            for i in range(case["steps"])],
+               exchange_share=exchange_ms / step_ms,
+               exchange_calls=ranks[0]["exchange_calls"], witness_step_ms=w_ms,
+               launches_per_rank=ranks[0]["launches"], peak_gb_per_rank=max(
+                   r["peak_gb"] for r in ranks), worst_share_of_bar=worst, ranks_wall_s=wall_s)
+    say("lm-mesh", f"{name}: 4 gloo ranks, loss {ranks[0]['losses']} vs the witness's "
+        f"{w_losses}; last step {step_ms:.0f} ms, {exchange_ms:.0f} ms of it in staged "
+        f"exchanges ({100 * exchange_ms / step_ms:.1f} %); witness {w_ms[-1]:.0f} ms a step; "
+        f"B7/B8 a rank {ranks[0]['launches']}; worst share of the 1e-4 bar {worst}; peak "
+        f"{out['peak_gb_per_rank']:.1f} GiB a rank; ranks' wall {wall_s:.1f} s on {card}")
+    return out
+
+
+def _lm_mesh_cli(card) -> dict:
+    """(d) ``launch/train.py --model-parallel 2`` on one card: the error
+    that names the card count."""
+    import os
+
+    import torch
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", QWEN3, "--reduced",
+         "--steps", "1", "--model-parallel", "2"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    n = torch.cuda.device_count()
+    want = f"{n} present"
+    check(proc.returncode != 0 and "--model-parallel 2 on the card needs" in proc.stderr
+          and want in proc.stderr,
+          f"train.py --model-parallel 2 on {n} card(s): exit {proc.returncode}, "
+          f"stderr {proc.stderr[-1000:]!r}")
+    line = proc.stderr.strip().splitlines()[-1]
+    say("lm-mesh", f"(d) train.py --model-parallel 2 on {n} card: exit {proc.returncode}, "
+        f"{line!r}, ok")
+    return {"exit": proc.returncode, "message": line}
+
+
+def phase_lm_mesh(card) -> dict:
+    """The lm-mesh phase (see the module docstring): (a) B7 and B8 with
+    ``q_offset`` at qwen2-1.5b's stripes, (b) qwen3-1.7b at full width on
+    four gloo ranks at data 2 x model 2, (c) qwen2-1.5b's sequence-parallel
+    route at data 1 x model 4, (d) the CLI on one card."""
+    import torch
+
+    t0 = time.perf_counter()
+    say("lm-mesh", f"at the start: {_mem()}")
+    out = {"card": card, "stripes": phase_stripe_kernels(card)}
+    t_a = time.perf_counter()
+    for name, case in LM_MESH_CASES.items():
+        out[name] = _lm_mesh_case(name, case, card)
+        torch.cuda.empty_cache()
+    t_bc = time.perf_counter()
+    out["cli"] = _lm_mesh_cli(card)
+    say("lm-mesh", f"(a) took {t_a - t0:.1f} s, (b) and (c) {t_bc - t_a:.1f} s, (d) "
+        f"{time.perf_counter() - t_bc:.1f} s on {card}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6141,6 +6667,8 @@ def main() -> int:
         serving_numbers = phase_dp_serving(cfg, xtr, fleet_data, fleet_data_d)
         mesh_numbers = phase_mesh(cfg, x_train, x_test, xte, references, fleet_data,
                                   fleet_data_d)
+        _free()
+        lm_mesh_numbers = phase_lm_mesh(card)
         comparison_numbers = phase_comparison()
         decode_numbers = phase_decode(card)
         family_numbers = phase_families(card)
@@ -6284,6 +6812,11 @@ def main() -> int:
                 "whisper_launches":
                     encdec_numbers[WHISPER]["prefill"]["launches"]["flash_attention"],
                 **encdec_numbers["b7_causal_false"]},
+            # With q_offset (the sequence-parallel stripes): per launch at
+            # qwen2-1.5b's stripes, bf16 and float32; lm_mesh_launches: a rank's
+            # in one step of the lm-mesh phase's (c) (28 layers, forward and remat).
+            "q_offset": {"lm_mesh_launches": lm_mesh_numbers[LM_MESH_SEQ]["launches_per_rank"][
+                "flash_attention"], **_stripe_rows(lm_mesh_numbers, "flash_attention")},
         },
         {
             "name": "flash_attention_bwd",
@@ -6306,6 +6839,11 @@ def main() -> int:
                 **encdec_numbers["b8"]["encoder"]},
             "launches_per_train_step": {name: row["b8_per_step"]
                                         for name, row in encdec_numbers["train"].items()},
+            # With q_offset (the sequence-parallel stripes): per launch at
+            # qwen2-1.5b's stripes, bf16 and float32; lm_mesh_launches: a rank's
+            # in one step of the lm-mesh phase's (c) (28 layers).
+            "q_offset": {"lm_mesh_launches": lm_mesh_numbers[LM_MESH_SEQ]["launches_per_rank"][
+                "flash_attention_bwd"], **_stripe_rows(lm_mesh_numbers, "flash_attention_bwd")},
         },
         {
             "name": "rglru_scan",
@@ -6345,6 +6883,7 @@ def main() -> int:
                 **_per_launch([ssm_numbers["ssd_chunk_bwd"]], "mamba2 train")},
         },
     ]
+    print(json.dumps({"lm_mesh": lm_mesh_numbers}))
     print(json.dumps({"mesh": mesh_numbers}))
     print(json.dumps({"ssm_training": ssm_numbers}))
     print(json.dumps({"encdec_training": encdec_numbers}))
@@ -6368,4 +6907,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--lm-mesh-rank"]:
+        sys.exit(lm_mesh_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

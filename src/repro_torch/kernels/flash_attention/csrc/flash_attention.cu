@@ -13,12 +13,19 @@
 // with an online softmax: a running row max m, row sum l and accumulator in
 // float32, the Pallas kernel's `_NEG_INF = -1e30` and `max(l, 1e-30)`.
 //
-// Layout.  q [B, S, H, D], k [B, S, Hkv, D] and v [B, S, Hkv, DV], each with
+// A query stripe.  q may hold Sq <= Sk rows against Sk keys, query row i at
+// position off + i (0 <= off <= Sk - Sq): the causal rule keeps j <= off + i
+// and the window rule j > off + i - window, the reference's
+// `attend_chunked(..., q_offset=)`.  The sequence-parallel attention of
+// models/attention.py runs each model rank's stripe so.  With off = 0 and
+// Sq = Sk every index below is the square case's, so is every result.
+//
+// Layout.  q [B, Sq, H, D], k [B, Sk, Hkv, D] and v [B, Sk, Hkv, DV], each with
 // its own batch, sequence and head strides (the last axis contiguous): the
 // model's layout, read in place.  Query head h reads KV head h / (H / Hkv),
 // so GQA and MQA need no repeated copy of k and v (the reference's
-// `jnp.repeat` and [N, S, D] transpose in ops.py).  out [B, S, H, DV]
-// contiguous, lse [B, H, S].  DV = D but for MLA's prefill (models/mla.py),
+// `jnp.repeat` and [N, S, D] transpose in ops.py).  out [B, Sq, H, DV]
+// contiguous, lse [B, H, Sq].  DV = D but for MLA's prefill (models/mla.py),
 // whose q and k carry 128 nope + 64 rope columns and v 128: the pair
 // (D, DV) = (192, 128), the one other instantiation of both kernels.
 //
@@ -47,8 +54,9 @@
 // serves the depth-cut agreement checks, not the bf16 model paths.
 //
 // Block skipping.  A block visits only the key tiles that meet its causal /
-// window band: from the tile holding max(0, q0 - window + 1) up to its last
-// query row.  The tiles it skips would contribute exp(-1e30 - m) = 0 to every
+// window band: from the tile holding max(0, off + q0 - window + 1) up to its
+// last query row's position; the tiles wholly outside the band are never
+// loaded (a stripe at offset off visits at most off + q0 + BQ keys).  The tiles it skips would contribute exp(-1e30 - m) = 0 to every
 // row, so this is the same function with less work.  Masked entries get
 // p = 0 explicitly; every row has at least its own key (j = i), so this
 // equals the reference wherever the reference is defined.  Rows and keys
@@ -97,7 +105,7 @@ template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ lse, int S, int H, int Hkv,
+                 float* __restrict__ lse, int Sq, int Sk, int off, int H, int Hkv,
                  long long qsb, long long qss, long long qsh,
                  long long ksb, long long kss, long long ksh,
                  long long vsb, long long vss, long long vsh,
@@ -120,7 +128,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int e = tid; e < L::kBQ * D; e += kThreads) {
     const int r = e / D, d = e % D, s = q0 + r;
-    Qs[r * L::kLdQ + d] = s < S ? qb[s * qss + d] : 0.f;
+    Qs[r * L::kLdQ + d] = s < Sq ? qb[s * qss + d] : 0.f;
   }
 
   float m[R], l[R], acc[R][L::kDCols];
@@ -132,17 +140,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < L::kDCols; ++c) acc[i][c] = 0.f;
   }
 
-  const int k_end = causal ? min(S, q0 + L::kBQ) : S;
-  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_end = causal ? min(Sk, off + q0 + L::kBQ) : Sk;
+  const int k_first = window > 0 ? max(0, off + q0 - window + 1) : 0;
   for (int k0 = (k_first / kBK) * kBK; k0 < k_end; k0 += kBK) {
     __syncthreads();  // Q staged; the previous tile's K, V and P are read
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int c = e / D, d = e % D, s = k0 + c;
-      Ks[c * L::kLdK + d] = s < S ? kb[s * kss + d] : 0.f;
+      Ks[c * L::kLdK + d] = s < Sk ? kb[s * kss + d] : 0.f;
     }
     for (int e = tid; e < kBK * DV; e += kThreads) {
       const int c = e / DV, d = e % DV, s = k0 + c;
-      Vs[c * L::kLdV + d] = s < S ? vb[s * vss + d] : 0.f;
+      Vs[c * L::kLdV + d] = s < Sk ? vb[s * vss + d] : 0.f;
     }
     __syncthreads();
 
@@ -166,12 +174,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      const int qi = q0 + rg + kRG * i;
+      const int qi = off + q0 + rg + kRG * i;  // the row's position
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int kj = k0 + cg + kCG * j;
-        sc[i][j] = attends(qi, kj, S, causal, window) ? sc[i][j] * scale : kNegInf;
+        sc[i][j] = attends(qi, kj, Sk, causal, window) ? sc[i][j] * scale : kNegInf;
         mx = fmaxf(mx, sc[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max8(mx));
@@ -180,7 +188,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int kj = k0 + cg + kCG * j;
-        const float p = attends(qi, kj, S, causal, window) ? expf(sc[i][j] - m_new) : 0.f;
+        const float p = attends(qi, kj, Sk, causal, window) ? expf(sc[i][j] - m_new) : 0.f;
         Ps[(rg + kRG * i) * L::kLdP + cg + kCG * j] = p;
         rs += p;
       }
@@ -208,29 +216,29 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int s = q0 + rg + kRG * i;
-    if (s < S) {
+    if (s < Sq) {
       const float lf = fmaxf(l[i], 1e-30f);
-      float* ob = out + ((static_cast<long long>(b) * S + s) * H + h) * DV;
+      float* ob = out + ((static_cast<long long>(b) * Sq + s) * H + h) * DV;
 #pragma unroll
       for (int dc = 0; dc < L::kDCols; ++dc) ob[cg + kCG * dc] = acc[i][dc] / lf;
-      if (cg == 0) lse[(static_cast<long long>(b) * H + h) * S + s] = m[i] + logf(lf);
+      if (cg == 0) lse[(static_cast<long long>(b) * H + h) * Sq + s] = m[i] + logf(lf);
     }
   }
 }
 
 template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-           int S, int H, int Hkv, const long long* st, int causal, int window,
-           float scale, cudaStream_t stream) {
+           int Sq, int Sk, int off, int H, int Hkv, const long long* st, int causal,
+           int window, float scale, cudaStream_t stream) {
   using L = Tile<D, DV>;
   auto* fn = flash_fwd_kernel<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          L::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + L::kBQ - 1) / L::kBQ, H, B);
+  const dim3 grid((Sq + L::kBQ - 1) / L::kBQ, H, B);
   fn<<<grid, kThreads, L::kSmemBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), lse, S, H, Hkv, st[0], st[1], st[2], st[3], st[4], st[5],
+      static_cast<float*>(out), lse, Sq, Sk, off, H, Hkv, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], causal, window, scale);
   return cudaGetLastError();
 }
@@ -239,26 +247,26 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
 constexpr int pair(int d, int dv) { return d * 1024 + dv; }
 
 int dispatch(int d, int dv, int dtype, const void* q, const void* k, const void* v,
-             void* out, float* lse, int B, int S, int H, int Hkv, const long long* st,
-             int causal, int window, float scale, cudaStream_t stream) {
+             void* out, float* lse, int B, int Sq, int Sk, int off, int H, int Hkv,
+             const long long* st, int causal, int window, float scale, cudaStream_t stream) {
   using flash::sm90::launch_fwd;
   if (dtype == 1) {
     switch (pair(d, dv)) {
-      case pair(32, 32): return launch_fwd<32, 32>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-      case pair(64, 64): return launch_fwd<64, 64>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-      case pair(128, 128): return launch_fwd<128, 128>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-      case pair(256, 256): return launch_fwd<256, 256>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-      case pair(192, 128): return launch_fwd<192, 128>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+      case pair(32, 32): return launch_fwd<32, 32>(q, k, v, out, lse, B, Sq, Sk, off, H, Hkv, st, causal, window, scale, stream);
+      case pair(64, 64): return launch_fwd<64, 64>(q, k, v, out, lse, B, Sq, Sk, off, H, Hkv, st, causal, window, scale, stream);
+      case pair(128, 128): return launch_fwd<128, 128>(q, k, v, out, lse, B, Sq, Sk, off, H, Hkv, st, causal, window, scale, stream);
+      case pair(256, 256): return launch_fwd<256, 256>(q, k, v, out, lse, B, Sq, Sk, off, H, Hkv, st, causal, window, scale, stream);
+      case pair(192, 128): return launch_fwd<192, 128>(q, k, v, out, lse, B, Sq, Sk, off, H, Hkv, st, causal, window, scale, stream);
       default: return cudaErrorInvalidValue;
     }
   }
   if (dtype != 0) return cudaErrorInvalidValue;
   switch (pair(d, dv)) {
-    case pair(32, 32): return launch<32, 32>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-    case pair(64, 64): return launch<64, 64>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-    case pair(128, 128): return launch<128, 128>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-    case pair(256, 256): return launch<256, 256>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
-    case pair(192, 128): return launch<192, 128>(q, k, v, out, lse, B, S, H, Hkv, st, causal, window, scale, stream);
+    case pair(32, 32): return launch<32, 32>(q, k, v, out, lse, B, Sq, Sk, off, H, Hkv, st, causal, window, scale, stream);
+    case pair(64, 64): return launch<64, 64>(q, k, v, out, lse, B, Sq, Sk, off, H, Hkv, st, causal, window, scale, stream);
+    case pair(128, 128): return launch<128, 128>(q, k, v, out, lse, B, Sq, Sk, off, H, Hkv, st, causal, window, scale, stream);
+    case pair(256, 256): return launch<256, 256>(q, k, v, out, lse, B, Sq, Sk, off, H, Hkv, st, causal, window, scale, stream);
+    case pair(192, 128): return launch<192, 128>(q, k, v, out, lse, B, Sq, Sk, off, H, Hkv, st, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -270,15 +278,18 @@ int dispatch(int d, int dv, int dtype, const void* q, const void* k, const void*
 // sequence and head strides, then k's, then v's, in elements (bf16: base
 // addresses 16-byte aligned, strides multiples of 8 elements, for TMA).
 // window <= 0 means no window.  D is q's and k's head size, DV v's and
-// out's.  Launches on `stream`; returns cudaGetLastError() (0 = launched),
+// out's.  Sq query rows (q, out, lse) at positions q_offset + i against Sk
+// keys (k, v), 0 <= q_offset <= Sk - Sq.  Launches on `stream`; returns cudaGetLastError() (0 = launched),
 // or cudaErrorInvalidValue for head sizes other than (32, 32), (64, 64),
-// (128, 128), (256, 256) or (192, 128), H not a multiple of Hkv, another
-// dtype, or a bf16 stride or address TMA cannot take.
+// (128, 128), (256, 256) or (192, 128), H not a multiple of Hkv, a stripe
+// outside the keys, another dtype, or a bf16 stride or address TMA cannot
+// take.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                                   void* out, float* lse, int B, int S, int H, int Hkv,
-                                   int D, int DV, const long long* strides, int causal,
-                                   int window, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
-  return dispatch(D, DV, dtype, q, k, v, out, lse, B, S, H, Hkv, strides, causal, window,
-                  scale, static_cast<cudaStream_t>(stream));
+                                   void* out, float* lse, int B, int Sq, int Sk, int q_offset,
+                                   int H, int Hkv, int D, int DV, const long long* strides,
+                                   int causal, int window, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Hkv <= 0 || H % Hkv != 0 || q_offset < 0 || Sq + q_offset > Sk)
+    return cudaErrorInvalidValue;
+  return dispatch(D, DV, dtype, q, k, v, out, lse, B, Sq, Sk, q_offset, H, Hkv, strides, causal,
+                  window, scale, static_cast<cudaStream_t>(stream));
 }

@@ -16,6 +16,13 @@
 //     dk_j  = D^-1/2 · Σ_{h in hk's group} Σ_i ds_ij q_i
 //     dv_j  =          Σ_{h in hk's group} Σ_i p_ij dO_i
 //
+// A query stripe (flash_attention.cu's note): Sq query rows (q, dO, dq,
+// lse, dvec) at positions off + i against Sk keys (k, v, dk, dv); i above
+// is the row's position.  The dq kernel's key band and the dk/dv kernel's
+// query band are the forward's, at those positions: a key block none of
+// the stripe's rows attends writes zeros.  With off = 0 and Sq = Sk every
+// index is the square case's.
+//
 // Dispatch by dtype, in `flash_attention_bwd` below: bf16 goes to the
 // tensor-core kernels of flash_bwd_sm90.cuh (wgmma, TMA; see its note), and
 // only there; float32 to the kernels in this file, where every product and
@@ -93,7 +100,7 @@ struct DkvTile {
 };
 
 struct Args {
-  int S, H, Hkv, causal, window;
+  int Sq, Sk, off, H, Hkv, causal, window;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
   float scale;
 };
@@ -115,7 +122,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* lse_s = dSs + L::kBQ * L::kLdS;
   float* dvec_s = lse_s + L::kBQ;
 
-  const int S = a.S, H = a.H;
+  const int Sq = a.Sq, Sk = a.Sk, H = a.H;
   const int tid = threadIdx.x, cg = tid % kCG, rg = tid / kCG;
   const int q0 = blockIdx.x * L::kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -125,21 +132,21 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + b * a.vsb + hk * a.vsh;
   const long long hd = static_cast<long long>(H) * D;    // dq's sequence stride
   const long long hdv = static_cast<long long>(H) * DV;  // dO's sequence stride
-  const float* ob = dO + static_cast<long long>(b) * S * hdv + static_cast<long long>(h) * DV;
-  const long long row0 = (static_cast<long long>(b) * H + h) * S;
+  const float* ob = dO + static_cast<long long>(b) * Sq * hdv + static_cast<long long>(h) * DV;
+  const long long row0 = (static_cast<long long>(b) * H + h) * Sq;
 
   for (int e = tid; e < L::kBQ * D; e += kThreads) {
     const int r = e / D, d = e % D, s = q0 + r;
-    Qs[r * L::kLd + d] = s < S ? qb[s * a.qss + d] : 0.f;
+    Qs[r * L::kLd + d] = s < Sq ? qb[s * a.qss + d] : 0.f;
   }
   for (int e = tid; e < L::kBQ * DV; e += kThreads) {
     const int r = e / DV, d = e % DV, s = q0 + r;
-    dOs[r * L::kLdV + d] = s < S ? ob[s * hdv + d] : 0.f;
+    dOs[r * L::kLdV + d] = s < Sq ? ob[s * hdv + d] : 0.f;
   }
   for (int r = tid; r < L::kBQ; r += kThreads) {
     const int s = q0 + r;
-    lse_s[r] = s < S ? lse[row0 + s] : 0.f;
-    dvec_s[r] = s < S ? dvec[row0 + s] : 0.f;
+    lse_s[r] = s < Sq ? lse[row0 + s] : 0.f;
+    dvec_s[r] = s < Sq ? dvec[row0 + s] : 0.f;
   }
 
   float acc[R][L::kDCols];
@@ -148,17 +155,17 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < L::kDCols; ++c) acc[i][c] = 0.f;
 
-  const int k_end = a.causal ? min(S, q0 + L::kBQ) : S;
-  const int k_first = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int k_end = a.causal ? min(Sk, a.off + q0 + L::kBQ) : Sk;
+  const int k_first = a.window > 0 ? max(0, a.off + q0 - a.window + 1) : 0;
   for (int k0 = (k_first / kBT) * kBT; k0 < k_end; k0 += kBT) {
     __syncthreads();  // Q, dO staged; the previous tile's K, V and dS are read
     for (int e = tid; e < kBT * D; e += kThreads) {
       const int c = e / D, d = e % D, s = k0 + c;
-      Ks[c * L::kLd + d] = s < S ? kb[s * a.kss + d] : 0.f;
+      Ks[c * L::kLd + d] = s < Sk ? kb[s * a.kss + d] : 0.f;
     }
     for (int e = tid; e < kBT * DV; e += kThreads) {
       const int c = e / DV, d = e % DV, s = k0 + c;
-      Vs[c * L::kLdV + d] = s < S ? vb[s * a.vss + d] : 0.f;
+      Vs[c * L::kLdV + d] = s < Sk ? vb[s * a.vss + d] : 0.f;
     }
     __syncthreads();
 
@@ -205,11 +212,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      const int r = rg + kRG * i, qi = q0 + r;
+      const int r = rg + kRG * i, qi = a.off + q0 + r;  // the row's position
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int kj = k0 + cg + kCG * j;
-        const float p = attends(qi, kj, S, a.causal, a.window)
+        const float p = attends(qi, kj, Sk, a.causal, a.window)
                             ? expf(sc[i][j] * a.scale - lse_s[r]) : 0.f;
         dSs[r * L::kLdS + cg + kCG * j] = p * (dp[i][j] - dvec_s[r]);
       }
@@ -233,8 +240,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int s = q0 + rg + kRG * i;
-    if (s < S) {
-      float* out = dq + static_cast<long long>(b) * S * hd + s * hd + static_cast<long long>(h) * D;
+    if (s < Sq) {
+      float* out = dq + static_cast<long long>(b) * Sq * hd + s * hd + static_cast<long long>(h) * D;
 #pragma unroll
       for (int dc = 0; dc < L::kDCols; ++dc)
         out[cg + kCG * dc] = a.scale * acc[i][dc];
@@ -260,7 +267,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* lse_s = dSs + L::kBK * L::kLdS;
   float* dvec_s = lse_s + kBT;
 
-  const int S = a.S, H = a.H, Hkv = a.Hkv, G = H / Hkv;
+  const int Sq = a.Sq, Sk = a.Sk, H = a.H, Hkv = a.Hkv, G = H / Hkv;
   const int tid = threadIdx.x, cg = tid % kCG, rg = tid / kCG;
   const int k0 = blockIdx.x * L::kBK;
   const int hk = blockIdx.y, b = blockIdx.z;
@@ -270,11 +277,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int e = tid; e < L::kBK * D; e += kThreads) {
     const int r = e / D, d = e % D, s = k0 + r;
-    Ks[r * L::kLd + d] = s < S ? kb[s * a.kss + d] : 0.f;
+    Ks[r * L::kLd + d] = s < Sk ? kb[s * a.kss + d] : 0.f;
   }
   for (int e = tid; e < L::kBK * DV; e += kThreads) {
     const int r = e / DV, d = e % DV, s = k0 + r;
-    Vs[r * L::kLdV + d] = s < S ? vb[s * a.vss + d] : 0.f;
+    Vs[r * L::kLdV + d] = s < Sk ? vb[s * a.vss + d] : 0.f;
   }
 
   float dk_acc[R][L::kDCols], dv_acc[R][L::kDColsV];
@@ -286,29 +293,29 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < L::kDColsV; ++c) dv_acc[i][c] = 0.f;
   }
 
-  // Query rows that attend a key of this tile: i >= k0 when causal, and
-  // i < k0 + BK - 1 + window when a window is given.
-  const int q_first = a.causal ? k0 : 0;
-  const int q_end = a.window > 0 ? min(S, k0 + L::kBK - 1 + a.window) : S;
+  // Query rows that attend a key of this tile: position off + i >= k0 when
+  // causal, and off + i < k0 + BK - 1 + window when a window is given.
+  const int q_first = a.causal ? max(0, k0 - a.off) : 0;
+  const int q_end = a.window > 0 ? min(Sq, k0 + L::kBK - 1 + a.window - a.off) : Sq;
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     const float* qb = q + b * a.qsb + h * a.qsh;
-    const float* ob = dO + static_cast<long long>(b) * S * hdv + static_cast<long long>(h) * DV;
-    const long long row0 = (static_cast<long long>(b) * H + h) * S;
+    const float* ob = dO + static_cast<long long>(b) * Sq * hdv + static_cast<long long>(h) * DV;
+    const long long row0 = (static_cast<long long>(b) * H + h) * Sq;
     for (int q0 = (q_first / kBT) * kBT; q0 < q_end; q0 += kBT) {
       __syncthreads();  // K, V staged; the previous tile's Q, dO, P and dS are read
       for (int e = tid; e < kBT * D; e += kThreads) {
         const int c = e / D, d = e % D, s = q0 + c;
-        Qs[c * L::kLd + d] = s < S ? qb[s * a.qss + d] : 0.f;
+        Qs[c * L::kLd + d] = s < Sq ? qb[s * a.qss + d] : 0.f;
       }
       for (int e = tid; e < kBT * DV; e += kThreads) {
         const int c = e / DV, d = e % DV, s = q0 + c;
-        dOs[c * L::kLdV + d] = s < S ? ob[s * hdv + d] : 0.f;
+        dOs[c * L::kLdV + d] = s < Sq ? ob[s * hdv + d] : 0.f;
       }
       for (int c = tid; c < kBT; c += kThreads) {
         const int s = q0 + c;
-        lse_s[c] = s < S ? lse[row0 + s] : 0.f;
-        dvec_s[c] = s < S ? dvec[row0 + s] : 0.f;
+        lse_s[c] = s < Sq ? lse[row0 + s] : 0.f;
+        dvec_s[c] = s < Sq ? dvec[row0 + s] : 0.f;
       }
       __syncthreads();
 
@@ -358,7 +365,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < kCols; ++j) {
           const int c = cg + kCG * j, qi = q0 + c;
-          const float p = qi < S && attends(qi, kj, S, a.causal, a.window)
+          const float p = qi < Sq && attends(a.off + qi, kj, Sk, a.causal, a.window)
                               ? expf(sc[i][j] * a.scale - lse_s[c]) : 0.f;
           Ps[r * L::kLdS + c] = p;
           dSs[r * L::kLdS + c] = p * (dp[i][j] - dvec_s[c]);
@@ -398,9 +405,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int s = k0 + rg + kRG * i;
-    if (s < S) {
-      float* dko = dk + (static_cast<long long>(b) * S + s) * kd + static_cast<long long>(hk) * D;
-      float* dvo = dv + (static_cast<long long>(b) * S + s) * kdv + static_cast<long long>(hk) * DV;
+    if (s < Sk) {
+      float* dko = dk + (static_cast<long long>(b) * Sk + s) * kd + static_cast<long long>(hk) * D;
+      float* dvo = dv + (static_cast<long long>(b) * Sk + s) * kdv + static_cast<long long>(hk) * DV;
 #pragma unroll
       for (int dc = 0; dc < L::kDCols; ++dc) dko[cg + kCG * dc] = a.scale * dk_acc[i][dc];
 #pragma unroll
@@ -427,11 +434,11 @@ int launch(const void* q, const void* k, const void* v, const void* dO, const fl
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   const float* ot = static_cast<const float*>(dO);
-  dq_fn<<<dim3((a.S + Q::kBQ - 1) / Q::kBQ, a.H, B), kThreads, Q::kSmemBytes, stream>>>(
+  dq_fn<<<dim3((a.Sq + Q::kBQ - 1) / Q::kBQ, a.H, B), kThreads, Q::kSmemBytes, stream>>>(
       qt, kt, vt, ot, lse, dvec, static_cast<float*>(dq), a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkv_fn<<<dim3((a.S + K::kBK - 1) / K::kBK, a.Hkv, B), kThreads, K::kSmemBytes, stream>>>(
+  dkv_fn<<<dim3((a.Sk + K::kBK - 1) / K::kBK, a.Hkv, B), kThreads, K::kSmemBytes, stream>>>(
       qt, kt, vt, ot, lse, dvec, static_cast<float*>(dk), static_cast<float*>(dv), a);
   return cudaGetLastError();
 }
@@ -445,8 +452,8 @@ int dispatch(int d, int dv, int dtype, const void* q, const void* k, const void*
   using flash::sm90::launch_bwd;
   if (dtype == 1) {
 #define FLASH_BWD_SM90(D, DV)                                                              \
-  launch_bwd<D, DV>(q, k, v, dO, lse, dvec, dq, dk, dv_out, B, a.S, a.H, a.Hkv, st, a.causal, \
-                    a.window, a.scale, stream)
+  launch_bwd<D, DV>(q, k, v, dO, lse, dvec, dq, dk, dv_out, B, a.Sq, a.Sk, a.off, a.H, a.Hkv, \
+                    st, a.causal, a.window, a.scale, stream)
     switch (pair(d, dv)) {
       case pair(32, 32): return FLASH_BWD_SM90(32, 32);
       case pair(64, 64): return FLASH_BWD_SM90(64, 64);
@@ -478,18 +485,22 @@ int dispatch(int d, int dv, int dtype, const void* q, const void* k, const void*
 // sequence and head strides, then k's, then v's, in elements (bf16: base
 // addresses 16-byte aligned, strides multiples of 8 elements, for TMA); dO,
 // lse, dvec, dq, dk and dv are contiguous.  window <= 0 means no window.
+// Sq query rows (q, dO, dq, lse, dvec) at positions q_offset + i against Sk
+// keys (k, v, dk, dv), 0 <= q_offset <= Sk - Sq.
 // Launches the dq kernel, then the dk/dv kernel(s), on `stream`; returns
 // cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for head sizes
 // other than (32, 32), (64, 64), (128, 128), (256, 256) or (192, 128), H not
-// a multiple of Hkv, another dtype, or a bf16 stride or address TMA cannot
-// take.
+// a multiple of Hkv, a stripe outside the keys, another dtype, or a bf16
+// stride or address TMA cannot take.
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* dO, const float* lse, const float* dvec,
-                                   void* dq, void* dk, void* dv, int B, int S, int H,
-                                   int Hkv, int D, int DV, const long long* strides, int causal,
-                                   int window, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
-  const Args a{S, H, Hkv, causal, window,
+                                   void* dq, void* dk, void* dv, int B, int Sq, int Sk,
+                                   int q_offset, int H, int Hkv, int D, int DV,
+                                   const long long* strides, int causal, int window, float scale,
+                                   void* stream) {
+  if (B <= 0 || Sq <= 0 || Hkv <= 0 || H % Hkv != 0 || q_offset < 0 || Sq + q_offset > Sk)
+    return cudaErrorInvalidValue;
+  const Args a{Sq, Sk, q_offset, H, Hkv, causal, window,
                strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
                strides[6], strides[7], strides[8], scale};
   return dispatch(D, DV, dtype, q, k, v, dO, lse, dvec, dq, dk, dv, B, a, strides,

@@ -6,7 +6,9 @@
 // and the FP32 CUDA-core kernels of flash_attention_bwd.cu, which keep
 // float32 inputs.  The function is the one flash_attention_bwd.cu states:
 // p = exp(s·D^-½ - lse) in the band, ds = p∘(dO·vᵀ - dvec), dq = D^-½·ds·k,
-// dk = D^-½·Σ_group dsᵀ·q, dv = Σ_group pᵀ·dO, outputs in bf16.
+// dk = D^-½·Σ_group dsᵀ·q, dv = Σ_group pᵀ·dO, outputs in bf16.  A query
+// stripe (Sq rows at positions off + i against Sk keys) maps q and dO over
+// Sq rows and k and v over Sk; every band test reads positions, off + row.
 //
 // What bounds it.  Five products over the band, 10·D FLOPs per (query, key)
 // pair: tensor-core work.  The PR 17 kernels ran seven (both kernels
@@ -89,8 +91,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdo,
                           const float* __restrict__ lse, const float* __restrict__ dvec,
-                          __nv_bfloat16* __restrict__ dq, int S, int H, int Hkv, int causal,
-                          int window, float scale) {
+                          __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int off, int H,
+                          int Hkv, int causal, int window, float scale) {
   constexpr int D = C::D, DV = C::DV, NWG = C::NWG, BK = C::BK, ST = C::STAGES;
   using P = Panel<D>;
   using PV = Panel<DV>;
@@ -105,8 +107,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int q0 = (gridDim.z - 1 - blockIdx.z) * C::kBQ;
   const int h = blockIdx.x, b = blockIdx.y, hk = h / (H / Hkv);
-  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_end = causal ? min(S, q0 + C::kBQ) : S;
+  const int k_first = window > 0 ? max(0, off + q0 - window + 1) : 0;
+  const int k_end = causal ? min(Sk, off + q0 + C::kBQ) : Sk;
   const int t0 = k_first / BK;
   const int n_tiles = (k_end + BK - 1) / BK - t0;
   const int wg = threadIdx.x / 128;
@@ -148,16 +150,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
   const int r0 = q0 + 64 * wg;
   const int ra = r0 + 16 * warp + lane / 4;     // rows ra and ra + 8
+  const int p0 = off + r0, pa = off + ra;       // positions of rows r0 and ra
   const int cq = 2 * (lane % 4);
   const uint8_t* myQ = sQ + wg * C::kQBytes;
   const uint8_t* mydO = sdO + wg * C::kdOBytes;
-  const long long row0 = (static_cast<long long>(b) * H + h) * S;
+  const long long row0 = (static_cast<long long>(b) * H + h) * Sq;
   float lse_r[2], dvec_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = ra + 8 * r;
-    lse_r[r] = row < S ? lse[row0 + row] : 0.f;
-    dvec_r[r] = row < S ? dvec[row0 + row] : 0.f;
+    lse_r[r] = row < Sq ? lse[row0 + row] : 0.f;
+    dvec_r[r] = row < Sq ? dvec[row0 + row] : 0.f;
   }
 
   float acc[P::kCount][P::kCols / 2];
@@ -170,11 +173,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % ST, k0 = (t0 + i) * BK;
     mbar_wait(&full[s], (i / ST) & 1);
-    const bool skip = r0 >= S || (causal && k0 > r0 + 63) ||
-                      (window > 0 && k0 + BK - 1 <= r0 - window);
+    const bool skip = r0 >= Sq || (causal && k0 > p0 + 63) ||
+                      (window > 0 && k0 + BK - 1 <= p0 - window);
     if (!skip) {
-      const bool edge = (causal && k0 + BK - 1 > r0) || (window > 0 && k0 <= r0 + 63 - window) ||
-                        k0 + BK > S;
+      const bool edge = (causal && k0 + BK - 1 > p0) || (window > 0 && k0 <= p0 + 63 - window) ||
+                        k0 + BK > Sk;
       const uint8_t* tK = sK + s * C::kKBytes;
       const uint8_t* tV = sV + s * C::kVBytes;
 
@@ -200,7 +203,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int e = 0; e < BK / 2; ++e) {
         const int r = (e / 2) % 2;
-        const bool in = !edge || attends(ra + 8 * r, k0 + 8 * (e / 4) + cq + (e % 2), S, causal,
+        const bool in = !edge || attends(pa + 8 * r, k0 + 8 * (e / 4) + cq + (e % 2), Sk, causal,
                                          window);
         const float p = in ? expf(sc[e] * scale - lse_r[r]) : 0.f;
         dp[e] = p * (dp[e] - dvec_r[r]);
@@ -236,8 +239,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = ra + 8 * r;
-    if (row < S) {
-      __nv_bfloat16* ob = dq + ((static_cast<long long>(b) * S + row) * H + h) * D;
+    if (row < Sq) {
+      __nv_bfloat16* ob = dq + ((static_cast<long long>(b) * Sq + row) * H + h) * D;
 #pragma unroll
       for (int p = 0; p < P::kCount; ++p)
 #pragma unroll
@@ -256,8 +259,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap tdo,
                            const float* __restrict__ lse, const float* __restrict__ dvec,
-                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S,
-                           int H, int Hkv, int causal, int window, float scale) {
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
+                           int Sk, int off, int H, int Hkv, int causal, int window, float scale) {
   constexpr int D = C::D, DV = C::DV, NWG = C::NWG, BQ = C::BQ, ST = C::STAGES;
   constexpr bool WITH_DK = C::WITH_DK, WITH_DV = C::WITH_DV;
   using P = Panel<D>;
@@ -274,12 +277,13 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int G = H / Hkv;
   const int k0 = blockIdx.z * C::kBK;    // the first key tiles have the longest causal bands
   const int hk = blockIdx.x, b = blockIdx.y;
-  // Query rows that attend a key of this block: i >= k0 when causal, and
-  // i < k0 + kBK - 1 + window when a window is given.
-  const int q_first = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(S, k0 + C::kBK - 1 + window) : S;
+  // Query rows that attend a key of this block: position off + i >= k0 when
+  // causal, and off + i < k0 + kBK - 1 + window when a window is given; a
+  // block of keys past the stripe's last position has none.
+  const int q_first = causal ? max(0, k0 - off) : 0;
+  const int q_end = window > 0 ? min(Sq, k0 + C::kBK - 1 + window - off) : Sq;
   const int tq0 = q_first / BQ;
-  const int nq = (q_end + BQ - 1) / BQ - tq0;
+  const int nq = max(0, (q_end + BQ - 1) / BQ - tq0);
   const int n_tiles = G * nq;
   const int wg = threadIdx.x / 128;
 
@@ -345,22 +349,24 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % ST, h = hk * G + i / nq, q0 = (tq0 + i % nq) * BQ;
     mbar_wait(&full[s], (i / ST) & 1);
-    const bool skip = kr0 >= S || (causal && q0 + BQ - 1 < kr0) ||
-                      (window > 0 && q0 >= kr0 + 63 + window);
+    const int pq0 = off + q0;  // the tile's first position
+    const bool skip = kr0 >= Sk || (causal && pq0 + BQ - 1 < kr0) ||
+                      (window > 0 && pq0 >= kr0 + 63 + window);
     if (!skip) {
-      const bool edge = (causal && q0 < kr0 + 63) || (window > 0 && q0 + BQ - 1 >= kr0 + window) ||
-                        q0 + BQ > S || kr0 + 64 > S;
+      const bool edge = (causal && pq0 < kr0 + 63) ||
+                        (window > 0 && pq0 + BQ - 1 >= kr0 + window) || q0 + BQ > Sq ||
+                        kr0 + 64 > Sk;
       const uint8_t* tQ = sQ + s * C::kQBytes;
       const uint8_t* tdO = sdO + s * C::kdOBytes;
       // The tile's lse and dvec, one column per lane (32·r + lane), read
       // while the products run; a thread takes its columns' by shuffle.
-      const long long row0 = (static_cast<long long>(b) * H + h) * S;
+      const long long row0 = (static_cast<long long>(b) * H + h) * Sq;
       float lse_c[BQ / 32], dvec_c[BQ / 32];
 #pragma unroll
       for (int r = 0; r < BQ / 32; ++r) {
         const int qi = q0 + 32 * r + lane;
-        lse_c[r] = qi < S ? lse[row0 + qi] : 0.f;
-        dvec_c[r] = WITH_DK && qi < S ? dvec[row0 + qi] : 0.f;
+        lse_c[r] = qi < Sq ? lse[row0 + qi] : 0.f;
+        dvec_c[r] = WITH_DK && qi < Sq ? dvec[row0 + qi] : 0.f;
       }
 
       // Sᵀ = K·Qᵀ over D, dPᵀ = V·dOᵀ over DV (<= D).
@@ -392,7 +398,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int e = 0; e < BQ / 2; ++e) {
         const int c = 8 * (e / 4) + cq + (e % 2), qi = q0 + c;
         const int kj = ka + 8 * ((e / 2) % 2);
-        const bool in = !edge || (qi < S && attends(qi, kj, S, causal, window));
+        const bool in = !edge || (qi < Sq && attends(off + qi, kj, Sk, causal, window));
         const float lse_i = __shfl_sync(0xffffffffu, lse_c[e / 16], c % 32);
         st[e] = in ? expf(st[e] * scale - lse_i) : 0.f;
         if constexpr (WITH_DK)
@@ -454,8 +460,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = ka + 8 * r;
-    if (row < S) {
-      const long long o = (static_cast<long long>(b) * S + row) * Hkv + hk;
+    if (row < Sk) {
+      const long long o = (static_cast<long long>(b) * Sk + row) * Hkv + hk;
       if constexpr (WITH_DK) {
 #pragma unroll
         for (int p = 0; p < P::kCount; ++p)
@@ -480,58 +486,59 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 template <class C>
 int launch_dkv(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                const CUtensorMap& tdo, const float* lse, const float* dvec, void* dk, void* dv,
-               int B, int S, int H, int Hkv, int causal, int window, float scale,
-               cudaStream_t stream) {
+               int B, int Sq, int Sk, int off, int H, int Hkv, int causal, int window,
+               float scale, cudaStream_t stream) {
   auto* fn = flash_bwd_dkv_wgmma_kernel<C>;
   const cudaError_t e =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (e != cudaSuccess) return e;
-  fn<<<dim3(Hkv, B, (S + C::kBK - 1) / C::kBK), C::kThreads, C::kSmemBytes, stream>>>(
+  fn<<<dim3(Hkv, B, (Sk + C::kBK - 1) / C::kBK), C::kThreads, C::kSmemBytes, stream>>>(
       tq, tk, tv, tdo, lse, dvec, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), S, H, Hkv, causal, window, scale);
+      static_cast<__nv_bfloat16*>(dv), Sq, Sk, off, H, Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
 // Launch B8's bf16 kernels: dq, then dk/dv, as two launches (dk, then dv)
 // where one thread's two accumulators would not fit its registers: at
-// D = 256 and at MLA's (192, 128).  st: q's, k's and v's batch, sequence
-// and head strides (elements); dO [B, S, H, DV] contiguous.  Returns 0 or a
-// CUDA error code.
+// D = 256 and at MLA's (192, 128).  Sq query rows at positions off + i
+// against Sk keys.  st: q's, k's and v's batch, sequence and head strides
+// (elements); dO [B, Sq, H, DV] contiguous.  Returns 0 or a CUDA error code.
 template <int D, int DV>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dO, const float* lse,
-               const float* dvec, void* dq, void* dk, void* dv, int B, int S, int H, int Hkv,
-               const long long* st, int causal, int window, float scale, cudaStream_t stream) {
+               const float* dvec, void* dq, void* dk, void* dv, int B, int Sq, int Sk, int off,
+               int H, int Hkv, const long long* st, int causal, int window, float scale,
+               cudaStream_t stream) {
   constexpr bool kSplit = D == 256 || D != DV;
   using Q = DqConfig<D, DV>;
   using K = DkvConfig<D, DV, true, !kSplit>;
   const long long hdv = static_cast<long long>(H) * DV;
   CUtensorMap q_rows, do_rows, k_tile, v_tile, k_rows, v_rows, q_tile, do_tile;
-  int err = make_map<D>(&q_rows, q, B, S, H, st[0], st[1], st[2], 64);
-  if (!err) err = make_map<DV>(&do_rows, dO, B, S, H, S * hdv, hdv, DV, 64);
-  if (!err) err = make_map<D>(&k_tile, k, B, S, Hkv, st[3], st[4], st[5], Q::BK);
-  if (!err) err = make_map<DV>(&v_tile, v, B, S, Hkv, st[6], st[7], st[8], Q::BK);
-  if (!err) err = make_map<D>(&k_rows, k, B, S, Hkv, st[3], st[4], st[5], 64);
-  if (!err) err = make_map<DV>(&v_rows, v, B, S, Hkv, st[6], st[7], st[8], 64);
-  if (!err) err = make_map<D>(&q_tile, q, B, S, H, st[0], st[1], st[2], K::BQ);
-  if (!err) err = make_map<DV>(&do_tile, dO, B, S, H, S * hdv, hdv, DV, K::BQ);
+  int err = make_map<D>(&q_rows, q, B, Sq, H, st[0], st[1], st[2], 64);
+  if (!err) err = make_map<DV>(&do_rows, dO, B, Sq, H, Sq * hdv, hdv, DV, 64);
+  if (!err) err = make_map<D>(&k_tile, k, B, Sk, Hkv, st[3], st[4], st[5], Q::BK);
+  if (!err) err = make_map<DV>(&v_tile, v, B, Sk, Hkv, st[6], st[7], st[8], Q::BK);
+  if (!err) err = make_map<D>(&k_rows, k, B, Sk, Hkv, st[3], st[4], st[5], 64);
+  if (!err) err = make_map<DV>(&v_rows, v, B, Sk, Hkv, st[6], st[7], st[8], 64);
+  if (!err) err = make_map<D>(&q_tile, q, B, Sq, H, st[0], st[1], st[2], K::BQ);
+  if (!err) err = make_map<DV>(&do_tile, dO, B, Sq, H, Sq * hdv, hdv, DV, K::BQ);
   if (err) return err;
 
   auto* dq_fn = flash_bwd_dq_wgmma_kernel<Q>;
   cudaError_t e =
       cudaFuncSetAttribute(dq_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, Q::kSmemBytes);
   if (e != cudaSuccess) return e;
-  dq_fn<<<dim3(H, B, (S + Q::kBQ - 1) / Q::kBQ), Q::kThreads, Q::kSmemBytes, stream>>>(
-      q_rows, k_tile, v_tile, do_rows, lse, dvec, static_cast<__nv_bfloat16*>(dq), S, H, Hkv,
-      causal, window, scale);
+  dq_fn<<<dim3(H, B, (Sq + Q::kBQ - 1) / Q::kBQ), Q::kThreads, Q::kSmemBytes, stream>>>(
+      q_rows, k_tile, v_tile, do_rows, lse, dvec, static_cast<__nv_bfloat16*>(dq), Sq, Sk, off, H,
+      Hkv, causal, window, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  err = launch_dkv<K>(q_tile, k_rows, v_rows, do_tile, lse, dvec, dk, dv, B, S, H, Hkv, causal,
-                      window, scale, stream);
+  err = launch_dkv<K>(q_tile, k_rows, v_rows, do_tile, lse, dvec, dk, dv, B, Sq, Sk, off, H, Hkv,
+                      causal, window, scale, stream);
   if constexpr (kSplit) {
     using V = DkvConfig<D, DV, false, true>;
     if (!err)
-      err = launch_dkv<V>(q_tile, k_rows, v_rows, do_tile, lse, dvec, dk, dv, B, S, H, Hkv, causal,
-                          window, scale, stream);
+      err = launch_dkv<V>(q_tile, k_rows, v_rows, do_tile, lse, dvec, dk, dv, B, Sq, Sk, off, H,
+                          Hkv, causal, window, scale, stream);
   }
   return err;
 }

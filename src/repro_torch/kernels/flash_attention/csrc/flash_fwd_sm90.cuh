@@ -7,7 +7,10 @@
 // The function is the one flash_attention.cu states: s_ij = (q_i·k_j)·D^-½
 // masked to -1e30 outside the causal / window band and past S, an online
 // softmax (running max m, sum l, float32), out_i = Σ_j p_ij v_j / l_i in
-// bf16 and lse_i = m_i + log(max(l_i, 1e-30)) in float32.
+// bf16 and lse_i = m_i + log(max(l_i, 1e-30)) in float32.  A query stripe
+// (Sq rows at positions off + i against Sk keys, flash_attention.cu's note)
+// takes q's TMA map over Sq rows and k's and v's over Sk; every band test
+// below reads the rows' positions, off + row.
 //
 // What bounds it.  At the LM paths' shapes the work is two products over the
 // band, 4·D FLOPs per (query, key) pair: tensor-core work (989 TFLOP/s in
@@ -77,8 +80,8 @@ __global__ void __launch_bounds__(C::kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ lse, int S, int H, int Hkv, int causal, int window,
-                       float scale) {
+                       float* __restrict__ lse, int Sq, int Sk, int off, int H, int Hkv,
+                       int causal, int window, float scale) {
   constexpr int D = C::D, DV = C::DV, NWG = C::NWG, BK = C::BK, ST = C::STAGES;
   using P = Panel<D>;
   using PV = Panel<DV>;
@@ -92,8 +95,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int q0 = (gridDim.z - 1 - blockIdx.z) * C::kBQ;
   const int h = blockIdx.x, b = blockIdx.y, hk = h / (H / Hkv);
-  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_end = causal ? min(S, q0 + C::kBQ) : S;
+  const int k_first = window > 0 ? max(0, off + q0 - window + 1) : 0;
+  const int k_end = causal ? min(Sk, off + q0 + C::kBQ) : Sk;
   const int t0 = k_first / BK;
   const int n_tiles = (k_end + BK - 1) / BK - t0;
   const int wg = threadIdx.x / 128;
@@ -133,6 +136,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
   const int r0 = q0 + 64 * wg;
   const int ra = r0 + 16 * warp + lane / 4;
+  const int p0 = off + r0, pa = off + ra;  // positions of rows r0 and ra
   const int cq = 2 * (lane % 4);
   const uint8_t* myQ = sQ + wg * C::kQBytes;
 
@@ -147,11 +151,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % ST, k0 = (t0 + i) * BK;
     mbar_wait(&full[s], (i / ST) & 1);
-    const bool skip = r0 >= S || (causal && k0 > r0 + 63) ||
-                      (window > 0 && k0 + BK - 1 <= r0 - window);
+    const bool skip = r0 >= Sq || (causal && k0 > p0 + 63) ||
+                      (window > 0 && k0 + BK - 1 <= p0 - window);
     if (!skip) {
-      const bool edge = (causal && k0 + BK - 1 > r0) || (window > 0 && k0 <= r0 + 63 - window) ||
-                        k0 + BK > S;
+      const bool edge = (causal && k0 + BK - 1 > p0) || (window > 0 && k0 <= p0 + 63 - window) ||
+                        k0 + BK > Sk;
       const uint8_t* tK = sK + s * C::kKBytes;
       const uint8_t* tV = sV + s * C::kVBytes;
 
@@ -172,7 +176,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int e = 0; e < BK / 2; ++e) {
         float x = sc[e] * scale;
-        if (edge && !attends(ra + 8 * ((e / 2) % 2), k0 + 8 * (e / 4) + cq + (e % 2), S, causal,
+        if (edge && !attends(pa + 8 * ((e / 2) % 2), k0 + 8 * (e / 4) + cq + (e % 2), Sk, causal,
                              window))
           x = kNegInf;
         sc[e] = x;
@@ -190,7 +194,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int e = 0; e < BK / 2; ++e) {
         const int r = (e / 2) % 2;
-        const bool in = !edge || attends(ra + 8 * r, k0 + 8 * (e / 4) + cq + (e % 2), S, causal,
+        const bool in = !edge || attends(pa + 8 * r, k0 + 8 * (e / 4) + cq + (e % 2), Sk, causal,
                                          window);
         sc[e] = in ? expf(sc[e] - m[r]) : 0.f;
         rs[r] += sc[e];
@@ -236,41 +240,41 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = ra + 8 * r;
-    if (row < S) {
+    if (row < Sq) {
       const float lf = fmaxf(l[r], 1e-30f);
-      __nv_bfloat16* ob = out + ((static_cast<long long>(b) * S + row) * H + h) * DV;
+      __nv_bfloat16* ob = out + ((static_cast<long long>(b) * Sq + row) * H + h) * DV;
 #pragma unroll
       for (int p = 0; p < PV::kCount; ++p)
 #pragma unroll
         for (int j = 0; j < PV::kCols / 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(ob + p * PV::kCols + 8 * j + cq) =
               __floats2bfloat162_rn(o[p][4 * j + 2 * r] / lf, o[p][4 * j + 2 * r + 1] / lf);
-      if (lane % 4 == 0) lse[(static_cast<long long>(b) * H + h) * S + row] = m[r] + logf(lf);
+      if (lane % 4 == 0) lse[(static_cast<long long>(b) * H + h) * Sq + row] = m[r] + logf(lf);
     }
   }
 }
 
-// Launch B7's bf16 kernel at q/k head size D and v head size DV.  st: q's,
-// k's and v's batch, sequence and head strides (elements).  Returns 0 or a
-// CUDA error code.
+// Launch B7's bf16 kernel at q/k head size D and v head size DV: Sq query
+// rows at positions off + i against Sk keys.  st: q's, k's and v's batch,
+// sequence and head strides (elements).  Returns 0 or a CUDA error code.
 template <int D, int DV>
-int launch_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
-               int H, int Hkv, const long long* st, int causal, int window, float scale,
-               cudaStream_t stream) {
+int launch_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+               int Sq, int Sk, int off, int H, int Hkv, const long long* st, int causal,
+               int window, float scale, cudaStream_t stream) {
   using C = FwdConfig<D, DV>;
   CUtensorMap tq, tk, tv;
-  int err = make_map<D>(&tq, q, B, S, H, st[0], st[1], st[2], 64);
-  if (!err) err = make_map<D>(&tk, k, B, S, Hkv, st[3], st[4], st[5], C::BK);
-  if (!err) err = make_map<DV>(&tv, v, B, S, Hkv, st[6], st[7], st[8], C::BK);
+  int err = make_map<D>(&tq, q, B, Sq, H, st[0], st[1], st[2], 64);
+  if (!err) err = make_map<D>(&tk, k, B, Sk, Hkv, st[3], st[4], st[5], C::BK);
+  if (!err) err = make_map<DV>(&tv, v, B, Sk, Hkv, st[6], st[7], st[8], C::BK);
   if (err) return err;
   auto* fn = flash_fwd_wgmma_kernel<C>;
   const cudaError_t e =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid(H, B, (S + C::kBQ - 1) / C::kBQ);
+  const dim3 grid(H, B, (Sq + C::kBQ - 1) / C::kBQ);
   fn<<<grid, C::kThreads, C::kSmemBytes, stream>>>(tq, tk, tv,
-                                                   static_cast<__nv_bfloat16*>(out), lse, S, H,
-                                                   Hkv, causal, window, scale);
+                                                   static_cast<__nv_bfloat16*>(out), lse, Sq, Sk,
+                                                   off, H, Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 

@@ -9,7 +9,12 @@ lse)``, out [B, S, H, D_v] in q's dtype and the float32 row log-sum-exp
 (``models/mla.py``), which attends with q/k 192 (128 nope + 64 rope) and v
 128.
 Causal by default (``causal=False`` lets every query attend every key:
-whisper's encoder); ``window`` keeps keys j > i - window.  The strides of q,
+whisper's encoder); ``window`` keeps keys j > i - window.  ``q_offset``
+attends a stripe of queries: q holds Sq <= Sk rows (k and v [B, Sk, ...]),
+row i at position ``q_offset + i`` (0 <= q_offset <= Sk - Sq) for both
+rules, as the reference's ``attend_chunked(..., q_offset=)``; out and lse
+then have Sq rows.  ``q_offset = 0`` with Sq = Sk is the square case,
+launched as before.  The strides of q,
 k and v are passed to the kernels (their last axis must be contiguous), so
 head slices of a projection need no copy.
 
@@ -63,12 +68,12 @@ HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-_ARGS = [_I32, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32,
-         _STRIDES, _I32, _I32, ctypes.c_float, _PTR]
-_BWD_ARGS = [_I32] + [_PTR] * 9 + [_I32] * 6 + [_STRIDES, _I32, _I32, ctypes.c_float, _PTR]
+_ARGS = [_I32, _PTR, _PTR, _PTR, _PTR, _PTR] + [_I32] * 8 + [
+    _STRIDES, _I32, _I32, ctypes.c_float, _PTR]
+_BWD_ARGS = [_I32] + [_PTR] * 9 + [_I32] * 8 + [_STRIDES, _I32, _I32, ctypes.c_float, _PTR]
 
 
-def _check(q, k, v, window) -> None:
+def _check(q, k, v, window, q_offset=0) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or not t.is_floating_point():
             raise TypeError(f"flash_attention: {name} must be a floating torch.Tensor")
@@ -81,9 +86,13 @@ def _check(q, k, v, window) -> None:
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s last axis must be contiguous")
     b, s, h, d = q.shape
-    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
-        raise ValueError(f"flash_attention: expected k [{b}, {s}, Hkv, {d}], v [{b}, {s}, "
+    s_k = k.shape[1]
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_attention: expected k [{b}, S_k, Hkv, {d}], v [{b}, S_k, "
                          f"Hkv, D_v]; got {tuple(k.shape)}, {tuple(v.shape)}")
+    if not 0 <= q_offset <= s_k - s:
+        raise ValueError(f"flash_attention: {s} query rows at q_offset {q_offset} do not lie "
+                         f"within the {s_k} keys (0 <= q_offset <= S_k - S_q)")
     if k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(f"flash_attention: {h} query heads over {k.shape[2]} KV heads")
     if window is not None and window < 1:
@@ -141,11 +150,11 @@ def _strides(q, k, v):
     return (ctypes.c_longlong * 9)(*strides)
 
 
-def _forward(q, k, v, causal, window):
+def _forward(q, k, v, causal, window, q_offset=0):
     """One forward: B7 on a CUDA tensor, the plain version on a CPU one."""
     _refuse_grad("flash_attention's forward", q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     b, s, h, d = q.shape
     d_v = v.shape[-1]
     _kernel_device("flash_attention", q, d_v)
@@ -157,22 +166,22 @@ def _forward(q, k, v, causal, window):
         _check_tma("flash_attention", q=q, k=k, v=v)
     _build.launch("flash_attention", "flash_attention_fwd", _ARGS, q.device, _DTYPES[q.dtype],
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b,
-                  s, h, k.shape[2], d, d_v, _strides(q, k, v), int(causal), window or 0,
-                  d**-0.5)
+                  s, k.shape[1], q_offset, h, k.shape[2], d, d_v, _strides(q, k, v), int(causal),
+                  window or 0, d**-0.5)
     flash_attention.launches += 1
     flash_attention.route_launches[_route(q.dtype)] += 1
     return out, lse
 
 
 class FlashAttention(torch.autograd.Function):
-    """Attention with the B8 backward: ``apply(q, k, v, causal, window)``
-    returns ``(out, lse)``; lse is not differentiable."""
+    """Attention with the B8 backward: ``apply(q, k, v, causal, window,
+    q_offset)`` returns ``(out, lse)``; lse is not differentiable."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, lse = _forward(q, k, v, causal, window)
+    def forward(ctx, q, k, v, causal, window, q_offset=0):
+        out, lse = _forward(q, k, v, causal, window, q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -180,8 +189,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, causal=ctx.causal,
-                                         window=ctx.window)
-        return dq, dk, dv, None, None
+                                         window=ctx.window, q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -191,13 +200,16 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int | None = None,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Causal (or, with ``causal=False``, full), optionally windowed,
-    attention: (out [B, S, H, D_v], lse [B, H, S])."""
-    _check(q, k, v, window)
+    attention of Sq query rows from position ``q_offset`` on: (out
+    [B, Sq, H, D_v], lse [B, H, Sq])."""
+    q_offset = int(q_offset)
+    _check(q, k, v, window, q_offset)
     if _grad_needed(q, k, v):
-        return FlashAttention.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window)
+        return FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _forward(q, k, v, causal, window, q_offset)
 
 
 def flash_attention_bwd(
@@ -210,11 +222,14 @@ def flash_attention_bwd(
     *,
     causal: bool = True,
     window: int | None = None,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The attention backward: (dq [B, S, H, D], dk [B, S, Hkv, D], dv
-    [B, S, Hkv, D_v])."""
-    _check(q, k, v, window)
+    """The attention backward: (dq [B, Sq, H, D], dk [B, Sk, Hkv, D], dv
+    [B, Sk, Hkv, D_v])."""
+    q_offset = int(q_offset)
+    _check(q, k, v, window, q_offset)
     b, s, h, d = q.shape
+    s_k = k.shape[1]
     d_v = v.shape[-1]
     for name, t, shape in (("out", out, (b, s, h, d_v)), ("do", do, (b, s, h, d_v)),
                            ("lse", lse, (b, h, s))):
@@ -226,14 +241,15 @@ def flash_attention_bwd(
         raise ValueError(f"flash_attention_bwd: lse must be float32, got {lse.dtype}")
     _refuse_grad("flash_attention_bwd", q, k, v, out, do)
     if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window)
+        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window,
+                                       q_offset=q_offset)
     _kernel_device("flash_attention_bwd", q, d_v)
     hkv = k.shape[2]
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty((b, s, hkv, d_v), dtype=q.dtype, device=q.device)
-    if b == 0 or s == 0 or h == 0:
-        return dq, dk, dv
+    dk = torch.empty((b, s_k, hkv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, s_k, hkv, d_v), dtype=q.dtype, device=q.device)
+    if b == 0 or s == 0 or h == 0:  # no query: the keys get no gradient
+        return dq, dk.zero_(), dv.zero_()
     do = do.to(q.dtype).contiguous()
     if q.dtype == torch.bfloat16:
         _check_tma("flash_attention_bwd", q=q, k=k, v=v, do=do)
@@ -242,7 +258,8 @@ def flash_attention_bwd(
     _build.launch("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGS, q.device,
                   _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  b, s, h, hkv, d, d_v, _strides(q, k, v), int(causal), window or 0, d**-0.5)
+                  b, s, s_k, q_offset, h, hkv, d, d_v, _strides(q, k, v), int(causal),
+                  window or 0, d**-0.5)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.route_launches[_route(q.dtype)] += 1
     return dq, dk, dv

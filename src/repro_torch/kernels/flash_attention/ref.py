@@ -11,8 +11,15 @@ attends with q/k 192 = 128 nope + 64 rope and v 128); the scale is
 Scores and probabilities are float32, masked with ``-1e30`` as the reference
 masks them; the output comes back in q's dtype, with the row log-sum-exp
 [B, H, S] that the Pallas kernel also returns.  It materialises the
-[S, S] scores: the CUDA kernel beside it is held against it, and the wrapper
-runs it for CPU tensors.
+[Sq, Sk] scores: the CUDA kernel beside it is held against it, and the
+wrapper runs it for CPU tensors.
+
+A query stripe: q may hold Sq <= Sk rows, query row i sitting at position
+``q_offset + i`` of the keys' sequence (0 <= q_offset <= Sk - Sq), the
+reference's ``attend_chunked(..., q_offset=)``: the causal rule keeps key j
+where j <= q_offset + i, the window rule where j > q_offset + i - window.
+lse is then [B, H, Sq].  The sequence-parallel attention of
+``models/attention.py`` attends each model rank's stripe so.
 
 :func:`flash_attention_bwd_ref` is the backward of the same function, at
 MLA's unequal head sizes too (dq and dk D wide, dv D_v), with
@@ -34,14 +41,17 @@ import torch
 _NEG_INF = -1e30
 
 
-def attention_mask(s: int, causal: bool, window: int | None, device) -> torch.Tensor:
-    """[S, S] boolean, True where query i attends key j."""
-    pos = torch.arange(s, device=device)
-    ok = torch.ones((s, s), dtype=torch.bool, device=device)
+def attention_mask(s: int, causal: bool, window: int | None, device, *,
+                   s_k: int | None = None, q_offset: int = 0) -> torch.Tensor:
+    """[S, S_k] boolean (S_k = S by default), True where query row i, at
+    position ``q_offset + i``, attends key j."""
+    q_pos = torch.arange(s, device=device) + q_offset
+    k_pos = torch.arange(s if s_k is None else s_k, device=device)
+    ok = torch.ones((s, k_pos.shape[0]), dtype=torch.bool, device=device)
     if causal:
-        ok &= pos[None, :] <= pos[:, None]
+        ok &= k_pos[None, :] <= q_pos[:, None]
     if window is not None:
-        ok &= pos[None, :] > pos[:, None] - window
+        ok &= k_pos[None, :] > q_pos[:, None] - window
     return ok
 
 
@@ -52,35 +62,38 @@ def flash_attention_ref(
     *,
     causal: bool = True,
     window: int | None = None,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(out [B, S, H, D_v] in q's dtype, lse [B, H, S] float32)."""
+    """(out [B, Sq, H, D_v] in q's dtype, lse [B, H, Sq] float32)."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
-    qg = q.float().reshape(b, s, hkv, h // hkv, d).permute(0, 2, 3, 1, 4)  # [B,Hkv,G,S,D]
-    kf = k.float().permute(0, 2, 1, 3)[:, :, None]                         # [B,Hkv,1,S,D]
+    qg = q.float().reshape(b, s, hkv, h // hkv, d).permute(0, 2, 3, 1, 4)  # [B,Hkv,G,Sq,D]
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]                         # [B,Hkv,1,Sk,D]
     vf = v.float().permute(0, 2, 1, 3)[:, :, None]
     scores = (qg @ kf.transpose(-1, -2)) * d**-0.5
-    scores = scores.masked_fill(~attention_mask(s, causal, window, q.device), _NEG_INF)
+    mask = attention_mask(s, causal, window, q.device, s_k=k.shape[1], q_offset=q_offset)
+    scores = scores.masked_fill(~mask, _NEG_INF)
     lse = torch.logsumexp(scores, dim=-1)
     out = torch.softmax(scores, dim=-1) @ vf                               # [B,Hkv,G,S,Dv]
     out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, v.shape[-1])
     return out.to(q.dtype), lse.reshape(b, h, s)
 
 
-def _grouped(q, k, v, do, lse, causal, window):
+def _grouped(q, k, v, do, lse, causal, window, q_offset):
     """The backward's float32 operands with the query heads grouped by KV
-    head: q and dO [B, Hkv, G, S, D], k and v [B, Hkv, 1, S, D], and p
-    [B, Hkv, G, S, S] recomputed from lse, masked to 0."""
+    head: q and dO [B, Hkv, G, Sq, D], k and v [B, Hkv, 1, Sk, D], and p
+    [B, Hkv, G, Sq, Sk] recomputed from lse, masked to 0."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
 
     def heads(x):
-        return x.float().reshape(b, s, hkv, -1, x.shape[-1]).permute(0, 2, 3, 1, 4)
+        return x.float().reshape(b, x.shape[1], hkv, -1, x.shape[-1]).permute(0, 2, 3, 1, 4)
 
     qg, dog, kf, vf = heads(q), heads(do), heads(k), heads(v)
     scores = (qg @ kf.transpose(-1, -2)) * d**-0.5
     p = torch.exp(scores - lse.reshape(b, hkv, h // hkv, s)[..., None])
-    p = p.masked_fill(~attention_mask(s, causal, window, q.device), 0.0)
+    mask = attention_mask(s, causal, window, q.device, s_k=k.shape[1], q_offset=q_offset)
+    p = p.masked_fill(~mask, 0.0)
     return qg, kf, vf, dog, p
 
 
@@ -100,12 +113,13 @@ def flash_attention_bwd_ref(
     *,
     causal: bool = True,
     window: int | None = None,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq [B, S, H, D], dk [B, S, Hkv, D], dv [B, S, Hkv, D_v]) in q's
-    dtype, from the forward's out [B, S, H, D_v] and lse [B, H, S] and the
-    output gradient dO [B, S, H, D_v]."""
+    """(dq [B, Sq, H, D], dk [B, Sk, Hkv, D], dv [B, Sk, Hkv, D_v]) in q's
+    dtype, from the forward's out [B, Sq, H, D_v] and lse [B, H, Sq] and
+    the output gradient dO [B, Sq, H, D_v]."""
     h, hkv, scale = q.shape[2], k.shape[2], q.shape[-1] ** -0.5
-    qg, kf, vf, dog, p = _grouped(q, k, v, do, lse, causal, window)
+    qg, kf, vf, dog, p = _grouped(q, k, v, do, lse, causal, window, q_offset)
     dvec = (do.float() * out.float()).sum(-1)                      # [B, S, H]
     dvec = dvec.transpose(1, 2).reshape(p.shape[:-1])              # [B, Hkv, G, S]
     ds = p * (dog @ vf.transpose(-1, -2) - dvec[..., None])
@@ -116,14 +130,15 @@ def flash_attention_bwd_ref(
                  for x, n in ((dq, h), (dk, hkv), (dv, hkv)))
 
 
-def flash_attention_bwd_magnitudes(q, k, v, out, lse, do, *, causal=True, window=None):
+def flash_attention_bwd_magnitudes(q, k, v, out, lse, do, *, causal=True, window=None,
+                                   q_offset=0):
     """Float32 (|dq|, |dk|, |dv|) term magnitudes [B, S, H or Hkv, D or D_v]: each
     element's sum of |term| over the products that make it, with ``ds``
     replaced by ``p·(|dO|·|v| + |dO|·|O|)`` (the size of the two dot
     products whose difference it is).  Arguments as
     :func:`flash_attention_bwd_ref`."""
     h, hkv, scale = q.shape[2], k.shape[2], q.shape[-1] ** -0.5
-    qg, kf, vf, dog, p = _grouped(q, k, v, do, lse, causal, window)
+    qg, kf, vf, dog, p = _grouped(q, k, v, do, lse, causal, window, q_offset)
     dva = (do.float().abs() * out.float().abs()).sum(-1).transpose(1, 2)
     ds = p * (dog.abs() @ vf.abs().transpose(-1, -2) + dva.reshape(p.shape[:-1])[..., None])
     mq = scale * (ds @ kf.abs())

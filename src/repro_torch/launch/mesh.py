@@ -4,8 +4,8 @@ The reference's mesh is one controller's view of many devices.  The port
 runs one process per device, a ``torch.distributed`` rank: every rank runs
 the same program and keeps its own slice of the work.  A :class:`Mesh`
 names the axes that slice it (``"tenants"``, ``"data"``, ``("pod",
-"data")``), this rank's device and place, and runs the few collectives
-the DAEF mesh paths need.
+"data")``, ``("data", "model")``), this rank's device and place, and runs
+the few collectives the DAEF and LM mesh paths need.
 
 * One rank: with no default process group, or for a mesh of one device,
   the mesh holds no process group and its collectives are the identity.
@@ -15,6 +15,10 @@ the DAEF mesh paths need.
   ``DeviceMesh`` with the mesh's axis names, ranks in row-major order; its
   collectives run over the DeviceMesh's per-axis groups.  A multi-rank mesh
   spans all ranks or one: the port has no sub-meshes.
+
+An axis of one rank runs no collective along it.  The LM layout
+(``launch/shardings.py``, ``models/hints.py``) runs its collectives over
+the per-axis groups of a ("data", "model") mesh.
 
 Backends: NCCL on the card, gloo on the host.  Under gloo a CUDA tensor is
 staged through pinned host memory, explicitly and only under gloo (four
@@ -30,6 +34,9 @@ from __future__ import annotations
 import datetime
 import math
 import os
+import subprocess
+import sys
+import tempfile
 
 import torch
 import torch.distributed as dist
@@ -153,7 +160,7 @@ class Mesh:
     def gather_axis(self, t: torch.Tensor, axis: str) -> list[torch.Tensor]:
         """Every rank's ``t`` along ``axis``, in rank order along it (equal
         shapes everywhere)."""
-        if self.device_mesh is None:
+        if self.device_mesh is None or self.shape[axis] == 1:
             return [t]
         group = self.device_mesh.get_group(axis)
         src = t.contiguous()
@@ -205,6 +212,56 @@ class Mesh:
         """Wait for every rank of the mesh (a one-element gather)."""
         if self.device_mesh is not None:
             self.gather(torch.zeros(1, device=self.device), self.axis_names, 0)
+
+
+def part(mesh, t: torch.Tensor, dim: int, axes) -> torch.Tensor:
+    """This rank's part of ``t`` along ``dim`` split over ``axes`` (a view):
+    part ``i`` of ``n`` with (i, n) = ``mesh.index(axes)``, the axes
+    flattened in mesh order, the first outermost."""
+    i, n = mesh.index(axes)
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size)
+
+
+def gather_parts(mesh, t: torch.Tensor, dim: int, axes) -> torch.Tensor:
+    """Every rank's ``t`` along ``dim`` over ``axes``, in the order
+    :func:`part` cuts: one ``gather_axis`` an axis, the innermost first."""
+    for ax in reversed([a for a in mesh.axis_names if a in tuple(axes)]):
+        parts = mesh.gather_axis(t, ax)
+        t = parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+    return t
+
+
+def rank_backend(device) -> str:
+    """NCCL for ranks on the card (``None`` or a CUDA device), gloo for
+    ranks on the host."""
+    on_card = device is None or torch.device(device).type == "cuda"
+    return "nccl" if on_card else "gloo"
+
+
+def spawn_ranks(module: str, argv: list, world: int, rank_args) -> None:
+    """Run ``python -m module *argv *rank_args(r, store)`` once per rank
+    (``LOCAL_RANK=r``; the ranks share the ``FileStore`` file ``store`` in a
+    temporary directory), wait for all, and print rank 0's output.
+
+    Raises:
+        SystemExit: a rank failed (its exit code and the end of its
+            standard error).
+    """
+    src = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [subprocess.Popen([sys.executable, "-m", module, *argv, *rank_args(r, store)],
+                                  env=dict(env, LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(world)]
+        outs = [p.communicate() for p in procs]
+    print(outs[0][0], end="")
+    for r, (p, (_, err)) in enumerate(zip(procs, outs, strict=True)):
+        if p.returncode:
+            raise SystemExit(f"error: rank {r} of {world} failed:\n{err[-3000:]}")
 
 
 def make_host_mesh(model_parallel: int = 1, *, device=None) -> Mesh:

@@ -47,10 +47,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
-import os
-import subprocess
 import sys
-import tempfile
 import time
 from typing import NamedTuple
 
@@ -61,6 +58,7 @@ from repro_torch.configs import registry
 from repro_torch.core import threefry
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 
 
 def _sync(device: torch.device) -> None:
@@ -162,32 +160,12 @@ def _spawn_ranks(args, argv: list) -> None:
                       chunk_samples=args.chunk_samples or None)
     except PlanError as e:
         raise SystemExit(f"error: {e}") from e
-    if _rank_backend(args) == "nccl" and torch.cuda.device_count() < d:
+    if mesh_lib.rank_backend(args.device) == "nccl" and torch.cuda.device_count() < d:
         raise SystemExit(f"error: --mesh-tenants {d} on the card needs {d} cards, one a "
                          f"rank under NCCL; {torch.cuda.device_count()} present (pass "
                          "--device cpu to run the ranks on the host)")
-    src = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (src, os.environ.get("PYTHONPATH")) if p))
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = []
-        for r in range(d):
-            env_r = dict(env, LOCAL_RANK=str(r))
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.serve", *argv,
-                 "--rank", str(r), "--store", os.path.join(tmp, "store")],
-                env=env_r, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        outs = [p.communicate() for p in procs]
-    print(outs[0][0], end="")
-    for r, (p, (_, err)) in enumerate(zip(procs, outs, strict=True)):
-        if p.returncode:
-            raise SystemExit(f"error: rank {r} of {d} failed:\n{err[-3000:]}")
-
-
-def _rank_backend(args) -> str:
-    """NCCL for ranks on the card, gloo for ranks on the host."""
-    on_card = args.device is None or torch.device(args.device).type == "cuda"
-    return "nccl" if on_card else "gloo"
+    mesh_lib.spawn_ranks("repro_torch.launch.serve", argv, d,
+                         lambda r, store: ["--rank", str(r), "--store", store])
 
 
 def run_fleet(args) -> None:
@@ -196,10 +174,8 @@ def run_fleet(args) -> None:
     if args.rank is None:
         _serve_fleet(args)
         return
-    from repro_torch.launch import mesh as mesh_lib
-
     mesh_lib.init_process_group_from_file(args.store, args.rank, args.mesh_tenants,
-                                          backend=_rank_backend(args))
+                                          backend=mesh_lib.rank_backend(args.device))
     try:
         _serve_fleet(args)
     finally:

@@ -16,8 +16,17 @@ drawn by ``core.threefry``; the frames cast to ``--dtype``).  On the card
 the ssm and hybrid families' gradients go through the B10 and B9 backward
 kernels.
 
-What waits: ``--model-parallel`` > 1 shards the model over a device mesh,
-ROADMAP queue A item 12.
+``--model-parallel M`` > 1 trains the dense family (qwen3-1.7b,
+qwen2-1.5b, mistral-nemo-12b, granite-20b) on a ("data", "model") mesh:
+the reference's ``make_host_mesh(M)`` with ``param_shardings`` and
+``batch_shardings`` (``launch/shardings.py``, ``models/hints.py``).  The
+CLI starts itself once per rank and relays rank 0's output.  On the card
+each rank takes its own card under NCCL and the mesh spans every card,
+(count / M, M), as the reference's spans ``jax.devices()``; fewer cards
+than the mesh needs is an error.  With ``--device cpu`` the host has no
+device count to span: M gloo ranks make a (1, M) mesh.  ``--ckpt``
+gathers the full leaves and rank 0 writes the reference's layout.  The
+other families on a mesh wait for ROADMAP queue A item 12.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \\
@@ -26,6 +35,8 @@ Example:
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 
 import numpy as np
@@ -36,11 +47,12 @@ from repro_torch.configs import registry
 from repro_torch.core import threefry
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_mod
-from repro_torch.models import get_bundle
+from repro_torch.models import get_bundle, hints
+from repro_torch.models.api import MESH_ITEM
 from repro_torch.train import checkpoint
 
-MESH_ITEM = "ROADMAP queue A item 12"
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -67,18 +79,66 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="where the port runs: the CUDA card by default, "
                          "'cpu' on a host without one")
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--store", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     cfg = registry.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    bundle = get_bundle(cfg, chunked_attn=args.seq > 2048)
-    if args.model_parallel > 1:
+    if args.model_parallel < 1:
+        ap.error(f"--model-parallel must be >= 1, got {args.model_parallel}")
+    if args.model_parallel > 1 and cfg.family != "dense":
         raise NotImplementedError(
-            f"--model-parallel {args.model_parallel} shards the model over a device "
-            f"mesh, which is not ported to repro_torch yet ({MESH_ITEM})")
-    dev = resolve_device(args.device)
+            f"--model-parallel {args.model_parallel}: the {cfg.family} family's layout on a "
+            f"device mesh is not ported to repro_torch yet ({MESH_ITEM}); the dense "
+            "family's is")
+    if args.model_parallel > 1 and args.rank is None:
+        _spawn_ranks(args, list(sys.argv[1:] if argv is None else argv))
+        return
+    if args.rank is None:
+        _train(args, cfg, resolve_device(args.device), None)
+        return
+    dev = mesh_lib.rank_device(args.device)
+    if dev.type == "cpu":  # the host's cores shared out among the ranks
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.world))
+    mesh_lib.init_process_group_from_file(args.store, args.rank, args.world,
+                                          backend=mesh_lib.rank_backend(args.device))
+    try:
+        mesh = mesh_lib.make_host_mesh(args.model_parallel, device=dev)
+        with hints.use_mesh(mesh):
+            _train(args, cfg, mesh.device, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
 
+
+def _spawn_ranks(args, argv: list) -> None:
+    """Run this CLI once per rank of the ("data", "model") mesh and relay
+    rank 0's output: the ranks share a ``FileStore`` in a temporary
+    directory.  On the card one rank a card under NCCL, every card in the
+    mesh; with ``--device cpu`` ``--model-parallel`` gloo ranks."""
+    m = args.model_parallel
+    if mesh_lib.rank_backend(args.device) == "nccl":
+        world = torch.cuda.device_count()
+        if world < m or world % m:
+            raise SystemExit(
+                f"error: --model-parallel {m} on the card needs a multiple of {m} cards, one "
+                f"a rank under NCCL; {world} present (pass --device cpu to run {m} ranks on "
+                "the host)")
+    else:
+        world = m
+    mesh_lib.spawn_ranks("repro_torch.launch.train", argv, world, lambda r, store: [
+        "--rank", str(r), "--world", str(world), "--store", store])
+
+
+def _train(args, cfg, dev: torch.device, mesh) -> None:
+    """The training loop; on a mesh, this rank's slices of the parameters
+    and rows of each batch, and rank 0 prints."""
+    from repro_torch.launch import shardings
+
+    bundle = get_bundle(cfg, chunked_attn=args.seq > 2048)
+    lead = mesh is None or mesh.rank == 0
     params = bundle.init(0, DTYPES[args.dtype], device=dev)
     opt = optim.adamw(
         optim.linear_warmup_cosine(args.lr, args.steps // 10 + 1, args.steps),
@@ -101,6 +161,8 @@ def main(argv=None) -> None:
             batch["frames"] = threefry.normal(
                 threefry.PRNGKey(step), (args.batch, cfg.encoder_seq, cfg.d_model)).to(
                     dev, DTYPES[args.dtype])
+        if mesh is not None:
+            batch = shardings.shard_tree(batch, shardings.batch_shardings(batch, mesh), mesh)
         return batch
 
     losses = []
@@ -108,15 +170,22 @@ def main(argv=None) -> None:
     for step in range(args.steps):
         params, opt_state, loss = step_fn(params, opt_state, make_batch(step))
         losses.append(float(loss))  # waits for the step
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if lead and (step % args.log_every == 0 or step == args.steps - 1):
             print(f"step {step:4d}  loss {losses[-1]:.4f}  "
                   f"({(time.time()-t0)/(step+1):.2f} s/step)", flush=True)
     _sync(dev)
     if args.ckpt:
-        path = checkpoint.save(args.ckpt, {"params": params}, step=args.steps)
-        print(f"checkpoint written to {path}")
-    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
-    print(f"loss {first:.4f} -> {last:.4f} ({'improved' if last < first else 'NOT improved'})")
+        tree = {"params": params}
+        if mesh is not None:
+            tree = {"params": shardings.gather_tree(
+                params, shardings.lm_param_specs(cfg, mesh), mesh)}
+        if lead:
+            path = checkpoint.save(args.ckpt, tree, step=args.steps)
+            print(f"checkpoint written to {path}")
+    if lead:
+        first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+        print(f"loss {first:.4f} -> {last:.4f} "
+              f"({'improved' if last < first else 'NOT improved'})")
 
 
 if __name__ == "__main__":

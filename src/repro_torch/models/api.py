@@ -48,6 +48,15 @@ the old one.  :func:`cache_specs` gives the cache's tree as meta tensors.
 
 ``loss`` trains every family; the ``ssm`` and ``hybrid`` families' gradients
 go through the B10 and B9 backward kernels on the card.
+
+Under a mesh (``hints.use_mesh``), the ``dense`` family's ``init`` returns
+this rank's slices of the parameters (``launch/shardings.py``: the full
+parameters are drawn, then sliced), and its ``forward``, ``prefill`` and
+``loss`` take them with this rank's rows of the batch (the 2-D (data,
+model) layout of ``models/transformer.py``).  Every other family, under a
+mesh of more than one device, raises ``NotImplementedError`` naming
+ROADMAP queue A item 12.  ``init(..., device="meta")`` gives the parameters'
+shapes and dtypes as meta tensors, drawing nothing.
 """
 from __future__ import annotations
 
@@ -60,7 +69,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import InputShape
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import common, encdec, mamba2, moe_lm, rglru, transformer, vlm
+from repro_torch.models import common, encdec, hints, mamba2, moe_lm, rglru, transformer, vlm
+
+MESH_ITEM = "ROADMAP queue A item 12"
 
 _MODULES = {"dense": transformer, "vlm": vlm, "moe": moe_lm, "ssm": mamba2,
             "hybrid": rglru, "encdec": encdec}
@@ -85,9 +96,12 @@ def _tokens(params, tokens) -> torch.Tensor:
 
 def _generator(seed, device=None) -> torch.Generator:
     """``seed`` itself if it is a generator, else a new one on ``device``
-    (``None``: the card) seeded with it."""
+    (``None``: the card) seeded with it; on the meta device a shape-only
+    stand-in."""
     if isinstance(seed, torch.Generator):
         return seed
+    if device is not None and torch.device(device).type == "meta":
+        return common.ShapeOnly()
     return torch.Generator(device=resolve_device(device)).manual_seed(int(seed))
 
 
@@ -135,9 +149,28 @@ def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
         raise ValueError(f"unknown family {fam!r}")
     mod = _MODULES[fam]
 
+    def on_mesh():
+        """The active mesh of more than one device, refused for the families
+        whose layout waits; None without one."""
+        mesh = hints.active_mesh()
+        if mesh is None or mesh.size == 1:
+            return None
+        if fam != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: the {fam} family on a device mesh ({dict(mesh.shape)}) is not "
+                f"ported to repro_torch yet ({MESH_ITEM}); the dense family is")
+        return mesh
+
     def init(seed, dtype=torch.float32, *, device=None):
+        mesh = None if device is not None and torch.device(device).type == "meta" \
+            else on_mesh()
         with torch.no_grad():
-            return mod.init_params(_generator(seed, device), cfg, dtype)
+            params = mod.init_params(_generator(seed, device), cfg, dtype)
+            if mesh is not None:
+                from repro_torch.launch import shardings
+
+                params = shardings.shard_tree(params, shardings.lm_param_specs(cfg, mesh), mesh)
+        return params
 
     if fam == "vlm":
         @torch.inference_mode()
@@ -158,6 +191,12 @@ def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
         def forward(params, tokens):
             return mod.forward(params, cfg, _tokens(params, tokens))
 
+    family_forward = forward
+
+    def forward(params, *args, **kwargs):
+        on_mesh()
+        return family_forward(params, *args, **kwargs)
+
     if fam == "encdec":
         init_cache = _encdec_cache_waits
     else:
@@ -173,10 +212,13 @@ def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
     @torch.inference_mode()
     def prefill(params, batch):
         h = forward(params, batch["tokens"], *((batch[frontend],) if frontend else ()))
+        if fam == "dense":
+            return transformer.logits(params, cfg, h[:, -1:])
         # an untied model has an lm_head; the tied ones read the embedding
         return common.logits_from_hidden(h[:, -1:], params["embed"], params.get("lm_head"))
 
     def loss(params, batch):
+        on_mesh()
         tokens = _tokens(params, batch["tokens"])
         if frontend:
             return mod.lm_loss(params, cfg, _floats(params, batch[frontend]), tokens)

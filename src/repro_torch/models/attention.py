@@ -15,15 +15,41 @@ the new token into the cache in place and returns it, the PyTorch
 counterpart of the reference's ``donate_argnums=(1,)``: a caller must not
 reuse the cache it passed in, as it now holds the new token.
 
-What the port leaves out, and why:
+Under a mesh (``hints.use_mesh``) with a ``model`` axis of extent ext > 1,
+the prefill takes this rank's column-parallel slices of wq, wk, wv (and
+bq, bk, bv) and row-parallel slice of wo (``launch/shardings.py``), and
+:func:`attention_block` picks the reference's ``attend_auto`` route:
 
-* ``attend_full``, ``attend_chunked`` and ``attend_auto``: the reference's
-  three mask-consistent attention routes collapse into the one wrapper (in
-  the port the attention always streams through B7; ``chunked_attn`` has no
-  meaning).  ``attend_chunked_skip`` and ``attend_auto``'s shard_map route
-  are mesh-only, and the sharding hints (``hints.hint``,
-  ``hints.active_mesh``) have no meaning without a mesh: they wait for
-  ROADMAP queue A item 12.
+* head-parallel, when Hkv or the group size G = H / Hkv divides ext: B7
+  runs on this rank's H / ext query heads.  Where Hkv divides, its KV heads
+  are its own columns and no collective runs; where only G divides, the
+  KV heads are gathered and each rank takes those its query heads read;
+* sequence-parallel, when S divides by ext and S / ext >= 16: q, k and v
+  are gathered along heads, this rank attends its query stripe of S / ext
+  rows at ``q_offset = rank·S/ext`` against the full K/V (B7 with a query
+  offset), the stripes are gathered, and the rank keeps the feature slice
+  its row-parallel wo reads;
+* otherwise replicated: the heads are gathered and every rank runs one
+  full B7, keeping the feature slice its wo reads.
+
+wo is followed by the sum over ``model``.  The collectives and their
+gradients are ``models/hints.py``'s.  Decode keeps its one-device path.
+
+``DEFAULT_CAUSAL_SKIP`` keeps the reference's name (the default of its
+``attend_auto(causal_skip=)``).  In the port ``attend_chunked_skip`` is B7
+itself: both CUDA routes walk only
+the key tiles that meet a block's causal / window band
+(``flash_attention.cu``: from the tile of the band's first key to the
+block's last query position; ``flash_fwd_sm90.cuh``: the same, and each
+consumer warpgroup skips the tiles that miss its own 64 rows), so a fully
+masked block is never loaded or computed, with or without the skip.  The
+flag changes nothing and no second attention path exists.
+
+What the port leaves out, and why: ``attend_full``, ``attend_chunked`` and
+``attend_auto`` as functions: the reference's three mask-consistent
+attention routes collapse into the one wrapper (the attention always
+streams through B7; ``chunked_attn`` has no meaning), and ``attend_auto``'s
+mesh routes are :func:`attention_block`'s.
 
 Shapes: x [B, S, d]; q [B, S, H, hd]; k, v [B, S, Hkv, hd]; caches
 [B, S_max, Hkv, hd].
@@ -36,11 +62,14 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models import common
+from repro_torch.models import common, hints
 
 Params = dict[str, Any]
 
 _NEG_INF = -1e30
+
+# The reference's opt-in causal block skip; B7 always skips (module docstring).
+DEFAULT_CAUSAL_SKIP = False
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype, *, lead=()) -> Params:
@@ -60,25 +89,42 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype, *, lead=()) -> 
     return p
 
 
-def qkv(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
-    """Project + rope.  Returns q [B,S,H,hd], k/v [B,S,Hkv,hd]."""
-    b, s, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+def _project(p: Params, cfg: ArchConfig, x: torch.Tensor):
+    """The q, k and v projections [B, S, features] (this rank's columns
+    under a mesh)."""
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
+    return q, k, v
+
+
+def _heads(p: Params, cfg: ArchConfig, q, k, v, positions: torch.Tensor):
+    """Reshape by the head counts the features hold (their widths over
+    head_dim), then qk-norm and rope."""
+    b, s, _ = q.shape
+    hd = cfg.head_dim
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
     if cfg.qk_norm:
-        q = common.rmsnorm(p["q_norm"], q)
-        k = common.rmsnorm(p["k_norm"], k)
+        mesh = hints.active_mesh()
+        # inside the model axis's split work the norms' gradients are partial
+        qn, kn = ({"scale": hints.copy(p[n]["scale"], mesh)} if mesh is not None else p[n]
+                  for n in ("q_norm", "k_norm"))
+        q = common.rmsnorm(qn, q)
+        k = common.rmsnorm(kn, k)
     if cfg.use_rope:
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def qkv(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+    """Project + rope.  Returns q [B,S,H,hd], k/v [B,S,Hkv,hd] (under a mesh:
+    the heads of this rank's columns)."""
+    return _heads(p, cfg, *_project(p, cfg, x), positions)
 
 
 def _group(q: torch.Tensor, hkv: int) -> torch.Tensor:
@@ -168,10 +214,17 @@ def attention_block(
     b, s, _ = x.shape
     if cache is None:
         pos = positions if positions is not None else torch.arange(s, device=x.device)
+        mesh = hints.active_mesh()
+        rank, ext = hints.model_rank(mesh)
+        if ext > 1:
+            return _attention_mesh(p, cfg, x, pos, window, mesh, rank, ext)
         q, k, v = qkv(p, cfg, x, pos)
         out, _ = flash_attention(q, k, v, causal=True, window=window)
         return out.reshape(b, s, -1) @ p["wo"], (k, v)
 
+    if hints.model_rank(hints.active_mesh())[1] > 1:
+        raise NotImplementedError("decode under a mesh with a model axis: decode keeps its "
+                                  "one-device path")
     if cache_pos is None:
         raise ValueError("decode against a cache needs cache_pos")
     slot = write_slot if write_slot is not None else cache_pos
@@ -179,3 +232,78 @@ def attention_block(
     cache = update_cache(cache, k, v, slot)
     out = decode_attend(q, cache.k, cache.v, cache_pos, window=window)
     return out.reshape(b, s, -1) @ p["wo"], cache
+
+
+def _whole(mesh, w: torch.Tensor, full: int) -> tuple[torch.Tensor, bool]:
+    """(``w``, whether it is this rank's column slice of ``full`` columns).
+    A weight the rules leave whole enters the model axis's split work, so
+    its gradient is summed over ``model`` (``hints.copy``)."""
+    if w.shape[-1] != full:
+        return w, True
+    return hints.copy(w, mesh), False
+
+
+def _attention_mesh(p: Params, cfg: ArchConfig, x, positions, window, mesh, rank: int,
+                    ext: int):
+    """The prefill attention block on the model axis: the route of the
+    reference's ``attend_auto`` (module docstring).  Returns (out, (k, v))
+    with k and v the heads this rank attended with."""
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = h // hkv
+    if p["wo"].shape[-2] * ext != h * hd:
+        raise NotImplementedError(f"{cfg.name}: {h} heads of {hd} do not split over a model "
+                                  f"axis of {ext}")
+    x = hints.copy(x, mesh)
+    proj = {}
+    for name, full in (("q", h * hd), ("k", hkv * hd), ("v", hkv * hd)):
+        w, split = _whole(mesh, p["w" + name], full)
+        y = x @ w
+        if cfg.qkv_bias:
+            y = y + (p["b" + name] if split else hints.copy(p["b" + name], mesh))
+        proj[name] = (y, split)
+
+    def gathered(name):
+        y, split = proj[name]
+        return hints.all_gather(y, mesh, -1) if split else y
+
+    if hkv % ext == 0 or g % ext == 0:
+        # head-parallel: this rank's H / ext query heads
+        hl = h // ext
+        if hkv % ext == 0:
+            k_in, v_in = proj["k"][0], proj["v"][0]
+        else:
+            k_in, v_in = gathered("k"), gathered("v")
+        q, k, v = _heads(p, cfg, proj["q"][0], k_in, v_in, positions)
+        if hkv % ext:
+            k, v = _kv_for_heads(k, v, rank * hl, hl, g)
+        out, _ = flash_attention(q, k, v, causal=True, window=window)
+        out = out.reshape(b, s, -1)
+    else:
+        q, k, v = _heads(p, cfg, gathered("q"), gathered("k"), gathered("v"), positions)
+        if s % ext == 0 and s // ext >= 16:
+            # sequence-parallel: this rank's stripe of queries against every key
+            sl = s // ext
+            stripe, _ = flash_attention(q[:, rank * sl:(rank + 1) * sl], k, v, causal=True,
+                                        window=window, q_offset=rank * sl)
+            out = hints.all_gather(stripe.reshape(b, sl, -1), mesh, 1)
+        else:
+            out, _ = flash_attention(q, k, v, causal=True, window=window)
+            out = out.reshape(b, s, -1)
+        # the feature slice this rank's row-parallel wo reads
+        width = h * hd // ext
+        out = out[..., rank * width:(rank + 1) * width]
+    return hints.psum(out @ p["wo"], mesh), (k, v)
+
+
+def _kv_for_heads(k, v, first: int, n: int, g: int):
+    """The KV heads that query heads ``first .. first + n - 1`` read (each
+    reads head j // g), laid out so the flash-attention wrapper's rule
+    (query head i reads KV head i // (n / Hkv)) finds them: whole groups as
+    they are, heads inside one group as that KV head, else one KV head per
+    query head."""
+    lo, hi = first // g, (first + n - 1) // g
+    if (first % g == 0 and n % g == 0) or lo == hi:
+        return k[:, :, lo:hi + 1], v[:, :, lo:hi + 1]
+    idx = torch.arange(first, first + n, device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)

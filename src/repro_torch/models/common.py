@@ -15,6 +15,17 @@ generators differ).  The tests carry the reference's own parameters across
 with ``interop.lm_params_from_numpy``.
 
 ``jax.nn.gelu`` defaults to the tanh approximation; so does every GELU here.
+
+Under an active mesh with a ``model`` axis (``models/hints.py``) the apply
+functions take this rank's slices of the parameters (``launch/shardings.py``)
+and run the Megatron layout: :func:`embed` a vocab-parallel lookup,
+:func:`mlp` column- then row-parallel with one sum over ``model``, and
+:func:`chunked_softmax_xent` / :func:`logits_from_hidden` over a vocab
+sharded on ``model``.  A leaf the rules leave whole (a dim that does not
+divide) runs as on one device.  The initialisers draw on a generator's
+device, or make meta tensors and draw nothing for a shape-only
+``ShapeOnly`` generator (the counterpart of ``jax.eval_shape`` of an
+init).
 """
 from __future__ import annotations
 
@@ -23,6 +34,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import hints
+
 Params = dict[str, Any]
 
 
@@ -30,17 +43,28 @@ Params = dict[str, Any]
 # Initialisers
 # ---------------------------------------------------------------------------
 
+class ShapeOnly:
+    """Stands where a ``torch.Generator`` goes when only the parameters'
+    shapes and dtypes are wanted: the initialisers make meta tensors."""
+
+    device = torch.device("meta")
+
+
 def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None, *,
                lead: tuple[int, ...] = ()) -> torch.Tensor:
     """Truncated-normal fan-in init (std ``shape[0] ** -0.5`` unless ``scale``
     is given, cut at ±2σ), drawn in float32 then cast; ``lead + shape``."""
     std = scale if scale is not None else shape[0] ** -0.5
     t = torch.empty((*lead, *shape), dtype=torch.float32, device=gen.device)
+    if t.is_meta:
+        return t.to(dtype)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
     return t.mul_(0.02).to(dtype)
 
@@ -116,12 +140,31 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(p: Params, kind: str, x: torch.Tensor) -> torch.Tensor:
+def _model_sharded(mesh, local: int, full: int) -> bool:
+    """Whether a dim of ``full`` entries is split over the mesh's model axis
+    (this rank holds ``local`` of them)."""
+    return mesh is not None and local != full
+
+
+def mlp(p: Params, kind: str, x: torch.Tensor, *, d_ff: int | None = None) -> torch.Tensor:
+    """The MLP block.  Under a mesh whose ``model`` axis splits ``w_down``'s
+    rows (``d_ff``, the full width, tells), the gate/up columns and
+    ``b_up`` are this rank's and the output is summed over ``model``;
+    ``b_down`` is added once, after the sum."""
+    mesh = hints.active_mesh()
+    if d_ff is not None and _model_sharded(mesh, p["w_down"].shape[-2], d_ff):
+        x = hints.copy(x, mesh)
+    else:
+        mesh = None
     if kind == "swiglu":
-        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    if kind == "geglu":
-        return (gelu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    return gelu(x @ p["w_up"] + p["b_up"]) @ p["w_down"] + p["b_down"]
+        y = (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    elif kind == "geglu":
+        y = (gelu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    else:
+        y = gelu(x @ p["w_up"] + p["b_up"]) @ p["w_down"]
+    if mesh is not None:
+        y = hints.psum(y, mesh)
+    return y if kind in ("swiglu", "geglu") else y + p["b_down"]
 
 
 # ---------------------------------------------------------------------------
@@ -164,15 +207,40 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype) -> Params:
     return {"table": embed_init(gen, (vocab, d), dtype)}
 
 
-def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+def _vocab_part(mesh, local: int, vocab: int | None):
+    """(first row, rows) of this rank's vocab slice when the mesh's model
+    axis splits a vocab of ``vocab``, else None."""
+    if vocab is None or not _model_sharded(mesh, local, vocab):
+        return None
+    rank, _ = hints.model_rank(mesh)
+    return rank * local, local
 
 
-def logits_from_hidden(h: torch.Tensor, emb: Params, w_out: torch.Tensor | None) -> torch.Tensor:
-    """LM head: tied embedding transpose or a separate output matrix."""
-    if w_out is not None:
-        return h @ w_out
-    return h @ emb["table"].T
+def embed(p: Params, tokens: torch.Tensor, *, vocab: int | None = None) -> torch.Tensor:
+    """Token embeddings.  Under a mesh whose ``model`` axis splits the table
+    (of ``vocab`` rows), a vocab-parallel lookup: a token outside this
+    rank's rows gives zeros, and the rows are summed over ``model``."""
+    mesh = hints.active_mesh()
+    part = _vocab_part(mesh, p["table"].shape[0], vocab)
+    if part is None:
+        return p["table"][tokens]
+    lo, n = part
+    local = tokens - lo
+    mine = (local >= 0) & (local < n)
+    rows = p["table"][local.clamp(0, n - 1)] * mine[..., None].to(p["table"].dtype)
+    return hints.psum(rows, mesh)
+
+
+def logits_from_hidden(h: torch.Tensor, emb: Params, w_out: torch.Tensor | None, *,
+                       vocab: int | None = None) -> torch.Tensor:
+    """LM head: tied embedding transpose or a separate output matrix.  Under
+    a mesh whose ``model`` axis splits the vocab (of ``vocab``), every
+    rank's logits are gathered along the vocab."""
+    w = w_out if w_out is not None else emb["table"].T
+    mesh = hints.active_mesh()
+    if _vocab_part(mesh, w.shape[-1], vocab) is None:
+        return h @ w
+    return hints.all_gather(hints.copy(h, mesh) @ w, mesh, -1)
 
 
 def chunked_softmax_xent(
@@ -183,6 +251,7 @@ def chunked_softmax_xent(
     *,
     chunk: int = 1024,
     transpose: bool = False,
+    vocab: int | None = None,
 ) -> torch.Tensor:
     """Cross-entropy over a large vocab without materialising [T, V] logits.
 
@@ -193,6 +262,12 @@ def chunked_softmax_xent(
     each chunk's float32 logits stay saved for the backward, as the
     reference's ``lax.scan`` keeps its residuals.  Returns the mean NLL over
     masked positions (float32).
+
+    Under a mesh whose ``model`` axis splits the vocab (``vocab``: its full
+    size), each rank holds [B, chunk, V / ext] logits: the log-sum-exp is a
+    max over the shards, then a sum of exps over the shards, and the gold
+    logit comes from the shard that owns the label (zero elsewhere, summed
+    over ``model``).
     """
     b, s, _ = h.shape
     n_chunks = max(1, s // chunk)
@@ -202,15 +277,36 @@ def chunked_softmax_xent(
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     count = torch.zeros((), dtype=torch.float32, device=h.device)
     w = emb_or_w.T if transpose else emb_or_w
+    mesh = hints.active_mesh()
+    part = _vocab_part(mesh, w.shape[-1], vocab)
+    if part is not None:
+        h = hints.copy(h, mesh)
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
         logits = (h[:, sl] @ w).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, sl, None].long())[..., 0]
+        if part is None:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels[:, sl, None].long())[..., 0]
+        else:
+            logz, gold = _sharded_logz_gold(logits, labels[:, sl], part, mesh)
         mc = mask[:, sl].float()
         total = total + ((logz - gold) * mc).sum()
         count = count + mc.sum()
     return total / torch.clamp(count, min=1.0)
+
+
+def _sharded_logz_gold(logits: torch.Tensor, labels: torch.Tensor, part, mesh):
+    """(log-sum-exp, gold logit) of this rank's vocab slice of ``logits``
+    [B, c, V / ext], both over the whole vocab.  The max is a constant of
+    the sum (its gradient cancels), so it is taken without one."""
+    lo, n = part
+    with torch.no_grad():
+        m = torch.stack(mesh.gather_axis(logits.amax(dim=-1).contiguous(), "model")).amax(0)
+    logz = m + torch.log(hints.psum(torch.exp(logits - m[..., None]).sum(-1), mesh))
+    local = labels.long() - lo
+    mine = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return logz, hints.psum(gold * mine, mesh)
 
 
 def layer(stack: Params, i: int) -> Params:

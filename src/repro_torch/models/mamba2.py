@@ -22,8 +22,9 @@ reference's is plain XLA): a float32 [L, B, H, P, N] SSM state and a
 by :func:`decode_step`.
 
 What the port leaves out: ``remat`` as a keyword (the layers are
-checkpointed whenever grad is on), the sharding hint on the heads
-(mesh-only, ROADMAP queue A item 12).
+checkpointed whenever grad is on), the sharding hint on the heads of the
+family's layout on a mesh, which waits (ROADMAP queue A item 12; the
+dense family's layout is ported).
 
 Shapes: tokens [B, S]; inner activations [B, S, H, P] (H heads, P head dim);
 B/C projections [B, S, G, N] (G groups, N state dim).

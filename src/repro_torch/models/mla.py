@@ -20,8 +20,9 @@ the context unfolded through ``w_uv``.  The new token's latents go into the
 cache in place, in the slot ``dynamic_update_slice`` would place them
 (``attention.update_cache``'s rule), and the cache is returned.
 
-What the port leaves out: the sharding hints (``hints.hint``), which have
-no meaning without a mesh (ROADMAP queue A item 12).
+What the port leaves out: the sharding hints (``hints.hint``) of MLA's
+layout on a mesh: ``models/hints.py`` and the dense family's layout are
+ported, the MLA family's waits (ROADMAP queue A item 12).
 """
 from __future__ import annotations
 

@@ -18,8 +18,9 @@ index first, so equal inputs make the reference's choices, ties included.
 softmaxes may still order two nearly equal experts otherwise: the tests
 compare dispatch masks bit for bit on random router inputs.)
 
-What the port leaves out: the sharding hints (``hints.hint``), which have
-no meaning without a mesh (ROADMAP queue A item 12).
+What the port leaves out: the sharding hints (``hints.hint``) of the
+experts' layout on a mesh: ``models/hints.py`` and the dense family's
+layout are ported, expert parallelism waits (ROADMAP queue A item 12).
 """
 from __future__ import annotations
 

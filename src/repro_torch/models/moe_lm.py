@@ -27,8 +27,8 @@ so it makes the same choices).
 
 What the port leaves out: ``chunked_attn`` (the attention always streams
 through B7), and the sequence-sharding hint ``seq_shard`` /
-``$REPRO_SEQ_SHARD``, which has no meaning without a mesh (ROADMAP queue A
-item 12).
+``$REPRO_SEQ_SHARD`` of the family's layout on a mesh, which waits (ROADMAP
+queue A item 12; the dense family's layout is ported).
 """
 from __future__ import annotations
 

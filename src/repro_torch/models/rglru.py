@@ -28,8 +28,9 @@ as in the reference.  Decode is the reference's O(1) update in plain PyTorch
 
 What the port leaves out: ``remat`` and ``chunked_attn`` as keywords (the
 periods are checkpointed whenever grad is on; the attention always streams
-through B7), the sharding hint on the width (mesh-only, ROADMAP queue A
-item 12).
+through B7), the sharding hint on the width of the family's layout on a
+mesh, which waits (ROADMAP queue A item 12; the dense family's layout is
+ported).
 """
 from __future__ import annotations
 

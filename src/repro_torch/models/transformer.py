@@ -18,6 +18,17 @@ allocates only ``min(seq_len, window)`` slots and writes ring slot
 ``pos % cache_len``); :func:`decode_step` updates it in place and returns
 it (see ``attention.update_cache``).
 
+Under a mesh (``hints.use_mesh``) ``forward`` and ``lm_loss`` take this
+rank's slices of the parameters (``launch/shardings.py``) and this rank's
+rows of the batch: the embedding, attention, MLP and loss run the
+Megatron layout (``models/common.py``, ``models/attention.py``).  A layer
+leaf whose spec names ``data`` (FSDP) is gathered over ``data`` inside the
+rematerialised layer, so the gathered copy is freed after the layer and
+gathered again in the backward; its gradient is the sum over ``data`` in
+rank order, then this rank's slice (``hints.all_gather``'s backward).  A
+leaf sharded over ``data`` on the layer axis itself is gathered once before
+the loop; ``lm_head`` is gathered before the loss.
+
 What the port leaves out: ``chunked_attn`` (the attention always streams
 through the B7/B8 kernels).
 """
@@ -30,8 +41,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import shardings
+from repro_torch.launch.mesh import data_axes
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import common
+from repro_torch.models import common, hints
 
 Params = dict[str, Any]
 
@@ -54,14 +67,46 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> P
     return params
 
 
-def layer_fwd(layer: Params, cfg: ArchConfig, h: torch.Tensor, window) -> torch.Tensor:
+def _gather_data(tree: Params, specs: Params, mesh, dims: slice, shift: int = 0) -> Params:
+    """``tree`` with each leaf gathered over the data axes its spec names at
+    the spec entries ``dims`` (``shift``: the spec's entries before the
+    leaf's own dims, 1 for a layer view of a stacked leaf)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _gather_data(v, specs[k], mesh, dims, shift)
+            continue
+        spec = specs[k]
+        for i in range(len(spec))[dims]:
+            axes = tuple(a for a in shardings.entry_axes(spec[i]) if a in data_axes(mesh))
+            if axes:
+                v = hints.all_gather(v, mesh, i - shift, axes)
+        out[k] = v
+    return out
+
+
+def _layer_specs(cfg: ArchConfig, mesh):
+    """(the stacked layer leaves' specs, the top-level specs) when a mesh is
+    active, else (None, None)."""
+    if mesh is None:
+        return None, None
+    specs = shardings.lm_param_specs(cfg, mesh)
+    return specs["layers"], specs
+
+
+def layer_fwd(layer: Params, cfg: ArchConfig, h: torch.Tensor, window,
+              fsdp: Params | None = None) -> torch.Tensor:
+    """One layer; ``fsdp`` (the layer leaves' specs under a mesh) names the
+    leaves to gather over ``data`` first."""
+    if fsdp is not None:
+        layer = _gather_data(layer, fsdp, hints.active_mesh(), slice(1, None), shift=1)
     a, _ = attn_mod.attention_block(
         layer["attn"], cfg, common.apply_norm(cfg.norm, layer["attn_norm"], h),
         window=window,
     )
     h = h + a
     return h + common.mlp(layer["mlp"], cfg.mlp,
-                          common.apply_norm(cfg.norm, layer["mlp_norm"], h))
+                          common.apply_norm(cfg.norm, layer["mlp_norm"], h), d_ff=cfg.d_ff)
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -71,18 +116,23 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     on the parameters' device.  ``prefix_embeds`` [B, P, d] (the VLM's
     projected patches), cast to the embeddings' dtype, go before the token
     embeddings, and positions run over prefix and text."""
-    h = common.embed(params["embed"], tokens)
+    mesh = hints.active_mesh()
+    fsdp, _ = _layer_specs(cfg, mesh)
+    h = common.embed(params["embed"], tokens, vocab=cfg.vocab_size)
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     win = window if window is not None else cfg.sliding_window
     remat = remat and torch.is_grad_enabled()
-    for layer in common.unstack(params["layers"], cfg.n_layers):
+    # a leaf split over data on the layer axis itself is gathered once, here
+    stack = params["layers"] if fsdp is None else _gather_data(params["layers"], fsdp, mesh,
+                                                               slice(0, 1))
+    for layer in common.unstack(stack, cfg.n_layers):
         if remat:
             # the layers draw no random numbers: no RNG state to replay
-            h = checkpoint(layer_fwd, layer, cfg, h, win, use_reentrant=False,
+            h = checkpoint(layer_fwd, layer, cfg, h, win, fsdp, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            h = layer_fwd(layer, cfg, h, win)
+            h = layer_fwd(layer, cfg, h, win, fsdp)
     return common.apply_norm(cfg.norm, params["final_norm"], h)
 
 
@@ -96,10 +146,29 @@ def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     h = h[:, n_prefix:]
     h_in, labels = h[:, :-1], tokens[:, 1:]
     mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
-    w = params["embed"]["table"] if cfg.tie_embeddings else params["lm_head"]
-    return common.chunked_softmax_xent(h_in, labels, mask, w,
+    return common.chunked_softmax_xent(h_in, labels, mask, _head(params, cfg),
                                        chunk=min(loss_chunk, h_in.shape[1]),
-                                       transpose=cfg.tie_embeddings)
+                                       transpose=cfg.tie_embeddings, vocab=cfg.vocab_size)
+
+
+def _head(params: Params, cfg: ArchConfig) -> torch.Tensor:
+    """The LM head's weight: the tied table [V, d], or ``lm_head`` [d, V]
+    gathered over ``data`` where FSDP splits it."""
+    if cfg.tie_embeddings:
+        return params["embed"]["table"]
+    mesh = hints.active_mesh()
+    _, specs = _layer_specs(cfg, mesh)
+    if specs is None:
+        return params["lm_head"]
+    return _gather_data({"lm_head": params["lm_head"]}, specs, mesh, slice(None))["lm_head"]
+
+
+def logits(params: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    """Logits [B, S, V] of hidden states (under a mesh, over the whole
+    vocab on every rank)."""
+    w = _head(params, cfg)
+    return common.logits_from_hidden(h, {"table": w} if cfg.tie_embeddings else None,
+                                     None if cfg.tie_embeddings else w, vocab=cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------

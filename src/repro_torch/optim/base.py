@@ -24,10 +24,17 @@ def apply_updates(params, updates):
     return params
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt(Σ over leaves of Σ x²), in float32."""
+def global_norm(tree, *, axes=None, mesh=None) -> torch.Tensor:
+    """sqrt(Σ over leaves of Σ x²), in float32.  On a mesh, ``axes`` gives
+    for each leaf (in ``tree_leaves`` order) the mesh axes its slices split
+    it over: each leaf's local sum of squares is summed over exactly those,
+    so a leaf every rank holds whole counts once, and every rank gets the
+    one-device norm."""
     leaves = pytree.tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+    sums = [torch.sum(torch.square(x.float())) for x in leaves]
+    if mesh is not None:
+        sums = [mesh.psum(t, a) for t, a in zip(sums, axes, strict=True)]
+    return torch.sqrt(sum(sums))
 
 
 def clip_by_global_norm(tree, max_norm: float):

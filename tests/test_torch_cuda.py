@@ -1140,6 +1140,49 @@ def test_flash_attention_new_routes_match_plain(card, b, s, h, hkv, d, d_v, caus
     assert torch.equal(flash_attention(q, k, v, causal=causal)[0], out)
 
 
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,window,offsets", [
+    (2, 512, 2_048, 12, 2, 128, None, (0, 512, 1_024, 1_536)),   # qwen2-1.5b's stripes
+    (1, 250, 1_000, 8, 2, 64, 300, (0, 250, 500, 750)),          # ragged tiles, windowed
+    (2, 96, 384, 4, 4, 192, None, (0, 288)),                     # MLA's q/k head size
+], ids=["qwen2 stripes", "ragged windowed", "mla"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_stripes_match_plain(card, b, sq, sk, h, hkv, d, window, offsets,
+                                             dtype):
+    """B7 and B8 with ``q_offset`` (a stripe of Sq query rows against Sk
+    keys, the sequence-parallel route), both routes, against their plain
+    versions under the bars of the tests above; keys past the stripe's
+    last position get zero gradients; repeats are bit-identical."""
+    gen = torch.Generator(device=card).manual_seed(sq + sk + d)
+    d_v = 128 if d == 192 else d
+    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    for off in offsets:
+        q, k = _randn((b, sq, h, d), gen, card, dtype), _randn((b, sk, hkv, d), gen, card, dtype)
+        v, do = _randn((b, sk, hkv, d_v), gen, card, dtype), _randn((b, sq, h, d_v), gen, card,
+                                                                    dtype)
+        kw = dict(window=window, q_offset=off)
+        before = (dict(flash_attention.route_launches), dict(flash_attention_bwd.route_launches))
+        out, lse = flash_attention(q, k, v, **kw)
+        got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.route_launches[route] == before[0][route] + 1
+        assert flash_attention_bwd.route_launches[route] == before[1][route] + 1
+        ref, ref_lse = flash_attention_ref(q, k, v, **kw)
+        diff = (out.float() - ref.float()).abs()
+        if dtype == torch.bfloat16:
+            assert bool((diff <= 2.0**-7 * ref.float().abs() + 2.0**-7 * 1e-2).all())
+        else:
+            assert float(diff.max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
+        assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(ref_lse.abs().max())
+        assert [tuple(g.shape) for g in got] == [(b, sq, h, d), (b, sk, hkv, d),
+                                                 (b, sk, hkv, d_v)]
+        _assert_bwd_close(got, flash_attention_bwd_ref(q, k, v, out, lse, do, **kw),
+                          flash_attention_bwd_magnitudes(q, k, v, out, lse, do, **kw))
+        assert not got[1][:, off + sq:].any() and not got[2][:, off + sq:].any()
+        again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+        assert torch.equal(flash_attention(q, k, v, **kw)[0], out)
+
+
 def test_flash_attention_function_on_card(card):
     """The autograd Function on the card (B7 forward, B8 backward) against
     autograd through the plain forward, float32; strided head slices of one

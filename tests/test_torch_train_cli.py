@@ -8,9 +8,12 @@
 * Its ``--ckpt`` is in the reference's layout: ``repro.train.checkpoint
   .restore`` reads it back with every leaf equal to the trained
   parameters.
-* What waits raises naming its ROADMAP item: ``--model-parallel`` > 1
-  item 12.  The vlm, moe and encdec families (item 14, done) and the ssm
-  and hybrid families (item 16, done) train a reduced model on the host.
+* ``--model-parallel 2`` (item 12's model-zoo part, done for the dense
+  family) trains qwen3-1.7b on two gloo ranks that the CLI starts on the
+  host, and prints the reference's lines from rank 0; another family with
+  ``--model-parallel 2`` still raises naming item 12.  The vlm, moe and
+  encdec families (item 14, done) and the ssm and hybrid families (item 16,
+  done) train a reduced model on the host.
 """
 import re
 
@@ -73,14 +76,17 @@ def test_bfloat16_parameters(capsys):
     ("whisper-tiny", [], 14),
     ("mamba2-780m", [], 16),
     ("recurrentgemma-9b", [], 16),
+    ("internvl2-2b", ["--model-parallel", "2"], 12),
 ])
 def test_what_waits_names_its_item(arch, argv, item, capsys):
-    """Item 12 raises naming itself; items 14 and 16 are done, and their
-    families (vlm, moe, encdec; ssm, hybrid) now train a step in two
-    microbatches (the patches and frames split with the tokens): a finite
-    first loss within 1.0 of ln V, in the reference's lines."""
+    """Items 14 and 16 are done, and so is item 12 for the dense family:
+    the vlm, moe and encdec families, the ssm and hybrid families, and
+    qwen3 on two host ranks (a (1, 2) mesh, the CLI's own rank processes)
+    train a step in two microbatches (the patches and frames split with
+    the tokens): a finite first loss within 1.0 of ln V, in the reference's
+    lines.  Another family on a mesh raises naming item 12."""
     argv = ["--arch", arch, *REDUCED, "--steps", "1", *argv]
-    if item == 12:
+    if item == 12 and registry.get(arch).family != "dense":
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue A item {item}"):
             train.main(argv)
         return
@@ -90,6 +96,14 @@ def test_what_waits_names_its_item(arch, argv, item, capsys):
     assert step and LOSS.match(lines[-1]) and len(lines) == 2, lines
     vocab = registry.get(arch).reduced().vocab_size
     assert abs(float(step.group(2)) - np.log(vocab)) <= 1.0, lines
+
+
+def test_model_parallel_on_the_card_needs_its_cards(monkeypatch):
+    """On the card each rank takes a card under NCCL: fewer cards than the
+    mesh needs exits naming the count, before any rank starts."""
+    monkeypatch.setattr(train.torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="needs a multiple of 2 cards.*; 1 present"):
+        train.main(["--arch", "qwen3-1.7b", "--reduced", "--model-parallel", "2"])
 
 
 def test_argument_errors():
