@@ -257,26 +257,47 @@ no result:
     across several cards is not checked: the machine has one.
 
 lm-mesh (after the mesh phase) — ROADMAP item 12's model-zoo part, the
-    2-D (data, model) LM training layout of the dense family.  (a) B7 and
+    2-D (data, model) LM training layout of every family.  (a) B7 and
     B8 with ``q_offset`` at qwen2-1.5b's sequence-parallel stripes (q [2,
     512, 12, 128] against k and v [2, 2,048, 2, 128]) at offsets 0, 512,
     1,024 and 1,536, bf16 and float32, against their plain versions (B7
     per element within one bf16 ulp, float32 1e-5; B8 per element to its
     term magnitudes), timed (CUDA events, median of 25) beside the plain
     versions, SDPA on the same stripe and the bound of the stripe's own
-    pairs.  (b) qwen3-1.7b at full width, float32, 28 layers, on four gloo
-    ranks sharing the card (``python3 chip_smoke.py --lm-mesh-rank R DIR``)
-    at data 2 x model 2 (head-parallel; FSDP on the stacked layer leaves):
-    two AdamW steps of 4 x 1,024 tokens held to one process on the card at
-    the same inputs (the witness, run first): the loss at ``TOLS``, and per
+    pairs.  (b) qwen3-1.7b at full width, float32, 14 of its 28 layers
+    (cut for the script's time), on four gloo ranks sharing the card
+    (``python3 chip_smoke.py --lm-mesh-rank R DIR``) at data 2 x model 2
+    (head-parallel; FSDP on the stacked layer leaves): two AdamW steps of
+    4 x 1,024 tokens held to one process on the card at the same inputs (the witness, run first): the loss at ``TOLS``, and per
     leaf each rank's slices of the step-1 gradients and of the parameters
     and moments after step 2 within 1e-4 of the witness leaf's largest
     entry (the witness's tensors shared with the ranks by CUDA IPC, its
-    gradients freed once the ranks have held theirs); B7 112 and B8 56 a
+    gradients freed once the ranks have held theirs); B7 56 and B8 28 a
     rank.  Step ms and the share of it in staged gloo exchanges.  (c)
-    qwen2-1.5b at full width, data 1 x model 4 (its 2 KV heads and group
-    of 6 do not divide 4: the sequence-parallel route, B7 and B8 with
-    ``q_offset``), one step of 2 x 1,024, the same checks.  (d)
+    qwen2-1.5b at full width, 14 of its 28 layers, data 1 x model 4 (its
+    2 KV heads and group of 6 do not divide 4: the sequence-parallel
+    route, B7 and B8 with ``q_offset``), one step of 2 x 1,024, the same
+    checks.  (e) One case
+    of each other family at full width, float32, cut in depth, the same
+    checks with the MoE dispatch masks of a forward held to the witness's
+    bit for bit first and the launches of B7/B8, B9/B9ᵇ and B10/B10ᵇ a
+    rank counted (``_loss_launches``): internvl2-2b at 6 of 24 layers,
+    data 2 x model 2, 4 x (256 patches + 512 tokens), the witness in two
+    microbatches; qwen2-moe-a2.7b at 2 of 24 layers, 1 x 4 (15 experts a
+    rank), 2 x 1,024; deepseek-v2-236b cut to its dense layer and one MoE
+    layer, 1 x 4 (40 experts and 32 MLA heads a rank), 1 x 1,024, one loss
+    and its gradients only (AdamW's float32 moments of its 5.4e9
+    parameters would not fit beside the witness); mamba2-780m at 8 of 48
+    layers (at 24, regrouping the batch alone moves its float32 gradients
+    past the bar: ``scripts/torch_grad_rounding.py``), 2 x 2, 4 x 1,024,
+    the witness in two microbatches;
+    recurrentgemma-9b cut to one (rec, rec, attn) period, 1 x 4, 2 x 1,024;
+    whisper-tiny whole at 1 x 2 (two ranks) and 1 x 4 (its 6 heads do not
+    split over 4: the sequence-parallel self-attentions, B7/B8 with
+    ``q_offset`` and, in the encoder, without the causal mask), 4 x 448
+    after 1,500 frames.  Each prints its step time, the share of it in
+    staged exchanges and the peak a rank (since just before the step)
+    beside the card's name and power limit.  (d)
     ``launch/train.py --model-parallel 2`` on one card exits naming the
     card count.  A ``{"lm_mesh": ...}`` line precedes ``{"mesh": ...}``;
     B7's and B8's kernels rows gain ``"q_offset"``.  NCCL across several
@@ -477,6 +498,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -6248,19 +6270,44 @@ def phase_stripe_kernels(card) -> list:
     return rows
 
 
-LM_MESH_RANKS = 4
 LM_MESH_RANK_TIMEOUT_S = 420
 # (b) head-parallel with FSDP, (c) sequence-parallel: arch, mesh, global
 # batch, sequence, steps; the one-process witness splits its batch in two
 # microbatches (the ranks take one), the same mean in another grouping
 LM_MESH_CASES = {
-    "qwen3-1.7b data 2 x model 2": dict(arch="qwen3-1.7b", mesh=(2, 2), b=4, s=1_024,
-                                        steps=2, witness_micro=2),
-    "qwen2-1.5b data 1 x model 4": dict(arch="qwen2-1.5b", mesh=(1, 4), b=2, s=1_024,
-                                        steps=1, witness_micro=1),
+    "qwen3-1.7b 14 layers data 2 x model 2": dict(
+        arch="qwen3-1.7b", changes=dict(n_layers=14), mesh=(2, 2), b=4, s=1_024, steps=2,
+        witness_micro=2),
+    "qwen2-1.5b 14 layers data 1 x model 4": dict(
+        arch="qwen2-1.5b", changes=dict(n_layers=14), mesh=(1, 4), b=2, s=1_024, steps=1,
+        witness_micro=1),
+    # (e) the other families at full width, cut in depth ("changes"); "grads":
+    # one loss and its gradients (AdamW's moments would not fit beside the
+    # witness), no update
+    "internvl2-2b 6 layers data 2 x model 2": dict(
+        arch="internvl2-2b", changes=dict(n_layers=6), mesh=(2, 2), b=4, s=512, steps=1,
+        witness_micro=2),
+    "qwen2-moe-a2.7b 2 layers data 1 x model 4": dict(
+        arch="qwen2-moe-a2.7b", changes=dict(n_layers=2), mesh=(1, 4), b=2, s=1_024, steps=2,
+        witness_micro=1),
+    "deepseek-v2-236b dense + 1 MoE layer data 1 x model 4": dict(
+        arch="deepseek-v2-236b", changes=dict(n_layers=2), mesh=(1, 4), b=1, s=1_024, steps=1,
+        witness_micro=1, grads=True),
+    # at 24 layers mamba2's float32 gradients move by 1.3-1.6x the 1e-4 bar
+    # when only the batch is regrouped (scripts/torch_grad_rounding.py)
+    "mamba2-780m 8 layers data 2 x model 2": dict(
+        arch="mamba2-780m", changes=dict(n_layers=8), mesh=(2, 2), b=4, s=1_024, steps=1,
+        witness_micro=2),
+    "recurrentgemma-9b one period data 1 x model 4": dict(
+        arch="recurrentgemma-9b", changes=dict(n_layers=3), mesh=(1, 4), b=2, s=1_024,
+        steps=2, witness_micro=1),
+    "whisper-tiny data 1 x model 2": dict(
+        arch="whisper-tiny", mesh=(1, 2), b=4, s=448, steps=2, witness_micro=1),
+    "whisper-tiny data 1 x model 4": dict(
+        arch="whisper-tiny", mesh=(1, 4), b=4, s=448, steps=2, witness_micro=1),
 }
 LM_MESH_LR = 1e-3
-LM_MESH_SEQ = "qwen2-1.5b data 1 x model 4"
+LM_MESH_SEQ = "qwen2-1.5b 14 layers data 1 x model 4"
 
 
 def _stripe_rows(numbers, kernel) -> dict:
@@ -6292,22 +6339,83 @@ def _lm_mesh_opt(first=None):
 
 
 def _flat(tree, prefix="") -> dict:
+    """{"a/b/c": leaf} of a tree of dicts and lists (the hybrid's tail
+    blocks by index)."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
             out.update(_flat(v, f"{prefix}{k}/"))
+        elif isinstance(v, list):
+            for i, item in enumerate(v):
+                out.update(_flat(item, f"{prefix}{k}/{i}/"))
         else:
             out[prefix + k] = v
     return out
 
 
+def _lm_mesh_cfg(case):
+    """The case's config: the registered arch at full width, cut in depth by
+    the case's ``changes``."""
+    from repro_torch.configs import registry
+
+    return dataclasses.replace(registry.get(case["arch"]), **case.get("changes", {}))
+
+
 def _lm_mesh_batch(cfg, case, step):
+    """The step's batch on the card: the token stream and, for the vlm and
+    encdec families, normal patches or frames drawn by a CUDA generator
+    seeded with the step (the same bits in every process)."""
     import torch
 
     from repro_torch.data import synthetic
 
-    return {"tokens": torch.as_tensor(synthetic.lm_token_stream(
+    batch = {"tokens": torch.as_tensor(synthetic.lm_token_stream(
         cfg.vocab_size, case["s"], case["b"], seed=100 + step), device="cuda")}
+    extra = {"vlm": ("patch_embeds", (cfg.n_patches, cfg.d_frontend)),
+             "encdec": ("frames", (cfg.encoder_seq, cfg.d_model))}.get(cfg.family)
+    if extra:
+        gen = torch.Generator(device="cuda").manual_seed(200 + step)
+        batch[extra[0]] = torch.randn((case["b"], *extra[1]), generator=gen, device="cuda")
+    return batch
+
+
+def _lm_mesh_dispatches(bundle, params, batch) -> list:
+    """Each MoE layer's dispatch mask (on the host) in a no-grad forward of
+    ``batch``'s tokens; none for another family."""
+    import numpy as np
+
+    from repro_torch.models import moe
+
+    if bundle.cfg.family != "moe":
+        return []
+    calls, route = [], moe.route
+
+    def logged(logits, top_k, cap):
+        got = route(logits, top_k, cap)
+        calls.append(got[0].cpu().numpy())
+        return got
+
+    moe.route = logged
+    try:
+        bundle.forward(params, batch["tokens"])
+    finally:
+        moe.route = route
+    return [np.asarray(d) for d in calls]
+
+
+def _lm_mesh_grads(bundle, params, batch):
+    """(loss, {path: gradient}) of one ``bundle.loss`` and its backward."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    leaves, spec = pytree.tree_flatten(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = bundle.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return loss.detach(), _flat(pytree.tree_unflatten(list(grads), spec))
 
 
 def _mem() -> str:
@@ -6336,6 +6444,7 @@ def _hold_to_witness(rank, kind, leaves, witness, flat_specs, mesh, worst) -> No
     (a CUDA IPC handle), within 1e-4 of the witness leaf's largest entry."""
     from repro_torch.launch import shardings
 
+    over = []
     for path, local in leaves.items():
         fn, args = witness["handles"][kind][path]
         full = fn(*args)
@@ -6345,11 +6454,13 @@ def _hold_to_witness(rank, kind, leaves, witness, flat_specs, mesh, worst) -> No
         err = float((local.detach() - want).abs().max())
         bar = 1e-4 * witness["scale"][kind][path]
         used = err / bar if bar > 0 else (0.0 if err == 0 else float("inf"))
-        check(used <= 1.0, f"rank {rank} {kind}/{path}: max|d| {err:.3e} > 1e-4 x "
-              f"max|witness leaf| {witness['scale'][kind][path]:.3e}")
+        if used > 1.0:
+            over.append(f"{kind}/{path}: max|d| {err:.3e} = {used:.3f} x (1e-4 x max|witness "
+                        f"leaf| {witness['scale'][kind][path]:.3e})")
         if used >= worst.get(kind, (0.0, ""))[0]:
             worst[kind] = (used, path)
         del full, want
+    check(not over, f"rank {rank}: {len(over)} leaves over their bar: " + "; ".join(over))
 
 
 def lm_mesh_rank(rank: int, mesh_dir: str) -> int:
@@ -6371,13 +6482,16 @@ def lm_mesh_rank(rank: int, mesh_dir: str) -> int:
     from repro_torch.launch import shardings, steps
     from repro_torch.models import get_bundle, hints
 
+    import numpy as np
+
     torch.backends.cuda.matmul.allow_tf32 = False
     case = json.loads(Path(mesh_dir, "case.json").read_text())
+    world = math.prod(case["mesh"])
     mesh_lib.init_process_group_from_file(os.path.join(mesh_dir, "store"), rank,
-                                          LM_MESH_RANKS, backend="gloo",
+                                          world, backend="gloo",
                                           timeout_s=LM_MESH_RANK_TIMEOUT_S)
     try:
-        cfg = registry.get(case["arch"])
+        cfg = _lm_mesh_cfg(case)
         mesh = mesh_lib.Mesh(case["mesh"], ("data", "model"), device="cuda:0")
         check(mesh.backend == "gloo" and mesh.rank == rank, f"lm-mesh rank {rank}: {mesh}")
         exchange = {"ms": 0.0, "calls": 0}
@@ -6400,12 +6514,20 @@ def lm_mesh_rank(rank: int, mesh_dir: str) -> int:
         with hints.use_mesh(mesh):
             specs = shardings.lm_param_specs(cfg, mesh)
             flat_specs = _flat(specs)
-            for r in range(LM_MESH_RANKS):  # one full draw on the card at a time
+            for r in range(world):  # one full draw on the card at a time
                 if r == rank:
                     params = bundle.init(0, torch.float32, device="cuda:0")
                     torch.cuda.empty_cache()
                 mesh.barrier()
             say("lm-mesh", f"rank {rank} after init: {_mem()}")
+            batch = _lm_mesh_batch(cfg, case, 0)
+            batch = shardings.shard_tree(batch, shardings.batch_shardings(batch, mesh), mesh)
+            rows, _ = mesh.index(mesh_lib.data_axes(mesh))
+            for i, got in enumerate(_lm_mesh_dispatches(bundle, params, batch)):
+                want = np.load(os.path.join(mesh_dir, f"dispatch{i}.npy"))
+                n = got.shape[0]
+                check(np.array_equal(got, want[rows * n:(rows + 1) * n]),
+                      f"rank {rank}: MoE layer {i}'s dispatch differs from the witness's")
 
             def first(grads):
                 say("lm-mesh", f"rank {rank} at the first update: {_mem()}")
@@ -6414,8 +6536,9 @@ def lm_mesh_rank(rank: int, mesh_dir: str) -> int:
                 _wait_for(Path(mesh_dir, "freed"))
 
             opt, _ = _lm_mesh_opt(first)
-            state = opt.init(params)
+            state = None if case.get("grads") else opt.init(params)
             step_fn = steps.make_train_step(bundle, opt, microbatches=1, clip_norm=1.0)
+            torch.cuda.reset_peak_memory_stats()
             _lm_zero()
             losses, step_ms, exchange_ms = [], [], []
             for i in range(case["steps"]):
@@ -6424,16 +6547,25 @@ def lm_mesh_rank(rank: int, mesh_dir: str) -> int:
                 exchange["ms"] = 0.0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                params, state, loss = step_fn(params, state, batch)
+                if case.get("grads"):  # one loss and its gradients, no update
+                    loss, grads = _lm_mesh_grads(bundle, params, batch)
+                    params = None  # room for the comparison's temporaries
+                else:
+                    params, state, loss = step_fn(params, state, batch)
                 losses.append(float(loss))
                 torch.cuda.synchronize()
                 step_ms.append((time.perf_counter() - t0) * 1e3)
                 exchange_ms.append(exchange["ms"])
-            launches = _lm_read("fp32", flash_attention=2 * cfg.n_layers * case["steps"],
-                                flash_attention_bwd=cfg.n_layers * case["steps"])
+            launches = _lm_read("fp32", **{k: v * case["steps"]
+                                           for k, v in _loss_launches(cfg).items()})
             peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        for kind, tree in (("params", params), ("mu", state.mu), ("nu", state.nu)):
-            _hold_to_witness(rank, kind, _flat(tree), witness, flat_specs, mesh, worst)
+            if case.get("grads"):
+                torch.cuda.empty_cache()
+                first(grads)
+                del grads
+        if not case.get("grads"):
+            for kind, tree in (("params", params), ("mu", state.mu), ("nu", state.nu)):
+                _hold_to_witness(rank, kind, _flat(tree), witness, flat_specs, mesh, worst)
         result = dict(losses=losses, step_ms=step_ms, exchange_ms=exchange_ms,
                       exchange_calls=exchange["calls"], launches=launches,
                       peak_gb=peak_gb, worst=worst)
@@ -6444,27 +6576,31 @@ def lm_mesh_rank(rank: int, mesh_dir: str) -> int:
 
 
 def _lm_mesh_case(name, case, card) -> dict:
-    """(b) or (c) of the lm-mesh phase: the one-process witness on the card,
-    then four gloo ranks sharing it, each holding its slices of the step-1
-    gradients and of the parameters and Adam moments after the last step to
-    the witness's within 1e-4 of the leaf's largest entry, and its loss to
-    the witness's at ``TOLS``."""
+    """(b), (c) or (e) of the lm-mesh phase: the one-process witness on the
+    card (the MoE dispatch masks of a forward first), then the case's gloo
+    ranks sharing it, each holding its dispatch masks to the witness's bit
+    for bit, its slices of the step-1 gradients and of the parameters and
+    Adam moments after the last step (a ``grads`` case: of one loss's
+    gradients) to the witness's within 1e-4 of the leaf's largest entry,
+    and its loss to the witness's at ``TOLS``."""
     import os
     import pickle
     import tempfile
 
+    import numpy as np
     import torch
     from torch.multiprocessing.reductions import reduce_tensor
 
-    from repro_torch.configs import registry
     from repro_torch.launch import steps
     from repro_torch.models import get_bundle
 
-    cfg = registry.get(case["arch"])
+    cfg = _lm_mesh_cfg(case)
+    world = math.prod(case["mesh"])
     bundle = get_bundle(cfg)
     params = bundle.init(0, torch.float32, device="cuda")
+    dispatches = _lm_mesh_dispatches(bundle, params, _lm_mesh_batch(cfg, case, 0))
     opt, kept = _lm_mesh_opt()
-    state = opt.init(params)
+    state = None if case.get("grads") else opt.init(params)
     step_fn = steps.make_train_step(bundle, opt, microbatches=case["witness_micro"],
                                     clip_norm=1.0)
     _lm_zero()
@@ -6473,14 +6609,21 @@ def _lm_mesh_case(name, case, card) -> dict:
         batch = _lm_mesh_batch(cfg, case, i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, state, loss = step_fn(params, state, batch)
+        if case.get("grads"):
+            loss, kept["grads"] = _lm_mesh_grads(bundle, params, batch)
+        else:
+            params, state, loss = step_fn(params, state, batch)
         w_losses.append(float(loss))
         torch.cuda.synchronize()
         w_ms.append((time.perf_counter() - t0) * 1e3)
     _lm_zero()
+    if case.get("grads"):
+        witness = {"grads": kept.pop("grads")}
+        params = None  # the ranks hold their own slices
+    else:
+        witness = {"grads": kept.pop("grads"), "params": _flat(params),
+                   "mu": _flat(state.mu), "nu": _flat(state.nu)}
     torch.cuda.empty_cache()
-    witness = {"grads": kept.pop("grads"), "params": _flat(params), "mu": _flat(state.mu),
-               "nu": _flat(state.nu)}
     with torch.no_grad():
         scale = {kind: {p: float(torch.linalg.vector_norm(t, float("inf")))
                         for p, t in leaves.items()} for kind, leaves in witness.items()}
@@ -6488,7 +6631,9 @@ def _lm_mesh_case(name, case, card) -> dict:
     say("lm-mesh", f"{name}: the witness holds its tensors: {_mem()}")
     with tempfile.TemporaryDirectory() as tmp:
         Path(tmp, "case.json").write_text(json.dumps(case))
-        for r in range(LM_MESH_RANKS):
+        for i, d in enumerate(dispatches):
+            np.save(os.path.join(tmp, f"dispatch{i}.npy"), d)
+        for r in range(world):
             # one handle a tensor and rank: each carries the reference count
             # its one receiver releases, so the blocks free once all are done
             handles = {kind: {p: reduce_tensor(t.detach()) for p, t in leaves.items()}
@@ -6499,11 +6644,11 @@ def _lm_mesh_case(name, case, card) -> dict:
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), LOCAL_RANK="0",
                    OMP_NUM_THREADS="2", PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
         t0 = time.perf_counter()
-        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(LM_MESH_RANKS)]
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(world)]
         procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
                                    "--lm-mesh-rank", str(r), tmp], cwd=ROOT, env=env,
                                   stdout=logs[r], stderr=subprocess.STDOUT, text=True)
-                 for r in range(LM_MESH_RANKS)]
+                 for r in range(world)]
         def tails():
             out = []
             for log in logs:
@@ -6516,7 +6661,7 @@ def _lm_mesh_case(name, case, card) -> dict:
             # the ranks hold their step-1 gradients to the witness's, which
             # are then freed to make room for the ranks' later steps
             try:
-                for r in range(LM_MESH_RANKS):
+                for r in range(world):
                     _wait_for(Path(tmp, f"step1.{r}"), procs)
             except SmokeFailure as e:
                 for p in procs:
@@ -6547,7 +6692,7 @@ def _lm_mesh_case(name, case, card) -> dict:
             check(p.returncode == 0, f"lm-mesh {name}: gloo rank {r} exited {p.returncode}: "
                   f"{err[-3000:]}")
         ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
-                 for r in range(LM_MESH_RANKS)]
+                 for r in range(world)]
     del witness, params, state, kept
     torch.cuda.ipc_collect()  # the blocks the ranks mapped, freed once they have exited
     _free()
@@ -6560,7 +6705,9 @@ def _lm_mesh_case(name, case, card) -> dict:
     step_ms = max(r["step_ms"][-1] for r in ranks)
     exchange_ms = max(r["exchange_ms"][-1] for r in ranks)
     worst = {kind: max(r["worst"][kind][0] for r in ranks) for kind in ranks[0]["worst"]}
-    out = dict(mesh=case["mesh"], batch=[case["b"], case["s"]], steps=case["steps"],
+    out = dict(arch=case["arch"], changes=case.get("changes", {}), mesh=case["mesh"],
+               grads_only=bool(case.get("grads")), moe_layers_dispatch_identical=len(dispatches),
+               batch=[case["b"], case["s"]], steps=case["steps"],
                losses=ranks[0]["losses"], witness_losses=w_losses,
                step_ms=[max(r["step_ms"][i] for r in ranks) for i in range(case["steps"])],
                exchange_ms=[max(r["exchange_ms"][i] for r in ranks)
@@ -6569,7 +6716,7 @@ def _lm_mesh_case(name, case, card) -> dict:
                exchange_calls=ranks[0]["exchange_calls"], witness_step_ms=w_ms,
                launches_per_rank=ranks[0]["launches"], peak_gb_per_rank=max(
                    r["peak_gb"] for r in ranks), worst_share_of_bar=worst, ranks_wall_s=wall_s)
-    say("lm-mesh", f"{name}: 4 gloo ranks, loss {ranks[0]['losses']} vs the witness's "
+    say("lm-mesh", f"{name}: {world} gloo ranks, loss {ranks[0]['losses']} vs the witness's "
         f"{w_losses}; last step {step_ms:.0f} ms, {exchange_ms:.0f} ms of it in staged "
         f"exchanges ({100 * exchange_ms / step_ms:.1f} %); witness {w_ms[-1]:.0f} ms a step; "
         f"B7/B8 a rank {ranks[0]['launches']}; worst share of the 1e-4 bar {worst}; peak "
@@ -6604,7 +6751,8 @@ def phase_lm_mesh(card) -> dict:
     """The lm-mesh phase (see the module docstring): (a) B7 and B8 with
     ``q_offset`` at qwen2-1.5b's stripes, (b) qwen3-1.7b at full width on
     four gloo ranks at data 2 x model 2, (c) qwen2-1.5b's sequence-parallel
-    route at data 1 x model 4, (d) the CLI on one card."""
+    route at data 1 x model 4, (e) one case of each other family, (d) the
+    CLI on one card."""
     import torch
 
     t0 = time.perf_counter()
@@ -6616,7 +6764,7 @@ def phase_lm_mesh(card) -> dict:
         torch.cuda.empty_cache()
     t_bc = time.perf_counter()
     out["cli"] = _lm_mesh_cli(card)
-    say("lm-mesh", f"(a) took {t_a - t0:.1f} s, (b) and (c) {t_bc - t_a:.1f} s, (d) "
+    say("lm-mesh", f"(a) took {t_a - t0:.1f} s, (b), (c) and (e) {t_bc - t_a:.1f} s, (d) "
         f"{time.perf_counter() - t_bc:.1f} s on {card}")
     return out
 
@@ -6814,7 +6962,7 @@ def main() -> int:
                 **encdec_numbers["b7_causal_false"]},
             # With q_offset (the sequence-parallel stripes): per launch at
             # qwen2-1.5b's stripes, bf16 and float32; lm_mesh_launches: a rank's
-            # in one step of the lm-mesh phase's (c) (28 layers, forward and remat).
+            # in one step of the lm-mesh phase's (c) (14 layers, forward and remat).
             "q_offset": {"lm_mesh_launches": lm_mesh_numbers[LM_MESH_SEQ]["launches_per_rank"][
                 "flash_attention"], **_stripe_rows(lm_mesh_numbers, "flash_attention")},
         },
@@ -6841,7 +6989,7 @@ def main() -> int:
                                         for name, row in encdec_numbers["train"].items()},
             # With q_offset (the sequence-parallel stripes): per launch at
             # qwen2-1.5b's stripes, bf16 and float32; lm_mesh_launches: a rank's
-            # in one step of the lm-mesh phase's (c) (28 layers).
+            # in one step of the lm-mesh phase's (c) (14 layers).
             "q_offset": {"lm_mesh_launches": lm_mesh_numbers[LM_MESH_SEQ]["launches_per_rank"][
                 "flash_attention_bwd"], **_stripe_rows(lm_mesh_numbers, "flash_attention_bwd")},
         },

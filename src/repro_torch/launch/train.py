@@ -16,17 +16,16 @@ drawn by ``core.threefry``; the frames cast to ``--dtype``).  On the card
 the ssm and hybrid families' gradients go through the B10 and B9 backward
 kernels.
 
-``--model-parallel M`` > 1 trains the dense family (qwen3-1.7b,
-qwen2-1.5b, mistral-nemo-12b, granite-20b) on a ("data", "model") mesh:
-the reference's ``make_host_mesh(M)`` with ``param_shardings`` and
-``batch_shardings`` (``launch/shardings.py``, ``models/hints.py``).  The
+``--model-parallel M`` > 1 trains any arch of any family on a ("data",
+"model") mesh: the reference's ``make_host_mesh(M)`` with
+``param_shardings`` and ``batch_shardings`` (``launch/shardings.py``,
+``models/hints.py``; the patches and frames split with the tokens).  The
 CLI starts itself once per rank and relays rank 0's output.  On the card
 each rank takes its own card under NCCL and the mesh spans every card,
 (count / M, M), as the reference's spans ``jax.devices()``; fewer cards
 than the mesh needs is an error.  With ``--device cpu`` the host has no
 device count to span: M gloo ranks make a (1, M) mesh.  ``--ckpt``
-gathers the full leaves and rank 0 writes the reference's layout.  The
-other families on a mesh wait for ROADMAP queue A item 12.
+gathers the full leaves and rank 0 writes the reference's layout.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \\
@@ -50,7 +49,6 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import get_bundle, hints
-from repro_torch.models.api import MESH_ITEM
 from repro_torch.train import checkpoint
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -89,11 +87,6 @@ def main(argv=None) -> None:
         cfg = cfg.reduced()
     if args.model_parallel < 1:
         ap.error(f"--model-parallel must be >= 1, got {args.model_parallel}")
-    if args.model_parallel > 1 and cfg.family != "dense":
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: the {cfg.family} family's layout on a "
-            f"device mesh is not ported to repro_torch yet ({MESH_ITEM}); the dense "
-            "family's is")
     if args.model_parallel > 1 and args.rank is None:
         _spawn_ranks(args, list(sys.argv[1:] if argv is None else argv))
         return

@@ -49,13 +49,15 @@ the old one.  :func:`cache_specs` gives the cache's tree as meta tensors.
 ``loss`` trains every family; the ``ssm`` and ``hybrid`` families' gradients
 go through the B10 and B9 backward kernels on the card.
 
-Under a mesh (``hints.use_mesh``), the ``dense`` family's ``init`` returns
-this rank's slices of the parameters (``launch/shardings.py``: the full
+Under a mesh (``hints.use_mesh``), every family's ``init`` returns this
+rank's slices of the parameters (``launch/shardings.py``: the full
 parameters are drawn, then sliced), and its ``forward``, ``prefill`` and
-``loss`` take them with this rank's rows of the batch (the 2-D (data,
-model) layout of ``models/transformer.py``).  Every other family, under a
-mesh of more than one device, raises ``NotImplementedError`` naming
-ROADMAP queue A item 12.  ``init(..., device="meta")`` gives the parameters'
+``loss`` take them with this rank's rows of the batch (the tokens, and
+the patches or frames with them): the 2-D (data, model) layout of each
+family's module (``models/transformer.py``, ``vlm.py``, ``moe.py`` /
+``mla.py`` / ``moe_lm.py``, ``mamba2.py``, ``rglru.py``, ``encdec.py``).
+``decode`` under a mesh with a ``model`` axis raises: decode keeps its
+one-device path.  ``init(..., device="meta")`` gives the parameters'
 shapes and dtypes as meta tensors, drawing nothing.
 """
 from __future__ import annotations
@@ -70,8 +72,6 @@ from repro_torch.configs.registry import InputShape
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common, encdec, hints, mamba2, moe_lm, rglru, transformer, vlm
-
-MESH_ITEM = "ROADMAP queue A item 12"
 
 _MODULES = {"dense": transformer, "vlm": vlm, "moe": moe_lm, "ssm": mamba2,
             "hybrid": rglru, "encdec": encdec}
@@ -149,21 +149,9 @@ def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
         raise ValueError(f"unknown family {fam!r}")
     mod = _MODULES[fam]
 
-    def on_mesh():
-        """The active mesh of more than one device, refused for the families
-        whose layout waits; None without one."""
-        mesh = hints.active_mesh()
-        if mesh is None or mesh.size == 1:
-            return None
-        if fam != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: the {fam} family on a device mesh ({dict(mesh.shape)}) is not "
-                f"ported to repro_torch yet ({MESH_ITEM}); the dense family is")
-        return mesh
-
     def init(seed, dtype=torch.float32, *, device=None):
         mesh = None if device is not None and torch.device(device).type == "meta" \
-            else on_mesh()
+            else hints.active_mesh()
         with torch.no_grad():
             params = mod.init_params(_generator(seed, device), cfg, dtype)
             if mesh is not None:
@@ -191,12 +179,6 @@ def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
         def forward(params, tokens):
             return mod.forward(params, cfg, _tokens(params, tokens))
 
-    family_forward = forward
-
-    def forward(params, *args, **kwargs):
-        on_mesh()
-        return family_forward(params, *args, **kwargs)
-
     if fam == "encdec":
         init_cache = _encdec_cache_waits
     else:
@@ -205,6 +187,9 @@ def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
 
     @torch.inference_mode()
     def decode(params, cache, token, pos):
+        if hints.model_rank(hints.active_mesh())[1] > 1:
+            raise NotImplementedError("decode under a mesh with a model axis: decode keeps its "
+                                      "one-device path")
         return mod.decode_step(params, cfg, cache, _tokens(params, token), pos)
 
     frontend = {"vlm": "patch_embeds", "encdec": "frames"}.get(fam)
@@ -212,13 +197,9 @@ def get_bundle(cfg: ArchConfig, *, chunked_attn: bool = True) -> ModelBundle:
     @torch.inference_mode()
     def prefill(params, batch):
         h = forward(params, batch["tokens"], *((batch[frontend],) if frontend else ()))
-        if fam == "dense":
-            return transformer.logits(params, cfg, h[:, -1:])
-        # an untied model has an lm_head; the tied ones read the embedding
-        return common.logits_from_hidden(h[:, -1:], params["embed"], params.get("lm_head"))
+        return transformer.logits(params, cfg, h[:, -1:])
 
     def loss(params, batch):
-        on_mesh()
         tokens = _tokens(params, batch["tokens"])
         if frontend:
             return mod.lm_loss(params, cfg, _floats(params, batch[frontend]), tokens)

@@ -30,10 +30,14 @@ bq, bk, bv) and row-parallel slice of wo (``launch/shardings.py``), and
   offset), the stripes are gathered, and the rank keeps the feature slice
   its row-parallel wo reads;
 * otherwise replicated: the heads are gathered and every rank runs one
-  full B7, keeping the feature slice its wo reads.
+  full B7, keeping the feature slice its wo reads;
+* where the model extent does not divide the projections' widths, the
+  rules split none of them and every rank runs the block alike.
 
-wo is followed by the sum over ``model``.  The collectives and their
-gradients are ``models/hints.py``'s.  Decode keeps its one-device path.
+wo is followed by the sum over ``model``.  ``causal=False`` (whisper's
+encoder) takes the same routes without the mask.  The collectives and
+their gradients are ``models/hints.py``'s.  Decode keeps its one-device
+path.
 
 ``DEFAULT_CAUSAL_SKIP`` keeps the reference's name (the default of its
 ``attend_auto(causal_skip=)``).  In the port ``attend_chunked_skip`` is B7
@@ -198,6 +202,7 @@ def attention_block(
     *,
     positions: torch.Tensor | None = None,
     window: int | None = None,
+    causal: bool = True,
     cache: KVCache | None = None,
     cache_pos=None,
     write_slot=None,
@@ -205,7 +210,8 @@ def attention_block(
     """Full attention sub-block (projections, attention, output projection).
 
     Prefill: ``cache=None`` -> (out [B, S, d], (k, v)), causal attention
-    through B7.  Decode: ``cache`` given, x [B, 1, d] -> (out, cache), the
+    through B7 (``causal=False``: every query attends every key, the
+    encoder's self-attention).  Decode: ``cache`` given, x [B, 1, d] -> (out, cache), the
     cache updated in place.  ``cache_pos`` is the ABSOLUTE token position
     (RoPE and the validity mask); ``write_slot`` is the cache slot to write
     (default ``cache_pos``; ring caches pass pos % window).  Ring caches
@@ -216,10 +222,13 @@ def attention_block(
         pos = positions if positions is not None else torch.arange(s, device=x.device)
         mesh = hints.active_mesh()
         rank, ext = hints.model_rank(mesh)
-        if ext > 1:
-            return _attention_mesh(p, cfg, x, pos, window, mesh, rank, ext)
-        q, k, v = qkv(p, cfg, x, pos)
-        out, _ = flash_attention(q, k, v, causal=True, window=window)
+        if ext > 1 and p["wo"].shape[-2] != cfg.n_heads * cfg.head_dim:
+            return _attention_mesh(p, cfg, x, pos, window, causal, mesh, rank, ext)
+        # one device, or a model axis that splits none of the block's
+        # weights: every rank runs it alike
+        with hints.use_mesh(None):
+            q, k, v = qkv(p, cfg, x, pos)
+        out, _ = flash_attention(q, k, v, causal=causal, window=window)
         return out.reshape(b, s, -1) @ p["wo"], (k, v)
 
     if hints.model_rank(hints.active_mesh())[1] > 1:
@@ -243,17 +252,14 @@ def _whole(mesh, w: torch.Tensor, full: int) -> tuple[torch.Tensor, bool]:
     return hints.copy(w, mesh), False
 
 
-def _attention_mesh(p: Params, cfg: ArchConfig, x, positions, window, mesh, rank: int,
-                    ext: int):
+def _attention_mesh(p: Params, cfg: ArchConfig, x, positions, window, causal: bool, mesh,
+                    rank: int, ext: int):
     """The prefill attention block on the model axis: the route of the
     reference's ``attend_auto`` (module docstring).  Returns (out, (k, v))
     with k and v the heads this rank attended with."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // hkv
-    if p["wo"].shape[-2] * ext != h * hd:
-        raise NotImplementedError(f"{cfg.name}: {h} heads of {hd} do not split over a model "
-                                  f"axis of {ext}")
     x = hints.copy(x, mesh)
     proj = {}
     for name, full in (("q", h * hd), ("k", hkv * hd), ("v", hkv * hd)):
@@ -277,18 +283,18 @@ def _attention_mesh(p: Params, cfg: ArchConfig, x, positions, window, mesh, rank
         q, k, v = _heads(p, cfg, proj["q"][0], k_in, v_in, positions)
         if hkv % ext:
             k, v = _kv_for_heads(k, v, rank * hl, hl, g)
-        out, _ = flash_attention(q, k, v, causal=True, window=window)
+        out, _ = flash_attention(q, k, v, causal=causal, window=window)
         out = out.reshape(b, s, -1)
     else:
         q, k, v = _heads(p, cfg, gathered("q"), gathered("k"), gathered("v"), positions)
         if s % ext == 0 and s // ext >= 16:
             # sequence-parallel: this rank's stripe of queries against every key
             sl = s // ext
-            stripe, _ = flash_attention(q[:, rank * sl:(rank + 1) * sl], k, v, causal=True,
+            stripe, _ = flash_attention(q[:, rank * sl:(rank + 1) * sl], k, v, causal=causal,
                                         window=window, q_offset=rank * sl)
             out = hints.all_gather(stripe.reshape(b, sl, -1), mesh, 1)
         else:
-            out, _ = flash_attention(q, k, v, causal=True, window=window)
+            out, _ = flash_attention(q, k, v, causal=causal, window=window)
             out = out.reshape(b, s, -1)
         # the feature slice this rank's row-parallel wo reads
         width = h * hd // ext

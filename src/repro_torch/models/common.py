@@ -140,6 +140,17 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def mesh_specs(cfg):
+    """(the active mesh, the specs of ``cfg``'s parameters on it:
+    ``shardings.lm_param_specs``), or (None, None) without a mesh."""
+    mesh = hints.active_mesh()
+    if mesh is None:
+        return None, None
+    from repro_torch.launch import shardings
+
+    return mesh, shardings.lm_param_specs(cfg, mesh)
+
+
 def _model_sharded(mesh, local: int, full: int) -> bool:
     """Whether a dim of ``full`` entries is split over the mesh's model axis
     (this rank holds ``local`` of them)."""

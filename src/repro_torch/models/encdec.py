@@ -25,6 +25,22 @@ projections, the decoder's embedding tied to its output.
   :class:`EncDecCache`; :func:`decode_step` updates the cache in place and
   returns it (the reference donates it).
 
+Under a mesh (``hints.use_mesh``) ``encode``, ``decode_train`` and
+``lm_loss`` take this rank's slices of the parameters
+(``launch/shardings.py``) and its rows of the frames and tokens.  Both
+self-attentions take ``attention.attention_block``'s mesh routes (the
+encoder's with ``causal=False``), the GELU MLPs ``common.mlp``'s (``b_up``
+split with the columns, ``b_down`` added after the sum), and ``dec_pos``
+is whole on every rank.  The cross-attention's ``wq``/``wk``/``wv`` are
+column-parallel and ``wo`` row-parallel: where the heads divide the model
+extent each rank attends its heads (the decoder states and the encoder
+states entering through ``hints.copy``) and ``wo`` is followed by a
+``hints.psum``; where they do not (whisper-tiny's 6 heads over 4 ranks),
+each split weight is gathered whole (``hints.replicate``) and every rank
+runs the cross-attention alike.  A layer leaf split over ``data`` (FSDP)
+is gathered inside the rematerialised layer.  Decode keeps its one-device
+path.
+
 Frames in another dtype than the parameters meet them as JAX promotes
 them: float32 frames against bf16 parameters run the encoder in float32 on
 the exactly widened weights.  The decoder takes encoder states in the
@@ -36,12 +52,10 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import common
+from repro_torch.models import common, hints, transformer
 
 Params = dict[str, Any]
 
@@ -71,24 +85,47 @@ def _widen(p: Params, x: torch.Tensor) -> tuple[Params, torch.Tensor]:
     return cast(p, dt), x.to(dt)
 
 
-def _xattn(p: Params, cfg: ArchConfig, x: torch.Tensor, kv) -> torch.Tensor:
-    """Cross attention: x [B, Sq, d] against precomputed (k, v) [B, Se, H, hd]."""
+def _xattn(p: Params, cfg: ArchConfig, x: torch.Tensor, kv, mesh=None) -> torch.Tensor:
+    """Cross attention: x [B, Sq, d] against precomputed (k, v) [B, Se, H, hd]
+    (under ``mesh``: this rank's heads of ``p``'s columns, x entering
+    through ``hints.copy`` and the output summed over ``model``)."""
     b, sq, _ = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, sq, h, hd)
+    hd = cfg.head_dim
+    if mesh is not None:
+        x = hints.copy(x, mesh)
+    q = (x @ p["wq"]).reshape(b, sq, -1, hd)
     k, v = kv
     scores = torch.einsum("bqhd,bshd->bhqs", q, k).float() * hd**-0.5
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhqs,bshd->bqhd", probs, v).reshape(b, sq, h * hd)
-    return out @ p["wo"]
+    out = torch.einsum("bhqs,bshd->bqhd", probs, v).reshape(b, sq, -1) @ p["wo"]
+    return out if mesh is None else hints.psum(out, mesh)
 
 
-def xattn_kv(p: Params, cfg: ArchConfig, enc_out: torch.Tensor):
-    """The cross-attention's (k, v) [B, Se, H, hd] of the encoder states."""
+def xattn_kv(p: Params, cfg: ArchConfig, enc_out: torch.Tensor, mesh=None):
+    """The cross-attention's (k, v) [B, Se, H, hd] of the encoder states
+    (under ``mesh``: the heads of ``p``'s columns, the states entering
+    through ``hints.copy``)."""
     b, se, _ = enc_out.shape
-    h, hd = cfg.n_heads, cfg.head_dim
-    return ((enc_out @ p["wk"]).reshape(b, se, h, hd),
-            (enc_out @ p["wv"]).reshape(b, se, h, hd))
+    hd = cfg.head_dim
+    if mesh is not None:
+        enc_out = hints.copy(enc_out, mesh)
+    return ((enc_out @ p["wk"]).reshape(b, se, -1, hd),
+            (enc_out @ p["wv"]).reshape(b, se, -1, hd))
+
+
+def _cross_layout(p: Params, cfg: ArchConfig):
+    """(the cross-attention's weights, the mesh its heads split over or
+    None): under a mesh whose model axis splits the weights, this rank's
+    heads where the heads divide, else every split weight gathered whole
+    (the block then runs alike on every rank)."""
+    mesh = hints.active_mesh()
+    _, ext = hints.model_rank(mesh)
+    width = cfg.n_heads * cfg.head_dim
+    if ext == 1 or p["wo"].shape[-2] == width:
+        return p, None
+    if cfg.n_heads % ext == 0:
+        return p, mesh
+    return {k: hints.replicate(v, mesh, -2 if k == "wo" else -1) for k, v in p.items()}, None
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> Params:
@@ -123,39 +160,47 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> P
     }
 
 
-def _enc_layer(layer: Params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    b, s, _ = h.shape
+def _enc_layer(layer: Params, h: torch.Tensor, cfg: ArchConfig, fsdp=None) -> torch.Tensor:
+    if fsdp is not None:
+        layer = hints.gather_data(layer, fsdp, hints.active_mesh(), slice(1, None), shift=1)
     p, x = _widen(layer["attn"], common.layernorm(layer["attn_norm"], h))
-    q, k, v = attn_mod.qkv(p, cfg, x, torch.arange(s, device=h.device))
-    a, _ = flash_attention(q, k, v, causal=False)
-    h = h + a.reshape(b, s, -1) @ p["wo"]
+    h = h + attn_mod.attention_block(p, cfg, x, causal=False)[0]
     p, x = _widen(layer["mlp"], common.layernorm(layer["mlp_norm"], h))
-    return h + common.mlp(p, "gelu_mlp", x)
+    return h + common.mlp(p, "gelu_mlp", x, d_ff=cfg.d_ff)
 
 
-def _dec_block(layer: Params, h: torch.Tensor, cfg: ArchConfig, kv, **cache) -> torch.Tensor:
-    """One decoder layer against the cross (k, v); ``cache`` is
-    ``attention_block``'s decode arguments, none for teacher forcing."""
+def _dec_block(layer: Params, h: torch.Tensor, cfg: ArchConfig, kv, mesh=None,
+               **cache) -> torch.Tensor:
+    """One decoder layer against the cross (k, v) (``mesh``: the heads of
+    the cross-attention split over it); ``cache`` is ``attention_block``'s
+    decode arguments, none for teacher forcing."""
     a, _ = attn_mod.attention_block(layer["self_attn"], cfg,
                                     common.layernorm(layer["self_norm"], h), **cache)
     h = h + a
-    h = h + _xattn(layer["cross_attn"], cfg, common.layernorm(layer["cross_norm"], h), kv)
-    return h + common.mlp(layer["mlp"], "gelu_mlp", common.layernorm(layer["mlp_norm"], h))
+    h = h + _xattn(layer["cross_attn"], cfg, common.layernorm(layer["cross_norm"], h), kv, mesh)
+    return h + common.mlp(layer["mlp"], "gelu_mlp", common.layernorm(layer["mlp_norm"], h),
+                          d_ff=cfg.d_ff)
 
 
 def _dec_layer(layer: Params, h: torch.Tensor, cfg: ArchConfig,
-               enc_out: torch.Tensor) -> torch.Tensor:
-    return _dec_block(layer, h, cfg, xattn_kv(layer["cross_attn"], cfg, enc_out))
+               enc_out: torch.Tensor, fsdp=None) -> torch.Tensor:
+    if fsdp is not None:
+        layer = hints.gather_data(layer, fsdp, hints.active_mesh(), slice(1, None), shift=1)
+    cross, mesh = _cross_layout(layer["cross_attn"], cfg)
+    layer = {**layer, "cross_attn": cross}
+    return _dec_block(layer, h, cfg, xattn_kv(cross, cfg, enc_out, mesh), mesh)
 
 
-def _layers(fn, stack: Params, n: int, h: torch.Tensor, *args) -> torch.Tensor:
-    """``h`` through ``fn(layer, h, *args)`` for each of the ``n`` layers."""
+def _layers(fn, params: Params, key: str, n: int, h: torch.Tensor, specs, *args) -> torch.Tensor:
+    """``h`` through ``fn(layer, h, *args, fsdp)`` for each of the ``n``
+    layers of ``params[key]`` (``specs``: the parameters' under a mesh)."""
+    fsdp = None if specs is None else specs[key]
+    stack = hints.gather_data(params[key], fsdp, hints.active_mesh(), slice(0, 1))
     for layer in common.unstack(stack, n):
         if torch.is_grad_enabled():
-            # the layers draw no random numbers: no RNG state to replay
-            h = checkpoint(fn, layer, h, *args, use_reentrant=False, preserve_rng_state=False)
+            h = hints.remat(fn, layer, h, *args, fsdp)
         else:
-            h = fn(layer, h, *args)
+            h = fn(layer, h, *args, fsdp)
     return h
 
 
@@ -164,7 +209,8 @@ def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tenso
     the promoted type of the frames and the parameters."""
     pos = common.sinusoidal_positions(frames.shape[1], cfg.d_model, device=frames.device)
     h = frames + pos.to(frames.dtype)
-    h = _layers(_enc_layer, params["enc_layers"], cfg.n_encoder_layers, h, cfg)
+    h = _layers(_enc_layer, params, "enc_layers", cfg.n_encoder_layers, h,
+                common.mesh_specs(cfg)[1], cfg)
     return common.layernorm(params["enc_norm"], h)
 
 
@@ -173,11 +219,12 @@ def decode_train(params: Params, cfg: ArchConfig, enc_out: torch.Tensor,
     """Teacher-forced decoder hidden states [B, S, d] of ``tokens`` [B, S];
     ``enc_out`` in the parameters' dtype."""
     s = tokens.shape[1]
-    h = common.embed(params["embed"], tokens) + params["dec_pos"][:s][None]
+    h = common.embed(params["embed"], tokens, vocab=cfg.vocab_size) + params["dec_pos"][:s][None]
     if enc_out.dtype != h.dtype:
         raise TypeError(f"decode_train: encoder states in {enc_out.dtype} against "
                         f"{h.dtype} parameters; encode {h.dtype} frames")
-    h = _layers(_dec_layer, params["dec_layers"], cfg.n_layers, h, cfg, enc_out)
+    h = _layers(_dec_layer, params, "dec_layers", cfg.n_layers, h, common.mesh_specs(cfg)[1],
+                cfg, enc_out)
     return common.layernorm(params["dec_norm"], h)
 
 
@@ -186,10 +233,7 @@ def lm_loss(params: Params, cfg: ArchConfig, frames: torch.Tensor,
     """Next-token cross-entropy (float32 scalar) of ``tokens`` [B, S] given
     the frames, through the tied embedding."""
     h = decode_train(params, cfg, encode(params, cfg, frames), tokens)
-    h_in, labels = h[:, :-1], tokens[:, 1:]
-    mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
-    return common.chunked_softmax_xent(h_in, labels, mask, params["embed"]["table"],
-                                       chunk=min(512, h_in.shape[1]), transpose=True)
+    return transformer.next_token_xent(params, cfg, h, tokens, loss_chunk=512)
 
 
 # ---------------------------------------------------------------------------

@@ -34,36 +34,62 @@ taken where the ranks' work parted:
 * :func:`take_shard`: forward this rank's part along ``dim``; backward the
   parts of every rank gathered along ``dim`` (the input is held whole and
   each rank's part of its gradient lives on that rank).
+* :func:`replicate`: forward the parts of every rank along ``dim``, as
+  :func:`all_gather`; backward this rank's part of the gradient, no sum
+  (the whole feeds work every rank does alike: the residual stream after
+  a column-parallel projection, a weight every rank then uses whole).
+  It is :func:`take_shard` the other way round.
 
 With no process group, or an axis of one rank, each is the identity.
+
+:func:`remat` is ``torch.utils.checkpoint`` of a layer with this thread's
+active mesh carried into the recomputation, which the backward runs on
+the autograd engine's thread (a CUDA device's worker thread on the card).
+
+:func:`gather_data` gathers the leaves of a parameter tree that FSDP splits
+over the data axes (each leaf's spec says which), with
+:func:`all_gather`: the models call it on a layer inside its
+rematerialised body, so the gathered copy is freed after the layer.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import threading
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.launch.mesh import gather_parts, part
+from repro_torch.launch.mesh import data_axes, gather_parts, part
+from repro_torch.launch.shardings import entry_axes
 
 Axis = str | tuple[str, ...]
 
-_ACTIVE: list = []
+# a stack of active meshes per thread, so threads can stand for ranks
+_LOCAL = threading.local()
+
+
+def _stack() -> list:
+    if not hasattr(_LOCAL, "meshes"):
+        _LOCAL.meshes = []
+    return _LOCAL.meshes
 
 
 @contextlib.contextmanager
 def use_mesh(mesh):
-    """Make ``mesh`` the active mesh inside the block (``None``: none)."""
-    _ACTIVE.append(mesh)
+    """Make ``mesh`` the active mesh inside the block (``None``: none), in
+    this thread."""
+    _stack().append(mesh)
     try:
         yield mesh
     finally:
-        _ACTIVE.pop()
+        _stack().pop()
 
 
 def active_mesh():
-    """The mesh of the innermost :func:`use_mesh`, or ``None``."""
-    mesh = _ACTIVE[-1] if _ACTIVE else None
+    """The mesh of this thread's innermost :func:`use_mesh`, or ``None``."""
+    meshes = _stack()
+    mesh = meshes[-1] if meshes else None
     if mesh is None or not tuple(getattr(mesh, "axis_names", ())):
         return None
     return mesh
@@ -136,6 +162,17 @@ class _TakeShard(torch.autograd.Function):
         return gather_parts(ctx.mesh, g.contiguous(), ctx.dim, ctx.axes), None, None, None
 
 
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axes):
+        ctx.mesh, ctx.dim, ctx.axes = mesh, dim, axes
+        return gather_parts(mesh, x.contiguous(), dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return part(ctx.mesh, g, ctx.dim, ctx.axes).contiguous(), None, None, None
+
+
 def psum(x: torch.Tensor, mesh, axes: Axis = "model") -> torch.Tensor:
     """The sum of every rank's ``x`` over ``axes``; backward: the identity."""
     axes = _axes(mesh, axes)
@@ -161,6 +198,45 @@ def take_shard(x: torch.Tensor, mesh, dim: int, axes: Axis = "model") -> torch.T
     parts of every rank's gradient gathered along ``dim``."""
     axes = _axes(mesh, axes)
     return _TakeShard.apply(x, mesh, dim % x.ndim, axes) if axes else x
+
+
+def replicate(x: torch.Tensor, mesh, dim: int, axes: Axis = "model") -> torch.Tensor:
+    """Every rank's ``x`` over ``axes`` concatenated along ``dim``, for work
+    every rank then does alike; backward: this rank's part of the gradient."""
+    axes = _axes(mesh, axes)
+    return _Replicate.apply(x, mesh, dim % x.ndim, axes) if axes else x
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant, no RNG
+    state: the layers draw no random numbers), the active mesh entered
+    again when the backward recomputes it."""
+    mesh = active_mesh()
+
+    def run(*a):
+        with use_mesh(mesh):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def gather_data(tree, specs, mesh, dims: slice, shift: int = 0):
+    """``tree`` (dicts and lists of tensors) with each leaf gathered over the
+    data axes its spec in ``specs`` names at the spec entries ``dims``
+    (``shift``: the spec's entries before the leaf's own dims, 1 for a
+    layer view of a stacked leaf).  ``mesh=None``: ``tree`` itself."""
+    if mesh is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_data(v, specs[k], mesh, dims, shift) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gather_data(v, s, mesh, dims, shift) for v, s in zip(tree, specs, strict=True)]
+    dp = data_axes(mesh)
+    for i in range(len(specs))[dims]:
+        axes = tuple(a for a in entry_axes(specs[i]) if a in dp)
+        if axes:
+            tree = all_gather(tree, mesh, i - shift, axes)
+    return tree
 
 
 def hint(x: torch.Tensor, dims: dict[int, Axis]) -> torch.Tensor:

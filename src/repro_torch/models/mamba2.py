@@ -21,10 +21,25 @@ reference's is plain XLA): a float32 [L, B, H, P, N] SSM state and a
 [L, B, W-1, C] causal-conv tail in the model's dtype, both updated in place
 by :func:`decode_step`.
 
+Under a mesh (``hints.use_mesh``) ``forward`` and ``lm_loss`` take this
+rank's slices of the parameters (``launch/shardings.py``) and its rows of
+the batch.  ``in_proj`` and the conv leaves are whole on every rank, which
+computes the projection and the conv alike; the reference's head hint
+splits the SSD heads over ``model`` where they divide.  Each rank then
+takes its heads of x, dt and z and its slices of ``dt_bias``, ``a_log``,
+``d_skip`` and the gate norm's scale (``hints.take_shard``), runs B10 on
+its heads with B and C (shared by the heads) entering through
+``hints.copy``, forms the gated RMSNorm over the whole ``d_inner`` with its
+mean square a sum over ``model`` (``hints.psum`` then ``hints.copy``: each
+rank normalises its own channels with it), and multiplies by its rows of
+the row-parallel ``out_proj``, followed by a ``hints.psum``.  Where the
+heads do not divide but ``out_proj``'s rows do, the block runs alike on
+every rank up to its channels of the gated output.  A layer leaf split over
+``data`` (FSDP) is gathered inside the rematerialised layer.  Decode keeps
+its one-device path.
+
 What the port leaves out: ``remat`` as a keyword (the layers are
-checkpointed whenever grad is on), the sharding hint on the heads of the
-family's layout on a mesh, which waits (ROADMAP queue A item 12; the
-dense family's layout is ported).
+checkpointed whenever grad is on).
 
 Shapes: tokens [B, S]; inner activations [B, S, H, P] (H heads, P head dim);
 B/C projections [B, S, G, N] (G groups, N state dim).
@@ -36,12 +51,11 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_plain
-from repro_torch.models import common
+from repro_torch.models import common, hints, transformer
 
 Params = dict[str, Any]
 
@@ -115,8 +129,25 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, h0=None):
     return ssd_chunk_plain(x * dt[..., None], -a[None, None, :] * dt, b, c, chunk, h0)
 
 
-def layer_fwd(layer: Params, cfg: ArchConfig, h_in: torch.Tensor) -> torch.Tensor:
-    """One mamba2 block (prefill)."""
+def _gated_norm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor, d_inner: int,
+                mesh=None) -> torch.Tensor:
+    """RMSNorm of ``y * silu(z)`` over ``d_inner`` channels, of which the
+    tensors hold this rank's under ``mesh``."""
+    g = y * F.silu(z)
+    if mesh is None:
+        return common.rmsnorm({"scale": scale}, g)
+    gf = g.float()
+    var = hints.copy(hints.psum(gf.square().sum(-1, keepdim=True), mesh), mesh) / d_inner
+    return (gf * torch.rsqrt(var + 1e-6) * scale.float()).to(g.dtype)
+
+
+def layer_fwd(layer: Params, cfg: ArchConfig, h_in: torch.Tensor,
+              fsdp: Params | None = None) -> torch.Tensor:
+    """One mamba2 block (prefill); ``fsdp`` (the layer leaves' specs under a
+    mesh) names the leaves to gather over ``data`` first."""
+    mesh = hints.active_mesh()
+    if fsdp is not None:
+        layer = hints.gather_data(layer, fsdp, mesh, slice(1, None), shift=1)
     d_inner, n_heads, _ = _dims(cfg)
     gn = cfg.n_groups * cfg.ssm_state
     x_norm = common.rmsnorm(layer["norm"], h_in)
@@ -127,29 +158,45 @@ def layer_fwd(layer: Params, cfg: ArchConfig, h_in: torch.Tensor) -> torch.Tenso
     x = x.reshape(bsz, s, n_heads, cfg.ssm_head_dim).float()
     b = b.reshape(bsz, s, cfg.n_groups, cfg.ssm_state).float().contiguous()
     c = c.reshape(bsz, s, cfg.n_groups, cfg.ssm_state).float().contiguous()
-    dt = common.softplus(dt.float() + layer["dt_bias"])
-    a = torch.exp(layer["a_log"])
+    dt = dt.float()
+    heads = {k: layer[k] for k in ("dt_bias", "a_log", "d_skip")}
+    scale = layer["gate_norm"]["scale"]
+    _, ext = hints.model_rank(mesh)
+    split_heads = ext > 1 and n_heads % ext == 0
+    if split_heads:  # this rank's heads, B and C shared by them
+        x, dt, z, scale = (hints.take_shard(t, mesh, dim) for t, dim in
+                           ((x, 2), (dt, -1), (z, -1), (scale, -1)))
+        heads = {k: hints.take_shard(v, mesh, -1) for k, v in heads.items()}
+        b, c = hints.copy(b, mesh), hints.copy(c, mesh)
+    dt = common.softplus(dt + heads["dt_bias"])
+    a = torch.exp(heads["a_log"])
 
     y, _ = ssd_chunk(x * dt[..., None], -a[None, None, :] * dt, b, c,
                      chunk=min(cfg.ssm_chunk, s))
-    y = y + layer["d_skip"][None, None, :, None] * x
-    y = y.reshape(bsz, s, d_inner).to(h_in.dtype)
-    y = common.rmsnorm(layer["gate_norm"], y * F.silu(z))
-    return h_in + y @ layer["out_proj"]
+    y = y + heads["d_skip"][None, None, :, None] * x
+    y = y.reshape(bsz, s, -1).to(h_in.dtype)
+    y = _gated_norm(scale, y, z, d_inner, mesh if split_heads else None)
+    if ext > 1 and not split_heads and layer["out_proj"].shape[-2] != d_inner:
+        y = hints.take_shard(y, mesh, -1)  # the channels this rank's out_proj rows read
+    out = y @ layer["out_proj"]
+    if ext > 1 and layer["out_proj"].shape[-2] != d_inner:
+        out = hints.psum(out, mesh)
+    return h_in + out
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Hidden states [B, S, d] for training or prefill; every layer
     checkpointed when grad is on."""
-    h = common.embed(params["embed"], tokens)
+    mesh, specs = common.mesh_specs(cfg)
+    fsdp = None if specs is None else specs["layers"]
+    h = common.embed(params["embed"], tokens, vocab=cfg.vocab_size)
     remat = torch.is_grad_enabled()
-    for layer in common.unstack(params["layers"], cfg.n_layers):
+    stack = hints.gather_data(params["layers"], fsdp, mesh, slice(0, 1))
+    for layer in common.unstack(stack, cfg.n_layers):
         if remat:
-            # the layers draw no random numbers: no RNG state to replay
-            h = checkpoint(layer_fwd, layer, cfg, h, use_reentrant=False,
-                           preserve_rng_state=False)
+            h = hints.remat(layer_fwd, layer, cfg, h, fsdp)
         else:
-            h = layer_fwd(layer, cfg, h)
+            h = layer_fwd(layer, cfg, h, fsdp)
     return common.rmsnorm(params["final_norm"], h)
 
 
@@ -157,11 +204,8 @@ def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             loss_chunk: int = 1024) -> torch.Tensor:
     """Next-token cross-entropy (float32 scalar) of ``tokens`` [B, S] on the
     parameters' device, the LM head tied to the embedding."""
-    h = forward(params, cfg, tokens)
-    h_in, labels = h[:, :-1], tokens[:, 1:]
-    mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
-    return common.chunked_softmax_xent(h_in, labels, mask, params["embed"]["table"],
-                                       chunk=min(loss_chunk, h_in.shape[1]), transpose=True)
+    return transformer.next_token_xent(params, cfg, forward(params, cfg, tokens), tokens,
+                                       loss_chunk)
 
 
 # ---------------------------------------------------------------------------

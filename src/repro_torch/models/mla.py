@@ -20,9 +20,17 @@ the context unfolded through ``w_uv``.  The new token's latents go into the
 cache in place, in the slot ``dynamic_update_slice`` would place them
 (``attention.update_cache``'s rule), and the cache is returned.
 
-What the port leaves out: the sharding hints (``hints.hint``) of MLA's
-layout on a mesh: ``models/hints.py`` and the dense family's layout are
-ported, the MLA family's waits (ROADMAP queue A item 12).
+Under a mesh (``hints.use_mesh``) with a ``model`` axis of extent ext > 1
+the prefill takes this rank's slices (``launch/shardings.py``): ``w_q`` /
+``w_uq``, ``w_uk`` and ``w_uv`` column-parallel, ``wo`` row-parallel.  The
+latent projections (``w_dq``, ``q_norm``, ``w_dkv``, ``kv_norm``,
+``w_kpe``) are whole on every rank, which computes them alike; they enter
+the rank's split work through ``hints.copy``, so their gradients are
+summed over ``model``.  When ext divides the heads, B7 runs on this rank's
+H / ext heads (the reference's head hints) and ``wo`` is followed by a
+``hints.psum``; otherwise each split weight is gathered whole
+(``hints.replicate``) and every rank runs the block alike.  Decode keeps
+its one-device path.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import common
+from repro_torch.models import common, hints
 
 Params = dict[str, Any]
 
@@ -67,14 +75,20 @@ def init_mla(gen: torch.Generator, cfg: ArchConfig, dtype, *, lead=()) -> Params
     return p
 
 
-def _queries(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+def _queries(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
+             mesh=None):
+    """(q_nope, q_pe) of the heads the query weight's columns hold; under
+    ``mesh`` the input of the column-parallel product enters through
+    ``hints.copy``."""
     b, s, _ = x.shape
-    h, nope, rope = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     if cfg.q_lora_rank:
-        q = common.rmsnorm(p["q_norm"], x @ p["w_dq"]) @ p["w_uq"]
+        q_in, w = common.rmsnorm(p["q_norm"], x @ p["w_dq"]), p["w_uq"]
     else:
-        q = x @ p["w_q"]
-    q = q.reshape(b, s, h, nope + rope)
+        q_in, w = x, p["w_q"]
+    if mesh is not None:
+        q_in = hints.copy(q_in, mesh)
+    q = (q_in @ w).reshape(b, s, -1, nope + rope)
     q_nope, q_pe = q[..., :nope], q[..., nope:]
     return q_nope, common.apply_rope(q_pe, positions, cfg.rope_theta)
 
@@ -105,6 +119,9 @@ def mla_block(
     nope, rope, vdim = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
 
     if cache is None:
+        mesh = hints.active_mesh()
+        if hints.model_rank(mesh)[1] > 1:
+            return _mla_mesh(p, cfg, x, mesh)
         positions = torch.arange(s, device=x.device)
         q_nope, q_pe = _queries(p, cfg, x, positions)
         c_kv, k_pe = _latents(p, cfg, x, positions)
@@ -115,6 +132,9 @@ def mla_block(
         out, _ = flash_attention(q_full, k_full, v, causal=True)
         return out.reshape(b, s, h * vdim) @ p["wo"], (c_kv, k_pe)
 
+    if hints.model_rank(hints.active_mesh())[1] > 1:
+        raise NotImplementedError("decode under a mesh with a model axis: decode keeps its "
+                                  "one-device path")
     if cache_pos is None:
         raise ValueError("decode against a cache needs cache_pos")
     slot = write_slot if write_slot is not None else cache_pos
@@ -135,3 +155,36 @@ def mla_block(
     ctx = torch.einsum("bhs,bsr->bhr", probs, c_kv)                    # [B,h,r]
     out = torch.einsum("bhr,rhd->bhd", ctx, p["w_uv"].reshape(r, h, vdim))
     return out.reshape(b, 1, h * vdim) @ p["wo"], cache
+
+
+def _mla_mesh(p: Params, cfg: ArchConfig, x: torch.Tensor, mesh):
+    """The prefill on the model axis (module docstring): (out, (c_kv, k_pe))
+    with the latents whole."""
+    b, s, _ = x.shape
+    h, nope, rope, vdim = (cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                           cfg.v_head_dim)
+    _, ext = hints.model_rank(mesh)
+    if h % ext:
+        # the heads do not split: each split weight gathered whole, the
+        # block run alike on every rank
+        p = dict(p)
+        widths = {"w_q": h * (nope + rope), "w_uq": h * (nope + rope), "w_uk": h * nope,
+                  "w_uv": h * vdim}
+        for k, full in widths.items():
+            if k in p and p[k].shape[-1] != full:
+                p[k] = hints.replicate(p[k], mesh, -1)
+        if p["wo"].shape[-2] != h * vdim:
+            p["wo"] = hints.replicate(p["wo"], mesh, -2)
+        with hints.use_mesh(None):
+            return mla_block(p, cfg, x)
+    positions = torch.arange(s, device=x.device)
+    q_nope, q_pe = _queries(p, cfg, x, positions, mesh)                # this rank's heads
+    c_kv, k_pe = _latents(p, cfg, x, positions)                         # whole, alike
+    c_in, kpe_in = hints.copy(c_kv, mesh), hints.copy(k_pe, mesh)
+    hl = h // ext
+    k_nope = (c_in @ p["w_uk"]).reshape(b, s, hl, nope)
+    v = (c_in @ p["w_uv"]).reshape(b, s, hl, vdim)
+    q_full = torch.cat([q_nope, q_pe], dim=-1)
+    k_full = torch.cat([k_nope, kpe_in[:, :, None, :].expand(b, s, hl, rope)], dim=-1)
+    out, _ = flash_attention(q_full, k_full, v, causal=True)
+    return hints.psum(out.reshape(b, s, hl * vdim) @ p["wo"], mesh), (c_kv, k_pe)

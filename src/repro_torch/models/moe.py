@@ -18,9 +18,25 @@ index first, so equal inputs make the reference's choices, ties included.
 softmaxes may still order two nearly equal experts otherwise: the tests
 compare dispatch masks bit for bit on random router inputs.)
 
-What the port leaves out: the sharding hints (``hints.hint``) of the
-experts' layout on a mesh: ``models/hints.py`` and the dense family's
-layout are ported, expert parallelism waits (ROADMAP queue A item 12).
+Under a mesh (``hints.use_mesh``) with a ``model`` axis, :func:`moe_ffn`
+takes this rank's slices of the expert stacks (``launch/shardings.py``):
+
+* expert-parallel, when E divides the model extent (the rules split the
+  expert axis): the float32 router is whole on every rank, so every rank
+  routes alike and takes its experts' columns of dispatch and combine
+  (``hints.take_shard``, whose backward gathers the combine's gradient
+  whole); the expert einsums run on its E / ext experts, the input enters
+  through ``hints.copy`` and the combine's sum over E is a ``hints.psum``;
+* tensor-parallel inside each expert, when E does not divide but the
+  expert width does (the rules split ``w_gate`` / ``w_up`` on their last
+  dim and ``w_down`` on its rows): every expert on every rank, this rank's
+  columns of each; the combine enters through ``hints.copy`` (its
+  gradient is partial on each rank) and the output is summed;
+* otherwise the experts are whole and every rank computes the FFN alike.
+
+The aux loss comes from the routing every rank computes alike: it is
+counted once, never summed over ``model``.  The shared experts are
+``common.mlp`` at their full width, with its own layout.
 """
 from __future__ import annotations
 
@@ -30,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import common
+from repro_torch.models import common, hints
 
 Params = dict[str, Any]
 
@@ -106,13 +122,30 @@ def moe_ffn(p: Params, cfg: ArchConfig, x: torch.Tensor):
     logits = xg.float() @ p["router"]
     dispatch, combine, aux = route(logits, cfg.top_k, cap)
 
-    xin = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), xg)    # [BG,E,C,d]
     ex = p["experts"]
+    mesh = hints.active_mesh()
+    split_e = mesh is not None and ex["w_gate"].shape[-3] != cfg.n_experts
+    split_f = (mesh is not None and not split_e
+               and ex["w_down"].shape[-2] != cfg.d_ff_expert)
+    x_exp = xg
+    if split_e:      # this rank's experts
+        x_exp = hints.copy(xg, mesh)
+        dispatch = hints.take_shard(dispatch, mesh, 2)
+        combine = hints.take_shard(combine, mesh, 2)
+    elif split_f:    # this rank's columns of every expert
+        x_exp = hints.copy(xg, mesh)
+        combine = hints.copy(combine, mesh)
+
+    xin = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x_exp)  # [BG,E,C,d]
     gate = F.silu(torch.einsum("becd,edf->becf", xin, ex["w_gate"]))
     up = torch.einsum("becd,edf->becf", xin, ex["w_up"])
     out = torch.einsum("becf,efd->becd", gate * up, ex["w_down"])      # [BG,E,C,d]
-    y = torch.einsum("bsec,becd->bsd", combine.to(x.dtype), out).reshape(b, s, d)
+    y = torch.einsum("bsec,becd->bsd", combine.to(x.dtype), out)
+    if split_e or split_f:
+        y = hints.psum(y, mesh)
+    y = y.reshape(b, s, d)
 
     if "shared" in p:
-        y = y + common.mlp(p["shared"], "swiglu", x)
+        y = y + common.mlp(p["shared"], "swiglu", x,
+                           d_ff=cfg.n_shared_experts * cfg.d_ff_expert)
     return y, aux

@@ -25,10 +25,24 @@ router's aux loss summed over the MoE layers; its backward goes through B8
 each in ``jax.checkpoint`` (the routing is recomputed from the same inputs,
 so it makes the same choices).
 
+Under a mesh (``hints.use_mesh``) ``forward`` and ``lm_loss`` take this
+rank's slices of the parameters (``launch/shardings.py``) and its rows of
+the batch: the vocab-parallel embedding and loss of ``models/common.py``,
+the attention's layout (``models/attention.py``, or ``models/mla.py``'s
+heads), the expert layout of ``models/moe.py`` and the dense SwiGLU of the
+first layers and the shared experts column- then row-parallel
+(``common.mlp``).  A layer leaf the rules split over ``data`` (FSDP) is
+gathered inside the rematerialised layer, as ``models/transformer.py``
+does.
+
+``forward``'s ``seq_shard`` keyword (the reference's default, ``None``,
+reads ``$REPRO_SEQ_SHARD`` at each call) is a layout hint of the
+reference's: the residual stream's sequence sharded over ``model`` between
+blocks.  It moves no number, and the port takes the same route whatever
+the keyword or the variable say.
+
 What the port leaves out: ``chunked_attn`` (the attention always streams
-through B7), and the sequence-sharding hint ``seq_shard`` /
-``$REPRO_SEQ_SHARD`` of the family's layout on a mesh, which waits (ROADMAP
-queue A item 12; the dense family's layout is ported).
+through B7).
 """
 from __future__ import annotations
 
@@ -36,12 +50,10 @@ from typing import Any, NamedTuple
 
 import torch
 
-from torch.utils.checkpoint import checkpoint
-
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import common, mla, moe
+from repro_torch.models import common, hints, mla, moe, transformer
 
 Params = dict[str, Any]
 
@@ -104,41 +116,49 @@ def _ffn(layer: Params, cfg: ArchConfig, h: torch.Tensor):
     """(y, aux) of a dense-prefix layer's SwiGLU (aux None) or an MoE FFN."""
     x = common.apply_norm(cfg.norm, layer["mlp_norm"], h)
     if "mlp" in layer:
-        return common.mlp(layer["mlp"], "swiglu", x), None
+        return common.mlp(layer["mlp"], "swiglu", x, d_ff=cfg.d_ff_dense or cfg.d_ff), None
     return moe.moe_ffn(layer["moe"], cfg, x)
 
 
-def _stacks(params: Params, cfg: ArchConfig) -> list[tuple[str, list[Params]]]:
-    """The dense-prefix layers, then the MoE layers, as views per layer."""
+def _stacks(params: Params, cfg: ArchConfig, specs=None) -> list[tuple[str, list, Any]]:
+    """The dense-prefix layers, then the MoE layers, as views per layer,
+    each stack with its layer leaves' specs under a mesh (``specs``: the
+    parameters'; a leaf split over ``data`` on the layer axis is gathered
+    here, once)."""
     n_dense = cfg.first_dense_layers
     out = []
-    if "dense_layers" in params:
-        out.append(("dense", common.unstack(params["dense_layers"], n_dense)))
-    if "moe_layers" in params:
-        out.append(("moe", common.unstack(params["moe_layers"], cfg.n_layers - n_dense)))
+    for kind, key, n in (("dense", "dense_layers", n_dense),
+                         ("moe", "moe_layers", cfg.n_layers - n_dense)):
+        if key in params:
+            fsdp = None if specs is None else specs[key]
+            stack = hints.gather_data(params[key], fsdp, hints.active_mesh(), slice(0, 1))
+            out.append((kind, common.unstack(stack, n), fsdp))
     return out
 
 
-def _layer_fwd(layer: Params, cfg: ArchConfig, h: torch.Tensor):
+def _layer_fwd(layer: Params, cfg: ArchConfig, h: torch.Tensor, fsdp=None):
+    if fsdp is not None:
+        layer = hints.gather_data(layer, fsdp, hints.active_mesh(), slice(1, None), shift=1)
     h = h + _attn(layer, cfg, h)[0]
     y, aux = _ffn(layer, cfg, h)
     return h + y, aux
 
 
-def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor):
+def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            seq_shard: bool | None = None):
     """(hidden [B, S, d], aux loss) for training or prefill; ``tokens``
     [B, S] on the parameters' device.  The aux loss is the float32 sum of
-    the MoE layers'."""
-    h = common.embed(params["embed"], tokens)
+    the MoE layers'.  ``seq_shard`` changes nothing (module docstring)."""
+    del seq_shard
+    _, specs = common.mesh_specs(cfg)
+    h = common.embed(params["embed"], tokens, vocab=cfg.vocab_size)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for _, layers in _stacks(params, cfg):
+    for _, layers, fsdp in _stacks(params, cfg, specs):
         for layer in layers:
             if torch.is_grad_enabled():
-                # the layers draw no random numbers: no RNG state to replay
-                h, aux_l = checkpoint(_layer_fwd, layer, cfg, h, use_reentrant=False,
-                                      preserve_rng_state=False)
+                h, aux_l = hints.remat(_layer_fwd, layer, cfg, h, fsdp)
             else:
-                h, aux_l = _layer_fwd(layer, cfg, h)
+                h, aux_l = _layer_fwd(layer, cfg, h, fsdp)
             if aux_l is not None:
                 aux = aux + aux_l
     return common.apply_norm(cfg.norm, params["final_norm"], h), aux
@@ -149,12 +169,7 @@ def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     """Next-token cross-entropy of ``tokens`` [B, S] plus ``router_aux_coef``
     times the aux loss (float32 scalar)."""
     h, aux = forward(params, cfg, tokens)
-    h_in, labels = h[:, :-1], tokens[:, 1:]
-    mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
-    w = params["embed"]["table"] if cfg.tie_embeddings else params["lm_head"]
-    xent = common.chunked_softmax_xent(h_in, labels, mask, w,
-                                       chunk=min(loss_chunk, h_in.shape[1]),
-                                       transpose=cfg.tie_embeddings)
+    xent = transformer.next_token_xent(params, cfg, h, tokens, loss_chunk)
     return xent + cfg.router_aux_coef * aux
 
 
@@ -194,7 +209,7 @@ def decode_step(params: Params, cfg: ArchConfig, caches: MoECaches, token: torch
     h = common.embed(params["embed"], token)
     cache_len = caches.moe[0].shape[2]
     slot = pos % cache_len if cfg.sliding_window else pos
-    for kind, layers in _stacks(params, cfg):
+    for kind, layers, _ in _stacks(params, cfg):
         stack = getattr(caches, kind)
         for i, layer in enumerate(layers):
             layer_cache = type(stack)(*(t[i] for t in stack))

@@ -26,11 +26,24 @@ as in the reference.  Decode is the reference's O(1) update in plain PyTorch
 ``pos % local_window``), every state updated in place by
 :func:`decode_step`.
 
+Under a mesh (``hints.use_mesh``) ``forward`` and ``lm_loss`` take this
+rank's slices of the parameters (``launch/shardings.py``) and its rows of
+the batch.  The reference's hint splits the RG-LRU width over ``model``:
+``w_x`` and ``w_gate`` are column-parallel, so each rank holds its lanes of
+x and of the gate, and slices the whole ``conv_w``, ``conv_b`` and
+``lam`` to them (``hints.take_shard``).  ``w_r`` and ``w_i`` are
+row-parallel on their [w, w] leaves: the gate pre-activations are a
+``hints.psum`` of the rank's rows plus the whole ``b_r`` / ``b_i``, of
+which it keeps its lanes for B9.
+``w_out`` is row-parallel, followed by a ``hints.psum``; the MLPs are
+``common.mlp``'s and the MQA blocks ``attention.attention_block``'s
+layouts.  A leaf split over ``data`` (FSDP) is gathered inside the
+rematerialised period (the tail's blocks before each block).  Decode
+keeps its one-device path.
+
 What the port leaves out: ``remat`` and ``chunked_attn`` as keywords (the
 periods are checkpointed whenever grad is on; the attention always streams
-through B7), the sharding hint on the width of the family's layout on a
-mesh, which waits (ROADMAP queue A item 12; the dense family's layout is
-ported).
+through B7).
 """
 from __future__ import annotations
 
@@ -38,13 +51,12 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import common
+from repro_torch.models import common, hints, transformer
 
 Params = dict[str, Any]
 
@@ -133,6 +145,12 @@ def _rec_fwd(blk: Params, cfg: ArchConfig, h: torch.Tensor, state: RecState | No
     """Recurrent block: prefill (``state=None``) -> (out, None), or decode of
     one token -> (out, state updated in place)."""
     xin = common.rmsnorm(blk["norm"], h)
+    mesh = hints.active_mesh()
+    lanes = mesh is not None and state is None and blk["w_x"].shape[-1] != blk["lam"].shape[-1]
+    if lanes:  # this rank's lanes of the width
+        xin = hints.copy(xin, mesh)
+        blk = {**blk, **{k: hints.take_shard(blk[k], mesh, -1)
+                         for k in ("conv_w", "conv_b", "lam")}}
     x = xin @ blk["w_x"]
     gate = common.gelu(xin @ blk["w_gate"])
     if state is None:
@@ -140,11 +158,12 @@ def _rec_fwd(blk: Params, cfg: ArchConfig, h: torch.Tensor, state: RecState | No
         pad = F.pad(x, (0, 0, width - 1, 0))
         x = sum(pad[:, i:i + s, :] * blk["conv_w"][i][None, None] for i in range(width)) \
             + blk["conv_b"]
-        r = torch.sigmoid(x @ blk["w_r"] + blk["b_r"])
-        i = torch.sigmoid(x @ blk["w_i"] + blk["b_i"])
+        r = torch.sigmoid(_gate_pre(x, blk["w_r"], blk["b_r"], mesh if lanes else None))
+        i = torch.sigmoid(_gate_pre(x, blk["w_i"], blk["b_i"], mesh if lanes else None))
         y, _ = rglru_scan(x, r, i, blk["lam"])  # widened to float32 in the kernel or on the host
         y = y.to(h.dtype) * gate
-        out = h + y @ blk["w_out"]
+        out = y @ blk["w_out"]
+        out = h + (hints.psum(out, mesh) if lanes else out)
     else:
         window = torch.cat([state.conv, x], dim=1)                     # [B,W,w]
         x1 = torch.einsum("bwc,wc->bc", window, blk["conv_w"]) + blk["conv_b"]
@@ -155,8 +174,18 @@ def _rec_fwd(blk: Params, cfg: ArchConfig, h: torch.Tensor, state: RecState | No
         out = h + y @ blk["w_out"]
         state.lru.copy_(h_new)
         state.conv.copy_(window[:, 1:])
-    out = out + common.mlp(blk["mlp"], cfg.mlp, common.rmsnorm(blk["mlp_norm"], out))
+    out = out + common.mlp(blk["mlp"], cfg.mlp, common.rmsnorm(blk["mlp_norm"], out),
+                           d_ff=cfg.d_ff)
     return out, state
+
+
+def _gate_pre(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, mesh) -> torch.Tensor:
+    """``x @ w + bias``; under ``mesh`` x holds this rank's lanes and ``w``
+    its rows: the sum over ``model`` of the rows' products, plus the whole
+    bias, then this rank's lanes."""
+    if mesh is None:
+        return x @ w + bias
+    return hints.take_shard(hints.psum(x @ w, mesh) + bias, mesh, -1)
 
 
 def _attn_fwd(blk: Params, cfg: ArchConfig, h: torch.Tensor, *,
@@ -169,7 +198,7 @@ def _attn_fwd(blk: Params, cfg: ArchConfig, h: torch.Tensor, *,
         cache=cache, cache_pos=pos, write_slot=slot,
     )
     h = h + a
-    h = h + common.mlp(blk["mlp"], cfg.mlp, common.rmsnorm(blk["mlp_norm"], h))
+    h = h + common.mlp(blk["mlp"], cfg.mlp, common.rmsnorm(blk["mlp_norm"], h), d_ff=cfg.d_ff)
     return h, new_cache
 
 
@@ -182,10 +211,15 @@ def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tenso
     """The embedding scaled by sqrt(d_model), rounded to the table's dtype."""
     table = params["embed"]["table"]
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32)).to(table.dtype)
-    return common.embed(params["embed"], tokens) * scale.to(table.device)
+    return common.embed(params["embed"], tokens, vocab=cfg.vocab_size) * scale.to(table.device)
 
 
-def _period_fwd(period: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+def _period_fwd(period: Params, cfg: ArchConfig, h: torch.Tensor,
+                fsdp: Params | None = None) -> torch.Tensor:
+    """One period; ``fsdp`` (its leaves' specs under a mesh) names the
+    leaves to gather over ``data`` first."""
+    if fsdp is not None:
+        period = hints.gather_data(period, fsdp, hints.active_mesh(), slice(1, None), shift=1)
     for i, kind in enumerate(_pattern(cfg)):
         h = _block_fwd(kind, period[f"b{i}"], cfg, h)
     return h
@@ -195,16 +229,19 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tens
     """Hidden states [B, S, d] for training or prefill; every period
     checkpointed when grad is on."""
     n_periods, tail = _layout(cfg)
+    mesh, specs = common.mesh_specs(cfg)
+    fsdp = None if specs is None else specs["periods"]
     h = _embed(params, cfg, tokens)
     remat = torch.is_grad_enabled()
-    for period in common.unstack(params["periods"], n_periods):
+    stack = hints.gather_data(params["periods"], fsdp, mesh, slice(0, 1))
+    for period in common.unstack(stack, n_periods):
         if remat:
-            # the blocks draw no random numbers: no RNG state to replay
-            h = checkpoint(_period_fwd, period, cfg, h, use_reentrant=False,
-                           preserve_rng_state=False)
+            h = hints.remat(_period_fwd, period, cfg, h, fsdp)
         else:
-            h = _period_fwd(period, cfg, h)
-    for blk, kind in zip(params["tail"], tail, strict=True):
+            h = _period_fwd(period, cfg, h, fsdp)
+    tail_blocks = hints.gather_data(params["tail"], None if specs is None else specs["tail"],
+                                    mesh, slice(None))
+    for blk, kind in zip(tail_blocks, tail, strict=True):
         h = _block_fwd(kind, blk, cfg, h)
     return common.rmsnorm(params["final_norm"], h)
 
@@ -213,11 +250,8 @@ def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             loss_chunk: int = 1024) -> torch.Tensor:
     """Next-token cross-entropy (float32 scalar) of ``tokens`` [B, S] on the
     parameters' device, the LM head tied to the embedding."""
-    h = forward(params, cfg, tokens)
-    h_in, labels = h[:, :-1], tokens[:, 1:]
-    mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
-    return common.chunked_softmax_xent(h_in, labels, mask, params["embed"]["table"],
-                                       chunk=min(loss_chunk, h_in.shape[1]), transpose=True)
+    return transformer.next_token_xent(params, cfg, forward(params, cfg, tokens), tokens,
+                                       loss_chunk)
 
 
 # ---------------------------------------------------------------------------

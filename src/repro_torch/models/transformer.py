@@ -37,12 +37,9 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.launch import shardings
-from repro_torch.launch.mesh import data_axes
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common, hints
 
@@ -67,39 +64,12 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> P
     return params
 
 
-def _gather_data(tree: Params, specs: Params, mesh, dims: slice, shift: int = 0) -> Params:
-    """``tree`` with each leaf gathered over the data axes its spec names at
-    the spec entries ``dims`` (``shift``: the spec's entries before the
-    leaf's own dims, 1 for a layer view of a stacked leaf)."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out[k] = _gather_data(v, specs[k], mesh, dims, shift)
-            continue
-        spec = specs[k]
-        for i in range(len(spec))[dims]:
-            axes = tuple(a for a in shardings.entry_axes(spec[i]) if a in data_axes(mesh))
-            if axes:
-                v = hints.all_gather(v, mesh, i - shift, axes)
-        out[k] = v
-    return out
-
-
-def _layer_specs(cfg: ArchConfig, mesh):
-    """(the stacked layer leaves' specs, the top-level specs) when a mesh is
-    active, else (None, None)."""
-    if mesh is None:
-        return None, None
-    specs = shardings.lm_param_specs(cfg, mesh)
-    return specs["layers"], specs
-
-
 def layer_fwd(layer: Params, cfg: ArchConfig, h: torch.Tensor, window,
               fsdp: Params | None = None) -> torch.Tensor:
     """One layer; ``fsdp`` (the layer leaves' specs under a mesh) names the
     leaves to gather over ``data`` first."""
     if fsdp is not None:
-        layer = _gather_data(layer, fsdp, hints.active_mesh(), slice(1, None), shift=1)
+        layer = hints.gather_data(layer, fsdp, hints.active_mesh(), slice(1, None), shift=1)
     a, _ = attn_mod.attention_block(
         layer["attn"], cfg, common.apply_norm(cfg.norm, layer["attn_norm"], h),
         window=window,
@@ -116,21 +86,18 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     on the parameters' device.  ``prefix_embeds`` [B, P, d] (the VLM's
     projected patches), cast to the embeddings' dtype, go before the token
     embeddings, and positions run over prefix and text."""
-    mesh = hints.active_mesh()
-    fsdp, _ = _layer_specs(cfg, mesh)
+    mesh, specs = common.mesh_specs(cfg)
+    fsdp = None if specs is None else specs["layers"]
     h = common.embed(params["embed"], tokens, vocab=cfg.vocab_size)
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     win = window if window is not None else cfg.sliding_window
     remat = remat and torch.is_grad_enabled()
     # a leaf split over data on the layer axis itself is gathered once, here
-    stack = params["layers"] if fsdp is None else _gather_data(params["layers"], fsdp, mesh,
-                                                               slice(0, 1))
+    stack = hints.gather_data(params["layers"], fsdp, mesh, slice(0, 1))
     for layer in common.unstack(stack, cfg.n_layers):
         if remat:
-            # the layers draw no random numbers: no RNG state to replay
-            h = checkpoint(layer_fwd, layer, cfg, h, win, fsdp, use_reentrant=False,
-                           preserve_rng_state=False)
+            h = hints.remat(layer_fwd, layer, cfg, h, win, fsdp)
         else:
             h = layer_fwd(layer, cfg, h, win, fsdp)
     return common.apply_norm(cfg.norm, params["final_norm"], h)
@@ -143,7 +110,14 @@ def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     ``prefix_embeds`` [B, P, d] go before the text and carry no loss."""
     h = forward(params, cfg, tokens, prefix_embeds=prefix_embeds)
     n_prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
-    h = h[:, n_prefix:]
+    return next_token_xent(params, cfg, h[:, n_prefix:], tokens, loss_chunk)
+
+
+def next_token_xent(params: Params, cfg: ArchConfig, h: torch.Tensor, tokens: torch.Tensor,
+                    loss_chunk: int = 1024) -> torch.Tensor:
+    """The mean cross-entropy of ``tokens[:, 1:]`` from hidden states ``h``
+    [B, S, d] through the family's head (:func:`logits`'s): every family's
+    loss."""
     h_in, labels = h[:, :-1], tokens[:, 1:]
     mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
     return common.chunked_softmax_xent(h_in, labels, mask, _head(params, cfg),
@@ -156,16 +130,15 @@ def _head(params: Params, cfg: ArchConfig) -> torch.Tensor:
     gathered over ``data`` where FSDP splits it."""
     if cfg.tie_embeddings:
         return params["embed"]["table"]
-    mesh = hints.active_mesh()
-    _, specs = _layer_specs(cfg, mesh)
-    if specs is None:
-        return params["lm_head"]
-    return _gather_data({"lm_head": params["lm_head"]}, specs, mesh, slice(None))["lm_head"]
+    mesh, specs = common.mesh_specs(cfg)
+    return hints.gather_data(params["lm_head"], None if specs is None else specs["lm_head"],
+                             mesh, slice(None))
 
 
 def logits(params: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     """Logits [B, S, V] of hidden states (under a mesh, over the whole
-    vocab on every rank)."""
+    vocab on every rank), through the tied table or ``lm_head``: every
+    family's head."""
     w = _head(params, cfg)
     return common.logits_from_hidden(h, {"table": w} if cfg.tie_embeddings else None,
                                      None if cfg.tie_embeddings else w, vocab=cfg.vocab_size)

@@ -130,12 +130,13 @@ def optimizer(optim):
 
 
 def flatten(tree, prefix: str = "") -> dict:
-    """{"a/b/c": leaf} of a tree of dicts."""
+    """{"a/b/c": leaf} of a tree of dicts (an empty list, the hybrid
+    family's tail without blocks, has no leaf)."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
             out.update(flatten(v, f"{prefix}{k}/"))
-        else:
+        elif not (isinstance(v, list) and not v):
             out[f"{prefix}{k}"] = v
     return out
 
@@ -151,4 +152,67 @@ def unflatten(arrays: dict, prefix: str) -> dict:
         for part in path:
             node = node.setdefault(part, {})
         node[last] = value
+    return tree
+
+
+# one train step of each remaining family on a mesh (tests/test_torch_lm_mesh_*.py);
+# "changes" are applied to the reduced config on both sides, "group" names the
+# test file that runs the case, and a (1, 2) mesh runs on the two-rank world
+FAMILY_TRAIN = {
+    "internvl2 data 2 x model 2": dict(
+        arch="internvl2-2b", mesh=(2, 2), micro=2, batch=(8, 32), group="vlm_moe"),
+    "qwen2-moe data 1 x model 4": dict(
+        arch="qwen2-moe-a2.7b", mesh=(1, 4), micro=1, batch=(2, 64), group="vlm_moe"),
+    "qwen2-moe data 2 x model 2": dict(
+        arch="qwen2-moe-a2.7b", mesh=(2, 2), micro=1, batch=(4, 32), group="vlm_moe"),
+    "qwen2-moe 6 experts data 1 x model 4": dict(
+        arch="qwen2-moe-a2.7b", changes=dict(n_experts=6), mesh=(1, 4), micro=1,
+        batch=(2, 32), group="vlm_moe"),
+    "deepseek-v2 data 1 x model 4": dict(
+        arch="deepseek-v2-236b", mesh=(1, 4), micro=1, batch=(2, 32), group="vlm_moe"),
+    "mamba2 data 2 x model 2": dict(
+        arch="mamba2-780m", mesh=(2, 2), micro=1, batch=(4, 64), group="recurrent"),
+    "recurrentgemma data 1 x model 4": dict(
+        arch="recurrentgemma-9b", mesh=(1, 4), micro=1, batch=(2, 64), group="recurrent"),
+    "whisper data 1 x model 2": dict(
+        arch="whisper-tiny", mesh=(1, 2), micro=1, batch=(2, 32), group="encdec"),
+    "whisper 6 heads data 1 x model 4": dict(
+        arch="whisper-tiny", changes=dict(n_heads=6, n_kv_heads=6, d_model=384, head_dim=64),
+        mesh=(1, 4), micro=1, batch=(2, 64), group="encdec"),
+}
+FRONTEND = {"vlm": "patch_embeds", "encdec": "frames"}
+
+
+def family_cases(group: str, world: int | None = None) -> dict:
+    """The cases of ``group`` (those whose mesh spans ``world`` ranks)."""
+    return {name: case for name, case in FAMILY_TRAIN.items() if case["group"] == group
+            and (world is None or int(np.prod(case["mesh"])) == world)}
+
+
+def family_cfg(registry, case):
+    """The case's reduced config from ``registry`` (the port's or the
+    reference's)."""
+    return dataclasses.replace(registry.get(case["arch"]).reduced(), **case.get("changes", {}))
+
+
+def family_batch(cfg, case, seed: int) -> dict:
+    """Seeded numpy inputs of the case: int32 tokens and, for the vlm and
+    encdec families, float32 patches or frames."""
+    b, s = case["batch"]
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.normal(size=(b, cfg.n_patches, cfg.d_frontend)).astype(
+            np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(size=(b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def family_params(arrays: dict, prefix: str, cfg) -> dict:
+    """The parameter tree of a case under ``prefix`` of flat ``arrays``
+    (the hybrid family's empty tail restored)."""
+    tree = unflatten(arrays, prefix)
+    if cfg.family == "hybrid":
+        tree.setdefault("tail", [])
     return tree

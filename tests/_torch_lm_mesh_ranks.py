@@ -1,7 +1,7 @@
 """One rank of the port's LM-mesh cases (tests/test_torch_lm_mesh.py), run
 as its own process:
 
-    python tests/_torch_lm_mesh_ranks.py RANK WORLD STORE_FILE IN_DIR OUT_DIR
+    python tests/_torch_lm_mesh_ranks.py RANK WORLD STORE_FILE IN_DIR OUT_DIR [GROUP]
 
 The ranks start a gloo group from a ``FileStore`` (no TCP port), read the
 cases' inputs from ``IN_DIR/inputs.npz`` (written by the test from the
@@ -10,7 +10,10 @@ through the port's public entry points under ``hints.use_mesh``, and each
 writes what it holds to ``OUT_DIR/rank{RANK}.npz``: the differentiable
 collectives' outputs and input gradients, the attention blocks' outputs and
 gathered gradients, and the train steps' losses and gathered parameters and
-Adam moments.  With two ranks only the collectives run.
+Adam moments.  With two ranks only the collectives run.  With GROUP
+(tests/test_torch_lm_mesh_{vlm_moe,recurrent,encdec}.py) only the family
+cases of that group whose mesh spans WORLD ranks run: the MoE dispatch
+masks of a forward, then one train step each.
 """
 import os
 import sys
@@ -25,7 +28,7 @@ from repro_torch import interop, optim  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import shardings, steps  # noqa: E402
-from repro_torch.models import attention, get_bundle, hints  # noqa: E402
+from repro_torch.models import attention, get_bundle, hints, moe  # noqa: E402
 
 
 def _np(t) -> np.ndarray:
@@ -112,20 +115,78 @@ def train_steps(out: dict, inputs: dict) -> None:
                 out[f"train/{name}/{k}/{path}"] = _np(leaf)
 
 
-def main(rank: int, world: int, store: str, in_dir: str, out_dir: str) -> None:
+def dispatches(bundle, params, tokens) -> list:
+    """Each MoE layer's dispatch mask in a no-grad forward of this rank's
+    rows (every rank routes alike, before taking its experts' columns)."""
+    calls = []
+    route = moe.route
+
+    def logged(logits, top_k, cap):
+        got = route(logits, top_k, cap)
+        calls.append(_np(got[0]))
+        return got
+
+    moe.route = logged
+    try:
+        bundle.forward(params, tokens)
+    finally:
+        moe.route = route
+    return calls
+
+
+def family_steps(out: dict, inputs: dict, world: int, group: str) -> None:
+    """One AdamW step of each ``cases.family_cases(group, world)`` model on
+    its mesh, from the reference's parameters: the MoE dispatch masks of a
+    forward first, then the loss and every gathered parameter and Adam
+    moment."""
+    shardings.FSDP_MIN_ELEMENTS = cases.FSDP_MIN_ELEMENTS
+    for name, case in cases.family_cases(group, world).items():
+        cfg = cases.family_cfg(registry, case)
+        mesh = mesh_lib.Mesh(case["mesh"], ("data", "model"), device="cpu")
+        full = interop.lm_params_from_numpy(
+            cfg, cases.family_params(inputs, f"fam/{name}/p/", cfg), device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in
+                 cases.unflatten(inputs, f"fam/{name}/batch/").items()}
+        bundle = get_bundle(cfg)
+        with hints.use_mesh(mesh):
+            specs = shardings.lm_param_specs(cfg, mesh)
+            params = shardings.shard_tree(full, specs, mesh)
+            batch = shardings.shard_tree(batch, shardings.batch_shardings(batch, mesh), mesh)
+            if cfg.family == "moe":
+                for i, d in enumerate(dispatches(bundle, params, batch["tokens"])):
+                    out[f"fam/{name}/dispatch/{i}"] = d
+            opt = cases.optimizer(optim)
+            state = opt.init(params)
+            step = steps.make_train_step(bundle, opt, microbatches=case["micro"], clip_norm=1.0)
+            params, state, loss = step(params, state, batch)
+            got = {"params": params, "mu": state.mu, "nu": state.nu}
+            got = {k: shardings.gather_tree(v, specs, mesh) for k, v in got.items()}
+        out[f"fam/{name}/loss"] = _np(loss)
+        out[f"fam/{name}/specs"] = np.array(repr(sorted(cases.flatten(specs).items())))
+        for k, tree in got.items():
+            for path, leaf in cases.flatten(tree).items():
+                out[f"fam/{name}/{k}/{path}"] = _np(leaf)
+
+
+def main(rank: int, world: int, store: str, in_dir: str, out_dir: str,
+         group: str | None = None) -> None:
     torch.set_num_threads(1)
     mesh_lib.init_process_group_from_file(store, rank, world, backend="gloo", timeout_s=120)
     inputs = dict(np.load(os.path.join(in_dir, "inputs.npz")))
     out: dict = {}
     try:
-        collectives(out, inputs, world)
-        if world == cases.D:
-            attention_blocks(out, inputs)
-            train_steps(out, inputs)
+        if group is not None:
+            family_steps(out, inputs, world, group)
+        else:
+            collectives(out, inputs, world)
+            if world == cases.D:
+                attention_blocks(out, inputs)
+                train_steps(out, inputs)
     finally:
         torch.distributed.destroy_process_group()
     np.savez(os.path.join(out_dir, f"rank{world}_{rank}.npz"), **out)
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5],
+         *sys.argv[6:7])

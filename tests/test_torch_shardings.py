@@ -16,6 +16,7 @@ decode caches' of a batch of 128 at 4,096 tokens.
 the mesh's ranks as threads trading slices through a shared board
 (tests/test_torch_lm_mesh.py runs them over gloo ranks).
 """
+import dataclasses
 import functools
 import threading
 
@@ -25,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import AbstractMesh
+
+from _torch_parity import assert_close
 
 from repro import optim as joptim
 from repro.configs import registry as jregistry
@@ -154,11 +157,12 @@ def test_fsdp_threshold_is_read_at_each_call(monkeypatch):
 class _ThreadMesh:
     """Rank ``rank`` of a mesh whose ranks are threads of this process:
     ``gather_axis`` trades tensors with the peers along an axis through a
-    shared board and a barrier per group of peers."""
+    shared board and a barrier per group of peers, and ``psum`` sums them
+    (``hints.use_mesh`` is per thread)."""
 
     def __init__(self, shape, axes, rank, board):
         self.axis_names, self.shape = axes, dict(zip(axes, shape, strict=True))
-        self.rank, self.board = rank, board
+        self.rank, self.board, self.size = rank, board, int(np.prod(shape))
 
     def _stride(self, axis):
         return int(np.prod([self.shape[a] for a in
@@ -176,6 +180,8 @@ class _ThreadMesh:
 
     def gather_axis(self, t, axis):
         n = self.shape[axis]
+        if n == 1:
+            return [t]
         group = (axis, self.rank - self.coordinate(axis) * self._stride(axis))
         with self.board["lock"]:
             slots, barrier = self.board.setdefault(group, ({}, threading.Barrier(n)))
@@ -184,6 +190,15 @@ class _ThreadMesh:
         parts = [slots[i] for i in range(n)]
         barrier.wait()  # every peer has read the board before it is reused
         return parts
+
+    def psum(self, t, axes):
+        """The sum over ``axes`` in rank order (``Mesh.psum``'s)."""
+        for ax in axes:
+            parts = self.gather_axis(t, ax)
+            t = parts[0].clone() if len(parts) > 1 else t
+            for p in parts[1:]:
+                t += p
+        return t
 
 
 @pytest.mark.parametrize("mesh_name", ["data2-model2", "pod2-data2-model2"])
@@ -237,18 +252,104 @@ def test_hints_without_a_mesh_and_axis_helpers_match_reference():
                 mesh, "model", *cands)
 
 
+def _check_on_thread_mesh(cfg, model: int):
+    """Under a (data, model) = (1, ``model``) mesh whose ranks are threads:
+    ``init`` gives each rank its slices of the one-process parameters
+    (gathered back bit for bit), and ``forward``, ``prefill``, ``loss`` and
+    every gathered gradient leaf (the backward run on another thread, as
+    the autograd engine's device thread runs it on the card, so the
+    rematerialised layers must find their mesh again) match one
+    process's."""
+    bundle = get_bundle(cfg)
+    rng = np.random.default_rng(7)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)))}
+    frontend = {"vlm": ("patch_embeds", (cfg.n_patches, cfg.d_frontend)),
+                "encdec": ("frames", (cfg.encoder_seq, cfg.d_model))}.get(cfg.family)
+    if frontend:
+        batch[frontend[0]] = torch.from_numpy(
+            rng.normal(size=(2, *frontend[1])).astype(np.float32))
+    full = bundle.init(0, device="cpu")
+    want = (bundle.forward(full, *(batch[k] for k in batch)), bundle.prefill(full, batch))
+    flat = checkpoint.flatten(full)
+    for t in flat:
+        t.requires_grad_(True)
+    want_loss = bundle.loss(full, batch)
+    want_grads = torch.autograd.grad(want_loss, flat)
+    board = {"lock": threading.Lock()}
+    results = [None] * model
+
+    def rank(r):
+        mesh = _ThreadMesh((1, model), ("data", "model"), r, board)
+        specs = shardings.lm_param_specs(cfg, mesh)
+        with hints.use_mesh(mesh):
+            local = bundle.init(0, device="cpu")
+            gathered = shardings.gather_tree(local, specs, mesh)
+            got = [bundle.forward(local, *(batch[k] for k in batch)),
+                   bundle.prefill(local, batch)]
+            mine = checkpoint.flatten(local)
+            for t in mine:
+                t.requires_grad_(True)
+            loss = bundle.loss(local, batch)
+        grads = []
+        backward = threading.Thread(
+            target=lambda: grads.extend(torch.autograd.grad(loss, mine)))
+        backward.start()
+        backward.join(timeout=120)
+        full_grads = shardings.gather_tree(checkpoint.unflatten(local, grads), specs, mesh)
+        results[r] = (mine, gathered, got, loss.detach(), checkpoint.flatten(full_grads))
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(model)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=240)
+    assert all(results), "a rank thread failed"
+    for local, gathered, got, loss, grads in results:
+        assert any(l.numel() < f.numel() for l, f in zip(local, flat, strict=True))
+        for g, f in zip(checkpoint.flatten(gathered), flat, strict=True):
+            assert torch.equal(g, f)
+        for g, w, what in zip(got, want, ("forward", "prefill"), strict=True):
+            assert_close(g, w, what=f"{cfg.name} {what}")
+        assert_close(loss, want_loss.detach(), what=f"{cfg.name} loss")
+        for i, (g, w) in enumerate(zip(grads, want_grads, strict=True)):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()),
+                                       msg=f"{cfg.name} gradient leaf {i}")
+
+
 @pytest.mark.parametrize("arch", ["internvl2-2b", "qwen2-moe-a2.7b", "deepseek-v2-236b",
                                   "mamba2-780m", "recurrentgemma-9b", "whisper-tiny"])
 def test_other_families_on_a_mesh_name_their_item(arch):
-    """Only the dense family's layout is ported: every other family's init,
-    forward and loss under a mesh of more than one device raise naming
-    ROADMAP queue A item 12."""
+    """Every family's layout is ported (item 12): each runs on a (data,
+    model) = (1, 2) mesh of threads as in one process
+    (``_check_on_thread_mesh``; tests/test_torch_lm_mesh_*.py hold train
+    steps over gloo ranks against the reference)."""
+    _check_on_thread_mesh(registry.get(arch).reduced(), 2)
+
+
+@pytest.mark.parametrize("arch,changes,model", [
+    ("deepseek-v2-236b", {}, 3),
+    ("mamba2-780m", {"ssm_head_dim": 512}, 2),
+    ("qwen2-moe-a2.7b", {"n_experts": 3, "d_ff_expert": 96}, 3),
+], ids=["mla-4-heads-over-3", "mamba2-1-head-over-2", "moe-3-experts-over-3"])
+def test_layouts_whose_heads_do_not_split(arch, changes, model):
+    """The routes for splits the heads or experts do not follow: MLA's 4
+    heads over 3 ranks (each split weight gathered whole, the block run
+    alike), mamba2's one head of 512 over 2 (the block alike up to the
+    gated output, then the rank's channels through its rows of
+    ``out_proj``), and 3 experts over 3 ranks (expert-parallel, one expert
+    a rank, on a mesh of three)."""
+    cfg = dataclasses.replace(registry.get(arch).reduced(), **changes)
+    _check_on_thread_mesh(cfg, model)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-780m", "recurrentgemma-9b"])
+def test_decode_under_a_model_axis_keeps_its_one_device_path(arch):
+    """``bundle.decode`` under a mesh with a model axis raises before it
+    reads a parameter: the parameters there are a rank's slices, and decode
+    keeps its one-device path (the recurrent families' decode has no
+    attention block to refuse it)."""
     bundle = get_bundle(registry.get(arch).reduced())
     mesh = _ThreadMesh((1, 2), ("data", "model"), 0, {"lock": threading.Lock()})
-    mesh.size = 2
-    with hints.use_mesh(mesh):
-        for call in (lambda: bundle.init(0, device="cpu"),
-                     lambda: bundle.loss({}, {"tokens": np.zeros((1, 4), np.int32)}),
-                     lambda: bundle.forward({}, np.zeros((1, 4), np.int32))):
-            with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12"):
-                call()
+    with hints.use_mesh(mesh), pytest.raises(NotImplementedError, match="one-device path"):
+        bundle.decode({"embed": {"table": torch.zeros(4, 2)}}, None,
+                      np.zeros((1, 1), np.int32), 0)

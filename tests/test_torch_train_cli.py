@@ -8,12 +8,11 @@
 * Its ``--ckpt`` is in the reference's layout: ``repro.train.checkpoint
   .restore`` reads it back with every leaf equal to the trained
   parameters.
-* ``--model-parallel 2`` (item 12's model-zoo part, done for the dense
-  family) trains qwen3-1.7b on two gloo ranks that the CLI starts on the
-  host, and prints the reference's lines from rank 0; another family with
-  ``--model-parallel 2`` still raises naming item 12.  The vlm, moe and
-  encdec families (item 14, done) and the ssm and hybrid families (item 16,
-  done) train a reduced model on the host.
+* ``--model-parallel 2`` (item 12's model-zoo part, done) trains an arch
+  of every family on two gloo ranks that the CLI starts on the host, and
+  prints the reference's lines from rank 0.  The vlm, moe and encdec
+  families (item 14, done) and the ssm and hybrid families (item 16, done)
+  train a reduced model on the host.
 """
 import re
 
@@ -77,19 +76,19 @@ def test_bfloat16_parameters(capsys):
     ("mamba2-780m", [], 16),
     ("recurrentgemma-9b", [], 16),
     ("internvl2-2b", ["--model-parallel", "2"], 12),
+    ("qwen2-moe-a2.7b", ["--model-parallel", "2"], 12),
+    ("mamba2-780m", ["--model-parallel", "2"], 12),
+    ("recurrentgemma-9b", ["--model-parallel", "2"], 12),
+    ("whisper-tiny", ["--model-parallel", "2"], 12),
 ])
 def test_what_waits_names_its_item(arch, argv, item, capsys):
-    """Items 14 and 16 are done, and so is item 12 for the dense family:
-    the vlm, moe and encdec families, the ssm and hybrid families, and
-    qwen3 on two host ranks (a (1, 2) mesh, the CLI's own rank processes)
-    train a step in two microbatches (the patches and frames split with
-    the tokens): a finite first loss within 1.0 of ln V, in the reference's
-    lines.  Another family on a mesh raises naming item 12."""
+    """Items 12, 14 and 16 are done: the vlm, moe and encdec families and
+    the ssm and hybrid families train a step in two microbatches (the
+    patches and frames split with the tokens), in one process and, with
+    ``--model-parallel 2``, on two host ranks (a (1, 2) mesh, the CLI's own
+    rank processes): a finite first loss within 1.0 of ln V, in the
+    reference's lines."""
     argv = ["--arch", arch, *REDUCED, "--steps", "1", *argv]
-    if item == 12 and registry.get(arch).family != "dense":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue A item {item}"):
-            train.main(argv)
-        return
     train.main(argv + ["--microbatches", "2"])
     lines = capsys.readouterr().out.strip().splitlines()
     step = STEP.match(lines[0])
