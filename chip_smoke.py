@@ -253,8 +253,26 @@ no result:
     tree reduce 64 -> 16 (local rounds) and 64 -> 1 (two cross rounds)
     held to one process by phase 7's rules, the data-sharded creditcard
     fit over 4 x 63,970 samples (B1 4 a rank) held to the float64 fit;
-    what every rank holds alike is the same bits on every rank.  NCCL
-    across several cards is not checked: the machine has one.
+    what every rank holds alike is the same bits on every rank; then
+    meshes over some of the ranks in the same launch: six
+    tenants on the automatic tenant mesh of three ranks (rank 3 idle, its
+    fit and reduce None; B4 4 a working rank), the fit and a tree reduce
+    by twos per tenant against the one-process vmap plan's (bit for bit,
+    or phase 7's fleet bar and the gap), and a data mesh over two ranks
+    (``mesh_devices=2``; ranks 2 and 3 idle; B1 4 a working rank), its
+    test scores held to the float64 fit.  NCCL across several cards is not
+    checked: the machine has one.
+
+analysis (after phase 20) — ``repro_torch.analysis``'s guard
+    on the card.  The retrace self-check's serve (four tenants of a
+    (6, 3, 6) net, ``tile_width=8``): warmup captures one CUDA graph per
+    tile shape, the mixed ragged serve after it captures and loads nothing;
+    phase 20's AE fits each capture their step once; a chunked fleet fit of
+    two creditcard tenants (B6) loads as many kernel libraries at chunk 32
+    as at chunk 16 (cold, after ``_build.clear_loaded``) and none warm; the
+    donation self-check's two reports (the serving tile, the streaming
+    fold) read effective.  An ``{"analysis": ...}`` line precedes
+    ``{"lm_mesh": ...}``.
 
 lm-mesh (after the mesh phase) — ROADMAP item 12's model-zoo part, the
     2-D (data, model) LM training layout of every family.  (a) B7 and
@@ -2583,6 +2601,8 @@ def phase_engine(cfg, y_test, xtr, xte, references, card_fits, fleet_data,
 # ---------------------------------------------------------------------------
 
 MESH_RANKS = 4
+MESH_SIX = 6                          # six tenants take three of the four ranks
+MESH_SIX_SEEDS = (1, 1, 2, 2, 3, 3)   # tree groups of two share a seed
 MESH_SAMPLES = 255_880   # creditcard cut so its samples divide over MESH_RANKS shards
 MESH_TREE_GROUPS = (2, 4, 64)   # 64 -> 32, 16, 1
 HEAD_ROWS, HEAD_WIDTH = 2_048, 2_048   # qwen3-1.7b's d_model
@@ -2723,6 +2743,34 @@ def _mesh_rank_work(rank: int, mesh_dir: str) -> dict:
     put("data", dm._replace(train_errors=dm.train_errors[:0]))
     out["data_test_scores"] = daef.reconstruction_error(
         deng.config, dm, xte).cpu().numpy()
+
+    # Meshes over some of the ranks; the others are idle and
+    # their calls return None.  Six tenants: the automatic tenant mesh takes
+    # three ranks (the reference's largest divisor that fits), rank 3 idles.
+    six = DAEFEngine(base, plan(mode="mesh", tenants=MESH_SIX, merge="tree"), device="cuda:0")
+    check(six.mesh.shape == {"tenants": 3} and six.idle == (rank == 3),
+          f"rank {rank}: six-tenant mesh {six.mesh}")
+    zero()
+    f6, out["six_fit_ms"] = _timed(lambda: six.fit(
+        xs[:MESH_SIX], seeds=np.array(MESH_SIX_SEEDS, np.int32)))
+    out["six_fit_b4"] = read().get("rolann_stats_batched", 0)
+    r6, out["six_reduce_ms"] = _timed(lambda: six.reduce(f6, 2))
+    out["six_idle"] = np.array([f6 is None, r6 is None])
+    if not six.idle:
+        put("six/fit", fleet_sharded.gather_fleet(f6, six.mesh))
+        put("six/reduce", fleet_sharded.gather_fleet(r6, six.mesh))
+    # mesh_devices=2: a data mesh over ranks 0 and 1, ranks 2 and 3 idle
+    sub = DAEFEngine(base, plan(mode="mesh", mesh_axes=("data",), mesh_devices=2),
+                     device="cuda:0")
+    check(sub.mesh.shape == {"data": 2} and sub.idle == (rank >= 2),
+          f"rank {rank}: two-rank data mesh {sub.mesh}")
+    zero()
+    sm, out["sub_fit_ms"] = _timed(lambda: sub.fit(xq))
+    out["sub_fit_b1"] = read().get("rolann_stats", 0)
+    out["sub_idle"] = np.array([sm is None])
+    if not sub.idle:
+        put("sub", sm._replace(train_errors=sm.train_errors[:0]))
+        out["sub_test_scores"] = daef.reconstruction_error(sub.config, sm, xte).cpu().numpy()
     return out
 
 
@@ -2746,6 +2794,76 @@ def mesh_rank(rank: int, mesh_dir: str) -> int:
         torch.distributed.destroy_process_group()
     np.savez(os.path.join(mesh_dir, f"rank{rank}.npz"), **out)
     return 0
+
+
+def _check_sub_meshes(cfg, ranks, rebuild, xs_d, xq, x_test, s64, plain) -> dict:
+    """Meshes over some of the ranks, on the four gloo ranks sharing the
+    card.  Six tenants on the automatic tenant mesh of three ranks (rank 3
+    idle): the fit and a tree reduce by twos, per tenant against the
+    one-process vmap plan's (bit for bit, else phase 7's fleet bar and the
+    gap); a data mesh over two ranks (2 and 3 idle): test scores against the
+    float64 fit (phase 6's rule) and against the four-rank data mesh's."""
+    import torch
+
+    from repro_torch.core import daef, fleet, fleet_sharded
+    from repro_torch.train import checkpoint
+
+    out = {}
+    idle = [r["six_idle"].tolist() + r["sub_idle"].tolist() for r in ranks]
+    check(idle == [[r == 3, r == 3, r >= 2] for r in range(MESH_RANKS)],
+          f"sub-meshes: the idle ranks' returns (None: True): {idle}")
+    seeds6 = torch.as_tensor(MESH_SIX_SEEDS, dtype=torch.int32, device="cuda")
+    v6 = fleet._fit_fleet(cfg, xs_d[:MESH_SIX], seeds=seeds6)
+    want = {"fit": v6, "reduce": fleet_sharded.fleet_merge_tree(cfg, v6, 2)}
+    for name, w in want.items():
+        got = rebuild(ranks[0], f"six/{name}", w)
+        bits = all(torch.equal(a.cuda(), b) for a, b in zip(
+            checkpoint.flatten(got), checkpoint.flatten(w), strict=True))
+        share = _check_fleets_close(got, w, f"sub-mesh: six tenants on three gloo ranks, {name} vs "
+                                    "the one-process vmap plan")
+        gap = max(float((a.cuda().double() - b.double()).abs().max())
+                  for a, b in zip(checkpoint.flatten(got), checkpoint.flatten(w), strict=True))
+        out[f"six tenants {name}"] = {"bit_for_bit": bits, "max_abs_gap": gap,
+                                      "kappa_share": share}
+    # the same six tenants fitted as the ranks fit them, two a process
+    by_rank = [fleet._fit_fleet(cfg, xs_d[2 * r:2 * r + 2], seeds=seeds6[2 * r:2 * r + 2])
+               for r in range(3)]
+    _same_leaves(rebuild(ranks[0], "six/fit", v6), checkpoint.unflatten(by_rank[0], [
+        torch.cat(leaves) for leaves in zip(*(checkpoint.flatten(f) for f in by_rank))]),
+        "sub-mesh: six tenants on three gloo ranks vs one process fitting their shards")
+    out["six tenants b4 per rank"] = [int(r["six_fit_b4"]) for r in ranks]
+    check(out["six tenants b4 per rank"] == [len(path_shapes(cfg))] * 3 + [0],
+          f"sub-mesh: B4 launches per rank {out['six tenants b4 per rank']}")
+    sub = torch.from_numpy(ranks[0]["sub_test_scores"]).double()
+    d = _rel(sub, s64)
+    check(d <= 2 * plain + 1e-4, f"sub-mesh: the two-rank data mesh's test scores {d:.3e} from the "
+          f"float64 fit, bar 2 x {plain:.3e} + 1e-4")
+    out["two-rank data mesh test scores from float64"] = d
+    out["two-rank data mesh vs four-rank, test scores"] = _rel(
+        sub, torch.from_numpy(ranks[0]["data_test_scores"]).double())
+    out["two-rank data mesh vs daef.fit, test scores"] = _rel(sub, daef.reconstruction_error(
+        cfg, daef.fit(cfg, xq), x_test).double().cpu())
+    out["two-rank data mesh b1 per rank"] = [int(r["sub_fit_b1"]) for r in ranks]
+    check(out["two-rank data mesh b1 per rank"] == [len(path_shapes(cfg))] * 2 + [0, 0],
+          f"sub-mesh: B1 launches per rank {out['two-rank data mesh b1 per rank']}")
+    out["ms per rank"] = {name: [float(r[name]) for r in ranks]
+                          for name in ("six_fit_ms", "six_reduce_ms", "sub_fit_ms")}
+    say("mesh", "meshes over some of the ranks: six tenants on three of the four gloo "
+        "ranks (rank 3 idle, its fit and reduce None): fit "
+        + ("bit for bit" if out["six tenants fit"]["bit_for_bit"] else
+           f"{out['six tenants fit']['max_abs_gap']:.2e} max |gap|, kappa share "
+           f"{out['six tenants fit']['kappa_share']:.3f}")
+        + " the one-process vmap plan's (bit for bit the ranks' shards fitted alone), tree "
+        "reduce by twos " + ("bit for bit" if out["six tenants reduce"]["bit_for_bit"] else
+                             f"{out['six tenants reduce']['max_abs_gap']:.2e} max |gap|, kappa "
+                             f"share {out['six tenants reduce']['kappa_share']:.3f}")
+        + f"; B4 per rank {out['six tenants b4 per rank']}; a data mesh over two ranks "
+        f"(ranks 2, 3 idle): test scores {d:.2e} from the float64 fit (bar "
+        f"{2 * plain + 1e-4:.2e}), {out['two-rank data mesh vs four-rank, test scores']:.2e} "
+        f"from the four-rank mesh's, {out['two-rank data mesh vs daef.fit, test scores']:.2e} "
+        f"from daef.fit's; B1 per rank {out['two-rank data mesh b1 per rank']}; ms per rank "
+        f"{out['ms per rank']}")
+    return out
 
 
 def phase_mesh(cfg, x_train, x_test, xte, references, fleet_data, fleet_data_d) -> dict:
@@ -3066,8 +3184,11 @@ def phase_mesh(cfg, x_train, x_test, xte, references, fleet_data, fleet_data_d) 
                                                .cuda() for i in range(n)])
 
     for key in ranks[0]:
-        if "/leaf" in key or key in ("data_test_scores", "data_threshold"):
-            check(all(np.array_equal(r[key], ranks[0][key]) for r in ranks[1:]),
+        if "/leaf" in key or key in ("data_test_scores", "data_threshold", "sub_test_scores"):
+            members = [r for r in ranks if key in r]
+            check(len(members) == (3 if key.startswith("six/") else 2 if "sub" in key
+                                   else MESH_RANKS)
+                  and all(np.array_equal(r[key], ranks[0][key]) for r in members[1:]),
                   f"gloo ranks disagree on {key}")
     # one process, the ranks' shapes: each rank's 16 tenants fitted alone
     # (the batched kernels' slice plans depend on the tenant count, so a
@@ -3104,6 +3225,7 @@ def phase_mesh(cfg, x_train, x_test, xte, references, fleet_data, fleet_data_d) 
           f"gloo ranks launched B4 {launches['gloo rank fleet fit']}, B1 "
           f"{launches['gloo rank data fit']}")
     out["gloo per-rank ms"] = per_rank
+    out["sub_meshes"] = _check_sub_meshes(cfg, ranks, rebuild, xs_d, xq, x_test, s64, plain)
     say("mesh", f"{MESH_RANKS} gloo ranks on one card ({times['four gloo ranks (wall)'] / 1e3:.1f}"
         f" s wall, processes included): per-rank ms " + ", ".join(
             f"{n} {v}" for n, v in per_rank.items())
@@ -4692,6 +4814,7 @@ def phase_comparison() -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.analysis import retrace
     from repro_torch.baselines import autoencoder
     from repro_torch.core import anomaly, daef, stats_backend
     from repro_torch.kernels import autotune
@@ -4739,7 +4862,10 @@ def phase_comparison() -> dict:
         with torch.no_grad():
             init_loss = float(autoencoder.loss_fn(acfg, [[t.cuda() for t in p] for p in
                                                          autoencoder.init_params(acfg)], x_d))
-        model_a, ae_s = autoencoder.fit(acfg, x_train)
+        with retrace.trace_guard(what=f"{name} AE fit") as ae_fit:
+            model_a, ae_s = autoencoder.fit(acfg, x_train)
+        check(ae_fit.traces == 1, f"{name}: the AE fit captured {ae_fit} (one step graph "
+              "expected)")
         errs_a = autoencoder.reconstruction_error(acfg, model_a, x_test)
         f1_a = anomaly.evaluate(model_a.train_errors, errs_a, y_test, rule).f1
         final_loss = float(model_a.train_errors.mean())
@@ -4753,6 +4879,7 @@ def phase_comparison() -> dict:
                "ae_steps": steps, "ae_step_us_graph": graph_us, "ae_step_us_eager": eager_us,
                "b1_launches": launches["rolann_stats"],
                "b1_routes": {k: v for k, v in routes.items() if v},
+               "ae_captures": ae_fit.traces,
                "ae_loss": (init_loss, final_loss)}
         if name == "creditcard":
             row["host"] = _check_creditcard_daef(cfg, x_train, x_test, y_test, model, scores)
@@ -4778,6 +4905,81 @@ def phase_comparison() -> dict:
     out["train_cli"] = _train_cli(TRAIN_CLI, QWEN3, TRAIN_CLI_STEPS, TRAIN_CLI_MICRO,
                                   "comparison")
     say("comparison", f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+ANALYSIS_SAMPLES = 128   # a tenant in the analysis phase's chunked fleet fits
+ANALYSIS_CHUNKS = (32, 16)
+
+
+def phase_analysis(cfg, fleet_data_d, comparison) -> dict:
+    """The claims of ``repro_torch.analysis``'s guard on the card, where
+    graphs capture and kernels load.  The retrace self-check
+    (``python -m repro_torch.analysis retrace``'s serve): warmup captures
+    one CUDA graph per tile shape it returns, the mixed ragged serve after
+    it captures and loads nothing; each AE fit of phase 20 captured its
+    step once; a chunked fleet fit (B6) of two creditcard tenants loads as
+    many libraries at chunk 32 as at chunk 16, cold (after
+    ``_build.clear_loaded``), and none warm; both donation reports of the
+    self-check are effective.  Returns the phase's numbers."""
+    import torch
+
+    from repro_torch.analysis import retrace
+    from repro_torch.analysis.__main__ import donation_reports, retrace_serve
+    from repro_torch.core import fleet
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    zero, read = _launch_counter()
+    out = {}
+    zero()
+    serve = retrace_serve("cuda")    # raises if the ragged serve captured or loaded
+    out["retrace selfcheck launches"] = read()
+    warm, rep = serve["warmup"], serve["serve"]
+    check(warm.traces == serve["shapes"] > 0, f"warmup of {serve['shapes']} tile shapes: {warm}")
+    check((rep.traces, rep.compiles) == (0, 0), f"mixed ragged serve after warmup: {rep}")
+    out["warmup"] = {"shapes": serve["shapes"], "captures": warm.traces, "loads": warm.compiles}
+    out["ragged serve"] = {"requests": len(serve["results"]), "captures": rep.traces,
+                           "loads": rep.compiles}
+    out["ae fit captures"] = {name: row["ae_captures"]
+                              for name, row in comparison["datasets"].items()}
+    check(set(out["ae fit captures"].values()) == {1}, f"AE fit captures {out['ae fit captures']}")
+
+    xs2 = fleet_data_d[0][:2, :, :ANALYSIS_SAMPLES].contiguous()
+    seeds2 = torch.arange(1, 3, dtype=torch.int32, device=xs2.device)
+    def chunked(chunk, cold):
+        if cold:
+            _build.clear_loaded()
+        zero()
+        with retrace.trace_guard(max_traces=0, what=f"chunked fleet fit, chunk {chunk}") as r:
+            fleet._fit_fleet_chunked(cfg, xs2, chunk_samples=chunk, seeds=seeds2)
+        torch.cuda.synchronize()
+        return {"loads": r.compiles, "libraries": sorted(set(r.traced_names)),
+                "launches": read()}
+
+    cold = {chunk: chunked(chunk, True) for chunk in ANALYSIS_CHUNKS}
+    out["chunked fleet fit warm"] = chunked(ANALYSIS_CHUNKS[-1], False)
+    out["chunked fleet fit cold"] = {str(c): row for c, row in cold.items()}
+    loads = [row["loads"] for row in cold.values()]
+    check(len(set(loads)) == 1 and loads[0] > 0, f"cold loads by chunk {cold}")
+    check(out["chunked fleet fit warm"]["loads"] == 0,
+          f"a warm chunked fleet fit loaded {out['chunked fleet fit warm']}")
+    check(all(row["launches"].get("rolann_fused_chunk_batched", 0) > 0 for row in cold.values()),
+          f"the chunked fleet fits did not launch B6: {cold}")
+
+    reports = donation_reports("cuda")
+    out["donation"] = [r.describe() for r in reports]
+    check(all(r.ok is True for r in reports), "donation: " + "; ".join(out["donation"]))
+    out["seconds"] = time.perf_counter() - t_phase
+    say("analysis", f"warmup captured {warm.traces} CUDA graphs for {serve['shapes']} tile "
+        f"shapes; the mixed ragged serve ({len(serve['results'])} requests) captured "
+        f"{rep.traces} and loaded {rep.compiles} (self-check launches "
+        f"{out['retrace selfcheck launches']}); AE fit captures {out['ae fit captures']}; "
+        "chunked fleet fit cold loads " + ", ".join(
+            f"chunk {c}: {row['loads']} {row['libraries']} (launches {row['launches']})"
+            for c, row in cold.items())
+        + f", warm {out['chunked fleet fit warm']['loads']}; "
+        + "; ".join(out["donation"]) + f"; phase took {out['seconds']:.1f} s")
     return out
 
 
@@ -6818,6 +7020,7 @@ def main() -> int:
         _free()
         lm_mesh_numbers = phase_lm_mesh(card)
         comparison_numbers = phase_comparison()
+        analysis_numbers = phase_analysis(cfg, fleet_data_d, comparison_numbers)
         decode_numbers = phase_decode(card)
         family_numbers = phase_families(card)
         encdec_numbers = phase_encdec_training(card)
@@ -6895,6 +7098,10 @@ def main() -> int:
             "launches": launches["rolann_stats"],
             # Sums over the main path's launches (one per layer shape, one fit).
             **b1_fit,
+            # A data mesh over two of four gloo ranks, each rank's
+            # launches in one fit (the idle ranks': 0).
+            "two_rank_data_mesh_launches_per_rank":
+                mesh_numbers["sub_meshes"]["two-rank data mesh b1 per rank"],
         },
         {
             "name": "rolann_stats_acc",
@@ -6922,6 +7129,10 @@ def main() -> int:
             "launches": fleet_launches["fit"]["rolann_stats_batched"],
             # One fleet fit: one launch per layer shape.
             **b4_fit,
+            # Six tenants on three of four gloo ranks, each
+            # working rank's launches in one fit (the idle rank's: 0).
+            "six_tenants_on_three_ranks_launches_per_rank":
+                mesh_numbers["sub_meshes"]["six tenants b4 per rank"],
         },
         {
             "name": "rolann_stats_acc_batched",
@@ -6940,6 +7151,11 @@ def main() -> int:
             "launches": fleet_launches["chunked"]["rolann_fused_chunk_batched"],
             # One chunked fleet fit: 4 launches at each hidden layer's shape.
             **b6_fit,
+            # The analysis phase's flatness check: two tenants of 128
+            # samples, one cold fit at each chunk width.
+            "analysis_chunk_flatness_launches": {
+                c: row["launches"].get("rolann_fused_chunk_batched", 0)
+                for c, row in analysis_numbers["chunked fleet fit cold"].items()},
         },
         {
             "name": "flash_attention",
@@ -7031,6 +7247,7 @@ def main() -> int:
                 **_per_launch([ssm_numbers["ssd_chunk_bwd"]], "mamba2 train")},
         },
     ]
+    print(json.dumps({"analysis": analysis_numbers}))
     print(json.dumps({"lm_mesh": lm_mesh_numbers}))
     print(json.dumps({"mesh": mesh_numbers}))
     print(json.dumps({"ssm_training": ssm_numbers}))

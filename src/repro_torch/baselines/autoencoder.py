@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import optim
+from repro_torch.analysis import retrace
 from repro_torch.core import activations, threefry
 from repro_torch.data import pipeline
 from repro_torch.device import as_tensor, resolve_device
@@ -150,6 +151,7 @@ class _Trainer:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             body()
+        retrace.record(retrace.GRAPH_CAPTURE_EVENT, "autoencoder._Trainer.step")
         return graph.replay
 
     def model(self) -> AEModel:
@@ -188,7 +190,7 @@ def fit(config: AEConfig, x, *, device=None, graph: bool | None = None
         raise ValueError(f"graph=True captures a CUDA graph; device {dev} is not a card")
     # Wall-clock is this baseline's contract (the paper's Table 3 compares
     # gradient-AE training time against DAEF), not incidental logging.
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # repro-lint: disable=RPR006
     x = as_tensor(x, dev, torch.float32)
     trainer = _Trainer(config, x)
     idx_all = torch.as_tensor(batch_indices(config, x.shape[1]), device=dev)
@@ -202,7 +204,7 @@ def fit(config: AEConfig, x, *, device=None, graph: bool | None = None
             trainer.step(idx)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0  # repro-lint: disable=RPR006
     return trainer.model(), wall
 
 

@@ -37,6 +37,11 @@ stays sharded: rank d holds its K/(D·group_size) merged tenants.
 exchange states (the async session's partial participation);
 :func:`merge_wire_tree` the secagg wires' butterfly in uint64 on the host.
 
+A tenant mesh may span fewer ranks than the world (the reference's
+largest divisor of the fleet that fits its devices): its ranks are global
+ranks ``0 .. D-1`` over a ``new_group`` sub-group, and a rank outside it
+holds no shard.
+
 Differences from the reference, on purpose:
   * fleets passed with a D-rank mesh are this rank's shard; a fleet passed
     without a mesh is this rank's whole fleet and reduces on a one-rank
@@ -62,7 +67,11 @@ TENANT_AXIS = mesh_lib.TENANT_AXIS
 
 def tenant_mesh(n_devices: int | None = None, *, device=None) -> mesh_lib.Mesh:
     """A 1-D mesh over ``n_devices`` ranks (default: all) named
-    ``"tenants"``, this rank on ``device`` (``None``: ``cuda:{LOCAL_RANK}``)."""
+    ``"tenants"``, this rank on ``device`` (``None``: ``cuda:{LOCAL_RANK}``).
+    Fewer ranks than the world are global ranks ``0 .. n_devices-1`` over a
+    sub-group; every rank must call this alike, and on the others the mesh
+    is idle (``Mesh.member`` False).  A rank cuts its tenants by its mesh
+    rank (``Mesh.coordinate``)."""
     avail = mesh_lib.world_size()
     n = avail if n_devices is None else n_devices
     if not 1 <= n <= avail:
@@ -118,8 +127,9 @@ def _rebuild(tree, leaves: list[torch.Tensor]):
 
 def gather_fleet(fl: fleet.DAEFFleet, mesh) -> fleet.DAEFFleet:
     """The global fleet from every rank's shard, in tenant order (one
-    ``all_gather`` per leaf dtype).  A one-rank mesh returns ``fl``."""
-    if mesh.device_mesh is None:
+    ``all_gather`` per leaf dtype over the mesh's group).  A one-rank mesh
+    returns ``fl``."""
+    if mesh.group is None:
         return fl
     leaves = fleet._tree_leaves(fl)
     out: list = [None] * len(leaves)
@@ -361,7 +371,8 @@ def _strided(tree, start: int):
 
 def _butterfly(state, pair, mesh, local_rounds: int, cross_rounds: int):
     """Local strided rounds, then the cross-rank butterfly: in round r this
-    rank swaps its state with rank ``d ^ 2^r`` (one flat buffer) and the
+    rank, mesh rank d, swaps its state with mesh rank ``d ^ 2^r`` (one flat
+    buffer; `Mesh.exchange` names the peer in the mesh's group) and the
     lower rank's state merges first."""
     for _ in range(local_rounds):
         state = pair(_strided(state, 0), _strided(state, 1))

@@ -18,7 +18,10 @@ the card (see :mod:`repro_torch.device`; a mesh plan's rank uses
 ``cuda:{LOCAL_RANK}``); every state the engine returns lives on its device.
 
 Mesh plans (``launch.mesh``): every rank runs the same calls on the same
-global inputs.  A tenant-sharded plan over D ranks returns each rank's
+global inputs.  The mesh is sized as the reference's (an automatic tenant
+mesh takes the largest divisor of the fleet that fits the ranks); a mesh
+over fewer ranks than the process group is built on every rank at
+construction, and the ranks outside it are idle: their calls return None.  A tenant-sharded plan over D ranks returns each rank's
 shard, a ``DAEFFleet`` of K/D tenants, and takes either that shard or the
 global fleet (which it shards); its scores and predictions are the rank's
 tenants'.  A data-sharded plan returns the same weights on every rank and
@@ -47,6 +50,17 @@ from repro_torch.engine.plan import ExecutionPlan, PlanError
 from repro_torch.launch import mesh as mesh_lib
 
 EngineState = daef.DAEFModel | fleet.DAEFFleet
+
+
+def _members_only(method):
+    """On an idle rank (outside the plan's mesh) the call does nothing and
+    returns None; on every other rank it runs."""
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        if self.idle:
+            return None
+        return method(self, *args, **kwargs)
+    return wrapper
 
 
 def _bumps_model_version(method):
@@ -101,7 +115,9 @@ class DAEFEngine:
             PlanError: as the reference's: ``plan`` is not an ExecutionPlan;
                 the plan and config conflict; the mesh is missing a required
                 axis or does not tile the fleet, or asks for more devices
-                than the world has.
+                than the world has.  A mesh plan with ``mesh_devices`` or
+                under a process group of several ranks builds its mesh here
+                (a sub-group is a collective: every rank constructs alike).
             RuntimeError: ``device`` is the card and none is present.
         """
         plan = plan if plan is not None else ExecutionPlan()
@@ -155,8 +171,11 @@ class DAEFEngine:
             self.device = mesh.device
         elif plan.mode == "mesh":
             self.device = mesh_lib.rank_device(device)
-            if plan.mesh_devices is not None:
-                self.mesh  # build eagerly: surface bad mesh sizes at init
+            if plan.mesh_devices is not None or mesh_lib.world_size() > 1:
+                # build eagerly: surface bad mesh sizes at init, and build a
+                # sub-group mesh on every rank at the same call (an idle
+                # rank makes no later call that the others would wait on)
+                self.mesh
         else:
             self.device = resolve_device(device)
 
@@ -210,30 +229,25 @@ class DAEFEngine:
 
     def _build_mesh(self):
         """The reference's sizing over the ranks of the default process
-        group (one without a group).  A multi-rank mesh spans every rank or
-        one, so the automatic tenant mesh is every rank, and ranks that do
-        not tile the fleet raise (the reference would take the largest
-        divisor of the fleet that fits its devices)."""
+        group (one without a group): an automatic tenant mesh takes the
+        largest divisor of the fleet that fits the ranks, ``mesh_devices``
+        takes that many.  A mesh of fewer ranks than the world is global
+        ranks ``0 .. n-1`` over a sub-group, and the other ranks are idle
+        (see :attr:`idle`)."""
         plan = self.plan
         avail = mesh_lib.world_size()
         if plan.tenant_sharded:
             d = plan.mesh_devices
             if d is None:
-                if plan.tenants % avail:
-                    raise PlanError(
-                        f"bad mesh size: tenants={plan.tenants} does not divide "
-                        f"evenly over the {avail} ranks of the process group, and a "
-                        "multi-rank mesh spans every rank, or one — pad the fleet, "
-                        "run on a rank count that divides it, or pass mesh_devices=1"
-                    )
-                d = avail
+                d = min(avail, plan.tenants)
+                while d > 1 and plan.tenants % d:
+                    d -= 1
             if d > avail:
                 raise PlanError(
                     f"bad mesh size: mesh_devices={d} exceeds the {avail} "
                     "available device(s) — shrink the plan or run on more "
                     "devices"
                 )
-            self._check_spans(d, avail)
             return fleet_sharded.tenant_mesh(d, device=self.device)
         if len(plan.mesh_axes) != 1:
             raise PlanError(
@@ -246,16 +260,16 @@ class DAEFEngine:
                 f"bad mesh size: mesh_devices={n} exceeds the {avail} "
                 "available device(s)"
             )
-        self._check_spans(n, avail)
         return mesh_lib.Mesh((n,), plan.mesh_axes, device=self.device)
 
-    @staticmethod
-    def _check_spans(n: int, avail: int) -> None:
-        if 1 < n < avail:
-            raise PlanError(
-                f"bad mesh size: mesh_devices={n} spans {n} of the {avail} "
-                "ranks — a multi-rank mesh spans every rank, or one"
-            )
+    @property
+    def idle(self) -> bool:
+        """Whether this rank lies outside the plan's mesh (a mesh over fewer
+        ranks than the process group).  An idle rank took part in building
+        the mesh and in nothing after: every state-producing call returns
+        None there (see `_members_only`)."""
+        mesh = self.mesh
+        return mesh is not None and not mesh.member
 
     def _tenant_devices(self) -> int:
         return self.mesh.shape[fleet_sharded.TENANT_AXIS] if self.plan.tenant_sharded else 1
@@ -338,6 +352,7 @@ class DAEFEngine:
     # fit / partial_fit
     # ------------------------------------------------------------------
 
+    @_members_only
     @_bumps_model_version
     def fit(
         self,
@@ -362,6 +377,11 @@ class DAEFEngine:
                 overrides (fleet batches only).
             n_partitions: split the sample axis to exercise the distributed
                 SVD/merge path.
+
+        Returns:
+            The fitted ``DAEFModel`` or ``DAEFFleet`` (a tenant-sharded mesh
+            plan: this rank's shard).  On an idle rank — outside a mesh over
+            fewer ranks than the process group — None, with nothing run.
 
         Raises:
             PlanError: batch shape disagrees with the plan, per-tenant
@@ -426,6 +446,7 @@ class DAEFEngine:
             n_partitions=n_partitions, device=dev,
         )
 
+    @_members_only
     @_bumps_model_version
     def fit_stream(
         self,
@@ -517,6 +538,7 @@ class DAEFEngine:
             fleet._per_tenant(lam_last, self.config.lam_last, k, torch.float32, dev),
         )
 
+    @_members_only
     @_bumps_model_version
     def partial_fit(self, state: EngineState, x_new) -> EngineState:
         """Incremental learning: absorb a new data block (per tenant).
@@ -591,6 +613,7 @@ class DAEFEngine:
     # predict / scores
     # ------------------------------------------------------------------
 
+    @_members_only
     def predict(self, state: EngineState, x) -> torch.Tensor:
         """Reconstruct ``x`` ([K, m, n] per-tenant, or [m, n] single)."""
         cfg, dev, plan = self.config, self.device, self.plan
@@ -611,6 +634,7 @@ class DAEFEngine:
             ])
         return fleet.fleet_predict(cfg, state, x, device=dev)
 
+    @_members_only
     def scores(self, state: EngineState, x, n_valid=None) -> torch.Tensor:
         """Per-sample anomaly scores (reconstruction MSE): [K, n] or [n].
 
@@ -645,6 +669,7 @@ class DAEFEngine:
             return torch.where(mask, errs, torch.nan)
         return fleet.fleet_scores(cfg, state, x, n_valid=n_valid, device=dev)
 
+    @_members_only
     def thresholds(self, state: EngineState, rule: str = "extreme_iqr") -> torch.Tensor:
         """Per-tenant anomaly thresholds from each model's train errors (a
         tenant-sharded plan's: this rank's tenants'; a data-sharded plan
@@ -667,6 +692,7 @@ class DAEFEngine:
     # Federation: merge / reduce / session
     # ------------------------------------------------------------------
 
+    @_members_only
     @_bumps_model_version
     def merge(self, a: EngineState, b: EngineState) -> EngineState:
         """Federated aggregation of two states trained with shared seeds
@@ -704,6 +730,7 @@ class DAEFEngine:
             )
         return fleet.fleet_merge(self.config, a, b)
 
+    @_members_only
     @_bumps_model_version
     def reduce(self, state: fleet.DAEFFleet, group_size: int) -> fleet.DAEFFleet:
         """Federate adjacent groups of ``group_size`` tenants into one model
@@ -718,7 +745,8 @@ class DAEFEngine:
         shared-randomness requirement).  A tenant-sharded plan over several
         ranks gathers the fleet for "sequential" and "pairwise" (every rank
         returns the whole result); "tree" returns what `fleet_merge_tree`
-        does.
+        does.  On an idle rank (outside a mesh over fewer ranks than the
+        process group) it returns None, with nothing run.
 
         Raises:
             PlanError: a single model, a group size that does not divide the
@@ -807,6 +835,7 @@ class DAEFEngine:
     # save / load
     # ------------------------------------------------------------------
 
+    @_members_only
     def save(self, state, path: str) -> str:
         """Persist a trained state (msgpack-framed numpy, via
         ``train.checkpoint``, the reference's layout) or a mid-federation
@@ -830,6 +859,7 @@ class DAEFEngine:
             self.mesh.barrier()
         return out
 
+    @_members_only
     def load(self, path: str):
         """Restore whatever ``save`` (of either package) wrote at ``path``
         under a structurally identical config/plan: a ``session.json`` in

@@ -134,13 +134,17 @@ class FederationSession:
             The accumulated global ``DAEFModel``.  Sync: the running merge
             of every round so far.  Async: the model rebuilt from all
             fresh sites' accumulated contributions — ``None`` only when no
-            site has ever reported.
+            site has ever reported.  On an idle rank of the engine's mesh
+            (outside a mesh over fewer ranks than the process group):
+            ``None``, with nothing run or recorded.
 
         Raises:
             PlanError: empty ``parts`` in sync mode, a partition with the
                 wrong shape, or a round incompatible with the plan's
                 ``merge`` strategy.
         """
+        if self.engine.idle:
+            return None
         named = self._check_parts(parts)
         if self.engine.plan.async_federation:
             model = self._round_async(named)

@@ -22,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from repro_torch.analysis import retrace
+
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -127,12 +129,21 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``name``, built first if needed."""
+    """The loaded library of ``name``, built first if needed.  Each open
+    counts one load on `analysis.retrace`'s recorder."""
     lib = _LOADED.get(name)
     if lib is None:
         path = build(name)[name]
         lib = _LOADED[name] = ctypes.CDLL(str(path))
+        retrace.record(retrace.LIBRARY_LOAD_EVENT, name)
     return lib
+
+
+def clear_loaded() -> None:
+    """Forget every loaded library, so the next call of each opens it again
+    and counts a load (the counterpart of ``jax.clear_caches()`` in the
+    reference's cold trace counts).  The libraries stay built on disk."""
+    _LOADED.clear()
 
 
 def function(library: str, name: str, argtypes):

@@ -7,14 +7,25 @@ names the axes that slice it (``"tenants"``, ``"data"``, ``("pod",
 "data")``, ``("data", "model")``), this rank's device and place, and runs
 the few collectives the DAEF and LM mesh paths need.
 
-* One rank: with no default process group, or for a mesh of one device,
-  the mesh holds no process group and its collectives are the identity.
+* One rank: with no default process group, or for a mesh of one device
+  among several ranks, the mesh holds no process group and its
+  collectives are the identity (on a one-rank group it keeps that group).
   This is the reference's one-device mesh.  A library call never starts a
   process group (:func:`init_process_group_from_file` is for launchers).
-* Many ranks: the mesh spans every rank of the default group, as a
-  ``DeviceMesh`` with the mesh's axis names, ranks in row-major order; its
-  collectives run over the DeviceMesh's per-axis groups.  A multi-rank mesh
-  spans all ranks or one: the port has no sub-meshes.
+* Many ranks: a mesh of n devices is global ranks ``0 .. n-1`` in
+  row-major order, as the reference's mesh takes its first n devices.  Over
+  every rank of the default group it is a ``DeviceMesh`` with the mesh's
+  axis names, and :attr:`Mesh.group` is the default group.  Over fewer
+  ranks, :attr:`Mesh.group` is a sub-group from ``dist.new_group`` (one per
+  rank count, cached), and a mesh of several axes also builds a
+  ``DeviceMesh`` over those ranks.  Its collectives run over the per-axis
+  groups (the mesh's group for a mesh of one axis), never over every rank,
+  and point-to-point exchanges name their peer by its rank in that group.
+* Idle ranks: ``new_group`` is a collective over the default group, so
+  every rank builds every mesh, in the same order.  A rank outside the mesh
+  takes part in building it and in nothing after: its :attr:`Mesh.member`
+  is False, its :attr:`Mesh.rank` None, and it holds no shard.  Callers
+  (the engine) return None there.
 
 An axis of one rank runs no collective along it.  The LM layout
 (``launch/shardings.py``, ``models/hints.py``) runs its collectives over
@@ -73,17 +84,37 @@ def init_process_group_from_file(path: str, rank: int, world: int, *, backend: s
                             timeout=datetime.timedelta(seconds=timeout_s))
 
 
+_SUBGROUPS: dict = {}   # (default group, n) -> the group of ranks 0 .. n-1
+
+
+def _subgroup(n: int):
+    """The process group of global ranks ``0 .. n-1``: one ``new_group`` per
+    rank count and default group, which every rank of the default group
+    calls (it is a collective over it) and the same for every mesh."""
+    key = (dist.group.WORLD, n)
+    if key not in _SUBGROUPS:
+        _SUBGROUPS[key] = dist.new_group(list(range(n)))
+    return _SUBGROUPS[key]
+
+
 class Mesh:
     """A named device mesh as this rank sees it.
 
     Attributes:
         axis_names: the mesh's axis names, outermost first.
         shape: axis -> size (as a JAX mesh's ``shape``).
-        size: devices in the mesh.
-        rank: this rank's index in the mesh, row-major (0 on one rank).
+        size: devices in the mesh: global ranks ``0 .. size-1``.
+        rank: this rank's index in the mesh, row-major (0 on one rank; its
+            global rank; None on an idle rank, outside the mesh).
+        member: whether this rank is in the mesh (False on an idle rank).
         device: this rank's ``torch.device``.
-        device_mesh: the ``DeviceMesh`` over the default group, or None for
-            a one-device mesh without a process group.
+        group: the process group of the mesh's ranks (the default group for
+            a mesh over every rank, a ``new_group`` sub-group for one over
+            fewer), or None for a one-device mesh beside other ranks or
+            without a process group.
+        device_mesh: the ``DeviceMesh`` whose per-axis groups the
+            collectives use, for a multi-rank mesh over every rank or over
+            several axes; None otherwise.
         backend: the default group's backend, or None without a group.
     """
 
@@ -96,42 +127,60 @@ class Mesh:
         if not 1 <= n <= world:
             raise ValueError(f"bad mesh size: a mesh of {n} device(s) needs "
                              f"1 <= n <= the {world} available")
-        if 1 < n < world:
-            raise ValueError(
-                f"bad mesh size: a mesh of {n} devices spans {n} of the {world} "
-                "ranks — a multi-rank mesh spans every rank of the default "
-                "process group, or one"
-            )
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, shape, strict=True))
         self.size = n
         self.device = rank_device(device)
+        self.group = None
         self.device_mesh = None
         self.backend = None
         self.rank = 0
-        if n == world and dist.is_available() and dist.is_initialized():
-            from torch.distributed.device_mesh import init_device_mesh
+        self.member = True
+        if dist.is_available() and dist.is_initialized() and (n > 1 or n == world):
+            from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
             self.backend = dist.get_backend()
             if self.backend == "nccl" and self.device.type != "cuda":
                 raise ValueError("an NCCL mesh needs its rank on the card")
-            if self.device.type == "cuda":
+            me = dist.get_rank()
+            self.member = me < n
+            self.rank = me if self.member else None
+            if self.device.type == "cuda" and self.member:
                 torch.cuda.set_device(self.device)
-            self.device_mesh = init_device_mesh(
-                "cuda" if self.backend == "nccl" else "cpu", shape,
-                mesh_dim_names=axis_names)
-            self.rank = dist.get_rank()
+            device_type = "cuda" if self.backend == "nccl" else "cpu"
+            if n == world:
+                self.group = dist.group.WORLD
+                self.device_mesh = init_device_mesh(device_type, shape,
+                                                    mesh_dim_names=axis_names)
+            else:
+                self.group = _subgroup(n)
+                if len(shape) > 1:
+                    self.device_mesh = DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                                                  mesh_dim_names=axis_names)
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, device={self.device}, "
                 f"backend={self.backend})")
+
+    def _require_member(self, what: str) -> None:
+        if not self.member:
+            raise ValueError(f"{what}: rank {dist.get_rank()} is outside this "
+                             f"{self.size}-rank mesh (an idle rank)")
+
+    def _axis_group(self, axis: str):
+        """The process group along ``axis``: the mesh's group for a mesh of
+        one axis, else the DeviceMesh's group of the axis."""
+        if self.device_mesh is None:
+            return self.group
+        return self.device_mesh.get_group(axis)
 
     # ------------------------------------------------------------------
     # Place
     # ------------------------------------------------------------------
 
     def coordinate(self, axis: str) -> int:
-        """This rank's index along ``axis``."""
+        """This rank's index along ``axis`` (an idle rank has none)."""
+        self._require_member("coordinate")
         stride = math.prod(self.shape[a] for a in self.axis_names[self.axis_names.index(axis) + 1:])
         return (self.rank // stride) % self.shape[axis]
 
@@ -160,9 +209,10 @@ class Mesh:
     def gather_axis(self, t: torch.Tensor, axis: str) -> list[torch.Tensor]:
         """Every rank's ``t`` along ``axis``, in rank order along it (equal
         shapes everywhere)."""
-        if self.device_mesh is None or self.shape[axis] == 1:
+        if self.group is None or self.shape[axis] == 1:
             return [t]
-        group = self.device_mesh.get_group(axis)
+        self._require_member("gather_axis")
+        group = self._axis_group(axis)
         src = t.contiguous()
         staged = self._staged(src)
         if staged:
@@ -194,23 +244,26 @@ class Mesh:
 
     def exchange(self, t: torch.Tensor, peer: int) -> torch.Tensor:
         """Send ``t`` to mesh rank ``peer`` and receive its tensor of the same
-        shape (one ``batch_isend_irecv`` pair)."""
-        if self.device_mesh is None:
+        shape (one ``batch_isend_irecv`` pair over the mesh's group, the peer
+        named by its rank in that group)."""
+        if self.group is None:
             raise ValueError("exchange needs a multi-rank mesh")
+        self._require_member("exchange")
         src = t.contiguous()
         staged = self._staged(src)
         if staged:
             src = self._host(src)
         recv = torch.empty_like(src)
-        reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, src, peer),
-                                       dist.P2POp(dist.irecv, recv, peer)])
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, src, group=self.group, group_peer=peer),
+            dist.P2POp(dist.irecv, recv, group=self.group, group_peer=peer)])
         for r in reqs:
             r.wait()
         return recv.to(t.device) if staged else recv
 
     def barrier(self) -> None:
         """Wait for every rank of the mesh (a one-element gather)."""
-        if self.device_mesh is not None:
+        if self.group is not None:
             self.gather(torch.zeros(1, device=self.device), self.axis_names, 0)
 
 

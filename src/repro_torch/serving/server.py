@@ -38,12 +38,13 @@ from __future__ import annotations
 
 import logging
 from collections import deque
-from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import retrace
+from repro_torch.analysis.donation import DonationReport
 from repro_torch.core import fleet
 from repro_torch.engine.plan import PlanError
 from repro_torch.serving import cache as cache_mod
@@ -74,54 +75,6 @@ def _score_tile(config, model, tile, slot_tenants, n_valid, mus):
     return errs, flags
 
 
-@dataclass(frozen=True)
-class DonationReport:
-    """The fields of the reference's ``repro.analysis.donation.DonationReport``
-    for the port's tile buffer (the port keeps its own copy; there is no
-    torch analysis package).
-
-    JAX donation asks the compiler to alias the tile's input buffer with an
-    output.  The port's counterpart is the CUDA graph's static input: on the
-    card every dispatch of a shape copies its tile into the one buffer the
-    graph was captured on, so ``effective_params`` names the tile argument
-    (``(2,)``, its position in `_score_tile`) and ``kinds`` says
-    ``"graph-static-input"``.  On the host there is no graph and no reuse:
-    ``effective_params`` is ``None`` (``ok`` is then ``None``, unknown), as
-    the reference reports a backend whose aliasing it cannot read."""
-
-    fn_name: str
-    backend: str
-    requested: tuple[int, ...]
-    effective_params: tuple[int, ...] | None
-    kinds: tuple[str, ...]
-    warned: bool
-
-    @property
-    def ok(self) -> bool | None:
-        if self.warned:
-            return False
-        if self.effective_params is None:
-            return None
-        return set(self.requested) <= set(self.effective_params)
-
-    @property
-    def dropped(self) -> tuple[int, ...]:
-        if self.effective_params is None:
-            return ()
-        return tuple(sorted(set(self.requested) - set(self.effective_params)))
-
-    def describe(self) -> str:
-        """One log-line summary of the probed fact."""
-        if self.effective_params is None:
-            state = "unknown (no CUDA graph on this device: each tile is a new buffer)"
-        elif self.ok:
-            state = ("effective (the tile is the CUDA graph's static input, "
-                     "reused by every dispatch of its shape)")
-        else:
-            state = f"NOT effective (inputs {self.dropped} copy instead of reuse)"
-        return f"donation probe [{self.fn_name} on {self.backend}]: {state}"
-
-
 class ScoreResult(NamedTuple):
     """A completed request: per-sample scores and anomaly flags."""
 
@@ -149,6 +102,7 @@ class _TileGraph:
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.errs, self.flags = _score_tile(*args)
+        retrace.record(retrace.GRAPH_CAPTURE_EVENT, f"_score_tile[{s}x{m0}x{t}]")
 
     def replay(self, x: torch.Tensor, meta: torch.Tensor):
         """Copy a pinned host tile and its routing in, replay; the outputs
@@ -276,8 +230,12 @@ class FleetServer:
         """One-time startup probe: is the tile buffer reused?
 
         On the card the answer is yes by construction — each shape's CUDA
-        graph has one static tile buffer (see `DonationReport`); on the host
-        each dispatch scores a new tensor.  Logs the fact once."""
+        graph has one static tile buffer, the counterpart of the
+        reference's donated tile: ``effective_params`` names the tile
+        argument (``(2,)``, its position in `_score_tile`) and ``kinds``
+        says ``"graph-static-input"``.  On the host each dispatch scores a
+        new tensor: ``effective_params`` is None (``ok`` None, unknown).
+        Logs the fact once."""
         if self.donation is None:
             self.donation = DonationReport(
                 fn_name=_score_tile.__name__, backend=self.device.type,

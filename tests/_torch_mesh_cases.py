@@ -15,6 +15,11 @@ STATE_MASK = np.array([1, 1, 0, 1, 1, 1, 0, 1], np.float32)
 TREE_GROUPS = (2, 8)        # inside a rank (local rounds), over all ranks (2 cross rounds)
 METHODS = ("gram", "svd")
 DATA_MESHES = {"data": ((D,), ("data",)), "pod_data": ((2, 2), ("pod", "data"))}
+# meshes over some of the ranks: six tenants take three of the four (the
+# largest divisor that fits), and mesh_devices=2 takes two
+K6 = 6
+SEEDS6 = np.array([1, 1, 2, 2, 3, 3], np.int32)   # tree groups of 2 share a seed
+SUB = 2
 
 
 def lowrank(n: int, seed: int) -> np.ndarray:
@@ -49,3 +54,8 @@ def mesh_data() -> np.ndarray:
     z = rng.normal(size=(LATENT, N_DATA))
     x = np.tanh(rng.normal(size=(M0, LATENT)) @ z) + 0.05 * rng.normal(size=(M0, N_DATA))
     return ((x - x.mean(1, keepdims=True)) / x.std(1, keepdims=True)).astype(np.float32)
+
+
+def six_tenant_data() -> np.ndarray:
+    """Six tenants' data, each its own mixture, [K6, M0, N]."""
+    return np.stack([lowrank(N, 500 + 100 * t) for t in range(K6)])

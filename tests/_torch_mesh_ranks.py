@@ -93,6 +93,41 @@ def run(rank: int) -> dict:
             out[f"data/{name}/{method}/scores"] = _np(
                 sharded.gather_samples(eng.scores(model, x), dmesh, axes))
             out[f"data/{name}/{method}/thr"] = _np(eng.thresholds(model))
+
+    # meshes over some of the ranks: the others idle, their calls None
+    idle = {}
+    six = DAEFEngine(cfg, ExecutionPlan(mode="mesh", tenants=cases.K6, merge="tree"),
+                     device="cpu")
+    assert six.mesh.shape == {"tenants": 3} and six.mesh.member == (rank < 3)
+    fl6 = six.fit(cases.six_tenant_data(), seeds=cases.SEEDS6)
+    red6 = six.reduce(fl6, 2)
+    idle["six"] = (fl6, red6, six.session().round([x[:, :40], x[:, 40:80]]))
+    if not six.idle:
+        assert fl6.size == 2 and red6.size == 1
+        _put(out, "six/fit", fleet_sharded.gather_fleet(fl6, six.mesh))
+        _put(out, "six/tree", fleet_sharded.gather_fleet(red6, six.mesh))
+    for method in cases.METHODS:
+        dcfg = daef.DAEFConfig(**dict(cases.KW, method=method))
+        sub = DAEFEngine(dcfg, ExecutionPlan(mode="mesh", mesh_axes=("data",),
+                                             mesh_devices=cases.SUB), device="cpu")
+        assert sub.mesh.shape == {"data": cases.SUB} and sub.idle == (rank >= cases.SUB)
+        model = sub.fit(x)
+        idle[f"data/{method}"] = (model, sub.scores(model, x), sub.thresholds(model))
+        if not sub.idle:
+            assert model.train_errors.shape == (cases.N_DATA // cases.SUB,)
+            _put(out, f"sub/data/{method}", model._replace(train_errors=sharded.gather_samples(
+                model.train_errors, sub.mesh, ("data",))))
+            out[f"sub/data/{method}/thr"] = _np(sub.thresholds(model))
+    pair = DAEFEngine(cfg, ExecutionPlan(mode="mesh", tenants=cases.K, mesh_devices=cases.SUB,
+                                         merge="tree"), device="cpu")
+    sfl = pair.fit(sites, seeds=np.ones(cases.K, np.int32))
+    merged = pair.reduce(sfl, cases.K)   # 4 tenants a rank: 2 local rounds, 1 cross
+    model = pair.session().round([sites[i] for i in range(4)])
+    idle["pair"] = (sfl, merged, model)
+    if not pair.idle:
+        _put(out, "pair/tree", merged)
+        _put(out, "pair/round", model)
+    out["idle"] = np.array([all(v is None for v in vals) for vals in idle.values()])
     return out
 
 

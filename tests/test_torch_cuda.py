@@ -1617,3 +1617,52 @@ def test_ae_graphed_step_is_the_eager_step(card, sizes, n, bs):
     assert torch.equal(graphed.train_errors, eager.train_errors)
     test = autoencoder.reconstruction_error(cfg, graphed, x[:, :50])
     assert test.shape == (50,) and bool(torch.isfinite(test).all())
+
+
+# ---------------------------------------------------------------------------
+# repro_torch.analysis's guard where graphs capture and kernels load
+# ---------------------------------------------------------------------------
+
+def test_analysis_warmup_captures_one_graph_a_shape_and_serving_none(card):
+    from repro_torch.analysis.__main__ import retrace_serve
+
+    out = retrace_serve("cuda")
+    assert out["warmup"].traces == out["shapes"] > 0
+    assert (out["serve"].traces, out["serve"].compiles) == (0, 0)
+
+
+def test_analysis_autoencoder_fit_captures_its_step_once(card):
+    from repro_torch.analysis import retrace
+    from repro_torch.baselines import autoencoder
+
+    cfg = autoencoder.AEConfig(layer_sizes=(6, 3, 6), epochs=2, batch_size=8)
+    x = np.random.default_rng(0).normal(size=(6, 32)).astype(np.float32)
+    for _ in range(2):
+        with retrace.trace_guard() as rep:
+            autoencoder.fit(cfg, x, device="cuda")
+        assert rep.traces == 1 and rep.traced_names[-1] == "autoencoder._Trainer.step"
+
+
+def test_analysis_chunked_fleet_fit_loads_flat_in_chunks(card):
+    from repro_torch.analysis import retrace
+    from repro_torch.kernels import _build
+
+    cfg = daef.DAEFConfig(layer_sizes=(6, 3, 4, 6), lam_hidden=0.9, lam_last=0.9,
+                          stats_backend="fused")
+    xs = np.random.default_rng(21).normal(size=(2, 6, 128)).astype(np.float32)
+    counts = []
+    for chunk in (32, 16):
+        _build.clear_loaded()
+        with retrace.trace_guard() as rep:
+            fleet._fit_fleet_chunked(cfg, xs, chunk_samples=chunk, seeds=np.arange(2),
+                                     device="cuda")
+        counts.append(rep.compiles)
+    assert counts[0] == counts[1] > 0
+    with retrace.trace_guard(max_traces=0, max_compiles=0):
+        fleet._fit_fleet_chunked(cfg, xs, chunk_samples=16, seeds=np.arange(2), device="cuda")
+
+
+def test_analysis_donation_reports_are_effective(card):
+    from repro_torch.analysis.__main__ import donation_reports
+
+    assert [r.ok for r in donation_reports("cuda")] == [True, True]

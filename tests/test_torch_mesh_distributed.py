@@ -14,7 +14,11 @@ Cases (tests/_torch_mesh_cases.py): the tenant-sharded fit, scores and
 thresholds of K = 8 tenants, 2 a rank; ``fleet_merge_tree`` with groups of
 2 (inside a rank) and of 8 (two cross rounds of the butterfly), both
 methods; ``merge_state_tree`` over 8 masked slots; the data-sharded fit,
-both methods, on a ("data",) mesh of 4 and a ("pod", "data") 2 × 2 mesh.
+both methods, on a ("data",) mesh of 4 and a ("pod", "data") 2 × 2 mesh;
+meshes over some of the ranks (the others idle, their calls None): six
+tenants on the automatic tenant mesh of three ranks (fit, a tree reduce by
+twos), a tenant mesh of two (a tree reduce 8 -> 1 and a sync tree round,
+exchanging over the sub-group) and a data mesh of two, both methods.
 Held at TOLS through ``assert_models_match`` (tests/_torch_parity.py);
 each tenant and site draws its own mixture, so the fleets' last layers are
 held at the larger of the κ bar and ``cancellation_bar``; the results
@@ -80,6 +84,16 @@ for method in cases.METHODS:
         put("state", fleet_sharded.merge_state_tree(
             mcfg, m.encoder_factors, m.layer_knowledge, cases.STATE_MASK,
             mesh=fleet_sharded.tenant_mesh(cases.D)))
+
+six = DAEFEngine(cfg, ExecutionPlan(mode="mesh", tenants=cases.K6, merge="tree"))
+assert dict(six.mesh.shape) == {{"tenants": 3}}
+fl6 = six.fit(cases.six_tenant_data(), seeds=cases.SEEDS6)
+put("six/fit", fl6)
+put("six/tree", six.reduce(fl6, 2))
+pair = DAEFEngine(cfg, ExecutionPlan(mode="mesh", tenants=cases.K, mesh_devices=cases.SUB,
+                                     merge="tree"))
+put("pair/tree", pair.reduce(pair.fit(sites, seeds=np.ones(cases.K, np.int32)), cases.K))
+put("pair/round", pair.session().round([jnp.asarray(sites[i]) for i in range(4)]))
 """
 
 _REFERENCE_DATA = """
@@ -93,6 +107,13 @@ for name, (shape, axes) in cases.DATA_MESHES.items():
         put(f"data/{{name}}/{{method}}", model)
         out[f"data/{{name}}/{{method}}/scores"] = np.asarray(eng.scores(model, x))
         out[f"data/{{name}}/{{method}}/thr"] = np.asarray(eng.thresholds(model))
+for method in cases.METHODS:
+    dcfg = daef.DAEFConfig(**dict(cases.KW, method=method))
+    eng = DAEFEngine(dcfg, ExecutionPlan(mode="mesh", mesh_axes=("data",),
+                                         mesh_devices=cases.SUB))
+    model = jax.jit(eng.fit)(x)
+    put(f"sub/data/{{method}}", model)
+    out[f"sub/data/{{method}}/thr"] = np.asarray(eng.thresholds(model))
 """
 
 _REFERENCE_END = """
@@ -226,6 +247,61 @@ def test_data_sharded_fit(runs, mesh, method):
     assert_models_match(_as_gram(_state(ref, prefix, method, False)),
                         _as_gram(_state(got[0], prefix, method, False)), cases.KW["lam_last"])
     assert_close(got[0][prefix + "/scores"], ref[prefix + "/scores"])
+    assert_close(got[0][prefix + "/thr"], ref[prefix + "/thr"])
+
+
+def _members(got: list, prefix: str, n: int) -> None:
+    """The result is on the mesh's n ranks, alike, and on no other."""
+    _same_on_every_rank(got[:n], prefix)
+    for g in got[n:]:
+        assert not any(key.startswith(prefix) for key in g), prefix
+
+
+def test_idle_ranks_return_none(runs):
+    """A rank outside a mesh over some of the ranks takes part in building
+    it and in nothing after: fit, scores, thresholds, reduce and the
+    session round return None there (six tenants: rank 3; the data and the
+    tenant mesh of two: ranks 2 and 3)."""
+    _, got = runs
+    for r, g in enumerate(got):
+        assert g["idle"].tolist() == [r >= 3, r >= cases.SUB, r >= cases.SUB, r >= cases.SUB]
+
+
+def test_tenant_mesh_over_three_of_four_ranks(runs):
+    """Six tenants on four ranks: the automatic tenant mesh takes three
+    (the reference's largest divisor that fits), two tenants a rank; the
+    fit and a ``merge="tree"`` reduce by twos held to the reference's on
+    four devices (its mesh of three)."""
+    ref, got = runs
+    for prefix, size in (("six/fit", cases.K6), ("six/tree", cases.K6 // 2)):
+        _members(got, prefix, 3)
+        got_fl = _state(got[0], prefix, "gram", True)
+        assert got_fl.size == size
+        _match_fleets(_state(ref, prefix, "gram", True), got_fl)
+
+
+def test_tree_reduce_and_round_over_a_two_rank_sub_group(runs):
+    """A tenant mesh of two of the four ranks: the butterfly's cross round
+    and the sync tree round exchange over the sub-group, held to the
+    reference's mesh of two devices."""
+    ref, got = runs
+    _members(got, "pair/tree", cases.SUB)
+    _match_fleets(_state(ref, "pair/tree", "gram", True), _state(got[0], "pair/tree", "gram", True))
+    _members(got, "pair/round", cases.SUB)
+    assert_models_match(_state(ref, "pair/round", "gram", False),
+                        _state(got[0], "pair/round", "gram", False), cases.KW["lam_last"],
+                        m_cancels=True)
+
+
+@pytest.mark.parametrize("method", cases.METHODS)
+def test_data_mesh_over_two_of_four_ranks(runs, method):
+    """``mesh_devices=2`` on four ranks: a federated fit over two nodes of
+    80 samples, held to the reference's mesh of two devices."""
+    ref, got = runs
+    prefix = f"sub/data/{method}"
+    _members(got, prefix, cases.SUB)
+    assert_models_match(_as_gram(_state(ref, prefix, method, False)),
+                        _as_gram(_state(got[0], prefix, method, False)), cases.KW["lam_last"])
     assert_close(got[0][prefix + "/thr"], ref[prefix + "/thr"])
 
 
