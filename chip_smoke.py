@@ -104,13 +104,16 @@ no result:
     lse 1e-5; B1 1e-4 of max|G| and of max|M|.  The B1 and B10 lines print
     max|plain| and the share of the bar used.
     Path shapes timed (CUDA events, median of 25) beside the bound (bf16
-    work against the tensor cores' 989 TFLOP/s, float32 against the CUDA
-    cores' 67; B1 at the head's shape and B10, which run 3xTF32, against
-    495 / 3 TFLOP/s, with the FP32-core bound printed beside it), the
-    plain version and, for B7, SDPA.  bf16 B7 launches
-    must take the tensor-core route (``flash_attention.route_launches``
-    "wgmma"), float32 ones the FP32 kernel ("fp32"); ``ptxas``'s registers
-    and spill bytes of every B7 instantiation are printed.
+    work against the tensor cores' 989 TFLOP/s, float32 on the CUDA cores
+    against their 67; B1 at the head's shape, B10 and B7's float32 route,
+    which run 3xTF32, against 495 / 3 TFLOP/s, B1 and B10 with the
+    FP32-core bound printed beside it), the plain version and, for B7,
+    SDPA (in float32 too, at qwen3's train shape, 2 x 2,048, 16/8 heads of
+    128, the float32 route's lm-mesh shape).  bf16 B7 launches must take
+    the bf16 tensor-core route (``flash_attention.route_launches``
+    "wgmma"), float32 ones the 3xTF32 one ("tf32x3"); every float32 case
+    repeats bit for bit; ``ptxas``'s registers and spill bytes of every B7
+    instantiation are printed.
 10. depth-cut agreement — qwen3-1.7b and mamba2-780m at full width cut to
     2 layers (1 x 512 tokens), recurrentgemma-9b cut to one (rec, rec,
     attn) period (1 x 2,560 tokens, beyond its 2,048 window), float32: the
@@ -143,13 +146,14 @@ no result:
     causal) in bf16 and float32, recurrentgemma's windowed MQA (2 x 4,096,
     16/1 heads of 256, window 2,048) in bf16, a ragged S = 1,000 at head
     size 64 and head size 32; in float32 also against autograd through
-    B7's plain forward; a repeat must be bit-identical; bf16 on the
-    tensor-core route, float32 on the FP32 one, ``ptxas`` lines of every B8
-    instantiation printed.  Bars per element:
+    B7's plain forward; a repeat must be bit-identical (the train shape
+    and every float32 case); bf16 on the bf16 tensor-core route, float32 on
+    the 3xTF32 one, ``ptxas`` lines of every B8 instantiation printed.  Bars per element:
     float32 1e-5 of the element's term magnitude
     (``flash_attention_bwd_magnitudes``), bf16 one bf16 ulp plus 2e-5 of
-    it.  The train shape timed beside its bound, the plain version and
-    SDPA's backward (the yardstick; the port never calls SDPA).
+    it.  The train shape timed in bf16 and float32 beside its bound, the
+    plain version and SDPA's backward (the yardstick; the port never calls
+    SDPA).
 15. gradient agreement — qwen3-1.7b at full width cut to 2 layers, float32,
     1 x 512 tokens: ``bundle.loss`` and every gradient leaf on the card
     (B7 4, B8 2, float32 route) against the host, 1e-4 of each leaf's
@@ -398,7 +402,7 @@ lm-mesh (after the mesh phase) — ROADMAP item 12's model-zoo part, the
     qwen2-moe), two processes started together, each ending in ``serve
     OK``; their decode ms/token at B = 4.  (a) B7 at MLA's head sizes, q/k
     192 and v 128, 128 heads, causal: 1 x 4,096 in bf16 (the ``"wgmma"``
-    route) and float32 (``"fp32"``), ragged S = 1,000 in both, against the
+    route) and float32 (``"tf32x3"``), ragged S = 1,000 in both, against the
     plain version under phase 9's bars, each repeat bit-identical; timed
     (CUDA events, median of 25) beside its bound (2·(192 + 128) FLOP per
     (query, key) pair of the causal band at 989 TFLOP/s) and SDPA where
@@ -434,7 +438,7 @@ lm-mesh (after the mesh phase) — ROADMAP item 12's model-zoo part, the
     ``jax.random.normal(PRNGKey(2), ...)``'s bits) ending in ``serve OK``.
     (a) B7 with ``causal=False`` at whisper-tiny's encoder shape (16 x
     1,500, 6 heads of 64) and a ragged S = 1,000, bf16 (``"wgmma"``) and
-    float32 (``"fp32"``), against the plain version under phase 9's bars,
+    float32 (``"tf32x3"``), against the plain version under phase 9's bars,
     each repeat bit-identical; the encoder shape timed beside its bound
     (2·128 FLOP a pair of the full square) and SDPA.  (b) B8 with
     ``causal=False`` at the encoder's training shape (a microbatch of (e),
@@ -448,10 +452,10 @@ lm-mesh (after the mesh phase) — ROADMAP item 12's model-zoo part, the
     prefill's logits card against host (1e-4 of max), the tokens
     teacher-forced through ``bundle.decode`` from ``encdec.init_cache``
     against the prefill at the reference's bar (B7 12 launches on
-    ``"fp32"``, decode none); a bf16 prefill of 16 x (1,500 frames + 448
+    ``"tf32x3"``, decode none); a bf16 prefill of 16 x (1,500 frames + 448
     tokens) after a warm-up (B7 8, all ``"wgmma"``), decoder tokens/s and
     frames/s.  (d) ``bundle.loss`` and every gradient leaf, float32, card
-    (B7 twice and B8 once an attention layer, ``"fp32"``) against host,
+    (B7 twice and B8 once an attention layer, ``"tf32x3"``) against host,
     each leaf within 1e-4 of its largest entry, the loss within 1e-5 of
     itself: whisper-tiny uncut (1 x (1,500 frames + 64 tokens)),
     internvl2-2b (after its 256 patches) and qwen2-moe-a2.7b cut to 2
@@ -3655,8 +3659,8 @@ def _lm_zero():
 def _lm_read(route="wgmma", **want):
     """The launch counts, checked against ``want`` (every kernel not named
     must not have run); every B7 and B8 launch must have taken ``route``
-    (``"wgmma"``: the bf16 tensor-core kernels; ``"fp32"``: the float32
-    ones)."""
+    (``"wgmma"``: the bf16 tensor-core kernels; ``"tf32x3"``: the float32
+    ones, 3xTF32 on the tensor cores)."""
     wrappers = _lm_wrappers()
     got = {name: fn.launches for name, fn in wrappers.items()}
     expected = {name: want.get(name, 0) for name in got}
@@ -3885,12 +3889,15 @@ def phase_lm_kernels():
         ("float32", 2, 512, 8, 4, 64, f32, None, False),
         ("window 1", 1, 300, 4, 1, 128, f32, 1, False),
         ("window 17", 2, 600, 16, 1, 256, bf16, 17, False),
+        # the float32 route at qwen3's train shape, the shape of the lm-mesh
+        # phase's dense float32 steps (B8's "train float32" case)
+        ("train float32", 2, TRAIN_S, 16, 8, 128, f32, None, True),
     ]
-    _say_ptxas("flash_attention", ["flash_fwd_wgmma_kernel", "flash_fwd_kernel"])
+    _say_ptxas("flash_attention", ["flash_fwd_wgmma_kernel", "flash_fwd_tf32x3_kernel"])
     for label, b, s, h, hkv, d, dtype, window, timed in attn_cases:
         q, k, v = randn(b, s, h, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype), \
             randn(b, s, hkv, d, dtype=dtype)
-        route = "wgmma" if dtype == bf16 else "fp32"
+        route = _route(dtype)
         before = flash_attention.route_launches[route]
         out, lse = flash_attention(q, k, v, window=window)
         torch.cuda.synchronize()
@@ -3909,6 +3916,12 @@ def phase_lm_kernels():
             err, _ = _agree(f"B7 {label} out", out.float(), ref.float(), 1e-5, 1.0)
             bar = "1e-5 * max(1, max|ref|)"
         err_lse, _ = _agree(f"B7 {label} lse", lse, ref_lse, 1e-5)
+        if dtype == f32:
+            again, again_lse = flash_attention(q, k, v, window=window)
+            check(bool(torch.equal(again, out) and torch.equal(again_lse, lse)),
+                  f"B7 {label}: a repeat is not bit-identical")
+            bar += "; a repeat is bit-identical"
+            del again, again_lse
         say("kernel", f"flash_attention {label} B={b} S={s} H={h}/{hkv} D={d} "
             f"{str(dtype)[6:]} window={window} ({route}): max|d| out {err:.3e} ({bar}), "
             f"lse {err_lse:.3e}, ok")
@@ -3917,14 +3930,15 @@ def phase_lm_kernels():
             plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, window=window))
             library_ms = cuda_ms(lambda: _sdpa(q, k, v, window))
             flops, nbytes = _attention_work(b, s, h, hkv, d, q.element_size(), window)
-            bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+            bound_ms, bound_by = _bound(flops, nbytes, _peak(route))
             rows["flash_attention"].append(dict(
-                shape=label, b=b, s=s, h=h, hkv=hkv, d=d, window=window,
+                shape=label, b=b, s=s, h=h, hkv=hkv, d=d, window=window, route=route,
                 max_abs_err=max(err, err_lse), ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
             say("kernel", f"flash_attention {label}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, SDPA yardstick {library_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}, {flops:.3g} FLOP, {nbytes / 1e6:.1f} MB)")
+                f"{plain_ms:.4f} ms, SDPA {str(dtype)[6:]} yardstick {library_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}, {'3xTF32, ' if route == 'tf32x3' else ''}"
+                f"{flops:.3g} FLOP, {nbytes / 1e6:.1f} MB)")
 
     # B9 on the prefill's inputs (the backbone's bf16 x, float32 gates: their
     # bias is float32), all bf16 and all float32; ragged S (a last tile of 1
@@ -4054,7 +4068,7 @@ def phase_lm_agreement():
         t1 = time.perf_counter()
         want = {QWEN3: dict(flash_attention=depth), MAMBA2: dict(ssd_chunk=depth),
                 RGEMMA: dict(flash_attention=1, rglru_scan=2)}[name]
-        _lm_read(route="fp32", **want)
+        _lm_read(route="tf32x3", **want)
         host = pytree.tree_map(lambda t: t.cpu(), params)
         del params
         torch.cuda.empty_cache()
@@ -4351,7 +4365,13 @@ def _agree_bwd(label, got, want, mags, dtype):
 def _route(dtype) -> str:
     import torch
 
-    return "wgmma" if dtype == torch.bfloat16 else "fp32"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def _peak(route) -> float:
+    """The peak rate of B7's and B8's work on a route: bf16 tensor cores, or
+    float32 as three TF32 products."""
+    return PEAK_BF16_FLOPS if route == "wgmma" else PEAK_TF32X3_FLOPS
 
 
 def _b8_case(gen, label, b, s, h, hkv, d, dtype, *, d_v=None, window=None, causal=True,
@@ -4417,8 +4437,7 @@ def _b8_case(gen, label, b, s, h, hkv, d, dtype, *, d_v=None, window=None, causa
     except RuntimeError as e:  # SDPA refuses the shapes: say so
         library_ms, library = None, f"SDPA refused the shapes ({str(e)[:120]})"
     flops, nbytes = _attention_bwd_work(b, s, h, hkv, d, q.element_size(), window, d_v, causal)
-    bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS if route == "wgmma"
-                                else PEAK_FP32_FLOPS)
+    bound_ms, bound_by = _bound(flops, nbytes, _peak(route))
     say(tag, f"flash_attention_bwd {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"{library}, bound {bound_ms:.4f} ms ({bound_by}, {flops:.4g} FLOP, "
         f"{nbytes / 1e6:.1f} MB)")
@@ -4431,7 +4450,8 @@ def phase_b8_kernels():
     """B8 against its plain version (and, in float32, against autograd
     through B7's plain forward) at the train shape, recurrentgemma's windowed
     MQA at head size 256, a ragged S at head size 64 and head size 32; a
-    repeat must be bit-identical.  The train shape is timed beside its bound,
+    repeat must be bit-identical (the bf16 train shape and every float32
+    case).  The train shape is timed in bf16 and float32 beside its bound,
     the plain version and SDPA's backward."""
     import torch
 
@@ -4440,17 +4460,18 @@ def phase_b8_kernels():
     rows = []
     cases = [
         ("train", 2, TRAIN_S, 16, 8, 128, bf16, None, True),
-        ("train float32", 2, TRAIN_S, 16, 8, 128, f32, None, False),
+        ("train float32", 2, TRAIN_S, 16, 8, 128, f32, None, True),
         ("recurrentgemma", 2, 4_096, 16, 1, 256, bf16, 2_048, False),
         ("ragged S", 1, 1_000, 8, 2, 64, f32, None, False),
         ("ragged S bf16 window", 2, 1_000, 8, 2, 64, bf16, 300, False),
         ("head size 32", 2, 512, 8, 2, 32, f32, 77, False),
     ]
     _say_ptxas("flash_attention_bwd", ["flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
-                                       "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"])
+                                       "flash_bwd_dq_tf32x3_kernel",
+                                       "flash_bwd_dkv_tf32x3_kernel"])
     for label, b, s, h, hkv, d, dtype, window, timed in cases:
         row = _b8_case(gen, label, b, s, h, hkv, d, dtype, window=window, timed=timed,
-                       repeat=label == "train", autograd=dtype == f32)
+                       repeat=label == "train" or dtype == f32, autograd=dtype == f32)
         if row:
             rows.append(row)
         torch.cuda.empty_cache()
@@ -4921,7 +4942,8 @@ def phase_analysis(cfg, fleet_data_d, comparison) -> dict:
     step once; a chunked fleet fit (B6) of two creditcard tenants loads as
     many libraries at chunk 32 as at chunk 16, cold (after
     ``_build.clear_loaded``), and none warm; both donation reports of the
-    self-check are effective.  Returns the phase's numbers."""
+    self-check are effective, the streaming fold's "in-place".  Returns the
+    phase's numbers."""
     import torch
 
     from repro_torch.analysis import retrace
@@ -4970,6 +4992,9 @@ def phase_analysis(cfg, fleet_data_d, comparison) -> dict:
     reports = donation_reports("cuda")
     out["donation"] = [r.describe() for r in reports]
     check(all(r.ok is True for r in reports), "donation: " + "; ".join(out["donation"]))
+    # the streaming fold writes through B3's raw pointer; its wrapper bumps the
+    # accumulators' versions, so the card's fold reads as the host's: in place
+    check(reports[1].kinds == ("in-place",), f"the streaming fold: {out['donation'][1]}")
     out["seconds"] = time.perf_counter() - t_phase
     say("analysis", f"warmup captured {warm.traces} CUDA graphs for {serve['shapes']} tile "
         f"shapes; the mixed ragged serve ({len(serve['results'])} requests) captured "
@@ -5071,8 +5096,8 @@ def _teacher_force(bundle, params, tokens):
 
 def _decode_vs_prefill(label, bundle, params, s, seed, want, prefill_bundle=None):
     """(b)/(c): decode against prefill on the same 2 x ``s`` tokens at the
-    reference's bar; the prefill's launches must be ``want`` (B7 on its FP32
-    kernel), the decode's none.  ``prefill_bundle`` (default ``bundle``)
+    reference's bar; the prefill's launches must be ``want`` (B7 on its
+    3xTF32 float32 route), the decode's none.  ``prefill_bundle`` (default ``bundle``)
     runs the prefill."""
     import torch
 
@@ -5084,11 +5109,11 @@ def _decode_vs_prefill(label, bundle, params, s, seed, want, prefill_bundle=None
     _lm_zero()
     pf = (prefill_bundle or bundle).prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
-    prefill_launches = {k: n for k, n in _lm_read(route="fp32", **want).items() if n}
+    prefill_launches = {k: n for k, n in _lm_read(route="tf32x3", **want).items() if n}
     _lm_zero()
     logits, cache = _teacher_force(bundle, params, tokens)
     torch.cuda.synchronize()
-    _lm_read(route="fp32")
+    _lm_read(route="tf32x3")
     got, ref = logits[:, 0].double(), pf[:, 0].double()
     d = (got - ref).abs()
     share = float((d / (DECODE_ATOL + DECODE_RTOL * ref.abs())).max())
@@ -5170,7 +5195,7 @@ def _decode_speed(name, bundle, params, card):
     serve.generate(bundle, params, prompts[:, :2], 2)  # warm-up at B = 4
     _lm_zero()
     out = serve.generate(bundle, params, prompts, SPEED_GEN)
-    _lm_read(route="fp32")
+    _lm_read(route="tf32x3")
     check(bool(out.logits.isfinite().all()), f"{name}: generate's logits not finite")
     ms = out.decode_s / SPEED_GEN * 1e3
     tok_s = SPEED_B * SPEED_GEN / out.decode_s
@@ -5332,8 +5357,7 @@ def _b7_case(gen, label, b, s, h, d, dtype, *, d_v=None, causal=True, timed=Fals
     except RuntimeError as e:  # SDPA refuses the shapes: say so
         library_ms, library = None, f"SDPA refused the shapes ({str(e)[:120]})"
     flops, nbytes = _attention_work(b, s, h, h, d, q.element_size(), None, d_v, causal)
-    bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS if route == "wgmma"
-                                else PEAK_FP32_FLOPS)
+    bound_ms, bound_by = _bound(flops, nbytes, _peak(route))
     say(tag, f"flash_attention ({d}, {d_v}) causal={causal} {label}: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, {library}, bound {bound_ms:.4f} ms ({bound_by}, "
         f"{flops:.4g} FLOP, {nbytes / 1e6:.1f} MB)")
@@ -5359,7 +5383,7 @@ def _mla_kernel_checks():
             rows[_route(dtype)] = row
         torch.cuda.empty_cache()
     regs = {}
-    for kernel in ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"):
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_fwd_tf32x3_kernel"):
         got = _ptxas("flash_attention", kernel).get(f"{MLA_D},{MLA_DV}")
         check(got is not None, f"no ptxas line for {kernel}<{MLA_D}, {MLA_DV}>")
         regs[kernel] = dict(registers=got[0], spill_stores=got[1], spill_loads=got[2])
@@ -5433,7 +5457,7 @@ def _family_agree(cfg, bundle, params, seed):
     _lm_zero()
     with _RouteLog() as card_log:
         h_card = bundle.forward(params, *args).cpu()
-    _lm_read(route="fp32", flash_attention=cfg.n_layers)
+    _lm_read(route="tf32x3", flash_attention=cfg.n_layers)
     host = pytree.tree_map(lambda t: t.cpu(), params)
     t0 = time.perf_counter()
     with _RouteLog() as host_log:
@@ -5814,7 +5838,9 @@ def _new_bwd_checks():
     for kernel, args in (("flash_bwd_dq_wgmma_kernel", "192,128"),
                          ("flash_bwd_dkv_wgmma_kernel", "192,128,1,0"),
                          ("flash_bwd_dkv_wgmma_kernel", "192,128,0,1"),
-                         ("flash_bwd_dq_kernel", "192,128"), ("flash_bwd_dkv_kernel", "192,128")):
+                         ("flash_bwd_dq_tf32x3_kernel", "192,128"),
+                         ("flash_bwd_dkv_tf32x3_kernel", "192,128,1,0"),
+                         ("flash_bwd_dkv_tf32x3_kernel", "192,128,0,1")):
         got = _ptxas("flash_attention_bwd", kernel).get(args)
         check(got is not None, f"no ptxas line for {kernel}<{args}>")
         regs[f"{kernel}<{args}>"] = dict(registers=got[0], spill_stores=got[1],
@@ -5855,7 +5881,7 @@ def _whisper_checks(card) -> dict:
         enc = encdec.encode(params, cfg, frames)
     pf = bundle.prefill(params, {"tokens": tokens, "frames": frames})
     torch.cuda.synchronize()
-    _lm_read(route="fp32", flash_attention=cfg.n_encoder_layers + _attn_layers(cfg))
+    _lm_read(route="tf32x3", flash_attention=cfg.n_encoder_layers + _attn_layers(cfg))
     host = pytree.tree_map(lambda t: t.cpu(), params)
     with torch.inference_mode():
         enc_host = encdec.encode(host, cfg, frames.cpu())
@@ -5877,7 +5903,7 @@ def _whisper_checks(card) -> dict:
     for t in range(DECODE_S):
         logits, cache = bundle.decode(params, cache, tokens[:, t:t + 1], t)
     torch.cuda.synchronize()
-    _lm_read(route="fp32")
+    _lm_read(route="tf32x3")
     got, ref = logits[:, 0].double(), pf[:, 0].double()
     d = (got - ref).abs()
     share = float((d / (DECODE_ATOL + DECODE_RTOL * ref.abs())).max())
@@ -5964,7 +5990,7 @@ def _grad_agree(name, seed, changes, s, tag="encdec"):
         t0 = time.perf_counter()
         loss_card, g_card, log_card = _loss_and_grads(bundle, params, batch)
         card_s = time.perf_counter() - t0
-        launches = _lm_read(route="fp32", **_loss_launches(cfg))
+        launches = _lm_read(route="tf32x3", **_loss_launches(cfg))
         host = pytree.tree_map(lambda t: t.detach().cpu(), params)
         t0 = time.perf_counter()
         loss_host, g_host, log_host = _loss_and_grads(
@@ -6389,9 +6415,9 @@ def _stripe_case(gen, dtype, offset, card) -> dict:
     """(a) of the lm-mesh phase at one offset and dtype: B7 per element
     against its plain version (bf16 within one bf16 ulp + 2^-7·1e-2, float32
     1e-5 of max(1, max|ref|); lse 1e-5), B8 per element against the plain
-    backward (``_agree_bwd``), both launches on their route, and CUDA-events
-    times (median of 25) of each beside its plain version, SDPA on the same
-    stripe and the bound."""
+    backward (``_agree_bwd``), both launches on their route (in float32 a
+    repeat of each bit-identical), and CUDA-events times (median of 25) of
+    each beside its plain version, SDPA on the same stripe and the bound."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -6425,8 +6451,13 @@ def _stripe_case(gen, dtype, offset, card) -> dict:
     mags = flash_attention_bwd_magnitudes(q, k, v, out, lse, do, **kw)
     err_b, used_b = _agree_bwd(label, got, flash_attention_bwd_ref(q, k, v, out, lse, do, **kw),
                                mags, dtype)
+    if route == "tf32x3":
+        again = (*flash_attention(q, k, v, **kw), *flash_attention_bwd(q, k, v, out, lse, do, **kw))
+        check(all(torch.equal(x, y) for x, y in zip(again, (out, lse, *got))),
+              f"{label}: a repeat of B7 or B8 is not bit-identical")
+        del again
     del ref, ref_lse, mags, got
-    peak = PEAK_BF16_FLOPS if route == "wgmma" else PEAK_FP32_FLOPS
+    peak = _peak(route)
     row = {"offset": offset, "dtype": str(dtype)[6:], "route": route}
     for name, fn, plain, library, backward, e, u in (
             ("flash_attention", lambda: flash_attention(q, k, v, **kw),
@@ -6465,7 +6496,7 @@ def phase_stripe_kernels(card) -> list:
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(34)
-    _say_ptxas("flash_attention", ["flash_fwd_wgmma_kernel", "flash_fwd_kernel"])
+    _say_ptxas("flash_attention", ["flash_fwd_wgmma_kernel", "flash_fwd_tf32x3_kernel"])
     rows = [_stripe_case(gen, dtype, offset, card)
             for dtype in (torch.bfloat16, torch.float32) for offset in STRIPE_OFFSETS]
     torch.cuda.empty_cache()
@@ -6510,6 +6541,7 @@ LM_MESH_CASES = {
 }
 LM_MESH_LR = 1e-3
 LM_MESH_SEQ = "qwen2-1.5b 14 layers data 1 x model 4"
+LM_MESH_DENSE = "qwen3-1.7b 14 layers data 2 x model 2"
 
 
 def _stripe_rows(numbers, kernel) -> dict:
@@ -6758,7 +6790,7 @@ def lm_mesh_rank(rank: int, mesh_dir: str) -> int:
                 torch.cuda.synchronize()
                 step_ms.append((time.perf_counter() - t0) * 1e3)
                 exchange_ms.append(exchange["ms"])
-            launches = _lm_read("fp32", **{k: v * case["steps"]
+            launches = _lm_read("tf32x3", **{k: v * case["steps"]
                                            for k, v in _loss_launches(cfg).items()})
             peak_gb = torch.cuda.max_memory_allocated() / 2**30
             if case.get("grads"):
@@ -7181,6 +7213,15 @@ def main() -> int:
             # in one step of the lm-mesh phase's (c) (14 layers, forward and remat).
             "q_offset": {"lm_mesh_launches": lm_mesh_numbers[LM_MESH_SEQ]["launches_per_rank"][
                 "flash_attention"], **_stripe_rows(lm_mesh_numbers, "flash_attention")},
+            # The float32 route (3xTF32 wgmma), per launch at qwen3's train
+            # shape (2 x 2,048, 16/8 heads of 128, float32); lm_mesh_launches:
+            # a rank's over the two steps of the lm-mesh phase's (b) (14
+            # layers, forward and remat).
+            "float32_tf32x3": {
+                "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                "lm_mesh_launches": lm_mesh_numbers[LM_MESH_DENSE]["launches_per_rank"][
+                    "flash_attention"],
+                **_per_launch(lm_rows["flash_attention"], "train float32")},
         },
         {
             "name": "flash_attention_bwd",
@@ -7208,6 +7249,13 @@ def main() -> int:
             # in one step of the lm-mesh phase's (c) (14 layers).
             "q_offset": {"lm_mesh_launches": lm_mesh_numbers[LM_MESH_SEQ]["launches_per_rank"][
                 "flash_attention_bwd"], **_stripe_rows(lm_mesh_numbers, "flash_attention_bwd")},
+            # The float32 route (3xTF32 wgmma), per call at the train shape in
+            # float32; lm_mesh_launches: a rank's over the two steps of (b).
+            "float32_tf32x3": {
+                "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+                "lm_mesh_launches": lm_mesh_numbers[LM_MESH_DENSE]["launches_per_rank"][
+                    "flash_attention_bwd"],
+                **_per_launch(b8_rows, "train float32")},
         },
         {
             "name": "rglru_scan",

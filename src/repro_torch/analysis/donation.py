@@ -108,8 +108,9 @@ def probe(fn, *args, donate_argnums=(), **kwargs) -> DonationReport:
     None and ``ok`` None.  The call runs for real, so a function that
     updates its arguments in place updates them.  A CUDA kernel that writes
     through a raw pointer (the port's ctypes wrappers) moves no version
-    counter: such a fold shows as effective only by returning the buffer it
-    folded into (its storage reused), as the streaming folds do.
+    counter by itself; the streaming folds' wrappers (B2, B3, B5, B6) bump
+    their float32 accumulators' versions after the launch, so their folds
+    show as "in-place" on the card as on the host.
 
     Raises:
         TypeError: a position in ``donate_argnums`` that is not an argument

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the float32 tensor-core kernels: B1's
-// one-tenant route (rolann_stats/csrc/rolann_stats_sm90.cuh) and B10
-// (ssd_chunk/csrc/ssd_chunk.cu), for TF32 operands.  The generic pieces
+// one-tenant route (rolann_stats/csrc/rolann_stats_sm90.cuh), B10
+// (ssd_chunk/csrc/ssd_chunk.cu) and the float32 routes of B7 and B8
+// (flash_attention/csrc/flash_tf32x3_sm90.cuh), for TF32 operands.  The generic pieces
 // (shared-memory addresses, wgmma fences, commits and waits) are the bf16
 // kernels' in flash_attention/csrc/flash_sm90.cuh.
 //
@@ -140,6 +141,22 @@ __device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -196,6 +213,64 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D (64 × N, float32) += A · B, TF32 operands, A and B from shared memory,
+// both K-major.
+
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// acc += a·b for one k8 step as lo·hi + hi·lo + hi·hi, A's hi and lo tiles
+// and B's given by their descriptors (A from shared memory).
+template <int N>
+__device__ __forceinline__ void mma3_ss(float (&d)[N / 2], uint64_t a_hi, uint64_t a_lo,
+                                        uint64_t b_hi, uint64_t b_lo) {
+  if constexpr (N == 32) {
+    wgmma_ss_n32(d, a_lo, b_hi);
+    wgmma_ss_n32(d, a_hi, b_lo);
+    wgmma_ss_n32(d, a_hi, b_hi);
+  } else {
+    static_assert(N == 64, "wgmma width");
+    wgmma_ss_n64(d, a_lo, b_hi);
+    wgmma_ss_n64(d, a_hi, b_lo);
+    wgmma_ss_n64(d, a_hi, b_hi);
+  }
+}
+
 // acc += a·b for one k8 step as lo·hi + hi·lo + hi·hi: A's fragments split
 // by `split4` (kept unchanged until the wgmmas have completed), B's hi and
 // lo tiles given by their descriptors.
@@ -206,6 +281,10 @@ __device__ __forceinline__ void mma3(float (&d)[N / 2], const uint32_t (&a_hi)[4
     wgmma_rs_n8(d, a_lo, b_hi);
     wgmma_rs_n8(d, a_hi, b_lo);
     wgmma_rs_n8(d, a_hi, b_hi);
+  } else if constexpr (N == 32) {
+    wgmma_rs_n32(d, a_lo, b_hi);
+    wgmma_rs_n32(d, a_hi, b_lo);
+    wgmma_rs_n32(d, a_hi, b_hi);
   } else if constexpr (N == 64) {
     wgmma_rs_n64(d, a_lo, b_hi);
     wgmma_rs_n64(d, a_hi, b_lo);

@@ -1,5 +1,5 @@
 // Causal, optionally windowed, flash attention forward on Hopper (sm_90a):
-// the entry point of B7 and its float32 kernel on the FP32 CUDA cores.
+// the entry point of B7 and its float32 kernel, 3xTF32 on the tensor cores.
 //
 // Replaces the Pallas TPU kernel `flash_attention_kernel` (body `_kernel`) of
 // src/repro/kernels/flash_attention/kernel.py (B7).  For every batch b, query
@@ -31,197 +31,241 @@
 //
 // Dispatch by dtype, in `flash_attention_fwd` below: bf16 goes to the
 // tensor-core kernel of flash_fwd_sm90.cuh (wgmma, TMA; see its note), and
-// only there; float32 to the kernel in this file.  Nothing falls back: a
-// launch that is refused, or a stride TMA cannot take, returns an error.
+// only there; float32 to the 3xTF32 kernel in this file.  Nothing falls
+// back: a launch that is refused, or a stride TMA cannot take, returns an
+// error.
 //
-// The float32 kernel.  Every product and sum is float32, on the FP32 CUDA
-// cores (the tensor cores have no full-float32 path).  The probabilities
-// stay float32 for P·V, as in `flash_attention_ref` and the model's
-// `attend_chunked` (the Pallas kernel rounds them to v's type first).  The
-// Pallas grid carries (m, l, acc) in VMEM along a sequential key axis;
-// Hopper's blocks run in no order, so one block owns a tile of BQ query rows
-// of one (b, h) and loops over the key tiles itself, keeping (m, l, acc) in
-// registers.  128 threads: lane group cg = tid % 8 and row group
-// rg = tid / 8.  A thread owns query rows rg + 16·i (4 rows, BQ = 64, at
-// D <= 128; 2 rows, BQ = 32, at D = 192 and 256 to bound registers), key
-// columns cg + 8·j of each 32-key tile and output columns cg + 8·j of DV.  The eight
-// lanes that share a row are neighbours in one warp, so the row max and row
-// sum are three xor-shuffles.  Q (once) and each K/V tile are staged in
-// shared memory with rows padded to D + 1 floats, so that the lanes of a
-// warp read distinct banks; P goes through shared memory (rows padded to 33)
-// between the two products.  Its inner loops are bounded by shared-memory
-// loads (8 loads per 16 FMAs in Q·Kᵀ, 20 per 64 in P·V); float32 attention
-// serves the depth-cut agreement checks, not the bf16 model paths.
+// The float32 kernel.  It replaces a kernel on the FP32 CUDA cores whose
+// loops were bounded by shared-memory loads (17 % of even the FP32-core
+// bound at MLA's (192, 128); PERF.md).  Both products run on the tensor
+// cores in 3xTF32 (flash_tf32x3_sm90.cuh, ../../csrc/tf32x3_sm90.cuh): each
+// float32 operand split into TF32 hi + lo and each k8 step taken as
+// lo·hi + hi·lo + hi·hi, ~2^-22 of each term, so the float32 bars hold.  The
+// probabilities stay float32 for P·V, as in `flash_attention_ref` and the
+// model's `attend_chunked` (the Pallas kernel rounds them to v's type
+// first); they enter P·V split, as its A operand, in place.
+//
+// A block owns 64·NWG query rows of one (b, h), one consumer warpgroup of
+// 64 rows each, and walks the key tiles of its band (the Pallas grid's
+// sequential key axis; Hopper's blocks run in no order), each warpgroup
+// keeping its m, l and 64 × DV accumulator in registers in the wgmma
+// layout (a row lives in 4 lanes: two xor-shuffles per row max and sum).
+// Per tile of BK keys the block's threads split K and V into the K-major
+// tiles the products read: K [BK][D] for S = Q·Kᵀ and Vᵀ [DV][BK] for P·V
+// (TF32 wgmma reads B only K-major).  Both warpgroups read each staged tile,
+// so one split pass serves 128 rows, and one warpgroup's softmax runs
+// under the other's wgmmas.  Grid (H, B, query tiles), the query tiles
+// last-first, so the longest causal blocks start first.
+//
+// Configurations (FwdTile), every B tile doubled by hi + lo; BK = 64 at
+// D = 32, else 32:
+// * D <= 128: NWG = 2; Q split once into K-major tiles that S reads from
+//   shared memory (wgmma with both operands in shared memory: every k8
+//   step issued back to back); the next tile's raw K and V copied by
+//   cp.async under this tile's products, then split shared to shared.
+//   (128, 128): 226 KB.
+// * (192, 128): NWG = 2, Q's raw rows staged once and split a k8 step at a
+//   time into registers (its tiles would not fit beside two warpgroups),
+//   the next tile prefetched: 222 KB.
+// * (256, 256): NWG = 1, Q raw, K and V loaded from device memory 16
+//   values a thread at a time (the 64 × 256 accumulator takes 128
+//   registers a thread): 195 KB.
 //
 // Block skipping.  A block visits only the key tiles that meet its causal /
 // window band: from the tile holding max(0, off + q0 - window + 1) up to its
 // last query row's position; the tiles wholly outside the band are never
-// loaded (a stripe at offset off visits at most off + q0 + BQ keys).  The tiles it skips would contribute exp(-1e30 - m) = 0 to every
-// row, so this is the same function with less work.  Masked entries get
-// p = 0 explicitly; every row has at least its own key (j = i), so this
-// equals the reference wherever the reference is defined.  Rows and keys
-// past S (a ragged S, which the Pallas kernel refuses) are masked here.
+// loaded (a stripe at offset off visits at most off + q0 + 64·NWG keys).
+// The tiles it skips would contribute exp(-1e30 - m) = 0 to every row, so
+// this is the same function with less work.  The first warpgroup of a
+// causal block also runs the tiles past its own rows, whose every entry it
+// masks (no wgmma is issued under a branch).  Masked entries get p = 0
+// explicitly; every row has at least its own key (j = i), so this equals
+// the reference wherever the reference is defined.  Rows and keys past S (a
+// ragged S, which the Pallas kernel refuses) are masked here.
 
 #include "flash_common.cuh"
 #include "flash_fwd_sm90.cuh"
+#include "flash_tf32x3_sm90.cuh"
 
 namespace {
 
 using flash::attends;
 using flash::kNegInf;
+using namespace flash::tf32;
 
-constexpr int kThreads = 128;
-constexpr int kBK = 32;                 // keys per tile
-constexpr int kCG = 8;                  // lanes sharing a query row
-constexpr int kRG = kThreads / kCG;     // row groups
-constexpr int kCols = kBK / kCG;        // keys per thread per tile
-
-template <int D, int DV>
-struct Tile {
-  static constexpr int kRows = D > 128 ? 2 : 4;  // query rows per thread
-  static constexpr int kBQ = kRG * kRows;        // query rows per block
-  static constexpr int kDCols = DV / kCG;        // output columns per thread
-  static constexpr int kLdQ = D + 1;
-  static constexpr int kLdK = D + 1;
-  static constexpr int kLdV = DV;
-  static constexpr int kLdP = kBK + 1;
-  static constexpr int kSmemBytes =
-      4 * (kBQ * kLdQ + kBK * kLdK + kBK * kLdV + kBQ * kLdP);
+template <int D_, int DV_>
+struct FwdTile {
+  static constexpr int D = D_, DV = DV_;
+  // Two consumer warpgroups share each staged K/V tile up to D = 192, one
+  // at 256.  Up to D = 128 Q is split once into K-major tiles that the
+  // products read from shared memory; above, its raw rows are split a k8
+  // step at a time.  Up to 192 the next K/V tile is copied under this
+  // one's products; at 256 K and V are staged from device memory.
+  static constexpr int NWG = D <= 192 ? 2 : 1;
+  static constexpr bool kQTiles = D <= 128, kPrefetch = D <= 192;
+  // Up to D = 128 each tile's P·V is taken into a fresh accumulator, in
+  // 64-column parts, and added to O in float32 (acc_product's FRESH: over a
+  // long band the tensor cores' rounding toward zero of every accumulation
+  // drifts O by up to 6e-6 at whisper's encoder, six times what fresh sums
+  // leave, tests/_flash_emulation.py); above, the registers are not there.
+  static constexpr bool kFresh = D <= 128;
+  static constexpr int T = 128 * NWG;             // threads
+  static constexpr int BK = D <= 32 ? 64 : 32;    // keys per tile
+  static constexpr int kLdQ = D + 8;              // Q's raw rows (kQTiles false)
+  static constexpr int kQ = kQTiles ? 2 * 64 * NWG * D : 64 * NWG * kLdQ;
+  static constexpr int kTiles = 2 * BK * D + 2 * DV * BK;
+  static constexpr int kRaw = kPrefetch ? Raw<BK, D>::kFloats + Raw<BK, DV>::kFloats : 0;
+  static constexpr int kSmemBytes = 1024 + 4 * (kTiles + kQ + kRaw);
 };
 
-__device__ __forceinline__ float row_max8(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-}
-
-__device__ __forceinline__ float row_sum8(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
-}
-
 template <int D, int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ lse, int Sq, int Sk, int off, int H, int Hkv,
-                 long long qsb, long long qss, long long qsh,
-                 long long ksb, long long kss, long long ksh,
-                 long long vsb, long long vss, long long vsh,
-                 int causal, int window, float scale) {
-  using L = Tile<D, DV>;
-  constexpr int R = L::kRows;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + L::kBQ * L::kLdQ;
-  float* Vs = Ks + kBK * L::kLdK;
-  float* Ps = Vs + kBK * L::kLdV;
+__global__ void __launch_bounds__(FwdTile<D, DV>::T, 1)
+flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ out,
+                        float* __restrict__ lse, int Sq, int Sk, int off, int H, int Hkv,
+                        long long qsb, long long qss, long long qsh,
+                        long long ksb, long long kss, long long ksh,
+                        long long vsb, long long vss, long long vsh,
+                        int causal, int window, float scale) {
+  using L = FwdTile<D, DV>;
+  using WV = Width<DV, L::kFresh ? 64 : 128>;
+  constexpr int BK = L::BK, NV = WV::N, T = L::T, kBQ = 64 * L::NWG;
+  extern __shared__ uint8_t smem_raw[];
+  float* const k_t = reinterpret_cast<float*>(align1024(smem_raw));  // K [BK][D], hi then lo
+  float* const v_t = k_t + 2 * BK * D;                                 // Vᵀ [DV][BK]
+  float* const qs = v_t + 2 * DV * BK;                                 // Q: tiles or raw rows
+  float* const raw_k = qs + L::kQ;                                     // the next tile's K, V
+  float* const raw_v = raw_k + Raw<BK, D>::kFloats;
 
-  const int tid = threadIdx.x, cg = tid % kCG, rg = tid / kCG;
-  const int q0 = blockIdx.x * L::kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const float* qb = q + b * qsb + h * qsh;
-  const float* kb = k + b * ksb + hk * ksh;
-  const float* vb = v + b * vsb + hk * vsh;
-
-  for (int e = tid; e < L::kBQ * D; e += kThreads) {
-    const int r = e / D, d = e % D, s = q0 + r;
-    Qs[r * L::kLdQ + d] = s < Sq ? qb[s * qss + d] : 0.f;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / (H / Hkv);
+  const float* const qb = q + b * qsb + h * qsh;
+  const float* const kb = k + b * ksb + hk * ksh;
+  const float* const vb = v + b * vsb + hk * vsh;
+  const int p0 = off + q0;  // the block's first position
+  const int k_end = causal ? min(Sk, p0 + kBQ) : Sk;
+  const int k_first = window > 0 ? max(0, p0 - window + 1) : 0;
+  const int k_begin = (k_first / BK) * BK;
+  if constexpr (L::kPrefetch) {
+    prefetch<BK, D, T>(raw_k, kb + k_begin * kss, kss, Sk - k_begin);
+    prefetch<BK, DV, T>(raw_v, vb + k_begin * vss, vss, Sk - k_begin);
+    cp_async_commit();
+  }
+  if constexpr (L::kQTiles) {
+#pragma unroll
+    for (int w = 0; w < L::NWG; ++w)
+      stage<64, D, true, false, T, 8>(qs + w * 2 * 64 * D, nullptr, qb + (q0 + 64 * w) * qss,
+                                      qss, Sq - q0 - 64 * w);
+    fence_async_smem();
+  } else {
+    stage_raw<kBQ, D, T>(qs, L::kLdQ, qb + q0 * qss, qss, Sq - q0);
   }
 
-  float m[R], l[R], acc[R][L::kDCols];
+  // Warpgroup wg holds rows r0 .. r0 + 63; this thread rows ra and ra + 8,
+  // columns 8j + cq and 8j + cq + 1.
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3, wg = threadIdx.x >> 7;
+  const int r0 = q0 + 64 * wg;
+  const int ra = r0 + 16 * warp + (lane >> 2);
+  const int pr0 = off + r0, pa = off + ra;  // positions of rows r0 and ra
+  const int cq = 2 * (lane & 3);
+  const float* const my_q = qs + 64 * wg * (L::kQTiles ? 2 * D : L::kLdQ);
+
+  float o[WV::kCount][NV / 2];
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int c = 0; c < WV::kCount; ++c)
 #pragma unroll
-    for (int c = 0; c < L::kDCols; ++c) acc[i][c] = 0.f;
+    for (int e = 0; e < NV / 2; ++e) o[c][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+    if constexpr (L::kPrefetch) {
+      cp_async_wait_all();
+      __syncthreads();  // this tile's raw K, V landed; every wgmma that read the last tiles is done
+      stage<BK, D, true, false, T, BK * D / T>(k_t, nullptr, raw_k, Raw<BK, D>::kLd, BK);
+      stage<BK, DV, false, true, T, BK * DV / T>(nullptr, v_t, raw_v, Raw<BK, DV>::kLd, BK);
+      fence_async_smem();
+      __syncthreads();  // the split tiles are visible to wgmma; the raw tiles are free
+      if (k0 + BK < k_end) {  // the next tile's copies run under this tile's products
+        prefetch<BK, D, T>(raw_k, kb + (k0 + BK) * kss, kss, Sk - k0 - BK);
+        prefetch<BK, DV, T>(raw_v, vb + (k0 + BK) * vss, vss, Sk - k0 - BK);
+      }
+      cp_async_commit();
+    } else {
+      __syncthreads();  // Q staged; every wgmma that read the previous tiles has completed
+      stage<BK, D, true, false, T, kDeviceBatch<BK, D, T>>(k_t, nullptr, kb + k0 * kss, kss,
+                                                           Sk - k0);
+      stage<BK, DV, false, true, T, kDeviceBatch<BK, DV, T>>(nullptr, v_t, vb + k0 * vss, vss,
+                                                             Sk - k0);
+      fence_async_smem();
+      __syncthreads();
+    }
+
+    float sc[BK / 2];
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) sc[e] = 0.f;
+    if constexpr (L::kQTiles)
+      tiles_product<D, BK>(sc, my_q, k_t);
+    else
+      rows_product<D, BK, true>(sc, my_q, L::kLdQ, 64, k_t);
+
+    // Online softmax over this tile, rows ra (e % 4 < 2) and ra + 8.
+    const bool edge = (causal && k0 + BK - 1 > pr0) || (window > 0 && k0 <= pr0 + 63 - window) ||
+                      k0 + BK > Sk;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      float x = sc[e] * scale;
+      if (edge && !attends(pa + 8 * ((e / 2) % 2), k0 + 8 * (e / 4) + cq + (e % 2), Sk, causal,
+                           window))
+        x = kNegInf;
+      sc[e] = x;
+      mx[(e / 2) % 2] = fmaxf(mx[(e / 2) % 2], x);
+    }
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      mx[r] = fmaxf(m[r], mx[r]);
+      corr[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int r = (e / 2) % 2;
+      const bool in = !edge || attends(pa + 8 * r, k0 + 8 * (e / 4) + cq + (e % 2), Sk, causal,
+                                       window);
+      sc[e] = in ? expf(sc[e] - m[r]) : 0.f;
+      rs[r] += sc[e];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      l[r] = l[r] * corr[r] + rs[r];
+    }
+#pragma unroll
+    for (int c = 0; c < WV::kCount; ++c)
+#pragma unroll
+      for (int e = 0; e < NV / 2; ++e) o[c][e] *= corr[(e / 2) % 2];
+
+    // O += P·V, P split in place.
+    acc_product<BK, DV, NV, L::kFresh>(o, sc, v_t);
   }
 
-  const int k_end = causal ? min(Sk, off + q0 + L::kBQ) : Sk;
-  const int k_first = window > 0 ? max(0, off + q0 - window + 1) : 0;
-  for (int k0 = (k_first / kBK) * kBK; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // Q staged; the previous tile's K, V and P are read
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int c = e / D, d = e % D, s = k0 + c;
-      Ks[c * L::kLdK + d] = s < Sk ? kb[s * kss + d] : 0.f;
-    }
-    for (int e = tid; e < kBK * DV; e += kThreads) {
-      const int c = e / DV, d = e % DV, s = k0 + c;
-      Vs[c * L::kLdV + d] = s < Sk ? vb[s * vss + d] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[R][kCols];
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+  for (int r = 0; r < 2; ++r) {
+    const int row = ra + 8 * r;
+    if (row < Sq) {
+      const float lf = fmaxf(l[r], 1e-30f);
+      float* ob = out + ((static_cast<long long>(b) * Sq + row) * H + h) * DV;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[R], kv[kCols];
+      for (int c = 0; c < WV::kCount; ++c)
 #pragma unroll
-      for (int i = 0; i < R; ++i) qv[i] = Qs[(rg + kRG * i) * L::kLdQ + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = Ks[(cg + kCG * j) * L::kLdK + d];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qi = off + q0 + rg + kRG * i;  // the row's position
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kj = k0 + cg + kCG * j;
-        sc[i][j] = attends(qi, kj, Sk, causal, window) ? sc[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max8(mx));
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kj = k0 + cg + kCG * j;
-        const float p = attends(qi, kj, Sk, causal, window) ? expf(sc[i][j] - m_new) : 0.f;
-        Ps[(rg + kRG * i) * L::kLdP + cg + kCG * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * corr + row_sum8(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < L::kDCols; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) pv[i] = Ps[(rg + kRG * i) * L::kLdP + c];
-#pragma unroll
-      for (int dc = 0; dc < L::kDCols; ++dc) {
-        const float vv = Vs[c * L::kLdV + cg + kCG * dc];
-#pragma unroll
-        for (int i = 0; i < R; ++i) acc[i][dc] = fmaf(pv[i], vv, acc[i][dc]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int s = q0 + rg + kRG * i;
-    if (s < Sq) {
-      const float lf = fmaxf(l[i], 1e-30f);
-      float* ob = out + ((static_cast<long long>(b) * Sq + s) * H + h) * DV;
-#pragma unroll
-      for (int dc = 0; dc < L::kDCols; ++dc) ob[cg + kCG * dc] = acc[i][dc] / lf;
-      if (cg == 0) lse[(static_cast<long long>(b) * H + h) * Sq + s] = m[i] + logf(lf);
+        for (int j = 0; j < NV / 8; ++j)
+          *reinterpret_cast<float2*>(ob + c * NV + 8 * j + cq) =
+              make_float2(o[c][4 * j + 2 * r] / lf, o[c][4 * j + 2 * r + 1] / lf);
+      if ((lane & 3) == 0) lse[(static_cast<long long>(b) * H + h) * Sq + row] = m[r] + logf(lf);
     }
   }
 }
@@ -230,13 +274,13 @@ template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
            int Sq, int Sk, int off, int H, int Hkv, const long long* st, int causal,
            int window, float scale, cudaStream_t stream) {
-  using L = Tile<D, DV>;
-  auto* fn = flash_fwd_kernel<D, DV>;
+  using L = FwdTile<D, DV>;
+  auto* fn = flash_fwd_tf32x3_kernel<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          L::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + L::kBQ - 1) / L::kBQ, H, B);
-  fn<<<grid, kThreads, L::kSmemBytes, stream>>>(
+  const dim3 grid(H, B, (Sq + 64 * L::NWG - 1) / (64 * L::NWG));
+  fn<<<grid, L::T, L::kSmemBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), lse, Sq, Sk, off, H, Hkv, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], causal, window, scale);
@@ -273,8 +317,8 @@ int dispatch(int d, int dv, int dtype, const void* q, const void* k, const void*
 
 }  // namespace
 
-// B7 forward.  dtype 0 = float32 (the FP32 kernel above), 1 = bf16 (the
-// tensor-core kernel); q, k, v and out share it.  strides: q's batch,
+// B7 forward.  dtype 0 = float32 (the 3xTF32 kernel above), 1 = bf16 (the
+// bf16 tensor-core kernel); q, k, v and out share it.  strides: q's batch,
 // sequence and head strides, then k's, then v's, in elements (bf16: base
 // addresses 16-byte aligned, strides multiples of 8 elements, for TMA).
 // window <= 0 means no window.  D is q's and k's head size, DV v's and

@@ -2,10 +2,10 @@
 // (sm_90a): bf16 wgmma on tiles fed by TMA, in two kernels.
 //
 // Replaces, for bf16 inputs, the Pallas TPU kernels `flash_attention_bwd_kernels`
-// (`_dq_kernel`, `_dkv_kernel`) of src/repro/kernels/flash_attention/kernel.py,
-// and the FP32 CUDA-core kernels of flash_attention_bwd.cu, which keep
-// float32 inputs.  The function is the one flash_attention_bwd.cu states:
-// p = exp(s·D^-½ - lse) in the band, ds = p∘(dO·vᵀ - dvec), dq = D^-½·ds·k,
+// (`_dq_kernel`, `_dkv_kernel`) of src/repro/kernels/flash_attention/kernel.py;
+// float32 inputs go to the 3xTF32 kernels of flash_attention_bwd.cu.  The
+// function is the one flash_attention_bwd.cu states: p = exp(s·D^-½ - lse)
+// in the band, ds = p∘(dO·vᵀ - dvec), dq = D^-½·ds·k,
 // dk = D^-½·Σ_group dsᵀ·q, dv = Σ_group pᵀ·dO, outputs in bf16.  A query
 // stripe (Sq rows at positions off + i against Sk keys) maps q and dO over
 // Sq rows and k and v over Sk; every band test reads positions, off + row.

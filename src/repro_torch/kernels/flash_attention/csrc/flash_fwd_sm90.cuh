@@ -2,8 +2,8 @@
 // Hopper's tensor cores (sm_90a): bf16 wgmma on K/V tiles fed by TMA.
 //
 // Replaces, for bf16 inputs, the Pallas TPU kernel `flash_attention_kernel`
-// (body `_kernel`) of src/repro/kernels/flash_attention/kernel.py, and the
-// FP32 CUDA-core kernel of flash_attention.cu, which keeps float32 inputs.
+// (body `_kernel`) of src/repro/kernels/flash_attention/kernel.py; float32
+// inputs go to the 3xTF32 kernel of flash_attention.cu.
 // The function is the one flash_attention.cu states: s_ij = (q_i·k_j)·D^-½
 // masked to -1e30 outside the causal / window band and past S, an online
 // softmax (running max m, sum l, float32), out_i = Σ_j p_ij v_j / l_i in

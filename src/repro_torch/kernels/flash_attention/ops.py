@@ -36,10 +36,13 @@ card.  The C entry points (``csrc/flash_attention.cu``,
 tensor cores (``csrc/flash_fwd_sm90.cuh``, ``csrc/flash_bwd_sm90.cuh``:
 wgmma on tiles loaded by TMA, which needs q, k and v 16-byte aligned with
 batch, sequence and head strides of whole 16 bytes; other bf16 inputs
-raise), float32 on the FP32 CUDA cores.  ``flash_attention.launches`` and
-``flash_attention_bwd.launches`` count the calls that launched kernels
-(B8's kernels count as one call); their ``route_launches`` split that count
-into ``"wgmma"`` (bf16) and ``"fp32"`` (float32).
+raise), float32 on the tensor cores in 3xTF32 (the kernels of the two
+``.cu`` files on ``csrc/flash_tf32x3_sm90.cuh``: each float32 operand split
+into TF32 hi + lo, three TF32 products per step; any strides).
+``flash_attention.launches`` and ``flash_attention_bwd.launches`` count the
+calls that launched kernels (B8's kernels count as one call); their
+``route_launches`` split that count into ``"wgmma"`` (bf16) and
+``"tf32x3"`` (float32).
 
 Gradients: when grad mode is on and q, k or v requires grad,
 :func:`flash_attention` goes through :class:`FlashAttention`, whose
@@ -121,7 +124,7 @@ def _kernel_device(who: str, q: torch.Tensor, d_v: int) -> None:
 
 
 def _route(dtype: torch.dtype) -> str:
-    return "wgmma" if dtype == torch.bfloat16 else "fp32"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _check_tma(who: str, **tensors) -> None:
@@ -267,8 +270,8 @@ def flash_attention_bwd(
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
-flash_attention.route_launches = {"wgmma": 0, "fp32": 0}
-flash_attention_bwd.route_launches = {"wgmma": 0, "fp32": 0}
+flash_attention.route_launches = {"wgmma": 0, "tf32x3": 0}
+flash_attention_bwd.route_launches = {"wgmma": 0, "tf32x3": 0}
 
 __all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_ref", "flash_attention_ref"]

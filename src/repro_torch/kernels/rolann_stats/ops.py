@@ -161,10 +161,16 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float32 else t.float()
 
 
-def _store(acc: torch.Tensor, acc32: torch.Tensor) -> None:
-    """Write a float32 fold back into the caller's accumulator."""
+def _store(acc: torch.Tensor, acc32: torch.Tensor, *, raw: bool = False) -> None:
+    """Write a float32 fold back into the caller's accumulator.  ``raw``: a
+    kernel folded into ``acc32`` through its data pointer, which moves no
+    version counter, so the caller's float32 accumulator gets its version
+    bumped here, as the plain versions' in-place additions bump it; autograd
+    and ``analysis.donation.probe`` then see the card's fold as the host's."""
     if acc32 is not acc:
         acc.copy_(acc32)
+    elif raw:
+        torch.autograd.graph.increment_version(acc)
 
 
 def rolann_stats_plain(xa: torch.Tensor, fsq: torch.Tensor, fd: torch.Tensor):
@@ -488,8 +494,8 @@ def rolann_stats_acc(g: torch.Tensor, mv: torch.Tensor, xa: torch.Tensor,
     route = _launch(_FN_ACC, xa.float(), fsq.float(), fd.float(), g32, m32)
     rolann_stats_acc.launches += 1
     rolann_stats_acc.route_launches[route] += 1
-    _store(g, g32)
-    _store(mv, m32)
+    _store(g, g32, raw=True)
+    _store(mv, m32, raw=True)
     return g, mv
 
 
@@ -538,8 +544,8 @@ def rolann_fused_chunk(g: torch.Tensor, mv: torch.Tensor, h: torch.Tensor,
                           act_name)
     rolann_fused_chunk.launches += 1
     rolann_fused_chunk.route_launches[route] += 1
-    _store(g, g32)
-    _store(mv, m32)
+    _store(g, g32, raw=True)
+    _store(mv, m32, raw=True)
     return g, mv
 
 
@@ -614,8 +620,8 @@ def rolann_stats_acc_batched(g: torch.Tensor, mv: torch.Tensor, xa: torch.Tensor
     route = _launch(_FN_ACC_BATCHED, xa.float(), fsq.float(), fd.float(), g32, m32)
     rolann_stats_acc_batched.launches += 1
     rolann_stats_acc_batched.route_launches[route] += 1
-    _store(g, g32)
-    _store(mv, m32)
+    _store(g, g32, raw=True)
+    _store(mv, m32, raw=True)
     return g, mv
 
 
@@ -657,8 +663,8 @@ def rolann_fused_chunk_batched(g: torch.Tensor, mv: torch.Tensor, h: torch.Tenso
                           mask.float(), act_name)
     rolann_fused_chunk_batched.launches += 1
     rolann_fused_chunk_batched.route_launches[route] += 1
-    _store(g, g32)
-    _store(mv, m32)
+    _store(g, g32, raw=True)
+    _store(mv, m32, raw=True)
     return g, mv
 
 

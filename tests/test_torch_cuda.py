@@ -437,6 +437,32 @@ def test_fused_chunk_routes_by_shape(card, m_l, m_c1, n, act):
     assert rolann_fused_chunk.route_launches[route] == before + 2
 
 
+def test_fused_chunk_fold_moves_the_accumulators_version(card):
+    """B3 folds into float32 accumulators through a raw pointer; its wrapper
+    bumps their versions as the plain version's in-place additions do, so
+    autograd and ``analysis.donation.probe`` see the card's fold in place."""
+    from repro_torch.analysis import donation
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    m_l, m_c1, n = 15, 18, 4_096
+    h = torch.sigmoid(torch.randn((m_l, n), generator=gen, device=card))
+    w = torch.randn((m_l, m_c1), generator=gen, device=card) * 0.3
+    b = torch.randn((m_c1,), generator=gen, device=card)
+    mask = torch.ones((n,), device=card)
+    g, mv = _running(m_l, m_c1 + 1, torch.float32, card)
+    versions = (g._version, mv._version)
+    before = rolann_fused_chunk.launches
+    got = rolann_fused_chunk(g, mv, h, w, b, mask, act_name="logsig")
+    torch.cuda.synchronize()
+    assert rolann_fused_chunk.launches == before + 1
+    assert got[0] is g and got[1] is mv
+    assert g._version > versions[0] and mv._version > versions[1]
+    report = donation.probe(lambda g, mv: rolann_fused_chunk(g, mv, h, w, b, mask,
+                                                             act_name="logsig"),
+                            g, mv, donate_argnums=(0, 1))
+    assert report.ok is True and report.kinds == ("in-place", "in-place")
+
+
 def test_empty_chunk_folds_launch_nothing(card):
     g0, m0 = _running(2, 4, torch.float32, card)
     g, mv = g0.clone(), m0.clone()
@@ -736,11 +762,11 @@ def test_flash_attention_kernel_matches_plain(card, b, s, h, hkv, d, window, dty
     (summation order); bf16 to one bf16 ulp of each element, 2^-7 |ref| plus
     a floor of 2^-7 * 1e-2 where |ref| is near 0 (the kernel and the plain
     version round float32 results that differ in summation order once each);
-    lse to 1e-5.  bf16 runs on the tensor-core kernel, float32 on the FP32
-    one (the route counts say which); a bf16 repeat is bit-identical."""
+    lse to 1e-5.  bf16 runs on the bf16 tensor-core kernel, float32 on the
+    3xTF32 one (the route counts say which); a repeat is bit-identical."""
     gen = torch.Generator(device=card).manual_seed(s * d + h)
     q, k, v = (_randn((b, s, n, d), gen, card, dtype) for n in (h, hkv, hkv))
-    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     before, before_route = flash_attention.launches, dict(flash_attention.route_launches)
     out, lse = flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
@@ -751,11 +777,11 @@ def test_flash_attention_kernel_matches_plain(card, b, s, h, hkv, d, window, dty
     diff = (out.float() - ref.float()).abs()
     if dtype == torch.bfloat16:
         assert bool((diff <= 2.0**-7 * ref.float().abs() + 2.0**-7 * 1e-2).all())
-        again, again_lse = flash_attention(q, k, v, window=window)
-        assert torch.equal(again, out) and torch.equal(again_lse, lse)
     else:
         assert float(diff.max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
     assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(ref_lse.abs().max())
+    again, again_lse = flash_attention(q, k, v, window=window)
+    assert torch.equal(again, out) and torch.equal(again_lse, lse)
 
 
 @pytest.mark.parametrize("b,s,h,hkv,window", [(1, 1_000, 8, 8, None), (2, 256, 4, 2, None),
@@ -770,7 +796,7 @@ def test_flash_attention_mla_head_sizes_match_plain(card, b, s, h, hkv, window, 
     q = _randn((b, s, h, 192), gen, card, dtype)
     k = _randn((b, s, hkv, 192), gen, card, dtype)
     v = _randn((b, s, hkv, 128), gen, card, dtype)
-    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     before = dict(flash_attention.route_launches)
     out, lse = flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
@@ -937,7 +963,7 @@ def test_decode_on_card_matches_prefill(card, case):
     """chip_smoke.py phase 21 (b, c) at a reduced width: the tokens
     teacher-forced through ``bundle.decode`` on the card (plain PyTorch),
     the last logits against the card's prefill of the same tokens (B7 on
-    its FP32 kernel, B9, B10), at the reference's bar (atol 2e-3, rtol
+    its float32 route, B9, B10), at the reference's bar (atol 2e-3, rtol
     1e-2, tests/test_models.py); the ring cases wrap their 16 slots."""
     name, changes, s = DECODE_CASES[case]
     cfg = dataclasses.replace(registry.get(name).reduced(), **changes)
@@ -951,7 +977,7 @@ def test_decode_on_card_matches_prefill(card, case):
     want = bundle.prefill(params, {"tokens": tokens})
     assert all(k.launches > n for k, n in zip(kernels, before))
     if cfg.family != "ssm":
-        assert flash_attention.route_launches["fp32"] > 0
+        assert flash_attention.route_launches["tf32x3"] > 0
     cache = bundle.init_cache(2, s, torch.float32, device=card)
     for t in range(s):
         logits, cache = bundle.decode(params, cache, tokens[:, t:t + 1], t)
@@ -985,7 +1011,7 @@ def _family_batch(cfg, s, dev):
 @pytest.mark.parametrize("case", sorted(FAMILY_CASES))
 def test_family_prefill_on_card_matches_host(card, case):
     """The VLM (with its patch prefix) and the MoE families in float32, the
-    same weights on the card (B7 on its FP32 kernels, at (192, 128) for MLA)
+    same weights on the card (B7 on its float32 route, at (192, 128) for MLA)
     and on the host: hidden states to 1e-4 of their largest entry, after the
     dispatch of each MoE layer agreed (the router's float32 logits decide
     it; the check below would show a flipped choice as a large error)."""
@@ -998,7 +1024,7 @@ def test_family_prefill_on_card_matches_host(card, case):
     host = bundle.forward(params, *args)
     before = dict(flash_attention.route_launches)
     got = bundle.forward(_tree_to(params, card), *(a.to(card) for a in args)).cpu()
-    assert flash_attention.route_launches["fp32"] == before["fp32"] + cfg.n_layers
+    assert flash_attention.route_launches["tf32x3"] == before["tf32x3"] + cfg.n_layers
     assert float((got - host).abs().max()) <= 1e-4 * float(host.abs().max())
 
 
@@ -1081,14 +1107,14 @@ def _assert_bwd_close(got, want, mags):
     (1, 300, 4, 1, 128, 1, torch.bfloat16),
 ])
 def test_flash_attention_bwd_kernel_matches_plain(card, b, s, h, hkv, d, window, dtype):
-    """B8 against its plain version, element by element, bf16 on the
-    tensor-core kernels and float32 on the FP32 ones (the route counts say
+    """B8 against its plain version, element by element, bf16 on the bf16
+    tensor-core kernels and float32 on the 3xTF32 ones (the route counts say
     which); a repeat is bit-identical (no atomics: the group sum is a fixed
     sequence of accumulations)."""
     gen = torch.Generator(device=card).manual_seed(s + d + h)
     q, k, v, do = (_randn((b, s, n, d), gen, card, dtype) for n in (h, hkv, hkv, h))
     out, lse = flash_attention(q, k, v, window=window)
-    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     before, before_route = flash_attention_bwd.launches, dict(flash_attention_bwd.route_launches)
     got = flash_attention_bwd(q, k, v, out, lse, do, window=window)
     torch.cuda.synchronize()
@@ -1117,7 +1143,7 @@ def test_flash_attention_new_routes_match_plain(card, b, s, h, hkv, d, d_v, caus
     gen = torch.Generator(device=card).manual_seed(s + d + h)
     q, k = (_randn((b, s, n, d), gen, card, dtype) for n in (h, hkv))
     v, do = (_randn((b, s, n, d_v), gen, card, dtype) for n in (hkv, h))
-    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     before = (dict(flash_attention.route_launches), dict(flash_attention_bwd.route_launches))
     out, lse = flash_attention(q, k, v, causal=causal)
     got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
@@ -1154,7 +1180,7 @@ def test_flash_attention_stripes_match_plain(card, b, sq, sk, h, hkv, d, window,
     last position get zero gradients; repeats are bit-identical."""
     gen = torch.Generator(device=card).manual_seed(sq + sk + d)
     d_v = 128 if d == 192 else d
-    route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     for off in offsets:
         q, k = _randn((b, sq, h, d), gen, card, dtype), _randn((b, sk, hkv, d), gen, card, dtype)
         v, do = _randn((b, sk, hkv, d_v), gen, card, dtype), _randn((b, sq, h, d_v), gen, card,

@@ -1,8 +1,14 @@
 """A plain-torch model of the 3xTF32 arithmetic of the tensor-core kernels of
-B1 (``rolann_stats/csrc/rolann_stats_sm90.cuh``, one tenant, m > 28) and
-B10 (``ssd_chunk/csrc/ssd_chunk.cu``), held on the CPU to the port's plain
-versions under the card's unchanged bars: B1's G and M within 1e-4 of
-their largest magnitude, B10's y and h_final within 1e-5 of max|plain|.
+B1 (``rolann_stats/csrc/rolann_stats_sm90.cuh``, one tenant, m > 28), B10
+(``ssd_chunk/csrc/ssd_chunk.cu``) and the float32 routes of B7 and B8
+(``flash_attention/csrc/flash_attention.cu``, ``flash_attention_bwd.cu``;
+their model is ``tests/_flash_emulation.py``'s ``forward_tf32x3`` and
+``backward_tf32x3`` on this file's ``mm``), held on the CPU to the port's
+plain versions under the card's unchanged bars: B1's G and M within 1e-4
+of their largest magnitude, B10's y and h_final within 1e-5 of
+max|plain|, B7's out within 1e-5 of max(1, max|ref|) and lse within 1e-5
+of max|lse|, each element of B8's dq, dk and dv within 1e-5 of its term
+magnitude.
 
 What it models:
 
@@ -24,7 +30,10 @@ What it models:
 * Everything else in float32 as the kernels do it: B1's slices of at most
   2,048 samples as the wrapper plans them (``ops.plan_slices_tf32x3``, for
   an H100's 132 SMs) summed in slice order, M on FP32 FMAs in sample order;
-  B10's cumulative sums, decays, masks and the state pass.
+  B10's cumulative sums, decays, masks and the state pass; B7's online
+  softmax over its key tiles; B8's tile products each taken in a fresh
+  accumulator and added in float32 (summed in one accumulator over
+  thousands of steps, the rounding toward zero drifts past B8's bar).
 
 Run as a script, it prints the share of each bar that the model uses, for
 both variants, at the cases the tests use:
@@ -202,6 +211,31 @@ B10_CASES = [(1, 64, 2, 16, 1, 32, 32), (1, 250, 2, 16, 1, 32, 64), (1, 128, 4, 
              (1, 512, 1, 64, 1, 128, 256)]
 
 
+# ---- B7 and B8, the float32 route ----
+
+# (Sq, Sk, H, Hkv, D, D_v, causal, window, q_offset): the five head-size
+# pairs, causal and not, windows 17 and 1, MQA, ragged S (no multiple of the
+# key tiles) and a q_offset stripe.
+FLASH_CASES = [
+    (100, 100, 4, 2, 32, 32, True, 17, 0),
+    (97, 97, 4, 1, 64, 64, False, None, 0),
+    (77, 77, 2, 2, 128, 128, True, 1, 0),
+    (70, 70, 2, 1, 256, 256, True, None, 0),
+    (90, 90, 2, 2, 192, 128, True, None, 0),
+    (50, 50, 2, 1, 192, 128, False, None, 0),
+    (40, 160, 4, 2, 128, 128, True, None, 96),
+]
+
+
+def flash_shares(sq, sk, h, hkv, d, d_v, causal, window, q_offset, split3=True):
+    """(B7 out, B7 lse, B8) shares of their bars in the model."""
+    import _flash_emulation as emulation
+
+    q, k, v, do = emulation.inputs_f32(sq, h, hkv, d, seed=sq + d, d_v=d_v, sk=sk)
+    return emulation.tf32x3_shares(q, k, v, do, causal=causal, window=window,
+                                   q_offset=q_offset, split3=split3)
+
+
 # ---- tests ----
 
 @pytest.mark.parametrize("x,want", [
@@ -243,6 +277,22 @@ def test_ssd_chunk_model_holds_the_bar(b, s, h, p, g, n, chunk):
     assert share < single
 
 
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_tf32x3_model_holds_the_bars(case):
+    share_out, share_lse, share_bwd = flash_shares(*case)
+    print(f"B7/B8 {case}: 3xTF32 uses {share_out:.4f} (out), {share_lse:.4f} (lse), "
+          f"{share_bwd:.4f} (dq, dk, dv) of the bars")
+    assert max(share_out, share_lse, share_bwd) <= 1.0
+
+
+def test_flash_single_tf32_misses_the_bars():
+    """One TF32 product of rna-rounded operands misses every bar: the bars
+    tell the split from the rounding."""
+    shares = flash_shares(*FLASH_CASES[2], split3=False)
+    print(f"B7/B8 {FLASH_CASES[2]}: one TF32 uses {shares} of the bars")
+    assert min(shares) > 1.0
+
+
 if __name__ == "__main__":
     for m, o, n in B1_CASES:
         print(f"B1 m={m} o={o} n={n}: share of the bar 3xTF32 "
@@ -253,3 +303,6 @@ if __name__ == "__main__":
         print(f"B10 (B, S, H, P, G, N, chunk) = {case}: share of the bar 3xTF32 "
               f"{ssd_chunk_share(*case, seed):.4f}, one TF32 "
               f"{ssd_chunk_share(*case, seed, split3=False):.4f}")
+    for case in FLASH_CASES:
+        print(f"B7/B8 {case}: shares of the bars (out, lse, dq/dk/dv) 3xTF32 "
+              f"{flash_shares(*case)}, one TF32 {flash_shares(*case, split3=False)}")
