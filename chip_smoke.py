@@ -473,11 +473,14 @@ lm-mesh (after the mesh phase) — ROADMAP item 12's model-zoo part, the
     and peak memory; then ``launch/train.py --arch whisper-tiny`` (3 bf16
     steps of 4 x 448 tokens) in process.
 24. the training of the SSM and hybrid families.  (a) B10's backward
-    (``ssd_chunk_bwd``, FP32 cores) against ``ssd_chunk_bwd_plain`` at
-    mamba2-780m's microbatch (2 x 2,048, 48 heads of P 64, N 128, G 1,
-    chunk 256) and at G = 2 with a ragged S (1,000, chunk 250), both with a
-    nonzero h_final cotangent, at S = 1 and B = 0, and a P of 65 refused;
-    B9's backward (``rglru_scan_bwd``) against ``rglru_scan_bwd_plain`` at
+    (``ssd_chunk_bwd``: 3xTF32 wgmma, C·Bᵀ once per group, nine launches)
+    against ``ssd_chunk_bwd_plain`` at mamba2-780m's microbatch (2 x 2,048,
+    48 heads of P 64, N 128, G 1, chunk 256) and at G = 2 with a ragged S
+    (1,000, chunk 250), both with a nonzero h_final cotangent, at S = 1 and
+    B = 0, and at the microbatch with mamba2's initial decays (cum reaches
+    -10³ within a chunk), and a P of 65 refused; the microbatch split into
+    its launches by the profiler; B9's backward (``rglru_scan_bwd``: chain
+    warps and worker warps over a staged ring) against ``rglru_scan_bwd_plain`` at
     recurrentgemma-9b's microbatch (2 x 2,048 x 4,096) with bf16 x and
     float32 gates and all in float32, at a ragged S = 37 (W = 100, bf16)
     and S = 1, all with a nonzero h_last cotangent.  dxdt, dB, dC, dx, dr,
@@ -6103,8 +6106,9 @@ MAMBA2_TRAIN_CLI = ["--arch", MAMBA2, "--steps", "3", "--batch", "4", "--seq", "
                     "--microbatches", "2", "--dtype", "bfloat16"]
 # device-time groups of a profiled train step, by kernel-name fragment
 SSM_PROFILE_GROUPS = {
-    "B10 backward": ("chunk_grad_kernel", "chunk_sums_kernel", "state_passes_kernel",
-                     "finish_kernel", "group_sum_kernel"),
+    "B10 backward": ("bc_image_kernel", "score_pairs_kernel", "state_sums_kernel",
+                     "state_passes_kernel", "keys_dx_kernel", "keys_db_kernel",
+                     "queries_dc_kernel", "finish_kernel", "group_sum_kernel"),
     "B10 forward": ("bt_kernel", "chunk_state_kernel", "state_pass_kernel", "scores_kernel",
                     "chunk_out_kernel"),
     "B9 backward": ("rglru_bwd_kernel", "dlam_kernel"),
@@ -6155,11 +6159,13 @@ def _ssd_bwd_checks(card):
     """(a) B10's backward against ``ssd_chunk_bwd_plain`` on the card:
     mamba2-780m's microbatch (2 x 2,048, 48 heads of P 64, N 128, G 1, chunk
     256) and G = 2 at a ragged S (1,000, chunk 250), both with a nonzero
-    h_final cotangent; S = 1 and B = 0 without.  dxdt, dB, dC to the
-    script's rule (1e-4 of max|plain|), dla per element to 1e-5 of its term
-    magnitude (its row and column sums cancel); a repeat bit-identical; a P
-    of 65 refused before any launch.  The microbatch timed beside the plain
-    version and the bound.  Returns its row."""
+    h_final cotangent; S = 1 and B = 0 without; and the microbatch at
+    mamba2's initial decays (la = -a·softplus(N(0, 1)), a = linspace(1, 16,
+    H): cum reaches -10³ within a chunk).  dxdt, dB, dC to the script's rule
+    (1e-4 of max|plain|), dla per element to 1e-5 of its term magnitude (its
+    row and column sums cancel); a repeat bit-identical; a P of 65 refused
+    before any launch.  The microbatch timed beside the plain version and
+    the bound, and split into its launches (profiler).  Returns its row."""
     import torch
 
     from repro_torch.kernels.ssd_chunk import fit_chunk, ssd_chunk_bwd, ssd_chunk_bwd_plain
@@ -6171,9 +6177,14 @@ def _ssd_bwd_checks(card):
             ("mamba2 train", 2, 2_048, 48, 64, 1, 128, 256, True),
             ("G = 2, S = 1,000 (chunk 250)", 2, 1_000, 8, 64, 2, 128, 256, True),
             ("S = 1", 1, 1, 48, 64, 1, 128, 256, False),
-            ("B = 0", 0, 256, 48, 64, 1, 128, 256, False)):
+            ("B = 0", 0, 256, 48, 64, 1, 128, 256, False),
+            ("mamba2 train, initial decays", 2, 2_048, 48, 64, 1, 128, 256, True)):
         xdt, dy = (torch.randn((b, s, h, p), generator=gen, device="cuda") for _ in range(2))
-        la = -torch.rand((b, s, h), generator=gen, device="cuda") * 0.1
+        if "decays" in label:
+            la = -torch.linspace(1.0, 16.0, h, device="cuda") * torch.nn.functional.softplus(
+                torch.randn((b, s, h), generator=gen, device="cuda"))
+        else:
+            la = -torch.rand((b, s, h), generator=gen, device="cuda") * 0.1
         bm, cm = (torch.randn((b, s, g, n), generator=gen, device="cuda") for _ in range(2))
         dh = torch.randn((b, h, p, n), generator=gen, device="cuda") if final else None
         args = (xdt, la, bm, cm, dy, dh)
@@ -6207,14 +6218,19 @@ def _ssd_bwd_checks(card):
             work = _ssd_bwd_work(b, s, h, p, g, n, q)
             fp32_ms, _ = _bound(*work)
             bound_ms, bound_by = _bound(*work, PEAK_TF32X3_FLOPS)
+            times = _kernel_us(lambda: ssd_chunk_bwd(*args, chunk=chunk),
+                               SSM_PROFILE_GROUPS["B10 backward"])
+            split = {k: us / 1e3 for k, (_, us) in times.items()}
             row = dict(shape=label, b=b, s=s, h=h, p=p, g=g, n=n, chunk=q,
                        max_abs_err=max(*errs, err_la), ms=ms, plain_ms=plain_ms,
                        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                       bound_fp32_ms=fp32_ms, bar_used=max(used, used_la))
+                       bound_fp32_ms=fp32_ms, bar_used=max(used, used_la), launch_ms=split)
             say("kernel", f"ssd_chunk_bwd {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {bound_ms:.4f} ms at 3xTF32 ({bound_by}, {work[0]:.4g} FLOP), "
                 f"{fp32_ms:.4f} ms on FP32 cores; library none (no single PyTorch call "
                 f"computes the SSD scan's backward); on {card}")
+            say("kernel", f"ssd_chunk_bwd {label}, device time a call by launch (profiler): "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
         del args, got, want, mags, again
     before = ssd_chunk_bwd.launches
     try:
@@ -7271,6 +7287,8 @@ def main() -> int:
             # steps of recurrentgemma-9b cut to 5 layers.
             "backward": {
                 "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_bwd.cu",
+                "design": "staged: a chain warp per 32 lanes walks g backwards, "
+                          "worker warps stage dy, y, x, r, i by cp.async and form the rest",
                 "launches": ssm_numbers["launches"][RGEMMA]["rglru_scan_bwd"],
                 "launches_per_train_step":
                     ssm_numbers["train"][RGEMMA]["launches_per_step"]["rglru_scan_bwd"],
@@ -7289,6 +7307,8 @@ def main() -> int:
             # (2 x 2,048, 48 heads); launches: mamba2-780m's 10 steps at full depth.
             "backward": {
                 "source": "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk_bwd.cu",
+                "design": "3xTF32 wgmma: C·Bᵀ once per group, nine launches, each "
+                          "tile's product in a fresh accumulator, no atomics",
                 "launches": ssm_numbers["launches"][MAMBA2]["ssd_chunk_bwd"],
                 "launches_per_train_step":
                     ssm_numbers["train"][MAMBA2]["launches_per_step"]["ssd_chunk_bwd"],

@@ -28,9 +28,10 @@ cotangents dy [B, S, W] and ``dh_last`` [B, W] (``None``: zero, as the
 models discard h_last), and returns (dx, dr, di, dlam), dx, dr and di in
 x's, r's and i's dtypes and dlam in lam's: on the CPU
 ``ref.rglru_scan_bwd_plain``, on a CUDA device the hand-written backward
-kernel (``csrc/rglru_scan_bwd.cu``: one thread a (batch, lane) walking
-time backwards, then a fixed-order sum of dlam over the batch; two
-launches counted as one call) for the dtypes the forward takes, or the call
+kernel (``csrc/rglru_scan_bwd.cu``: staged as the forward is, a chain warp
+per 32 lanes walking g backwards while worker warps stage the inputs and
+form the rest, then a fixed-order sum of dlam over the batch; two launches
+counted as one call) for the dtypes the forward takes, or the call
 raises.  ``rglru_scan_bwd.launches`` and ``route_launches`` count them as
 the forward's do.
 """
@@ -148,9 +149,9 @@ def rglru_scan_bwd(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor, lam: torch
     y, dy = y.float().contiguous(), dy.float().contiguous()
     dh_last = None if dh_last is None else dh_last.float().contiguous()
     dx, dr, di = (torch.empty_like(t) for t in (x, r, i))
-    dlam = torch.zeros((w,), dtype=torch.float32, device=x.device)
     if b == 0 or s == 0 or w == 0:
-        return dx, dr, di, dlam
+        return dx, dr, di, torch.zeros((w,), dtype=torch.float32, device=x.device)
+    dlam = torch.empty((w,), dtype=torch.float32, device=x.device)  # the kernel writes it
     dlam_part = torch.empty((b, w), dtype=torch.float32, device=x.device)
     _build.launch("rglru_scan_bwd", "rglru_scan_bwd", _BWD_ARGS, x.device, x.data_ptr(),
                   r.data_ptr(), i.data_ptr(), lam.data_ptr(), y.data_ptr(), dy.data_ptr(),

@@ -54,7 +54,8 @@
 //      for each key tile up to the diagonal S (read from L2) ∘ exp(cum_i -
 //      cum_j) masked, and y += (S ∘ decay) · xdt, y written once.
 //
-// Every product is 3xTF32 (../../csrc/tf32x3_sm90.cuh): operands split into
+// Every product is 3xTF32 (../../csrc/tf32x3_sm90.cuh; the tiles, fragments
+// and score tiles that the backward shares in ssd_tf32x3.cuh): operands split into
 // hi + lo TF32 values, lo·hi + hi·lo + hi·hi into float32 accumulators.
 // TF32 wgmma reads B only K-major, so each staging pass that splits an
 // operand also writes it in the layout the product wants: B and h_prev are
@@ -74,20 +75,13 @@
 
 #include <cuda_runtime.h>
 
-#include "../../csrc/tf32x3_sm90.cuh"
-#include "ssd_common.cuh"
+#include "ssd_tf32x3.cuh"
 
 namespace {
 
 using namespace ssd;
 using namespace tf32x3;
 
-constexpr int kThreads = 128;   // one warpgroup
-constexpr int kT = 64;          // rows of a tile: queries, keys, p
-constexpr int kMaxP = 64;
-constexpr int kMaxN = 128;
-constexpr int kMaxQ = 256;
-constexpr int kNK = kMaxN / 8;  // k8 steps over N
 constexpr int kStateStep = kPanel;  // chunk steps per stage of the state product
 constexpr int kPassThreads = 256;
 constexpr int kPassAhead = 8;       // chunks the state pass loads ahead
@@ -130,20 +124,6 @@ bt_kernel(const float* __restrict__ bm, float* __restrict__ ws_bt, Shape sh) {
     out[i] = __uint_as_float(hi);
     out[kStateTile + i] = __uint_as_float(lo);
   }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Shared memory: two stages of Bᵀ hi and lo, then cum (doubles) and
@@ -295,99 +275,10 @@ state_pass_kernel(const float* __restrict__ ws, const float* __restrict__ cd,
   if (valid) h_final[bh * pn + src] = h;
 }
 
-// ---- shared by the score and output kernels ----
-
-// Rows [r0, r0 + 64) of a [rows, N] tensor (row `r` at src + r·ld) into a
-// K-major tile of kMaxN depth, hi and lo, the depth n permuted within its
-// k8 step; rows at or past `rows` and n past N are zeros.  Sixteen loads a
-// thread are in flight at a time.
-__device__ __forceinline__ void stage_rows(float* t_hi, float* t_lo, const float* src,
-                                           long long ld, int r0, int rows, int n_valid) {
-  constexpr int kBatch = 16;
-  for (int e0 = 0; e0 < kT * kMaxN; e0 += kBatch * kThreads) {
-    float v[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int e = e0 + u * kThreads + threadIdx.x, r = e / kMaxN, n = e % kMaxN;
-      v[u] = (r0 + r < rows && n < n_valid) ? src[(r0 + r) * ld + n] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int e = e0 + u * kThreads + threadIdx.x, r = e / kMaxN, n = e % kMaxN;
-      uint32_t hi, lo;
-      split(v[u], hi, lo);
-      const int i = sw128(kT, r, (n & ~7) + kpos(n & 7));
-      t_hi[i] = __uint_as_float(hi);
-      t_lo[i] = __uint_as_float(lo);
-    }
-  }
-}
-
-// This thread's fragment of C's 64 rows from i0 (group g of batch b, chunk
-// from step s0), in kpos order within each k8 step: register r of step kk
-// is row i0 + 16w + l/4 + 8(r % 2), column 8kk + 2(l % 4) + r / 2.
-__device__ __forceinline__ void load_c(float (&cf)[kNK][4], const float* __restrict__ cm,
-                                       const Shape& sh, int b, long long s0, int g, int i0) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int kk = 0; kk < kNK; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + 16 * warp + (lane >> 2) + 8 * (r & 1);
-      const int n = 8 * kk + 2 * (lane & 3) + (r >> 1);
-      cf[kk][r] = (i < sh.Q && n < sh.N) ? cm[row_bsg(sh, b, s0 + i, g) + n] : 0.f;
-    }
-}
-
-// acc (64 x 64) += C · Tᵀ over N: C's fragments cf in registers, T's hi and
-// lo tiles (64 rows, K-major, kMaxN deep, zeros past N) in shared memory.
-// One commit group per k8 step, two sets of A fragments: a step's fragments
-// are formed while the previous step's wgmmas run.
-__device__ __forceinline__ void c_product(float (&acc)[kT / 2], const float (&cf)[kNK][4],
-                                          const float* t_hi, const float* t_lo) {
-  uint32_t hi[2][4], lo[2][4];
-#pragma unroll
-  for (int kk = 0; kk < kNK; ++kk) {
-    const int u = kk & 1;
-    wgmma_wait<1>();  // the group that read set u (two steps back) has completed
-    fence_regs(hi[u]);
-    fence_regs(lo[u]);
-    split4(cf[kk], hi[u], lo[u]);
-    wgmma_fence();
-    mma3<kT>(acc, hi[u], lo[u], desc(t_hi, kT, kk), desc(t_lo, kT, kk));
-    wgmma_commit();
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-}
-
-// The lower-triangle tile pair p of a chunk's 64-row tiles: query tile
-// *it, key tile *jt <= *it, p = it·(it + 1)/2 + jt.
-__device__ __forceinline__ void tile_pair(int p, int* it, int* jt) {
-  int i = 0;
-  while (p > i) {
-    p -= i + 1;
-    ++i;
-  }
-  *it = i;
-  *jt = p;
-}
-
-// A 64 x 64 score tile in the workspace, in the accumulator's layout: the
-// four values d[4u .. 4u + 3] of thread t at float4 u·128 + t (coalesced
-// both ways).
-__device__ __forceinline__ float4* score_tile(float* ws_s, const Shape& sh, int bg, int c,
-                                              int p) {
-  const int tq = (sh.Q + kT - 1) / kT;
-  const long long tile = (static_cast<long long>(bg) * sh.nc + c) * (tq * (tq + 1) / 2) + p;
-  return reinterpret_cast<float4*>(ws_s + tile * kT * kT);
-}
-
 // ---- 3. the scores S = C·Bᵀ of each group ----
 
 // S depends on the group, not the head: computed once per (b, group, chunk,
 // tile pair) into the workspace, read by the group's H / G heads from L2.
-constexpr int kRowTile = kT * kMaxN;
 constexpr int kScoresSmem = 4 * 2 * kRowTile + 1024;
 
 __global__ void __launch_bounds__(kThreads)
@@ -395,27 +286,12 @@ scores_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
               float* __restrict__ ws_s, Shape sh) {
   extern __shared__ uint8_t smem_raw[];
   float* const r_hi = reinterpret_cast<float*>(align1024(smem_raw));
-  float* const r_lo = r_hi + kRowTile;
   int it, jt;
   tile_pair(blockIdx.x, &it, &jt);
   const int c = blockIdx.y, bg = blockIdx.z;
   const int b = bg / sh.G, g = bg % sh.G;
-  const long long s0 = static_cast<long long>(c) * sh.Q;
-  float cf[kNK][4];
-  load_c(cf, cm, sh, b, s0, g, it * kT);
-  stage_rows(r_hi, r_lo, bm + row_bsg(sh, b, s0, g), static_cast<long long>(sh.G) * sh.N,
-             jt * kT, sh.Q, sh.N);
-  fence_async_smem();
-  __syncthreads();
-  float sc[kT / 2];
-#pragma unroll
-  for (int e = 0; e < kT / 2; ++e) sc[e] = 0.f;
-  c_product(sc, cf, r_hi, r_lo);
-  float4* out = score_tile(ws_s, sh, bg, c, blockIdx.x);
-#pragma unroll
-  for (int u = 0; u < kT / 8; ++u)
-    out[u * kThreads + threadIdx.x] = make_float4(sc[4 * u], sc[4 * u + 1], sc[4 * u + 2],
-                                                  sc[4 * u + 3]);
+  score_block(cm, it * kT, bm, jt * kT, score_tile(ws_s, sh, bg, c, blockIdx.x, gridDim.x),
+              r_hi, r_hi + kRowTile, sh, b, static_cast<long long>(c) * sh.Q, g);
 }
 
 // ---- 4. the outputs ----
@@ -425,45 +301,8 @@ scores_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
 // (doubles).
 constexpr int kXTile = kMaxP * kT;
 constexpr int kOutSmem = 4 * (2 * kRowTile + 2 * kMaxQ) + 1024;
-constexpr int kOutX = kT * kMaxP / kThreads;  // xdt values a thread stages per key tile
 static_assert(2 * kXTile <= kRowTile, "the xdt tiles live in h_prev's hi tile");
 static_assert(kRowTile == kHpTile, "h_prev's tiles are copied as the state pass wrote them");
-
-// Key tile j0's xdt, 64 x 64 values, transposed into [p][j] with the keys
-// in kpos order: a warp takes 8 neighbouring p of the 4 keys that share a
-// 16-byte chunk of the swizzled row (even or odd keys of an 8-key step), so
-// its stores hit 32 banks and its loads whole 32-byte sectors.  `load_xdt`
-// fills registers, `store_xdt` splits them into the hi and lo tiles.
-__device__ __forceinline__ void xdt_slot(int u, int* p, int* jj) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  *p = (u & 3) * 16 + (warp >> 1) * 8 + (lane & 7);
-  *jj = (u >> 2) * 8 + 2 * (lane >> 3) + (warp & 1);
-}
-
-__device__ __forceinline__ void load_xdt(float (&xv)[kOutX], const float* x_base, int x_ld,
-                                         const Shape& sh, int j0) {
-#pragma unroll
-  for (int u = 0; u < kOutX; ++u) {
-    int p, jj;
-    xdt_slot(u, &p, &jj);
-    xv[u] = (j0 + jj < sh.Q && p < sh.P) ? x_base[static_cast<long long>(j0 + jj) * x_ld + p]
-                                         : 0.f;
-  }
-}
-
-__device__ __forceinline__ void store_xdt(const float (&xv)[kOutX], float* x_hi, float* x_lo) {
-#pragma unroll
-  for (int u = 0; u < kOutX; ++u) {
-    int p, jj;
-    xdt_slot(u, &p, &jj);
-    uint32_t hi, lo;
-    split(xv[u], hi, lo);
-    const int i = sw128(kMaxP, p, (jj & ~7) + kpos(jj & 7));
-    x_hi[i] = __uint_as_float(hi);
-    x_lo[i] = __uint_as_float(lo);
-  }
-  fence_async_smem();
-}
 
 // One warpgroup per (64-row query tile, b·h, chunk); the query tiles of one
 // (b·h, chunk) run together and share h_prev and the xdt tiles in L2.  Its
@@ -522,7 +361,8 @@ chunk_out_kernel(const float* __restrict__ xdt, const float* __restrict__ la,
   load_xdt(xv, x_base, x_ld, sh, 0);
   for (int jt = 0; jt <= it; ++jt) {
     const int j0 = jt * kT;
-    const float4* sp = score_tile(ws_s, sh, b * sh.G + g, c, it * (it + 1) / 2 + jt);
+    const float4* sp = score_tile(ws_s, sh, b * sh.G + g, c, it * (it + 1) / 2 + jt,
+                                  gridDim.x * (gridDim.x + 1) / 2);
     float sc[kT / 2];
 #pragma unroll
     for (int u = 0; u < kT / 8; ++u) {

@@ -23,8 +23,9 @@ cotangents dy [B, S, H, P] and ``dh_final`` [B, H, P, N] (``None``: zero,
 as the models discard h_final) and returns (dxdt, dla, db, dc), db and dc
 summed over the heads of each group: on the CPU ``ref.ssd_chunk_bwd_plain``,
 on a CUDA device the hand-written backward kernel
-(``csrc/ssd_chunk_bwd.cu``: FP32 cores, six launches counted as one call,
-no atomics) under the forward's limits, or the call raises.
+(``csrc/ssd_chunk_bwd.cu``: 3xTF32 tensor-core products, C·Bᵀ formed once
+per group, nine launches counted as one call, no atomics) under the
+forward's limits, or the call raises.
 ``ssd_chunk_bwd.launches`` counts its launches.
 """
 from __future__ import annotations
@@ -39,7 +40,7 @@ from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_bwd_plain, ssd_chunk_pla
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 256
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_PTR] * 11 + [_I32] * 7 + [_PTR]
-_BWD_ARGS = [_PTR] * 18 + [_I32] * 7 + [_PTR]
+_BWD_ARGS = [_PTR] * 20 + [_I32] * 7 + [_PTR]
 TILE = 64        # query and key rows of the kernel's score tiles (kT)
 STATE_STEP = 32  # chunk steps per stage of the state product (kStateStep)
 N_PAD = 128      # rows of a stage of the state product's Bᵀ (kMaxN)
@@ -166,25 +167,30 @@ def ssd_chunk_bwd(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor, c: torch
     _kernel_inputs("ssd_chunk_bwd", p, n, chunk, xdt=xdt, la=la, b=b, c=c, dy=dy,
                    **({} if dh_final is None else {"dh_final": dh_final}))
     f32 = dict(dtype=torch.float32, device=xdt.device)
-    dxdt = torch.zeros((bsz, s, h, p), **f32)
-    dla = torch.zeros((bsz, s, h), **f32)
-    db = torch.zeros((bsz, s, g, n), **f32)
-    dc = torch.zeros((bsz, s, g, n), **f32)
-    if bsz == 0 or s == 0 or h == 0 or p == 0 or n == 0:
+    empty = bsz == 0 or s == 0 or h == 0 or p == 0 or n == 0
+    new = torch.zeros if empty else torch.empty  # the kernels write every element
+    dxdt = new((bsz, s, h, p), **f32)
+    dla = new((bsz, s, h), **f32)
+    db = new((bsz, s, g, n), **f32)
+    dc = new((bsz, s, g, n), **f32)
+    if empty:
         return dxdt, dla, db, dc
-    nc = s // chunk
+    nc, tq = s // chunk, -(-chunk // TILE)
     ws_s = torch.empty((bsz * h, nc, p, n), **f32)
     ws_e = torch.empty((bsz * h, nc, p, n), **f32)
     cd = torch.empty((bsz * h, nc), **f32)
-    cross = torch.empty((bsz * h, nc, -(-chunk // TILE), chunk), **f32)
+    cross = torch.empty((bsz * h, nc, tq, chunk), **f32)
     qpart, spart = (torch.empty((bsz, s, h), **f32) for _ in range(2))
     dbp, dcp = (torch.empty((bsz, s, h, n), **f32) for _ in range(2))
+    ws_sc = torch.empty((bsz * g, nc, tq * (tq + 1), TILE, TILE), **f32)
+    img = torch.empty((bsz * g, nc, 2, 2, 2 * tq, N_PAD * STATE_STEP), **f32)
     _build.launch("ssd_chunk_bwd", "ssd_chunk_bwd_f32", _BWD_ARGS, xdt.device, xdt.data_ptr(),
                   la.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
                   None if dh_final is None else dh_final.data_ptr(), dxdt.data_ptr(),
                   dla.data_ptr(), db.data_ptr(), dc.data_ptr(), ws_s.data_ptr(),
                   ws_e.data_ptr(), cd.data_ptr(), cross.data_ptr(), qpart.data_ptr(),
-                  spart.data_ptr(), dbp.data_ptr(), dcp.data_ptr(), bsz, s, h, g, p, n, chunk)
+                  spart.data_ptr(), dbp.data_ptr(), dcp.data_ptr(), ws_sc.data_ptr(),
+                  img.data_ptr(), bsz, s, h, g, p, n, chunk)
     ssd_chunk_bwd.launches += 1
     return dxdt, dla, db, dc
 

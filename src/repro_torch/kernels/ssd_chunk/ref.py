@@ -88,6 +88,13 @@ def ssd_chunk_plain(xdt, la, b, c, chunk: int, h0=None):
     return (y_intra + y_inter).reshape(bsz, s, h, p), state
 
 
+def _exclusive_cumsum(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Σ of the entries before each one along ``dim``, summed in order."""
+    shifted = t.narrow(dim, 0, t.shape[dim] - 1)
+    pad = [0, 0] * (t.ndim - 1 - dim % t.ndim) + [1, 0]
+    return torch.nn.functional.pad(shifted, pad).cumsum(dim)
+
+
 def _group_sum(t: torch.Tensor, groups: int, dim: int) -> torch.Tensor:
     """Sum a per-head axis ``dim`` over the heads of each group (the adjoint
     of :func:`_per_head`)."""
@@ -186,12 +193,15 @@ def _ssd_bwd(xdt, la, b, c, dy, dh_final, chunk):
     db = torch.einsum("bchqk,bcqhn->bckhn", w_mat, crep) + decay_end[..., None] * d_x
     dc = torch.einsum("bchqk,bckhn->bcqhn", w_mat, brep) + decay_in[..., None] * hp_dy
 
-    # dla_t: the pairs (q >= t, k < t) of M, I_q over q >= t, S_k over k < t
-    crossing = ((m_mat.cumsum(-1) - m_mat) * causal).sum(-2)         # [B,nc,H,Q]
+    # dla_t: the pairs (q >= t, k < t) of M, I_q over q >= t, S_k over k < t;
+    # the exclusive prefixes summed from the left, not as an inclusive sum
+    # minus its last term (at mamba2's decays the diagonal term is ~1e8 times
+    # the prefix before it, which that difference loses)
+    crossing = (_exclusive_cumsum(m_mat, -1) * causal).sum(-2)      # [B,nc,H,Q]
     inter = decay_in * (hp_dy * crep).sum(-1)                         # I_q [B,nc,Q,H]
     state_term = decay_end * (d_x * brep).sum(-1)                     # S_k [B,nc,Q,H]
     dla = (crossing.permute(0, 1, 3, 2) + inter.flip(2).cumsum(2).flip(2)
-           + (state_term.cumsum(2) - state_term)
+           + _exclusive_cumsum(state_term, 2)
            + (chunk_decay * (d_out * h_prev).sum((-2, -1)))[:, :, None])
     return (dxdt.reshape(bsz, s, h, p), dla.reshape(bsz, s, h),
             _group_sum(db, g, 3).reshape(bsz, s, g, n),

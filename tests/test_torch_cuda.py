@@ -1287,18 +1287,27 @@ SSD_BWD_CASES = [(2, 2_048, 48, 64, 1, 128, 256, True),   # mamba2-780m's microb
                  (1, 1, 4, 64, 1, 128, 256, True),        # S = 1
                  (0, 64, 4, 64, 1, 128, 256, True),       # B = 0
                  (1, 128, 2, 7, 1, 20, 64, False),        # odd P, N
-                 (1, 300, 6, 16, 3, 32, 256, True)]       # Q 150, three groups
+                 (1, 300, 6, 16, 3, 32, 256, True),       # Q 150, three groups
+                 # mamba2's initial decays (cum reaches -10³ within a chunk)
+                 pytest.param(2, 2_048, 48, 64, 1, 128, 256, True,
+                              id="2-2048-48-64-1-128-256-True-mamba2_decays")]
 
 
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk,final", SSD_BWD_CASES)
-def test_ssd_chunk_bwd_kernel_matches_plain(card, b, s, h, p, g, n, chunk, final):
+def test_ssd_chunk_bwd_kernel_matches_plain(card, request, b, s, h, p, g, n, chunk, final):
     """B10's backward against its plain version: dxdt, db, dc to the
     script's rule, dla per element to 1e-5 of its term magnitude; one launch
     counted (none at B = 0), a repeat bit-identical; with no h_final
-    cotangent, the autograd Function's gradients are the same bits."""
+    cotangent, the autograd Function's gradients are the same bits.  The
+    case at mamba2's initial decays (a = linspace(1, 16, H)) takes cum to
+    -10³ within a chunk."""
     gen = torch.Generator(device=card).manual_seed(s + h + g)
     xdt = _randn((b, s, h, p), gen, card)
-    la = -torch.rand((b, s, h), generator=gen, device=card) * 0.1
+    if request.node.callspec.id.endswith("mamba2_decays"):  # la = -a·softplus(z)
+        la = -torch.linspace(1.0, 16.0, h, device=card) * torch.nn.functional.softplus(
+            _randn((b, s, h), gen, card))
+    else:
+        la = -torch.rand((b, s, h), generator=gen, device=card) * 0.1
     bm, cm = _randn((b, s, g, n), gen, card), _randn((b, s, g, n), gen, card)
     dy = _randn((b, s, h, p), gen, card)
     dh = _randn((b, h, p, n), gen, card) if final else None

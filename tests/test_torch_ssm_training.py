@@ -247,6 +247,30 @@ def test_backward_magnitudes_bound_float32_reordering():
     assert bool(((got.double() - want).abs() <= 1e-5 * mags.double()).all())
 
 
+def test_ssd_backward_dla_holds_at_mamba2_decays():
+    """At mamba2's initial decays (la = -a·softplus(z), a = linspace(1, 16,
+    H): cum reaches -10³ within a chunk) a diagonal term of M or S_k is up to
+    ~1e8 times the prefix of the terms before it.  The float32 plain
+    backward sums those exclusive prefixes from the left, so its dla stays
+    within 1e-5 of each element's term magnitude of the float64 one; an
+    inclusive sum minus its last term lost the prefix, and dla and its
+    magnitude came out 0 where they are not."""
+    gen = torch.Generator().manual_seed(3)
+    h = 48
+    xdt, dy = (torch.randn((1, 512, h, 16), generator=gen) for _ in range(2))
+    la = -torch.linspace(1.0, 16.0, h) * torch.nn.functional.softplus(
+        torch.randn((1, 512, h), generator=gen))
+    b, c = (torch.randn((1, 512, 1, 32), generator=gen) for _ in range(2))
+    dh = torch.randn((1, h, 16, 32), generator=gen)
+    args = (xdt, la, b, c, dy, dh)
+    assert float(la.double().reshape(1, 2, 256, h).cumsum(2).min()) < -1e3
+    got = ssd_chunk_bwd_plain(*args, chunk=256)[1]
+    want = ssd_chunk_bwd_plain(*(t.double() for t in args), chunk=256)[1]
+    mags = ssd_chunk_bwd_magnitudes(*args, chunk=256)[1]
+    assert int((mags == 0).sum()) == h   # the first step of the first chunk: no terms
+    assert bool(((got.double() - want).abs() <= 1e-5 * mags.double()).all())
+
+
 # ---- the families ----
 
 FAMILIES = {"mamba2-780m": {}, "recurrentgemma-9b": {"n_layers": 5, "local_window": 16}}

@@ -1,14 +1,16 @@
 """A plain-torch model of the 3xTF32 arithmetic of the tensor-core kernels of
 B1 (``rolann_stats/csrc/rolann_stats_sm90.cuh``, one tenant, m > 28), B10
-(``ssd_chunk/csrc/ssd_chunk.cu``) and the float32 routes of B7 and B8
+(``ssd_chunk/csrc/ssd_chunk.cu``), its backward B10ᵇ
+(``ssd_chunk/csrc/ssd_chunk_bwd.cu``) and the float32 routes of B7 and B8
 (``flash_attention/csrc/flash_attention.cu``, ``flash_attention_bwd.cu``;
 their model is ``tests/_flash_emulation.py``'s ``forward_tf32x3`` and
 ``backward_tf32x3`` on this file's ``mm``), held on the CPU to the port's
 plain versions under the card's unchanged bars: B1's G and M within 1e-4
 of their largest magnitude, B10's y and h_final within 1e-5 of
-max|plain|, B7's out within 1e-5 of max(1, max|ref|) and lse within 1e-5
-of max|lse|, each element of B8's dq, dk and dv within 1e-5 of its term
-magnitude.
+max|plain|, B10ᵇ's dxdt, dB and dC within 1e-4 of max|plain| and each
+element of its dla within 1e-5 of its term magnitude, B7's out within 1e-5
+of max(1, max|ref|) and lse within 1e-5 of max|lse|, each element of B8's
+dq, dk and dv within 1e-5 of its term magnitude.
 
 What it models:
 
@@ -30,7 +32,10 @@ What it models:
 * Everything else in float32 as the kernels do it: B1's slices of at most
   2,048 samples as the wrapper plans them (``ops.plan_slices_tf32x3``, for
   an H100's 132 SMs) summed in slice order, M on FP32 FMAs in sample order;
-  B10's cumulative sums, decays, masks and the state pass; B7's online
+  B10's cumulative sums, decays, masks and the state pass; B10ᵇ's per-group
+  scores, chunk sums by 32-step stages and tile products, each in a fresh
+  accumulator added in float32, its state passes and dla's crossing sums
+  (``ssd_chunk_bwd_model``); B7's online
   softmax over its key tiles; B8's tile products each taken in a fresh
   accumulator and added in float32 (summed in one accumulator over
   thousands of steps, the rounding toward zero drifts past B8's bar).
@@ -48,7 +53,8 @@ import torch
 
 from repro_torch.kernels.rolann_stats import ops as stats_ops
 from repro_torch.kernels.rolann_stats import rolann_stats_plain
-from repro_torch.kernels.ssd_chunk import fit_chunk, ssd_chunk_plain
+from repro_torch.kernels.ssd_chunk import fit_chunk, ssd_chunk_bwd_plain, ssd_chunk_plain
+from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_bwd_magnitudes
 
 K_STEP = 8       # depth of one TF32 wgmma
 H100_SMS = 132
@@ -211,6 +217,164 @@ B10_CASES = [(1, 64, 2, 16, 1, 32, 32), (1, 250, 2, 16, 1, 32, 64), (1, 128, 4, 
              (1, 512, 1, 64, 1, 128, 256)]
 
 
+# ---- B10's backward ----
+
+def _exp32(d: torch.Tensor) -> torch.Tensor:
+    """expf of a float64 difference rounded to float32, as the kernels take
+    every decay."""
+    return torch.exp(d.float())
+
+
+def _fma32(acc, w, x):
+    """acc + w·x with one rounding (an FP32 FMA)."""
+    return (acc.double() + w.double() * x.double()).float()
+
+
+def ssd_chunk_bwd_model(xdt, la, b, c, dy, dh_final, chunk, *, split3=True):
+    """B10's backward ``(dxdt, dla, db, dc)`` as its tensor-core kernels form
+    it, per batch row and chunk with the heads batched: S = C·Bᵀ and Sᵀ =
+    B·Cᵀ once per group and 64 x 64 tile pair (one accumulator over N); the
+    chunk sums by stages of 32 steps, each stage's product in a fresh
+    accumulator added in float32; the float32 state passes (FMAs); per key
+    tile dxdt = Σ over the query tiles of (Sᵀ ∘ L)·dy and dB = Σ of
+    (L ∘ xdt·dyᵀ)·C, per query tile dC = Σ over the key tiles of
+    (L ∘ dy·xdtᵀ)·B, each tile's product in a fresh accumulator added in
+    float32, then the state terms (B·Dᵀ, xdt·D, dy·h_prev over N or P, one
+    product each) added with the weights by FMAs; M = (S ∘ L) ∘ (dy·xdtᵀ) in
+    float32 and dla from its crossing sums (each row's exclusive prefix over
+    the keys, summed in order), I's suffix and S's prefix sums and
+    exp(cum_last)·<D, h_prev>, all float32."""
+    bsz, s, h, p = xdt.shape
+    g, n = b.shape[2], b.shape[3]
+    nc, tq = s // chunk, -(-chunk // B10_TILE)
+    hg = torch.arange(h) // (h // g)     # the group of each head
+    tiles = [slice(t * B10_TILE, min((t + 1) * B10_TILE, chunk)) for t in range(tq)]
+    kw = dict(split3=split3)
+    dxdt, dla = torch.zeros((bsz, s, h, p)), torch.zeros((bsz, s, h))
+    dbh, dch = torch.zeros((bsz, s, h, n)), torch.zeros((bsz, s, h, n))
+    for bi in range(bsz):
+        per = []  # per chunk: cum [Q, H], x, y [H, Q, P], bh, chh [H, Q, N], bg, cg [G, Q, N]
+        sums = []
+        for ci in range(nc):
+            rows = slice(ci * chunk, (ci + 1) * chunk)
+            cum = la[bi, rows].double().cumsum(0)
+            x, y = (t[bi, rows].float().permute(1, 0, 2) for t in (xdt, dy))
+            bg, cg = (t[bi, rows].float().permute(1, 0, 2) for t in (b, c))
+            per.append((cum, x, y, bg[hg], cg[hg], bg, cg))
+            w_end, w_in = _exp32(cum[-1] - cum).T, _exp32(cum).T      # [H, Q]
+            contrib, e_c = torch.zeros((h, p, n)), torch.zeros((h, p, n))
+            for j0 in range(0, chunk, 32):
+                st = slice(j0, min(j0 + 32, chunk))
+                contrib = contrib + mm((x[:, st] * w_end[:, st, None]).transpose(1, 2),
+                                       bg[hg][:, st], **kw)
+                e_c = e_c + mm((y[:, st] * w_in[:, st, None]).transpose(1, 2),
+                               cg[hg][:, st], **kw)
+            sums.append((contrib, e_c, _exp32(cum[-1])))
+        state = torch.zeros((h, p, n))
+        grad = torch.zeros((h, p, n)) if dh_final is None else dh_final[bi].float()
+        h_prev, d_out = [None] * nc, [None] * nc
+        for ci in range(nc):
+            h_prev[ci] = state
+            state = _fma32(sums[ci][0], state, sums[ci][2][:, None, None])
+        for ci in reversed(range(nc)):
+            d_out[ci] = grad
+            grad = _fma32(sums[ci][1], grad, sums[ci][2][:, None, None])
+        for ci in range(nc):
+            cum, x, y, bh, chh, bg, cg = per[ci]
+            hp, dd_state, cd = h_prev[ci], d_out[ci], sums[ci][2]
+            w_end, w_in = _exp32(cum[-1] - cum).T, _exp32(cum).T
+            t_idx = torch.arange(chunk)
+
+            def decay(qs, ks):  # L [H, len(qs), len(ks)] for k <= q
+                d = _exp32(cum[qs][:, None, :] - cum[ks][None, :, :]).permute(2, 0, 1)
+                return torch.where((t_idx[ks][None, :] <= t_idx[qs][:, None])[None], d,
+                                   torch.zeros(()))
+
+            m_full = torch.zeros((h, chunk, chunk))
+            rows_out = slice(ci * chunk, (ci + 1) * chunk)
+            s_term, i_term = torch.zeros((h, chunk)), torch.zeros((h, chunk))
+            for kt, ks in enumerate(tiles):     # the key tiles: dxdt, dB, S_k
+                tot_x, tot_b = torch.zeros((h, ks.stop - ks.start, p)), \
+                    torch.zeros((h, ks.stop - ks.start, n))
+                for qs in tiles[kt:]:
+                    l_kq = decay(qs, ks).transpose(1, 2)          # [H, k, q]
+                    st_t = mm(bg[:, ks], cg[:, qs].transpose(1, 2), **kw)[hg]
+                    tot_x = tot_x + mm(st_t * l_kq, y[:, qs], **kw)
+                    dd_t = mm(x[:, ks], y[:, qs].transpose(1, 2), **kw)
+                    tot_b = tot_b + mm(l_kq * dd_t, chh[:, qs], **kw)
+                part_x = mm(bh[:, ks], dd_state.transpose(1, 2), **kw)
+                part_b = mm(x[:, ks], dd_state, **kw)
+                w = w_end[:, ks, None]
+                dxdt[bi, ci * chunk + ks.start:ci * chunk + ks.stop] = \
+                    _fma32(tot_x, w, part_x).permute(1, 0, 2)
+                dbh[bi, ci * chunk + ks.start:ci * chunk + ks.stop] = \
+                    _fma32(tot_b, w, part_b).permute(1, 0, 2)
+                s_term[:, ks] = w[..., 0] * (bh[:, ks].double() * part_b.double()).sum(-1).float()
+            for qt, qs in enumerate(tiles):     # the query tiles: dC, M, I_q
+                tot_c = torch.zeros((h, qs.stop - qs.start, n))
+                for ks in tiles[:qt + 1]:
+                    l_qk = decay(qs, ks)
+                    s_qk = mm(cg[:, qs], bg[:, ks].transpose(1, 2), **kw)[hg]
+                    dd_q = mm(y[:, qs], x[:, ks].transpose(1, 2), **kw)
+                    m_full[:, qs, ks] = (s_qk * l_qk) * dd_q
+                    tot_c = tot_c + mm(l_qk * dd_q, bh[:, ks], **kw)
+                part_c = mm(y[:, qs], hp, **kw)
+                w = w_in[:, qs, None]
+                dch[bi, ci * chunk + qs.start:ci * chunk + qs.stop] = \
+                    _fma32(tot_c, w, part_c).permute(1, 0, 2)
+                i_term[:, qs] = w[..., 0] * (chh[:, qs].double() * part_c.double()).sum(-1).float()
+            prefix = torch.nn.functional.pad(m_full[..., :-1], (1, 0)).cumsum(-1)
+            crossing = (prefix * (t_idx[:, None] >= t_idx[None, :])).sum(-2)   # [H, Q]
+            suffix = i_term.flip(-1).cumsum(-1).flip(-1)
+            s_prefix = torch.nn.functional.pad(s_term[:, :-1], (1, 0)).cumsum(-1)
+            extra = cd * (dd_state.double() * hp.double()).sum((-2, -1)).float()
+            dla[bi, rows_out] = (crossing + suffix + s_prefix + extra[:, None]).T
+    db = dbh.reshape(bsz, s, g, h // g, n).sum(3)
+    dc = dch.reshape(bsz, s, g, h // g, n).sum(3)
+    return dxdt, dla, db, dc
+
+
+def _ssd_bwd_inputs(b, s, h, p, g, n, final, decays, seed):
+    """As chip_smoke.py's: xdt, B, C, dy, dh_final standard normal; la in
+    [-0.1, 0], or (``decays``) mamba2's initial -a·softplus(z), a =
+    linspace(1, 16, H), whose cum reaches -10³ within a chunk."""
+    rng = np.random.default_rng(seed)
+    xdt, dy = rng.normal(size=(b, s, h, p)), rng.normal(size=(b, s, h, p))
+    if decays:
+        la = -np.linspace(1.0, 16.0, h) * np.log1p(np.exp(rng.normal(size=(b, s, h))))
+    else:
+        la = -rng.random((b, s, h)) * 0.1
+    bm, cm = rng.normal(size=(b, s, g, n)), rng.normal(size=(b, s, g, n))
+    dh = rng.normal(size=(b, h, p, n)) if final else None
+    return tuple(None if t is None else torch.from_numpy(t.astype(np.float32))
+                 for t in (xdt, la, bm, cm, dy, dh))
+
+
+def ssd_chunk_bwd_shares(b, s, h, p, g, n, chunk, final, decays, seed, split3=True):
+    """The shares of B10ᵇ's bars the model uses: dxdt, dB, dC each against
+    1e-4·max|plain|, dla per element against 1e-5 of its term magnitude."""
+    args = _ssd_bwd_inputs(b, s, h, p, g, n, final, decays, seed)
+    q = fit_chunk(s, chunk)
+    got = ssd_chunk_bwd_model(*args, q, split3=split3)
+    want = ssd_chunk_bwd_plain(*args, chunk=q)
+    mags = ssd_chunk_bwd_magnitudes(*args, chunk=q)
+    shares = {name: float((gt.double() - wt.double()).abs().max() / (1e-4 * wt.abs().max()))
+              for name, gt, wt in zip(("dxdt", "db", "dc"), (got[0], *got[2:]),
+                                      (want[0], *want[2:]))}
+    shares["dla"] = float(((got[1].double() - want[1].double()).abs()
+                           / (1e-5 * mags[1].double()).clamp_min(1e-300)).max())
+    return shares
+
+
+# (b, s, h, p, g, n, chunk, h_final cotangent, mamba2's decays): one group,
+# two groups at a ragged chunk (250, not a multiple of 64 or 8), a nonzero
+# h_final cotangent, and decays whose cum reaches -10³ within a chunk.
+B10_BWD_CASES = [(1, 128, 2, 16, 1, 32, 64, False, False),
+                 (1, 250, 4, 8, 2, 16, 256, True, False),
+                 (2, 128, 2, 16, 1, 32, 128, True, False),
+                 (1, 256, 4, 8, 1, 16, 128, True, True)]
+
+
 # ---- B7 and B8, the float32 route ----
 
 # (Sq, Sk, H, Hkv, D, D_v, causal, window, q_offset): the five head-size
@@ -277,6 +441,22 @@ def test_ssd_chunk_model_holds_the_bar(b, s, h, p, g, n, chunk):
     assert share < single
 
 
+@pytest.mark.parametrize("case", B10_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_ssd_chunk_bwd_model_holds_the_bars(case):
+    shares = ssd_chunk_bwd_shares(*case, seed=case[1] + case[5])
+    print(f"B10ᵇ {case}: 3xTF32 uses " + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+          + " of the bars")
+    assert max(shares.values()) <= 1.0
+
+
+def test_ssd_chunk_bwd_single_tf32_misses_the_bars():
+    """One TF32 product of rna-rounded operands misses B10ᵇ's bars."""
+    case = B10_BWD_CASES[0]
+    shares = ssd_chunk_bwd_shares(*case, seed=case[1] + case[5], split3=False)
+    print(f"B10ᵇ {case}: one TF32 uses {shares} of the bars")
+    assert min(shares.values()) > 1.0
+
+
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_flash_tf32x3_model_holds_the_bars(case):
     share_out, share_lse, share_bwd = flash_shares(*case)
@@ -303,6 +483,10 @@ if __name__ == "__main__":
         print(f"B10 (B, S, H, P, G, N, chunk) = {case}: share of the bar 3xTF32 "
               f"{ssd_chunk_share(*case, seed):.4f}, one TF32 "
               f"{ssd_chunk_share(*case, seed, split3=False):.4f}")
+    for case in B10_BWD_CASES:
+        print(f"B10ᵇ {case}: shares of the bars 3xTF32 "
+              f"{ssd_chunk_bwd_shares(*case, seed=case[1] + case[5])}, one TF32 "
+              f"{ssd_chunk_bwd_shares(*case, seed=case[1] + case[5], split3=False)}")
     for case in FLASH_CASES:
         print(f"B7/B8 {case}: shares of the bars (out, lse, dq/dk/dv) 3xTF32 "
               f"{flash_shares(*case)}, one TF32 {flash_shares(*case, split3=False)}")
