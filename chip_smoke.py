@@ -288,7 +288,8 @@ lm-mesh (after the mesh phase) — ROADMAP item 12's model-zoo part, the
     versions, SDPA on the same stripe and the bound of the stripe's own
     pairs.  (b) qwen3-1.7b at full width, float32, 14 of its 28 layers
     (cut for the script's time), on four gloo ranks sharing the card
-    (``python3 chip_smoke.py --lm-mesh-rank R DIR``) at data 2 x model 2
+    (``python3 chip_smoke.py --lm-mesh-rank R ROOT``, four processes
+    started once for (b), (c) and (e)) at data 2 x model 2
     (head-parallel; FSDP on the stacked layer leaves): two AdamW steps of
     4 x 1,024 tokens held to one process on the card at the same inputs (the witness, run first): the loss at ``TOLS``, and per
     leaf each rank's slices of the step-1 gradients and of the parameters
@@ -506,16 +507,57 @@ lm-mesh (after the mesh phase) — ROADMAP item 12's model-zoo part, the
     the profiler (device time of B10, B10's backward, B9, B9's backward,
     B7, B8 and cuBLAS).  (d) ``launch/train.py --arch mamba2-780m`` (3 bf16
     steps of 4 x 2,048 tokens) in process.
+25. the registry's last two dense architectures at its shapes (after phase
+    22): granite-20b (52 layers, d_model 6,144, 48 query heads over one KV
+    head; 28.17e9 parameters with the config's defaults, SwiGLU and an
+    untied head) and mistral-nemo-12b (40 layers, query width 32 x 128 =
+    4,096 of d_model 5,120, vocab 131,072, RoPE theta 1e6), seeded random
+    weights.  (f) first, while this process holds no model: ``python -m
+    repro_torch.launch.serve --arch mistral-nemo-12b`` in float32 (49.0 GB;
+    granite's 112.7 GB do not fit, its CLI runs ``--reduced`` on the host).
+    (a) B7 at 1 x 32,768 (prefill_32k's length) with each model's heads,
+    bf16 and float32, against the plain version on the last 1,024 query rows
+    of two query heads through ``q_offset`` (one bf16 ulp an element;
+    float32 1e-4 of max|plain|), each repeat bit-identical; bf16 timed
+    (median of 5) beside its bound (13.34 and 8.89 ms), SDPA with k and v
+    expanded to the query heads, and the plain version on the stripe; B8 at
+    granite's group of 48, 2 x 4,096, both routes, per element against its
+    plain version (phase 14's bars), bf16 timed, both split by the profiler
+    into the dq and the dk/dv kernel beside their block counts.  Then per
+    model: (d) mistral's decode against its prefill at full width in float32
+    (2 x 64 tokens, the reference's bar); (b) the model cut to 2 layers,
+    full width, float32: the forward and the last-token logits of 2 x 256
+    tokens card against host (1e-4 of max), granite's decode against its
+    prefill, 8 decode steps at positions 32,760-32,767 and at
+    524,280-524,287 (long_500k's sliding-window variant, a ring of 4,096
+    slots) from one seeded cache on card and host (1e-4 of max|logits|), the
+    ring filled with the k and v of the windowed prefill of 4,096 tokens,
+    then 64 decode steps past its last slot against the windowed prefill (B7
+    ``window=4096``) of all 4,160 at the reference's bar, and the loss and
+    every gradient leaf of 1 x 256 tokens card against host (phase 23's
+    bars); (c) prefill_32k in bf16 at full width and depth, its batch of 32
+    cut to 1: one prefill, traced on the device only (B7 against cuBLAS's
+    GEMMs against the rest), B7 once a layer on ``"wgmma"``, tokens/s,
+    finite logits, peak memory; (d) bf16 decode at full width from caches
+    filled from a seed: decode_32k (a 32,768-slot cache, its batch of 128
+    cut to 8 for granite and 4 for mistral) and long_500k (B = 1,
+    ``init_cache(1, 524,288)`` holding the window's 4,096 slots), 8 steps at
+    each shape's last positions, ms/token; (e) 4 bf16 train steps of the
+    model cut to 2 layers, 4 x 4,096 tokens (train_4k's length, its batch of
+    256 cut to 4), as phase 23's but at lr 3e-5 (a first AdamW step at the
+    launcher's 3e-4 moves a projection of 6,144 inputs by ~150 % of its
+    scale): B7 8 and B8 4 a step, peak memory.  Each model's time and the
+    phase's are printed.
 
 The last lines are a JSON object of the mesh phase's numbers, a JSON
 object of phase 24's numbers, a JSON object of
-phase 23's numbers, a JSON object of
+phase 23's numbers, a JSON object of phase 25's numbers, a JSON object of
 phase 22's numbers, a JSON object of phase 21's numbers, a JSON object of
 phase 20's numbers, a JSON object of the svd phase's numbers, a JSON object
 of the engine phase's numbers, a JSON object of phase 19's numbers, a JSON
 object of the LM paths' numbers, a JSON object of per-shape numbers, the
 card's name and power limit, a JSON object of per-kernel numbers for all
-ten kernels (B7's and B8's rows with their routes of phases 22 and 23, B9's
+ten kernels (B7's and B8's rows with their routes of phases 22, 23 and 25, B9's
 and B10's with their backwards of phase 24), and ``{"ok": true, "device":
 {...}}``.
 """
@@ -1332,31 +1374,64 @@ def _kernel_name(key):
     return key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
 
 
-def _kernel_us(fn, patterns, attempts=3):
-    """Device time (µs) of one ``fn()`` under torch.profiler, by kernel, for
-    the kernels whose names hold one of ``patterns``: {name: (launches,
-    µs)}.  A profile that recorded none of them (the profiler now and then
-    records no device event for a call) is taken again, ``attempts`` times
-    in all."""
+# Idle host seconds on each side of a profiled call, one entry an attempt:
+# see ``_profile_padded``.
+PROFILE_PADS_S = (0.0, 0.05, 0.2, 0.8, 3.2)
+
+
+def _profile_padded(run, pad=0.0):
+    """``run()`` under torch.profiler (host ops and device kernels), with
+    ``pad`` idle host seconds before it and after its synchronize, outside
+    the timed span.  The profiler keeps a device event only where its time,
+    on the device's clock taken to the host's, lies inside the profile's
+    window; on an H100 profiles of one call of a few ms now and then
+    recorded no device event several times running, while a profile of a
+    multi-second run taken just after recorded its kernels, so a retry
+    widens the window.  Returns (the profiler, what ``run`` returns, the
+    run's wall seconds)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad)
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(pad)
+    return prof, out, wall
+
+
+def _device_time_key(averages):
+    return ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
+            else "self_cuda_time_total")
+
+
+def _kernel_us(fn, patterns, attempts=len(PROFILE_PADS_S), required=True):
+    """Device time (µs) of one ``fn()`` under torch.profiler, by kernel, for
+    the kernels whose names hold one of ``patterns``: {name: (launches,
+    µs)}.  A profile that recorded none of them is said and taken again
+    with the next of ``PROFILE_PADS_S`` (``_profile_padded``), ``attempts``
+    times in all; then it fails, or, if not ``required`` (a number only
+    printed), returns {}."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+    for i, pad in enumerate(PROFILE_PADS_S[:attempts]):
+        prof, _, _ = _profile_padded(fn, pad)
         averages = prof.key_averages()
-        key = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
-               else "self_cuda_time_total")
+        key = _device_time_key(averages)
         times = {_kernel_name(e.key): (e.count, getattr(e, key))
                  for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
                  and any(p in e.key for p in patterns)}
         if times:
             return times
-    raise SmokeFailure(f"the profiler recorded no kernel named like {patterns} in "
-                       f"{attempts} profiles of one call")
+        say("profile", f"profile {i + 1} of one call (idle {pad:g} s on each side) recorded "
+            f"no kernel named like {patterns}")
+    check(not required, f"the profiler recorded no kernel named like {patterns} in "
+          f"{attempts} profiles of one call")
+    return {}
 
 
 def _say_slice_row(label, times, regs, ms, bound, used):
@@ -4340,7 +4415,7 @@ def _sdpa_bwd(q, k, v, do, window, causal=True):
     return lambda: torch.autograd.grad(out, leaves, do.transpose(1, 2), retain_graph=True)
 
 
-def _agree_bwd(label, got, want, mags, dtype):
+def _agree_bwd(label, got, want, mags, dtype, shares=None):
     """dq, dk, dv against the plain backward, element by element: float32
     within 1e-5 of the element's term magnitude (the sum of |term| over the
     products that make it; two float32 sums of the same terms in other
@@ -4349,7 +4424,7 @@ def _agree_bwd(label, got, want, mags, dtype):
     once) plus 2e-5 of the magnitude.  The magnitude of dk and dv sums over
     the G query heads of their group, as the sums themselves do, so the
     floor holds for the group sum too.  Returns (max|d|, worst share of a
-    bar)."""
+    bar); ``shares`` (a dict), if given, gets each tensor's worst share."""
     import torch
 
     worst_err, worst_used = 0.0, 0.0
@@ -4361,6 +4436,8 @@ def _agree_bwd(label, got, want, mags, dtype):
                else 1e-5 * m.double())
         used = float((d / bar.clamp_min(1e-30)).max())
         check(used <= 1.0, f"B8 {label} {name}: an element's |d| is {used:.3f} of its bar")
+        if shares is not None:
+            shares[name] = used
         worst_err, worst_used = max(worst_err, float(d.max())), max(worst_used, used)
     return worst_err, worst_used
 
@@ -4410,9 +4487,11 @@ def _b8_case(gen, label, b, s, h, hkv, d, dtype, *, d_v=None, window=None, causa
     check([tuple(g.shape) for g in got] == [(b, s, h, d), (b, s, hkv, d), (b, s, hkv, d_v)],
           f"B8 {label}: shapes {[tuple(g.shape) for g in got]}")
     mags = flash_attention_bwd_magnitudes(q, k, v, out, lse, do, **kw)
+    shares = {}
     err, used = _agree_bwd(label, got, flash_attention_bwd_ref(q, k, v, out, lse, do, **kw),
-                           mags, dtype)
-    msg = f"max|d| {err:.3e}, worst {used:.3f} of its per-element bar"
+                           mags, dtype, shares)
+    msg = (f"max|d| {err:.3e}, worst {used:.3f} of its per-element bar ("
+           + ", ".join(f"{n} {u:.3f}" for n, u in shares.items()) + ")")
     if autograd:
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         ref_out, _ = flash_attention_ref(*leaves, **kw)
@@ -4445,8 +4524,8 @@ def _b8_case(gen, label, b, s, h, hkv, d, dtype, *, d_v=None, window=None, causa
         f"{library}, bound {bound_ms:.4f} ms ({bound_by}, {flops:.4g} FLOP, "
         f"{nbytes / 1e6:.1f} MB)")
     return dict(shape=label, b=b, s=s, h=h, hkv=hkv, d=d, d_v=d_v, window=window,
-                causal=causal, max_abs_err=err, bar_used=used, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                causal=causal, max_abs_err=err, bar_used=used, bar_used_each=shares, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_b8_kernels():
@@ -4526,10 +4605,11 @@ def _loss_launches(cfg) -> dict:
     return {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
 
 
-def _train_steps(name, card, b, s, changes=None, seed=0, tag="train"):
-    """``name`` (cut by ``changes``) in bf16, trained for ``TRAIN_STEPS``
-    steps as ``launch/train.py`` runs it: AdamW under
-    ``linear_warmup_cosine(3e-4, steps // 10 + 1, steps)``, weight decay
+def _train_steps(name, card, b, s, changes=None, seed=0, tag="train", steps=TRAIN_STEPS,
+                 lr=TRAIN_LR):
+    """``name`` (cut by ``changes``) in bf16, trained for ``steps`` steps
+    as ``launch/train.py`` runs it: AdamW under
+    ``linear_warmup_cosine(lr, steps // 10 + 1, steps)``, weight decay
     0.01, float32 moments; ``make_train_step(microbatches=2,
     clip_norm=1.0)`` with a float32 accumulator, every layer rematerialised;
     batches of ``b`` x ``s`` tokens from ``lm_token_stream(seed=step)``
@@ -4550,7 +4630,7 @@ def _train_steps(name, card, b, s, changes=None, seed=0, tag="train"):
 
     _free()
     cfg, bundle, params = _lm_params(name, torch.bfloat16, seed=seed, **(changes or {}))
-    opt = optim.adamw(optim.linear_warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10 + 1, TRAIN_STEPS),
+    opt = optim.adamw(optim.linear_warmup_cosine(lr, steps // 10 + 1, steps),
                       weight_decay=0.01)
     norms, global_norm = [], optim.global_norm
 
@@ -4571,7 +4651,7 @@ def _train_steps(name, card, b, s, changes=None, seed=0, tag="train"):
     torch.cuda.reset_peak_memory_stats()  # the steps' peak, not the initialiser's
     optim.global_norm = recorded_norm  # the train step calls it through the module
     try:
-        for step in range(TRAIN_STEPS):
+        for step in range(steps):
             batch = _train_batch(cfg, b, s, seed=step)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4586,7 +4666,7 @@ def _train_steps(name, card, b, s, changes=None, seed=0, tag="train"):
     finally:
         optim.global_norm = global_norm
     per_step = {k: v * TRAIN_MICRO for k, v in _loss_launches(cfg).items()}
-    launches = _lm_read(**{k: v * TRAIN_STEPS for k, v in per_step.items()})
+    launches = _lm_read(**{k: v * steps for k, v in per_step.items()})
     peak = torch.cuda.max_memory_allocated()
     # The hybrid's embedding (std 0.02) enters scaled by sqrt(d_model) and is
     # tied to the LM head, so an untrained model echoes its input token at a
@@ -4597,15 +4677,15 @@ def _train_steps(name, card, b, s, changes=None, seed=0, tag="train"):
           f"{np.log(cfg.vocab_size):.4f}")
     with torch.no_grad():
         after = float(bundle.loss(params, _train_batch(cfg, b, s, seed=0)))
-    check(after < losses[0], f"{name}: loss on step 0's batch {after:.4f} after {TRAIN_STEPS} "
+    check(after < losses[0], f"{name}: loss on step 0's batch {after:.4f} after {steps} "
           f"steps is not below {losses[0]:.4f}")
     step_ms = statistics.median(times[1:])
     positions = s + (cfg.n_patches if cfg.family == "vlm" else 0)
     tok_s = b * positions / step_ms * 1e3
     frames = f" after {cfg.encoder_seq} frames" if cfg.family == "encdec" else ""
-    say(tag, f"{name} full width, {cfg.n_layers} layers, bf16, {TRAIN_STEPS} steps of {b} x "
+    say(tag, f"{name} full width, {cfg.n_layers} layers, bf16, {steps} steps of {b} x "
         f"{positions} positions{frames} ({TRAIN_MICRO} microbatches): step {step_ms:.0f} ms "
-        f"(median of steps 1-{TRAIN_STEPS - 1}; step 0 {times[0]:.0f} ms), {tok_s:.0f} "
+        f"(median of steps 1-{steps - 1}; step 0 {times[0]:.0f} ms), {tok_s:.0f} "
         f"positions/s, peak device memory {peak / 2**30:.2f} GiB, on {card}; loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}, step 0's batch {after:.4f}; launches {launches}")
     numbers = dict(n_layers=cfg.n_layers, b=b, positions=positions, step_ms=step_ms,
@@ -5760,6 +5840,512 @@ def phase_families(card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 25. the registry's last two dense architectures, granite-20b and
+# mistral-nemo-12b, at the registry's shapes: B7 at 32,768 tokens, B8 at a
+# group of 48, card against host at a 2-layer cut, prefill_32k, decode_32k,
+# long_500k and its ring, bf16 train steps, the serve CLI
+# ---------------------------------------------------------------------------
+
+GRANITE, MISTRAL = "granite-20b", "mistral-nemo-12b"
+STRIPE_ROWS = 1_024              # (a): B7's plain version holds the last query rows
+DENSE_CUT = 2                    # (b), (d), (e): layers of the depth cuts
+DENSE_AGREE = (2, 256)           # (b): batch and tokens of the forward, card against host
+                                 # (the gradients': 1 x 256, as phase 23's)
+DENSE_DECODE_B = {GRANITE: 8, MISTRAL: 4}   # (d): decode_32k's batch of 128, cut
+DENSE_DECODE_STEPS = 8           # (d): steps at a decode shape's last positions
+DENSE_RING_PAST = 64             # (d): decode steps past the ring's last slot
+DENSE_TRAIN = (4, 4)             # (e): batch (train_4k's 256 cut) and steps
+# (e): AdamW's first steps move every weight by ~lr, so a projection of
+# d_model 5,120-6,144 inputs shifts by ~lr * d_model * E|x|: 1.5 at the
+# launcher's 3e-4 after a one-step warm-up (granite's loss 11.2 -> 34.4 on
+# an H100), 0.15 at 3e-5
+DENSE_TRAIN_LR = 3e-5
+
+
+def _seq(shape):
+    from repro_torch.configs import registry
+
+    return registry.SHAPES[shape].seq_len
+
+
+def _b7_long(gen, cfg, dtype):
+    """(a): B7 on seeded q [1, 32,768, H, 128] and k, v [1, 32,768, Hkv,
+    128] (prefill_32k's length, ``cfg``'s heads), causal, counted on its
+    route, a repeat bit-identical.  The plain version would hold a [1, H, S,
+    S] score tensor (206 GB at 48 heads), so it holds the stripe of the last
+    1,024 query rows of the last two query heads (one KV group) through
+    ``q_offset``: out to one bf16 ulp an element (bf16) or 1e-4 of
+    max|plain| (float32), lse to 1e-5 of max|lse|.  bf16: CUDA-events times
+    (median of 5 after a warm-up) of the kernel, SDPA (k and v expanded to
+    the query heads) and the plain version on the stripe, beside the bound.
+    Returns the row."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    s, h, hkv, d = _seq("prefill_32k"), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((1, s, h, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((1, s, hkv, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    label = f"B7 {cfg.name} 1 x {s} H={h}/{hkv} {str(dtype)[6:]}"
+    route = _route(dtype)
+    before = flash_attention.route_launches[route]
+    out, lse = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    check(flash_attention.route_launches[route] == before + 1, f"{label}: not on {route}")
+    check(tuple(out.shape) == (1, s, h, d) and tuple(lse.shape) == (1, h, s),
+          f"{label}: out {tuple(out.shape)}, lse {tuple(lse.shape)}")
+    again, again_lse = flash_attention(q, k, v)
+    check(bool(torch.equal(again, out) and torch.equal(again_lse, lse)),
+          f"{label}: a repeat is not bit-identical")
+    del again, again_lse
+    off, heads = s - STRIPE_ROWS, slice(h - 2, h)
+    qs, ks, vs = q[:, off:, heads], k[:, :, hkv - 1:], v[:, :, hkv - 1:]
+    ref, ref_lse = flash_attention_ref(qs, ks, vs, q_offset=off)
+    got = out[:, off:, heads].float()
+    if route == "wgmma":
+        err, used = _agree_each(f"{label} out", got, ref.float(), 2.0**-7, 2.0**-7 * 1e-2)
+        bar = f"2^-7 |ref| + 2^-7 * 1e-2 per element, worst {used:.3f} of its bar"
+    else:
+        err, scale = _agree(f"{label} out", got, ref.float(), 1e-4)
+        used = err / (1e-4 * scale)
+        bar = f"1e-4 * max|ref|, {used:.4f} of it"
+    err_lse, scale_lse = _agree(f"{label} lse", lse[:, heads, off:], ref_lse, 1e-5)
+    del ref, ref_lse, got
+    say("dense", f"{label} ({route}): the plain version on the last {STRIPE_ROWS} rows of "
+        f"heads {h - 2}-{h - 1} (KV head {hkv - 1}, q_offset {off}): max|d| out {err:.3e} "
+        f"({bar}), lse {err_lse:.3e} ({err_lse / (1e-5 * scale_lse):.4f} of 1e-5 * max|lse|), "
+        "repeat bit-identical, ok")
+    row = dict(b=1, s=s, h=h, hkv=hkv, d=d, route=route, stripe_rows=STRIPE_ROWS, stripe_heads=2,
+               max_abs_err=max(err, err_lse), bar_used=used)
+    if route != "wgmma":
+        return row
+    ms = cuda_ms(lambda: flash_attention(q, k, v), reps=5, warmup=1)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(qs, ks, vs, q_offset=off), reps=5, warmup=1)
+    ke, ve = (t.repeat_interleave(h // hkv, dim=2) for t in (k, v))
+    library_ms = cuda_ms(lambda: _sdpa(q, ke, ve, None), reps=5, warmup=1)
+    flops, nbytes = _attention_work(1, s, h, hkv, d, q.element_size(), None)
+    bound_ms, bound_by = _bound(flops, nbytes, _peak(route))
+    say("dense", f"{label}: kernel {ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, "
+        f"{flops:.4g} FLOP, {nbytes / 1e6:.1f} MB; {bound_ms / ms:.3f} of it), SDPA with k and v "
+        f"expanded to {h} heads {library_ms:.3f} ms, plain on the stripe {plain_ms:.3f} ms")
+    row.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+               plain_stripe_ms=plain_ms)
+    return row
+
+
+def _b8_blocks(route, b, s, h, hkv):
+    """The blocks of B8's two launches: dq one a (query head, sequence, 128
+    query rows) on the bf16 route (``launch_bwd`` in csrc/flash_bwd_sm90.cuh),
+    64 on the float32 one (csrc/flash_attention_bwd.cu); dk/dv one a (KV
+    head, sequence, 128 or 64 keys) (``launch_dkv``)."""
+    tiles = -(-s // (128 if route == "wgmma" else 64))
+    return h * b * tiles, hkv * b * tiles
+
+
+def _b8_split(gen, label, b, s, h, hkv, d, dtype):
+    """(a): one B8 call on seeded inputs under the profiler
+    (``_kernel_us``): the device time of its dq kernel and of its dk/dv
+    kernel beside their block counts; "not measured" (None) where five
+    profiles recorded no device event of it (on an H100 the float32 call's
+    profiles once recorded none three times running)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+
+    q, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    out, lse = flash_attention(q, k, v)
+    parts = ("flash_bwd_dq_", "flash_bwd_dkv_")
+    times = _kernel_us(lambda: flash_attention_bwd(q, k, v, out, lse, do), parts,
+                       required=False)
+    dq_ms, dkv_ms = (sum(us for name, (_, us) in times.items() if p in name) / 1e3 or None
+                     for p in parts)
+    route = _route(dtype)
+    dq_blocks, dkv_blocks = _b8_blocks(route, b, s, h, hkv)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shown = [f"{t:.3f} ms" if t else "not measured (no device event recorded)"
+             for t in (dq_ms, dkv_ms)]
+    say("dense", f"flash_attention_bwd {label} B={b} S={s} H={h}/{hkv} {str(dtype)[6:]} "
+        f"({route}), one call profiled: dq kernel {shown[0]} on {dq_blocks} blocks, "
+        f"dk/dv kernel {shown[1]} on {dkv_blocks} blocks ({sms} SMs; each dk/dv block "
+        f"walks the {h // hkv} query heads of its KV head)")
+    return dict(dq_ms=dq_ms, dkv_ms=dkv_ms, dq_blocks=dq_blocks, dkv_blocks=dkv_blocks, sms=sms)
+
+
+def _dense_kernel_checks():
+    """(a): B7 at 1 x 32,768 for both head layouts on both routes; B8 at
+    granite's group of 48, a microbatch of (e) (2 x 4,096), on both routes
+    against its plain version per element, the bf16 call timed, both split
+    into their dq and dk/dv launches."""
+    import torch
+
+    from repro_torch.configs import registry
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    out = {"b7": {}, "b8": {}}
+    for name in (GRANITE, MISTRAL):
+        cfg = registry.get(name)
+        out["b7"][name] = {str(dtype)[6:]: _b7_long(gen, cfg, dtype)
+                           for dtype in (torch.bfloat16, torch.float32)}
+        torch.cuda.empty_cache()
+    cfg = registry.get(GRANITE)
+    b, s = DENSE_TRAIN[0] // TRAIN_MICRO, _seq("train_4k")
+    shape = (b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    for dtype in (torch.bfloat16, torch.float32):
+        label = f"{GRANITE} train, group of {cfg.n_heads // cfg.n_kv_heads}"
+        row = _b8_case(gen, label, *shape, dtype, timed=dtype == torch.bfloat16,
+                       repeat=True, tag="dense") or {}
+        torch.cuda.empty_cache()
+        row.update(_b8_split(gen, label, *shape, dtype))
+        out["b8"][str(dtype)[6:]] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def _seeded_caches(bundle, b, seq_len, seed):
+    """A dense model's decode cache of ``b`` x ``seq_len`` (a window's ring
+    slots under a sliding window), float32, every entry drawn from a seeded
+    normal in numpy and carried to the card and to the host by
+    ``interop.lm_cache_from_numpy``: (card, host)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.models import cache_specs
+
+    spec = cache_specs(bundle, b, seq_len, torch.float32)
+    rng = np.random.default_rng(seed)
+    leaves = [rng.standard_normal(tuple(t.shape), dtype=np.float32) for t in (spec.k, spec.v)]
+    return tuple(interop.lm_cache_from_numpy(bundle.cfg, leaves, device=dev)
+                 for dev in ("cuda", "cpu"))
+
+
+def _decode_at_end(label, bundle, params, host, b, seq_len, seed):
+    """(d): ``DENSE_DECODE_STEPS`` decode steps at ``seq_len``'s last
+    positions from one seeded cache, on the card and on the host; each
+    step's logits within 1e-4 of their largest entry on the host.  Returns
+    the worst ratio."""
+    import torch
+
+    from repro_torch.data import synthetic
+
+    card_cache, host_cache = _seeded_caches(bundle, b, seq_len, seed)
+    tokens = synthetic.lm_token_stream(bundle.cfg.vocab_size, DENSE_DECODE_STEPS, b, seed=seed)
+    first = seq_len - DENSE_DECODE_STEPS
+    worst = 0.0
+    for t in range(DENSE_DECODE_STEPS):
+        tok = torch.as_tensor(tokens[:, t:t + 1])
+        got, _ = bundle.decode(params, card_cache, tok.cuda(), first + t)
+        want, _ = bundle.decode(host, host_cache, tok, first + t)
+        rel = float((got.cpu() - want).abs().max() / want.abs().max())
+        worst = max(worst, rel)
+        check(bool(got.isfinite().all()) and rel <= 1e-4,
+              f"{label}, decode at {first + t}: card {rel:.3e} of max|logits| from the host "
+              "(bar 1e-4)")
+    say("dense", f"{label}: {DENSE_DECODE_STEPS} decode steps at positions {first:,}-"
+        f"{seq_len - 1:,}, B={b}, from a seeded cache of {card_cache.k.shape[2]:,} slots, card "
+        f"vs host, worst max|d| / max|logits| {worst:.3e} (bar 1e-4)")
+    return worst
+
+
+class _KVLog:
+    """Records the (k, v) each prefill ``attention_block`` call returns while
+    active (``transformer.layer_fwd`` looks it up in its module at each
+    call)."""
+
+    def __enter__(self):
+        from repro_torch.models import attention
+
+        self.mod, self.orig, self.kv = attention, attention.attention_block, []
+
+        def logged(*args, **kwargs):
+            out, kv = self.orig(*args, **kwargs)
+            self.kv.append(kv)
+            return out, kv
+
+        attention.attention_block = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.attention_block = self.orig
+
+
+def _ring_wrap(label, ring, params):
+    """(d): the ring's wrap.  1 x (4,096 + 64) seeded tokens: the ring of
+    4,096 slots filled with each layer's k and v from the windowed prefill
+    of the first 4,096 (slot = position), then the other 64 decoded one by
+    one, each writing slot ``pos % 4,096`` from slot 0 on; their logits
+    against those of the windowed prefill (B7 with ``window=4,096``) of all
+    4,160 at the reference's bar.  Returns the numbers."""
+    import torch
+
+    from repro_torch.data import synthetic
+    from repro_torch.models import transformer
+
+    cfg = ring.cfg
+    w = cfg.sliding_window
+    s = w + DENSE_RING_PAST
+    tokens = torch.as_tensor(synthetic.lm_token_stream(cfg.vocab_size, s, 1, seed=35),
+                             device="cuda")
+    _lm_zero()
+    with torch.inference_mode():
+        h = ring.forward(params, tokens)
+        want = transformer.logits(params, cfg, h[:, w:]).double()
+        with _KVLog() as log:
+            ring.forward(params, tokens[:, :w])
+    _lm_read(route="tf32x3", flash_attention=2 * cfg.n_layers)
+    cache = ring.init_cache(1, s, torch.float32, device="cuda")
+    check(cache.k.shape[2] == w and len(log.kv) == cfg.n_layers,
+          f"{label}: a ring of {cache.k.shape[2]} slots, {len(log.kv)} layers logged")
+    for i, (k, v) in enumerate(log.kv):
+        cache.k[i].copy_(k)
+        cache.v[i].copy_(v)
+    _lm_zero()
+    got = []
+    for t in range(w, s):
+        logits, cache = ring.decode(params, cache, tokens[:, t:t + 1], t)
+        got.append(logits[:, 0])
+    got = torch.stack(got, 1).double()
+    _lm_read(route="tf32x3")
+    d = (got - want).abs()
+    share = float((d / (DECODE_ATOL + DECODE_RTOL * want.abs())).max())
+    check(bool(got.isfinite().all()) and share <= 1.0,
+          f"{label}: the ring's decode past slot {w} is {float(d.max()):.3e} from the "
+          f"windowed prefill ({share:.3f} of the bar)")
+    say("dense", f"{label}: a ring of {w} slots filled from the windowed prefill of {w} "
+        f"tokens, then {DENSE_RING_PAST} decode steps at positions {w}-{s - 1} (slots 0-"
+        f"{DENSE_RING_PAST - 1}) against the windowed prefill of all {s} (B7 window={w}): "
+        f"max|d| {float(d.max()):.3e} (max|logits| {float(want.abs().max()):.3e}), "
+        f"{share:.4f} of the bar (atol {DECODE_ATOL} + rtol {DECODE_RTOL})")
+    return dict(tokens=s, slots=w, max_abs_err=float(d.max()), bar_used=share)
+
+
+def _dense_cut_checks(name, seed):
+    """(b) and (d) at the 2-layer cut, full width, float32: the forward and
+    the last-token logits card against host (1e-4 of their max); granite's
+    decode against its prefill (its full-width float32 weights, 112.7 GB, do
+    not fit); the decode_32k and long_500k decode steps card against host;
+    the ring's wrap; then the loss and every gradient leaf of 1 x 256 tokens
+    card against host (``_grad_agree``, as phase 23's)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import registry
+    from repro_torch.models import get_bundle
+
+    cfg, bundle, params = _lm_params(name, torch.float32, seed=seed, n_layers=DENSE_CUT)
+    host = pytree.tree_map(lambda t: t.cpu(), params)
+    out = {}
+    b, s = DENSE_AGREE
+    batch = _family_batch(cfg, b, s, seed)
+    host_batch = {"tokens": batch["tokens"].cpu()}
+    _lm_zero()
+    h_card, logits_card = (bundle.forward(params, batch["tokens"]).cpu(),
+                           bundle.prefill(params, batch).cpu())
+    _lm_read(route="tf32x3", flash_attention=2 * cfg.n_layers)
+    t0 = time.perf_counter()
+    h_host, logits_host = (bundle.forward(host, host_batch["tokens"]),
+                           bundle.prefill(host, host_batch))
+    host_s = time.perf_counter() - t0
+    (err_h, scale_h), (err_l, scale_l) = (
+        _agree(f"{name} cut, hidden states card vs host", h_card, h_host, 1e-4),
+        _agree(f"{name} cut, last-token logits card vs host", logits_card, logits_host, 1e-4))
+    say("dense", f"{name} cut to {cfg.n_layers} layers, float32, {b} x {s} tokens, card vs host: "
+        f"max|d| h {err_h:.3e} ({err_h / (1e-4 * scale_h):.4f} of 1e-4 * max|h|), last-token "
+        f"logits {err_l:.3e} ({err_l / (1e-4 * scale_l):.4f} of 1e-4 * max|logits|); host "
+        f"forward and prefill {host_s:.1f} s, ok")
+    out["forward"] = dict(max_abs_err_h=err_h, max_abs_h=scale_h, max_abs_err_logits=err_l,
+                          max_abs_logits=scale_l)
+    if name == GRANITE:
+        out["vs_prefill"], _ = _decode_vs_prefill(
+            f"{name} cut to {cfg.n_layers} layers (d)", bundle, params, DECODE_S, seed,
+            dict(flash_attention=cfg.n_layers))
+    out["decode_32k"] = _decode_at_end(f"{name} cut, decode_32k", bundle, params, host, 1,
+                                       _seq("decode_32k"), seed)
+    ring = get_bundle(registry.for_shape(cfg, registry.SHAPES["long_500k"]))
+    out["long_500k"] = _decode_at_end(f"{name} cut, long_500k (window "
+                                      f"{ring.cfg.sliding_window})", ring, params, host, 1,
+                                      _seq("long_500k"), seed + 1)
+    out["ring_wrap"] = _ring_wrap(f"{name} cut, long_500k's ring", ring, params)
+    del params, host
+    _free()
+    out["gradients"] = _grad_agree(name, seed + 2, {"n_layers": DENSE_CUT}, DENSE_AGREE[1],
+                                   tag="dense")
+    return out
+
+
+def _split_profile(label, run, attempts=3):
+    """One profiled run: its wall time and the device time of B7, of
+    cuBLAS's GEMM kernels and of the rest.  A profile that recorded no B7
+    kernel is taken again with the next of ``PROFILE_PADS_S``
+    (``_profile_padded``), ``attempts`` times in all, and after that the
+    split is "not measured" (None).  Returns what ``run`` returns and the
+    times."""
+    import torch
+
+    for pad in PROFILE_PADS_S[:attempts]:
+        prof, out, wall = _profile_padded(run, pad)
+        averages = prof.key_averages()
+        key = _device_time_key(averages)
+        kernels = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.key != "Command Buffer Full"]
+        b7 = sum(getattr(e, key) for e in kernels if "flash_fwd_" in e.key)
+        if b7 > 0:
+            break
+    if b7 == 0:
+        say("profile", f"{label}: wall {wall * 1e3:.1f} ms; device split not measured (no B7 "
+            f"kernel recorded in {attempts} profiles)")
+        return out, {"wall_ms": wall * 1e3, "busy_ms": None, "B7 ms": None,
+                     "GEMM (cuBLAS) ms": None, "rest ms": None}
+    total = sum(getattr(e, key) for e in kernels)
+    gemm = sum(getattr(e, key) for e in kernels
+               if any(p in e.key for p in ("gemm", "xmma", "nvjet", "cutlass")))
+    parts = {"B7": b7, "GEMM (cuBLAS)": gemm, "rest": total - b7 - gemm}
+    say("profile", f"{label}: wall {wall * 1e3:.1f} ms, device busy {total / 1e3:.1f} ms "
+        f"({100 * total / 1e6 / wall:.1f} %); device time: "
+        + ", ".join(f"{k} {t / 1e3:.1f} ms ({100 * t / max(total, 1):.1f} %)"
+                    for k, t in parts.items()))
+    return out, dict(wall_ms=wall * 1e3, busy_ms=total / 1e3,
+                     **{f"{k} ms": t / 1e3 for k, t in parts.items()})
+
+
+def _dense_prefill(name, cfg, bundle, params):
+    """(c): prefill_32k at full width and depth, bf16, its batch of 32 cut to
+    1: one prefill under the profiler (B7 against the GEMMs against the
+    rest; a device-only trace cost 0.4 % of the wall time in a chip run,
+    8,336.5 against 8,300.7 ms untraced): B7 once a layer on ``"wgmma"``,
+    finite logits [1, 1, V], tokens/s, peak memory.  Returns the launches
+    and numbers."""
+    import torch
+
+    s = _seq("prefill_32k")
+    batch = _family_batch(cfg, 1, s, seed=12)
+    torch.cuda.reset_peak_memory_stats()
+
+    def prefill():
+        _lm_zero()  # the launches of the profile taken
+        return bundle.prefill(params, batch)
+
+    logits, profile = _split_profile(f"{name} bf16 prefill 1 x {s:,}", prefill)
+    ms = profile["wall_ms"]
+    launches = _lm_read(flash_attention=cfg.n_layers)
+    check(tuple(logits.shape) == (1, 1, cfg.vocab_size) and bool(logits.isfinite().all()),
+          f"{name} prefill_32k logits: shape {tuple(logits.shape)} or not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say("dense", f"{name} bf16 prefill_32k, B=1 (of 32) x {s:,} tokens, {cfg.n_layers} layers: "
+        f"{ms:.1f} ms ({s / ms * 1e3:.0f} tokens/s), launches {launches} (all wgmma), logits "
+        f"finite; peak {peak:.1f} GiB")
+    return launches, dict(ms=ms, tokens_per_s=s / ms * 1e3, b=1, s=s, peak_gib=peak,
+                          profile=profile)
+
+
+def _dense_decode_speed(label, bundle, params, b, seq_len, seed):
+    """(d): bf16 decode at full width against a cache of ``b`` x
+    ``seq_len`` (a ring of the window's slots under a sliding window) filled
+    from a seeded generator: one warm-up step, then ``DENSE_DECODE_STEPS``
+    steps at the last positions timed on the host clock (ending in a
+    synchronize); no kernel launch, finite logits.  Returns the numbers."""
+    import torch
+
+    from repro_torch.data import synthetic
+
+    cfg = bundle.cfg
+    cache = bundle.init_cache(b, seq_len, torch.bfloat16, device="cuda")
+    slots = cache.k.shape[2]
+    want = min(seq_len, cfg.sliding_window or seq_len)
+    check(slots == want, f"{label}: init_cache({b}, {seq_len:,}) holds {slots:,} slots, "
+          f"expected {want:,}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for t in (cache.k, cache.v):
+        for layer in t:
+            layer.normal_(generator=gen)
+    tokens = torch.as_tensor(synthetic.lm_token_stream(cfg.vocab_size, DENSE_DECODE_STEPS + 1,
+                                                       b, seed=seed), device="cuda")
+    first = seq_len - DENSE_DECODE_STEPS
+    _lm_zero()
+    bundle.decode(params, cache, tokens[:, :1], first - 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(DENSE_DECODE_STEPS):
+        logits, cache = bundle.decode(params, cache, tokens[:, t + 1:t + 2], first + t)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / DENSE_DECODE_STEPS * 1e3
+    _lm_read()
+    check(tuple(logits.shape) == (b, 1, cfg.vocab_size) and bool(logits.isfinite().all()),
+          f"{label}: logits {tuple(logits.shape)} or not finite")
+    cache_gib = 2 * cache.k.numel() * cache.k.element_size() / 2**30
+    say("dense", f"{label}: bf16, B={b}, a cache of {slots:,} slots ({cache_gib:.2f} GiB) at "
+        f"positions {first:,}-{seq_len - 1:,}: {ms:.2f} ms/token ({b / ms * 1e3:.1f} tokens/s), "
+        "logits finite, no kernel launch")
+    return dict(b=b, slots=slots, cache_gib=cache_gib, ms_per_token=ms,
+                tokens_per_s=b / ms * 1e3)
+
+
+def _dense_mistral_cli() -> dict:
+    """(f): the serve CLI's LM mode for mistral-nemo-12b, float32, its
+    defaults (B = 4, 32 prompt + 16 generated tokens), as a process."""
+    lines = _finish_cli_runs(_start_cli_runs([["--arch", MISTRAL]]))[f"--arch {MISTRAL}"]
+    m = re.fullmatch(r"prefill (\S+)s; decode (\S+) ms/token", lines[2]) \
+        if len(lines) == 4 else None
+    check(m is not None, f"serve CLI --arch {MISTRAL}: printed {lines}")
+    say("dense", f"serve CLI --arch {MISTRAL} (float32, 49.0 GB of weights, B=4): decode "
+        f"{m.group(2)} ms/token; --arch {GRANITE}'s float32 weights (112.7 GB) do not fit one "
+        "card: its CLI runs --reduced on the host (tests/test_torch_serve_cli.py)")
+    return dict(lines=lines, prefill_s=float(m.group(1)), decode_ms_per_token=float(m.group(2)))
+
+
+def phase_dense_variants(card) -> dict:
+    """Phase 25 (see the module docstring).  Returns the phase's numbers."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import get_bundle
+
+    t_phase = time.perf_counter()
+    _free()
+    say("dense", f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held by earlier phases")
+    out = {"cli": _dense_mistral_cli()}
+    t_cli = time.perf_counter()
+    out.update(_dense_kernel_checks())
+    say("dense", f"(f) took {t_cli - t_phase:.1f} s, (a) {time.perf_counter() - t_cli:.1f} s")
+    launches = {"prefill_32k": {}, "train": {}}
+    for name, seed in ((GRANITE, 81), (MISTRAL, 85)):
+        t0 = time.perf_counter()
+        row = {}
+        if name == MISTRAL:  # (d) decode against prefill at full width, float32 (49.0 GB)
+            cfg, bundle, params = _lm_params(name, torch.float32, seed=seed)
+            row["vs_prefill"], _ = _decode_vs_prefill(
+                f"{name} (d)", bundle, params, DECODE_S, seed, dict(flash_attention=cfg.n_layers))
+            del params
+            _free()
+        row["cut"] = _dense_cut_checks(name, seed)
+        cfg, bundle, params = _lm_params(name, torch.bfloat16, seed=seed + 3)
+        launches["prefill_32k"][name], row["prefill_32k"] = _dense_prefill(name, cfg, bundle,
+                                                                           params)
+        row["decode_32k"] = _dense_decode_speed(f"{name} decode_32k", bundle, params,
+                                                DENSE_DECODE_B[name], _seq("decode_32k"), seed)
+        ring = get_bundle(registry.for_shape(cfg, registry.SHAPES["long_500k"]))
+        row["long_500k"] = _dense_decode_speed(
+            f"{name} long_500k (window {ring.cfg.sliding_window})", ring, params,
+            registry.SHAPES["long_500k"].global_batch, _seq("long_500k"), seed + 1)
+        del params
+        _free()
+        launches["train"][name], row["train"] = _train_steps(
+            name, card, DENSE_TRAIN[0], _seq("train_4k"), {"n_layers": DENSE_CUT}, seed=seed + 4,
+            tag="dense", steps=DENSE_TRAIN[1], lr=DENSE_TRAIN_LR)[-2:]
+        _free()
+        row["seconds"] = time.perf_counter() - t0
+        out[name] = row
+        say("dense", f"{name} took {row['seconds']:.1f} s")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    say("dense", f"phase 25 took {out['seconds']:.1f} s on {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 23. the encoder-decoder and the training of the VLM, MoE and
 # encoder-decoder families: B7 and B8 without the causal mask, B8 at MLA's
 # (192, 128), whisper-tiny's encode, decode and serve CLI, gradients card
@@ -6520,6 +7106,7 @@ def phase_stripe_kernels(card) -> list:
 
 
 LM_MESH_RANK_TIMEOUT_S = 420
+LM_MESH_WORLD = 4  # the phase's gloo rank processes: the largest case's mesh
 # (b) head-parallel with FSDP, (c) sequence-parallel: arch, mesh, global
 # batch, sequence, steps; the one-process witness splits its batch in two
 # microbatches (the ranks take one), the same mean in another grouping
@@ -6713,15 +7300,53 @@ def _hold_to_witness(rank, kind, leaves, witness, flat_specs, mesh, worst) -> No
     check(not over, f"rank {rank}: {len(over)} leaves over their bar: " + "; ".join(over))
 
 
-def lm_mesh_rank(rank: int, mesh_dir: str) -> int:
-    """``python chip_smoke.py --lm-mesh-rank RANK DIR``: one gloo rank of the
-    lm-mesh phase's (b) or (c) (DIR/case.json), its group from a
-    ``FileStore`` in DIR.  It trains its slices and holds them to the
-    one-process witness's tensors, shared from the phase's process by CUDA
-    IPC (DIR/witness{RANK}.pkl): the step-1 gradients at the first update (then
-    DIR/step1.RANK; the phase frees the witness's gradients and writes
-    DIR/freed before the rank goes on), the parameters and moments after
-    the last step; it writes DIR/rank{RANK}.json."""
+def _put(path, text) -> None:
+    """Write ``text`` to ``path`` whole: a reader polling for ``path`` never
+    sees it half written."""
+    import os
+
+    part = Path(f"{path}.part")
+    part.write_text(text)
+    os.replace(part, path)
+
+
+def lm_mesh_rank(rank: int, root: str) -> int:
+    """``python chip_smoke.py --lm-mesh-rank RANK ROOT``: one gloo rank of
+    the lm-mesh phase, started once for all its cases.  For k = 0, 1, ...
+    it waits for ROOT/go{k}: "stop" ends it; "run" runs the case in
+    ROOT/case{k} (``_lm_mesh_rank_case``) where RANK is inside the case's
+    mesh, frees what it held and writes ROOT/case{k}/rank{RANK}.json."""
+    import gc
+
+    import torch
+
+    k = 0
+    while True:
+        go = Path(root, f"go{k}")
+        _wait_for(go)
+        if go.read_text() == "stop":
+            return 0
+        case_dir = Path(root, f"case{k}")
+        case = json.loads(Path(case_dir, "case.json").read_text())
+        if rank < math.prod(case["mesh"]):
+            result = _lm_mesh_rank_case(rank, str(case_dir))
+            # every witness tensor this rank opened is released before the
+            # phase, seeing the result, frees the witness
+            gc.collect()
+            torch.cuda.empty_cache()
+            _put(case_dir / f"rank{rank}.json", json.dumps(result))
+        k += 1
+
+
+def _lm_mesh_rank_case(rank: int, mesh_dir: str) -> dict:
+    """One case of the lm-mesh phase's (b), (c) or (e) on gloo rank
+    ``rank`` (DIR/case.json), its group from a ``FileStore`` in DIR.  It
+    trains its slices and holds them to the one-process witness's tensors,
+    shared from the phase's process by CUDA IPC (DIR/witness{RANK}.pkl):
+    the step-1 gradients at the first update (then DIR/step1.RANK; the
+    phase frees the witness's gradients and writes DIR/freed before the
+    rank goes on), the parameters and moments after the last step.
+    Returns its losses, times, launches, peak and shares of the bars."""
     import os
     import pickle
 
@@ -6821,21 +7446,76 @@ def lm_mesh_rank(rank: int, mesh_dir: str) -> int:
                       peak_gb=peak_gb, worst=worst)
     finally:
         torch.distributed.destroy_process_group()
-    Path(mesh_dir, f"rank{rank}.json").write_text(json.dumps(result))
-    return 0
+    return result
 
 
-def _lm_mesh_case(name, case, card) -> dict:
-    """(b), (c) or (e) of the lm-mesh phase: the one-process witness on the
-    card (the MoE dispatch masks of a forward first), then the case's gloo
-    ranks sharing it, each holding its dispatch masks to the witness's bit
-    for bit, its slices of the step-1 gradients and of the parameters and
-    Adam moments after the last step (a ``grads`` case: of one loss's
-    gradients) to the witness's within 1e-4 of the leaf's largest entry,
-    and its loss to the witness's at ``TOLS``."""
+def _start_lm_mesh_ranks(root) -> dict:
+    """The lm-mesh phase's ``LM_MESH_WORLD`` gloo rank processes
+    (``lm_mesh_rank``), started once for all its cases, each logging to
+    ROOT/rank{R}.log."""
     import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), LOCAL_RANK="0",
+               OMP_NUM_THREADS="2", PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    logs = [open(Path(root, f"rank{r}.log"), "w+") for r in range(LM_MESH_WORLD)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--lm-mesh-rank",
+                               str(r), str(root)], cwd=ROOT, env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(LM_MESH_WORLD)]
+    return {"root": root, "procs": procs, "logs": logs, "cases": 0, "said": 0}
+
+
+def _lm_mesh_tails(pool) -> list[str]:
+    """Each rank's log so far."""
+    out = []
+    for log in pool["logs"]:
+        log.flush()
+        log.seek(0)
+        out.append(log.read())
+    return out
+
+
+def _lm_mesh_say_rank0(pool) -> None:
+    """Print rank 0's ``[lm-mesh]`` lines that are not printed yet."""
+    lines = _lm_mesh_tails(pool)[0].splitlines()
+    for line in lines[pool["said"]:]:
+        if line.startswith("[lm-mesh]"):
+            print(line, flush=True)
+    pool["said"] = len(lines)
+
+
+def _stop_lm_mesh_ranks(pool, ok: bool) -> None:
+    """Tell the ranks to end and wait for them (``ok``: each must exit 0),
+    or, after a failure, kill them; close their logs."""
+    procs = pool["procs"]
+    try:
+        if ok:
+            _put(Path(pool["root"], f"go{pool['cases']}"), "stop")
+            for p in procs:
+                p.wait(timeout=LM_MESH_RANK_TIMEOUT_S)
+            errs = _lm_mesh_tails(pool)
+            for r, (p, err) in enumerate(zip(procs, errs, strict=True)):
+                check(p.returncode == 0, f"lm-mesh: gloo rank {r} exited {p.returncode}: "
+                      f"{err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in pool["logs"]:
+            log.close()
+
+
+def _lm_mesh_case(name, case, card, pool) -> dict:
+    """(b), (c) or (e) of the lm-mesh phase: the one-process witness on the
+    card (the MoE dispatch masks of a forward first), then the first
+    ``world`` of the phase's gloo ranks (``_start_lm_mesh_ranks``) sharing
+    it, each holding its dispatch masks to the witness's bit for bit, its
+    slices of the step-1 gradients and of the parameters and Adam moments
+    after the last step (a ``grads`` case: of one loss's gradients) to the
+    witness's within 1e-4 of the leaf's largest entry, and its loss to the
+    witness's at ``TOLS``."""
     import pickle
-    import tempfile
 
     import numpy as np
     import torch
@@ -6879,70 +7559,41 @@ def _lm_mesh_case(name, case, card) -> dict:
                         for p, t in leaves.items()} for kind, leaves in witness.items()}
     torch.cuda.synchronize()
     say("lm-mesh", f"{name}: the witness holds its tensors: {_mem()}")
-    with tempfile.TemporaryDirectory() as tmp:
-        Path(tmp, "case.json").write_text(json.dumps(case))
-        for i, d in enumerate(dispatches):
-            np.save(os.path.join(tmp, f"dispatch{i}.npy"), d)
+    k = pool["cases"]
+    pool["cases"] += 1
+    case_dir = Path(pool["root"], f"case{k}")
+    case_dir.mkdir()
+    Path(case_dir, "case.json").write_text(json.dumps(case))
+    for i, d in enumerate(dispatches):
+        np.save(case_dir / f"dispatch{i}.npy", d)
+    for r in range(world):
+        # one handle a tensor and rank: each carries the reference count
+        # its one receiver releases, so the blocks free once all are done
+        handles = {kind: {p: reduce_tensor(t.detach()) for p, t in leaves.items()}
+                   for kind, leaves in witness.items()}
+        with open(case_dir / f"witness{r}.pkl", "wb") as f:
+            pickle.dump({"handles": handles, "scale": scale}, f)
+    del handles
+    procs = pool["procs"]
+    t0 = time.perf_counter()
+    _put(Path(pool["root"], f"go{k}"), "run")
+    try:
+        # the ranks hold their step-1 gradients to the witness's, which
+        # are then freed to make room for the ranks' later steps
         for r in range(world):
-            # one handle a tensor and rank: each carries the reference count
-            # its one receiver releases, so the blocks free once all are done
-            handles = {kind: {p: reduce_tensor(t.detach()) for p, t in leaves.items()}
-                       for kind, leaves in witness.items()}
-            with open(os.path.join(tmp, f"witness{r}.pkl"), "wb") as f:
-                pickle.dump({"handles": handles, "scale": scale}, f)
-        del handles
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), LOCAL_RANK="0",
-                   OMP_NUM_THREADS="2", PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-        t0 = time.perf_counter()
-        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(world)]
-        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
-                                   "--lm-mesh-rank", str(r), tmp], cwd=ROOT, env=env,
-                                  stdout=logs[r], stderr=subprocess.STDOUT, text=True)
-                 for r in range(world)]
-        def tails():
-            out = []
-            for log in logs:
-                log.flush()
-                log.seek(0)
-                out.append(log.read())
-            return out
-
-        try:
-            # the ranks hold their step-1 gradients to the witness's, which
-            # are then freed to make room for the ranks' later steps
-            try:
-                for r in range(world):
-                    _wait_for(Path(tmp, f"step1.{r}"), procs)
-            except SmokeFailure as e:
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-                        p.wait()
-                raise SmokeFailure(f"{e}; rank logs: " + " | ".join(
-                    f"rank {r}: {t[-1500:]}" for r, t in enumerate(tails()))) from e
-            del witness["grads"]
-            torch.cuda.ipc_collect()
-            torch.cuda.empty_cache()
-            Path(tmp, "freed").touch()
-            for p in procs:
-                p.wait(timeout=LM_MESH_RANK_TIMEOUT_S)
-            errs = tails()
-            for log in logs:
-                log.close()
-            for line in errs[0].splitlines():
-                if line.startswith("[lm-mesh]"):
-                    print(line, flush=True)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        wall_s = time.perf_counter() - t0
-        for r, (p, err) in enumerate(zip(procs, errs, strict=True)):
-            check(p.returncode == 0, f"lm-mesh {name}: gloo rank {r} exited {p.returncode}: "
-                  f"{err[-3000:]}")
-        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
-                 for r in range(world)]
+            _wait_for(case_dir / f"step1.{r}", procs)
+        del witness["grads"]
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+        Path(case_dir, "freed").touch()
+        for r in range(world):
+            _wait_for(case_dir / f"rank{r}.json", procs)
+    except SmokeFailure as e:
+        raise SmokeFailure(f"{e}; rank logs: " + " | ".join(
+            f"rank {r}: {t[-1500:]}" for r, t in enumerate(_lm_mesh_tails(pool)))) from e
+    wall_s = time.perf_counter() - t0
+    _lm_mesh_say_rank0(pool)
+    ranks = [json.loads(Path(case_dir, f"rank{r}.json").read_text()) for r in range(world)]
     del witness, params, state, kept
     torch.cuda.ipc_collect()  # the blocks the ranks mapped, freed once they have exited
     _free()
@@ -7002,16 +7653,25 @@ def phase_lm_mesh(card) -> dict:
     ``q_offset`` at qwen2-1.5b's stripes, (b) qwen3-1.7b at full width on
     four gloo ranks at data 2 x model 2, (c) qwen2-1.5b's sequence-parallel
     route at data 1 x model 4, (e) one case of each other family, (d) the
-    CLI on one card."""
+    CLI on one card.  (b), (c) and (e) share one set of rank processes."""
+    import tempfile
+
     import torch
 
     t0 = time.perf_counter()
     say("lm-mesh", f"at the start: {_mem()}")
     out = {"card": card, "stripes": phase_stripe_kernels(card)}
     t_a = time.perf_counter()
-    for name, case in LM_MESH_CASES.items():
-        out[name] = _lm_mesh_case(name, case, card)
-        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        pool = _start_lm_mesh_ranks(root)
+        ok = False
+        try:
+            for name, case in LM_MESH_CASES.items():
+                out[name] = _lm_mesh_case(name, case, card, pool)
+                torch.cuda.empty_cache()
+            ok = True
+        finally:
+            _stop_lm_mesh_ranks(pool, ok)
     t_bc = time.perf_counter()
     out["cli"] = _lm_mesh_cli(card)
     say("lm-mesh", f"(a) took {t_a - t0:.1f} s, (b), (c) and (e) {t_bc - t_a:.1f} s, (d) "
@@ -7071,6 +7731,7 @@ def main() -> int:
         analysis_numbers = phase_analysis(cfg, fleet_data_d, comparison_numbers)
         decode_numbers = phase_decode(card)
         family_numbers = phase_families(card)
+        dense_numbers = phase_dense_variants(card)
         encdec_numbers = phase_encdec_training(card)
         ssm_numbers = phase_ssm_training(card)
     except SmokeFailure as e:
@@ -7229,6 +7890,13 @@ def main() -> int:
             # in one step of the lm-mesh phase's (c) (14 layers, forward and remat).
             "q_offset": {"lm_mesh_launches": lm_mesh_numbers[LM_MESH_SEQ]["launches_per_rank"][
                 "flash_attention"], **_stripe_rows(lm_mesh_numbers, "flash_attention")},
+            # granite-20b (48 query heads over one KV head) and mistral-nemo-12b
+            # (32 over 8) at 1 x 32,768 on both routes, the plain version on
+            # a stripe; prefill_32k_launches: one bf16 prefill_32k of each.
+            "dense_variants": {
+                "prefill_32k_launches": {name: n["flash_attention"] for name, n in
+                                         dense_numbers["launches"]["prefill_32k"].items()},
+                "s32768": dense_numbers["b7"]},
             # The float32 route (3xTF32 wgmma), per launch at qwen3's train
             # shape (2 x 2,048, 16/8 heads of 128, float32); lm_mesh_launches:
             # a rank's over the two steps of the lm-mesh phase's (b) (14
@@ -7265,6 +7933,13 @@ def main() -> int:
             # in one step of the lm-mesh phase's (c) (14 layers).
             "q_offset": {"lm_mesh_launches": lm_mesh_numbers[LM_MESH_SEQ]["launches_per_rank"][
                 "flash_attention_bwd"], **_stripe_rows(lm_mesh_numbers, "flash_attention_bwd")},
+            # granite-20b's group of 48 (2 x 4,096, one KV head) on both routes,
+            # with its dq and dk/dv launches' device times and blocks;
+            # launches_per_train_step: the 2-layer cuts' bf16 steps.
+            "dense_variants": {
+                "group_48": dense_numbers["b8"],
+                "launches_per_train_step": {name: dense_numbers[name]["train"]["b8_per_step"]
+                                            for name in (GRANITE, MISTRAL)}},
             # The float32 route (3xTF32 wgmma), per call at the train shape in
             # float32; lm_mesh_launches: a rank's over the two steps of (b).
             "float32_tf32x3": {
@@ -7320,6 +7995,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh_numbers}))
     print(json.dumps({"ssm_training": ssm_numbers}))
     print(json.dumps({"encdec_training": encdec_numbers}))
+    print(json.dumps({"dense_variants": dense_numbers}))
     print(json.dumps({"families": family_numbers}))
     print(json.dumps({"decode": decode_numbers}))
     print(json.dumps({"comparison": comparison_numbers}))

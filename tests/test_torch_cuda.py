@@ -1701,3 +1701,97 @@ def test_analysis_donation_reports_are_effective(card):
     from repro_torch.analysis.__main__ import donation_reports
 
     assert [r.ok for r in donation_reports("cuda")] == [True, True]
+
+
+# granite-20b and mistral-nemo-12b (chip_smoke.py phase 25), smaller: their
+# quirks at a reduced width (tests/test_torch_dense_variants.py's configs)
+DENSE_VARIANTS = {"granite": ("granite-20b", dict(n_heads=8, n_kv_heads=1, head_dim=32)),
+                  "mistral": ("mistral-nemo-12b", dict(n_heads=4, n_kv_heads=2, head_dim=48))}
+
+
+def test_rope_on_card_is_the_hosts(card):
+    """RoPE's inverse frequencies of every registry architecture and of the
+    reduced variants bit for bit the host's (float64, rounded once; head
+    sizes 48 and 1,536 are not powers of two, where the card's float32
+    quotient by a scalar is an ulp off), and ``apply_rope`` up to position
+    524,287 within a few float32 ulps of the host's (each side's sin and
+    cos of angles of ~5e5 rad)."""
+    pairs = {(c.head_dim, c.rope_theta) for c in registry.ARCHS.values()}
+    for head_dim, theta in sorted(pairs | {(32, 1e4), (48, 1e6)}):
+        got = common.rope_frequencies(head_dim, theta, card)
+        assert torch.equal(got.cpu(), common.rope_frequencies(head_dim, theta)), head_dim
+    x = torch.randn((2, 8, 4, 128), generator=torch.Generator().manual_seed(5))
+    pos = torch.tensor([0, 63, 4_095, 32_767, 131_071, 524_280, 524_286, 524_287])
+    got = common.apply_rope(x.to(card), pos.to(card), 1e6).cpu()
+    assert float((got - common.apply_rope(x, pos, 1e6)).abs().max()) <= 2e-6
+
+
+def test_stacked_bf16_init_on_card_holds_no_float32_copy(card):
+    """A stacked leaf drawn in bf16 takes its own bytes and one float32
+    layer slice at most, not a float32 copy of the stack (granite-20b's bf16
+    init on one 80 GB card needs it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    w = common.dense_init(torch.Generator(device=card).manual_seed(0), (1_024, 4_096),
+                          torch.bfloat16, lead=(8,))
+    torch.cuda.synchronize()
+    slice_bytes = 1_024 * 4_096 * 4
+    assert w.dtype == torch.bfloat16 and w.shape == (8, 1_024, 4_096)
+    assert torch.cuda.max_memory_allocated() - base <= w.numel() * 2 + slice_bytes + 2**20
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dense_variant_attention_matches_plain(card, dtype):
+    """B8 at granite-20b's group of 48 query heads over one KV head (1 x
+    1,024), per element against its plain version; B7 at 1 x 32,768 with
+    mistral-nemo's 32 query heads over 8 on the stripe of the last 512 query
+    rows of two query heads (``q_offset``), under the bars of the tests
+    above (bf16: one ulp an element; float32 1e-5 of max(1, max|ref|))."""
+    gen = torch.Generator(device=card).manual_seed(48)
+    q, do = (_randn((1, 1_024, 48, 128), gen, card, dtype) for _ in range(2))
+    k, v = (_randn((1, 1_024, 1, 128), gen, card, dtype) for _ in range(2))
+    out, lse = flash_attention(q, k, v)
+    got = flash_attention_bwd(q, k, v, out, lse, do)
+    _assert_bwd_close(got, flash_attention_bwd_ref(q, k, v, out, lse, do),
+                      flash_attention_bwd_magnitudes(q, k, v, out, lse, do))
+    s, rows = 32_768, 512
+    q = _randn((1, s, 32, 128), gen, card, dtype)
+    k, v = (_randn((1, s, 8, 128), gen, card, dtype) for _ in range(2))
+    out, lse = flash_attention(q, k, v)
+    ref, ref_lse = flash_attention_ref(q[:, -rows:, 30:], k[:, :, 7:], v[:, :, 7:],
+                                       q_offset=s - rows)
+    diff = (out[:, -rows:, 30:].float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        assert bool((diff <= 2.0**-7 * ref.float().abs() + 2.0**-7 * 1e-2).all())
+    else:
+        assert float(diff.max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
+    assert float((lse[:, 30:, -rows:] - ref_lse).abs().max()) <= \
+        1e-5 * float(ref_lse.abs().max())
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_VARIANTS))
+def test_dense_variant_long_decode_on_card_matches_host(card, case):
+    """chip_smoke.py phase 25 (d) at a reduced width: long_500k's
+    sliding-window variant (the window cut to 16) from one seeded ring, 8
+    decode steps at positions 524,280-524,287 on the card and on the host,
+    each step's logits within 1e-4 of their largest entry."""
+    name, changes = DENSE_VARIANTS[case]
+    shape = registry.SHAPES["long_500k"]
+    cfg = dataclasses.replace(registry.for_shape(registry.get(name).reduced(), shape),
+                              sliding_window=16, **changes)
+    bundle = get_bundle(cfg)
+    params = bundle.init(0, device="cpu")
+    card_params = _tree_to(params, card)
+    host_cache = bundle.init_cache(2, shape.seq_len, torch.float32, device="cpu")
+    assert host_cache.k.shape[2] == 16
+    gen = torch.Generator().manual_seed(3)
+    for t in (host_cache.k, host_cache.v):
+        t.normal_(generator=gen)
+    card_cache = type(host_cache)(host_cache.k.to(card), host_cache.v.to(card))
+    tokens = torch.as_tensor(synthetic.lm_token_stream(cfg.vocab_size, 8, 2, seed=2))
+    for t in range(8):
+        pos = shape.seq_len - 8 + t
+        host, host_cache = bundle.decode(params, host_cache, tokens[:, t:t + 1], pos)
+        got, card_cache = bundle.decode(card_params, card_cache, tokens[:, t:t + 1], pos)
+        assert float((got.cpu() - host).abs().max()) <= 1e-4 * float(host.abs().max()), pos

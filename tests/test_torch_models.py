@@ -37,7 +37,8 @@ from repro_torch.configs import registry
 from repro_torch.data import synthetic
 from repro_torch.models import common, get_bundle, mamba2
 
-ARCHS = {"qwen3-1.7b": 48, "mamba2-780m": 64, "recurrentgemma-9b": 96}
+ARCHS = {"qwen3-1.7b": 48, "mamba2-780m": 64, "recurrentgemma-9b": 96, "granite-20b": 48,
+         "mistral-nemo-12b": 48}
 _JMOD = {"dense": jtransformer, "ssm": jmamba2, "hybrid": jrglru}
 
 

@@ -150,7 +150,7 @@ def test_modes_run_on_the_host(argv, ok, capsys):
 
 
 LM_ARCHS = ("qwen3-1.7b", "mamba2-780m", "recurrentgemma-9b", "internvl2-2b",
-            "qwen2-moe-a2.7b")
+            "qwen2-moe-a2.7b", "granite-20b", "mistral-nemo-12b")
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
